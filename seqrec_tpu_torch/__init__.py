@@ -9,7 +9,11 @@ find:
 - `ops.reference`: plain PyTorch versions of the hot ops (the oracle and the
   CPU path); `ops.cuda.*`: hand-written Hopper kernels (CUDA C++ in `csrc/`,
   built with nvcc at first use, bound with ctypes); `ops.dispatch` picks;
-- `models`: `SeqRecModel`, `RNNTower`, and `convert` (JAX params -> state_dict);
+- `models`: `SeqRecModel` (serving methods and every training loss),
+  `RNNTower`, and `convert` (JAX params -> state_dict);
+- `data.negative`: the negative samplers, drawn on the device;
+- `train`: `TrainState`, the optax-equivalent optimizer and schedules, and
+  `Trainer.train_step` / `train_step_multi`: the training step;
 - `eval.infer.recommend` and the `recommend` CLI: the serving path.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`.

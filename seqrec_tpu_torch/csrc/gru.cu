@@ -31,6 +31,31 @@
 // x[t+1] is copied to shared memory with cp.async while step t computes.
 // Weights are read once per k and reused across the R rows held in
 // registers; products are plain f32 FMAs (no tensor cores yet).
+//
+// Backward (seqrec_gru_backward): the reverse recurrence of the analytic
+// BPTT. Replaces the `lax.scan(step, ..., reverse=True)` inside
+// seqrec_tpu/ops/pallas/gru.py::_gru_bwd_math (the TPU package's backward
+// runs it as XLA ops; its hoisted products stay outside, here as
+// torch.matmul). Given the recomputed gate planes r, z, n, hn [B, T, H] f32,
+// the consumed states h_in and the output cotangents g_ys [B, T, H], per step
+// t = T-1 .. 0 with an f32 carry dh_next:
+//   dh = dh_next + g_y
+//   dpre_n = dh (1-z) (1-n^2),  dpre_z = dh (h_in-n) z (1-z),
+//   dpre_r = dpre_n hn r (1-r)
+//   d_xp[t] = [dpre_r | dpre_z | dpre_n]                      (written, f32)
+//   d_hproj = [dpre_r | dpre_z | dpre_n r]
+//   dh_next = dh z + d_hproj @ W_h^T
+// What bounds it: as the forward, the 200-step serial chain; the bytes
+// (four f32 gate planes, h_in, g_ys, d_xp: ~105 MB at B=128, T=200, H=128
+// in bf16) are ~31 us and the operations ~2.5 us of the card's rates.
+// Design: the forward's, mirrored. A block owns R batch rows for the whole
+// reverse loop with one thread per hidden unit i, which keeps its row's
+// carry dh[i] in a register; only d_hproj (3H floats a row) is exchanged,
+// through a double-buffered shared array: one barrier a step. W_h^T [3H, H]
+// lives in shared memory when it fits (96 KB in bf16 at H=128) and is read
+// through L2 otherwise, so thread i's reads W_h^T[c][i] are consecutive
+// across the warp. The next step's six gate-plane values are loaded into
+// registers while the current step computes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -235,6 +260,132 @@ int launch_t(int rows_per_block, const void* x, const void* h0, const void* w_x,
   }
 }
 
+template <typename T, int R, bool kWInSmem>
+__global__ void __launch_bounds__(kMaxHidden)
+gru_backward_kernel(const float* __restrict__ rg, const float* __restrict__ zg,
+                    const float* __restrict__ ng, const float* __restrict__ hng,
+                    const T* __restrict__ h_in, const T* __restrict__ g_ys,
+                    const T* __restrict__ w_h_t, float* __restrict__ d_xp,
+                    float* __restrict__ dh0, int B, int Tn, int H) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H3 = 3 * H;
+  float* dbuf = reinterpret_cast<float*>(smem);     // [2][R][3H] d_hproj
+  T* wt_s = reinterpret_cast<T*>(dbuf + 2 * R * H3);  // [3H][H] if in smem
+
+  const int i = threadIdx.x;  // hidden unit; blockDim.x == H
+  const int b0 = blockIdx.x * R;
+  if (kWInSmem) copy_to_smem(wt_s, w_h_t, static_cast<size_t>(H3) * H * sizeof(T));
+  const T* wt = kWInSmem ? wt_s : w_h_t;
+
+  // Gate-plane values of the step about to run: r, z, n, hn, h_in, g_y.
+  float nx[R][6];
+  auto load_step = [&](int t) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (b0 + r < B) {
+        const size_t idx = (static_cast<size_t>(b0 + r) * Tn + t) * H + i;
+        nx[r][0] = rg[idx]; nx[r][1] = zg[idx]; nx[r][2] = ng[idx];
+        nx[r][3] = hng[idx]; nx[r][4] = to_f(h_in[idx]); nx[r][5] = to_f(g_ys[idx]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 6; ++q) nx[r][q] = 0.0f;
+      }
+    }
+  };
+  load_step(Tn - 1);
+  float carry[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) carry[r] = 0.0f;
+  __syncthreads();
+
+  for (int t = Tn - 1, s = 0; t >= 0; --t, ++s) {
+    float cur[R][6];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int q = 0; q < 6; ++q) cur[r][q] = nx[r][q];
+    if (t > 0) load_step(t - 1);
+
+    float* dhp = dbuf + (s & 1) * R * H3;
+    float dhz[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float rv = cur[r][0], zv = cur[r][1], nv = cur[r][2];
+      const float hnv = cur[r][3], hin = cur[r][4];
+      const float dh = carry[r] + cur[r][5];
+      const float dpre_n = dh * (1.0f - zv) * (1.0f - nv * nv);
+      const float dz = dh * (hin - nv);
+      const float dpre_z = dz * zv * (1.0f - zv);
+      const float dr = dpre_n * hnv;
+      const float dpre_r = dr * rv * (1.0f - rv);
+      if (b0 + r < B) {
+        float* out = d_xp + (static_cast<size_t>(b0 + r) * Tn + t) * H3;
+        out[i] = dpre_r; out[H + i] = dpre_z; out[2 * H + i] = dpre_n;
+      }
+      dhp[r * H3 + i] = dpre_r;
+      dhp[r * H3 + H + i] = dpre_z;
+      dhp[r * H3 + 2 * H + i] = dpre_n * rv;
+      dhz[r] = dh * zv;
+    }
+    __syncthreads();
+
+    // (d_hproj @ W_h^T)[i] for the R rows.
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+    for (int c = 0; c < H3; c += 4) {
+      float dv[R][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r) load4(dhp + r * H3 + c, dv[r]);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const float w = to_f(wt[static_cast<size_t>(c + cc) * H + i]);
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(dv[r][cc], w, acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) carry[r] = dhz[r] + acc[r];
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (b0 + r < B) dh0[static_cast<size_t>(b0 + r) * H + i] = carry[r];
+  }
+}
+
+template <typename T, int R>
+int launch_bwd_r(const float* rg, const float* zg, const float* ng,
+                 const float* hng, const void* h_in, const void* g_ys,
+                 const void* w_h_t, float* d_xp, float* dh0, int B, int Tn,
+                 int H, int w_in_smem, size_t smem, cudaStream_t s) {
+  const dim3 grid((B + R - 1) / R), block(H);
+  auto launch = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid, block, smem, s>>>(
+        rg, zg, ng, hng, static_cast<const T*>(h_in), static_cast<const T*>(g_ys),
+        static_cast<const T*>(w_h_t), d_xp, dh0, B, Tn, H);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return w_in_smem ? launch(gru_backward_kernel<T, R, true>)
+                   : launch(gru_backward_kernel<T, R, false>);
+}
+
+template <typename T>
+int launch_bwd_t(int rows_per_block, const float* rg, const float* zg,
+                 const float* ng, const float* hng, const void* h_in,
+                 const void* g_ys, const void* w_h_t, float* d_xp, float* dh0,
+                 int B, int Tn, int H, int w_in_smem, size_t smem,
+                 cudaStream_t s) {
+  switch (rows_per_block) {
+    case 1: return launch_bwd_r<T, 1>(rg, zg, ng, hng, h_in, g_ys, w_h_t, d_xp, dh0, B, Tn, H, w_in_smem, smem, s);
+    case 2: return launch_bwd_r<T, 2>(rg, zg, ng, hng, h_in, g_ys, w_h_t, d_xp, dh0, B, Tn, H, w_in_smem, smem, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -267,6 +418,39 @@ int seqrec_gru_forward(const void* x, const void* h0, const void* w_x,
     return launch_t<float>(R, x, h0, w_x, w_h, bx, bh, ys, B, Tn, D, H, wx_in_smem, smem, s);
   }
   return launch_t<__nv_bfloat16>(R, x, h0, w_x, w_h, bx, bh, ys, B, Tn, D, H, wx_in_smem, smem, s);
+}
+
+// r, z, n, hn [B, T, H] float; h_in, g_ys [B, T, H] and w_h_t [3H, H] of the
+// working dtype (dtype 0 = float, 1 = bf16); d_xp [B, T, 3H] and dh0 [B, H]
+// float. All contiguous, 16-byte aligned. smem_bytes as the caller computed
+// it for this layout, checked again here.
+int seqrec_gru_backward(const void* r, const void* z, const void* n,
+                        const void* hn, const void* h_in, const void* g_ys,
+                        const void* w_h_t, void* d_xp, void* dh0, int B, int Tn,
+                        int H, int dtype, int rows_per_block, int w_in_smem,
+                        long long smem_bytes, void* stream) {
+  const size_t es = dtype == 0 ? 4 : 2;
+  const int R = rows_per_block;
+  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0 ||
+      (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = 2 * static_cast<size_t>(R) * 3 * H * 4 +
+                      (w_in_smem ? static_cast<size_t>(3) * H * H * es : 0);
+  if (static_cast<long long>(smem) != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* rg = static_cast<const float*>(r);
+  const float* zg = static_cast<const float*>(z);
+  const float* ngp = static_cast<const float*>(n);
+  const float* hng = static_cast<const float*>(hn);
+  float* dxp = static_cast<float*>(d_xp);
+  float* dh = static_cast<float*>(dh0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_bwd_t<float>(R, rg, zg, ngp, hng, h_in, g_ys, w_h_t, dxp, dh, B, Tn, H, w_in_smem, smem, s);
+  }
+  return launch_bwd_t<__nv_bfloat16>(R, rg, zg, ngp, hng, h_in, g_ys, w_h_t, dxp, dh, B, Tn, H, w_in_smem, smem, s);
 }
 
 const char* seqrec_gru_error_string(int code) {

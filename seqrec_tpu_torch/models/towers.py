@@ -5,8 +5,9 @@ hidden states [B, T, H] through the fused `ops.gru_scan`. Parameters keep the
 flax names and layouts (`gru{l}_wx` [D_in, 3H], `gru{l}_wh` [H, 3H],
 `gru{l}_bx`, `gru{l}_bh` [3H]), so a JAX parameter tree loads by name.
 
-This slice serves; it does not train. Inter-layer dropout (a training-time
-op) and the LSTM cell and SASRec tower are ported with later slices.
+Dropout between stacked layers (training only) uses flax's formula with an
+explicit `torch.Generator` (`dropout`). The LSTM cell and the SASRec tower
+are ported with a later slice.
 """
 
 from __future__ import annotations
@@ -17,6 +18,21 @@ import torch
 from torch import nn
 
 from seqrec_tpu_torch import ops
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """`flax.linen.Dropout` in training mode: keep each element where a
+    uniform draw falls below 1 - rate, and scale it by 1 / (1 - rate)."""
+    if rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("dropout in training mode needs a torch.Generator")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 def zero_carry(cell: str, num_layers: int, batch: int, hidden: int,
@@ -39,7 +55,8 @@ class RNNTower(nn.Module):
     def __init__(self, embed_dim: int, hidden: int, num_layers: int = 1,
                  cell: str = "gru", residual: bool = False,
                  use_pallas: bool = True, param_dtype=torch.float32,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 dropout_rate: float = 0.0):
         super().__init__()
         if cell == "lstm":
             raise NotImplementedError(
@@ -53,6 +70,7 @@ class RNNTower(nn.Module):
         self.num_layers = num_layers
         self.residual = residual
         self.use_pallas = use_pallas
+        self.dropout_rate = dropout_rate
         d_in = embed_dim
         for layer in range(num_layers):
             for name, shape in ((f"gru{layer}_wx", (d_in, 3 * hidden)),
@@ -64,10 +82,12 @@ class RNNTower(nn.Module):
             d_in = hidden
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, *, carry=None,
-                reset: Optional[torch.Tensor] = None):
+                reset: Optional[torch.Tensor] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         """Encode [B, T, D] -> [B, T, H]; with `carry`, (outputs, new_carry).
         `mask` is unused by the recurrence (pads sit at the tail), as in the
-        reference."""
+        reference. Unless `deterministic`, dropout between layers draws from
+        `generator`."""
         del mask
         B = x.shape[0]
         h = x
@@ -84,6 +104,8 @@ class RNNTower(nn.Module):
             )
             new_carry.append(h_last)
             h = y + h if (self.residual and d_in == self.hidden) else y
+            if not deterministic and layer < self.num_layers - 1:
+                h = dropout(h, self.dropout_rate, generator)
         if carry is not None:
             return h, tuple(new_carry)
         return h

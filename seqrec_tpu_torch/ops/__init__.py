@@ -5,4 +5,8 @@
 - `ops.dispatch`: picks per call from `use_pallas` and the tensor's device.
 """
 
-from seqrec_tpu_torch.ops.dispatch import embedding_gather, gru_scan  # noqa: F401
+from seqrec_tpu_torch.ops.dispatch import (  # noqa: F401
+    embedding_gather,
+    gru_scan,
+    sampled_softmax_loss,
+)

@@ -27,7 +27,7 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("gather", "gru")
+SOURCES = ("gather", "gru", "softmax_head")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

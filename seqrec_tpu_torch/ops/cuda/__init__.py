@@ -1,8 +1,10 @@
-"""Hand-written Hopper kernels, one module per kernel.
+"""Hand-written Hopper kernels, one module per CUDA source.
 
-Each module holds the kernel's wrapper (which launches `csrc/<name>.cu` for a
-CUDA tensor, counts the launch, and raises on what the kernel cannot take),
-its plain PyTorch version (`plain`, from ops/reference.py; the wrapper uses it
-only for a tensor on the CPU), and its launch counter (`<wrapper>.launches`).
-Nothing here builds or loads a kernel at import time.
+Each module holds its kernels' wrappers (which launch `csrc/<name>.cu` for a
+CUDA tensor, count the launch, and raise on what the kernel cannot take),
+their plain PyTorch versions (`plain`, `plain_backward`, from
+ops/reference.py; a wrapper uses them only for a tensor on the CPU), their
+launch counters (`<wrapper>.launches`), and the `torch.autograd.Function`
+that joins a forward kernel to its backward. Nothing here builds or loads a
+kernel at import time.
 """
