@@ -4,8 +4,8 @@ and check them.
     python3 chip_smoke.py [--seed 0]
 
 Runs from the root of a checkout and builds everything it needs (the CUDA
-kernels under seqrec_tpu_torch/csrc/, with nvcc for sm_90a). Each phase
-prints one JSON line:
+kernels under seqrec_tpu_torch/csrc/, with nvcc for sm_90a, one nvcc per
+source, all at once). Each phase prints one JSON line:
 
   a. device   the card's name and power limit (nvidia-smi);
   b. build    compile the kernels from the checkout's sources, timed;
@@ -36,10 +36,24 @@ prints one JSON line:
               below the first's, and each kernel launches its expected
               number of times per step (none in the plain run); examples/s,
               step ms and a device-time split of a step by CUDA events;
-  g. the kernels line: {"kernels": [{name, route, source, replaces,
+  g. tower_kernels  the SASRec and LSTM towers' kernels against their plain
+              versions at the training shapes, bf16 and f32: causal
+              attention at [128, 200, 1, 64] (also against
+              F.scaled_dot_product_attention, its library yardstick); the
+              LSTM forward at B=128, T=200, D=H=128 (also against
+              torch.nn.LSTM); the LSTM reverse recurrence (dz, dh0, dc0) and
+              the weight gradients through autograd; with kernel, plain,
+              library and bound times;
+  h. serve    phase d on configs/ml1m_sasrec.json and configs/ml1m_lstm.json,
+              with the same histories;
+  i. train    phase f on both, three groups through the kernels and one
+              through the plain versions each (SASRec's 1,000-step warmup
+              is set to 0 so that 24 steps run at the peak rate);
+  j. the kernels line: {"kernels": [{name, route, source, replaces,
               launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
-              library_ms}, ...]} for all five kernels, `launches` counted
-              on the training path (the serving path's count beside it).
+              library_ms}, ...]} for all eight kernels, `launches` counted
+              on a training path (GRU4Rec's for the gather, scatter-add and
+              head; the counts of every path beside it).
 
 Then the raw nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -48,7 +62,8 @@ exits non-zero too when CUDA is not available; there is no CPU path.
 
 Times come from CUDA events: each rep first queues a ~1 ms device sleep, so
 the events bracket the device's work and not the host's launch latency (the
-plain GRU, ~2,000 small launches, stays host-bound and is timed as it runs).
+plain scans, thousands of small launches, stay host-bound and are timed as
+they run).
 """
 
 from __future__ import annotations
@@ -68,12 +83,15 @@ from seqrec_tpu_torch.eval import infer
 from seqrec_tpu_torch.models import build_model
 from seqrec_tpu_torch.models.convert import flax_to_state_dict, random_params
 from seqrec_tpu_torch.ops import _build, reference
+from seqrec_tpu_torch.ops.cuda import attention as k_attn
 from seqrec_tpu_torch.ops.cuda import gather as k_gather
 from seqrec_tpu_torch.ops.cuda import gru as k_gru
 from seqrec_tpu_torch.ops.cuda import head as k_head
+from seqrec_tpu_torch.ops.cuda import lstm as k_lstm
 from seqrec_tpu_torch.train.trainer import Trainer
 
-CONFIG = "configs/ml1m_gru4rec.json"
+CONFIGS = {"gru4rec": "configs/ml1m_gru4rec.json", "sasrec": "configs/ml1m_sasrec.json",
+           "lstm": "configs/ml1m_lstm.json"}
 VOCAB = 3418  # ML-1M: 3,417 items + the pad row (bench.py's catalog)
 B, K = 64, 10  # serving batch (the CLI default) and top-k
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -84,15 +102,28 @@ REPS = 21
 GRU_F32_TOL = 1e-5  # same f32 math, another summation order
 GRU_CUDNN_F32_TOL = 1e-4  # cuDNN's own GEMM order, TF32 off
 GRU_BF16_TOL = 3e-2  # plain rounds every gate op to bf16, the kernel only h
-SCORE_TOL = 1e-2  # serve: bf16 scores through two GRU numerics (CPU emulation: 1e-3)
+# Serve: bf16 scores through two numerics of the tower (kernel vs plain):
+# GRU 1e-2 (CPU emulation: 1e-3); SASRec 5e-2 (the plain attention rounds
+# its scores to bf16, through two blocks and LayerNorms); LSTM 5e-2 (the
+# plain scan also rounds its cell state to bf16 each step, over 200 steps).
+SCORE_TOL = {"gru4rec": 1e-2, "sasrec": 5e-2, "lstm": 5e-2}
 # Training path (B=128, T=200, S=256).
 TRAIN_B, TRAIN_T, NUM_NEG = 128, 200, 256
 HEAD_TOL = 1e-4  # nll ~6: f32 sums of 128 products and 257 exps in another order
 HEAD_LOSS_BF16_TOL = 1e-2  # relative: the plain loss rounds its logits to bf16
 GRU_BWD_TOL = 1e-4  # relative to the largest value: f32 carry over 200 steps, another order
 GRU_BWD_BF16_W_TOL = 2 ** -7  # relative: weight grads rounded to bf16 on both sides
-STEP1_LOSS_TOL = 2e-2  # relative, kernels vs plain: bf16 compute, two GRU numerics
+STEP1_LOSS_TOL = 2e-2  # relative, kernels vs plain: bf16 compute, two tower numerics
 STEP1_NORM_TOL = 5e-2  # relative, the same, through the backward
+# The towers' kernels (phase g).
+ATTN_F32_TOL = 2e-5  # an online softmax: the same f32 math summed in another order
+ATTN_BF16_TOL = 5e-2  # the plain version rounds its scores to bf16, the kernel keeps f32
+ATTN_BF16_EXACT_TOL = 2e-2  # vs f32 math on the same bf16 inputs: p and o rounded to bf16
+ATTN_LIB_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # SDPA: its own order and rounding
+LSTM_F32_TOL = 1e-5  # same f32 math, another summation order
+LSTM_CUDNN_F32_TOL = 1e-4  # cuDNN's own GEMM order, TF32 off
+LSTM_BF16_TOL = 5e-2  # the plain version rounds every gate op and c to bf16, the kernel only h
+LSTM_BWD_TOL = 1e-4  # relative to the largest value: f32 carries over 200 steps
 
 
 class CheckFailed(AssertionError):
@@ -293,9 +324,37 @@ def _agree(a: dict, b: dict, tol: float) -> tuple:
     return diff, mismatched
 
 
-def phase_serve(rng: np.random.Generator, dev, seed: int, n_requests: int = 320) -> dict:
-    cfg = RunConfig.load(CONFIG)
-    check(cfg.model.use_pallas, f"{CONFIG} must enable the kernels")
+def make_requests(rng: np.random.Generator, max_len: int, n_requests: int = 320) -> list:
+    """Zipf-distributed histories of 5..max_len items, one per user."""
+    lengths = rng.integers(5, max_len + 1, size=n_requests)
+    return [{"user": i, "history": zipf_items(rng, n).tolist()} for i, n in enumerate(lengths)]
+
+
+def expected_launches(cfg: RunConfig, training: bool) -> dict:
+    """Launches of each kernel per served batch or per training step on the
+    path `cfg` describes: one gather per batch (inputs) or three per step
+    (inputs, positives, negatives) with their scatter-adds and the head;
+    the tower's kernel once per layer or block, and its backward per layer."""
+    m = cfg.model
+    want = dict.fromkeys(COUNTERS, 0)
+    if m.arch == "sasrec":
+        want["causal_attention"] = m.num_layers
+    else:
+        want[f"{m.cell_type}_scan"] = m.num_layers
+        if training:
+            want[f"{m.cell_type}_backward"] = m.num_layers
+    if training:
+        want.update(gather=3, gather_backward=3, softmax_head=1)
+    else:
+        want["gather"] = 1
+    return want
+
+
+def phase_serve(dev, seed: int, path: str, requests: list) -> dict:
+    config = CONFIGS[path]
+    cfg = RunConfig.load(config)
+    check(cfg.model.use_pallas, f"{config} must enable the kernels")
+    tol = SCORE_TOL[path]
     models = {}
     for use_pallas in (True, False):
         mcfg = cfg.apply_overrides([f"model.use_pallas={str(use_pallas).lower()}"]).model
@@ -306,9 +365,7 @@ def phase_serve(rng: np.random.Generator, dev, seed: int, n_requests: int = 320)
         m.load_state_dict(state)
         m.eval()
     max_len = cfg.data.max_len
-    lengths = rng.integers(5, max_len + 1, size=n_requests)
-    requests = [{"user": i, "history": zipf_items(rng, n).tolist()}
-                for i, n in enumerate(lengths)]
+    n_requests = len(requests)
     batches = [requests[i:i + B] for i in range(0, n_requests, B)]
 
     def serve(model):
@@ -323,21 +380,19 @@ def phase_serve(rng: np.random.Generator, dev, seed: int, n_requests: int = 320)
         list(infer.recommend(m, batches[0], k=K, batch_size=B, max_len=max_len))
     torch.cuda.synchronize()
 
-    k_gather.embedding_gather.launches = 0
-    k_gru.gru_scan.launches = 0
+    for fn in COUNTERS.values():
+        fn.launches = 0
     recs, times = serve(models[True])
-    launches = {"gather": k_gather.embedding_gather.launches,
-                "gru_scan": k_gru.gru_scan.launches}
+    launches = read_counters()
     plain_recs, plain_times = serve(models[False])
-    plain_launches = {"gather": k_gather.embedding_gather.launches - launches["gather"],
-                      "gru_scan": k_gru.gru_scan.launches - launches["gru_scan"]}
+    plain_launches = {k: v - launches[k] for k, v in read_counters().items()}
 
-    n_b, layers = len(batches), cfg.model.num_layers
-    check(launches == {"gather": n_b, "gru_scan": n_b * layers},
-          f"serve: kernel launches {launches}, expected one gather and "
-          f"{layers} GRU scan(s) per batch of {n_b}")
-    check(plain_launches == {"gather": 0, "gru_scan": 0},
-          f"serve: the plain run launched kernels {plain_launches}")
+    n_b = len(batches)
+    want = {k: v * n_b for k, v in expected_launches(cfg, training=False).items()}
+    check(launches == want, f"serve {path}: kernel launches {launches}, expected {want} "
+                            f"over {n_b} batches")
+    check(all(v == 0 for v in plain_launches.values()),
+          f"serve {path}: the plain run launched kernels {plain_launches}")
     check(len(recs) == len(plain_recs) == n_requests, "serve: lost requests")
     max_diff, mismatched = 0.0, 0
     for req, a, b in zip(requests, recs, plain_recs):
@@ -350,8 +405,8 @@ def phase_serve(rng: np.random.Generator, dev, seed: int, n_requests: int = 320)
             s = np.asarray(rec["scores"])
             check(bool(np.isfinite(s).all()) and bool((np.diff(s) <= 0).all()),
                   "serve: scores not finite and descending")
-        diff, mis = _agree(a, b, SCORE_TOL)
-        check(diff <= SCORE_TOL, f"serve: score diff {diff} > {SCORE_TOL}")
+        diff, mis = _agree(a, b, tol)
+        check(diff <= tol, f"serve {path}: score diff {diff} > {tol}")
         max_diff, mismatched = max(max_diff, diff), mismatched + mis
 
     # Where one batch's time goes on the kernel path (after the counted run).
@@ -376,7 +431,7 @@ def phase_serve(rng: np.random.Generator, dev, seed: int, n_requests: int = 320)
     }
 
     result = {
-        "phase": "serve", "config": CONFIG, "vocab": VOCAB, "requests": n_requests,
+        "phase": "serve", "config": config, "vocab": VOCAB, "requests": n_requests,
         "batch_size": B, "k": K, "batches": n_b,
         "requests_per_s": n_requests / (sum(times) / 1e3),
         "batch_ms_median": float(np.median(times)), "batch_ms_min": min(times),
@@ -384,7 +439,7 @@ def phase_serve(rng: np.random.Generator, dev, seed: int, n_requests: int = 320)
         "plain_requests_per_s": n_requests / (sum(plain_times) / 1e3),
         "plain_batch_ms_median": float(np.median(plain_times)),
         "launches": launches, "plain_launches": plain_launches,
-        "max_score_diff_vs_plain": max_diff, "score_tolerance": SCORE_TOL,
+        "max_score_diff_vs_plain": max_diff, "score_tolerance": tol,
         "rank_swaps_within_tolerance": mismatched,
         "batch_breakdown": breakdown,
     }
@@ -585,12 +640,229 @@ def phase_train_kernels(rng: np.random.Generator, dev) -> dict:
     return out
 
 
+def _dname(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def _attention_checks(rng, dev) -> dict:
+    """Causal attention at SASRec's training shape (ml1m_sasrec: B=128,
+    T=200, one head of Dh=64): q, k, v of unit scale, as a LayerNorm'd
+    input through the qkv projection gives them."""
+    Bq, T, N, Dh = TRAIN_B, TRAIN_T, 1, 64
+    qkv32 = [torch.from_numpy(rng.normal(size=(Bq, T, N, Dh)).astype(np.float32)).to(dev)
+             for _ in range(3)]
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = _dname(dtype)
+        q, k, v = (t.to(dtype) for t in qkv32)
+        got = k_attn.causal_attention(q, k, v)
+        torch.cuda.synchronize()
+        want = k_attn.plain(q, k, v)
+        err = max_err(got, want)
+        check(bool(torch.isfinite(got).all()), f"attention {name}: non-finite output")
+        tol = ATTN_F32_TOL if dtype == torch.float32 else ATTN_BF16_TOL
+        check(err <= tol, f"attention {name}: kernel vs plain max abs err {err} > {tol}")
+        errs = {"vs_plain": err}
+        if dtype == torch.bfloat16:
+            exact = max_err(got, k_attn.plain(q.float(), k.float(), v.float()))
+            check(exact <= ATTN_BF16_EXACT_TOL,
+                  f"attention bf16: kernel vs f32 math max abs err {exact} > "
+                  f"{ATTN_BF16_EXACT_TOL}")
+            errs["vs_f32_math_on_bf16_inputs"] = exact
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))  # [B, N, T, Dh]
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+        lib_err = max_err(got, sdpa().transpose(1, 2))
+        check(lib_err <= ATTN_LIB_TOL[dtype],
+              f"attention {name}: kernel vs SDPA max abs err {lib_err} > {ATTN_LIB_TOL[dtype]}")
+        errs["vs_sdpa"] = lib_err
+        es = q.element_size()
+        a_bytes = 4 * Bq * T * N * Dh * es  # q, k, v read, o written
+        a_flops = 2 * Dh * T * (T + 1) * Bq * N  # q.k and p.v over the causal half
+        a_bound, a_by = bound(a_bytes, a_flops, dtype)
+        out[name] = {
+            "shape": {"B": Bq, "T": T, "N": N, "Dh": Dh, "dtype": name},
+            "launch": k_attn.launch_config(Bq, T, N, Dh, dtype),
+            "max_abs_err": err, "errors": errs, "tolerance": tol,
+            "kernel_ms": time_ms(lambda: k_attn.causal_attention(q, k, v)),
+            "plain_ms": time_ms(lambda: k_attn.plain(q, k, v)),
+            "library_ms": time_ms(sdpa),
+            "bound_ms": a_bound, "bound_by": a_by, "bytes": int(a_bytes),
+            "flops": int(a_flops),
+        }
+    return out
+
+
+def lstm_weights(rng: np.random.Generator, D: int, H: int):
+    """w_x [D, 4H] Glorot-uniform, w_h [H, 4H] orthogonal rows, b N(0, 0.1)
+    with the forget block +1: f32 on the CPU."""
+    lim = np.sqrt(6.0 / (D + 4 * H))
+    w_x = torch.from_numpy(rng.uniform(-lim, lim, size=(D, 4 * H)).astype(np.float32))
+    q, r = np.linalg.qr(rng.normal(size=(4 * H, H)))
+    w_h = torch.from_numpy((q * np.sign(np.diag(r))).T.astype(np.float32))
+    b = rng.normal(scale=0.1, size=4 * H)
+    b[H:2 * H] += 1.0
+    return w_x, w_h, torch.from_numpy(b.astype(np.float32))
+
+
+def _nn_lstm(w_x, w_h, b, dtype, dev):
+    """torch.nn.LSTM with the same weights (same i|f|g|o order, transposed,
+    b_hh = 0): the library yardstick and a second oracle."""
+    D, H4 = w_x.shape
+    lib = torch.nn.LSTM(D, H4 // 4, batch_first=True, device=dev, dtype=dtype)
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(w_x.T)
+        lib.weight_hh_l0.copy_(w_h.T)
+        lib.bias_ih_l0.copy_(b)
+        lib.bias_hh_l0.zero_()
+    return lib
+
+
+def _lstm_checks(rng, dev, x32) -> dict:
+    """The LSTM forward and its reverse recurrence at ml1m_lstm's training
+    shape (B=128, T=200, D=H=128), fed the embeddings of Zipf ids."""
+    Bl, T, D = x32.shape
+    H = D
+    w_x, w_h, b = (w.to(dev) for w in lstm_weights(rng, D, H))
+    g32 = torch.from_numpy(rng.normal(scale=1e-2, size=(Bl, T, H)).astype(np.float32)).to(dev)
+    dcl = torch.from_numpy(rng.normal(scale=1e-2, size=(Bl, H)).astype(np.float32)).to(dev)
+    fwd, bwd = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = _dname(dtype)
+        x = x32.to(dtype)
+        h0 = c0 = torch.zeros(Bl, H, dtype=dtype, device=dev)
+        args = (x, h0, c0, w_x, w_h, b)
+        ys, (h_last, c_last) = k_lstm.lstm_scan(*args)
+        torch.cuda.synchronize()
+        ys_p, (_, c_p) = k_lstm.plain(*args)
+        tol = LSTM_F32_TOL if dtype == torch.float32 else LSTM_BF16_TOL
+        err, c_err = max_err(ys, ys_p), max_err(c_last, c_p)
+        check(bool(torch.isfinite(ys).all()), f"lstm {name}: non-finite output")
+        check(torch.equal(h_last, ys[:, -1]), f"lstm {name}: h_last is not ys[:, -1]")
+        check(err <= tol and c_err <= tol,
+              f"lstm {name}: kernel vs plain max abs err {err} (ys), {c_err} (c_last) > {tol}")
+        lib = _nn_lstm(w_x, w_h, b, dtype, dev)
+        with torch.no_grad():
+            ys_lib, _ = lib(x, (h0[None], c0[None]))
+        lib_err = max_err(ys, ys_lib)
+        lib_tol = LSTM_CUDNN_F32_TOL if dtype == torch.float32 else LSTM_BF16_TOL
+        check(lib_err <= lib_tol,
+              f"lstm {name}: kernel vs torch.nn.LSTM max abs err {lib_err} > {lib_tol}")
+        es = x.element_size()
+        f_bytes = (Bl * T * D + 2 * Bl * H + (D + H) * 4 * H + Bl * T * H) * es \
+            + 4 * H * 4 + Bl * H * 4
+        f_flops = 2 * Bl * T * (D + H) * 4 * H
+        f_bound, f_by = bound(f_bytes, f_flops, dtype)
+        with torch.no_grad():
+            lib_ms = time_ms(lambda: lib(x, (h0[None], c0[None])))
+        fwd[name] = {
+            "shape": {"B": Bl, "T": T, "D": D, "H": H, "dtype": name},
+            "launch": k_lstm.launch_config(Bl, T, D, H, dtype),
+            "max_abs_err": max(err, c_err), "tolerance": tol,
+            "max_abs_err_vs_nn_lstm": lib_err, "tolerance_vs_nn_lstm": lib_tol,
+            "kernel_ms": time_ms(lambda: k_lstm.lstm_scan(*args)),
+            "plain_ms": time_ms(lambda: k_lstm.plain(*args), reps=5),
+            "library_ms": lib_ms,
+            "bound_ms": f_bound, "bound_by": f_by, "bytes": int(f_bytes),
+            "flops": int(f_flops), "serial_steps": T,
+        }
+
+        # The reverse recurrence on the planes of this forward.
+        wx_c, wh_c = w_x.to(dtype), w_h.to(dtype)
+        with torch.no_grad():
+            ys_k, _, cs = k_lstm._forward_kernel(x, h0, c0, wx_c, wh_c, b, True)
+            x_proj = torch.matmul(x.float(), wx_c.float()) + b
+            _, _, *planes = reference.lstm_bwd_hoist(x_proj, ys_k, cs, h0, c0, wh_c)
+        g = g32.to(dtype)
+        bargs = (*planes, g, wh_c, None, dcl)
+        dz, dh0, dc0 = k_lstm.lstm_backward(*bargs)
+        torch.cuda.synchronize()
+        want = k_lstm.plain_backward(*bargs)
+        errs = {k: rel_err(a, w) for k, a, w in zip(("dz", "dh0", "dc0"), (dz, dh0, dc0), want)}
+        for k, e in errs.items():
+            check(e <= LSTM_BWD_TOL, f"lstm backward {name}: {k} kernel vs plain "
+                                     f"relative err {e} > {LSTM_BWD_TOL}")
+        # The whole backward through autograd (forward and backward kernels).
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, w_x, w_h)]
+        ys_g, _ = k_lstm.lstm_scan(leaves[0], h0, c0, leaves[1], leaves[2], b)
+        ys_g.backward(g)
+        if dtype == torch.bfloat16:
+            # Against reference.lstm_bwd_math (the plain reverse loop), with
+            # the weight gradients rounded to bf16 as the autograd path does.
+            want_dxp, _, _, want_dwh, _ = reference.lstm_bwd_math(
+                x_proj, ys_k, cs, h0, c0, wh_c, g)
+            want_dwx = torch.einsum("btd,btk->dk", x.float(), want_dxp)
+            w_tol = GRU_BWD_BF16_W_TOL
+            w_errs = {"dW_h": rel_err(leaves[2].grad, want_dwh.to(dtype)),
+                      "dW_x": rel_err(leaves[1].grad, want_dwx.to(dtype))}
+        else:
+            # Against autograd through the plain scan's own torch ops.
+            plain_leaves = [t.detach().clone().requires_grad_(True) for t in (x, w_x, w_h)]
+            ys_pl, _ = k_lstm.plain(plain_leaves[0], h0, c0, plain_leaves[1],
+                                    plain_leaves[2], b)
+            ys_pl.backward(g)
+            w_tol = LSTM_BWD_TOL
+            w_errs = {"dW_h": rel_err(leaves[2].grad, plain_leaves[2].grad),
+                      "dW_x": rel_err(leaves[1].grad, plain_leaves[1].grad),
+                      "d_x": rel_err(leaves[0].grad, plain_leaves[0].grad)}
+        for k, e in w_errs.items():
+            check(e <= w_tol, f"lstm backward {name}: {k} relative err {e} > {w_tol}")
+        b_bytes = (6 * Bl * T * H * 4 + Bl * T * H * es + 4 * H * H * es + Bl * H * 4
+                   + Bl * T * 4 * H * 4 + 2 * Bl * H * 4)
+        b_flops = 2 * Bl * T * 4 * H * H  # dz is f32: the f32 rate
+        b_bound, b_by = bound(b_bytes, b_flops, torch.float32)
+        bwd[name] = {
+            "shape": {"B": Bl, "T": T, "H": H, "dtype": name},
+            "launch": k_lstm.backward_launch_config(Bl, T, H, dtype),
+            "rel_err": {**errs, **w_errs}, "tolerance": LSTM_BWD_TOL,
+            "weight_tolerance": w_tol,
+            "max_abs_err": max(max_err(a, w) for a, w in zip((dz, dh0, dc0), want)),
+            "kernel_ms": time_ms(lambda: k_lstm.lstm_backward(*bargs)),
+            "plain_ms": time_ms(lambda: k_lstm.plain_backward(*bargs), reps=5),
+            "bound_ms": b_bound, "bound_by": b_by, "bytes": int(b_bytes),
+            "flops": int(b_flops), "serial_steps": T,
+        }
+    # Library yardstick: cuDNN's LSTM backward in f32 (TF32 off), timed as
+    # (forward + backward) - forward. The port never calls it.
+    lib = _nn_lstm(w_x, w_h, b, torch.float32, dev)
+    xg = x32.detach().clone().requires_grad_(True)
+    state0 = (torch.zeros(1, Bl, H, device=dev), torch.zeros(1, Bl, H, device=dev))
+
+    def lib_fwd_bwd():
+        lib(xg, state0)[0].backward(g32)
+
+    fb = time_ms(lib_fwd_bwd)
+    fw = time_ms(lambda: lib(xg, state0)[0])
+    for rec in bwd.values():
+        rec["library_ms"] = {"median": fb["median"] - fw["median"], "fwd_bwd": fb, "fwd": fw,
+                             "what": "torch.nn.LSTM f32 (cuDNN), backward = fwd+bwd - fwd"}
+    return {"lstm_scan": fwd, "lstm_backward": bwd}
+
+
+def phase_tower_kernels(rng: np.random.Generator, dev) -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    D = 128
+    table = torch.from_numpy(
+        rng.normal(scale=D ** -0.5, size=(VOCAB, D)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(zipf_items(rng, TRAIN_B * TRAIN_T).astype(np.int32)).to(dev)
+    x32 = k_gather.plain(table, ids.reshape(TRAIN_B, TRAIN_T))
+    out = {"causal_attention": _attention_checks(rng, dev), **_lstm_checks(rng, dev, x32)}
+    emit({"phase": "tower_kernels", **out})
+    return out
+
+
 COUNTERS = {
     "gather": k_gather.embedding_gather,
     "gather_backward": k_gather.embedding_scatter_add,
     "gru_scan": k_gru.gru_scan,
     "gru_backward": k_gru.gru_backward,
     "softmax_head": k_head.sampled_softmax_nll,
+    "causal_attention": k_attn.causal_attention,
+    "lstm_scan": k_lstm.lstm_scan,
+    "lstm_backward": k_lstm.lstm_backward,
 }
 
 
@@ -672,12 +944,14 @@ def _train_wires(rng, trainer, groups: int, K: int, B: int, T: int) -> np.ndarra
     return np.stack(wires).reshape(groups, K, B, T + 2)
 
 
-def phase_train(rng: np.random.Generator, dev, seed: int, groups: int = 6) -> dict:
-    cfg = RunConfig.load(CONFIG)
-    check(cfg.model.use_pallas, f"{CONFIG} must enable the kernels")
+def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int,
+                overrides=()) -> dict:
+    """`overrides`: config changes for this run, each named in its result."""
+    config = CONFIGS[path]
+    cfg = RunConfig.load(config).apply_overrides(list(overrides))
+    check(cfg.model.use_pallas, f"{config} must enable the kernels")
     K, B = cfg.train.steps_per_call, cfg.data.batch_size
     T = max(cfg.data.buckets or (cfg.data.max_len,))
-    layers = cfg.model.num_layers
     trainers = {}
     for use_pallas in (True, False):
         c = cfg.apply_overrides([f"model.use_pallas={str(use_pallas).lower()}"])
@@ -686,7 +960,7 @@ def phase_train(rng: np.random.Generator, dev, seed: int, groups: int = 6) -> di
     wires = _train_wires(rng, trainers[True], groups, K, B, T)
     data_s = time.perf_counter() - t0
     check(wires.dtype == np.int16 and wires.shape == (groups, K, B, T + 2),
-          f"train: wires {wires.dtype} {wires.shape}")
+          f"train {path}: wires {wires.dtype} {wires.shape}")
 
     # Step 1 through the kernels and through the plain versions: same state,
     # batch and generators. (Also warms the kernel path up.)
@@ -698,10 +972,10 @@ def phase_train(rng: np.random.Generator, dev, seed: int, groups: int = 6) -> di
     loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
     norm_rel = abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
     check(loss_rel <= STEP1_LOSS_TOL,
-          f"train: step-1 loss {a['loss']} (kernels) vs {b['loss']} (plain)")
+          f"train {path}: step-1 loss {a['loss']} (kernels) vs {b['loss']} (plain)")
     check(norm_rel <= STEP1_NORM_TOL,
-          f"train: step-1 grad_norm {a['grad_norm']} (kernels) vs {b['grad_norm']} (plain)")
-    check(a["tokens"] == b["tokens"], "train: step-1 token counts differ")
+          f"train {path}: step-1 grad_norm {a['grad_norm']} (kernels) vs {b['grad_norm']} (plain)")
+    check(a["tokens"] == b["tokens"], f"train {path}: step-1 token counts differ")
     torch.cuda.synchronize()
 
     # The counted run: `groups` groups of K steps through the kernels.
@@ -732,19 +1006,18 @@ def phase_train(rng: np.random.Generator, dev, seed: int, groups: int = 6) -> di
 
     for gm in group_metrics:
         check(np.isfinite(gm["loss"]) and np.isfinite(gm["grad_norm"]),
-              f"train: non-finite metrics {gm}")
-        check(gm["nonfinite"] == 0.0, f"train: a step flagged non-finite {gm}")
+              f"train {path}: non-finite metrics {gm}")
+        check(gm["nonfinite"] == 0.0, f"train {path}: a step flagged non-finite {gm}")
     check(group_metrics[-1]["loss"] < group_metrics[0]["loss"],
-          f"train: loss did not fall ({group_metrics[0]['loss']} -> "
+          f"train {path}: loss did not fall ({group_metrics[0]['loss']} -> "
           f"{group_metrics[-1]['loss']})")
-    want = {"gather": 3 * steps, "gather_backward": 3 * steps, "gru_scan": layers * steps,
-            "gru_backward": layers * steps, "softmax_head": steps}
-    check(launches == want, f"train: kernel launches {launches}, expected {want}")
+    want = {k: v * steps for k, v in expected_launches(cfg, training=True).items()}
+    check(launches == want, f"train {path}: kernel launches {launches}, expected {want}")
     check(all(v == 0 for v in plain_launches.values()),
-          f"train: the plain run launched kernels {plain_launches}")
+          f"train {path}: the plain run launched kernels {plain_launches}")
     check(abs(plain_group["loss"] - group_metrics[0]["loss"])
           <= STEP1_LOSS_TOL * abs(plain_group["loss"]),
-          f"train: group-1 mean loss {group_metrics[0]['loss']} (kernels) vs "
+          f"train {path}: group-1 mean loss {group_metrics[0]['loss']} (kernels) vs "
           f"{plain_group['loss']} (plain)")
 
     # Device time of a step, split by CUDA events: each step (its wire
@@ -768,7 +1041,8 @@ def phase_train(rng: np.random.Generator, dev, seed: int, groups: int = 6) -> di
     prof, state = profile_steps(tr, state, last[:4])
     step_ms = float(np.median(times)) / K
     result = {
-        "phase": "train", "config": CONFIG, "vocab": VOCAB, "batch_size": B, "seq_len": T,
+        "phase": "train", "config": config, "overrides": list(overrides), "vocab": VOCAB,
+        "batch_size": B, "seq_len": T,
         "num_negatives": cfg.model.num_negatives, "steps_per_call": K, "groups": groups,
         "wire": {"dtype": str(wires.dtype), "shape": list(wires.shape[1:])},
         "data_seconds": data_s,
@@ -812,29 +1086,46 @@ def main(argv=None) -> int:
     smi, name = phase_device()
     phase_build()
     kern = phase_kernels(rng, dev)
-    serve = phase_serve(rng, dev, args.seed)
+    requests = make_requests(rng, RunConfig.load(CONFIGS["gru4rec"]).data.max_len)
+    serve = {"gru4rec": phase_serve(dev, args.seed, "gru4rec", requests)}
     tkern = phase_train_kernels(rng, dev)
-    train = phase_train(rng, dev, args.seed)
+    train = {"gru4rec": phase_train(rng, dev, args.seed, "gru4rec", groups=6)}
+    towers = phase_tower_kernels(rng, dev)
+    for path in ("sasrec", "lstm"):
+        serve[path] = phase_serve(dev, args.seed, path, requests)
+    train["sasrec"] = phase_train(rng, dev, args.seed, "sasrec", groups=3,
+                                  overrides=["train.warmup_steps=0"])
+    train["lstm"] = phase_train(rng, dev, args.seed, "lstm", groups=3)
 
-    g, r = kern["gather"], kern["gru_scan_bfloat16"]
-    tl, sl = train["launches"], serve["launches"]
-    src = "seqrec_tpu_torch/csrc/"
+    def counts(kernel):
+        return {f"{kind}_{path}": runs[path]["launches"][kernel]
+                for kind, runs in (("train", train), ("serve", serve)) for path in runs}
+
+    # name, source, the TPU kernel it replaces, its phase record and dtype,
+    # and the training path whose count is `launches`.
+    table = [
+        ("gather", "gather.cu", "gather.py:86", kern["gather"], "float32", "gru4rec"),
+        ("gather_backward", "gather.cu", "gather.py:106", tkern["gather_backward"],
+         "float32", "gru4rec"),
+        ("gru_scan", "gru.cu", "gru.py:177", kern["gru_scan_bfloat16"], "bfloat16", "gru4rec"),
+        ("gru_backward", "gru.cu", "gru.py:190", tkern["gru_backward"]["bfloat16"],
+         "bfloat16", "gru4rec"),
+        ("softmax_head", "softmax_head.cu", "softmax_head.py:115",
+         tkern["softmax_head"]["bfloat16"], "bfloat16", "gru4rec"),
+        ("causal_attention", "attention.cu", "attention.py:98",
+         towers["causal_attention"]["bfloat16"], "bfloat16", "sasrec"),
+        ("lstm_scan", "lstm.cu", "lstm.py:153", towers["lstm_scan"]["bfloat16"], "bfloat16",
+         "lstm"),
+        ("lstm_backward", "lstm.cu", "lstm.py:209", towers["lstm_backward"]["bfloat16"],
+         "bfloat16", "lstm"),
+    ]
     emit({"kernels": [
-        _kernel_entry("gather", src + "gather.cu", "seqrec_tpu/ops/pallas/gather.py:86",
-                      tl["gather"], g, serve_launches=sl["gather"]),
-        _kernel_entry("gather_backward", src + "gather.cu",
-                      "seqrec_tpu/ops/pallas/gather.py:106",
-                      tl["gather_backward"], tkern["gather_backward"]),
-        _kernel_entry("gru_scan", src + "gru.cu", "seqrec_tpu/ops/pallas/gru.py:177",
-                      tl["gru_scan"], r, dtype="bfloat16", serve_launches=sl["gru_scan"]),
-        _kernel_entry("gru_backward", src + "gru.cu", "seqrec_tpu/ops/pallas/gru.py:190",
-                      tl["gru_backward"], tkern["gru_backward"]["bfloat16"],
-                      dtype="bfloat16"),
-        _kernel_entry("softmax_head", src + "softmax_head.cu",
-                      "seqrec_tpu/ops/pallas/softmax_head.py:115",
-                      tl["softmax_head"], tkern["softmax_head"]["bfloat16"],
-                      dtype="bfloat16"),
-    ]})
+        _kernel_entry(kname, "seqrec_tpu_torch/csrc/" + source,
+                      "seqrec_tpu/ops/pallas/" + replaces,
+                      train[path]["launches"][kname], rec, dtype=dtype,
+                      launches_counted_on=f"train {CONFIGS[path]}",
+                      launches_by_path=counts(kname))
+        for kname, source, replaces, rec, dtype, path in table]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

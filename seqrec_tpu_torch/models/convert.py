@@ -10,14 +10,21 @@ arrays:
                 'tower': {'gru0_wx': [D, 3H], 'gru0_wh': [H, 3H],
                           'gru0_bx': [3H], 'gru0_bh': [3H], ...}}}
 
+(an LSTM tower has `lstm{l}_wx` [D, 4H], `lstm{l}_wh` [H, 4H], `lstm{l}_b`
+[4H]; a SASRec tower `pos_embedding`, `LayerNorm_0` and `block{i}` subtrees
+of `LayerNorm_{0,1}`, `qkv`, `proj`, `Dense_{0,1}`).
+
 The port keeps the flax names and layouts, so a leaf at path `a/b/c` becomes
 `state_dict['a.b.c']` unchanged. A `.npz` file holds the same leaves under
 their `/`-joined paths (`params/tower/gru0_wx`).
 
 `random_params` draws such a tree with numpy from a seed, with the flax
-initializers' distributions (normal(1/sqrt(D)) tables, Glorot-uniform w_x,
-orthogonal w_h, zero biases), for runs that need weights without a trained
-checkpoint.
+initializers' distributions, for runs that need weights without a trained
+checkpoint: normal(1/sqrt(D)) tables; Glorot-uniform `*_wx`, orthogonal
+`*_wh`, zero biases but the LSTM's forget block at +1; and SASRec's
+normal(0.02) `pos_embedding`, LeCun-normal dense `kernel`s (truncated at two
+standard deviations, over the fan-in), LayerNorm `scale` ones and zero
+`bias`es.
 """
 
 from __future__ import annotations
@@ -78,25 +85,49 @@ def _orthogonal(rng: np.random.Generator, shape) -> np.ndarray:
     return q.T if n_rows < n_cols else q
 
 
+def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
+    """Standard normal draws redrawn until they fall within two standard
+    deviations, as `jax.random.truncated_normal(-2, 2)`."""
+    a = rng.standard_normal(size=shape)
+    bad = np.abs(a) > 2.0
+    while bad.any():
+        a[bad] = rng.standard_normal(size=int(bad.sum()))
+        bad = np.abs(a) > 2.0
+    return a
+
+
+def _init_leaf(rng: np.random.Generator, leaf: str, shape) -> np.ndarray:
+    """One parameter, by its flax name, with its flax initializer's law."""
+    if leaf == "pos_embedding":
+        return rng.normal(scale=0.02, size=shape)
+    if leaf.endswith("_embedding"):
+        return rng.normal(scale=1.0 / np.sqrt(shape[1]), size=shape)
+    if leaf == "kernel":  # lecun_normal: variance 1 / fan_in, truncated
+        std = np.sqrt(1.0 / shape[0]) / 0.87962566103423978
+        return _truncated_normal(rng, shape) * std
+    if leaf == "scale":
+        return np.ones(shape)
+    if leaf.endswith("_wx"):
+        limit = np.sqrt(6.0 / (shape[0] + shape[1]))
+        return rng.uniform(-limit, limit, size=shape)
+    if leaf.endswith("_wh"):
+        return _orthogonal(rng, shape)
+    a = np.zeros(shape)  # biases and output_bias
+    if leaf.startswith("lstm") and leaf.endswith("_b"):
+        H = shape[0] // 4
+        a[H:2 * H] = 1.0  # the forget gate's +1 (blocks i|f|g|o)
+    return a
+
+
 def random_params(model, seed: int) -> Dict:
     """A flax-layout tree for `model` (a SeqRecModel), drawn with numpy from
-    `seed` with the flax initializers' distributions, in f32."""
+    `seed` with the flax initializers' distributions, in f32. Leaves nest by
+    their full path (`tower.block0.LayerNorm_0.scale` ->
+    params/tower/block0/LayerNorm_0/scale)."""
     rng = np.random.default_rng(seed)
-    params: Dict = {}
-    tower: Dict = {}
+    flat = {}
     for name, p in model.named_parameters():
-        shape = tuple(p.shape)
-        leaf = name.split(".")[-1]
-        if leaf.endswith("_embedding"):
-            a = rng.normal(scale=1.0 / np.sqrt(shape[1]), size=shape)
-        elif leaf.endswith("_wx"):
-            limit = np.sqrt(6.0 / (shape[0] + shape[1]))
-            a = rng.uniform(-limit, limit, size=shape)
-        elif leaf.endswith("_wh"):
-            a = _orthogonal(rng, shape)
-        else:  # gru biases and output_bias
-            a = np.zeros(shape)
-        (tower if name.startswith("tower.") else params)[leaf] = a.astype(np.float32)
-    if tower:
-        params["tower"] = tower
-    return {"params": params}
+        path = name.replace(".", "/")
+        flat[path] = _init_leaf(rng, path.rsplit("/", 1)[-1],
+                                tuple(p.shape)).astype(np.float32)
+    return {"params": _unflatten(flat)}

@@ -1,9 +1,10 @@
 """SeqRecModel: the port of `seqrec_tpu/models/model.py`.
 
-Item table + sequence tower + scoring, as one `nn.Module`. Parameter names
-and layouts are the flax ones (`item_embedding` [rows, D], `output_embedding`,
-`output_bias`, `user_embedding`, `tower.gru{l}_*`), so `models.convert` maps a
-JAX parameter tree onto `state_dict` by name.
+Item table + sequence tower (GRU4Rec with a GRU or LSTM cell, or SASRec) +
+scoring, as one `nn.Module`. Parameter names and layouts are the flax ones
+(`item_embedding` [rows, D], `output_embedding`, `output_bias`,
+`user_embedding`, `tower.*`), so `models.convert` maps a JAX parameter tree
+onto `state_dict` by name.
 
 Batch layout as in the reference: `inputs` [B, T] item ids (0 = pad),
 `targets` [B, T] next-item ids, `mask` [B, T] {0, 1}, pads at the tail.
@@ -57,6 +58,10 @@ class SeqRecModel(nn.Module):
         num_layers: int = 1,
         cell_type: str = "gru",
         residual: bool = False,
+        num_heads: int = 1,
+        mlp_dim: int = 256,
+        max_len: int = 200,
+        remat: bool = False,
         dropout_rate: float = 0.1,
         loss_type: str = "full_softmax",
         # The negative sampler of training: the sampled-softmax logQ
@@ -101,7 +106,9 @@ class SeqRecModel(nn.Module):
                                   param_dtype=param_dtype, device=device,
                                   dropout_rate=dropout_rate)
         elif arch == "sasrec":
-            self.tower = SASRecTower()
+            self.tower = SASRecTower(hidden, num_layers, num_heads, mlp_dim, max_len,
+                                     dropout_rate=dropout_rate, use_pallas=use_pallas,
+                                     remat=remat, param_dtype=param_dtype, device=device)
         else:
             raise ValueError(f"unknown arch {arch!r}")
 
@@ -241,6 +248,10 @@ def build_model(cfg: ModelConfig, vocab_size: int, *, num_users: int = 0,
         num_layers=cfg.num_layers,
         cell_type=cfg.cell_type,
         residual=cfg.residual,
+        num_heads=cfg.num_heads,
+        mlp_dim=cfg.mlp_dim if cfg.mlp_dim is not None else 4 * cfg.embed_dim,
+        max_len=cfg.max_len,
+        remat=cfg.remat,
         dropout_rate=cfg.dropout_rate,
         loss_type=cfg.loss,
         neg_sampler=neg_sampler,

@@ -6,7 +6,9 @@
 """
 
 from seqrec_tpu_torch.ops.dispatch import (  # noqa: F401
+    causal_attention,
     embedding_gather,
     gru_scan,
+    lstm_scan,
     sampled_softmax_loss,
 )

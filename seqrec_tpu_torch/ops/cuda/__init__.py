@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels, one module per CUDA source.
+"""Hand-written Hopper kernels, one module per CUDA source: `attention`,
+`gather`, `gru`, `head` (`csrc/softmax_head.cu`) and `lstm`.
 
 Each module holds its kernels' wrappers (which launch `csrc/<name>.cu` for a
 CUDA tensor, count the launch, and raise on what the kernel cannot take),

@@ -1,0 +1,146 @@
+"""Causal self-attention forward kernel (`csrc/attention.cu`), joined to a
+recompute backward by a `torch.autograd.Function`.
+
+Replaces `seqrec_tpu/ops/pallas/attention.py::causal_attention` and its
+custom VJP `_attn_core_bwd`. Forward: the kernel, on the [B, T, N, Dh]
+layout as it comes (the slices of the qkv projection need no copy) and any
+T: the ragged last tile is masked inside the kernel, where the TPU wrapper
+pads T to its 128-row tile in device memory. Backward, as `_attn_core_bwd`:
+a recompute of the materialized [T, T] attention in plain tensor code
+(`reference.causal_attention`) and its autograd; a flash backward kernel is
+ROADMAP.md Queue 2 speed work.
+
+The JAX package gates its Pallas kernel off by default (`supported`, a TPU
+measurement); the port has no gates, so a CUDA tensor always takes this
+kernel.
+
+Numerics, as the TPU kernel: scores in f32 from f32 sums of products, the
+causal mask at -1e30, an online (max, sum) in f32, the probabilities rounded
+to v's dtype for the product with v, an f32 accumulator and a divide at the
+end. The plain version (the JAX oracle's formula) computes the scores in the
+input dtype, so in bf16 the two differ by bf16 rounding of the scores.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from seqrec_tpu_torch.ops import _build
+from seqrec_tpu_torch.ops import reference
+
+plain = reference.causal_attention
+
+SMEM_LIMIT = 232_448  # shared memory one block may opt in to on sm_90 (227 KB)
+TILE = 64  # kTile in csrc/attention.cu: query rows per block, key rows per tile
+MAX_HEAD_DIM = 256  # kMaxDh
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("attention")
+    fn = lib.seqrec_attention_forward
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.seqrec_attention_error_string.argtypes = [ctypes.c_int]
+    lib.seqrec_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch_config(B: int, T: int, N: int, Dh: int, dtype: torch.dtype) -> Dict[str, int]:
+    """Grid, block and shared memory of one launch; ValueError for a shape
+    the kernel cannot take: Dh <= 256, Dh * element size a multiple of 16
+    bytes, and the q, k and v tiles (64 padded f32 rows each) with the
+    64 x 68 f32 probability tile inside the 227 KB a block can have (at
+    Dh = 256: 212 KB)."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"attention: dtype {dtype} not in float32/bfloat16")
+    if min(B, T, N, Dh) <= 0:
+        raise ValueError(f"attention: empty shape B={B} T={T} N={N} Dh={Dh}")
+    es = torch.empty((), dtype=dtype).element_size()
+    if Dh > MAX_HEAD_DIM or (Dh * es) % 16 != 0:
+        raise ValueError(f"attention: needs Dh <= {MAX_HEAD_DIM} and Dh*{es} % 16 == 0 "
+                         f"(Dh={Dh})")
+    smem = (3 * TILE * (Dh + 4) + TILE * (TILE + 4)) * 4
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"attention: {smem} bytes of shared memory, over the "
+                         f"{SMEM_LIMIT} a block can have (Dh={Dh})")
+    return {"grid": [-(-T // TILE), B * N], "threads": 256, "smem_bytes": smem}
+
+
+def _kernel_view(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself where the kernel can read it in place (Dh contiguous, the
+    head stride Dh, 16-byte aligned rows), else a contiguous copy."""
+    B, T, N, Dh = t.shape
+    es = t.element_size()
+    ok = (t.stride(3) == 1 and (N == 1 or t.stride(2) == Dh)
+          and t.data_ptr() % 16 == 0
+          and all((t.stride(d) * es) % 16 == 0 for d in (0, 1)))
+    return t if ok else t.contiguous()
+
+
+def _forward_kernel(q, k, v, scale: float) -> torch.Tensor:
+    B, T, N, Dh = q.shape
+    cfg = launch_config(B, T, N, Dh, q.dtype)
+    for name, t in (("k", k), ("v", v)):
+        if tuple(t.shape) != (B, T, N, Dh) or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"attention: {name} {tuple(t.shape)} {t.dtype} on {t.device} "
+                             f"does not match q {tuple(q.shape)} {q.dtype} on {q.device}")
+    q, k, v = (_kernel_view(t) for t in (q, k, v))
+    out = torch.empty((B, T, N, Dh), dtype=q.dtype, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        rc = lib.seqrec_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, N, T, Dh, _DTYPE_CODE[q.dtype],
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            float(scale), cfg["smem_bytes"], torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if rc != 0:
+        msg = lib.seqrec_attention_error_string(rc).decode()
+        raise RuntimeError(f"attention kernel launch failed: CUDA error {rc} ({msg})")
+    causal_attention.launches += 1
+    return out
+
+
+class _Attention(torch.autograd.Function):
+    """Causal attention of q, k, v [B, T, N, Dh]; the counterpart of the JAX
+    package's `_attn_core`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if q.device.type == "cpu":
+            out = plain(q, k, v, scale=scale)
+        else:
+            out = _forward_kernel(q, k, v, scale)
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = plain(*leaves, scale=ctx.scale)
+        return (*torch.autograd.grad(out, leaves, g), None)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Causal attention [B, T, N, Dh] -> [B, T, N, Dh] in q.dtype,
+    differentiable in q, k and v. A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention: no kernel for device {q.device}")
+    if q.dim() != 4:
+        raise ValueError(f"attention: q must be [B, T, N, Dh], got {tuple(q.shape)}")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _Attention.apply(q, k, v, float(scale))
+
+
+causal_attention.launches = 0

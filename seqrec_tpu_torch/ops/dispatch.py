@@ -11,9 +11,11 @@ and no fallback from a kernel to the plain version.
 from __future__ import annotations
 
 from seqrec_tpu_torch.ops import reference
+from seqrec_tpu_torch.ops.cuda import attention as cuda_attention
 from seqrec_tpu_torch.ops.cuda import gather as cuda_gather
 from seqrec_tpu_torch.ops.cuda import gru as cuda_gru
 from seqrec_tpu_torch.ops.cuda import head as cuda_head
+from seqrec_tpu_torch.ops.cuda import lstm as cuda_lstm
 
 
 def embedding_gather(table, ids, *, use_pallas: bool = True):
@@ -28,6 +30,19 @@ def gru_scan(x, h0, w_x, w_h, b_x=None, b_h=None, *, reset_mask=None,
         return cuda_gru.gru_scan(x, h0, w_x, w_h, b_x, b_h,
                                  reset_mask=reset_mask)
     return reference.gru_scan(x, h0, w_x, w_h, b_x, b_h, reset_mask=reset_mask)
+
+
+def lstm_scan(x, h0, c0, w_x, w_h, b=None, *, reset_mask=None,
+              use_pallas: bool = True):
+    if use_pallas:
+        return cuda_lstm.lstm_scan(x, h0, c0, w_x, w_h, b, reset_mask=reset_mask)
+    return reference.lstm_scan(x, h0, c0, w_x, w_h, b, reset_mask=reset_mask)
+
+
+def causal_attention(q, k, v, *, scale=None, use_pallas: bool = True):
+    if use_pallas:
+        return cuda_attention.causal_attention(q, k, v, scale=scale)
+    return reference.causal_attention(q, k, v, scale=scale)
 
 
 def sampled_softmax_loss(h, pos_emb, neg_emb, targets, neg_ids, weights, *,

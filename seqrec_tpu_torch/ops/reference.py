@@ -5,9 +5,9 @@ Each function keeps the JAX oracle's semantics and layout (weights stored
 [in, out], gate blocks r|z|n), so the same numpy inputs give the same answer
 on both sides. They are the CPU path, the path taken when `use_pallas` is
 false, and the yardstick each hand-written kernel in `ops/cuda/` is held
-against. Ported so far: the gather and its scatter-add transpose, the GRU
-scan and its analytic BPTT backward, the scoring heads and the five training
-losses. The LSTM and attention come with the slices that run them.
+against: the gather and its scatter-add transpose, the GRU and LSTM scans
+and their analytic BPTT backwards, causal self-attention, the scoring heads
+and the five training losses.
 """
 
 from __future__ import annotations
@@ -170,6 +170,173 @@ def gru_bwd_math(x_proj: torch.Tensor, hs: torch.Tensor, h0: torch.Tensor,
     dW = torch.einsum("bth,btk->hk", h_in.float(), d_hproj)
     db = d_hproj.sum(dim=(0, 1))
     return d_xp, dh0, dW, db
+
+
+# ---------------------------------------------------------------------------
+# LSTM
+# ---------------------------------------------------------------------------
+#
+# Gate blocks i|f|g|o (cuDNN's and torch.nn.LSTM's order, with the weights
+# transposed), no peepholes; the forget-gate +1 lives in the initializer.
+# The working dtype is x.dtype throughout, the cell state included.
+
+
+def lstm_gates(x_proj: torch.Tensor, h_proj: torch.Tensor,
+               c_prev: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LSTM gate math given the projections ([..., 4H], i|f|g|o). Returns
+    (h_next, c_next)."""
+    zi, zf, zg, zo = (x_proj + h_proj).chunk(4, dim=-1)
+    c_next = torch.sigmoid(zf) * c_prev + torch.sigmoid(zi) * torch.tanh(zg)
+    return torch.sigmoid(zo) * torch.tanh(c_next), c_next
+
+
+def lstm_scan(
+    x: torch.Tensor,  # [B, T, D_in]
+    h0: torch.Tensor,  # [B, H]
+    c0: torch.Tensor,  # [B, H]
+    w_x: torch.Tensor,  # [D_in, 4H]
+    w_h: torch.Tensor,  # [H, 4H]
+    b: Optional[torch.Tensor] = None,  # [4H]
+    *,
+    reset_mask: Optional[torch.Tensor] = None,  # [B, T] 1 = reset BEFORE step t
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Run an LSTM over time. Returns (outputs [B, T, H], (h_last, c_last)).
+    Where `reset_mask` is 1 both states are zeroed before step t."""
+    dtype = x.dtype
+    x_proj = torch.einsum("btd,dh->bth", x, w_x.to(dtype))
+    if b is not None:
+        x_proj = x_proj + b.to(dtype)
+    w_h_c = w_h.to(dtype)
+    keep = None if reset_mask is None else 1.0 - reset_mask.to(dtype)
+    h, c = h0.to(dtype), c0.to(dtype)
+    ys = []
+    for t in range(x.shape[1]):
+        if keep is not None:
+            h = h * keep[:, t, None]
+            c = c * keep[:, t, None]
+        h, c = lstm_gates(x_proj[:, t], h @ w_h_c, c)
+        ys.append(h)
+    return torch.stack(ys, dim=1), (h, c)
+
+
+# LSTM backward: `seqrec_tpu/ops/pallas/lstm.py::_recompute_cells` and
+# `_lstm_bwd_math`, line for line, in f32. As for the GRU, the products that
+# do not depend on the running cotangent are hoisted out of the reverse loop;
+# the loop (`lstm_bwd_scan`) is what the reverse kernel in csrc/lstm.cu
+# computes.
+
+
+def _keep_plane(reset: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if reset is None else (1.0 - reset.float())[:, :, None]
+
+
+def lstm_recompute_cells(x_proj: torch.Tensor, hs: torch.Tensor,
+                         h0: torch.Tensor, c0: torch.Tensor, w_h: torch.Tensor,
+                         reset: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The f32 cell states c_1..c_T [B, T, H] from the saved outputs: every
+    step's h @ W_h in one product, then a cheap serial loop over c. `x_proj`
+    is the f32 input projection with b added."""
+    H = h0.shape[-1]
+    keep = _keep_plane(reset)
+    h_prev = torch.cat([h0.to(hs.dtype)[:, None], hs[:, :-1]], dim=1).float()
+    if keep is not None:
+        h_prev = h_prev * keep
+    z = x_proj + torch.matmul(h_prev, w_h.float())
+    i = torch.sigmoid(z[..., :H])
+    f = torch.sigmoid(z[..., H:2 * H])
+    g = torch.tanh(z[..., 2 * H:3 * H])
+    c = c0.float()
+    cs = []
+    for t in range(hs.shape[1]):
+        if keep is not None:
+            c = c * keep[:, t]
+        c = f[:, t] * c + i[:, t] * g[:, t]
+        cs.append(c)
+    return torch.stack(cs, dim=1)
+
+
+def lstm_bwd_scan(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
+                  o: torch.Tensor, tanh_c: torch.Tensor, c_in: torch.Tensor,
+                  g_ys: torch.Tensor, w_h: torch.Tensor,
+                  keep: Optional[torch.Tensor] = None,
+                  dc_last: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reverse recurrence, t = T-1 .. 0, with f32 carries dh and dc;
+    `dc_last` [B, H] (the cotangent of c_T) starts the dc carry. Returns
+    (dz [B,T,4H] f32, dh0 [B,H] f32, dc0 [B,H] f32)."""
+    B, T, H = i.shape
+    w_h_t = w_h.float().T  # [4H, H]
+    dh_next = torch.zeros((B, H), dtype=torch.float32, device=i.device)
+    dc_next = dh_next if dc_last is None else dc_last.float()
+    dz = [None] * T
+    for t in range(T - 1, -1, -1):
+        i_t, f_t, g_t, o_t, tc = i[:, t], f[:, t], g[:, t], o[:, t], tanh_c[:, t]
+        dh = dh_next + g_ys[:, t].float()
+        dc = dc_next + dh * o_t * (1.0 - tc * tc)
+        dz[t] = torch.cat([dc * g_t * i_t * (1.0 - i_t),
+                           dc * c_in[:, t] * f_t * (1.0 - f_t),
+                           dc * i_t * (1.0 - g_t * g_t),
+                           dh * tc * o_t * (1.0 - o_t)], dim=-1)
+        dh_next = dz[t] @ w_h_t
+        dc_next = dc * f_t
+        if keep is not None:
+            dh_next = dh_next * keep[:, t]
+            dc_next = dc_next * keep[:, t]
+    return torch.stack(dz, dim=1), dh_next, dc_next
+
+
+def lstm_bwd_hoist(x_proj: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
+                   h0: torch.Tensor, c0: torch.Tensor, w_h: torch.Tensor,
+                   reset: Optional[torch.Tensor] = None):
+    """Recompute what the forward consumed, in parallel over T. Returns
+    (h_in, keep [B,T,1] or None, i, f, g, o, tanh_c, c_in), all f32 [B,T,H].
+    `x_proj` is the f32 input projection with b added, `cs` the f32 cells."""
+    H = h0.shape[-1]
+    keep = _keep_plane(reset)
+    h_in = torch.cat([h0.to(hs.dtype)[:, None], hs[:, :-1]], dim=1).float()
+    c_in = torch.cat([c0.float()[:, None], cs[:, :-1]], dim=1)
+    if keep is not None:
+        h_in, c_in = h_in * keep, c_in * keep
+    z = x_proj + torch.matmul(h_in, w_h.float())
+    return (h_in, keep, torch.sigmoid(z[..., :H]), torch.sigmoid(z[..., H:2 * H]),
+            torch.tanh(z[..., 2 * H:3 * H]), torch.sigmoid(z[..., 3 * H:]),
+            torch.tanh(cs), c_in)
+
+
+def lstm_bwd_math(x_proj: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
+                  h0: torch.Tensor, c0: torch.Tensor, w_h: torch.Tensor,
+                  g_ys: torch.Tensor, reset: Optional[torch.Tensor] = None, *,
+                  dc_last: Optional[torch.Tensor] = None, scan=None):
+    """Analytic LSTM BPTT. Returns (d_x_proj, d_h0, d_c0, d_w_h, d_b), all
+    f32. `cs` is the f32 cell plane c_1..c_T; `dc_last` the cotangent of
+    c_T. `scan` runs the reverse loop (`lstm_bwd_scan`'s signature; the
+    kernel wrapper passes its own)."""
+    h_in, keep, *planes = lstm_bwd_hoist(x_proj, hs, cs, h0, c0, w_h, reset)
+    dz, dh0, dc0 = (scan or lstm_bwd_scan)(*planes, g_ys, w_h, keep, dc_last)
+    dW = torch.einsum("bth,btk->hk", h_in, dz)
+    return dz, dh0, dc0, dW, dz.sum(dim=(0, 1))
+
+
+# ---------------------------------------------------------------------------
+# Causal self-attention (the SASRec tower)
+# ---------------------------------------------------------------------------
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Causal multi-head attention with materialized [T, T] scores, as the
+    JAX oracle: q, k, v [B, T, N, Dh] -> [B, T, N, Dh]. Scores in the input
+    dtype, masked with its most negative finite value; the softmax in f32,
+    its probabilities rounded to the input dtype for the product with v.
+    Position t attends to positions <= t."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("btnd,bsnd->bnts", q, k) * scale
+    T = q.shape[1]
+    causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    logits = logits.masked_fill(~causal, torch.finfo(logits.dtype).min)
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bnts,bsnd->btnd", probs, v)
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,10 @@
     state, metrics = trainer.train_step_multi(state, wires)   # [K, B, T+2]
 
 A step runs eagerly on the device: negatives drawn on the device, the loss
-through the kernels (gather, GRU scan, sampled-softmax head) and their
-backward kernels, the global gradient norm, and the optimizer. It is
-functional, as the JAX step is: the state it was given is left as it was.
+through the kernels (gather, the tower's GRU or LSTM scan or causal
+attention, sampled-softmax head) and their backward kernels, the global
+gradient norm, and the optimizer. It is functional, as the JAX step is:
+the state it was given is left as it was.
 Metrics stay on the device (no host sync inside a step). The fit loop, the
 data pipeline and a CUDA-graph capture of a K-step group come with later
 slices (ROADMAP.md Queue 1 item 3).

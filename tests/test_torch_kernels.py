@@ -10,9 +10,14 @@ Tolerances: gather bit-exact; GRU 1e-5 in f32 (same math, another summation
 order) and 3e-2 in bf16 (the plain version rounds every gate op to bf16, the
 kernel only the new h). Scatter-add 1e-5 (f32 atomics: the order of each
 row's sum changes from run to run). Head 1e-5 relative (both sides multiply
-in f32, bf16 inputs exactly; only the summation order differs). GRU backward
-1e-4 (f32 carry over T steps, another summation order in each step's 3H-long
-dot product)."""
+in f32, bf16 inputs exactly; only the summation order differs). GRU and
+LSTM backward 1e-4 (f32 carries over T steps, another summation order in
+each step's dot product). LSTM forward 1e-5 in f32 and 5e-2 in bf16 (the
+plain version also rounds its cell state to bf16 every step). Attention
+2e-5 in f32 (an online softmax sums in another order); in bf16 5e-2 against
+the plain version, which rounds its scores to bf16, and 2e-2 against the
+plain version in f32 on the same bf16 inputs (the kernel rounds only the
+probabilities and the output to bf16)."""
 
 import numpy as np
 import pytest
@@ -21,9 +26,11 @@ import torch
 from seqrec_tpu_torch.config import ModelConfig
 from seqrec_tpu_torch.models import build_model
 from seqrec_tpu_torch.models.convert import flax_to_state_dict, random_params
+from seqrec_tpu_torch.ops.cuda import attention as k_attn
 from seqrec_tpu_torch.ops.cuda import gather as k_gather
 from seqrec_tpu_torch.ops.cuda import gru as k_gru
 from seqrec_tpu_torch.ops.cuda import head as k_head
+from seqrec_tpu_torch.ops.cuda import lstm as k_lstm
 from seqrec_tpu_torch.ops import reference
 
 pytestmark = pytest.mark.cuda
@@ -360,3 +367,248 @@ def test_train_step_with_kernels_matches_plain(cuda):
     assert a["nonfinite"] == b["nonfinite"] == 0.0 and a["tokens"] == b["tokens"]
     assert abs(a["loss"] - b["loss"]) <= 2e-2 * abs(b["loss"])
     assert abs(a["grad_norm"] - b["grad_norm"]) <= 5e-2 * b["grad_norm"]
+
+
+# ---------------------------------------------------------------------------
+# The SASRec and LSTM towers' kernels: causal attention, LSTM scan and its
+# reverse recurrence
+# ---------------------------------------------------------------------------
+
+
+def _qkv(B, T, N, Dh, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=(B, T, N, Dh)).astype(np.float32))
+                 .to(device, dtype) for _ in range(3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,N,Dh", [(2, 50, 2, 32), (3, 200, 1, 64), (2, 64, 1, 16),
+                                      (1, 7, 2, 256), (4, 129, 3, 8)])
+def test_attention_kernel_matches_plain(cuda, dtype, B, T, N, Dh):
+    q, k, v = _qkv(B, T, N, Dh, dtype, cuda, seed=T + Dh)
+    before = k_attn.causal_attention.launches
+    got = k_attn.causal_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert k_attn.causal_attention.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (B, T, N, Dh)
+    want = k_attn.plain(q, k, v)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=5e-2, atol=5e-2)
+        exact = k_attn.plain(q.float(), k.float(), v.float())
+        torch.testing.assert_close(got.float(), exact, rtol=2e-2, atol=2e-2)
+
+
+def test_attention_kernel_reads_qkv_slices_in_place_and_keeps_causality(cuda):
+    """q, k, v as strided slices of one [B, T, 3, N, Dh] projection (the
+    SASRec block's layout), a custom scale, and no leak from future keys."""
+    B, T, N, Dh = 3, 70, 2, 32
+    qkv = torch.randn(B, T, 3, N, Dh, generator=torch.Generator().manual_seed(0)).to(cuda)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    got = k_attn.causal_attention(q, k, v, scale=0.3)
+    torch.testing.assert_close(got, k_attn.plain(q, k, v, scale=0.3), rtol=2e-5, atol=2e-5)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 40:] = 0.0
+    v2[:, 40:] = -5.0
+    again = k_attn.causal_attention(q, k2, v2, scale=0.3)
+    assert torch.equal(got[:, :40], again[:, :40])
+    assert not torch.allclose(got[:, 40:], again[:, 40:])
+
+
+def test_attention_autograd_with_the_kernel_matches_plain_autograd(cuda):
+    leaves = [t.detach().requires_grad_(True) for t in _qkv(2, 90, 2, 32, torch.float32, cuda)]
+    g = torch.randn(2, 90, 2, 32, device=cuda)
+    before = k_attn.causal_attention.launches
+    (k_attn.causal_attention(*leaves) * g).sum().backward()
+    assert k_attn.causal_attention.launches == before + 1
+    got = [t.grad.clone() for t in leaves]
+    for t in leaves:
+        t.grad = None
+    (k_attn.plain(*leaves) * g).sum().backward()
+    for name, a, t in zip("qkv", got, leaves):
+        torch.testing.assert_close(a, t.grad, rtol=1e-4, atol=1e-4, msg=f"d{name}")
+
+
+def test_attention_kernel_raises_on_what_it_cannot_take(cuda):
+    q, k, v = _qkv(2, 8, 1, 264, torch.float32, cuda)
+    with pytest.raises(ValueError, match="Dh <= 256"):
+        k_attn.causal_attention(q, k, v)
+    q, k, v = _qkv(2, 8, 1, 32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="does not match"):
+        k_attn.causal_attention(q, k.bfloat16(), v)
+
+
+def _lstm_args(B, T, D, H, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device)
+
+    return (t(B, T, D).to(dtype), (t(B, H) * 0.5).to(dtype), (t(B, H) * 0.5).to(dtype),
+            t(D, 4 * H, scale=D ** -0.5), t(H, 4 * H, scale=H ** -0.5), t(4 * H, scale=0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,D,H", [(5, 7, 16, 32), (3, 1, 32, 16), (64, 50, 128, 128),
+                                     (7, 9, 64, 96), (4, 6, 32, 256)])
+def test_lstm_kernel_matches_plain(cuda, dtype, B, T, D, H):
+    args = _lstm_args(B, T, D, H, dtype, cuda, seed=B + T)
+    before = k_lstm.lstm_scan.launches
+    ys, (h, c) = k_lstm.lstm_scan(*args)
+    torch.cuda.synchronize()
+    assert k_lstm.lstm_scan.launches == before + 1
+    want, (_, c_want) = k_lstm.plain(*args)
+    assert ys.dtype == c.dtype == dtype and tuple(ys.shape) == (B, T, H)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(ys.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(c.float(), c_want.float(), rtol=tol, atol=tol)
+    assert torch.equal(h, ys[:, -1])
+
+
+@pytest.mark.parametrize("rows_per_block", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_kernel_every_layout_and_the_cell_plane(cuda, rows_per_block, dtype, monkeypatch):
+    """Both row tilings (B not a multiple of R) at H=128, where W_h sits in
+    shared memory in bf16 and both weights are read through L2 in f32; the
+    cell plane the kernel writes for the backward equals the plain serial
+    recompute."""
+    args = [a.detach() for a in _lstm_args(11, 6, 128, 128, dtype, cuda, seed=1)]
+    real = k_lstm.launch_config
+    monkeypatch.setattr(k_lstm, "launch_config",
+                        lambda *a, **kw: real(*a, rows_per_block=rows_per_block))
+    ys, c_last, cs = k_lstm._forward_kernel(
+        args[0], args[1], args[2], args[3].to(dtype), args[4].to(dtype), args[5], True)
+    want, _ = k_lstm.plain(*args)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(ys.float(), want.float(), rtol=tol, atol=tol)
+    x_proj = torch.matmul(args[0].float(), args[3].to(dtype).float()) + args[5]
+    cells = reference.lstm_recompute_cells(x_proj, ys, args[1], args[2], args[4].to(dtype))
+    torch.testing.assert_close(cs, cells, rtol=1e-4, atol=1e-4)
+    assert torch.equal(c_last, cs[:, -1])
+
+
+def test_lstm_kernel_raises_on_reset_and_bad_shapes(cuda):
+    x, h0, c0, w_x, w_h, b = _lstm_args(4, 5, 16, 16, torch.float32, cuda, seed=2)
+    with pytest.raises(NotImplementedError, match="reset_mask"):
+        k_lstm.lstm_scan(x, h0, c0, w_x, w_h, b, reset_mask=torch.zeros(4, 5, device=cuda))
+    with pytest.raises(ValueError, match="H % 4"):
+        k_lstm.lstm_scan(x, h0[:, :6], c0[:, :6], w_x[:, :24], w_h[:6, :24])
+
+
+def _lstm_planes(B, T, H, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, lo=False):
+        a = rng.uniform(0.05, 0.95, size=shape) if lo else rng.normal(size=shape) * 0.5
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    i, f, o = t(B, T, H, lo=True), t(B, T, H, lo=True), t(B, T, H, lo=True)
+    g, tanh_c = torch.tanh(t(B, T, H)), torch.tanh(t(B, T, H))
+    c_in = t(B, T, H)
+    g_ys = t(B, T, H).to(dtype)
+    w_h = (t(H, 4 * H) * H ** -0.5).to(dtype)
+    return i, f, g, o, tanh_c, c_in, g_ys, w_h
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,R", [(5, 7, 32, None), (3, 1, 16, None),
+                                     (128, 50, 128, None), (11, 9, 64, 2),
+                                     (4, 6, 256, None)])
+def test_lstm_backward_kernel_matches_plain(cuda, dtype, B, T, H, R, monkeypatch):
+    if R is not None:
+        real = k_lstm.backward_launch_config
+        monkeypatch.setattr(k_lstm, "backward_launch_config",
+                            lambda *a, **kw: real(*a, rows_per_block=R))
+    planes = _lstm_planes(B, T, H, dtype, cuda, seed=B + T)
+    dc_last = torch.randn(B, H, device=cuda)
+    before = k_lstm.lstm_backward.launches
+    got = k_lstm.lstm_backward(*planes, None, dc_last)
+    torch.cuda.synchronize()
+    assert k_lstm.lstm_backward.launches == before + 1
+    want = k_lstm.plain_backward(*planes, None, dc_last)
+    for name, a, b in zip(("dz", "dh0", "dc0"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("B,T,D,H", [(6, 9, 32, 32), (16, 40, 128, 128)])
+def test_lstm_autograd_with_kernels_matches_plain_autograd(cuda, B, T, D, H):
+    """f32: the kernels' forward and backward against autograd through the
+    plain scan's own torch ops, with h_last and c_last in the loss."""
+    args = [a.detach().requires_grad_(True)
+            for a in _lstm_args(B, T, D, H, torch.float32, cuda, seed=3)]
+    g = torch.from_numpy(np.random.default_rng(4).normal(size=(B, T, H))
+                         .astype(np.float32)).to(cuda)
+    f0, b0 = k_lstm.lstm_scan.launches, k_lstm.lstm_backward.launches
+    ys, (h_last, c_last) = k_lstm.lstm_scan(*args)
+    ((ys * g).sum() + h_last.sum() + (c_last ** 2).sum()).backward()
+    assert (k_lstm.lstm_scan.launches - f0, k_lstm.lstm_backward.launches - b0) == (1, 1)
+    got = [a.grad.clone() for a in args]
+    for a in args:
+        a.grad = None
+    ys_p, (h_p, c_p) = k_lstm.plain(*args)
+    ((ys_p * g).sum() + h_p.sum() + (c_p ** 2).sum()).backward()
+    for name, x, y in zip(("x", "h0", "c0", "w_x", "w_h", "b"), got, args):
+        torch.testing.assert_close(x, y.grad, rtol=1e-4, atol=1e-4, msg=name)
+
+
+TOWERS = {"sasrec": dict(arch="sasrec", num_heads=2, max_len=12),
+          "lstm": dict(arch="gru4rec", cell_type="lstm", residual=True)}
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tower", sorted(TOWERS))
+def test_tower_scores_with_kernels_match_plain(cuda, tower, compute_dtype):
+    """Two layers: every lookup, scan and attention of the model goes
+    through the kernels, and the scores agree with the plain path."""
+    kw = dict(embed_dim=32, num_layers=2, loss="full_softmax", compute_dtype=compute_dtype,
+              **TOWERS[tower])
+    models = [build_model(ModelConfig(use_pallas=p, **kw), 50, device=cuda)
+              for p in (True, False)]
+    state = flax_to_state_dict(random_params(models[0], seed=4))
+    for m in models:
+        m.load_state_dict(state)
+    rng = np.random.default_rng(5)
+    inputs = torch.from_numpy(rng.integers(0, 50, size=(6, 12)).astype(np.int32)).to(cuda)
+    mask = (torch.arange(12, device=cuda)[None] < torch.tensor([[12], [3], [1], [0], [7], [12]],
+                                                               device=cuda)).float()
+    counters = (k_gather.embedding_gather, k_attn.causal_attention, k_lstm.lstm_scan)
+    before = [c.launches for c in counters]
+    with torch.inference_mode():
+        got = models[0].scores(inputs, mask)
+        want = models[1].scores(inputs, mask)
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    assert launched == ([1, 2, 0] if tower == "sasrec" else [1, 0, 2])
+    tol = 1e-4 if compute_dtype == "float32" else 1e-1
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("tower", sorted(TOWERS))
+def test_tower_loss_backward_on_cuda_reaches_every_parameter(cuda, tower):
+    """Each kernel of the new training paths launches the expected number of
+    times in one loss and backward, and every parameter gets a finite
+    gradient."""
+    from seqrec_tpu_torch.data.negative import sample_negatives
+
+    cfg = ModelConfig(embed_dim=32, num_layers=2, loss="sampled_softmax", num_negatives=40,
+                      dropout_rate=0.2, **TOWERS[tower])
+    m = build_model(cfg, 60, device=cuda)
+    m.load_state_dict(flax_to_state_dict(random_params(m, seed=1)))
+    rng = np.random.default_rng(2)
+    seq = torch.from_numpy(rng.integers(1, 60, size=(4, 13)).astype(np.int32)).to(cuda)
+    batch = {"inputs": seq[:, :-1], "targets": seq[:, 1:], "mask": torch.ones(4, 12, device=cuda)}
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    neg_ids, nlq = sample_negatives(gen, 40, 60, "log_uniform")
+    counters = (k_gather.embedding_gather, k_gather.embedding_scatter_add,
+                k_attn.causal_attention, k_lstm.lstm_scan, k_lstm.lstm_backward,
+                k_head.sampled_softmax_nll)
+    before = [c.launches for c in counters]
+    loss_sum, w_sum = m.loss(batch, neg_ids=neg_ids, neg_log_q=nlq, generator=gen)
+    (loss_sum / w_sum).backward()
+    got = [c.launches - b for c, b in zip(counters, before)]
+    assert got == ([3, 3, 2, 0, 0, 1] if tower == "sasrec" else [3, 3, 0, 2, 2, 1])
+    for name, p in m.named_parameters():
+        assert p.grad is not None, name
+        assert bool(torch.isfinite(p.grad).all()), name

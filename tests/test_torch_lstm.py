@@ -1,0 +1,373 @@
+"""The port's LSTM (ops, tower, model, training step) against the JAX
+package on identical numpy inputs: `ops/xla.py`'s oracle, the Pallas scan in
+interpret mode with its custom VJP, and the flax modules with converted
+weights. The LSTM kernels themselves are held against their plain versions
+on the card by tests/test_torch_kernels.py.
+
+Tolerances, each with its reason:
+- f32 1e-5 (values) and 1e-4 (the final cell state, gradients through the
+  reverse recurrence): same formulas, another summation order, and the
+  Pallas path's c_last comes from a recompute of the cells;
+- bf16 5e-2: both sides round every op to bf16, the cell state included,
+  with different fusion of the gate sums; the Pallas path runs narrow bf16
+  shapes in f32 (a TPU tiling choice), so it is compared in f32 only."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seqrec_tpu.config import ModelConfig as JaxModelConfig
+from seqrec_tpu.models import build_model as jax_build_model
+from seqrec_tpu.models.towers import RNNTower as JaxRNNTower
+from seqrec_tpu.models.towers import zero_carry as jax_zero_carry
+from seqrec_tpu.ops import xla as xla_ops
+from seqrec_tpu.ops.pallas import lstm as pl_lstm
+from seqrec_tpu_torch.config import ModelConfig
+from seqrec_tpu_torch.models import build_model
+from seqrec_tpu_torch.models.convert import flax_to_state_dict, random_params
+from seqrec_tpu_torch.models.towers import RNNTower, zero_carry
+from seqrec_tpu_torch.ops import dispatch, reference
+from seqrec_tpu_torch.ops.cuda import lstm as cuda_lstm
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_TOL = dict(rtol=5e-2, atol=5e-2)
+
+
+def _np(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        return (a.float() if a.is_floating_point() else a).numpy()
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def _inputs(B=4, T=7, D=8, H=16, seed=0):
+    """x, h0, c0, w_x, w_h, b at the initializers' scale, a reset plane and
+    an output cotangent."""
+    rng = np.random.default_rng(seed)
+
+    def a(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    args = (a(B, T, D), a(B, H, scale=0.5), a(B, H, scale=0.5), a(D, 4 * H, scale=D ** -0.5),
+            a(H, 4 * H, scale=H ** -0.5), a(4 * H, scale=0.1))
+    reset = rng.integers(0, 2, size=(B, T)).astype(np.float32)
+    return args, reset, a(B, T, H)
+
+
+def _torch(args, dtype=torch.float32):
+    x, h0, c0, *w = (torch.from_numpy(a) for a in args)
+    return (x.to(dtype), h0.to(dtype), c0.to(dtype), *w)
+
+
+# ---------------------------------------------------------------------------
+# The scan
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_reset", [False, True])
+def test_lstm_plain_matches_xla(dtype, with_reset):
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    args, reset, _ = _inputs()
+    jx, jh0, jc0, *jw = (jnp.asarray(a) for a in args)
+    ys_j, (h_j, c_j) = xla_ops.lstm_scan(
+        jx.astype(jdt), jh0.astype(jdt), jc0.astype(jdt), *jw,
+        reset_mask=jnp.asarray(reset) if with_reset else None)
+    ys_t, (h_t, c_t) = reference.lstm_scan(
+        *_torch(args, tdt), reset_mask=torch.from_numpy(reset) if with_reset else None)
+    assert ys_t.dtype == c_t.dtype == tdt and tuple(ys_t.shape) == (4, 7, 16)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    for got, want in ((ys_t, ys_j), (h_t, h_j), (c_t, c_j)):
+        np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+@pytest.mark.parametrize("with_reset", [False, True])
+def test_lstm_plain_matches_pallas_interpret(with_reset):
+    args, reset, _ = _inputs(B=8, T=8, D=16, H=16, seed=1)
+    ys_p, (h_p, c_p) = pl_lstm.lstm_scan(
+        *(jnp.asarray(a) for a in args),
+        reset_mask=jnp.asarray(reset) if with_reset else None, interpret=True)
+    ys_t, (h_t, c_t) = reference.lstm_scan(
+        *_torch(args), reset_mask=torch.from_numpy(reset) if with_reset else None)
+    np.testing.assert_allclose(_np(ys_t), _np(ys_p), **F32_TOL)
+    np.testing.assert_allclose(_np(h_t), _np(h_p), **F32_TOL)
+    np.testing.assert_allclose(_np(c_t), _np(c_p), **GRAD_TOL)
+
+
+def test_lstm_plain_matches_torch_nn_lstm():
+    """Second oracle: nn.LSTM has the same i|f|g|o blocks, with the weights
+    transposed and a second bias (here zero)."""
+    args, _, _ = _inputs(seed=2)
+    x, h0, c0, w_x, w_h, b = _torch(args)
+    cell = torch.nn.LSTM(8, 16, batch_first=True)
+    with torch.no_grad():
+        cell.weight_ih_l0.copy_(w_x.T)
+        cell.weight_hh_l0.copy_(w_h.T)
+        cell.bias_ih_l0.copy_(b)
+        cell.bias_hh_l0.zero_()
+        want, (h_last, c_last) = cell(x, (h0[None], c0[None]))
+    ys, (h, c) = reference.lstm_scan(x, h0, c0, w_x, w_h, b)
+    np.testing.assert_allclose(_np(ys), _np(want), **F32_TOL)
+    np.testing.assert_allclose(_np(c), _np(c_last[0]), **F32_TOL)
+
+
+@pytest.mark.parametrize("oracle", ["pallas_interpret", "xla"])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_lstm_grads_match_jax(oracle, with_bias):
+    """The port's LSTM autograd on the CPU (plain forward, `lstm_bwd_math`
+    as backward) against jax.grad through the Pallas scan's custom VJP and
+    through the XLA scan's autodiff, the final h and c both in the loss."""
+    args, _, g = _inputs(B=3, T=6, D=8, H=12, seed=3)
+    scan = {"pallas_interpret": lambda *a: pl_lstm.lstm_scan(*a, interpret=True),
+            "xla": xla_ops.lstm_scan}[oracle]
+    n = 6 if with_bias else 5
+
+    def jloss(*a):
+        ys, (h_last, c_last) = scan(*a)
+        return jnp.sum(ys * g) + jnp.sum(h_last) + jnp.sum(c_last ** 2)
+
+    j_loss, j_grads = jax.value_and_grad(jloss, argnums=tuple(range(n)))(
+        *(jnp.asarray(a) for a in args[:n]))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args[:n]]
+    before = cuda_lstm.lstm_scan.launches, cuda_lstm.lstm_backward.launches
+    ys, (h_last, c_last) = cuda_lstm.lstm_scan(*leaves)
+    loss = (ys * torch.from_numpy(g)).sum() + h_last.sum() + (c_last ** 2).sum()
+    loss.backward()
+    assert (cuda_lstm.lstm_scan.launches, cuda_lstm.lstm_backward.launches) == before
+    np.testing.assert_allclose(_np(loss), _np(j_loss), **GRAD_TOL)
+    for name, t, j in zip(("x", "h0", "c0", "w_x", "w_h", "b"), leaves, j_grads):
+        np.testing.assert_allclose(_np(t.grad), _np(j), err_msg=name, **GRAD_TOL)
+
+
+def test_c_last_gradients_match_oracle():
+    """The counterpart of the JAX package's test of the same name: c_last's
+    cotangent alone reaches every weight, as in the XLA oracle."""
+    args, _, _ = _inputs(B=4, T=6, D=8, H=16, seed=4)
+    x, h0, c0 = (jnp.asarray(a) for a in args[:3])
+
+    def g(w_x, w_h, b):
+        _, (_, c_last) = xla_ops.lstm_scan(x, h0, c0, w_x, w_h, b)
+        return jnp.sum(c_last ** 2)
+
+    want = jax.grad(g, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in args[3:]))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args[3:]]
+    _, (_, c_last) = cuda_lstm.lstm_scan(*_torch(args)[:3], *leaves)
+    (c_last ** 2).sum().backward()
+    for name, t, j in zip(("w_x", "w_h", "b"), leaves, want):
+        assert float(jnp.max(jnp.abs(j))) > 0.0
+        np.testing.assert_allclose(_np(t.grad), _np(j), err_msg=name, **GRAD_TOL)
+
+
+def test_lstm_backward_math_matches_jax():
+    """`reference.lstm_recompute_cells` and `lstm_bwd_math`, the plain
+    backward, against `_recompute_cells` and `_lstm_bwd_math`, with and
+    without a reset plane."""
+    args, reset, g = _inputs(B=3, T=6, D=8, H=12, seed=5)
+    x, h0, c0, w_x, w_h, b = args
+    ys, _ = xla_ops.lstm_scan(*(jnp.asarray(a) for a in args), reset_mask=jnp.asarray(reset))
+    x_proj = np.asarray(jnp.einsum("btd,dh->bth", jnp.asarray(x), jnp.asarray(w_x))) + b
+    t = {k: torch.from_numpy(np.array(v)) for k, v in
+         dict(x_proj=x_proj, ys=ys, h0=h0, c0=c0, w_h=w_h, g=g).items()}
+    for rs in (None, reset):
+        j_rs = None if rs is None else jnp.asarray(rs)
+        t_rs = None if rs is None else torch.from_numpy(rs)
+        cs_j = pl_lstm._recompute_cells(jnp.asarray(x_proj), ys, jnp.asarray(h0),
+                                        jnp.asarray(c0), jnp.asarray(w_h), j_rs)
+        cs_t = reference.lstm_recompute_cells(t["x_proj"], t["ys"], t["h0"], t["c0"],
+                                              t["w_h"], t_rs)
+        np.testing.assert_allclose(_np(cs_t), _np(cs_j), **F32_TOL)
+        want = pl_lstm._lstm_bwd_math(jnp.asarray(x_proj), ys, cs_j, jnp.asarray(h0),
+                                      jnp.asarray(c0), jnp.asarray(w_h), jnp.asarray(g), j_rs)
+        got = reference.lstm_bwd_math(t["x_proj"], t["ys"], cs_t, t["h0"], t["c0"],
+                                      t["w_h"], t["g"], t_rs)
+        for name, a, w in zip(("d_xp", "dh0", "dc0", "dW", "db"), got, want):
+            np.testing.assert_allclose(_np(a), _np(w), err_msg=name, **F32_TOL)
+
+
+def test_lstm_wrappers_on_cpu_are_the_plain_versions():
+    args, reset, _ = _inputs(seed=6)
+    before = cuda_lstm.lstm_scan.launches, cuda_lstm.lstm_backward.launches
+    for use_pallas in (True, False):
+        ys, (h, c) = dispatch.lstm_scan(*_torch(args), reset_mask=torch.from_numpy(reset),
+                                        use_pallas=use_pallas)
+        want, (_, c_want) = reference.lstm_scan(*_torch(args),
+                                                reset_mask=torch.from_numpy(reset))
+        np.testing.assert_array_equal(_np(ys), _np(want))
+        np.testing.assert_array_equal(_np(h), _np(ys[:, -1]))
+        np.testing.assert_array_equal(_np(c), _np(c_want))
+    rng = np.random.default_rng(7)
+    planes = [torch.from_numpy(rng.random((2, 3, 8)).astype(np.float32)) for _ in range(7)]
+    w_h = torch.from_numpy(rng.normal(size=(8, 32)).astype(np.float32))
+    dc_last = torch.from_numpy(rng.normal(size=(2, 8)).astype(np.float32))
+    got = cuda_lstm.lstm_backward(*planes, w_h, None, dc_last)
+    for a, b in zip(got, cuda_lstm.plain_backward(*planes, w_h, None, dc_last)):
+        assert torch.equal(a, b)
+    assert (cuda_lstm.lstm_scan.launches, cuda_lstm.lstm_backward.launches) == before
+
+
+def test_lstm_launch_configs_at_the_training_shape():
+    """bf16: W_h (128 KB) in shared memory, W_x through L2 with two rows a
+    block; f32: W_h alone is 256 KB, so both go through L2. The reverse
+    recurrence keeps W_h^T in shared memory in bf16 only."""
+    assert cuda_lstm.launch_config(128, 200, 128, 128, torch.bfloat16) == {
+        "grid": 64, "threads": 128, "rows_per_block": 2, "wh_in_smem": 1,
+        "wx_in_smem": 0, "smem_bytes": 2 * 2 * 128 * 4 + 2 * 2 * 128 * 2 + 128 * 512 * 2}
+    f32 = cuda_lstm.launch_config(128, 200, 128, 128, torch.float32)
+    assert (f32["rows_per_block"], f32["wh_in_smem"], f32["wx_in_smem"]) == (2, 0, 0)
+    small = cuda_lstm.launch_config(64, 200, 64, 64, torch.float32)
+    assert (small["rows_per_block"], small["wh_in_smem"], small["wx_in_smem"]) == (1, 1, 1)
+    assert cuda_lstm.backward_launch_config(128, 200, 128, torch.bfloat16) == {
+        "grid": 128, "threads": 128, "rows_per_block": 1, "w_in_smem": 1,
+        "smem_bytes": 2 * 512 * 4 + 512 * 128 * 2}
+    bwd32 = cuda_lstm.backward_launch_config(128, 200, 128, torch.float32)
+    assert (bwd32["rows_per_block"], bwd32["w_in_smem"]) == (2, 0)
+    for cfg in (f32, small, bwd32):
+        assert cfg["smem_bytes"] <= cuda_lstm.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype,P", [(torch.float32, 4), (torch.bfloat16, 8)])
+def test_lstm_weights_are_k_packed_for_16_byte_reads(dtype, P):
+    """The forward kernel reads W [K, 4H] as [K/P, 4H, P]: P consecutive k
+    rows of one column in 16 bytes."""
+    w = torch.arange(16 * 12, dtype=torch.float32).reshape(16, 12).to(dtype)
+    packed = cuda_lstm.pack_k(w)
+    assert tuple(packed.shape) == (16 // P, 12, P) and packed.is_contiguous()
+    for kb, c, p in ((0, 0, 0), (1, 5, P - 1), (16 // P - 1, 11, 2)):
+        assert packed[kb, c, p] == w[kb * P + p, c]
+
+
+@pytest.mark.parametrize("shape,dtype,match", [
+    ((4, 5, 8, 12), torch.float64, "dtype"),
+    ((4, 5, 8, 10), torch.float32, "H % 4"),
+    ((4, 5, 6, 12), torch.float32, r"D\*4 % 16"),
+    ((4, 5, 4, 12), torch.bfloat16, r"D\*2 % 16"),
+    ((4, 5, 8, 260), torch.float32, "H <= 256"),
+    ((0, 5, 8, 12), torch.float32, "empty"),
+    ((4, 5, 8, 12), torch.float32, "rows_per_block"),
+])
+def test_lstm_kernel_rejects_what_it_cannot_take(shape, dtype, match):
+    with pytest.raises(ValueError, match=match):
+        cuda_lstm.launch_config(*shape, dtype,
+                                rows_per_block=3 if match == "rows_per_block" else None)
+
+
+# ---------------------------------------------------------------------------
+# The tower, the model and a training step
+# ---------------------------------------------------------------------------
+
+VOCAB, T = 30, 8
+
+
+def test_lstm_tower_matches_flax_with_carry_and_reset():
+    """RNNTower(cell="lstm"), two residual layers, against the flax module
+    with its own initialized parameters: plain encode, and the
+    session-parallel form with a carry and a reset plane."""
+    B, D, L = 3, 8, 2
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(B, T, D)).astype(np.float32)
+    mask = np.ones((B, T), np.float32)
+    reset = rng.integers(0, 2, size=(B, T)).astype(np.float32)
+    jt = JaxRNNTower(hidden=D, num_layers=L, cell="lstm", residual=True, use_pallas=False)
+    carry0 = jax_zero_carry("lstm", L, B, D)
+    params = jt.init(jax.random.key(1), jnp.asarray(x), jnp.asarray(mask),
+                     carry=carry0, reset=jnp.asarray(reset))
+    params = jax.tree_util.tree_map(np.asarray, params)
+    assert sorted(params["params"]) == ["lstm0_b", "lstm0_wh", "lstm0_wx",
+                                        "lstm1_b", "lstm1_wh", "lstm1_wx"]
+    tt = RNNTower(D, D, L, cell="lstm", residual=True)
+    tt.load_state_dict(flax_to_state_dict(params))
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            _np(tt(torch.from_numpy(x), torch.from_numpy(mask))),
+            np.asarray(jt.apply(params, jnp.asarray(x), jnp.asarray(mask))), **F32_TOL)
+    carry = tuple(tuple(np.asarray(s) + 0.1 * (i + 1) for s in c)
+                  for i, c in enumerate(carry0))
+    want_h, want_c = jt.apply(params, jnp.asarray(x), jnp.asarray(mask),
+                              carry=jax.tree_util.tree_map(jnp.asarray, carry),
+                              reset=jnp.asarray(reset))
+    with torch.no_grad():
+        assert all(torch.equal(s, torch.zeros(B, D))
+                   for c in zero_carry("lstm", L, B, D) for s in c)
+        got_h, got_c = tt(torch.from_numpy(x), torch.from_numpy(mask),
+                          carry=tuple(tuple(torch.from_numpy(s) for s in c) for c in carry),
+                          reset=torch.from_numpy(reset))
+    np.testing.assert_allclose(_np(got_h), np.asarray(want_h), **F32_TOL)
+    for g, w in zip(jax.tree_util.tree_leaves(tuple(got_c)),
+                    jax.tree_util.tree_leaves(want_c)):
+        np.testing.assert_allclose(_np(g), np.asarray(w), **F32_TOL)
+
+
+def _lstm_cfg(**kw):
+    return dict(arch="gru4rec", cell_type="lstm", embed_dim=16, num_layers=2,
+                residual=True, dropout_rate=0.0, compute_dtype="float32",
+                loss="sampled_softmax", num_negatives=9, **kw)
+
+
+def _batch(rng, B=4):
+    inputs = np.zeros((B, T), np.int32)
+    targets = np.zeros((B, T), np.int32)
+    for r, n in enumerate([T, 5, 1, 3][:B]):
+        seq = rng.integers(1, VOCAB, size=n + 1)
+        inputs[r, :n], targets[r, :n] = seq[:-1], seq[1:]
+    return {"inputs": inputs, "targets": targets, "mask": (targets != 0).astype(np.float32)}
+
+
+def test_lstm_model_encode_scores_loss_and_grads_match_jax():
+    jm = jax_build_model(JaxModelConfig(**_lstm_cfg()), VOCAB)
+    tm = build_model(ModelConfig(**_lstm_cfg()), VOCAB, device="cpu")
+    params = random_params(tm, seed=3)
+    tm.load_state_dict(flax_to_state_dict(params))
+    j_params = jax.tree_util.tree_map(jnp.asarray, params)
+    batch = _batch(np.random.default_rng(9))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            _np(tm.encode(tb["inputs"], tb["mask"])),
+            np.asarray(jm.apply(j_params, jb["inputs"], jb["mask"])), **F32_TOL)
+        np.testing.assert_allclose(
+            _np(tm.scores(tb["inputs"], tb["mask"])),
+            np.asarray(jm.apply(j_params, jb["inputs"], jb["mask"], method=jm.scores)),
+            **F32_TOL)
+    rng = np.random.default_rng(10)
+    neg_ids = rng.integers(1, VOCAB, size=9).astype(np.int32)
+    nlq = (rng.normal(size=9) - 3).astype(np.float32)
+
+    def jloss(p):
+        return jm.apply(p, jb, neg_ids=jnp.asarray(neg_ids), neg_log_q=jnp.asarray(nlq),
+                        deterministic=True, method=jm.loss)
+
+    j_sum, j_w = jloss(j_params)
+    j_grads = flax_to_state_dict(jax.tree_util.tree_map(
+        np.asarray, jax.grad(lambda p: jloss(p)[0])(j_params)))
+    t_sum, t_w = tm.loss(tb, neg_ids=torch.from_numpy(neg_ids),
+                         neg_log_q=torch.from_numpy(nlq), deterministic=True)
+    t_sum.backward()
+    np.testing.assert_allclose(_np(t_sum), _np(j_sum), **F32_TOL)
+    assert float(t_w) == float(j_w)
+    got = dict(tm.named_parameters())
+    assert sorted(got) == sorted(j_grads)
+    for name, p in got.items():
+        np.testing.assert_allclose(_np(p.grad), j_grads[name].numpy(), err_msg=name,
+                                   **GRAD_TOL)
+
+
+def test_lstm_random_params_forget_bias_and_initializers():
+    tm = build_model(ModelConfig(**_lstm_cfg()), VOCAB, device="cpu")
+    tower = random_params(tm, seed=5)["params"]["tower"]
+    assert sorted(tower) == ["lstm0_b", "lstm0_wh", "lstm0_wx",
+                             "lstm1_b", "lstm1_wh", "lstm1_wx"]
+    H = 16
+    for layer in (0, 1):
+        b = tower[f"lstm{layer}_b"]
+        np.testing.assert_array_equal(b[H:2 * H], np.ones(H))
+        assert not b[:H].any() and not b[2 * H:].any()
+        w_h = tower[f"lstm{layer}_wh"]  # [H, 4H], orthonormal rows
+        np.testing.assert_allclose(w_h @ w_h.T, np.eye(H), atol=1e-5)
+        assert np.abs(tower[f"lstm{layer}_wx"]).max() <= np.sqrt(6.0 / (H + 4 * H))
+    tm.load_state_dict(flax_to_state_dict({"params": {**random_params(tm, 5)["params"]}}))

@@ -191,14 +191,17 @@ def test_recommend_refuses_catalogs_that_need_chunked_topk(monkeypatch):
 
 
 def test_training_and_unported_towers_raise():
-    """`loss` is ported; session-parallel `loss_stream` and the LSTM and
-    SASRec towers still raise, naming their ROADMAP item."""
+    """`loss` and the LSTM and SASRec towers are ported; session-parallel
+    `loss_stream` and SASRec's `remat` still raise, naming their ROADMAP
+    item."""
     _, _, tm = _pair(loss="full_softmax")
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
         tm.loss_stream({}, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+        build_model(ModelConfig(arch="sasrec", remat=True), VOCAB, device="cpu")
     for arch, cell in (("gru4rec", "lstm"), ("sasrec", "gru")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_model(ModelConfig(arch=arch, cell_type=cell), VOCAB, device="cpu")
+        m = build_model(ModelConfig(arch=arch, cell_type=cell), VOCAB, device="cpu")
+        assert m.tower is not None
 
 
 def test_npz_round_trip_and_random_params(tmp_path):

@@ -74,6 +74,7 @@ def test_kernel_modules_import_and_nothing_builds_without_nvcc(monkeypatch):
     env = {**os.environ, "PATH": "/nonexistent"}
     code = ("import seqrec_tpu_torch.ops.cuda.gather, seqrec_tpu_torch.ops.cuda.gru\n"
             "import seqrec_tpu_torch.ops.cuda.head, seqrec_tpu_torch.train.trainer\n"
+            "import seqrec_tpu_torch.ops.cuda.attention, seqrec_tpu_torch.ops.cuda.lstm\n"
             "from seqrec_tpu_torch.ops import _build\n"
             "assert not _build._LIBS\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
