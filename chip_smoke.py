@@ -49,11 +49,33 @@ source, all at once). Each phase prints one JSON line:
   i. train    phase f on both, three groups through the kernels and one
               through the plain versions each (SASRec's 1,000-step warmup
               is set to 0 so that 24 steps run at the peak rate);
-  j. the kernels line: {"kernels": [{name, route, source, replaces,
+  j. session_kernels  the reset variants of the GRU and LSTM scans and of
+              their reverse recurrences (session-parallel training) against
+              their plain versions, bf16 and f32, at B=256, T=50, D=H=100
+              (rsc15_gru4rec, GRU) and B=128, T=200, D=H=128 (GRU and LSTM),
+              with a session start about every 6 positions and a dirty
+              carry: an all-zero reset plane gives the no-reset kernels'
+              bits, a reset at t=0 makes the output independent of h0 (and
+              c0) and the h0 (and c0) gradient zero, and gradients through
+              autograd match; with kernel, plain and bound times;
+  k. train_session  `Trainer.train_step_multi` with the carry across
+              windows on configs/rsc15_gru4rec.json, unchanged (bf16,
+              D=H=100, B=256, T=50, BPR-max over 2,048 uniform negatives),
+              fed [256, 50] windows of a session-parallel stream over
+              synthetic sessions with RSC15's shapes (37,483 items, 100,000
+              sessions of 2..12 clicks), packed into int32 session wires: 3
+              groups through the kernels, 1 through the plain versions, the
+              checks of phase f plus the step-1 carry, peak device memory
+              that does not grow from the first group to the last, and the
+              windows that fell back to the dict path; then the same on
+              configs/ml1m_lstm.json with data.session_parallel=true
+              (synthetic ML-1M-shaped sessions of 5..200 items), 2 groups;
+  l. the kernels line: {"kernels": [{name, route, source, replaces,
               launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
-              library_ms}, ...]} for all eight kernels, `launches` counted
+              library_ms}, ...]} for all twelve kernels, `launches` counted
               on a training path (GRU4Rec's for the gather, scatter-add and
-              head; the counts of every path beside it).
+              head, the session paths' for the reset variants; the counts of
+              every path beside it).
 
 Then the raw nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -78,10 +100,13 @@ import numpy as np
 import torch
 
 from seqrec_tpu_torch.config import RunConfig
+from seqrec_tpu_torch.data.batching import make_session_stream
+from seqrec_tpu_torch.data.dataset import synthetic_dataset
 from seqrec_tpu_torch.data.negative import log_uniform_log_prob, sample_log_uniform
 from seqrec_tpu_torch.eval import infer
 from seqrec_tpu_torch.models import build_model
 from seqrec_tpu_torch.models.convert import flax_to_state_dict, random_params
+from seqrec_tpu_torch.models.model import SAMPLED_LOSSES
 from seqrec_tpu_torch.ops import _build, reference
 from seqrec_tpu_torch.ops.cuda import attention as k_attn
 from seqrec_tpu_torch.ops.cuda import gather as k_gather
@@ -91,8 +116,15 @@ from seqrec_tpu_torch.ops.cuda import lstm as k_lstm
 from seqrec_tpu_torch.train.trainer import Trainer
 
 CONFIGS = {"gru4rec": "configs/ml1m_gru4rec.json", "sasrec": "configs/ml1m_sasrec.json",
-           "lstm": "configs/ml1m_lstm.json"}
+           "lstm": "configs/ml1m_lstm.json", "rsc15_gru4rec": "configs/rsc15_gru4rec.json"}
 VOCAB = 3418  # ML-1M: 3,417 items + the pad row (bench.py's catalog)
+# Synthetic sessions with each session path's shapes (synthetic_dataset's
+# arguments). RSC15: the catalog after the GRU4Rec paper's filtering (Hidasi
+# et al., ICLR 2016, Table 1), sessions as configs/rsc15_10m.json synthesizes
+# them; ML-1M: its catalog and users, histories of 5..200 as phases d-i.
+SESSION_DATA = {"rsc15_gru4rec": dict(num_users=100_000, num_items=37_483, min_len=2,
+                                      max_len=12),
+                "lstm": dict(num_users=6_040, num_items=VOCAB - 1, min_len=5, max_len=200)}
 B, K = 64, 10  # serving batch (the CLI default) and top-k
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; f32 w/o tensor cores
@@ -124,6 +156,16 @@ LSTM_F32_TOL = 1e-5  # same f32 math, another summation order
 LSTM_CUDNN_F32_TOL = 1e-4  # cuDNN's own GEMM order, TF32 off
 LSTM_BF16_TOL = 5e-2  # the plain version rounds every gate op and c to bf16, the kernel only h
 LSTM_BWD_TOL = 1e-4  # relative to the largest value: f32 carries over 200 steps
+# Session paths (phases j, k).
+CARRY_TOL = {"gru": GRU_BF16_TOL, "lstm": LSTM_BF16_TOL}  # step-1 carry, bf16 kernels vs plain
+# Peak device memory, last group vs first, relative: the caching allocator
+# hands out whole cached blocks (up to 1 MB over a request) in another
+# pattern from group to group (2.6% on the LSTM session path, H100); a carry
+# that kept its graph would add K steps of saved activations, several times
+# the first group's peak.
+MEM_GROWTH_TOL = 0.1
+RESET_EVERY = 6  # a session start about every 6 positions (rsc15 averages ~5 clicks)
+NO_RESET_LIBRARY = "none: cuDNN's RNNs take no reset mask"
 
 
 class CheckFailed(AssertionError):
@@ -220,6 +262,72 @@ def phase_build() -> None:
           "compiled": sorted(logs), "ptxas": ptxas})
 
 
+def _dname(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def _gru_forward_check(dev, x32, weights, h32, dtype, reset=None) -> dict:
+    """The GRU forward kernel against its plain version in `dtype`. Without
+    `reset`, also against torch.nn.GRU (the library yardstick). With a [B, T]
+    `reset` plane, the reset variant: also bit-exact against the no-reset
+    kernel on an all-zero plane, and blind to h0 with a reset at t=0."""
+    B, T, D = x32.shape
+    H = h32.shape[-1]
+    name = f"gru {_dname(dtype)} {B}x{T}x{D}" + ("" if reset is None else " reset")
+    x, h0 = x32.to(dtype), h32.to(dtype)
+    args = (x, h0, *weights)
+    ys, h_last = k_gru.gru_scan(*args, reset_mask=reset)
+    torch.cuda.synchronize()
+    ys_plain, _ = k_gru.plain(*args, reset_mask=reset)
+    tol = GRU_F32_TOL if dtype == torch.float32 else GRU_BF16_TOL
+    err = max_err(ys, ys_plain)
+    check(bool(torch.isfinite(ys).all()), f"{name}: non-finite output")
+    check(torch.equal(h_last, ys[:, -1]), f"{name}: h_last is not ys[:, -1]")
+    check(err <= tol, f"{name}: kernel vs plain max abs err {err} > {tol}")
+    es = x.element_size()
+    r_bytes = (B * T * D + B * H + (D + H) * 3 * H + B * T * H) * es + 2 * 3 * H * 4
+    rec = {"shape": {"B": B, "T": T, "D": D, "H": H, "dtype": _dname(dtype)},
+           "launch": k_gru.launch_config(B, T, D, H, dtype),
+           "max_abs_err": err, "tolerance": tol}
+    if reset is None:
+        w_x, w_h, b_x, b_h = weights
+        lib = torch.nn.GRU(D, H, batch_first=True, device=dev, dtype=dtype)
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(w_x.T)
+            lib.weight_hh_l0.copy_(w_h.T)
+            lib.bias_ih_l0.copy_(b_x)
+            lib.bias_hh_l0.copy_(b_h)
+            ys_lib, _ = lib(x, h0[None])
+            lib_ms = time_ms(lambda: lib(x, h0[None]))
+        lib_err = max_err(ys, ys_lib)
+        lib_tol = GRU_CUDNN_F32_TOL if dtype == torch.float32 else GRU_BF16_TOL
+        check(lib_err <= lib_tol, f"{name}: kernel vs torch.nn.GRU max abs err {lib_err} > "
+                                  f"{lib_tol}")
+        rec.update(max_abs_err_vs_nn_gru=lib_err, tolerance_vs_nn_gru=lib_tol,
+                   library_ms=lib_ms)
+    else:
+        r_bytes += B * T * 4  # the keep plane
+        check(torch.equal(k_gru.gru_scan(*args, reset_mask=torch.zeros_like(reset))[0],
+                          k_gru.gru_scan(*args)[0]),
+              f"{name}: an all-zero reset plane is not the no-reset kernel's bits")
+        at0 = reset.clone()
+        at0[:, 0] = 1.0
+        check(torch.equal(k_gru.gru_scan(*args, reset_mask=at0)[0],
+                          k_gru.gru_scan(x, -h0, *weights, reset_mask=at0)[0]),
+              f"{name}: with a reset at t=0 the output depends on h0")
+        rec.update(resets=int(reset.sum().item()), zero_plane_bit_exact=True,
+                   reset_at_t0_ignores_h0=True, library_ms=None, library=NO_RESET_LIBRARY)
+    r_flops = 2 * B * T * (D + H) * 3 * H
+    r_bound, r_by = bound(r_bytes, r_flops, dtype)
+    rec.update({
+        "kernel_ms": time_ms(lambda: k_gru.gru_scan(*args, reset_mask=reset)),
+        "plain_ms": time_ms(lambda: k_gru.plain(*args, reset_mask=reset), reps=5),
+        "bound_ms": r_bound, "bound_by": r_by, "bytes": int(r_bytes),
+        "flops": int(r_flops), "serial_steps": T,
+    })
+    return rec
+
+
 def phase_kernels(rng: np.random.Generator, dev) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -256,50 +364,11 @@ def phase_kernels(rng: np.random.Generator, dev) -> dict:
     }
 
     # --- GRU scan ------------------------------------------------------------
-    w_x, w_h, b_x, b_h = gru_weights(rng, D, H)
+    weights = [w.to(dev) for w in gru_weights(rng, D, H)]
     x32 = k_gather.plain(table, ids_ok)  # the embeddings serving feeds in
-    weights = [w.to(dev) for w in (w_x, w_h, b_x, b_h)]
-    for dtype, tol in ((torch.float32, GRU_F32_TOL), (torch.bfloat16, GRU_BF16_TOL)):
-        x = x32.to(dtype)
-        h0 = torch.zeros(B, H, dtype=dtype, device=dev)
-        args = (x, h0, *weights)
-        ys, h_last = k_gru.gru_scan(*args)
-        torch.cuda.synchronize()
-        ys_plain, _ = k_gru.plain(*args)
-        err = (ys.float() - ys_plain.float()).abs().max().item()
-        check(bool(torch.isfinite(ys).all()), f"gru {dtype}: non-finite output")
-        check(torch.equal(h_last, ys[:, -1]), f"gru {dtype}: h_last is not ys[:, -1]")
-        check(err <= tol, f"gru {dtype}: kernel vs plain max abs err {err} > {tol}")
-        lib = torch.nn.GRU(D, H, batch_first=True, device=dev, dtype=dtype)
-        with torch.no_grad():
-            lib.weight_ih_l0.copy_(w_x.T)
-            lib.weight_hh_l0.copy_(w_h.T)
-            lib.bias_ih_l0.copy_(b_x)
-            lib.bias_hh_l0.copy_(b_h)
-        with torch.no_grad():
-            ys_lib, _ = lib(x, h0[None])
-        lib_err = (ys.float() - ys_lib.float()).abs().max().item()
-        lib_tol = GRU_CUDNN_F32_TOL if dtype == torch.float32 else GRU_BF16_TOL
-        check(lib_err <= lib_tol,
-              f"gru {dtype}: kernel vs torch.nn.GRU max abs err {lib_err} > {lib_tol}")
-        es = x.element_size()
-        r_bytes = (B * T * D + B * H + (D + H) * 3 * H + B * T * H) * es + 2 * 3 * H * 4
-        r_flops = 2 * B * T * (D + H) * 3 * H
-        r_bound, r_by = bound(r_bytes, r_flops, dtype)
-        with torch.no_grad():
-            lib_ms = time_ms(lambda: lib(x, h0[None]))
-        out[f"gru_scan_{str(dtype).split('.')[-1]}"] = {
-            "shape": {"B": B, "T": T, "D": D, "H": H, "dtype": str(dtype).split(".")[-1]},
-            "launch": k_gru.launch_config(B, T, D, H, dtype),
-            "max_abs_err": err, "tolerance": tol,
-            "max_abs_err_vs_nn_gru": lib_err, "tolerance_vs_nn_gru": lib_tol,
-            "kernel_ms": time_ms(lambda: k_gru.gru_scan(*args)),
-            "plain_ms": time_ms(lambda: k_gru.plain(*args)),
-            "library_ms": lib_ms,
-            "bound_ms": r_bound, "bound_by": r_by, "bytes": int(r_bytes),
-            "flops": int(r_flops),
-            "serial_steps": T,
-        }
+    h32 = torch.zeros(B, H, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        out[f"gru_scan_{_dname(dtype)}"] = _gru_forward_check(dev, x32, weights, h32, dtype)
     emit({"phase": "kernels", **out})
     return out
 
@@ -332,19 +401,25 @@ def make_requests(rng: np.random.Generator, max_len: int, n_requests: int = 320)
 
 def expected_launches(cfg: RunConfig, training: bool) -> dict:
     """Launches of each kernel per served batch or per training step on the
-    path `cfg` describes: one gather per batch (inputs) or three per step
-    (inputs, positives, negatives) with their scatter-adds and the head;
-    the tower's kernel once per layer or block, and its backward per layer."""
+    path `cfg` describes: one gather per batch (inputs); per step three with
+    a sampled loss (inputs, positives, negatives) or one (full softmax),
+    each with its scatter-add, and the head kernel only for the sampled
+    softmax (BPR-max and the other ranking losses are plain tensor code);
+    the tower's kernel once per layer or block, and its backward per layer,
+    the reset variants on a session-parallel path."""
     m = cfg.model
     want = dict.fromkeys(COUNTERS, 0)
     if m.arch == "sasrec":
         want["causal_attention"] = m.num_layers
     else:
-        want[f"{m.cell_type}_scan"] = m.num_layers
+        variant = "_reset" if training and cfg.data.session_parallel else ""
+        want[f"{m.cell_type}_scan{variant}"] = m.num_layers
         if training:
-            want[f"{m.cell_type}_backward"] = m.num_layers
+            want[f"{m.cell_type}_backward{variant}"] = m.num_layers
     if training:
-        want.update(gather=3, gather_backward=3, softmax_head=1)
+        lookups = 3 if m.loss in SAMPLED_LOSSES else 1
+        want.update(gather=lookups, gather_backward=lookups,
+                    softmax_head=int(m.loss == "sampled_softmax"))
     else:
         want["gather"] = 1
     return want
@@ -380,8 +455,7 @@ def phase_serve(dev, seed: int, path: str, requests: list) -> dict:
         list(infer.recommend(m, batches[0], k=K, batch_size=B, max_len=max_len))
     torch.cuda.synchronize()
 
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    zero_counters()
     recs, times = serve(models[True])
     launches = read_counters()
     plain_recs, plain_times = serve(models[False])
@@ -480,70 +554,97 @@ def _scatter_add_check(rng, dev, table) -> dict:
     }
 
 
-def _gru_backward_checks(rng, dev, x32) -> dict:
+def _state(rng, dev, B: int, H: int) -> torch.Tensor:
+    """[B, H] f32 N(0, 0.5): a carried-in recurrent state."""
+    return torch.from_numpy(rng.normal(scale=0.5, size=(B, H)).astype(np.float32)).to(dev)
+
+
+def _leaf_grads(scan, leaves, rest, reset, g):
+    """Gradients of sum(ys * g) w.r.t. `leaves`, through `scan`."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+    ys = scan(*leaves, *rest, reset_mask=reset)[0]
+    ys.backward(g)
+    return [t.grad for t in leaves]
+
+
+def _gru_backward_checks(rng, dev, x32, reset=None) -> dict:
+    """The GRU reverse recurrence against its plain version, bf16 and f32, on
+    the planes of a kernel forward, and the whole backward through autograd
+    (forward and backward kernels). Without `reset` (h0 = 0), also the cuDNN
+    yardstick. With a [B, T] `reset` plane (and a random h0), the keep
+    variant: also bit-exact against the no-keep kernel on an all-ones plane,
+    and dh0 = 0 under a reset at t=0."""
     B, T, D = x32.shape
     H = D
     w_x, w_h, b_x, b_h = (w.to(dev) for w in gru_weights(rng, D, H))
     g32 = torch.from_numpy(rng.normal(scale=1e-2, size=(B, T, H)).astype(np.float32)).to(dev)
+    h32 = torch.zeros(B, H, device=dev) if reset is None else _state(rng, dev, B, H)
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[-1]
-        x, g = x32.to(dtype), g32.to(dtype)
-        h0 = torch.zeros(B, H, dtype=dtype, device=dev)
+        name = f"gru backward {_dname(dtype)} {B}x{T}x{H}" + ("" if reset is None else " keep")
+        x, g, h0 = x32.to(dtype), g32.to(dtype), h32.to(dtype)
         wx_c, wh_c = w_x.to(dtype), w_h.to(dtype)
         with torch.no_grad():
-            ys, _ = k_gru.gru_scan(x, h0, wx_c, wh_c, b_x, b_h)
+            ys, _ = k_gru.gru_scan(x, h0, wx_c, wh_c, b_x, b_h, reset_mask=reset)
             x_proj = torch.matmul(x.float(), wx_c.float()) + b_x
-            h_in, _, r, z, n, hn = reference.gru_bwd_hoist(x_proj, ys, h0, wh_c, b_h)
+            h_in, keep, r, z, n, hn = reference.gru_bwd_hoist(x_proj, ys, h0, wh_c, b_h, reset)
         planes = (r, z, n, hn, h_in, g, wh_c)
-        d_xp, dh0 = k_gru.gru_backward(*planes)
+        d_xp, dh0 = k_gru.gru_backward(*planes, keep)
         torch.cuda.synchronize()
-        want_xp, want_h0 = k_gru.plain_backward(*planes)
+        want_xp, want_h0 = k_gru.plain_backward(*planes, keep)
         errs = {"d_xp": rel_err(d_xp, want_xp), "dh0": rel_err(dh0, want_h0)}
         for k, e in errs.items():
-            check(e <= GRU_BWD_TOL, f"gru backward {name}: {k} kernel vs plain "
-                                    f"relative err {e} > {GRU_BWD_TOL}")
-        # The whole backward through autograd (forward and backward kernels).
-        leaves = [t.detach().clone().requires_grad_(True) for t in (x, w_x, w_h)]
-        ys_k, _ = k_gru.gru_scan(leaves[0], h0, leaves[1], leaves[2], b_x, b_h)
-        ys_k.backward(g)
+            check(e <= GRU_BWD_TOL, f"{name}: {k} kernel vs plain relative err {e} > "
+                                    f"{GRU_BWD_TOL}")
+        if keep is not None:
+            check(all(torch.equal(a, b) for a, b in zip(
+                k_gru.gru_backward(*planes, torch.ones_like(keep)), k_gru.gru_backward(*planes))),
+                f"{name}: an all-ones keep plane is not the no-keep kernel's bits")
+            keep0 = keep.clone()
+            keep0[:, 0] = 0.0
+            check(not bool(k_gru.gru_backward(*planes, keep0)[1].any()),
+                  f"{name}: dh0 is not 0 with a reset at t=0")
+        got = _leaf_grads(k_gru.gru_scan, (x, h0, w_x, w_h), (b_x, b_h), reset, g)
         if dtype == torch.bfloat16:
-            # Against reference.gru_bwd_math (the plain reverse loop), with
-            # the weight gradients rounded to bf16 as the autograd path does.
-            want_dxp, _, want_dwh, _ = reference.gru_bwd_math(x_proj, ys, h0, wh_c, b_h, g)
-            want_dwx = torch.einsum("btd,btk->dk", x.float(), want_dxp)
+            # Against reference.gru_bwd_math (the plain reverse loop), every
+            # gradient rounded to bf16 as the autograd path does.
+            want_dxp, want_dh0, want_dwh, _ = reference.gru_bwd_math(
+                x_proj, ys, h0, wh_c, b_h, g, reset)
+            want = [t.to(dtype) for t in (
+                torch.matmul(want_dxp, wx_c.float().T), want_dh0,
+                torch.einsum("btd,btk->dk", x.float(), want_dxp), want_dwh)]
             w_tol = GRU_BWD_BF16_W_TOL
-            w_errs = {"dW_h": rel_err(leaves[2].grad, want_dwh.to(dtype)),
-                      "dW_x": rel_err(leaves[1].grad, want_dwx.to(dtype))}
         else:
             # Against autograd through the plain scan's own torch ops.
-            plain_leaves = [t.detach().clone().requires_grad_(True) for t in (x, w_x, w_h)]
-            ys_p, _ = k_gru.plain(plain_leaves[0], h0, plain_leaves[1], plain_leaves[2],
-                                  b_x, b_h)
-            ys_p.backward(g)
+            want = _leaf_grads(k_gru.plain, (x, h0, w_x, w_h), (b_x, b_h), reset, g)
             w_tol = GRU_BWD_TOL
-            w_errs = {"dW_h": rel_err(leaves[2].grad, plain_leaves[2].grad),
-                      "dW_x": rel_err(leaves[1].grad, plain_leaves[1].grad),
-                      "d_x": rel_err(leaves[0].grad, plain_leaves[0].grad)}
+        w_errs = {k: rel_err(a, b) for k, a, b in zip(("d_x", "dh0", "dW_x", "dW_h"), got, want)}
         for k, e in w_errs.items():
-            check(e <= w_tol, f"gru backward {name}: {k} relative err {e} > {w_tol}")
-        es = x.element_size()
-        b_bytes = (4 * B * T * H * 4 + 2 * B * T * H * es + 3 * H * H * es
-                   + B * T * 3 * H * 4 + B * H * 4)
+            check(e <= w_tol, f"{name}: {k} through autograd relative err {e} > {w_tol}")
+        # The kernel works in h_in's dtype: x's, or f32 with a keep plane.
+        hs = h_in.element_size()
+        b_bytes = (4 * B * T * H * 4 + 2 * B * T * H * hs + 3 * H * H * hs
+                   + B * T * 3 * H * 4 + B * H * 4 + (0 if keep is None else B * T * 4))
         # d_hproj is f32, so the product runs at the f32 rate.
         b_flops = 2 * B * T * 3 * H * H
         b_bound, b_by = bound(b_bytes, b_flops, torch.float32)
-        out[name] = {
-            "shape": {"B": B, "T": T, "H": H, "dtype": name},
-            "launch": k_gru.backward_launch_config(B, T, H, dtype),
-            "rel_err": {**errs, **w_errs}, "tolerance": GRU_BWD_TOL,
-            "weight_tolerance": w_tol,
+        out[_dname(dtype)] = {
+            "shape": {"B": B, "T": T, "H": H, "dtype": _dname(dtype),
+                      "kernel_dtype": _dname(h_in.dtype)},
+            "launch": k_gru.backward_launch_config(B, T, H, h_in.dtype),
+            "rel_err": errs, "tolerance": GRU_BWD_TOL,
+            "autograd_rel_err": w_errs, "autograd_tolerance": w_tol,
             "max_abs_err": max(max_err(d_xp, want_xp), max_err(dh0, want_h0)),
-            "kernel_ms": time_ms(lambda: k_gru.gru_backward(*planes)),
-            "plain_ms": time_ms(lambda: k_gru.plain_backward(*planes), reps=5),
+            "kernel_ms": time_ms(lambda: k_gru.gru_backward(*planes, keep)),
+            "plain_ms": time_ms(lambda: k_gru.plain_backward(*planes, keep), reps=5),
             "bound_ms": b_bound, "bound_by": b_by, "bytes": int(b_bytes),
             "flops": int(b_flops), "serial_steps": T,
         }
+        if keep is not None:
+            out[_dname(dtype)].update(ones_plane_bit_exact=True, dh0_zero_with_reset_at_t0=True,
+                                      library_ms=None, library=NO_RESET_LIBRARY)
+    if reset is not None:
+        return out
     # Library yardstick: cuDNN's GRU backward in f32 (TF32 off), timed as
     # (forward + backward) - forward. The port never calls it.
     lib = torch.nn.GRU(D, H, batch_first=True, device=dev, dtype=torch.float32)
@@ -640,10 +741,6 @@ def phase_train_kernels(rng: np.random.Generator, dev) -> dict:
     return out
 
 
-def _dname(dtype) -> str:
-    return str(dtype).split(".")[-1]
-
-
 def _attention_checks(rng, dev) -> dict:
     """Causal attention at SASRec's training shape (ml1m_sasrec: B=128,
     T=200, one head of Dh=64): q, k, v of unit scale, as a LayerNorm'd
@@ -720,110 +817,146 @@ def _nn_lstm(w_x, w_h, b, dtype, dev):
     return lib
 
 
-def _lstm_checks(rng, dev, x32) -> dict:
-    """The LSTM forward and its reverse recurrence at ml1m_lstm's training
-    shape (B=128, T=200, D=H=128), fed the embeddings of Zipf ids."""
+def _lstm_checks(rng, dev, x32, reset=None) -> dict:
+    """The LSTM forward and its reverse recurrence against their plain
+    versions, bf16 and f32, fed the embeddings of Zipf ids, and the whole
+    backward through autograd. Without `reset` (h0 = c0 = 0), also against
+    torch.nn.LSTM and its cuDNN times. With a [B, T] `reset` plane (and a
+    random h0, c0), the reset variants: also bit-exact against the no-reset
+    kernels on an all-zero plane (all-ones keep), blind to h0 and c0 with a
+    reset at t=0, and dh0 = dc0 = 0 then."""
     Bl, T, D = x32.shape
     H = D
     w_x, w_h, b = (w.to(dev) for w in lstm_weights(rng, D, H))
     g32 = torch.from_numpy(rng.normal(scale=1e-2, size=(Bl, T, H)).astype(np.float32)).to(dev)
     dcl = torch.from_numpy(rng.normal(scale=1e-2, size=(Bl, H)).astype(np.float32)).to(dev)
+    if reset is None:
+        h32 = c32 = torch.zeros(Bl, H, device=dev)
+    else:
+        h32, c32 = _state(rng, dev, Bl, H), _state(rng, dev, Bl, H)
     fwd, bwd = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
-        name = _dname(dtype)
-        x = x32.to(dtype)
-        h0 = c0 = torch.zeros(Bl, H, dtype=dtype, device=dev)
+        name = f"lstm {_dname(dtype)} {Bl}x{T}x{D}" + ("" if reset is None else " reset")
+        x, h0, c0 = x32.to(dtype), h32.to(dtype), c32.to(dtype)
         args = (x, h0, c0, w_x, w_h, b)
-        ys, (h_last, c_last) = k_lstm.lstm_scan(*args)
+        ys, (h_last, c_last) = k_lstm.lstm_scan(*args, reset_mask=reset)
         torch.cuda.synchronize()
-        ys_p, (_, c_p) = k_lstm.plain(*args)
+        ys_p, (_, c_p) = k_lstm.plain(*args, reset_mask=reset)
         tol = LSTM_F32_TOL if dtype == torch.float32 else LSTM_BF16_TOL
         err, c_err = max_err(ys, ys_p), max_err(c_last, c_p)
-        check(bool(torch.isfinite(ys).all()), f"lstm {name}: non-finite output")
-        check(torch.equal(h_last, ys[:, -1]), f"lstm {name}: h_last is not ys[:, -1]")
+        check(bool(torch.isfinite(ys).all()), f"{name}: non-finite output")
+        check(torch.equal(h_last, ys[:, -1]), f"{name}: h_last is not ys[:, -1]")
         check(err <= tol and c_err <= tol,
-              f"lstm {name}: kernel vs plain max abs err {err} (ys), {c_err} (c_last) > {tol}")
-        lib = _nn_lstm(w_x, w_h, b, dtype, dev)
-        with torch.no_grad():
-            ys_lib, _ = lib(x, (h0[None], c0[None]))
-        lib_err = max_err(ys, ys_lib)
-        lib_tol = LSTM_CUDNN_F32_TOL if dtype == torch.float32 else LSTM_BF16_TOL
-        check(lib_err <= lib_tol,
-              f"lstm {name}: kernel vs torch.nn.LSTM max abs err {lib_err} > {lib_tol}")
+              f"{name}: kernel vs plain max abs err {err} (ys), {c_err} (c_last) > {tol}")
         es = x.element_size()
         f_bytes = (Bl * T * D + 2 * Bl * H + (D + H) * 4 * H + Bl * T * H) * es \
             + 4 * H * 4 + Bl * H * 4
+        rec = {"shape": {"B": Bl, "T": T, "D": D, "H": H, "dtype": _dname(dtype)},
+               "launch": k_lstm.launch_config(Bl, T, D, H, dtype),
+               "max_abs_err": max(err, c_err), "tolerance": tol}
+        if reset is None:
+            lib = _nn_lstm(w_x, w_h, b, dtype, dev)
+            with torch.no_grad():
+                ys_lib, _ = lib(x, (h0[None], c0[None]))
+                lib_ms = time_ms(lambda: lib(x, (h0[None], c0[None])))
+            lib_err = max_err(ys, ys_lib)
+            lib_tol = LSTM_CUDNN_F32_TOL if dtype == torch.float32 else LSTM_BF16_TOL
+            check(lib_err <= lib_tol,
+                  f"{name}: kernel vs torch.nn.LSTM max abs err {lib_err} > {lib_tol}")
+            rec.update(max_abs_err_vs_nn_lstm=lib_err, tolerance_vs_nn_lstm=lib_tol,
+                       library_ms=lib_ms)
+        else:
+            f_bytes += Bl * T * 4  # the keep plane
+            zero = k_lstm.lstm_scan(*args, reset_mask=torch.zeros_like(reset))
+            base = k_lstm.lstm_scan(*args)
+            check(torch.equal(zero[0], base[0]) and torch.equal(zero[1][1], base[1][1]),
+                  f"{name}: an all-zero reset plane is not the no-reset kernel's bits")
+            at0 = reset.clone()
+            at0[:, 0] = 1.0
+            a = k_lstm.lstm_scan(*args, reset_mask=at0)
+            o = k_lstm.lstm_scan(x, -h0, -c0, *args[3:], reset_mask=at0)
+            check(torch.equal(a[0], o[0]) and torch.equal(a[1][1], o[1][1]),
+                  f"{name}: with a reset at t=0 the output depends on h0, c0")
+            rec.update(resets=int(reset.sum().item()), zero_plane_bit_exact=True,
+                       reset_at_t0_ignores_h0_c0=True, library_ms=None,
+                       library=NO_RESET_LIBRARY)
         f_flops = 2 * Bl * T * (D + H) * 4 * H
         f_bound, f_by = bound(f_bytes, f_flops, dtype)
-        with torch.no_grad():
-            lib_ms = time_ms(lambda: lib(x, (h0[None], c0[None])))
-        fwd[name] = {
-            "shape": {"B": Bl, "T": T, "D": D, "H": H, "dtype": name},
-            "launch": k_lstm.launch_config(Bl, T, D, H, dtype),
-            "max_abs_err": max(err, c_err), "tolerance": tol,
-            "max_abs_err_vs_nn_lstm": lib_err, "tolerance_vs_nn_lstm": lib_tol,
-            "kernel_ms": time_ms(lambda: k_lstm.lstm_scan(*args)),
-            "plain_ms": time_ms(lambda: k_lstm.plain(*args), reps=5),
-            "library_ms": lib_ms,
+        rec.update({
+            "kernel_ms": time_ms(lambda: k_lstm.lstm_scan(*args, reset_mask=reset)),
+            "plain_ms": time_ms(lambda: k_lstm.plain(*args, reset_mask=reset), reps=5),
             "bound_ms": f_bound, "bound_by": f_by, "bytes": int(f_bytes),
             "flops": int(f_flops), "serial_steps": T,
-        }
+        })
+        fwd[_dname(dtype)] = rec
 
         # The reverse recurrence on the planes of this forward.
+        name = f"lstm backward {_dname(dtype)} {Bl}x{T}x{H}" + ("" if reset is None else " keep")
         wx_c, wh_c = w_x.to(dtype), w_h.to(dtype)
         with torch.no_grad():
-            ys_k, _, cs = k_lstm._forward_kernel(x, h0, c0, wx_c, wh_c, b, True)
+            ys_k, _, cs = k_lstm._forward_kernel(x, h0, c0, wx_c, wh_c, b, True,
+                                                 None if reset is None else 1.0 - reset)
             x_proj = torch.matmul(x.float(), wx_c.float()) + b
-            _, _, *planes = reference.lstm_bwd_hoist(x_proj, ys_k, cs, h0, c0, wh_c)
+            _, keep, *planes = reference.lstm_bwd_hoist(x_proj, ys_k, cs, h0, c0, wh_c, reset)
+        check(torch.equal(ys_k, ys), f"{name}: the cell-plane run changed ys")
         g = g32.to(dtype)
-        bargs = (*planes, g, wh_c, None, dcl)
+        bargs = (*planes, g, wh_c, keep, dcl)
         dz, dh0, dc0 = k_lstm.lstm_backward(*bargs)
         torch.cuda.synchronize()
         want = k_lstm.plain_backward(*bargs)
-        errs = {k: rel_err(a, w) for k, a, w in zip(("dz", "dh0", "dc0"), (dz, dh0, dc0), want)}
+        errs = {k: rel_err(u, v) for k, u, v in zip(("dz", "dh0", "dc0"), (dz, dh0, dc0), want)}
         for k, e in errs.items():
-            check(e <= LSTM_BWD_TOL, f"lstm backward {name}: {k} kernel vs plain "
-                                     f"relative err {e} > {LSTM_BWD_TOL}")
-        # The whole backward through autograd (forward and backward kernels).
-        leaves = [t.detach().clone().requires_grad_(True) for t in (x, w_x, w_h)]
-        ys_g, _ = k_lstm.lstm_scan(leaves[0], h0, c0, leaves[1], leaves[2], b)
-        ys_g.backward(g)
+            check(e <= LSTM_BWD_TOL, f"{name}: {k} kernel vs plain relative err {e} > "
+                                     f"{LSTM_BWD_TOL}")
+        if keep is not None:
+            ones = k_lstm.lstm_backward(*planes, g, wh_c, torch.ones_like(keep), dcl)
+            check(all(torch.equal(u, v) for u, v in zip(
+                ones, k_lstm.lstm_backward(*planes, g, wh_c, None, dcl))),
+                f"{name}: an all-ones keep plane is not the no-keep kernel's bits")
+            keep0 = keep.clone()
+            keep0[:, 0] = 0.0
+            _, dh0_at0, dc0_at0 = k_lstm.lstm_backward(*planes, g, wh_c, keep0, dcl)
+            check(not bool(dh0_at0.any()) and not bool(dc0_at0.any()),
+                  f"{name}: dh0, dc0 are not 0 with a reset at t=0")
+        got = _leaf_grads(k_lstm.lstm_scan, (x, h0, c0, w_x, w_h), (b,), reset, g)
         if dtype == torch.bfloat16:
-            # Against reference.lstm_bwd_math (the plain reverse loop), with
-            # the weight gradients rounded to bf16 as the autograd path does.
-            want_dxp, _, _, want_dwh, _ = reference.lstm_bwd_math(
-                x_proj, ys_k, cs, h0, c0, wh_c, g)
-            want_dwx = torch.einsum("btd,btk->dk", x.float(), want_dxp)
+            # Against reference.lstm_bwd_math (the plain reverse loop), every
+            # gradient rounded to bf16 as the autograd path does.
+            want_dxp, want_dh0, want_dc0, want_dwh, _ = reference.lstm_bwd_math(
+                x_proj, ys_k, cs, h0, c0, wh_c, g, reset)
+            want_g = [t.to(dtype) for t in (
+                torch.matmul(want_dxp, wx_c.float().T), want_dh0, want_dc0,
+                torch.einsum("btd,btk->dk", x.float(), want_dxp), want_dwh)]
             w_tol = GRU_BWD_BF16_W_TOL
-            w_errs = {"dW_h": rel_err(leaves[2].grad, want_dwh.to(dtype)),
-                      "dW_x": rel_err(leaves[1].grad, want_dwx.to(dtype))}
         else:
             # Against autograd through the plain scan's own torch ops.
-            plain_leaves = [t.detach().clone().requires_grad_(True) for t in (x, w_x, w_h)]
-            ys_pl, _ = k_lstm.plain(plain_leaves[0], h0, c0, plain_leaves[1],
-                                    plain_leaves[2], b)
-            ys_pl.backward(g)
+            want_g = _leaf_grads(k_lstm.plain, (x, h0, c0, w_x, w_h), (b,), reset, g)
             w_tol = LSTM_BWD_TOL
-            w_errs = {"dW_h": rel_err(leaves[2].grad, plain_leaves[2].grad),
-                      "dW_x": rel_err(leaves[1].grad, plain_leaves[1].grad),
-                      "d_x": rel_err(leaves[0].grad, plain_leaves[0].grad)}
+        w_errs = {k: rel_err(u, v) for k, u, v in zip(
+            ("d_x", "dh0", "dc0", "dW_x", "dW_h"), got, want_g)}
         for k, e in w_errs.items():
-            check(e <= w_tol, f"lstm backward {name}: {k} relative err {e} > {w_tol}")
+            check(e <= w_tol, f"{name}: {k} through autograd relative err {e} > {w_tol}")
         b_bytes = (6 * Bl * T * H * 4 + Bl * T * H * es + 4 * H * H * es + Bl * H * 4
-                   + Bl * T * 4 * H * 4 + 2 * Bl * H * 4)
+                   + Bl * T * 4 * H * 4 + 2 * Bl * H * 4 + (0 if keep is None else Bl * T * 4))
         b_flops = 2 * Bl * T * 4 * H * H  # dz is f32: the f32 rate
         b_bound, b_by = bound(b_bytes, b_flops, torch.float32)
-        bwd[name] = {
-            "shape": {"B": Bl, "T": T, "H": H, "dtype": name},
+        bwd[_dname(dtype)] = {
+            "shape": {"B": Bl, "T": T, "H": H, "dtype": _dname(dtype)},
             "launch": k_lstm.backward_launch_config(Bl, T, H, dtype),
-            "rel_err": {**errs, **w_errs}, "tolerance": LSTM_BWD_TOL,
-            "weight_tolerance": w_tol,
-            "max_abs_err": max(max_err(a, w) for a, w in zip((dz, dh0, dc0), want)),
+            "rel_err": errs, "tolerance": LSTM_BWD_TOL,
+            "autograd_rel_err": w_errs, "autograd_tolerance": w_tol,
+            "max_abs_err": max(max_err(u, v) for u, v in zip((dz, dh0, dc0), want)),
             "kernel_ms": time_ms(lambda: k_lstm.lstm_backward(*bargs)),
             "plain_ms": time_ms(lambda: k_lstm.plain_backward(*bargs), reps=5),
             "bound_ms": b_bound, "bound_by": b_by, "bytes": int(b_bytes),
             "flops": int(b_flops), "serial_steps": T,
         }
+        if keep is not None:
+            bwd[_dname(dtype)].update(ones_plane_bit_exact=True,
+                                      dh0_dc0_zero_with_reset_at_t0=True,
+                                      library_ms=None, library=NO_RESET_LIBRARY)
+    if reset is not None:
+        return {"lstm_scan": fwd, "lstm_backward": bwd}
     # Library yardstick: cuDNN's LSTM backward in f32 (TF32 off), timed as
     # (forward + backward) - forward. The port never calls it.
     lib = _nn_lstm(w_x, w_h, b, torch.float32, dev)
@@ -854,20 +987,69 @@ def phase_tower_kernels(rng: np.random.Generator, dev) -> dict:
     return out
 
 
+def _reset_plane(rng, B: int, T: int, dev) -> torch.Tensor:
+    """[B, T] f32: a session start about every RESET_EVERY positions."""
+    return torch.from_numpy((rng.random((B, T)) < 1 / RESET_EVERY).astype(np.float32)).to(dev)
+
+
+def _zipf_embeddings(rng, dev, B: int, T: int, D: int) -> torch.Tensor:
+    """[B, T, D] f32: rows of a random [VOCAB, D] table at Zipf ids."""
+    table = torch.from_numpy(rng.normal(scale=D ** -0.5, size=(VOCAB, D)).astype(np.float32))
+    ids = torch.from_numpy(zipf_items(rng, B * T).astype(np.int64))
+    return table[ids].reshape(B, T, D).to(dev)
+
+
+def phase_session_kernels(rng: np.random.Generator, dev) -> dict:
+    """The four reset variants at the session paths' shapes: the GRU at
+    rsc15_gru4rec's (B=256, T=50, D=H=100) and both cells at B=128, T=200,
+    D=H=128 (ml1m_lstm's with session_parallel), through the same checks as
+    their no-reset kernels, with a reset plane and a carried-in state."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {k: {} for k in ("gru_scan_reset", "gru_backward_reset", "lstm_scan_reset",
+                           "lstm_backward_reset")}
+    for key, (B_, T_, D_) in (("rsc15", (256, 50, 100)), ("ml1m", (TRAIN_B, TRAIN_T, 128))):
+        x32 = _zipf_embeddings(rng, dev, B_, T_, D_)
+        reset = _reset_plane(rng, B_, T_, dev)
+        weights = [w.to(dev) for w in gru_weights(rng, D_, D_)]
+        h32 = _state(rng, dev, B_, D_)
+        out["gru_scan_reset"][key] = {
+            _dname(dt): _gru_forward_check(dev, x32, weights, h32, dt, reset)
+            for dt in (torch.bfloat16, torch.float32)}
+        out["gru_backward_reset"][key] = _gru_backward_checks(rng, dev, x32, reset)
+    x32 = _zipf_embeddings(rng, dev, TRAIN_B, TRAIN_T, 128)
+    lstm = _lstm_checks(rng, dev, x32, _reset_plane(rng, TRAIN_B, TRAIN_T, dev))
+    out["lstm_scan_reset"]["ml1m"] = lstm["lstm_scan"]
+    out["lstm_backward_reset"]["ml1m"] = lstm["lstm_backward"]
+    emit({"phase": "session_kernels", **out})
+    return out
+
+
+# Each kernel's launch counter: (wrapper, attribute). The reset variants
+# count apart from their no-reset counterparts, on the same wrappers.
 COUNTERS = {
-    "gather": k_gather.embedding_gather,
-    "gather_backward": k_gather.embedding_scatter_add,
-    "gru_scan": k_gru.gru_scan,
-    "gru_backward": k_gru.gru_backward,
-    "softmax_head": k_head.sampled_softmax_nll,
-    "causal_attention": k_attn.causal_attention,
-    "lstm_scan": k_lstm.lstm_scan,
-    "lstm_backward": k_lstm.lstm_backward,
+    "gather": (k_gather.embedding_gather, "launches"),
+    "gather_backward": (k_gather.embedding_scatter_add, "launches"),
+    "gru_scan": (k_gru.gru_scan, "launches"),
+    "gru_backward": (k_gru.gru_backward, "launches"),
+    "softmax_head": (k_head.sampled_softmax_nll, "launches"),
+    "causal_attention": (k_attn.causal_attention, "launches"),
+    "lstm_scan": (k_lstm.lstm_scan, "launches"),
+    "lstm_backward": (k_lstm.lstm_backward, "launches"),
+    "gru_scan_reset": (k_gru.gru_scan, "reset_launches"),
+    "gru_backward_reset": (k_gru.gru_backward, "reset_launches"),
+    "lstm_scan_reset": (k_lstm.lstm_scan, "reset_launches"),
+    "lstm_backward_reset": (k_lstm.lstm_backward, "reset_launches"),
 }
 
 
 def read_counters() -> dict:
-    return {k: fn.launches for k, fn in COUNTERS.items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in COUNTERS.items()}
+
+
+def zero_counters() -> None:
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 class PhaseTimedTrainer(Trainer):
@@ -898,15 +1080,15 @@ class PhaseTimedTrainer(Trainer):
         return out
 
 
-def profile_steps(tr: Trainer, state, wires: torch.Tensor, top: int = 15) -> dict:
-    """torch.profiler over len(wires) steps: device time and launches per
+def profile_steps(tr: Trainer, state, batches: list, top: int = 15) -> dict:
+    """torch.profiler over len(batches) steps: device time and launches per
     step, and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    n = wires.shape[0]
+    n = len(batches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for k in range(n):
-            state, _ = tr.train_step(state, wires[k])
+        for batch in batches:
+            state, _ = tr.train_step(state, batch)
         torch.cuda.synchronize()
     # Device-side events only (kernels, copies, memsets): a CPU op's entry
     # repeats the device time of the kernels it launched.
@@ -927,8 +1109,8 @@ class _Catalog:
     vocab_size, num_users = VOCAB, 0
 
 
-def _train_wires(rng, trainer, groups: int, K: int, B: int, T: int) -> np.ndarray:
-    """[groups, K, B, T+2] wires of Zipf histories (ids ranked by
+def _train_wires(rng, trainer, groups: int, K: int, B: int, T: int) -> list:
+    """`groups` [K, B, T+2] wire groups of Zipf histories (ids ranked by
     popularity), 5..T positions a row."""
     wires = []
     for _ in range(groups * K):
@@ -941,33 +1123,82 @@ def _train_wires(rng, trainer, groups: int, K: int, B: int, T: int) -> np.ndarra
                                          "mask": (targets != 0).astype(np.float32)})
         check(wire is not None, "train: a canonical batch did not pack")
         wires.append(wire)
-    return np.stack(wires).reshape(groups, K, B, T + 2)
+    return list(np.stack(wires).reshape(groups, K, B, T + 2))
+
+
+def _session_groups(trainer, ds, seed: int, groups: int, K: int, B: int, T: int):
+    """`groups` groups of K consecutive [B, T] windows of a session-parallel
+    stream over `ds`, packed into session wires: a group is a [K, B, T+E+W]
+    array, or a list when a window ships as a dict (more session ends than
+    the wire has slots). Returns (groups, windows that fell back to dicts)."""
+    stream = make_session_stream(ds, batch_size=B, window=T, seed=seed)
+    out, fallbacks = [], 0
+    for _ in range(groups):
+        group = []
+        for _ in range(K):
+            window = next(stream)[1]
+            wire = trainer.pack_batch(window)
+            fallbacks += wire is None
+            group.append(window if wire is None else wire)
+        packed = all(isinstance(b, np.ndarray) for b in group)
+        out.append(np.stack(group) if packed else group)
+    return out, fallbacks
+
+
+def _on_device(batch, dev):
+    if isinstance(batch, np.ndarray):
+        return torch.from_numpy(batch).to(dev)
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _leaves(carry) -> list:
+    if isinstance(carry, torch.Tensor):
+        return [carry]
+    return [x for c in carry for x in _leaves(c)]
 
 
 def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int,
                 overrides=()) -> dict:
-    """`overrides`: config changes for this run, each named in its result."""
+    """`overrides`: config changes for this run, each named in its result.
+    A session-parallel configuration trains on windows of synthetic
+    sessions with its path's shapes (SESSION_DATA), carrying the recurrent
+    state from window to window."""
     config = CONFIGS[path]
     cfg = RunConfig.load(config).apply_overrides(list(overrides))
     check(cfg.model.use_pallas, f"{config} must enable the kernels")
+    session = cfg.data.session_parallel
     K, B = cfg.train.steps_per_call, cfg.data.batch_size
-    T = max(cfg.data.buckets or (cfg.data.max_len,))
+    T = cfg.data.max_len if session else max(cfg.data.buckets or (cfg.data.max_len,))
+    t0 = time.perf_counter()
+    ds = synthetic_dataset(**SESSION_DATA[path], seed=seed) if session else _Catalog()
     trainers = {}
     for use_pallas in (True, False):
         c = cfg.apply_overrides([f"model.use_pallas={str(use_pallas).lower()}"])
-        trainers[use_pallas] = PhaseTimedTrainer(c, _Catalog(), device=dev)
-    t0 = time.perf_counter()
-    wires = _train_wires(rng, trainers[True], groups, K, B, T)
+        trainers[use_pallas] = PhaseTimedTrainer(c, ds, device=dev)
+    fallbacks = 0
+    if session:
+        batches, fallbacks = _session_groups(trainers[True], ds, seed, groups, K, B, T)
+        T_, E, W = trainers[True]._session_wire_cols
+        width = T_ + E + W
+    else:
+        batches = _train_wires(rng, trainers[True], groups, K, B, T)
+        width = T + 2
     data_s = time.perf_counter() - t0
-    check(wires.dtype == np.int16 and wires.shape == (groups, K, B, T + 2),
-          f"train {path}: wires {wires.dtype} {wires.shape}")
+    wire_dtype = np.dtype(trainers[True]._wire_dtype)
+    for group in batches:
+        for b in group:
+            check(not isinstance(b, np.ndarray) or (b.dtype == wire_dtype
+                                                     and b.shape == (B, width)),
+                  f"train {path}: wire {b.dtype} {b.shape}, expected {wire_dtype} "
+                  f"{(B, width)}")
 
     # Step 1 through the kernels and through the plain versions: same state,
     # batch and generators. (Also warms the kernel path up.)
-    step1 = {}
+    step1, carry1 = {}, {}
     for use_pallas, tr in trainers.items():
-        _, m = tr.train_step(tr.init_state(seed), wires[0, 0])
+        s1, m = tr.train_step(tr.init_state(seed), batches[0][0])
         step1[use_pallas] = {k: float(v) for k, v in m.items()}
+        carry1[use_pallas] = s1.carry
     a, b = step1[True], step1[False]
     loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
     norm_rel = abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
@@ -976,29 +1207,36 @@ def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int
     check(norm_rel <= STEP1_NORM_TOL,
           f"train {path}: step-1 grad_norm {a['grad_norm']} (kernels) vs {b['grad_norm']} (plain)")
     check(a["tokens"] == b["tokens"], f"train {path}: step-1 token counts differ")
+    carry_err = None
+    if session:
+        ka, kb = _leaves(carry1[True]), _leaves(carry1[False])
+        carry_err = max(max_err(u, v) for u, v in zip(ka, kb))
+        tol = CARRY_TOL[cfg.model.cell_type]
+        check(all(bool(torch.isfinite(u).all()) for u in ka), f"train {path}: non-finite carry")
+        check(carry_err <= tol, f"train {path}: step-1 carry, kernels vs plain, max abs err "
+                                f"{carry_err} > {tol}")
     torch.cuda.synchronize()
 
     # The counted run: `groups` groups of K steps through the kernels.
     tr = trainers[True]
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    zero_counters()
     state = tr.init_state(seed)
-    torch.cuda.reset_peak_memory_stats()
-    times, group_metrics = [], []
+    times, group_metrics, peaks = [], [], []
     for gi in range(groups):
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        state, m = tr.train_step_multi(state, wires[gi])
+        state, m = tr.train_step_multi(state, batches[gi])
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         group_metrics.append({k: float(v) for k, v in m.items()})
+        peaks.append(torch.cuda.max_memory_allocated())
     launches = read_counters()
-    peak_mem = torch.cuda.max_memory_allocated()
     steps = groups * K
 
     # One group through the plain versions: no kernel may launch.
     before = read_counters()
     t0 = time.perf_counter()
-    _, pm = trainers[False].train_step_multi(trainers[False].init_state(seed), wires[0])
+    _, pm = trainers[False].train_step_multi(trainers[False].init_state(seed), batches[0])
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     plain_launches = {k: v - before[k] for k, v in read_counters().items()}
@@ -1019,18 +1257,25 @@ def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int
           <= STEP1_LOSS_TOL * abs(plain_group["loss"]),
           f"train {path}: group-1 mean loss {group_metrics[0]['loss']} (kernels) vs "
           f"{plain_group['loss']} (plain)")
+    if session:
+        # A carry that kept its graph would keep every earlier step's.
+        check(peaks[-1] <= peaks[0] * (1 + MEM_GROWTH_TOL),
+              f"train {path}: peak device memory grew from group 1 to group {groups}: "
+              f"{peaks}")
+        check(all(u.grad_fn is None and not u.requires_grad for u in _leaves(state.carry)),
+              f"train {path}: the carry holds a graph")
 
-    # Device time of a step, split by CUDA events: each step (its wire
+    # Device time of a step, split by CUDA events: each step (its batch
     # already on the device) is queued behind a device sleep so the events
     # bracket the device's work, not the host's launch latency. Median over
     # the steps of one group.
     splits = []
-    last = torch.from_numpy(wires[-1]).to(dev)
-    for k in range(K):
+    last = [_on_device(b, dev) for b in batches[-1]]
+    for batch in last:
         tr.events.clear()
         torch.cuda.synchronize()
         torch.cuda._sleep(200_000_000)
-        state, _ = tr.train_step(state, last[k])
+        state, _ = tr.train_step(state, batch)
         torch.cuda.synchronize()
         e = tr.events
         splits.append({"forward": e[0].elapsed_time(e[1]),
@@ -1041,12 +1286,15 @@ def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int
     prof, state = profile_steps(tr, state, last[:4])
     step_ms = float(np.median(times)) / K
     result = {
-        "phase": "train", "config": config, "overrides": list(overrides), "vocab": VOCAB,
-        "batch_size": B, "seq_len": T,
+        "phase": "train_session" if session else "train", "config": config,
+        "overrides": list(overrides), "vocab": ds.vocab_size,
+        "batch_size": B, "seq_len": T, "loss": cfg.model.loss,
+        "compute_dtype": cfg.model.compute_dtype,
         "num_negatives": cfg.model.num_negatives, "steps_per_call": K, "groups": groups,
-        "wire": {"dtype": str(wires.dtype), "shape": list(wires.shape[1:])},
+        "wire": {"dtype": str(wire_dtype), "shape": [K, B, width]},
         "data_seconds": data_s,
         "examples_per_s": steps * B / (sum(times) / 1e3),
+        "positions_per_s": steps * B * T / (sum(times) / 1e3),
         "step_ms_median": step_ms,
         "group_ms": times,
         "plain_group_ms": plain_ms, "plain_examples_per_s": K * B / (plain_ms / 1e3),
@@ -1057,8 +1305,17 @@ def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int
                   "grad_norm_tolerance": STEP1_NORM_TOL},
         "group_metrics": group_metrics, "plain_group_metrics": plain_group,
         "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
-        "plain_launches": plain_launches, "peak_memory_bytes": int(peak_mem),
+        "plain_launches": plain_launches, "peak_memory_bytes": int(max(peaks)),
+        "peak_memory_bytes_by_group": [int(p) for p in peaks],
     }
+    if session:
+        result.update({
+            "data": {"synthetic_dataset": SESSION_DATA[path], "seed": seed,
+                     "sessions": ds.num_users},
+            "windows": steps, "dict_fallback_windows": fallbacks,
+            "step1_carry_max_abs_err": carry_err,
+            "carry_tolerance": CARRY_TOL[cfg.model.cell_type],
+        })
     emit(result)
     return result
 
@@ -1096,6 +1353,10 @@ def main(argv=None) -> int:
     train["sasrec"] = phase_train(rng, dev, args.seed, "sasrec", groups=3,
                                   overrides=["train.warmup_steps=0"])
     train["lstm"] = phase_train(rng, dev, args.seed, "lstm", groups=3)
+    skern = phase_session_kernels(rng, dev)
+    train["rsc15_gru4rec_session"] = phase_train(rng, dev, args.seed, "rsc15_gru4rec", groups=3)
+    train["lstm_session"] = phase_train(rng, dev, args.seed, "lstm", groups=2,
+                                        overrides=["data.session_parallel=true"])
 
     def counts(kernel):
         return {f"{kind}_{path}": runs[path]["launches"][kernel]
@@ -1118,12 +1379,22 @@ def main(argv=None) -> int:
          "lstm"),
         ("lstm_backward", "lstm.cu", "lstm.py:209", towers["lstm_backward"]["bfloat16"],
          "bfloat16", "lstm"),
+        ("gru_scan_reset", "gru.cu", "gru.py:135", skern["gru_scan_reset"]["rsc15"]["bfloat16"],
+         "bfloat16", "rsc15_gru4rec_session"),
+        # With a keep plane the reverse recurrence runs in f32 (h_in is f32).
+        ("gru_backward_reset", "gru.cu", "gru.py:255",
+         skern["gru_backward_reset"]["rsc15"]["bfloat16"], "float32", "rsc15_gru4rec_session"),
+        ("lstm_scan_reset", "lstm.cu", "lstm.py:112",
+         skern["lstm_scan_reset"]["ml1m"]["bfloat16"], "bfloat16", "lstm_session"),
+        ("lstm_backward_reset", "lstm.cu", "lstm.py:265",
+         skern["lstm_backward_reset"]["ml1m"]["bfloat16"], "bfloat16", "lstm_session"),
     ]
     emit({"kernels": [
         _kernel_entry(kname, "seqrec_tpu_torch/csrc/" + source,
                       "seqrec_tpu/ops/pallas/" + replaces,
                       train[path]["launches"][kname], rec, dtype=dtype,
-                      launches_counted_on=f"train {CONFIGS[path]}",
+                      launches_counted_on=" ".join(["train", train[path]["config"],
+                                                    *train[path]["overrides"]]),
                       launches_by_path=counts(kname))
         for kname, source, replaces, rec, dtype, path in table]})
     print(smi, flush=True)

@@ -2,9 +2,12 @@
 //
 // Forward (seqrec_lstm_forward) replaces the TPU kernel
 // seqrec_tpu/ops/pallas/lstm.py (_lstm_step_body via _lstm_forward_pallas,
-// no-reset variant): a sequential grid over T with h, an f32 c and both
-// weight matrices held in VMEM, the input projection computed inside each
-// step. Math per step (gate blocks i|f|g|o, as ops/reference.py::lstm_scan):
+// both variants: _lstm_step_kernel and, with a keep plane,
+// _lstm_step_kernel_reset): a sequential grid over T with h, an f32 c and
+// both weight matrices held in VMEM, the input projection computed inside
+// each step. Math per step (gate blocks i|f|g|o, as
+// ops/reference.py::lstm_scan):
+//   h, c *= keep[t]              (session-parallel variant; keep = 1 - reset)
 //   z = x[t] @ W_x + h @ W_h + b                       (f32 accumulation)
 //   i = sigmoid(z_i), f = sigmoid(z_f), g = tanh(z_g), o = sigmoid(z_o)
 //   c' = f c + i g  (f32, never rounded),  h' = o tanh(c')
@@ -12,6 +15,11 @@
 //   written to ys[:, t], and is the next step's h.
 // It also writes c_T, and, when the caller asks (training), the f32 cell
 // plane c_1..c_T, so the backward needs no serial recompute of the cells.
+// The reset variant keeps the design below: at the end of step t each thread
+// scales what it hands to step t+1 by keep[t+1], the h' it writes to the
+// next step's shared buffer and the c' in its register, after ys, the cell
+// plane and (at t = T-1) c_T took the unscaled values. keep is a [B, T] f32
+// plane, one scalar a row a step.
 //
 // What bounds it: the 200-step serial chain, as the GRU's (csrc/gru.cu). At
 // the training shape (B=128, T=200, D=H=128) the scan reads and writes
@@ -51,6 +59,9 @@
 // sits in shared memory when it fits (128 KB in bf16 at H=128) and is read
 // through L2 otherwise (f32), laid out so a warp's reads are consecutive.
 // The next step's plane values are loaded while the current step computes.
+// Reset variant (the keep path of _lstm_bwd_math, lstm.py:265-269): dh_prev
+// and dc_prev *= keep[t], read with the step's planes; c_in arrives already
+// scaled (reference.lstm_bwd_hoist).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -197,13 +208,17 @@ __device__ __forceinline__ void gate_product(float acc[R][4], const V* v,
   }
 }
 
-template <typename T, int R, bool kWxInSmem, bool kWhInSmem>
+// kReset: the session-parallel variant, which reads keep, a [B, T] f32 plane
+// of 1 - reset (null otherwise). A template flag, so that the no-reset
+// variant compiles to the same code as without it.
+template <typename T, int R, bool kWxInSmem, bool kWhInSmem, bool kReset>
 __global__ void __launch_bounds__(kMaxHidden)
 lstm_forward_kernel(const T* __restrict__ x, const T* __restrict__ h0,
                     const T* __restrict__ c0, const T* __restrict__ w_x,
                     const T* __restrict__ w_h, const float* __restrict__ bias,
-                    T* __restrict__ ys, float* __restrict__ c_last,
-                    float* __restrict__ cs, int B, int Tn, int D, int H) {
+                    const float* __restrict__ keep, T* __restrict__ ys,
+                    float* __restrict__ c_last, float* __restrict__ cs, int B,
+                    int Tn, int D, int H) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int H4 = 4 * H;
   float* hbuf = reinterpret_cast<float*>(smem);        // [2][R][H]
@@ -226,8 +241,9 @@ lstm_forward_kernel(const T* __restrict__ x, const T* __restrict__ h0,
     cell[r] = 0.0f;
     if (b0 + r < B) {
       const size_t idx = static_cast<size_t>(b0 + r) * H + i;
-      hbuf[r * H + i] = to_f(h0[idx]);
-      cell[r] = to_f(c0[idx]);
+      const float k0 = kReset ? keep[static_cast<size_t>(b0 + r) * Tn] : 1.0f;
+      hbuf[r * H + i] = kReset ? to_f(h0[idx]) * k0 : to_f(h0[idx]);
+      cell[r] = kReset ? to_f(c0[idx]) * k0 : to_f(c0[idx]);
     }
   }
   const float bi = bias[i], bf = bias[H + i], bg = bias[2 * H + i], bo = bias[3 * H + i];
@@ -237,6 +253,14 @@ lstm_forward_kernel(const T* __restrict__ x, const T* __restrict__ h0,
   for (int t = 0; t < Tn; ++t) {
     const int cur = t & 1, nxt = cur ^ 1;
     if (t + 1 < Tn) stage_x<T, R>(xbuf + nxt * R * D, x, b0, B, Tn, D, t + 1);
+    // keep[t+1] scales the h' and c' this step hands to the next one.
+    float kn[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      kn[r] = (kReset && t + 1 < Tn && b0 + r < B)
+                  ? keep[static_cast<size_t>(b0 + r) * Tn + t + 1]
+                  : 1.0f;
+    }
     float acc[R][4];
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
@@ -252,12 +276,13 @@ lstm_forward_kernel(const T* __restrict__ x, const T* __restrict__ h0,
       const float og = sigmoidf(acc[r][3] + bo);
       cell[r] = fg * cell[r] + ig * gg;
       const T hq = from_f<T>(og * tanhf(cell[r]));
-      hn_buf[r * H + i] = to_f(hq);
+      hn_buf[r * H + i] = kReset ? to_f(hq) * kn[r] : to_f(hq);
       if (b0 + r < B) {
         const size_t idx = (static_cast<size_t>(b0 + r) * Tn + t) * H + i;
         ys[idx] = hq;
         if (cs != nullptr) cs[idx] = cell[r];
       }
+      if (kReset) cell[r] *= kn[r];  // 1 after the last step: c_T stays
     }
     cp_async_wait_all();
     __syncthreads();
@@ -270,9 +295,9 @@ lstm_forward_kernel(const T* __restrict__ x, const T* __restrict__ h0,
 
 template <typename T, int R>
 int launch_fwd_r(const void* x, const void* h0, const void* c0, const void* w_x,
-                 const void* w_h, const float* bias, void* ys, float* c_last,
-                 float* cs, int B, int Tn, int D, int H, int wx_in_smem,
-                 int wh_in_smem, size_t smem, cudaStream_t s) {
+                 const void* w_h, const float* bias, const float* keep, void* ys,
+                 float* c_last, float* cs, int B, int Tn, int D, int H,
+                 int wx_in_smem, int wh_in_smem, size_t smem, cudaStream_t s) {
   const dim3 grid((B + R - 1) / R), block(H);
   auto launch = [&](auto kernel) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -282,37 +307,47 @@ int launch_fwd_r(const void* x, const void* h0, const void* c0, const void* w_x,
     kernel<<<grid, block, smem, s>>>(
         static_cast<const T*>(x), static_cast<const T*>(h0),
         static_cast<const T*>(c0), static_cast<const T*>(w_x),
-        static_cast<const T*>(w_h), bias, static_cast<T*>(ys), c_last, cs, B,
-        Tn, D, H);
+        static_cast<const T*>(w_h), bias, keep, static_cast<T*>(ys), c_last, cs,
+        B, Tn, D, H);
     return static_cast<int>(cudaGetLastError());
   };
-  if (wh_in_smem) {
-    return wx_in_smem ? launch(lstm_forward_kernel<T, R, true, true>)
-                      : launch(lstm_forward_kernel<T, R, false, true>);
+  if (wx_in_smem && !wh_in_smem) return static_cast<int>(cudaErrorInvalidValue);
+  if (keep == nullptr) {
+    if (wh_in_smem) {
+      return wx_in_smem ? launch(lstm_forward_kernel<T, R, true, true, false>)
+                        : launch(lstm_forward_kernel<T, R, false, true, false>);
+    }
+    return launch(lstm_forward_kernel<T, R, false, false, false>);
   }
-  if (wx_in_smem) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(lstm_forward_kernel<T, R, false, false>);
+  if (wh_in_smem) {
+    return wx_in_smem ? launch(lstm_forward_kernel<T, R, true, true, true>)
+                      : launch(lstm_forward_kernel<T, R, false, true, true>);
+  }
+  return launch(lstm_forward_kernel<T, R, false, false, true>);
 }
 
 template <typename T>
 int launch_fwd_t(int rows_per_block, const void* x, const void* h0,
                  const void* c0, const void* w_x, const void* w_h,
-                 const float* bias, void* ys, float* c_last, float* cs, int B,
-                 int Tn, int D, int H, int wx_in_smem, int wh_in_smem,
-                 size_t smem, cudaStream_t s) {
+                 const float* bias, const float* keep, void* ys, float* c_last,
+                 float* cs, int B, int Tn, int D, int H, int wx_in_smem,
+                 int wh_in_smem, size_t smem, cudaStream_t s) {
   switch (rows_per_block) {
-    case 1: return launch_fwd_r<T, 1>(x, h0, c0, w_x, w_h, bias, ys, c_last, cs, B, Tn, D, H, wx_in_smem, wh_in_smem, smem, s);
-    case 2: return launch_fwd_r<T, 2>(x, h0, c0, w_x, w_h, bias, ys, c_last, cs, B, Tn, D, H, wx_in_smem, wh_in_smem, smem, s);
+    case 1: return launch_fwd_r<T, 1>(x, h0, c0, w_x, w_h, bias, keep, ys, c_last, cs, B, Tn, D, H, wx_in_smem, wh_in_smem, smem, s);
+    case 2: return launch_fwd_r<T, 2>(x, h0, c0, w_x, w_h, bias, keep, ys, c_last, cs, B, Tn, D, H, wx_in_smem, wh_in_smem, smem, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T, int R, bool kWInSmem>
+// kReset: the session-parallel variant, which reads keep ([B, T] f32, 1 -
+// reset; null otherwise), as the forward's template flag.
+template <typename T, int R, bool kWInSmem, bool kReset>
 __global__ void __launch_bounds__(kMaxHidden)
 lstm_backward_kernel(const float* __restrict__ ig, const float* __restrict__ fg,
                      const float* __restrict__ gg, const float* __restrict__ og,
                      const float* __restrict__ tcg, const float* __restrict__ cing,
                      const T* __restrict__ g_ys, const T* __restrict__ w_h_t,
+                     const float* __restrict__ keep,
                      const float* __restrict__ dc_last, float* __restrict__ d_xp,
                      float* __restrict__ dh0, float* __restrict__ dc0, int B,
                      int Tn, int H) {
@@ -326,8 +361,9 @@ lstm_backward_kernel(const float* __restrict__ ig, const float* __restrict__ fg,
   if (kWInSmem) copy_to_smem(wt_s, w_h_t, static_cast<size_t>(H4) * H * sizeof(T));
   const T* wt = kWInSmem ? wt_s : w_h_t;
 
-  // Plane values of the step about to run: i, f, g, o, tanh c, c_in, g_y.
-  float nx[R][7];
+  // Values of the step about to run: i, f, g, o, tanh c, c_in, g_y (and keep).
+  constexpr int kVals = kReset ? 8 : 7;
+  float nx[R][kVals];
   auto load_step = [&](int t) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -336,9 +372,10 @@ lstm_backward_kernel(const float* __restrict__ ig, const float* __restrict__ fg,
         nx[r][0] = ig[idx]; nx[r][1] = fg[idx]; nx[r][2] = gg[idx];
         nx[r][3] = og[idx]; nx[r][4] = tcg[idx]; nx[r][5] = cing[idx];
         nx[r][6] = to_f(g_ys[idx]);
+        if (kReset) nx[r][kVals - 1] = keep[static_cast<size_t>(b0 + r) * Tn + t];
       } else {
 #pragma unroll
-        for (int q = 0; q < 7; ++q) nx[r][q] = 0.0f;
+        for (int q = 0; q < kVals; ++q) nx[r][q] = 0.0f;
       }
     }
   };
@@ -352,11 +389,11 @@ lstm_backward_kernel(const float* __restrict__ ig, const float* __restrict__ fg,
   __syncthreads();
 
   for (int t = Tn - 1, s = 0; t >= 0; --t, ++s) {
-    float cur[R][7];
+    float cur[R][kVals];
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int q = 0; q < 7; ++q) cur[r][q] = nx[r][q];
+      for (int q = 0; q < kVals; ++q) cur[r][q] = nx[r][q];
     if (t > 0) load_step(t - 1);
 
     float* dz = dbuf + (s & 1) * R * H4;
@@ -379,6 +416,7 @@ lstm_backward_kernel(const float* __restrict__ ig, const float* __restrict__ fg,
       dz[r * H4 + 2 * H + i] = dzg;
       dz[r * H4 + 3 * H + i] = dzo;
       dc_c[r] = dc * fv;
+      if (kReset) dc_c[r] *= cur[r][kVals - 1];  // dc_prev *= keep[t]
     }
     __syncthreads();
 
@@ -398,7 +436,10 @@ lstm_backward_kernel(const float* __restrict__ ig, const float* __restrict__ fg,
       }
     }
 #pragma unroll
-    for (int r = 0; r < R; ++r) dh_c[r] = acc[r];
+    for (int r = 0; r < R; ++r) {
+      dh_c[r] = acc[r];
+      if (kReset) dh_c[r] *= cur[r][kVals - 1];  // dh_prev *= keep[t]
+    }
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -411,9 +452,9 @@ lstm_backward_kernel(const float* __restrict__ ig, const float* __restrict__ fg,
 
 template <typename T, int R>
 int launch_bwd_r(const float* const* planes, const void* g_ys, const void* w_h_t,
-                 const float* dc_last, float* d_xp, float* dh0, float* dc0,
-                 int B, int Tn, int H, int w_in_smem, size_t smem,
-                 cudaStream_t s) {
+                 const float* keep, const float* dc_last, float* d_xp,
+                 float* dh0, float* dc0, int B, int Tn, int H, int w_in_smem,
+                 size_t smem, cudaStream_t s) {
   const dim3 grid((B + R - 1) / R), block(H);
   auto launch = [&](auto kernel) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -422,22 +463,27 @@ int launch_bwd_r(const float* const* planes, const void* g_ys, const void* w_h_t
     if (e != cudaSuccess) return static_cast<int>(e);
     kernel<<<grid, block, smem, s>>>(
         planes[0], planes[1], planes[2], planes[3], planes[4], planes[5],
-        static_cast<const T*>(g_ys), static_cast<const T*>(w_h_t), dc_last,
-        d_xp, dh0, dc0, B, Tn, H);
+        static_cast<const T*>(g_ys), static_cast<const T*>(w_h_t), keep,
+        dc_last, d_xp, dh0, dc0, B, Tn, H);
     return static_cast<int>(cudaGetLastError());
   };
-  return w_in_smem ? launch(lstm_backward_kernel<T, R, true>)
-                   : launch(lstm_backward_kernel<T, R, false>);
+  if (keep == nullptr) {
+    return w_in_smem ? launch(lstm_backward_kernel<T, R, true, false>)
+                     : launch(lstm_backward_kernel<T, R, false, false>);
+  }
+  return w_in_smem ? launch(lstm_backward_kernel<T, R, true, true>)
+                   : launch(lstm_backward_kernel<T, R, false, true>);
 }
 
 template <typename T>
 int launch_bwd_t(int rows_per_block, const float* const* planes,
-                 const void* g_ys, const void* w_h_t, const float* dc_last,
-                 float* d_xp, float* dh0, float* dc0, int B, int Tn, int H,
-                 int w_in_smem, size_t smem, cudaStream_t s) {
+                 const void* g_ys, const void* w_h_t, const float* keep,
+                 const float* dc_last, float* d_xp, float* dh0, float* dc0,
+                 int B, int Tn, int H, int w_in_smem, size_t smem,
+                 cudaStream_t s) {
   switch (rows_per_block) {
-    case 1: return launch_bwd_r<T, 1>(planes, g_ys, w_h_t, dc_last, d_xp, dh0, dc0, B, Tn, H, w_in_smem, smem, s);
-    case 2: return launch_bwd_r<T, 2>(planes, g_ys, w_h_t, dc_last, d_xp, dh0, dc0, B, Tn, H, w_in_smem, smem, s);
+    case 1: return launch_bwd_r<T, 1>(planes, g_ys, w_h_t, keep, dc_last, d_xp, dh0, dc0, B, Tn, H, w_in_smem, smem, s);
+    case 2: return launch_bwd_r<T, 2>(planes, g_ys, w_h_t, keep, dc_last, d_xp, dh0, dc0, B, Tn, H, w_in_smem, smem, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -449,14 +495,15 @@ extern "C" {
 // x [B, T, D], h0, c0 [B, H], w_x [D, 4H], w_h [H, 4H], ys [B, T, H]: all of
 // the working dtype (dtype 0 = float, 1 = bf16), contiguous, 16-byte
 // aligned, except that w_x and w_h come k-packed as [K/P][4H][P], P = 16 /
-// element size. bias
-// [4H], c_last [B, H] and cs [B, T, H] (null: not written) float. smem_bytes as the caller computed it for this layout, checked
-// again here.
+// element size. bias [4H], keep [B, T] (1 - reset; null: the no-reset
+// variant), c_last [B, H] and cs [B, T, H] (null: not written) float.
+// smem_bytes as the caller computed it for this layout, checked again here.
 int seqrec_lstm_forward(const void* x, const void* h0, const void* c0,
                         const void* w_x, const void* w_h, const void* bias,
-                        void* ys, void* c_last, void* cs, int B, int Tn, int D,
-                        int H, int dtype, int rows_per_block, int wx_in_smem,
-                        int wh_in_smem, long long smem_bytes, void* stream) {
+                        const void* keep, void* ys, void* c_last, void* cs,
+                        int B, int Tn, int D, int H, int dtype,
+                        int rows_per_block, int wx_in_smem, int wh_in_smem,
+                        long long smem_bytes, void* stream) {
   const size_t es = dtype == 0 ? 4 : 2;
   const int R = rows_per_block;
   if (B <= 0 || Tn <= 0 || D <= 0 || H <= 0 || H > kMaxHidden ||
@@ -470,27 +517,29 @@ int seqrec_lstm_forward(const void* x, const void* h0, const void* c0,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* b = static_cast<const float*>(bias);
+  const float* kp = static_cast<const float*>(keep);
   float* cl = static_cast<float*>(c_last);
   float* cp = static_cast<float*>(cs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_fwd_t<float>(R, x, h0, c0, w_x, w_h, b, ys, cl, cp, B, Tn, D, H,
+    return launch_fwd_t<float>(R, x, h0, c0, w_x, w_h, b, kp, ys, cl, cp, B, Tn, D, H,
                                wx_in_smem, wh_in_smem, smem, s);
   }
-  return launch_fwd_t<__nv_bfloat16>(R, x, h0, c0, w_x, w_h, b, ys, cl, cp, B, Tn, D,
-                                     H, wx_in_smem, wh_in_smem, smem, s);
+  return launch_fwd_t<__nv_bfloat16>(R, x, h0, c0, w_x, w_h, b, kp, ys, cl, cp, B, Tn,
+                                     D, H, wx_in_smem, wh_in_smem, smem, s);
 }
 
 // i, f, g, o, tanh_c, c_in [B, T, H] float; g_ys [B, T, H] and w_h_t
-// [4H, H] of the working dtype (dtype 0 = float, 1 = bf16); dc_last, dh0,
-// dc0 [B, H] and d_xp [B, T, 4H] float. All contiguous, 16-byte aligned.
-// smem_bytes as the caller computed it for this layout, checked again here.
+// [4H, H] of the working dtype (dtype 0 = float, 1 = bf16); keep [B, T]
+// (1 - reset; null: the no-reset variant), dc_last, dh0, dc0 [B, H] and
+// d_xp [B, T, 4H] float. All contiguous, 16-byte aligned. smem_bytes as the
+// caller computed it for this layout, checked again here.
 int seqrec_lstm_backward(const void* i, const void* f, const void* g,
                          const void* o, const void* tanh_c, const void* c_in,
-                         const void* g_ys, const void* w_h_t, const void* dc_last,
-                         void* d_xp, void* dh0, void* dc0, int B, int Tn, int H,
-                         int dtype, int rows_per_block, int w_in_smem,
-                         long long smem_bytes, void* stream) {
+                         const void* g_ys, const void* w_h_t, const void* keep,
+                         const void* dc_last, void* d_xp, void* dh0, void* dc0,
+                         int B, int Tn, int H, int dtype, int rows_per_block,
+                         int w_in_smem, long long smem_bytes, void* stream) {
   const size_t es = dtype == 0 ? 4 : 2;
   const int R = rows_per_block;
   if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0 ||
@@ -506,17 +555,18 @@ int seqrec_lstm_backward(const void* i, const void* f, const void* g,
       static_cast<const float*>(i), static_cast<const float*>(f),
       static_cast<const float*>(g), static_cast<const float*>(o),
       static_cast<const float*>(tanh_c), static_cast<const float*>(c_in)};
+  const float* kp = static_cast<const float*>(keep);
   const float* dcl = static_cast<const float*>(dc_last);
   float* dxp = static_cast<float*>(d_xp);
   float* dh = static_cast<float*>(dh0);
   float* dc = static_cast<float*>(dc0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_bwd_t<float>(R, planes, g_ys, w_h_t, dcl, dxp, dh, dc, B, Tn, H,
+    return launch_bwd_t<float>(R, planes, g_ys, w_h_t, kp, dcl, dxp, dh, dc, B, Tn, H,
                                w_in_smem, smem, s);
   }
-  return launch_bwd_t<__nv_bfloat16>(R, planes, g_ys, w_h_t, dcl, dxp, dh, dc, B, Tn,
-                                     H, w_in_smem, smem, s);
+  return launch_bwd_t<__nv_bfloat16>(R, planes, g_ys, w_h_t, kp, dcl, dxp, dh, dc, B,
+                                     Tn, H, w_in_smem, smem, s);
 }
 
 const char* seqrec_lstm_error_string(int code) {

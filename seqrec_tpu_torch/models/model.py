@@ -8,9 +8,10 @@ onto `state_dict` by name.
 
 Batch layout as in the reference: `inputs` [B, T] item ids (0 = pad),
 `targets` [B, T] next-item ids, `mask` [B, T] {0, 1}, pads at the tail.
-Methods: `encode`, `last_hidden`, `scores` (serving) and `loss` (training,
-every loss type). `loss_stream` comes with session-parallel training.
-Dropout draws from an explicit `torch.Generator` passed in.
+Methods: `encode`, `last_hidden`, `scores` (serving), `loss` (training,
+every loss type) and `loss_stream` (session-parallel training with a
+carried recurrent state). Dropout draws from an explicit `torch.Generator`
+passed in.
 """
 
 from __future__ import annotations
@@ -154,10 +155,29 @@ class SeqRecModel(nn.Module):
                         deterministic=deterministic, generator=generator)
         return self._head_loss(h, batch["targets"], batch["mask"], neg_ids, neg_log_q)
 
-    def loss_stream(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SeqRecModel.loss_stream: ROADMAP.md Queue 1 item 7 "
-            "(session-parallel training)")
+    def loss_stream(self, batch: Dict[str, torch.Tensor], carry, *,
+                    neg_ids: Optional[torch.Tensor] = None,
+                    neg_log_q: Optional[torch.Tensor] = None,
+                    deterministic: bool = False,
+                    generator: Optional[torch.Generator] = None):
+        """One session-parallel window (the original GRU4Rec training
+        regime, truncated BPTT): `batch` is a dense packed window {inputs,
+        targets, mask, reset} (`data.batching.make_session_stream`), `carry`
+        the recurrent state from the previous window (`towers.zero_carry` to
+        start). Returns (sum of loss, sum of weights, new carry); the trainer
+        detaches the new carry at the window boundary."""
+        if self.arch != "gru4rec":
+            raise ValueError("session-parallel streaming needs an RNN tower")
+        if self.use_user_embedding:
+            raise ValueError("session streams are anonymous; disable use_user_embedding")
+        x = self._lookup(self.item_embedding, batch["inputs"])
+        if not deterministic:
+            x = dropout(x, self.dropout_rate, generator)
+        h, new_carry = self.tower(x, batch["mask"], carry=carry, reset=batch["reset"],
+                                  deterministic=deterministic, generator=generator)
+        loss_sum, w_sum = self._head_loss(h, batch["targets"], batch["mask"],
+                                          neg_ids, neg_log_q)
+        return loss_sum, w_sum, new_carry
 
     def _head_loss(self, h, targets, mask, neg_ids, neg_log_q):
         B, T, H = h.shape

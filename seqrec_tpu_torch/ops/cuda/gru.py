@@ -1,15 +1,18 @@
 """GRU scan kernels (`csrc/gru.cu`): the forward scan and the reverse
 recurrence of its backward, joined by a `torch.autograd.Function`.
 
-Replaces `seqrec_tpu/ops/pallas/gru.py::gru_scan` (no reset mask: the reset
-variant comes with session-parallel training) and its custom VJP
-`_gru_core_bwd`. Forward: the x-projection is computed inside the kernel,
-step by step. Backward, as `_gru_core_bwd`: the input projection and the
-gates are recomputed with `torch.matmul` in parallel over T
-(`reference.gru_bwd_hoist`), the reverse recurrence runs in the kernel, and
-the weight and input gradients are batched `torch.matmul`s and sums, where
-the JAX package has XLA einsums. Both kernels are bound by their 200-step
-serial chain, not by bytes or operations; see the source note.
+Replaces `seqrec_tpu/ops/pallas/gru.py::gru_scan` and its custom VJP
+`_gru_core_bwd`, both variants: without a reset mask, and with one
+(`_gru_step_kernel_reset`, session-parallel training), where a keep plane
+`1 - reset` [B, T] f32 goes to both kernels. The two variants count their
+launches apart: `gru_scan.launches` / `gru_scan.reset_launches`, and the
+same two on `gru_backward`. Forward: the x-projection is computed inside
+the kernel, step by step. Backward, as `_gru_core_bwd`: the input
+projection and the gates are recomputed with `torch.matmul` in parallel
+over T (`reference.gru_bwd_hoist`), the reverse recurrence runs in the
+kernel, and the weight and input gradients are batched `torch.matmul`s and
+sums, where the JAX package has XLA einsums. Both kernels are bound by their
+serial chain over T, not by bytes or operations; see the source note.
 
 Numerics: forward products and gate math in f32, biases in f32, h rounded
 to the working dtype (x.dtype: float32 or bfloat16) every step, as the TPU
@@ -36,19 +39,17 @@ plain_backward = reference.gru_bwd_scan
 SMEM_LIMIT = 232_448
 MAX_HIDDEN = 256  # kMaxHidden in csrc/gru.cu: one thread per hidden unit
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_RESET_ITEM = ("gru kernel: reset_mask (session-parallel streaming) is ported "
-               "with session-parallel training (ROADMAP.md Queue 1 item 7)")
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gru")
     fwd = lib.seqrec_gru_forward
-    fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+    fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     fwd.restype = ctypes.c_int
     bwd = lib.seqrec_gru_backward
-    bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+    bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     bwd.restype = ctypes.c_int
@@ -79,8 +80,8 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
     traffic is the limit, and R=2 halves the number of readers (an H100 sweep
     at B=64, T=200, D=H=128, which also found R=4 slower in both cases)."""
     es = _check_dims(B, T, H, dtype)
-    if D <= 0 or (D * es) % 16 != 0:
-        raise ValueError(f"gru: needs D*{es} % 16 == 0 (D={D}, H={H})")
+    if D <= 0 or D % 4 != 0:  # rows of x staged in 8- or 16-byte pieces
+        raise ValueError(f"gru: needs D*{es} % {4 * es} == 0 (D={D}, H={H})")
     w_x = D * 3 * H * es
 
     def base(r):  # h and x double buffers, then W_h
@@ -146,25 +147,40 @@ def _raise_on(rc: int, lib, what: str) -> None:
         raise RuntimeError(f"gru {what} kernel launch failed: CUDA error {rc} ({msg})")
 
 
-def _forward_kernel(x, h0, w_x, w_h, b_x, b_h) -> torch.Tensor:
-    """ys [B, T, H]; every operand already in its kernel dtype."""
+def _keep_plane(keep: Optional[torch.Tensor], B: int, T: int) -> Optional[torch.Tensor]:
+    """The [B, T] f32 keep plane (1 - reset) the kernels read, from a [B, T]
+    or [B, T, 1] one; None stays None (the no-reset variant)."""
+    if keep is None:
+        return None
+    if keep.numel() != B * T or keep.shape[:2] != (B, T):
+        raise ValueError(f"gru: keep plane {tuple(keep.shape)}, expected {(B, T)}")
+    return keep.reshape(B, T).float().contiguous()
+
+
+def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None) -> torch.Tensor:
+    """ys [B, T, H]; every operand already in its kernel dtype; `keep` the
+    [B, T] plane 1 - reset (the reset variant) or None."""
     B, T, D = x.shape
     H = h0.shape[-1]
     cfg = launch_config(B, T, D, H, x.dtype)
     dtype, dev = x.dtype, x.device
+    keep = _keep_plane(keep, B, T)
     args = [t.contiguous() for t in (x, h0, w_x, w_h, b_x, b_h)]
-    _check_operands(args, dev)
+    _check_operands(args + ([] if keep is None else [keep]), dev)
     ys = torch.empty((B, T, H), dtype=dtype, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.seqrec_gru_forward(
-            *(a.data_ptr() for a in args), ys.data_ptr(),
-            B, T, D, H, _DTYPE_CODE[dtype], cfg["rows_per_block"],
+            *(a.data_ptr() for a in args), None if keep is None else keep.data_ptr(),
+            ys.data_ptr(), B, T, D, H, _DTYPE_CODE[dtype], cfg["rows_per_block"],
             cfg["wx_in_smem"], cfg["smem_bytes"],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, lib, "forward")
-    gru_scan.launches += 1
+    if keep is None:
+        gru_scan.launches += 1
+    else:
+        gru_scan.reset_launches += 1
     return ys
 
 
@@ -173,14 +189,17 @@ def gru_backward(r: torch.Tensor, z: torch.Tensor, n: torch.Tensor,
                  w_h: torch.Tensor, keep: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reverse recurrence of the GRU backward -> (d_xp [B,T,3H] f32,
-    dh0 [B,H] f32), `reference.gru_bwd_scan`'s contract. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises."""
+    dh0 [B,H] f32), `reference.gru_bwd_scan`'s contract; with `keep`
+    ([B,T,1] or [B,T], 1 - reset) the reset variant, dh_prev *= keep[t].
+    The kernel works in h_in's dtype, W_h^T too: with a keep plane
+    `reference.gru_bwd_hoist` hands h_in over in f32 (the JAX package's
+    `_gru_bwd_math` runs in x_proj's f32), so the reset variant runs in f32.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises."""
     if r.device.type == "cpu":
         return plain_backward(r, z, n, hn, h_in, g_ys, w_h, keep)
     if r.device.type != "cuda":
         raise ValueError(f"gru: no kernel for device {r.device}")
-    if keep is not None:
-        raise NotImplementedError(_RESET_ITEM)
     B, T, H = r.shape
     dtype, dev = h_in.dtype, r.device
     cfg = backward_launch_config(B, T, H, dtype)
@@ -189,25 +208,31 @@ def gru_backward(r: torch.Tensor, z: torch.Tensor, n: torch.Tensor,
             raise ValueError(f"gru backward: {name} {tuple(t.shape)}, expected {(B, T, H)}")
     if tuple(w_h.shape) != (H, 3 * H):
         raise ValueError(f"gru backward: w_h {tuple(w_h.shape)}, expected {(H, 3 * H)}")
+    keep = _keep_plane(keep, B, T)
     planes = [t.float().contiguous() for t in (r, z, n, hn)]
     args = planes + [h_in.contiguous(), g_ys.to(dtype).contiguous(),
                      w_h.to(dtype).T.contiguous()]
-    _check_operands(args, dev)
+    _check_operands(args + ([] if keep is None else [keep]), dev)
     d_xp = torch.empty((B, T, 3 * H), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.seqrec_gru_backward(
-            *(a.data_ptr() for a in args), d_xp.data_ptr(), dh0.data_ptr(),
+            *(a.data_ptr() for a in args), None if keep is None else keep.data_ptr(),
+            d_xp.data_ptr(), dh0.data_ptr(),
             B, T, H, _DTYPE_CODE[dtype], cfg["rows_per_block"], cfg["w_in_smem"],
             cfg["smem_bytes"], torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, lib, "backward")
-    gru_backward.launches += 1
+    if keep is None:
+        gru_backward.launches += 1
+    else:
+        gru_backward.reset_launches += 1
     return d_xp, dh0
 
 
 gru_backward.launches = 0
+gru_backward.reset_launches = 0
 
 
 class _GRUScan(torch.autograd.Function):
@@ -219,7 +244,8 @@ class _GRUScan(torch.autograd.Function):
         if x.device.type == "cpu":
             ys, _ = plain(x, h0, w_x, w_h, b_x, b_h, reset_mask=reset)
         else:
-            ys = _forward_kernel(x, h0, w_x, w_h, b_x, b_h)
+            ys = _forward_kernel(x, h0, w_x, w_h, b_x, b_h,
+                                 None if reset is None else 1.0 - reset.float())
         ctx.save_for_backward(x, ys, h0, w_x, w_h, b_x, b_h, reset)
         return ys
 
@@ -247,14 +273,13 @@ def gru_scan(
     reset_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """GRU over time -> (ys [B, T, H], ys[:, -1]), in x.dtype, differentiable
-    in x, h0 and the weights.
+    in x, h0 and the weights. `reset_mask` [B, T] (1 = zero the state before
+    step t) selects the reset variants of both kernels.
 
     A CPU tensor takes the plain versions (forward and reverse loop); a CUDA
     tensor launches the kernels or raises."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gru: no kernel for device {x.device}")
-    if x.device.type == "cuda" and reset_mask is not None:
-        raise NotImplementedError(_RESET_ITEM)
     B, T, D = x.shape
     H = h0.shape[-1]
     if tuple(w_x.shape) != (D, 3 * H) or tuple(w_h.shape) != (H, 3 * H):
@@ -272,3 +297,4 @@ def gru_scan(
 
 
 gru_scan.launches = 0
+gru_scan.reset_launches = 0

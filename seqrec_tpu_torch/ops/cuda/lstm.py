@@ -1,11 +1,14 @@
 """LSTM scan kernels (`csrc/lstm.cu`): the forward scan and the reverse
 recurrence of its backward, joined by a `torch.autograd.Function`.
 
-Replaces `seqrec_tpu/ops/pallas/lstm.py::lstm_scan` (no reset mask: the
-reset variant comes with session-parallel training) and its custom VJP
-`_lstm_core_bwd`. Forward: the x-projection is computed inside the kernel,
-step by step; the kernel also writes c_T, and, when autograd will need it,
-the f32 cell plane c_1..c_T, so the backward runs no serial
+Replaces `seqrec_tpu/ops/pallas/lstm.py::lstm_scan` and its custom VJP
+`_lstm_core_bwd`, both variants: without a reset mask, and with one
+(`_lstm_step_kernel_reset`, session-parallel training), where a keep plane
+`1 - reset` [B, T] f32 goes to both kernels. The two variants count their
+launches apart: `lstm_scan.launches` / `lstm_scan.reset_launches`, and the
+same two on `lstm_backward`. Forward: the x-projection is computed inside
+the kernel, step by step; the kernel also writes c_T, and, when autograd
+will need it, the f32 cell plane c_1..c_T, so the backward runs no serial
 `_recompute_cells` loop on the card. Backward, as `_lstm_core_bwd`: the
 input projection and the gates are recomputed with `torch.matmul` in
 parallel over T (`reference.lstm_bwd_math`), the reverse recurrence runs in
@@ -42,19 +45,17 @@ plain_backward = reference.lstm_bwd_scan
 SMEM_LIMIT = 232_448  # shared memory one block may opt in to on sm_90 (227 KB)
 MAX_HIDDEN = 256  # kMaxHidden in csrc/lstm.cu: one thread per hidden unit
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_RESET_ITEM = ("lstm kernel: reset_mask (session-parallel streaming) is ported "
-               "with session-parallel training (ROADMAP.md Queue 1 item 7)")
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("lstm")
     fwd = lib.seqrec_lstm_forward
-    fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+    fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     fwd.restype = ctypes.c_int
     bwd = lib.seqrec_lstm_backward
-    bwd.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [
+    bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     bwd.restype = ctypes.c_int
@@ -154,29 +155,45 @@ def pack_k(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(K // P, P, N).transpose(1, 2).contiguous()
 
 
-def _forward_kernel(x, h0, c0, w_x, w_h, b, with_cells: bool):
+def _keep_plane(keep: Optional[torch.Tensor], B: int, T: int) -> Optional[torch.Tensor]:
+    """The [B, T] f32 keep plane (1 - reset) the kernels read, from a [B, T]
+    or [B, T, 1] one; None stays None (the no-reset variant)."""
+    if keep is None:
+        return None
+    if keep.numel() != B * T or keep.shape[:2] != (B, T):
+        raise ValueError(f"lstm: keep plane {tuple(keep.shape)}, expected {(B, T)}")
+    return keep.reshape(B, T).float().contiguous()
+
+
+def _forward_kernel(x, h0, c0, w_x, w_h, b, with_cells: bool, keep=None):
     """(ys [B, T, H] in x.dtype, c_last [B, H] f32, cs [B, T, H] f32 or
-    None); every operand already in its kernel dtype."""
+    None); every operand already in its kernel dtype; `keep` the [B, T]
+    plane 1 - reset (the reset variant) or None."""
     B, T, D = x.shape
     H = h0.shape[-1]
     cfg = launch_config(B, T, D, H, x.dtype)
     dtype, dev = x.dtype, x.device
+    keep = _keep_plane(keep, B, T)
     args = [t.contiguous() for t in (x, h0, c0, pack_k(w_x), pack_k(w_h), b)]
-    _check_operands(args, dev)
+    _check_operands(args + ([] if keep is None else [keep]), dev)
     ys = torch.empty((B, T, H), dtype=dtype, device=dev)
     c_last = torch.empty((B, H), dtype=torch.float32, device=dev)
     cs = torch.empty((B, T, H), dtype=torch.float32, device=dev) if with_cells else None
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.seqrec_lstm_forward(
-            *(a.data_ptr() for a in args), ys.data_ptr(), c_last.data_ptr(),
+            *(a.data_ptr() for a in args), None if keep is None else keep.data_ptr(),
+            ys.data_ptr(), c_last.data_ptr(),
             None if cs is None else cs.data_ptr(),
             B, T, D, H, _DTYPE_CODE[dtype], cfg["rows_per_block"],
             cfg["wx_in_smem"], cfg["wh_in_smem"], cfg["smem_bytes"],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, lib, "forward")
-    lstm_scan.launches += 1
+    if keep is None:
+        lstm_scan.launches += 1
+    else:
+        lstm_scan.reset_launches += 1
     return ys, c_last, cs
 
 
@@ -187,15 +204,15 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
                   dc_last: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The reverse recurrence of the LSTM backward -> (dz [B,T,4H] f32,
-    dh0 [B,H] f32, dc0 [B,H] f32), `reference.lstm_bwd_scan`'s contract.
+    dh0 [B,H] f32, dc0 [B,H] f32), `reference.lstm_bwd_scan`'s contract;
+    with `keep` ([B,T,1] or [B,T], 1 - reset) the reset variant, dh_prev and
+    dc_prev *= keep[t] (`c_in` arrives scaled by `reference.lstm_bwd_hoist`).
     The kernel works in g_ys's dtype (that of the forward's h). A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel or raises."""
     if i.device.type == "cpu":
         return plain_backward(i, f, g, o, tanh_c, c_in, g_ys, w_h, keep, dc_last)
     if i.device.type != "cuda":
         raise ValueError(f"lstm: no kernel for device {i.device}")
-    if keep is not None:
-        raise NotImplementedError(_RESET_ITEM)
     B, T, H = i.shape
     dtype, dev = g_ys.dtype, i.device
     cfg = backward_launch_config(B, T, H, dtype)
@@ -207,26 +224,32 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"lstm backward: w_h {tuple(w_h.shape)}, expected {(H, 4 * H)}")
     if dc_last is None:
         dc_last = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    keep = _keep_plane(keep, B, T)
     planes = [t.float().contiguous() for t in (i, f, g, o, tanh_c, c_in)]
-    args = planes + [g_ys.contiguous(), w_h.to(dtype).T.contiguous(),
-                     dc_last.float().contiguous()]
-    _check_operands(args, dev)
+    args = planes + [g_ys.contiguous(), w_h.to(dtype).T.contiguous()]
+    dc_last = dc_last.float().contiguous()
+    _check_operands(args + [dc_last] + ([] if keep is None else [keep]), dev)
     dz = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     dc0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.seqrec_lstm_backward(
-            *(a.data_ptr() for a in args), dz.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+            *(a.data_ptr() for a in args), None if keep is None else keep.data_ptr(),
+            dc_last.data_ptr(), dz.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
             B, T, H, _DTYPE_CODE[dtype], cfg["rows_per_block"], cfg["w_in_smem"],
             cfg["smem_bytes"], torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, lib, "backward")
-    lstm_backward.launches += 1
+    if keep is None:
+        lstm_backward.launches += 1
+    else:
+        lstm_backward.reset_launches += 1
     return dz, dh0, dc0
 
 
 lstm_backward.launches = 0
+lstm_backward.reset_launches = 0
 
 
 class _LSTMScan(torch.autograd.Function):
@@ -241,7 +264,9 @@ class _LSTMScan(torch.autograd.Function):
             ys, (_, c_last) = plain(x, h0, c0, w_x, w_h, b, reset_mask=reset)
             cs = None
         else:
-            ys, c_last, cs = _forward_kernel(x, h0, c0, w_x, w_h, b, with_cells)
+            ys, c_last, cs = _forward_kernel(
+                x, h0, c0, w_x, w_h, b, with_cells,
+                None if reset is None else 1.0 - reset.float())
             c_last = c_last.to(x.dtype)
         ctx.save_for_backward(x, ys, cs, h0, c0, w_x, w_h, b, reset)
         return ys, c_last
@@ -273,13 +298,13 @@ def lstm_scan(
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """LSTM over time -> (ys [B, T, H], (h_last, c_last)), in x.dtype,
     differentiable in x, h0, c0 and the weights, through ys and c_last.
+    `reset_mask` [B, T] (1 = zero h and c before step t) selects the reset
+    variants of both kernels.
 
     A CPU tensor takes the plain versions (forward and reverse loop); a
     CUDA tensor launches the kernels or raises."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm: no kernel for device {x.device}")
-    if x.device.type == "cuda" and reset_mask is not None:
-        raise NotImplementedError(_RESET_ITEM)
     B, T, D = x.shape
     H = h0.shape[-1]
     if tuple(w_x.shape) != (D, 4 * H) or tuple(w_h.shape) != (H, 4 * H):
@@ -297,3 +322,4 @@ def lstm_scan(
 
 
 lstm_scan.launches = 0
+lstm_scan.reset_launches = 0

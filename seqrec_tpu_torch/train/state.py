@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
@@ -42,6 +42,9 @@ class TrainState:
     # The per-step generators are seeded from (rng_seed, step): the JAX
     # package's `jax.random.key(seed + 1)` folded with the step.
     rng_seed: int
+    # Session-parallel training: the recurrent state carried from one window
+    # into the next (`towers.zero_carry`'s layout), detached; None otherwise.
+    carry: Any = None
 
 
 def make_schedule(cfg: TrainConfig) -> Schedule:

@@ -1,16 +1,24 @@
-"""The training step: the port of `seqrec_tpu/train/trainer.py`'s dense
-`_train_step_impl`, `_train_step_multi_impl` and its compact wire format.
+"""The training step: the port of `seqrec_tpu/train/trainer.py`'s dense and
+session-parallel `_train_step_impl`, `_train_step_multi_impl` and their
+compact wire formats.
 
     trainer = Trainer(cfg, ds)               # ds: anything with vocab_size, num_users
     state = trainer.init_state(seed)
     state, metrics = trainer.train_step(state, wire_or_dict)
-    state, metrics = trainer.train_step_multi(state, wires)   # [K, B, T+2]
+    state, metrics = trainer.train_step_multi(state, wires)   # [K, B, W]
 
 A step runs eagerly on the device: negatives drawn on the device, the loss
 through the kernels (gather, the tower's GRU or LSTM scan or causal
 attention, sampled-softmax head) and their backward kernels, the global
 gradient norm, and the optimizer. It is functional, as the JAX step is:
 the state it was given is left as it was.
+
+With `data.session_parallel` a batch is one window of a session-parallel
+stream (`data.batching.make_session_stream`): the step runs
+`SeqRecModel.loss_stream` from `state.carry`, the recurrent state the
+previous window left, and the new state carries the window's final state,
+detached (truncated BPTT: gradients stop at the window boundary, as
+`jax.lax.stop_gradient` stops them in the JAX step).
 Metrics stay on the device (no host sync inside a step). The fit loop, the
 data pipeline and a CUDA-graph capture of a K-step group come with later
 slices (ROADMAP.md Queue 1 item 3).
@@ -18,7 +26,7 @@ slices (ROADMAP.md Queue 1 item 3).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,6 +36,7 @@ from seqrec_tpu_torch.data.negative import sample_negatives
 from seqrec_tpu_torch.models import build_model
 from seqrec_tpu_torch.models.convert import flax_to_state_dict, random_params
 from seqrec_tpu_torch.models.model import SAMPLED_LOSSES
+from seqrec_tpu_torch.models.towers import zero_carry
 from seqrec_tpu_torch.runtime import DEFAULT_DEVICE, resolve_device
 from seqrec_tpu_torch.train.state import (
     TrainState,
@@ -36,6 +45,13 @@ from seqrec_tpu_torch.train.state import (
 )
 
 Batch = Union[np.ndarray, torch.Tensor, Dict[str, np.ndarray]]
+
+
+def _detach(carry):
+    """The carry with every tensor detached from the step's graph."""
+    if isinstance(carry, torch.Tensor):
+        return carry.detach()
+    return tuple(_detach(c) for c in carry)
 
 
 class Trainer:
@@ -48,10 +64,6 @@ class Trainer:
             raise NotImplementedError(
                 "train.sparse_embedding_update: ROADMAP.md Queue 1 item 8 "
                 "(sparse embedding updates)")
-        if cfg.data.session_parallel:
-            raise NotImplementedError(
-                "data.session_parallel: ROADMAP.md Queue 1 item 7 "
-                "(session-parallel training)")
         if cfg.mesh.shard_embeddings and cfg.mesh.model_axis > 1:
             raise NotImplementedError(
                 "mesh.shard_embeddings: ROADMAP.md Queue 1 item 9 (multi-GPU)")
@@ -64,12 +76,18 @@ class Trainer:
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Parameters drawn with numpy from `seed` (`models.convert`'s flax
-        initializer distributions), zero optimizer state, step 0."""
+        initializer distributions), zero optimizer state, step 0, and for
+        session-parallel training a zero carry in the compute dtype."""
         seed = self.cfg.train.seed if seed is None else seed
         params = {k: v.to(self.device)
                   for k, v in flax_to_state_dict(random_params(self.model, seed)).items()}
-        return TrainState(step=0, params=params,
-                          opt_state=self.optimizer.init(params), rng_seed=seed + 1)
+        carry = None
+        if self.cfg.data.session_parallel:
+            m = self.cfg.model
+            carry = zero_carry(m.cell_type, m.num_layers, self.cfg.data.batch_size, m.hidden,
+                               self.model.compute_dtype, self.device)
+        return TrainState(step=0, params=params, opt_state=self.optimizer.init(params),
+                          rng_seed=seed + 1, carry=carry)
 
     def _generators(self, state: TrainState) -> Tuple[torch.Generator, torch.Generator]:
         """(negatives, dropout) generators of this step: a function of the
@@ -95,36 +113,44 @@ class Trainer:
 
     def train_step(self, state: TrainState, batch: Batch
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One step on a [B, T+2] wire (numpy or a tensor) or a batch dict
-        {inputs, targets, mask[, users]} of numpy arrays."""
+        """One step on a wire (numpy or a tensor: [B, T+2], or [B, T+E+W]
+        for a session window) or a batch dict {inputs, targets, mask[, users]
+        [, reset]} of numpy arrays or tensors."""
         batch = self._device_batch(batch)
         params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-        loss, w_sum = self.forward(state, params, batch)
+        loss, w_sum, carry = self.forward(state, params, batch)
         grads = self.backward(loss, params)
-        return self.update(state, params, grads, loss, w_sum)
+        return self.update(state, params, grads, loss, w_sum, carry)
 
     def forward(self, state: TrainState, params, batch):
-        """The step's loss (sum / max(weights, 1)) and weight sum, with this
-        step's negatives and dropout."""
+        """The step's loss (sum / max(weights, 1)), weight sum and new carry
+        (detached; None unless session-parallel), with this step's negatives
+        and dropout."""
         neg_gen, dropout_gen = self._generators(state)
         neg_ids = neg_log_q = None
         if self.cfg.model.loss in SAMPLED_LOSSES:
             neg_ids, neg_log_q = self.sample_negatives(neg_gen)
-        loss_sum, w_sum = torch.func.functional_call(
-            self.model, params, (batch,),
-            {"method": "loss", "neg_ids": neg_ids, "neg_log_q": neg_log_q,
-             "deterministic": False, "generator": dropout_gen},
-        )
-        return loss_sum / torch.clamp(w_sum, min=1.0), w_sum
+        kwargs = {"neg_ids": neg_ids, "neg_log_q": neg_log_q, "deterministic": False,
+                  "generator": dropout_gen}
+        carry = None
+        if self.cfg.data.session_parallel:
+            loss_sum, w_sum, carry = torch.func.functional_call(
+                self.model, params, (batch, state.carry), {"method": "loss_stream", **kwargs})
+            # TBPTT: the next window starts from this state, not from its graph.
+            carry = _detach(carry)
+        else:
+            loss_sum, w_sum = torch.func.functional_call(
+                self.model, params, (batch,), {"method": "loss", **kwargs})
+        return loss_sum / torch.clamp(w_sum, min=1.0), w_sum, carry
 
     @staticmethod
     def backward(loss: torch.Tensor, params) -> Dict[str, torch.Tensor]:
         return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
 
-    def update(self, state: TrainState, params, grads, loss, w_sum
+    def update(self, state: TrainState, params, grads, loss, w_sum, carry=None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """Gradient norm, non-finite flag, optional sanitizing, and the
-        optimizer: the new state and the step's metrics."""
+        optimizer: the new state (carrying `carry`) and the step's metrics."""
         gnorm = global_norm(grads.values())
         # One NaN/inf anywhere poisons the global norm: one scalar check.
         nonfinite = ~torch.isfinite(gnorm) | ~torch.isfinite(loss)
@@ -135,20 +161,24 @@ class Trainer:
         updates, opt_state = self.optimizer.update(grads, state.opt_state, params)
         new_state = TrainState(step=state.step + 1,
                                params=self.optimizer.apply(params, updates),
-                               opt_state=opt_state, rng_seed=state.rng_seed)
+                               opt_state=opt_state, rng_seed=state.rng_seed, carry=carry)
         metrics = {"loss": loss.detach(), "tokens": w_sum.detach(),
                    "grad_norm": gnorm, "nonfinite": nonfinite}
         return new_state, metrics
 
-    def train_step_multi(self, state: TrainState, wires: Union[np.ndarray, torch.Tensor]
+    def train_step_multi(self, state: TrainState,
+                         wires: Union[np.ndarray, torch.Tensor, Sequence[Batch]]
                          ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """K steps over a [K, B, T+2] group of wires: the same math as K
-        `train_step` calls (each step's draws depend on its step number
-        only). Metrics over the group: mean loss, summed tokens, max
+        """K steps over a [K, B, W] group of wires, or over a sequence of K
+        batches (wires or dicts: a session window that does not pack ships
+        as a dict): the same math as K `train_step` calls (each step's draws
+        depend on its step number only; the carry threads through the K
+        steps). Metrics over the group: mean loss, summed tokens, max
         gradient norm, any non-finite."""
-        wires = self._to_device(wires)
+        if not isinstance(wires, (list, tuple)):
+            wires = self._to_device(wires)
         ms = []
-        for k in range(wires.shape[0]):
+        for k in range(len(wires)):
             state, m = self.train_step(state, wires[k])
             ms.append(m)
         metrics = {
@@ -160,12 +190,14 @@ class Trainer:
         }
         return state, metrics
 
-    # ---- the compact wire format --------------------------------------------
+    # ---- the compact wire formats --------------------------------------------
     #
     # A bucketed train batch's {inputs, targets, mask, users} is fully
     # determined by the item sequence (targets = inputs shifted by one, mask =
     # non-pad targets), so one [B, T+2] token array, int16 when the vocab
-    # fits, carries it and the step rebuilds the planes on the device.
+    # fits, carries it and the step rebuilds the planes on the device. A
+    # session window is determined by its inputs, the targets at session
+    # ends and its reset plane: one [B, T+E+W] array (`pack_session_batch`).
 
     @property
     def _wire_dtype(self):
@@ -197,6 +229,80 @@ class Trainer:
         tokens[:, T + 1] = batch.get("users", np.zeros((B,), np.int32))
         return tokens
 
+    @property
+    def _session_wire_cols(self) -> Tuple[int, int, int]:
+        """(T, E, W) column layout of the session wire: T input tokens, E =
+        T//2 + 1 slots for the targets at session ends (every window whose
+        sessions average >= 2 transitions), W = ceil(T/8) words of reset
+        bits, 8 a word. A denser window ships as a dict."""
+        T = self.cfg.data.max_len
+        return T, T // 2 + 1, (T + 7) // 8
+
+    def pack_session_batch(self, batch: Dict[str, np.ndarray]) -> Optional[np.ndarray]:
+        """Pack a session-parallel window: [B, T+E+W] = inputs, each lane's
+        session-end targets in order (the one token of a session that
+        `inputs` never carries: mask is all ones, and targets[t] ==
+        inputs[t+1] except where a session ends, at t == T-1 or before a
+        reset), and the reset plane as 8-bit words. None (ship the dict) for
+        a window that is not such a stream or has more than E session ends."""
+        if "reset" not in batch or "targets" not in batch:
+            return None
+        inputs, targets = batch["inputs"], batch["targets"]
+        mask, reset = batch["mask"], batch["reset"]
+        B, T = inputs.shape
+        Tc, E, W = self._session_wire_cols
+        if T != Tc or mask.shape != targets.shape or not (mask == 1.0).all():
+            return None
+        rs = reset > 0
+        end = np.concatenate([rs[:, 1:], np.ones((B, 1), bool)], axis=1)
+        cont = ~end[:, :-1]
+        if not (targets[:, :-1][cont] == inputs[:, 1:][cont]).all():
+            return None  # not a packed next-item stream
+        counts = end.sum(1)
+        if counts.max() > E:
+            return None  # more session ends than the wire has slots
+        wire = np.zeros((B, T + E + W), self._wire_dtype)
+        wire[:, :T] = inputs
+        r_idx, t_idx = np.nonzero(end)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        j = np.arange(len(r_idx)) - np.repeat(starts, counts)
+        wire[r_idx, T + j] = targets[r_idx, t_idx]
+        pad = np.zeros((B, W * 8), np.int64)
+        pad[:, :T] = rs
+        wire[:, T + E:] = (pad.reshape(B, W, 8) << np.arange(8)).sum(-1).astype(self._wire_dtype)
+        return wire
+
+    def _unpack_session_wire(self, packed: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Inverse of pack_session_batch, on the wire's device."""
+        T, E, W = self._session_wire_cols
+        B = packed.shape[0]
+        dev = packed.device
+        inputs = packed[:, :T].to(torch.int32)
+        bt = packed[:, T:T + E].to(torch.int64)
+        words = packed[:, T + E:].to(torch.int32)
+        t = torch.arange(T, device=dev)
+        reset = (words[:, t // 8] >> (t % 8)) & 1  # [B, T]
+        end = torch.cat([reset[:, 1:], torch.ones((B, 1), dtype=reset.dtype, device=dev)], dim=1)
+        idx = torch.clamp(torch.cumsum(end, dim=1) - 1, min=0)
+        boundary = torch.gather(bt, 1, idx.to(torch.int64)).to(torch.int32)
+        shifted = torch.cat([inputs[:, 1:], torch.zeros((B, 1), dtype=torch.int32, device=dev)],
+                            dim=1)
+        return {
+            "inputs": inputs,
+            "targets": torch.where(end == 1, boundary, shifted),
+            "mask": torch.ones((B, T), dtype=torch.float32, device=dev),
+            "reset": reset.to(torch.float32),
+        }
+
+    def pack_batch(self, batch) -> Optional[np.ndarray]:
+        """The config's wire packer: session windows for session-parallel
+        training, bucketed batches otherwise. Arrays pass through."""
+        if isinstance(batch, np.ndarray):
+            return batch
+        if self.cfg.data.session_parallel:
+            return self.pack_session_batch(batch)
+        return self.pack_train_batch(batch)
+
     @staticmethod
     def _unpack_wire(packed: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Inverse of pack_train_batch, on the wire's device. `inputs` carries
@@ -220,4 +326,7 @@ class Trainer:
     def _device_batch(self, batch: Batch) -> Dict[str, torch.Tensor]:
         if isinstance(batch, dict):
             return {k: self._to_device(v) for k, v in batch.items()}
-        return self._unpack_wire(self._to_device(batch))
+        wire = self._to_device(batch)
+        if self.cfg.data.session_parallel:
+            return self._unpack_session_wire(wire)
+        return self._unpack_wire(wire)

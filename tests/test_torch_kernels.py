@@ -13,7 +13,9 @@ row's sum changes from run to run). Head 1e-5 relative (both sides multiply
 in f32, bf16 inputs exactly; only the summation order differs). GRU and
 LSTM backward 1e-4 (f32 carries over T steps, another summation order in
 each step's dot product). LSTM forward 1e-5 in f32 and 5e-2 in bf16 (the
-plain version also rounds its cell state to bf16 every step). Attention
+plain version also rounds its cell state to bf16 every step). The reset
+variants keep their no-reset counterparts' tolerances, and with an all-zero
+reset plane equal the no-reset kernels bit for bit (a multiply by 1.0). Attention
 2e-5 in f32 (an online softmax sums in another order); in bf16 5e-2 against
 the plain version, which rounds its scores to bf16, and 2e-2 against the
 plain version in f32 on the same bf16 inputs (the kernel rounds only the
@@ -119,13 +121,32 @@ def test_gru_kernel_every_row_tiling(cuda, rows_per_block, monkeypatch):
     torch.testing.assert_close(ys, want, rtol=1e-5, atol=1e-5)
 
 
+def _reset_plane(B, T, device, seed=0):
+    """A session start about every 6 positions, and one at t=0 in row 0."""
+    rng = np.random.default_rng(seed)
+    reset = (rng.random((B, T)) < 1 / 6).astype(np.float32)
+    reset[0, 0] = 1.0
+    return torch.from_numpy(reset).to(device)
+
+
 def test_gru_kernel_without_biases_and_raises_on_reset(cuda):
+    """Without biases the kernel matches the plain scan; a reset plane runs
+    the reset variant (which raised before session-parallel training was
+    ported) and matches the plain scan; a plane or shape it cannot take
+    raises."""
     x, h0, w_x, w_h, _, _ = _gru_args(4, 5, 16, 16, torch.float32, cuda, seed=2)
     ys, _ = k_gru.gru_scan(x, h0, w_x, w_h)
     want, _ = k_gru.plain(x, h0, w_x, w_h)
     torch.testing.assert_close(ys, want, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="reset_mask"):
-        k_gru.gru_scan(x, h0, w_x, w_h, reset_mask=torch.zeros(4, 5, device=cuda))
+    reset = _reset_plane(4, 5, cuda)
+    before = (k_gru.gru_scan.launches, k_gru.gru_scan.reset_launches)
+    ys, _ = k_gru.gru_scan(x, h0, w_x, w_h, reset_mask=reset)
+    assert (k_gru.gru_scan.launches, k_gru.gru_scan.reset_launches) == (before[0],
+                                                                         before[1] + 1)
+    want, _ = k_gru.plain(x, h0, w_x, w_h, reset_mask=reset)
+    torch.testing.assert_close(ys, want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="keep plane"):
+        k_gru.gru_scan(x, h0, w_x, w_h, reset_mask=reset[:, :4])
     with pytest.raises(ValueError, match="H % 4"):
         k_gru.gru_scan(x, h0[:, :6], w_x[:, :18], w_h[:6, :18])
 
@@ -490,9 +511,20 @@ def test_lstm_kernel_every_layout_and_the_cell_plane(cuda, rows_per_block, dtype
 
 
 def test_lstm_kernel_raises_on_reset_and_bad_shapes(cuda):
+    """A reset plane runs the reset variant (which raised before
+    session-parallel training was ported) and matches the plain scan, c_T
+    included; a plane or shape it cannot take raises."""
     x, h0, c0, w_x, w_h, b = _lstm_args(4, 5, 16, 16, torch.float32, cuda, seed=2)
-    with pytest.raises(NotImplementedError, match="reset_mask"):
-        k_lstm.lstm_scan(x, h0, c0, w_x, w_h, b, reset_mask=torch.zeros(4, 5, device=cuda))
+    reset = _reset_plane(4, 5, cuda)
+    before = (k_lstm.lstm_scan.launches, k_lstm.lstm_scan.reset_launches)
+    ys, (_, c) = k_lstm.lstm_scan(x, h0, c0, w_x, w_h, b, reset_mask=reset)
+    assert (k_lstm.lstm_scan.launches, k_lstm.lstm_scan.reset_launches) == (before[0],
+                                                                             before[1] + 1)
+    want, (_, c_want) = k_lstm.plain(x, h0, c0, w_x, w_h, b, reset_mask=reset)
+    torch.testing.assert_close(ys, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(c, c_want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="keep plane"):
+        k_lstm.lstm_scan(x, h0, c0, w_x, w_h, b, reset_mask=reset[:1])
     with pytest.raises(ValueError, match="H % 4"):
         k_lstm.lstm_scan(x, h0[:, :6], c0[:, :6], w_x[:, :24], w_h[:6, :24])
 
@@ -612,3 +644,126 @@ def test_tower_loss_backward_on_cuda_reaches_every_parameter(cuda, tower):
     for name, p in m.named_parameters():
         assert p.grad is not None, name
         assert bool(torch.isfinite(p.grad).all()), name
+
+
+# ---------------------------------------------------------------------------
+# Session-parallel training: the reset variants of the scans and of their
+# reverse recurrences
+# ---------------------------------------------------------------------------
+
+RESET_SHAPES = [(5, 7, 16, 32), (256, 50, 100, 100), (128, 40, 128, 128), (11, 9, 64, 96)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,D,H", RESET_SHAPES)
+def test_gru_reset_kernel_matches_plain(cuda, dtype, B, T, D, H):
+    """Against the plain scan with the same resets; an all-zero plane gives
+    the no-reset kernel's bits; with a reset at t=0 the output ignores h0."""
+    args = _gru_args(B, T, D, H, dtype, cuda, seed=B + T)
+    reset = _reset_plane(B, T, cuda, seed=T)
+    ys, h = k_gru.gru_scan(*args, reset_mask=reset)
+    want, _ = k_gru.plain(*args, reset_mask=reset)
+    torch.testing.assert_close(ys.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    assert torch.equal(h, ys[:, -1])
+    assert torch.equal(k_gru.gru_scan(*args, reset_mask=torch.zeros_like(reset))[0],
+                       k_gru.gru_scan(*args)[0])
+    reset[:, 0] = 1.0
+    x, h0, *w = args
+    assert torch.equal(k_gru.gru_scan(x, h0, *w, reset_mask=reset)[0],
+                       k_gru.gru_scan(x, torch.zeros_like(h0), *w, reset_mask=reset)[0])
+
+
+@pytest.mark.parametrize("B,T,H", [(5, 7, 32), (256, 50, 100), (128, 40, 128), (11, 9, 64)])
+def test_gru_backward_reset_kernel_matches_plain(cuda, B, T, H):
+    """The keep path in f32, the dtype it runs in (`gru_bwd_hoist` hands
+    h_in over in f32 with a keep plane)."""
+    planes = _gate_planes(B, T, H, torch.float32, cuda, seed=B + T)
+    keep = (1.0 - _reset_plane(B, T, cuda, seed=H))[:, :, None]
+    before = k_gru.gru_backward.reset_launches
+    d_xp, dh0 = k_gru.gru_backward(*planes, keep)
+    assert k_gru.gru_backward.reset_launches == before + 1
+    want_xp, want_h0 = k_gru.plain_backward(*planes, keep)
+    torch.testing.assert_close(d_xp, want_xp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dh0, want_h0, rtol=1e-4, atol=1e-4)
+    for a, b in zip(k_gru.gru_backward(*planes, torch.ones_like(keep)),
+                    k_gru.gru_backward(*planes)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,D,H", [(5, 7, 16, 32), (128, 40, 128, 128), (11, 9, 64, 96)])
+def test_lstm_reset_kernel_matches_plain(cuda, dtype, B, T, D, H):
+    args = _lstm_args(B, T, D, H, dtype, cuda, seed=B + T)
+    reset = _reset_plane(B, T, cuda, seed=T)
+    ys, (h, c) = k_lstm.lstm_scan(*args, reset_mask=reset)
+    want, (_, c_want) = k_lstm.plain(*args, reset_mask=reset)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(ys.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(c.float(), c_want.float(), rtol=tol, atol=tol)
+    zero = k_lstm.lstm_scan(*args, reset_mask=torch.zeros_like(reset))
+    plain_run = k_lstm.lstm_scan(*args)
+    assert torch.equal(zero[0], plain_run[0]) and torch.equal(zero[1][1], plain_run[1][1])
+    reset[:, 0] = 1.0
+    x, h0, c0, *w = args
+    a = k_lstm.lstm_scan(x, h0, c0, *w, reset_mask=reset)
+    b = k_lstm.lstm_scan(x, torch.zeros_like(h0), torch.zeros_like(c0), *w, reset_mask=reset)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1][1], b[1][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_reset_kernel_cell_plane(cuda, dtype):
+    """The f32 cell plane and c_T the reset variant writes equal the plain
+    serial recompute with the same resets."""
+    args = [a.detach() for a in _lstm_args(11, 6, 128, 128, dtype, cuda, seed=1)]
+    reset = _reset_plane(11, 6, cuda, seed=2)
+    wx, wh = args[3].to(dtype), args[4].to(dtype)
+    ys, c_last, cs = k_lstm._forward_kernel(args[0], args[1], args[2], wx, wh, args[5], True,
+                                            1.0 - reset)
+    x_proj = torch.matmul(args[0].float(), wx.float()) + args[5]
+    cells = reference.lstm_recompute_cells(x_proj, ys, args[1], args[2], wh, reset)
+    torch.testing.assert_close(cs, cells, rtol=1e-4, atol=1e-4)
+    assert torch.equal(c_last, cs[:, -1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H", [(5, 7, 32), (128, 40, 128), (11, 9, 64)])
+def test_lstm_backward_reset_kernel_matches_plain(cuda, dtype, B, T, H):
+    planes = _lstm_planes(B, T, H, dtype, cuda, seed=B + T)
+    keep = (1.0 - _reset_plane(B, T, cuda, seed=H))[:, :, None]
+    dc_last = torch.randn(B, H, device=cuda)
+    before = k_lstm.lstm_backward.reset_launches
+    got = k_lstm.lstm_backward(*planes, keep, dc_last)
+    assert k_lstm.lstm_backward.reset_launches == before + 1
+    want = k_lstm.plain_backward(*planes, keep, dc_last)
+    for name, a, b in zip(("dz", "dh0", "dc0"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+    for a, b in zip(k_lstm.lstm_backward(*planes, torch.ones_like(keep), dc_last),
+                    k_lstm.lstm_backward(*planes, None, dc_last)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_reset_autograd_with_kernels_matches_plain_autograd(cuda, cell):
+    """f32: the reset variants forward and backward against autograd
+    through the plain scans' own torch ops, with h0 (and c0) carried in."""
+    B, T, D, H = 16, 30, 64, 64
+    if cell == "gru":
+        args = _gru_args(B, T, D, H, torch.float32, cuda, seed=5)
+        scan, plain, names = k_gru.gru_scan, k_gru.plain, ("x", "h0", "w_x", "w_h", "b_x", "b_h")
+    else:
+        args = _lstm_args(B, T, D, H, torch.float32, cuda, seed=5)
+        scan, plain, names = k_lstm.lstm_scan, k_lstm.plain, ("x", "h0", "c0", "w_x", "w_h", "b")
+    args = [a.detach().requires_grad_(True) for a in args]
+    reset = _reset_plane(B, T, cuda, seed=6)
+    g = torch.from_numpy(np.random.default_rng(7).normal(size=(B, T, H))
+                         .astype(np.float32)).to(cuda)
+    bwd = k_gru.gru_backward if cell == "gru" else k_lstm.lstm_backward
+    b0 = bwd.reset_launches
+    (scan(*args, reset_mask=reset)[0] * g).sum().backward()
+    assert bwd.reset_launches == b0 + 1
+    got = [a.grad.clone() for a in args]
+    for a in args:
+        a.grad = None
+    (plain(*args, reset_mask=reset)[0] * g).sum().backward()
+    for name, x, y in zip(names, got, args):
+        torch.testing.assert_close(x, y.grad, rtol=1e-4, atol=1e-4, msg=name)

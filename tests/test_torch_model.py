@@ -191,11 +191,11 @@ def test_recommend_refuses_catalogs_that_need_chunked_topk(monkeypatch):
 
 
 def test_training_and_unported_towers_raise():
-    """`loss` and the LSTM and SASRec towers are ported; session-parallel
-    `loss_stream` and SASRec's `remat` still raise, naming their ROADMAP
-    item."""
-    _, _, tm = _pair(loss="full_softmax")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+    """`loss`, `loss_stream` and the LSTM and SASRec towers are ported;
+    SASRec's `remat` still raises, naming its ROADMAP item, and
+    `loss_stream` refuses a model with a user table, as the JAX package's."""
+    _, _, tm = _pair(loss="full_softmax", use_user_embedding=True)
+    with pytest.raises(ValueError, match="anonymous"):
         tm.loss_stream({}, None)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
         build_model(ModelConfig(arch="sasrec", remat=True), VOCAB, device="cpu")
