@@ -12,8 +12,10 @@ source, all at once). Each phase prints one JSON line:
   c. kernels  each kernel against its plain PyTorch version at the serving
               shapes (gather: [3418, 128] table, [64, 200] ids with planted
               out-of-range ids, bit-exact; GRU: B=64, T=200, D=H=128 in f32
-              and bf16, and against torch.nn.GRU as a second oracle), with
-              kernel, plain, library and bound times;
+              and bf16, and against torch.nn.GRU as a second oracle, and
+              also at the training shape B=128; the bf16 forward's input
+              projection kernel), with kernel, plain, library and bound
+              times and each kernel's design (mma.sync or cuda-core);
   d. serve    `recommend` on the ML-1M GRU4Rec configuration
               (configs/ml1m_gru4rec.json, seeded random weights) for a few
               hundred Zipf-distributed histories, batch 64, k=10: once with
@@ -39,7 +41,8 @@ source, all at once). Each phase prints one JSON line:
   g. tower_kernels  the SASRec and LSTM towers' kernels against their plain
               versions at the training shapes, bf16 and f32: causal
               attention at [128, 200, 1, 64] (also against
-              F.scaled_dot_product_attention, its library yardstick); the
+              F.scaled_dot_product_attention, its library yardstick, and
+              timed beside it at serving's [64, 200, 1, 64]); the
               LSTM forward at B=128, T=200, D=H=128 (also against
               torch.nn.LSTM); the LSTM reverse recurrence (dz, dh0, dc0) and
               the weight gradients through autograd; with kernel, plain,
@@ -72,10 +75,11 @@ source, all at once). Each phase prints one JSON line:
               (synthetic ML-1M-shaped sessions of 5..200 items), 2 groups;
   l. the kernels line: {"kernels": [{name, route, source, replaces,
               launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
-              library_ms}, ...]} for all twelve kernels, `launches` counted
-              on a training path (GRU4Rec's for the gather, scatter-add and
-              head, the session paths' for the reset variants; the counts of
-              every path beside it).
+              library_ms, design}, ...]} for all thirteen kernels (the bf16
+              GRU forward is two: its input projection and the scan),
+              `launches` counted on a training path (GRU4Rec's for the
+              gather, scatter-add and head, the session paths' for the reset
+              variants; the counts of every path beside it).
 
 Then the raw nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -134,6 +138,7 @@ REPS = 21
 GRU_F32_TOL = 1e-5  # same f32 math, another summation order
 GRU_CUDNN_F32_TOL = 1e-4  # cuDNN's own GEMM order, TF32 off
 GRU_BF16_TOL = 3e-2  # plain rounds every gate op to bf16, the kernel only h
+XPROJ_TOL = 1e-5  # exact bf16 products summed in f32 on both sides, another order
 # Serve: bf16 scores through two numerics of the tower (kernel vs plain):
 # GRU 1e-2 (CPU emulation: 1e-3); SASRec 5e-2 (the plain attention rounds
 # its scores to bf16, through two blocks and LayerNorms); LSTM 5e-2 (the
@@ -286,8 +291,9 @@ def _gru_forward_check(dev, x32, weights, h32, dtype, reset=None) -> dict:
     check(err <= tol, f"{name}: kernel vs plain max abs err {err} > {tol}")
     es = x.element_size()
     r_bytes = (B * T * D + B * H + (D + H) * 3 * H + B * T * H) * es + 2 * 3 * H * 4
+    launch = k_gru.launch_config(B, T, D, H, dtype)
     rec = {"shape": {"B": B, "T": T, "D": D, "H": H, "dtype": _dname(dtype)},
-           "launch": k_gru.launch_config(B, T, D, H, dtype),
+           "launch": launch, "design": launch["design"],
            "max_abs_err": err, "tolerance": tol}
     if reset is None:
         w_x, w_h, b_x, b_h = weights
@@ -369,8 +375,46 @@ def phase_kernels(rng: np.random.Generator, dev) -> dict:
     h32 = torch.zeros(B, H, device=dev)
     for dtype in (torch.float32, torch.bfloat16):
         out[f"gru_scan_{_dname(dtype)}"] = _gru_forward_check(dev, x32, weights, h32, dtype)
+    # The training path's shape (B=128): the same checks and times.
+    ids_t = torch.from_numpy(zipf_items(rng, TRAIN_B * T).reshape(TRAIN_B, T)
+                             .astype(np.int32)).to(dev)
+    x32_t = k_gather.plain(table, ids_t)
+    for dtype in (torch.float32, torch.bfloat16):
+        out[f"gru_scan_{_dname(dtype)}_B{TRAIN_B}"] = _gru_forward_check(
+            dev, x32_t, weights, torch.zeros(TRAIN_B, H, device=dev), dtype)
+    out["gru_xproj"] = _xproj_check(x32, weights[0], weights[2])
     emit({"phase": "kernels", **out})
     return out
+
+
+def _xproj_check(x32, w_x, b_x) -> dict:
+    """The bf16 GRU forward's input projection kernel (x @ W_x + b_x into
+    f32, all steps at once) against its plain version; the library
+    yardstick is one f32 torch.addmm on the same values (TF32 off)."""
+    B, T, D = x32.shape
+    N3 = w_x.shape[1]
+    x, wx = x32.bfloat16(), w_x.bfloat16()
+    got = k_gru.gru_input_projection(x, wx, b_x)
+    torch.cuda.synchronize()
+    want = k_gru.plain_input_projection(x, wx, b_x)
+    err = max_err(got, want)
+    check(got.shape == (B, T, N3) and got.dtype == torch.float32,
+          f"gru input projection: {tuple(got.shape)} {got.dtype}")
+    check(err <= XPROJ_TOL, f"gru input projection: kernel vs plain max abs err {err} > "
+                            f"{XPROJ_TOL}")
+    xf, wf = x.float().reshape(B * T, D), wx.float()
+    p_bytes = (B * T * D + D * N3) * 2 + N3 * 4 + B * T * N3 * 4
+    p_flops = 2 * B * T * D * N3
+    p_bound, p_by = bound(p_bytes, p_flops, torch.bfloat16)
+    return {
+        "shape": {"M": B * T, "D": D, "N": N3, "dtype": "bfloat16", "out": "float32"},
+        "design": "mma.sync", "max_abs_err": err, "tolerance": XPROJ_TOL,
+        "kernel_ms": time_ms(lambda: k_gru.gru_input_projection(x, wx, b_x)),
+        "plain_ms": time_ms(lambda: k_gru.plain_input_projection(x, wx, b_x)),
+        "library_ms": time_ms(lambda: torch.addmm(b_x, xf, wf)),
+        "library": "torch.addmm f32 on the bf16 values (TF32 off)",
+        "bound_ms": p_bound, "bound_by": p_by, "bytes": int(p_bytes), "flops": int(p_flops),
+    }
 
 
 def _agree(a: dict, b: dict, tol: float) -> tuple:
@@ -405,8 +449,9 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
     a sampled loss (inputs, positives, negatives) or one (full softmax),
     each with its scatter-add, and the head kernel only for the sampled
     softmax (BPR-max and the other ranking losses are plain tensor code);
-    the tower's kernel once per layer or block, and its backward per layer,
-    the reset variants on a session-parallel path."""
+    the tower's kernel once per layer or block (the bf16 GRU forward with its
+    input projection), and its backward per layer, the reset variants on a
+    session-parallel path."""
     m = cfg.model
     want = dict.fromkeys(COUNTERS, 0)
     if m.arch == "sasrec":
@@ -414,6 +459,8 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
     else:
         variant = "_reset" if training and cfg.data.session_parallel else ""
         want[f"{m.cell_type}_scan{variant}"] = m.num_layers
+        if m.cell_type == "gru" and m.compute_dtype == "bfloat16":
+            want["gru_xproj"] = m.num_layers  # the bf16 forward's input projection
         if training:
             want[f"{m.cell_type}_backward{variant}"] = m.num_layers
     if training:
@@ -779,15 +826,28 @@ def _attention_checks(rng, dev) -> dict:
         a_bytes = 4 * Bq * T * N * Dh * es  # q, k, v read, o written
         a_flops = 2 * Dh * T * (T + 1) * Bq * N  # q.k and p.v over the causal half
         a_bound, a_by = bound(a_bytes, a_flops, dtype)
+        # Serving's batch (B=64): the first half of the same inputs.
+        q64, k64, v64 = (t[:B] for t in (q, k, v))
+        qt64, kt64, vt64 = (t[:B] for t in (qt, kt, vt))
+        b64_bound = bound(a_bytes / 2, a_flops / 2, dtype)
+        check(torch.equal(k_attn.causal_attention(q64, k64, v64), got[:B]),
+              f"attention {name}: the first {B} rows alone differ from the batch's")
+        launch = k_attn.launch_config(Bq, T, N, Dh, dtype)
         out[name] = {
             "shape": {"B": Bq, "T": T, "N": N, "Dh": Dh, "dtype": name},
-            "launch": k_attn.launch_config(Bq, T, N, Dh, dtype),
+            "launch": launch, "design": launch["design"],
             "max_abs_err": err, "errors": errs, "tolerance": tol,
             "kernel_ms": time_ms(lambda: k_attn.causal_attention(q, k, v)),
             "plain_ms": time_ms(lambda: k_attn.plain(q, k, v)),
             "library_ms": time_ms(sdpa),
             "bound_ms": a_bound, "bound_by": a_by, "bytes": int(a_bytes),
             "flops": int(a_flops),
+            f"B{B}": {
+                "same_bits_as_the_batch": True,
+                "kernel_ms": time_ms(lambda: k_attn.causal_attention(q64, k64, v64)),
+                "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt64, kt64, vt64, is_causal=True)),
+                "bound_ms": b64_bound[0], "bound_by": b64_bound[1]},
         }
     return out
 
@@ -1031,6 +1091,7 @@ COUNTERS = {
     "gather": (k_gather.embedding_gather, "launches"),
     "gather_backward": (k_gather.embedding_scatter_add, "launches"),
     "gru_scan": (k_gru.gru_scan, "launches"),
+    "gru_xproj": (k_gru.gru_input_projection, "launches"),
     "gru_backward": (k_gru.gru_backward, "launches"),
     "softmax_head": (k_head.sampled_softmax_nll, "launches"),
     "causal_attention": (k_attn.causal_attention, "launches"),
@@ -1326,7 +1387,8 @@ def _kernel_entry(name, source, replaces, launches, rec, plain_key="plain_ms", *
             "launches": launches, "max_abs_err": rec["max_abs_err"],
             "ms": rec["kernel_ms"]["median"], "plain_ms": rec[plain_key]["median"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": None if lib is None else lib["median"], **extra}
+            "library_ms": None if lib is None else lib["median"],
+            "design": rec.get("design", "cuda-core"), **extra}
 
 
 def main(argv=None) -> int:
@@ -1369,6 +1431,8 @@ def main(argv=None) -> int:
         ("gather_backward", "gather.cu", "gather.py:106", tkern["gather_backward"],
          "float32", "gru4rec"),
         ("gru_scan", "gru.cu", "gru.py:177", kern["gru_scan_bfloat16"], "bfloat16", "gru4rec"),
+        # The part of _gru_step_body's step that does not depend on h.
+        ("gru_xproj", "gru.cu", "gru.py:110", kern["gru_xproj"], "bfloat16", "gru4rec"),
         ("gru_backward", "gru.cu", "gru.py:190", tkern["gru_backward"]["bfloat16"],
          "bfloat16", "gru4rec"),
         ("softmax_head", "softmax_head.cu", "softmax_head.py:115",

@@ -1,0 +1,217 @@
+"""Time two checkouts of the port's kernels and main paths in turns on one
+NVIDIA GPU: parent, change, change, parent.
+
+    git archive <parent commit> seqrec_tpu_torch chip_smoke.py configs | tar -x -C <dir>
+    python3 kernel_turns.py --parent <dir> [--out FILE]
+
+<dir> is a directory that .gitignore lists, inside the checkout or not.
+
+Each turn is a process of its own, started from the root of its checkout
+with that root first on sys.path, so it builds and imports that checkout's
+kernels (`seqrec_tpu_torch`) and its `chip_smoke.py`, whose timer and
+main-path phases it reuses (public names only, which both checkouts must
+have). chip_smoke times each kernel of one checkout; this script gives what
+it cannot: the parent's and the change's kernels and paths alternated on one
+card, on the same inputs, and the serving encode timed on the device alone.
+A turn times, by CUDA events (chip_smoke.time_ms, median of 21 runs):
+
+  - kernels at the main paths' shapes: causal attention bf16 at
+    [128, 200, 1, 64] and [64, 200, 1, 64] (and f32 at 128), beside
+    F.scaled_dot_product_attention on the same inputs; the GRU forward bf16
+    at B=64 and B=128, T=200, D=H=128 (and f32 at B=64), beside
+    torch.nn.GRU in f32 (cuDNN, TF32 off); its reset variant bf16 at B=256,
+    T=50, D=H=100; the LSTM forward bf16 and the GRU reverse recurrence bf16
+    at B=128, T=200, D=H=128 (kernels this change must leave alone);
+  - the main paths, through chip_smoke's phases: GRU4Rec and SASRec serving
+    (encode ms and batch ms), GRU4Rec and SASRec training (device forward
+    ms of a step), and rsc15_gru4rec session training (device step ms);
+    and each serving model's `encode` of one batch of 64 behind a ~30 ms
+    device sleep (`encode_device_ms`), so that the events bracket the
+    device's work even where the host takes longer than chip_smoke's ~1 ms
+    sleep to queue a batch's launches (SASRec's encode).
+
+The last line is one JSON object: {"device": ..., "turns": [{"label",
+"root", "kernels": {...}, "paths": {...}}, ...]}. It exits non-zero
+without CUDA or when a turn fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+ORDER = ("parent", "change", "change", "parent")
+RESET_EVERY = 6  # a session start about every 6 positions, as chip_smoke's rsc15 planes
+
+
+def _worker(label: str) -> dict:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from seqrec_tpu_torch.config import RunConfig
+    from seqrec_tpu_torch.eval import infer
+    from seqrec_tpu_torch.models import build_model
+    from seqrec_tpu_torch.models.convert import flax_to_state_dict, random_params
+    from seqrec_tpu_torch.ops import _build
+    from seqrec_tpu_torch.ops.cuda import attention as k_attn
+    from seqrec_tpu_torch.ops.cuda import gru as k_gru
+    from seqrec_tpu_torch.ops.cuda import lstm as k_lstm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _build.build()
+    rng = np.random.default_rng(0)
+    med = lambda fn: cs.time_ms(fn)["median"]  # noqa: E731
+    dname = lambda dtype: str(dtype).split(".")[-1]  # noqa: E731
+    kern = {}
+
+    def zipf_embeddings(B, T, D):  # rows of a random [VOCAB, D] table at Zipf ids
+        table = torch.from_numpy(rng.normal(scale=D ** -0.5, size=(cs.VOCAB, D))
+                                 .astype(np.float32))
+        ids = torch.from_numpy(cs.zipf_items(rng, B * T).astype(np.int64))
+        return table[ids].reshape(B, T, D).to(dev)
+
+    def state(B, H):  # a carried-in recurrent state, N(0, 0.5)
+        return torch.from_numpy(rng.normal(scale=0.5, size=(B, H)).astype(np.float32)).to(dev)
+
+    for Bq, dtype in ((128, torch.bfloat16), (64, torch.bfloat16), (128, torch.float32)):
+        q, k, v = (torch.from_numpy(rng.normal(size=(Bq, 200, 1, 64)).astype(np.float32))
+                   .to(dev, dtype) for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        kern[f"attention_{dname(dtype)}_B{Bq}"] = {
+            "ms": med(lambda: k_attn.causal_attention(q, k, v)),
+            "sdpa_ms": med(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))}
+
+    def gru_inputs(Bg, T, D):
+        w_x, w_h, b_x, b_h = (w.to(dev) for w in cs.gru_weights(rng, D, D))
+        return zipf_embeddings(Bg, T, D), state(Bg, D), (w_x, w_h, b_x, b_h)
+
+    for Bg, dtype in ((64, torch.bfloat16), (128, torch.bfloat16), (64, torch.float32)):
+        x, h0, (w_x, w_h, b_x, b_h) = gru_inputs(Bg, 200, 128)
+        xd, hd = x.to(dtype), h0.to(dtype)
+        rec = {"ms": med(lambda: k_gru.gru_scan(xd, hd, w_x, w_h, b_x, b_h))}
+        lib = torch.nn.GRU(128, 128, batch_first=True, device=dev)
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(w_x.T)
+            lib.weight_hh_l0.copy_(w_h.T)
+            lib.bias_ih_l0.copy_(b_x)
+            lib.bias_hh_l0.copy_(b_h)
+            rec["nn_gru_f32_ms"] = med(lambda: lib(x, h0[None]))
+        kern[f"gru_{dname(dtype)}_B{Bg}"] = rec
+
+    x, h0, w = gru_inputs(256, 50, 100)
+    reset = torch.from_numpy((rng.random((256, 50)) < 1 / RESET_EVERY)
+                             .astype(np.float32)).to(dev)
+    xb, hb = x.bfloat16(), h0.bfloat16()
+    kern["gru_reset_bfloat16_B256_rsc15"] = {
+        "ms": med(lambda: k_gru.gru_scan(xb, hb, *w, reset_mask=reset))}
+
+    x, h0, _ = gru_inputs(128, 200, 128)
+    w_x, w_h, b = (t.to(dev) for t in cs.lstm_weights(rng, 128, 128))
+    xb, hb = x.bfloat16(), h0.bfloat16()
+    kern["lstm_bfloat16_B128"] = {"ms": med(lambda: k_lstm.lstm_scan(xb, hb, hb, w_x, w_h, b))}
+    H = 128
+    planes = [torch.from_numpy(rng.uniform(0.05, 0.95, size=(128, 200, H)).astype(np.float32))
+              .to(dev) for _ in range(4)]
+    h_in = torch.tanh(x).bfloat16()
+    g = (x * 0.1).bfloat16()
+    wh = (torch.from_numpy(rng.normal(size=(H, 3 * H)).astype(np.float32)) * H ** -0.5)
+    wh = wh.to(dev).bfloat16()
+    kern["gru_backward_bfloat16_B128"] = {
+        "ms": med(lambda: k_gru.gru_backward(*planes, h_in, g, wh))}
+
+    def encode_device_ms(path: str, batch: list) -> float:
+        cfg = RunConfig.load(cs.CONFIGS[path])
+        m = build_model(cfg.model, cs.VOCAB, device=dev)
+        m.load_state_dict(flax_to_state_dict(random_params(m, 0)))
+        m.eval()
+        packed = infer._pack([r["history"] for r in batch], [r["user"] for r in batch],
+                             len(batch), cfg.data.max_len)
+        inputs, mask, _ = (torch.from_numpy(a).to(dev) for a in packed)
+        ts = []
+        with torch.inference_mode():
+            for rep in range(24):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                torch.cuda._sleep(50_000_000)
+                start.record()
+                m.encode(inputs, mask)
+                end.record()
+                torch.cuda.synchronize()
+                if rep >= 3:  # warm-up
+                    ts.append(start.elapsed_time(end))
+        return float(np.median(ts))
+
+    # The paths draw from their own generator, so that both checkouts serve
+    # and train on the same data whatever the kernel phase drew.
+    rng = np.random.default_rng(1)
+    requests = cs.make_requests(rng, RunConfig.load(cs.CONFIGS["gru4rec"]).data.max_len)
+    paths = {}
+    for path in ("gru4rec", "sasrec"):
+        r = cs.phase_serve(dev, 0, path, requests)
+        paths[f"serve_{path}"] = {"encode_ms": r["batch_breakdown"]["encode_ms"],
+                                  "batch_ms": r["batch_ms_median"],
+                                  "encode_device_ms": encode_device_ms(path, requests[:cs.B])}
+    for path, over in (("gru4rec", ()), ("sasrec", ("train.warmup_steps=0",))):
+        r = cs.phase_train(rng, dev, 0, path, groups=2, overrides=over)
+        paths[f"train_{path}"] = {"device_forward_ms": r["device_step_ms"]["forward"],
+                                  "device_step_ms": r["device_step_ms"]["total"]}
+    r = cs.phase_train(rng, dev, 0, "rsc15_gru4rec", groups=2)
+    paths["train_rsc15_gru4rec_session"] = {"device_forward_ms": r["device_step_ms"]["forward"],
+                                            "device_step_ms": r["device_step_ms"]["total"]}
+    return {"label": label, "root": str(Path.cwd()), "kernels": kern, "paths": paths}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", help="root of the parent checkout")
+    ap.add_argument("--out", help="also write the result (indented JSON) to this file")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        sys.path.insert(0, str(Path.cwd()))
+        print(json.dumps(_worker(args.worker)), flush=True)
+        return 0
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_turns: CUDA is not available; this script runs only on the GPU",
+              file=sys.stderr)
+        return 2
+    if not args.parent:
+        ap.error("--parent is required")
+    roots = {"parent": Path(args.parent).resolve(), "change": HERE}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    turns = []
+    for label in ORDER:
+        root = roots[label]
+        cmd = [sys.executable, str(HERE / "kernel_turns.py"), "--worker", label]
+        env = dict(os.environ, PYTHONPATH=str(root))
+        r = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True)
+        if r.returncode != 0:
+            print(r.stdout[-4000:], r.stderr[-8000:], file=sys.stderr)
+            return 1
+        turns.append(json.loads(r.stdout.strip().splitlines()[-1]))
+        print(json.dumps({"turn": label, **turns[-1]}), flush=True)
+    result = {"device": smi, "turns": turns}
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    print(smi, flush=True)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,107 +5,285 @@
 // forward with an online softmax, which never writes the [T, T] scores.
 //
 // Math per query row t of one (batch, head) pair g, as _attn_kernel:
-//   s_j = (q_t . k_j) * scale                     f32 products and sums
+//   s_j = (q_t . k_j) * scale                     products summed in f32
 //   s_j = -1e30 where j > t                        (the causal mask)
 //   online over key tiles: m' = max(m, max_j s_j), a = exp(m - m'),
-//   p_j = exp(s_j - m'), l = a l + sum_j p_j (f32 p),
+//   p_j = exp(s_j - m'), l = a l + sum_j p_j (the unrounded f32 p),
 //   acc = a acc + sum_j round_T(p_j) v_j           (p cast to v's dtype)
 //   o_t = round_T(acc / max(l, 1e-30))
 //
 // Layout: q, k, v are [B, T, N, Dh] views with any row strides (the slices
-// of the qkv projection [B, T, 3, N, Dh] are taken as they are, no copy);
+// of the qkv projection [B, T, 3, N, Dh] are read as they are, no copy);
 // Dh is contiguous. o is a contiguous [B, T, N, Dh]. T need not be a
-// multiple of the tile: rows past T are masked here, never padded in memory
-// (the TPU wrapper pads T to its 128-row tile in device memory).
+// multiple of the tile: rows past T are zero-filled in shared memory and
+// never written, where the TPU wrapper pads T to its 128-row tile in
+// device memory. Both designs below take one block per (64-query tile, g),
+// read key tiles 0..qi only (tiles wholly above the diagonal are skipped),
+// and start the blocks with the most key tiles first.
 //
 // What bounds it: at the training shape (B*N = 128, T = 200, Dh = 64) the
 // causal products are ~0.66 GFLOP and q, k, v and o move 13 MB in bf16, so
-// bytes bind at the card's rates (3.9 us). This first version runs its
-// products in f32 on CUDA cores from shared memory and is far from that.
+// bytes bind at the card's rates (3.9 us); in f32 the operations do (9.8 us
+// at the CUDA cores' 67 TFLOP/s). The bf16 kernel stays several times above
+// its bound: the longest query tile of each (b, n) walks its 4 key tiles
+// (T = 200) one after another, each a chain of loads, a barrier, mma.sync,
+// shuffles and exp2, and the warp-level mma.sync path has a fraction of
+// wgmma's rate; wgmma with TMA-fed tiles is the next step (PERF.md).
 //
-// Design: one block per (64-query tile, g), 256 threads. Thread (ty, tx) =
-// (tid / 16, tid % 16) owns query rows 4 ty .. 4 ty + 3 of the tile: their
-// scores against keys tx, tx + 16, tx + 32, tx + 48 of a key tile (a 4 x 4
-// register tile: 8 float4 shared-memory reads feed 64 FMAs) and, of the
-// output, the float4 column groups tx, tx + 16, ... A row's max and sum
-// combine over the 16 lanes of its half-warp with four shuffles. The query
-// tile, each key and value tile and the rounded probabilities (stored
-// transposed, so p.v reads the four rows' p of one key as one float4) sit
-// in shared memory as f32 with padded rows, so a warp's float4 reads fall on
-// distinct banks or broadcast. Key tiles wholly above the diagonal are
-// skipped: query tile qi reads key tiles 0..qi, and blocks with the most
-// work start first.
+// bf16: FlashAttention-2 on the tensor cores (attention_mma_kernel). Four
+// warps, each owning 16 query rows of the tile. S = Q K^T and O += P V are
+// mma.sync.m16n8k16 (bf16 products, f32 sums; fragments in mma.cuh). Q's A
+// fragments are loaded once with ldmatrix and stay in registers for the
+// whole key loop (in shared memory above Dh = 128, where the O accumulator
+// needs the registers); K's B fragments come from shared memory through
+// ldmatrix, V's through ldmatrix.trans. The softmax runs on the S
+// accumulators in registers (exp as exp2 of x log2 e): a row's 64 scores
+// sit on the 4 lanes that share g, so its max and sum take two xor-shuffles
+// each; only the diagonal tile is masked. The S accumulators of two
+// n8 key blocks, rounded to bf16, are exactly the A fragment of P V for
+// those 16 keys, so P never goes through shared memory. K and V tiles arrive
+// by cp.async into a double-buffered ring: tile kt+1 loads while tile kt
+// computes (one wait and two barriers a tile). Padding: the head dim is
+// padded to kD in {16, 32, 64, 128, 256} (mma's depth is 16), with zero
+// columns; rows at or past T are zero (cp.async with a source size of 0), so
+// a masked score's p = 0 meets a zero v row, never garbage. Shared rows are
+// kD + 8 elements long, so ldmatrix's eight 16-byte rows fall on distinct
+// banks.
+//
+// f32: CUDA cores (attention_f32_kernel), because TF32 tensor cores keep ~3
+// digits and the f32 contract is f32 products. 256 threads; thread (ty, tx)
+// owns query rows 4 ty .. 4 ty + 3 against keys tx, tx + 16, tx + 32, tx + 48
+// of a key tile (a 4 x 4 register tile: 8 float4 shared-memory reads feed 64
+// FMAs) and the float4 output column groups tx, tx + 16, ...; a row's max
+// and sum combine over the 16 lanes of its half-warp. The tiles and the
+// probabilities (stored transposed) sit in shared memory with padded rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
-constexpr int kTile = 64;      // query rows per block and key rows per tile
-constexpr int kThreads = 256;  // 4 lanes per query row
+constexpr int kTile = 64;  // query rows per block and key rows per tile
 constexpr int kMaxDh = 256;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
 
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+constexpr int kMmaThreads = 128;  // 4 warps
+constexpr int kWarpRows = 16;     // query rows a warp owns
 
-// Eight (bf16) or four (f32) values of one 16-byte global load, as floats.
-__device__ __forceinline__ void unpack16(const float* p, float* out) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  out[0] = q.x; out[1] = q.y; out[2] = q.z; out[3] = q.w;
-}
-__device__ __forceinline__ void unpack16(const __nv_bfloat16* p, float* out) {
-  const uint4 q = *reinterpret_cast<const uint4*>(p);
-  const unsigned w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    out[2 * j] = __uint_as_float(w[j] << 16);
-    out[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+// Start the copy of rows [t0, t0 + 64) of one (b, n) slice into a [64][kD + 8]
+// tile; rows at or past T and columns at or past Dh are zero-filled.
+template <int kD>
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           long long stride_t, int t0, int Tn,
+                                           int Dh) {
+  constexpr int kLd = kD + 8, kPieces = kD / 8;  // 16-byte pieces a row
+  for (int c = threadIdx.x; c < kTile * kPieces; c += kMmaThreads) {
+    const int r = c / kPieces, j = (c % kPieces) * 8;
+    const bool real = t0 + r < Tn && j < Dh;
+    const __nv_bfloat16* from = real ? src + (t0 + r) * stride_t + j : src;
+    mma::cp_async16_zfill(dst + r * kLd + j, from, real ? 16 : 0);
   }
 }
 
-// Copy rows [t0, t0 + 64) of one (b, n) slice into a padded f32 tile;
-// rows at or past T are zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          long long stride_t, int t0, int Tn,
-                                          int Dh) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int per_row = Dh / kVec;
-  for (int c = threadIdx.x; c < kTile * per_row; c += kThreads) {
-    const int r = c / per_row, j = (c % per_row) * kVec;
-    float v[kVec];
-    if (t0 + r < Tn) {
-      unpack16(src + (t0 + r) * stride_t + j, v);
-    } else {
+// kD: the padded head dim; kQRegs: Q's fragments held in registers.
+template <int kD, bool kQRegs>
+__global__ void __launch_bounds__(kMmaThreads)
+attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ o, int N, int Tn, int Dh,
+                     long long sq_b, long long sq_t, long long sk_b,
+                     long long sk_t, long long sv_b, long long sv_t,
+                     float scale) {
+  constexpr int kLd = kD + 8;  // bf16 elements a shared row
+  constexpr int kKs = kD / 16;  // k16 steps of Q K^T, n16 pairs of P V
+  constexpr int kTileElems = kTile * kLd;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [64][kLd]
+  // The ring: [2 stages][K, V][64][kLd].
+  __nv_bfloat16* ring = qs + kTileElems;
+  auto tile_at = [&](int stage, int kv) { return ring + (stage * 2 + kv) * kTileElems; };
+
+  const int n_tiles = (Tn + kTile - 1) / kTile;
+  const int qi = n_tiles - 1 - blockIdx.x;  // the longest tiles first
+  const int g = blockIdx.y, b = g / N, n = g % N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  // Column offsets of the (b, n) slice; the head stride is Dh.
+  const __nv_bfloat16* qg = q + b * sq_b + static_cast<long long>(n) * Dh;
+  const __nv_bfloat16* kg = k + b * sk_b + static_cast<long long>(n) * Dh;
+  const __nv_bfloat16* vg = v + b * sv_b + static_cast<long long>(n) * Dh;
+
+  auto stage_kv = [&](int kt) {  // key tile kt into stage kt % 2
+    stage_tile<kD>(tile_at(kt & 1, 0), kg, sk_t, kt * kTile, Tn, Dh);
+    stage_tile<kD>(tile_at(kt & 1, 1), vg, sv_t, kt * kTile, Tn, Dh);
+  };
+  stage_tile<kD>(qs, qg, sq_t, qi * kTile, Tn, Dh);
+  stage_kv(0);
+  mma::cp_async_commit();
+
+  // This lane's ldmatrix row addresses: A (Q) rows warp*16 + lane % 16 at
+  // column 8 (lane / 16); K pairs of key blocks; V pairs of column blocks.
+  const __nv_bfloat16* q_row = qs + (warp * kWarpRows + (lane & 15)) * kLd + (lane >> 4) * 8;
+  const int k_off = ((lane & 7) + ((lane >> 4) << 3)) * kLd + ((lane >> 3) & 1) * 8;
+  const int v_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * kLd + ((lane >> 4) << 3);
+  const int q_pos = qi * kTile + warp * kWarpRows + gr;  // rows q_pos and q_pos + 8
+  constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
+
+  uint32_t qf[kQRegs ? kKs : 1][4];
+  float acc[2 * kKs][4];
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) v[e] = 0.0f;
+  for (int d = 0; d < 2 * kKs; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+  for (int kt = 0; kt <= qi; ++kt) {
+    if (kt < qi) stage_kv(kt + 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // everything but tile kt + 1 has landed
+    __syncthreads();
+    if (kQRegs && kt == 0) {
+#pragma unroll
+      for (int s = 0; s < kKs; ++s) mma::ldmatrix_x4(qf[kQRegs ? s : 0], q_row + s * 16);
+    }
+    const __nv_bfloat16* kb = tile_at(kt & 1, 0);
+    const __nv_bfloat16* vb = tile_at(kt & 1, 1);
+
+    // S = Q K^T: 8 key blocks of 8, as C fragments.
+    float s[8][4];
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) s[jb][0] = s[jb][1] = s[jb][2] = s[jb][3] = 0.0f;
+#pragma unroll
+    for (int st = 0; st < kKs; ++st) {
+      uint32_t a[4];
+      if (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kQRegs ? st : 0][e];
+      } else {
+        mma::ldmatrix_x4(a, q_row + st * 16);
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4];
+        mma::ldmatrix_x4(bk, kb + np * 16 * kLd + k_off + st * 16);
+        mma::bf16_16x8x16(s[2 * np], a, bk[0], bk[1]);
+        mma::bf16_16x8x16(s[2 * np + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // Online softmax; s[jb][2 h + e] is row q_pos + 8 h, key 8 jb + 2 tq + e.
+    // Only the diagonal tile (kt == qi) has keys past a row to mask.
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float tile_max = kNegInf;
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& sv = s[jb][2 * h + e];
+          sv = kt == qi && kt * kTile + 8 * jb + 2 * tq + e > q_pos + 8 * h ? kNegInf
+                                                                             : sv * scale;
+          tile_max = fmaxf(tile_max, sv);
+        }
+      }
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+      const float m_new = fmaxf(m[h], tile_max);
+      alpha[h] = exp2f((m[h] - m_new) * kLog2e);
+      const float mc = m_new * kLog2e;
+      float sum = 0.0f;
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(fmaf(s[jb][2 * h + e], kLog2e, -mc));
+          sum += p;
+          s[jb][2 * h + e] = p;
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[h] = alpha[h] * l[h] + sum;
+      m[h] = m_new;
     }
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) dst[r * ld + j + e] = v[e];
+    for (int d = 0; d < 2 * kKs; ++d) {
+      acc[d][0] *= alpha[0]; acc[d][1] *= alpha[0];
+      acc[d][2] *= alpha[1]; acc[d][3] *= alpha[1];
+    }
+
+    // O += P V: the p of key blocks 2 kk and 2 kk + 1, rounded to bf16, are
+    // the A fragment of keys 16 kk .. 16 kk + 15.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t pa[4] = {mma::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              mma::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              mma::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              mma::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < kKs; ++dp) {
+        uint32_t bv[4];
+        mma::ldmatrix_x4_trans(bv, vb + kk * 16 * kLd + v_off + dp * 16);
+        mma::bf16_16x8x16(acc[2 * dp], pa, bv[0], bv[1]);
+        mma::bf16_16x8x16(acc[2 * dp + 1], pa, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // tile kt's buffers are refilled next iteration
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = q_pos + 8 * h;
+    if (t >= Tn) continue;
+    const float denom = fmaxf(l[h], 1e-30f);
+    __nv_bfloat16* orow = o + ((static_cast<long long>(b) * Tn + t) * N + n) * Dh + 2 * tq;
+#pragma unroll
+    for (int d = 0; d < 2 * kKs; ++d) {
+      if (8 * d < Dh) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * d) =
+            __floats2bfloat162_rn(acc[d][2 * h] / denom, acc[d][2 * h + 1] / denom);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Threads = 256;  // 4 lanes per query row
+
+// Copy rows [t0, t0 + 64) of one (b, n) slice into a padded f32 tile;
+// rows at or past T are zero.
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
+                                          long long stride_t, int t0, int Tn,
+                                          int Dh) {
+  const int per_row = Dh / 4;
+  for (int c = threadIdx.x; c < kTile * per_row; c += kF32Threads) {
+    const int r = c / per_row, j = (c % per_row) * 4;
+    const float4 v = t0 + r < Tn
+                         ? *reinterpret_cast<const float4*>(src + (t0 + r) * stride_t + j)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    *reinterpret_cast<float4*>(dst + r * ld + j) = v;
   }
 }
 
 // kGroups: float4 groups of the output columns a thread owns (Dh <= 64 kGroups).
-template <typename T, int kGroups>
-__global__ void __launch_bounds__(kThreads)
-attention_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, T* __restrict__ o, int N,
-                         int Tn, int Dh, long long sq_b, long long sq_t,
-                         long long sk_b, long long sk_t, long long sv_b,
-                         long long sv_t, float scale) {
+template <int kGroups>
+__global__ void __launch_bounds__(kF32Threads)
+attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int N,
+                     int Tn, int Dh, long long sq_b, long long sq_t,
+                     long long sk_b, long long sk_t, long long sv_b,
+                     long long sv_t, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld = Dh + 4;           // padded row of the q, k and v tiles
   constexpr int kLdP = kTile + 4;  // padded row of the probability tile
@@ -121,9 +299,9 @@ attention_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int groups = Dh / 4;
   const int q_pos = qi * kTile + 4 * ty;  // the thread's first query row
   // Column offsets of the (b, n) slice; the head stride is Dh.
-  const T* qg = q + b * sq_b + static_cast<long long>(n) * Dh;
-  const T* kg = k + b * sk_b + static_cast<long long>(n) * Dh;
-  const T* vg = v + b * sv_b + static_cast<long long>(n) * Dh;
+  const float* qg = q + b * sq_b + static_cast<long long>(n) * Dh;
+  const float* kg = k + b * sk_b + static_cast<long long>(n) * Dh;
+  const float* vg = v + b * sv_b + static_cast<long long>(n) * Dh;
 
   load_tile(qs, ld, qg, sq_t, qi * kTile, Tn, Dh);
 
@@ -183,9 +361,8 @@ attention_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float sum = 0.0f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        s[i][j] = to_f(from_f<T>(p));  // p cast to v's dtype for p.v
+        s[i][j] = expf(s[i][j] - m_new);
+        sum += s[i][j];
       }
 #pragma unroll
       for (int off = 1; off < 16; off <<= 1)
@@ -229,40 +406,48 @@ attention_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     if (q_pos + i < Tn) {
       const float denom = fmaxf(l[i], 1e-30f);
-      T* orow = o + ((static_cast<long long>(b) * Tn + q_pos + i) * N + n) * Dh;
+      float* orow = o + ((static_cast<long long>(b) * Tn + q_pos + i) * N + n) * Dh;
 #pragma unroll
       for (int c = 0; c < kGroups; ++c) {
         const int grp = tx + 16 * c;
         if (grp < groups) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) orow[4 * grp + e] = from_f<T>(acc[i][c][e] / denom);
+          for (int e = 0; e < 4; ++e) orow[4 * grp + e] = acc[i][c][e] / denom;
         }
       }
     }
   }
 }
 
-template <typename T>
-int launch_t(const void* q, const void* k, const void* v, void* o, int B,
-             int N, int Tn, int Dh, long long sq_b, long long sq_t,
-             long long sk_b, long long sk_t, long long sv_b, long long sv_t,
-             float scale, size_t smem, cudaStream_t s) {
-  const dim3 grid((Tn + kTile - 1) / kTile, B * N), block(kThreads);
-  auto launch = [&](auto kernel) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<grid, block, smem, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), N, Tn, Dh, sq_b, sq_t,
-        sk_b, sk_t, sv_b, sv_t, scale);
-    return static_cast<int>(cudaGetLastError());
-  };
-  const int groups = (Dh / 4 + 15) / 16;  // float4 groups a thread owns
-  if (groups <= 1) return launch(attention_forward_kernel<T, 1>);
-  if (groups <= 2) return launch(attention_forward_kernel<T, 2>);
-  return launch(attention_forward_kernel<T, 4>);
+// The head dim the bf16 kernel pads Dh to.
+int padded_head_dim(int Dh) {
+  int d = 16;
+  while (d < Dh) d *= 2;
+  return d;
+}
+
+size_t smem_bytes(int Dh, int dtype) {
+  if (dtype == 1) {  // Q, and K and V double-buffered: [64][kD + 8] bf16 each
+    return 5 * static_cast<size_t>(kTile) * (padded_head_dim(Dh) + 8) * 2;
+  }
+  return (3 * static_cast<size_t>(kTile) * (Dh + 4) +
+          static_cast<size_t>(kTile) * (kTile + 4)) * 4;
+}
+
+template <typename T, typename Kernel>
+int launch(Kernel kernel, int threads, const void* q, const void* k,
+           const void* v, void* o, int B, int N, int Tn, int Dh,
+           long long sq_b, long long sq_t, long long sk_b, long long sk_t,
+           long long sv_b, long long sv_t, float scale, size_t smem,
+           cudaStream_t s) {
+  const dim3 grid((Tn + kTile - 1) / kTile, B * N);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, threads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), N, Tn, Dh, sq_b, sq_t, sk_b, sk_t, sv_b, sv_t, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -272,31 +457,40 @@ extern "C" {
 // q, k, v: [B, T, N, Dh] of the working dtype (0 = float, 1 = bf16), Dh
 // contiguous and the head stride Dh; the batch and time strides of each
 // (s*_b, s*_t) in elements, each a multiple of 16 bytes, as are the
-// pointers. o: a
-// contiguous [B, T, N, Dh]. smem_bytes as the caller computed it, checked
-// again here.
+// pointers. o: a contiguous [B, T, N, Dh]. smem_bytes as the caller
+// computed it, checked again here. bf16 runs the tensor-core kernel, f32 the
+// CUDA-core one.
 int seqrec_attention_forward(const void* q, const void* k, const void* v,
                              void* o, int B, int N, int Tn, int Dh, int dtype,
                              long long sq_b, long long sq_t, long long sk_b,
                              long long sk_t, long long sv_b, long long sv_t,
-                             float scale, long long smem_bytes, void* stream) {
+                             float scale, long long smem_bytes_in, void* stream) {
   const int es = dtype == 0 ? 4 : 2;
   if (B <= 0 || N <= 0 || Tn <= 0 || Dh <= 0 || Dh > kMaxDh ||
       (dtype != 0 && dtype != 1) || (Dh * es) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = (3 * static_cast<size_t>(kTile) * (Dh + 4) +
-                       static_cast<size_t>(kTile) * (kTile + 4)) * 4;
-  if (static_cast<long long>(smem) != smem_bytes) {
+  const size_t smem = smem_bytes(Dh, dtype);
+  if (static_cast<long long>(smem) != smem_bytes_in) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SEQREC_ATTN_ARGS q, k, v, o, B, N, Tn, Dh, sq_b, sq_t, sk_b, sk_t, sv_b, sv_t, scale, smem, s
   if (dtype == 0) {
-    return launch_t<float>(q, k, v, o, B, N, Tn, Dh, sq_b, sq_t, sk_b, sk_t,
-                           sv_b, sv_t, scale, smem, s);
+    const int groups = (Dh / 4 + 15) / 16;  // float4 groups a thread owns
+    if (groups <= 1) return launch<float>(attention_f32_kernel<1>, kF32Threads, SEQREC_ATTN_ARGS);
+    if (groups <= 2) return launch<float>(attention_f32_kernel<2>, kF32Threads, SEQREC_ATTN_ARGS);
+    return launch<float>(attention_f32_kernel<4>, kF32Threads, SEQREC_ATTN_ARGS);
   }
-  return launch_t<__nv_bfloat16>(q, k, v, o, B, N, Tn, Dh, sq_b, sq_t, sk_b,
-                                 sk_t, sv_b, sv_t, scale, smem, s);
+  using bf = __nv_bfloat16;
+  switch (padded_head_dim(Dh)) {
+    case 16: return launch<bf>(attention_mma_kernel<16, true>, kMmaThreads, SEQREC_ATTN_ARGS);
+    case 32: return launch<bf>(attention_mma_kernel<32, true>, kMmaThreads, SEQREC_ATTN_ARGS);
+    case 64: return launch<bf>(attention_mma_kernel<64, true>, kMmaThreads, SEQREC_ATTN_ARGS);
+    case 128: return launch<bf>(attention_mma_kernel<128, true>, kMmaThreads, SEQREC_ATTN_ARGS);
+    default: return launch<bf>(attention_mma_kernel<256, false>, kMmaThreads, SEQREC_ATTN_ARGS);
+  }
+#undef SEQREC_ATTN_ARGS
 }
 
 const char* seqrec_attention_error_string(int code) {

@@ -13,34 +13,60 @@
 //   n = tanh(xp_n + r * hp_n),  h' = (1 - z) * n + z * h_in  (f32 gate math)
 //   h' is rounded to the working dtype T (float or bf16) every step, is
 //   written to ys[:, t], and is the next step's h.
-// The reset variant keeps the design below: the thread that writes unit i of
-// h' into the next step's shared buffer writes keep[t+1] * h' there, so the
-// one scaled state feeds both h_in @ W_h and z * h_in, with no extra barrier;
-// ys keeps the unscaled h'. keep is a [B, T] f32 plane, one scalar a row a
-// step, read a step ahead.
+// Reset variant (a template flag, so that the no-reset instantiations
+// compile as without it): the thread that hands unit i of h' to the next
+// step hands over keep[t+1] * h' (rounded to T, as the TPU kernel's h_in is
+// in x's dtype), so the one scaled state feeds both h_in @ W_h and
+// z * h_in, with no extra barrier; ys keeps the unscaled h'. keep is a
+// [B, T] f32 plane, one scalar a row a step, read a step ahead.
 //
-// What bounds it here: neither bytes nor operations. At the serving shape
-// (B=64, T=200, D=H=128) the scan reads 3.3 MB and does 2.5 GFLOP, microseconds
-// of the card's rates, but step t+1 needs all of step t's h: 200 dependent
-// [rows, 256] x [256, 384] products, each followed by a block-wide barrier.
-// The serial chain binds, and a block can only shorten each link.
+// What bounds it: neither bytes nor operations. At the serving shape
+// (B=64, T=200, D=H=128) the scan reads 3.3 MB and does 2.5 GFLOP,
+// microseconds of the card's rates, but step t+1 needs all of step t's h:
+// 200 dependent [rows, H] x [H, 3H] products, each followed by a
+// block-wide barrier. The latency of one step, times T, binds. In the bf16
+// design below a step takes about 1 us on an H100 (PERF.md), and it grows
+// with the rows a block computes (an H100 sweep found 16 rows a block
+// 1.5-1.8x slower than 8): one SM's share of the step's work, its mma.sync
+// products and its gate math, sets it.
 //
-// Design: blocks run in no order, so the TPU's sequential grid becomes a
-// `for t` loop inside one block. A block owns R batch rows for the whole scan
-// and has one thread per hidden unit i; that thread computes the r, z and n
-// columns of unit i for its R rows, so the gate math needs no exchange, and
-// only the new h goes through shared memory (double-buffered: one barrier a
-// step). W_h lives in shared memory for the whole scan. W_x does too when it
-// fits: in bf16 at D=H=128 both are 96 KB, 200 KB with the buffers, inside
-// the 227 KB a block may opt in to (at rsc15's D=H=100, 60 KB each: 121 KB,
-// one block an SM). In f32 W_h alone is 192 KB, so W_x is
-// read from global memory, where it stays in L2 (192 KB for every block):
-// the projection is still computed here, inside the step, never up front.
-// x[t+1] is copied to shared memory with cp.async while step t computes, in
-// 16-byte pieces, or 8-byte ones where a row is not a multiple of 16 bytes
-// (D=100 in bf16: 200-byte rows that start 8-byte aligned).
-// Weights are read once per k and reused across the R rows held in
-// registers; products are plain f32 FMAs (no tensor cores yet).
+// bf16 (every shipped config): two kernels.
+// 1. gru_xproj_kernel, the input projection off the serial chain: it does
+//    not depend on h, so one tensor-core GEMM over all B*T rows computes
+//    xp = x @ W_x + b_x into an f32 [B, T, 3H] plane before the scan (it
+//    stays in L2: 20 MB at B=64, T=200, H=128). 64 x 64 output tiles, four
+//    warps of 16 rows, mma.sync.m16n8k16 from ldmatrix fragments of x and
+//    (transposed) W_x, staged by cp.async in 8-byte pieces with zero-fill
+//    past D and 3H (D = 100 in bf16 is a 200-byte, 8-byte-aligned row).
+// 2. gru_forward_mma_kernel, the recurrence, transposed: hp^T = W_h^T h^T,
+//    so the hidden units are mma.sync.m16n8k16's M and the batch rows its
+//    N. A block owns 8 batch rows (one n8 tile) for the whole scan. H is
+//    padded to Hp = 16 ceil(H / 16) (100 -> 112); the block has Hp / 16 warps;
+//    warp w owns units [16w, 16w + 16) of each gate: three m16 tiles (r, z,
+//    n), so the r, z and n sums of one (unit, row) land in the same
+//    register of the same lane and the gate math needs no exchange. W_h^T's
+//    A fragments are loaded once, with zeros past H, and held in registers
+//    for the whole scan while Hp <= 128 (96 registers a lane at H=128);
+//    above that they are read from global memory (L1/L2) each step. h^T's
+//    B fragments come by ldmatrix.trans from a unit-major [Hp][8] bf16
+//    buffer in shared memory (double-buffered: one barrier a step; a unit's
+//    8 rows are one 16-byte ldmatrix row), into which each lane writes its
+//    own units of the new h, two rows in one 4-byte store. A lane keeps its
+//    h_in values in registers for z * h_in, and loads its xp values (and
+//    keep) for step t+1 while step t computes. Per step and block at
+//    H=128: 8 warps x 24 mma.sync, and 1,024 (unit, row) gate evaluations
+//    from the hardware exp2 and a fast divide (a few ulp in f32; h is then
+//    rounded to bf16).
+//    Padded units have zero weights and biases, so h' = 0.5 * h_in = 0
+//    there, always; padded rows (past B) are computed and never written.
+//
+// f32: the CUDA-core design (gru_forward_kernel), because TF32 tensor cores
+// keep ~3 digits and the f32 contract is f32 products. A block owns R batch
+// rows for the whole scan with one thread per hidden unit i, which computes
+// the r, z and n columns of unit i; h goes through shared memory
+// (double-buffered), W_h lives there too, W_x is read through L2, and
+// x[t+1] is copied to shared memory with cp.async while step t computes.
+// The projection is computed inside the step.
 //
 // Backward (seqrec_gru_backward): the reverse recurrence of the analytic
 // BPTT. Replaces the `lax.scan(step, ..., reverse=True)` inside
@@ -76,6 +102,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
 // One thread per hidden unit; the bound leaves the compiler room for the
@@ -91,10 +119,6 @@ template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to()
-}
 
 // Four consecutive values from shared memory (16-byte aligned for float,
 // 8-byte aligned for bf16), as floats.
@@ -113,11 +137,6 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -140,33 +159,27 @@ __device__ __forceinline__ void copy_to_smem(void* dst, const void* src,
 }
 
 // Start the copy of x[b0 .. b0+R, t, :] into the staging buffer `xs`, in
-// kPiece-byte pieces: 16 when a row is a multiple of 16 bytes, 8 otherwise
-// (D % 4 == 0 makes every row start 8-byte aligned).
+// 16-byte pieces (an f32 row of D % 4 == 0 values is whole pieces).
 // Rows past B are left as they are (zero from the start).
-template <typename T, int R, int kPiece>
+template <typename T, int R>
 __device__ __forceinline__ void stage_x(T* xs, const T* x, int b0, int B,
                                         int Tn, int D, int t) {
-  const int chunks = D * static_cast<int>(sizeof(T)) / kPiece;
+  const int chunks = D * static_cast<int>(sizeof(T)) / 16;
   for (int c = threadIdx.x; c < R * chunks; c += blockDim.x) {
     const int r = c / chunks, j = c % chunks;
     if (b0 + r < B) {
       const char* src = reinterpret_cast<const char*>(
-          x + (static_cast<size_t>(b0 + r) * Tn + t) * D) + j * kPiece;
-      char* dst = reinterpret_cast<char*>(xs + r * D) + j * kPiece;
-      if (kPiece == 16) {
-        cp_async16(dst, src);
-      } else {
-        cp_async8(dst, src);
-      }
+          x + (static_cast<size_t>(b0 + r) * Tn + t) * D) + j * 16;
+      cp_async16(reinterpret_cast<char*>(xs + r * D) + j * 16, src);
     }
   }
   cp_async_commit();
 }
 
-// kReset: the session-parallel variant, which reads keep, a [B, T] f32 plane
-// of 1 - reset (null otherwise). A template flag, so that the no-reset
-// variant compiles to the same code as without it.
-template <typename T, int R, bool kWxInSmem, bool kReset, int kPiece>
+// The CUDA-core forward (f32). kReset: the session-parallel variant, which
+// reads keep, a [B, T] f32 plane of 1 - reset (null otherwise). A template
+// flag, so that the no-reset variant compiles to the same code as without it.
+template <typename T, int R, bool kWxInSmem, bool kReset>
 __global__ void __launch_bounds__(kMaxHidden)
 gru_forward_kernel(const T* __restrict__ x, const T* __restrict__ h0,
                    const T* __restrict__ w_x, const T* __restrict__ w_h,
@@ -186,7 +199,7 @@ gru_forward_kernel(const T* __restrict__ x, const T* __restrict__ h0,
   for (int c = i; c < 2 * R * H; c += blockDim.x) hbuf[c] = 0.0f;
   for (int c = i; c < 2 * R * D; c += blockDim.x) xbuf[c] = from_f<T>(0.0f);
   __syncthreads();
-  stage_x<T, R, kPiece>(xbuf, x, b0, B, Tn, D, 0);
+  stage_x<T, R>(xbuf, x, b0, B, Tn, D, 0);
   copy_to_smem(wh_s, w_h, static_cast<size_t>(H) * H3 * sizeof(T));
   if (kWxInSmem) copy_to_smem(wx_s, w_x, static_cast<size_t>(D) * H3 * sizeof(T));
   for (int r = 0; r < R; ++r) {
@@ -204,7 +217,7 @@ gru_forward_kernel(const T* __restrict__ x, const T* __restrict__ h0,
   const T* wx = kWxInSmem ? wx_s : w_x;
   for (int t = 0; t < Tn; ++t) {
     const int cur = t & 1, nxt = cur ^ 1;
-    if (t + 1 < Tn) stage_x<T, R, kPiece>(xbuf + nxt * R * D, x, b0, B, Tn, D, t + 1);
+    if (t + 1 < Tn) stage_x<T, R>(xbuf + nxt * R * D, x, b0, B, Tn, D, t + 1);
     const T* xc = xbuf + cur * R * D;
     const float* hc = hbuf + cur * R * H;  // keep[t] * h, as step t consumes it
     // keep[t+1] scales the h' this step hands to the next one.
@@ -288,21 +301,12 @@ int launch_r(const void* x, const void* h0, const void* w_x, const void* w_h,
         static_cast<T*>(ys), B, Tn, D, H);
     return static_cast<int>(cudaGetLastError());
   };
-  const bool wide = D * sizeof(T) % 16 == 0;
   if (keep == nullptr) {
-    if (wide) {
-      return wx_in_smem ? launch(gru_forward_kernel<T, R, true, false, 16>)
-                        : launch(gru_forward_kernel<T, R, false, false, 16>);
-    }
-    return wx_in_smem ? launch(gru_forward_kernel<T, R, true, false, 8>)
-                      : launch(gru_forward_kernel<T, R, false, false, 8>);
+    return wx_in_smem ? launch(gru_forward_kernel<T, R, true, false>)
+                      : launch(gru_forward_kernel<T, R, false, false>);
   }
-  if (wide) {
-    return wx_in_smem ? launch(gru_forward_kernel<T, R, true, true, 16>)
-                      : launch(gru_forward_kernel<T, R, false, true, 16>);
-  }
-  return wx_in_smem ? launch(gru_forward_kernel<T, R, true, true, 8>)
-                    : launch(gru_forward_kernel<T, R, false, true, 8>);
+  return wx_in_smem ? launch(gru_forward_kernel<T, R, true, true>)
+                    : launch(gru_forward_kernel<T, R, false, true>);
 }
 
 template <typename T>
@@ -314,6 +318,281 @@ int launch_t(int rows_per_block, const void* x, const void* h0, const void* w_x,
     case 1: return launch_r<T, 1>(x, h0, w_x, w_h, b_x, b_h, keep, ys, B, Tn, D, H, wx_in_smem, smem, s);
     case 2: return launch_r<T, 2>(x, h0, w_x, w_h, b_x, b_h, keep, ys, B, Tn, D, H, wx_in_smem, smem, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward: the input projection, then the recurrence on tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kProjTile = 64;  // rows and columns of an xp tile, and its k chunk
+constexpr int kProjLd = kProjTile + 8;  // bf16 elements a shared row
+constexpr int kProjThreads = 128;       // 4 warps x 16 rows
+
+// xp [M, N3] f32 = x [M, D] @ w_x [D, N3] + b_x, all bf16 in; D % 4 == 0 and
+// N3 % 4 == 0, so 8-byte pieces are whole in or whole out of range.
+__global__ void __launch_bounds__(kProjThreads)
+gru_xproj_kernel(const __nv_bfloat16* __restrict__ x,
+                 const __nv_bfloat16* __restrict__ w_x,
+                 const float* __restrict__ b_x, float* __restrict__ xp, int M,
+                 int D, int N3) {
+  __shared__ __align__(16) __nv_bfloat16 xs[kProjTile * kProjLd];  // [row][k]
+  __shared__ __align__(16) __nv_bfloat16 ws[kProjTile * kProjLd];  // [k][col]
+  const int r0 = blockIdx.x * kProjTile, c0 = blockIdx.y * kProjTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+
+  for (int k0 = 0; k0 < D; k0 += kProjTile) {
+    for (int c = threadIdx.x; c < kProjTile * 16; c += kProjThreads) {
+      const int r = c >> 4, j = (c & 15) * 4;
+      const bool xin = r0 + r < M && k0 + j < D;
+      mma::cp_async8_zfill(xs + r * kProjLd + j,
+                           xin ? x + static_cast<size_t>(r0 + r) * D + k0 + j : x, xin ? 8 : 0);
+      const bool win = k0 + r < D && c0 + j < N3;
+      mma::cp_async8_zfill(ws + r * kProjLd + j,
+                           win ? w_x + static_cast<size_t>(k0 + r) * N3 + c0 + j : w_x,
+                           win ? 8 : 0);
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int st = 0; st < kProjTile / 16; ++st) {
+      uint32_t a[4];
+      mma::ldmatrix_x4(a, xs + (warp * 16 + (lane & 15)) * kProjLd + st * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        mma::ldmatrix_x4_trans(b, ws + (st * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kProjLd +
+                                      np * 16 + (lane >> 4) * 8);
+        mma::bf16_16x8x16(acc[2 * np], a, b[0], b[1]);
+        mma::bf16_16x8x16(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // the tiles are refilled next chunk
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = c0 + 8 * j + 2 * tq;
+    if (col >= N3) continue;
+    const float bx0 = b_x[col], bx1 = b_x[col + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + warp * 16 + gr + 8 * h;
+      if (row < M) {
+        *reinterpret_cast<float2*>(xp + static_cast<size_t>(row) * N3 + col) =
+            make_float2(acc[j][2 * h] + bx0, acc[j][2 * h + 1] + bx1);
+      }
+    }
+  }
+}
+
+// W_h[k][gate H + unit] and W_h[k + 1][...] as one bf16 pair (the low half
+// the lower k): a fragment register of W_h^T; zero past H (k even,
+// H % 4 == 0).
+__device__ __forceinline__ uint32_t wh_pair(const __nv_bfloat16* w_h, int H,
+                                            int k, int gate, int unit) {
+  if (k >= H || unit >= H) return 0u;
+  const __nv_bfloat16* p = w_h + static_cast<size_t>(k) * 3 * H + gate * H + unit;
+  const uint32_t lo = __bfloat16_as_ushort(p[0]), hi = __bfloat16_as_ushort(p[3 * H]);
+  return lo | (hi << 16);
+}
+
+// The A fragment of W_h^T for gate `gate`, units u .. u+15 (u = 16 warp)
+// and k-step st: a0 = (unit u+g, k 2q, 2q+1), a1 = unit u+g+8,
+// a2 = k + 8, a3 = both.
+__device__ __forceinline__ void wh_frag(uint32_t a[4], const __nv_bfloat16* w_h, int H,
+                                        int st, int gate, int u, int gr, int tq) {
+  const int k = 16 * st + 2 * tq;
+  a[0] = wh_pair(w_h, H, k, gate, u + gr);
+  a[1] = wh_pair(w_h, H, k, gate, u + gr + 8);
+  a[2] = wh_pair(w_h, H, k + 8, gate, u + gr);
+  a[3] = wh_pair(w_h, H, k + 8, gate, u + gr + 8);
+}
+
+// The gate nonlinearities in f32 from the hardware exp2 and a fast divide
+// (a few ulp; h is rounded to bf16 after them).
+__device__ __forceinline__ float fast_sigmoid(float v) {
+  return __fdividef(1.0f, 1.0f + __expf(-v));
+}
+__device__ __forceinline__ float fast_tanh(float v) {
+  return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * v));
+}
+
+// The recurrence, transposed: hp^T = W_h^T h_in^T, so the hidden units are
+// mma's M (one m16 tile of each gate a warp) and the batch rows its N (one
+// n8 tile: kRows rows a block, none idle). kKS: Hp / 16 (k16 steps and
+// warps), with W_h^T's A fragments in registers; 0 for Hp > 128, where the
+// step count is `ks_rt` and the fragments are read from global memory every
+// step. kReset as the f32 kernel's.
+constexpr int kRows = 8;
+template <int kKS, bool kReset>
+__global__ void __launch_bounds__(kKS > 0 ? 32 * kKS : 32 * 16, 1)
+gru_forward_mma_kernel(const float* __restrict__ xp,
+                       const __nv_bfloat16* __restrict__ h0,
+                       const __nv_bfloat16* __restrict__ w_h,
+                       const float* __restrict__ b_h,
+                       const float* __restrict__ keep,
+                       __nv_bfloat16* __restrict__ ys, int B, int Tn, int H,
+                       int ks_rt) {
+  constexpr bool kRegs = kKS > 0;
+  constexpr int R = kRows;
+  const int KS = kRegs ? kKS : ks_rt;
+  const int Hp = 16 * KS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // h^T, unit-major: [2][Hp][R] bf16 (a unit's 8 rows are 16 bytes).
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int b0 = blockIdx.x * R, H3 = 3 * H, u = 16 * warp;
+  // This lane's C positions, the same in each gate's tile: units
+  // u + gr + 8 m (m = 0, 1) of rows 2 tq + e (e = 0, 1); index p = 2 m + e,
+  // the C register.
+  bool unit_ok[2], row_ok[2];
+  size_t row_base[2];  // (b * T) of the lane's rows
+#pragma unroll
+  for (int m = 0; m < 2; ++m) unit_ok[m] = u + gr + 8 * m < H;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int b = b0 + 2 * tq + e;
+    row_ok[e] = b < B;
+    row_base[e] = static_cast<size_t>(b) * Tn;
+  }
+
+  uint32_t whf[kRegs ? kKS : 1][3][4];
+  if (kRegs) {
+#pragma unroll
+    for (int st = 0; st < (kRegs ? kKS : 1); ++st)
+#pragma unroll
+      for (int q = 0; q < 3; ++q) wh_frag(whf[st][q], w_h, H, st, q, u, gr, tq);
+  }
+  float bh[3][2];
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+#pragma unroll
+    for (int m = 0; m < 2; ++m) bh[q][m] = unit_ok[m] ? b_h[q * H + u + gr + 8 * m] : 0.0f;
+
+  // h_in of step 0 (keep[0] * h0, rounded to bf16): in registers, and in
+  // buffer 0 (every row and padded unit of it, zeros where there is none).
+  // A lane's two rows of one unit are adjacent: one 4-byte store.
+  float hreg[4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int unit = u + gr + 8 * m;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = 2 * tq + e;
+      float h = 0.0f;
+      if (row_ok[e] && unit_ok[m]) {
+        h = __bfloat162float(h0[static_cast<size_t>(b0 + row) * H + unit]);
+        if (kReset) h = __bfloat162float(__float2bfloat16(h * keep[row_base[e]]));
+      }
+      hreg[2 * m + e] = h;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(hs + unit * R + 2 * tq) =
+        __floats2bfloat162_rn(hreg[2 * m], hreg[2 * m + 1]);
+  }
+
+  // xp (and keep) of step t for the lane's positions: [gate][p].
+  auto load_step = [&](int t, float (&xv)[3][4], float (&kv)[2]) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      kv[e] = kReset && row_ok[e] ? keep[row_base[e] + t] : 1.0f;
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          xv[q][2 * m + e] = row_ok[e] && unit_ok[m]
+                                 ? xp[(row_base[e] + t) * H3 + q * H + u + gr + 8 * m]
+                                 : 0.0f;
+        }
+    }
+  };
+  float xc[3][4], keep0[2];  // keep[0] is already in h_in of step 0
+  load_step(0, xc, keep0);
+  __syncthreads();
+
+  // The lane's ldmatrix.trans row of the B fragment (h^T): unit lane % 16 of
+  // the k-step (lanes 16-31 repeat 0-15; x2 reads only the first 16).
+  const int b_off = (lane & 15) * R;
+  for (int t = 0; t < Tn; ++t) {
+    const int cur = t & 1;
+    float xn[3][4], kn[2] = {};  // the last step hands nothing on
+    if (t + 1 < Tn) load_step(t + 1, xn, kn);
+
+    const __nv_bfloat16* hc = hs + cur * Hp * R;
+    float acc[3][4];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.0f;
+#pragma unroll
+    for (int st = 0; st < KS; ++st) {
+      uint32_t b[2];
+      mma::ldmatrix_x2_trans(b, hc + 16 * st * R + b_off);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        uint32_t a_mem[4];
+        if (!kRegs) wh_frag(a_mem, w_h, H, st, q, u, gr, tq);
+        const uint32_t* a = kRegs ? whf[kRegs ? st : 0][q] : a_mem;
+        mma::bf16_16x8x16(acc[q], a, b[0], b[1]);
+      }
+    }
+
+    __nv_bfloat16* hn = hs + (cur ^ 1) * Hp * R;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int unit = u + gr + 8 * m;
+      __nv_bfloat16 hk[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int p = 2 * m + e;
+        const float rg = fast_sigmoid(xc[0][p] + (acc[0][p] + bh[0][m]));
+        const float zg = fast_sigmoid(xc[1][p] + (acc[1][p] + bh[1][m]));
+        const float ng = fast_tanh(xc[2][p] + rg * (acc[2][p] + bh[2][m]));
+        const __nv_bfloat16 hq = __float2bfloat16((1.0f - zg) * ng + zg * hreg[p]);
+        if (row_ok[e] && unit_ok[m]) ys[(row_base[e] + t) * H + unit] = hq;
+        // keep[t+1] scales the h' this step hands to the next one.
+        hk[e] = kReset ? __float2bfloat16(__bfloat162float(hq) * kn[e]) : hq;
+        hreg[p] = __bfloat162float(hk[e]);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(hn + unit * R + 2 * tq) = __halves2bfloat162(hk[0], hk[1]);
+    }
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int p = 0; p < 4; ++p) xc[q][p] = xn[q][p];
+    __syncthreads();
+  }
+}
+
+template <bool kReset>
+int launch_mma(const float* xp, const void* h0, const void* w_h,
+               const float* b_h, const float* keep, void* ys, int B, int Tn,
+               int H, size_t smem, cudaStream_t s) {
+  const int ks = (H + 15) / 16;
+  const dim3 grid((B + kRows - 1) / kRows), block(32 * ks);
+  auto launch = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid, block, smem, s>>>(
+        xp, static_cast<const __nv_bfloat16*>(h0), static_cast<const __nv_bfloat16*>(w_h),
+        b_h, keep, static_cast<__nv_bfloat16*>(ys), B, Tn, H, ks);
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (ks) {
+    case 1: return launch(gru_forward_mma_kernel<1, kReset>);
+    case 2: return launch(gru_forward_mma_kernel<2, kReset>);
+    case 3: return launch(gru_forward_mma_kernel<3, kReset>);
+    case 4: return launch(gru_forward_mma_kernel<4, kReset>);
+    case 5: return launch(gru_forward_mma_kernel<5, kReset>);
+    case 6: return launch(gru_forward_mma_kernel<6, kReset>);
+    case 7: return launch(gru_forward_mma_kernel<7, kReset>);
+    case 8: return launch(gru_forward_mma_kernel<8, kReset>);
+    default: return launch(gru_forward_mma_kernel<0, kReset>);
   }
 }
 
@@ -460,20 +739,19 @@ int launch_bwd_t(int rows_per_block, const float* rg, const float* zg,
 
 extern "C" {
 
-// x [B, T, D], h0 [B, H], w_x [D, 3H], w_h [H, 3H], ys [B, T, H]: all of the
-// working dtype (dtype 0 = float, 1 = bf16), contiguous, 16-byte aligned;
-// D % 4 == 0, so rows of x are whole 8-byte pieces; b_x, b_h [3H] float;
-// keep [B, T] float (1 - reset) or null for the no-reset variant.
-// smem_bytes is what the caller computed for this layout; it is checked
-// again here.
+// The f32 forward (CUDA cores). x [B, T, D], h0 [B, H], w_x [D, 3H],
+// w_h [H, 3H], ys [B, T, H]: all float (dtype 0), contiguous, 16-byte
+// aligned; D % 4 == 0; b_x, b_h [3H] float; keep [B, T] float (1 - reset) or
+// null for the no-reset variant. smem_bytes is what the caller computed for
+// this layout; it is checked again here.
 int seqrec_gru_forward(const void* x, const void* h0, const void* w_x,
                        const void* w_h, const void* b_x, const void* b_h,
                        const void* keep, void* ys, int B, int Tn, int D, int H,
                        int dtype, int rows_per_block, int wx_in_smem,
                        long long smem_bytes, void* stream) {
-  const size_t es = dtype == 0 ? 4 : 2;
+  const size_t es = 4;
   const int R = rows_per_block;
-  if (B <= 0 || Tn <= 0 || D <= 0 || H <= 0 || H > kMaxHidden || (dtype != 0 && dtype != 1) ||
+  if (B <= 0 || Tn <= 0 || D <= 0 || H <= 0 || H > kMaxHidden || dtype != 0 ||
       D % 4 != 0 || H % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -483,14 +761,48 @@ int seqrec_gru_forward(const void* x, const void* h0, const void* w_x,
   if (static_cast<long long>(smem) != smem_bytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float* bx = static_cast<const float*>(b_x);
+  return launch_t<float>(R, x, h0, w_x, w_h, static_cast<const float*>(b_x),
+                         static_cast<const float*>(b_h), static_cast<const float*>(keep), ys,
+                         B, Tn, D, H, wx_in_smem, smem, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 input projection: xp [M, N3] f32 = x [M, D] @ w_x [D, N3] + b_x,
+// with x, w_x bf16 and b_x float; all contiguous, 16-byte aligned;
+// D % 4 == 0 and N3 % 4 == 0.
+int seqrec_gru_xproj(const void* x, const void* w_x, const void* b_x, void* xp,
+                     int M, int D, int N3, void* stream) {
+  if (M <= 0 || D <= 0 || N3 <= 0 || D % 4 != 0 || N3 % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((M + kProjTile - 1) / kProjTile, (N3 + kProjTile - 1) / kProjTile);
+  gru_xproj_kernel<<<grid, kProjThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w_x),
+      static_cast<const float*>(b_x), static_cast<float*>(xp), M, D, N3);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 recurrence on tensor cores. xp [B, T, 3H] float (the input
+// projection, b_x included), h0 [B, H] and w_h [H, 3H] bf16, b_h [3H] float,
+// keep [B, T] float (1 - reset) or null, ys [B, T, H] bf16; contiguous,
+// 16-byte aligned; H % 4 == 0, H <= 256. smem_bytes (the h double buffer,
+// 2 Hp 8 bf16) as the caller computed it, checked again here.
+int seqrec_gru_forward_mma(const void* xp, const void* h0, const void* w_h,
+                           const void* b_h, const void* keep, void* ys, int B,
+                           int Tn, int H, long long smem_bytes, void* stream) {
+  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int hp = 16 * ((H + 15) / 16);
+  const size_t smem = 2 * static_cast<size_t>(kRows) * hp * 2;
+  if (static_cast<long long>(smem) != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* x = static_cast<const float*>(xp);
   const float* bh = static_cast<const float*>(b_h);
   const float* kp = static_cast<const float*>(keep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_t<float>(R, x, h0, w_x, w_h, bx, bh, kp, ys, B, Tn, D, H, wx_in_smem, smem, s);
-  }
-  return launch_t<__nv_bfloat16>(R, x, h0, w_x, w_h, bx, bh, kp, ys, B, Tn, D, H, wx_in_smem, smem, s);
+  return kp == nullptr ? launch_mma<false>(x, h0, w_h, bh, kp, ys, B, Tn, H, smem, s)
+                       : launch_mma<true>(x, h0, w_h, bh, kp, ys, B, Tn, H, smem, s);
 }
 
 // r, z, n, hn [B, T, H] float; h_in, g_ys [B, T, H] and w_h_t [3H, H] of the

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled on its own into
 `build/lib<name>-<hash>.so` inside the package (listed in .gitignore), at
-first use. The hash covers the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. `build()` starts one nvcc per source
+first use. The hash covers the source, the shared headers (`csrc/*.cuh`)
+and the flags, so an edited source or header is rebuilt and an unchanged
+one is reused. `build()` starts one nvcc per source
 that needs it, all at once, and waits for every one. A failed build raises
 with nvcc's output; nothing falls back.
 
@@ -50,7 +51,8 @@ def find_nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,24 +1,38 @@
-"""Causal self-attention forward kernel (`csrc/attention.cu`), joined to a
+"""Causal self-attention forward kernels (`csrc/attention.cu`), joined to a
 recompute backward by a `torch.autograd.Function`.
 
-Replaces `seqrec_tpu/ops/pallas/attention.py::causal_attention` and its
-custom VJP `_attn_core_bwd`. Forward: the kernel, on the [B, T, N, Dh]
-layout as it comes (the slices of the qkv projection need no copy) and any
-T: the ragged last tile is masked inside the kernel, where the TPU wrapper
-pads T to its 128-row tile in device memory. Backward, as `_attn_core_bwd`:
-a recompute of the materialized [T, T] attention in plain tensor code
+Replaces `seqrec_tpu/ops/pallas/attention.py::causal_attention` (the TPU
+kernel `_attn_kernel`, launched at :98) and its custom VJP `_attn_core_bwd`.
+Forward: a kernel, on the [B, T, N, Dh] layout as it comes (the slices of
+the qkv projection need no copy) and any T: the ragged last tile is
+zero-filled in shared memory, where the TPU wrapper pads T to its 128-row
+tile in device memory. Backward, as `_attn_core_bwd`: a recompute of the
+materialized [T, T] attention in plain tensor code
 (`reference.causal_attention`) and its autograd; a flash backward kernel is
 ROADMAP.md Queue 2 speed work.
 
+Two hand-written kernels, chosen by dtype (each computes the whole function
+in its own numerics; neither gives way to the other):
+
+- bf16 (`design` "mma.sync"): FlashAttention-2 on the tensor cores. Four
+  warps of 16 query rows; Q K^T and P V as mma.sync.m16n8k16 (bf16 products,
+  f32 sums), the softmax on the accumulator fragments in registers, P handed
+  to P V in registers, K and V tiles double-buffered by cp.async. The head
+  dim is zero-padded in shared memory to 16, 32, 64, 128 or 256 (mma's depth
+  is 16); rows past T are zero-filled. What bounds it: bytes (q, k, v, o).
+- f32 (`design` "cuda-core"): f32 FMAs on the CUDA cores from shared-memory
+  tiles, 4 x 4 register tiles. TF32 tensor cores would keep ~3 digits, not
+  the f32 products of the contract.
+
 The JAX package gates its Pallas kernel off by default (`supported`, a TPU
-measurement); the port has no gates, so a CUDA tensor always takes this
-kernel.
+measurement); the port has no gates, so a CUDA tensor always takes a kernel.
 
 Numerics, as the TPU kernel: scores in f32 from f32 sums of products, the
-causal mask at -1e30, an online (max, sum) in f32, the probabilities rounded
-to v's dtype for the product with v, an f32 accumulator and a divide at the
-end. The plain version (the JAX oracle's formula) computes the scores in the
-input dtype, so in bf16 the two differ by bf16 rounding of the scores.
+causal mask at -1e30, an online (max, sum) in f32 over the unrounded
+probabilities, the probabilities rounded to v's dtype for the product with
+v, an f32 accumulator and a divide at the end. The plain version (the JAX
+oracle's formula) computes the scores in the input dtype, so in bf16 the two
+differ by bf16 rounding of the scores.
 """
 
 from __future__ import annotations
@@ -50,12 +64,19 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def launch_config(B: int, T: int, N: int, Dh: int, dtype: torch.dtype) -> Dict[str, int]:
-    """Grid, block and shared memory of one launch; ValueError for a shape
-    the kernel cannot take: Dh <= 256, Dh * element size a multiple of 16
-    bytes, and the q, k and v tiles (64 padded f32 rows each) with the
-    64 x 68 f32 probability tile inside the 227 KB a block can have (at
-    Dh = 256: 212 KB)."""
+def head_dim_padded(Dh: int) -> int:
+    """The head dim the bf16 kernel pads Dh to in shared memory (kD in
+    csrc/attention.cu): the least of 16, 32, 64, 128, 256 that holds it."""
+    return next(d for d in (16, 32, 64, 128, 256) if d >= Dh)
+
+
+def launch_config(B: int, T: int, N: int, Dh: int, dtype: torch.dtype) -> Dict:
+    """Design, grid, block and shared memory of one launch; ValueError for a
+    shape the kernels cannot take: Dh <= 256 and Dh * element size a
+    multiple of 16 bytes. bf16: 128 threads; Q and double-buffered K and V
+    tiles of 64 rows of kD + 8 bf16 (at Dh = 64: 45 KB; at 256: 165 KB).
+    f32: 256 threads; the q, k and v tiles (64 padded f32 rows each) and the
+    64 x 68 f32 probability tile (at Dh = 256: 212 KB)."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"attention: dtype {dtype} not in float32/bfloat16")
     if min(B, T, N, Dh) <= 0:
@@ -64,11 +85,13 @@ def launch_config(B: int, T: int, N: int, Dh: int, dtype: torch.dtype) -> Dict[s
     if Dh > MAX_HEAD_DIM or (Dh * es) % 16 != 0:
         raise ValueError(f"attention: needs Dh <= {MAX_HEAD_DIM} and Dh*{es} % 16 == 0 "
                          f"(Dh={Dh})")
-    smem = (3 * TILE * (Dh + 4) + TILE * (TILE + 4)) * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"attention: {smem} bytes of shared memory, over the "
-                         f"{SMEM_LIMIT} a block can have (Dh={Dh})")
-    return {"grid": [-(-T // TILE), B * N], "threads": 256, "smem_bytes": smem}
+    grid = [-(-T // TILE), B * N]
+    if dtype == torch.bfloat16:
+        kD = head_dim_padded(Dh)
+        return {"design": "mma.sync", "grid": grid, "threads": 128,
+                "head_dim_padded": kD, "smem_bytes": 5 * TILE * (kD + 8) * 2}
+    return {"design": "cuda-core", "grid": grid, "threads": 256,
+            "smem_bytes": (3 * TILE * (Dh + 4) + TILE * (TILE + 4)) * 4}
 
 
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:

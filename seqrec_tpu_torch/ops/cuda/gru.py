@@ -1,18 +1,38 @@
 """GRU scan kernels (`csrc/gru.cu`): the forward scan and the reverse
 recurrence of its backward, joined by a `torch.autograd.Function`.
 
-Replaces `seqrec_tpu/ops/pallas/gru.py::gru_scan` and its custom VJP
-`_gru_core_bwd`, both variants: without a reset mask, and with one
-(`_gru_step_kernel_reset`, session-parallel training), where a keep plane
+Replaces `seqrec_tpu/ops/pallas/gru.py::gru_scan` (the TPU kernel
+`_gru_step_body`, `_gru_step_kernel` :129 and `_gru_step_kernel_reset` :135,
+launched at :177) and its custom VJP `_gru_core_bwd`, both variants: without
+a reset mask, and with one (session-parallel training), where a keep plane
 `1 - reset` [B, T] f32 goes to both kernels. The two variants count their
 launches apart: `gru_scan.launches` / `gru_scan.reset_launches`, and the
-same two on `gru_backward`. Forward: the x-projection is computed inside
-the kernel, step by step. Backward, as `_gru_core_bwd`: the input
-projection and the gates are recomputed with `torch.matmul` in parallel
-over T (`reference.gru_bwd_hoist`), the reverse recurrence runs in the
-kernel, and the weight and input gradients are batched `torch.matmul`s and
-sums, where the JAX package has XLA einsums. Both kernels are bound by their
-serial chain over T, not by bytes or operations; see the source note.
+same two on `gru_backward`.
+
+Forward, two hand-written designs chosen by dtype (each computes the whole
+function in its own numerics; neither gives way to the other):
+
+- bf16 (`design` "mma.sync", every shipped config): the input projection
+  `x @ W_x + b_x` does not depend on h, so `gru_input_projection` computes
+  it for all B*T rows first, on the tensor cores (a hand-written mma.sync
+  GEMM into an f32 [B, T, 3H] plane; its own launch counter); the scan then
+  runs only `h @ W_h` in its serial chain, transposed (W_h^T h^T) as
+  mma.sync.m16n8k16 with the hidden units as M and a block's 8 batch rows
+  as N. H pads to Hp = 16 ceil(H / 16) with zero weights and biases (a
+  padded unit stays 0); Hp / 16 warps each own 16 units of every gate, so a
+  lane holds the r, z and n sums of its own (unit, row) pairs; W_h^T's
+  fragments stay in registers for the whole scan up to Hp = 128. One
+  barrier a step; the step's latency times T binds.
+- f32 (`design` "cuda-core"): one thread per hidden unit, f32 FMAs on the
+  CUDA cores with the projection inside each step, as before; TF32 tensor
+  cores would keep ~3 digits, not the f32 products of the contract.
+
+Backward, as `_gru_core_bwd`: the input projection and the gates are
+recomputed with `torch.matmul` in parallel over T (`reference.gru_bwd_hoist`),
+the reverse recurrence runs in the kernel, and the weight and input
+gradients are batched `torch.matmul`s and sums, where the JAX package has
+XLA einsums. Both scans are bound by their serial chain over T, not by bytes
+or operations; see the source note.
 
 Numerics: forward products and gate math in f32, biases in f32, h rounded
 to the working dtype (x.dtype: float32 or bfloat16) every step, as the TPU
@@ -37,7 +57,10 @@ plain_backward = reference.gru_bwd_scan
 
 # Shared memory one block may opt in to on sm_90 (227 KB).
 SMEM_LIMIT = 232_448
-MAX_HIDDEN = 256  # kMaxHidden in csrc/gru.cu: one thread per hidden unit
+MAX_HIDDEN = 256  # kMaxHidden in csrc/gru.cu
+PROJ_TILE = 64  # kProjTile in csrc/gru.cu: rows and columns of an xp tile
+WH_REG_LIMIT = 128  # Hp up to which the bf16 scan holds W_h in registers
+MMA_ROWS = 8  # kRows in csrc/gru.cu: batch rows a bf16 scan block, one n8 tile
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -48,6 +71,14 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     fwd.restype = ctypes.c_int
+    proj = lib.seqrec_gru_xproj
+    proj.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    proj.restype = ctypes.c_int
+    mma = lib.seqrec_gru_forward_mma
+    mma.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    mma.restype = ctypes.c_int
     bwd = lib.seqrec_gru_backward
     bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
         ctypes.c_longlong, ctypes.c_void_p,
@@ -69,19 +100,47 @@ def _check_dims(B: int, T: int, H: int, dtype: torch.dtype) -> int:
 
 
 def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
-                  rows_per_block: Optional[int] = None) -> Dict[str, int]:
-    """Grid, block and shared-memory layout for one forward launch;
-    ValueError for a shape the kernel cannot take. W_x goes to shared memory
-    when it fits beside W_h, and is read from global memory (L2) otherwise.
+                  rows_per_block: Optional[int] = None) -> Dict:
+    """Design, grid, block and shared-memory layout for one forward launch;
+    ValueError for a shape the kernels cannot take.
 
-    Rows per block (R): every block reads all of its weights every step,
-    whatever R is, so a smaller R spreads the scan over more SMs. With W_x in
-    shared memory R=1 is fastest; with W_x read from L2 each block's L2
-    traffic is the limit, and R=2 halves the number of readers (an H100 sweep
-    at B=64, T=200, D=H=128, which also found R=4 slower in both cases)."""
+    bf16 ("mma.sync"): the projection's grid of 64 x 64 xp tiles, then the
+    scan: 8 batch rows a block, the N of each mma (one n8 tile), Hp = 16
+    ceil(H / 16) and Hp / 16 warps, W_h^T's fragments in registers up to
+    Hp = 128 (read from global memory above), and the h double buffer
+    [2][Hp][8] bf16 (unit-major) in shared memory. The latency of a step
+    binds, and it grows with the rows a block computes: an H100 sweep at
+    B=64 and 128, T=200, D=H=128 and at B=256, T=50, D=H=100 found 8 rows
+    1.5-1.8x faster than 16 (PERF.md), so the design has no other choice
+    and `rows_per_block` is the f32 design's alone.
+
+    f32 ("cuda-core"): one thread per hidden unit, R = 1 or 2 rows a block;
+    W_x goes to shared memory when it fits beside W_h, and is read from
+    global memory (L2) otherwise. Every block reads all of its weights every
+    step, so a smaller R spreads the scan over more SMs: with W_x in shared
+    memory R=1 is fastest; with W_x read from L2 each block's L2 traffic is
+    the limit, and R=2 halves the number of readers (an H100 sweep at B=64,
+    T=200, D=H=128, which also found R=4 slower in both cases)."""
     es = _check_dims(B, T, H, dtype)
-    if D <= 0 or D % 4 != 0:  # rows of x staged in 8- or 16-byte pieces
+    if D <= 0 or D % 4 != 0:  # rows of x copied in 8- or 16-byte pieces
         raise ValueError(f"gru: needs D*{es} % {4 * es} == 0 (D={D}, H={H})")
+    if dtype == torch.bfloat16:
+        if rows_per_block is not None:
+            raise ValueError(f"gru: rows_per_block is the f32 design's; bf16 takes "
+                             f"{MMA_ROWS} rows a block (got {rows_per_block})")
+        R = MMA_ROWS
+        hp = 16 * -(-H // 16)
+        return {
+            "design": "mma.sync",
+            "grid": -(-B // R),
+            "threads": 2 * hp,
+            "rows_per_block": R,
+            "hidden_padded": hp,
+            "wh_in_regs": int(hp <= WH_REG_LIMIT),
+            "smem_bytes": 2 * R * hp * 2,
+            "xproj_grid": [-(-(B * T) // PROJ_TILE), -(-(3 * H) // PROJ_TILE)],
+            "xproj_threads": 128,
+        }
     w_x = D * 3 * H * es
 
     def base(r):  # h and x double buffers, then W_h
@@ -99,6 +158,7 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
         )
     wx_in_smem = int(base(R) + w_x <= SMEM_LIMIT)
     return {
+        "design": "cuda-core",
         "grid": -(-B // R),
         "threads": H,
         "rows_per_block": R,
@@ -157,6 +217,50 @@ def _keep_plane(keep: Optional[torch.Tensor], B: int, T: int) -> Optional[torch.
     return keep.reshape(B, T).float().contiguous()
 
 
+def plain_input_projection(x: torch.Tensor, w_x: torch.Tensor,
+                           b_x: torch.Tensor) -> torch.Tensor:
+    """x @ W_x + b_x in f32: products of the working dtype summed in f32."""
+    return torch.matmul(x.float(), w_x.float()) + b_x.float()
+
+
+def gru_input_projection(x: torch.Tensor, w_x: torch.Tensor,
+                         b_x: torch.Tensor) -> torch.Tensor:
+    """The forward's input projection x [..., D] @ w_x [D, 3H] + b_x [3H] ->
+    f32 [..., 3H], x and w_x bf16: the part of `_gru_step_body`'s step that
+    does not depend on h (`xp`, gru.py:110-113), for every step at once. A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (`seqrec_gru_xproj`) or raises."""
+    if x.device.type == "cpu":
+        return plain_input_projection(x, w_x, b_x)
+    if x.device.type != "cuda":
+        raise ValueError(f"gru: no kernel for device {x.device}")
+    D = x.shape[-1]
+    N3 = w_x.shape[-1]
+    if x.dtype != torch.bfloat16 or w_x.dtype != torch.bfloat16:
+        raise ValueError(f"gru: the input projection kernel takes bf16 x and w_x, got "
+                         f"{x.dtype}, {w_x.dtype}")
+    if tuple(w_x.shape) != (D, N3) or tuple(b_x.shape) != (N3,) or D % 4 or N3 % 4:
+        raise ValueError(f"gru: input projection needs x [..., D], w_x [D, 3H], b_x [3H] "
+                         f"with D % 4 == 0 and 3H % 4 == 0; got {tuple(x.shape)}, "
+                         f"{tuple(w_x.shape)}, {tuple(b_x.shape)}")
+    args = [x.contiguous(), w_x.contiguous(), b_x.float().contiguous()]
+    _check_operands(args, x.device)
+    xp = torch.empty((*x.shape[:-1], N3), dtype=torch.float32, device=x.device)
+    M = xp.numel() // N3
+    if M == 0:
+        return xp
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        rc = lib.seqrec_gru_xproj(*(a.data_ptr() for a in args), xp.data_ptr(), M, D, N3,
+                                  torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, lib, "input projection")
+    gru_input_projection.launches += 1
+    return xp
+
+
+gru_input_projection.launches = 0
+
+
 def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None) -> torch.Tensor:
     """ys [B, T, H]; every operand already in its kernel dtype; `keep` the
     [B, T] plane 1 - reset (the reset variant) or None."""
@@ -165,17 +269,26 @@ def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None) -> torch.Tensor:
     cfg = launch_config(B, T, D, H, x.dtype)
     dtype, dev = x.dtype, x.device
     keep = _keep_plane(keep, B, T)
-    args = [t.contiguous() for t in (x, h0, w_x, w_h, b_x, b_h)]
-    _check_operands(args + ([] if keep is None else [keep]), dev)
     ys = torch.empty((B, T, H), dtype=dtype, device=dev)
     lib = _lib()
-    with torch.cuda.device(dev):
-        rc = lib.seqrec_gru_forward(
-            *(a.data_ptr() for a in args), None if keep is None else keep.data_ptr(),
-            ys.data_ptr(), B, T, D, H, _DTYPE_CODE[dtype], cfg["rows_per_block"],
-            cfg["wx_in_smem"], cfg["smem_bytes"],
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    keep_ptr = None if keep is None else keep.data_ptr()
+    if cfg["design"] == "mma.sync":
+        xp = gru_input_projection(x, w_x, b_x)
+        args = [xp] + [t.contiguous() for t in (h0, w_h, b_h)]
+        _check_operands(args + ([] if keep is None else [keep]), dev)
+        with torch.cuda.device(dev):
+            rc = lib.seqrec_gru_forward_mma(
+                *(a.data_ptr() for a in args), keep_ptr, ys.data_ptr(), B, T, H,
+                cfg["smem_bytes"], stream)
+    else:
+        args = [t.contiguous() for t in (x, h0, w_x, w_h, b_x, b_h)]
+        _check_operands(args + ([] if keep is None else [keep]), dev)
+        with torch.cuda.device(dev):
+            rc = lib.seqrec_gru_forward(
+                *(a.data_ptr() for a in args), keep_ptr, ys.data_ptr(), B, T, D, H,
+                _DTYPE_CODE[dtype], cfg["rows_per_block"], cfg["wx_in_smem"],
+                cfg["smem_bytes"], stream)
     _raise_on(rc, lib, "forward")
     if keep is None:
         gru_scan.launches += 1
@@ -252,7 +365,7 @@ class _GRUScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_ys):
         x, ys, h0, w_x, w_h, b_x, b_h, reset = ctx.saved_tensors
-        x_proj = torch.matmul(x.float(), w_x.float()) + b_x
+        x_proj = plain_input_projection(x, w_x, b_x)
         d_xp, dh0, dW_h, db_h = reference.gru_bwd_math(
             x_proj, ys, h0, w_h, b_h, g_ys, reset, scan=gru_backward)
         d_x = torch.matmul(d_xp, w_x.float().T).to(x.dtype)

@@ -8,7 +8,8 @@ port's dependencies:
 
 Tolerances: gather bit-exact; GRU 1e-5 in f32 (same math, another summation
 order) and 3e-2 in bf16 (the plain version rounds every gate op to bf16, the
-kernel only the new h). Scatter-add 1e-5 (f32 atomics: the order of each
+kernel only the new h); the bf16 GRU forward's input projection 1e-5 (exact
+bf16 products summed in f32 on both sides, in another order). Scatter-add 1e-5 (f32 atomics: the order of each
 row's sum changes from run to run). Head 1e-5 relative (both sides multiply
 in f32, bf16 inputs exactly; only the summation order differs). GRU and
 LSTM backward 1e-4 (f32 carries over T steps, another summation order in
@@ -94,11 +95,21 @@ def _gru_args(B, T, D, H, dtype, device, seed=0):
             t(H, 3 * H, scale=H ** -0.5), t(3 * H, scale=0.1), t(3 * H, scale=0.1))
 
 
+def _f32_wh_too_wide(dtype, H) -> bool:
+    """The CUDA-core (f32) design keeps W_h in shared memory: H=256 does not
+    fit, and it raises; bf16 reads W_h^T from global memory past Hp = 128."""
+    return dtype == torch.float32 and H * 3 * H * 4 > k_gru.SMEM_LIMIT
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,D,H", [(5, 7, 16, 32), (3, 1, 32, 16), (64, 50, 128, 128),
-                                     (7, 9, 64, 96)])
+                                     (7, 9, 64, 96), (3, 5, 16, 132), (4, 6, 32, 256)])
 def test_gru_kernel_matches_plain(cuda, dtype, B, T, D, H):
     args = _gru_args(B, T, D, H, dtype, cuda)
+    if _f32_wh_too_wide(dtype, H):
+        with pytest.raises(ValueError, match="shared"):
+            k_gru.gru_scan(*args)
+        return
     before = k_gru.gru_scan.launches
     ys, h = k_gru.gru_scan(*args)
     torch.cuda.synchronize()
@@ -109,16 +120,42 @@ def test_gru_kernel_matches_plain(cuda, dtype, B, T, D, H):
     assert torch.equal(h, ys[:, -1])
 
 
-@pytest.mark.parametrize("rows_per_block", [1, 2])
-def test_gru_kernel_every_row_tiling(cuda, rows_per_block, monkeypatch):
-    """B not a multiple of R leaves the last block's spare rows unwritten."""
-    args = _gru_args(11, 6, 32, 32, torch.float32, cuda, seed=1)
-    real = k_gru.launch_config
-    monkeypatch.setattr(k_gru, "launch_config",
-                        lambda *a, **kw: real(*a, rows_per_block=rows_per_block))
-    ys, _ = k_gru.gru_scan(*args)
-    want, _ = k_gru.plain(*args)
-    torch.testing.assert_close(ys, want, rtol=1e-5, atol=1e-5)
+@pytest.mark.parametrize("dtype,rows_per_block", [(torch.float32, 1), (torch.float32, 2),
+                                                  (torch.bfloat16, None)])
+def test_gru_kernel_every_row_tiling(cuda, dtype, rows_per_block, monkeypatch):
+    """B not a multiple of R leaves the last block's spare rows unwritten:
+    each design's row tilings (f32: 1 or 2 rows a block; bf16: its one n8
+    tile of 8), at B=11 and B=21."""
+    if rows_per_block is not None:
+        real = k_gru.launch_config
+        monkeypatch.setattr(k_gru, "launch_config",
+                            lambda *a, **kw: real(*a, rows_per_block=rows_per_block))
+    for B in (11, 21):
+        args = _gru_args(B, 6, 32, 32, dtype, cuda, seed=B)
+        ys = torch.full((B, 6, 32), float("nan"), dtype=dtype, device=cuda)
+        ys.copy_(k_gru.gru_scan(*args)[0])
+        want, _ = k_gru.plain(*args)
+        torch.testing.assert_close(ys.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("B,T,D,N3", [(64, 200, 128, 384), (256, 50, 100, 300), (3, 5, 4, 12),
+                                      (2, 70, 200, 132)])
+def test_gru_input_projection_kernel_matches_plain(cuda, B, T, D, N3):
+    """The bf16 forward's input projection: ragged row and column tiles, D not
+    a multiple of 16 or of the 64-deep chunk (8-byte pieces, zero-filled);
+    exact bf16 products summed in f32 on both sides."""
+    rng = np.random.default_rng(B + D)
+    x = torch.from_numpy(rng.normal(size=(B, T, D)).astype(np.float32)).to(cuda).bfloat16()
+    w_x = torch.from_numpy((rng.normal(size=(D, N3)) * D ** -0.5).astype(np.float32))
+    w_x = w_x.to(cuda).bfloat16()
+    b_x = torch.from_numpy(rng.normal(size=N3).astype(np.float32)).to(cuda)
+    before = k_gru.gru_input_projection.launches
+    got = k_gru.gru_input_projection(x, w_x, b_x)
+    torch.cuda.synchronize()
+    assert k_gru.gru_input_projection.launches == before + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, T, N3)
+    torch.testing.assert_close(got, k_gru.plain_input_projection(x, w_x, b_x),
+                               rtol=1e-5, atol=1e-5)
 
 
 def _reset_plane(B, T, device, seed=0):
@@ -421,15 +458,40 @@ def test_attention_kernel_matches_plain(cuda, dtype, B, T, N, Dh):
         torch.testing.assert_close(got.float(), exact, rtol=2e-2, atol=2e-2)
 
 
-def test_attention_kernel_reads_qkv_slices_in_place_and_keeps_causality(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 200])
+@pytest.mark.parametrize("Dh", [8, 24, 64])
+def test_attention_kernel_ragged_tails(cuda, dtype, T, Dh):
+    """T around the 64-row tile (the last tile's rows past T are zero-filled,
+    never written) and head dims the bf16 kernel pads to mma's depth."""
+    q, k, v = _qkv(2, T, 2, Dh, dtype, cuda, seed=T * Dh)
+    got = k_attn.causal_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, k_attn.plain(q, k, v), rtol=2e-5, atol=2e-5)
+    else:
+        exact = k_attn.plain(q.float(), k.float(), v.float())
+        torch.testing.assert_close(got.float(), exact, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_reads_qkv_slices_in_place_and_keeps_causality(cuda, dtype):
     """q, k, v as strided slices of one [B, T, 3, N, Dh] projection (the
-    SASRec block's layout), a custom scale, and no leak from future keys."""
+    SASRec block's layout, a row stride of 3 N Dh), a custom scale, and no
+    leak from future keys."""
     B, T, N, Dh = 3, 70, 2, 32
-    qkv = torch.randn(B, T, 3, N, Dh, generator=torch.Generator().manual_seed(0)).to(cuda)
+    qkv = torch.randn(B, T, 3, N, Dh, generator=torch.Generator().manual_seed(0))
+    qkv = qkv.to(cuda, dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     assert not q.is_contiguous()
+    assert k_attn._kernel_view(q).data_ptr() == q.data_ptr()  # read in place
     got = k_attn.causal_attention(q, k, v, scale=0.3)
-    torch.testing.assert_close(got, k_attn.plain(q, k, v, scale=0.3), rtol=2e-5, atol=2e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, k_attn.plain(q, k, v, scale=0.3), rtol=2e-5, atol=2e-5)
+    else:
+        exact = k_attn.plain(q.float(), k.float(), v.float(), scale=0.3)
+        torch.testing.assert_close(got.float(), exact, rtol=2e-2, atol=2e-2)
     k2, v2 = k.clone(), v.clone()
     k2[:, 40:] = 0.0
     v2[:, 40:] = -5.0
@@ -651,7 +713,8 @@ def test_tower_loss_backward_on_cuda_reaches_every_parameter(cuda, tower):
 # reverse recurrences
 # ---------------------------------------------------------------------------
 
-RESET_SHAPES = [(5, 7, 16, 32), (256, 50, 100, 100), (128, 40, 128, 128), (11, 9, 64, 96)]
+RESET_SHAPES = [(5, 7, 16, 32), (256, 50, 100, 100), (128, 40, 128, 128), (11, 9, 64, 96),
+                (3, 5, 16, 132), (4, 6, 32, 256)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -661,6 +724,10 @@ def test_gru_reset_kernel_matches_plain(cuda, dtype, B, T, D, H):
     the no-reset kernel's bits; with a reset at t=0 the output ignores h0."""
     args = _gru_args(B, T, D, H, dtype, cuda, seed=B + T)
     reset = _reset_plane(B, T, cuda, seed=T)
+    if _f32_wh_too_wide(dtype, H):
+        with pytest.raises(ValueError, match="shared"):
+            k_gru.gru_scan(*args, reset_mask=reset)
+        return
     ys, h = k_gru.gru_scan(*args, reset_mask=reset)
     want, _ = k_gru.plain(*args, reset_mask=reset)
     torch.testing.assert_close(ys.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])

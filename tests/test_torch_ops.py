@@ -192,14 +192,63 @@ def test_gru_dispatch_on_cpu_gives_plain_and_launches_nothing(use_pallas):
 
 
 def test_gru_launch_config_at_the_serving_shape():
+    """bf16: the tensor-core design, 8 rows a block (8 blocks at B=64), 8
+    warps of 16 units at H=128 with W_h in registers, the h double buffer
+    [2][128][8] bf16, and the input projection's 64 x 64 tiles over
+    B*T = 12,800 rows and 3H = 384 columns. f32: the CUDA-core design."""
     bf16 = cuda_gru.launch_config(64, 200, 128, 128, torch.bfloat16)
-    assert bf16 == {"grid": 64, "threads": 128, "rows_per_block": 1,
-                    "wx_in_smem": 1, "smem_bytes": 198144}
+    assert bf16 == {"design": "mma.sync", "grid": 8, "threads": 256, "rows_per_block": 8,
+                    "hidden_padded": 128, "wh_in_regs": 1, "smem_bytes": 2 * 128 * 8 * 2,
+                    "xproj_grid": [200, 6], "xproj_threads": 128}
     f32 = cuda_gru.launch_config(64, 200, 128, 128, torch.float32)
-    assert f32 == {"grid": 32, "threads": 128, "rows_per_block": 2,
+    assert f32 == {"design": "cuda-core", "grid": 32, "threads": 128, "rows_per_block": 2,
                    "wx_in_smem": 0, "smem_bytes": 200704}
     for cfg in (bf16, f32):
         assert cfg["smem_bytes"] <= cuda_gru.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("H,hp,in_regs", [(4, 16, 1), (64, 64, 1), (100, 112, 1),
+                                          (128, 128, 1), (132, 144, 0), (256, 256, 0)])
+def test_gru_bf16_pads_the_hidden_width_to_whole_mma_tiles(H, hp, in_regs):
+    """H pads to a multiple of 16 (mma's depth and n8 pairs): Hp / 16 warps,
+    W_h's fragments in registers up to Hp = 128. Every width the CUDA-core
+    design took in bf16 is taken, and wider ones too."""
+    cfg = cuda_gru.launch_config(3, 7, 8, H, torch.bfloat16)
+    assert (cfg["hidden_padded"], cfg["threads"], cfg["wh_in_regs"]) == (hp, 2 * hp, in_regs)
+    assert cfg["smem_bytes"] == 2 * hp * 8 * 2 <= cuda_gru.SMEM_LIMIT
+    assert cfg["xproj_grid"] == [1, -(-3 * H // 64)]
+
+
+@pytest.mark.parametrize("B,grid", [(64, 8), (128, 16), (256, 32), (11, 2), (8, 1), (9, 2),
+                                    (1, 1)])
+def test_gru_bf16_rows_per_block(B, grid):
+    """8 batch rows a block (one n8 tile), a ragged last block; the row count
+    is the f32 design's choice alone, and a bf16 request for one raises."""
+    cfg = cuda_gru.launch_config(B, 50, 64, 64, torch.bfloat16)
+    assert (cfg["rows_per_block"], cfg["grid"]) == (cuda_gru.MMA_ROWS, grid) == (8, grid)
+    assert cfg["smem_bytes"] == 2 * 64 * 8 * 2
+    with pytest.raises(ValueError, match="rows_per_block is the f32 design's"):
+        cuda_gru.launch_config(B, 50, 64, 64, torch.bfloat16, rows_per_block=16)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_gru_input_projection_on_cpu_matches_the_pallas_step_xp(with_bias):
+    """The bf16 forward's input projection (the part of `_gru_step_body`'s
+    step that does not depend on h, gru.py:110-113) against the same jnp.dot
+    with preferred_element_type=f32; on the CPU the wrapper is the plain
+    version and launches nothing."""
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(3, 5, 12)).astype(np.float32)
+    w_x = (rng.normal(size=(12, 24)) * 12 ** -0.5).astype(np.float32)
+    b_x = (rng.normal(size=24) * 0.1 * with_bias).astype(np.float32)
+    xb, wb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w_x, jnp.bfloat16)
+    want = jnp.dot(xb, wb, preferred_element_type=jnp.float32) + jnp.asarray(b_x)
+    before = cuda_gru.gru_input_projection.launches
+    got = cuda_gru.gru_input_projection(torch.from_numpy(x).bfloat16(),
+                                        torch.from_numpy(w_x).bfloat16(), torch.from_numpy(b_x))
+    assert cuda_gru.gru_input_projection.launches == before
+    assert got.dtype == torch.float32 and tuple(got.shape) == (3, 5, 24)
+    np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
 
 
 @pytest.mark.parametrize("shape,dtype,match", [
@@ -208,6 +257,8 @@ def test_gru_launch_config_at_the_serving_shape():
     ((4, 5, 6, 12), torch.float32, "D\\*4 % 16"),
     ((4, 5, 8, 260), torch.float32, "H <= 256"),
     ((4, 5, 8, 256), torch.float32, "shared"),
+    ((4, 5, 8, 260), torch.bfloat16, "H <= 256"),
+    ((4, 5, 6, 12), torch.bfloat16, "D\\*2 % 8"),
     ((0, 5, 8, 12), torch.float32, "empty"),
 ])
 def test_gru_kernel_rejects_what_it_cannot_take(shape, dtype, match):

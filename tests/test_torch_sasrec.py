@@ -126,11 +126,29 @@ def test_attention_grads_match_jax(oracle):
 
 
 def test_attention_launch_config_at_the_training_shape():
+    """bf16: the tensor-core design, 4 warps, Q and double-buffered K and V
+    tiles of 64 rows of Dh + 8 bf16; f32: the CUDA-core design."""
     cfg = cuda_attention.launch_config(128, 200, 1, 64, torch.bfloat16)
-    assert cfg == {"grid": [4, 128], "threads": 256,
+    assert cfg == {"design": "mma.sync", "grid": [4, 128], "threads": 128,
+                   "head_dim_padded": 64, "smem_bytes": 5 * 64 * 72 * 2}
+    f32 = cuda_attention.launch_config(128, 200, 1, 64, torch.float32)
+    assert f32 == {"design": "cuda-core", "grid": [4, 128], "threads": 256,
                    "smem_bytes": (3 * 64 * 68 + 64 * 68) * 4}
-    wide = cuda_attention.launch_config(2, 10, 1, 256, torch.float32)
-    assert wide["smem_bytes"] <= cuda_attention.SMEM_LIMIT
+    for dtype in (torch.float32, torch.bfloat16):
+        wide = cuda_attention.launch_config(2, 10, 1, 256, dtype)
+        assert wide["smem_bytes"] <= cuda_attention.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("Dh,kD", [(8, 16), (16, 16), (24, 32), (40, 64), (64, 64),
+                                   (72, 128), (136, 256), (256, 256)])
+def test_attention_bf16_pads_the_head_dim_to_mma_depth(Dh, kD):
+    """mma's depth is 16: every bf16 Dh the kernel took before (a multiple of
+    8 up to 256) is padded with zero columns in shared memory to a power of
+    two from 16."""
+    cfg = cuda_attention.launch_config(3, 65, 2, Dh, torch.bfloat16)
+    assert cfg["head_dim_padded"] == cuda_attention.head_dim_padded(Dh) == kD
+    assert cfg["grid"] == [2, 6] and cfg["smem_bytes"] == 5 * 64 * (kD + 8) * 2
+    assert cfg["smem_bytes"] <= cuda_attention.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("shape,dtype,match", [

@@ -414,15 +414,17 @@ def test_session_train_step_multi_equals_single_steps_exactly():
 
 
 def test_gru_launch_config_takes_the_rsc15_width():
-    """D=H=100 (rsc15_gru4rec): in bf16 a row of x is 200 bytes, staged in
-    8-byte pieces; W_h and W_x (60 KB each) sit in shared memory, one block
-    an SM. The reset variant's reverse recurrence runs in f32 with W_h^T
-    (120 KB) in shared memory."""
+    """D=H=100 (rsc15_gru4rec): in bf16 a row of x is 200 bytes, copied by
+    the input projection in 8-byte pieces with zero-fill past D; H pads to
+    112 (7 warps, zero weights and biases past 100), 8 rows a block: 32
+    blocks at B=256. The reset variant's reverse recurrence runs in f32 with
+    W_h^T (120 KB) in shared memory."""
     assert cuda_gru.launch_config(256, 50, 100, 100, torch.bfloat16) == {
-        "grid": 256, "threads": 100, "rows_per_block": 1, "wx_in_smem": 1,
-        "smem_bytes": 2 * 100 * 4 + 2 * 100 * 2 + 2 * 100 * 300 * 2}
+        "design": "mma.sync", "grid": 32, "threads": 224, "rows_per_block": 8,
+        "hidden_padded": 112, "wh_in_regs": 1, "smem_bytes": 2 * 112 * 8 * 2,
+        "xproj_grid": [200, 5], "xproj_threads": 128}
     f32 = cuda_gru.launch_config(256, 50, 100, 100, torch.float32)
-    assert (f32["rows_per_block"], f32["wx_in_smem"]) == (2, 0)
+    assert (f32["design"], f32["rows_per_block"], f32["wx_in_smem"]) == ("cuda-core", 2, 0)
     assert cuda_gru.backward_launch_config(256, 50, 100, torch.float32) == {
         "grid": 256, "threads": 100, "rows_per_block": 1, "w_in_smem": 1,
         "smem_bytes": 2 * 300 * 4 + 300 * 100 * 4}
