@@ -21,7 +21,9 @@ source, all at once). Each phase prints one JSON line:
               hundred Zipf-distributed histories, batch 64, k=10: once with
               the kernels (use_pallas=true; launch counters reset just
               before and read just after) and once with the plain versions,
-              which must agree;
+              which must agree; a batch's encode, scores and top-k step by
+              CUDA events, and its encode on the device alone (behind a
+              ~30 ms sleep: `encode_device_ms`);
   e. train_kernels  the training path's kernels against their plain
               versions at its shapes (B=128, T=200, D=H=128, S=256, the
               [3418, 128] table): the gather's scatter-add backward with
@@ -44,9 +46,11 @@ source, all at once). Each phase prints one JSON line:
               F.scaled_dot_product_attention, its library yardstick, and
               timed beside it at serving's [64, 200, 1, 64]); the
               LSTM forward at B=128, T=200, D=H=128 (also against
-              torch.nn.LSTM); the LSTM reverse recurrence (dz, dh0, dc0) and
-              the weight gradients through autograd; with kernel, plain,
-              library and bound times;
+              torch.nn.LSTM, and timed beside nn.LSTM in f32, also at
+              serving's B=64), its bf16 input projection; the LSTM reverse
+              recurrence (dz, dh0, dc0) and the weight gradients through
+              autograd; with kernel, plain, library and bound times and each
+              kernel's design;
   h. serve    phase d on configs/ml1m_sasrec.json and configs/ml1m_lstm.json,
               with the same histories;
   i. train    phase f on both, three groups through the kernels and one
@@ -75,8 +79,8 @@ source, all at once). Each phase prints one JSON line:
               (synthetic ML-1M-shaped sessions of 5..200 items), 2 groups;
   l. the kernels line: {"kernels": [{name, route, source, replaces,
               launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
-              library_ms, design}, ...]} for all thirteen kernels (the bf16
-              GRU forward is two: its input projection and the scan),
+              library_ms, design}, ...]} for all fourteen kernels (each bf16
+              RNN forward is two: its input projection and the scan),
               `launches` counted on a training path (GRU4Rec's for the
               gather, scatter-add and head, the session paths' for the reset
               variants; the counts of every path beside it).
@@ -186,9 +190,10 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, reps: int = REPS):
+def time_ms(fn, reps: int = REPS, sleep_cycles: int = 2_000_000):
     """Median, min and max ms of `fn` over `reps` runs, by CUDA events, each
-    run behind a ~1 ms device sleep so its launches queue up first."""
+    run behind a device sleep (~1 ms by default) so its launches queue up
+    first."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -196,7 +201,7 @@ def time_ms(fn, reps: int = REPS):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         fn()
         end.record()
@@ -382,35 +387,37 @@ def phase_kernels(rng: np.random.Generator, dev) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         out[f"gru_scan_{_dname(dtype)}_B{TRAIN_B}"] = _gru_forward_check(
             dev, x32_t, weights, torch.zeros(TRAIN_B, H, device=dev), dtype)
-    out["gru_xproj"] = _xproj_check(x32, weights[0], weights[2])
+    out["gru_xproj"] = _xproj_check(k_gru, k_gru.gru_input_projection, x32, weights[0],
+                                    weights[2])
     emit({"phase": "kernels", **out})
     return out
 
 
-def _xproj_check(x32, w_x, b_x) -> dict:
-    """The bf16 GRU forward's input projection kernel (x @ W_x + b_x into
-    f32, all steps at once) against its plain version; the library
-    yardstick is one f32 torch.addmm on the same values (TF32 off)."""
+def _xproj_check(module, project, x32, w_x, b_x) -> dict:
+    """A bf16 forward's input projection kernel (`project`: x @ W_x + b_x
+    into f32, all steps at once; the GRU's and the LSTM's launch the same
+    GEMM) against its module's plain version; the library yardstick is one
+    f32 torch.addmm on the same values (TF32 off)."""
     B, T, D = x32.shape
-    N3 = w_x.shape[1]
+    N = w_x.shape[1]
+    name = f"{project.__name__} B={B}"
     x, wx = x32.bfloat16(), w_x.bfloat16()
-    got = k_gru.gru_input_projection(x, wx, b_x)
+    got = project(x, wx, b_x)
     torch.cuda.synchronize()
-    want = k_gru.plain_input_projection(x, wx, b_x)
+    want = module.plain_input_projection(x, wx, b_x)
     err = max_err(got, want)
-    check(got.shape == (B, T, N3) and got.dtype == torch.float32,
-          f"gru input projection: {tuple(got.shape)} {got.dtype}")
-    check(err <= XPROJ_TOL, f"gru input projection: kernel vs plain max abs err {err} > "
-                            f"{XPROJ_TOL}")
+    check(got.shape == (B, T, N) and got.dtype == torch.float32,
+          f"{name}: {tuple(got.shape)} {got.dtype}")
+    check(err <= XPROJ_TOL, f"{name}: kernel vs plain max abs err {err} > {XPROJ_TOL}")
     xf, wf = x.float().reshape(B * T, D), wx.float()
-    p_bytes = (B * T * D + D * N3) * 2 + N3 * 4 + B * T * N3 * 4
-    p_flops = 2 * B * T * D * N3
+    p_bytes = (B * T * D + D * N) * 2 + N * 4 + B * T * N * 4
+    p_flops = 2 * B * T * D * N
     p_bound, p_by = bound(p_bytes, p_flops, torch.bfloat16)
     return {
-        "shape": {"M": B * T, "D": D, "N": N3, "dtype": "bfloat16", "out": "float32"},
+        "shape": {"M": B * T, "D": D, "N": N, "dtype": "bfloat16", "out": "float32"},
         "design": "mma.sync", "max_abs_err": err, "tolerance": XPROJ_TOL,
-        "kernel_ms": time_ms(lambda: k_gru.gru_input_projection(x, wx, b_x)),
-        "plain_ms": time_ms(lambda: k_gru.plain_input_projection(x, wx, b_x)),
+        "kernel_ms": time_ms(lambda: project(x, wx, b_x)),
+        "plain_ms": time_ms(lambda: module.plain_input_projection(x, wx, b_x)),
         "library_ms": time_ms(lambda: torch.addmm(b_x, xf, wf)),
         "library": "torch.addmm f32 on the bf16 values (TF32 off)",
         "bound_ms": p_bound, "bound_by": p_by, "bytes": int(p_bytes), "flops": int(p_flops),
@@ -449,9 +456,9 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
     a sampled loss (inputs, positives, negatives) or one (full softmax),
     each with its scatter-add, and the head kernel only for the sampled
     softmax (BPR-max and the other ranking losses are plain tensor code);
-    the tower's kernel once per layer or block (the bf16 GRU forward with its
-    input projection), and its backward per layer, the reset variants on a
-    session-parallel path."""
+    the tower's kernel once per layer or block (a bf16 GRU or LSTM forward
+    with its input projection), and its backward per layer, the reset
+    variants on a session-parallel path."""
     m = cfg.model
     want = dict.fromkeys(COUNTERS, 0)
     if m.arch == "sasrec":
@@ -459,8 +466,8 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
     else:
         variant = "_reset" if training and cfg.data.session_parallel else ""
         want[f"{m.cell_type}_scan{variant}"] = m.num_layers
-        if m.cell_type == "gru" and m.compute_dtype == "bfloat16":
-            want["gru_xproj"] = m.num_layers  # the bf16 forward's input projection
+        if m.compute_dtype == "bfloat16":  # the bf16 forward's input projection
+            want[f"{m.cell_type}_xproj"] = m.num_layers
         if training:
             want[f"{m.cell_type}_backward{variant}"] = m.num_layers
     if training:
@@ -541,6 +548,11 @@ def phase_serve(dev, seed: int, path: str, requests: list) -> dict:
     with torch.inference_mode():
         step = {
             "encode_ms": time_ms(lambda: m.encode(inputs, mask))["median"],
+            # Behind a ~30 ms sleep, so that the events bracket the device's
+            # work even where the host takes longer than ~1 ms to queue the
+            # launches (SASRec's encode): the device alone.
+            "encode_device_ms": time_ms(lambda: m.encode(inputs, mask),
+                                        sleep_cycles=50_000_000)["median"],
             "scores_ms": time_ms(lambda: m.scores(inputs, mask))["median"],
             "topk_step_ms": time_ms(
                 lambda: infer.topk_step(m, inputs, mask, users, fetch_k))["median"],
@@ -881,7 +893,9 @@ def _lstm_checks(rng, dev, x32, reset=None) -> dict:
     """The LSTM forward and its reverse recurrence against their plain
     versions, bf16 and f32, fed the embeddings of Zipf ids, and the whole
     backward through autograd. Without `reset` (h0 = c0 = 0), also against
-    torch.nn.LSTM and its cuDNN times. With a [B, T] `reset` plane (and a
+    torch.nn.LSTM and its cuDNN times, the bf16 forward also beside nn.LSTM
+    in f32 and at serving's batch (the first B rows, the batch's bits), and
+    its input projection. With a [B, T] `reset` plane (and a
     random h0, c0), the reset variants: also bit-exact against the no-reset
     kernels on an all-zero plane (all-ones keep), blind to h0 and c0 with a
     reset at t=0, and dh0 = dc0 = 0 then."""
@@ -909,10 +923,15 @@ def _lstm_checks(rng, dev, x32, reset=None) -> dict:
         check(err <= tol and c_err <= tol,
               f"{name}: kernel vs plain max abs err {err} (ys), {c_err} (c_last) > {tol}")
         es = x.element_size()
-        f_bytes = (Bl * T * D + 2 * Bl * H + (D + H) * 4 * H + Bl * T * H) * es \
-            + 4 * H * 4 + Bl * H * 4
+
+        def f_bytes_of(rows):  # x, h0, c0, the weights, ys, b, c_T
+            return ((rows * T * D + 2 * rows * H + (D + H) * 4 * H + rows * T * H) * es
+                    + 4 * H * 4 + rows * H * 4)
+
+        f_bytes = f_bytes_of(Bl)
+        launch = k_lstm.launch_config(Bl, T, D, H, dtype)
         rec = {"shape": {"B": Bl, "T": T, "D": D, "H": H, "dtype": _dname(dtype)},
-               "launch": k_lstm.launch_config(Bl, T, D, H, dtype),
+               "launch": launch, "design": launch["design"],
                "max_abs_err": max(err, c_err), "tolerance": tol}
         if reset is None:
             lib = _nn_lstm(w_x, w_h, b, dtype, dev)
@@ -925,6 +944,24 @@ def _lstm_checks(rng, dev, x32, reset=None) -> dict:
                   f"{name}: kernel vs torch.nn.LSTM max abs err {lib_err} > {lib_tol}")
             rec.update(max_abs_err_vs_nn_lstm=lib_err, tolerance_vs_nn_lstm=lib_tol,
                        library_ms=lib_ms)
+            if dtype == torch.bfloat16:
+                # The aim's yardstick, nn.LSTM in f32 on the same values, and
+                # serving's batch (B=64): the first half of the same inputs.
+                lib32 = _nn_lstm(w_x, w_h, b, torch.float32, dev)
+                xf, hf, cf = x.float(), h0.float()[None], c0.float()[None]
+                x64, h64, c64 = x[:B], h0[:B], c0[:B]
+                check(torch.equal(k_lstm.lstm_scan(x64, h64, c64, w_x, w_h, b)[0], ys[:B]),
+                      f"{name}: the first {B} rows alone differ from the batch's")
+                with torch.no_grad():
+                    rec["nn_lstm_f32_ms"] = time_ms(lambda: lib32(xf, (hf, cf)))
+                    b64_lib = time_ms(lambda: lib32(xf[:B], (hf[:, :B], cf[:, :B])))
+                b64_bound = bound(f_bytes_of(B), 2 * B * T * (D + H) * 4 * H, dtype)
+                rec[f"B{B}"] = {
+                    "same_bits_as_the_batch": True,
+                    "kernel_ms": time_ms(lambda: k_lstm.lstm_scan(x64, h64, c64, w_x, w_h, b)),
+                    "nn_lstm_f32_ms": b64_lib,
+                    "bound_ms": b64_bound[0], "bound_by": b64_bound[1]}
+                xproj = _xproj_check(k_lstm, k_lstm.lstm_input_projection, x32, w_x, b)
         else:
             f_bytes += Bl * T * 4  # the keep plane
             zero = k_lstm.lstm_scan(*args, reset_mask=torch.zeros_like(reset))
@@ -998,11 +1035,16 @@ def _lstm_checks(rng, dev, x32, reset=None) -> dict:
             check(e <= w_tol, f"{name}: {k} through autograd relative err {e} > {w_tol}")
         b_bytes = (6 * Bl * T * H * 4 + Bl * T * H * es + 4 * H * H * es + Bl * H * 4
                    + Bl * T * 4 * H * 4 + 2 * Bl * H * 4 + (0 if keep is None else Bl * T * 4))
-        b_flops = 2 * Bl * T * 4 * H * H  # dz is f32: the f32 rate
-        b_bound, b_by = bound(b_bytes, b_flops, torch.float32)
+        b_flops = 2 * Bl * T * 4 * H * H
+        b_launch = k_lstm.backward_launch_config(Bl, T, H, dtype)
+        if b_launch["design"] == "mma.sync":
+            # dz goes to the tensor cores as bf16 terms: their products.
+            b_bound, b_by = bound(b_bytes, b_launch["dz_terms"] * b_flops, torch.bfloat16)
+        else:
+            b_bound, b_by = bound(b_bytes, b_flops, torch.float32)
         bwd[_dname(dtype)] = {
             "shape": {"B": Bl, "T": T, "H": H, "dtype": _dname(dtype)},
-            "launch": k_lstm.backward_launch_config(Bl, T, H, dtype),
+            "launch": b_launch, "design": b_launch["design"],
             "rel_err": errs, "tolerance": LSTM_BWD_TOL,
             "autograd_rel_err": w_errs, "autograd_tolerance": w_tol,
             "max_abs_err": max(max_err(u, v) for u, v in zip((dz, dh0, dc0), want)),
@@ -1017,6 +1059,7 @@ def _lstm_checks(rng, dev, x32, reset=None) -> dict:
                                       library_ms=None, library=NO_RESET_LIBRARY)
     if reset is not None:
         return {"lstm_scan": fwd, "lstm_backward": bwd}
+    out = {"lstm_scan": fwd, "lstm_backward": bwd, "lstm_xproj": xproj}
     # Library yardstick: cuDNN's LSTM backward in f32 (TF32 off), timed as
     # (forward + backward) - forward. The port never calls it.
     lib = _nn_lstm(w_x, w_h, b, torch.float32, dev)
@@ -1031,7 +1074,7 @@ def _lstm_checks(rng, dev, x32, reset=None) -> dict:
     for rec in bwd.values():
         rec["library_ms"] = {"median": fb["median"] - fw["median"], "fwd_bwd": fb, "fwd": fw,
                              "what": "torch.nn.LSTM f32 (cuDNN), backward = fwd+bwd - fwd"}
-    return {"lstm_scan": fwd, "lstm_backward": bwd}
+    return out
 
 
 def phase_tower_kernels(rng: np.random.Generator, dev) -> dict:
@@ -1096,6 +1139,7 @@ COUNTERS = {
     "softmax_head": (k_head.sampled_softmax_nll, "launches"),
     "causal_attention": (k_attn.causal_attention, "launches"),
     "lstm_scan": (k_lstm.lstm_scan, "launches"),
+    "lstm_xproj": (k_lstm.lstm_input_projection, "launches"),
     "lstm_backward": (k_lstm.lstm_backward, "launches"),
     "gru_scan_reset": (k_gru.gru_scan, "reset_launches"),
     "gru_backward_reset": (k_gru.gru_backward, "reset_launches"),
@@ -1432,7 +1476,7 @@ def main(argv=None) -> int:
          "float32", "gru4rec"),
         ("gru_scan", "gru.cu", "gru.py:177", kern["gru_scan_bfloat16"], "bfloat16", "gru4rec"),
         # The part of _gru_step_body's step that does not depend on h.
-        ("gru_xproj", "gru.cu", "gru.py:110", kern["gru_xproj"], "bfloat16", "gru4rec"),
+        ("gru_xproj", "rnn.cuh", "gru.py:110", kern["gru_xproj"], "bfloat16", "gru4rec"),
         ("gru_backward", "gru.cu", "gru.py:190", tkern["gru_backward"]["bfloat16"],
          "bfloat16", "gru4rec"),
         ("softmax_head", "softmax_head.cu", "softmax_head.py:115",
@@ -1441,6 +1485,8 @@ def main(argv=None) -> int:
          towers["causal_attention"]["bfloat16"], "bfloat16", "sasrec"),
         ("lstm_scan", "lstm.cu", "lstm.py:153", towers["lstm_scan"]["bfloat16"], "bfloat16",
          "lstm"),
+        # The part of _lstm_step_body's step that does not depend on h.
+        ("lstm_xproj", "rnn.cuh", "lstm.py:89", towers["lstm_xproj"], "bfloat16", "lstm"),
         ("lstm_backward", "lstm.cu", "lstm.py:209", towers["lstm_backward"]["bfloat16"],
          "bfloat16", "lstm"),
         ("gru_scan_reset", "gru.cu", "gru.py:135", skern["gru_scan_reset"]["rsc15"]["bfloat16"],

@@ -20,15 +20,19 @@ A turn times, by CUDA events (chip_smoke.time_ms, median of 21 runs):
     F.scaled_dot_product_attention on the same inputs; the GRU forward bf16
     at B=64 and B=128, T=200, D=H=128 (and f32 at B=64), beside
     torch.nn.GRU in f32 (cuDNN, TF32 off); its reset variant bf16 at B=256,
-    T=50, D=H=100; the LSTM forward bf16 and the GRU reverse recurrence bf16
-    at B=128, T=200, D=H=128 (kernels this change must leave alone);
-  - the main paths, through chip_smoke's phases: GRU4Rec and SASRec serving
-    (encode ms and batch ms), GRU4Rec and SASRec training (device forward
-    ms of a step), and rsc15_gru4rec session training (device step ms);
-    and each serving model's `encode` of one batch of 64 behind a ~30 ms
-    device sleep (`encode_device_ms`), so that the events bracket the
-    device's work even where the host takes longer than chip_smoke's ~1 ms
-    sleep to queue a batch's launches (SASRec's encode).
+    T=50, D=H=100; the GRU reverse recurrence bf16 at B=128, T=200,
+    D=H=128; the LSTM forward bf16 at B=64 and B=128 (and f32 at B=128),
+    its reset variant bf16 at B=128, beside torch.nn.LSTM in f32 (cuDNN,
+    TF32 off) forward and backward (fwd+bwd - fwd) on the same inputs; the
+    LSTM reverse recurrence bf16 at B=128, without and with a keep plane;
+  - the main paths, through chip_smoke's phases: GRU4Rec, SASRec and LSTM
+    serving (encode ms and batch ms), GRU4Rec, SASRec and LSTM training
+    (device forward and step ms, and the wall step ms), and rsc15_gru4rec
+    and ml1m_lstm session training (the same); and each serving model's
+    `encode` of one batch of 64 behind a ~30 ms device sleep
+    (`encode_device_ms`), so that the events bracket the device's work even
+    where the host takes longer than chip_smoke's ~1 ms sleep to queue a
+    batch's launches (SASRec's encode).
 
 The last line is one JSON object: {"device": ..., "turns": [{"label",
 "root", "kernels": {...}, "paths": {...}}, ...]}. It exits non-zero
@@ -115,9 +119,6 @@ def _worker(label: str) -> dict:
         "ms": med(lambda: k_gru.gru_scan(xb, hb, *w, reset_mask=reset))}
 
     x, h0, _ = gru_inputs(128, 200, 128)
-    w_x, w_h, b = (t.to(dev) for t in cs.lstm_weights(rng, 128, 128))
-    xb, hb = x.bfloat16(), h0.bfloat16()
-    kern["lstm_bfloat16_B128"] = {"ms": med(lambda: k_lstm.lstm_scan(xb, hb, hb, w_x, w_h, b))}
     H = 128
     planes = [torch.from_numpy(rng.uniform(0.05, 0.95, size=(128, 200, H)).astype(np.float32))
               .to(dev) for _ in range(4)]
@@ -127,6 +128,52 @@ def _worker(label: str) -> dict:
     wh = wh.to(dev).bfloat16()
     kern["gru_backward_bfloat16_B128"] = {
         "ms": med(lambda: k_gru.gru_backward(*planes, h_in, g, wh))}
+
+    # The LSTM: forward scans beside nn.LSTM f32 on the same values, then the
+    # reverse recurrence on gate planes of the forward's ranges.
+    x, h0, _ = gru_inputs(128, 200, 128)
+    c0 = state(128, H)
+    w_x, w_h, b = (t.to(dev) for t in cs.lstm_weights(rng, 128, H))
+    lib = torch.nn.LSTM(128, H, batch_first=True, device=dev)
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(w_x.T)
+        lib.weight_hh_l0.copy_(w_h.T)
+        lib.bias_ih_l0.copy_(b)
+        lib.bias_hh_l0.zero_()
+    reset = torch.from_numpy((rng.random((128, 200)) < 1 / RESET_EVERY)
+                             .astype(np.float32)).to(dev)
+    for Bl, dtype in ((128, torch.bfloat16), (64, torch.bfloat16), (128, torch.float32)):
+        xd, hd, cd = x[:Bl].to(dtype), h0[:Bl].to(dtype), c0[:Bl].to(dtype)
+        rec = {"ms": med(lambda: k_lstm.lstm_scan(xd, hd, cd, w_x, w_h, b))}
+        xf, state0 = x[:Bl], (h0[:Bl][None], c0[:Bl][None])
+        with torch.no_grad():
+            rec["nn_lstm_f32_ms"] = med(lambda: lib(xf, state0))
+        kern[f"lstm_{dname(dtype)}_B{Bl}"] = rec
+    xb, hb, cb = x.bfloat16(), h0.bfloat16(), c0.bfloat16()
+    kern["lstm_reset_bfloat16_B128"] = {
+        "ms": med(lambda: k_lstm.lstm_scan(xb, hb, cb, w_x, w_h, b, reset_mask=reset))}
+    xg = x.detach().clone().requires_grad_(True)
+    g32 = (x * 0.1).detach()
+
+    def lib_fwd_bwd():
+        lib(xg, (h0[None], c0[None]))[0].backward(g32)
+
+    kern["nn_lstm_f32_backward_B128"] = {
+        "ms": med(lib_fwd_bwd) - med(lambda: lib(xg, (h0[None], c0[None]))[0]),
+        "what": "torch.nn.LSTM f32 (cuDNN), fwd+bwd - fwd"}
+    lplanes = [torch.from_numpy(rng.uniform(0.05, 0.95, size=(128, 200, H))
+                                .astype(np.float32)).to(dev) for _ in range(4)]
+    i_, f_, o_ = lplanes[:3]
+    g_, tanh_c = torch.tanh(lplanes[3] * 4 - 2), torch.tanh(x)
+    c_in = x * 2
+    g_ys = (x * 0.1).bfloat16()
+    dc_last = h0 * 0.01
+    keep = (1.0 - reset)[:, :, None]
+    whb = w_h.bfloat16()
+    for key, kp in (("lstm_backward_bfloat16_B128", None),
+                    ("lstm_backward_keep_bfloat16_B128", keep)):
+        kern[key] = {"ms": med(lambda: k_lstm.lstm_backward(
+            i_, f_, g_, o_, tanh_c, c_in, g_ys, whb, kp, dc_last))}
 
     def encode_device_ms(path: str, batch: list) -> float:
         cfg = RunConfig.load(cs.CONFIGS[path])
@@ -156,18 +203,21 @@ def _worker(label: str) -> dict:
     rng = np.random.default_rng(1)
     requests = cs.make_requests(rng, RunConfig.load(cs.CONFIGS["gru4rec"]).data.max_len)
     paths = {}
-    for path in ("gru4rec", "sasrec"):
+    for path in ("gru4rec", "sasrec", "lstm"):
         r = cs.phase_serve(dev, 0, path, requests)
         paths[f"serve_{path}"] = {"encode_ms": r["batch_breakdown"]["encode_ms"],
                                   "batch_ms": r["batch_ms_median"],
                                   "encode_device_ms": encode_device_ms(path, requests[:cs.B])}
-    for path, over in (("gru4rec", ()), ("sasrec", ("train.warmup_steps=0",))):
+    for key, path, over in (
+            ("train_gru4rec", "gru4rec", ()),
+            ("train_sasrec", "sasrec", ("train.warmup_steps=0",)),
+            ("train_lstm", "lstm", ()),
+            ("train_rsc15_gru4rec_session", "rsc15_gru4rec", ()),
+            ("train_lstm_session", "lstm", ("data.session_parallel=true",))):
         r = cs.phase_train(rng, dev, 0, path, groups=2, overrides=over)
-        paths[f"train_{path}"] = {"device_forward_ms": r["device_step_ms"]["forward"],
-                                  "device_step_ms": r["device_step_ms"]["total"]}
-    r = cs.phase_train(rng, dev, 0, "rsc15_gru4rec", groups=2)
-    paths["train_rsc15_gru4rec_session"] = {"device_forward_ms": r["device_step_ms"]["forward"],
-                                            "device_step_ms": r["device_step_ms"]["total"]}
+        paths[key] = {"device_forward_ms": r["device_step_ms"]["forward"],
+                      "device_step_ms": r["device_step_ms"]["total"],
+                      "step_ms": r["step_ms_median"]}
     return {"label": label, "root": str(Path.cwd()), "kernels": kern, "paths": paths}
 
 

@@ -31,13 +31,11 @@
 // products and its gate math, sets it.
 //
 // bf16 (every shipped config): two kernels.
-// 1. gru_xproj_kernel, the input projection off the serial chain: it does
-//    not depend on h, so one tensor-core GEMM over all B*T rows computes
-//    xp = x @ W_x + b_x into an f32 [B, T, 3H] plane before the scan (it
-//    stays in L2: 20 MB at B=64, T=200, H=128). 64 x 64 output tiles, four
-//    warps of 16 rows, mma.sync.m16n8k16 from ldmatrix fragments of x and
-//    (transposed) W_x, staged by cp.async in 8-byte pieces with zero-fill
-//    past D and 3H (D = 100 in bf16 is a 200-byte, 8-byte-aligned row).
+// 1. rnn::xproj_kernel (csrc/rnn.cuh, shared with lstm.cu), the input
+//    projection off the serial chain: it does not depend on h, so one
+//    tensor-core GEMM over all B*T rows computes xp = x @ W_x + b_x into an
+//    f32 [B, T, 3H] plane before the scan (it stays in L2: 20 MB at B=64,
+//    T=200, H=128).
 // 2. gru_forward_mma_kernel, the recurrence, transposed: hp^T = W_h^T h^T,
 //    so the hidden units are mma.sync.m16n8k16's M and the batch rows its
 //    N. A block owns 8 batch rows (one n8 tile) for the whole scan. H is
@@ -103,6 +101,7 @@
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "rnn.cuh"
 
 namespace {
 
@@ -325,71 +324,6 @@ int launch_t(int rows_per_block, const void* x, const void* h0, const void* w_x,
 // bf16 forward: the input projection, then the recurrence on tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kProjTile = 64;  // rows and columns of an xp tile, and its k chunk
-constexpr int kProjLd = kProjTile + 8;  // bf16 elements a shared row
-constexpr int kProjThreads = 128;       // 4 warps x 16 rows
-
-// xp [M, N3] f32 = x [M, D] @ w_x [D, N3] + b_x, all bf16 in; D % 4 == 0 and
-// N3 % 4 == 0, so 8-byte pieces are whole in or whole out of range.
-__global__ void __launch_bounds__(kProjThreads)
-gru_xproj_kernel(const __nv_bfloat16* __restrict__ x,
-                 const __nv_bfloat16* __restrict__ w_x,
-                 const float* __restrict__ b_x, float* __restrict__ xp, int M,
-                 int D, int N3) {
-  __shared__ __align__(16) __nv_bfloat16 xs[kProjTile * kProjLd];  // [row][k]
-  __shared__ __align__(16) __nv_bfloat16 ws[kProjTile * kProjLd];  // [k][col]
-  const int r0 = blockIdx.x * kProjTile, c0 = blockIdx.y * kProjTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gr = lane >> 2, tq = lane & 3;
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-
-  for (int k0 = 0; k0 < D; k0 += kProjTile) {
-    for (int c = threadIdx.x; c < kProjTile * 16; c += kProjThreads) {
-      const int r = c >> 4, j = (c & 15) * 4;
-      const bool xin = r0 + r < M && k0 + j < D;
-      mma::cp_async8_zfill(xs + r * kProjLd + j,
-                           xin ? x + static_cast<size_t>(r0 + r) * D + k0 + j : x, xin ? 8 : 0);
-      const bool win = k0 + r < D && c0 + j < N3;
-      mma::cp_async8_zfill(ws + r * kProjLd + j,
-                           win ? w_x + static_cast<size_t>(k0 + r) * N3 + c0 + j : w_x,
-                           win ? 8 : 0);
-    }
-    mma::cp_async_commit();
-    mma::cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int st = 0; st < kProjTile / 16; ++st) {
-      uint32_t a[4];
-      mma::ldmatrix_x4(a, xs + (warp * 16 + (lane & 15)) * kProjLd + st * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b[4];
-        mma::ldmatrix_x4_trans(b, ws + (st * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kProjLd +
-                                      np * 16 + (lane >> 4) * 8);
-        mma::bf16_16x8x16(acc[2 * np], a, b[0], b[1]);
-        mma::bf16_16x8x16(acc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // the tiles are refilled next chunk
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = c0 + 8 * j + 2 * tq;
-    if (col >= N3) continue;
-    const float bx0 = b_x[col], bx1 = b_x[col + 1];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r0 + warp * 16 + gr + 8 * h;
-      if (row < M) {
-        *reinterpret_cast<float2*>(xp + static_cast<size_t>(row) * N3 + col) =
-            make_float2(acc[j][2 * h] + bx0, acc[j][2 * h + 1] + bx1);
-      }
-    }
-  }
-}
-
 // W_h[k][gate H + unit] and W_h[k + 1][...] as one bf16 pair (the low half
 // the lower k): a fragment register of W_h^T; zero past H (k even,
 // H % 4 == 0).
@@ -411,15 +345,6 @@ __device__ __forceinline__ void wh_frag(uint32_t a[4], const __nv_bfloat16* w_h,
   a[1] = wh_pair(w_h, H, k, gate, u + gr + 8);
   a[2] = wh_pair(w_h, H, k + 8, gate, u + gr);
   a[3] = wh_pair(w_h, H, k + 8, gate, u + gr + 8);
-}
-
-// The gate nonlinearities in f32 from the hardware exp2 and a fast divide
-// (a few ulp; h is rounded to bf16 after them).
-__device__ __forceinline__ float fast_sigmoid(float v) {
-  return __fdividef(1.0f, 1.0f + __expf(-v));
-}
-__device__ __forceinline__ float fast_tanh(float v) {
-  return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * v));
 }
 
 // The recurrence, transposed: hp^T = W_h^T h_in^T, so the hidden units are
@@ -549,9 +474,9 @@ gru_forward_mma_kernel(const float* __restrict__ xp,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int p = 2 * m + e;
-        const float rg = fast_sigmoid(xc[0][p] + (acc[0][p] + bh[0][m]));
-        const float zg = fast_sigmoid(xc[1][p] + (acc[1][p] + bh[1][m]));
-        const float ng = fast_tanh(xc[2][p] + rg * (acc[2][p] + bh[2][m]));
+        const float rg = rnn::fast_sigmoid(xc[0][p] + (acc[0][p] + bh[0][m]));
+        const float zg = rnn::fast_sigmoid(xc[1][p] + (acc[1][p] + bh[1][m]));
+        const float ng = rnn::fast_tanh(xc[2][p] + rg * (acc[2][p] + bh[2][m]));
         const __nv_bfloat16 hq = __float2bfloat16((1.0f - zg) * ng + zg * hreg[p]);
         if (row_ok[e] && unit_ok[m]) ys[(row_base[e] + t) * H + unit] = hq;
         // keep[t+1] scales the h' this step hands to the next one.
@@ -771,14 +696,7 @@ int seqrec_gru_forward(const void* x, const void* h0, const void* w_x,
 // D % 4 == 0 and N3 % 4 == 0.
 int seqrec_gru_xproj(const void* x, const void* w_x, const void* b_x, void* xp,
                      int M, int D, int N3, void* stream) {
-  if (M <= 0 || D <= 0 || N3 <= 0 || D % 4 != 0 || N3 % 4 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((M + kProjTile - 1) / kProjTile, (N3 + kProjTile - 1) / kProjTile);
-  gru_xproj_kernel<<<grid, kProjThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w_x),
-      static_cast<const float*>(b_x), static_cast<float*>(xp), M, D, N3);
-  return static_cast<int>(cudaGetLastError());
+  return rnn::launch_xproj(x, w_x, b_x, xp, M, D, N3, static_cast<cudaStream_t>(stream));
 }
 
 // The bf16 recurrence on tensor cores. xp [B, T, 3H] float (the input

@@ -1,101 +1,134 @@
 // LSTM scan forward and its reverse recurrence for Hopper (sm_90a).
 //
-// Forward (seqrec_lstm_forward) replaces the TPU kernel
-// seqrec_tpu/ops/pallas/lstm.py (_lstm_step_body via _lstm_forward_pallas,
-// both variants: _lstm_step_kernel and, with a keep plane,
-// _lstm_step_kernel_reset): a sequential grid over T with h, an f32 c and
-// both weight matrices held in VMEM, the input projection computed inside
-// each step. Math per step (gate blocks i|f|g|o, as
-// ops/reference.py::lstm_scan):
+// Forward replaces the TPU kernel seqrec_tpu/ops/pallas/lstm.py
+// (_lstm_step_body via _lstm_forward_pallas, both variants:
+// _lstm_step_kernel and, with a keep plane, _lstm_step_kernel_reset): a
+// sequential grid over T with h, an f32 c and both weight matrices held in
+// VMEM, the input projection computed inside each step. Math per step (gate
+// blocks i|f|g|o, as ops/reference.py::lstm_scan):
 //   h, c *= keep[t]              (session-parallel variant; keep = 1 - reset)
 //   z = x[t] @ W_x + h @ W_h + b                       (f32 accumulation)
 //   i = sigmoid(z_i), f = sigmoid(z_f), g = tanh(z_g), o = sigmoid(z_o)
 //   c' = f c + i g  (f32, never rounded),  h' = o tanh(c')
-//   h' is rounded to the working dtype T (float or bf16) every step, is
+//   h' is rounded to the working dtype (float or bf16) every step, is
 //   written to ys[:, t], and is the next step's h.
 // It also writes c_T, and, when the caller asks (training), the f32 cell
 // plane c_1..c_T, so the backward needs no serial recompute of the cells.
-// The reset variant keeps the design below: at the end of step t each thread
-// scales what it hands to step t+1 by keep[t+1], the h' it writes to the
-// next step's shared buffer and the c' in its register, after ys, the cell
-// plane and (at t = T-1) c_T took the unscaled values. keep is a [B, T] f32
-// plane, one scalar a row a step.
+// Reset variant (a template flag, so that the no-reset instantiations
+// compile as without it): at the end of step t the lane or thread that
+// hands unit i of a row to step t+1 scales it by keep[t+1], the h' it
+// writes to the next step's shared buffer and the c' in its register,
+// after ys, the cell plane and (at t = T-1) c_T took the unscaled values.
+// keep is a [B, T] f32 plane, one scalar a row a step, read a step ahead.
 //
-// What bounds it: the 200-step serial chain, as the GRU's (csrc/gru.cu). At
-// the training shape (B=128, T=200, D=H=128) the scan reads and writes
-// 13 MB and does 6.7 GFLOP, microseconds of the card's rates, but each
-// step's [rows, 256] x [256, 512] product waits on the one before.
+// What bounds it: the 200-step serial chain. At the training shape (B=128,
+// T=200, D=H=128) the scan reads and writes 13 MB and does 6.7 GFLOP,
+// microseconds of the card's rates, but each step's [rows, 128] x [128,
+// 512] product waits on the one before: the latency of one step, times T.
 //
-// Design: csrc/gru.cu's, with 4H gate columns. A block owns R batch rows
-// for the whole scan and has one thread per hidden unit i, which computes
-// the i, f, g and o columns of unit i for its R rows and keeps its c in a
-// register; only h goes through shared memory, double-buffered (one barrier
-// a step); x[t+1] is staged with cp.async while step t computes. W_h lives
-// in shared memory when it fits: in bf16 at H=128 it is 128 KB, and W_x
-// (another 128 KB) does not fit beside it, so W_x is read from global memory
-// where it stays in L2, with R=2 so that half as many blocks read it. In f32
-// W_h alone is 256 KB, over the 227 KB a block may have: then both matrices
-// are read through L2 (off the bf16 main path). Both matrices come k-packed
-// ([K/P][4H][P], P = 16 / sizeof(T), packed by the wrapper), so each thread
-// reads its four columns in 16-byte loads and keeps 16 of them in flight
-// ahead of its FMAs; 2-byte loads column by column leave the step bound by
-// L2 latency (W_x) and shared-memory instruction count (W_h).
+// bf16 (every shipped config): two kernels, csrc/gru.cu's bf16 design with
+// four gates.
+// 1. rnn::xproj_kernel (csrc/rnn.cuh), the input projection off the serial
+//    chain: xp = x @ W_x + b for all B*T rows at once, one tensor-core GEMM
+//    into an f32 [B, T, 4H] plane (52 MB at B=128, T=200, H=128: about the
+//    L2's size, so the scan's reads of it may come from HBM).
+// 2. lstm_forward_mma_kernel, the recurrence, transposed: z^T = W_h^T h^T
+//    on mma.sync.m16n8k16, the hidden units as M and a block's 8 batch rows
+//    as N. H pads to Hp = 16 ceil(H / 16) with zero weights (a padded unit
+//    keeps c = h = 0: xp and the products are 0 there, so c' = c / 2); the
+//    block has Hp / 16 warps, and warp w owns units [16w, 16w + 16) of each
+//    of the four gates, so the i, f, g and o sums of one (unit, row) land in
+//    the same register of the same lane: no exchange for the gate math, and
+//    the lane keeps its f32 cells in registers for the whole scan. W_h^T's
+//    A fragments come packed by the wrapper (forward_fragments) and stay in registers
+//    while Hp <= 128 (128 a lane at H=128); above that they are read from
+//    global memory (L1/L2) every step. h goes through a double-buffered
+//    unit-major [2][Hp][8] bf16 buffer (one barrier a step) and comes back
+//    as B fragments by ldmatrix.trans, a k-step ahead of their products.
+//    The step's xp arrives by cp.async in a ring of shared-memory stages two
+//    steps ahead of its use, and keep[t+1] a step ahead in registers: loads
+//    a step ahead in registers left the step waiting on them. Per step and
+//    block at H=128: 8 warps x 32 mma.sync and 1,024 (unit, row) cell
+//    updates from the hardware exp2 and a fast divide (a few ulp in f32; h
+//    is then rounded to bf16).
 //
-// Backward (seqrec_lstm_backward): the reverse recurrence of the analytic
-// BPTT, replacing the reverse `lax.scan` inside
-// seqrec_tpu/ops/pallas/lstm.py::_lstm_bwd_math (XLA in the TPU package;
-// its hoisted products stay outside, here as torch.matmul). Given the gate
-// planes i, f, g, o, tanh(c) and c_in (= c_{t-1}) [B, T, H] f32 and the
-// output cotangents g_ys [B, T, H], per step t = T-1 .. 0 with f32 carries
-// dh, dc (dc starts at the cotangent of c_T):
+// f32: the CUDA-core design (lstm_forward_kernel), because TF32 tensor cores
+// keep ~3 digits and the f32 contract is f32 products. A block owns R batch
+// rows for the whole scan and has one thread per hidden unit i, which
+// computes the i, f, g and o columns of unit i for its R rows and keeps its
+// c in a register; h goes through shared memory, double-buffered, and x[t+1]
+// is staged with cp.async while step t computes. W_h (256 KB at H=128) is
+// over the 227 KB a block may have, so both matrices are read through L2
+// (in shared memory when they fit, at smaller H), k-packed ([K/4][4H][4],
+// packed by the wrapper): each thread reads its four columns in 16-byte
+// loads and keeps 16 of them in flight ahead of its FMAs.
+//
+// Backward: the reverse recurrence of the analytic BPTT, replacing the
+// reverse `lax.scan` inside seqrec_tpu/ops/pallas/lstm.py::_lstm_bwd_math
+// (XLA in the TPU package; its hoisted products stay outside, here as
+// torch.matmul). Given the gate planes i, f, g, o, tanh(c) and c_in
+// (= c_{t-1}) [B, T, H] f32 and the output cotangents g_ys [B, T, H], per
+// step t = T-1 .. 0 with f32 carries dh, dc (dc starts at the cotangent of
+// c_T):
 //   dh += g_y;  dc += dh o (1 - tanh_c^2)
 //   dz = [dc g i(1-i) | dc c_in f(1-f) | dc i (1-g^2) | dh tanh_c o(1-o)]
 //   d_xp[t] = dz (written, f32);  dh = dz @ W_h^T;  dc = dc f
-// What bounds it: the serial chain again; the bytes (six f32 planes, g_ys
-// and d_xp: ~137 MB at B=128, T=200, H=128 in bf16) are ~41 us of the
-// card's rate. Design: the forward's, mirrored. A thread per hidden unit
-// keeps its row's dh and dc in registers; only dz (4H floats a row) goes
-// through a double-buffered shared array, one barrier a step; W_h^T [4H, H]
-// sits in shared memory when it fits (128 KB in bf16 at H=128) and is read
-// through L2 otherwise (f32), laid out so a warp's reads are consecutive.
-// The next step's plane values are loaded while the current step computes.
 // Reset variant (the keep path of _lstm_bwd_math, lstm.py:265-269): dh_prev
 // and dc_prev *= keep[t], read with the step's planes; c_in arrives already
 // scaled (reference.lstm_bwd_hoist).
+// What bounds it: the serial chain again; the bytes (six f32 planes, g_ys
+// and d_xp: ~137 MB at B=128, T=200, H=128 in bf16) are ~41 us of the
+// card's rate, more than its operations take.
+//
+// bf16 (lstm_backward_mma_kernel): the forward's design, mirrored:
+// dh_prev^T = W_h dz^T on mma.sync, units as M, 8 rows as N, K = 4 Hp (the
+// gate columns, each gate padded to Hp = 32 ceil(H / 32)). W_h's A
+// fragments are pairs of adjacent elements of a W_h row, packed by the
+// wrapper, in registers up to Hp = 128 (128 registers a lane). A lane
+// computes the four dz values of each of its own (unit, row) pairs, writes
+// them to d_xp and into a k-major [4 Hp][8] dz^T buffer in shared memory,
+// and keeps dh and dc in f32 registers. The contract is an f32 dz times
+// bf16-valued weights summed in f32 (the reference's dz is f32), and one
+// bf16 product would round dz to 8 bits every step, which compounds over T.
+// So dz is split, hi = bf16(dz) and lo = bf16(dz - hi), and the two
+// products share the A fragments (one ldmatrix.x4.trans brings both B
+// fragments): W_h is exact in bf16, so only dz's tail below 2^-17 of it is
+// lost. Every warp reading all of dz^T for its products made shared memory
+// the limit, so the warps split K in pairs: warp 2j + h computes tiles 2j
+// and 2j + 1 over half h of K, and the pair exchanges partial sums through
+// shared memory (a second barrier a step). The step's gate planes and g_ys
+// arrive by cp.async in a ring of shared-memory stages two steps ahead of
+// their use: one step ahead in registers left the step waiting on HBM.
+
+// f32 (lstm_backward_kernel): one thread per hidden unit keeps its row's dh
+// and dc in registers; only dz (4H floats a row) goes through a
+// double-buffered shared array; W_h^T [4H, H] sits in shared memory when it
+// fits and is read through L2 otherwise (256 KB at H=128), laid out so a
+// warp's reads are consecutive. The next step's plane values are loaded
+// while the current step computes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma.cuh"
+#include "rnn.cuh"
 
 namespace {
 
 constexpr int kMaxHidden = 256;  // one thread per hidden unit
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to()
-}
 
 // Four consecutive values from shared memory, as floats.
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  v[0] = __uint_as_float(q.x << 16);
-  v[1] = __uint_as_float(q.x & 0xffff0000u);
-  v[2] = __uint_as_float(q.y << 16);
-  v[3] = __uint_as_float(q.y & 0xffff0000u);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -139,18 +172,10 @@ __device__ __forceinline__ void stage_x(T* xs, const T* x, int b0, int B,
   cp_async_commit();
 }
 
-// Sixteen bytes as floats: four f32 or eight bf16 values.
+// Sixteen bytes as four f32 values.
 __device__ __forceinline__ void unpack16(uint4 q, float* out, float) {
   out[0] = __uint_as_float(q.x); out[1] = __uint_as_float(q.y);
   out[2] = __uint_as_float(q.z); out[3] = __uint_as_float(q.w);
-}
-__device__ __forceinline__ void unpack16(uint4 q, float* out, __nv_bfloat16) {
-  const unsigned w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    out[2 * j] = __uint_as_float(w[j] << 16);
-    out[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-  }
 }
 
 // acc[r][0..3] += sum_k v[r][k] * W[k][{i, H+i, 2H+i, 3H+i}], v in shared
@@ -488,26 +513,536 @@ int launch_bwd_t(int rows_per_block, const float* const* planes,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the input projection (rnn.cuh), then both recurrences on tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = 8;   // batch rows a block: mma's N, one n8 tile
+constexpr int kGates = 4;  // i, f, g, o
+
+// Packed A fragments: the wrapper lays W_h out as mma.sync.m16n8k16 A
+// fragments, [warp][k16 step][...][32 lanes][8 bf16]
+// (ops/cuda/lstm.py::forward_fragments, backward_fragments), zero past the
+// real rows and columns, so a lane loads its four fragment registers of one
+// tile in one 16-byte read and a warp reads 512 consecutive bytes.
+__device__ __forceinline__ void load_frag(uint32_t a[4], const uint4* p) {
+  const uint4 v = *p;
+  a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
+}
+
+// What the two bf16 recurrences share: a lane's C positions, the same in
+// every m16 tile of its warp, units u + gr + 8 m (m = 0, 1) of rows
+// 2 tq + e (e = 0, 1); p = 2 m + e is the C register.
+struct Positions {
+  bool unit_ok[2], row_ok[2];
+  size_t row_base[2];  // b * T of the lane's rows
+  int u, gr, tq;
+  __device__ Positions(int B, int Tn, int H) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    gr = lane >> 2;
+    tq = lane & 3;
+    u = 16 * warp;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) unit_ok[m] = u + gr + 8 * m < H;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int b = blockIdx.x * kRows + 2 * tq + e;
+      row_ok[e] = b < B;
+      row_base[e] = static_cast<size_t>(b) * Tn;
+    }
+  }
+  __device__ int unit(int m) const { return u + gr + 8 * m; }
+  __device__ bool ok(int m, int e) const { return unit_ok[m] && row_ok[e]; }
+  // Offset of (row e, unit m) in a [B, T, W] plane at step t.
+  __device__ size_t at(int m, int e, int t, int W) const {
+    return (row_base[e] + t) * W + unit(m);
+  }
+};
+
+constexpr int kStages = 3;  // ring stages of the per-step operands in shared memory
+
+// This thread's 16-byte piece of an 8-row block of [B, T, W] rows: row r,
+// columns 4k .. 4k+3 of the first H (H / 4 pieces a row; 8 H / 4 <= 2 Hp,
+// the block's threads, so one piece a thread at most).
+struct RowPiece {
+  bool has;
+  int r, k;
+  size_t base;  // b * T of the row
+  __device__ RowPiece(int B, int Tn, int H) {
+    const int per_row = H / 4;
+    const int rows = min(kRows, B - static_cast<int>(blockIdx.x) * kRows);
+    has = static_cast<int>(threadIdx.x) < rows * per_row;
+    r = threadIdx.x / per_row;
+    k = threadIdx.x % per_row;
+    base = (static_cast<size_t>(blockIdx.x) * kRows + r) * Tn;
+  }
+  // Offset of the piece at step t in a [B, T, W] plane (W = H, or 4 H with
+  // the gate's column added by the caller).
+  __device__ size_t src(int t, int W) const { return (base + t) * W + 4 * k; }
+};
+
+__device__ __forceinline__ void zero_smem(unsigned char* p, int bytes) {
+  for (int c = threadIdx.x; c < bytes / 16; c += blockDim.x) {
+    reinterpret_cast<uint4*>(p)[c] = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The reverse recurrence's shared memory (bytes): the dz^T buffer
+// [hi, lo][4 Hp][8] bf16, the ring of gate-plane stages, then the partial
+// sums two warps exchange, [Hp / 16 warps][32 lanes][4] f32.
+struct BwdSmem {
+  int part, sp, sg, ring, stage, xch, total;
+  __host__ __device__ explicit BwdSmem(int Hp)
+      : part(kGates * Hp * kRows), sp(Hp + 4), sg(Hp + 8), ring(2 * part * 2),
+        stage(6 * kRows * sp * 4 + kRows * sg * 2), xch(ring + kStages * stage),
+        total(xch + Hp / 16 * 32 * 16) {}
+};
+
+// The forward recurrence's shared memory (bytes): the h^T double buffer
+// [2][Hp][8] bf16, then the ring of xp stages [8][4 Hp + 4] f32.
+struct FwdSmem {
+  int sx, ring, stage, total;
+  __host__ __device__ explicit FwdSmem(int Hp)
+      : sx(kGates * Hp + 4), ring(2 * Hp * kRows * 2), stage(kRows * sx * 4),
+        total(ring + kStages * stage) {}
+};
+
+// The forward recurrence, transposed (z^T = W_h^T h^T): kMT = Hp / 16
+// (warps, m16 tiles of units and k16 steps), with W_h^T's A fragments in
+// registers; 0 for Hp > 128, where the count is `mt_rt` and the fragments
+// are read from global memory every step. w_frag: [Hp/16 tiles][Hp/16
+// k-steps][4 gates][32 lanes] x 16 bytes. kReset as the f32 kernel's.
+template <int kMT, bool kReset>
+__global__ void __launch_bounds__(kMT > 0 ? 32 * kMT : 32 * 16, 1)
+lstm_forward_mma_kernel(const float* __restrict__ xp, const __nv_bfloat16* __restrict__ h0,
+                        const __nv_bfloat16* __restrict__ c0, const uint4* __restrict__ w_frag,
+                        const float* __restrict__ keep, __nv_bfloat16* __restrict__ ys,
+                        float* __restrict__ c_last, float* __restrict__ cs, int B, int Tn,
+                        int H, int mt_rt) {
+  constexpr bool kRegs = kMT > 0;
+  constexpr int R = kRows;
+  const int KS = kRegs ? kMT : mt_rt;
+  const int Hp = 16 * KS, H4 = kGates * H;
+  const FwdSmem L(Hp);
+  extern __shared__ __align__(16) unsigned char smem[];
+  // h^T, unit-major: [2][Hp][R] bf16 (a unit's 8 rows are 16 bytes).
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Positions pos(B, Tn, H);
+  const int b0 = blockIdx.x * R;
+
+  const uint4* wf = w_frag + static_cast<size_t>(warp) * KS * kGates * 32 + lane;
+  uint32_t whf[kRegs ? kMT : 1][kGates][4];
+  if (kRegs) {
+#pragma unroll
+    for (int st = 0; st < (kRegs ? kMT : 1); ++st)
+#pragma unroll
+      for (int q = 0; q < kGates; ++q) load_frag(whf[st][q], wf + (st * kGates + q) * 32);
+  }
+
+  // xp (the projection, b included) arrives in a ring of kStages
+  // shared-memory stages, by cp.async, kStages - 1 steps ahead of its use:
+  // [R][4 Hp + 4] f32 a stage, gate q at column q Hp (the pad keeps a lane's
+  // reads free of bank conflicts). Rows past B and units past H are never
+  // copied and stay zero. A thread copies at most one 16-byte piece of each
+  // gate's 8 rows.
+  zero_smem(smem + L.ring, L.total - L.ring);
+  __syncthreads();
+  const RowPiece piece(B, Tn, H);
+  auto stage_step = [&](int t, int slot) {
+    if (t < Tn && piece.has) {
+      float* xs = reinterpret_cast<float*>(smem + L.ring + slot * L.stage);
+      const size_t src = piece.src(t, H4);
+#pragma unroll
+      for (int q = 0; q < kGates; ++q) {
+        mma::cp_async16_zfill(xs + piece.r * L.sx + q * Hp + 4 * piece.k, xp + src + q * H, 16);
+      }
+    }
+    mma::cp_async_commit();  // an empty group past the last step keeps the count
+  };
+  stage_step(0, 0);
+  stage_step(1, 1);
+
+  // Step 0's state, keep[0] * (h0, c0): h rounded to bf16 into buffer 0
+  // (every row and padded unit of it, zeros where there is none), c in f32
+  // registers. A lane's two rows of one unit are adjacent: one 4-byte store.
+  float cell[4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    float h[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      h[e] = cell[2 * m + e] = 0.0f;
+      if (pos.ok(m, e)) {
+        const size_t idx = static_cast<size_t>(b0 + 2 * pos.tq + e) * H + pos.unit(m);
+        h[e] = __bfloat162float(h0[idx]);
+        cell[2 * m + e] = __bfloat162float(c0[idx]);
+        if (kReset) {
+          const float k0 = keep[pos.row_base[e]];
+          h[e] = __bfloat162float(__float2bfloat16(h[e] * k0));
+          cell[2 * m + e] *= k0;
+        }
+      }
+    }
+    *reinterpret_cast<__nv_bfloat162*>(hs + pos.unit(m) * R + 2 * pos.tq) =
+        __floats2bfloat162_rn(h[0], h[1]);
+  }
+  // keep[t] for the lane's rows, 1 past the last step: step t scales what it
+  // hands on by keep[t+1], loaded a step earlier.
+  auto load_keep = [&](int t, float (&kv)[2]) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      kv[e] = kReset && t < Tn && pos.row_ok[e] ? keep[pos.row_base[e] + t] : 1.0f;
+    }
+  };
+  float kpre[2];
+  load_keep(1, kpre);
+  mma::cp_async_wait<1>();
+  __syncthreads();
+
+  // The lane's ldmatrix.trans row of the B fragment (h^T): unit lane % 16 of
+  // the k-step (lanes 16-31 repeat 0-15; x2 reads only the first 16).
+  const int b_off = (lane & 15) * R;
+  for (int t = 0; t < Tn; ++t) {
+    const int cur = t & 1;
+    stage_step(t + 2, (t + 2) % kStages);
+    const float kn[2] = {kpre[0], kpre[1]};
+    load_keep(t + 2, kpre);
+
+    // The B fragments are loaded a k-step ahead of their products.
+    const __nv_bfloat16* hc = hs + cur * Hp * R;
+    float acc[kGates][4];
+#pragma unroll
+    for (int q = 0; q < kGates; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.0f;
+    uint32_t bq[2][2];
+    mma::ldmatrix_x2_trans(bq[0], hc + b_off);
+#pragma unroll
+    for (int st2 = 0; st2 < KS; st2 += 2) {
+#pragma unroll
+      for (int par = 0; par < 2; ++par) {
+        const int st = st2 + par;
+        if (st < KS) {
+          if (st + 1 < KS) mma::ldmatrix_x2_trans(bq[par ^ 1], hc + 16 * (st + 1) * R + b_off);
+#pragma unroll
+          for (int q = 0; q < kGates; ++q) {
+            uint32_t a_mem[4];
+            if (!kRegs) load_frag(a_mem, wf + (st * kGates + q) * 32);
+            const uint32_t* a = kRegs ? whf[kRegs && st < kMT ? st : 0][q] : a_mem;
+            mma::bf16_16x8x16(acc[q], a, bq[par][0], bq[par][1]);
+          }
+        }
+      }
+    }
+
+    const float* xs = reinterpret_cast<const float*>(smem + L.ring + (t % kStages) * L.stage);
+    __nv_bfloat16* hn = hs + (cur ^ 1) * Hp * R;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      __nv_bfloat16 hk[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int p = 2 * m + e;
+        const float* xr = xs + (2 * pos.tq + e) * L.sx + pos.unit(m);
+        const float ig = rnn::fast_sigmoid(xr[0] + acc[0][p]);
+        const float fg = rnn::fast_sigmoid(xr[Hp] + acc[1][p]);
+        const float gg = rnn::fast_tanh(xr[2 * Hp] + acc[2][p]);
+        const float og = rnn::fast_sigmoid(xr[3 * Hp] + acc[3][p]);
+        const float c = fg * cell[p] + ig * gg;
+        const __nv_bfloat16 hq = __float2bfloat16(og * rnn::fast_tanh(c));
+        if (pos.ok(m, e)) {
+          const size_t idx = pos.at(m, e, t, H);
+          ys[idx] = hq;
+          if (cs != nullptr) cs[idx] = c;
+        }
+        hk[e] = kReset ? __float2bfloat16(__bfloat162float(hq) * kn[e]) : hq;
+        cell[p] = kReset ? c * kn[e] : c;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(hn + pos.unit(m) * R + 2 * pos.tq) =
+          __halves2bfloat162(hk[0], hk[1]);
+    }
+    mma::cp_async_wait<1>();  // step t+1's xp has landed (this thread's)
+    __syncthreads();          // ... everyone's, and h' is whole
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (pos.ok(m, e)) {
+        c_last[static_cast<size_t>(b0 + 2 * pos.tq + e) * H + pos.unit(m)] = cell[2 * m + e];
+      }
+}
+
+template <bool kReset>
+int launch_fwd_mma(const float* xp, const void* h0, const void* c0, const void* w_frag,
+                   const float* keep, void* ys, float* c_last, float* cs, int B, int Tn,
+                   int H, size_t smem, cudaStream_t s) {
+  const int ks = (H + 15) / 16;
+  const dim3 grid((B + kRows - 1) / kRows), block(32 * ks);
+  auto launch = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid, block, smem, s>>>(
+        xp, static_cast<const __nv_bfloat16*>(h0), static_cast<const __nv_bfloat16*>(c0),
+        static_cast<const uint4*>(w_frag), keep, static_cast<__nv_bfloat16*>(ys), c_last, cs,
+        B, Tn, H, ks);
+    return static_cast<int>(cudaGetLastError());
+  };
+  // Fragments in registers up to Hp = 128, the generic instantiation above.
+  switch (ks) {
+    case 1: return launch(lstm_forward_mma_kernel<1, kReset>);
+    case 2: return launch(lstm_forward_mma_kernel<2, kReset>);
+    case 3: return launch(lstm_forward_mma_kernel<3, kReset>);
+    case 4: return launch(lstm_forward_mma_kernel<4, kReset>);
+    case 5: return launch(lstm_forward_mma_kernel<5, kReset>);
+    case 6: return launch(lstm_forward_mma_kernel<6, kReset>);
+    case 7: return launch(lstm_forward_mma_kernel<7, kReset>);
+    case 8: return launch(lstm_forward_mma_kernel<8, kReset>);
+    default: return launch(lstm_forward_mma_kernel<0, kReset>);
+  }
+}
+
+// The reverse recurrence on tensor cores: dh_prev^T = W_h dz^T, K = 4 Hp
+// (Hp = 32 ceil(H / 32) here: the warps pair up). kMT = Hp / 16 (warps, m16
+// tiles of units), with W_h's A fragments in registers; 0 for Hp > 128
+// (count `mt_rt`, fragments read from global memory every step). Each warp
+// reads dz^T from shared memory for every product, so the warps split K:
+// warp w = 2 j + h computes tiles 2 j and 2 j + 1 over half h of the k-steps
+// (gates i, f or g, o), hands its partial sums of the pair's other tile to
+// the other warp through shared memory, and owns tile w (its dz and carries).
+// Each warp reads half of dz^T a step, and holds the same 128 fragment
+// registers at H=128. w_frag: [Hp/16 warps][2 Hp/16 k-steps][2 tiles][32
+// lanes] x 16 bytes. kReset as the f32 kernel's.
+template <int kMT, bool kReset>
+__global__ void __launch_bounds__(kMT > 0 ? 32 * kMT : 32 * 16, 1)
+lstm_backward_mma_kernel(const float* __restrict__ ig, const float* __restrict__ fg,
+                         const float* __restrict__ gg, const float* __restrict__ og,
+                         const float* __restrict__ tcg, const float* __restrict__ cing,
+                         const __nv_bfloat16* __restrict__ g_ys,
+                         const uint4* __restrict__ w_frag, const float* __restrict__ keep,
+                         const float* __restrict__ dc_last, float* __restrict__ d_xp,
+                         float* __restrict__ dh0, float* __restrict__ dc0, int B, int Tn,
+                         int H, int mt_rt) {
+  constexpr bool kRegs = kMT > 0;
+  constexpr int R = kRows;
+  const int MT = kRegs ? kMT : mt_rt;
+  const int Hp = 16 * MT, KH = kGates * MT / 2, H4 = kGates * H;
+  const BwdSmem L(Hp);
+  extern __shared__ __align__(16) unsigned char smem[];
+  // dz^T, k-major (k = gate Hp + unit): [hi, lo][4 Hp][R] bf16. One buffer:
+  // a step's second barrier (the exchange's) follows its last read.
+  __nv_bfloat16* z = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Positions pos(B, Tn, H);
+  const int b0 = blockIdx.x * R;
+
+  const int half = warp & 1;  // this warp's half of K, and its tile of the pair
+  const uint4* wf = w_frag + static_cast<size_t>(warp) * KH * 2 * 32 + lane;
+  uint32_t wr[kRegs ? kGates * kMT / 2 : 1][2][4];
+  if (kRegs) {
+#pragma unroll
+    for (int sl = 0; sl < (kRegs ? kGates * kMT / 2 : 1); ++sl)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) load_frag(wr[sl][i], wf + (sl * 2 + i) * 32);
+  }
+
+  // The step's gate planes arrive in a ring of kStages shared-memory stages,
+  // by cp.async, kStages - 1 steps ahead of their use: [6][R][Hp + 4] f32
+  // and g_ys [R][Hp + 8] bf16 a stage (the pads keep a lane's reads free of
+  // bank conflicts). Rows past B and units past H are never copied and stay
+  // zero, so their dz is zero. A thread copies at most one 16-byte piece of
+  // each plane row block (8 rows x H / 4 pieces <= 2 H threads).
+  zero_smem(smem, L.total);
+  __syncthreads();
+  const float* const planes[6] = {ig, fg, gg, og, tcg, cing};
+  const RowPiece piece(B, Tn, H);
+  auto stage_step = [&](int t, int slot) {
+    if (t >= 0 && piece.has) {
+      float* ps = reinterpret_cast<float*>(smem + L.ring + slot * L.stage);
+      const size_t src = piece.src(t, H);
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        mma::cp_async16_zfill(ps + (j * R + piece.r) * L.sp + 4 * piece.k, planes[j] + src, 16);
+      }
+      __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(ps + 6 * R * L.sp);
+      mma::cp_async8_zfill(gs + piece.r * L.sg + 4 * piece.k, g_ys + src, 8);
+    }
+    mma::cp_async_commit();  // an empty group past t = 0 keeps the count
+  };
+  stage_step(Tn - 1, 0);
+  stage_step(Tn - 2, 1);
+
+  // keep[t] (dh_prev, dc_prev *= keep[t]), loaded a step ahead.
+  auto load_keep = [&](int t, float (&kv)[2]) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) kv[e] = kReset && pos.row_ok[e] ? keep[pos.row_base[e] + t] : 1.0f;
+  };
+  float nk[2];
+  load_keep(Tn - 1, nk);
+  float dh_c[4], dc_c[4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      dh_c[2 * m + e] = 0.0f;
+      dc_c[2 * m + e] =
+          pos.ok(m, e) ? dc_last[static_cast<size_t>(b0 + 2 * pos.tq + e) * H + pos.unit(m)]
+                       : 0.0f;
+    }
+  mma::cp_async_wait<1>();
+  __syncthreads();
+
+  // The lane's ldmatrix.trans row: lanes 0-15 address hi's k rows 0-15 of a
+  // k-step, lanes 16-31 lo's, so one x4 brings both B fragments.
+  const int b_off = (lane & 15) * R + (lane >> 4) * L.part;
+  for (int t = Tn - 1, s = 0; t >= 0; --t, ++s) {
+    stage_step(t - 2, (s + 2) % kStages);
+    const float ck[2] = {nk[0], nk[1]};
+    if (t > 0) load_keep(t - 1, nk);
+    const float* ps = reinterpret_cast<const float*>(smem + L.ring + (s % kStages) * L.stage);
+    const __nv_bfloat16* gs = reinterpret_cast<const __nv_bfloat16*>(ps + 6 * R * L.sp);
+
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      float dz[kGates][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int p = 2 * m + e;
+        const int at = (2 * pos.tq + e) * L.sp + pos.unit(m);
+        const float iv = ps[at], fv = ps[R * L.sp + at], gv = ps[2 * R * L.sp + at];
+        const float ov = ps[3 * R * L.sp + at], tc = ps[4 * R * L.sp + at];
+        const float cin = ps[5 * R * L.sp + at];
+        const float dh = dh_c[p] + __bfloat162float(gs[(2 * pos.tq + e) * L.sg + pos.unit(m)]);
+        const float dc = dc_c[p] + dh * ov * (1.0f - tc * tc);
+        dz[0][e] = dc * gv * iv * (1.0f - iv);
+        dz[1][e] = dc * cin * fv * (1.0f - fv);
+        dz[2][e] = dc * iv * (1.0f - gv * gv);
+        dz[3][e] = dh * tc * ov * (1.0f - ov);
+        if (pos.ok(m, e)) {
+          float* out = d_xp + (pos.row_base[e] + t) * H4 + pos.unit(m);
+#pragma unroll
+          for (int q = 0; q < kGates; ++q) out[q * H] = dz[q][e];
+        }
+        dc_c[p] = dc * fv;
+        if (kReset) dc_c[p] *= ck[e];  // dc_prev *= keep[t]
+      }
+      // dz split for the product: hi = bf16(dz), lo = bf16(dz - hi).
+#pragma unroll
+      for (int q = 0; q < kGates; ++q) {
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(dz[q][0], dz[q][1]);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(dz[q][0] - __low2float(hi),
+                                                       dz[q][1] - __high2float(hi));
+        __nv_bfloat16* row = z + (q * Hp + pos.unit(m)) * R + 2 * pos.tq;
+        *reinterpret_cast<__nv_bfloat162*>(row) = hi;
+        *reinterpret_cast<__nv_bfloat162*>(row + L.part) = lo;
+      }
+    }
+    mma::cp_async_wait<1>();  // step t-1's planes have landed (this thread's)
+    __syncthreads();          // ... everyone's, and dz^T is whole
+
+    // Four independent chains, tile x (hi, lo), over this warp's half of
+    // K (KH k-steps, an even count); the B fragments are loaded a k-step
+    // ahead of their products.
+    float acc[2][2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) acc[i][c][0] = acc[i][c][1] = acc[i][c][2] = acc[i][c][3] = 0.0f;
+    const __nv_bfloat16* zk = z + 16 * half * KH * R + b_off;
+    uint32_t bq[2][4];
+    mma::ldmatrix_x4_trans(bq[0], zk);
+#pragma unroll
+    for (int sl2 = 0; sl2 < KH; sl2 += 2) {
+#pragma unroll
+      for (int par = 0; par < 2; ++par) {
+        const int sl = sl2 + par;
+        if (sl + 1 < KH) mma::ldmatrix_x4_trans(bq[par ^ 1], zk + 16 * (sl + 1) * R);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          uint32_t a_mem[4];
+          if (!kRegs) load_frag(a_mem, wf + (sl * 2 + i) * 32);
+          const uint32_t* a = kRegs ? wr[kRegs ? sl : 0][i] : a_mem;
+          mma::bf16_16x8x16(acc[i][0], a, bq[par][0], bq[par][1]);
+          mma::bf16_16x8x16(acc[i][1], a, bq[par][2], bq[par][3]);
+        }
+      }
+    }
+    // The pair's other tile goes to the other warp; this warp's tile comes
+    // back from it: dh = (own hi + lo) + (its hi + lo).
+    float own[4], give[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const float s0 = acc[0][0][p] + acc[0][1][p], s1 = acc[1][0][p] + acc[1][1][p];
+      own[p] = half ? s1 : s0;
+      give[p] = half ? s0 : s1;
+    }
+    float4* xch = reinterpret_cast<float4*>(smem + L.xch);
+    xch[(warp ^ 1) * 32 + lane] = make_float4(give[0], give[1], give[2], give[3]);
+    __syncthreads();
+    const float4 got = xch[warp * 32 + lane];
+    const float theirs[4] = {got.x, got.y, got.z, got.w};
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      dh_c[p] = own[p] + theirs[p];
+      if (kReset) dh_c[p] *= ck[p & 1];  // dh_prev *= keep[t]
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (pos.ok(m, e)) {
+        const size_t idx = static_cast<size_t>(b0 + 2 * pos.tq + e) * H + pos.unit(m);
+        dh0[idx] = dh_c[2 * m + e];
+        dc0[idx] = dc_c[2 * m + e];
+      }
+}
+
+template <bool kReset>
+int launch_bwd_mma(const float* const* planes, const void* g_ys, const void* w_frag,
+                   const float* keep, const float* dc_last, float* d_xp, float* dh0,
+                   float* dc0, int B, int Tn, int H, size_t smem, cudaStream_t s) {
+  const int ks = 2 * ((H + 31) / 32);
+  const dim3 grid((B + kRows - 1) / kRows), block(32 * ks);
+  auto launch = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid, block, smem, s>>>(
+        planes[0], planes[1], planes[2], planes[3], planes[4], planes[5],
+        static_cast<const __nv_bfloat16*>(g_ys), static_cast<const uint4*>(w_frag), keep,
+        dc_last, d_xp, dh0, dc0, B, Tn, H, ks);
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (ks) {
+    case 2: return launch(lstm_backward_mma_kernel<2, kReset>);
+    case 4: return launch(lstm_backward_mma_kernel<4, kReset>);
+    case 6: return launch(lstm_backward_mma_kernel<6, kReset>);
+    case 8: return launch(lstm_backward_mma_kernel<8, kReset>);
+    default: return launch(lstm_backward_mma_kernel<0, kReset>);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// x [B, T, D], h0, c0 [B, H], w_x [D, 4H], w_h [H, 4H], ys [B, T, H]: all of
-// the working dtype (dtype 0 = float, 1 = bf16), contiguous, 16-byte
-// aligned, except that w_x and w_h come k-packed as [K/P][4H][P], P = 16 /
-// element size. bias [4H], keep [B, T] (1 - reset; null: the no-reset
-// variant), c_last [B, H] and cs [B, T, H] (null: not written) float.
-// smem_bytes as the caller computed it for this layout, checked again here.
+// The f32 forward (CUDA cores). x [B, T, D], h0, c0 [B, H], w_x [D, 4H],
+// w_h [H, 4H], ys [B, T, H]: float (dtype 0), contiguous, 16-byte aligned,
+// except that w_x and w_h come k-packed as [K/4][4H][4]. bias [4H], keep
+// [B, T] (1 - reset; null: the no-reset variant), c_last [B, H] and cs
+// [B, T, H] (null: not written) float. smem_bytes as the caller computed it
+// for this layout, checked again here.
 int seqrec_lstm_forward(const void* x, const void* h0, const void* c0,
                         const void* w_x, const void* w_h, const void* bias,
                         const void* keep, void* ys, void* c_last, void* cs,
                         int B, int Tn, int D, int H, int dtype,
                         int rows_per_block, int wx_in_smem, int wh_in_smem,
                         long long smem_bytes, void* stream) {
-  const size_t es = dtype == 0 ? 4 : 2;
+  const size_t es = 4;
   const int R = rows_per_block;
-  if (B <= 0 || Tn <= 0 || D <= 0 || H <= 0 || H > kMaxHidden ||
-      (dtype != 0 && dtype != 1) || (D * es) % 16 != 0 || H % 4 != 0) {
+  if (B <= 0 || Tn <= 0 || D <= 0 || H <= 0 || H > kMaxHidden || dtype != 0 ||
+      (D * es) % 16 != 0 || H % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = 2 * static_cast<size_t>(R) * H * 4 + 2 * static_cast<size_t>(R) * D * es +
@@ -516,23 +1051,52 @@ int seqrec_lstm_forward(const void* x, const void* h0, const void* c0,
   if (static_cast<long long>(smem) != smem_bytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float* b = static_cast<const float*>(bias);
+  return launch_fwd_t<float>(R, x, h0, c0, w_x, w_h, static_cast<const float*>(bias),
+                             static_cast<const float*>(keep), ys, static_cast<float*>(c_last),
+                             static_cast<float*>(cs), B, Tn, D, H, wx_in_smem, wh_in_smem,
+                             smem, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 input projection: xp [M, N4] f32 = x [M, D] @ w_x [D, N4] + b,
+// with x, w_x bf16 and b float; all contiguous, 16-byte aligned;
+// D % 4 == 0 and N4 % 4 == 0.
+int seqrec_lstm_xproj(const void* x, const void* w_x, const void* b, void* xp,
+                      int M, int D, int N4, void* stream) {
+  return rnn::launch_xproj(x, w_x, b, xp, M, D, N4, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 recurrence on tensor cores. xp [B, T, 4H] float (the input
+// projection, b included), h0, c0 [B, H] bf16, w_frag W_h^T's packed A
+// fragments [Hp/16][Hp/16][4][32] x 16 bytes (Hp = 16 ceil(H / 16)), keep
+// [B, T] float (1 - reset) or null, ys [B, T, H] bf16, c_last [B, H] and cs
+// [B, T, H] (null: not written) float; contiguous, 16-byte aligned;
+// H % 4 == 0, H <= 256. smem_bytes (FwdSmem: the h double buffer and the
+// xp ring) as the caller computed it, checked again here.
+int seqrec_lstm_forward_mma(const void* xp, const void* h0, const void* c0,
+                            const void* w_frag, const void* keep, void* ys, void* c_last,
+                            void* cs, int B, int Tn, int H, long long smem_bytes,
+                            void* stream) {
+  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = FwdSmem(16 * ((H + 15) / 16)).total;
+  if (static_cast<long long>(smem) != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* x = static_cast<const float*>(xp);
   const float* kp = static_cast<const float*>(keep);
   float* cl = static_cast<float*>(c_last);
   float* cp = static_cast<float*>(cs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_fwd_t<float>(R, x, h0, c0, w_x, w_h, b, kp, ys, cl, cp, B, Tn, D, H,
-                               wx_in_smem, wh_in_smem, smem, s);
-  }
-  return launch_fwd_t<__nv_bfloat16>(R, x, h0, c0, w_x, w_h, b, kp, ys, cl, cp, B, Tn,
-                                     D, H, wx_in_smem, wh_in_smem, smem, s);
+  return kp == nullptr
+             ? launch_fwd_mma<false>(x, h0, c0, w_frag, kp, ys, cl, cp, B, Tn, H, smem, s)
+             : launch_fwd_mma<true>(x, h0, c0, w_frag, kp, ys, cl, cp, B, Tn, H, smem, s);
 }
 
-// i, f, g, o, tanh_c, c_in [B, T, H] float; g_ys [B, T, H] and w_h_t
-// [4H, H] of the working dtype (dtype 0 = float, 1 = bf16); keep [B, T]
-// (1 - reset; null: the no-reset variant), dc_last, dh0, dc0 [B, H] and
-// d_xp [B, T, 4H] float. All contiguous, 16-byte aligned. smem_bytes as the
+// The f32 reverse recurrence (CUDA cores). i, f, g, o, tanh_c, c_in, g_ys
+// [B, T, H] and w_h_t [4H, H] float (dtype 0); keep [B, T] (1 - reset;
+// null: the no-reset variant), dc_last, dh0, dc0 [B, H] and d_xp
+// [B, T, 4H] float. All contiguous, 16-byte aligned. smem_bytes as the
 // caller computed it for this layout, checked again here.
 int seqrec_lstm_backward(const void* i, const void* f, const void* g,
                          const void* o, const void* tanh_c, const void* c_in,
@@ -540,14 +1104,42 @@ int seqrec_lstm_backward(const void* i, const void* f, const void* g,
                          const void* dc_last, void* d_xp, void* dh0, void* dc0,
                          int B, int Tn, int H, int dtype, int rows_per_block,
                          int w_in_smem, long long smem_bytes, void* stream) {
-  const size_t es = dtype == 0 ? 4 : 2;
+  const size_t es = 4;
   const int R = rows_per_block;
-  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0 ||
-      (dtype != 0 && dtype != 1)) {
+  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0 || dtype != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = 2 * static_cast<size_t>(R) * 4 * H * 4 +
                       (w_in_smem ? static_cast<size_t>(4) * H * H * es : 0);
+  if (static_cast<long long>(smem) != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* planes[6] = {
+      static_cast<const float*>(i), static_cast<const float*>(f),
+      static_cast<const float*>(g), static_cast<const float*>(o),
+      static_cast<const float*>(tanh_c), static_cast<const float*>(c_in)};
+  return launch_bwd_t<float>(R, planes, g_ys, w_h_t, static_cast<const float*>(keep),
+                             static_cast<const float*>(dc_last), static_cast<float*>(d_xp),
+                             static_cast<float*>(dh0), static_cast<float*>(dc0), B, Tn, H,
+                             w_in_smem, smem, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 reverse recurrence on tensor cores. i, f, g, o, tanh_c, c_in
+// [B, T, H] float; g_ys [B, T, H] bf16; w_frag W_h's packed A fragments
+// [Hp/16][2 Hp/16][2][32] x 16 bytes (Hp = 32 ceil(H / 32)); keep [B, T] float (1 - reset) or null;
+// dc_last, dh0, dc0 [B, H] and d_xp [B, T, 4H] float. All contiguous,
+// 16-byte aligned; H % 4 == 0, H <= 256. smem_bytes (BwdSmem: the dz^T
+// buffers and the gate-plane ring) as the caller computed it, checked again
+// here.
+int seqrec_lstm_backward_mma(const void* i, const void* f, const void* g,
+                             const void* o, const void* tanh_c, const void* c_in,
+                             const void* g_ys, const void* w_frag, const void* keep,
+                             const void* dc_last, void* d_xp, void* dh0, void* dc0,
+                             int B, int Tn, int H, long long smem_bytes, void* stream) {
+  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = BwdSmem(32 * ((H + 31) / 32)).total;
   if (static_cast<long long>(smem) != smem_bytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -561,12 +1153,9 @@ int seqrec_lstm_backward(const void* i, const void* f, const void* g,
   float* dh = static_cast<float*>(dh0);
   float* dc = static_cast<float*>(dc0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_bwd_t<float>(R, planes, g_ys, w_h_t, kp, dcl, dxp, dh, dc, B, Tn, H,
-                               w_in_smem, smem, s);
-  }
-  return launch_bwd_t<__nv_bfloat16>(R, planes, g_ys, w_h_t, kp, dcl, dxp, dh, dc, B,
-                                     Tn, H, w_in_smem, smem, s);
+  return kp == nullptr
+             ? launch_bwd_mma<false>(planes, g_ys, w_frag, kp, dcl, dxp, dh, dc, B, Tn, H, smem, s)
+             : launch_bwd_mma<true>(planes, g_ys, w_frag, kp, dcl, dxp, dh, dc, B, Tn, H, smem, s);
 }
 
 const char* seqrec_lstm_error_string(int code) {

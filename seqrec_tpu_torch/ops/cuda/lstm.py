@@ -1,21 +1,44 @@
 """LSTM scan kernels (`csrc/lstm.cu`): the forward scan and the reverse
 recurrence of its backward, joined by a `torch.autograd.Function`.
 
-Replaces `seqrec_tpu/ops/pallas/lstm.py::lstm_scan` and its custom VJP
-`_lstm_core_bwd`, both variants: without a reset mask, and with one
-(`_lstm_step_kernel_reset`, session-parallel training), where a keep plane
-`1 - reset` [B, T] f32 goes to both kernels. The two variants count their
-launches apart: `lstm_scan.launches` / `lstm_scan.reset_launches`, and the
-same two on `lstm_backward`. Forward: the x-projection is computed inside
-the kernel, step by step; the kernel also writes c_T, and, when autograd
-will need it, the f32 cell plane c_1..c_T, so the backward runs no serial
-`_recompute_cells` loop on the card. Backward, as `_lstm_core_bwd`: the
-input projection and the gates are recomputed with `torch.matmul` in
-parallel over T (`reference.lstm_bwd_math`), the reverse recurrence runs in
-the kernel, and the input and weight gradients are `torch.matmul`s and
-sums. The cotangent of c_T starts the reverse recurrence's dc carry, so
-c_last is differentiable. Both kernels are bound by their serial chain; see
-the source note.
+Replaces `seqrec_tpu/ops/pallas/lstm.py::lstm_scan` (the TPU kernel
+`_lstm_step_body`, `_lstm_step_kernel` :106 and `_lstm_step_kernel_reset`
+:112, launched at :153) and its custom VJP `_lstm_core_bwd`, both variants:
+without a reset mask, and with one (session-parallel training), where a
+keep plane `1 - reset` [B, T] f32 goes to both kernels. The two variants
+count their launches apart: `lstm_scan.launches` / `lstm_scan.reset_launches`,
+and the same two on `lstm_backward`.
+
+Two hand-written designs chosen by dtype (each computes the whole function
+in its own numerics; neither gives way to the other):
+
+- bf16 (`design` "mma.sync", every shipped config), as the GRU's: the input
+  projection `x @ W_x + b` does not depend on h, so `lstm_input_projection`
+  computes it for all B*T rows first (a hand-written mma.sync GEMM into an
+  f32 [B, T, 4H] plane; its own launch counter); the scan then runs only
+  `h @ W_h`, transposed (W_h^T h^T) on mma.sync.m16n8k16 with the hidden
+  units as M and a block's 8 batch rows as N. H pads to Hp = 16 ceil(H / 16)
+  with zero weights; Hp / 16 warps each own 16 units of all four gates, so a
+  lane holds the i, f, g and o sums of its own (unit, row) pairs and keeps
+  their f32 cells in registers. The reverse recurrence mirrors it
+  (dh^T = W_h dz^T, K = 4 Hp), with dz split into two bf16 parts so that
+  the product keeps dz's f32 precision. W_h's fragments are packed here
+  (`forward_fragments`, `backward_fragments`) and stay in registers up to
+  Hp = 128.
+- f32 (`design` "cuda-core"): one thread per hidden unit, f32 FMAs on the
+  CUDA cores with the projection inside each step, k-packed weights
+  (`pack_k`); TF32 tensor cores would keep ~3 digits, not the f32 products
+  of the contract.
+
+Forward: the kernels also write c_T, and, when autograd will need it, the
+f32 cell plane c_1..c_T, so the backward runs no serial `_recompute_cells`
+loop on the card. Backward, as `_lstm_core_bwd`: the input projection and
+the gates are recomputed with `torch.matmul` in parallel over T
+(`reference.lstm_bwd_math`), the reverse recurrence runs in the kernel, and
+the input and weight gradients are `torch.matmul`s and sums. The cotangent
+of c_T starts the reverse recurrence's dc carry, so c_last is
+differentiable. All kernels but the projection are bound by their serial
+chain over T; see the source note.
 
 Numerics: forward products and gate math in f32, the bias in f32 (as the
 JAX Pallas wrapper adds it), c in f32, h rounded to the working dtype
@@ -38,12 +61,17 @@ import torch
 
 from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.ops import reference
+from seqrec_tpu_torch.ops.cuda.gru import plain_input_projection
 
 plain = reference.lstm_scan
 plain_backward = reference.lstm_bwd_scan
 
 SMEM_LIMIT = 232_448  # shared memory one block may opt in to on sm_90 (227 KB)
-MAX_HIDDEN = 256  # kMaxHidden in csrc/lstm.cu: one thread per hidden unit
+MAX_HIDDEN = 256  # kMaxHidden in csrc/lstm.cu
+PROJ_TILE = 64  # kProjTile in csrc/rnn.cuh: rows and columns of an xp tile
+WH_REG_LIMIT = 128  # Hp up to which the bf16 kernels hold W_h in registers
+MMA_ROWS = 8  # kRows in csrc/lstm.cu: batch rows a bf16 block, one n8 tile
+RING_STAGES = 3  # kStages in csrc/lstm.cu: per-step operands staged this deep
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -54,11 +82,24 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     fwd.restype = ctypes.c_int
+    proj = lib.seqrec_lstm_xproj
+    proj.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    proj.restype = ctypes.c_int
+    fwd_mma = lib.seqrec_lstm_forward_mma
+    fwd_mma.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    fwd_mma.restype = ctypes.c_int
     bwd = lib.seqrec_lstm_backward
     bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     bwd.restype = ctypes.c_int
+    bwd_mma = lib.seqrec_lstm_backward_mma
+    bwd_mma.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    bwd_mma.restype = ctypes.c_int
     lib.seqrec_lstm_error_string.argtypes = [ctypes.c_int]
     lib.seqrec_lstm_error_string.restype = ctypes.c_char_p
     return lib
@@ -81,18 +122,76 @@ def _rows(rows_per_block: Optional[int], fits_one_row: bool) -> int:
     return R
 
 
+def _padded(H: int) -> int:
+    """Hp: H padded to whole m16 tiles (mma's M) and k16 steps."""
+    return 16 * -(-H // 16)
+
+
+def _padded_pairs(H: int) -> int:
+    """The reverse recurrence's Hp: whole pairs of m16 tiles (its warps
+    split K in pairs)."""
+    return 32 * -(-H // 32)
+
+
+def _forward_smem(hp: int) -> int:
+    """FwdSmem in csrc/lstm.cu: the h^T double buffer [2][Hp][8] bf16, then
+    RING_STAGES stages of xp [8][4 Hp + 4] f32."""
+    return 2 * hp * MMA_ROWS * 2 + RING_STAGES * MMA_ROWS * (4 * hp + 4) * 4
+
+
+def _backward_smem(hp: int) -> int:
+    """BwdSmem in csrc/lstm.cu: the dz^T buffer [hi, lo][4 Hp][8] bf16,
+    RING_STAGES stages of the six gate planes [6][8][Hp + 4] f32 and g_ys
+    [8][Hp + 8] bf16, then the warps' exchanged partial sums [Hp/16][32][4]
+    f32."""
+    stage = 6 * MMA_ROWS * (hp + 4) * 4 + MMA_ROWS * (hp + 8) * 2
+    return 2 * 4 * hp * MMA_ROWS * 2 + RING_STAGES * stage + hp // 16 * 32 * 16
+
+
+def _mma_rows(rows_per_block: Optional[int]) -> int:
+    if rows_per_block is not None:
+        raise ValueError(f"lstm: rows_per_block is the f32 design's; bf16 takes "
+                         f"{MMA_ROWS} rows a block (got {rows_per_block})")
+    return MMA_ROWS
+
+
 def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
-                  rows_per_block: Optional[int] = None) -> Dict[str, int]:
-    """Grid, block and shared-memory layout of one forward launch;
-    ValueError for a shape the kernel cannot take. W_h goes to shared memory
-    when it fits beside the step buffers, and W_x too when both fit;
-    whatever does not fit is read from global memory (L2), with two rows a
-    block so that half as many blocks read it. Both come k-packed (`pack_k`).
-    At D=H=128: in bf16 W_h (128 KB) is in shared memory and W_x is read
-    through L2; in f32 W_h alone is 256 KB, and both are read through L2."""
+                  rows_per_block: Optional[int] = None) -> Dict:
+    """Design, grid, block and shared-memory layout of one forward launch;
+    ValueError for a shape the kernels cannot take.
+
+    bf16 ("mma.sync"): the projection's grid of 64 x 64 xp tiles, then the
+    scan: 8 batch rows a block (the N of each mma, one n8 tile, as the GRU's
+    scan, where 8 rows beat 16 by 1.5-1.8x on an H100), Hp = 16 ceil(H / 16)
+    and Hp / 16 warps, W_h^T's fragments in registers up to Hp = 128 (read
+    from global memory above); in shared memory the h double buffer
+    [2][Hp][8] bf16 and a ring of RING_STAGES xp stages, which cp.async
+    fills two steps ahead of their use. `rows_per_block` is the f32
+    design's alone.
+
+    f32 ("cuda-core"): one thread per hidden unit, R = 1 or 2 rows a block;
+    W_h goes to shared memory when it fits beside the step buffers, and W_x
+    too when both fit; whatever does not fit is read from global memory
+    (L2), with two rows a block so that half as many blocks read it. Both
+    come k-packed (`pack_k`). At D=H=128 W_h alone is 256 KB, and both are
+    read through L2."""
     es = _check_dims(B, T, H, dtype)
-    if D <= 0 or (D * es) % 16 != 0:
-        raise ValueError(f"lstm: needs D*{es} % 16 == 0 (D={D}, H={H})")
+    if D <= 0 or D % 4 != 0:  # x rows in 16-byte (f32) or 8-byte (bf16) pieces
+        raise ValueError(f"lstm: needs D*{es} % {4 * es} == 0 (D={D}, H={H})")
+    if dtype == torch.bfloat16:
+        R = _mma_rows(rows_per_block)
+        hp = _padded(H)
+        return {
+            "design": "mma.sync",
+            "grid": -(-B // R),
+            "threads": 2 * hp,
+            "rows_per_block": R,
+            "hidden_padded": hp,
+            "wh_in_regs": int(hp <= WH_REG_LIMIT),
+            "smem_bytes": _forward_smem(hp),
+            "xproj_grid": [-(-(B * T) // PROJ_TILE), -(-(4 * H) // PROJ_TILE)],
+            "xproj_threads": 128,
+        }
     w_h, w_x = H * 4 * H * es, D * 4 * H * es
 
     def base(r):  # h and x double buffers
@@ -102,6 +201,7 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
     wh_in_smem = int(base(R) + w_h <= SMEM_LIMIT)
     wx_in_smem = int(wh_in_smem and base(R) + w_h + w_x <= SMEM_LIMIT)
     return {
+        "design": "cuda-core",
         "grid": -(-B // R),
         "threads": H,
         "rows_per_block": R,
@@ -112,11 +212,38 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
 
 
 def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
-                           rows_per_block: Optional[int] = None) -> Dict[str, int]:
-    """Layout of one reverse-recurrence launch: the dz double buffer, and
-    W_h^T in shared memory when it fits (128 KB in bf16 at H=128; read
-    through L2 otherwise, with two rows a block)."""
+                           rows_per_block: Optional[int] = None) -> Dict:
+    """Layout of one reverse-recurrence launch.
+
+    bf16 ("mma.sync"): the forward's blocks of 8 rows, with H padded to
+    whole pairs of m16 tiles (Hp = 32 ceil(H / 32)): K = 4 Hp (the gate
+    columns), and the Hp / 16 warps pair up, each warp of a pair computing
+    both its tiles over half of K (each reads half of dz^T from shared
+    memory a step) and the pair exchanging partial sums. W_h's fragments in
+    registers up to Hp = 128; in shared memory the dz^T buffer
+    [hi, lo][4 Hp][8] bf16, a ring of RING_STAGES stages of the step's
+    gate planes, which cp.async fills two steps ahead of their use, and the
+    exchanged sums. dz goes to the tensor cores as two bf16 terms
+    (`dz_terms`), hi = bf16(dz) and lo = bf16(dz - hi), so that the product
+    keeps the contract's f32 dz.
+
+    f32 ("cuda-core"): one thread per hidden unit, the dz double buffer,
+    and W_h^T in shared memory when it fits (read through L2 otherwise, with
+    two rows a block; 256 KB at H=128)."""
     es = _check_dims(B, T, H, dtype)
+    if dtype == torch.bfloat16:
+        R = _mma_rows(rows_per_block)
+        hp = _padded_pairs(H)
+        return {
+            "design": "mma.sync",
+            "grid": -(-B // R),
+            "threads": 2 * hp,
+            "rows_per_block": R,
+            "hidden_padded": hp,
+            "w_in_regs": int(hp <= WH_REG_LIMIT),
+            "dz_terms": 2,
+            "smem_bytes": _backward_smem(hp),
+        }
     w = 4 * H * H * es
 
     def base(r):
@@ -125,6 +252,7 @@ def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
     R = _rows(rows_per_block, base(1) + w <= SMEM_LIMIT)
     w_in_smem = int(base(R) + w <= SMEM_LIMIT)
     return {
+        "design": "cuda-core",
         "grid": -(-B // R),
         "threads": H,
         "rows_per_block": R,
@@ -149,10 +277,85 @@ def _raise_on(rc: int, lib, what: str) -> None:
 
 def pack_k(w: torch.Tensor) -> torch.Tensor:
     """[K, N] -> [K/P, N, P], P = 16 bytes / element size: the layout in which
-    the forward kernel reads its weights, from shared or global memory."""
+    the f32 forward kernel reads its weights, from shared or global memory."""
     K, N = w.shape
     P = 16 // w.element_size()
     return w.reshape(K // P, P, N).transpose(1, 2).contiguous()
+
+
+# mma.sync.m16n8k16's A fragment (PTX ISA, "Matrix Fragments for
+# mma.m16n8k16"), for a row index 16 tile + 8 mh + g and a column index
+# 16 st + 8 kh + 2 q + pair: lane 4 g + q holds registers a0 = (mh 0, kh 0),
+# a1 = (1, 0), a2 = (0, 1), a3 = (1, 1), two bf16 each, the lower column
+# first; so its fragment is 16 contiguous bytes, [kh][mh][pair], one read.
+
+
+def forward_fragments(w_h: torch.Tensor) -> torch.Tensor:
+    """W_h [H, 4H] -> [Hp/16, Hp/16, 4, 32, 8] bf16: the bf16 forward's A
+    operand, W_h^T gate by gate (A_q[unit][k] = W_h[k, q H + unit], zero past
+    H), as fragments [warp (tile)][k-step][gate][lane], in one copy."""
+    H = w_h.shape[0]
+    hp = _padded(H)
+    mt = hp // 16
+    w = w_h.to(torch.bfloat16).reshape(H, 4, H)  # k, gate, unit
+    if hp != H:
+        w = torch.nn.functional.pad(w, (0, hp - H, 0, 0, 0, hp - H))
+    w = w.reshape(mt, 2, 4, 2, 4, mt, 2, 8)  # st, kh, q, pair, gate, tile, mh, g
+    return w.permute(5, 0, 4, 7, 2, 1, 6, 3).reshape(mt, mt, 4, 32, 8)
+
+
+def backward_fragments(w_h: torch.Tensor) -> torch.Tensor:
+    """W_h [H, 4H] -> [Hp/16, 2 Hp/16, 2, 32, 8] bf16 (Hp = 32 ceil(H / 32)):
+    the bf16 reverse recurrence's A operand, W_h with each gate's columns
+    padded to Hp (A[unit][q Hp + j] = W_h[unit, q H + j], zero past H), as
+    fragments [warp][k-step of its half][tile of its pair][lane]: warp
+    2 j + h holds m16 tiles 2 j and 2 j + 1 over the k-steps of half h of
+    the 4 Hp columns. One copy."""
+    H = w_h.shape[0]
+    hp = _padded_pairs(H)
+    mt = hp // 16
+    w = w_h.to(torch.bfloat16).reshape(H, 4, H)  # unit, gate, column
+    if hp != H:
+        w = torch.nn.functional.pad(w, (0, hp - H, 0, 0, 0, hp - H))
+    w = w.reshape(mt // 2, 2, 2, 8, 2, 2 * mt, 2, 4, 2)  # j, i, mh, g, half, st, kh, q, pair
+    return w.permute(0, 4, 5, 1, 3, 7, 6, 2, 8).reshape(mt, 2 * mt, 2, 32, 8)
+
+
+def lstm_input_projection(x: torch.Tensor, w_x: torch.Tensor,
+                          b: torch.Tensor) -> torch.Tensor:
+    """The forward's input projection x [..., D] @ w_x [D, 4H] + b [4H] ->
+    f32 [..., 4H], x and w_x bf16: the part of `_lstm_step_body`'s step that
+    does not depend on h (lstm.py:89-93), for every step at once. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel
+    (`seqrec_lstm_xproj`, csrc/rnn.cuh's GEMM) or raises."""
+    if x.device.type == "cpu":
+        return plain_input_projection(x, w_x, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"lstm: no kernel for device {x.device}")
+    D, N4 = w_x.shape
+    if x.dtype != torch.bfloat16 or w_x.dtype != torch.bfloat16:
+        raise ValueError(f"lstm: the input projection kernel takes bf16 x and w_x, got "
+                         f"{x.dtype}, {w_x.dtype}")
+    if x.shape[-1] != D or tuple(b.shape) != (N4,) or D % 4 or N4 % 4:
+        raise ValueError(f"lstm: input projection needs x [..., D], w_x [D, 4H], b [4H] "
+                         f"with D % 4 == 0 and 4H % 4 == 0; got {tuple(x.shape)}, "
+                         f"{tuple(w_x.shape)}, {tuple(b.shape)}")
+    args = [x.contiguous(), w_x.contiguous(), b.float().contiguous()]
+    _check_operands(args, x.device)
+    xp = torch.empty((*x.shape[:-1], N4), dtype=torch.float32, device=x.device)
+    M = xp.numel() // N4
+    if M == 0:
+        return xp
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        rc = lib.seqrec_lstm_xproj(*(a.data_ptr() for a in args), xp.data_ptr(), M, D, N4,
+                                   torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, lib, "input projection")
+    lstm_input_projection.launches += 1
+    return xp
+
+
+lstm_input_projection.launches = 0
 
 
 def _keep_plane(keep: Optional[torch.Tensor], B: int, T: int) -> Optional[torch.Tensor]:
@@ -174,21 +377,29 @@ def _forward_kernel(x, h0, c0, w_x, w_h, b, with_cells: bool, keep=None):
     cfg = launch_config(B, T, D, H, x.dtype)
     dtype, dev = x.dtype, x.device
     keep = _keep_plane(keep, B, T)
-    args = [t.contiguous() for t in (x, h0, c0, pack_k(w_x), pack_k(w_h), b)]
-    _check_operands(args + ([] if keep is None else [keep]), dev)
+    keep_ptr = None if keep is None else keep.data_ptr()
     ys = torch.empty((B, T, H), dtype=dtype, device=dev)
     c_last = torch.empty((B, H), dtype=torch.float32, device=dev)
     cs = torch.empty((B, T, H), dtype=torch.float32, device=dev) if with_cells else None
+    cs_ptr = None if cs is None else cs.data_ptr()
     lib = _lib()
-    with torch.cuda.device(dev):
-        rc = lib.seqrec_lstm_forward(
-            *(a.data_ptr() for a in args), None if keep is None else keep.data_ptr(),
-            ys.data_ptr(), c_last.data_ptr(),
-            None if cs is None else cs.data_ptr(),
-            B, T, D, H, _DTYPE_CODE[dtype], cfg["rows_per_block"],
-            cfg["wx_in_smem"], cfg["wh_in_smem"], cfg["smem_bytes"],
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if cfg["design"] == "mma.sync":
+        xp = lstm_input_projection(x, w_x, b)
+        args = [xp] + [t.contiguous() for t in (h0, c0, forward_fragments(w_h))]
+        _check_operands(args + ([] if keep is None else [keep]), dev)
+        with torch.cuda.device(dev):
+            rc = lib.seqrec_lstm_forward_mma(
+                *(a.data_ptr() for a in args), keep_ptr, ys.data_ptr(), c_last.data_ptr(),
+                cs_ptr, B, T, H, cfg["smem_bytes"], stream)
+    else:
+        args = [t.contiguous() for t in (x, h0, c0, pack_k(w_x), pack_k(w_h), b)]
+        _check_operands(args + ([] if keep is None else [keep]), dev)
+        with torch.cuda.device(dev):
+            rc = lib.seqrec_lstm_forward(
+                *(a.data_ptr() for a in args), keep_ptr, ys.data_ptr(), c_last.data_ptr(),
+                cs_ptr, B, T, D, H, _DTYPE_CODE[dtype], cfg["rows_per_block"],
+                cfg["wx_in_smem"], cfg["wh_in_smem"], cfg["smem_bytes"], stream)
     _raise_on(rc, lib, "forward")
     if keep is None:
         lstm_scan.launches += 1
@@ -207,8 +418,9 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
     dh0 [B,H] f32, dc0 [B,H] f32), `reference.lstm_bwd_scan`'s contract;
     with `keep` ([B,T,1] or [B,T], 1 - reset) the reset variant, dh_prev and
     dc_prev *= keep[t] (`c_in` arrives scaled by `reference.lstm_bwd_hoist`).
-    The kernel works in g_ys's dtype (that of the forward's h). A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel or raises."""
+    The kernel works in g_ys's dtype (that of the forward's h): bf16 on the
+    tensor cores, f32 on the CUDA cores. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
     if i.device.type == "cpu":
         return plain_backward(i, f, g, o, tanh_c, c_in, g_ys, w_h, keep, dc_last)
     if i.device.type != "cuda":
@@ -226,20 +438,25 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
         dc_last = torch.zeros((B, H), dtype=torch.float32, device=dev)
     keep = _keep_plane(keep, B, T)
     planes = [t.float().contiguous() for t in (i, f, g, o, tanh_c, c_in)]
-    args = planes + [g_ys.contiguous(), w_h.to(dtype).T.contiguous()]
+    mma = cfg["design"] == "mma.sync"
+    w = backward_fragments(w_h) if mma else w_h.to(dtype).T.contiguous()
+    args = planes + [g_ys.contiguous(), w]
     dc_last = dc_last.float().contiguous()
     _check_operands(args + [dc_last] + ([] if keep is None else [keep]), dev)
     dz = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     dc0 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    ptrs = [*(a.data_ptr() for a in args), None if keep is None else keep.data_ptr(),
+            dc_last.data_ptr(), dz.data_ptr(), dh0.data_ptr(), dc0.data_ptr()]
     lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.seqrec_lstm_backward(
-            *(a.data_ptr() for a in args), None if keep is None else keep.data_ptr(),
-            dc_last.data_ptr(), dz.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            B, T, H, _DTYPE_CODE[dtype], cfg["rows_per_block"], cfg["w_in_smem"],
-            cfg["smem_bytes"], torch.cuda.current_stream(dev).cuda_stream,
-        )
+        if mma:
+            rc = lib.seqrec_lstm_backward_mma(*ptrs, B, T, H, cfg["smem_bytes"], stream)
+        else:
+            rc = lib.seqrec_lstm_backward(
+                *ptrs, B, T, H, _DTYPE_CODE[dtype], cfg["rows_per_block"], cfg["w_in_smem"],
+                cfg["smem_bytes"], stream)
     _raise_on(rc, lib, "backward")
     if keep is None:
         lstm_backward.launches += 1

@@ -8,13 +8,16 @@ port's dependencies:
 
 Tolerances: gather bit-exact; GRU 1e-5 in f32 (same math, another summation
 order) and 3e-2 in bf16 (the plain version rounds every gate op to bf16, the
-kernel only the new h); the bf16 GRU forward's input projection 1e-5 (exact
-bf16 products summed in f32 on both sides, in another order). Scatter-add 1e-5 (f32 atomics: the order of each
+kernel only the new h); the bf16 GRU and LSTM forwards' input projection
+1e-5 (exact bf16 products summed in f32 on both sides, in another order).
+Scatter-add 1e-5 (f32 atomics: the order of each
 row's sum changes from run to run). Head 1e-5 relative (both sides multiply
 in f32, bf16 inputs exactly; only the summation order differs). GRU and
 LSTM backward 1e-4 (f32 carries over T steps, another summation order in
-each step's dot product). LSTM forward 1e-5 in f32 and 5e-2 in bf16 (the
-plain version also rounds its cell state to bf16 every step). The reset
+each step's dot product; the bf16 LSTM reverse recurrence splits its f32 dz
+into two bf16 terms for the tensor cores, which keeps ~2^-17 of it). LSTM
+forward 1e-5 in f32 and 5e-2 in bf16 (the plain version also rounds its
+cell state to bf16 every step). The reset
 variants keep their no-reset counterparts' tolerances, and with an all-zero
 reset plane equal the no-reset kernels bit for bit (a multiply by 1.0). Attention
 2e-5 in f32 (an online softmax sums in another order); in bf16 5e-2 against
@@ -550,17 +553,18 @@ def test_lstm_kernel_matches_plain(cuda, dtype, B, T, D, H):
     assert torch.equal(h, ys[:, -1])
 
 
-@pytest.mark.parametrize("rows_per_block", [1, 2])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype,rows_per_block", [(torch.float32, 1), (torch.float32, 2),
+                                                  (torch.bfloat16, None)])
 def test_lstm_kernel_every_layout_and_the_cell_plane(cuda, rows_per_block, dtype, monkeypatch):
-    """Both row tilings (B not a multiple of R) at H=128, where W_h sits in
-    shared memory in bf16 and both weights are read through L2 in f32; the
-    cell plane the kernel writes for the backward equals the plain serial
-    recompute."""
+    """Each design's row tilings (B not a multiple of R) at H=128 (f32: 1 or
+    2 rows a block, both weights read through L2; bf16: its one n8 tile of
+    8); the cell plane the kernel writes for the backward equals the plain
+    serial recompute."""
     args = [a.detach() for a in _lstm_args(11, 6, 128, 128, dtype, cuda, seed=1)]
-    real = k_lstm.launch_config
-    monkeypatch.setattr(k_lstm, "launch_config",
-                        lambda *a, **kw: real(*a, rows_per_block=rows_per_block))
+    if rows_per_block is not None:
+        real = k_lstm.launch_config
+        monkeypatch.setattr(k_lstm, "launch_config",
+                            lambda *a, **kw: real(*a, rows_per_block=rows_per_block))
     ys, c_last, cs = k_lstm._forward_kernel(
         args[0], args[1], args[2], args[3].to(dtype), args[4].to(dtype), args[5], True)
     want, _ = k_lstm.plain(*args)
@@ -611,7 +615,7 @@ def _lstm_planes(B, T, H, dtype, device, seed=0):
                                      (128, 50, 128, None), (11, 9, 64, 2),
                                      (4, 6, 256, None)])
 def test_lstm_backward_kernel_matches_plain(cuda, dtype, B, T, H, R, monkeypatch):
-    if R is not None:
+    if R is not None and dtype == torch.float32:  # bf16 has its one row tiling
         real = k_lstm.backward_launch_config
         monkeypatch.setattr(k_lstm, "backward_launch_config",
                             lambda *a, **kw: real(*a, rows_per_block=R))
@@ -645,6 +649,93 @@ def test_lstm_autograd_with_kernels_matches_plain_autograd(cuda, B, T, D, H):
     ((ys_p * g).sum() + h_p.sum() + (c_p ** 2).sum()).backward()
     for name, x, y in zip(("x", "h0", "c0", "w_x", "w_h", "b"), got, args):
         torch.testing.assert_close(x, y.grad, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 200])
+@pytest.mark.parametrize("H", [100, 128, 132, 256])
+@pytest.mark.parametrize("reset", [False, True])
+def test_lstm_bf16_kernel_padding_ragged_rows_and_the_cell_plane(cuda, T, H, reset):
+    """The tensor-core forward at H = 100 (padded to 112), 128, 132 and 256
+    (the generic instantiation, fragments read every step), B = 11 (a ragged
+    n8 tile), T around a power of two: ys and c_T within the bf16
+    tolerance, the f32 cell plane against the plain serial recompute, the
+    run without it giving the same bits. With a reset plane: an all-zero
+    plane gives the no-reset kernel's bits, and a reset at t=0 makes the
+    output blind to h0 and c0."""
+    B, D = 11, 64
+    args = [a.detach() for a in _lstm_args(B, T, D, H, torch.bfloat16, cuda, seed=T + H)]
+    x, h0, c0, w_x, w_h, b = args
+    wx, wh = w_x.bfloat16(), w_h.bfloat16()
+    rs = _reset_plane(B, T, cuda, seed=H) if reset else None
+    keep = None if rs is None else 1.0 - rs
+    p0, before = k_lstm.lstm_input_projection.launches, k_lstm.lstm_scan.reset_launches
+    ys, c_last, cs = k_lstm._forward_kernel(x, h0, c0, wx, wh, b, True, keep)
+    torch.cuda.synchronize()
+    assert k_lstm.lstm_input_projection.launches == p0 + 1
+    assert k_lstm.lstm_scan.reset_launches == before + reset
+    want, (_, c_want) = k_lstm.plain(*args, reset_mask=rs)
+    torch.testing.assert_close(ys.float(), want.float(), rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(c_last, c_want.float(), rtol=5e-2, atol=5e-2)
+    x_proj = torch.matmul(x.float(), wx.float()) + b
+    cells = reference.lstm_recompute_cells(x_proj, ys, h0, c0, wh, rs)
+    torch.testing.assert_close(cs, cells, rtol=1e-4, atol=1e-4)
+    assert torch.equal(c_last, cs[:, -1])
+    ys2, c2, none = k_lstm._forward_kernel(x, h0, c0, wx, wh, b, False, keep)
+    assert none is None and torch.equal(ys2, ys) and torch.equal(c2, c_last)
+    if reset:
+        zero = k_lstm.lstm_scan(*args, reset_mask=torch.zeros_like(rs))
+        plain_run = k_lstm.lstm_scan(*args)
+        assert torch.equal(zero[0], plain_run[0]) and torch.equal(zero[1][1], plain_run[1][1])
+        rs[:, 0] = 1.0
+        a = k_lstm.lstm_scan(*args, reset_mask=rs)
+        o = k_lstm.lstm_scan(x, -h0, -c0, w_x, w_h, b, reset_mask=rs)
+        assert torch.equal(a[0], o[0]) and torch.equal(a[1][1], o[1][1])
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 200])
+@pytest.mark.parametrize("H", [100, 128, 132, 256])
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_lstm_bf16_backward_kernel_padding_and_ragged_rows(cuda, T, H, with_keep):
+    """The tensor-core reverse recurrence (dz split into two bf16 terms) at
+    the forward's widths and lengths, B = 11: dz, dh0 and dc0 within 1e-4
+    of the plain f32 loop. With a keep plane: an all-ones plane gives the
+    no-keep kernel's bits, and a reset at t=0 zeroes dh0 and dc0."""
+    B = 11
+    planes = _lstm_planes(B, T, H, torch.bfloat16, cuda, seed=T + H)
+    keep = (1.0 - _reset_plane(B, T, cuda, seed=H))[:, :, None] if with_keep else None
+    dc_last = torch.randn(B, H, device=cuda)
+    got = k_lstm.lstm_backward(*planes, keep, dc_last)
+    torch.cuda.synchronize()
+    want = k_lstm.plain_backward(*planes, keep, dc_last)
+    for name, a, b in zip(("dz", "dh0", "dc0"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+    if with_keep:
+        for a, b in zip(k_lstm.lstm_backward(*planes, torch.ones_like(keep), dc_last),
+                        k_lstm.lstm_backward(*planes, None, dc_last)):
+            assert torch.equal(a, b)
+        keep[:, 0] = 0.0
+        _, dh0, dc0 = k_lstm.lstm_backward(*planes, keep, dc_last)
+        assert not bool(dh0.any()) and not bool(dc0.any())
+
+
+@pytest.mark.parametrize("B,T,D,H", [(128, 200, 128, 128), (64, 200, 128, 128), (3, 5, 4, 12),
+                                     (11, 9, 100, 100), (2, 70, 200, 132)])
+def test_lstm_input_projection_kernel_matches_plain(cuda, B, T, D, H):
+    """The bf16 LSTM forward's input projection: ragged row and column
+    tiles (M = B*T and 4H not multiples of 64), D not a multiple of 16 or
+    of the 64-deep chunk; exact bf16 products summed in f32 on both sides."""
+    rng = np.random.default_rng(B + D)
+    x = torch.from_numpy(rng.normal(size=(B, T, D)).astype(np.float32)).to(cuda).bfloat16()
+    w_x = torch.from_numpy((rng.normal(size=(D, 4 * H)) * D ** -0.5).astype(np.float32))
+    w_x = w_x.to(cuda).bfloat16()
+    b = torch.from_numpy(rng.normal(size=4 * H).astype(np.float32)).to(cuda)
+    before = k_lstm.lstm_input_projection.launches
+    got = k_lstm.lstm_input_projection(x, w_x, b)
+    torch.cuda.synchronize()
+    assert k_lstm.lstm_input_projection.launches == before + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, T, 4 * H)
+    torch.testing.assert_close(got, k_lstm.plain_input_projection(x, w_x, b),
+                               rtol=1e-5, atol=1e-5)
 
 
 TOWERS = {"sasrec": dict(arch="sasrec", num_heads=2, max_len=12),

@@ -211,49 +211,219 @@ def test_lstm_wrappers_on_cpu_are_the_plain_versions():
 
 
 def test_lstm_launch_configs_at_the_training_shape():
-    """bf16: W_h (128 KB) in shared memory, W_x through L2 with two rows a
-    block; f32: W_h alone is 256 KB, so both go through L2. The reverse
-    recurrence keeps W_h^T in shared memory in bf16 only."""
+    """bf16: the tensor-core design, 8 rows a block (16 blocks at B=128), 8
+    warps of 16 units at H=128 with W_h's fragments in registers, the h
+    double buffer [2][128][8] bf16 and three xp stages [8][516] f32 in shared
+    memory, and the projection's 64 x 64 tiles over B*T = 25,600 rows and
+    4H = 512 columns; the reverse recurrence the same blocks with its dz^T
+    buffer [hi, lo][512][8] bf16, three stages of six [8][132] f32 gate
+    planes and [8][136] bf16 g_ys, and the sums its warp pairs exchange
+    ([8][32][4] f32). f32: the CUDA-core design, W_h alone
+    is 256 KB, so both weights go through L2; the reverse recurrence reads
+    W_h^T through L2 too."""
     assert cuda_lstm.launch_config(128, 200, 128, 128, torch.bfloat16) == {
-        "grid": 64, "threads": 128, "rows_per_block": 2, "wh_in_smem": 1,
-        "wx_in_smem": 0, "smem_bytes": 2 * 2 * 128 * 4 + 2 * 2 * 128 * 2 + 128 * 512 * 2}
+        "design": "mma.sync", "grid": 16, "threads": 256, "rows_per_block": 8,
+        "hidden_padded": 128, "wh_in_regs": 1,
+        "smem_bytes": 2 * 128 * 8 * 2 + 3 * 8 * 516 * 4,
+        "xproj_grid": [400, 8], "xproj_threads": 128}
     f32 = cuda_lstm.launch_config(128, 200, 128, 128, torch.float32)
-    assert (f32["rows_per_block"], f32["wh_in_smem"], f32["wx_in_smem"]) == (2, 0, 0)
+    assert (f32["design"], f32["rows_per_block"], f32["wh_in_smem"],
+            f32["wx_in_smem"]) == ("cuda-core", 2, 0, 0)
     small = cuda_lstm.launch_config(64, 200, 64, 64, torch.float32)
     assert (small["rows_per_block"], small["wh_in_smem"], small["wx_in_smem"]) == (1, 1, 1)
     assert cuda_lstm.backward_launch_config(128, 200, 128, torch.bfloat16) == {
-        "grid": 128, "threads": 128, "rows_per_block": 1, "w_in_smem": 1,
-        "smem_bytes": 2 * 512 * 4 + 512 * 128 * 2}
+        "design": "mma.sync", "grid": 16, "threads": 256, "rows_per_block": 8,
+        "hidden_padded": 128, "w_in_regs": 1, "dz_terms": 2,
+        "smem_bytes": 2 * 512 * 8 * 2 + 3 * (6 * 8 * 132 * 4 + 8 * 136 * 2) + 8 * 32 * 16}
     bwd32 = cuda_lstm.backward_launch_config(128, 200, 128, torch.float32)
-    assert (bwd32["rows_per_block"], bwd32["w_in_smem"]) == (2, 0)
+    assert (bwd32["design"], bwd32["rows_per_block"], bwd32["w_in_smem"]) == (
+        "cuda-core", 2, 0)
     for cfg in (f32, small, bwd32):
         assert cfg["smem_bytes"] <= cuda_lstm.SMEM_LIMIT
 
 
+@pytest.mark.parametrize("H,hp,hb,in_regs", [(4, 16, 32, 1), (64, 64, 64, 1),
+                                             (100, 112, 128, 1), (128, 128, 128, 1),
+                                             (132, 144, 160, 0), (256, 256, 256, 0)])
+def test_lstm_bf16_pads_the_hidden_width_to_whole_mma_tiles(H, hp, hb, in_regs):
+    """H pads to a multiple of 16 in the forward and of 32 in the reverse
+    recurrence (whose warps pair up): Hp / 16 warps, W_h's fragments in
+    registers up to Hp = 128; every width the CUDA-core design took in bf16
+    is taken, and the rings fit a block's shared memory up to H = 256."""
+    fwd = cuda_lstm.launch_config(3, 7, 8, H, torch.bfloat16)
+    bwd = cuda_lstm.backward_launch_config(3, 7, H, torch.bfloat16)
+    assert (fwd["hidden_padded"], fwd["threads"], fwd["wh_in_regs"]) == (hp, 2 * hp, in_regs)
+    assert (bwd["hidden_padded"], bwd["threads"], bwd["w_in_regs"]) == (hb, 2 * hb, in_regs)
+    assert fwd["smem_bytes"] == 2 * hp * 8 * 2 + 3 * 8 * (4 * hp + 4) * 4 <= cuda_lstm.SMEM_LIMIT
+    bwd_ring = 3 * (6 * 8 * (hb + 4) * 4 + 8 * (hb + 8) * 2)
+    bwd_smem = 2 * 4 * hb * 8 * 2 + bwd_ring + hb // 16 * 32 * 16
+    assert bwd["smem_bytes"] == bwd_smem <= cuda_lstm.SMEM_LIMIT
+    assert fwd["xproj_grid"] == [1, -(-4 * H // 64)]
+
+
+@pytest.mark.parametrize("B,grid", [(128, 16), (64, 8), (11, 2), (1, 1)])
+def test_lstm_bf16_rows_per_block(B, grid):
+    """8 batch rows a block (one n8 tile) in both recurrences, a ragged last
+    block; the row count is the f32 design's choice alone, and a bf16
+    request for one raises."""
+    for cfg in (cuda_lstm.launch_config(B, 50, 64, 64, torch.bfloat16),
+                cuda_lstm.backward_launch_config(B, 50, 64, torch.bfloat16)):
+        assert (cfg["rows_per_block"], cfg["grid"]) == (cuda_lstm.MMA_ROWS, grid) == (8, grid)
+    with pytest.raises(ValueError, match="rows_per_block is the f32 design's"):
+        cuda_lstm.launch_config(B, 50, 64, 64, torch.bfloat16, rows_per_block=2)
+    with pytest.raises(ValueError, match="rows_per_block is the f32 design's"):
+        cuda_lstm.backward_launch_config(B, 50, 64, torch.bfloat16, rows_per_block=1)
+
+
+def _unpack_fragments(frags: torch.Tensor, M: int, K: int) -> np.ndarray:
+    """[M/16, K/16, 32, 8] -> [M, K], lane by lane and register by register
+    from the PTX ISA's map of mma.m16n8k16's A fragment (g = lane / 4,
+    q = lane % 4; a0 = (g, 2q..2q+1), a1 = (g+8, ..), a2 = (g, 2q+8..),
+    a3 = (g+8, 2q+8..))."""
+    f = _np(frags)
+    a = np.full((M, K), np.nan, np.float32)
+    for mt in range(M // 16):
+        for st in range(K // 16):
+            for lane in range(32):
+                g, q = divmod(lane, 4)
+                for r, (dm, dk) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
+                    for pair in range(2):
+                        a[16 * mt + g + dm, 16 * st + 2 * q + dk + pair] = \
+                            f[mt, st, lane, 2 * r + pair]
+    return a
+
+
 @pytest.mark.parametrize("dtype,P", [(torch.float32, 4), (torch.bfloat16, 8)])
 def test_lstm_weights_are_k_packed_for_16_byte_reads(dtype, P):
-    """The forward kernel reads W [K, 4H] as [K/P, 4H, P]: P consecutive k
-    rows of one column in 16 bytes."""
-    w = torch.arange(16 * 12, dtype=torch.float32).reshape(16, 12).to(dtype)
-    packed = cuda_lstm.pack_k(w)
-    assert tuple(packed.shape) == (16 // P, 12, P) and packed.is_contiguous()
-    for kb, c, p in ((0, 0, 0), (1, 5, P - 1), (16 // P - 1, 11, 2)):
-        assert packed[kb, c, p] == w[kb * P + p, c]
+    """f32: the forward kernel reads W [K, 4H] as [K/P, 4H, P], P consecutive
+    k rows of one column in 16 bytes. bf16: the tensor-core kernels read
+    W_h as packed mma.sync A fragments, a lane's P values (its four
+    registers) in 16 bytes: the forward W_h^T gate by gate, the reverse
+    recurrence W_h with each gate's columns padded to Hp, a warp's two tiles
+    over its half of the k-steps; zero past H (H = 20 pads to 32)."""
+    if dtype == torch.float32:
+        w = torch.arange(16 * 12, dtype=torch.float32).reshape(16, 12).to(dtype)
+        packed = cuda_lstm.pack_k(w)
+        assert tuple(packed.shape) == (16 // P, 12, P) and packed.is_contiguous()
+        for kb, c, p in ((0, 0, 0), (1, 5, P - 1), (16 // P - 1, 11, 2)):
+            assert packed[kb, c, p] == w[kb * P + p, c]
+        return
+    H, hp = 20, 32
+    w_h = torch.arange(H * 4 * H, dtype=torch.float32).reshape(H, 4 * H).to(dtype)
+    fwd = cuda_lstm.forward_fragments(w_h)
+    assert fwd.dtype == dtype and fwd.is_contiguous()
+    assert tuple(fwd.shape) == (hp // 16, hp // 16, 4, 32, P) and fwd[0, 0, 0, 0].numel() * 2 == 16
+    wn = _np(w_h)
+    for q in range(4):
+        want = np.zeros((hp, hp), np.float32)
+        want[:H, :H] = wn[:, q * H:(q + 1) * H].T  # A_q[unit][k] = W_h[k, q H + unit]
+        np.testing.assert_array_equal(_unpack_fragments(fwd[:, :, q], hp, hp), want)
+    bwd = cuda_lstm.backward_fragments(w_h)
+    mt = hp // 16
+    assert tuple(bwd.shape) == (mt, 2 * mt, 2, 32, P) and bwd.is_contiguous()
+    want = np.zeros((hp, 4 * hp), np.float32)
+    for q in range(4):
+        want[:H, q * hp:q * hp + H] = wn[:, q * H:(q + 1) * H]
+    # Back to [tile][k-step]: warp 2 j + h, k-step s of its half, tile i of
+    # its pair hold tile 2 j + i at k-step h * 2 mt + s.
+    by_tile = torch.zeros(mt, 4 * mt, 32, P, dtype=dtype)
+    for w in range(mt):
+        for sl in range(2 * mt):
+            for i in range(2):
+                by_tile[2 * (w // 2) + i, (w % 2) * 2 * mt + sl] = bwd[w, sl, i]
+    np.testing.assert_array_equal(_unpack_fragments(by_tile, hp, 4 * hp), want)
 
 
 @pytest.mark.parametrize("shape,dtype,match", [
     ((4, 5, 8, 12), torch.float64, "dtype"),
     ((4, 5, 8, 10), torch.float32, "H % 4"),
     ((4, 5, 6, 12), torch.float32, r"D\*4 % 16"),
-    ((4, 5, 4, 12), torch.bfloat16, r"D\*2 % 16"),
+    ((4, 5, 6, 12), torch.bfloat16, r"D\*2 % 8"),
     ((4, 5, 8, 260), torch.float32, "H <= 256"),
     ((0, 5, 8, 12), torch.float32, "empty"),
     ((4, 5, 8, 12), torch.float32, "rows_per_block"),
+    ((4, 5, 8, 12), torch.bfloat16, "rows_per_block is the f32 design's"),
 ])
 def test_lstm_kernel_rejects_what_it_cannot_take(shape, dtype, match):
     with pytest.raises(ValueError, match=match):
         cuda_lstm.launch_config(*shape, dtype,
-                                rows_per_block=3 if match == "rows_per_block" else None)
+                                rows_per_block=3 if "rows_per_block" in match else None)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_lstm_input_projection_on_cpu_matches_the_pallas_step_xp(with_bias):
+    """The bf16 forward's input projection (the part of `_lstm_step_body`'s
+    step that does not depend on h, lstm.py:89-93, b included) against the
+    same jnp.dot with preferred_element_type=f32; on the CPU the wrapper is
+    the plain version and launches nothing."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(3, 5, 12)).astype(np.float32)
+    w_x = (rng.normal(size=(12, 32)) * 12 ** -0.5).astype(np.float32)
+    b = (rng.normal(size=32) * 0.1 * with_bias).astype(np.float32)
+    xb, wb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w_x, jnp.bfloat16)
+    want = jnp.dot(xb, wb, preferred_element_type=jnp.float32) + jnp.asarray(b)
+    before = cuda_lstm.lstm_input_projection.launches
+    got = cuda_lstm.lstm_input_projection(torch.from_numpy(x).bfloat16(),
+                                          torch.from_numpy(w_x).bfloat16(), torch.from_numpy(b))
+    assert cuda_lstm.lstm_input_projection.launches == before
+    assert got.dtype == torch.float32 and tuple(got.shape) == (3, 5, 32)
+    np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
+
+
+class _SplitBf16Product:
+    """W_h as the bf16 reverse recurrence multiplies by it, for
+    `reference.lstm_bwd_scan`'s `dz @ w_h.float().T`: dz (f32) split into
+    `terms` bf16 parts, each the rounding of what the earlier ones left,
+    every part's product with the bf16-valued W_h^T summed in f32."""
+
+    def __init__(self, w_h: torch.Tensor, terms: int):
+        self.w_t, self.terms = w_h.float().T, terms
+
+    def float(self):
+        return self
+
+    @property
+    def T(self):
+        return self
+
+    def __rmatmul__(self, dz):
+        out, rest = torch.zeros(dz.shape[0], self.w_t.shape[1]), dz
+        for _ in range(self.terms):
+            part = rest.bfloat16().float()
+            out, rest = out + part @ self.w_t, rest - part
+        return out
+
+
+def test_lstm_split_bf16_product_keeps_the_f32_contract():
+    """The reverse recurrence's contract is an f32 dz times bf16-valued
+    weights, summed in f32 (the reference's dz is f32). Through
+    `reference.lstm_bwd_scan`'s own loop at B=8, T=200, H=128 on seeded
+    planes and an orthogonal W_h: with dz split as the kernel splits it,
+    hi = bf16(dz) and lo = bf16(dz - hi), dz, dh0 and dc0 stay within 1e-4
+    of the f32 product relative to their largest values (the card check's
+    tolerance), with room to spare; one bf16 term alone, rounding dz to 8
+    bits every step, does not."""
+    B, T, H = 8, 200, 128
+    rng = np.random.default_rng(12)
+
+    def t(*shape, gate=False):
+        a = rng.uniform(0.05, 0.95, size=shape) if gate else rng.normal(size=shape) * 0.5
+        return torch.from_numpy(a.astype(np.float32))
+
+    i, f, o = t(B, T, H, gate=True), t(B, T, H, gate=True), t(B, T, H, gate=True)
+    g, tanh_c, c_in = torch.tanh(t(B, T, H)), torch.tanh(t(B, T, H)), t(B, T, H)
+    g_ys, dc_last = t(B, T, H).bfloat16(), t(B, H)
+    q, r = np.linalg.qr(rng.normal(size=(4 * H, H)))
+    w_h = torch.from_numpy((q * np.sign(np.diag(r))).T.astype(np.float32)).bfloat16()
+    planes = (i, f, g, o, tanh_c, c_in, g_ys)
+    want = reference.lstm_bwd_scan(*planes, w_h, None, dc_last)
+
+    def rel(terms):
+        got = reference.lstm_bwd_scan(*planes, _SplitBf16Product(w_h, terms), None, dc_last)
+        return max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want))
+
+    assert rel(2) < 1e-4 / 10
+    assert rel(1) > 1e-4
 
 
 # ---------------------------------------------------------------------------
