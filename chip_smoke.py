@@ -30,7 +30,9 @@ source, all at once). Each phase prints one JSON line:
               planted out-of-range ids; the GRU reverse recurrence (d_xp,
               dh0) and the weight gradients through autograd, bf16 and f32;
               the sampled-softmax head's NLL and its loss and gradients,
-              bf16 and f32; with kernel, plain, library and bound times;
+              bf16 and f32, and the device time of its backward (a plain
+              recompute); with kernel, plain, library and bound times and
+              each kernel's design (mma.sync or cuda-core);
   f. train    `Trainer.train_step_multi` on the same configuration at full
               width: Zipf histories of 5..200 items packed into [8, 128, 202]
               int16 wire groups, six groups through the kernels (counters
@@ -628,7 +630,8 @@ def _leaf_grads(scan, leaves, rest, reset, g):
 
 def _gru_backward_checks(rng, dev, x32, reset=None) -> dict:
     """The GRU reverse recurrence against its plain version, bf16 and f32, on
-    the planes of a kernel forward, and the whole backward through autograd
+    the projections of a kernel forward (the bf16 kernel recomputes the
+    gates from them), and the whole backward through autograd
     (forward and backward kernels). Without `reset` (h0 = 0), also the cuDNN
     yardstick. With a [B, T] `reset` plane (and a random h0), the keep
     variant: also bit-exact against the no-keep kernel on an all-ones plane,
@@ -646,12 +649,12 @@ def _gru_backward_checks(rng, dev, x32, reset=None) -> dict:
         with torch.no_grad():
             ys, _ = k_gru.gru_scan(x, h0, wx_c, wh_c, b_x, b_h, reset_mask=reset)
             x_proj = torch.matmul(x.float(), wx_c.float()) + b_x
-            h_in, keep, r, z, n, hn = reference.gru_bwd_hoist(x_proj, ys, h0, wh_c, b_h, reset)
-        planes = (r, z, n, hn, h_in, g, wh_c)
-        d_xp, dh0 = k_gru.gru_backward(*planes, keep)
+            h_in, keep, h_proj = reference.gru_bwd_project(x_proj, ys, h0, wh_c, b_h, reset)
+        planes = (x_proj, h_proj, h_in, g, wh_c)
+        got_b = k_gru.gru_backward(*planes, keep)
         torch.cuda.synchronize()
-        want_xp, want_h0 = k_gru.plain_backward(*planes, keep)
-        errs = {"d_xp": rel_err(d_xp, want_xp), "dh0": rel_err(dh0, want_h0)}
+        want_b = k_gru.plain_backward(*planes, keep)
+        errs = {k: rel_err(a, b) for k, a, b in zip(("d_xp", "dh0", "dn_r"), got_b, want_b)}
         for k, e in errs.items():
             check(e <= GRU_BWD_TOL, f"{name}: {k} kernel vs plain relative err {e} > "
                                     f"{GRU_BWD_TOL}")
@@ -680,20 +683,29 @@ def _gru_backward_checks(rng, dev, x32, reset=None) -> dict:
         w_errs = {k: rel_err(a, b) for k, a, b in zip(("d_x", "dh0", "dW_x", "dW_h"), got, want)}
         for k, e in w_errs.items():
             check(e <= w_tol, f"{name}: {k} through autograd relative err {e} > {w_tol}")
-        # The kernel works in h_in's dtype: x's, or f32 with a keep plane.
-        hs = h_in.element_size()
-        b_bytes = (4 * B * T * H * 4 + 2 * B * T * H * hs + 3 * H * H * hs
-                   + B * T * 3 * H * 4 + B * H * 4 + (0 if keep is None else B * T * 4))
-        # d_hproj is f32, so the product runs at the f32 rate.
+        # bf16 weights: the tensor-core design, h_in in its own dtype (x's, or
+        # f32 with a keep plane) and g_ys in bf16; f32 weights: CUDA cores, f32.
+        # In: the two projections, h_in, g_ys, W_h (and keep); out: d_xp,
+        # dn_r, dh0.
+        launch = k_gru.backward_launch_config(B, T, H, wh_c.dtype, h_in_dtype=h_in.dtype)
+        mma = launch["design"] == "mma.sync"
+        hs, gs, ws = h_in.element_size(), 2 if mma else 4, wh_c.element_size()
+        b_bytes = (2 * B * T * 3 * H * 4 + B * T * H * (hs + gs) + 3 * H * H * ws
+                   + B * T * 3 * H * 4 + B * T * H * 4 + B * H * 4
+                   + (0 if keep is None else B * T * 4))
         b_flops = 2 * B * T * 3 * H * H
-        b_bound, b_by = bound(b_bytes, b_flops, torch.float32)
+        if mma:
+            # d_hproj goes to the tensor cores as bf16 terms: their products.
+            b_bound, b_by = bound(b_bytes, launch["d_terms"] * b_flops, torch.bfloat16)
+        else:
+            b_bound, b_by = bound(b_bytes, b_flops, torch.float32)
         out[_dname(dtype)] = {
             "shape": {"B": B, "T": T, "H": H, "dtype": _dname(dtype),
-                      "kernel_dtype": _dname(h_in.dtype)},
-            "launch": k_gru.backward_launch_config(B, T, H, h_in.dtype),
+                      "h_in_dtype": _dname(h_in.dtype)},
+            "launch": launch, "design": launch["design"],
             "rel_err": errs, "tolerance": GRU_BWD_TOL,
             "autograd_rel_err": w_errs, "autograd_tolerance": w_tol,
-            "max_abs_err": max(max_err(d_xp, want_xp), max_err(dh0, want_h0)),
+            "max_abs_err": max(max_err(a, b) for a, b in zip(got_b, want_b)),
             "kernel_ms": time_ms(lambda: k_gru.gru_backward(*planes, keep)),
             "plain_ms": time_ms(lambda: k_gru.plain_backward(*planes, keep), reps=5),
             "bound_ms": b_bound, "bound_by": b_by, "bytes": int(b_bytes),
@@ -771,10 +783,16 @@ def _head_checks(rng, dev, table) -> dict:
         h_flops = 2 * N * S * D + 2 * N * D
         h_bound, h_by = bound(h_bytes, h_flops, dtype)
         hb, nb = args[0], args[2]
+        launch = k_head.launch_config(N, S, D, dtype)
+        g = torch.ones(N, device=dev)
         out[name] = {
             "shape": {"N": N, "S": S, "H": D, "dtype": name, "accidental_hits": hits},
-            "launch": k_head.launch_config(N, S, D, dtype),
+            "launch": launch, "design": launch["design"],
             "max_abs_err": err, "tolerance": HEAD_TOL,
+            # The backward, the JAX package's recompute in plain tensor code
+            # (no kernel here or there): its device time beside the forward's.
+            "backward_recompute_ms": time_ms(
+                lambda: reference.sampled_softmax_nll_bwd(g, *args)),
             "loss_rel_err": loss_rel, "grad_rel_err": grad_rel, "loss_tolerance": tol,
             "kernel_ms": time_ms(lambda: k_head.sampled_softmax_nll(*args)),
             "plain_ms": time_ms(lambda: k_head.plain(*args)),
@@ -1491,9 +1509,8 @@ def main(argv=None) -> int:
          "bfloat16", "lstm"),
         ("gru_scan_reset", "gru.cu", "gru.py:135", skern["gru_scan_reset"]["rsc15"]["bfloat16"],
          "bfloat16", "rsc15_gru4rec_session"),
-        # With a keep plane the reverse recurrence runs in f32 (h_in is f32).
         ("gru_backward_reset", "gru.cu", "gru.py:255",
-         skern["gru_backward_reset"]["rsc15"]["bfloat16"], "float32", "rsc15_gru4rec_session"),
+         skern["gru_backward_reset"]["rsc15"]["bfloat16"], "bfloat16", "rsc15_gru4rec_session"),
         ("lstm_scan_reset", "lstm.cu", "lstm.py:112",
          skern["lstm_scan_reset"]["ml1m"]["bfloat16"], "bfloat16", "lstm_session"),
         ("lstm_backward_reset", "lstm.cu", "lstm.py:265",

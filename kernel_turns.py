@@ -3,6 +3,7 @@ NVIDIA GPU: parent, change, change, parent.
 
     git archive <parent commit> seqrec_tpu_torch chip_smoke.py configs | tar -x -C <dir>
     python3 kernel_turns.py --parent <dir> [--out FILE]
+    python3 kernel_turns.py --parent <dir> --pairs 10 [--path gru4rec] [--out FILE]
 
 <dir> is a directory that .gitignore lists, inside the checkout or not.
 
@@ -21,27 +22,41 @@ A turn times, by CUDA events (chip_smoke.time_ms, median of 21 runs):
     at B=64 and B=128, T=200, D=H=128 (and f32 at B=64), beside
     torch.nn.GRU in f32 (cuDNN, TF32 off); its reset variant bf16 at B=256,
     T=50, D=H=100; the GRU reverse recurrence bf16 at B=128, T=200,
-    D=H=128; the LSTM forward bf16 at B=64 and B=128 (and f32 at B=128),
+    D=H=128 and its keep path at B=256, T=50, D=H=100 (each checkout's
+    kernel on the operands its own backward hands it), and the whole bf16
+    GRU backward through gru_scan's autograd at both shapes; the
+    sampled-softmax head forward at N=25,600, S=256, H=128, bf16 and f32;
+    the LSTM forward bf16 at B=64 and B=128 (and f32 at B=128),
     its reset variant bf16 at B=128, beside torch.nn.LSTM in f32 (cuDNN,
     TF32 off) forward and backward (fwd+bwd - fwd) on the same inputs; the
     LSTM reverse recurrence bf16 at B=128, without and with a keep plane;
   - the main paths, through chip_smoke's phases: GRU4Rec, SASRec and LSTM
     serving (encode ms and batch ms), GRU4Rec, SASRec and LSTM training
-    (device forward and step ms, and the wall step ms), and rsc15_gru4rec
-    and ml1m_lstm session training (the same); and each serving model's
+    (device forward and step ms, the wall step ms and the device launches a
+    step), and rsc15_gru4rec and ml1m_lstm session training (the same); and
+    each serving model's
     `encode` of one batch of 64 behind a ~30 ms device sleep
     (`encode_device_ms`), so that the events bracket the device's work even
     where the host takes longer than chip_smoke's ~1 ms sleep to queue a
     batch's launches (SASRec's encode).
 
+With --pairs N, a turn is only one training path (--path, a chip_smoke
+CONFIGS key, default gru4rec): chip_smoke.phase_train with two groups, its
+device step split (CUDA events, median of a group of 8 steps), wall step and
+device launches a step; N pairs of turns, the order alternating (parent
+first in even pairs), for a difference smaller than the four-turn run's
+spread.
+
 The last line is one JSON object: {"device": ..., "turns": [{"label",
-"root", "kernels": {...}, "paths": {...}}, ...]}. It exits non-zero
-without CUDA or when a turn fails.
+"root", "kernels": {...}, "paths": {...}}, ...]} (with --pairs, each turn
+{"label", "root", "pair", "path": {...}}). It exits non-zero without CUDA or
+when a turn fails.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -53,6 +68,22 @@ ORDER = ("parent", "change", "change", "parent")
 RESET_EVERY = 6  # a session start about every 6 positions, as chip_smoke's rsc15 planes
 
 
+def _path_worker(label: str, path: str) -> dict:
+    """One training path's step on this checkout, on the data of rng 1."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    over = {"sasrec": ("train.warmup_steps=0",)}.get(path, ())
+    r = cs.phase_train(np.random.default_rng(1), torch.device("cuda", 0), 0, path, groups=2,
+                       overrides=over)
+    return {"label": label, "root": str(Path.cwd()),
+            "path": {"device_step_ms": r["device_step_ms"], "step_ms": r["step_ms_median"],
+                     "device_launches_per_step": r["profile"]["device_launches_per_step"]}}
+
+
 def _worker(label: str) -> dict:
     import numpy as np
     import torch
@@ -62,9 +93,10 @@ def _worker(label: str) -> dict:
     from seqrec_tpu_torch.eval import infer
     from seqrec_tpu_torch.models import build_model
     from seqrec_tpu_torch.models.convert import flax_to_state_dict, random_params
-    from seqrec_tpu_torch.ops import _build
+    from seqrec_tpu_torch.ops import _build, reference
     from seqrec_tpu_torch.ops.cuda import attention as k_attn
     from seqrec_tpu_torch.ops.cuda import gru as k_gru
+    from seqrec_tpu_torch.ops.cuda import head as k_head
     from seqrec_tpu_torch.ops.cuda import lstm as k_lstm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -118,16 +150,53 @@ def _worker(label: str) -> dict:
     kern["gru_reset_bfloat16_B256_rsc15"] = {
         "ms": med(lambda: k_gru.gru_scan(xb, hb, *w, reset_mask=reset))}
 
-    x, h0, _ = gru_inputs(128, 200, 128)
+    def gru_reverse(x, h0, w, reset=None):
+        """(ms of the reverse-recurrence kernel, ms of the whole backward
+        through gru_scan's autograd), bf16, on a kernel forward: the kernel on
+        the operands the checkout's own backward hands it, the two projections
+        of reference.gru_bwd_project (a wrapper that recomputes the gates
+        inside) or, in a checkout whose wrapper takes the gate planes, those
+        of its reference.gru_bwd_hoist."""
+        w_x, w_h, b_x, b_h = w
+        xb, hb, wxb, whb = x.bfloat16(), h0.bfloat16(), w_x.bfloat16(), w_h.bfloat16()
+        with torch.no_grad():
+            ys, _ = k_gru.gru_scan(xb, hb, wxb, whb, b_x, b_h, reset_mask=reset)
+            x_proj = torch.matmul(xb.float(), wxb.float()) + b_x
+            g = torch.randn_like(ys)
+            if "x_proj" in inspect.signature(k_gru.gru_backward).parameters:
+                h_in, keep, h_proj = reference.gru_bwd_project(x_proj, ys, hb, whb, b_h, reset)
+                args = (x_proj, h_proj, h_in, g, whb, keep)
+            else:
+                h_in, keep, *gates = reference.gru_bwd_hoist(x_proj, ys, hb, whb, b_h, reset)
+                args = (*gates, h_in, g, whb, keep)
+        kernel_ms = med(lambda: k_gru.gru_backward(*args))
+        leaves = [xb.requires_grad_(True), hb.requires_grad_(True),
+                  *(t.clone().requires_grad_(True) for t in w)]
+        ys, _ = k_gru.gru_scan(*leaves, reset_mask=reset)
+        return kernel_ms, med(lambda: torch.autograd.backward(ys, g, retain_graph=True))
+
+    ms, autograd_ms = gru_reverse(x, h0, w, reset)
+    kern["gru_backward_keep_bfloat16_B256_rsc15"] = {"ms": ms, "autograd_backward_ms": autograd_ms}
+    x, h0, w = gru_inputs(128, 200, 128)
     H = 128
-    planes = [torch.from_numpy(rng.uniform(0.05, 0.95, size=(128, 200, H)).astype(np.float32))
-              .to(dev) for _ in range(4)]
-    h_in = torch.tanh(x).bfloat16()
-    g = (x * 0.1).bfloat16()
-    wh = (torch.from_numpy(rng.normal(size=(H, 3 * H)).astype(np.float32)) * H ** -0.5)
-    wh = wh.to(dev).bfloat16()
-    kern["gru_backward_bfloat16_B128"] = {
-        "ms": med(lambda: k_gru.gru_backward(*planes, h_in, g, wh))}
+    ms, autograd_ms = gru_reverse(x, h0, w)
+    kern["gru_backward_bfloat16_B128"] = {"ms": ms, "autograd_backward_ms": autograd_ms}
+
+    # The sampled-softmax head at GRU4Rec's training shape: N = B*T rows,
+    # S = 256 shared negatives, H = 128, rows of a table at Zipf ids.
+    N, S = 128 * 200, 256
+    table = torch.from_numpy(rng.normal(scale=H ** -0.5, size=(cs.VOCAB, H))
+                             .astype(np.float32)).to(dev)
+    targets = torch.from_numpy(cs.zipf_items(rng, N, ranked=True).astype(np.int32)).to(dev)
+    neg_ids = torch.from_numpy(cs.zipf_items(rng, S, ranked=True).astype(np.int32)).to(dev)
+    hh = torch.tanh(torch.from_numpy(rng.normal(size=(N, H)).astype(np.float32))).to(dev)
+    plq = torch.from_numpy(rng.normal(size=N).astype(np.float32) - 6).to(dev)
+    nlq = torch.from_numpy(rng.normal(size=S).astype(np.float32) - 6).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        hargs = (hh.to(dtype), table[targets.long()].to(dtype), table[neg_ids.long()].to(dtype),
+                 targets, neg_ids, plq, nlq)
+        kern[f"head_{dname(dtype)}_N{N}"] = {
+            "ms": med(lambda: k_head.sampled_softmax_nll(*hargs))}
 
     # The LSTM: forward scans beside nn.LSTM f32 on the same values, then the
     # reverse recurrence on gate planes of the forward's ranges.
@@ -217,7 +286,8 @@ def _worker(label: str) -> dict:
         r = cs.phase_train(rng, dev, 0, path, groups=2, overrides=over)
         paths[key] = {"device_forward_ms": r["device_step_ms"]["forward"],
                       "device_step_ms": r["device_step_ms"]["total"],
-                      "step_ms": r["step_ms_median"]}
+                      "step_ms": r["step_ms_median"],
+                      "device_launches_per_step": r["profile"]["device_launches_per_step"]}
     return {"label": label, "root": str(Path.cwd()), "kernels": kern, "paths": paths}
 
 
@@ -225,11 +295,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="root of the parent checkout")
     ap.add_argument("--out", help="also write the result (indented JSON) to this file")
+    ap.add_argument("--pairs", type=int, default=0,
+                    help="time one training path in this many alternating pairs instead")
+    ap.add_argument("--path", default="gru4rec", help="the training path of --pairs")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
         sys.path.insert(0, str(Path.cwd()))
-        print(json.dumps(_worker(args.worker)), flush=True)
+        rec = _path_worker(args.worker, args.path) if args.pairs else _worker(args.worker)
+        print(json.dumps(rec), flush=True)
         return 0
 
     import torch
@@ -243,16 +317,24 @@ def main(argv=None) -> int:
     roots = {"parent": Path(args.parent).resolve(), "change": HERE}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    if args.pairs:
+        order = [(i, label) for i in range(args.pairs)
+                 for label in (ORDER[:2] if i % 2 == 0 else ORDER[2:])]
+        extra = ["--pairs", str(args.pairs), "--path", args.path]
+    else:
+        order, extra = [(None, label) for label in ORDER], []
     turns = []
-    for label in ORDER:
+    for pair, label in order:
         root = roots[label]
-        cmd = [sys.executable, str(HERE / "kernel_turns.py"), "--worker", label]
+        cmd = [sys.executable, str(HERE / "kernel_turns.py"), "--worker", label, *extra]
         env = dict(os.environ, PYTHONPATH=str(root))
         r = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True)
         if r.returncode != 0:
             print(r.stdout[-4000:], r.stderr[-8000:], file=sys.stderr)
             return 1
         turns.append(json.loads(r.stdout.strip().splitlines()[-1]))
+        if pair is not None:
+            turns[-1]["pair"] = pair
         print(json.dumps({"turn": label, **turns[-1]}), flush=True)
     result = {"device": smi, "turns": turns}
     if args.out:

@@ -66,35 +66,69 @@
 // x[t+1] is copied to shared memory with cp.async while step t computes.
 // The projection is computed inside the step.
 //
-// Backward (seqrec_gru_backward): the reverse recurrence of the analytic
-// BPTT. Replaces the `lax.scan(step, ..., reverse=True)` inside
-// seqrec_tpu/ops/pallas/gru.py::_gru_bwd_math (the TPU package's backward
-// runs it as XLA ops; its hoisted products stay outside, here as
-// torch.matmul). Given the recomputed gate planes r, z, n, hn [B, T, H] f32,
-// the consumed states h_in and the output cotangents g_ys [B, T, H], per step
-// t = T-1 .. 0 with an f32 carry dh_next:
+// Backward (seqrec_gru_backward_mma, seqrec_gru_backward): the reverse
+// recurrence of the analytic BPTT. Replaces the `lax.scan(step, ...,
+// reverse=True)` inside seqrec_tpu/ops/pallas/gru.py::_gru_bwd_math (the TPU
+// package's backward runs it as XLA ops; its hoisted products stay outside,
+// here as torch.matmul). Given the recomputed gates r, z, n, hn [B, T, H]
+// f32, the consumed states h_in and the output cotangents g_ys [B, T, H],
+// per step t = T-1 .. 0 with an f32 carry dh_next:
 //   dh = dh_next + g_y
 //   dpre_n = dh (1-z) (1-n^2),  dpre_z = dh (h_in-n) z (1-z),
 //   dpre_r = dpre_n hn r (1-r)
 //   d_xp[t] = [dpre_r | dpre_z | dpre_n]                      (written, f32)
 //   d_hproj = [dpre_r | dpre_z | dpre_n r]
 //   dh_next = dh z + d_hproj @ W_h^T
-// What bounds it: as the forward, the 200-step serial chain; the bytes
-// (four f32 gate planes, h_in, g_ys, d_xp: ~105 MB at B=128, T=200, H=128
-// in bf16) are ~31 us and the operations ~2.5 us of the card's rates.
-// Design: the forward's, mirrored. A block owns R batch rows for the whole
-// reverse loop with one thread per hidden unit i, which keeps its row's
-// carry dh[i] in a register; only d_hproj (3H floats a row) is exchanged,
-// through a double-buffered shared array: one barrier a step. W_h^T [3H, H]
-// lives in shared memory when it fits (96 KB in bf16 at H=128) and is read
-// through L2 otherwise, so thread i's reads W_h^T[c][i] are consecutive
-// across the warp. The next step's six gate-plane values are loaded into
-// registers while the current step computes.
 // Reset variant (the keep path of _gru_bwd_math, gru.py:255-258): after the
-// W_h^T product, dh_next *= keep[t], read with the step's planes. With a
-// keep plane the wrapper passes h_in and W_h^T in f32 (reference.gru_bwd_hoist
-// scales h_in in f32, as _gru_bwd_math runs in x_proj's f32): W_h^T is
-// 120 KB at H=100 and 196 KB at H=128, and stays in shared memory.
+// W_h^T product, dh_next *= keep[t], read with the step's planes.
+// What bounds it: as the forward, the 200-step serial chain; the bytes
+// (two f32 projections, h_in, g_ys, d_xp and dn_r: ~144 MB at B=128,
+// T=200, H=128 in bf16) are ~43 us of the card's rate, more than its
+// operations take.
+// Two designs, chosen by W_h's dtype:
+//
+// bf16 weights (gru_backward_mma_kernel; every shipped config, both
+// variants): csrc/lstm.cu's reverse recurrence with three gates.
+// dh_prev^T = W_h d_hproj^T on mma.sync, the hidden units as M and 8 batch
+// rows as N, K = 3 Hp (the gate columns, each gate padded to Hp = 16
+// ceil(H / 16); H = 100 pads to 112 with zero weights). The contract is an f32
+// d_hproj times bf16-valued weights summed in f32 (_gru_bwd_math's d_hproj
+// is in x_proj's f32), and one bf16 product would round the cotangent to 8
+// bits every step, so d_hproj is split, hi = bf16(d) and lo = bf16(d - hi),
+// and the two products share the A fragments (one ldmatrix.x4.trans brings
+// both B fragments): W_h is exact in bf16, so only d's tail below 2^-17 of
+// it is lost. W_h's A fragments come packed by the wrapper
+// (ops/cuda/gru.py backward_fragments) and stay in registers up to Hp = 128
+// (96 a lane at H=128); above that they are read from global memory every
+// step.
+// A lane computes the gate cotangents of its own (unit, row) pairs with no
+// exchange, writes d_xp and dn_r = dpre_n r (the n-block of d_hproj, for
+// the weight gradients), and keeps dh in f32 registers (with dh z for the
+// step's end). Each warp computes its own tile over all of K, reading all
+// of d_hproj^T from shared memory (double-buffered: one barrier a step).
+// lstm.cu's reverse recurrence splits K between warp pairs, because there
+// those reads set the step; here a version with that split measured slower
+// (PERF.md). The gate recompute is folded in:
+// the kernel reads the two f32 projections xp = x W_x + b_x and
+// hp = h_in W_h + b_h (products outside, as torch.matmul) and computes r, z,
+// n and hn itself, one step ahead of their use, while the step's products
+// finish, in place of four elementwise passes and their planes. The step's
+// projections, h_in and g_ys arrive by cp.async in a ring of shared-memory
+// stages two steps ahead of their use. h_in is read in its own dtype: bf16
+// as the forward wrote it, or f32 on the keep path, where
+// reference.gru_bwd_project hands it over already scaled by keep in f32 (it
+// enters the step only in dh (h_in - n)). B not a multiple of 8 leaves
+// ragged rows, computed on zeros and never written.
+//
+// f32 weights (gru_backward_kernel): the CUDA-core design of the first port,
+// kept. A block owns R batch rows for the whole reverse loop with one
+// thread per hidden unit i, which keeps its row's carry dh[i] in a
+// register; only d_hproj (3H floats a row) is exchanged, through a
+// double-buffered shared array: one barrier a step. W_h^T [3H, H] lives in
+// shared memory when it fits and is read through L2 otherwise, so thread
+// i's reads W_h^T[c][i] are consecutive across the warp. The next step's
+// six gate-plane values are loaded into registers while the current step
+// computes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,18 +153,10 @@ __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
 
-// Four consecutive values from shared memory (16-byte aligned for float,
-// 8-byte aligned for bf16), as floats.
+// Four consecutive values from shared memory (16-byte aligned), as floats.
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  v[0] = __uint_as_float(q.x << 16);
-  v[1] = __uint_as_float(q.x & 0xffff0000u);
-  v[2] = __uint_as_float(q.y << 16);
-  v[3] = __uint_as_float(q.y & 0xffff0000u);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -353,7 +379,7 @@ __device__ __forceinline__ void wh_frag(uint32_t a[4], const __nv_bfloat16* w_h,
 // warps), with W_h^T's A fragments in registers; 0 for Hp > 128, where the
 // step count is `ks_rt` and the fragments are read from global memory every
 // step. kReset as the f32 kernel's.
-constexpr int kRows = 8;
+using rnn::kRows;
 template <int kKS, bool kReset>
 __global__ void __launch_bounds__(kKS > 0 ? 32 * kKS : 32 * 16, 1)
 gru_forward_mma_kernel(const float* __restrict__ xp,
@@ -521,8 +547,9 @@ int launch_mma(const float* xp, const void* h0, const void* w_h,
   }
 }
 
-// kReset: the session-parallel variant, which reads keep ([B, T] f32, 1 -
-// reset; null otherwise), as the forward's template flag.
+// The f32 reverse recurrence (CUDA cores). kReset: the session-parallel
+// variant, which reads keep ([B, T] f32, 1 - reset; null otherwise), as the
+// forward's template flag.
 template <typename T, int R, bool kWInSmem, bool kReset>
 __global__ void __launch_bounds__(kMaxHidden)
 gru_backward_kernel(const float* __restrict__ rg, const float* __restrict__ zg,
@@ -660,6 +687,252 @@ int launch_bwd_t(int rows_per_block, const float* rg, const float* zg,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 weights: the reverse recurrence on tensor cores
+// ---------------------------------------------------------------------------
+
+using rnn::kStages;
+using rnn::load_frag;
+using rnn::Positions;
+using rnn::RowPiece;
+using rnn::zero_smem;
+constexpr int kGates = 3;  // r, z, n
+
+// The reverse recurrence's shared memory (bytes): the d_hproj^T double
+// buffer [2][hi, lo][3 Hp][8] bf16 (one buffer above Hp = 128, where two
+// would not fit beside an f32 h_in at H = 256), then the ring of per-step
+// stages. A
+// stage holds the six gate blocks of the two projections, x_r, x_z, x_n,
+// h_r, h_z, h_n [6][8][Hp + 4] f32, h_in [8][Hp + 4] f32 or [8][Hp + 8] bf16
+// (at byte `hin`), and g_ys [8][Hp + 8] bf16 (at `gy`); the pads keep a
+// lane's reads free of bank conflicts.
+struct BwdSmem {
+  int part, sp, sg, sh, hin, gy, ring, stage, total;
+  __host__ __device__ BwdSmem(int Hp, int hin_bytes)
+      : part(kGates * Hp * kRows), sp(Hp + 4), sg(Hp + 8), sh(hin_bytes == 4 ? sp : sg),
+        hin(6 * kRows * sp * 4), gy(hin + kRows * sh * hin_bytes),
+        ring((Hp <= 128 ? 2 : 1) * 2 * part * 2),
+        stage(gy + kRows * sg * 2), total(ring + kStages * stage) {}
+};
+
+// dh_prev^T = W_h d_hproj^T, K = 3 Hp (Hp = 16 ceil(H / 16)). kMT = Hp / 16
+// (warps, m16 tiles of units, each warp its own tile over all 3 kMT
+// k-steps), with W_h's A fragments in registers; 0 for Hp > 128 (count
+// `mt_rt`, fragments read from global memory every step). w_frag: [Hp/16
+// tiles][3 Hp/16 k-steps][32 lanes] x 16 bytes. The gates come from the
+// two f32 projections xp = x W_x + b_x and hp = h_in W_h + b_h ([B, T, 3H]),
+// one step ahead of their use; the kernel writes d_xp and the n-block of
+// d_hproj (dn_r = dpre_n r, [B, T, H]) for the weight gradients. kReset as
+// the f32 kernel's; HT is h_in's dtype (float or bf16).
+template <int kMT, bool kReset, typename HT>
+__global__ void __launch_bounds__(kMT > 0 ? 32 * kMT : 32 * 16, 1)
+gru_backward_mma_kernel(const float* __restrict__ xp, const float* __restrict__ hp,
+                        const HT* __restrict__ h_in, const __nv_bfloat16* __restrict__ g_ys,
+                        const uint4* __restrict__ w_frag, const float* __restrict__ keep,
+                        float* __restrict__ d_xp, float* __restrict__ dn_r,
+                        float* __restrict__ dh0, int B, int Tn, int H, int mt_rt) {
+  constexpr bool kRegs = kMT > 0;
+  constexpr int R = kRows;
+  const int MT = kRegs ? kMT : mt_rt;
+  const int Hp = 16 * MT, KS = kGates * MT, H3 = kGates * H;
+  const BwdSmem L(Hp, sizeof(HT));
+  extern __shared__ __align__(16) unsigned char smem[];
+  // d_hproj^T, k-major (k = gate Hp + unit): [2][hi, lo][3 Hp][R] bf16.
+  __nv_bfloat16* dbuf = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Positions pos(B, Tn, H);
+  const int b0 = blockIdx.x * R;
+
+  const uint4* wf = w_frag + static_cast<size_t>(warp) * KS * 32 + lane;
+  uint32_t wr[kRegs ? kGates * kMT : 1][4];
+  if (kRegs) {
+#pragma unroll
+    for (int st = 0; st < (kRegs ? kGates * kMT : 1); ++st) load_frag(wr[st], wf + st * 32);
+  }
+
+  // The step's operands arrive in a ring of kStages stages, by cp.async,
+  // kStages - 1 steps ahead of their use. Rows past B and units past H are
+  // never copied and stay zero, so their cotangents are zero. A thread
+  // copies at most one piece of each plane's 8-row block.
+  zero_smem(smem, L.total);
+  __syncthreads();
+  const RowPiece piece(B, Tn, H);
+  auto stage_step = [&](int t, int slot) {
+    if (t >= 0 && piece.has) {
+      unsigned char* st = smem + L.ring + slot * L.stage;
+      float* ps = reinterpret_cast<float*>(st);
+      const size_t pj = piece.src(t, H3), src = piece.src(t, H);
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        mma::cp_async16_zfill(ps + (j * R + piece.r) * L.sp + 4 * piece.k,
+                              (j < 3 ? xp : hp) + pj + (j % 3) * H, 16);
+      }
+      HT* hs = reinterpret_cast<HT*>(st + L.hin) + piece.r * L.sh + 4 * piece.k;
+      if (sizeof(HT) == 4) {
+        mma::cp_async16_zfill(hs, h_in + src, 16);
+      } else {
+        mma::cp_async8_zfill(hs, h_in + src, 8);
+      }
+      __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(st + L.gy);
+      mma::cp_async8_zfill(gs + piece.r * L.sg + 4 * piece.k, g_ys + src, 8);
+    }
+    mma::cp_async_commit();  // an empty group past t = 0 keeps the count
+  };
+  stage_step(Tn - 1, 0);
+  stage_step(Tn - 2, 1);
+
+  // keep[t] (dh_prev *= keep[t]), loaded a step ahead.
+  auto load_keep = [&](int t, float (&kv)[2]) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) kv[e] = kReset && pos.row_ok[e] ? keep[pos.row_base[e] + t] : 1.0f;
+  };
+  float nk[2];
+  load_keep(Tn - 1, nk);
+  float carry[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma::cp_async_wait<1>();
+  __syncthreads();
+
+  // r, z, n, hn of the lane's positions p from a stage's projections
+  // (rnn.cuh's fast gate functions, as the forward's). Rows past B and units
+  // past H read zeros, and their cotangents stay zero.
+  auto gates = [&](int slot, float (&g)[4][4]) {
+    const float* ps = reinterpret_cast<const float*>(smem + L.ring + slot * L.stage);
+    const int blk = R * L.sp;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float* x = ps + (2 * pos.tq + e) * L.sp + pos.unit(m);
+        const float r = rnn::fast_sigmoid(x[0] + x[3 * blk]);
+        const float hn = x[5 * blk];
+        g[2 * m + e][0] = r;
+        g[2 * m + e][1] = rnn::fast_sigmoid(x[blk] + x[4 * blk]);
+        g[2 * m + e][2] = rnn::fast_tanh(x[2 * blk] + r * hn);
+        g[2 * m + e][3] = hn;
+      }
+  };
+  float gt[4][4];  // the gates of the step about to run
+  gates(0, gt);
+
+  // The lane's ldmatrix.trans row: lanes 0-15 address hi's k rows 0-15 of a
+  // k-step, lanes 16-31 lo's, so one x4 brings both B fragments.
+  const int b_off = (lane & 15) * R + (lane >> 4) * L.part;
+  for (int t = Tn - 1, s = 0; t >= 0; --t, ++s) {
+    stage_step(t - 2, (s + 2) % kStages);
+    const float ck[2] = {nk[0], nk[1]};
+    if (t > 0) load_keep(t - 1, nk);
+    const unsigned char* st = smem + L.ring + (s % kStages) * L.stage;
+    const HT* hs = reinterpret_cast<const HT*>(st + L.hin);
+    const __nv_bfloat16* gs = reinterpret_cast<const __nv_bfloat16*>(st + L.gy);
+    __nv_bfloat16* db = dbuf + (kRegs ? s & 1 : 0) * 2 * L.part;  // this step's d_hproj^T
+
+    float dhz[4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      float dp[kGates][2];  // d_hproj of (unit m, rows e)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int p = 2 * m + e, row = 2 * pos.tq + e, unit = pos.unit(m);
+        const float rv = gt[p][0], zv = gt[p][1], nv = gt[p][2], hnv = gt[p][3];
+        const float hin = to_f(hs[row * L.sh + unit]);
+        const float dh = carry[p] + __bfloat162float(gs[row * L.sg + unit]);
+        const float dpre_n = dh * (1.0f - zv) * (1.0f - nv * nv);
+        const float dpre_z = dh * (hin - nv) * zv * (1.0f - zv);
+        const float dpre_r = dpre_n * hnv * rv * (1.0f - rv);
+        dp[0][e] = dpre_r;
+        dp[1][e] = dpre_z;
+        dp[2][e] = dpre_n * rv;
+        if (pos.ok(m, e)) {
+          float* out = d_xp + (pos.row_base[e] + t) * H3 + unit;
+          out[0] = dpre_r;
+          out[H] = dpre_z;
+          out[2 * H] = dpre_n;
+          dn_r[pos.at(m, e, t, H)] = dp[2][e];
+        }
+        dhz[p] = dh * zv;
+      }
+      // d_hproj split for the product: hi = bf16(d), lo = bf16(d - hi).
+#pragma unroll
+      for (int q = 0; q < kGates; ++q) {
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(dp[q][0], dp[q][1]);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(dp[q][0] - __low2float(hi),
+                                                       dp[q][1] - __high2float(hi));
+        __nv_bfloat16* row = db + (q * Hp + pos.unit(m)) * R + 2 * pos.tq;
+        *reinterpret_cast<__nv_bfloat162*>(row) = hi;
+        *reinterpret_cast<__nv_bfloat162*>(row + L.part) = lo;
+      }
+    }
+    mma::cp_async_wait<1>();  // step t-1's operands have landed (this thread's)
+    __syncthreads();          // ... everyone's, and d_hproj^T is whole
+
+    // Two independent chains (hi, lo) over the warp's KS k-steps; the B
+    // fragments are loaded a k-step ahead of their products.
+    float acc[2][4] = {};
+    const __nv_bfloat16* dk = db + b_off;
+    uint32_t bq[2][4];
+    mma::ldmatrix_x4_trans(bq[0], dk);
+#pragma unroll
+    for (int st2 = 0; st2 < KS; st2 += 2) {
+#pragma unroll
+      for (int par = 0; par < 2; ++par) {
+        const int k = st2 + par;
+        if (k < KS) {
+          if (k + 1 < KS) mma::ldmatrix_x4_trans(bq[par ^ 1], dk + 16 * (k + 1) * R);
+          uint32_t a_mem[4];
+          if (!kRegs) load_frag(a_mem, wf + k * 32);
+          const uint32_t* a = kRegs ? wr[kRegs && k < kGates * kMT ? k : 0] : a_mem;
+          mma::bf16_16x8x16(acc[0], a, bq[par][0], bq[par][1]);
+          mma::bf16_16x8x16(acc[1], a, bq[par][2], bq[par][3]);
+        }
+      }
+    }
+    // Step t-1's gates (its stage landed before this step's barrier), while
+    // the products finish.
+    if (t > 0) gates((s + 1) % kStages, gt);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      carry[p] = dhz[p] + (acc[0][p] + acc[1][p]);
+      if (kReset) carry[p] *= ck[p & 1];  // dh_prev *= keep[t]
+    }
+    if (!kRegs) __syncthreads();  // one d_hproj^T buffer: every read is done
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (pos.ok(m, e)) {
+        dh0[static_cast<size_t>(b0 + 2 * pos.tq + e) * H + pos.unit(m)] = carry[2 * m + e];
+      }
+}
+
+template <bool kReset, typename HT>
+int launch_bwd_mma(const float* xp, const float* hp, const void* h_in, const void* g_ys,
+                   const void* w_frag, const float* keep, float* d_xp, float* dn_r, float* dh0,
+                   int B, int Tn, int H, size_t smem, cudaStream_t s) {
+  const int mt = (H + 15) / 16;
+  const dim3 grid((B + kRows - 1) / kRows), block(32 * mt);
+  auto launch = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid, block, smem, s>>>(
+        xp, hp, static_cast<const HT*>(h_in), static_cast<const __nv_bfloat16*>(g_ys),
+        static_cast<const uint4*>(w_frag), keep, d_xp, dn_r, dh0, B, Tn, H, mt);
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (mt) {
+    case 1: return launch(gru_backward_mma_kernel<1, kReset, HT>);
+    case 2: return launch(gru_backward_mma_kernel<2, kReset, HT>);
+    case 3: return launch(gru_backward_mma_kernel<3, kReset, HT>);
+    case 4: return launch(gru_backward_mma_kernel<4, kReset, HT>);
+    case 5: return launch(gru_backward_mma_kernel<5, kReset, HT>);
+    case 6: return launch(gru_backward_mma_kernel<6, kReset, HT>);
+    case 7: return launch(gru_backward_mma_kernel<7, kReset, HT>);
+    case 8: return launch(gru_backward_mma_kernel<8, kReset, HT>);
+    default: return launch(gru_backward_mma_kernel<0, kReset, HT>);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -723,21 +996,20 @@ int seqrec_gru_forward_mma(const void* xp, const void* h0, const void* w_h,
                        : launch_mma<true>(x, h0, w_h, bh, kp, ys, B, Tn, H, smem, s);
 }
 
-// r, z, n, hn [B, T, H] float; h_in, g_ys [B, T, H] and w_h_t [3H, H] of the
-// working dtype (dtype 0 = float, 1 = bf16); keep [B, T] float (1 - reset)
-// or null; d_xp [B, T, 3H] and dh0 [B, H] float. All contiguous, 16-byte
-// aligned. smem_bytes as the caller computed it for this layout, checked
-// again here.
+// The f32 reverse recurrence (CUDA cores). r, z, n, hn, h_in, g_ys
+// [B, T, H] and w_h_t [3H, H] float (dtype 0); keep [B, T] float (1 -
+// reset) or null; d_xp [B, T, 3H] and dh0 [B, H] float. All contiguous,
+// 16-byte aligned. smem_bytes as the caller computed it for this layout,
+// checked again here.
 int seqrec_gru_backward(const void* r, const void* z, const void* n,
                         const void* hn, const void* h_in, const void* g_ys,
                         const void* w_h_t, const void* keep, void* d_xp,
                         void* dh0, int B, int Tn, int H, int dtype,
                         int rows_per_block, int w_in_smem,
                         long long smem_bytes, void* stream) {
-  const size_t es = dtype == 0 ? 4 : 2;
+  const size_t es = 4;
   const int R = rows_per_block;
-  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0 ||
-      (dtype != 0 && dtype != 1)) {
+  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0 || dtype != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = 2 * static_cast<size_t>(R) * 3 * H * 4 +
@@ -745,18 +1017,48 @@ int seqrec_gru_backward(const void* r, const void* z, const void* n,
   if (static_cast<long long>(smem) != smem_bytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const float* rg = static_cast<const float*>(r);
-  const float* zg = static_cast<const float*>(z);
-  const float* ngp = static_cast<const float*>(n);
-  const float* hng = static_cast<const float*>(hn);
+  return launch_bwd_t<float>(R, static_cast<const float*>(r), static_cast<const float*>(z),
+                             static_cast<const float*>(n), static_cast<const float*>(hn), h_in,
+                             g_ys, w_h_t, static_cast<const float*>(keep),
+                             static_cast<float*>(d_xp), static_cast<float*>(dh0), B, Tn, H,
+                             w_in_smem, smem, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16-weight reverse recurrence on tensor cores, the gate recompute
+// folded in. xp, hp [B, T, 3H] float (x W_x + b_x and h_in W_h + b_h);
+// h_in [B, T, H] of hin_dtype (0 = float, 1 = bf16); g_ys [B, T, H] bf16;
+// w_frag W_h's packed A fragments [Hp/16][3 Hp/16][32] x 16 bytes
+// (Hp = 16 ceil(H / 16)); keep [B, T] float (1 - reset) or null; d_xp
+// [B, T, 3H], dn_r [B, T, H] and dh0 [B, H] float. All contiguous, 16-byte
+// aligned; H % 4 == 0, H <= 256. smem_bytes (BwdSmem) as the caller
+// computed it, checked again here.
+int seqrec_gru_backward_mma(const void* xp, const void* hp, const void* h_in,
+                            const void* g_ys, const void* w_frag, const void* keep,
+                            void* d_xp, void* dn_r, void* dh0, int B, int Tn, int H,
+                            int hin_dtype, long long smem_bytes, void* stream) {
+  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0 ||
+      (hin_dtype != 0 && hin_dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = BwdSmem(16 * ((H + 15) / 16), hin_dtype == 0 ? 4 : 2).total;
+  if (static_cast<long long>(smem) != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* x = static_cast<const float*>(xp);
+  const float* hpr = static_cast<const float*>(hp);
   const float* kp = static_cast<const float*>(keep);
   float* dxp = static_cast<float*>(d_xp);
+  float* dnr = static_cast<float*>(dn_r);
   float* dh = static_cast<float*>(dh0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_bwd_t<float>(R, rg, zg, ngp, hng, h_in, g_ys, w_h_t, kp, dxp, dh, B, Tn, H, w_in_smem, smem, s);
+  if (hin_dtype == 0) {
+    return kp == nullptr
+               ? launch_bwd_mma<false, float>(x, hpr, h_in, g_ys, w_frag, kp, dxp, dnr, dh, B, Tn, H, smem, s)
+               : launch_bwd_mma<true, float>(x, hpr, h_in, g_ys, w_frag, kp, dxp, dnr, dh, B, Tn, H, smem, s);
   }
-  return launch_bwd_t<__nv_bfloat16>(R, rg, zg, ngp, hng, h_in, g_ys, w_h_t, kp, dxp, dh, B, Tn, H, w_in_smem, smem, s);
+  return kp == nullptr
+             ? launch_bwd_mma<false, __nv_bfloat16>(x, hpr, h_in, g_ys, w_frag, kp, dxp, dnr, dh, B, Tn, H, smem, s)
+             : launch_bwd_mma<true, __nv_bfloat16>(x, hpr, h_in, g_ys, w_frag, kp, dxp, dnr, dh, B, Tn, H, smem, s);
 }
 
 const char* seqrec_gru_error_string(int code) {

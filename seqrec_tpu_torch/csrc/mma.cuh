@@ -56,7 +56,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Copy `bytes` (16 or 8) from global to shared memory, reading `src_bytes`
+// Copy `bytes` (16, 8 or 4) from global to shared memory, reading `src_bytes`
 // of them (0 or all) and zero-filling the rest: a piece past the end of a
 // tensor is copied from a valid address with src_bytes = 0.
 __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int src_bytes) {
@@ -66,6 +66,11 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int
 }
 __device__ __forceinline__ void cp_async8_zfill(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
 }

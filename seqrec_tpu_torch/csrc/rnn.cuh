@@ -1,6 +1,8 @@
 // What the bf16 recurrences of gru.cu and lstm.cu share (sm_90a): the input
-// projection GEMM that takes x @ W_x off their serial chain, and the fast
-// gate nonlinearities.
+// projection GEMM that takes x @ W_x off their serial chain, the fast gate
+// nonlinearities, and the block layout of the tensor-core recurrences (8
+// batch rows a block, a lane's (unit, row) positions, packed A fragments,
+// and the per-step staging of [B, T, H] planes).
 //
 // The input projection, xp [M, N] f32 = x [M, D] @ w_x [D, N] + b, all bf16
 // in: it does not depend on h, so one tensor-core GEMM over all B*T rows
@@ -106,6 +108,75 @@ __device__ __forceinline__ float fast_sigmoid(float v) {
 }
 __device__ __forceinline__ float fast_tanh(float v) {
   return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * v));
+}
+
+constexpr int kRows = 8;    // batch rows a recurrence block: mma's N, one n8 tile
+constexpr int kStages = 3;  // ring stages of the per-step operands in shared memory
+
+// Packed A fragments: the wrappers lay W_h out as mma.sync.m16n8k16 A
+// fragments, [warp][k16 step][...][32 lanes][8 bf16] (ops/cuda/lstm.py
+// forward_fragments and backward_fragments, ops/cuda/gru.py
+// backward_fragments), zero past the real rows and columns, so a lane loads
+// its four fragment registers of one tile in one 16-byte read and a warp
+// reads 512 consecutive bytes.
+__device__ __forceinline__ void load_frag(uint32_t a[4], const uint4* p) {
+  const uint4 v = *p;
+  a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
+}
+
+// A lane's C positions, the same in every m16 tile of its warp: units
+// u + gr + 8 m (m = 0, 1) of rows 2 tq + e (e = 0, 1); p = 2 m + e is the C
+// register.
+struct Positions {
+  bool unit_ok[2], row_ok[2];
+  size_t row_base[2];  // b * T of the lane's rows
+  int u, gr, tq;
+  __device__ Positions(int B, int Tn, int H) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    gr = lane >> 2;
+    tq = lane & 3;
+    u = 16 * warp;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) unit_ok[m] = u + gr + 8 * m < H;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int b = blockIdx.x * kRows + 2 * tq + e;
+      row_ok[e] = b < B;
+      row_base[e] = static_cast<size_t>(b) * Tn;
+    }
+  }
+  __device__ int unit(int m) const { return u + gr + 8 * m; }
+  __device__ bool ok(int m, int e) const { return unit_ok[m] && row_ok[e]; }
+  // Offset of (row e, unit m) in a [B, T, W] plane at step t.
+  __device__ size_t at(int m, int e, int t, int W) const {
+    return (row_base[e] + t) * W + unit(m);
+  }
+};
+
+// This thread's piece of four consecutive values of an 8-row block of
+// [B, T, W] rows: row r, columns 4k .. 4k+3 of the first H (H / 4 pieces a
+// row; 8 H / 4 <= 2 Hp, the block's threads, so one piece a thread at most).
+struct RowPiece {
+  bool has;
+  int r, k;
+  size_t base;  // b * T of the row
+  __device__ RowPiece(int B, int Tn, int H) {
+    const int per_row = H / 4;
+    const int rows = min(kRows, B - static_cast<int>(blockIdx.x) * kRows);
+    has = static_cast<int>(threadIdx.x) < rows * per_row;
+    r = threadIdx.x / per_row;
+    k = threadIdx.x % per_row;
+    base = (static_cast<size_t>(blockIdx.x) * kRows + r) * Tn;
+  }
+  // Offset of the piece at step t in a [B, T, W] plane (W = H, or a gate
+  // count times H with the gate's column added by the caller).
+  __device__ size_t src(int t, int W) const { return (base + t) * W + 4 * k; }
+};
+
+__device__ __forceinline__ void zero_smem(unsigned char* p, int bytes) {
+  for (int c = threadIdx.x; c < bytes / 16; c += blockDim.x) {
+    reinterpret_cast<uint4*>(p)[c] = make_uint4(0u, 0u, 0u, 0u);
+  }
 }
 
 }  // namespace

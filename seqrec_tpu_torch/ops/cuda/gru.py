@@ -27,12 +27,27 @@ function in its own numerics; neither gives way to the other):
   CUDA cores with the projection inside each step, as before; TF32 tensor
   cores would keep ~3 digits, not the f32 products of the contract.
 
-Backward, as `_gru_core_bwd`: the input projection and the gates are
-recomputed with `torch.matmul` in parallel over T (`reference.gru_bwd_hoist`),
-the reverse recurrence runs in the kernel, and the weight and input
-gradients are batched `torch.matmul`s and sums, where the JAX package has
-XLA einsums. Both scans are bound by their serial chain over T, not by bytes
-or operations; see the source note.
+Backward, as `_gru_core_bwd`: both projections are recomputed with
+`torch.matmul` in parallel over T (`reference.gru_bwd_project`), the
+reverse recurrence with the gate recompute folded in runs in the kernel
+(`gru_backward`, plain version `reference.gru_bwd_fused`), and the weight
+and input gradients are batched `torch.matmul`s and sums, where the JAX
+package has XLA einsums. The reverse recurrence has two designs too, chosen
+by W_h's dtype:
+
+- bf16 weights (`design` "mma.sync", both variants): dh^T = W_h d_hproj^T
+  on mma.sync (units as M, 8 rows as N, K = 3 Hp), the LSTM reverse
+  recurrence's design with three gates and each warp over all of K (no
+  split between warp pairs: it measured slower here); the kernel computes
+  r, z, n and hn from the two projections itself, a step ahead, and writes
+  the n-block of d_hproj beside d_xp. d_hproj is f32 in the contract, so it goes to the
+  tensor cores as two bf16 terms, hi = bf16(d) and lo = bf16(d - hi); W_h's
+  fragments are packed here (`backward_fragments`).
+- f32 weights (`design` "cuda-core"): the gates in torch ops
+  (`reference.gru_bwd_gates`), then one thread per hidden unit, as before.
+
+Both scans are bound by their serial chain over T, not by bytes or
+operations; see the source note.
 
 Numerics: forward products and gate math in f32, biases in f32, h rounded
 to the working dtype (x.dtype: float32 or bfloat16) every step, as the TPU
@@ -53,14 +68,15 @@ from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.ops import reference
 
 plain = reference.gru_scan
-plain_backward = reference.gru_bwd_scan
+plain_backward = reference.gru_bwd_fused
 
 # Shared memory one block may opt in to on sm_90 (227 KB).
 SMEM_LIMIT = 232_448
 MAX_HIDDEN = 256  # kMaxHidden in csrc/gru.cu
 PROJ_TILE = 64  # kProjTile in csrc/gru.cu: rows and columns of an xp tile
 WH_REG_LIMIT = 128  # Hp up to which the bf16 scan holds W_h in registers
-MMA_ROWS = 8  # kRows in csrc/gru.cu: batch rows a bf16 scan block, one n8 tile
+MMA_ROWS = 8  # kRows in csrc/rnn.cuh: batch rows a bf16 recurrence block, one n8 tile
+RING_STAGES = 3  # kStages in csrc/rnn.cuh: per-step operands staged this deep
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -84,6 +100,11 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     bwd.restype = ctypes.c_int
+    bwd_mma = lib.seqrec_gru_backward_mma
+    bwd_mma.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+        ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    bwd_mma.restype = ctypes.c_int
     lib.seqrec_gru_error_string.argtypes = [ctypes.c_int]
     lib.seqrec_gru_error_string.restype = ctypes.c_char_p
     return lib
@@ -167,12 +188,54 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
     }
 
 
+def _backward_smem(hp: int, h_in_bytes: int) -> int:
+    """BwdSmem in csrc/gru.cu: the d_hproj^T double buffer [2][hi, lo][3 Hp][8]
+    bf16 (one buffer above Hp = WH_REG_LIMIT), then RING_STAGES stages of the
+    two projections' six gate blocks [6][8][Hp + 4] f32, h_in [8][Hp + 4]
+    f32 or [8][Hp + 8] bf16 and g_ys [8][Hp + 8] bf16."""
+    h_row = hp + 4 if h_in_bytes == 4 else hp + 8
+    stage = 6 * MMA_ROWS * (hp + 4) * 4 + MMA_ROWS * h_row * h_in_bytes + MMA_ROWS * (hp + 8) * 2
+    buffers = 2 if hp <= WH_REG_LIMIT else 1
+    return buffers * 2 * 3 * hp * MMA_ROWS * 2 + RING_STAGES * stage
+
+
 def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
-                           rows_per_block: Optional[int] = None) -> Dict[str, int]:
-    """Layout of one reverse-recurrence launch: the d_hproj double buffer,
-    and W_h^T in shared memory when it fits (read through L2 otherwise, with
-    two rows per block, as the forward does with W_x)."""
+                           rows_per_block: Optional[int] = None,
+                           h_in_dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """Layout of one reverse-recurrence launch; `dtype` is W_h's.
+
+    bf16 ("mma.sync"): the forward's blocks of 8 rows and padding (Hp = 16
+    ceil(H / 16), Hp / 16 warps, each its own m16 tile of units over all of
+    K = 3 Hp, the gate columns). W_h's fragments in registers up to
+    Hp = 128; in shared memory the d_hproj^T double buffer
+    [2][hi, lo][3 Hp][8] bf16 (one buffer and a second barrier a step above
+    Hp = 128, the generic design) and a ring of RING_STAGES stages of the
+    step's two projections (the gates are recomputed from them a step
+    ahead), h_in (in `h_in_dtype`: bf16, or f32 on the keep path) and g_ys,
+    which cp.async fills two steps ahead of their use. d_hproj goes to the
+    tensor cores as two bf16 terms (`d_terms`).
+
+    f32 ("cuda-core"): one thread per hidden unit, the d_hproj double
+    buffer, and W_h^T in shared memory when it fits (read through L2
+    otherwise, with two rows per block, as the forward does with W_x)."""
     es = _check_dims(B, T, H, dtype)
+    if dtype == torch.bfloat16:
+        if rows_per_block is not None:
+            raise ValueError(f"gru: rows_per_block is the f32 design's; bf16 takes "
+                             f"{MMA_ROWS} rows a block (got {rows_per_block})")
+        if h_in_dtype not in _DTYPE_CODE:
+            raise ValueError(f"gru backward: h_in dtype {h_in_dtype} not in float32/bfloat16")
+        hp = 16 * -(-H // 16)
+        return {
+            "design": "mma.sync",
+            "grid": -(-B // MMA_ROWS),
+            "threads": 2 * hp,
+            "rows_per_block": MMA_ROWS,
+            "hidden_padded": hp,
+            "w_in_regs": int(hp <= WH_REG_LIMIT),
+            "d_terms": 2,
+            "smem_bytes": _backward_smem(hp, torch.empty((), dtype=h_in_dtype).element_size()),
+        }
     w = 3 * H * H * es
 
     def base(r):
@@ -185,12 +248,35 @@ def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
     R = rows_per_block
     w_in_smem = int(base(R) + w <= SMEM_LIMIT)
     return {
+        "design": "cuda-core",
         "grid": -(-B // R),
         "threads": H,
         "rows_per_block": R,
         "w_in_smem": w_in_smem,
         "smem_bytes": base(R) + (w if w_in_smem else 0),
     }
+
+
+# mma.sync.m16n8k16's A fragment (PTX ISA, "Matrix Fragments for
+# mma.m16n8k16"), for a row index 16 tile + 8 mh + g and a column index
+# 16 st + 8 kh + 2 q + pair: lane 4 g + q holds registers a0 = (mh 0, kh 0),
+# a1 = (1, 0), a2 = (0, 1), a3 = (1, 1), two bf16 each, the lower column
+# first; so its fragment is 16 contiguous bytes, [kh][mh][pair], one read.
+
+
+def backward_fragments(w_h: torch.Tensor) -> torch.Tensor:
+    """W_h [H, 3H] -> [Hp/16, 3 Hp/16, 32, 8] bf16 (Hp = 16 ceil(H / 16)):
+    the bf16 reverse recurrence's A operand, W_h with each gate's columns
+    padded to Hp (A[unit][q Hp + j] = W_h[unit, q H + j], zero past H), as
+    fragments [tile (warp)][k-step][lane]. One copy."""
+    H = w_h.shape[0]
+    hp = 16 * -(-H // 16)
+    mt = hp // 16
+    w = w_h.to(torch.bfloat16).reshape(H, 3, H)  # unit, gate, column
+    if hp != H:
+        w = torch.nn.functional.pad(w, (0, hp - H, 0, 0, 0, hp - H))
+    w = w.reshape(mt, 2, 8, 3 * mt, 2, 4, 2)  # tile, mh, g, st, kh, q, pair
+    return w.permute(0, 3, 2, 5, 4, 1, 6).reshape(mt, 3 * mt, 32, 8)
 
 
 def _check_operands(args, dev) -> None:
@@ -297,51 +383,64 @@ def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None) -> torch.Tensor:
     return ys
 
 
-def gru_backward(r: torch.Tensor, z: torch.Tensor, n: torch.Tensor,
-                 hn: torch.Tensor, h_in: torch.Tensor, g_ys: torch.Tensor,
-                 w_h: torch.Tensor, keep: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reverse recurrence of the GRU backward -> (d_xp [B,T,3H] f32,
-    dh0 [B,H] f32), `reference.gru_bwd_scan`'s contract; with `keep`
-    ([B,T,1] or [B,T], 1 - reset) the reset variant, dh_prev *= keep[t].
-    The kernel works in h_in's dtype, W_h^T too: with a keep plane
-    `reference.gru_bwd_hoist` hands h_in over in f32 (the JAX package's
-    `_gru_bwd_math` runs in x_proj's f32), so the reset variant runs in f32.
+def gru_backward(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
+                 g_ys: torch.Tensor, w_h: torch.Tensor,
+                 keep: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reverse recurrence of the GRU backward with the gate recompute
+    folded in -> (d_xp [B,T,3H] f32, dh0 [B,H] f32, dn_r [B,T,H] f32),
+    `reference.gru_bwd_fused`'s contract: x_proj, h_proj [B,T,3H] f32 the
+    two projections with their biases; with `keep` ([B,T,1] or [B,T],
+    1 - reset) the reset variant, dh_prev *= keep[t]. The design follows
+    W_h's dtype: bf16 weights (the bf16 model, both variants) run on the
+    tensor cores, reading h_in in its own dtype (bf16, or f32 where
+    `reference.gru_bwd_project` scaled it by keep) and g_ys in bf16; f32
+    weights take the gates from torch ops and run on the CUDA cores in f32.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises."""
-    if r.device.type == "cpu":
-        return plain_backward(r, z, n, hn, h_in, g_ys, w_h, keep)
-    if r.device.type != "cuda":
-        raise ValueError(f"gru: no kernel for device {r.device}")
-    B, T, H = r.shape
-    dtype, dev = h_in.dtype, r.device
-    cfg = backward_launch_config(B, T, H, dtype)
-    for name, t in (("z", z), ("n", n), ("hn", hn), ("h_in", h_in), ("g_ys", g_ys)):
-        if tuple(t.shape) != (B, T, H):
-            raise ValueError(f"gru backward: {name} {tuple(t.shape)}, expected {(B, T, H)}")
-    if tuple(w_h.shape) != (H, 3 * H):
-        raise ValueError(f"gru backward: w_h {tuple(w_h.shape)}, expected {(H, 3 * H)}")
+    if x_proj.device.type == "cpu":
+        return plain_backward(x_proj, h_proj, h_in, g_ys, w_h, keep)
+    if x_proj.device.type != "cuda":
+        raise ValueError(f"gru: no kernel for device {x_proj.device}")
+    B, T, H = h_in.shape
+    dev = x_proj.device
+    cfg = backward_launch_config(B, T, H, w_h.dtype, h_in_dtype=h_in.dtype)
+    for name, t, shape in (("x_proj", x_proj, (B, T, 3 * H)), ("h_proj", h_proj, (B, T, 3 * H)),
+                           ("g_ys", g_ys, (B, T, H)), ("w_h", w_h, (H, 3 * H))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"gru backward: {name} {tuple(t.shape)}, expected {shape}")
     keep = _keep_plane(keep, B, T)
-    planes = [t.float().contiguous() for t in (r, z, n, hn)]
-    args = planes + [h_in.contiguous(), g_ys.to(dtype).contiguous(),
-                     w_h.to(dtype).T.contiguous()]
-    _check_operands(args + ([] if keep is None else [keep]), dev)
+    keep_ptr = None if keep is None else keep.data_ptr()
     d_xp = torch.empty((B, T, 3 * H), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     lib = _lib()
-    with torch.cuda.device(dev):
-        rc = lib.seqrec_gru_backward(
-            *(a.data_ptr() for a in args), None if keep is None else keep.data_ptr(),
-            d_xp.data_ptr(), dh0.data_ptr(),
-            B, T, H, _DTYPE_CODE[dtype], cfg["rows_per_block"], cfg["w_in_smem"],
-            cfg["smem_bytes"], torch.cuda.current_stream(dev).cuda_stream,
-        )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if cfg["design"] == "mma.sync":
+        args = [x_proj.float().contiguous(), h_proj.float().contiguous(), h_in.contiguous(),
+                g_ys.to(torch.bfloat16).contiguous(), backward_fragments(w_h)]
+        _check_operands(args + ([] if keep is None else [keep]), dev)
+        dn_r = torch.empty((B, T, H), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.seqrec_gru_backward_mma(
+                *(a.data_ptr() for a in args), keep_ptr, d_xp.data_ptr(), dn_r.data_ptr(),
+                dh0.data_ptr(), B, T, H, _DTYPE_CODE[h_in.dtype], cfg["smem_bytes"], stream)
+    else:
+        r, z, n, hn = reference.gru_bwd_gates(x_proj.float(), h_proj.float())
+        args = [t.contiguous() for t in (r, z, n, hn)] + [
+            h_in.float().contiguous(), g_ys.float().contiguous(), w_h.float().T.contiguous()]
+        _check_operands(args + ([] if keep is None else [keep]), dev)
+        with torch.cuda.device(dev):
+            rc = lib.seqrec_gru_backward(
+                *(a.data_ptr() for a in args), keep_ptr, d_xp.data_ptr(), dh0.data_ptr(),
+                B, T, H, _DTYPE_CODE[torch.float32], cfg["rows_per_block"], cfg["w_in_smem"],
+                cfg["smem_bytes"], stream)
+        dn_r = d_xp[..., 2 * H:] * r
     _raise_on(rc, lib, "backward")
     if keep is None:
         gru_backward.launches += 1
     else:
         gru_backward.reset_launches += 1
-    return d_xp, dh0
+    return d_xp, dh0, dn_r
 
 
 gru_backward.launches = 0

@@ -3,7 +3,16 @@
 Replaces `seqrec_tpu/ops/pallas/softmax_head.py::sampled_softmax_loss`: the
 per-row NLL against S shared negatives with the logQ correction and the
 accidental-hit mask, never writing the [N, S] logits. Bound by bytes at the
-training shape; see the source note for the design.
+training shape. Two hand-written designs chosen by dtype (see the source
+note):
+
+- bf16 (`design` "mma.sync", every shipped config): FlashAttention-2's
+  pattern with the negatives as keys: a warp's 16 h rows as A fragments in
+  registers, the negatives streamed through shared memory in S-tiles of 64
+  (any S), an online logsumexp per row on the accumulators.
+- f32 (`design` "cuda-core"): f32 FMAs on the CUDA cores with all S
+  negatives staged transposed in shared memory, as before (S * H * 4 bytes
+  must fit a block's 227 KB).
 
 The backward is the JAX package's `_head_core_bwd`: a recompute of the
 softmax in plain tensor code (`reference.sampled_softmax_nll_bwd`), whose two
@@ -11,9 +20,10 @@ softmax in plain tensor code (`reference.sampled_softmax_nll_bwd`), whose two
 Pallas kernel for it either. The `where(w > 0) * w` reduction stays outside
 the kernel, as in the JAX package.
 
-Numerics: every product in f32 (bf16 inputs multiply exactly in f32), as the
-TPU kernel; the plain version (`plain`) is the same math in torch ops, so
-the two differ by summation order only.
+Numerics: every product in f32 (bf16 inputs multiply exactly in f32, so the
+bf16 tensor-core products with f32 sums are the same contract), as the TPU
+kernel; the plain version (`plain`) is the same math in torch ops, so the
+two differ by summation order (and the exponential's last bits) only.
 """
 
 from __future__ import annotations
@@ -29,7 +39,11 @@ from seqrec_tpu_torch.ops import reference
 plain = reference.sampled_softmax_nll
 
 SMEM_LIMIT = 232_448  # shared memory one block may opt in to on sm_90 (227 KB)
-ROWS_PER_BLOCK = 64  # kRows in csrc/softmax_head.cu
+ROWS_PER_BLOCK = 64  # kRows in csrc/softmax_head.cu: the f32 design's rows a block
+MMA_ROWS = 128  # kMmaRows: the bf16 design's rows a block, 16 a warp
+S_TILE = 64  # kSTile: negatives a stage of the bf16 design's ring
+STAGES = 3  # kHeadStages
+MMA_MAX_H = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -40,31 +54,51 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    mma = lib.seqrec_head_forward_mma
+    mma.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    mma.restype = ctypes.c_int
     lib.seqrec_head_error_string.argtypes = [ctypes.c_int]
     lib.seqrec_head_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def launch_config(N: int, S: int, H: int, dtype: torch.dtype) -> Dict[str, int]:
-    """Grid and shared-memory layout for one launch; ValueError for a shape
-    the kernel cannot take. The negatives live in shared memory transposed,
-    so S * H in the working dtype (plus 64 f32 rows of h) must fit in the
-    227 KB a block can have: at H=128, S up to 736 in bf16, 352 in f32."""
+def launch_config(N: int, S: int, H: int, dtype: torch.dtype) -> Dict:
+    """Design, grid and shared-memory layout for one launch; ValueError for
+    a shape the kernel cannot take.
+
+    bf16 ("mma.sync"): 128 rows a block (8 warps of 16), H padded with
+    zeros to Hp in {16, 32, 64, 128, 256} (needs H % 8 == 0 for 16-byte
+    copies of a negative's row, and H <= 256: a warp's h rows stay in
+    registers), a ring of STAGES S-tiles of 64 negatives [64][Hp + 8] bf16
+    with their ids and logQ: any S.
+
+    f32 ("cuda-core"): 64 rows a block; the negatives live in shared memory
+    transposed, so S * H * 4 bytes (plus 64 f32 rows of h) must fit in the
+    227 KB a block can have: at H=128, S up to 352."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"softmax_head: dtype {dtype} not in float32/bfloat16")
     if min(N, S, H) <= 0:
         raise ValueError(f"softmax_head: empty shape N={N} S={S} H={H}")
-    es = torch.empty((), dtype=dtype).element_size()
+    if dtype == torch.bfloat16:
+        if H % 8 != 0 or H > MMA_MAX_H:
+            raise ValueError(f"softmax_head: bf16 needs H % 8 == 0 and H <= {MMA_MAX_H} "
+                             f"(H={H})")
+        hp = max(16, 1 << (H - 1).bit_length())
+        return {"design": "mma.sync", "grid": -(-N // MMA_ROWS), "threads": 256,
+                "rows_per_block": MMA_ROWS, "hidden_padded": hp, "s_tile": S_TILE,
+                "smem_bytes": STAGES * (S_TILE * (hp + 8) * 2 + S_TILE * 8)}
     sp = -(-S // 32) * 32
-    ld = sp + 4 // es  # one extra 32-bit word per row: no bank conflicts
-    smem = ROWS_PER_BLOCK * H * 4 + sp * 8 + H * ld * es
+    ld = sp + 1  # one extra 32-bit word per row: no bank conflicts
+    smem = ROWS_PER_BLOCK * H * 4 + sp * 8 + H * ld * 4
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"softmax_head: {S} negatives of width {H} in {dtype} need {smem} "
             f"bytes of shared memory, over the {SMEM_LIMIT} a block can have"
         )
-    return {"grid": -(-N // ROWS_PER_BLOCK), "threads": 256, "s_padded": sp,
-            "ld": ld, "smem_bytes": smem}
+    return {"design": "cuda-core", "grid": -(-N // ROWS_PER_BLOCK), "threads": 256,
+            "s_padded": sp, "ld": ld, "smem_bytes": smem}
 
 
 def check_launchable(h, pos_emb, neg_emb, targets, neg_ids, pos_log_q,
@@ -101,12 +135,21 @@ def _forward_kernel(h, pos_emb, neg_emb, targets, neg_ids, pos_log_q,
             neg_log_q.to(torch.float32).contiguous()]
     nll = torch.empty((N,), dtype=torch.float32, device=h.device)
     lib = _lib()
+    stream = torch.cuda.current_stream(h.device).cuda_stream
     with torch.cuda.device(h.device):
-        rc = lib.seqrec_head_forward(
-            *(a.data_ptr() for a in args), nll.data_ptr(),
-            N, S, cfg["s_padded"], cfg["ld"], H, _DTYPE_CODE[h.dtype],
-            cfg["smem_bytes"], torch.cuda.current_stream(h.device).cuda_stream,
-        )
+        if cfg["design"] == "mma.sync":
+            # Rows of neg_emb are copied in 16-byte pieces, h and pos_emb
+            # read in 4-byte pairs.
+            if args[2].data_ptr() % 16 or args[0].data_ptr() % 4 or args[1].data_ptr() % 4:
+                raise ValueError("softmax_head: neg_emb must be 16-byte aligned, h and "
+                                 "pos_emb 4-byte aligned")
+            rc = lib.seqrec_head_forward_mma(
+                *(a.data_ptr() for a in args), nll.data_ptr(), N, S, H, cfg["smem_bytes"],
+                stream)
+        else:
+            rc = lib.seqrec_head_forward(
+                *(a.data_ptr() for a in args), nll.data_ptr(), N, S, cfg["s_padded"],
+                cfg["ld"], H, _DTYPE_CODE[h.dtype], cfg["smem_bytes"], stream)
     if rc != 0:
         msg = lib.seqrec_head_error_string(rc).decode()
         raise RuntimeError(f"softmax_head kernel launch failed: CUDA error {rc} ({msg})")

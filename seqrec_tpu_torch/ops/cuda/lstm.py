@@ -61,7 +61,7 @@ import torch
 
 from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.ops import reference
-from seqrec_tpu_torch.ops.cuda.gru import plain_input_projection
+from seqrec_tpu_torch.ops.cuda.gru import MMA_ROWS, RING_STAGES, plain_input_projection
 
 plain = reference.lstm_scan
 plain_backward = reference.lstm_bwd_scan
@@ -70,8 +70,6 @@ SMEM_LIMIT = 232_448  # shared memory one block may opt in to on sm_90 (227 KB)
 MAX_HIDDEN = 256  # kMaxHidden in csrc/lstm.cu
 PROJ_TILE = 64  # kProjTile in csrc/rnn.cuh: rows and columns of an xp tile
 WH_REG_LIMIT = 128  # Hp up to which the bf16 kernels hold W_h in registers
-MMA_ROWS = 8  # kRows in csrc/lstm.cu: batch rows a bf16 block, one n8 tile
-RING_STAGES = 3  # kStages in csrc/lstm.cu: per-step operands staged this deep
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

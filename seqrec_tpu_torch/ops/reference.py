@@ -107,27 +107,34 @@ def gru_scan(
 
 # GRU backward: `seqrec_tpu/ops/pallas/gru.py::_gru_bwd_math`, line for line.
 # Every product that does not depend on the running cotangent is hoisted out
-# of the reverse loop (the gate recompute before it, the weight-grad
-# reductions after it); the loop itself (`gru_bwd_scan`) is what the reverse
-# recurrence kernel in csrc/gru.cu computes.
+# of the reverse loop (the projections before it, the weight-grad reductions
+# after it); the loop with the gate recompute folded in (`gru_bwd_fused`:
+# `gru_bwd_gates`, then `gru_bwd_scan`) is what the bf16 reverse recurrence
+# kernel in csrc/gru.cu computes.
 
 
-def gru_bwd_hoist(x_proj: torch.Tensor, hs: torch.Tensor, h0: torch.Tensor,
-                  w_h: torch.Tensor, b_h: torch.Tensor,
-                  reset: Optional[torch.Tensor] = None):
-    """Recompute what the forward consumed, in parallel over T. Returns
-    (h_in [B,T,H] in hs.dtype, keep [B,T,1] f32 or None, r, z, n, hn, each
-    [B,T,H] f32). `x_proj` is the f32 input projection with b_x added."""
-    H = h0.shape[-1]
+def gru_bwd_project(x_proj: torch.Tensor, hs: torch.Tensor, h0: torch.Tensor,
+                    w_h: torch.Tensor, b_h: torch.Tensor,
+                    reset: Optional[torch.Tensor] = None):
+    """The states the forward consumed and their projection, in parallel
+    over T. Returns (h_in [B,T,H] in hs.dtype, or f32 scaled by keep with a
+    reset plane; keep [B,T,1] f32 or None; h_proj [B,T,3H] f32 with b_h)."""
     h_in = torch.cat([h0.to(hs.dtype)[:, None], hs[:, :-1]], dim=1)
     keep = None if reset is None else (1.0 - reset.float())[:, :, None]
     h_in_f = h_in.float() if keep is None else h_in.float() * keep
     h_proj = torch.matmul(h_in_f, w_h.float()) + b_h.float()
+    return h_in if keep is None else h_in_f, keep, h_proj
+
+
+def gru_bwd_gates(x_proj: torch.Tensor, h_proj: torch.Tensor):
+    """The gates the forward computed, from the f32 projections (b_x and
+    b_h included): (r, z, n, hn), each [B,T,H] f32."""
+    H = x_proj.shape[-1] // 3
     r = torch.sigmoid(x_proj[..., :H] + h_proj[..., :H])
     z = torch.sigmoid(x_proj[..., H:2 * H] + h_proj[..., H:2 * H])
     hn = h_proj[..., 2 * H:]
     n = torch.tanh(x_proj[..., 2 * H:] + r * hn)
-    return h_in if keep is None else h_in_f, keep, r, z, n, hn
+    return r, z, n, hn
 
 
 def gru_bwd_scan(r: torch.Tensor, z: torch.Tensor, n: torch.Tensor,
@@ -157,16 +164,29 @@ def gru_bwd_scan(r: torch.Tensor, z: torch.Tensor, n: torch.Tensor,
     return torch.stack(d_xp, dim=1), dh_next
 
 
+def gru_bwd_fused(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
+                  g_ys: torch.Tensor, w_h: torch.Tensor,
+                  keep: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reverse recurrence with the gate recompute folded in: the gates
+    from the f32 projections (`gru_bwd_gates`), then `gru_bwd_scan`.
+    Returns (d_xp [B,T,3H] f32, dh0 [B,H] f32, dn_r [B,T,H] f32), dn_r the
+    n-block of d_hproj (d_xp's n-block times r)."""
+    r, z, n, hn = gru_bwd_gates(x_proj, h_proj)
+    d_xp, dh0 = gru_bwd_scan(r, z, n, hn, h_in, g_ys, w_h, keep)
+    return d_xp, dh0, d_xp[..., 2 * r.shape[-1]:] * r
+
+
 def gru_bwd_math(x_proj: torch.Tensor, hs: torch.Tensor, h0: torch.Tensor,
                  w_h: torch.Tensor, b_h: torch.Tensor, g_ys: torch.Tensor,
                  reset: Optional[torch.Tensor] = None, *, scan=None):
     """Analytic GRU BPTT. Returns (d_x_proj, d_h0, d_w_h, d_b_h), all f32.
-    `scan` runs the reverse loop (`gru_bwd_scan`'s signature; the kernel
-    wrapper passes its own)."""
+    `scan` runs the reverse loop with the gates folded in
+    (`gru_bwd_fused`'s signature; the kernel wrapper passes its own)."""
     H = h0.shape[-1]
-    h_in, keep, r, z, n, hn = gru_bwd_hoist(x_proj, hs, h0, w_h, b_h, reset)
-    d_xp, dh0 = (scan or gru_bwd_scan)(r, z, n, hn, h_in, g_ys, w_h, keep)
-    d_hproj = torch.cat([d_xp[..., :2 * H], d_xp[..., 2 * H:] * r], dim=-1)
+    h_in, keep, h_proj = gru_bwd_project(x_proj, hs, h0, w_h, b_h, reset)
+    d_xp, dh0, dn_r = (scan or gru_bwd_fused)(x_proj, h_proj, h_in, g_ys, w_h, keep)
+    d_hproj = torch.cat([d_xp[..., :2 * H], dn_r], dim=-1)
     dW = torch.einsum("bth,btk->hk", h_in.float(), d_hproj)
     db = d_hproj.sum(dim=(0, 1))
     return d_xp, dh0, dW, db

@@ -11,11 +11,13 @@ order) and 3e-2 in bf16 (the plain version rounds every gate op to bf16, the
 kernel only the new h); the bf16 GRU and LSTM forwards' input projection
 1e-5 (exact bf16 products summed in f32 on both sides, in another order).
 Scatter-add 1e-5 (f32 atomics: the order of each
-row's sum changes from run to run). Head 1e-5 relative (both sides multiply
-in f32, bf16 inputs exactly; only the summation order differs). GRU and
+row's sum changes from run to run). Head 1e-5 (both sides multiply
+in f32, bf16 inputs exactly, on the tensor cores in bf16; only the summation
+order and the exponential's last bits differ). GRU and
 LSTM backward 1e-4 (f32 carries over T steps, another summation order in
-each step's dot product; the bf16 LSTM reverse recurrence splits its f32 dz
-into two bf16 terms for the tensor cores, which keeps ~2^-17 of it). LSTM
+each step's dot product; the bf16-weight GRU and LSTM reverse recurrences
+split their f32 cotangent into two bf16 terms for the tensor cores, which
+keeps ~2^-17 of it). LSTM
 forward 1e-5 in f32 and 5e-2 in bf16 (the plain version also rounds its
 cell state to bf16 every step). The reset
 variants keep their no-reset counterparts' tolerances, and with an all-zero
@@ -255,19 +257,18 @@ def test_gather_backward_through_autograd_uses_the_scatter_kernel(cuda):
 
 
 def _gate_planes(B, T, H, dtype, device, seed=0):
+    """The reverse recurrence's operands: the two f32 projections x_proj and
+    h_proj [B, T, 3H] (biases included), h_in, g_ys and W_h in `dtype`."""
     rng = np.random.default_rng(seed)
 
-    def t(*shape, lo=None):
-        a = rng.uniform(0.05, 0.95, size=shape) if lo else rng.normal(size=shape) * 0.5
-        return torch.from_numpy(a.astype(np.float32)).to(device)
+    def t(*shape):
+        return torch.from_numpy((rng.normal(size=shape) * 0.5).astype(np.float32)).to(device)
 
-    r, z = t(B, T, H, lo=True), t(B, T, H, lo=True)
-    n = torch.tanh(t(B, T, H))
-    hn = t(B, T, H)
+    x_proj, h_proj = t(B, T, 3 * H) * 2, t(B, T, 3 * H) * 2
     h_in = torch.tanh(t(B, T, H)).to(dtype)
     g = t(B, T, H).to(dtype)
     w_h = (t(H, 3 * H) * H ** -0.5).to(dtype)
-    return r, z, n, hn, h_in, g, w_h
+    return x_proj, h_proj, h_in, g, w_h
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -275,18 +276,19 @@ def _gate_planes(B, T, H, dtype, device, seed=0):
                                      (128, 50, 128, None), (11, 9, 64, 2),
                                      (4, 6, 256, None)])
 def test_gru_backward_kernel_matches_plain(cuda, dtype, B, T, H, R, monkeypatch):
-    if R is not None:
+    """bf16 weights run the tensor-core design (8 rows a block, no row
+    choice), f32 weights the CUDA-core design at every row tiling."""
+    if R is not None and dtype == torch.float32:
         real = k_gru.backward_launch_config
         monkeypatch.setattr(k_gru, "backward_launch_config",
                             lambda *a, **kw: real(*a, rows_per_block=R))
     planes = _gate_planes(B, T, H, dtype, cuda, seed=B + T)
     before = k_gru.gru_backward.launches
-    d_xp, dh0 = k_gru.gru_backward(*planes)
+    got = k_gru.gru_backward(*planes)
     torch.cuda.synchronize()
     assert k_gru.gru_backward.launches == before + 1
-    want_xp, want_h0 = k_gru.plain_backward(*planes)
-    torch.testing.assert_close(d_xp, want_xp, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(dh0, want_h0, rtol=1e-4, atol=1e-4)
+    for name, a, b in zip(("d_xp", "dh0", "dn_r"), got, k_gru.plain_backward(*planes)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
 
 
 @pytest.mark.parametrize("B,T,D,H", [(6, 9, 32, 32), (16, 40, 128, 128)])
@@ -310,6 +312,42 @@ def test_gru_autograd_with_kernels_matches_plain_autograd(cuda, B, T, D, H):
         torch.testing.assert_close(x, y.grad, rtol=1e-4, atol=1e-4, msg=name)
 
 
+@pytest.mark.parametrize("T", [1, 2, 50, 200])
+@pytest.mark.parametrize("H", [100, 128, 132, 256])
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_gru_bf16_backward_kernel_padding_and_ragged_rows(cuda, T, H, with_keep):
+    """The tensor-core reverse recurrence (the gates recomputed inside,
+    d_hproj split into two bf16 terms) at rsc15's width (H = 100 pads to
+    128), the training width, and widths past the registers' (fragments
+    read every step), B = 11 (a ragged block): d_xp, dh0 and dn_r within
+    1e-4 of the plain f32 loop, relative to their largest values. With a
+    keep plane h_in comes in f32, scaled, as `gru_bwd_project` hands it
+    over: an all-ones plane gives the no-keep kernel's bits on the same
+    operands, and a reset at t=0 zeroes dh0."""
+    B = 11
+    x_proj, h_proj, h_in, g, w_h = _gate_planes(B, T, H, torch.bfloat16, cuda, seed=T + H)
+    keep = None
+    if with_keep:
+        keep = (1.0 - _reset_plane(B, T, cuda, seed=H))[:, :, None]
+        h_in = h_in.float() * keep
+    planes = (x_proj, h_proj, h_in, g, w_h)
+    assert k_gru.backward_launch_config(B, T, H, w_h.dtype, h_in_dtype=h_in.dtype)[
+        "design"] == "mma.sync"
+    counter = "launches" if keep is None else "reset_launches"
+    before = getattr(k_gru.gru_backward, counter)
+    got = k_gru.gru_backward(*planes, keep)
+    torch.cuda.synchronize()
+    assert getattr(k_gru.gru_backward, counter) == before + 1
+    for name, a, b in zip(("d_xp", "dh0", "dn_r"), got, k_gru.plain_backward(*planes, keep)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * b.abs().max().item(), msg=name)
+    if with_keep:
+        for a, b in zip(k_gru.gru_backward(*planes, torch.ones_like(keep)),
+                        k_gru.gru_backward(*planes)):
+            assert torch.equal(a, b)
+        keep[:, 0] = 0.0
+        assert not bool(k_gru.gru_backward(*planes, keep)[1].any())
+
+
 def _head_args(N, S, H, dtype, device, seed=0):
     rng = np.random.default_rng(seed)
     V = 3 * S
@@ -330,8 +368,9 @@ def _head_args(N, S, H, dtype, device, seed=0):
 @pytest.mark.parametrize("N,S,H", [(300, 256, 128), (1000, 100, 64), (64, 37, 32),
                                    (5, 1, 8), (130, 600, 128)])
 def test_head_kernel_matches_plain(cuda, dtype, N, S, H):
-    es = 4 if dtype == torch.float32 else 2
-    if k_head.ROWS_PER_BLOCK * H * 4 + S * H * es > k_head.SMEM_LIMIT:
+    """bf16: the tensor-core design takes every shape here; f32: the
+    CUDA-core design raises where its negatives do not fit shared memory."""
+    if dtype == torch.float32 and k_head.ROWS_PER_BLOCK * H * 4 + S * H * 4 > k_head.SMEM_LIMIT:
         with pytest.raises(ValueError, match="shared memory"):
             k_head.launch_config(N, S, H, dtype)
         return
@@ -343,6 +382,28 @@ def test_head_kernel_matches_plain(cuda, dtype, N, S, H):
     want = k_head.plain(*args)
     assert got.dtype == torch.float32 and tuple(got.shape) == (N,)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("N,S,H", [(300, 100, 128), (25_600, 256, 128), (129, 2048, 128),
+                                   (77, 1, 64), (5, 65, 8)])
+def test_head_bf16_kernel_ragged_tiles_and_a_row_of_only_hits(cuda, N, S, H):
+    """The tensor-core head with N not a multiple of its 128-row block, S
+    not a multiple of its 64-negative tile (and S = 2048, past what one
+    block could stage), H padded to 16: the NLL within 1e-5 of the plain
+    version. Row 3's target is every negative's id, so all its negatives
+    are accidental hits: its NLL is 0 on both sides."""
+    h, pos, neg, targets, neg_ids, plq, nlq = _head_args(N, S, H, torch.bfloat16, cuda,
+                                                         seed=N + S)
+    neg_ids[:] = 3 * S + 1  # an id no other row's target takes
+    targets[3] = 3 * S + 1
+    before = k_head.sampled_softmax_nll.launches
+    got = k_head.sampled_softmax_nll(h, pos, neg, targets, neg_ids, plq, nlq)
+    torch.cuda.synchronize()
+    assert k_head.sampled_softmax_nll.launches == before + 1
+    want = k_head.plain(h, pos, neg, targets, neg_ids, plq, nlq)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert got[3].item() == 0.0 and want[3].item() == 0.0
 
 
 def test_head_loss_fwd_bwd_matches_the_plain_loss(cuda):
@@ -833,16 +894,15 @@ def test_gru_reset_kernel_matches_plain(cuda, dtype, B, T, D, H):
 
 @pytest.mark.parametrize("B,T,H", [(5, 7, 32), (256, 50, 100), (128, 40, 128), (11, 9, 64)])
 def test_gru_backward_reset_kernel_matches_plain(cuda, B, T, H):
-    """The keep path in f32, the dtype it runs in (`gru_bwd_hoist` hands
-    h_in over in f32 with a keep plane)."""
+    """The keep path with f32 weights: the CUDA-core design (bf16 weights'
+    keep path: test_gru_bf16_backward_kernel_padding_and_ragged_rows)."""
     planes = _gate_planes(B, T, H, torch.float32, cuda, seed=B + T)
     keep = (1.0 - _reset_plane(B, T, cuda, seed=H))[:, :, None]
     before = k_gru.gru_backward.reset_launches
-    d_xp, dh0 = k_gru.gru_backward(*planes, keep)
+    got = k_gru.gru_backward(*planes, keep)
     assert k_gru.gru_backward.reset_launches == before + 1
-    want_xp, want_h0 = k_gru.plain_backward(*planes, keep)
-    torch.testing.assert_close(d_xp, want_xp, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(dh0, want_h0, rtol=1e-4, atol=1e-4)
+    for name, a, b in zip(("d_xp", "dh0", "dn_r"), got, k_gru.plain_backward(*planes, keep)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
     for a, b in zip(k_gru.gru_backward(*planes, torch.ones_like(keep)),
                     k_gru.gru_backward(*planes)):
         assert torch.equal(a, b)

@@ -185,19 +185,42 @@ def test_head_without_logq_matches_xla():
 
 
 def test_head_launch_config_at_the_training_shape():
+    """bf16: the tensor-core design, 128 rows a block (200 blocks at N =
+    25,600), a ring of three S-tiles of 64 negatives [64][136] bf16 with
+    their ids and logQ. f32: the CUDA-core design, the negatives transposed
+    in shared memory."""
     cfg = cuda_head.launch_config(25_600, 256, 128, torch.bfloat16)
-    assert cfg == {"grid": 400, "threads": 256, "s_padded": 256, "ld": 258,
-                   "smem_bytes": 64 * 128 * 4 + 256 * 8 + 128 * 258 * 2}
-    assert cfg["smem_bytes"] <= cuda_head.SMEM_LIMIT
+    assert cfg == {"design": "mma.sync", "grid": 200, "threads": 256, "rows_per_block": 128,
+                   "hidden_padded": 128, "s_tile": 64,
+                   "smem_bytes": 3 * (64 * 136 * 2 + 64 * 8)}
+    assert 2 * cfg["smem_bytes"] <= cuda_head.SMEM_LIMIT  # two blocks share an SM
+    f32 = cuda_head.launch_config(25_600, 256, 128, torch.float32)
+    assert f32 == {"design": "cuda-core", "grid": 400, "threads": 256, "s_padded": 256,
+                   "ld": 257, "smem_bytes": 64 * 128 * 4 + 256 * 8 + 128 * 257 * 4}
+    assert f32["smem_bytes"] <= cuda_head.SMEM_LIMIT
     odd = cuda_head.launch_config(100, 100, 128, torch.float32)
     assert (odd["grid"], odd["s_padded"], odd["ld"]) == (2, 128, 129)
+
+
+@pytest.mark.parametrize("S,H,hp", [(2048, 128, 128), (1, 8, 16), (100_000, 64, 64),
+                                    (256, 136, 256)])
+def test_head_bf16_takes_any_number_of_negatives(S, H, hp):
+    """The bf16 design streams the negatives in S-tiles, so its shared
+    memory does not grow with S: S = 2048 at H = 128 (eight times what the
+    f32 design can stage) is launchable; H pads to a power of two >= 16."""
+    cfg = cuda_head.launch_config(300, S, H, torch.bfloat16)
+    assert (cfg["grid"], cfg["hidden_padded"]) == (3, hp)
+    assert 2 * cfg["smem_bytes"] <= cuda_head.SMEM_LIMIT
+    if S == 2048:
+        with pytest.raises(ValueError, match="shared memory"):
+            cuda_head.launch_config(300, S, H, torch.float32)
 
 
 @pytest.mark.parametrize("shape,dtype,match", [
     ((8, 16, 32), torch.float64, "dtype"),
     ((0, 16, 32), torch.float32, "empty"),
     ((8, 400, 128), torch.float32, "shared memory"),
-    ((8, 800, 128), torch.bfloat16, "shared memory"),
+    ((8, 800, 264), torch.bfloat16, "H <= 256"),
 ])
 def test_head_kernel_rejects_what_it_cannot_take(shape, dtype, match):
     with pytest.raises(ValueError, match=match):

@@ -282,8 +282,9 @@ def test_reset_variants_on_cpu_are_the_plain_versions():
     before = [getattr(f, a) for f, a in counters]
     planes = [t(2, 3, 8) for _ in range(6)]
     w = t(8, 24)
-    for a, b in zip(cuda_gru.gru_backward(*planes, w, keep),
-                    cuda_gru.plain_backward(*planes, w, keep)):
+    gplanes = [t(2, 3, 24), t(2, 3, 24), planes[0] * keep, planes[1]]  # x_proj, h_proj, h_in, g
+    for a, b in zip(cuda_gru.gru_backward(*gplanes, w, keep),
+                    cuda_gru.plain_backward(*gplanes, w, keep)):
         assert torch.equal(a, b)
     w4, dc = t(8, 32), t(2, 8)
     lplanes = planes + [t(2, 3, 8)]
@@ -417,16 +418,24 @@ def test_gru_launch_config_takes_the_rsc15_width():
     """D=H=100 (rsc15_gru4rec): in bf16 a row of x is 200 bytes, copied by
     the input projection in 8-byte pieces with zero-fill past D; H pads to
     112 (7 warps, zero weights and biases past 100), 8 rows a block: 32
-    blocks at B=256. The reset variant's reverse recurrence runs in f32 with
-    W_h^T (120 KB) in shared memory."""
+    blocks at B=256. The reset variant's reverse recurrence (bf16 weights)
+    runs on the tensor cores too, with the same padding and blocks, h_in
+    read in f32 as the keep path hands it over; with f32 weights it keeps
+    the CUDA-core design, W_h^T (120 KB) in shared memory."""
     assert cuda_gru.launch_config(256, 50, 100, 100, torch.bfloat16) == {
         "design": "mma.sync", "grid": 32, "threads": 224, "rows_per_block": 8,
         "hidden_padded": 112, "wh_in_regs": 1, "smem_bytes": 2 * 112 * 8 * 2,
         "xproj_grid": [200, 5], "xproj_threads": 128}
     f32 = cuda_gru.launch_config(256, 50, 100, 100, torch.float32)
     assert (f32["design"], f32["rows_per_block"], f32["wx_in_smem"]) == ("cuda-core", 2, 0)
+    bwd = cuda_gru.backward_launch_config(256, 50, 100, torch.bfloat16,
+                                          h_in_dtype=torch.float32)
+    stage = 6 * 8 * 116 * 4 + 8 * 116 * 4 + 8 * 120 * 2
+    assert bwd == {"design": "mma.sync", "grid": 32, "threads": 224, "rows_per_block": 8,
+                   "hidden_padded": 112, "w_in_regs": 1, "d_terms": 2,
+                   "smem_bytes": 2 * 2 * 3 * 112 * 8 * 2 + 3 * stage}
     assert cuda_gru.backward_launch_config(256, 50, 100, torch.float32) == {
-        "grid": 256, "threads": 100, "rows_per_block": 1, "w_in_smem": 1,
-        "smem_bytes": 2 * 300 * 4 + 300 * 100 * 4}
+        "design": "cuda-core", "grid": 256, "threads": 100, "rows_per_block": 1,
+        "w_in_smem": 1, "smem_bytes": 2 * 300 * 4 + 300 * 100 * 4}
     with pytest.raises(ValueError, match=r"D\*2 % 8"):
         cuda_gru.launch_config(256, 50, 102, 100, torch.bfloat16)

@@ -35,10 +35,12 @@ from seqrec_tpu_torch.config import ModelConfig, RunConfig, TrainConfig
 from seqrec_tpu_torch.data import negative
 from seqrec_tpu_torch.models import build_model
 from seqrec_tpu_torch.models.convert import flax_to_state_dict, random_params
+from seqrec_tpu_torch.ops import reference
 from seqrec_tpu_torch.ops.cuda import gather as cuda_gather
 from seqrec_tpu_torch.ops.cuda import gru as cuda_gru
 from seqrec_tpu_torch.train import state as train_state
 from seqrec_tpu_torch.train.trainer import Trainer
+from test_torch_lstm import _SplitBf16Product, _unpack_fragments
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -123,26 +125,140 @@ def test_gru_backward_math_matches_jax():
 
 def test_gru_backward_wrapper_on_cpu_is_the_plain_version():
     rng = np.random.default_rng(4)
-    planes = [torch.from_numpy(rng.random((2, 3, 8)).astype(np.float32)) for _ in range(6)]
+    proj = [torch.from_numpy(rng.normal(size=(2, 3, 24)).astype(np.float32)) for _ in range(2)]
+    planes = [torch.from_numpy(rng.random((2, 3, 8)).astype(np.float32)) for _ in range(2)]
     w_h = torch.from_numpy(rng.normal(size=(8, 24)).astype(np.float32))
     before = cuda_gru.gru_backward.launches
-    got = cuda_gru.gru_backward(*planes, w_h)
-    want = cuda_gru.plain_backward(*planes, w_h)
+    got = cuda_gru.gru_backward(*proj, *planes, w_h)
+    want = cuda_gru.plain_backward(*proj, *planes, w_h)
     assert cuda_gru.gru_backward.launches == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("with_reset", [False, True])
+def test_gru_fused_plain_is_the_gates_then_the_scan(with_reset):
+    """`reference.gru_bwd_fused`, the plain version of the reverse kernel
+    with the gate recompute folded in, equals the gate recompute
+    (`gru_bwd_gates`, the hoisted elementwise passes) followed by
+    `gru_bwd_scan` bit for bit, and its third output is d_xp's n-block times
+    r (the n-block of d_hproj)."""
+    args, g = _gru_inputs(6)
+    x, h0, w_x, w_h, b_x, b_h = (torch.from_numpy(a) for a in args)
+    g = torch.from_numpy(g)
+    reset = None
+    if with_reset:
+        reset = torch.from_numpy((np.random.default_rng(7).random((B, T)) > 0.7)
+                                 .astype(np.float32))
+    ys, _ = reference.gru_scan(x, h0, w_x, w_h, b_x, b_h, reset_mask=reset)
+    x_proj = torch.matmul(x, w_x) + b_x
+    h_in, keep, h_proj = reference.gru_bwd_project(x_proj, ys, h0, w_h, b_h, reset)
+    r, z, n, hn = reference.gru_bwd_gates(x_proj, h_proj)
+    want_xp, want_h0 = reference.gru_bwd_scan(r, z, n, hn, h_in, g, w_h, keep)
+    d_xp, dh0, dn_r = reference.gru_bwd_fused(x_proj, h_proj, h_in, g, w_h, keep)
+    assert torch.equal(d_xp, want_xp) and torch.equal(dh0, want_h0)
+    assert torch.equal(dn_r, want_xp[..., 2 * HID:] * r)
+
+
 def test_gru_backward_launch_config_at_the_training_shape():
+    """bf16 weights: the tensor-core design, 8 rows a block (16 blocks at
+    B=128), 8 warps, each its own tile of units over K = 3 Hp with W_h's
+    fragments in registers, the d_hproj^T double buffer [2][hi, lo][384][8]
+    bf16 and three stages of the two projections' six [8][132] f32 gate
+    blocks, h_in [8][136] bf16 and g_ys [8][136] bf16; the keep path reads
+    h_in in f32 ([8][132]). f32 weights: the CUDA-core design, as before."""
     bf16 = cuda_gru.backward_launch_config(128, 200, 128, torch.bfloat16)
-    assert bf16 == {"grid": 128, "threads": 128, "rows_per_block": 1, "w_in_smem": 1,
-                    "smem_bytes": 2 * 3 * 128 * 4 + 3 * 128 * 128 * 2}
+    stage = 6 * 8 * 132 * 4 + 8 * 136 * 2 + 8 * 136 * 2
+    assert bf16 == {"design": "mma.sync", "grid": 16, "threads": 256, "rows_per_block": 8,
+                    "hidden_padded": 128, "w_in_regs": 1, "d_terms": 2,
+                    "smem_bytes": 2 * 2 * 384 * 8 * 2 + 3 * stage}
+    keep = cuda_gru.backward_launch_config(128, 200, 128, torch.bfloat16,
+                                           h_in_dtype=torch.float32)
+    assert keep["smem_bytes"] - bf16["smem_bytes"] == 3 * 8 * (132 * 4 - 136 * 2)
+    for cfg in (bf16, keep):
+        assert cfg["smem_bytes"] <= cuda_gru.SMEM_LIMIT
+    with pytest.raises(ValueError, match="rows_per_block is the f32 design's"):
+        cuda_gru.backward_launch_config(128, 200, 128, torch.bfloat16, rows_per_block=1)
     f32 = cuda_gru.backward_launch_config(128, 200, 128, torch.float32)
-    assert (f32["rows_per_block"], f32["w_in_smem"]) == (1, 1)
+    assert f32 == {"design": "cuda-core", "grid": 128, "threads": 128, "rows_per_block": 1,
+                   "w_in_smem": 1, "smem_bytes": 2 * 3 * 128 * 4 + 3 * 128 * 128 * 4}
     wide = cuda_gru.backward_launch_config(8, 5, 256, torch.float32)
     assert (wide["rows_per_block"], wide["w_in_smem"]) == (2, 0)
     with pytest.raises(ValueError, match="H % 4"):
         cuda_gru.backward_launch_config(8, 5, 10, torch.float32)
+
+
+@pytest.mark.parametrize("H,hp,in_regs", [(4, 16, 1), (100, 112, 1), (128, 128, 1),
+                                          (132, 144, 0), (256, 256, 0)])
+def test_gru_bf16_backward_pads_to_whole_tiles(H, hp, in_regs):
+    """The bf16 reverse recurrence pads H as the forward does, to a multiple
+    of 16: Hp / 16 warps, W_h's fragments in registers and d_hproj^T
+    double-buffered up to Hp = 128, and its shared memory fits a block's up
+    to H = 256 with h_in in f32."""
+    for h_dt, h_row, h_es in ((torch.bfloat16, hp + 8, 2), (torch.float32, hp + 4, 4)):
+        cfg = cuda_gru.backward_launch_config(11, 7, H, torch.bfloat16, h_in_dtype=h_dt)
+        assert (cfg["hidden_padded"], cfg["threads"], cfg["w_in_regs"]) == (hp, 2 * hp, in_regs)
+        assert cfg["grid"] == 2
+        stage = 6 * 8 * (hp + 4) * 4 + 8 * h_row * h_es + 8 * (hp + 8) * 2
+        buffers = 2 if in_regs else 1  # d_hproj^T: one buffer past the registers' widths
+        assert cfg["smem_bytes"] == buffers * 2 * 3 * hp * 8 * 2 + 3 * stage <= cuda_gru.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("H", [100, 128])
+def test_gru_backward_fragments_unpack_to_w_h(H):
+    """W_h [H, 3H] packed as the bf16 reverse recurrence's A fragments
+    (`backward_fragments`): each gate's columns padded to Hp = 16 ceil(H /
+    16), zero past H, [tile][k-step][lane]. Unpacked lane by lane from the
+    PTX map, it is W_h."""
+    hp = 16 * -(-H // 16)
+    mt = hp // 16
+    w_h = torch.from_numpy(np.random.default_rng(H).normal(size=(H, 3 * H)).astype(np.float32))
+    w_h = w_h.bfloat16()
+    frags = cuda_gru.backward_fragments(w_h)
+    assert frags.dtype == torch.bfloat16 and frags.is_contiguous()
+    assert tuple(frags.shape) == (mt, 3 * mt, 32, 8)
+    want = np.zeros((hp, 3 * hp), np.float32)
+    for q in range(3):
+        want[:H, q * hp:q * hp + H] = _np(w_h)[:, q * H:(q + 1) * H]
+    np.testing.assert_array_equal(_unpack_fragments(frags, hp, 3 * hp), want)
+
+
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_gru_split_bf16_product_keeps_the_f32_contract(with_keep):
+    """The GRU reverse recurrence's contract is an f32 d_hproj times
+    bf16-valued weights, summed in f32 (`_gru_bwd_math`'s d_hproj is in
+    x_proj's f32). Through `reference.gru_bwd_scan`'s own loop at B=8, T=200,
+    H=128 on seeded planes and an orthogonal W_h, with and without a keep
+    plane: with d_hproj split as the kernel splits it, hi = bf16(d) and
+    lo = bf16(d - hi), d_xp and dh0 stay within 1e-4 / 10 of the f32
+    product relative to their largest values (the card check's tolerance is
+    1e-4); one bf16 term alone, rounding the cotangent to 8 bits every step,
+    does not."""
+    Bs, Ts, H = 8, 200, 128
+    rng = np.random.default_rng(13)
+
+    def t(*shape, gate=False):
+        a = rng.uniform(0.05, 0.95, size=shape) if gate else rng.normal(size=shape) * 0.5
+        return torch.from_numpy(a.astype(np.float32))
+
+    r, z = t(Bs, Ts, H, gate=True), t(Bs, Ts, H, gate=True)
+    n, hn = torch.tanh(t(Bs, Ts, H)), t(Bs, Ts, H)
+    h_in, g_ys = torch.tanh(t(Bs, Ts, H)).bfloat16(), t(Bs, Ts, H).bfloat16()
+    q, rr = np.linalg.qr(rng.normal(size=(3 * H, H)))
+    w_h = torch.from_numpy((q * np.sign(np.diag(rr))).T.astype(np.float32)).bfloat16()
+    keep = None
+    if with_keep:
+        keep = torch.from_numpy((rng.random((Bs, Ts, 1)) >= 1 / 6).astype(np.float32))
+        h_in = h_in.float() * keep
+    planes = (r, z, n, hn, h_in, g_ys)
+    want = reference.gru_bwd_scan(*planes, w_h, keep)
+
+    def rel(terms):
+        got = reference.gru_bwd_scan(*planes, _SplitBf16Product(w_h, terms), keep)
+        return max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want))
+
+    assert rel(2) < 1e-4 / 10
+    assert rel(1) > 1e-4
 
 
 def test_gather_grads_match_jax_including_out_of_range_ids():
