@@ -14,8 +14,9 @@ source, all at once). Each phase prints one JSON line:
               out-of-range ids, bit-exact; GRU: B=64, T=200, D=H=128 in f32
               and bf16, and against torch.nn.GRU as a second oracle, and
               also at the training shape B=128; the bf16 forward's input
-              projection kernel), with kernel, plain, library and bound
-              times and each kernel's design (mma.sync or cuda-core);
+              projection kernel and the f32 one's, which the f32 GRU
+              forward runs), with kernel, plain, library and bound times
+              and each kernel's design (mma.sync, cluster or cuda-core);
   d. serve    `recommend` on the ML-1M GRU4Rec configuration
               (configs/ml1m_gru4rec.json, seeded random weights) for a few
               hundred Zipf-distributed histories, batch 64, k=10: once with
@@ -79,13 +80,23 @@ source, all at once). Each phase prints one JSON line:
               windows that fell back to the dict path; then the same on
               configs/ml1m_lstm.json with data.session_parallel=true
               (synthetic ML-1M-shaped sessions of 5..200 items), 2 groups;
-  l. the kernels line: {"kernels": [{name, route, source, replaces,
+  l. the f32 paths: model.compute_dtype=float32 on a shipped config (no
+              config file of its own): serve on configs/ml1m_gru4rec.json as
+              phase d (the f32 GRU forward: its f32 input projection and the
+              cluster recurrence), scores within the f32 limit of the plain
+              path; train on configs/ml1m_lstm.json (the f32 LSTM forward
+              and the cluster reverse recurrence) and on
+              configs/ml1m_gru4rec.json, as phase f with two groups, step-1
+              loss and gradient norm within 1e-4 relative of the plain run;
+  m. the kernels line: {"kernels": [{name, route, source, replaces,
               launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
-              library_ms, design}, ...]} for all fourteen kernels (each bf16
-              RNN forward is two: its input projection and the scan),
-              `launches` counted on a training path (GRU4Rec's for the
-              gather, scatter-add and head, the session paths' for the reset
-              variants; the counts of every path beside it).
+              library_ms, design, dtype}, ...]}: the fourteen bf16 kernels
+              (each bf16 RNN forward is two: its input projection and the
+              scan) and the six f32 kernels the f32 paths run (the f32
+              GRU forward is two as well), `launches` counted on a training
+              path (GRU4Rec's for the gather, scatter-add and head, the
+              session paths' for the reset variants, the f32 paths' for the
+              f32 kernels; the counts of every path beside it).
 
 Then the raw nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -150,6 +161,10 @@ XPROJ_TOL = 1e-5  # exact bf16 products summed in f32 on both sides, another ord
 # its scores to bf16, through two blocks and LayerNorms); LSTM 5e-2 (the
 # plain scan also rounds its cell state to bf16 each step, over 200 steps).
 SCORE_TOL = {"gru4rec": 1e-2, "sasrec": 5e-2, "lstm": 5e-2}
+# f32 serving: the same f32 math through the tower in another summation
+# order (the GRU forward's f32 limit is 1e-5), then a 128-term score dot.
+F32_SCORE_TOL = 1e-4
+F32 = "model.compute_dtype=float32"  # the override of the f32 paths
 # Training path (B=128, T=200, S=256).
 TRAIN_B, TRAIN_T, NUM_NEG = 128, 200, 256
 HEAD_TOL = 1e-4  # nll ~6: f32 sums of 128 products and 257 exps in another order
@@ -158,6 +173,7 @@ GRU_BWD_TOL = 1e-4  # relative to the largest value: f32 carry over 200 steps, a
 GRU_BWD_BF16_W_TOL = 2 ** -7  # relative: weight grads rounded to bf16 on both sides
 STEP1_LOSS_TOL = 2e-2  # relative, kernels vs plain: bf16 compute, two tower numerics
 STEP1_NORM_TOL = 5e-2  # relative, the same, through the backward
+STEP1_F32_TOL = 1e-4  # relative, f32 paths: the same f32 math in another summation order
 # The towers' kernels (phase g).
 ATTN_F32_TOL = 2e-5  # an online softmax: the same f32 math summed in another order
 ATTN_BF16_TOL = 5e-2  # the plain version rounds its scores to bf16, the kernel keeps f32
@@ -391,19 +407,22 @@ def phase_kernels(rng: np.random.Generator, dev) -> dict:
             dev, x32_t, weights, torch.zeros(TRAIN_B, H, device=dev), dtype)
     out["gru_xproj"] = _xproj_check(k_gru, k_gru.gru_input_projection, x32, weights[0],
                                     weights[2])
+    out["xproj_f32"] = _xproj_check(k_gru, k_gru.gru_input_projection, x32, weights[0],
+                                    weights[2], torch.float32)
     emit({"phase": "kernels", **out})
     return out
 
 
-def _xproj_check(module, project, x32, w_x, b_x) -> dict:
-    """A bf16 forward's input projection kernel (`project`: x @ W_x + b_x
-    into f32, all steps at once; the GRU's and the LSTM's launch the same
-    GEMM) against its module's plain version; the library yardstick is one
-    f32 torch.addmm on the same values (TF32 off)."""
+def _xproj_check(module, project, x32, w_x, b_x, dtype=torch.bfloat16) -> dict:
+    """A forward's input projection kernel (`project`: x @ W_x + b_x into
+    f32, all steps at once) against its module's plain version: the bf16
+    GEMM (the GRU's and the LSTM's launch the same one) on bf16 values, or
+    the f32 one, which is also held against the product in f64. The library
+    yardstick is one f32 torch.addmm on the same values (TF32 off)."""
     B, T, D = x32.shape
     N = w_x.shape[1]
-    name = f"{project.__name__} B={B}"
-    x, wx = x32.bfloat16(), w_x.bfloat16()
+    name = f"{project.__name__} {_dname(dtype)} B={B}"
+    x, wx = x32.to(dtype), w_x.to(dtype)
     got = project(x, wx, b_x)
     torch.cuda.synchronize()
     want = module.plain_input_projection(x, wx, b_x)
@@ -412,16 +431,24 @@ def _xproj_check(module, project, x32, w_x, b_x) -> dict:
           f"{name}: {tuple(got.shape)} {got.dtype}")
     check(err <= XPROJ_TOL, f"{name}: kernel vs plain max abs err {err} > {XPROJ_TOL}")
     xf, wf = x.float().reshape(B * T, D), wx.float()
-    p_bytes = (B * T * D + D * N) * 2 + N * 4 + B * T * N * 4
+    errs = {"vs_plain": err}
+    if dtype == torch.float32:
+        f64 = (xf.double() @ wf.double() + b_x.double()).reshape(B, T, N)
+        errs["vs_f64"] = max_err(got, f64)
+        check(errs["vs_f64"] <= XPROJ_TOL,
+              f"{name}: kernel vs f64 max abs err {errs['vs_f64']} > {XPROJ_TOL}")
+    es = x.element_size()
+    p_bytes = (B * T * D + D * N) * es + N * 4 + B * T * N * 4
     p_flops = 2 * B * T * D * N
-    p_bound, p_by = bound(p_bytes, p_flops, torch.bfloat16)
+    p_bound, p_by = bound(p_bytes, p_flops, dtype)
     return {
-        "shape": {"M": B * T, "D": D, "N": N, "dtype": "bfloat16", "out": "float32"},
-        "design": "mma.sync", "max_abs_err": err, "tolerance": XPROJ_TOL,
+        "shape": {"M": B * T, "D": D, "N": N, "dtype": _dname(dtype), "out": "float32"},
+        "design": "mma.sync" if dtype == torch.bfloat16 else "cuda-core",
+        "max_abs_err": err, "errors": errs, "tolerance": XPROJ_TOL,
         "kernel_ms": time_ms(lambda: project(x, wx, b_x)),
         "plain_ms": time_ms(lambda: module.plain_input_projection(x, wx, b_x)),
         "library_ms": time_ms(lambda: torch.addmm(b_x, xf, wf)),
-        "library": "torch.addmm f32 on the bf16 values (TF32 off)",
+        "library": f"torch.addmm f32 on the {_dname(dtype)} values (TF32 off)",
         "bound_ms": p_bound, "bound_by": p_by, "bytes": int(p_bytes), "flops": int(p_flops),
     }
 
@@ -459,8 +486,8 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
     each with its scatter-add, and the head kernel only for the sampled
     softmax (BPR-max and the other ranking losses are plain tensor code);
     the tower's kernel once per layer or block (a bf16 GRU or LSTM forward
-    with its input projection), and its backward per layer, the reset
-    variants on a session-parallel path."""
+    with its input projection, an f32 GRU forward with the f32 one), and its
+    backward per layer, the reset variants on a session-parallel path."""
     m = cfg.model
     want = dict.fromkeys(COUNTERS, 0)
     if m.arch == "sasrec":
@@ -470,6 +497,8 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
         want[f"{m.cell_type}_scan{variant}"] = m.num_layers
         if m.compute_dtype == "bfloat16":  # the bf16 forward's input projection
             want[f"{m.cell_type}_xproj"] = m.num_layers
+        elif m.cell_type == "gru":  # the f32 GRU forward's
+            want["xproj_f32"] = m.num_layers
         if training:
             want[f"{m.cell_type}_backward{variant}"] = m.num_layers
     if training:
@@ -481,11 +510,13 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
     return want
 
 
-def phase_serve(dev, seed: int, path: str, requests: list) -> dict:
+def phase_serve(dev, seed: int, path: str, requests: list, overrides=()) -> dict:
+    """`overrides`: config changes for this run, named in its result (the
+    f32 path: F32)."""
     config = CONFIGS[path]
-    cfg = RunConfig.load(config)
+    cfg = RunConfig.load(config).apply_overrides(list(overrides))
     check(cfg.model.use_pallas, f"{config} must enable the kernels")
-    tol = SCORE_TOL[path]
+    tol = SCORE_TOL[path] if cfg.model.compute_dtype == "bfloat16" else F32_SCORE_TOL
     models = {}
     for use_pallas in (True, False):
         mcfg = cfg.apply_overrides([f"model.use_pallas={str(use_pallas).lower()}"]).model
@@ -566,7 +597,8 @@ def phase_serve(dev, seed: int, path: str, requests: list) -> dict:
     }
 
     result = {
-        "phase": "serve", "config": config, "vocab": VOCAB, "requests": n_requests,
+        "phase": "serve", "config": config, "overrides": list(overrides),
+        "compute_dtype": cfg.model.compute_dtype, "vocab": VOCAB, "requests": n_requests,
         "batch_size": B, "k": K, "batches": n_b,
         "requests_per_s": n_requests / (sum(times) / 1e3),
         "batch_ms_median": float(np.median(times)), "batch_ms_min": min(times),
@@ -1163,6 +1195,7 @@ COUNTERS = {
     "gru_backward_reset": (k_gru.gru_backward, "reset_launches"),
     "lstm_scan_reset": (k_lstm.lstm_scan, "reset_launches"),
     "lstm_backward_reset": (k_lstm.lstm_backward, "reset_launches"),
+    "xproj_f32": (k_gru.gru_input_projection, "f32_launches"),
 }
 
 
@@ -1325,9 +1358,11 @@ def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int
     a, b = step1[True], step1[False]
     loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
     norm_rel = abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
-    check(loss_rel <= STEP1_LOSS_TOL,
+    bf16 = cfg.model.compute_dtype == "bfloat16"
+    loss_tol, norm_tol = (STEP1_LOSS_TOL, STEP1_NORM_TOL) if bf16 else (STEP1_F32_TOL,) * 2
+    check(loss_rel <= loss_tol,
           f"train {path}: step-1 loss {a['loss']} (kernels) vs {b['loss']} (plain)")
-    check(norm_rel <= STEP1_NORM_TOL,
+    check(norm_rel <= norm_tol,
           f"train {path}: step-1 grad_norm {a['grad_norm']} (kernels) vs {b['grad_norm']} (plain)")
     check(a["tokens"] == b["tokens"], f"train {path}: step-1 token counts differ")
     carry_err = None
@@ -1424,8 +1459,8 @@ def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int
         "device_step_ms": split, "device_idle_share": 1.0 - split["total"] / step_ms,
         "profile": prof,
         "step1": {"kernels": a, "plain": b, "loss_rel_err": loss_rel,
-                  "grad_norm_rel_err": norm_rel, "loss_tolerance": STEP1_LOSS_TOL,
-                  "grad_norm_tolerance": STEP1_NORM_TOL},
+                  "grad_norm_rel_err": norm_rel, "loss_tolerance": loss_tol,
+                  "grad_norm_tolerance": norm_tol},
         "group_metrics": group_metrics, "plain_group_metrics": plain_group,
         "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
         "plain_launches": plain_launches, "peak_memory_bytes": int(max(peaks)),
@@ -1481,13 +1516,18 @@ def main(argv=None) -> int:
     train["rsc15_gru4rec_session"] = phase_train(rng, dev, args.seed, "rsc15_gru4rec", groups=3)
     train["lstm_session"] = phase_train(rng, dev, args.seed, "lstm", groups=2,
                                         overrides=["data.session_parallel=true"])
+    serve["gru4rec_f32"] = phase_serve(dev, args.seed, "gru4rec", requests, overrides=[F32])
+    train["lstm_f32"] = phase_train(rng, dev, args.seed, "lstm", groups=2, overrides=[F32])
+    train["gru4rec_f32"] = phase_train(rng, dev, args.seed, "gru4rec", groups=2,
+                                       overrides=[F32])
 
     def counts(kernel):
         return {f"{kind}_{path}": runs[path]["launches"][kernel]
                 for kind, runs in (("train", train), ("serve", serve)) for path in runs}
 
     # name, source, the TPU kernel it replaces, its phase record and dtype,
-    # and the training path whose count is `launches`.
+    # the training path whose count is `launches`, and (where the name is
+    # not) its counter.
     table = [
         ("gather", "gather.cu", "gather.py:86", kern["gather"], "float32", "gru4rec"),
         ("gather_backward", "gather.cu", "gather.py:106", tkern["gather_backward"],
@@ -1515,15 +1555,28 @@ def main(argv=None) -> int:
          skern["lstm_scan_reset"]["ml1m"]["bfloat16"], "bfloat16", "lstm_session"),
         ("lstm_backward_reset", "lstm.cu", "lstm.py:265",
          skern["lstm_backward_reset"]["ml1m"]["bfloat16"], "bfloat16", "lstm_session"),
+        # The f32 kernels of the f32 paths.
+        ("gru_scan_f32", "gru.cu", "gru.py:177", kern["gru_scan_float32"], "float32",
+         "gru4rec_f32", "gru_scan"),
+        ("xproj_f32", "rnn.cuh", "gru.py:110", kern["xproj_f32"], "float32", "gru4rec_f32"),
+        ("gru_backward_f32", "gru.cu", "gru.py:190", tkern["gru_backward"]["float32"],
+         "float32", "gru4rec_f32", "gru_backward"),
+        ("softmax_head_f32", "softmax_head.cu", "softmax_head.py:115",
+         tkern["softmax_head"]["float32"], "float32", "gru4rec_f32", "softmax_head"),
+        ("lstm_scan_f32", "lstm.cu", "lstm.py:153", towers["lstm_scan"]["float32"], "float32",
+         "lstm_f32", "lstm_scan"),
+        ("lstm_backward_f32", "lstm.cu", "lstm.py:209", towers["lstm_backward"]["float32"],
+         "float32", "lstm_f32", "lstm_backward"),
     ]
     emit({"kernels": [
         _kernel_entry(kname, "seqrec_tpu_torch/csrc/" + source,
                       "seqrec_tpu/ops/pallas/" + replaces,
-                      train[path]["launches"][kname], rec, dtype=dtype,
+                      train[path]["launches"][counter[0] if counter else kname], rec,
+                      dtype=dtype,
                       launches_counted_on=" ".join(["train", train[path]["config"],
                                                     *train[path]["overrides"]]),
-                      launches_by_path=counts(kname))
-        for kname, source, replaces, rec, dtype, path in table]})
+                      launches_by_path=counts(counter[0] if counter else kname))
+        for kname, source, replaces, rec, dtype, path, *counter in table]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

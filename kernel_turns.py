@@ -29,11 +29,16 @@ A turn times, by CUDA events (chip_smoke.time_ms, median of 21 runs):
     the LSTM forward bf16 at B=64 and B=128 (and f32 at B=128),
     its reset variant bf16 at B=128, beside torch.nn.LSTM in f32 (cuDNN,
     TF32 off) forward and backward (fwd+bwd - fwd) on the same inputs; the
-    LSTM reverse recurrence bf16 at B=128, without and with a keep plane;
+    LSTM reverse recurrence bf16 and f32 at B=128, without and with a keep
+    plane; the f32 GRU forward (projection included) at B=64 and B=128 and
+    its reset variant at B=256, T=50, D=H=100;
   - the main paths, through chip_smoke's phases: GRU4Rec, SASRec and LSTM
     serving (encode ms and batch ms), GRU4Rec, SASRec and LSTM training
     (device forward and step ms, the wall step ms and the device launches a
-    step), and rsc15_gru4rec and ml1m_lstm session training (the same); and
+    step), rsc15_gru4rec and ml1m_lstm session training (the same), and the
+    f32 paths (model.compute_dtype=float32 on ml1m_gru4rec for serving and
+    training and on ml1m_lstm for training; a checkout whose phase_serve
+    takes no overrides gets them through its RunConfig.load); and
     each serving model's
     `encode` of one batch of 64 behind a ~30 ms device sleep
     (`encode_device_ms`), so that the events bracket the device's work even
@@ -66,6 +71,27 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 ORDER = ("parent", "change", "change", "parent")
 RESET_EVERY = 6  # a session start about every 6 positions, as chip_smoke's rsc15 planes
+F32 = "model.compute_dtype=float32"
+
+
+def _serve(cs, dev, path: str, requests: list, overrides=()) -> dict:
+    """chip_smoke.phase_serve on `path` with `overrides`, also in a checkout
+    whose phase_serve takes none (its RunConfig.load applies them)."""
+    if not overrides or "overrides" in inspect.signature(cs.phase_serve).parameters:
+        return cs.phase_serve(dev, 0, path, requests, **({"overrides": overrides}
+                                                         if overrides else {}))
+    real = cs.RunConfig
+
+    class _Over:
+        @staticmethod
+        def load(p):
+            return real.load(p).apply_overrides(list(overrides))
+
+    cs.RunConfig = _Over
+    try:
+        return cs.phase_serve(dev, 0, path, requests)
+    finally:
+        cs.RunConfig = real
 
 
 def _path_worker(label: str, path: str) -> dict:
@@ -130,7 +156,8 @@ def _worker(label: str) -> dict:
         w_x, w_h, b_x, b_h = (w.to(dev) for w in cs.gru_weights(rng, D, D))
         return zipf_embeddings(Bg, T, D), state(Bg, D), (w_x, w_h, b_x, b_h)
 
-    for Bg, dtype in ((64, torch.bfloat16), (128, torch.bfloat16), (64, torch.float32)):
+    for Bg, dtype in ((64, torch.bfloat16), (128, torch.bfloat16), (64, torch.float32),
+                      (128, torch.float32)):
         x, h0, (w_x, w_h, b_x, b_h) = gru_inputs(Bg, 200, 128)
         xd, hd = x.to(dtype), h0.to(dtype)
         rec = {"ms": med(lambda: k_gru.gru_scan(xd, hd, w_x, w_h, b_x, b_h))}
@@ -149,6 +176,8 @@ def _worker(label: str) -> dict:
     xb, hb = x.bfloat16(), h0.bfloat16()
     kern["gru_reset_bfloat16_B256_rsc15"] = {
         "ms": med(lambda: k_gru.gru_scan(xb, hb, *w, reset_mask=reset))}
+    kern["gru_reset_float32_B256_rsc15"] = {
+        "ms": med(lambda: k_gru.gru_scan(x, h0, *w, reset_mask=reset))}
 
     def gru_reverse(x, h0, w, reset=None):
         """(ms of the reverse-recurrence kernel, ms of the whole backward
@@ -243,9 +272,14 @@ def _worker(label: str) -> dict:
                     ("lstm_backward_keep_bfloat16_B128", keep)):
         kern[key] = {"ms": med(lambda: k_lstm.lstm_backward(
             i_, f_, g_, o_, tanh_c, c_in, g_ys, whb, kp, dc_last))}
+    g32 = g_ys.float()
+    for key, kp in (("lstm_backward_float32_B128", None),
+                    ("lstm_backward_keep_float32_B128", keep)):
+        kern[key] = {"ms": med(lambda: k_lstm.lstm_backward(
+            i_, f_, g_, o_, tanh_c, c_in, g32, w_h, kp, dc_last))}
 
-    def encode_device_ms(path: str, batch: list) -> float:
-        cfg = RunConfig.load(cs.CONFIGS[path])
+    def encode_device_ms(path: str, batch: list, overrides=()) -> float:
+        cfg = RunConfig.load(cs.CONFIGS[path]).apply_overrides(list(overrides))
         m = build_model(cfg.model, cs.VOCAB, device=dev)
         m.load_state_dict(flax_to_state_dict(random_params(m, 0)))
         m.eval()
@@ -272,17 +306,20 @@ def _worker(label: str) -> dict:
     rng = np.random.default_rng(1)
     requests = cs.make_requests(rng, RunConfig.load(cs.CONFIGS["gru4rec"]).data.max_len)
     paths = {}
-    for path in ("gru4rec", "sasrec", "lstm"):
-        r = cs.phase_serve(dev, 0, path, requests)
-        paths[f"serve_{path}"] = {"encode_ms": r["batch_breakdown"]["encode_ms"],
-                                  "batch_ms": r["batch_ms_median"],
-                                  "encode_device_ms": encode_device_ms(path, requests[:cs.B])}
+    for key, path, over in (("serve_gru4rec", "gru4rec", ()), ("serve_sasrec", "sasrec", ()),
+                            ("serve_lstm", "lstm", ()), ("serve_gru4rec_f32", "gru4rec", (F32,))):
+        r = _serve(cs, dev, path, requests, over)
+        paths[key] = {"encode_ms": r["batch_breakdown"]["encode_ms"],
+                      "batch_ms": r["batch_ms_median"],
+                      "encode_device_ms": encode_device_ms(path, requests[:cs.B], over)}
     for key, path, over in (
             ("train_gru4rec", "gru4rec", ()),
             ("train_sasrec", "sasrec", ("train.warmup_steps=0",)),
             ("train_lstm", "lstm", ()),
             ("train_rsc15_gru4rec_session", "rsc15_gru4rec", ()),
-            ("train_lstm_session", "lstm", ("data.session_parallel=true",))):
+            ("train_lstm_session", "lstm", ("data.session_parallel=true",)),
+            ("train_lstm_f32", "lstm", (F32,)),
+            ("train_gru4rec_f32", "gru4rec", (F32,))):
         r = cs.phase_train(rng, dev, 0, path, groups=2, overrides=over)
         paths[key] = {"device_forward_ms": r["device_step_ms"]["forward"],
                       "device_step_ms": r["device_step_ms"]["total"],

@@ -58,13 +58,26 @@
 //    Padded units have zero weights and biases, so h' = 0.5 * h_in = 0
 //    there, always; padded rows (past B) are computed and never written.
 //
-// f32: the CUDA-core design (gru_forward_kernel), because TF32 tensor cores
-// keep ~3 digits and the f32 contract is f32 products. A block owns R batch
-// rows for the whole scan with one thread per hidden unit i, which computes
-// the r, z and n columns of unit i; h goes through shared memory
-// (double-buffered), W_h lives there too, W_x is read through L2, and
-// x[t+1] is copied to shared memory with cp.async while step t computes.
-// The projection is computed inside the step.
+// f32: two kernels as well, on the CUDA cores, because TF32 tensor cores
+// keep ~3 digits and the f32 contract is f32 products.
+// 1. rnn::xproj_f32_kernel (csrc/rnn.cuh), the same projection off the
+//    serial chain as an f32 SIMT GEMM (128 x 64 register-tiled output
+//    tiles, operands staged by cp.async).
+// 2. gru_forward_cluster_kernel, the recurrence on a thread block cluster.
+//    One SM cannot hold both weight matrices in f32 (196 KB each at H=128),
+//    and the first port's one-block design re-read W_x through L2 every
+//    step (~11.9 us a step). Here a cluster of C CTAs on neighbouring SMs
+//    owns R batch rows for the whole scan, each CTA a slice of the hidden
+//    units with its W_h columns (48 KB at H=128, C=4) resident in its
+//    shared memory (and, at 16 k values a thread, in its registers), and
+//    the step's new h values go to every CTA through distributed shared
+//    memory, st.async counted by an mbarrier a buffer (the layout, the
+//    reduce-scatter and the exchange in rnn.cuh). A cluster barrier a step
+//    cost ~1.6 us of fixed latency on an H100 (PERF.md). What sets a step
+//    now: that exchange's latency, the reduce-scatter and the f32 gate math
+//    on the serial chain, then one CTA's FMAs and shared-memory reads for
+//    its rows and units; C and R follow B and H (ops/cuda/gru.py
+//    launch_config).
 //
 // Backward (seqrec_gru_backward_mma, seqrec_gru_backward): the reverse
 // recurrence of the analytic BPTT. Replaces the `lax.scan(step, ...,
@@ -148,31 +161,22 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-
 // Four consecutive values from shared memory (16-byte aligned), as floats.
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 __device__ __forceinline__ float sigmoidf(float v) {
   return 1.0f / (1.0f + expf(-v));
+}
+
+// acc += h . w, in k order.
+__device__ __forceinline__ void dot4(float& acc, float4 h, float4 w) {
+  acc = fmaf(h.x, w.x, acc);
+  acc = fmaf(h.y, w.y, acc);
+  acc = fmaf(h.z, w.z, acc);
+  acc = fmaf(h.w, w.w, acc);
 }
 
 // Copy `bytes` (a multiple of 16) from global to shared memory.
@@ -183,165 +187,224 @@ __device__ __forceinline__ void copy_to_smem(void* dst, const void* src,
   for (size_t c = threadIdx.x; c < bytes / 16; c += blockDim.x) d[c] = s[c];
 }
 
-// Start the copy of x[b0 .. b0+R, t, :] into the staging buffer `xs`, in
-// 16-byte pieces (an f32 row of D % 4 == 0 values is whole pieces).
-// Rows past B are left as they are (zero from the start).
-template <typename T, int R>
-__device__ __forceinline__ void stage_x(T* xs, const T* x, int b0, int B,
-                                        int Tn, int D, int t) {
-  const int chunks = D * static_cast<int>(sizeof(T)) / 16;
-  for (int c = threadIdx.x; c < R * chunks; c += blockDim.x) {
-    const int r = c / chunks, j = c % chunks;
-    if (b0 + r < B) {
-      const char* src = reinterpret_cast<const char*>(
-          x + (static_cast<size_t>(b0 + r) * Tn + t) * D) + j * 16;
-      cp_async16(reinterpret_cast<char*>(xs + r * D) + j * 16, src);
-    }
-  }
-  cp_async_commit();
-}
+// ---------------------------------------------------------------------------
+// f32 forward: the input projection (rnn.cuh), then the recurrence on a
+// thread block cluster
+// ---------------------------------------------------------------------------
 
-// The CUDA-core forward (f32). kReset: the session-parallel variant, which
-// reads keep, a [B, T] f32 plane of 1 - reset (null otherwise). A template
-// flag, so that the no-reset variant compiles to the same code as without it.
-template <typename T, int R, bool kWxInSmem, bool kReset>
-__global__ void __launch_bounds__(kMaxHidden)
-gru_forward_kernel(const T* __restrict__ x, const T* __restrict__ h0,
-                   const T* __restrict__ w_x, const T* __restrict__ w_h,
-                   const float* __restrict__ b_x, const float* __restrict__ b_h,
-                   const float* __restrict__ keep, T* __restrict__ ys, int B,
-                   int Tn, int D, int H) {
+// The recurrence (rnn.cuh's cluster layout, K = H): CTA c of a cluster of C
+// owns units [c U, c U + U) of the cluster's R rows. Its shared memory holds
+// W_h's columns of its units, all three gates, k-sliced as
+// [L/4][3][threads][4] (thread S ul + s reads its slice's four k rows of
+// gate g as one float4, consecutive threads consecutive float4s), and h of
+// step t in two buffers [2][R][S L + 4] laid out by rnn::slice_pos (a row's
+// 4 extra floats put the rows' copies of one unit in different banks). A
+// step: every thread sums h[r][k] W_h[k][g H + u] over its slice for its R
+// rows and three gates (f32 FMAs; each W_h float4 serves R rows), the
+// reduce-scatter leaves the owner lane of (u, r) its r, z and n sums, it
+// computes h' in f32, writes ys and stores h' (times keep[t+1] in the reset
+// variant) into every CTA's next buffer with st.async, counted by that
+// CTA's mbarrier of the buffer, for which one thread waits (then a CTA
+// barrier) before the next step reads it. xp (b_x included) and keep
+// arrive by cp.async in the lane's slots of a ring, kClusterAhead steps
+// ahead. Padded k rows, padded units and rows past B hold zeros and
+// are never written.
+template <int R, int S, bool kReset, int kRegChunks>
+__global__ void __launch_bounds__(rnn::kClusterMaxThreads)
+gru_forward_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ h0,
+                           const float* __restrict__ w_h, const float* __restrict__ b_h,
+                           const float* __restrict__ keep, float* __restrict__ ys, int B,
+                           int Tn, int H, int U) {
+  using Own = rnn::Owner<R, 1, S>;
+  constexpr int NR = Own::NR;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int H3 = 3 * H;
-  float* hbuf = reinterpret_cast<float*>(smem);        // [2][R][H]
-  T* xbuf = reinterpret_cast<T*>(hbuf + 2 * R * H);    // [2][R][D]
-  T* wh_s = xbuf + 2 * R * D;                          // [H][3H]
-  T* wx_s = wh_s + static_cast<size_t>(H) * H3;        // [D][3H] if in smem
+  const int NT = blockDim.x, Up = NT / S;
+  const int L = rnn::slice_len(H, S), ld = S * L + 4, H3 = 3 * H;
+  float* ws = reinterpret_cast<float*>(smem);  // [L/4][3][NT][4]
+  float* hs = ws + 3 * L * NT;                 // [2][R][ld]
+  const unsigned C = rnn::cluster::size();
+  const int u0 = static_cast<int>(rnn::cluster::rank()) * U;
+  const int b0 = static_cast<int>(rnn::cluster::id()) * R;
+  const int tid = threadIdx.x, s = tid % S, ul = tid / S, u = u0 + ul;
+  const bool unit_ok = ul < U && u < H;
+  const Own own(s);
 
-  const int i = threadIdx.x;  // hidden unit; blockDim.x == H
-  const int b0 = blockIdx.x * R;
-
-  for (int c = i; c < 2 * R * H; c += blockDim.x) hbuf[c] = 0.0f;
-  for (int c = i; c < 2 * R * D; c += blockDim.x) xbuf[c] = from_f<T>(0.0f);
+  // W_h's columns of this CTA's units (reads of consecutive units coalesce).
+  for (int idx = tid; idx < S * L * 3 * Up; idx += NT) {
+    const int k = idx / (3 * Up), g = (idx / Up) % 3, vl = idx % Up;
+    const bool in = k < H && vl < U && u0 + vl < H;
+    const int ks = k / L, o = k - ks * L;
+    ws[(((o >> 2) * 3 + g) * NT + vl * S + ks) * 4 + (o & 3)] =
+        in ? w_h[static_cast<size_t>(k) * H3 + g * H + u0 + vl] : 0.0f;
+  }
+  for (int c = tid; c < 2 * R * ld; c += NT) hs[c] = 0.0f;
   __syncthreads();
-  stage_x<T, R>(xbuf, x, b0, B, Tn, D, 0);
-  copy_to_smem(wh_s, w_h, static_cast<size_t>(H) * H3 * sizeof(T));
-  if (kWxInSmem) copy_to_smem(wx_s, w_x, static_cast<size_t>(D) * H3 * sizeof(T));
-  for (int r = 0; r < R; ++r) {
-    if (b0 + r < B) {
-      float h = to_f(h0[static_cast<size_t>(b0 + r) * H + i]);
-      if (kReset) h *= keep[static_cast<size_t>(b0 + r) * Tn];
-      hbuf[r * H + i] = h;
+  // h_in of step 0 (keep[0] h0) for every unit of the cluster's rows.
+  for (int c = tid; c < R * H; c += NT) {
+    const int r = c / H, k = c - r * H, b = b0 + r;
+    if (b < B) {
+      const float h = h0[static_cast<size_t>(b) * H + k];
+      hs[r * ld + rnn::slice_pos(k, L, S)] = kReset ? __fmul_rn(h, keep[static_cast<size_t>(b) * Tn]) : h;
     }
   }
-  const float bxr = b_x[i], bxz = b_x[H + i], bxn = b_x[2 * H + i];
-  const float bhr = b_h[i], bhz = b_h[H + i], bhn = b_h[2 * H + i];
-  cp_async_wait_all();
-  __syncthreads();
-
-  const T* wx = kWxInSmem ? wx_s : w_x;
-  for (int t = 0; t < Tn; ++t) {
-    const int cur = t & 1, nxt = cur ^ 1;
-    if (t + 1 < Tn) stage_x<T, R>(xbuf + nxt * R * D, x, b0, B, Tn, D, t + 1);
-    const T* xc = xbuf + cur * R * D;
-    const float* hc = hbuf + cur * R * H;  // keep[t] * h, as step t consumes it
-    // keep[t+1] scales the h' this step hands to the next one.
-    float kn[R];
+  float bh[3], hin[NR];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      kn[r] = (kReset && t + 1 < Tn && b0 + r < B)
-                  ? keep[static_cast<size_t>(b0 + r) * Tn + t + 1]
-                  : 1.0f;
+  for (int g = 0; g < 3; ++g) bh[g] = unit_ok ? b_h[g * H + u] : 0.0f;
+#pragma unroll
+  for (int k = 0; k < NR; ++k) {
+    const int b = b0 + own.row0 + k;
+    hin[k] = 0.0f;
+    if (unit_ok && b < B) {
+      const float h = h0[static_cast<size_t>(b) * H + u];
+      hin[k] = kReset ? __fmul_rn(h, keep[static_cast<size_t>(b) * Tn]) : h;
     }
-
-    float ar[R], az[R], axn[R], ahn[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) ar[r] = az[r] = axn[r] = ahn[r] = 0.0f;
-
-    // x[t] @ W_x, columns i, H+i, 2H+i.
-    for (int k = 0; k < D; k += 4) {
-      float xv[R][4];
-#pragma unroll
-      for (int r = 0; r < R; ++r) load4(xc + r * D + k, xv[r]);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const T* w = wx + static_cast<size_t>(k + kk) * H3 + i;
-        const float wr = to_f(w[0]), wz = to_f(w[H]), wn = to_f(w[2 * H]);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          ar[r] = fmaf(xv[r][kk], wr, ar[r]);
-          az[r] = fmaf(xv[r][kk], wz, az[r]);
-          axn[r] = fmaf(xv[r][kk], wn, axn[r]);
-        }
-      }
-    }
-    // h @ W_h, the same columns.
-    for (int k = 0; k < H; k += 4) {
-      float hv[R][4];
-#pragma unroll
-      for (int r = 0; r < R; ++r) load4(hc + r * H + k, hv[r]);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const T* w = wh_s + (k + kk) * H3 + i;
-        const float wr = to_f(w[0]), wz = to_f(w[H]), wn = to_f(w[2 * H]);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          ar[r] = fmaf(hv[r][kk], wr, ar[r]);
-          az[r] = fmaf(hv[r][kk], wz, az[r]);
-          ahn[r] = fmaf(hv[r][kk], wn, ahn[r]);
-        }
-      }
-    }
-
-    float* hn_buf = hbuf + nxt * R * H;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float rg = sigmoidf(ar[r] + bxr + bhr);
-      const float zg = sigmoidf(az[r] + bxz + bhz);
-      const float ng = tanhf(axn[r] + bxn + rg * (ahn[r] + bhn));
-      const float hp = hc[r * H + i];
-      const T hq = from_f<T>((1.0f - zg) * ng + zg * hp);
-      hn_buf[r * H + i] = kReset ? to_f(hq) * kn[r] : to_f(hq);
-      if (b0 + r < B) ys[(static_cast<size_t>(b0 + r) * Tn + t) * H + i] = hq;
-    }
-    cp_async_wait_all();
-    __syncthreads();
   }
-}
-
-template <typename T, int R>
-int launch_r(const void* x, const void* h0, const void* w_x, const void* w_h,
-             const float* b_x, const float* b_h, const float* keep, void* ys,
-             int B, int Tn, int D, int H, int wx_in_smem, size_t smem,
-             cudaStream_t s) {
-  const dim3 grid((B + R - 1) / R), block(H);
-  auto launch = [&](auto kernel) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<grid, block, smem, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(h0),
-        static_cast<const T*>(w_x), static_cast<const T*>(w_h), b_x, b_h, keep,
-        static_cast<T*>(ys), B, Tn, D, H);
-    return static_cast<int>(cudaGetLastError());
+  // Step t's operands of the lane's rows into ring stage t % kClusterRing,
+  // [stage][NR][threads][4]: xp's r, z and n columns (b_x included) and
+  // keep[t+1] (the scale of the h' step t hands on); zeros where there is
+  // no such row, unit or step. One commit group a step.
+  float* ring = hs + 2 * R * ld;
+  auto issue = [&](int t) {
+    float* st = ring + (t % rnn::kClusterRing) * NR * NT * 4;
+#pragma unroll
+    for (int k = 0; k < NR; ++k) {
+      const int b = b0 + own.row0 + k;
+      const bool in = unit_ok && b < B && t < Tn;
+      const float* src = xp + ((static_cast<size_t>(b) * Tn + t) * H3 + u);
+      float* dst = st + (k * NT + tid) * 4;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) mma::cp_async4_zfill(dst + g, in ? src + g * H : xp, in ? 4 : 0);
+      const bool kin = kReset && b < B && t + 1 < Tn;
+      mma::cp_async4_zfill(dst + 3, kin ? keep + static_cast<size_t>(b) * Tn + t + 1 : xp,
+                           kin ? 4 : 0);
+    }
+    mma::cp_async_commit();
   };
-  if (keep == nullptr) {
-    return wx_in_smem ? launch(gru_forward_kernel<T, R, true, false>)
-                      : launch(gru_forward_kernel<T, R, false, false>);
+  for (int t = 0; t < rnn::kClusterAhead; ++t) issue(t);
+  // h'(t) lands in buffer (t+1) & 1: H R values a fill, from every CTA.
+  uint64_t* mb = reinterpret_cast<uint64_t*>(ring + rnn::kClusterRing * NR * NT * 4);
+  const unsigned fill_bytes = static_cast<unsigned>(H * R * 4);
+  if (tid == 0) {
+    rnn::cluster::mbar_init(&mb[0]);
+    rnn::cluster::mbar_init(&mb[1]);
+    rnn::cluster::mbar_init_fence();
+    if (Tn >= 2) rnn::cluster::mbar_expect(&mb[1], fill_bytes);  // h'(0)
+    if (Tn >= 3) rnn::cluster::mbar_expect(&mb[0], fill_bytes);  // h'(1)
   }
-  return wx_in_smem ? launch(gru_forward_kernel<T, R, true, true>)
-                    : launch(gru_forward_kernel<T, R, false, true>);
+  rnn::cluster::sync();  // every CTA of the cluster is running, its buffers set
+
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  // kRegChunks > 0 (L = 4 kRegChunks): the thread's slice of W_h stays in
+  // registers for the whole scan, and a step reads only h from shared memory.
+  constexpr int kRC = kRegChunks > 0 ? kRegChunks : 1;
+  float4 wreg[kRC][3];
+  if constexpr (kRegChunks > 0) {
+#pragma unroll
+    for (int j = 0; j < kRC; ++j)
+#pragma unroll
+      for (int g = 0; g < 3; ++g) wreg[j][g] = w4[(j * 3 + g) * NT + tid];
+  }
+  for (int t = 0; t < Tn; ++t) {
+    if (t > 0) {  // wait for h'(t-1): fill n of buffer t & 1
+      const int q = t & 1;
+      const unsigned n = q ? (t - 1) >> 1 : (t >> 1) - 1;
+      if (tid == 0) {
+        rnn::cluster::mbar_wait(&mb[q], n & 1);
+        if (t + 2 < Tn) rnn::cluster::mbar_expect(&mb[q], fill_bytes);  // h'(t+1)
+      }
+      __syncthreads();
+    }
+    const float4* h4 = reinterpret_cast<const float4*>(hs + (t & 1) * R * ld);
+    float acc[R][1][3];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r][0][0] = acc[r][0][1] = acc[r][0][2] = 0.0f;
+    if constexpr (kRegChunks > 0) {
+#pragma unroll
+      for (int j = 0; j < kRC; ++j) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 h = h4[r * (ld / 4) + j * S + s];
+          dot4(acc[r][0][0], h, wreg[j][0]);
+          dot4(acc[r][0][1], h, wreg[j][1]);
+          dot4(acc[r][0][2], h, wreg[j][2]);
+        }
+      }
+    } else {
+      for (int j = 0; j < L / 4; ++j) {
+        const float4 wr = w4[(j * 3 + 0) * NT + tid];
+        const float4 wz = w4[(j * 3 + 1) * NT + tid];
+        const float4 wn = w4[(j * 3 + 2) * NT + tid];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 h = h4[r * (ld / 4) + j * S + s];
+          dot4(acc[r][0][0], h, wr);
+          dot4(acc[r][0][1], h, wz);
+          dot4(acc[r][0][2], h, wn);
+        }
+      }
+    }
+    rnn::reduce_scatter<R, 1, S / 2, R, 1, 3>(acc, s);
+
+    issue(t + rnn::kClusterAhead);
+    mma::cp_async_wait<rnn::kClusterAhead>();  // step t's operands are in
+    const float4* cur = reinterpret_cast<const float4*>(ring) + (t % rnn::kClusterRing) * NR * NT;
+    float* hn = hs + ((t + 1) & 1) * R * ld;
+    float hq[NR];
+#pragma unroll
+    for (int k = 0; k < NR; ++k) {
+      const int row = own.row0 + k;
+      const float4 x = cur[k * NT + tid];
+      const float rg = sigmoidf(x.x + (acc[k][0][0] + bh[0]));
+      const float zg = sigmoidf(x.y + (acc[k][0][1] + bh[1]));
+      const float ng = tanhf(x.z + rg * (acc[k][0][2] + bh[2]));
+      hq[k] = (1.0f - zg) * ng + zg * hin[k];
+      if (t + 1 < Tn) {
+        // keep[t+1] scales the h' this step hands to the next one.
+        const float hk = kReset ? __fmul_rn(hq[k], x.w) : hq[k];
+        hin[k] = hk;
+        if (own.owner && unit_ok) {
+          const float* dst = hn + row * ld + rnn::slice_pos(u, L, S);
+          for (unsigned p = 0; p < C; ++p) {
+            rnn::cluster::store_async(rnn::cluster::map(dst, p), hk,
+                                      rnn::cluster::map(&mb[(t + 1) & 1], p));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NR; ++k) {
+      const int b = b0 + own.row0 + k;
+      if (own.owner && unit_ok && b < B) ys[(static_cast<size_t>(b) * Tn + t) * H + u] = hq[k];
+    }
+  }
+  mma::cp_async_wait<0>();  // no copy outlives the block
+  rnn::cluster::sync();
 }
 
-template <typename T>
-int launch_t(int rows_per_block, const void* x, const void* h0, const void* w_x,
-             const void* w_h, const float* b_x, const float* b_h,
-             const float* keep, void* ys, int B, int Tn, int D, int H,
-             int wx_in_smem, size_t smem, cudaStream_t s) {
-  switch (rows_per_block) {
-    case 1: return launch_r<T, 1>(x, h0, w_x, w_h, b_x, b_h, keep, ys, B, Tn, D, H, wx_in_smem, smem, s);
-    case 2: return launch_r<T, 2>(x, h0, w_x, w_h, b_x, b_h, keep, ys, B, Tn, D, H, wx_in_smem, smem, s);
+// W_h's slice in registers where it is 16 k values a thread (kGruRegSlice)
+// with 8 slices a unit and up to 8 rows (H = 100 on 2 CTAs, H = 128 on 4):
+// 48 registers beside the rows' sums.
+constexpr int kGruRegSlice = 16;
+
+template <bool kReset>
+int launch_cluster_fwd(int R, int S, bool w_in_regs, int clusters, int C, int threads,
+                       size_t smem, cudaStream_t st, const float* xp, const float* h0,
+                       const float* w_h, const float* b_h, const float* keep, float* ys, int B,
+                       int Tn, int H, int U) {
+  auto go = [&](auto kernel) {
+    return rnn::launch_clusters(kernel, clusters, C, threads, smem, st, xp, h0, w_h, b_h, keep,
+                                ys, B, Tn, H, U);
+  };
+  constexpr int kRC = kGruRegSlice / 4;
+  switch (R * 1000 + S * 10 + w_in_regs) {
+    case 4080: return go(gru_forward_cluster_kernel<4, 8, kReset, 0>);
+    case 4081: return go(gru_forward_cluster_kernel<4, 8, kReset, kRC>);
+    case 4160: return go(gru_forward_cluster_kernel<4, 16, kReset, 0>);
+    case 8080: return go(gru_forward_cluster_kernel<8, 8, kReset, 0>);
+    case 8081: return go(gru_forward_cluster_kernel<8, 8, kReset, kRC>);
+    case 8160: return go(gru_forward_cluster_kernel<8, 16, kReset, 0>);
+    case 16080: return go(gru_forward_cluster_kernel<16, 8, kReset, 0>);
+    case 16160: return go(gru_forward_cluster_kernel<16, 16, kReset, 0>);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -937,31 +1000,55 @@ int launch_bwd_mma(const float* xp, const float* hp, const void* h_in, const voi
 
 extern "C" {
 
-// The f32 forward (CUDA cores). x [B, T, D], h0 [B, H], w_x [D, 3H],
-// w_h [H, 3H], ys [B, T, H]: all float (dtype 0), contiguous, 16-byte
-// aligned; D % 4 == 0; b_x, b_h [3H] float; keep [B, T] float (1 - reset) or
-// null for the no-reset variant. smem_bytes is what the caller computed for
-// this layout; it is checked again here.
-int seqrec_gru_forward(const void* x, const void* h0, const void* w_x,
-                       const void* w_h, const void* b_x, const void* b_h,
-                       const void* keep, void* ys, int B, int Tn, int D, int H,
-                       int dtype, int rows_per_block, int wx_in_smem,
+// The f32 input projection on the CUDA cores: xp [M, N3] = x [M, D] @ w_x
+// [D, N3] + b_x, all float, contiguous, 16-byte aligned; D % 4 == 0 and
+// N3 % 4 == 0.
+int seqrec_gru_xproj_f32(const void* x, const void* w_x, const void* b_x, void* xp, int M,
+                         int D, int N3, void* stream) {
+  return rnn::launch_xproj_f32(x, w_x, b_x, xp, M, D, N3, static_cast<cudaStream_t>(stream));
+}
+
+// The f32 recurrence on thread block clusters. xp [B, T, 3H] (the input
+// projection, b_x included), h0 [B, H], w_h [H, 3H], b_h [3H], keep [B, T]
+// (1 - reset) or null, ys [B, T, H]: all float, contiguous, 16-byte aligned;
+// H % 4 == 0, H <= 256. Clusters of `cluster_size` CTAs of `threads`
+// threads, each CTA `units` hidden units (cluster_size * units >= H) of
+// `rows` batch rows, `slices` k-slices a unit (threads = slices * a padded
+// unit count); w_in_regs: W_h's slice in registers (exactly where a slice
+// is kGruRegSlice values, 8 slices a unit and rows <= 8). smem_bytes as the
+// caller computed it, checked again here.
+int seqrec_gru_forward(const void* xp, const void* h0, const void* w_h, const void* b_h,
+                       const void* keep, void* ys, int B, int Tn, int H, int rows,
+                       int slices, int cluster_size, int units, int threads, int w_in_regs,
                        long long smem_bytes, void* stream) {
-  const size_t es = 4;
-  const int R = rows_per_block;
-  if (B <= 0 || Tn <= 0 || D <= 0 || H <= 0 || H > kMaxHidden || dtype != 0 ||
-      D % 4 != 0 || H % 4 != 0) {
+  const int C = cluster_size, S = slices;
+  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0 ||
+      !rnn::cluster_shape_ok(rows, S) || C < 1 || C > rnn::kClusterMax || units <= 0 ||
+      C * units < H || threads % 32 != 0 || threads % S != 0 || threads / S < units ||
+      threads > rnn::kClusterMaxThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = 2 * static_cast<size_t>(R) * H * 4 + 2 * static_cast<size_t>(R) * D * es +
-                      static_cast<size_t>(H) * 3 * H * es +
-                      (wx_in_smem ? static_cast<size_t>(D) * 3 * H * es : 0);
+  const int L = rnn::slice_len(H, S);
+  const size_t nr = rows >= S ? rows / S : 1;
+  const size_t smem = (3 * static_cast<size_t>(L) * threads + 2 * static_cast<size_t>(rows) * (S * L + 4) +
+                       rnn::kClusterRing * nr * threads * 4) * 4 + 2 * sizeof(uint64_t);
   if (static_cast<long long>(smem) != smem_bytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_t<float>(R, x, h0, w_x, w_h, static_cast<const float*>(b_x),
-                         static_cast<const float*>(b_h), static_cast<const float*>(keep), ys,
-                         B, Tn, D, H, wx_in_smem, smem, static_cast<cudaStream_t>(stream));
+  const int clusters = (B + rows - 1) / rows;
+  if (w_in_regs != (L == kGruRegSlice && S == 8 && rows <= 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* x = static_cast<const float*>(xp);
+  const float* h = static_cast<const float*>(h0);
+  const float* w = static_cast<const float*>(w_h);
+  const float* bh = static_cast<const float*>(b_h);
+  const float* kp = static_cast<const float*>(keep);
+  float* y = static_cast<float*>(ys);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return kp == nullptr
+             ? launch_cluster_fwd<false>(rows, S, w_in_regs, clusters, C, threads, smem, st, x, h, w, bh, kp, y, B, Tn, H, units)
+             : launch_cluster_fwd<true>(rows, S, w_in_regs, clusters, C, threads, smem, st, x, h, w, bh, kp, y, B, Tn, H, units);
 }
 
 // The bf16 input projection: xp [M, N3] f32 = x [M, D] @ w_x [D, N3] + b_x,

@@ -100,12 +100,19 @@
 // arrive by cp.async in a ring of shared-memory stages two steps ahead of
 // their use: one step ahead in registers left the step waiting on HBM.
 
-// f32 (lstm_backward_kernel): one thread per hidden unit keeps its row's dh
-// and dc in registers; only dz (4H floats a row) goes through a
-// double-buffered shared array; W_h^T [4H, H] sits in shared memory when it
-// fits and is read through L2 otherwise (256 KB at H=128), laid out so a
-// warp's reads are consecutive. The next step's plane values are loaded
-// while the current step computes.
+// f32 (lstm_backward_cluster_kernel): the reverse recurrence on a thread
+// block cluster, with f32 FMA products (no TF32). W_h (256 KB at H=128) fits
+// no single SM, and the first port's one-block design re-read all of it
+// from L2 every step (~17.6 us a step). Here a cluster of C CTAs owns R
+// batch rows, CTA c the units [c U, c U + U) with W_h's rows of those units
+// (64 KB at H=128, C=4) resident in its shared memory; each owner lane
+// computes the dz of its (unit, row) pairs and keeps dh and dc in
+// registers, the dz values go to every CTA through distributed shared memory
+// (st.async, counted by an mbarrier a buffer), and each CTA then computes
+// dh_prev for its units (csrc/rnn.cuh's cluster layout). What bounds the
+// product is shared memory, not the FMAs: every thread group reads all of
+// the step's dz (R x 4H floats), so a warp's 32 lanes split the 4H columns
+// for 4 units (kBwdUnits) and each dz value read serves 4 units.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,6 +124,10 @@
 namespace {
 
 constexpr int kMaxHidden = 256;  // one thread per hidden unit
+// Units a warp of the f32 cluster reverse recurrence sums for (its 32 lanes
+// split their K = 4H columns): each dz value read from shared memory serves
+// this many units.
+constexpr int kBwdUnits = 4;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 
@@ -364,151 +375,224 @@ int launch_fwd_t(int rows_per_block, const void* x, const void* h0,
   }
 }
 
-// kReset: the session-parallel variant, which reads keep ([B, T] f32, 1 -
-// reset; null otherwise), as the forward's template flag.
-template <typename T, int R, bool kWInSmem, bool kReset>
-__global__ void __launch_bounds__(kMaxHidden)
-lstm_backward_kernel(const float* __restrict__ ig, const float* __restrict__ fg,
-                     const float* __restrict__ gg, const float* __restrict__ og,
-                     const float* __restrict__ tcg, const float* __restrict__ cing,
-                     const T* __restrict__ g_ys, const T* __restrict__ w_h_t,
-                     const float* __restrict__ keep,
-                     const float* __restrict__ dc_last, float* __restrict__ d_xp,
-                     float* __restrict__ dh0, float* __restrict__ dc0, int B,
-                     int Tn, int H) {
+// ---------------------------------------------------------------------------
+// f32 reverse recurrence on a thread block cluster
+// ---------------------------------------------------------------------------
+
+// rnn.cuh's cluster layout with K = 4H: CTA c of a cluster of C owns units
+// [c U, c U + U) of the cluster's R rows. Its shared memory holds W_h's rows
+// of its units (all 4H columns, k-sliced as [L/4][threads][4]: thread
+// S ul + s reads four columns of its slice as one float4) and dz of the step
+// in two buffers [2][R][S L + 4] laid out by rnn::slice_pos. A step, for
+// t = T-1 .. 0: the owner lane of (u, r) adds g_y to its dh carry, computes
+// dc and the four dz values of its pair from the gate planes (which arrive
+// by cp.async in the lane's slots of a ring, kClusterAhead steps ahead),
+// stores them into every CTA's buffer with st.async (counted by that CTA's
+// mbarrier of the buffer), writes d_xp and keeps dc f (times keep[t]) in a
+// register; one thread waits for the buffer's fill, then a CTA barrier;
+// then every thread sums dz[r][col] W_h[u][col] over its slice for the R
+// rows, and the reduce-scatter leaves the owner its dh carry (times
+// keep[t]).
+template <int R, bool kReset>
+__global__ void __launch_bounds__(rnn::kClusterMaxThreads)
+lstm_backward_cluster_kernel(const float* __restrict__ ig, const float* __restrict__ fg,
+                             const float* __restrict__ gg, const float* __restrict__ og,
+                             const float* __restrict__ tcg, const float* __restrict__ cing,
+                             const float* __restrict__ g_ys, const float* __restrict__ w_h,
+                             const float* __restrict__ keep, const float* __restrict__ dc_last,
+                             float* __restrict__ d_xp, float* __restrict__ dh0,
+                             float* __restrict__ dc0, int B, int Tn, int H, int U) {
+  constexpr int S = 32, UT = kBwdUnits;
+  using Own = rnn::Owner<R, UT, 32>;
+  constexpr int NRo = Own::NR, NUo = Own::NU;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int H4 = 4 * H;
-  float* dbuf = reinterpret_cast<float*>(smem);       // [2][R][4H] dz
-  T* wt_s = reinterpret_cast<T*>(dbuf + 2 * R * H4);  // [4H][H] if in smem
-
-  const int i = threadIdx.x;  // hidden unit; blockDim.x == H
-  const int b0 = blockIdx.x * R;
-  if (kWInSmem) copy_to_smem(wt_s, w_h_t, static_cast<size_t>(H4) * H * sizeof(T));
-  const T* wt = kWInSmem ? wt_s : w_h_t;
-
-  // Values of the step about to run: i, f, g, o, tanh c, c_in, g_y (and keep).
-  constexpr int kVals = kReset ? 8 : 7;
-  float nx[R][kVals];
-  auto load_step = [&](int t) {
+  const int NT = blockDim.x, Up = NT / S * UT, H4 = 4 * H;
+  const int L = rnn::slice_len(H4, S), ld = S * L + 4;
+  float* ws = reinterpret_cast<float*>(smem);  // [L/4][UT][NT][4]
+  float* dzs = ws + UT * L * NT;               // [2][R][ld]
+  const unsigned C = rnn::cluster::size();
+  const int u0 = static_cast<int>(rnn::cluster::rank()) * U;
+  const int b0 = static_cast<int>(rnn::cluster::id()) * R;
+  const int tid = threadIdx.x, lane = tid & 31, ug = tid >> 5;
+  const Own own(lane);
+  // The lane's (unit, row) pairs: units u0 + UT ug + ut0 + m, rows row0 + k.
+  int unit[NUo];
+  bool unit_ok[NUo];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (b0 + r < B) {
-        const size_t idx = (static_cast<size_t>(b0 + r) * Tn + t) * H + i;
-        nx[r][0] = ig[idx]; nx[r][1] = fg[idx]; nx[r][2] = gg[idx];
-        nx[r][3] = og[idx]; nx[r][4] = tcg[idx]; nx[r][5] = cing[idx];
-        nx[r][6] = to_f(g_ys[idx]);
-        if (kReset) nx[r][kVals - 1] = keep[static_cast<size_t>(b0 + r) * Tn + t];
-      } else {
+  for (int m = 0; m < NUo; ++m) {
+    const int vl = UT * ug + own.ut0 + m;
+    unit[m] = u0 + vl;
+    unit_ok[m] = vl < U && unit[m] < H;
+  }
+
+  // W_h's rows of this CTA's units (a row's columns are contiguous): unit
+  // UT g + ut's columns of slice s sit at [j][ut][32 g + s][4].
+  for (int idx = tid; idx < Up * S * L; idx += NT) {
+    const int vl = idx / (S * L), col = idx - vl * S * L;
+    const bool in = col < H4 && vl < U && u0 + vl < H;
+    const int ks = col / L, o = col - ks * L;
+    ws[((((o >> 2) * UT + vl % UT) * NT) + (vl / UT) * S + ks) * 4 + (o & 3)] =
+        in ? w_h[static_cast<size_t>(u0 + vl) * H4 + col] : 0.0f;
+  }
+  for (int c = tid; c < 2 * R * ld; c += NT) dzs[c] = 0.0f;
+
+  float dh_c[NRo][NUo], dc_c[NRo][NUo];
 #pragma unroll
-        for (int q = 0; q < kVals; ++q) nx[r][q] = 0.0f;
+  for (int k = 0; k < NRo; ++k) {
+    const int b = b0 + own.row0 + k;
+#pragma unroll
+    for (int m = 0; m < NUo; ++m) {
+      dh_c[k][m] = 0.0f;
+      dc_c[k][m] = unit_ok[m] && b < B ? dc_last[static_cast<size_t>(b) * H + unit[m]] : 0.0f;
+    }
+  }
+  // Step t = T-1-it's operands of the lane's pairs into ring stage
+  // it % kClusterRing, [stage][NRo NUo][threads][8]: i, f, g, o, tanh c,
+  // c_in, g_y and keep[t]; zeros where there is no such row, unit or step.
+  // One commit group a step.
+  constexpr int NP = NRo * NUo;
+  float* ring = dzs + 2 * R * ld;
+  const float* planes[7] = {ig, fg, gg, og, tcg, cing, g_ys};
+  auto issue = [&](int it) {
+    const int t = Tn - 1 - it;
+    float* st = ring + (it % rnn::kClusterRing) * NP * NT * 8;
+#pragma unroll
+    for (int k = 0; k < NRo; ++k) {
+      const int b = b0 + own.row0 + k;
+#pragma unroll
+      for (int m = 0; m < NUo; ++m) {
+        const bool in = unit_ok[m] && b < B && t >= 0;
+        const size_t idx = (static_cast<size_t>(b) * Tn + t) * H + unit[m];
+        float* dst = st + ((k * NUo + m) * NT + tid) * 8;
+#pragma unroll
+        for (int q = 0; q < 7; ++q) mma::cp_async4_zfill(dst + q, in ? planes[q] + idx : ig, in ? 4 : 0);
+        const bool kin = kReset && b < B && t >= 0;
+        mma::cp_async4_zfill(dst + 7, kin ? keep + static_cast<size_t>(b) * Tn + t : ig,
+                             kin ? 4 : 0);
       }
     }
+    mma::cp_async_commit();
   };
-  load_step(Tn - 1);
-  float dh_c[R], dc_c[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    dh_c[r] = 0.0f;
-    dc_c[r] = b0 + r < B ? dc_last[static_cast<size_t>(b0 + r) * H + i] : 0.0f;
+  for (int it = 0; it < rnn::kClusterAhead; ++it) issue(it);
+  // dz of iteration it lands in buffer it & 1: 4 H R values a fill.
+  uint64_t* mb = reinterpret_cast<uint64_t*>(ring + rnn::kClusterRing * NP * NT * 8);
+  const unsigned fill_bytes = static_cast<unsigned>(H4 * R * 4);
+  if (tid == 0) {
+    rnn::cluster::mbar_init(&mb[0]);
+    rnn::cluster::mbar_init(&mb[1]);
+    rnn::cluster::mbar_init_fence();
+    rnn::cluster::mbar_expect(&mb[0], fill_bytes);
+    if (Tn >= 2) rnn::cluster::mbar_expect(&mb[1], fill_bytes);
   }
-  __syncthreads();
+  rnn::cluster::sync();  // every CTA of the cluster is running, its buffers zero
 
-  for (int t = Tn - 1, s = 0; t >= 0; --t, ++s) {
-    float cur[R][kVals];
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  for (int t = Tn - 1, it = 0; t >= 0; --t, ++it) {
+    float* dz = dzs + (it & 1) * R * ld;
+    issue(it + rnn::kClusterAhead);
+    mma::cp_async_wait<rnn::kClusterAhead>();  // step t's operands are in
+    const float4* cur = reinterpret_cast<const float4*>(ring) + (it % rnn::kClusterRing) * NP * NT * 2;
+    float keep_t[NRo][NUo];
 #pragma unroll
-    for (int r = 0; r < R; ++r)
+    for (int k = 0; k < NRo; ++k) {
+      const int row = own.row0 + k, b = b0 + row;
 #pragma unroll
-      for (int q = 0; q < kVals; ++q) cur[r][q] = nx[r][q];
-    if (t > 0) load_step(t - 1);
-
-    float* dz = dbuf + (s & 1) * R * H4;
+      for (int m = 0; m < NUo; ++m) {
+        const float4 a = cur[((k * NUo + m) * NT + tid) * 2];
+        const float4 c = cur[((k * NUo + m) * NT + tid) * 2 + 1];
+        const float iv = a.x, fv = a.y, gv = a.z, ov = a.w;
+        const float tc = c.x, cin = c.y;
+        const float dh = dh_c[k][m] + c.z;
+        const float dc = dc_c[k][m] + dh * ov * (1.0f - tc * tc);
+        const float d[4] = {dc * gv * iv * (1.0f - iv), dc * cin * fv * (1.0f - fv),
+                            dc * iv * (1.0f - gv * gv), dh * tc * ov * (1.0f - ov)};
+        if (own.owner && unit_ok[m]) {
+          float* row_dz = dz + row * ld;
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float iv = cur[r][0], fv = cur[r][1], gv = cur[r][2], ov = cur[r][3];
-      const float tc = cur[r][4], cin = cur[r][5];
-      const float dh = dh_c[r] + cur[r][6];
-      const float dc = dc_c[r] + dh * ov * (1.0f - tc * tc);
-      const float dzi = dc * gv * iv * (1.0f - iv);
-      const float dzf = dc * cin * fv * (1.0f - fv);
-      const float dzg = dc * iv * (1.0f - gv * gv);
-      const float dzo = dh * tc * ov * (1.0f - ov);
-      if (b0 + r < B) {
-        float* out = d_xp + (static_cast<size_t>(b0 + r) * Tn + t) * H4;
-        out[i] = dzi; out[H + i] = dzf; out[2 * H + i] = dzg; out[3 * H + i] = dzo;
+          for (int q = 0; q < 4; ++q) {
+            const float* dst = row_dz + rnn::slice_pos(q * H + unit[m], L, S);
+            for (unsigned p = 0; p < C; ++p) {
+              rnn::cluster::store_async(rnn::cluster::map(dst, p), d[q],
+                                        rnn::cluster::map(&mb[it & 1], p));
+            }
+          }
+          if (b < B) {
+            float* out = d_xp + (static_cast<size_t>(b) * Tn + t) * H4 + unit[m];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) out[q * H] = d[q];
+          }
+        }
+        dc_c[k][m] = __fmul_rn(dc, fv);
+        if (kReset) dc_c[k][m] = __fmul_rn(dc_c[k][m], c.w);  // dc_prev *= keep[t]
+        keep_t[k][m] = c.w;
       }
-      dz[r * H4 + i] = dzi;
-      dz[r * H4 + H + i] = dzf;
-      dz[r * H4 + 2 * H + i] = dzg;
-      dz[r * H4 + 3 * H + i] = dzo;
-      dc_c[r] = dc * fv;
-      if (kReset) dc_c[r] *= cur[r][kVals - 1];  // dc_prev *= keep[t]
+    }
+    if (tid == 0) {  // wait for dz of this step: fill it >> 1 of buffer it & 1
+      rnn::cluster::mbar_wait(&mb[it & 1], (it >> 1) & 1);
+      if (it + 2 < Tn) rnn::cluster::mbar_expect(&mb[it & 1], fill_bytes);
     }
     __syncthreads();
 
-    // (dz @ W_h^T)[i] for the R rows.
-    float acc[R];
+    // dh_prev = dz @ W_h^T for this warp's UT units: each dz float4 serves
+    // UT units.
+    const float4* d4 = reinterpret_cast<const float4*>(dz);
+    float acc[R][UT][1];
 #pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-    for (int c = 0; c < H4; c += 4) {
-      float dv[R][4];
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int r = 0; r < R; ++r) load4(dz + r * H4 + c, dv[r]);
+      for (int ut = 0; ut < UT; ++ut) acc[r][ut][0] = 0.0f;
+    for (int j = 0; j < L / 4; ++j) {
+      float4 w[UT];
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const float w = to_f(wt[static_cast<size_t>(c + cc) * H + i]);
+      for (int ut = 0; ut < UT; ++ut) w[ut] = w4[(j * UT + ut) * NT + tid];
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(dv[r][cc], w, acc[r]);
+      for (int r = 0; r < R; ++r) {
+        const float4 v = d4[r * (ld / 4) + j * S + lane];
+#pragma unroll
+        for (int ut = 0; ut < UT; ++ut) {
+          acc[r][ut][0] = fmaf(v.x, w[ut].x, acc[r][ut][0]);
+          acc[r][ut][0] = fmaf(v.y, w[ut].y, acc[r][ut][0]);
+          acc[r][ut][0] = fmaf(v.z, w[ut].z, acc[r][ut][0]);
+          acc[r][ut][0] = fmaf(v.w, w[ut].w, acc[r][ut][0]);
+        }
       }
     }
+    rnn::reduce_scatter<R, UT, 16, R, UT, 1>(acc, lane);
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      dh_c[r] = acc[r];
-      if (kReset) dh_c[r] *= cur[r][kVals - 1];  // dh_prev *= keep[t]
-    }
+    for (int k = 0; k < NRo; ++k)
+#pragma unroll
+      for (int m = 0; m < NUo; ++m)  // dh_prev *= keep[t]
+        dh_c[k][m] = kReset ? __fmul_rn(acc[k][m][0], keep_t[k][m]) : acc[k][m][0];
   }
+  mma::cp_async_wait<0>();  // no copy outlives the block
+  rnn::cluster::sync();
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (b0 + r < B) {
-      dh0[static_cast<size_t>(b0 + r) * H + i] = dh_c[r];
-      dc0[static_cast<size_t>(b0 + r) * H + i] = dc_c[r];
+  for (int k = 0; k < NRo; ++k) {
+    const int b = b0 + own.row0 + k;
+#pragma unroll
+    for (int m = 0; m < NUo; ++m) {
+      if (own.owner && unit_ok[m] && b < B) {
+        dh0[static_cast<size_t>(b) * H + unit[m]] = dh_c[k][m];
+        dc0[static_cast<size_t>(b) * H + unit[m]] = dc_c[k][m];
+      }
     }
   }
 }
 
-template <typename T, int R>
-int launch_bwd_r(const float* const* planes, const void* g_ys, const void* w_h_t,
-                 const float* keep, const float* dc_last, float* d_xp,
-                 float* dh0, float* dc0, int B, int Tn, int H, int w_in_smem,
-                 size_t smem, cudaStream_t s) {
-  const dim3 grid((B + R - 1) / R), block(H);
-  auto launch = [&](auto kernel) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<grid, block, smem, s>>>(
-        planes[0], planes[1], planes[2], planes[3], planes[4], planes[5],
-        static_cast<const T*>(g_ys), static_cast<const T*>(w_h_t), keep,
-        dc_last, d_xp, dh0, dc0, B, Tn, H);
-    return static_cast<int>(cudaGetLastError());
+template <bool kReset>
+int launch_cluster_bwd(int R, int clusters, int C, int threads, size_t smem, cudaStream_t st,
+                       const float* const* planes, const float* g_ys, const float* w_h,
+                       const float* keep, const float* dc_last, float* d_xp, float* dh0,
+                       float* dc0, int B, int Tn, int H, int U) {
+  auto go = [&](auto kernel) {
+    return rnn::launch_clusters(kernel, clusters, C, threads, smem, st, planes[0], planes[1],
+                                planes[2], planes[3], planes[4], planes[5], g_ys, w_h, keep,
+                                dc_last, d_xp, dh0, dc0, B, Tn, H, U);
   };
-  if (keep == nullptr) {
-    return w_in_smem ? launch(lstm_backward_kernel<T, R, true, false>)
-                     : launch(lstm_backward_kernel<T, R, false, false>);
-  }
-  return w_in_smem ? launch(lstm_backward_kernel<T, R, true, true>)
-                   : launch(lstm_backward_kernel<T, R, false, true>);
-}
-
-template <typename T>
-int launch_bwd_t(int rows_per_block, const float* const* planes,
-                 const void* g_ys, const void* w_h_t, const float* keep,
-                 const float* dc_last, float* d_xp, float* dh0, float* dc0,
-                 int B, int Tn, int H, int w_in_smem, size_t smem,
-                 cudaStream_t s) {
-  switch (rows_per_block) {
-    case 1: return launch_bwd_r<T, 1>(planes, g_ys, w_h_t, keep, dc_last, d_xp, dh0, dc0, B, Tn, H, w_in_smem, smem, s);
-    case 2: return launch_bwd_r<T, 2>(planes, g_ys, w_h_t, keep, dc_last, d_xp, dh0, dc0, B, Tn, H, w_in_smem, smem, s);
+  switch (R) {
+    case 4: return go(lstm_backward_cluster_kernel<4, kReset>);
+    case 8: return go(lstm_backward_cluster_kernel<8, kReset>);
+    case 16: return go(lstm_backward_cluster_kernel<16, kReset>);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1031,24 +1115,31 @@ int seqrec_lstm_forward_mma(const void* xp, const void* h0, const void* c0,
              : launch_fwd_mma<true>(x, h0, c0, w_frag, kp, ys, cl, cp, B, Tn, H, smem, s);
 }
 
-// The f32 reverse recurrence (CUDA cores). i, f, g, o, tanh_c, c_in, g_ys
-// [B, T, H] and w_h_t [4H, H] float (dtype 0); keep [B, T] (1 - reset;
-// null: the no-reset variant), dc_last, dh0, dc0 [B, H] and d_xp
-// [B, T, 4H] float. All contiguous, 16-byte aligned. smem_bytes as the
-// caller computed it for this layout, checked again here.
-int seqrec_lstm_backward(const void* i, const void* f, const void* g,
-                         const void* o, const void* tanh_c, const void* c_in,
-                         const void* g_ys, const void* w_h_t, const void* keep,
-                         const void* dc_last, void* d_xp, void* dh0, void* dc0,
-                         int B, int Tn, int H, int dtype, int rows_per_block,
-                         int w_in_smem, long long smem_bytes, void* stream) {
-  const size_t es = 4;
-  const int R = rows_per_block;
-  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0 || dtype != 0) {
+// The f32 reverse recurrence on thread block clusters. i, f, g, o, tanh_c,
+// c_in, g_ys [B, T, H] and w_h [H, 4H] float; keep [B, T] (1 - reset; null:
+// the no-reset variant), dc_last, dh0, dc0 [B, H] and d_xp [B, T, 4H] float.
+// All contiguous, 16-byte aligned; H % 4 == 0, H <= 256. Clusters of
+// `cluster_size` CTAs of `threads` threads, each CTA `units` hidden units
+// (cluster_size * units >= H) of `rows` batch rows, `slices` k-slices a
+// unit. smem_bytes as the caller computed it, checked again here.
+int seqrec_lstm_backward(const void* i, const void* f, const void* g, const void* o,
+                         const void* tanh_c, const void* c_in, const void* g_ys,
+                         const void* w_h, const void* keep, const void* dc_last, void* d_xp,
+                         void* dh0, void* dc0, int B, int Tn, int H, int rows, int slices,
+                         int cluster_size, int units, int threads, long long smem_bytes,
+                         void* stream) {
+  const int C = cluster_size, S = slices;
+  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0 ||
+      (rows != 4 && rows != 8 && rows != 16) || S != 32 || C < 1 || C > rnn::kClusterMax ||
+      units <= 0 || C * units < H || threads % 32 != 0 || threads / 32 * kBwdUnits < units ||
+      threads > rnn::kClusterMaxThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = 2 * static_cast<size_t>(R) * 4 * H * 4 +
-                      (w_in_smem ? static_cast<size_t>(4) * H * H * es : 0);
+  const int L = rnn::slice_len(4 * H, S);
+  const size_t np = rows * kBwdUnits >= 32 ? rows * kBwdUnits / 32 : 1;  // pairs a lane
+  const size_t smem = (static_cast<size_t>(kBwdUnits) * L * threads +
+                       2 * static_cast<size_t>(rows) * (S * L + 4) +
+                       rnn::kClusterRing * np * threads * 8) * 4 + 2 * sizeof(uint64_t);
   if (static_cast<long long>(smem) != smem_bytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1056,10 +1147,18 @@ int seqrec_lstm_backward(const void* i, const void* f, const void* g,
       static_cast<const float*>(i), static_cast<const float*>(f),
       static_cast<const float*>(g), static_cast<const float*>(o),
       static_cast<const float*>(tanh_c), static_cast<const float*>(c_in)};
-  return launch_bwd_t<float>(R, planes, g_ys, w_h_t, static_cast<const float*>(keep),
-                             static_cast<const float*>(dc_last), static_cast<float*>(d_xp),
-                             static_cast<float*>(dh0), static_cast<float*>(dc0), B, Tn, H,
-                             w_in_smem, smem, static_cast<cudaStream_t>(stream));
+  const int clusters = (B + rows - 1) / rows;
+  const float* gy = static_cast<const float*>(g_ys);
+  const float* w = static_cast<const float*>(w_h);
+  const float* kp = static_cast<const float*>(keep);
+  const float* dcl = static_cast<const float*>(dc_last);
+  float* dxp = static_cast<float*>(d_xp);
+  float* dh = static_cast<float*>(dh0);
+  float* dc = static_cast<float*>(dc0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return kp == nullptr
+             ? launch_cluster_bwd<false>(rows, clusters, C, threads, smem, st, planes, gy, w, kp, dcl, dxp, dh, dc, B, Tn, H, units)
+             : launch_cluster_bwd<true>(rows, clusters, C, threads, smem, st, planes, gy, w, kp, dcl, dxp, dh, dc, B, Tn, H, units);
 }
 
 // The bf16 reverse recurrence on tensor cores. i, f, g, o, tanh_c, c_in

@@ -1,17 +1,25 @@
-// What the bf16 recurrences of gru.cu and lstm.cu share (sm_90a): the input
-// projection GEMM that takes x @ W_x off their serial chain, the fast gate
-// nonlinearities, and the block layout of the tensor-core recurrences (8
-// batch rows a block, a lane's (unit, row) positions, packed A fragments,
-// and the per-step staging of [B, T, H] planes).
+// What the recurrences of gru.cu and lstm.cu share (sm_90a).
 //
-// The input projection, xp [M, N] f32 = x [M, D] @ w_x [D, N] + b, all bf16
-// in: it does not depend on h, so one tensor-core GEMM over all B*T rows
+// bf16: the input projection GEMM that takes x @ W_x off their serial
+// chain, the fast gate nonlinearities, and the block layout of the
+// tensor-core recurrences (8 batch rows a block, a lane's (unit, row)
+// positions, packed A fragments, and the per-step staging of [B, T, H]
+// planes).
+//
+// The bf16 input projection, xp [M, N] f32 = x [M, D] @ w_x [D, N] + b, all
+// bf16 in: it does not depend on h, so one tensor-core GEMM over all B*T rows
 // computes it before the scan, which then loads each lane's values a step
 // ahead. 64 x 64 output tiles, four warps of 16 rows, mma.sync.m16n8k16
 // from ldmatrix fragments of x and (transposed) W_x, staged by cp.async in
 // 8-byte pieces with zero-fill past D and N (D = 100 in bf16 is a 200-byte,
 // 8-byte-aligned row). N is 3H (GRU) or 4H (LSTM).
-
+//
+// f32: the same projection on the CUDA cores (xproj_f32_kernel: f32
+// products, no TF32), and what the cluster recurrences share: the cluster
+// primitives (rank, distributed shared memory stores, the cluster barrier),
+// the k-sliced layout of a CTA's weights and of the exchanged vector, the
+// reduce-scatter that turns a unit's partial sums into one owner lane's
+// gate sums, and the cluster launch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -178,6 +186,317 @@ __device__ __forceinline__ void zero_smem(unsigned char* p, int bytes) {
     reinterpret_cast<uint4*>(p)[c] = make_uint4(0u, 0u, 0u, 0u);
   }
 }
+
+
+// ---------------------------------------------------------------------------
+// f32: the input projection on the CUDA cores
+// ---------------------------------------------------------------------------
+
+// xp [M, N] f32 = x [M, D] @ w_x [D, N] + b, all f32, f32 products (no TF32).
+// What bounds it: its operations (1.26 GFLOP at M = 12,800, D = 128,
+// N = 384: 0.019 ms at 67 TFLOP/s), read from tiles in shared memory.
+// 128 x 64 output tiles, 256 threads of 8 x 4 outputs (rows 8 ty .. 8 ty + 7,
+// columns 4 tx .. 4 tx + 3), k chunks of 16 staged by cp.async in 16-byte
+// pieces (zero past D and N, which are multiples of 4) into two buffers, the
+// next chunk in flight while this one computes. A thread's four x values of
+// a row and four W_x values of a k row are 16-byte reads; the eight lanes of
+// a quarter warp share their x row (a broadcast) and read 128 consecutive
+// bytes of W_x, so neither read conflicts. Each output sums its products in k
+// order, then adds b, as torch.matmul(x, w_x) + b does.
+constexpr int kF32TileM = 128;
+constexpr int kF32TileN = 64;
+constexpr int kF32TileK = 16;
+constexpr int kF32LdX = kF32TileK + 4;  // floats a shared row of x (80 bytes)
+constexpr int kF32ProjThreads = 256;
+
+__global__ void __launch_bounds__(kF32ProjThreads)
+xproj_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_x,
+                 const float* __restrict__ b, float* __restrict__ xp, int M, int D, int N) {
+  __shared__ __align__(16) float xs[2][kF32TileM * kF32LdX];     // [row][k]
+  __shared__ __align__(16) float ws[2][kF32TileK * kF32TileN];   // [k][col]
+  const int m0 = blockIdx.x * kF32TileM, n0 = blockIdx.y * kF32TileN;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+
+  auto stage = [&](int buf, int k0) {
+    for (int c = threadIdx.x; c < kF32TileM * kF32TileK / 4; c += kF32ProjThreads) {
+      const int r = c >> 2, j = (c & 3) * 4;
+      const bool in = m0 + r < M && k0 + j < D;
+      mma::cp_async16_zfill(&xs[buf][r * kF32LdX + j],
+                            in ? x + static_cast<size_t>(m0 + r) * D + k0 + j : x, in ? 16 : 0);
+    }
+    const int r = threadIdx.x >> 4, j = (threadIdx.x & 15) * 4;
+    const bool in = k0 + r < D && n0 + j < N;
+    mma::cp_async16_zfill(&ws[buf][r * kF32TileN + j],
+                          in ? w_x + static_cast<size_t>(k0 + r) * N + n0 + j : w_x, in ? 16 : 0);
+    mma::cp_async_commit();
+  };
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+  const int chunks = (D + kF32TileK - 1) / kF32TileK;
+  stage(0, 0);
+  for (int kc = 0; kc < chunks; ++kc) {
+    if (kc + 1 < chunks) {
+      stage((kc + 1) & 1, (kc + 1) * kF32TileK);
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* xa = xs[kc & 1];
+    const float* wa = ws[kc & 1];
+#pragma unroll
+    for (int kk = 0; kk < kF32TileK; kk += 4) {
+      float4 xv[8], wv[4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        xv[i] = *reinterpret_cast<const float4*>(xa + (8 * ty + i) * kF32LdX + kk);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        wv[e] = *reinterpret_cast<const float4*>(wa + (kk + e) * kF32TileN + 4 * tx);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float xe[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[i][0] = fmaf(xe[e], wv[e].x, acc[i][0]);
+          acc[i][1] = fmaf(xe[e], wv[e].y, acc[i][1]);
+          acc[i][2] = fmaf(xe[e], wv[e].z, acc[i][2]);
+          acc[i][3] = fmaf(xe[e], wv[e].w, acc[i][3]);
+        }
+      }
+    }
+    __syncthreads();  // this buffer is refilled two chunks on
+  }
+  const int col = n0 + 4 * tx;
+  if (col >= N) return;
+  const float4 bias = make_float4(b[col], b[col + 1], b[col + 2], b[col + 3]);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + 8 * ty + i;
+    if (row < M) {
+      *reinterpret_cast<float4*>(xp + static_cast<size_t>(row) * N + col) =
+          make_float4(acc[i][0] + bias.x, acc[i][1] + bias.y, acc[i][2] + bias.z,
+                      acc[i][3] + bias.w);
+    }
+  }
+}
+
+// Launch the f32 projection on `s`; a CUDA error code (0: launched).
+int launch_xproj_f32(const void* x, const void* w_x, const void* b, void* xp, int M, int D,
+                     int N, cudaStream_t s) {
+  if (M <= 0 || D <= 0 || N <= 0 || D % 4 != 0 || N % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((M + kF32TileM - 1) / kF32TileM, (N + kF32TileN - 1) / kF32TileN);
+  xproj_f32_kernel<<<grid, kF32ProjThreads, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w_x), static_cast<const float*>(b),
+      static_cast<float*>(xp), M, D, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// f32: the cluster recurrences
+// ---------------------------------------------------------------------------
+//
+// A cluster of C CTAs on neighbouring SMs owns R batch rows for the whole
+// scan; CTA c owns hidden units [c U, c U + U) (U = ceil(H / C)) and keeps
+// its slice of W_h in its own shared memory. The threads of a unit (the GRU
+// forward: S consecutive lanes, thread = S ul + s) or of 4 units (the LSTM
+// reverse: a warp) each sum the products of one slice of the K inputs of
+// the step's vector (h, K = H; dz, K = 4H), and a reduce-scatter among them
+// leaves each (unit, row) pair the full sums in one owner lane. Each owner
+// lane then computes its pairs and stores its results into every CTA's copy
+// of the next step's vector, through distributed shared memory; an mbarrier
+// a buffer makes the stores visible (the exchange below). The vector is
+// double-buffered: a lane
+// stores into buffer (t+1) & 1 only after its CTA received every CTA's
+// values of step t-1, which each produced after its last reads of that
+// buffer (a CTA's lanes of padded units read it late, into results nobody
+// uses). Only stores cross CTAs, none after a CTA's last fill, and a
+// cluster barrier ends the kernel.
+namespace cluster {
+
+__device__ __forceinline__ unsigned rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned size() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned id() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+// The address of `p` (this CTA's shared memory) in CTA `rank`'s.
+__device__ __forceinline__ unsigned map(const void* p, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(mma::smem_addr(p)), "r"(rank));
+  return r;
+}
+// The cluster barrier, every thread of every CTA: what a thread stored
+// (shared or distributed) before it is visible to every thread after it.
+__device__ __forceinline__ void sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The step's exchange: an mbarrier in each CTA's shared memory counts the
+// bytes of the next vector that have landed there. A producer lane stores
+// each value into every CTA with st.async, which also signals that CTA's
+// mbarrier (complete_tx); it is a one-way store, with no release fence to
+// wait for the lane's other memory operations, and no barrier across the
+// cluster. One thread of the consuming CTA arms the mbarrier for the bytes
+// of a fill (arrive.expect_tx) and waits for its phase.
+__device__ __forceinline__ void mbar_init(uint64_t* mb) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(mma::smem_addr(mb)) : "memory");
+}
+// The inits visible to the cluster's st.async before the first cluster sync.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* mb, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(mma::smem_addr(mb)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* mb, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra WAIT;\n"
+      "}\n" ::"r"(mma::smem_addr(mb)), "r"(parity) : "memory");
+}
+// v into `addr` (a map()ped address) of a CTA whose mbarrier is at `mbar`
+// (map()ped too), counting 4 bytes there.
+__device__ __forceinline__ void store_async(unsigned addr, float v, unsigned mbar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+               ::"r"(addr), "r"(__float_as_uint(v)), "r"(mbar) : "memory");
+}
+
+}  // namespace cluster
+
+// Values of a k-slice: K split into S slices of L values, L a multiple of 4
+// (K pads to S L with zeros).
+__host__ __device__ __forceinline__ int slice_len(int K, int S) {
+  return (K + 4 * S - 1) / (4 * S) * 4;
+}
+// Where input k sits in a vector of S L floats laid out so that four values
+// j of slice s are float4 number j S + s: the S threads of a unit read S
+// consecutive float4s, which no two of a quarter warp share a bank in.
+__device__ __forceinline__ int slice_pos(int k, int L, int S) {
+  const int s = k / L, o = k - s * L;
+  return ((o >> 2) * S + s) * 4 + (o & 3);
+}
+
+// Reduce-scatter among the lanes that share a group of units (the low bits
+// of the lane index, masks M = lanes / 2 .. 1): v[R][UT][G] holds this
+// lane's partial sums of R rows, UT units and G gates. Each level halves the
+// rows a lane keeps while more than one is left (the lane whose bit is set
+// keeps the upper half), then its units, then sums what is left whole; the
+// gates stay together. Afterwards v[k][m] (k < Owner::NR, m < Owner::NU)
+// holds the full sums of the (row, unit) pairs Owner names.
+template <int N, int NU, int M, int R, int UT, int G>
+__device__ __forceinline__ void reduce_scatter(float (&v)[R][UT][G], int lane) {
+  if constexpr (M >= 1) {
+    const bool hi = (lane & M) != 0;
+    if constexpr (N > 1) {
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i)
+#pragma unroll
+        for (int m = 0; m < NU; ++m)
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float send = hi ? v[i][m][g] : v[i + N / 2][m][g];
+            const float keep = hi ? v[i + N / 2][m][g] : v[i][m][g];
+            v[i][m][g] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+          }
+      reduce_scatter<N / 2, NU, M / 2, R, UT, G>(v, lane);
+    } else if constexpr (NU > 1) {
+#pragma unroll
+      for (int m = 0; m < NU / 2; ++m)
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float send = hi ? v[0][m][g] : v[0][m + NU / 2][g];
+          const float keep = hi ? v[0][m + NU / 2][g] : v[0][m][g];
+          v[0][m][g] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+        }
+      reduce_scatter<1, NU / 2, M / 2, R, UT, G>(v, lane);
+    } else {
+#pragma unroll
+      for (int g = 0; g < G; ++g) v[0][0][g] += __shfl_xor_sync(0xffffffffu, v[0][0][g], M);
+      reduce_scatter<1, 1, M / 2, R, UT, G>(v, lane);
+    }
+  }
+}
+
+// The pairs a lane holds after reduce_scatter over `Lanes` lanes: rows
+// row0 + k (k < NR) of units ut0 + m (m < NU) of its group; LR levels split
+// rows, LU units, A sum whole, and the lanes with the low A bits clear own
+// the pairs (the others hold copies).
+constexpr int log2i(int n) { return n <= 1 ? 0 : 1 + log2i(n / 2); }
+
+template <int R, int UT, int Lanes>
+struct Owner {
+  static constexpr int LL = log2i(Lanes);
+  static constexpr int LR = log2i(R) < LL ? log2i(R) : LL;
+  static constexpr int LU = log2i(UT) < LL - LR ? log2i(UT) : LL - LR;
+  static constexpr int A = LL - LR - LU;
+  static constexpr int NR = R >> LR, NU = UT >> LU;
+  int row0, ut0;
+  bool owner;
+  __device__ explicit Owner(int lane)
+      : row0((lane >> (LL - LR)) * NR), ut0(((lane >> A) & ((1 << LU) - 1)) * NU),
+        owner((lane & ((1 << A) - 1)) == 0) {}
+};
+
+// Launch `kernel` on `clusters` clusters of C CTAs of `threads` threads
+// each, with `smem` bytes of dynamic shared memory; a CUDA error code.
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), int clusters, int C, int threads, size_t smem,
+                    cudaStream_t s, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The per-step operands of a cluster recurrence's lane (the GRU's xp, the
+// LSTM's gate planes) arrive by cp.async into its own slots of a ring of
+// kClusterRing stages in shared memory, kClusterAhead steps ahead of their
+// use: a load into registers would be waited for by the next arrive's
+// release, which cp.async copies are not.
+constexpr int kClusterAhead = 3;
+constexpr int kClusterRing = kClusterAhead + 1;
+
+// The rows (R) and k-slices (S) a cluster kernel is instantiated for.
+constexpr bool cluster_shape_ok(int R, int S) {
+  return (R == 4 || R == 8 || R == 16) && (S == 8 || S == 16);
+}
+constexpr int kClusterMaxThreads = 512;
+constexpr int kClusterMax = 8;  // the portable cluster size
 
 }  // namespace
 }  // namespace rnn

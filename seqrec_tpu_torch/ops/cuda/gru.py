@@ -23,9 +23,16 @@ function in its own numerics; neither gives way to the other):
   lane holds the r, z and n sums of its own (unit, row) pairs; W_h^T's
   fragments stay in registers for the whole scan up to Hp = 128. One
   barrier a step; the step's latency times T binds.
-- f32 (`design` "cuda-core"): one thread per hidden unit, f32 FMAs on the
-  CUDA cores with the projection inside each step, as before; TF32 tensor
-  cores would keep ~3 digits, not the f32 products of the contract.
+- f32 (`design` "cluster"): f32 FMAs on the CUDA cores (TF32 tensor cores
+  would keep ~3 digits, not the f32 products of the contract). The
+  projection goes off the serial chain here too, as an f32 SIMT GEMM
+  (`gru_input_projection`, its own launch counter `.f32_launches`); the
+  recurrence runs on
+  thread block clusters: a cluster of C CTAs owns R batch rows for the
+  whole scan, each CTA a slice of the hidden units with its W_h columns
+  resident in its shared memory, and the new h slices go to every CTA of
+  the cluster through distributed shared memory (`st.async`, counted by an
+  mbarrier a buffer; `launch_config`, csrc/rnn.cuh).
 
 Backward, as `_gru_core_bwd`: both projections are recomputed with
 `torch.matmul` in parallel over T (`reference.gru_bwd_project`), the
@@ -77,19 +84,29 @@ PROJ_TILE = 64  # kProjTile in csrc/gru.cu: rows and columns of an xp tile
 WH_REG_LIMIT = 128  # Hp up to which the bf16 scan holds W_h in registers
 MMA_ROWS = 8  # kRows in csrc/rnn.cuh: batch rows a bf16 recurrence block, one n8 tile
 RING_STAGES = 3  # kStages in csrc/rnn.cuh: per-step operands staged this deep
+# The f32 cluster recurrences (csrc/rnn.cuh): a cluster of C CTAs owns R rows.
+CLUSTER_THREADS = 512  # kClusterMaxThreads
+CLUSTER_ROWS = (4, 8, 16)  # the rows a cluster the kernels are instantiated for
+CLUSTER_RING = 4  # kClusterRing: stages of a lane's per-step operands
+NUM_SMS = 132  # H100 SXM: the clusters of one launch should fit at once
+# The f32 forward's (cluster size, rows a cluster), in the order preferred
+# (kernel_probes.py clusters on an H100: fewer rows first, then 4 CTAs).
+GRU_CLUSTERS = ((4, 4), (2, 4), (4, 8), (2, 8), (4, 16), (2, 16), (8, 4), (8, 8), (8, 16))
+F32_PROJ_TILE = (128, 64)  # kF32TileM, kF32TileN: an f32 xp tile
+GRU_REG_SLICE = 16  # kGruRegSlice in csrc/gru.cu: a W_h slice of this length stays in registers
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gru")
     fwd = lib.seqrec_gru_forward
-    fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+    fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     fwd.restype = ctypes.c_int
-    proj = lib.seqrec_gru_xproj
-    proj.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    proj.restype = ctypes.c_int
+    for proj in (lib.seqrec_gru_xproj, lib.seqrec_gru_xproj_f32):
+        proj.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        proj.restype = ctypes.c_int
     mma = lib.seqrec_gru_forward_mma
     mma.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
         ctypes.c_longlong, ctypes.c_void_p,
@@ -120,8 +137,71 @@ def _check_dims(B: int, T: int, H: int, dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
+def _slice_len(K: int, S: int) -> int:
+    """rnn::slice_len: values of one of S k-slices of K inputs, a multiple of 4."""
+    return -(-K // (4 * S)) * 4
+
+
+def cluster_config(B: int, H: int, K: int, w_per_k: int, ring_floats: int,
+                   cluster_size: Optional[int], rows: Optional[int], preference, who: str,
+                   unit_block: int = 1) -> Dict:
+    """The layout of an f32 cluster recurrence (csrc/rnn.cuh): K inputs of the
+    step's vector (H for the GRU forward's h, 4H for the LSTM reverse's dz),
+    `w_per_k` weights of a thread per input of its slice (3 gates of one
+    unit, or one gate of 4 units), `ring_floats` operands of a lane's
+    (unit, row) pair a step in the cp.async ring (xp's three gates and keep,
+    or six gate planes, g_y and keep), `unit_block` units a group of
+    threads shares (1, or 4: a warp's).
+
+    C CTAs a cluster each own U = ceil(H / C) units. With one unit a group,
+    a unit has S k-slices of L values: S = 8, or 16 where fewer than 32
+    units (padded to whole warps) would leave a CTA under 256 threads; with
+    4, a warp (S = 32 slices) sums for 4 units. A CTA keeps its weight slice
+    (w_per_k L threads floats), the vector's two buffers [2][R][S L + 4]
+    and the operand ring [CLUSTER_RING][max(R unit_block / S, 1)][threads]
+    [ring_floats] in shared memory, then the two buffers' mbarriers. (C, R)
+    is the first of `preference` (each kernel's order, measured on an H100:
+    PERF.md), then of the other shapes, whose CTA fits (shared memory,
+    CLUSTER_THREADS) and whose clusters all fit the card at once
+    (ceil(B / R) C <= NUM_SMS), else the first that fits; `cluster_size`
+    and `rows` narrow the choice to their value and raise if nothing
+    fits."""
+    if cluster_size is not None and cluster_size not in (1, 2, 4, 8):
+        raise ValueError(f"{who}: cluster_size {cluster_size} not in 1, 2, 4, 8")
+    if rows is not None and rows not in CLUSTER_ROWS:
+        raise ValueError(f"{who}: rows_per_cluster {rows} not in {CLUSTER_ROWS}")
+
+    def layout(C, R):
+        U = -(-H // C)
+        if unit_block > 1:
+            S, threads = 32, 32 * -(-U // unit_block)
+        else:
+            S = 8 if 4 * -(-U // 4) >= 32 else 16
+            threads = S * (4 * -(-U // 4) if S == 8 else 2 * -(-U // 2))
+        L = _slice_len(K, S)
+        ring = CLUSTER_RING * max(R * unit_block // S, 1) * threads * ring_floats
+        smem = (w_per_k * L * threads + 2 * R * (S * L + 4) + ring) * 4 + 16  # 2 mbarriers
+        return {"design": "cluster", "cluster_size": C, "rows_per_cluster": R,
+                "clusters": -(-B // R), "grid": -(-B // R) * C, "threads": threads,
+                "units_per_cta": U, "k_slices": S, "k_slice": L, "smem_bytes": smem}
+
+    shapes = list(preference) + [(c, r) for c in (1, 2, 4, 8) for r in CLUSTER_ROWS
+                                 if (c, r) not in preference]
+    cands = [(c, r) for c, r in shapes if cluster_size in (None, c) and rows in (None, r)]
+    fitting = [cfg for cfg in (layout(c, r) for c, r in cands)
+               if cfg["smem_bytes"] <= SMEM_LIMIT and cfg["threads"] <= CLUSTER_THREADS]
+    if not fitting:
+        cfg = layout(*cands[0])
+        raise ValueError(
+            f"{who}: a CTA of a {cfg['cluster_size']}-CTA cluster needs {cfg['smem_bytes']} "
+            f"bytes of shared memory and {cfg['threads']} threads, over the {SMEM_LIMIT} and "
+            f"{CLUSTER_THREADS} it can have (H={H}, {cfg['rows_per_cluster']} rows a cluster)")
+    return next((cfg for cfg in fitting if cfg["grid"] <= NUM_SMS), fitting[0])
+
+
 def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
-                  rows_per_block: Optional[int] = None) -> Dict:
+                  rows_per_cluster: Optional[int] = None,
+                  cluster_size: Optional[int] = None) -> Dict:
     """Design, grid, block and shared-memory layout for one forward launch;
     ValueError for a shape the kernels cannot take.
 
@@ -132,23 +212,28 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
     [2][Hp][8] bf16 (unit-major) in shared memory. The latency of a step
     binds, and it grows with the rows a block computes: an H100 sweep at
     B=64 and 128, T=200, D=H=128 and at B=256, T=50, D=H=100 found 8 rows
-    1.5-1.8x faster than 16 (PERF.md), so the design has no other choice
-    and `rows_per_block` is the f32 design's alone.
+    1.5-1.8x faster than 16 (PERF.md), so the design has no other choice;
+    `rows_per_cluster` and `cluster_size` are the f32 design's alone.
 
-    f32 ("cuda-core"): one thread per hidden unit, R = 1 or 2 rows a block;
-    W_x goes to shared memory when it fits beside W_h, and is read from
-    global memory (L2) otherwise. Every block reads all of its weights every
-    step, so a smaller R spreads the scan over more SMs: with W_x in shared
-    memory R=1 is fastest; with W_x read from L2 each block's L2 traffic is
-    the limit, and R=2 halves the number of readers (an H100 sweep at B=64,
-    T=200, D=H=128, which also found R=4 slower in both cases)."""
+    f32 ("cluster"): the projection's grid of 128 x 64 xp tiles (256
+    threads, f32 FMAs), then the recurrence on thread block clusters
+    (`cluster_config` with K = H and three gates' weights a thread, in
+    GRU_CLUSTERS' order): a cluster of `cluster_size` CTAs owns
+    `rows_per_cluster` batch rows, each CTA ceil(H / C) units with their
+    W_h columns in its shared memory, and in registers (`w_in_regs`) where
+    a thread's slice is GRU_REG_SLICE values with 8 slices a unit and up to
+    8 rows (H = 128 on 4 CTAs, H = 100 on 2), so that a step reads only h
+    from shared memory. Its step is latency (the exchange, the gate math),
+    then one CTA's FMAs and shared-memory reads for its rows and units: 4
+    rows a cluster and 4 CTAs were fastest at B=64 and 128, D=H=128; at
+    B=256 that is 256 CTAs, two waves, and 2 CTAs win."""
     es = _check_dims(B, T, H, dtype)
     if D <= 0 or D % 4 != 0:  # rows of x copied in 8- or 16-byte pieces
         raise ValueError(f"gru: needs D*{es} % {4 * es} == 0 (D={D}, H={H})")
     if dtype == torch.bfloat16:
-        if rows_per_block is not None:
-            raise ValueError(f"gru: rows_per_block is the f32 design's; bf16 takes "
-                             f"{MMA_ROWS} rows a block (got {rows_per_block})")
+        if rows_per_cluster is not None or cluster_size is not None:
+            raise ValueError(f"gru: rows_per_cluster and cluster_size are the f32 design's; "
+                             f"bf16 takes {MMA_ROWS} rows a block")
         R = MMA_ROWS
         hp = 16 * -(-H // 16)
         return {
@@ -162,30 +247,12 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
             "xproj_grid": [-(-(B * T) // PROJ_TILE), -(-(3 * H) // PROJ_TILE)],
             "xproj_threads": 128,
         }
-    w_x = D * 3 * H * es
-
-    def base(r):  # h and x double buffers, then W_h
-        return 2 * r * H * 4 + 2 * r * D * es + H * 3 * H * es
-
-    if rows_per_block is None:
-        rows_per_block = 1 if base(1) + w_x <= SMEM_LIMIT else 2
-    if rows_per_block not in (1, 2):
-        raise ValueError(f"gru: rows_per_block {rows_per_block} not in 1, 2")
-    R = rows_per_block
-    if base(R) > SMEM_LIMIT:
-        raise ValueError(
-            f"gru: W_h and the step buffers need {base(R)} bytes of shared "
-            f"memory, over the {SMEM_LIMIT} a block can have (H={H}, {dtype})"
-        )
-    wx_in_smem = int(base(R) + w_x <= SMEM_LIMIT)
-    return {
-        "design": "cuda-core",
-        "grid": -(-B // R),
-        "threads": H,
-        "rows_per_block": R,
-        "wx_in_smem": wx_in_smem,
-        "smem_bytes": base(R) + (w_x if wx_in_smem else 0),
-    }
+    cfg = cluster_config(B, H, H, 3, 4, cluster_size, rows_per_cluster, GRU_CLUSTERS, "gru")
+    tm, tn = F32_PROJ_TILE
+    w_in_regs = cfg["k_slice"] == GRU_REG_SLICE and cfg["k_slices"] == 8 and \
+        cfg["rows_per_cluster"] <= 8
+    return {**cfg, "w_in_regs": int(w_in_regs),
+            "xproj_grid": [-(-(B * T) // tm), -(-(3 * H) // tn)], "xproj_threads": 256}
 
 
 def _backward_smem(hp: int, h_in_bytes: int) -> int:
@@ -311,40 +378,48 @@ def plain_input_projection(x: torch.Tensor, w_x: torch.Tensor,
 
 def gru_input_projection(x: torch.Tensor, w_x: torch.Tensor,
                          b_x: torch.Tensor) -> torch.Tensor:
-    """The forward's input projection x [..., D] @ w_x [D, 3H] + b_x [3H] ->
-    f32 [..., 3H], x and w_x bf16: the part of `_gru_step_body`'s step that
-    does not depend on h (`xp`, gru.py:110-113), for every step at once. A
-    CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (`seqrec_gru_xproj`) or raises."""
+    """The forward's input projection x [..., D] @ w_x [D, N] + b_x [N] ->
+    f32 [..., N] (N = 3H): the part of `_gru_step_body`'s step that does not
+    depend on h (`xp`, gru.py:110-113), for every step at once. x and w_x
+    bf16: the tensor-core GEMM (`seqrec_gru_xproj`, counted by
+    `.launches`); f32: the CUDA-core one, f32 products, no TF32
+    (`seqrec_gru_xproj_f32`, counted by `.f32_launches`). A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises."""
     if x.device.type == "cpu":
         return plain_input_projection(x, w_x, b_x)
     if x.device.type != "cuda":
         raise ValueError(f"gru: no kernel for device {x.device}")
     D = x.shape[-1]
-    N3 = w_x.shape[-1]
-    if x.dtype != torch.bfloat16 or w_x.dtype != torch.bfloat16:
-        raise ValueError(f"gru: the input projection kernel takes bf16 x and w_x, got "
-                         f"{x.dtype}, {w_x.dtype}")
-    if tuple(w_x.shape) != (D, N3) or tuple(b_x.shape) != (N3,) or D % 4 or N3 % 4:
-        raise ValueError(f"gru: input projection needs x [..., D], w_x [D, 3H], b_x [3H] "
-                         f"with D % 4 == 0 and 3H % 4 == 0; got {tuple(x.shape)}, "
+    N = w_x.shape[-1]
+    if x.dtype != w_x.dtype or x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"gru: the input projection kernels take bf16 or f32 x and w_x of "
+                         f"one dtype, got {x.dtype}, {w_x.dtype}")
+    if tuple(w_x.shape) != (D, N) or tuple(b_x.shape) != (N,) or D % 4 or N % 4:
+        raise ValueError(f"gru: input projection needs x [..., D], w_x [D, N], b_x [N] "
+                         f"with D % 4 == 0 and N % 4 == 0; got {tuple(x.shape)}, "
                          f"{tuple(w_x.shape)}, {tuple(b_x.shape)}")
     args = [x.contiguous(), w_x.contiguous(), b_x.float().contiguous()]
     _check_operands(args, x.device)
-    xp = torch.empty((*x.shape[:-1], N3), dtype=torch.float32, device=x.device)
-    M = xp.numel() // N3
+    xp = torch.empty((*x.shape[:-1], N), dtype=torch.float32, device=x.device)
+    M = xp.numel() // N
     if M == 0:
         return xp
     lib = _lib()
+    f32 = x.dtype == torch.float32
+    launch = lib.seqrec_gru_xproj_f32 if f32 else lib.seqrec_gru_xproj
     with torch.cuda.device(x.device):
-        rc = lib.seqrec_gru_xproj(*(a.data_ptr() for a in args), xp.data_ptr(), M, D, N3,
-                                  torch.cuda.current_stream(x.device).cuda_stream)
+        rc = launch(*(a.data_ptr() for a in args), xp.data_ptr(), M, D, N,
+                    torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, lib, "input projection")
-    gru_input_projection.launches += 1
+    if f32:
+        gru_input_projection.f32_launches += 1
+    else:
+        gru_input_projection.launches += 1
     return xp
 
 
 gru_input_projection.launches = 0
+gru_input_projection.f32_launches = 0
 
 
 def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None) -> torch.Tensor:
@@ -368,13 +443,15 @@ def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None) -> torch.Tensor:
                 *(a.data_ptr() for a in args), keep_ptr, ys.data_ptr(), B, T, H,
                 cfg["smem_bytes"], stream)
     else:
-        args = [t.contiguous() for t in (x, h0, w_x, w_h, b_x, b_h)]
+        xp = gru_input_projection(x, w_x, b_x)
+        args = [xp] + [t.contiguous() for t in (h0, w_h, b_h)]
         _check_operands(args + ([] if keep is None else [keep]), dev)
         with torch.cuda.device(dev):
             rc = lib.seqrec_gru_forward(
-                *(a.data_ptr() for a in args), keep_ptr, ys.data_ptr(), B, T, D, H,
-                _DTYPE_CODE[dtype], cfg["rows_per_block"], cfg["wx_in_smem"],
-                cfg["smem_bytes"], stream)
+                *(a.data_ptr() for a in args), keep_ptr, ys.data_ptr(), B, T, H,
+                cfg["rows_per_cluster"], cfg["k_slices"], cfg["cluster_size"],
+                cfg["units_per_cta"], cfg["threads"], cfg["w_in_regs"], cfg["smem_bytes"],
+                stream)
     _raise_on(rc, lib, "forward")
     if keep is None:
         gru_scan.launches += 1

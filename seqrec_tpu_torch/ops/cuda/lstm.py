@@ -25,10 +25,16 @@ in its own numerics; neither gives way to the other):
   the product keeps dz's f32 precision. W_h's fragments are packed here
   (`forward_fragments`, `backward_fragments`) and stay in registers up to
   Hp = 128.
-- f32 (`design` "cuda-core"): one thread per hidden unit, f32 FMAs on the
-  CUDA cores with the projection inside each step, k-packed weights
-  (`pack_k`); TF32 tensor cores would keep ~3 digits, not the f32 products
-  of the contract.
+- f32: f32 FMAs on the CUDA cores (TF32 tensor cores would keep ~3
+  digits, not the f32 products of the contract). The forward (`design`
+  "cuda-core") has one thread per hidden unit with the projection inside
+  each step and k-packed weights (`pack_k`). The reverse recurrence
+  (`design` "cluster") runs on thread block clusters, as the f32 GRU
+  forward does: a cluster of C CTAs owns R batch rows, each CTA a slice of
+  the hidden units with W_h's rows of those units resident in its shared
+  memory (a warp for BWD_UNITS units), and the step's dz values go to every
+  CTA of the cluster through distributed shared memory (`st.async`,
+  counted by an mbarrier a buffer).
 
 Forward: the kernels also write c_T, and, when autograd will need it, the
 f32 cell plane c_1..c_T, so the backward runs no serial `_recompute_cells`
@@ -61,7 +67,8 @@ import torch
 
 from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.ops import reference
-from seqrec_tpu_torch.ops.cuda.gru import MMA_ROWS, RING_STAGES, plain_input_projection
+from seqrec_tpu_torch.ops.cuda.gru import (MMA_ROWS, RING_STAGES, cluster_config,
+                                           plain_input_projection)
 
 plain = reference.lstm_scan
 plain_backward = reference.lstm_bwd_scan
@@ -70,6 +77,10 @@ SMEM_LIMIT = 232_448  # shared memory one block may opt in to on sm_90 (227 KB)
 MAX_HIDDEN = 256  # kMaxHidden in csrc/lstm.cu
 PROJ_TILE = 64  # kProjTile in csrc/rnn.cuh: rows and columns of an xp tile
 WH_REG_LIMIT = 128  # Hp up to which the bf16 kernels hold W_h in registers
+BWD_UNITS = 4  # kBwdUnits in csrc/lstm.cu: units a warp of the f32 reverse recurrence sums for
+# The f32 reverse recurrence's (cluster size, rows a cluster), in the order
+# preferred (kernel_probes.py clusters on an H100: 8 rows and 4 CTAs first).
+LSTM_CLUSTERS = ((4, 8), (4, 4), (2, 4), (4, 16), (8, 8), (8, 4), (8, 16), (2, 8), (2, 16))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -89,7 +100,7 @@ def _lib() -> ctypes.CDLL:
     ]
     fwd_mma.restype = ctypes.c_int
     bwd = lib.seqrec_lstm_backward
-    bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [
+    bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     bwd.restype = ctypes.c_int
@@ -210,7 +221,8 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
 
 
 def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
-                           rows_per_block: Optional[int] = None) -> Dict:
+                           rows_per_cluster: Optional[int] = None,
+                           cluster_size: Optional[int] = None) -> Dict:
     """Layout of one reverse-recurrence launch.
 
     bf16 ("mma.sync"): the forward's blocks of 8 rows, with H padded to
@@ -223,14 +235,24 @@ def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
     gate planes, which cp.async fills two steps ahead of their use, and the
     exchanged sums. dz goes to the tensor cores as two bf16 terms
     (`dz_terms`), hi = bf16(dz) and lo = bf16(dz - hi), so that the product
-    keeps the contract's f32 dz.
+    keeps the contract's f32 dz. `rows_per_cluster` and `cluster_size` are
+    the f32 design's alone.
 
-    f32 ("cuda-core"): one thread per hidden unit, the dz double buffer,
-    and W_h^T in shared memory when it fits (read through L2 otherwise, with
-    two rows a block; 256 KB at H=128)."""
-    es = _check_dims(B, T, H, dtype)
+    f32 ("cluster"): thread block clusters (`gru.cluster_config` with
+    K = 4H, the step's dz, in LSTM_CLUSTERS' order; at H=256 W_h's rows of
+    a quarter of the units are 256 KB, so C = 8): a cluster of
+    `cluster_size` CTAs owns `rows_per_cluster` batch rows, each CTA
+    ceil(H / C) units with their W_h rows in its shared memory and the dz
+    double buffer. A warp sums for BWD_UNITS units, its 32 lanes each over
+    a slice of the 4H columns, so that each dz value read from shared
+    memory serves BWD_UNITS units (the step's product reads shared memory,
+    not the FMAs, at one unit a thread group)."""
+    _check_dims(B, T, H, dtype)
     if dtype == torch.bfloat16:
-        R = _mma_rows(rows_per_block)
+        if rows_per_cluster is not None or cluster_size is not None:
+            raise ValueError(f"lstm: rows_per_cluster and cluster_size are the f32 design's; "
+                             f"bf16 takes {MMA_ROWS} rows a block")
+        R = MMA_ROWS
         hp = _padded_pairs(H)
         return {
             "design": "mma.sync",
@@ -242,21 +264,8 @@ def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
             "dz_terms": 2,
             "smem_bytes": _backward_smem(hp),
         }
-    w = 4 * H * H * es
-
-    def base(r):
-        return 2 * r * 4 * H * 4
-
-    R = _rows(rows_per_block, base(1) + w <= SMEM_LIMIT)
-    w_in_smem = int(base(R) + w <= SMEM_LIMIT)
-    return {
-        "design": "cuda-core",
-        "grid": -(-B // R),
-        "threads": H,
-        "rows_per_block": R,
-        "w_in_smem": w_in_smem,
-        "smem_bytes": base(R) + w_in_smem * w,
-    }
+    return cluster_config(B, H, 4 * H, BWD_UNITS, 8, cluster_size, rows_per_cluster,
+                          LSTM_CLUSTERS, "lstm backward", unit_block=BWD_UNITS)
 
 
 def _check_operands(args, dev) -> None:
@@ -437,7 +446,7 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
     keep = _keep_plane(keep, B, T)
     planes = [t.float().contiguous() for t in (i, f, g, o, tanh_c, c_in)]
     mma = cfg["design"] == "mma.sync"
-    w = backward_fragments(w_h) if mma else w_h.to(dtype).T.contiguous()
+    w = backward_fragments(w_h) if mma else w_h.float().contiguous()
     args = planes + [g_ys.contiguous(), w]
     dc_last = dc_last.float().contiguous()
     _check_operands(args + [dc_last] + ([] if keep is None else [keep]), dev)
@@ -453,8 +462,8 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
             rc = lib.seqrec_lstm_backward_mma(*ptrs, B, T, H, cfg["smem_bytes"], stream)
         else:
             rc = lib.seqrec_lstm_backward(
-                *ptrs, B, T, H, _DTYPE_CODE[dtype], cfg["rows_per_block"], cfg["w_in_smem"],
-                cfg["smem_bytes"], stream)
+                *ptrs, B, T, H, cfg["rows_per_cluster"], cfg["k_slices"], cfg["cluster_size"],
+                cfg["units_per_cta"], cfg["threads"], cfg["smem_bytes"], stream)
     _raise_on(rc, lib, "backward")
     if keep is None:
         lstm_backward.launches += 1

@@ -1,0 +1,208 @@
+"""The f32 cluster recurrences' layout (csrc/rnn.cuh, the f32 GRU forward
+and the f32 LSTM reverse recurrence), on the CPU: what `launch_config` and
+`backward_launch_config` choose and refuse, and the index maps the kernels
+use, checked here in numpy as the kernels compute them: the k-sliced weight
+image each CTA copies into its shared memory, the slice layout of the
+exchanged vector, and the reduce-scatter that leaves each (unit, row) pair
+one owner lane. Exact: only indices and f64 sums are compared."""
+
+import numpy as np
+import pytest
+import torch
+
+from seqrec_tpu_torch.ops.cuda import gru as cuda_gru
+from seqrec_tpu_torch.ops.cuda import lstm as cuda_lstm
+
+
+def _slice_pos(k, L, S):
+    """rnn::slice_pos."""
+    s, o = k // L, k % L
+    return ((o >> 2) * S + s) * 4 + (o & 3)
+
+
+def _weight_image(w_rows, U, u0, cfg, gates, block):
+    """The shared-memory weight image one CTA of the kernel writes, from its
+    copy loop: `w_rows(k, g, u)` is the weight of input k, gate g, unit u;
+    `block` units a thread group (1: the GRU forward, S threads a unit,
+    image [L/4][gates][threads][4]; 4: the LSTM reverse, a warp for 4 units,
+    image [L/4][4][threads][4])."""
+    S, L, NT = cfg["k_slices"], cfg["k_slice"], cfg["threads"]
+    H = cfg["H"]
+    up = NT // S * block
+    ws = np.full(S * L * gates * up if block == 1 else S * L * up, np.nan)
+    for vl in range(up):
+        for k in range(S * L):
+            for g in range(gates):
+                ks, o = k // L, k % L
+                inside = k < cfg["K"] and vl < U and u0 + vl < H
+                val = w_rows(k, g, u0 + vl) if inside else 0.0
+                if block == 1:
+                    ws[(((o >> 2) * gates + g) * NT + vl * S + ks) * 4 + (o & 3)] = val
+                else:
+                    ws[(((o >> 2) * block + vl % block) * NT + vl // block * S + ks) * 4
+                       + (o & 3)] = val
+    return ws.reshape(L // 4, gates if block == 1 else block, NT, 4)
+
+
+def _reduce_scatter(v):
+    """rnn::reduce_scatter: v [groups, lanes, R, UT, G] partial sums ->
+    [groups, lanes, NR, NU, G]: the rows split first, then the units, then
+    what is left sums whole."""
+    lanes = np.arange(v.shape[1])
+    nr, nu, m = v.shape[2], v.shape[3], v.shape[1] // 2
+    while m >= 1:
+        partner = v[:, lanes ^ m]
+        hi = ((lanes & m) != 0)[None, :, None, None, None]
+        if nr > 1:
+            v = np.where(hi, v[:, :, nr // 2:nr] + partner[:, :, nr // 2:nr],
+                         v[:, :, :nr // 2] + partner[:, :, :nr // 2])
+            nr //= 2
+        elif nu > 1:
+            v = np.where(hi, v[:, :, :, nu // 2:nu] + partner[:, :, :, nu // 2:nu],
+                         v[:, :, :, :nu // 2] + partner[:, :, :, :nu // 2])
+            nu //= 2
+        else:
+            v = v + partner
+        m //= 2
+    return v
+
+
+def _owner(R, UT, lanes):
+    """rnn::Owner: (NR, NU, row0, ut0, owner) of each lane of a group."""
+    ll = int(np.log2(lanes))
+    lr = min(int(np.log2(R)), ll)
+    lu = min(int(np.log2(UT)), ll - lr)
+    a = ll - lr - lu
+    idx = np.arange(lanes)
+    return (R >> lr, UT >> lu, (idx >> (ll - lr)) * (R >> lr),
+            ((idx >> a) & ((1 << lu) - 1)) * (UT >> lu), (idx & ((1 << a) - 1)) == 0)
+
+
+GRU_SHAPES = [(64, 128), (128, 128), (256, 100), (11, 132), (4, 256)]
+
+
+@pytest.mark.parametrize("B,H", GRU_SHAPES)
+@pytest.mark.parametrize("which", ["gru", "lstm"])
+def test_cluster_layout_partitions_the_work(which, B, H):
+    """Every hidden unit has one CTA, every (unit, row) one owner lane; the
+    threads are whole warps of (unit, k-slice) pairs; the slices cover the
+    K inputs, padded with zeros to S L; the shared memory is the weight
+    slice, the vector's two buffers, the operand ring and two mbarriers,
+    within a block's limit."""
+    if which == "gru":
+        cfg, K, w_per_k, ring, block = cuda_gru.launch_config(B, 50, H, H, torch.float32), H, 3, 4, 1
+    else:
+        cfg = cuda_lstm.backward_launch_config(B, 50, H, torch.float32)
+        K, w_per_k, ring, block = 4 * H, 4, 8, 4
+    C, R, S, U, L, NT = (cfg[k] for k in ("cluster_size", "rows_per_cluster", "k_slices",
+                                          "units_per_cta", "k_slice", "threads"))
+    assert cfg["design"] == "cluster" and C * U >= H > (C - 1) * U
+    assert cfg["clusters"] == -(-B // R) and cfg["grid"] == cfg["clusters"] * C
+    assert NT % 32 == 0 and NT // S * block >= U and NT <= cuda_gru.CLUSTER_THREADS
+    assert L % 4 == 0 and S * L >= K > S * (L - 4)
+    ring_bytes = cuda_gru.CLUSTER_RING * max(R * block // S, 1) * NT * ring * 4
+    assert cfg["smem_bytes"] == (w_per_k * L * NT + 2 * R * (S * L + 4)) * 4 + ring_bytes + 16
+    assert cfg["smem_bytes"] <= cuda_gru.SMEM_LIMIT
+    assert sorted(_slice_pos(k, L, S) for k in range(S * L)) == list(range(S * L))
+    nr, nu, row0, ut0, owner = _owner(R, block, S)
+    pairs = [(r0 + k, u + m) for r0, u, o in zip(row0, ut0, owner) if o
+             for k in range(nr) for m in range(nu)]
+    assert sorted(pairs) == [(r, u) for r in range(R) for u in range(block)]
+
+
+@pytest.mark.parametrize("which,B,H,C,R", [
+    ("gru", 64, 128, None, None), ("gru", 256, 100, None, None), ("gru", 7, 132, 4, 4),
+    ("gru", 9, 256, None, None), ("gru", 5, 40, 2, 16),
+    ("lstm", 128, 128, None, None), ("lstm", 9, 256, None, None), ("lstm", 6, 100, 4, 8),
+    ("lstm", 5, 36, 2, 4)])
+def test_cluster_kernel_index_maps_compute_the_step(which, B, H, C, R):
+    """One step of the kernel, as its index maps lay it out: each thread's
+    slice of the weight image against its slice of the vector (read at
+    rnn::slice_pos), summed by the reduce-scatter, gives each owner lane the
+    exact product of its (unit, row): h @ W_h's three gate columns (GRU
+    forward, S threads a unit) or dz @ W_h^T (LSTM reverse, a warp for 4
+    units), in f64."""
+    rng = np.random.default_rng(H + (R or 0))
+    if which == "gru":
+        cfg = cuda_gru.launch_config(B, 3, H, H, torch.float32, rows_per_cluster=R,
+                                     cluster_size=C)
+        K, gates = H, 3
+        w = rng.normal(size=(H, 3 * H))
+        w_rows = lambda k, g, u: w[k, g * H + u]  # noqa: E731
+    else:
+        cfg = cuda_lstm.backward_launch_config(B, 3, H, torch.float32, rows_per_cluster=R,
+                                               cluster_size=C)
+        K, gates = 4 * H, 1
+        w = rng.normal(size=(H, 4 * H))
+        w_rows = lambda k, g, u: w[u, k]  # noqa: E731
+    cfg = dict(cfg, H=H, K=K)
+    C, R, S, U, L, NT = (cfg[k] for k in ("cluster_size", "rows_per_cluster", "k_slices",
+                                          "units_per_cta", "k_slice", "threads"))
+    vec = rng.normal(size=(R, K))
+    buf = np.zeros((R, S * L + 4))
+    buf[:, [_slice_pos(k, L, S) for k in range(K)]] = vec
+    want = vec @ w if which == "gru" else vec @ w.T  # [R, 3H] or [R, H]
+    v4 = buf[:, :S * L].reshape(R, L // 4, S, 4)  # float4 j S + s of each row
+    block = 1 if which == "gru" else 4
+    nr, nu, row0, ut0, owner = _owner(R, block, S)
+    for c in range(C):
+        u0 = c * U
+        # Thread S g + s (GRU: g a unit; LSTM: a warp of 4 units), chunk j:
+        # weight float4 ws[j][gate or unit of the group][tid].
+        ws = _weight_image(w_rows, U, u0, cfg, gates, block)
+        w4 = ws.reshape(L // 4, ws.shape[1], NT // S, S, 4)
+        acc = np.einsum("rjse,jxgse->gsrx", v4, w4)  # [groups, lanes, R, gates or units]
+        acc = acc[:, :, :, None, :] if which == "gru" else acc[..., None]
+        red = _reduce_scatter(acc)  # [groups, lanes, NR, NU, G]
+        for g in range(NT // S):
+            for s in range(S):
+                for k in range(nr):
+                    for m in range(nu):
+                        ul = g * block + ut0[s] + m
+                        if not owner[s] or ul >= U or u0 + ul >= H:
+                            continue
+                        r = row0[s] + k
+                        exp = ([want[r, q * H + u0 + ul] for q in range(3)] if which == "gru"
+                               else [want[r, u0 + ul]])
+                        np.testing.assert_allclose(red[g, s, k, m], exp, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("which,B,H,want", [
+    ("gru", 64, 128, (4, 4, 64, 32, 8, 16)),     # serving: 16 clusters of 4 CTAs
+    ("gru", 128, 128, (4, 4, 128, 32, 8, 16)),   # training: 128 CTAs, one wave
+    ("gru", 256, 100, (2, 4, 128, 50, 8, 16)),   # rsc15: 4 CTAs would be 256, two waves
+    ("gru", 11, 256, (8, 4, 24, 32, 8, 32)),     # 4 CTAs' slices (192 KB + ring) do not fit
+    ("gru", 11, 132, (4, 4, 12, 33, 8, 20)),
+    ("lstm", 128, 128, (4, 8, 64, 32, 32, 16)),  # training: 16 clusters of 4 CTAs
+    ("lstm", 256, 100, (4, 8, 128, 25, 32, 16)),
+    ("lstm", 11, 256, (8, 8, 16, 32, 32, 32)),   # W_h rows of 64 units are 256 KB
+])
+def test_cluster_choice_at_the_paths_shapes(which, B, H, want):
+    """(cluster size, rows a cluster, CTAs, units a CTA, k-slices, slice
+    length) the launch configs choose: each kernel's measured preference,
+    fewer CTAs than the card's SMs, and a slice that fits."""
+    if which == "gru":
+        cfg = cuda_gru.launch_config(B, 50, H, H, torch.float32)
+    else:
+        cfg = cuda_lstm.backward_launch_config(B, 50, H, torch.float32)
+    keys = ("cluster_size", "rows_per_cluster", "grid", "units_per_cta", "k_slices", "k_slice")
+    assert tuple(cfg[k] for k in keys) == want
+    assert cfg["grid"] <= cuda_gru.NUM_SMS
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: cuda_gru.launch_config(8, 5, 16, 16, torch.float32, rows_per_cluster=3),
+     "rows_per_cluster 3"),
+    (lambda: cuda_gru.launch_config(8, 5, 16, 16, torch.float32, cluster_size=3),
+     "cluster_size 3"),
+    (lambda: cuda_lstm.backward_launch_config(8, 5, 256, torch.float32, cluster_size=4),
+     "shared memory"),
+    (lambda: cuda_gru.launch_config(8, 5, 16, 256, torch.float32, cluster_size=2),
+     "1024 threads"),
+    (lambda: cuda_lstm.backward_launch_config(8, 5, 16, torch.bfloat16, cluster_size=4),
+     "f32 design"),
+    (lambda: cuda_lstm.backward_launch_config(8, 5, 260, torch.float32), "H <= 256"),
+])
+def test_cluster_configs_refuse_what_the_kernels_cannot_take(call, match):
+    with pytest.raises(ValueError, match=match):
+        call()

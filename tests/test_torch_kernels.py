@@ -100,21 +100,11 @@ def _gru_args(B, T, D, H, dtype, device, seed=0):
             t(H, 3 * H, scale=H ** -0.5), t(3 * H, scale=0.1), t(3 * H, scale=0.1))
 
 
-def _f32_wh_too_wide(dtype, H) -> bool:
-    """The CUDA-core (f32) design keeps W_h in shared memory: H=256 does not
-    fit, and it raises; bf16 reads W_h^T from global memory past Hp = 128."""
-    return dtype == torch.float32 and H * 3 * H * 4 > k_gru.SMEM_LIMIT
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,D,H", [(5, 7, 16, 32), (3, 1, 32, 16), (64, 50, 128, 128),
                                      (7, 9, 64, 96), (3, 5, 16, 132), (4, 6, 32, 256)])
 def test_gru_kernel_matches_plain(cuda, dtype, B, T, D, H):
     args = _gru_args(B, T, D, H, dtype, cuda)
-    if _f32_wh_too_wide(dtype, H):
-        with pytest.raises(ValueError, match="shared"):
-            k_gru.gru_scan(*args)
-        return
     before = k_gru.gru_scan.launches
     ys, h = k_gru.gru_scan(*args)
     torch.cuda.synchronize()
@@ -125,16 +115,18 @@ def test_gru_kernel_matches_plain(cuda, dtype, B, T, D, H):
     assert torch.equal(h, ys[:, -1])
 
 
-@pytest.mark.parametrize("dtype,rows_per_block", [(torch.float32, 1), (torch.float32, 2),
-                                                  (torch.bfloat16, None)])
-def test_gru_kernel_every_row_tiling(cuda, dtype, rows_per_block, monkeypatch):
-    """B not a multiple of R leaves the last block's spare rows unwritten:
-    each design's row tilings (f32: 1 or 2 rows a block; bf16: its one n8
-    tile of 8), at B=11 and B=21."""
-    if rows_per_block is not None:
+@pytest.mark.parametrize("dtype,cluster_size,rows", [
+    (torch.float32, 2, 4), (torch.float32, 4, 8), (torch.float32, 8, 16),
+    (torch.float32, 1, 16), (torch.float32, 8, 4), (torch.bfloat16, None, None)])
+def test_gru_kernel_every_row_tiling(cuda, dtype, cluster_size, rows, monkeypatch):
+    """B not a multiple of the rows a block or cluster leaves the last one's
+    spare rows unwritten: each design's tilings (f32: clusters of 1 to 8
+    CTAs over 4, 8 or 16 rows; bf16: its one n8 tile of 8), at B=11 and
+    B=21."""
+    if rows is not None:
         real = k_gru.launch_config
-        monkeypatch.setattr(k_gru, "launch_config",
-                            lambda *a, **kw: real(*a, rows_per_block=rows_per_block))
+        monkeypatch.setattr(k_gru, "launch_config", lambda *a, **kw: real(
+            *a, rows_per_cluster=rows, cluster_size=cluster_size))
     for B in (11, 21):
         args = _gru_args(B, 6, 32, 32, dtype, cuda, seed=B)
         ys = torch.full((B, 6, 32), float("nan"), dtype=dtype, device=cuda)
@@ -673,13 +665,13 @@ def _lstm_planes(B, T, H, dtype, device, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,H,R", [(5, 7, 32, None), (3, 1, 16, None),
-                                     (128, 50, 128, None), (11, 9, 64, 2),
+                                     (128, 50, 128, None), (11, 9, 64, 4),
                                      (4, 6, 256, None)])
 def test_lstm_backward_kernel_matches_plain(cuda, dtype, B, T, H, R, monkeypatch):
     if R is not None and dtype == torch.float32:  # bf16 has its one row tiling
         real = k_lstm.backward_launch_config
         monkeypatch.setattr(k_lstm, "backward_launch_config",
-                            lambda *a, **kw: real(*a, rows_per_block=R))
+                            lambda *a, **kw: real(*a, rows_per_cluster=R))
     planes = _lstm_planes(B, T, H, dtype, cuda, seed=B + T)
     dc_last = torch.randn(B, H, device=cuda)
     before = k_lstm.lstm_backward.launches
@@ -876,10 +868,6 @@ def test_gru_reset_kernel_matches_plain(cuda, dtype, B, T, D, H):
     the no-reset kernel's bits; with a reset at t=0 the output ignores h0."""
     args = _gru_args(B, T, D, H, dtype, cuda, seed=B + T)
     reset = _reset_plane(B, T, cuda, seed=T)
-    if _f32_wh_too_wide(dtype, H):
-        with pytest.raises(ValueError, match="shared"):
-            k_gru.gru_scan(*args, reset_mask=reset)
-        return
     ys, h = k_gru.gru_scan(*args, reset_mask=reset)
     want, _ = k_gru.plain(*args, reset_mask=reset)
     torch.testing.assert_close(ys.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
@@ -985,3 +973,118 @@ def test_reset_autograd_with_kernels_matches_plain_autograd(cuda, cell):
     (plain(*args, reset_mask=reset)[0] * g).sum().backward()
     for name, x, y in zip(names, got, args):
         torch.testing.assert_close(x, y.grad, rtol=1e-4, atol=1e-4, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# The f32 cluster recurrences and the f32 input projection
+# ---------------------------------------------------------------------------
+
+F32_SHAPES = [(11, T, H) for T in (1, 2, 50, 200) for H in (100, 128, 132, 256)] + [
+    (64, 200, 128), (128, 200, 128), (256, 50, 100)]
+
+
+@pytest.mark.parametrize("reset", [False, True])
+@pytest.mark.parametrize("B,T,H", F32_SHAPES)
+def test_f32_gru_cluster_forward_matches_plain(cuda, B, T, H, reset):
+    """The f32 GRU forward (f32 input projection, then the cluster
+    recurrence) at T = 1, 2, 50, 200, H = 100, 128, 132 and 256 with B = 11
+    (ragged against a cluster's rows), and at the main paths' shapes,
+    against the plain f32 loop at 1e-5; the reset variant also gives the
+    no-reset kernel's bits on an all-zero plane and ignores h0 under a reset
+    at t=0."""
+    args = _gru_args(B, T, H, H, torch.float32, cuda, seed=B + T + H)
+    before = (k_gru.gru_input_projection.f32_launches, k_gru.gru_scan.launches,
+              k_gru.gru_scan.reset_launches)
+    plane = _reset_plane(B, T, cuda, seed=H) if reset else None
+    ys, h = k_gru.gru_scan(*args, reset_mask=plane)
+    torch.cuda.synchronize()
+    assert (k_gru.gru_input_projection.f32_launches, k_gru.gru_scan.launches,
+            k_gru.gru_scan.reset_launches) == (before[0] + 1, before[1] + (not reset),
+                                               before[2] + reset)
+    assert k_gru.launch_config(B, T, H, H, torch.float32)["design"] == "cluster"
+    want, _ = k_gru.plain(*args, reset_mask=plane)
+    torch.testing.assert_close(ys, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(h, ys[:, -1])
+    if reset:
+        assert torch.equal(k_gru.gru_scan(*args, reset_mask=torch.zeros_like(plane))[0],
+                           k_gru.gru_scan(*args)[0])
+        plane[:, 0] = 1.0
+        x, h0, *w = args
+        assert torch.equal(k_gru.gru_scan(x, h0, *w, reset_mask=plane)[0],
+                           k_gru.gru_scan(x, -h0, *w, reset_mask=plane)[0])
+
+
+@pytest.mark.parametrize("keep", [False, True])
+@pytest.mark.parametrize("B,T,H", F32_SHAPES)
+def test_f32_lstm_cluster_backward_matches_plain(cuda, B, T, H, keep):
+    """The f32 LSTM reverse recurrence on clusters at the same shapes
+    against the plain f32 loop at 1e-4; with a keep plane, an all-ones plane
+    gives the no-keep kernel's bits and a reset at t=0 gives dh0 = dc0 = 0."""
+    planes = _lstm_planes(B, T, H, torch.float32, cuda, seed=B + T + H)
+    dc_last = torch.randn(B, H, device=cuda, generator=torch.Generator(device=cuda).manual_seed(H))
+    kp = (1.0 - _reset_plane(B, T, cuda, seed=H))[:, :, None] if keep else None
+    assert k_lstm.backward_launch_config(B, T, H, torch.float32)["design"] == "cluster"
+    got = k_lstm.lstm_backward(*planes, kp, dc_last)
+    torch.cuda.synchronize()
+    want = k_lstm.plain_backward(*planes, kp, dc_last)
+    for name, a, b in zip(("dz", "dh0", "dc0"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+    if keep:
+        ones = k_lstm.lstm_backward(*planes, torch.ones_like(kp), dc_last)
+        assert all(torch.equal(a, b) for a, b in zip(
+            ones, k_lstm.lstm_backward(*planes, None, dc_last)))
+        kp[:, 0] = 0.0
+        _, dh0, dc0 = k_lstm.lstm_backward(*planes, kp, dc_last)
+        assert not bool(dh0.any()) and not bool(dc0.any())
+
+
+@pytest.mark.parametrize("cluster_size", [1, 2, 4, 8])
+@pytest.mark.parametrize("rows", [4, 8, 16])
+def test_f32_cluster_kernels_every_tiling(cuda, cluster_size, rows, monkeypatch):
+    """Every cluster size and rows a cluster the launch configs accept, at
+    B = 11 and H = 64 and 128 (k-slices of 8 or 16 threads a unit; at
+    H = 128 the GRU's W_h slice in registers up to 8 rows), for both
+    cluster kernels. What a config refuses (one CTA for H = 128's 128
+    units: 1,024 threads; two CTAs of 16 rows of the LSTM reverse at
+    H = 128: 328 KB), the wrapper refuses too."""
+    real_f, real_b = k_gru.launch_config, k_lstm.backward_launch_config
+    monkeypatch.setattr(k_gru, "launch_config", lambda *a, **kw: real_f(
+        *a, rows_per_cluster=rows, cluster_size=cluster_size))
+    monkeypatch.setattr(k_lstm, "backward_launch_config", lambda *a, **kw: real_b(
+        *a, rows_per_cluster=rows, cluster_size=cluster_size))
+    for H in (64, 128):
+        refused = (cluster_size == 1 and H == 128, cluster_size <= 2 and rows == 16 and H == 128)
+        args = _gru_args(11, 9, H, H, torch.float32, cuda, seed=rows)
+        planes = _lstm_planes(11, 9, H, torch.float32, cuda, seed=rows)
+        if refused[0]:
+            with pytest.raises(ValueError, match="threads"):
+                k_gru.gru_scan(*args)
+        else:
+            ys, _ = k_gru.gru_scan(*args)
+            torch.testing.assert_close(ys, k_gru.plain(*args)[0], rtol=1e-5, atol=1e-5)
+        if refused[0] or refused[1]:
+            with pytest.raises(ValueError, match="shared memory"):
+                k_lstm.lstm_backward(*planes)
+        else:
+            for a, b in zip(k_lstm.lstm_backward(*planes), k_lstm.plain_backward(*planes)):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("M,D,N", [(64 * 200, 128, 384), (256 * 50, 100, 300), (15, 4, 12),
+                                   (140, 200, 132), (128 * 200, 128, 512)])
+def test_f32_input_projection_kernel_matches_f64(cuda, M, D, N):
+    """The f32 forward's input projection (f32 FMAs, no TF32): ragged row and
+    column tiles, D not a multiple of the 16-deep chunk; against x @ W_x + b
+    in f64 at 1e-5."""
+    rng = np.random.default_rng(M + D)
+    x = torch.from_numpy(rng.normal(size=(M, D)).astype(np.float32)).to(cuda)
+    w_x = torch.from_numpy((rng.normal(size=(D, N)) * D ** -0.5).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(cuda)
+    before = k_gru.gru_input_projection.f32_launches
+    got = k_gru.gru_input_projection(x, w_x, b)
+    torch.cuda.synchronize()
+    assert k_gru.gru_input_projection.f32_launches == before + 1
+    want = (x.double() @ w_x.double() + b.double()).float()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="of one dtype"):
+        k_gru.gru_input_projection(x.bfloat16(), w_x, b)

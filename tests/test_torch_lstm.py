@@ -218,9 +218,10 @@ def test_lstm_launch_configs_at_the_training_shape():
     4H = 512 columns; the reverse recurrence the same blocks with its dz^T
     buffer [hi, lo][512][8] bf16, three stages of six [8][132] f32 gate
     planes and [8][136] bf16 g_ys, and the sums its warp pairs exchange
-    ([8][32][4] f32). f32: the CUDA-core design, W_h alone
-    is 256 KB, so both weights go through L2; the reverse recurrence reads
-    W_h^T through L2 too."""
+    ([8][32][4] f32). f32: the CUDA-core forward, W_h alone is 256 KB, so
+    both weights go through L2; the reverse recurrence on clusters of 4 CTAs
+    over 8 rows (16 clusters), each CTA 32 units with their W_h rows (64 KB)
+    in its shared memory, a warp of 32 k-slices of 16 columns for 4 units."""
     assert cuda_lstm.launch_config(128, 200, 128, 128, torch.bfloat16) == {
         "design": "mma.sync", "grid": 16, "threads": 256, "rows_per_block": 8,
         "hidden_padded": 128, "wh_in_regs": 1,
@@ -236,8 +237,10 @@ def test_lstm_launch_configs_at_the_training_shape():
         "hidden_padded": 128, "w_in_regs": 1, "dz_terms": 2,
         "smem_bytes": 2 * 512 * 8 * 2 + 3 * (6 * 8 * 132 * 4 + 8 * 136 * 2) + 8 * 32 * 16}
     bwd32 = cuda_lstm.backward_launch_config(128, 200, 128, torch.float32)
-    assert (bwd32["design"], bwd32["rows_per_block"], bwd32["w_in_smem"]) == (
-        "cuda-core", 2, 0)
+    assert bwd32 == {"design": "cluster", "cluster_size": 4, "rows_per_cluster": 8,
+                     "clusters": 16, "grid": 64, "threads": 256, "units_per_cta": 32,
+                     "k_slices": 32, "k_slice": 16,
+                     "smem_bytes": (4 * 16 * 256 + 2 * 8 * 516 + 4 * 256 * 8) * 4 + 16}
     for cfg in (f32, small, bwd32):
         assert cfg["smem_bytes"] <= cuda_lstm.SMEM_LIMIT
 
@@ -264,15 +267,16 @@ def test_lstm_bf16_pads_the_hidden_width_to_whole_mma_tiles(H, hp, hb, in_regs):
 @pytest.mark.parametrize("B,grid", [(128, 16), (64, 8), (11, 2), (1, 1)])
 def test_lstm_bf16_rows_per_block(B, grid):
     """8 batch rows a block (one n8 tile) in both recurrences, a ragged last
-    block; the row count is the f32 design's choice alone, and a bf16
-    request for one raises."""
+    block; the row count (the forward's rows a block, the reverse
+    recurrence's rows and size of a cluster) is the f32 designs' choice
+    alone, and a bf16 request for one raises."""
     for cfg in (cuda_lstm.launch_config(B, 50, 64, 64, torch.bfloat16),
                 cuda_lstm.backward_launch_config(B, 50, 64, torch.bfloat16)):
         assert (cfg["rows_per_block"], cfg["grid"]) == (cuda_lstm.MMA_ROWS, grid) == (8, grid)
     with pytest.raises(ValueError, match="rows_per_block is the f32 design's"):
         cuda_lstm.launch_config(B, 50, 64, 64, torch.bfloat16, rows_per_block=2)
-    with pytest.raises(ValueError, match="rows_per_block is the f32 design's"):
-        cuda_lstm.backward_launch_config(B, 50, 64, torch.bfloat16, rows_per_block=1)
+    with pytest.raises(ValueError, match="rows_per_cluster and cluster_size are the f32"):
+        cuda_lstm.backward_launch_config(B, 50, 64, torch.bfloat16, rows_per_cluster=8)
 
 
 def _unpack_fragments(frags: torch.Tensor, M: int, K: int) -> np.ndarray:

@@ -195,14 +195,21 @@ def test_gru_launch_config_at_the_serving_shape():
     """bf16: the tensor-core design, 8 rows a block (8 blocks at B=64), 8
     warps of 16 units at H=128 with W_h in registers, the h double buffer
     [2][128][8] bf16, and the input projection's 64 x 64 tiles over
-    B*T = 12,800 rows and 3H = 384 columns. f32: the CUDA-core design."""
+    B*T = 12,800 rows and 3H = 384 columns. f32: the f32 projection's
+    128 x 64 tiles, then clusters of 4 CTAs over 4 rows (16 clusters, 64
+    CTAs), each CTA 32 units of 8 k-slices of 16 (256 threads) with its
+    W_h columns (48 KB, and in registers: 48 a thread), the h buffers
+    [2][4][132] and the operand ring [4][256][4] f32 in shared memory."""
     bf16 = cuda_gru.launch_config(64, 200, 128, 128, torch.bfloat16)
     assert bf16 == {"design": "mma.sync", "grid": 8, "threads": 256, "rows_per_block": 8,
                     "hidden_padded": 128, "wh_in_regs": 1, "smem_bytes": 2 * 128 * 8 * 2,
                     "xproj_grid": [200, 6], "xproj_threads": 128}
     f32 = cuda_gru.launch_config(64, 200, 128, 128, torch.float32)
-    assert f32 == {"design": "cuda-core", "grid": 32, "threads": 128, "rows_per_block": 2,
-                   "wx_in_smem": 0, "smem_bytes": 200704}
+    assert f32 == {"design": "cluster", "cluster_size": 4, "rows_per_cluster": 4,
+                   "clusters": 16, "grid": 64, "threads": 256, "units_per_cta": 32,
+                   "k_slices": 8, "k_slice": 16,
+                   "smem_bytes": (3 * 16 * 256 + 2 * 4 * 132 + 4 * 256 * 4) * 4 + 16,
+                   "w_in_regs": 1, "xproj_grid": [100, 6], "xproj_threads": 256}
     for cfg in (bf16, f32):
         assert cfg["smem_bytes"] <= cuda_gru.SMEM_LIMIT
 
@@ -222,13 +229,16 @@ def test_gru_bf16_pads_the_hidden_width_to_whole_mma_tiles(H, hp, in_regs):
 @pytest.mark.parametrize("B,grid", [(64, 8), (128, 16), (256, 32), (11, 2), (8, 1), (9, 2),
                                     (1, 1)])
 def test_gru_bf16_rows_per_block(B, grid):
-    """8 batch rows a block (one n8 tile), a ragged last block; the row count
-    is the f32 design's choice alone, and a bf16 request for one raises."""
+    """8 batch rows a block (one n8 tile), a ragged last block; the rows and
+    the size of a cluster are the f32 design's choice alone, and a bf16
+    request for either raises."""
     cfg = cuda_gru.launch_config(B, 50, 64, 64, torch.bfloat16)
     assert (cfg["rows_per_block"], cfg["grid"]) == (cuda_gru.MMA_ROWS, grid) == (8, grid)
     assert cfg["smem_bytes"] == 2 * 64 * 8 * 2
-    with pytest.raises(ValueError, match="rows_per_block is the f32 design's"):
-        cuda_gru.launch_config(B, 50, 64, 64, torch.bfloat16, rows_per_block=16)
+    with pytest.raises(ValueError, match="rows_per_cluster and cluster_size are the f32"):
+        cuda_gru.launch_config(B, 50, 64, 64, torch.bfloat16, rows_per_cluster=16)
+    with pytest.raises(ValueError, match="rows_per_cluster and cluster_size are the f32"):
+        cuda_gru.launch_config(B, 50, 64, 64, torch.bfloat16, cluster_size=2)
 
 
 @pytest.mark.parametrize("with_bias", [False, True])
@@ -262,8 +272,14 @@ def test_gru_input_projection_on_cpu_matches_the_pallas_step_xp(with_bias):
     ((0, 5, 8, 12), torch.float32, "empty"),
 ])
 def test_gru_kernel_rejects_what_it_cannot_take(shape, dtype, match):
+    """f32 at H=256 runs on clusters of 8 CTAs (each 32 units' W_h columns,
+    96 KB); asked for 2, a CTA's slice (384 KB) and threads (1,024) do not
+    fit."""
+    kw = {"cluster_size": 2} if match == "shared" else {}
     with pytest.raises(ValueError, match=match):
-        cuda_gru.launch_config(*shape, dtype)
+        cuda_gru.launch_config(*shape, dtype, **kw)
+    if match == "shared":
+        assert cuda_gru.launch_config(*shape, dtype)["cluster_size"] == 8
 
 
 # ---------------------------------------------------------------------------

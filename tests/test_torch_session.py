@@ -421,13 +421,16 @@ def test_gru_launch_config_takes_the_rsc15_width():
     blocks at B=256. The reset variant's reverse recurrence (bf16 weights)
     runs on the tensor cores too, with the same padding and blocks, h_in
     read in f32 as the keep path hands it over; with f32 weights it keeps
-    the CUDA-core design, W_h^T (120 KB) in shared memory."""
+    the CUDA-core design, W_h^T (120 KB) in shared memory. The f32 forward
+    runs on clusters of 2 CTAs over 4 rows: 4 CTAs would make 256 CTAs at
+    B=256, two waves on 132 SMs."""
     assert cuda_gru.launch_config(256, 50, 100, 100, torch.bfloat16) == {
         "design": "mma.sync", "grid": 32, "threads": 224, "rows_per_block": 8,
         "hidden_padded": 112, "wh_in_regs": 1, "smem_bytes": 2 * 112 * 8 * 2,
         "xproj_grid": [200, 5], "xproj_threads": 128}
     f32 = cuda_gru.launch_config(256, 50, 100, 100, torch.float32)
-    assert (f32["design"], f32["rows_per_block"], f32["wx_in_smem"]) == ("cuda-core", 2, 0)
+    assert (f32["design"], f32["cluster_size"], f32["rows_per_cluster"], f32["grid"],
+            f32["units_per_cta"], f32["threads"]) == ("cluster", 2, 4, 128, 50, 416)
     bwd = cuda_gru.backward_launch_config(256, 50, 100, torch.bfloat16,
                                           h_in_dtype=torch.float32)
     stage = 6 * 8 * 116 * 4 + 8 * 116 * 4 + 8 * 120 * 2

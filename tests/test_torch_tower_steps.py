@@ -85,3 +85,54 @@ def test_train_step_matches_jax(config, overrides, monkeypatch):
     for k, v in want.items():
         np.testing.assert_allclose(state.params[k].numpy(), v.numpy(), err_msg=k,
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("config,overrides", [
+    ("ml1m_lstm", ["model.embed_dim=16"]),
+    ("ml1m_gru4rec", ["model.embed_dim=16"]),
+])
+def test_f32_path_step1_matches_jax(config, overrides, monkeypatch):
+    """The f32 paths of chip_smoke.py (a shipped config with
+    model.compute_dtype=float32, the kernels on: on the card the f32 cluster
+    recurrences and, for the GRU, the f32 input projection) cut to a narrow
+    width: step 1 through `train_step_multi`, a group of one wire, against
+    JAX value_and_grad and optax from the same parameters with the same
+    injected negatives; the same tolerances as above."""
+    cfg = RunConfig.load(str(ROOT / f"configs/{config}.json")).apply_overrides(
+        overrides + ["model.num_negatives=9", "model.dropout_rate=0.0",
+                     "model.compute_dtype=float32", f"data.max_len={T}"])
+    assert cfg.model.use_pallas
+    tr = Trainer(cfg, _DS(), device="cpu")
+    params = random_params(tr.model, seed=7)
+    tr.model.load_state_dict(flax_to_state_dict(params))
+    state = tr.init_state(7)
+    rng = np.random.default_rng(21)
+    ids = rng.integers(1, VOCAB, size=9).astype(np.int32)
+    nlq = (rng.normal(size=9) - 3).astype(np.float32)
+    monkeypatch.setattr(tr, "sample_negatives",
+                        lambda gen: (torch.from_numpy(ids), torch.from_numpy(nlq)))
+    batch = _batch(np.random.default_rng(22))
+
+    jm = jax_build_model(JaxModelConfig(**cfg.model.__dict__), VOCAB)
+    opt = jax_state.make_optimizer(JaxTrainConfig(**cfg.train.__dict__))
+    j_params = jax.tree_util.tree_map(jnp.asarray, params)
+
+    def loss_fn(p):
+        s, w = jm.apply(p, {k: jnp.asarray(v) for k, v in batch.items()},
+                        neg_ids=jnp.asarray(ids), neg_log_q=jnp.asarray(nlq),
+                        deterministic=True, method=jm.loss)
+        return s / jnp.maximum(w, 1.0), w
+
+    (j_loss, j_w), grads = jax.value_and_grad(loss_fn, has_aux=True)(j_params)
+    upd, _ = opt.update(grads["params"], opt.init(j_params["params"]), j_params["params"])
+    want = flax_to_state_dict(jax.tree_util.tree_map(
+        np.asarray, {"params": optax.apply_updates(j_params["params"], upd)}))
+
+    state, m = tr.train_step_multi(state, tr.pack_train_batch(batch)[None])
+    np.testing.assert_allclose(float(m["loss"]), float(j_loss), rtol=1e-5)
+    np.testing.assert_allclose(float(m["grad_norm"]), float(optax.global_norm(grads)),
+                               rtol=1e-5)
+    assert float(m["tokens"]) == float(j_w) and not bool(m["nonfinite"])
+    for k, v in want.items():
+        np.testing.assert_allclose(state.params[k].numpy(), v.numpy(), err_msg=k,
+                                   rtol=1e-4, atol=1e-4)
