@@ -47,13 +47,14 @@ source, all at once). Each phase prints one JSON line:
               versions at the training shapes, bf16 and f32: causal
               attention at [128, 200, 1, 64] (also against
               F.scaled_dot_product_attention, its library yardstick, and
-              timed beside it at serving's [64, 200, 1, 64]); the
-              LSTM forward at B=128, T=200, D=H=128 (also against
-              torch.nn.LSTM, and timed beside nn.LSTM in f32, also at
-              serving's B=64), its bf16 input projection; the LSTM reverse
-              recurrence (dz, dh0, dc0) and the weight gradients through
-              autograd; with kernel, plain, library and bound times and each
-              kernel's design;
+              timed beside it at serving's [64, 200, 1, 64], whose bits
+              equal the batch's first 64 rows); the LSTM forward at B=128,
+              T=200, D=H=128 (also against torch.nn.LSTM, and timed beside
+              nn.LSTM in f32, also at serving's B=64), its bf16 and f32
+              input projections (the f32 one also against f64); the LSTM
+              reverse recurrence (dz, dh0, dc0) and the weight gradients
+              through autograd; with kernel, plain, library and bound times
+              and each kernel's design;
   h. serve    phase d on configs/ml1m_sasrec.json and configs/ml1m_lstm.json,
               with the same histories;
   i. train    phase f on both, three groups through the kernels and one
@@ -81,19 +82,22 @@ source, all at once). Each phase prints one JSON line:
               configs/ml1m_lstm.json with data.session_parallel=true
               (synthetic ML-1M-shaped sessions of 5..200 items), 2 groups;
   l. the f32 paths: model.compute_dtype=float32 on a shipped config (no
-              config file of its own): serve on configs/ml1m_gru4rec.json as
-              phase d (the f32 GRU forward: its f32 input projection and the
-              cluster recurrence), scores within the f32 limit of the plain
-              path; train on configs/ml1m_lstm.json (the f32 LSTM forward
-              and the cluster reverse recurrence) and on
-              configs/ml1m_gru4rec.json, as phase f with two groups, step-1
-              loss and gradient norm within 1e-4 relative of the plain run;
+              config file of its own): serve on configs/ml1m_gru4rec.json,
+              configs/ml1m_sasrec.json and configs/ml1m_lstm.json as phase d
+              (the f32 GRU and LSTM forwards: their f32 input projections
+              and cluster recurrences; the f32 causal attention), scores
+              within the f32 limit of the plain path; train on
+              configs/ml1m_lstm.json (the f32 LSTM forward and the cluster
+              reverse recurrence), configs/ml1m_gru4rec.json and
+              configs/ml1m_sasrec.json (warmup 0, as phase i), as phase f
+              with two groups, step-1 loss and gradient norm within 1e-4
+              relative of the plain run;
   m. the kernels line: {"kernels": [{name, route, source, replaces,
               launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
               library_ms, design, dtype}, ...]}: the fourteen bf16 kernels
               (each bf16 RNN forward is two: its input projection and the
-              scan) and the six f32 kernels the f32 paths run (the f32
-              GRU forward is two as well), `launches` counted on a training
+              scan) and the eight f32 kernels the f32 paths run (each f32
+              RNN forward is two as well), `launches` counted on a training
               path (GRU4Rec's for the gather, scatter-add and head, the
               session paths' for the reset variants, the f32 paths' for the
               f32 kernels; the counts of every path beside it).
@@ -113,9 +117,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -284,10 +290,54 @@ def phase_build() -> None:
     logs = _build.build()
     for name in _build.SOURCES:
         _build.load(name)
-    ptxas = {n: [line.strip() for line in log.splitlines() if "Used" in line or "spill" in line]
-             for n, log in logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "compiled": sorted(logs), "ptxas": ptxas})
+          "compiled": sorted(logs), "ptxas": ptxas_summary(logs)})
+
+
+def _kernel_name(demangled: str) -> str:
+    """`void ns::kernel<(int)8, (bool)0>(float const*, ...)` without its
+    return type and parameter list."""
+    name, depth = demangled.removeprefix("void "), 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i]
+    return name
+
+
+def ptxas_summary(logs) -> dict:
+    """Per source, from nvcc's `-Xptxas -v` log: its kernels, the most
+    registers one uses, and each kernel that spills (demangled by cu++filt
+    where the toolkit has it) with its registers and spill bytes."""
+    out = {}
+    for src, log in logs.items():
+        kernels, name = {}, None
+        for line in log.splitlines():
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            if entry:
+                name = entry.group(1)
+                kernels[name] = {"registers": 0, "stack": 0, "spill_stores": 0,
+                                 "spill_loads": 0}
+            elif name is not None:
+                spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                  r"(\d+) bytes spill loads", line)
+                used = re.search(r"Used (\d+) registers", line)
+                if spill:
+                    kernels[name].update(stack=int(spill.group(1)),
+                                         spill_stores=int(spill.group(2)),
+                                         spill_loads=int(spill.group(3)))
+                elif used:
+                    kernels[name]["registers"] = int(used.group(1))
+        spills = {n: k for n, k in kernels.items() if k["spill_stores"] or k["spill_loads"]}
+        filt = Path(_build.find_nvcc()).parent / "cu++filt"
+        if spills and filt.exists():
+            names = subprocess.run([str(filt)], input="\n".join(spills), capture_output=True,
+                                   text=True, check=True).stdout.splitlines()
+            spills = {_kernel_name(d): k for d, k in zip(names, spills.values())}
+        out[src] = {"kernels": len(kernels),
+                    "max_registers": max((k["registers"] for k in kernels.values()), default=0),
+                    "spills": spills}
+    return out
 
 
 def _dname(dtype) -> str:
@@ -486,7 +536,7 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
     each with its scatter-add, and the head kernel only for the sampled
     softmax (BPR-max and the other ranking losses are plain tensor code);
     the tower's kernel once per layer or block (a bf16 GRU or LSTM forward
-    with its input projection, an f32 GRU forward with the f32 one), and its
+    with its input projection, an f32 one with the f32 one), and its
     backward per layer, the reset variants on a session-parallel path."""
     m = cfg.model
     want = dict.fromkeys(COUNTERS, 0)
@@ -497,8 +547,8 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
         want[f"{m.cell_type}_scan{variant}"] = m.num_layers
         if m.compute_dtype == "bfloat16":  # the bf16 forward's input projection
             want[f"{m.cell_type}_xproj"] = m.num_layers
-        elif m.cell_type == "gru":  # the f32 GRU forward's
-            want["xproj_f32"] = m.num_layers
+        else:  # the f32 forward's
+            want["xproj_f32" if m.cell_type == "gru" else "lstm_xproj_f32"] = m.num_layers
         if training:
             want[f"{m.cell_type}_backward{variant}"] = m.num_layers
     if training:
@@ -943,8 +993,8 @@ def _lstm_checks(rng, dev, x32, reset=None) -> dict:
     """The LSTM forward and its reverse recurrence against their plain
     versions, bf16 and f32, fed the embeddings of Zipf ids, and the whole
     backward through autograd. Without `reset` (h0 = c0 = 0), also against
-    torch.nn.LSTM and its cuDNN times, the bf16 forward also beside nn.LSTM
-    in f32 and at serving's batch (the first B rows, the batch's bits), and
+    torch.nn.LSTM and its cuDNN times, each forward also beside nn.LSTM in
+    f32 and at serving's batch (the first B rows, the batch's bits), and
     its input projection. With a [B, T] `reset` plane (and a
     random h0, c0), the reset variants: also bit-exact against the no-reset
     kernels on an all-zero plane (all-ones keep), blind to h0 and c0 with a
@@ -958,7 +1008,7 @@ def _lstm_checks(rng, dev, x32, reset=None) -> dict:
         h32 = c32 = torch.zeros(Bl, H, device=dev)
     else:
         h32, c32 = _state(rng, dev, Bl, H), _state(rng, dev, Bl, H)
-    fwd, bwd = {}, {}
+    fwd, bwd, xproj = {}, {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         name = f"lstm {_dname(dtype)} {Bl}x{T}x{D}" + ("" if reset is None else " reset")
         x, h0, c0 = x32.to(dtype), h32.to(dtype), c32.to(dtype)
@@ -994,24 +1044,25 @@ def _lstm_checks(rng, dev, x32, reset=None) -> dict:
                   f"{name}: kernel vs torch.nn.LSTM max abs err {lib_err} > {lib_tol}")
             rec.update(max_abs_err_vs_nn_lstm=lib_err, tolerance_vs_nn_lstm=lib_tol,
                        library_ms=lib_ms)
-            if dtype == torch.bfloat16:
-                # The aim's yardstick, nn.LSTM in f32 on the same values, and
-                # serving's batch (B=64): the first half of the same inputs.
-                lib32 = _nn_lstm(w_x, w_h, b, torch.float32, dev)
-                xf, hf, cf = x.float(), h0.float()[None], c0.float()[None]
-                x64, h64, c64 = x[:B], h0[:B], c0[:B]
-                check(torch.equal(k_lstm.lstm_scan(x64, h64, c64, w_x, w_h, b)[0], ys[:B]),
-                      f"{name}: the first {B} rows alone differ from the batch's")
-                with torch.no_grad():
-                    rec["nn_lstm_f32_ms"] = time_ms(lambda: lib32(xf, (hf, cf)))
-                    b64_lib = time_ms(lambda: lib32(xf[:B], (hf[:, :B], cf[:, :B])))
-                b64_bound = bound(f_bytes_of(B), 2 * B * T * (D + H) * 4 * H, dtype)
-                rec[f"B{B}"] = {
-                    "same_bits_as_the_batch": True,
-                    "kernel_ms": time_ms(lambda: k_lstm.lstm_scan(x64, h64, c64, w_x, w_h, b)),
-                    "nn_lstm_f32_ms": b64_lib,
-                    "bound_ms": b64_bound[0], "bound_by": b64_bound[1]}
-                xproj = _xproj_check(k_lstm, k_lstm.lstm_input_projection, x32, w_x, b)
+            # The aim's yardstick, nn.LSTM in f32 on the same values, and
+            # serving's batch (B=64): the first half of the same inputs.
+            f32 = dtype == torch.float32
+            lib32 = lib if f32 else _nn_lstm(w_x, w_h, b, torch.float32, dev)
+            xf, hf, cf = x.float(), h0.float()[None], c0.float()[None]
+            x64, h64, c64 = x[:B], h0[:B], c0[:B]
+            check(torch.equal(k_lstm.lstm_scan(x64, h64, c64, w_x, w_h, b)[0], ys[:B]),
+                  f"{name}: the first {B} rows alone differ from the batch's")
+            with torch.no_grad():
+                rec["nn_lstm_f32_ms"] = lib_ms if f32 else time_ms(lambda: lib32(xf, (hf, cf)))
+                b64_lib = time_ms(lambda: lib32(xf[:B], (hf[:, :B], cf[:, :B])))
+            b64_bound = bound(f_bytes_of(B), 2 * B * T * (D + H) * 4 * H, dtype)
+            rec[f"B{B}"] = {
+                "same_bits_as_the_batch": True,
+                "kernel_ms": time_ms(lambda: k_lstm.lstm_scan(x64, h64, c64, w_x, w_h, b)),
+                "nn_lstm_f32_ms": b64_lib,
+                "bound_ms": b64_bound[0], "bound_by": b64_bound[1]}
+            xproj[_dname(dtype)] = _xproj_check(k_lstm, k_lstm.lstm_input_projection, x32,
+                                                w_x, b, dtype)
         else:
             f_bytes += Bl * T * 4  # the keep plane
             zero = k_lstm.lstm_scan(*args, reset_mask=torch.zeros_like(reset))
@@ -1109,7 +1160,8 @@ def _lstm_checks(rng, dev, x32, reset=None) -> dict:
                                       library_ms=None, library=NO_RESET_LIBRARY)
     if reset is not None:
         return {"lstm_scan": fwd, "lstm_backward": bwd}
-    out = {"lstm_scan": fwd, "lstm_backward": bwd, "lstm_xproj": xproj}
+    out = {"lstm_scan": fwd, "lstm_backward": bwd, "lstm_xproj": xproj["bfloat16"],
+           "lstm_xproj_f32": xproj["float32"]}
     # Library yardstick: cuDNN's LSTM backward in f32 (TF32 off), timed as
     # (forward + backward) - forward. The port never calls it.
     lib = _nn_lstm(w_x, w_h, b, torch.float32, dev)
@@ -1196,6 +1248,7 @@ COUNTERS = {
     "lstm_scan_reset": (k_lstm.lstm_scan, "reset_launches"),
     "lstm_backward_reset": (k_lstm.lstm_backward, "reset_launches"),
     "xproj_f32": (k_gru.gru_input_projection, "f32_launches"),
+    "lstm_xproj_f32": (k_lstm.lstm_input_projection, "f32_launches"),
 }
 
 
@@ -1516,10 +1569,13 @@ def main(argv=None) -> int:
     train["rsc15_gru4rec_session"] = phase_train(rng, dev, args.seed, "rsc15_gru4rec", groups=3)
     train["lstm_session"] = phase_train(rng, dev, args.seed, "lstm", groups=2,
                                         overrides=["data.session_parallel=true"])
-    serve["gru4rec_f32"] = phase_serve(dev, args.seed, "gru4rec", requests, overrides=[F32])
+    for path in ("gru4rec", "sasrec", "lstm"):
+        serve[f"{path}_f32"] = phase_serve(dev, args.seed, path, requests, overrides=[F32])
     train["lstm_f32"] = phase_train(rng, dev, args.seed, "lstm", groups=2, overrides=[F32])
     train["gru4rec_f32"] = phase_train(rng, dev, args.seed, "gru4rec", groups=2,
                                        overrides=[F32])
+    train["sasrec_f32"] = phase_train(rng, dev, args.seed, "sasrec", groups=2,
+                                      overrides=[F32, "train.warmup_steps=0"])
 
     def counts(kernel):
         return {f"{kind}_{path}": runs[path]["launches"][kernel]
@@ -1565,6 +1621,10 @@ def main(argv=None) -> int:
          tkern["softmax_head"]["float32"], "float32", "gru4rec_f32", "softmax_head"),
         ("lstm_scan_f32", "lstm.cu", "lstm.py:153", towers["lstm_scan"]["float32"], "float32",
          "lstm_f32", "lstm_scan"),
+        ("lstm_xproj_f32", "rnn.cuh", "lstm.py:89", towers["lstm_xproj_f32"], "float32",
+         "lstm_f32"),
+        ("causal_attention_f32", "attention.cu", "attention.py:98",
+         towers["causal_attention"]["float32"], "float32", "sasrec_f32", "causal_attention"),
         ("lstm_backward_f32", "lstm.cu", "lstm.py:209", towers["lstm_backward"]["float32"],
          "float32", "lstm_f32", "lstm_backward"),
     ]

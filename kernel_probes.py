@@ -13,10 +13,12 @@ parent of the bf16 tensor-core redesign instantiated it in bf16 and f32.)
 `clusters` sweeps the f32 cluster recurrences over their cluster size C and
 rows a cluster R (each launch checked against its plain version first):
 the GRU forward at B=64 and 128, T=200, D=H=128 and its reset variant at
-B=256, T=50, D=H=100 (the recurrence alone, on one projection), and the LSTM
-reverse recurrence at B=128, T=200, H=128 with and without a keep plane;
-median of 21 CUDA-event runs (chip_smoke.time_ms) for each (C, R) that fits,
-beside the launch_config default.
+B=256, T=50, D=H=100, the LSTM forward at B=64 and 128, T=200, D=H=128 and
+its reset variant at B=128 and at B=256, T=50, D=H=100 (each forward with its f32 input projection, as
+the wrapper runs it), and the LSTM reverse recurrence at B=128, T=200,
+H=128 with and without a keep plane; median of 21 CUDA-event runs
+(chip_smoke.time_ms) for each (C, R) that fits, beside the launch_config
+default.
 
 Each prints one JSON object as its last line, beside the card's name and
 power limit, and exits non-zero without CUDA.
@@ -80,9 +82,9 @@ def probe_clusters() -> dict:
     dev = torch.device("cuda", 0)
     _build.build(["gru", "lstm"])
     rng = np.random.default_rng(0)
-    out = {"gru_forward": {}, "lstm_backward": {}}
+    out = {"gru_forward": {}, "lstm_forward": {}, "lstm_backward": {}}
 
-    def sweep(module, attr, run, want, B, H, tol, key):
+    def sweep(module, attr, run, want, B, H, tol, key, group):
         real = getattr(module, attr)
         default = real(B, 200, H, torch.float32) if attr == "backward_launch_config" else \
             real(B, 200, H, H, torch.float32)
@@ -105,23 +107,36 @@ def probe_clusters() -> dict:
                     rows[f"C{C}_R{R}"] = {"ms": cs.time_ms(run)["median"], "rel_err": err}
                 finally:
                     setattr(module, attr, real)
-        out[module is k_gru and "gru_forward" or "lstm_backward"][key] = rows
+        out[group][key] = rows
 
     for B, T, H, reset in ((64, 200, 128, False), (128, 200, 128, False), (256, 50, 100, True)):
         x = cs._zipf_embeddings(rng, dev, B, T, H)
         w_x, w_h, b_x, b_h = (w.to(dev) for w in cs.gru_weights(rng, H, H))
         h0 = cs._state(rng, dev, B, H)
         keep = None if not reset else 1.0 - cs._reset_plane(rng, B, T, dev)
-        xp = torch.matmul(x, w_x) + b_x
 
         def run_fwd():
             return (k_gru._forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep),)
 
         want = (reference.gru_scan(x, h0, w_x, w_h, b_x, b_h,
                                    reset_mask=None if keep is None else 1.0 - keep)[0],)
-        del xp
         sweep(k_gru, "launch_config", run_fwd, want, B, H, 1e-5,
-              f"B{B}_T{T}_H{H}" + ("_reset" if reset else ""))
+              f"B{B}_T{T}_H{H}" + ("_reset" if reset else ""), "gru_forward")
+
+    for B, T, H, reset in ((64, 200, 128, False), (128, 200, 128, False),
+                           (128, 200, 128, True), (256, 50, 100, True)):
+        x = cs._zipf_embeddings(rng, dev, B, T, H)
+        w_x, w_h, b = (w.to(dev) for w in cs.lstm_weights(rng, H, H))
+        h0, c0 = cs._state(rng, dev, B, H), cs._state(rng, dev, B, H)
+        plane = cs._reset_plane(rng, B, T, dev) if reset else None
+
+        def run_lstm():
+            return k_lstm._forward_kernel(x, h0, c0, w_x, w_h, b, False,
+                                          None if plane is None else 1.0 - plane)[:2]
+
+        ys, (_, c_last) = reference.lstm_scan(x, h0, c0, w_x, w_h, b, reset_mask=plane)
+        sweep(k_lstm, "launch_config", run_lstm, (ys, c_last), B, H, 1e-5,
+              f"B{B}_T{T}_H{H}" + ("_reset" if reset else ""), "lstm_forward")
 
     B, T, H = 128, 200, 128
     planes = [torch.from_numpy(rng.uniform(0.05, 0.95, size=(B, T, H)).astype(np.float32))
@@ -138,7 +153,7 @@ def probe_clusters() -> dict:
         args = (i_, f_, g_, o_, tc, c_in, g_ys, w_h, keep, dcl)
         want = reference.lstm_bwd_scan(*args)
         sweep(k_lstm, "backward_launch_config", lambda: k_lstm.lstm_backward(*args), want, B, H,
-              1e-4, key)
+              1e-4, key, "lstm_backward")
     return out
 
 

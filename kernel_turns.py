@@ -16,8 +16,8 @@ it cannot: the parent's and the change's kernels and paths alternated on one
 card, on the same inputs, and the serving encode timed on the device alone.
 A turn times, by CUDA events (chip_smoke.time_ms, median of 21 runs):
 
-  - kernels at the main paths' shapes: causal attention bf16 at
-    [128, 200, 1, 64] and [64, 200, 1, 64] (and f32 at 128), beside
+  - kernels at the main paths' shapes: causal attention bf16 and f32 at
+    [128, 200, 1, 64] and [64, 200, 1, 64], beside
     F.scaled_dot_product_attention on the same inputs; the GRU forward bf16
     at B=64 and B=128, T=200, D=H=128 (and f32 at B=64), beside
     torch.nn.GRU in f32 (cuDNN, TF32 off); its reset variant bf16 at B=256,
@@ -26,8 +26,8 @@ A turn times, by CUDA events (chip_smoke.time_ms, median of 21 runs):
     kernel on the operands its own backward hands it), and the whole bf16
     GRU backward through gru_scan's autograd at both shapes; the
     sampled-softmax head forward at N=25,600, S=256, H=128, bf16 and f32;
-    the LSTM forward bf16 at B=64 and B=128 (and f32 at B=128),
-    its reset variant bf16 at B=128, beside torch.nn.LSTM in f32 (cuDNN,
+    the LSTM forward bf16 and f32 (projection included) at B=64 and B=128,
+    its reset variant bf16 and f32 at B=128, beside torch.nn.LSTM in f32 (cuDNN,
     TF32 off) forward and backward (fwd+bwd - fwd) on the same inputs; the
     LSTM reverse recurrence bf16 and f32 at B=128, without and with a keep
     plane; the f32 GRU forward (projection included) at B=64 and B=128 and
@@ -36,9 +36,10 @@ A turn times, by CUDA events (chip_smoke.time_ms, median of 21 runs):
     serving (encode ms and batch ms), GRU4Rec, SASRec and LSTM training
     (device forward and step ms, the wall step ms and the device launches a
     step), rsc15_gru4rec and ml1m_lstm session training (the same), and the
-    f32 paths (model.compute_dtype=float32 on ml1m_gru4rec for serving and
-    training and on ml1m_lstm for training; a checkout whose phase_serve
-    takes no overrides gets them through its RunConfig.load); and
+    f32 paths (model.compute_dtype=float32 on ml1m_gru4rec, ml1m_sasrec and
+    ml1m_lstm for serving and training, SASRec's warmup 0; a checkout whose
+    phase_serve takes no overrides gets them through its RunConfig.load);
+    and
     each serving model's
     `encode` of one batch of 64 behind a ~30 ms device sleep
     (`encode_device_ms`), so that the events bracket the device's work even
@@ -143,7 +144,8 @@ def _worker(label: str) -> dict:
     def state(B, H):  # a carried-in recurrent state, N(0, 0.5)
         return torch.from_numpy(rng.normal(scale=0.5, size=(B, H)).astype(np.float32)).to(dev)
 
-    for Bq, dtype in ((128, torch.bfloat16), (64, torch.bfloat16), (128, torch.float32)):
+    for Bq, dtype in ((128, torch.bfloat16), (64, torch.bfloat16), (128, torch.float32),
+                      (64, torch.float32)):
         q, k, v = (torch.from_numpy(rng.normal(size=(Bq, 200, 1, 64)).astype(np.float32))
                    .to(dev, dtype) for _ in range(3))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -240,7 +242,8 @@ def _worker(label: str) -> dict:
         lib.bias_hh_l0.zero_()
     reset = torch.from_numpy((rng.random((128, 200)) < 1 / RESET_EVERY)
                              .astype(np.float32)).to(dev)
-    for Bl, dtype in ((128, torch.bfloat16), (64, torch.bfloat16), (128, torch.float32)):
+    for Bl, dtype in ((128, torch.bfloat16), (64, torch.bfloat16), (128, torch.float32),
+                      (64, torch.float32)):
         xd, hd, cd = x[:Bl].to(dtype), h0[:Bl].to(dtype), c0[:Bl].to(dtype)
         rec = {"ms": med(lambda: k_lstm.lstm_scan(xd, hd, cd, w_x, w_h, b))}
         xf, state0 = x[:Bl], (h0[:Bl][None], c0[:Bl][None])
@@ -250,6 +253,8 @@ def _worker(label: str) -> dict:
     xb, hb, cb = x.bfloat16(), h0.bfloat16(), c0.bfloat16()
     kern["lstm_reset_bfloat16_B128"] = {
         "ms": med(lambda: k_lstm.lstm_scan(xb, hb, cb, w_x, w_h, b, reset_mask=reset))}
+    kern["lstm_reset_float32_B128"] = {
+        "ms": med(lambda: k_lstm.lstm_scan(x, h0, c0, w_x, w_h, b, reset_mask=reset))}
     xg = x.detach().clone().requires_grad_(True)
     g32 = (x * 0.1).detach()
 
@@ -307,7 +312,9 @@ def _worker(label: str) -> dict:
     requests = cs.make_requests(rng, RunConfig.load(cs.CONFIGS["gru4rec"]).data.max_len)
     paths = {}
     for key, path, over in (("serve_gru4rec", "gru4rec", ()), ("serve_sasrec", "sasrec", ()),
-                            ("serve_lstm", "lstm", ()), ("serve_gru4rec_f32", "gru4rec", (F32,))):
+                            ("serve_lstm", "lstm", ()), ("serve_gru4rec_f32", "gru4rec", (F32,)),
+                            ("serve_sasrec_f32", "sasrec", (F32,)),
+                            ("serve_lstm_f32", "lstm", (F32,))):
         r = _serve(cs, dev, path, requests, over)
         paths[key] = {"encode_ms": r["batch_breakdown"]["encode_ms"],
                       "batch_ms": r["batch_ms_median"],
@@ -319,7 +326,8 @@ def _worker(label: str) -> dict:
             ("train_rsc15_gru4rec_session", "rsc15_gru4rec", ()),
             ("train_lstm_session", "lstm", ("data.session_parallel=true",)),
             ("train_lstm_f32", "lstm", (F32,)),
-            ("train_gru4rec_f32", "gru4rec", (F32,))):
+            ("train_gru4rec_f32", "gru4rec", (F32,)),
+            ("train_sasrec_f32", "sasrec", (F32, "train.warmup_steps=0"))):
         r = cs.phase_train(rng, dev, 0, path, groups=2, overrides=over)
         paths[key] = {"device_forward_ms": r["device_step_ms"]["forward"],
                       "device_step_ms": r["device_step_ms"]["total"],

@@ -17,7 +17,7 @@
 // Dh is contiguous. o is a contiguous [B, T, N, Dh]. T need not be a
 // multiple of the tile: rows past T are zero-filled in shared memory and
 // never written, where the TPU wrapper pads T to its 128-row tile in
-// device memory. Both designs below take one block per (64-query tile, g),
+// device memory. Both designs below take one block per (query tile, g),
 // read key tiles 0..qi only (tiles wholly above the diagonal are skipped),
 // and start the blocks with the most key tiles first.
 //
@@ -50,13 +50,31 @@
 // kD + 8 elements long, so ldmatrix's eight 16-byte rows fall on distinct
 // banks.
 //
-// f32: CUDA cores (attention_f32_kernel), because TF32 tensor cores keep ~3
-// digits and the f32 contract is f32 products. 256 threads; thread (ty, tx)
-// owns query rows 4 ty .. 4 ty + 3 against keys tx, tx + 16, tx + 32, tx + 48
-// of a key tile (a 4 x 4 register tile: 8 float4 shared-memory reads feed 64
-// FMAs) and the float4 output column groups tx, tx + 16, ...; a row's max
-// and sum combine over the 16 lanes of its half-warp. The tiles and the
-// probabilities (stored transposed) sit in shared memory with padded rows.
+// f32: FlashAttention-2's structure on the CUDA cores (attention_f32_kernel),
+// because TF32 tensor cores keep ~3 digits and the f32 contract is f32
+// products. What bounds it at the training shape is its operations: a
+// block's products are FMAs fed from shared memory, so the design counts
+// shared-memory wavefronts (128 bytes a cycle an SM) against FMA issue (4
+// warp instructions a cycle an SM), and the longest query tile's serial
+// walk over its key tiles against the grid. A block owns 32 query rows
+// (7 x 128 = 896 blocks at B*N = 128, T = 200: the 132 SMs fill, and the
+// causal triangle wastes less than with 64-row tiles) and walks key tiles
+// of 32. Its warps own 2 R rows each, lane (rg, c) of a warp rows
+// R rg .. R rg + R - 1 of them (R = `kLR` = 4, four warps a block; 8 rows a
+// lane, two warps, was slower on every shape measured: PERF.md).
+// S = Q K^T: the lane's R rows against keys c and c + 16 (the 16 lanes of a
+// row group share each Q read, a broadcast, and read 16 distinct K rows):
+// 8 R FMAs per R + 2 float4 reads. The softmax runs on those registers (a
+// row's max over its 16 lanes by xor-shuffles; the running sum l stays a
+// lane's partial and is summed once at the end). P goes to a per-warp
+// key-major tile in shared memory (conflict-free 16-byte stores; S
+// spreads keys over lanes and P V needs them in the loop), and O += P V
+// gives the lane its R rows of the float4 column groups c, c + 16, ...: a
+// key's p float4s (broadcasts) and one v float4 feed 4 R FMAs. Q, and K
+// and V double-buffered, arrive by cp.async: tile kt+1 loads while tile kt
+// computes (one wait and one barrier a tile). Rows at or past T are zero
+// in shared memory (cp.async with a source size of 0); a warp whose rows
+// are all past T only helps to load.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -259,24 +277,36 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // f32: CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Threads = 256;  // 4 lanes per query row
+constexpr int kF32Rows = 32;  // query rows a block, keys a tile
 
-// Copy rows [t0, t0 + 64) of one (b, n) slice into a padded f32 tile;
-// rows at or past T are zero.
-__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
-                                          long long stride_t, int t0, int Tn,
-                                          int Dh) {
-  const int per_row = Dh / 4;
-  for (int c = threadIdx.x; c < kTile * per_row; c += kF32Threads) {
-    const int r = c / per_row, j = (c % per_row) * 4;
-    const float4 v = t0 + r < Tn
-                         ? *reinterpret_cast<const float4*>(src + (t0 + r) * stride_t + j)
-                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    *reinterpret_cast<float4*>(dst + r * ld + j) = v;
+// A block's layout: each lane owns kLR query rows, a warp 2 kLR rows (two
+// row groups of 16 lanes), the block kF32Rows / (2 kLR) warps, and each warp
+// a key-major P tile [32 keys][2 kLR + 4] (the pad keeps a quarter warp's
+// 16-byte stores on distinct banks).
+constexpr int kLR = 4;
+constexpr int kF32WarpRows = 2 * kLR;
+constexpr int kF32Warps = kF32Rows / kF32WarpRows;
+constexpr int kF32Threads = 32 * kF32Warps;
+constexpr int kLdP = kF32WarpRows + 4;
+constexpr int kPFloats = kF32Warps * kF32Rows * kLdP;
+
+// Start the copy of rows [t0, t0 + kF32Rows) of one (b, n) slice into a
+// [kF32Rows][Dh + 4] f32 tile; rows at or past T are zero-filled.
+__device__ __forceinline__ void stage_f32(float* dst, int ld, const float* src,
+                                          long long stride_t, int t0, int Tn, int Dh) {
+  const int pieces = Dh / 4;
+  for (int c = threadIdx.x; c < kF32Rows * pieces; c += blockDim.x) {
+    const int r = c / pieces, j = (c - r * pieces) * 4;
+    const bool real = t0 + r < Tn;
+    mma::cp_async16_zfill(dst + r * ld + j, real ? src + (t0 + r) * stride_t + j : src,
+                          real ? 16 : 0);
   }
 }
 
-// kGroups: float4 groups of the output columns a thread owns (Dh <= 64 kGroups).
+// kGroups: float4 column groups of the output a lane owns (Dh <= 64 kGroups).
+// Block i takes query tile
+// n_tiles - 1 - i / (B N) of (b, n) = i % (B N): the blocks with the most
+// key tiles start first.
 template <int kGroups>
 __global__ void __launch_bounds__(kF32Threads)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -285,135 +315,154 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      long long sk_b, long long sk_t, long long sv_b,
                      long long sv_t, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = Dh + 4;           // padded row of the q, k and v tiles
-  constexpr int kLdP = kTile + 4;  // padded row of the probability tile
-  float* qs = reinterpret_cast<float*>(smem);
-  float* ks = qs + kTile * ld;
-  float* vs = ks + kTile * ld;
-  float* ps = vs + kTile * ld;  // [64 keys][kLdP]: p transposed
+  const int ld = Dh + 4;  // a tile row: rows 4 banks apart
+  float* qs = reinterpret_cast<float*>(smem);  // [32][ld]
+  float* kvs = qs + kF32Rows * ld;             // [2 stages][K, V][32][ld]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* ps = kvs + 4 * kF32Rows * ld + warp * kF32Rows * kLdP;  // this warp's P
+  auto tile_at = [&](int stage, int which) { return kvs + (stage * 2 + which) * kF32Rows * ld; };
 
-  const int n_tiles = (Tn + kTile - 1) / kTile;
-  const int qi = n_tiles - 1 - blockIdx.x;  // the longest tiles first
-  const int g = blockIdx.y, b = g / N, n = g % N;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int n_tiles = (Tn + kF32Rows - 1) / kF32Rows;
+  const int groups_bn = gridDim.x / n_tiles;
+  const int qi = n_tiles - 1 - static_cast<int>(blockIdx.x) / groups_bn;
+  const int g = static_cast<int>(blockIdx.x) % groups_bn, b = g / N, n = g % N;
+  const int rg = lane >> 4, c = lane & 15;
+  const int row0 = warp * kF32WarpRows + rg * kLR;  // the lane's first row in the tile
+  const int q_pos = qi * kF32Rows + row0;              // ... and in the sequence
+  const bool live = qi * kF32Rows + warp * kF32WarpRows < Tn;  // a row of the warp's before T
   const int groups = Dh / 4;
-  const int q_pos = qi * kTile + 4 * ty;  // the thread's first query row
   // Column offsets of the (b, n) slice; the head stride is Dh.
   const float* qg = q + b * sq_b + static_cast<long long>(n) * Dh;
   const float* kg = k + b * sk_b + static_cast<long long>(n) * Dh;
   const float* vg = v + b * sv_b + static_cast<long long>(n) * Dh;
 
-  load_tile(qs, ld, qg, sq_t, qi * kTile, Tn, Dh);
+  auto stage_kv = [&](int kt) {  // key tile kt into stage kt % 2
+    stage_f32(tile_at(kt & 1, 0), ld, kg, sk_t, kt * kF32Rows, Tn, Dh);
+    stage_f32(tile_at(kt & 1, 1), ld, vg, sv_t, kt * kF32Rows, Tn, Dh);
+  };
+  stage_f32(qs, ld, qg, sq_t, qi * kF32Rows, Tn, Dh);
+  stage_kv(0);
+  mma::cp_async_commit();
 
-  float acc[4][kGroups][4];
+  float acc[kLR][kGroups][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kLR; ++i)
 #pragma unroll
-    for (int c = 0; c < kGroups; ++c)
-      acc[i][c][0] = acc[i][c][1] = acc[i][c][2] = acc[i][c][3] = 0.0f;
-  float m[4], l[4];
+    for (int cg = 0; cg < kGroups; ++cg)
+      acc[i][cg][0] = acc[i][cg][1] = acc[i][cg][2] = acc[i][cg][3] = 0.0f;
+  float m[kLR], l[kLR];  // l: this lane's share of the row's sum
 #pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = kNegInf, l[i] = 0.0f;
+  for (int i = 0; i < kLR; ++i) m[i] = kNegInf, l[i] = 0.0f;
 
   for (int kt = 0; kt <= qi; ++kt) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(ks, ld, kg, sk_t, kt * kTile, Tn, Dh);
-    load_tile(vs, ld, vg, sv_t, kt * kTile, Tn, Dh);
+    if (kt < qi) stage_kv(kt + 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // everything but tile kt + 1 has landed
     __syncthreads();
-
-    // s[i][j]: query row 4 ty + i against key tx + 16 j.
-    float s[4][4];
+    if (live) {
+      const float* kb = tile_at(kt & 1, 0);
+      const float* vb = tile_at(kt & 1, 1);
+      // s[i][e]: query row row0 + i against key c + 16 e of the tile.
+      float s[kLR][2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.0f;
-    for (int d = 0; d < Dh; d += 4) {
-      float4 qv[4], kv[4];
+      for (int i = 0; i < kLR; ++i) s[i][0] = s[i][1] = 0.0f;
+#pragma unroll 4
+      for (int d = 0; d < Dh; d += 4) {
+        const float4 k0 = *reinterpret_cast<const float4*>(kb + c * ld + d);
+        const float4 k1 = *reinterpret_cast<const float4*>(kb + (c + 16) * ld + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (4 * ty + i) * ld + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * ld + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        for (int i = 0; i < kLR; ++i) {
+          const float4 qv = *reinterpret_cast<const float4*>(qs + (row0 + i) * ld + d);
+          s[i][0] = fmaf(qv.x, k0.x, s[i][0]);
+          s[i][0] = fmaf(qv.y, k0.y, s[i][0]);
+          s[i][0] = fmaf(qv.z, k0.z, s[i][0]);
+          s[i][0] = fmaf(qv.w, k0.w, s[i][0]);
+          s[i][1] = fmaf(qv.x, k1.x, s[i][1]);
+          s[i][1] = fmaf(qv.y, k1.y, s[i][1]);
+          s[i][1] = fmaf(qv.z, k1.z, s[i][1]);
+          s[i][1] = fmaf(qv.w, k1.w, s[i][1]);
         }
-    }
-    // A row's 64 scores sit on the 16 lanes of one half-warp (same ty).
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tile_max = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k_pos = kt * kTile + tx + 16 * j;
-        s[i][j] = k_pos <= q_pos + i ? s[i][j] * scale : kNegInf;
-        tile_max = fmaxf(tile_max, s[i][j]);
       }
+      // Online softmax; only the diagonal tile (kt == qi) masks.
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
-      const float m_new = fmaxf(m[i], tile_max);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.0f;
+      for (int i = 0; i < kLR; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
+        for (int e = 0; e < 2; ++e) {
+          const bool masked = kt == qi && kt * kF32Rows + c + 16 * e > q_pos + i;
+          s[i][e] = masked ? kNegInf : s[i][e] * scale;
+        }
+        float tile_max = fmaxf(s[i][0], s[i][1]);
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1)
+          tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
+        const float m_new = fmaxf(m[i], tile_max);
+        const float alpha = expf(m[i] - m_new);
+        s[i][0] = expf(s[i][0] - m_new);
+        s[i][1] = expf(s[i][1] - m_new);
+        l[i] = alpha * l[i] + (s[i][0] + s[i][1]);
+        m[i] = m_new;
+#pragma unroll
+        for (int cg = 0; cg < kGroups; ++cg) {
+          acc[i][cg][0] *= alpha; acc[i][cg][1] *= alpha;
+          acc[i][cg][2] *= alpha; acc[i][cg][3] *= alpha;
+        }
       }
+      // P, key-major: [key][the warp's rows].
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = alpha * l[i] + sum;
-      m[i] = m_new;
+      for (int e = 0; e < 2; ++e) {
+        float* prow = ps + (c + 16 * e) * kLdP + kLR * rg;
 #pragma unroll
-      for (int c = 0; c < kGroups; ++c) {
-        acc[i][c][0] *= alpha; acc[i][c][1] *= alpha;
-        acc[i][c][2] *= alpha; acc[i][c][3] *= alpha;
+        for (int i = 0; i < kLR; i += 4) {
+          *reinterpret_cast<float4*>(prow + i) =
+              make_float4(s[i][e], s[i + 1][e], s[i + 2][e], s[i + 3][e]);
+        }
       }
-    }
+      __syncwarp();
+      // O += P V over the tile's 32 keys.
+#pragma unroll 4
+      for (int j = 0; j < kF32Rows; ++j) {
+        float pr[kLR];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(ps + (tx + 16 * j) * kLdP + 4 * ty) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncwarp();  // a row group's 16 lanes share one warp
-
-    for (int j = 0; j < kTile; ++j) {
-      const float4 pv = *reinterpret_cast<const float4*>(ps + j * kLdP + 4 * ty);
-      const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
-      const float* vrow = vs + j * ld;
+        for (int i = 0; i < kLR; i += 4) {
+          const float4 pv = *reinterpret_cast<const float4*>(ps + j * kLdP + kLR * rg + i);
+          pr[i] = pv.x, pr[i + 1] = pv.y, pr[i + 2] = pv.z, pr[i + 3] = pv.w;
+        }
 #pragma unroll
-      for (int c = 0; c < kGroups; ++c) {
-        const int grp = tx + 16 * c;
-        if (grp < groups) {
-          const float4 vv = *reinterpret_cast<const float4*>(vrow + 4 * grp);
+        for (int cg = 0; cg < kGroups; ++cg) {
+          const int grp = c + 16 * cg;
+          if (grp < groups) {
+            const float4 vv = *reinterpret_cast<const float4*>(vb + j * ld + 4 * grp);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][c][0] = fmaf(pr[i], vv.x, acc[i][c][0]);
-            acc[i][c][1] = fmaf(pr[i], vv.y, acc[i][c][1]);
-            acc[i][c][2] = fmaf(pr[i], vv.z, acc[i][c][2]);
-            acc[i][c][3] = fmaf(pr[i], vv.w, acc[i][c][3]);
+            for (int i = 0; i < kLR; ++i) {
+              acc[i][cg][0] = fmaf(pr[i], vv.x, acc[i][cg][0]);
+              acc[i][cg][1] = fmaf(pr[i], vv.y, acc[i][cg][1]);
+              acc[i][cg][2] = fmaf(pr[i], vv.z, acc[i][cg][2]);
+              acc[i][cg][3] = fmaf(pr[i], vv.w, acc[i][cg][3]);
+            }
           }
         }
       }
     }
+    __syncthreads();  // tile kt's stage and the P tiles are refilled next iteration
   }
 
+  if (!live) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (q_pos + i < Tn) {
-      const float denom = fmaxf(l[i], 1e-30f);
-      float* orow = o + ((static_cast<long long>(b) * Tn + q_pos + i) * N + n) * Dh;
+  for (int i = 0; i < kLR; ++i) {
+    float sum = l[i];
 #pragma unroll
-      for (int c = 0; c < kGroups; ++c) {
-        const int grp = tx + 16 * c;
-        if (grp < groups) {
+    for (int off = 1; off < 16; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const int t = q_pos + i;
+    if (t >= Tn) continue;
+    const float denom = fmaxf(sum, 1e-30f);
+    float* orow = o + ((static_cast<long long>(b) * Tn + t) * N + n) * Dh;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) orow[4 * grp + e] = acc[i][c][e] / denom;
-        }
+    for (int cg = 0; cg < kGroups; ++cg) {
+      const int grp = c + 16 * cg;
+      if (grp < groups) {
+        *reinterpret_cast<float4*>(orow + 4 * grp) =
+            make_float4(acc[i][cg][0] / denom, acc[i][cg][1] / denom, acc[i][cg][2] / denom,
+                        acc[i][cg][3] / denom);
       }
     }
   }
@@ -430,17 +479,21 @@ size_t smem_bytes(int Dh, int dtype) {
   if (dtype == 1) {  // Q, and K and V double-buffered: [64][kD + 8] bf16 each
     return 5 * static_cast<size_t>(kTile) * (padded_head_dim(Dh) + 8) * 2;
   }
-  return (3 * static_cast<size_t>(kTile) * (Dh + 4) +
-          static_cast<size_t>(kTile) * (kTile + 4)) * 4;
+  // Q, K and V double-buffered: [32][Dh + 4] f32 each; the warps' P tiles.
+  return (5 * static_cast<size_t>(kF32Rows) * (Dh + 4) + kPFloats) * 4;
 }
 
+// bf16: a (64-row query tile, b n) grid; f32: one dimension of 32-row
+// query tiles, the longest first across every (b, n).
 template <typename T, typename Kernel>
 int launch(Kernel kernel, int threads, const void* q, const void* k,
            const void* v, void* o, int B, int N, int Tn, int Dh,
            long long sq_b, long long sq_t, long long sk_b, long long sk_t,
            long long sv_b, long long sv_t, float scale, size_t smem,
            cudaStream_t s) {
-  const dim3 grid((Tn + kTile - 1) / kTile, B * N);
+  const dim3 grid = sizeof(T) == 4
+                        ? dim3(static_cast<unsigned>((Tn + kF32Rows - 1) / kF32Rows) * B * N)
+                        : dim3((Tn + kTile - 1) / kTile, B * N);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -459,7 +512,7 @@ extern "C" {
 // (s*_b, s*_t) in elements, each a multiple of 16 bytes, as are the
 // pointers. o: a contiguous [B, T, N, Dh]. smem_bytes as the caller
 // computed it, checked again here. bf16 runs the tensor-core kernel, f32 the
-// CUDA-core one.
+// CUDA-core one; (Tn / 32 rounded up) B N < 2^31.
 int seqrec_attention_forward(const void* q, const void* k, const void* v,
                              void* o, int B, int N, int Tn, int Dh, int dtype,
                              long long sq_b, long long sq_t, long long sk_b,
@@ -477,7 +530,7 @@ int seqrec_attention_forward(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SEQREC_ATTN_ARGS q, k, v, o, B, N, Tn, Dh, sq_b, sq_t, sk_b, sk_t, sv_b, sv_t, scale, smem, s
   if (dtype == 0) {
-    const int groups = (Dh / 4 + 15) / 16;  // float4 groups a thread owns
+    const int groups = (Dh / 4 + 15) / 16;  // float4 groups a lane owns
     if (groups <= 1) return launch<float>(attention_f32_kernel<1>, kF32Threads, SEQREC_ATTN_ARGS);
     if (groups <= 2) return launch<float>(attention_f32_kernel<2>, kF32Threads, SEQREC_ATTN_ARGS);
     return launch<float>(attention_f32_kernel<4>, kF32Threads, SEQREC_ATTN_ARGS);

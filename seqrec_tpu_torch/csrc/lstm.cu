@@ -52,17 +52,29 @@
 //    updates from the hardware exp2 and a fast divide (a few ulp in f32; h
 //    is then rounded to bf16).
 //
-// f32: the CUDA-core design (lstm_forward_kernel), because TF32 tensor cores
-// keep ~3 digits and the f32 contract is f32 products. A block owns R batch
-// rows for the whole scan and has one thread per hidden unit i, which
-// computes the i, f, g and o columns of unit i for its R rows and keeps its
-// c in a register; h goes through shared memory, double-buffered, and x[t+1]
-// is staged with cp.async while step t computes. W_h (256 KB at H=128) is
-// over the 227 KB a block may have, so both matrices are read through L2
-// (in shared memory when they fit, at smaller H), k-packed ([K/4][4H][4],
-// packed by the wrapper): each thread reads its four columns in 16-byte
-// loads and keeps 16 of them in flight ahead of its FMAs.
-//
+// f32: two kernels on the CUDA cores, because TF32 tensor cores keep ~3
+// digits and the f32 contract is f32 products; csrc/gru.cu's f32 design
+// with four gates and a cell.
+// 1. rnn::xproj_f32_kernel (csrc/rnn.cuh), the input projection off the
+//    serial chain as an f32 SIMT GEMM: xp = x @ W_x + b into an f32
+//    [B, T, 4H] plane (its operations bind: 3.36 GFLOP at B=128, T=200,
+//    D=H=128, 0.050 ms at 67 TFLOP/s).
+// 2. lstm_forward_cluster_kernel, the recurrence on a thread block cluster.
+//    W_h is 256 KB at H=128, over the 227 KB one block may have, and the
+//    first port's one-block design re-read it and W_x from L2 every step,
+//    the x-product inside the serial chain (~7.7 us a step). Here a cluster
+//    of C CTAs on neighbouring SMs owns R batch rows for the whole scan,
+//    each CTA a slice of the hidden units with their W_h columns of all four
+//    gates (64 KB at H=128, C=4) resident in its shared memory (and, at 16
+//    k values a thread, in its registers: 64), and each step's new h values
+//    go to every CTA through distributed shared memory, st.async counted by
+//    an mbarrier a buffer (the layout, the reduce-scatter and the exchange
+//    in rnn.cuh). The owner lane of a (unit, row) pair keeps its f32 cell in
+//    a register for the whole scan. What sets a step: the exchange's
+//    latency, the reduce-scatter and the accurate f32 gate math on the
+//    serial chain, then one CTA's FMAs and shared-memory reads for its rows
+//    and units; C and R follow B and H (ops/cuda/lstm.py launch_config).
+
 // Backward: the reverse recurrence of the analytic BPTT, replacing the
 // reverse `lax.scan` inside seqrec_tpu/ops/pallas/lstm.py::_lstm_bwd_math
 // (XLA in the TPU package; its hoisted products stay outside, here as
@@ -123,254 +135,258 @@
 
 namespace {
 
-constexpr int kMaxHidden = 256;  // one thread per hidden unit
+constexpr int kMaxHidden = 256;  // the widest H the kernels are laid out for
 // Units a warp of the f32 cluster reverse recurrence sums for (its 32 lanes
 // split their K = 4H columns): each dz value read from shared memory serves
 // this many units.
 constexpr int kBwdUnits = 4;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-
-// Four consecutive values from shared memory, as floats.
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 __device__ __forceinline__ float sigmoidf(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
 
-// Copy `bytes` (a multiple of 16) from global to shared memory.
-__device__ __forceinline__ void copy_to_smem(void* dst, const void* src,
-                                             size_t bytes) {
-  uint4* d = static_cast<uint4*>(dst);
-  const uint4* s = static_cast<const uint4*>(src);
-  for (size_t c = threadIdx.x; c < bytes / 16; c += blockDim.x) d[c] = s[c];
+// acc += h . w, in k order.
+__device__ __forceinline__ void dot4(float& acc, float4 h, float4 w) {
+  acc = fmaf(h.x, w.x, acc);
+  acc = fmaf(h.y, w.y, acc);
+  acc = fmaf(h.z, w.z, acc);
+  acc = fmaf(h.w, w.w, acc);
 }
 
-// Start the copy of x[b0 .. b0+R, t, :] into the staging buffer `xs`.
-// Rows past B are left as they are (zero from the start).
-template <typename T, int R>
-__device__ __forceinline__ void stage_x(T* xs, const T* x, int b0, int B,
-                                        int Tn, int D, int t) {
-  const int chunks = D * static_cast<int>(sizeof(T)) / 16;
-  for (int c = threadIdx.x; c < R * chunks; c += blockDim.x) {
-    const int r = c / chunks, j = c % chunks;
-    if (b0 + r < B) {
-      const T* src = x + (static_cast<size_t>(b0 + r) * Tn + t) * D;
-      cp_async16(reinterpret_cast<uint4*>(xs + r * D) + j,
-                 reinterpret_cast<const uint4*>(src) + j);
+// ---------------------------------------------------------------------------
+// f32 forward: the input projection (rnn.cuh), then the recurrence on a
+// thread block cluster
+// ---------------------------------------------------------------------------
+
+// W_h's slice in registers where it is 16 k values a thread (kLstmRegSlice)
+// with 8 slices a unit, up to 8 rows and 256 threads (H = 128 on 4 CTAs):
+// 64 registers beside the rows' sums, under the 255 a thread of a
+// 256-thread block may have.
+constexpr int kLstmRegSlice = 16;
+constexpr int kLstmRegThreads = 256;
+
+// The recurrence (rnn.cuh's cluster layout, K = H): CTA c of a cluster of C
+// owns units [c U, c U + U) of the cluster's R rows. Its shared memory holds
+// W_h's columns of its units, all four gates, k-sliced as
+// [L/4][4][threads][4] (thread S ul + s reads its slice's four k rows of
+// gate q as one float4, consecutive threads consecutive float4s), and h of
+// step t in two buffers [2][R][S L + 4] laid out by rnn::slice_pos (a row's
+// 4 extra floats put the rows' copies of one unit in different banks). A
+// step: every thread sums h[r][k] W_h[k][q H + u] over its slice for its R
+// rows and four gates (f32 FMAs; each W_h float4 serves R rows, each h
+// float4 four gates), the reduce-scatter leaves the owner lane of (u, r) its
+// i, f, g and o sums, it computes c' and h' in f32 (expf, tanhf), writes ys
+// (and the cell plane) and stores h' (times keep[t+1] in the reset variant)
+// into every CTA's next buffer with st.async, counted by that CTA's
+// mbarrier of the buffer, for which one thread waits (then a CTA barrier)
+// before the next step reads it; c' (times keep[t+1]) stays in the lane's
+// register. xp (b included) and keep arrive by cp.async in the lane's slots
+// of a ring, kClusterAhead steps ahead. The lanes that share an owner's sums
+// (the reduce-scatter's copies) compute the same cells and store nothing.
+// Padded k rows, padded units and rows past B hold zeros and are never
+// written.
+template <int R, int S, bool kReset, int kRegChunks>
+__global__ void __launch_bounds__(kRegChunks > 0 ? kLstmRegThreads : rnn::kClusterMaxThreads)
+lstm_forward_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ h0,
+                            const float* __restrict__ c0, const float* __restrict__ w_h,
+                            const float* __restrict__ keep, float* __restrict__ ys,
+                            float* __restrict__ c_last, float* __restrict__ cs, int B, int Tn,
+                            int H, int U) {
+  using Own = rnn::Owner<R, 1, S>;
+  constexpr int NR = Own::NR;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int NT = blockDim.x, Up = NT / S;
+  const int L = rnn::slice_len(H, S), ld = S * L + 4, H4 = 4 * H;
+  float* ws = reinterpret_cast<float*>(smem);  // [L/4][4][NT][4]
+  float* hs = ws + 4 * L * NT;                 // [2][R][ld]
+  const unsigned C = rnn::cluster::size();
+  const int u0 = static_cast<int>(rnn::cluster::rank()) * U;
+  const int b0 = static_cast<int>(rnn::cluster::id()) * R;
+  const int tid = threadIdx.x, s = tid % S, ul = tid / S, u = u0 + ul;
+  const bool unit_ok = ul < U && u < H;
+  const Own own(s);
+
+  // W_h's columns of this CTA's units (reads of consecutive units coalesce).
+  for (int idx = tid; idx < S * L * 4 * Up; idx += NT) {
+    const int k = idx / (4 * Up), q = (idx / Up) % 4, vl = idx % Up;
+    const bool in = k < H && vl < U && u0 + vl < H;
+    const int ks = k / L, o = k - ks * L;
+    ws[(((o >> 2) * 4 + q) * NT + vl * S + ks) * 4 + (o & 3)] =
+        in ? w_h[static_cast<size_t>(k) * H4 + q * H + u0 + vl] : 0.0f;
+  }
+  for (int c = tid; c < 2 * R * ld; c += NT) hs[c] = 0.0f;
+  __syncthreads();
+  // h of step 0 (keep[0] h0) for every unit of the cluster's rows.
+  for (int c = tid; c < R * H; c += NT) {
+    const int r = c / H, k = c - r * H, b = b0 + r;
+    if (b < B) {
+      const float h = h0[static_cast<size_t>(b) * H + k];
+      hs[r * ld + rnn::slice_pos(k, L, S)] =
+          kReset ? __fmul_rn(h, keep[static_cast<size_t>(b) * Tn]) : h;
     }
   }
-  cp_async_commit();
-}
-
-// Sixteen bytes as four f32 values.
-__device__ __forceinline__ void unpack16(uint4 q, float* out, float) {
-  out[0] = __uint_as_float(q.x); out[1] = __uint_as_float(q.y);
-  out[2] = __uint_as_float(q.z); out[3] = __uint_as_float(q.w);
-}
-
-// acc[r][0..3] += sum_k v[r][k] * W[k][{i, H+i, 2H+i, 3H+i}], v in shared
-// memory ([R][K], float or T), W k-packed as [K/P][4H][P] (P = 16 /
-// sizeof(T)) in shared or global memory: one 16-byte load brings P
-// consecutive k rows of one column, and a warp's loads are consecutive (no
-// bank conflicts in shared memory, whole sectors from L2). kGroup packs (4
-// kGroup loads) are in flight while the previous group's FMAs run: from L2
-// the reads are latency, not bandwidth, so that depth sets the step time.
-template <int R, typename V, typename T>
-__device__ __forceinline__ void gate_product(float acc[R][4], const V* v,
-                                             const T* __restrict__ wp, int K,
-                                             int H, int i) {
-  constexpr int P = 16 / sizeof(T);
-  constexpr int kGroup = 4;
-  const int H4 = 4 * H, KB = K / P;
-  const uint4* base = reinterpret_cast<const uint4*>(wp) + i;
-  uint4 cur[kGroup][4], nxt[kGroup][4];
-  auto fetch = [&](uint4 (&w)[kGroup][4], int kb0) {
+  // The lane's cells: keep[0] c0 of its rows at unit u.
+  float cell[NR];
 #pragma unroll
-    for (int b = 0; b < kGroup; ++b)
+  for (int k = 0; k < NR; ++k) {
+    const int b = b0 + own.row0 + k;
+    cell[k] = 0.0f;
+    if (unit_ok && b < B) {
+      const float c = c0[static_cast<size_t>(b) * H + u];
+      cell[k] = kReset ? __fmul_rn(c, keep[static_cast<size_t>(b) * Tn]) : c;
+    }
+  }
+  // Step t's operands of the lane's rows into ring stage t % kClusterRing:
+  // xp's i, f, g and o columns (b included) as [stage][NR][threads][4], and
+  // keep[t+1] (the scale of the h' and c' step t hands on) as
+  // [stage][NR][threads]; zeros where there is no such row, unit or step.
+  // One commit group a step.
+  float* ring = hs + 2 * R * ld;
+  float* kring = ring + rnn::kClusterRing * NR * NT * 4;
+  auto issue = [&](int t) {
+    const int st = t % rnn::kClusterRing;
 #pragma unroll
-      for (int g = 0; g < 4; ++g)
-        if (kb0 + b < KB) w[b][g] = base[static_cast<size_t>(kb0 + b) * H4 + g * H];
+    for (int k = 0; k < NR; ++k) {
+      const int b = b0 + own.row0 + k;
+      const bool in = unit_ok && b < B && t < Tn;
+      const float* src = xp + ((static_cast<size_t>(b) * Tn + t) * H4 + u);
+      float* dst = ring + ((st * NR + k) * NT + tid) * 4;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) mma::cp_async4_zfill(dst + q, in ? src + q * H : xp, in ? 4 : 0);
+      if (kReset) {
+        const bool kin = b < B && t + 1 < Tn;
+        mma::cp_async4_zfill(kring + (st * NR + k) * NT + tid,
+                             kin ? keep + static_cast<size_t>(b) * Tn + t + 1 : xp, kin ? 4 : 0);
+      }
+    }
+    mma::cp_async_commit();
   };
-  fetch(cur, 0);
-  for (int kb0 = 0; kb0 < KB; kb0 += kGroup) {
-    if (kb0 + kGroup < KB) fetch(nxt, kb0 + kGroup);
+  for (int t = 0; t < rnn::kClusterAhead; ++t) issue(t);
+  // h'(t) lands in buffer (t+1) & 1: H R values a fill, from every CTA.
+  uint64_t* mb = reinterpret_cast<uint64_t*>(kring + rnn::kClusterRing * NR * NT);
+  const unsigned fill_bytes = static_cast<unsigned>(H * R * 4);
+  if (tid == 0) {
+    rnn::cluster::mbar_init(&mb[0]);
+    rnn::cluster::mbar_init(&mb[1]);
+    rnn::cluster::mbar_init_fence();
+    if (Tn >= 2) rnn::cluster::mbar_expect(&mb[1], fill_bytes);  // h'(0)
+    if (Tn >= 3) rnn::cluster::mbar_expect(&mb[0], fill_bytes);  // h'(1)
+  }
+  rnn::cluster::sync();  // every CTA of the cluster is running, its buffers set
+
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  // kRegChunks > 0 (L = 4 kRegChunks): the thread's slice of W_h stays in
+  // registers for the whole scan, and a step reads only h from shared memory.
+  constexpr int kRC = kRegChunks > 0 ? kRegChunks : 1;
+  float4 wreg[kRC][4];
+  if constexpr (kRegChunks > 0) {
 #pragma unroll
-    for (int b = 0; b < kGroup; ++b) {
-      if (kb0 + b < KB) {
-        float wf[4][P];
+    for (int j = 0; j < kRC; ++j)
 #pragma unroll
-        for (int g = 0; g < 4; ++g) unpack16(cur[b][g], wf[g], T());
-        const int k = (kb0 + b) * P;
+      for (int q = 0; q < 4; ++q) wreg[j][q] = w4[(j * 4 + q) * NT + tid];
+  }
+  for (int t = 0; t < Tn; ++t) {
+    if (t > 0) {  // wait for h'(t-1): fill n of buffer t & 1
+      const int qb = t & 1;
+      const unsigned n = qb ? (t - 1) >> 1 : (t >> 1) - 1;
+      if (tid == 0) {
+        rnn::cluster::mbar_wait(&mb[qb], n & 1);
+        if (t + 2 < Tn) rnn::cluster::mbar_expect(&mb[qb], fill_bytes);  // h'(t+1)
+      }
+      __syncthreads();
+    }
+    const float4* h4 = reinterpret_cast<const float4*>(hs + (t & 1) * R * ld);
+    float acc[R][1][4];
 #pragma unroll
-        for (int p = 0; p < P; p += 4) {
-          float vv[R][4];
+    for (int r = 0; r < R; ++r) acc[r][0][0] = acc[r][0][1] = acc[r][0][2] = acc[r][0][3] = 0.0f;
+    if constexpr (kRegChunks > 0) {
 #pragma unroll
-          for (int r = 0; r < R; ++r) load4(v + r * K + k + p, vv[r]);
+      for (int j = 0; j < kRC; ++j) {
 #pragma unroll
-          for (int pp = 0; pp < 4; ++pp)
+        for (int r = 0; r < R; ++r) {
+          const float4 h = h4[r * (ld / 4) + j * S + s];
 #pragma unroll
-            for (int r = 0; r < R; ++r)
+          for (int q = 0; q < 4; ++q) dot4(acc[r][0][q], h, wreg[j][q]);
+        }
+      }
+    } else {
+      for (int j = 0; j < L / 4; ++j) {
+        float4 w[4];
 #pragma unroll
-              for (int g = 0; g < 4; ++g)
-                acc[r][g] = fmaf(vv[r][pp], wf[g][p + pp], acc[r][g]);
+        for (int q = 0; q < 4; ++q) w[q] = w4[(j * 4 + q) * NT + tid];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 h = h4[r * (ld / 4) + j * S + s];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) dot4(acc[r][0][q], h, w[q]);
         }
       }
     }
-#pragma unroll
-    for (int b = 0; b < kGroup; ++b)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) cur[b][g] = nxt[b][g];
-  }
-}
+    rnn::reduce_scatter<R, 1, S / 2, R, 1, 4>(acc, s);
 
-// kReset: the session-parallel variant, which reads keep, a [B, T] f32 plane
-// of 1 - reset (null otherwise). A template flag, so that the no-reset
-// variant compiles to the same code as without it.
-template <typename T, int R, bool kWxInSmem, bool kWhInSmem, bool kReset>
-__global__ void __launch_bounds__(kMaxHidden)
-lstm_forward_kernel(const T* __restrict__ x, const T* __restrict__ h0,
-                    const T* __restrict__ c0, const T* __restrict__ w_x,
-                    const T* __restrict__ w_h, const float* __restrict__ bias,
-                    const float* __restrict__ keep, T* __restrict__ ys,
-                    float* __restrict__ c_last, float* __restrict__ cs, int B,
-                    int Tn, int D, int H) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int H4 = 4 * H;
-  float* hbuf = reinterpret_cast<float*>(smem);        // [2][R][H]
-  T* xbuf = reinterpret_cast<T*>(hbuf + 2 * R * H);    // [2][R][D]
-  T* wh_s = xbuf + 2 * R * D;                          // [H][4H] if in smem
-  T* wx_s = wh_s + (kWhInSmem ? static_cast<size_t>(H) * H4 : 0);  // [D][4H]
-
-  const int i = threadIdx.x;  // hidden unit; blockDim.x == H
-  const int b0 = blockIdx.x * R;
-
-  for (int c = i; c < 2 * R * H; c += blockDim.x) hbuf[c] = 0.0f;
-  for (int c = i; c < 2 * R * D; c += blockDim.x) xbuf[c] = from_f<T>(0.0f);
-  __syncthreads();
-  stage_x<T, R>(xbuf, x, b0, B, Tn, D, 0);
-  if (kWhInSmem) copy_to_smem(wh_s, w_h, static_cast<size_t>(H) * H4 * sizeof(T));
-  if (kWxInSmem) copy_to_smem(wx_s, w_x, static_cast<size_t>(D) * H4 * sizeof(T));
-  float cell[R];
+    issue(t + rnn::kClusterAhead);
+    mma::cp_async_wait<rnn::kClusterAhead>();  // step t's operands are in
+    const int st = t % rnn::kClusterRing;
+    float* hn = hs + ((t + 1) & 1) * R * ld;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    cell[r] = 0.0f;
-    if (b0 + r < B) {
-      const size_t idx = static_cast<size_t>(b0 + r) * H + i;
-      const float k0 = kReset ? keep[static_cast<size_t>(b0 + r) * Tn] : 1.0f;
-      hbuf[r * H + i] = kReset ? to_f(h0[idx]) * k0 : to_f(h0[idx]);
-      cell[r] = kReset ? to_f(c0[idx]) * k0 : to_f(c0[idx]);
-    }
-  }
-  const float bi = bias[i], bf = bias[H + i], bg = bias[2 * H + i], bo = bias[3 * H + i];
-  cp_async_wait_all();
-  __syncthreads();
-
-  for (int t = 0; t < Tn; ++t) {
-    const int cur = t & 1, nxt = cur ^ 1;
-    if (t + 1 < Tn) stage_x<T, R>(xbuf + nxt * R * D, x, b0, B, Tn, D, t + 1);
-    // keep[t+1] scales the h' and c' this step hands to the next one.
-    float kn[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      kn[r] = (kReset && t + 1 < Tn && b0 + r < B)
-                  ? keep[static_cast<size_t>(b0 + r) * Tn + t + 1]
-                  : 1.0f;
-    }
-    float acc[R][4];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
-    gate_product<R>(acc, xbuf + cur * R * D, kWxInSmem ? wx_s : w_x, D, H, i);
-    gate_product<R>(acc, hbuf + cur * R * H, kWhInSmem ? wh_s : w_h, H, H, i);
-
-    float* hn_buf = hbuf + nxt * R * H;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float ig = sigmoidf(acc[r][0] + bi);
-      const float fg = sigmoidf(acc[r][1] + bf);
-      const float gg = tanhf(acc[r][2] + bg);
-      const float og = sigmoidf(acc[r][3] + bo);
-      cell[r] = fg * cell[r] + ig * gg;
-      const T hq = from_f<T>(og * tanhf(cell[r]));
-      hn_buf[r * H + i] = kReset ? to_f(hq) * kn[r] : to_f(hq);
-      if (b0 + r < B) {
-        const size_t idx = (static_cast<size_t>(b0 + r) * Tn + t) * H + i;
-        ys[idx] = hq;
-        if (cs != nullptr) cs[idx] = cell[r];
+    for (int k = 0; k < NR; ++k) {
+      const int row = own.row0 + k, b = b0 + row;
+      const float4 x = reinterpret_cast<const float4*>(ring)[(st * NR + k) * NT + tid];
+      const float ig = sigmoidf(x.x + acc[k][0][0]);
+      const float fg = sigmoidf(x.y + acc[k][0][1]);
+      const float gg = tanhf(x.z + acc[k][0][2]);
+      const float og = sigmoidf(x.w + acc[k][0][3]);
+      const float c = fg * cell[k] + ig * gg;
+      const float h = og * tanhf(c);
+      if (own.owner && unit_ok && b < B) {
+        const size_t idx = (static_cast<size_t>(b) * Tn + t) * H + u;
+        ys[idx] = h;
+        if (cs != nullptr) cs[idx] = c;
       }
-      if (kReset) cell[r] *= kn[r];  // 1 after the last step: c_T stays
+      cell[k] = c;
+      if (t + 1 < Tn) {
+        // keep[t+1] scales the h' and c' this step hands to the next one.
+        const float kn = kReset ? kring[(st * NR + k) * NT + tid] : 1.0f;
+        const float hk = kReset ? __fmul_rn(h, kn) : h;
+        if (kReset) cell[k] = __fmul_rn(c, kn);
+        if (own.owner && unit_ok) {
+          const float* dst = hn + row * ld + rnn::slice_pos(u, L, S);
+          for (unsigned p = 0; p < C; ++p) {
+            rnn::cluster::store_async(rnn::cluster::map(dst, p), hk,
+                                      rnn::cluster::map(&mb[(t + 1) & 1], p));
+          }
+        }
+      }
     }
-    cp_async_wait_all();
-    __syncthreads();
   }
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (b0 + r < B) c_last[static_cast<size_t>(b0 + r) * H + i] = cell[r];
+  for (int k = 0; k < NR; ++k) {
+    const int b = b0 + own.row0 + k;
+    if (own.owner && unit_ok && b < B) c_last[static_cast<size_t>(b) * H + u] = cell[k];
   }
+  mma::cp_async_wait<0>();  // no copy outlives the block
+  rnn::cluster::sync();
 }
 
-template <typename T, int R>
-int launch_fwd_r(const void* x, const void* h0, const void* c0, const void* w_x,
-                 const void* w_h, const float* bias, const float* keep, void* ys,
-                 float* c_last, float* cs, int B, int Tn, int D, int H,
-                 int wx_in_smem, int wh_in_smem, size_t smem, cudaStream_t s) {
-  const dim3 grid((B + R - 1) / R), block(H);
-  auto launch = [&](auto kernel) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<grid, block, smem, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(h0),
-        static_cast<const T*>(c0), static_cast<const T*>(w_x),
-        static_cast<const T*>(w_h), bias, keep, static_cast<T*>(ys), c_last, cs,
-        B, Tn, D, H);
-    return static_cast<int>(cudaGetLastError());
+template <bool kReset>
+int launch_cluster_fwd(int R, int S, bool w_in_regs, int clusters, int C, int threads,
+                       size_t smem, cudaStream_t st, const float* xp, const float* h0,
+                       const float* c0, const float* w_h, const float* keep, float* ys,
+                       float* c_last, float* cs, int B, int Tn, int H, int U) {
+  auto go = [&](auto kernel) {
+    return rnn::launch_clusters(kernel, clusters, C, threads, smem, st, xp, h0, c0, w_h, keep,
+                                ys, c_last, cs, B, Tn, H, U);
   };
-  if (wx_in_smem && !wh_in_smem) return static_cast<int>(cudaErrorInvalidValue);
-  if (keep == nullptr) {
-    if (wh_in_smem) {
-      return wx_in_smem ? launch(lstm_forward_kernel<T, R, true, true, false>)
-                        : launch(lstm_forward_kernel<T, R, false, true, false>);
-    }
-    return launch(lstm_forward_kernel<T, R, false, false, false>);
-  }
-  if (wh_in_smem) {
-    return wx_in_smem ? launch(lstm_forward_kernel<T, R, true, true, true>)
-                      : launch(lstm_forward_kernel<T, R, false, true, true>);
-  }
-  return launch(lstm_forward_kernel<T, R, false, false, true>);
-}
-
-template <typename T>
-int launch_fwd_t(int rows_per_block, const void* x, const void* h0,
-                 const void* c0, const void* w_x, const void* w_h,
-                 const float* bias, const float* keep, void* ys, float* c_last,
-                 float* cs, int B, int Tn, int D, int H, int wx_in_smem,
-                 int wh_in_smem, size_t smem, cudaStream_t s) {
-  switch (rows_per_block) {
-    case 1: return launch_fwd_r<T, 1>(x, h0, c0, w_x, w_h, bias, keep, ys, c_last, cs, B, Tn, D, H, wx_in_smem, wh_in_smem, smem, s);
-    case 2: return launch_fwd_r<T, 2>(x, h0, c0, w_x, w_h, bias, keep, ys, c_last, cs, B, Tn, D, H, wx_in_smem, wh_in_smem, smem, s);
+  constexpr int kRC = kLstmRegSlice / 4;
+  switch (R * 1000 + S * 10 + w_in_regs) {
+    case 4080: return go(lstm_forward_cluster_kernel<4, 8, kReset, 0>);
+    case 4081: return go(lstm_forward_cluster_kernel<4, 8, kReset, kRC>);
+    case 4160: return go(lstm_forward_cluster_kernel<4, 16, kReset, 0>);
+    case 8080: return go(lstm_forward_cluster_kernel<8, 8, kReset, 0>);
+    case 8081: return go(lstm_forward_cluster_kernel<8, 8, kReset, kRC>);
+    case 8160: return go(lstm_forward_cluster_kernel<8, 16, kReset, 0>);
+    case 16080: return go(lstm_forward_cluster_kernel<16, 8, kReset, 0>);
+    case 16160: return go(lstm_forward_cluster_kernel<16, 16, kReset, 0>);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1049,34 +1065,60 @@ int launch_bwd_mma(const float* const* planes, const void* g_ys, const void* w_f
 
 extern "C" {
 
-// The f32 forward (CUDA cores). x [B, T, D], h0, c0 [B, H], w_x [D, 4H],
-// w_h [H, 4H], ys [B, T, H]: float (dtype 0), contiguous, 16-byte aligned,
-// except that w_x and w_h come k-packed as [K/4][4H][4]. bias [4H], keep
-// [B, T] (1 - reset; null: the no-reset variant), c_last [B, H] and cs
-// [B, T, H] (null: not written) float. smem_bytes as the caller computed it
-// for this layout, checked again here.
-int seqrec_lstm_forward(const void* x, const void* h0, const void* c0,
-                        const void* w_x, const void* w_h, const void* bias,
-                        const void* keep, void* ys, void* c_last, void* cs,
-                        int B, int Tn, int D, int H, int dtype,
-                        int rows_per_block, int wx_in_smem, int wh_in_smem,
-                        long long smem_bytes, void* stream) {
-  const size_t es = 4;
-  const int R = rows_per_block;
-  if (B <= 0 || Tn <= 0 || D <= 0 || H <= 0 || H > kMaxHidden || dtype != 0 ||
-      (D * es) % 16 != 0 || H % 4 != 0) {
+// The f32 input projection on the CUDA cores: xp [M, N4] = x [M, D] @ w_x
+// [D, N4] + b, all float, contiguous, 16-byte aligned; D % 4 == 0 and
+// N4 % 4 == 0.
+int seqrec_lstm_xproj_f32(const void* x, const void* w_x, const void* b, void* xp, int M,
+                          int D, int N4, void* stream) {
+  return rnn::launch_xproj_f32(x, w_x, b, xp, M, D, N4, static_cast<cudaStream_t>(stream));
+}
+
+// The f32 recurrence on thread block clusters. xp [B, T, 4H] (the input
+// projection, b included), h0, c0 [B, H], w_h [H, 4H], keep [B, T] (1 -
+// reset; null: the no-reset variant), ys [B, T, H], c_last [B, H] and cs
+// [B, T, H] (null: not written): all float, contiguous, 16-byte aligned;
+// H % 4 == 0, H <= 256. Clusters of `cluster_size` CTAs of `threads`
+// threads, each CTA `units` hidden units (cluster_size * units >= H) of
+// `rows` batch rows, `slices` k-slices a unit (threads = slices * a padded
+// unit count); w_in_regs: W_h's slice in registers (exactly where a slice
+// is kLstmRegSlice values, 8 slices a unit, rows <= 8 and threads <=
+// kLstmRegThreads). smem_bytes as the caller computed it, checked again
+// here.
+int seqrec_lstm_forward(const void* xp, const void* h0, const void* c0, const void* w_h,
+                        const void* keep, void* ys, void* c_last, void* cs, int B, int Tn,
+                        int H, int rows, int slices, int cluster_size, int units, int threads,
+                        int w_in_regs, long long smem_bytes, void* stream) {
+  const int C = cluster_size, S = slices;
+  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0 ||
+      !rnn::cluster_shape_ok(rows, S) || C < 1 || C > rnn::kClusterMax || units <= 0 ||
+      C * units < H || threads % 32 != 0 || threads % S != 0 || threads / S < units ||
+      threads > rnn::kClusterMaxThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = 2 * static_cast<size_t>(R) * H * 4 + 2 * static_cast<size_t>(R) * D * es +
-                      (wh_in_smem ? static_cast<size_t>(H) * 4 * H * es : 0) +
-                      (wx_in_smem ? static_cast<size_t>(D) * 4 * H * es : 0);
+  const int L = rnn::slice_len(H, S);
+  const size_t nr = rows >= S ? rows / S : 1;
+  const size_t smem = (4 * static_cast<size_t>(L) * threads +
+                       2 * static_cast<size_t>(rows) * (S * L + 4) +
+                       rnn::kClusterRing * nr * threads * 5) * 4 + 2 * sizeof(uint64_t);
   if (static_cast<long long>(smem) != smem_bytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_fwd_t<float>(R, x, h0, c0, w_x, w_h, static_cast<const float*>(bias),
-                             static_cast<const float*>(keep), ys, static_cast<float*>(c_last),
-                             static_cast<float*>(cs), B, Tn, D, H, wx_in_smem, wh_in_smem,
-                             smem, static_cast<cudaStream_t>(stream));
+  if (w_in_regs != (L == kLstmRegSlice && S == 8 && rows <= 8 && threads <= kLstmRegThreads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int clusters = (B + rows - 1) / rows;
+  const float* x = static_cast<const float*>(xp);
+  const float* h = static_cast<const float*>(h0);
+  const float* c = static_cast<const float*>(c0);
+  const float* w = static_cast<const float*>(w_h);
+  const float* kp = static_cast<const float*>(keep);
+  float* y = static_cast<float*>(ys);
+  float* cl = static_cast<float*>(c_last);
+  float* cp = static_cast<float*>(cs);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return kp == nullptr
+             ? launch_cluster_fwd<false>(rows, S, w_in_regs, clusters, C, threads, smem, st, x, h, c, w, kp, y, cl, cp, B, Tn, H, units)
+             : launch_cluster_fwd<true>(rows, S, w_in_regs, clusters, C, threads, smem, st, x, h, c, w, kp, y, cl, cp, B, Tn, H, units);
 }
 
 // The bf16 input projection: xp [M, N4] f32 = x [M, D] @ w_x [D, N4] + b,

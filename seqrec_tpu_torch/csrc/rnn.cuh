@@ -303,8 +303,8 @@ int launch_xproj_f32(const void* x, const void* w_x, const void* b, void* xp, in
 // A cluster of C CTAs on neighbouring SMs owns R batch rows for the whole
 // scan; CTA c owns hidden units [c U, c U + U) (U = ceil(H / C)) and keeps
 // its slice of W_h in its own shared memory. The threads of a unit (the GRU
-// forward: S consecutive lanes, thread = S ul + s) or of 4 units (the LSTM
-// reverse: a warp) each sum the products of one slice of the K inputs of
+// and LSTM forwards: S consecutive lanes, thread = S ul + s) or of 4 units
+// (the LSTM reverse: a warp) each sum the products of one slice of the K inputs of
 // the step's vector (h, K = H; dz, K = 4H), and a reduce-scatter among them
 // leaves each (unit, row) pair the full sums in one owner lane. Each owner
 // lane then computes its pairs and stores its results into every CTA's copy
@@ -483,8 +483,8 @@ int launch_clusters(void (*kernel)(Params...), int clusters, int C, int threads,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The per-step operands of a cluster recurrence's lane (the GRU's xp, the
-// LSTM's gate planes) arrive by cp.async into its own slots of a ring of
+// The per-step operands of a cluster recurrence's lane (the forwards' xp,
+// the LSTM reverse's gate planes) arrive by cp.async into its own slots of a ring of
 // kClusterRing stages in shared memory, kClusterAhead steps ahead of their
 // use: a load into registers would be waited for by the next arrive's
 // release, which cp.async copies are not.

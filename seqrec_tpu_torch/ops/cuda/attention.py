@@ -20,9 +20,14 @@ in its own numerics; neither gives way to the other):
   to P V in registers, K and V tiles double-buffered by cp.async. The head
   dim is zero-padded in shared memory to 16, 32, 64, 128 or 256 (mma's depth
   is 16); rows past T are zero-filled. What bounds it: bytes (q, k, v, o).
-- f32 (`design` "cuda-core"): f32 FMAs on the CUDA cores from shared-memory
-  tiles, 4 x 4 register tiles. TF32 tensor cores would keep ~3 digits, not
-  the f32 products of the contract.
+- f32 (`design` "flash-fma"): FlashAttention-2's structure with f32 FMAs
+  on the CUDA cores (TF32 tensor cores would keep ~3 digits, not the f32
+  products of the contract): 32-row query tiles (the grid fills the card at
+  SASRec's shapes and the causal triangle wastes less), four warps of 8
+  rows, key tiles of 32 double-buffered by cp.async, Q read as broadcasts,
+  4-row register tiles a lane (4 rows x 2 keys of S, 4 rows x 4 columns of
+  O a float4 group) and a per-warp key-major P tile. What bounds it: its
+  operations (f32 FMAs fed from shared memory).
 
 The JAX package gates its Pallas kernel off by default (`supported`, a TPU
 measurement); the port has no gates, so a CUDA tensor always takes a kernel.
@@ -48,7 +53,9 @@ from seqrec_tpu_torch.ops import reference
 plain = reference.causal_attention
 
 SMEM_LIMIT = 232_448  # shared memory one block may opt in to on sm_90 (227 KB)
-TILE = 64  # kTile in csrc/attention.cu: query rows per block, key rows per tile
+TILE = 64  # kTile in csrc/attention.cu: the bf16 kernel's query rows a block, keys a tile
+F32_TILE = 32  # kF32Rows: the f32 kernel's query rows a block, keys a tile
+F32_LANE_ROWS = 4  # kLR: the f32 kernel's query rows a lane (4 warps a block)
 MAX_HEAD_DIM = 256  # kMaxDh
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -73,10 +80,13 @@ def head_dim_padded(Dh: int) -> int:
 def launch_config(B: int, T: int, N: int, Dh: int, dtype: torch.dtype) -> Dict:
     """Design, grid, block and shared memory of one launch; ValueError for a
     shape the kernels cannot take: Dh <= 256 and Dh * element size a
-    multiple of 16 bytes. bf16: 128 threads; Q and double-buffered K and V
-    tiles of 64 rows of kD + 8 bf16 (at Dh = 64: 45 KB; at 256: 165 KB).
-    f32: 256 threads; the q, k and v tiles (64 padded f32 rows each) and the
-    64 x 68 f32 probability tile (at Dh = 256: 212 KB)."""
+    multiple of 16 bytes. bf16: a [64-row query tiles, B N] grid of 128
+    threads; Q and double-buffered K and V tiles of 64 rows of kD + 8 bf16
+    (at Dh = 64: 45 KB; at 256: 165 KB). f32: a one-dimensional grid of
+    ceil(T / 32) B N blocks (the tiles with the most keys first) of four
+    warps, 4 query rows a lane; Q and double-buffered K and V tiles of 32
+    rows of Dh + 4 f32 and each warp's [32][12] f32 P tile (at Dh = 64:
+    49 KB, four blocks an SM; at 256: 168 KB)."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"attention: dtype {dtype} not in float32/bfloat16")
     if min(B, T, N, Dh) <= 0:
@@ -85,13 +95,15 @@ def launch_config(B: int, T: int, N: int, Dh: int, dtype: torch.dtype) -> Dict:
     if Dh > MAX_HEAD_DIM or (Dh * es) % 16 != 0:
         raise ValueError(f"attention: needs Dh <= {MAX_HEAD_DIM} and Dh*{es} % 16 == 0 "
                          f"(Dh={Dh})")
-    grid = [-(-T // TILE), B * N]
     if dtype == torch.bfloat16:
         kD = head_dim_padded(Dh)
-        return {"design": "mma.sync", "grid": grid, "threads": 128,
+        return {"design": "mma.sync", "grid": [-(-T // TILE), B * N], "threads": 128,
                 "head_dim_padded": kD, "smem_bytes": 5 * TILE * (kD + 8) * 2}
-    return {"design": "cuda-core", "grid": grid, "threads": 256,
-            "smem_bytes": (3 * TILE * (Dh + 4) + TILE * (TILE + 4)) * 4}
+    warps = F32_TILE // (2 * F32_LANE_ROWS)
+    p_tiles = warps * F32_TILE * (2 * F32_LANE_ROWS + 4)  # kPFloats
+    return {"design": "flash-fma", "grid": [-(-T // F32_TILE) * B * N], "threads": 32 * warps,
+            "query_tile": F32_TILE, "key_tile": F32_TILE,
+            "smem_bytes": (5 * F32_TILE * (Dh + 4) + p_tiles) * 4}
 
 
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:

@@ -146,12 +146,12 @@ def cluster_config(B: int, H: int, K: int, w_per_k: int, ring_floats: int,
                    cluster_size: Optional[int], rows: Optional[int], preference, who: str,
                    unit_block: int = 1) -> Dict:
     """The layout of an f32 cluster recurrence (csrc/rnn.cuh): K inputs of the
-    step's vector (H for the GRU forward's h, 4H for the LSTM reverse's dz),
-    `w_per_k` weights of a thread per input of its slice (3 gates of one
-    unit, or one gate of 4 units), `ring_floats` operands of a lane's
-    (unit, row) pair a step in the cp.async ring (xp's three gates and keep,
-    or six gate planes, g_y and keep), `unit_block` units a group of
-    threads shares (1, or 4: a warp's).
+    step's vector (H for the GRU and LSTM forwards' h, 4H for the LSTM
+    reverse's dz), `w_per_k` weights of a thread per input of its slice (3
+    or 4 gates of one unit, or one gate of 4 units), `ring_floats` operands
+    of a lane's (unit, row) pair a step in the cp.async ring (xp's three or
+    four gates and keep, or six gate planes, g_y and keep), `unit_block`
+    units a group of threads shares (1, or 4: a warp's).
 
     C CTAs a cluster each own U = ceil(H / C) units. With one unit a group,
     a unit has S k-slices of L values: S = 8, or 16 where fewer than 32

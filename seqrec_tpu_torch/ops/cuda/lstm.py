@@ -25,16 +25,18 @@ in its own numerics; neither gives way to the other):
   the product keeps dz's f32 precision. W_h's fragments are packed here
   (`forward_fragments`, `backward_fragments`) and stay in registers up to
   Hp = 128.
-- f32: f32 FMAs on the CUDA cores (TF32 tensor cores would keep ~3
-  digits, not the f32 products of the contract). The forward (`design`
-  "cuda-core") has one thread per hidden unit with the projection inside
-  each step and k-packed weights (`pack_k`). The reverse recurrence
-  (`design` "cluster") runs on thread block clusters, as the f32 GRU
-  forward does: a cluster of C CTAs owns R batch rows, each CTA a slice of
-  the hidden units with W_h's rows of those units resident in its shared
-  memory (a warp for BWD_UNITS units), and the step's dz values go to every
-  CTA of the cluster through distributed shared memory (`st.async`,
-  counted by an mbarrier a buffer).
+- f32 (`design` "cluster", both directions): f32 FMAs on the CUDA cores
+  (TF32 tensor cores would keep ~3 digits, not the f32 products of the
+  contract), on thread block clusters, as the f32 GRU forward. The forward
+  takes the projection off the serial chain as an f32 SIMT GEMM
+  (`lstm_input_projection`, its own launch counter `.f32_launches`), then
+  the recurrence: a cluster of C CTAs owns R batch rows, each CTA a slice
+  of the hidden units with W_h's columns of their four gates resident in
+  its shared memory, the owner lane of a (unit, row) pair keeps its f32
+  cell in a register, and the new h slices go to every CTA of the cluster
+  through distributed shared memory (`st.async`, counted by an mbarrier a
+  buffer). The reverse recurrence holds W_h's rows of its units (a warp
+  for BWD_UNITS units) and exchanges the step's dz values the same way.
 
 Forward: the kernels also write c_T, and, when autograd will need it, the
 f32 cell plane c_1..c_T, so the backward runs no serial `_recompute_cells`
@@ -67,8 +69,8 @@ import torch
 
 from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.ops import reference
-from seqrec_tpu_torch.ops.cuda.gru import (MMA_ROWS, RING_STAGES, cluster_config,
-                                           plain_input_projection)
+from seqrec_tpu_torch.ops.cuda.gru import (F32_PROJ_TILE, MMA_ROWS, NUM_SMS, RING_STAGES,
+                                           cluster_config, plain_input_projection)
 
 plain = reference.lstm_scan
 plain_backward = reference.lstm_bwd_scan
@@ -81,19 +83,25 @@ BWD_UNITS = 4  # kBwdUnits in csrc/lstm.cu: units a warp of the f32 reverse recu
 # The f32 reverse recurrence's (cluster size, rows a cluster), in the order
 # preferred (kernel_probes.py clusters on an H100: 8 rows and 4 CTAs first).
 LSTM_CLUSTERS = ((4, 8), (4, 4), (2, 4), (4, 16), (8, 8), (8, 4), (8, 16), (2, 8), (2, 16))
+# The f32 forward's, the GRU forward's order: 4 rows a cluster on as many
+# CTAs as fit the card (kernel_probes.py clusters on an H100: best at B=64,
+# H=128 and B=256, H=100; at B=128, H=128 within 5% of 8 rows on 64 CTAs).
+LSTM_FWD_CLUSTERS = ((4, 4), (2, 4), (4, 8), (2, 8), (4, 16), (2, 16), (8, 4), (8, 8), (8, 16))
+LSTM_REG_SLICE = 16  # kLstmRegSlice in csrc/lstm.cu: a W_h slice of this length stays in registers
+LSTM_REG_THREADS = 256  # kLstmRegThreads: ... in CTAs of up to this many threads
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("lstm")
     fwd = lib.seqrec_lstm_forward
-    fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+    fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     fwd.restype = ctypes.c_int
-    proj = lib.seqrec_lstm_xproj
-    proj.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    proj.restype = ctypes.c_int
+    for proj in (lib.seqrec_lstm_xproj, lib.seqrec_lstm_xproj_f32):
+        proj.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        proj.restype = ctypes.c_int
     fwd_mma = lib.seqrec_lstm_forward_mma
     fwd_mma.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
         ctypes.c_longlong, ctypes.c_void_p,
@@ -124,13 +132,6 @@ def _check_dims(B: int, T: int, H: int, dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
-def _rows(rows_per_block: Optional[int], fits_one_row: bool) -> int:
-    R = rows_per_block if rows_per_block is not None else (1 if fits_one_row else 2)
-    if R not in (1, 2):
-        raise ValueError(f"lstm: rows_per_block {R} not in 1, 2")
-    return R
-
-
 def _padded(H: int) -> int:
     """Hp: H padded to whole m16 tiles (mma's M) and k16 steps."""
     return 16 * -(-H // 16)
@@ -157,15 +158,16 @@ def _backward_smem(hp: int) -> int:
     return 2 * 4 * hp * MMA_ROWS * 2 + RING_STAGES * stage + hp // 16 * 32 * 16
 
 
-def _mma_rows(rows_per_block: Optional[int]) -> int:
-    if rows_per_block is not None:
-        raise ValueError(f"lstm: rows_per_block is the f32 design's; bf16 takes "
-                         f"{MMA_ROWS} rows a block (got {rows_per_block})")
+def _mma_rows(rows_per_cluster: Optional[int], cluster_size: Optional[int]) -> int:
+    if rows_per_cluster is not None or cluster_size is not None:
+        raise ValueError(f"lstm: rows_per_cluster and cluster_size are the f32 design's; "
+                         f"bf16 takes {MMA_ROWS} rows a block")
     return MMA_ROWS
 
 
 def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
-                  rows_per_block: Optional[int] = None) -> Dict:
+                  rows_per_cluster: Optional[int] = None,
+                  cluster_size: Optional[int] = None) -> Dict:
     """Design, grid, block and shared-memory layout of one forward launch;
     ValueError for a shape the kernels cannot take.
 
@@ -175,20 +177,25 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
     and Hp / 16 warps, W_h^T's fragments in registers up to Hp = 128 (read
     from global memory above); in shared memory the h double buffer
     [2][Hp][8] bf16 and a ring of RING_STAGES xp stages, which cp.async
-    fills two steps ahead of their use. `rows_per_block` is the f32
-    design's alone.
+    fills two steps ahead of their use. `rows_per_cluster` and
+    `cluster_size` are the f32 design's alone.
 
-    f32 ("cuda-core"): one thread per hidden unit, R = 1 or 2 rows a block;
-    W_h goes to shared memory when it fits beside the step buffers, and W_x
-    too when both fit; whatever does not fit is read from global memory
-    (L2), with two rows a block so that half as many blocks read it. Both
-    come k-packed (`pack_k`). At D=H=128 W_h alone is 256 KB, and both are
-    read through L2."""
+    f32 ("cluster"): the projection's grid of 128 x 64 xp tiles (256
+    threads, f32 FMAs), then the recurrence on thread block clusters
+    (`gru.cluster_config` with K = H, four gates' weights a thread and a
+    ring of xp's four gates and keep, in LSTM_FWD_CLUSTERS' order: 4 CTAs
+    of 4 rows at B=64 and 128, 2 CTAs at B=256, H=100; at H=256 a quarter
+    of the units' W_h columns do not fit beside the ring, so C = 8): a
+    cluster of `cluster_size` CTAs owns `rows_per_cluster`
+    batch rows, each CTA ceil(H / C) units with their W_h columns in its
+    shared memory, and in registers (`w_in_regs`) where a thread's slice is
+    LSTM_REG_SLICE values with 8 slices a unit, up to 8 rows and
+    LSTM_REG_THREADS threads (H = 128 on 4 CTAs)."""
     es = _check_dims(B, T, H, dtype)
     if D <= 0 or D % 4 != 0:  # x rows in 16-byte (f32) or 8-byte (bf16) pieces
         raise ValueError(f"lstm: needs D*{es} % {4 * es} == 0 (D={D}, H={H})")
     if dtype == torch.bfloat16:
-        R = _mma_rows(rows_per_block)
+        R = _mma_rows(rows_per_cluster, cluster_size)
         hp = _padded(H)
         return {
             "design": "mma.sync",
@@ -201,23 +208,13 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
             "xproj_grid": [-(-(B * T) // PROJ_TILE), -(-(4 * H) // PROJ_TILE)],
             "xproj_threads": 128,
         }
-    w_h, w_x = H * 4 * H * es, D * 4 * H * es
-
-    def base(r):  # h and x double buffers
-        return 2 * r * H * 4 + 2 * r * D * es
-
-    R = _rows(rows_per_block, base(1) + w_h + w_x <= SMEM_LIMIT)
-    wh_in_smem = int(base(R) + w_h <= SMEM_LIMIT)
-    wx_in_smem = int(wh_in_smem and base(R) + w_h + w_x <= SMEM_LIMIT)
-    return {
-        "design": "cuda-core",
-        "grid": -(-B // R),
-        "threads": H,
-        "rows_per_block": R,
-        "wh_in_smem": wh_in_smem,
-        "wx_in_smem": wx_in_smem,
-        "smem_bytes": base(R) + wh_in_smem * w_h + wx_in_smem * w_x,
-    }
+    cfg = cluster_config(B, H, H, 4, 5, cluster_size, rows_per_cluster, LSTM_FWD_CLUSTERS,
+                         "lstm")
+    tm, tn = F32_PROJ_TILE
+    w_in_regs = (cfg["k_slice"] == LSTM_REG_SLICE and cfg["k_slices"] == 8
+                 and cfg["rows_per_cluster"] <= 8 and cfg["threads"] <= LSTM_REG_THREADS)
+    return {**cfg, "w_in_regs": int(w_in_regs),
+            "xproj_grid": [-(-(B * T) // tm), -(-(4 * H) // tn)], "xproj_threads": 256}
 
 
 def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
@@ -249,10 +246,7 @@ def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
     not the FMAs, at one unit a thread group)."""
     _check_dims(B, T, H, dtype)
     if dtype == torch.bfloat16:
-        if rows_per_cluster is not None or cluster_size is not None:
-            raise ValueError(f"lstm: rows_per_cluster and cluster_size are the f32 design's; "
-                             f"bf16 takes {MMA_ROWS} rows a block")
-        R = MMA_ROWS
+        R = _mma_rows(rows_per_cluster, cluster_size)
         hp = _padded_pairs(H)
         return {
             "design": "mma.sync",
@@ -280,14 +274,6 @@ def _raise_on(rc: int, lib, what: str) -> None:
     if rc != 0:
         msg = lib.seqrec_lstm_error_string(rc).decode()
         raise RuntimeError(f"lstm {what} kernel launch failed: CUDA error {rc} ({msg})")
-
-
-def pack_k(w: torch.Tensor) -> torch.Tensor:
-    """[K, N] -> [K/P, N, P], P = 16 bytes / element size: the layout in which
-    the f32 forward kernel reads its weights, from shared or global memory."""
-    K, N = w.shape
-    P = 16 // w.element_size()
-    return w.reshape(K // P, P, N).transpose(1, 2).contiguous()
 
 
 # mma.sync.m16n8k16's A fragment (PTX ISA, "Matrix Fragments for
@@ -331,18 +317,20 @@ def backward_fragments(w_h: torch.Tensor) -> torch.Tensor:
 def lstm_input_projection(x: torch.Tensor, w_x: torch.Tensor,
                           b: torch.Tensor) -> torch.Tensor:
     """The forward's input projection x [..., D] @ w_x [D, 4H] + b [4H] ->
-    f32 [..., 4H], x and w_x bf16: the part of `_lstm_step_body`'s step that
-    does not depend on h (lstm.py:89-93), for every step at once. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel
-    (`seqrec_lstm_xproj`, csrc/rnn.cuh's GEMM) or raises."""
+    f32 [..., 4H]: the part of `_lstm_step_body`'s step that does not depend
+    on h (lstm.py:89-93), for every step at once. x and w_x bf16: the
+    tensor-core GEMM (`seqrec_lstm_xproj`, counted by `.launches`); f32: the
+    CUDA-core one, f32 products, no TF32 (`seqrec_lstm_xproj_f32`, counted
+    by `.f32_launches`); both are csrc/rnn.cuh's. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises."""
     if x.device.type == "cpu":
         return plain_input_projection(x, w_x, b)
     if x.device.type != "cuda":
         raise ValueError(f"lstm: no kernel for device {x.device}")
     D, N4 = w_x.shape
-    if x.dtype != torch.bfloat16 or w_x.dtype != torch.bfloat16:
-        raise ValueError(f"lstm: the input projection kernel takes bf16 x and w_x, got "
-                         f"{x.dtype}, {w_x.dtype}")
+    if x.dtype != w_x.dtype or x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"lstm: the input projection kernels take bf16 or f32 x and w_x of "
+                         f"one dtype, got {x.dtype}, {w_x.dtype}")
     if x.shape[-1] != D or tuple(b.shape) != (N4,) or D % 4 or N4 % 4:
         raise ValueError(f"lstm: input projection needs x [..., D], w_x [D, 4H], b [4H] "
                          f"with D % 4 == 0 and 4H % 4 == 0; got {tuple(x.shape)}, "
@@ -354,15 +342,21 @@ def lstm_input_projection(x: torch.Tensor, w_x: torch.Tensor,
     if M == 0:
         return xp
     lib = _lib()
+    f32 = x.dtype == torch.float32
+    launch = lib.seqrec_lstm_xproj_f32 if f32 else lib.seqrec_lstm_xproj
     with torch.cuda.device(x.device):
-        rc = lib.seqrec_lstm_xproj(*(a.data_ptr() for a in args), xp.data_ptr(), M, D, N4,
-                                   torch.cuda.current_stream(x.device).cuda_stream)
+        rc = launch(*(a.data_ptr() for a in args), xp.data_ptr(), M, D, N4,
+                    torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, lib, "input projection")
-    lstm_input_projection.launches += 1
+    if f32:
+        lstm_input_projection.f32_launches += 1
+    else:
+        lstm_input_projection.launches += 1
     return xp
 
 
 lstm_input_projection.launches = 0
+lstm_input_projection.f32_launches = 0
 
 
 def _keep_plane(keep: Optional[torch.Tensor], B: int, T: int) -> Optional[torch.Tensor]:
@@ -391,22 +385,19 @@ def _forward_kernel(x, h0, c0, w_x, w_h, b, with_cells: bool, keep=None):
     cs_ptr = None if cs is None else cs.data_ptr()
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if cfg["design"] == "mma.sync":
-        xp = lstm_input_projection(x, w_x, b)
-        args = [xp] + [t.contiguous() for t in (h0, c0, forward_fragments(w_h))]
-        _check_operands(args + ([] if keep is None else [keep]), dev)
-        with torch.cuda.device(dev):
-            rc = lib.seqrec_lstm_forward_mma(
-                *(a.data_ptr() for a in args), keep_ptr, ys.data_ptr(), c_last.data_ptr(),
-                cs_ptr, B, T, H, cfg["smem_bytes"], stream)
-    else:
-        args = [t.contiguous() for t in (x, h0, c0, pack_k(w_x), pack_k(w_h), b)]
-        _check_operands(args + ([] if keep is None else [keep]), dev)
-        with torch.cuda.device(dev):
+    xp = lstm_input_projection(x, w_x, b)
+    mma = cfg["design"] == "mma.sync"
+    args = [xp] + [t.contiguous() for t in (h0, c0, forward_fragments(w_h) if mma else w_h)]
+    _check_operands(args + ([] if keep is None else [keep]), dev)
+    ptrs = [*(a.data_ptr() for a in args), keep_ptr, ys.data_ptr(), c_last.data_ptr(), cs_ptr]
+    with torch.cuda.device(dev):
+        if mma:
+            rc = lib.seqrec_lstm_forward_mma(*ptrs, B, T, H, cfg["smem_bytes"], stream)
+        else:
             rc = lib.seqrec_lstm_forward(
-                *(a.data_ptr() for a in args), keep_ptr, ys.data_ptr(), c_last.data_ptr(),
-                cs_ptr, B, T, D, H, _DTYPE_CODE[dtype], cfg["rows_per_block"],
-                cfg["wx_in_smem"], cfg["wh_in_smem"], cfg["smem_bytes"], stream)
+                *ptrs, B, T, H, cfg["rows_per_cluster"], cfg["k_slices"], cfg["cluster_size"],
+                cfg["units_per_cta"], cfg["threads"], cfg["w_in_regs"], cfg["smem_bytes"],
+                stream)
     _raise_on(rc, lib, "forward")
     if keep is None:
         lstm_scan.launches += 1

@@ -1,10 +1,12 @@
-"""The f32 cluster recurrences' layout (csrc/rnn.cuh, the f32 GRU forward
-and the f32 LSTM reverse recurrence), on the CPU: what `launch_config` and
-`backward_launch_config` choose and refuse, and the index maps the kernels
-use, checked here in numpy as the kernels compute them: the k-sliced weight
-image each CTA copies into its shared memory, the slice layout of the
-exchanged vector, and the reduce-scatter that leaves each (unit, row) pair
-one owner lane. Exact: only indices and f64 sums are compared."""
+"""The f32 cluster recurrences' layout (csrc/rnn.cuh: the f32 GRU forward,
+the f32 LSTM forward and the f32 LSTM reverse recurrence), on the CPU: what
+`launch_config` and `backward_launch_config` choose and refuse, and the
+index maps the kernels use, checked here in numpy as the kernels compute
+them: the k-sliced weight image each CTA copies into its shared memory, the
+slice layout of the exchanged vector, the reduce-scatter that leaves each
+(unit, row) pair one owner lane, and (LSTM forward) the owner's operand
+slots, cell update and keep scaling. Exact: only indices and f64 sums are
+compared."""
 
 import numpy as np
 import pytest
@@ -82,7 +84,7 @@ GRU_SHAPES = [(64, 128), (128, 128), (256, 100), (11, 132), (4, 256)]
 
 
 @pytest.mark.parametrize("B,H", GRU_SHAPES)
-@pytest.mark.parametrize("which", ["gru", "lstm"])
+@pytest.mark.parametrize("which", ["gru", "lstm", "lstm forward"])
 def test_cluster_layout_partitions_the_work(which, B, H):
     """Every hidden unit has one CTA, every (unit, row) one owner lane; the
     threads are whole warps of (unit, k-slice) pairs; the slices cover the
@@ -91,6 +93,8 @@ def test_cluster_layout_partitions_the_work(which, B, H):
     within a block's limit."""
     if which == "gru":
         cfg, K, w_per_k, ring, block = cuda_gru.launch_config(B, 50, H, H, torch.float32), H, 3, 4, 1
+    elif which == "lstm forward":  # four gates of a unit; xp's four gates and keep a step
+        cfg, K, w_per_k, ring, block = cuda_lstm.launch_config(B, 50, H, H, torch.float32), H, 4, 5, 1
     else:
         cfg = cuda_lstm.backward_launch_config(B, 50, H, torch.float32)
         K, w_per_k, ring, block = 4 * H, 4, 8, 4
@@ -114,20 +118,28 @@ def test_cluster_layout_partitions_the_work(which, B, H):
     ("gru", 64, 128, None, None), ("gru", 256, 100, None, None), ("gru", 7, 132, 4, 4),
     ("gru", 9, 256, None, None), ("gru", 5, 40, 2, 16),
     ("lstm", 128, 128, None, None), ("lstm", 9, 256, None, None), ("lstm", 6, 100, 4, 8),
-    ("lstm", 5, 36, 2, 4)])
+    ("lstm", 5, 36, 2, 4),
+    ("lstm forward", 128, 128, None, None), ("lstm forward", 11, 256, None, None),
+    ("lstm forward", 6, 100, 4, 8), ("lstm forward", 5, 36, 2, 4),
+    ("lstm forward", 9, 64, 8, 16), ("lstm forward", 20, 132, 4, 16)])
 def test_cluster_kernel_index_maps_compute_the_step(which, B, H, C, R):
     """One step of the kernel, as its index maps lay it out: each thread's
     slice of the weight image against its slice of the vector (read at
     rnn::slice_pos), summed by the reduce-scatter, gives each owner lane the
     exact product of its (unit, row): h @ W_h's three gate columns (GRU
-    forward, S threads a unit) or dz @ W_h^T (LSTM reverse, a warp for 4
-    units), in f64."""
+    forward, S threads a unit), its four (LSTM forward) or dz @ W_h^T (LSTM
+    reverse, a warp for 4 units), in f64. The LSTM forward's owner lanes
+    then read xp's four gates and keep[t+1] from their ring slots, update
+    their cells and push h' keep into the next buffer: every (row, unit) of
+    that buffer and of the cells is written once, as one step of
+    reference.lstm_scan with a reset before the next."""
     rng = np.random.default_rng(H + (R or 0))
-    if which == "gru":
-        cfg = cuda_gru.launch_config(B, 3, H, H, torch.float32, rows_per_cluster=R,
-                                     cluster_size=C)
-        K, gates = H, 3
-        w = rng.normal(size=(H, 3 * H))
+    if which in ("gru", "lstm forward"):
+        gates = 3 if which == "gru" else 4
+        config = cuda_gru.launch_config if which == "gru" else cuda_lstm.launch_config
+        cfg = config(B, 3, H, H, torch.float32, rows_per_cluster=R, cluster_size=C)
+        K = H
+        w = rng.normal(size=(H, gates * H))
         w_rows = lambda k, g, u: w[k, g * H + u]  # noqa: E731
     else:
         cfg = cuda_lstm.backward_launch_config(B, 3, H, torch.float32, rows_per_cluster=R,
@@ -141,10 +153,17 @@ def test_cluster_kernel_index_maps_compute_the_step(which, B, H, C, R):
     vec = rng.normal(size=(R, K))
     buf = np.zeros((R, S * L + 4))
     buf[:, [_slice_pos(k, L, S) for k in range(K)]] = vec
-    want = vec @ w if which == "gru" else vec @ w.T  # [R, 3H] or [R, H]
+    want = vec @ w.T if which == "lstm" else vec @ w  # [R, H] or [R, gates H]
     v4 = buf[:, :S * L].reshape(R, L // 4, S, 4)  # float4 j S + s of each row
-    block = 1 if which == "gru" else 4
+    block = 4 if which == "lstm" else 1
     nr, nu, row0, ut0, owner = _owner(R, block, S)
+    # The LSTM forward's step operands: xp (b included), the cells, keep[t+1].
+    xp = rng.normal(size=(R, 4 * H))
+    cell = rng.normal(size=(R, H))
+    keep = (rng.random(R) < 0.7).astype(np.float64)
+    h_next = np.zeros((R, S * L + 4))
+    cell_next = np.full((R, H), np.nan)
+    written = np.zeros((R, H), np.int64)
     for c in range(C):
         u0 = c * U
         # Thread S g + s (GRU: g a unit; LSTM: a warp of 4 units), chunk j:
@@ -152,7 +171,7 @@ def test_cluster_kernel_index_maps_compute_the_step(which, B, H, C, R):
         ws = _weight_image(w_rows, U, u0, cfg, gates, block)
         w4 = ws.reshape(L // 4, ws.shape[1], NT // S, S, 4)
         acc = np.einsum("rjse,jxgse->gsrx", v4, w4)  # [groups, lanes, R, gates or units]
-        acc = acc[:, :, :, None, :] if which == "gru" else acc[..., None]
+        acc = acc[..., None] if which == "lstm" else acc[:, :, :, None, :]
         red = _reduce_scatter(acc)  # [groups, lanes, NR, NU, G]
         for g in range(NT // S):
             for s in range(S):
@@ -162,9 +181,33 @@ def test_cluster_kernel_index_maps_compute_the_step(which, B, H, C, R):
                         if not owner[s] or ul >= U or u0 + ul >= H:
                             continue
                         r = row0[s] + k
-                        exp = ([want[r, q * H + u0 + ul] for q in range(3)] if which == "gru"
-                               else [want[r, u0 + ul]])
+                        exp = ([want[r, u0 + ul]] if which == "lstm"
+                               else [want[r, q * H + u0 + ul] for q in range(gates)])
                         np.testing.assert_allclose(red[g, s, k, m], exp, rtol=1e-12, atol=1e-12)
+                        if which != "lstm forward":
+                            continue
+                        # The lane's ring slot of row r: xp[r, q H + u], keep[r].
+                        u = u0 + ul
+                        x = xp[r, [q * H + u for q in range(4)]] + red[g, s, k, m]
+                        sg = 1.0 / (1.0 + np.exp(-x))
+                        c_new = sg[1] * cell[r, u] + sg[0] * np.tanh(x[2])
+                        h_new = sg[3] * np.tanh(c_new)
+                        h_next[r, _slice_pos(u, L, S)] = h_new * keep[r]
+                        cell_next[r, u] = c_new * keep[r]
+                        written[r, u] += 1
+    if which == "lstm forward":
+        z = xp + vec @ w
+        zi, zf, zg, zo = (z[:, q * H:(q + 1) * H] for q in range(4))
+        sig = lambda a: 1.0 / (1.0 + np.exp(-a))  # noqa: E731
+        c_ref = sig(zf) * cell + sig(zi) * np.tanh(zg)
+        h_ref = sig(zo) * np.tanh(c_ref)
+        assert (written == 1).all()
+        np.testing.assert_allclose(cell_next, c_ref * keep[:, None], rtol=1e-12, atol=1e-12)
+        pos = [_slice_pos(k, L, S) for k in range(H)]
+        np.testing.assert_allclose(h_next[:, pos], h_ref * keep[:, None], rtol=1e-12, atol=1e-12)
+        pad = np.ones(S * L + 4, bool)
+        pad[pos] = False
+        assert not h_next[:, pad].any()
 
 
 @pytest.mark.parametrize("which,B,H,want", [
@@ -176,6 +219,10 @@ def test_cluster_kernel_index_maps_compute_the_step(which, B, H, C, R):
     ("lstm", 128, 128, (4, 8, 64, 32, 32, 16)),  # training: 16 clusters of 4 CTAs
     ("lstm", 256, 100, (4, 8, 128, 25, 32, 16)),
     ("lstm", 11, 256, (8, 8, 16, 32, 32, 32)),   # W_h rows of 64 units are 256 KB
+    ("lstm forward", 64, 128, (4, 4, 64, 32, 8, 16)),    # serving: 16 clusters of 4 CTAs
+    ("lstm forward", 128, 128, (4, 4, 128, 32, 8, 16)),  # training: 128 CTAs, one wave
+    ("lstm forward", 256, 100, (2, 4, 128, 50, 8, 16)),  # 4 CTAs would be 256, two waves
+    ("lstm forward", 11, 256, (8, 4, 24, 32, 8, 32)),    # 64 units' columns + ring do not fit
 ])
 def test_cluster_choice_at_the_paths_shapes(which, B, H, want):
     """(cluster size, rows a cluster, CTAs, units a CTA, k-slices, slice
@@ -183,6 +230,8 @@ def test_cluster_choice_at_the_paths_shapes(which, B, H, want):
     fewer CTAs than the card's SMs, and a slice that fits."""
     if which == "gru":
         cfg = cuda_gru.launch_config(B, 50, H, H, torch.float32)
+    elif which == "lstm forward":
+        cfg = cuda_lstm.launch_config(B, 50, H, H, torch.float32)
     else:
         cfg = cuda_lstm.backward_launch_config(B, 50, H, torch.float32)
     keys = ("cluster_size", "rows_per_cluster", "grid", "units_per_cta", "k_slices", "k_slice")
@@ -202,6 +251,15 @@ def test_cluster_choice_at_the_paths_shapes(which, B, H, want):
     (lambda: cuda_lstm.backward_launch_config(8, 5, 16, torch.bfloat16, cluster_size=4),
      "f32 design"),
     (lambda: cuda_lstm.backward_launch_config(8, 5, 260, torch.float32), "H <= 256"),
+    (lambda: cuda_lstm.launch_config(8, 5, 16, 16, torch.float32, rows_per_cluster=3),
+     "rows_per_cluster 3"),
+    (lambda: cuda_lstm.launch_config(8, 5, 16, 256, torch.float32, cluster_size=4),
+     "shared memory"),
+    (lambda: cuda_lstm.launch_config(8, 5, 16, 128, torch.float32, cluster_size=1),
+     "1024 threads"),
+    (lambda: cuda_lstm.launch_config(8, 5, 16, 16, torch.bfloat16, cluster_size=4),
+     "f32 design"),
+    (lambda: cuda_lstm.launch_config(8, 5, 16, 260, torch.float32), "H <= 256"),
 ])
 def test_cluster_configs_refuse_what_the_kernels_cannot_take(call, match):
     with pytest.raises(ValueError, match=match):

@@ -606,18 +606,19 @@ def test_lstm_kernel_matches_plain(cuda, dtype, B, T, D, H):
     assert torch.equal(h, ys[:, -1])
 
 
-@pytest.mark.parametrize("dtype,rows_per_block", [(torch.float32, 1), (torch.float32, 2),
-                                                  (torch.bfloat16, None)])
-def test_lstm_kernel_every_layout_and_the_cell_plane(cuda, rows_per_block, dtype, monkeypatch):
-    """Each design's row tilings (B not a multiple of R) at H=128 (f32: 1 or
-    2 rows a block, both weights read through L2; bf16: its one n8 tile of
-    8); the cell plane the kernel writes for the backward equals the plain
-    serial recompute."""
+@pytest.mark.parametrize("dtype,cluster_size,rows", [
+    (torch.float32, C, R) for C in (2, 4, 8) for R in (4, 8, 16)] + [(torch.bfloat16, None, None)])
+def test_lstm_kernel_every_layout_and_the_cell_plane(cuda, cluster_size, rows, dtype,
+                                                     monkeypatch):
+    """Each design's row tilings (B not a multiple of R) at H=128 (f32: every
+    cluster size and rows a cluster that fits, W_h's slice in registers at
+    4 CTAs and up to 8 rows; bf16: its one n8 tile of 8); the cell plane the
+    kernel writes for the backward equals the plain serial recompute."""
     args = [a.detach() for a in _lstm_args(11, 6, 128, 128, dtype, cuda, seed=1)]
-    if rows_per_block is not None:
+    if rows is not None:
         real = k_lstm.launch_config
-        monkeypatch.setattr(k_lstm, "launch_config",
-                            lambda *a, **kw: real(*a, rows_per_block=rows_per_block))
+        monkeypatch.setattr(k_lstm, "launch_config", lambda *a, **kw: real(
+            *a, rows_per_cluster=rows, cluster_size=cluster_size))
     ys, c_last, cs = k_lstm._forward_kernel(
         args[0], args[1], args[2], args[3].to(dtype), args[4].to(dtype), args[5], True)
     want, _ = k_lstm.plain(*args)
@@ -1014,6 +1015,50 @@ def test_f32_gru_cluster_forward_matches_plain(cuda, B, T, H, reset):
                            k_gru.gru_scan(x, -h0, *w, reset_mask=plane)[0])
 
 
+LSTM_F32_SHAPES = [(11, T, H) for T in (1, 2, 50, 200) for H in (64, 100, 128, 132, 256)] + [
+    (64, 200, 128), (128, 200, 128)]
+
+
+@pytest.mark.parametrize("reset", [False, True])
+@pytest.mark.parametrize("B,T,H", LSTM_F32_SHAPES)
+def test_f32_lstm_cluster_forward_matches_plain(cuda, B, T, H, reset):
+    """The f32 LSTM forward (the f32 input projection, then the cluster
+    recurrence) at T = 1, 2, 50, 200, H = 64, 100, 128, 132 and 256 with
+    B = 11 (ragged against a cluster's rows), and at the LSTM paths' shapes,
+    against the plain f32 loop at 1e-5 (ys and c_T), the cell plane against
+    the plain serial recompute; the reset variant also gives the no-reset
+    kernel's bits on an all-zero plane and ignores h0 and c0 under a reset
+    at t=0."""
+    args = [a.detach() for a in _lstm_args(B, T, H, H, torch.float32, cuda, seed=B + T + H)]
+    plane = _reset_plane(B, T, cuda, seed=H) if reset else None
+    before = (k_lstm.lstm_input_projection.f32_launches, k_lstm.lstm_scan.launches,
+              k_lstm.lstm_scan.reset_launches)
+    ys, (h, c) = k_lstm.lstm_scan(*args, reset_mask=plane)
+    torch.cuda.synchronize()
+    assert (k_lstm.lstm_input_projection.f32_launches, k_lstm.lstm_scan.launches,
+            k_lstm.lstm_scan.reset_launches) == (before[0] + 1, before[1] + (not reset),
+                                                 before[2] + reset)
+    assert k_lstm.launch_config(B, T, H, H, torch.float32)["design"] == "cluster"
+    want, (_, c_want) = k_lstm.plain(*args, reset_mask=plane)
+    torch.testing.assert_close(ys, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(c, c_want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(h, ys[:, -1])
+    ys_k, c_last, cs = k_lstm._forward_kernel(*args, True, None if plane is None else 1 - plane)
+    assert torch.equal(ys_k, ys) and torch.equal(c_last, c)
+    x_proj = torch.matmul(args[0], args[3]) + args[5]
+    cells = reference.lstm_recompute_cells(x_proj, ys, args[1], args[2], args[4], plane)
+    torch.testing.assert_close(cs, cells, rtol=1e-4, atol=1e-4)
+    if reset:
+        zero = k_lstm.lstm_scan(*args, reset_mask=torch.zeros_like(plane))
+        base = k_lstm.lstm_scan(*args)
+        assert torch.equal(zero[0], base[0]) and torch.equal(zero[1][1], base[1][1])
+        plane[:, 0] = 1.0
+        x, h0, c0, *w = args
+        a = k_lstm.lstm_scan(x, h0, c0, *w, reset_mask=plane)
+        o = k_lstm.lstm_scan(x, -h0, -c0, *w, reset_mask=plane)
+        assert torch.equal(a[0], o[0]) and torch.equal(a[1][1], o[1][1])
+
+
 @pytest.mark.parametrize("keep", [False, True])
 @pytest.mark.parametrize("B,T,H", F32_SHAPES)
 def test_f32_lstm_cluster_backward_matches_plain(cuda, B, T, H, keep):
@@ -1043,12 +1088,15 @@ def test_f32_lstm_cluster_backward_matches_plain(cuda, B, T, H, keep):
 def test_f32_cluster_kernels_every_tiling(cuda, cluster_size, rows, monkeypatch):
     """Every cluster size and rows a cluster the launch configs accept, at
     B = 11 and H = 64 and 128 (k-slices of 8 or 16 threads a unit; at
-    H = 128 the GRU's W_h slice in registers up to 8 rows), for both
-    cluster kernels. What a config refuses (one CTA for H = 128's 128
-    units: 1,024 threads; two CTAs of 16 rows of the LSTM reverse at
-    H = 128: 328 KB), the wrapper refuses too."""
+    H = 128 the GRU's and the LSTM forward's W_h slice in registers up to 8
+    rows), for the three cluster kernels. What a config refuses (one CTA
+    for H = 128's 128 units: 1,024 threads; two CTAs of 16 rows of the LSTM
+    reverse at H = 128: 328 KB), the wrapper refuses too."""
     real_f, real_b = k_gru.launch_config, k_lstm.backward_launch_config
+    real_lf = k_lstm.launch_config
     monkeypatch.setattr(k_gru, "launch_config", lambda *a, **kw: real_f(
+        *a, rows_per_cluster=rows, cluster_size=cluster_size))
+    monkeypatch.setattr(k_lstm, "launch_config", lambda *a, **kw: real_lf(
         *a, rows_per_cluster=rows, cluster_size=cluster_size))
     monkeypatch.setattr(k_lstm, "backward_launch_config", lambda *a, **kw: real_b(
         *a, rows_per_cluster=rows, cluster_size=cluster_size))
@@ -1056,12 +1104,19 @@ def test_f32_cluster_kernels_every_tiling(cuda, cluster_size, rows, monkeypatch)
         refused = (cluster_size == 1 and H == 128, cluster_size <= 2 and rows == 16 and H == 128)
         args = _gru_args(11, 9, H, H, torch.float32, cuda, seed=rows)
         planes = _lstm_planes(11, 9, H, torch.float32, cuda, seed=rows)
+        largs = _lstm_args(11, 9, H, H, torch.float32, cuda, seed=rows)
         if refused[0]:
             with pytest.raises(ValueError, match="threads"):
                 k_gru.gru_scan(*args)
+            with pytest.raises(ValueError, match="threads"):
+                k_lstm.lstm_scan(*largs)
         else:
             ys, _ = k_gru.gru_scan(*args)
             torch.testing.assert_close(ys, k_gru.plain(*args)[0], rtol=1e-5, atol=1e-5)
+            ys, (_, c) = k_lstm.lstm_scan(*largs)
+            want, (_, c_want) = k_lstm.plain(*largs)
+            torch.testing.assert_close(ys, want, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(c, c_want, rtol=1e-5, atol=1e-5)
         if refused[0] or refused[1]:
             with pytest.raises(ValueError, match="shared memory"):
                 k_lstm.lstm_backward(*planes)
@@ -1088,3 +1143,54 @@ def test_f32_input_projection_kernel_matches_f64(cuda, M, D, N):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="of one dtype"):
         k_gru.gru_input_projection(x.bfloat16(), w_x, b)
+
+
+@pytest.mark.parametrize("M,D,N", [(128 * 200, 128, 512), (64 * 200, 128, 512), (15, 4, 16),
+                                   (140, 200, 528)])
+def test_lstm_f32_input_projection_kernel_matches_f64(cuda, M, D, N):
+    """The f32 LSTM forward's input projection (rnn.cuh's f32 GEMM, N = 4H)
+    through the LSTM's own wrapper and counter, against f64 at 1e-5."""
+    rng = np.random.default_rng(M + N)
+    x = torch.from_numpy(rng.normal(size=(M, D)).astype(np.float32)).to(cuda)
+    w_x = torch.from_numpy((rng.normal(size=(D, N)) * D ** -0.5).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(cuda)
+    before = (k_lstm.lstm_input_projection.launches, k_lstm.lstm_input_projection.f32_launches)
+    got = k_lstm.lstm_input_projection(x, w_x, b)
+    torch.cuda.synchronize()
+    assert (k_lstm.lstm_input_projection.launches,
+            k_lstm.lstm_input_projection.f32_launches) == (before[0], before[1] + 1)
+    want = (x.double() @ w_x.double() + b.double()).float()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="of one dtype"):
+        k_lstm.lstm_input_projection(x, w_x.bfloat16(), b)
+
+
+@pytest.mark.parametrize("N", [1, 2])
+@pytest.mark.parametrize("Dh", [4, 32, 64, 100, 256])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 200])
+def test_attention_f32_kernel_tiles_head_dims_and_strided_views(cuda, T, Dh, N):
+    """The f32 attention kernel around its 32-row tiles (T = 1, 63, 64, 65, 200), at head dims from one float4
+    to 256, on q, k and v read in place from one [B, T, 3, N, Dh]
+    projection: within 2e-5 of the plain version; half the batch alone
+    gives the batch's bits."""
+    B = 4
+    qkv = torch.randn(B, T, 3, N, Dh, generator=torch.Generator().manual_seed(T * Dh + N))
+    qkv = qkv.to(cuda)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert k_attn._kernel_view(q).data_ptr() == q.data_ptr()
+    assert k_attn.launch_config(B, T, N, Dh, torch.float32)["design"] == "flash-fma"
+    got = k_attn.causal_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, k_attn.plain(q, k, v), rtol=2e-5, atol=2e-5)
+    assert torch.equal(k_attn.causal_attention(q[:2], k[:2], v[:2]), got[:2])
+
+
+def test_attention_f32_kernel_at_the_training_shape_and_serving_batch(cuda):
+    """[128, 200, 1, 64] (SASRec's training step) within 2e-5 of the plain
+    version, and its first 64 rows (serving's batch) alone give the batch's
+    bits."""
+    q, k, v = _qkv(128, 200, 1, 64, torch.float32, cuda, seed=9)
+    got = k_attn.causal_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, k_attn.plain(q, k, v), rtol=2e-5, atol=2e-5)
+    assert torch.equal(k_attn.causal_attention(q[:64], k[:64], v[:64]), got[:64])

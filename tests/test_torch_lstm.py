@@ -218,20 +218,31 @@ def test_lstm_launch_configs_at_the_training_shape():
     4H = 512 columns; the reverse recurrence the same blocks with its dz^T
     buffer [hi, lo][512][8] bf16, three stages of six [8][132] f32 gate
     planes and [8][136] bf16 g_ys, and the sums its warp pairs exchange
-    ([8][32][4] f32). f32: the CUDA-core forward, W_h alone is 256 KB, so
-    both weights go through L2; the reverse recurrence on clusters of 4 CTAs
-    over 8 rows (16 clusters), each CTA 32 units with their W_h rows (64 KB)
-    in its shared memory, a warp of 32 k-slices of 16 columns for 4 units."""
+    ([8][32][4] f32). f32: both directions on thread block clusters. The
+    forward: the f32 projection's 128 x 64 tiles, then clusters of 4 CTAs
+    over 4 rows (32 clusters, 128 CTAs: one wave on the card's 132 SMs),
+    each CTA 32 units with their W_h
+    columns of all four gates (64 KB) in its shared memory and, at 16 k
+    values a thread with 8 slices a unit, in its registers, beside the h
+    double buffer and a ring of xp's four gates and keep; at D=H=64 the same
+    4 CTAs hold 16 units each with 16 slices of 4. The reverse recurrence:
+    clusters of 4 CTAs over 8 rows (16 clusters), each CTA 32 units with
+    their W_h rows (64 KB) in its shared memory, a warp of 32 k-slices of 16
+    columns for 4 units."""
     assert cuda_lstm.launch_config(128, 200, 128, 128, torch.bfloat16) == {
         "design": "mma.sync", "grid": 16, "threads": 256, "rows_per_block": 8,
         "hidden_padded": 128, "wh_in_regs": 1,
         "smem_bytes": 2 * 128 * 8 * 2 + 3 * 8 * 516 * 4,
         "xproj_grid": [400, 8], "xproj_threads": 128}
     f32 = cuda_lstm.launch_config(128, 200, 128, 128, torch.float32)
-    assert (f32["design"], f32["rows_per_block"], f32["wh_in_smem"],
-            f32["wx_in_smem"]) == ("cuda-core", 2, 0, 0)
+    assert f32 == {"design": "cluster", "cluster_size": 4, "rows_per_cluster": 4,
+                   "clusters": 32, "grid": 128, "threads": 256, "units_per_cta": 32,
+                   "k_slices": 8, "k_slice": 16,
+                   "smem_bytes": (4 * 16 * 256 + 2 * 4 * 132 + 4 * 256 * 5) * 4 + 16,
+                   "w_in_regs": 1, "xproj_grid": [200, 8], "xproj_threads": 256}
     small = cuda_lstm.launch_config(64, 200, 64, 64, torch.float32)
-    assert (small["rows_per_block"], small["wh_in_smem"], small["wx_in_smem"]) == (1, 1, 1)
+    assert (small["cluster_size"], small["rows_per_cluster"], small["units_per_cta"],
+            small["k_slices"], small["k_slice"], small["w_in_regs"]) == (4, 4, 16, 16, 4, 0)
     assert cuda_lstm.backward_launch_config(128, 200, 128, torch.bfloat16) == {
         "design": "mma.sync", "grid": 16, "threads": 256, "rows_per_block": 8,
         "hidden_padded": 128, "w_in_regs": 1, "dz_terms": 2,
@@ -267,14 +278,15 @@ def test_lstm_bf16_pads_the_hidden_width_to_whole_mma_tiles(H, hp, hb, in_regs):
 @pytest.mark.parametrize("B,grid", [(128, 16), (64, 8), (11, 2), (1, 1)])
 def test_lstm_bf16_rows_per_block(B, grid):
     """8 batch rows a block (one n8 tile) in both recurrences, a ragged last
-    block; the row count (the forward's rows a block, the reverse
-    recurrence's rows and size of a cluster) is the f32 designs' choice
-    alone, and a bf16 request for one raises."""
+    block; the rows and size of a cluster are the f32 designs' choice alone
+    (both directions), and a bf16 request for one raises."""
     for cfg in (cuda_lstm.launch_config(B, 50, 64, 64, torch.bfloat16),
                 cuda_lstm.backward_launch_config(B, 50, 64, torch.bfloat16)):
         assert (cfg["rows_per_block"], cfg["grid"]) == (cuda_lstm.MMA_ROWS, grid) == (8, grid)
-    with pytest.raises(ValueError, match="rows_per_block is the f32 design's"):
-        cuda_lstm.launch_config(B, 50, 64, 64, torch.bfloat16, rows_per_block=2)
+    with pytest.raises(ValueError, match="rows_per_cluster and cluster_size are the f32"):
+        cuda_lstm.launch_config(B, 50, 64, 64, torch.bfloat16, rows_per_cluster=4)
+    with pytest.raises(ValueError, match="rows_per_cluster and cluster_size are the f32"):
+        cuda_lstm.launch_config(B, 50, 64, 64, torch.bfloat16, cluster_size=4)
     with pytest.raises(ValueError, match="rows_per_cluster and cluster_size are the f32"):
         cuda_lstm.backward_launch_config(B, 50, 64, torch.bfloat16, rows_per_cluster=8)
 
@@ -297,21 +309,14 @@ def _unpack_fragments(frags: torch.Tensor, M: int, K: int) -> np.ndarray:
     return a
 
 
-@pytest.mark.parametrize("dtype,P", [(torch.float32, 4), (torch.bfloat16, 8)])
+@pytest.mark.parametrize("dtype,P", [(torch.bfloat16, 8)])
 def test_lstm_weights_are_k_packed_for_16_byte_reads(dtype, P):
-    """f32: the forward kernel reads W [K, 4H] as [K/P, 4H, P], P consecutive
-    k rows of one column in 16 bytes. bf16: the tensor-core kernels read
-    W_h as packed mma.sync A fragments, a lane's P values (its four
-    registers) in 16 bytes: the forward W_h^T gate by gate, the reverse
-    recurrence W_h with each gate's columns padded to Hp, a warp's two tiles
-    over its half of the k-steps; zero past H (H = 20 pads to 32)."""
-    if dtype == torch.float32:
-        w = torch.arange(16 * 12, dtype=torch.float32).reshape(16, 12).to(dtype)
-        packed = cuda_lstm.pack_k(w)
-        assert tuple(packed.shape) == (16 // P, 12, P) and packed.is_contiguous()
-        for kb, c, p in ((0, 0, 0), (1, 5, P - 1), (16 // P - 1, 11, 2)):
-            assert packed[kb, c, p] == w[kb * P + p, c]
-        return
+    """The bf16 tensor-core kernels read W_h as packed mma.sync A fragments,
+    a lane's P values (its four registers) in 16 bytes: the forward W_h^T
+    gate by gate, the reverse recurrence W_h with each gate's columns padded
+    to Hp, a warp's two tiles over its half of the k-steps; zero past H
+    (H = 20 pads to 32). (The f32 kernels copy W_h into their CTAs' shared
+    memory as they are: tests/test_torch_f32_clusters.py.)"""
     H, hp = 20, 32
     w_h = torch.arange(H * 4 * H, dtype=torch.float32).reshape(H, 4 * H).to(dtype)
     fwd = cuda_lstm.forward_fragments(w_h)
@@ -345,13 +350,13 @@ def test_lstm_weights_are_k_packed_for_16_byte_reads(dtype, P):
     ((4, 5, 6, 12), torch.bfloat16, r"D\*2 % 8"),
     ((4, 5, 8, 260), torch.float32, "H <= 256"),
     ((0, 5, 8, 12), torch.float32, "empty"),
-    ((4, 5, 8, 12), torch.float32, "rows_per_block"),
-    ((4, 5, 8, 12), torch.bfloat16, "rows_per_block is the f32 design's"),
+    ((4, 5, 8, 12), torch.float32, "rows_per_cluster 3"),
+    ((4, 5, 8, 12), torch.bfloat16, "rows_per_cluster and cluster_size are the f32 design's"),
 ])
 def test_lstm_kernel_rejects_what_it_cannot_take(shape, dtype, match):
     with pytest.raises(ValueError, match=match):
         cuda_lstm.launch_config(*shape, dtype,
-                                rows_per_block=3 if "rows_per_block" in match else None)
+                                rows_per_cluster=3 if "rows_per_cluster" in match else None)
 
 
 @pytest.mark.parametrize("with_bias", [False, True])
@@ -372,6 +377,27 @@ def test_lstm_input_projection_on_cpu_matches_the_pallas_step_xp(with_bias):
     assert cuda_lstm.lstm_input_projection.launches == before
     assert got.dtype == torch.float32 and tuple(got.shape) == (3, 5, 32)
     np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("D,H", [(12, 8), (128, 128)])
+def test_lstm_f32_input_projection_on_cpu_matches_the_pallas_step_xp(D, H):
+    """The f32 forward's input projection (the f32 design now computes it
+    for every step before the cluster recurrence, as the bf16 one does)
+    against the f32 jnp.dot of `_lstm_step_body`, b included; on the CPU
+    the wrapper is the plain version and launches neither kernel."""
+    rng = np.random.default_rng(D + H)
+    x = rng.normal(size=(2, 7, D)).astype(np.float32)
+    w_x = (rng.normal(size=(D, 4 * H)) * D ** -0.5).astype(np.float32)
+    b = (rng.normal(size=4 * H) * 0.1).astype(np.float32)
+    want = jnp.dot(jnp.asarray(x), jnp.asarray(w_x),
+                   precision=jax.lax.Precision.HIGHEST) + jnp.asarray(b)
+    before = (cuda_lstm.lstm_input_projection.launches,
+              cuda_lstm.lstm_input_projection.f32_launches)
+    got = cuda_lstm.lstm_input_projection(*(torch.from_numpy(a) for a in (x, w_x, b)))
+    assert (cuda_lstm.lstm_input_projection.launches,
+            cuda_lstm.lstm_input_projection.f32_launches) == before
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 7, 4 * H)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **F32_TOL)
 
 
 class _SplitBf16Product:

@@ -127,16 +127,44 @@ def test_attention_grads_match_jax(oracle):
 
 def test_attention_launch_config_at_the_training_shape():
     """bf16: the tensor-core design, 4 warps, Q and double-buffered K and V
-    tiles of 64 rows of Dh + 8 bf16; f32: the CUDA-core design."""
+    tiles of 64 rows of Dh + 8 bf16; f32: FlashAttention-2's structure on
+    the CUDA cores, 7 query tiles of 32 rows for each of the 128 (b, n)
+    (896 blocks of four warps, 4 query rows a lane), Q and double-buffered
+    K and V tiles of 32 rows of Dh + 4 f32 and four warps' [32][12] P tiles
+    (49 KB: four blocks an SM)."""
     cfg = cuda_attention.launch_config(128, 200, 1, 64, torch.bfloat16)
     assert cfg == {"design": "mma.sync", "grid": [4, 128], "threads": 128,
                    "head_dim_padded": 64, "smem_bytes": 5 * 64 * 72 * 2}
     f32 = cuda_attention.launch_config(128, 200, 1, 64, torch.float32)
-    assert f32 == {"design": "cuda-core", "grid": [4, 128], "threads": 256,
-                   "smem_bytes": (3 * 64 * 68 + 64 * 68) * 4}
+    assert f32 == {"design": "flash-fma", "grid": [896], "threads": 128, "query_tile": 32,
+                   "key_tile": 32,
+                   "smem_bytes": (5 * 32 * 68 + 4 * 32 * 12) * 4}
+    assert 4 * f32["smem_bytes"] <= 228 * 1024  # an SM's shared memory
     for dtype in (torch.float32, torch.bfloat16):
         wide = cuda_attention.launch_config(2, 10, 1, 256, dtype)
         assert wide["smem_bytes"] <= cuda_attention.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("B,T,N", [(128, 200, 1), (64, 200, 1), (3, 1, 2), (2, 63, 2),
+                                   (2, 64, 1), (2, 65, 3), (1, 257, 2)])
+def test_attention_f32_grid_covers_every_query_tile(B, T, N):
+    """The f32 kernel's one-dimensional grid, read as the kernel reads it
+    (block i takes query tile n_tiles - 1 - i // (B N) of (b, n) = i % (B N)):
+    every (32-row query tile, b, n) once, the tiles with the most key tiles
+    first, and the tiles' rows cover [0, T) with fewer than 32 past it; its
+    shared memory fits a block for every Dh the kernel takes, up to 256."""
+    for Dh in range(4, 257, 4):
+        smem = cuda_attention.launch_config(B, T, N, Dh, torch.float32)
+        assert smem["smem_bytes"] <= cuda_attention.SMEM_LIMIT
+    cfg = cuda_attention.launch_config(B, T, N, 64, torch.float32)
+    tile = cfg["query_tile"]
+    n_tiles = -(-T // tile)
+    (grid,) = cfg["grid"]
+    assert grid == n_tiles * B * N and cfg["threads"] == 128
+    blocks = [(n_tiles - 1 - i // (B * N), i % (B * N)) for i in range(grid)]
+    assert sorted(blocks) == [(qi, g) for qi in range(n_tiles) for g in range(B * N)]
+    assert all(a[0] >= b[0] for a, b in zip(blocks, blocks[1:]))
+    assert 0 <= n_tiles * tile - T < tile
 
 
 @pytest.mark.parametrize("Dh,kD", [(8, 16), (16, 16), (24, 32), (40, 64), (64, 64),

@@ -90,14 +90,20 @@ def test_train_step_matches_jax(config, overrides, monkeypatch):
 @pytest.mark.parametrize("config,overrides", [
     ("ml1m_lstm", ["model.embed_dim=16"]),
     ("ml1m_gru4rec", ["model.embed_dim=16"]),
+    ("ml1m_sasrec", ["model.embed_dim=16", "model.num_heads=2", f"model.max_len={T}"]),
 ])
 def test_f32_path_step1_matches_jax(config, overrides, monkeypatch):
     """The f32 paths of chip_smoke.py (a shipped config with
     model.compute_dtype=float32, the kernels on: on the card the f32 cluster
-    recurrences and, for the GRU, the f32 input projection) cut to a narrow
+    recurrences after their f32 input projections, or SASRec's f32 causal
+    attention) cut to a narrow
     width: step 1 through `train_step_multi`, a group of one wire, against
     JAX value_and_grad and optax from the same parameters with the same
-    injected negatives; the same tolerances as above."""
+    injected negatives; the same tolerances as above. SASRec keeps its
+    config's warmup here (chip_smoke.py sets it to 0 and compares step 1's
+    loss and gradient norm only): the key bias's gradient is zero up to
+    rounding (a shift of every key score of a row), and Adam at the full
+    rate would turn that noise into a +-lr step on either side."""
     cfg = RunConfig.load(str(ROOT / f"configs/{config}.json")).apply_overrides(
         overrides + ["model.num_negatives=9", "model.dropout_rate=0.0",
                      "model.compute_dtype=float32", f"data.max_len={T}"])
