@@ -8,15 +8,19 @@ kernels under seqrec_tpu_torch/csrc/, with nvcc for sm_90a, one nvcc per
 source, all at once). Each phase prints one JSON line:
 
   a. device   the card's name and power limit (nvidia-smi);
-  b. build    compile the kernels from the checkout's sources, timed;
+  b. build    compile the kernels from the checkout's sources, timed, with
+              ptxas's registers and spills of every spilling kernel and of
+              every instantiation of the newest designs (WATCH);
   c. kernels  each kernel against its plain PyTorch version at the serving
               shapes (gather: [3418, 128] table, [64, 200] ids with planted
               out-of-range ids, bit-exact; GRU: B=64, T=200, D=H=128 in f32
               and bf16, and against torch.nn.GRU as a second oracle, and
               also at the training shape B=128; the bf16 forward's input
               projection kernel and the f32 one's, which the f32 GRU
-              forward runs), with kernel, plain, library and bound times
-              and each kernel's design (mma.sync, cluster or cuda-core);
+              forward runs, the f32 one also at the training paths' M=25,600
+              with N=384 and N=512, each beside torch.addmm f32), with kernel,
+              plain, library and bound times and each kernel's design
+              (mma.sync, cluster, persistent-simt or cuda-core);
   d. serve    `recommend` on the ML-1M GRU4Rec configuration
               (configs/ml1m_gru4rec.json, seeded random weights) for a few
               hundred Zipf-distributed histories, batch 64, k=10: once with
@@ -33,7 +37,8 @@ source, all at once). Each phase prints one JSON line:
               the sampled-softmax head's NLL and its loss and gradients,
               bf16 and f32, and the device time of its backward (a plain
               recompute); with kernel, plain, library and bound times and
-              each kernel's design (mma.sync or cuda-core);
+              each kernel's design and launch config (mma.sync, cluster or
+              cuda-core);
   f. train    `Trainer.train_step_multi` on the same configuration at full
               width: Zipf histories of 5..200 items packed into [8, 128, 202]
               int16 wire groups, six groups through the kernels (counters
@@ -305,10 +310,28 @@ def _kernel_name(demangled: str) -> str:
     return name
 
 
+# Kernels whose registers and spills the build phase always reports,
+# spilling or not: the f32 projection GEMM and the f32 GRU reverse
+# recurrence, every instantiation.
+WATCH = ("xproj_f32_kernel", "gru_backward_cluster_kernel")
+
+
+def _demangled(kernels: dict) -> dict:
+    """{mangled: record} -> {demangled: record} (cu++filt where the toolkit
+    has it)."""
+    filt = Path(_build.find_nvcc()).parent / "cu++filt"
+    if not kernels or not filt.exists():
+        return kernels
+    names = subprocess.run([str(filt)], input="\n".join(kernels), capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    return {_kernel_name(d): k for d, k in zip(names, kernels.values())}
+
+
 def ptxas_summary(logs) -> dict:
     """Per source, from nvcc's `-Xptxas -v` log: its kernels, the most
-    registers one uses, and each kernel that spills (demangled by cu++filt
-    where the toolkit has it) with its registers and spill bytes."""
+    registers one uses, each kernel that spills with its registers and spill
+    bytes, and the same record of every instantiation of the WATCH kernels
+    (names demangled by cu++filt where the toolkit has it)."""
     out = {}
     for src, log in logs.items():
         kernels, name = {}, None
@@ -329,14 +352,10 @@ def ptxas_summary(logs) -> dict:
                 elif used:
                     kernels[name]["registers"] = int(used.group(1))
         spills = {n: k for n, k in kernels.items() if k["spill_stores"] or k["spill_loads"]}
-        filt = Path(_build.find_nvcc()).parent / "cu++filt"
-        if spills and filt.exists():
-            names = subprocess.run([str(filt)], input="\n".join(spills), capture_output=True,
-                                   text=True, check=True).stdout.splitlines()
-            spills = {_kernel_name(d): k for d, k in zip(names, spills.values())}
+        watched = {n: k for n, k in kernels.items() if any(w in n for w in WATCH)}
         out[src] = {"kernels": len(kernels),
                     "max_registers": max((k["registers"] for k in kernels.values()), default=0),
-                    "spills": spills}
+                    "spills": _demangled(spills), "new_designs": _demangled(watched)}
     return out
 
 
@@ -459,6 +478,13 @@ def phase_kernels(rng: np.random.Generator, dev) -> dict:
                                     weights[2])
     out["xproj_f32"] = _xproj_check(k_gru, k_gru.gru_input_projection, x32, weights[0],
                                     weights[2], torch.float32)
+    # The f32 projection at the training paths' shapes too: gru4rec f32's
+    # (M = 25,600, N = 384) and lstm f32's (N = 4H = 512).
+    out["xproj_f32_B128"] = _xproj_check(k_gru, k_gru.gru_input_projection, x32_t, weights[0],
+                                         weights[2], torch.float32)
+    w_x4, _, b4 = (w.to(dev) for w in lstm_weights(rng, D, H))
+    out["xproj_f32_B128_N512"] = _xproj_check(k_lstm, k_lstm.lstm_input_projection, x32_t,
+                                              w_x4, b4, torch.float32)
     emit({"phase": "kernels", **out})
     return out
 
@@ -493,7 +519,7 @@ def _xproj_check(module, project, x32, w_x, b_x, dtype=torch.bfloat16) -> dict:
     p_bound, p_by = bound(p_bytes, p_flops, dtype)
     return {
         "shape": {"M": B * T, "D": D, "N": N, "dtype": _dname(dtype), "out": "float32"},
-        "design": "mma.sync" if dtype == torch.bfloat16 else "cuda-core",
+        "design": "mma.sync" if dtype == torch.bfloat16 else "persistent-simt",
         "max_abs_err": err, "errors": errs, "tolerance": XPROJ_TOL,
         "kernel_ms": time_ms(lambda: project(x, wx, b_x)),
         "plain_ms": time_ms(lambda: module.plain_input_projection(x, wx, b_x)),

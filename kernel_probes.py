@@ -1,24 +1,28 @@
-"""Probes of the port's recurrent kernels on one NVIDIA GPU.
+"""Probes of the port's kernels on one NVIDIA GPU.
 
-    python3 kernel_probes.py sass --root <checkout>
     python3 kernel_probes.py clusters [--out FILE]
-
-`sass` builds <checkout>'s csrc/gru.cu (with that checkout's own _build,
-into its build directory) and counts the instructions of its CUDA-core
-reverse kernel, `gru_backward_kernel` with one row a block, W_h^T in shared
-memory and no reset, by opcode from `cuobjdump -sass`, for each dtype it was
-instantiated in: what an instantiation executes for each of its FMAs. (The
-parent of the bf16 tensor-core redesign instantiated it in bf16 and f32.)
+    python3 kernel_probes.py xproj [--out FILE]
 
 `clusters` sweeps the f32 cluster recurrences over their cluster size C and
 rows a cluster R (each launch checked against its plain version first):
 the GRU forward at B=64 and 128, T=200, D=H=128 and its reset variant at
 B=256, T=50, D=H=100, the LSTM forward at B=64 and 128, T=200, D=H=128 and
-its reset variant at B=128 and at B=256, T=50, D=H=100 (each forward with its f32 input projection, as
-the wrapper runs it), and the LSTM reverse recurrence at B=128, T=200,
-H=128 with and without a keep plane; median of 21 CUDA-event runs
-(chip_smoke.time_ms) for each (C, R) that fits, beside the launch_config
-default.
+its reset variant at B=128 and at B=256, T=50, D=H=100 (each forward with
+its f32 input projection, as the wrapper runs it), the LSTM reverse
+recurrence at B=128, T=200, H=128 with and without a keep plane, and the
+GRU reverse recurrence (its gates recomputed inside) at B=64 and 128,
+T=200, H=128, at B=128, T=200, H=100 and at B=256, T=50, H=100 with and
+without a keep plane; median of 21 CUDA-event runs (chip_smoke.time_ms)
+for each (C, R) that fits, beside the launch_config default.
+
+`xproj` builds kernel_probes.cu (nvcc, into seqrec_tpu_torch/build/) and
+times, at M=12,800 and 25,600 with N=384 and N=512 (D=128) and at
+M=12,800, D=100, N=300, each against x @ W_x + b in f64 first: variants of
+the f32 input projection (tile rows, k chunk, ring stages, CTAs a SM; the
+shipped one is m64_k32_s2_c4) beside torch.addmm f32, and an 8 x 8
+outer-product loop with its refills, its shared-memory reads and its stores
+switched off one by one; and the card's f32 FMA rate on independent
+register chains.
 
 Each prints one JSON object as its last line, beside the card's name and
 power limit, and exits non-zero without CUDA.
@@ -28,8 +32,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -40,33 +42,6 @@ HERE = Path(__file__).resolve().parent
 def _smi() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-
-
-def probe_sass(root: Path) -> dict:
-    from seqrec_tpu_torch.ops import _build
-
-    subprocess.run([sys.executable, "-c",
-                    "from seqrec_tpu_torch.ops import _build; _build.build(['gru'])"],
-                   cwd=root, check=True, env=dict(os.environ, PYTHONPATH=str(root)))
-    lib = max((root / "seqrec_tpu_torch/build").glob("libgru-*.so"), key=lambda p: p.stat().st_mtime)
-    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
-    mix = {}
-    for m in re.finditer(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
-        name, body = m.groups()
-        # gru_backward_kernel<T, R = 1, kWInSmem = true, kReset = false>
-        if "gru_backward_kernel" not in name or "Li1ELb1ELb0E" not in name:
-            continue
-        ops = [op.split(".")[0] for op in re.findall(
-            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body)]
-        counts = {}
-        for op in ops:
-            counts[op] = counts.get(op, 0) + 1
-        mix["bfloat16" if "nv_bfloat16" in name else "float32"] = {
-            "instructions": len(ops),
-            "by_opcode": dict(sorted(counts.items(), key=lambda kv: -kv[1])[:20])}
-    return {"library": lib.name, "gru_backward_kernel": mix}
 
 
 def probe_clusters() -> dict:
@@ -82,7 +57,7 @@ def probe_clusters() -> dict:
     dev = torch.device("cuda", 0)
     _build.build(["gru", "lstm"])
     rng = np.random.default_rng(0)
-    out = {"gru_forward": {}, "lstm_forward": {}, "lstm_backward": {}}
+    out = {"gru_forward": {}, "lstm_forward": {}, "lstm_backward": {}, "gru_backward": {}}
 
     def sweep(module, attr, run, want, B, H, tol, key, group):
         real = getattr(module, attr)
@@ -154,16 +129,88 @@ def probe_clusters() -> dict:
         want = reference.lstm_bwd_scan(*args)
         sweep(k_lstm, "backward_launch_config", lambda: k_lstm.lstm_backward(*args), want, B, H,
               1e-4, key, "lstm_backward")
+
+    for B, T, H, reset in ((64, 200, 128, False), (128, 200, 128, False),
+                           (128, 200, 100, False), (256, 50, 100, False), (256, 50, 100, True)):
+        x_proj = cs._state(rng, dev, B * T, 3 * H).reshape(B, T, 3 * H) * 4
+        h_proj = cs._state(rng, dev, B * T, 3 * H).reshape(B, T, 3 * H) * 4
+        h_in = torch.tanh(cs._state(rng, dev, B * T, H).reshape(B, T, H))
+        g_ys = cs._state(rng, dev, B * T, H).reshape(B, T, H) * 0.02
+        w_h = cs.gru_weights(rng, H, H)[1].to(dev)
+        keep = (1.0 - cs._reset_plane(rng, B, T, dev))[..., None] if reset else None
+        args = (x_proj, h_proj, h_in, g_ys, w_h, keep)
+        want = k_gru.plain_backward(*args)
+        sweep(k_gru, "backward_launch_config", lambda: k_gru.gru_backward(*args), want, B, H,
+              1e-4, f"B{B}_T{T}_H{H}" + ("_keep" if reset else ""), "gru_backward")
+    return out
+
+
+def probe_xproj() -> dict:
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from seqrec_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = _build.BUILD_DIR / "libkernel_probes.so"
+    r = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(HERE), "-o",
+                        str(lib_path), str(HERE / "kernel_probes.cu")],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc kernel_probes.cu failed:\n{r.stdout}{r.stderr}")
+    lib = ctypes.CDLL(str(lib_path))
+    variants = ["m128_k32_s3_c2", "m64_k32_s2_c4", "m64_k32_s3_c3", "m64_k16_s3_c4",
+                "m64_k16_s4_c4"]
+    loops = ["loop_full", "loop_no_refill", "loop_no_smem_reads", "loop_no_stores", "loop_bare"]
+    for name in variants + loops:
+        getattr(lib, name).argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.ffma_rate.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sink = torch.zeros(1, device=dev)
+    iters, blocks = 20000, 2 * sms
+    ms = cs.time_ms(lambda: lib.ffma_rate(sink.data_ptr(), iters, blocks), reps=5)["median"]
+    out = {"ffma_tflops": 2.0 * blocks * 256 * iters * 8 * 16 / ms / 1e9, "shapes": {}}
+    rng = np.random.default_rng(0)
+    for M, D, N in ((12800, 128, 384), (25600, 128, 384), (12800, 128, 512), (25600, 128, 512),
+                    (12800, 100, 300)):
+        x = torch.from_numpy(rng.normal(size=(M, D)).astype(np.float32)).to(dev)
+        w = torch.from_numpy((rng.normal(size=(D, N)) * D ** -0.5).astype(np.float32)).to(dev)
+        b = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(dev)
+        want = x.double() @ w.double() + b.double()
+        rec = {"addmm_ms": cs.time_ms(lambda: torch.addmm(b, x, w))["median"],
+               "bound_ms": 2.0 * M * D * N / cs.PEAK_FLOPS[torch.float32] * 1e3}
+        for name in variants + loops:
+            xp = torch.empty(M, N, device=dev)
+            fn = getattr(lib, name)
+
+            def call():
+                rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), xp.data_ptr(), M, D, N,
+                        torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"{name}: CUDA error {rc}")
+
+            call()
+            torch.cuda.synchronize()
+            err = (xp.double() - want).abs().max().item() if name in variants + loops[:1] else None
+            if err is not None and err > 1e-5:
+                raise AssertionError(f"xproj {name} {M}x{D}x{N}: max abs err {err} vs f64")
+            rec[name] = {"ms": cs.time_ms(call)["median"], "max_abs_err_vs_f64": err}
+        out["shapes"][f"M{M}_D{D}_N{N}"] = rec
     return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="probe", required=True)
-    sass = sub.add_parser("sass", help="the CUDA-core reverse kernel's instruction mix")
-    sass.add_argument("--root", default=str(HERE), help="the checkout to build and read")
-    clusters = sub.add_parser("clusters", help="the f32 cluster recurrences over C and R")
-    clusters.add_argument("--out", help="also write the result (indented JSON) to this file")
+    for name, text in (("clusters", "the f32 cluster recurrences over C and R"),
+                       ("xproj", "the f32 input projection's variants and its loop's parts")):
+        sub.add_parser(name, help=text).add_argument(
+            "--out", help="also write the result (indented JSON) to this file")
     args = ap.parse_args(argv)
 
     import torch
@@ -173,13 +220,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
-    if args.probe == "sass":
-        result = probe_sass(Path(args.root).resolve())
-    else:
-        result = probe_clusters()
-        if args.out:
-            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-            Path(args.out).write_text(json.dumps(result, indent=1))
+    result = probe_clusters() if args.probe == "clusters" else probe_xproj()
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
     print(_smi(), flush=True)
     print(json.dumps({"probe": args.probe, **result}), flush=True)
     return 0

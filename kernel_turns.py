@@ -21,10 +21,12 @@ A turn times, by CUDA events (chip_smoke.time_ms, median of 21 runs):
     F.scaled_dot_product_attention on the same inputs; the GRU forward bf16
     at B=64 and B=128, T=200, D=H=128 (and f32 at B=64), beside
     torch.nn.GRU in f32 (cuDNN, TF32 off); its reset variant bf16 at B=256,
-    T=50, D=H=100; the GRU reverse recurrence bf16 at B=128, T=200,
+    T=50, D=H=100; the GRU reverse recurrence bf16 and f32 at B=128, T=200,
     D=H=128 and its keep path at B=256, T=50, D=H=100 (each checkout's
-    kernel on the operands its own backward hands it), and the whole bf16
-    GRU backward through gru_scan's autograd at both shapes; the
+    kernel on the operands its own backward hands it), and the whole GRU
+    backward through gru_scan's autograd at both shapes; the f32 input
+    projection at M=12,800 and 25,600 with N=384 and N=512 (D=128), beside
+    torch.addmm f32 on the same values; the
     sampled-softmax head forward at N=25,600, S=256, H=128, bf16 and f32;
     the LSTM forward bf16 and f32 (projection included) at B=64 and B=128,
     its reset variant bf16 and f32 at B=128, beside torch.nn.LSTM in f32 (cuDNN,
@@ -181,15 +183,15 @@ def _worker(label: str) -> dict:
     kern["gru_reset_float32_B256_rsc15"] = {
         "ms": med(lambda: k_gru.gru_scan(x, h0, *w, reset_mask=reset))}
 
-    def gru_reverse(x, h0, w, reset=None):
+    def gru_reverse(x, h0, w, reset=None, dtype=torch.bfloat16):
         """(ms of the reverse-recurrence kernel, ms of the whole backward
-        through gru_scan's autograd), bf16, on a kernel forward: the kernel on
+        through gru_scan's autograd) in `dtype`, on a kernel forward: the kernel on
         the operands the checkout's own backward hands it, the two projections
         of reference.gru_bwd_project (a wrapper that recomputes the gates
         inside) or, in a checkout whose wrapper takes the gate planes, those
         of its reference.gru_bwd_hoist."""
         w_x, w_h, b_x, b_h = w
-        xb, hb, wxb, whb = x.bfloat16(), h0.bfloat16(), w_x.bfloat16(), w_h.bfloat16()
+        xb, hb, wxb, whb = (t.to(dtype).clone() for t in (x, h0, w_x, w_h))
         with torch.no_grad():
             ys, _ = k_gru.gru_scan(xb, hb, wxb, whb, b_x, b_h, reset_mask=reset)
             x_proj = torch.matmul(xb.float(), wxb.float()) + b_x
@@ -206,12 +208,26 @@ def _worker(label: str) -> dict:
         ys, _ = k_gru.gru_scan(*leaves, reset_mask=reset)
         return kernel_ms, med(lambda: torch.autograd.backward(ys, g, retain_graph=True))
 
-    ms, autograd_ms = gru_reverse(x, h0, w, reset)
-    kern["gru_backward_keep_bfloat16_B256_rsc15"] = {"ms": ms, "autograd_backward_ms": autograd_ms}
+    for dtype in (torch.bfloat16, torch.float32):
+        ms, autograd_ms = gru_reverse(x, h0, w, reset, dtype)
+        kern[f"gru_backward_keep_{dname(dtype)}_B256_rsc15"] = {
+            "ms": ms, "autograd_backward_ms": autograd_ms}
     x, h0, w = gru_inputs(128, 200, 128)
     H = 128
-    ms, autograd_ms = gru_reverse(x, h0, w)
-    kern["gru_backward_bfloat16_B128"] = {"ms": ms, "autograd_backward_ms": autograd_ms}
+    for dtype in (torch.bfloat16, torch.float32):
+        ms, autograd_ms = gru_reverse(x, h0, w, None, dtype)
+        kern[f"gru_backward_{dname(dtype)}_B128"] = {"ms": ms, "autograd_backward_ms": autograd_ms}
+
+    # The f32 input projection at the f32 paths' shapes, beside torch.addmm.
+    for M, N, project in ((64 * 200, 384, k_gru.gru_input_projection),
+                          (128 * 200, 384, k_gru.gru_input_projection),
+                          (64 * 200, 512, k_lstm.lstm_input_projection),
+                          (128 * 200, 512, k_lstm.lstm_input_projection)):
+        xm = torch.from_numpy(rng.normal(size=(M, 128)).astype(np.float32)).to(dev)
+        wm = torch.from_numpy((rng.normal(size=(128, N)) * 128 ** -0.5).astype(np.float32)).to(dev)
+        bm = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(dev)
+        kern[f"xproj_float32_M{M}_N{N}"] = {"ms": med(lambda: project(xm, wm, bm)),
+                                            "addmm_ms": med(lambda: torch.addmm(bm, xm, wm))}
 
     # The sampled-softmax head at GRU4Rec's training shape: N = B*T rows,
     # S = 256 shared negatives, H = 128, rows of a table at Zipf ids.

@@ -61,8 +61,8 @@
 // f32: two kernels as well, on the CUDA cores, because TF32 tensor cores
 // keep ~3 digits and the f32 contract is f32 products.
 // 1. rnn::xproj_f32_kernel (csrc/rnn.cuh), the same projection off the
-//    serial chain as an f32 SIMT GEMM (128 x 64 register-tiled output
-//    tiles, operands staged by cp.async).
+//    serial chain as a persistent f32 SIMT GEMM (64 x 128 output tiles, 8 x 8
+//    outputs a thread, x transposed into shared memory by cp.async).
 // 2. gru_forward_cluster_kernel, the recurrence on a thread block cluster.
 //    One SM cannot hold both weight matrices in f32 (196 KB each at H=128),
 //    and the first port's one-block design re-read W_x through L2 every
@@ -133,15 +133,21 @@
 // enters the step only in dh (h_in - n)). B not a multiple of 8 leaves
 // ragged rows, computed on zeros and never written.
 //
-// f32 weights (gru_backward_kernel): the CUDA-core design of the first port,
-// kept. A block owns R batch rows for the whole reverse loop with one
-// thread per hidden unit i, which keeps its row's carry dh[i] in a
-// register; only d_hproj (3H floats a row) is exchanged, through a
-// double-buffered shared array: one barrier a step. W_h^T [3H, H] lives in
-// shared memory when it fits and is read through L2 otherwise, so thread
-// i's reads W_h^T[c][i] are consecutive across the warp. The next step's
-// six gate-plane values are loaded into registers while the current step
-// computes.
+// f32 weights (gru_backward_cluster_kernel, both variants): csrc/lstm.cu's
+// f32 reverse recurrence with three gates, on thread block clusters, the
+// gate recompute folded in. W_h (192 KB at H=128) fits no SM beside the
+// rest, and the first port's one-block design re-read it every step with one thread
+// a unit and one FMA chain over K = 3H (~4 us a step). Here a cluster of C
+// CTAs owns R batch rows, CTA c the units [c U, c U + U) with W_h's rows of
+// those units (48 KB at H=128, C=4) resident in its shared memory; each
+// owner lane computes the gate cotangents of its (unit, row) pairs and keeps
+// dh in a register, its three d_hproj values go to every CTA through
+// distributed shared memory (st.async, counted by an mbarrier a buffer),
+// and each CTA then sums d_hproj W_h^T for its units, a warp's 32 lanes
+// over slices of the 3H columns for 8 units (each value read serves 8).
+// The gates come from the two f32 projections, one step ahead, with the
+// accurate f32 sigmoid and tanh, in place of four torch passes and their
+// planes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -152,19 +158,11 @@
 
 namespace {
 
-// One thread per hidden unit; the bound leaves the compiler room for the
-// R-row register tiles.
-constexpr int kMaxHidden = 256;
+constexpr int kMaxHidden = 256;  // the widest H the kernels are laid out for
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// Four consecutive values from shared memory (16-byte aligned), as floats.
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
 
 __device__ __forceinline__ float sigmoidf(float v) {
@@ -177,14 +175,6 @@ __device__ __forceinline__ void dot4(float& acc, float4 h, float4 w) {
   acc = fmaf(h.y, w.y, acc);
   acc = fmaf(h.z, w.z, acc);
   acc = fmaf(h.w, w.w, acc);
-}
-
-// Copy `bytes` (a multiple of 16) from global to shared memory.
-__device__ __forceinline__ void copy_to_smem(void* dst, const void* src,
-                                             size_t bytes) {
-  uint4* d = static_cast<uint4*>(dst);
-  const uint4* s = static_cast<const uint4*>(src);
-  for (size_t c = threadIdx.x; c < bytes / 16; c += blockDim.x) d[c] = s[c];
 }
 
 // ---------------------------------------------------------------------------
@@ -610,142 +600,259 @@ int launch_mma(const float* xp, const void* h0, const void* w_h,
   }
 }
 
-// The f32 reverse recurrence (CUDA cores). kReset: the session-parallel
-// variant, which reads keep ([B, T] f32, 1 - reset; null otherwise), as the
-// forward's template flag.
-template <typename T, int R, bool kWInSmem, bool kReset>
-__global__ void __launch_bounds__(kMaxHidden)
-gru_backward_kernel(const float* __restrict__ rg, const float* __restrict__ zg,
-                    const float* __restrict__ ng, const float* __restrict__ hng,
-                    const T* __restrict__ h_in, const T* __restrict__ g_ys,
-                    const T* __restrict__ w_h_t, const float* __restrict__ keep,
-                    float* __restrict__ d_xp, float* __restrict__ dh0, int B,
-                    int Tn, int H) {
+// The f32 reverse recurrence on a thread block cluster: lstm.cu's
+// lstm_backward_cluster_kernel with three gates and the gate recompute
+// folded in (rnn.cuh's cluster layout, K = 3H). CTA c of a cluster of C owns
+// units [c U, c U + U) of the cluster's R rows. Its shared memory holds W_h's
+// rows of its units (all 3H columns, k-sliced as [L/4][kBwdUnits][threads][4]:
+// a warp's 32 lanes each sum one slice of the columns for kBwdUnits units, so
+// each d_hproj value read serves them all) and d_hproj of the step in two buffers
+// [2][R][S L + 4] laid out by rnn::slice_pos. The step's operands of a lane's
+// (unit, row) pairs (the two projections' r, z and n columns, h_in, g_y and
+// keep[t]) arrive by cp.async in its slots of a ring, kClusterAhead steps
+// ahead, and the lane turns them into the gates r, z, n and hn (and the
+// factors the cotangents take from them) one step ahead of their use, while
+// the exchange of the step before is in flight, so the serial chain holds
+// only the multiplies by the carry. A step, for t = T-1 .. 0: the owner lane
+// of (u, r) adds g_y to its dh carry, computes dpre_r, dpre_z, dpre_n, writes
+// d_xp and dn_r = dpre_n r, and stores the three d_hproj values into every
+// CTA's buffer with st.async (counted by that CTA's mbarrier of the buffer);
+// one thread waits for the buffer's fill, then a CTA barrier; then every
+// thread sums d_hproj[r][col] W_h[u][col] over its slice for the R rows and
+// the reduce-scatter leaves the owner dh_prev = dh z + that sum (times
+// keep[t]).
+// Units a warp sums for: with 8, the 32 lanes of 4 rows own one (unit, row)
+// pair each (with 4, half the lanes repeat their partner's gate work) and a
+// CTA has half the warps (kernel_probes.py clusters: 0.52 -> 0.43 ms at
+// B=128, T=200, H=128 on 2 CTAs of 4 rows, on an H100).
+constexpr int kBwdUnits = 8;
+constexpr int kBwdOperands = 12;  // ring floats a pair a step: 9 used, three float4
+
+template <int R, bool kReset>
+__global__ void __launch_bounds__(rnn::kClusterMaxThreads)
+gru_backward_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ hp,
+                            const float* __restrict__ h_in, const float* __restrict__ g_ys,
+                            const float* __restrict__ w_h, const float* __restrict__ keep,
+                            float* __restrict__ d_xp, float* __restrict__ dn_r,
+                            float* __restrict__ dh0, int B, int Tn, int H, int U) {
+  constexpr int S = 32, UT = kBwdUnits;
+  using Own = rnn::Owner<R, UT, 32>;
+  constexpr int NRo = Own::NR, NUo = Own::NU, NP = NRo * NUo;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int H3 = 3 * H;
-  float* dbuf = reinterpret_cast<float*>(smem);     // [2][R][3H] d_hproj
-  T* wt_s = reinterpret_cast<T*>(dbuf + 2 * R * H3);  // [3H][H] if in smem
-
-  const int i = threadIdx.x;  // hidden unit; blockDim.x == H
-  const int b0 = blockIdx.x * R;
-  if (kWInSmem) copy_to_smem(wt_s, w_h_t, static_cast<size_t>(H3) * H * sizeof(T));
-  const T* wt = kWInSmem ? wt_s : w_h_t;
-
-  // Values of the step about to run: r, z, n, hn, h_in, g_y (and keep).
-  constexpr int kVals = kReset ? 7 : 6;
-  float nx[R][kVals];
-  auto load_step = [&](int t) {
+  const int NT = blockDim.x, Up = NT / S * UT, H3 = 3 * H;
+  const int L = rnn::slice_len(H3, S), ld = S * L + 4;
+  float* ws = reinterpret_cast<float*>(smem);  // [L/4][UT][NT][4]
+  float* dps = ws + UT * L * NT;               // [2][R][ld]
+  float* ring = dps + 2 * R * ld;              // [stage][NP][NT][kBwdOperands]
+  const unsigned C = rnn::cluster::size();
+  const int u0 = static_cast<int>(rnn::cluster::rank()) * U;
+  const int b0 = static_cast<int>(rnn::cluster::id()) * R;
+  const int tid = threadIdx.x, lane = tid & 31, ug = tid >> 5;
+  const Own own(lane);
+  // The lane's (unit, row) pairs: units u0 + UT ug + ut0 + m, rows row0 + k.
+  int unit[NUo];
+  bool unit_ok[NUo];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (b0 + r < B) {
-        const size_t idx = (static_cast<size_t>(b0 + r) * Tn + t) * H + i;
-        nx[r][0] = rg[idx]; nx[r][1] = zg[idx]; nx[r][2] = ng[idx];
-        nx[r][3] = hng[idx]; nx[r][4] = to_f(h_in[idx]); nx[r][5] = to_f(g_ys[idx]);
-        if (kReset) nx[r][kVals - 1] = keep[static_cast<size_t>(b0 + r) * Tn + t];
-      } else {
+  for (int m = 0; m < NUo; ++m) {
+    const int vl = UT * ug + own.ut0 + m;
+    unit[m] = u0 + vl;
+    unit_ok[m] = vl < U && unit[m] < H;
+  }
+
+  // W_h's rows of this CTA's units (a row's columns are contiguous): unit
+  // UT g + ut's columns of slice s sit at [j][ut][32 g + s][4].
+  for (int idx = tid; idx < Up * S * L; idx += NT) {
+    const int vl = idx / (S * L), col = idx - vl * S * L;
+    const bool in = col < H3 && vl < U && u0 + vl < H;
+    const int ks = col / L, o = col - ks * L;
+    ws[((((o >> 2) * UT + vl % UT) * NT) + (vl / UT) * S + ks) * 4 + (o & 3)] =
+        in ? w_h[static_cast<size_t>(u0 + vl) * H3 + col] : 0.0f;
+  }
+  for (int c = tid; c < 2 * R * ld; c += NT) dps[c] = 0.0f;
+
+  // Step t = T-1-it's operands of the lane's pairs into ring stage
+  // it % kClusterRing: xp's r, z, n, hp's r | hp's z, n, h_in, g_y | keep[t];
+  // zeros where there is no such row, unit or step. One commit group a step.
+  auto issue = [&](int it) {
+    const int t = Tn - 1 - it;
+    float* st = ring + (it % rnn::kClusterRing) * NP * NT * kBwdOperands;
 #pragma unroll
-        for (int q = 0; q < kVals; ++q) nx[r][q] = 0.0f;
+    for (int k = 0; k < NRo; ++k) {
+      const int b = b0 + own.row0 + k;
+#pragma unroll
+      for (int m = 0; m < NUo; ++m) {
+        const bool in = unit_ok[m] && b < B && t >= 0;
+        const size_t bt = static_cast<size_t>(b) * Tn + t;
+        const size_t i3 = bt * H3 + unit[m], i1 = bt * H + unit[m];
+        float* dst = st + ((k * NUo + m) * NT + tid) * kBwdOperands;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          mma::cp_async4_zfill(dst + q, in ? xp + i3 + q * H : xp, in ? 4 : 0);
+          mma::cp_async4_zfill(dst + 3 + q, in ? hp + i3 + q * H : xp, in ? 4 : 0);
+        }
+        mma::cp_async4_zfill(dst + 6, in ? h_in + i1 : xp, in ? 4 : 0);
+        mma::cp_async4_zfill(dst + 7, in ? g_ys + i1 : xp, in ? 4 : 0);
+        const bool kin = kReset && b < B && t >= 0;
+        mma::cp_async4_zfill(dst + 8, kin ? keep + bt : xp, kin ? 4 : 0);
       }
     }
+    mma::cp_async_commit();
   };
-  load_step(Tn - 1);
-  float carry[R];
+  // The gates of step T-1-it from its stage (this lane's own copies), as
+  // reference.gru_bwd_gates computes them, and the factors the step's
+  // cotangents take from them: r, z, 1 - z, 1 - n^2, h_in - n, z (1 - z), hn,
+  // r (1 - r), g_y, keep.
+  float gf[NRo][NUo][10];
+  auto gates = [&](int it) {
+    const float4* st = reinterpret_cast<const float4*>(ring) +
+                       (it % rnn::kClusterRing) * NP * NT * (kBwdOperands / 4);
 #pragma unroll
-  for (int r = 0; r < R; ++r) carry[r] = 0.0f;
-  __syncthreads();
-
-  for (int t = Tn - 1, s = 0; t >= 0; --t, ++s) {
-    float cur[R][kVals];
+    for (int k = 0; k < NRo; ++k)
 #pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int q = 0; q < kVals; ++q) cur[r][q] = nx[r][q];
-    if (t > 0) load_step(t - 1);
-
-    float* dhp = dbuf + (s & 1) * R * H3;
-    float dhz[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float rv = cur[r][0], zv = cur[r][1], nv = cur[r][2];
-      const float hnv = cur[r][3], hin = cur[r][4];
-      const float dh = carry[r] + cur[r][5];
-      const float dpre_n = dh * (1.0f - zv) * (1.0f - nv * nv);
-      const float dz = dh * (hin - nv);
-      const float dpre_z = dz * zv * (1.0f - zv);
-      const float dr = dpre_n * hnv;
-      const float dpre_r = dr * rv * (1.0f - rv);
-      if (b0 + r < B) {
-        float* out = d_xp + (static_cast<size_t>(b0 + r) * Tn + t) * H3;
-        out[i] = dpre_r; out[H + i] = dpre_z; out[2 * H + i] = dpre_n;
+      for (int m = 0; m < NUo; ++m) {
+        const float4* p = st + ((k * NUo + m) * NT + tid) * (kBwdOperands / 4);
+        const float4 a = p[0], c = p[1];
+        const float kp = reinterpret_cast<const float*>(p)[8];
+        const float r = sigmoidf(a.x + a.w);
+        const float z = sigmoidf(a.y + c.x);
+        const float hn = c.y;
+        const float n = tanhf(a.z + r * hn);
+        float* f = gf[k][m];
+        f[0] = r;
+        f[1] = z;
+        f[2] = 1.0f - z;
+        f[3] = 1.0f - n * n;
+        f[4] = c.z - n;
+        f[5] = z * (1.0f - z);
+        f[6] = hn;
+        f[7] = r * (1.0f - r);
+        f[8] = c.w;
+        f[9] = kp;
       }
-      dhp[r * H3 + i] = dpre_r;
-      dhp[r * H3 + H + i] = dpre_z;
-      dhp[r * H3 + 2 * H + i] = dpre_n * rv;
-      dhz[r] = dh * zv;
+  };
+  for (int it = 0; it < rnn::kClusterAhead; ++it) issue(it);
+  // d_hproj of iteration it lands in buffer it & 1: 3 H R values a fill.
+  uint64_t* mb = reinterpret_cast<uint64_t*>(ring + rnn::kClusterRing * NP * NT * kBwdOperands);
+  const unsigned fill_bytes = static_cast<unsigned>(H3 * R * 4);
+  if (tid == 0) {
+    rnn::cluster::mbar_init(&mb[0]);
+    rnn::cluster::mbar_init(&mb[1]);
+    rnn::cluster::mbar_init_fence();
+    rnn::cluster::mbar_expect(&mb[0], fill_bytes);
+    if (Tn >= 2) rnn::cluster::mbar_expect(&mb[1], fill_bytes);
+  }
+  rnn::cluster::sync();  // every CTA of the cluster is running, its buffers zero
+  mma::cp_async_wait<rnn::kClusterAhead - 1>();  // step T-1's operands are in
+  gates(0);
+
+  float dh_c[NRo][NUo];
+#pragma unroll
+  for (int k = 0; k < NRo; ++k)
+#pragma unroll
+    for (int m = 0; m < NUo; ++m) dh_c[k][m] = 0.0f;
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  for (int t = Tn - 1, it = 0; t >= 0; --t, ++it) {
+    float* dp = dps + (it & 1) * R * ld;
+    issue(it + rnn::kClusterAhead);
+    float keep_t[NRo][NUo], dhz[NRo][NUo];
+#pragma unroll
+    for (int k = 0; k < NRo; ++k) {
+      const int row = own.row0 + k, b = b0 + row;
+#pragma unroll
+      for (int m = 0; m < NUo; ++m) {
+        const float* f = gf[k][m];
+        const float dh = dh_c[k][m] + f[8];
+        const float dpre_n = dh * f[2] * f[3];
+        const float dpre_z = dh * f[4] * f[5];
+        const float dpre_r = dpre_n * f[6] * f[7];
+        const float d[3] = {dpre_r, dpre_z, dpre_n * f[0]};
+        if (own.owner && unit_ok[m]) {
+          float* row_dp = dp + row * ld;
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            const float* dst = row_dp + rnn::slice_pos(q * H + unit[m], L, S);
+            for (unsigned p = 0; p < C; ++p) {
+              rnn::cluster::store_async(rnn::cluster::map(dst, p), d[q],
+                                        rnn::cluster::map(&mb[it & 1], p));
+            }
+          }
+          if (b < B) {
+            const size_t bt = static_cast<size_t>(b) * Tn + t;
+            float* out = d_xp + bt * H3 + unit[m];
+            out[0] = dpre_r;
+            out[H] = dpre_z;
+            out[2 * H] = dpre_n;
+            dn_r[bt * H + unit[m]] = d[2];
+          }
+        }
+        dhz[k][m] = __fmul_rn(dh, f[1]);
+        keep_t[k][m] = f[9];
+      }
+    }
+    // The next step's gates while this step's exchange is in flight.
+    if (t > 0) {
+      mma::cp_async_wait<rnn::kClusterAhead - 1>();  // step t-1's operands are in
+      gates(it + 1);
+    }
+    if (tid == 0) {  // wait for d_hproj of this step: fill it >> 1 of buffer it & 1
+      rnn::cluster::mbar_wait(&mb[it & 1], (it >> 1) & 1);
+      if (it + 2 < Tn) rnn::cluster::mbar_expect(&mb[it & 1], fill_bytes);
     }
     __syncthreads();
 
-    // (d_hproj @ W_h^T)[i] for the R rows.
-    float acc[R];
+    // d_hproj @ W_h^T for this warp's UT units: each d_hproj float4 serves
+    // UT units.
+    const float4* d4 = reinterpret_cast<const float4*>(dp);
+    float acc[R][UT][1];
 #pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-    for (int c = 0; c < H3; c += 4) {
-      float dv[R][4];
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int r = 0; r < R; ++r) load4(dhp + r * H3 + c, dv[r]);
+      for (int ut = 0; ut < UT; ++ut) acc[r][ut][0] = 0.0f;
+    for (int j = 0; j < L / 4; ++j) {
+      float4 w[UT];
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const float w = to_f(wt[static_cast<size_t>(c + cc) * H + i]);
+      for (int ut = 0; ut < UT; ++ut) w[ut] = w4[(j * UT + ut) * NT + tid];
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(dv[r][cc], w, acc[r]);
+      for (int r = 0; r < R; ++r) {
+        const float4 v = d4[r * (ld / 4) + j * S + lane];
+#pragma unroll
+        for (int ut = 0; ut < UT; ++ut) dot4(acc[r][ut][0], v, w[ut]);
       }
     }
+    rnn::reduce_scatter<R, UT, 16, R, UT, 1>(acc, lane);
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      carry[r] = dhz[r] + acc[r];
-      if (kReset) carry[r] *= cur[r][kVals - 1];  // dh_prev *= keep[t]
+    for (int k = 0; k < NRo; ++k)
+#pragma unroll
+      for (int m = 0; m < NUo; ++m) {  // dh_prev = dh z + d_hproj W_h^T, times keep[t]
+        const float dn = __fadd_rn(dhz[k][m], acc[k][m][0]);
+        dh_c[k][m] = kReset ? __fmul_rn(dn, keep_t[k][m]) : dn;
+      }
+  }
+  mma::cp_async_wait<0>();  // no copy outlives the block
+  rnn::cluster::sync();
+#pragma unroll
+  for (int k = 0; k < NRo; ++k) {
+    const int b = b0 + own.row0 + k;
+#pragma unroll
+    for (int m = 0; m < NUo; ++m) {
+      if (own.owner && unit_ok[m] && b < B) dh0[static_cast<size_t>(b) * H + unit[m]] = dh_c[k][m];
     }
   }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (b0 + r < B) dh0[static_cast<size_t>(b0 + r) * H + i] = carry[r];
-  }
 }
 
-template <typename T, int R>
-int launch_bwd_r(const float* rg, const float* zg, const float* ng,
-                 const float* hng, const void* h_in, const void* g_ys,
-                 const void* w_h_t, const float* keep, float* d_xp, float* dh0,
-                 int B, int Tn, int H, int w_in_smem, size_t smem,
-                 cudaStream_t s) {
-  const dim3 grid((B + R - 1) / R), block(H);
-  auto launch = [&](auto kernel) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<grid, block, smem, s>>>(
-        rg, zg, ng, hng, static_cast<const T*>(h_in), static_cast<const T*>(g_ys),
-        static_cast<const T*>(w_h_t), keep, d_xp, dh0, B, Tn, H);
-    return static_cast<int>(cudaGetLastError());
+template <bool kReset>
+int launch_cluster_bwd(int R, int clusters, int C, int threads, size_t smem, cudaStream_t st,
+                       const float* xp, const float* hp, const float* h_in, const float* g_ys,
+                       const float* w_h, const float* keep, float* d_xp, float* dn_r,
+                       float* dh0, int B, int Tn, int H, int U) {
+  auto go = [&](auto kernel) {
+    return rnn::launch_clusters(kernel, clusters, C, threads, smem, st, xp, hp, h_in, g_ys,
+                                w_h, keep, d_xp, dn_r, dh0, B, Tn, H, U);
   };
-  if (keep == nullptr) {
-    return w_in_smem ? launch(gru_backward_kernel<T, R, true, false>)
-                     : launch(gru_backward_kernel<T, R, false, false>);
-  }
-  return w_in_smem ? launch(gru_backward_kernel<T, R, true, true>)
-                   : launch(gru_backward_kernel<T, R, false, true>);
-}
-
-template <typename T>
-int launch_bwd_t(int rows_per_block, const float* rg, const float* zg,
-                 const float* ng, const float* hng, const void* h_in,
-                 const void* g_ys, const void* w_h_t, const float* keep,
-                 float* d_xp, float* dh0, int B, int Tn, int H, int w_in_smem,
-                 size_t smem, cudaStream_t s) {
-  switch (rows_per_block) {
-    case 1: return launch_bwd_r<T, 1>(rg, zg, ng, hng, h_in, g_ys, w_h_t, keep, d_xp, dh0, B, Tn, H, w_in_smem, smem, s);
-    case 2: return launch_bwd_r<T, 2>(rg, zg, ng, hng, h_in, g_ys, w_h_t, keep, d_xp, dh0, B, Tn, H, w_in_smem, smem, s);
+  switch (R) {
+    case 4: return go(gru_backward_cluster_kernel<4, kReset>);
+    case 8: return go(gru_backward_cluster_kernel<8, kReset>);
+    case 16: return go(gru_backward_cluster_kernel<16, kReset>);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1083,32 +1190,49 @@ int seqrec_gru_forward_mma(const void* xp, const void* h0, const void* w_h,
                        : launch_mma<true>(x, h0, w_h, bh, kp, ys, B, Tn, H, smem, s);
 }
 
-// The f32 reverse recurrence (CUDA cores). r, z, n, hn, h_in, g_ys
-// [B, T, H] and w_h_t [3H, H] float (dtype 0); keep [B, T] float (1 -
-// reset) or null; d_xp [B, T, 3H] and dh0 [B, H] float. All contiguous,
-// 16-byte aligned. smem_bytes as the caller computed it for this layout,
-// checked again here.
-int seqrec_gru_backward(const void* r, const void* z, const void* n,
-                        const void* hn, const void* h_in, const void* g_ys,
-                        const void* w_h_t, const void* keep, void* d_xp,
-                        void* dh0, int B, int Tn, int H, int dtype,
-                        int rows_per_block, int w_in_smem,
-                        long long smem_bytes, void* stream) {
-  const size_t es = 4;
-  const int R = rows_per_block;
-  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0 || dtype != 0) {
+// The f32 reverse recurrence on thread block clusters, the gate recompute
+// folded in. xp, hp [B, T, 3H] (x W_x + b_x and h_in W_h + b_h), h_in, g_ys
+// [B, T, H], w_h [H, 3H]; keep [B, T] (1 - reset; null: the no-reset
+// variant); d_xp [B, T, 3H], dn_r [B, T, H] and dh0 [B, H]. All float,
+// contiguous, 16-byte aligned; H % 4 == 0, H <= 256. Clusters of
+// `cluster_size` CTAs of `threads` threads, each CTA `units` hidden units
+// (cluster_size * units >= H) of `rows` batch rows, `slices` k-slices (32:
+// a warp's lanes for kBwdUnits units). smem_bytes as the caller computed
+// it, checked again here.
+int seqrec_gru_backward(const void* xp, const void* hp, const void* h_in, const void* g_ys,
+                        const void* w_h, const void* keep, void* d_xp, void* dn_r, void* dh0,
+                        int B, int Tn, int H, int rows, int slices, int cluster_size, int units,
+                        int threads, long long smem_bytes, void* stream) {
+  const int C = cluster_size, S = slices;
+  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0 ||
+      (rows != 4 && rows != 8 && rows != 16) || S != 32 || C < 1 || C > rnn::kClusterMax ||
+      units <= 0 || C * units < H || threads % 32 != 0 || threads / 32 * kBwdUnits < units ||
+      threads > rnn::kClusterMaxThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = 2 * static_cast<size_t>(R) * 3 * H * 4 +
-                      (w_in_smem ? static_cast<size_t>(3) * H * H * es : 0);
+  const int L = rnn::slice_len(3 * H, S);
+  const size_t np = rows * kBwdUnits >= 32 ? rows * kBwdUnits / 32 : 1;  // pairs a lane
+  const size_t smem = (static_cast<size_t>(kBwdUnits) * L * threads +
+                       2 * static_cast<size_t>(rows) * (S * L + 4) +
+                       rnn::kClusterRing * np * threads * kBwdOperands) * 4 +
+                      2 * sizeof(uint64_t);
   if (static_cast<long long>(smem) != smem_bytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_bwd_t<float>(R, static_cast<const float*>(r), static_cast<const float*>(z),
-                             static_cast<const float*>(n), static_cast<const float*>(hn), h_in,
-                             g_ys, w_h_t, static_cast<const float*>(keep),
-                             static_cast<float*>(d_xp), static_cast<float*>(dh0), B, Tn, H,
-                             w_in_smem, smem, static_cast<cudaStream_t>(stream));
+  const int clusters = (B + rows - 1) / rows;
+  const float* x = static_cast<const float*>(xp);
+  const float* hpr = static_cast<const float*>(hp);
+  const float* hi = static_cast<const float*>(h_in);
+  const float* gy = static_cast<const float*>(g_ys);
+  const float* w = static_cast<const float*>(w_h);
+  const float* kp = static_cast<const float*>(keep);
+  float* dxp = static_cast<float*>(d_xp);
+  float* dnr = static_cast<float*>(dn_r);
+  float* dh = static_cast<float*>(dh0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return kp == nullptr
+             ? launch_cluster_bwd<false>(rows, clusters, C, threads, smem, st, x, hpr, hi, gy, w, kp, dxp, dnr, dh, B, Tn, H, units)
+             : launch_cluster_bwd<true>(rows, clusters, C, threads, smem, st, x, hpr, hi, gy, w, kp, dxp, dnr, dh, B, Tn, H, units);
 }
 
 // The bf16-weight reverse recurrence on tensor cores, the gate recompute

@@ -56,7 +56,7 @@
 // digits and the f32 contract is f32 products; csrc/gru.cu's f32 design
 // with four gates and a cell.
 // 1. rnn::xproj_f32_kernel (csrc/rnn.cuh), the input projection off the
-//    serial chain as an f32 SIMT GEMM: xp = x @ W_x + b into an f32
+//    serial chain as a persistent f32 SIMT GEMM: xp = x @ W_x + b into an f32
 //    [B, T, 4H] plane (its operations bind: 3.36 GFLOP at B=128, T=200,
 //    D=H=128, 0.050 ms at 67 TFLOP/s).
 // 2. lstm_forward_cluster_kernel, the recurrence on a thread block cluster.

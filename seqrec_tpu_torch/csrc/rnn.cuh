@@ -14,8 +14,9 @@
 // 8-byte pieces with zero-fill past D and N (D = 100 in bf16 is a 200-byte,
 // 8-byte-aligned row). N is 3H (GRU) or 4H (LSTM).
 //
-// f32: the same projection on the CUDA cores (xproj_f32_kernel: f32
-// products, no TF32), and what the cluster recurrences share: the cluster
+// f32: the same projection on the CUDA cores (xproj_f32_kernel: a
+// persistent SIMT GEMM, f32 products, no TF32), and what the cluster
+// recurrences share: the cluster
 // primitives (rank, distributed shared memory stores, the cluster barrier),
 // the k-sliced layout of a CTA's weights and of the exchanged vector, the
 // reduce-scatter that turns a unit's partial sums into one owner lane's
@@ -193,107 +194,175 @@ __device__ __forceinline__ void zero_smem(unsigned char* p, int bytes) {
 // ---------------------------------------------------------------------------
 
 // xp [M, N] f32 = x [M, D] @ w_x [D, N] + b, all f32, f32 products (no TF32).
-// What bounds it: its operations (1.26 GFLOP at M = 12,800, D = 128,
-// N = 384: 0.019 ms at 67 TFLOP/s), read from tiles in shared memory.
-// 128 x 64 output tiles, 256 threads of 8 x 4 outputs (rows 8 ty .. 8 ty + 7,
-// columns 4 tx .. 4 tx + 3), k chunks of 16 staged by cp.async in 16-byte
-// pieces (zero past D and N, which are multiples of 4) into two buffers, the
-// next chunk in flight while this one computes. A thread's four x values of
-// a row and four W_x values of a k row are 16-byte reads; the eight lanes of
-// a quarter warp share their x row (a broadcast) and read 128 consecutive
-// bytes of W_x, so neither read conflicts. Each output sums its products in k
-// order, then adds b, as torch.matmul(x, w_x) + b does.
-constexpr int kF32TileM = 128;
-constexpr int kF32TileN = 64;
-constexpr int kF32TileK = 16;
-constexpr int kF32LdX = kF32TileK + 4;  // floats a shared row of x (80 bytes)
-constexpr int kF32ProjThreads = 256;
+// What bounds it: its operations (3.36 GFLOP at M = 25,600, D = 128,
+// N = 512: 0.050 ms at 67 TFLOP/s; 1.26 GFLOP at M = 12,800, N = 384),
+// issued from operands in shared memory. The design:
+// - kTileM x 128 output tiles, kTileM / 8 x 16 threads of 8 x 8 outputs:
+//   rows 4 tm .. +3 and kTileM / 2 + 4 tm .. +3, columns 4 tn .. +3 and
+//   64 + 4 tn .. +3, a warp's lanes 4 (tm) by 8 (tn). Per k a thread reads
+//   2 float4 of x and 2 of W_x for 64 FMAs (4 a float); a warp's x read is 4
+//   consecutive float4 and its W_x read 8, no bank conflicts.
+// - x is transposed on its way into shared memory (xT [k][m], one 4-byte
+//   cp.async an element: a warp's 32 copies are 4 rows by 8 k, each row's 8
+//   k one 32-byte sector, into 32 distinct banks), so a thread's rows of one
+//   k are float4 reads; W_x [k][n] arrives in 16-byte pieces. Zero past M,
+//   D and N (multiples of 4). k chunks of kTileK in a ring of kStagesT
+//   stages filled kStagesT - 1 chunks ahead; one barrier a chunk.
+// - Persistent: grid = min(tiles, kMinCtas x the SMs), CTA c takes tiles
+//   c, c + G, c + 2G, ... (tile j: row block j % m_tiles, column block
+//   j / m_tiles), so every SM gets within one tile of the same work, and
+//   the ring runs straight across a CTA's tiles: the next tile's first
+//   chunks load while this one's last chunk computes and its outputs are
+//   stored. Column blocks go one after another over all rows, so the last
+//   ones written, still in L2, hold a block of every row: the recurrence
+//   that reads xp next starts at t = 0 of every row.
+// Each output sums its products in k order, then adds b, as
+// torch.matmul(x, w_x) + b does.
+constexpr int kF32TileN = 128;  // columns of an xp tile
 
-__global__ void __launch_bounds__(kF32ProjThreads)
-xproj_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_x,
-                 const float* __restrict__ b, float* __restrict__ xp, int M, int D, int N) {
-  __shared__ __align__(16) float xs[2][kF32TileM * kF32LdX];     // [row][k]
-  __shared__ __align__(16) float ws[2][kF32TileK * kF32TileN];   // [k][col]
-  const int m0 = blockIdx.x * kF32TileM, n0 = blockIdx.y * kF32TileN;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  auto stage = [&](int buf, int k0) {
-    for (int c = threadIdx.x; c < kF32TileM * kF32TileK / 4; c += kF32ProjThreads) {
-      const int r = c >> 2, j = (c & 3) * 4;
-      const bool in = m0 + r < M && k0 + j < D;
-      mma::cp_async16_zfill(&xs[buf][r * kF32LdX + j],
-                            in ? x + static_cast<size_t>(m0 + r) * D + k0 + j : x, in ? 16 : 0);
-    }
-    const int r = threadIdx.x >> 4, j = (threadIdx.x & 15) * 4;
-    const bool in = k0 + r < D && n0 + j < N;
-    mma::cp_async16_zfill(&ws[buf][r * kF32TileN + j],
-                          in ? w_x + static_cast<size_t>(k0 + r) * N + n0 + j : w_x, in ? 16 : 0);
-    mma::cp_async_commit();
-  };
-
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
-  const int chunks = (D + kF32TileK - 1) / kF32TileK;
-  stage(0, 0);
-  for (int kc = 0; kc < chunks; ++kc) {
-    if (kc + 1 < chunks) {
-      stage((kc + 1) & 1, (kc + 1) * kF32TileK);
-      mma::cp_async_wait<1>();
-    } else {
-      mma::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* xa = xs[kc & 1];
-    const float* wa = ws[kc & 1];
-#pragma unroll
-    for (int kk = 0; kk < kF32TileK; kk += 4) {
-      float4 xv[8], wv[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        xv[i] = *reinterpret_cast<const float4*>(xa + (8 * ty + i) * kF32LdX + kk);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        wv[e] = *reinterpret_cast<const float4*>(wa + (kk + e) * kF32TileN + 4 * tx);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float xe[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[i][0] = fmaf(xe[e], wv[e].x, acc[i][0]);
-          acc[i][1] = fmaf(xe[e], wv[e].y, acc[i][1]);
-          acc[i][2] = fmaf(xe[e], wv[e].z, acc[i][2]);
-          acc[i][3] = fmaf(xe[e], wv[e].w, acc[i][3]);
-        }
-      }
-    }
-    __syncthreads();  // this buffer is refilled two chunks on
-  }
-  const int col = n0 + 4 * tx;
-  if (col >= N) return;
-  const float4 bias = make_float4(b[col], b[col + 1], b[col + 2], b[col + 3]);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + 8 * ty + i;
-    if (row < M) {
-      *reinterpret_cast<float4*>(xp + static_cast<size_t>(row) * N + col) =
-          make_float4(acc[i][0] + bias.x, acc[i][1] + bias.y, acc[i][2] + bias.z,
-                      acc[i][3] + bias.w);
-    }
-  }
+template <int kTileM, int kTileK, int kStagesT>
+constexpr int f32_proj_smem() {
+  return kStagesT * kTileK * (kTileM + 4 + kF32TileN) * 4;
 }
 
-// Launch the f32 projection on `s`; a CUDA error code (0: launched).
-int launch_xproj_f32(const void* x, const void* w_x, const void* b, void* xp, int M, int D,
-                     int N, cudaStream_t s) {
+template <int kTileM, int kTileK, int kStagesT, int kMinCtas>
+__global__ void __launch_bounds__(kTileM * 2, kMinCtas)
+xproj_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_x,
+                 const float* __restrict__ b, float* __restrict__ xp, int M, int D, int N) {
+  constexpr int NT = kTileM * 2;          // threads
+  constexpr int LDT = kTileM + 4;         // floats a k row of xT (the pad: distinct banks)
+  constexpr int SF = kTileK * (LDT + kF32TileN);  // floats a stage: xT, then W_x
+  extern __shared__ __align__(16) float fsm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tm = (warp >> 1) * 4 + (lane >> 3), tn = (warp & 1) * 8 + (lane & 7);
+  const int m_tiles = (M + kTileM - 1) / kTileM;
+  const int tiles = m_tiles * ((N + kF32TileN - 1) / kF32TileN);
+  const int chunks = (D + kTileK - 1) / kTileK;
+  const int G = gridDim.x;
+  // This CTA's (tile, chunk) iterations, flat: iteration i is chunk i % chunks
+  // of its tile blockIdx.x + (i / chunks) G.
+  const int iters = (tiles - static_cast<int>(blockIdx.x) + G - 1) / G * chunks;
+
+  auto stage = [&](int i) {
+    if (i < iters) {
+      const int tile = blockIdx.x + (i / chunks) * G, k0 = (i % chunks) * kTileK;
+      const int m0 = tile % m_tiles * kTileM, n0 = tile / m_tiles * kF32TileN;
+      float* xs = fsm + (i % kStagesT) * SF;
+      float* ws = xs + kTileK * LDT;
+#pragma unroll
+      for (int q = 0; q < kTileM * kTileK / NT; ++q) {
+        const int g = q * (NT / 32) + warp;  // 4 rows x 8 k a warp
+        const int m = g % (kTileM / 4) * 4 + (lane & 3), k = g / (kTileM / 4) * 8 + (lane >> 2);
+        const bool in = m0 + m < M && k0 + k < D;
+        mma::cp_async4_zfill(xs + k * LDT + m,
+                             in ? x + static_cast<size_t>(m0 + m) * D + k0 + k : x, in ? 4 : 0);
+      }
+#pragma unroll
+      for (int q = 0; q < kTileK * kF32TileN / 4 / NT; ++q) {
+        const int c = tid + q * NT;
+        const int kr = c >> 5, n = (c & 31) * 4;  // W_x: kTileK rows of 32 float4
+        const bool in = k0 + kr < D && n0 + n < N;
+        mma::cp_async16_zfill(ws + kr * kF32TileN + n,
+                              in ? w_x + static_cast<size_t>(k0 + kr) * N + n0 + n : w_x,
+                              in ? 16 : 0);
+      }
+    }
+    mma::cp_async_commit();  // an empty group past the last keeps the count
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kStagesT - 1; ++i) stage(i);
+  for (int i = 0; i < iters; ++i) {
+    mma::cp_async_wait<kStagesT - 2>();  // this thread's copies of chunk i have landed
+    __syncthreads();                     // ... everyone's; chunk i - 1's stage is free
+    stage(i + kStagesT - 1);
+    const float* xs = fsm + (i % kStagesT) * SF;
+    const float* ws = xs + kTileK * LDT;
+#pragma unroll 4
+    for (int k = 0; k < kTileK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(xs + k * LDT + 4 * tm);
+      const float4 a1 = *reinterpret_cast<const float4*>(xs + k * LDT + kTileM / 2 + 4 * tm);
+      const float4 b0 = *reinterpret_cast<const float4*>(ws + k * kF32TileN + 4 * tn);
+      const float4 b1 = *reinterpret_cast<const float4*>(ws + k * kF32TileN + 64 + 4 * tn);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float w[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(a[r], w[j], acc[r][j]);
+    }
+    if (i % chunks == chunks - 1) {  // the tile's last chunk: b, then store
+      const int tile = blockIdx.x + (i / chunks) * G;
+      const int m0 = tile % m_tiles * kTileM, n0 = tile / m_tiles * kF32TileN;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = n0 + 64 * h + 4 * tn;
+        if (col < N) {
+          const float4 bias = *reinterpret_cast<const float4*>(b + col);
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const int row = m0 + (r < 4 ? 4 * tm + r : kTileM / 2 + 4 * tm + r - 4);
+            if (row < M) {
+              *reinterpret_cast<float4*>(xp + static_cast<size_t>(row) * N + col) =
+                  make_float4(acc[r][4 * h] + bias.x, acc[r][4 * h + 1] + bias.y,
+                              acc[r][4 * h + 2] + bias.z, acc[r][4 * h + 3] + bias.w);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
+    }
+  }
+  mma::cp_async_wait<0>();  // no copy outlives the block
+}
+
+// Launch variant <kTileM, kTileK, kStagesT, kMinCtas> of the projection on
+// at most kMinCtas CTAs a SM; a CUDA error code.
+template <int kTileM, int kTileK, int kStagesT, int kMinCtas>
+int launch_xproj_f32_variant(const void* x, const void* w_x, const void* b, void* xp, int M,
+                             int D, int N, cudaStream_t s) {
   if (M <= 0 || D <= 0 || N <= 0 || D % 4 != 0 || N % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((M + kF32TileM - 1) / kF32TileM, (N + kF32TileN - 1) / kF32TileN);
-  xproj_f32_kernel<<<grid, kF32ProjThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w_x), static_cast<const float*>(b),
-      static_cast<float*>(xp), M, D, N);
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  constexpr int smem = f32_proj_smem<kTileM, kTileK, kStagesT>();
+  auto kernel = xproj_f32_kernel<kTileM, kTileK, kStagesT, kMinCtas>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long tiles = static_cast<long long>((M + kTileM - 1) / kTileM) *
+                          ((N + kF32TileN - 1) / kF32TileN);
+  const int grid = static_cast<int>(tiles < kMinCtas * sms ? tiles : kMinCtas * sms);
+  kernel<<<grid, kTileM * 2, smem, s>>>(static_cast<const float*>(x),
+                                        static_cast<const float*>(w_x),
+                                        static_cast<const float*>(b), static_cast<float*>(xp),
+                                        M, D, N);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the f32 projection on `s`; a CUDA error code (0: launched). 64-row
+// tiles, 32-deep chunks, 2 stages, 4 CTAs a SM: of the variants
+// kernel_probes.py xproj times (kernel_probes.cu), the fastest or within 3%
+// of it at the f32 paths' shapes (M = 12,800 and 25,600, N = 384 and 512).
+// On an H100 it stays 1.0-1.14x torch.addmm f32 there: an 8 x 8
+// outer-product loop of the same kind (kernel_probes.cu) with no copies, no
+// shared-memory reads and no stores runs at ~60% of the FMA peak (PERF.md).
+int launch_xproj_f32(const void* x, const void* w_x, const void* b, void* xp, int M, int D,
+                     int N, cudaStream_t s) {
+  return launch_xproj_f32_variant<64, 32, 2, 4>(x, w_x, b, xp, M, D, N, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -304,8 +373,9 @@ int launch_xproj_f32(const void* x, const void* w_x, const void* b, void* xp, in
 // scan; CTA c owns hidden units [c U, c U + U) (U = ceil(H / C)) and keeps
 // its slice of W_h in its own shared memory. The threads of a unit (the GRU
 // and LSTM forwards: S consecutive lanes, thread = S ul + s) or of 4 units
-// (the LSTM reverse: a warp) each sum the products of one slice of the K inputs of
-// the step's vector (h, K = H; dz, K = 4H), and a reduce-scatter among them
+// (the LSTM and GRU reverses: a warp) each sum the products of one slice of the K
+// inputs of the step's vector (h, K = H; the LSTM's dz, K = 4H; the GRU's
+// d_hproj, K = 3H), and a reduce-scatter among them
 // leaves each (unit, row) pair the full sums in one owner lane. Each owner
 // lane then computes its pairs and stores its results into every CTA's copy
 // of the next step's vector, through distributed shared memory; an mbarrier
@@ -484,10 +554,11 @@ int launch_clusters(void (*kernel)(Params...), int clusters, int C, int threads,
 }
 
 // The per-step operands of a cluster recurrence's lane (the forwards' xp,
-// the LSTM reverse's gate planes) arrive by cp.async into its own slots of a ring of
-// kClusterRing stages in shared memory, kClusterAhead steps ahead of their
-// use: a load into registers would be waited for by the next arrive's
-// release, which cp.async copies are not.
+// the LSTM reverse's gate planes, the GRU reverse's projections) arrive by
+// cp.async into its own slots of a ring of kClusterRing stages in shared
+// memory, kClusterAhead steps ahead of their use: a load into registers
+// would be waited for by the next arrive's release, which cp.async copies
+// are not.
 constexpr int kClusterAhead = 3;
 constexpr int kClusterRing = kClusterAhead + 1;
 

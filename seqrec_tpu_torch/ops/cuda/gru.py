@@ -25,8 +25,8 @@ function in its own numerics; neither gives way to the other):
   barrier a step; the step's latency times T binds.
 - f32 (`design` "cluster"): f32 FMAs on the CUDA cores (TF32 tensor cores
   would keep ~3 digits, not the f32 products of the contract). The
-  projection goes off the serial chain here too, as an f32 SIMT GEMM
-  (`gru_input_projection`, its own launch counter `.f32_launches`); the
+  projection goes off the serial chain here too, as a persistent f32 SIMT
+  GEMM (`gru_input_projection`, its own launch counter `.f32_launches`); the
   recurrence runs on
   thread block clusters: a cluster of C CTAs owns R batch rows for the
   whole scan, each CTA a slice of the hidden units with its W_h columns
@@ -50,8 +50,12 @@ by W_h's dtype:
   the n-block of d_hproj beside d_xp. d_hproj is f32 in the contract, so it goes to the
   tensor cores as two bf16 terms, hi = bf16(d) and lo = bf16(d - hi); W_h's
   fragments are packed here (`backward_fragments`).
-- f32 weights (`design` "cuda-core"): the gates in torch ops
-  (`reference.gru_bwd_gates`), then one thread per hidden unit, as before.
+- f32 weights (`design` "cluster", both variants): the f32 LSTM reverse
+  recurrence's design with three gates, on thread block clusters (W_h's rows
+  of a CTA's units in its shared memory, each step's d_hproj pushed to every
+  CTA of the cluster by `st.async`); the kernel recomputes r, z, n and hn
+  from the two projections a step ahead and writes dn_r beside d_xp, as the
+  bf16 design does.
 
 Both scans are bound by their serial chain over T, not by bytes or
 operations; see the source note.
@@ -92,7 +96,18 @@ NUM_SMS = 132  # H100 SXM: the clusters of one launch should fit at once
 # The f32 forward's (cluster size, rows a cluster), in the order preferred
 # (kernel_probes.py clusters on an H100: fewer rows first, then 4 CTAs).
 GRU_CLUSTERS = ((4, 4), (2, 4), (4, 8), (2, 8), (4, 16), (2, 16), (8, 4), (8, 8), (8, 16))
-F32_PROJ_TILE = (128, 64)  # kF32TileM, kF32TileN: an f32 xp tile
+# The persistent f32 projection (csrc/rnn.cuh launch_xproj_f32's variant):
+F32_PROJ_TILE = (64, 128)  # rows and columns of an xp tile
+F32_PROJ_THREADS = 128  # 8 x 8 outputs a thread
+F32_PROJ_CTAS_PER_SM = 4
+# The f32 reverse recurrence's (cluster size, rows a cluster), in the order
+# preferred (kernel_probes.py clusters on an H100): 2 CTAs of 4 rows are the
+# fastest at B=128 and 256, T=200, H=128 and 100, and at rsc15's B=256,
+# T=50, H=100 (PERF.md); at B=64, which no training path runs, 4 CTAs of 4
+# rows are faster.
+GRU_BWD_CLUSTERS = ((2, 4), (4, 4), (2, 8), (4, 8), (8, 4), (2, 16), (4, 16), (8, 8), (8, 16))
+BWD_UNITS = 8  # kBwdUnits in csrc/gru.cu: units a warp of the f32 reverse recurrence sums for
+BWD_OPERANDS = 12  # kBwdOperands: ring floats of a (unit, row) pair a step
 GRU_REG_SLICE = 16  # kGruRegSlice in csrc/gru.cu: a W_h slice of this length stays in registers
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -113,7 +128,7 @@ def _lib() -> ctypes.CDLL:
     ]
     mma.restype = ctypes.c_int
     bwd = lib.seqrec_gru_backward
-    bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+    bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     bwd.restype = ctypes.c_int
@@ -142,13 +157,22 @@ def _slice_len(K: int, S: int) -> int:
     return -(-K // (4 * S)) * 4
 
 
+def xproj_f32_grid(M: int, N: int) -> int:
+    """CTAs of the persistent f32 projection on an H100: F32_PROJ_CTAS_PER_SM
+    a SM, or one an xp tile (F32_PROJ_TILE) if there are fewer; CTA c
+    computes tiles c, c + grid, c + 2 grid, ... (tile j: row block
+    j % m_tiles, column block j // m_tiles)."""
+    tm, tn = F32_PROJ_TILE
+    return min(-(-M // tm) * -(-N // tn), F32_PROJ_CTAS_PER_SM * NUM_SMS)
+
+
 def cluster_config(B: int, H: int, K: int, w_per_k: int, ring_floats: int,
                    cluster_size: Optional[int], rows: Optional[int], preference, who: str,
                    unit_block: int = 1) -> Dict:
     """The layout of an f32 cluster recurrence (csrc/rnn.cuh): K inputs of the
     step's vector (H for the GRU and LSTM forwards' h, 4H for the LSTM
     reverse's dz), `w_per_k` weights of a thread per input of its slice (3
-    or 4 gates of one unit, or one gate of 4 units), `ring_floats` operands
+    or 4 gates of one unit, or one gate of `unit_block` units), `ring_floats` operands
     of a lane's (unit, row) pair a step in the cp.async ring (xp's three or
     four gates and keep, or six gate planes, g_y and keep), `unit_block`
     units a group of threads shares (1, or 4: a warp's).
@@ -156,7 +180,7 @@ def cluster_config(B: int, H: int, K: int, w_per_k: int, ring_floats: int,
     C CTAs a cluster each own U = ceil(H / C) units. With one unit a group,
     a unit has S k-slices of L values: S = 8, or 16 where fewer than 32
     units (padded to whole warps) would leave a CTA under 256 threads; with
-    4, a warp (S = 32 slices) sums for 4 units. A CTA keeps its weight slice
+    4 or 8, a warp (S = 32 slices) sums for that many. A CTA keeps its weight slice
     (w_per_k L threads floats), the vector's two buffers [2][R][S L + 4]
     and the operand ring [CLUSTER_RING][max(R unit_block / S, 1)][threads]
     [ring_floats] in shared memory, then the two buffers' mbarriers. (C, R)
@@ -215,8 +239,9 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
     1.5-1.8x faster than 16 (PERF.md), so the design has no other choice;
     `rows_per_cluster` and `cluster_size` are the f32 design's alone.
 
-    f32 ("cluster"): the projection's grid of 128 x 64 xp tiles (256
-    threads, f32 FMAs), then the recurrence on thread block clusters
+    f32 ("cluster"): the persistent projection (`xproj_f32_grid` CTAs of
+    F32_PROJ_THREADS threads over 64 x 128 xp tiles, f32 FMAs), then the
+    recurrence on thread block clusters
     (`cluster_config` with K = H and three gates' weights a thread, in
     GRU_CLUSTERS' order): a cluster of `cluster_size` CTAs owns
     `rows_per_cluster` batch rows, each CTA ceil(H / C) units with their
@@ -248,11 +273,10 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
             "xproj_threads": 128,
         }
     cfg = cluster_config(B, H, H, 3, 4, cluster_size, rows_per_cluster, GRU_CLUSTERS, "gru")
-    tm, tn = F32_PROJ_TILE
     w_in_regs = cfg["k_slice"] == GRU_REG_SLICE and cfg["k_slices"] == 8 and \
         cfg["rows_per_cluster"] <= 8
     return {**cfg, "w_in_regs": int(w_in_regs),
-            "xproj_grid": [-(-(B * T) // tm), -(-(3 * H) // tn)], "xproj_threads": 256}
+            "xproj_grid": [xproj_f32_grid(B * T, 3 * H)], "xproj_threads": F32_PROJ_THREADS}
 
 
 def _backward_smem(hp: int, h_in_bytes: int) -> int:
@@ -267,7 +291,8 @@ def _backward_smem(hp: int, h_in_bytes: int) -> int:
 
 
 def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
-                           rows_per_block: Optional[int] = None,
+                           rows_per_cluster: Optional[int] = None,
+                           cluster_size: Optional[int] = None,
                            h_in_dtype: torch.dtype = torch.bfloat16) -> Dict:
     """Layout of one reverse-recurrence launch; `dtype` is W_h's.
 
@@ -280,16 +305,23 @@ def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
     step's two projections (the gates are recomputed from them a step
     ahead), h_in (in `h_in_dtype`: bf16, or f32 on the keep path) and g_ys,
     which cp.async fills two steps ahead of their use. d_hproj goes to the
-    tensor cores as two bf16 terms (`d_terms`).
+    tensor cores as two bf16 terms (`d_terms`). `rows_per_cluster` and
+    `cluster_size` are the f32 design's alone.
 
-    f32 ("cuda-core"): one thread per hidden unit, the d_hproj double
-    buffer, and W_h^T in shared memory when it fits (read through L2
-    otherwise, with two rows per block, as the forward does with W_x)."""
-    es = _check_dims(B, T, H, dtype)
+    f32 ("cluster"): thread block clusters (`cluster_config` with K = 3H,
+    the step's d_hproj, in GRU_BWD_CLUSTERS' order; at H=256 W_h's rows of
+    a quarter of the units do not fit beside the ring, so C = 8): a cluster
+    of `cluster_size` CTAs owns `rows_per_cluster` batch rows, each CTA
+    ceil(H / C) units with their W_h rows in its shared memory, the d_hproj
+    double buffer and a ring of each (unit, row) pair's step operands (the
+    two projections' three gates, h_in, g_y and keep: BWD_OPERANDS floats).
+    A warp sums for BWD_UNITS units, its 32 lanes each over a slice of the
+    3H columns."""
+    _check_dims(B, T, H, dtype)
     if dtype == torch.bfloat16:
-        if rows_per_block is not None:
-            raise ValueError(f"gru: rows_per_block is the f32 design's; bf16 takes "
-                             f"{MMA_ROWS} rows a block (got {rows_per_block})")
+        if rows_per_cluster is not None or cluster_size is not None:
+            raise ValueError(f"gru: rows_per_cluster and cluster_size are the f32 design's; "
+                             f"bf16 takes {MMA_ROWS} rows a block")
         if h_in_dtype not in _DTYPE_CODE:
             raise ValueError(f"gru backward: h_in dtype {h_in_dtype} not in float32/bfloat16")
         hp = 16 * -(-H // 16)
@@ -303,25 +335,8 @@ def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
             "d_terms": 2,
             "smem_bytes": _backward_smem(hp, torch.empty((), dtype=h_in_dtype).element_size()),
         }
-    w = 3 * H * H * es
-
-    def base(r):
-        return 2 * r * 3 * H * 4
-
-    if rows_per_block is None:
-        rows_per_block = 1 if base(1) + w <= SMEM_LIMIT else 2
-    if rows_per_block not in (1, 2):
-        raise ValueError(f"gru: rows_per_block {rows_per_block} not in 1, 2")
-    R = rows_per_block
-    w_in_smem = int(base(R) + w <= SMEM_LIMIT)
-    return {
-        "design": "cuda-core",
-        "grid": -(-B // R),
-        "threads": H,
-        "rows_per_block": R,
-        "w_in_smem": w_in_smem,
-        "smem_bytes": base(R) + (w if w_in_smem else 0),
-    }
+    return cluster_config(B, H, 3 * H, BWD_UNITS, BWD_OPERANDS, cluster_size, rows_per_cluster,
+                          GRU_BWD_CLUSTERS, "gru backward", unit_block=BWD_UNITS)
 
 
 # mma.sync.m16n8k16's A fragment (PTX ISA, "Matrix Fragments for
@@ -472,7 +487,7 @@ def gru_backward(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
     W_h's dtype: bf16 weights (the bf16 model, both variants) run on the
     tensor cores, reading h_in in its own dtype (bf16, or f32 where
     `reference.gru_bwd_project` scaled it by keep) and g_ys in bf16; f32
-    weights take the gates from torch ops and run on the CUDA cores in f32.
+    weights run on thread block clusters, every operand in f32.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises."""
     if x_proj.device.type == "cpu":
@@ -490,28 +505,26 @@ def gru_backward(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
     keep_ptr = None if keep is None else keep.data_ptr()
     d_xp = torch.empty((B, T, 3 * H), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    dn_r = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     if cfg["design"] == "mma.sync":
         args = [x_proj.float().contiguous(), h_proj.float().contiguous(), h_in.contiguous(),
                 g_ys.to(torch.bfloat16).contiguous(), backward_fragments(w_h)]
         _check_operands(args + ([] if keep is None else [keep]), dev)
-        dn_r = torch.empty((B, T, H), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             rc = lib.seqrec_gru_backward_mma(
                 *(a.data_ptr() for a in args), keep_ptr, d_xp.data_ptr(), dn_r.data_ptr(),
                 dh0.data_ptr(), B, T, H, _DTYPE_CODE[h_in.dtype], cfg["smem_bytes"], stream)
     else:
-        r, z, n, hn = reference.gru_bwd_gates(x_proj.float(), h_proj.float())
-        args = [t.contiguous() for t in (r, z, n, hn)] + [
-            h_in.float().contiguous(), g_ys.float().contiguous(), w_h.float().T.contiguous()]
+        args = [t.float().contiguous() for t in (x_proj, h_proj, h_in, g_ys, w_h)]
         _check_operands(args + ([] if keep is None else [keep]), dev)
         with torch.cuda.device(dev):
             rc = lib.seqrec_gru_backward(
-                *(a.data_ptr() for a in args), keep_ptr, d_xp.data_ptr(), dh0.data_ptr(),
-                B, T, H, _DTYPE_CODE[torch.float32], cfg["rows_per_block"], cfg["w_in_smem"],
-                cfg["smem_bytes"], stream)
-        dn_r = d_xp[..., 2 * H:] * r
+                *(a.data_ptr() for a in args), keep_ptr, d_xp.data_ptr(), dn_r.data_ptr(),
+                dh0.data_ptr(), B, T, H, cfg["rows_per_cluster"], cfg["k_slices"],
+                cfg["cluster_size"], cfg["units_per_cta"], cfg["threads"], cfg["smem_bytes"],
+                stream)
     _raise_on(rc, lib, "backward")
     if keep is None:
         gru_backward.launches += 1

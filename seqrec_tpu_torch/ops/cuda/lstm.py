@@ -69,8 +69,9 @@ import torch
 
 from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.ops import reference
-from seqrec_tpu_torch.ops.cuda.gru import (F32_PROJ_TILE, MMA_ROWS, NUM_SMS, RING_STAGES,
-                                           cluster_config, plain_input_projection)
+from seqrec_tpu_torch.ops.cuda.gru import (F32_PROJ_THREADS, MMA_ROWS, RING_STAGES,
+                                           cluster_config, plain_input_projection,
+                                           xproj_f32_grid)
 
 plain = reference.lstm_scan
 plain_backward = reference.lstm_bwd_scan
@@ -180,8 +181,9 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
     fills two steps ahead of their use. `rows_per_cluster` and
     `cluster_size` are the f32 design's alone.
 
-    f32 ("cluster"): the projection's grid of 128 x 64 xp tiles (256
-    threads, f32 FMAs), then the recurrence on thread block clusters
+    f32 ("cluster"): the persistent projection (`gru.xproj_f32_grid` CTAs
+    of F32_PROJ_THREADS threads over 64 x 128 xp tiles, f32 FMAs), then
+    the recurrence on thread block clusters
     (`gru.cluster_config` with K = H, four gates' weights a thread and a
     ring of xp's four gates and keep, in LSTM_FWD_CLUSTERS' order: 4 CTAs
     of 4 rows at B=64 and 128, 2 CTAs at B=256, H=100; at H=256 a quarter
@@ -210,11 +212,10 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
         }
     cfg = cluster_config(B, H, H, 4, 5, cluster_size, rows_per_cluster, LSTM_FWD_CLUSTERS,
                          "lstm")
-    tm, tn = F32_PROJ_TILE
     w_in_regs = (cfg["k_slice"] == LSTM_REG_SLICE and cfg["k_slices"] == 8
                  and cfg["rows_per_cluster"] <= 8 and cfg["threads"] <= LSTM_REG_THREADS)
     return {**cfg, "w_in_regs": int(w_in_regs),
-            "xproj_grid": [-(-(B * T) // tm), -(-(4 * H) // tn)], "xproj_threads": 256}
+            "xproj_grid": [xproj_f32_grid(B * T, 4 * H)], "xproj_threads": F32_PROJ_THREADS}
 
 
 def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,

@@ -109,8 +109,8 @@ def gru_scan(
 # Every product that does not depend on the running cotangent is hoisted out
 # of the reverse loop (the projections before it, the weight-grad reductions
 # after it); the loop with the gate recompute folded in (`gru_bwd_fused`:
-# `gru_bwd_gates`, then `gru_bwd_scan`) is what the bf16 reverse recurrence
-# kernel in csrc/gru.cu computes.
+# `gru_bwd_gates`, then `gru_bwd_scan`) is what both reverse recurrence
+# kernels in csrc/gru.cu (bf16 and f32 weights) compute.
 
 
 def gru_bwd_project(x_proj: torch.Tensor, hs: torch.Tensor, h0: torch.Tensor,

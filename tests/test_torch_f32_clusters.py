@@ -1,12 +1,14 @@
-"""The f32 cluster recurrences' layout (csrc/rnn.cuh: the f32 GRU forward,
-the f32 LSTM forward and the f32 LSTM reverse recurrence), on the CPU: what
+"""The f32 cluster recurrences' layout (csrc/rnn.cuh: the f32 GRU forward
+and reverse recurrence, the f32 LSTM forward and reverse recurrence), on the
+CPU: what
 `launch_config` and `backward_launch_config` choose and refuse, and the
 index maps the kernels use, checked here in numpy as the kernels compute
 them: the k-sliced weight image each CTA copies into its shared memory, the
 slice layout of the exchanged vector, the reduce-scatter that leaves each
 (unit, row) pair one owner lane, and (LSTM forward) the owner's operand
-slots, cell update and keep scaling. Exact: only indices and f64 sums are
-compared."""
+slots, cell update and keep scaling; (GRU reverse) the owners' gate
+cotangents, where their d_hproj values land, and the carry. Exact: only
+indices and f64 sums are compared."""
 
 import numpy as np
 import pytest
@@ -84,7 +86,7 @@ GRU_SHAPES = [(64, 128), (128, 128), (256, 100), (11, 132), (4, 256)]
 
 
 @pytest.mark.parametrize("B,H", GRU_SHAPES)
-@pytest.mark.parametrize("which", ["gru", "lstm", "lstm forward"])
+@pytest.mark.parametrize("which", ["gru", "lstm", "lstm forward", "gru backward"])
 def test_cluster_layout_partitions_the_work(which, B, H):
     """Every hidden unit has one CTA, every (unit, row) one owner lane; the
     threads are whole warps of (unit, k-slice) pairs; the slices cover the
@@ -95,6 +97,10 @@ def test_cluster_layout_partitions_the_work(which, B, H):
         cfg, K, w_per_k, ring, block = cuda_gru.launch_config(B, 50, H, H, torch.float32), H, 3, 4, 1
     elif which == "lstm forward":  # four gates of a unit; xp's four gates and keep a step
         cfg, K, w_per_k, ring, block = cuda_lstm.launch_config(B, 50, H, H, torch.float32), H, 4, 5, 1
+    elif which == "gru backward":  # a warp for 8 units; the step's 9 operands in 12 floats
+        cfg = cuda_gru.backward_launch_config(B, 50, H, torch.float32)
+        block = cuda_gru.BWD_UNITS
+        K, w_per_k, ring = 3 * H, block, 12
     else:
         cfg = cuda_lstm.backward_launch_config(B, 50, H, torch.float32)
         K, w_per_k, ring, block = 4 * H, 4, 8, 4
@@ -223,6 +229,10 @@ def test_cluster_kernel_index_maps_compute_the_step(which, B, H, C, R):
     ("lstm forward", 128, 128, (4, 4, 128, 32, 8, 16)),  # training: 128 CTAs, one wave
     ("lstm forward", 256, 100, (2, 4, 128, 50, 8, 16)),  # 4 CTAs would be 256, two waves
     ("lstm forward", 11, 256, (8, 4, 24, 32, 8, 32)),    # 64 units' columns + ring do not fit
+    ("gru backward", 128, 128, (2, 4, 64, 64, 32, 12)),  # training: 32 clusters of 2 CTAs
+    ("gru backward", 64, 128, (2, 4, 32, 64, 32, 12)),
+    ("gru backward", 256, 100, (2, 4, 128, 50, 32, 12)),  # rsc15's keep path
+    ("gru backward", 11, 256, (8, 4, 24, 32, 32, 24)),   # 64 or more units' rows do not fit
 ])
 def test_cluster_choice_at_the_paths_shapes(which, B, H, want):
     """(cluster size, rows a cluster, CTAs, units a CTA, k-slices, slice
@@ -232,6 +242,8 @@ def test_cluster_choice_at_the_paths_shapes(which, B, H, want):
         cfg = cuda_gru.launch_config(B, 50, H, H, torch.float32)
     elif which == "lstm forward":
         cfg = cuda_lstm.launch_config(B, 50, H, H, torch.float32)
+    elif which == "gru backward":
+        cfg = cuda_gru.backward_launch_config(B, 50, H, torch.float32)
     else:
         cfg = cuda_lstm.backward_launch_config(B, 50, H, torch.float32)
     keys = ("cluster_size", "rows_per_cluster", "grid", "units_per_cta", "k_slices", "k_slice")
@@ -260,7 +272,88 @@ def test_cluster_choice_at_the_paths_shapes(which, B, H, want):
     (lambda: cuda_lstm.launch_config(8, 5, 16, 16, torch.bfloat16, cluster_size=4),
      "f32 design"),
     (lambda: cuda_lstm.launch_config(8, 5, 16, 260, torch.float32), "H <= 256"),
+    (lambda: cuda_gru.backward_launch_config(8, 5, 256, torch.float32, cluster_size=4),
+     "shared memory"),
+    (lambda: cuda_gru.backward_launch_config(8, 5, 16, torch.float32, rows_per_cluster=3),
+     "rows_per_cluster 3"),
+    (lambda: cuda_gru.backward_launch_config(8, 5, 16, torch.bfloat16, cluster_size=2),
+     "f32 design"),
+    (lambda: cuda_gru.backward_launch_config(8, 5, 260, torch.float32), "H <= 256"),
 ])
 def test_cluster_configs_refuse_what_the_kernels_cannot_take(call, match):
     with pytest.raises(ValueError, match=match):
         call()
+
+
+@pytest.mark.parametrize("B,H,C,R", [(128, 128, None, None), (256, 100, None, None),
+                                     (6, 100, 4, 8), (9, 256, None, None), (5, 36, 2, 16)])
+def test_gru_backward_cluster_step_matches_the_reference_step(B, H, C, R):
+    """One step of the f32 GRU reverse recurrence as its index maps lay it
+    out, against the loop body of reference.gru_bwd_scan in f64: each owner
+    lane's gates from its operands (the two projections' r, z, n columns,
+    h_in, g_y, keep), its d_xp, and its three d_hproj values pushed to
+    rnn::slice_pos(q H + u) of the exchanged buffer, every value of which is
+    written once; then each CTA's slice of W_h's rows (the weight image)
+    against that buffer, summed by the reduce-scatter, gives each owner the
+    carry dh z + d_hproj W_h^T, times keep."""
+    cfg = cuda_gru.backward_launch_config(B, 3, H, torch.float32, rows_per_cluster=R,
+                                          cluster_size=C)
+    C, R, S, U, L, NT = (cfg[k] for k in ("cluster_size", "rows_per_cluster", "k_slices",
+                                          "units_per_cta", "k_slice", "threads"))
+    K = 3 * H
+    rng = np.random.default_rng(H + R)
+    w = rng.normal(size=(H, K))
+    xp, hp = rng.normal(size=(R, K)), rng.normal(size=(R, K))
+    h_in, g_y, carry = (rng.normal(size=(R, H)) for _ in range(3))
+    keep = (rng.random(R) < 0.7).astype(np.float64)
+    sig = lambda a: 1.0 / (1.0 + np.exp(-a))  # noqa: E731
+
+    def step(x3, h3, hin, gy, dh_c):  # reference.gru_bwd_scan's loop body
+        r, z = sig(x3[0] + h3[0]), sig(x3[1] + h3[1])
+        n = np.tanh(x3[2] + r * h3[2])
+        dh = dh_c + gy
+        dpre_n = dh * (1.0 - z) * (1.0 - n * n)
+        dpre_z = dh * (hin - n) * z * (1.0 - z)
+        dpre_r = dpre_n * h3[2] * r * (1.0 - r)
+        return (dpre_r, dpre_z, dpre_n), (dpre_r, dpre_z, dpre_n * r), dh * z
+
+    blocks = lambda a: [a[:, q * H:(q + 1) * H] for q in range(3)]  # noqa: E731
+    d_xp_ref, d_hp_ref, dhz_ref = step(blocks(xp), blocks(hp), h_in, g_y, carry)
+    carry_ref = (dhz_ref + np.concatenate(d_hp_ref, axis=1) @ w.T) * keep[:, None]
+
+    UT = cuda_gru.BWD_UNITS
+    nr, nu, row0, ut0, owner = _owner(R, UT, S)
+    buf = np.zeros((R, S * L + 4))
+    written = np.zeros((R, K), np.int64)
+    d_xp = np.full((R, K), np.nan)
+    pairs = []
+    for c in range(C):
+        for g in range(NT // S):
+            for s in range(S):
+                for k in range(nr):
+                    for m in range(nu):
+                        ul = g * UT + ut0[s] + m
+                        if not owner[s] or ul >= U or c * U + ul >= H:
+                            continue
+                        r, u = row0[s] + k, c * U + ul
+                        # The lane's ring slot: xp's and hp's three gates of (r, u).
+                        cols = [q * H + u for q in range(3)]
+                        dx, dhp, _ = step(xp[r, cols], hp[r, cols], h_in[r, u], g_y[r, u],
+                                          carry[r, u])
+                        for q in range(3):
+                            buf[r, _slice_pos(q * H + u, L, S)] = dhp[q]
+                            written[r, q * H + u] += 1
+                        d_xp[r, cols] = dx
+                        pairs.append((c, g, s, k, m, r, u))
+    assert (written == 1).all()
+    np.testing.assert_allclose(d_xp, np.concatenate(d_xp_ref, axis=1), rtol=1e-12, atol=1e-12)
+    v4 = buf[:, :S * L].reshape(R, L // 4, S, 4)
+    got = np.full((R, H), np.nan)
+    for c in range(C):
+        ws = _weight_image(lambda k, g, u: w[u, k], U, c * U, dict(cfg, H=H, K=K), 1, UT)
+        w4 = ws.reshape(L // 4, UT, NT // S, S, 4)
+        red = _reduce_scatter(np.einsum("rjse,jxgse->gsrx", v4, w4)[..., None])
+        for cc, g, s, k, m, r, u in pairs:
+            if cc == c:
+                got[r, u] = (dhz_ref[r, u] + red[g, s, k, m, 0]) * keep[r]
+    np.testing.assert_allclose(got, carry_ref, rtol=1e-12, atol=1e-12)

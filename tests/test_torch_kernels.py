@@ -265,15 +265,15 @@ def _gate_planes(B, T, H, dtype, device, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,H,R", [(5, 7, 32, None), (3, 1, 16, None),
-                                     (128, 50, 128, None), (11, 9, 64, 2),
+                                     (128, 50, 128, None), (11, 9, 64, 8),
                                      (4, 6, 256, None)])
 def test_gru_backward_kernel_matches_plain(cuda, dtype, B, T, H, R, monkeypatch):
     """bf16 weights run the tensor-core design (8 rows a block, no row
-    choice), f32 weights the CUDA-core design at every row tiling."""
+    choice), f32 weights the cluster design (also at 8 rows a cluster)."""
     if R is not None and dtype == torch.float32:
         real = k_gru.backward_launch_config
         monkeypatch.setattr(k_gru, "backward_launch_config",
-                            lambda *a, **kw: real(*a, rows_per_block=R))
+                            lambda *a, **kw: real(*a, rows_per_cluster=R))
     planes = _gate_planes(B, T, H, dtype, cuda, seed=B + T)
     before = k_gru.gru_backward.launches
     got = k_gru.gru_backward(*planes)
@@ -883,7 +883,7 @@ def test_gru_reset_kernel_matches_plain(cuda, dtype, B, T, D, H):
 
 @pytest.mark.parametrize("B,T,H", [(5, 7, 32), (256, 50, 100), (128, 40, 128), (11, 9, 64)])
 def test_gru_backward_reset_kernel_matches_plain(cuda, B, T, H):
-    """The keep path with f32 weights: the CUDA-core design (bf16 weights'
+    """The keep path with f32 weights: the cluster design (bf16 weights'
     keep path: test_gru_bf16_backward_kernel_padding_and_ragged_rows)."""
     planes = _gate_planes(B, T, H, torch.float32, cuda, seed=B + T)
     keep = (1.0 - _reset_plane(B, T, cuda, seed=H))[:, :, None]
@@ -1083,22 +1083,46 @@ def test_f32_lstm_cluster_backward_matches_plain(cuda, B, T, H, keep):
         assert not bool(dh0.any()) and not bool(dc0.any())
 
 
+@pytest.mark.parametrize("keep", [False, True])
+@pytest.mark.parametrize("B,T,H", F32_SHAPES)
+def test_f32_gru_cluster_backward_matches_plain(cuda, B, T, H, keep):
+    """The f32 GRU reverse recurrence on clusters, the gate recompute inside,
+    against the plain f32 loop at 1e-4; with a keep plane, an all-ones plane
+    gives the no-keep kernel's bits and a reset at t=0 gives dh0 = 0."""
+    planes = _gate_planes(B, T, H, torch.float32, cuda, seed=B + T + H)
+    kp = (1.0 - _reset_plane(B, T, cuda, seed=H))[:, :, None] if keep else None
+    assert k_gru.backward_launch_config(B, T, H, torch.float32)["design"] == "cluster"
+    got = k_gru.gru_backward(*planes, kp)
+    torch.cuda.synchronize()
+    want = k_gru.plain_backward(*planes, kp)
+    for name, a, b in zip(("d_xp", "dh0", "dn_r"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+    if keep:
+        ones = k_gru.gru_backward(*planes, torch.ones_like(kp))
+        assert all(torch.equal(a, b) for a, b in zip(ones, k_gru.gru_backward(*planes)))
+        kp[:, 0] = 0.0
+        assert not bool(k_gru.gru_backward(*planes, kp)[1].any())
+
+
 @pytest.mark.parametrize("cluster_size", [1, 2, 4, 8])
 @pytest.mark.parametrize("rows", [4, 8, 16])
 def test_f32_cluster_kernels_every_tiling(cuda, cluster_size, rows, monkeypatch):
     """Every cluster size and rows a cluster the launch configs accept, at
     B = 11 and H = 64 and 128 (k-slices of 8 or 16 threads a unit; at
     H = 128 the GRU's and the LSTM forward's W_h slice in registers up to 8
-    rows), for the three cluster kernels. What a config refuses (one CTA
+    rows), for the four cluster kernels. What a config refuses (one CTA
     for H = 128's 128 units: 1,024 threads; two CTAs of 16 rows of the LSTM
-    reverse at H = 128: 328 KB), the wrapper refuses too."""
+    and GRU reverse at H = 128: 328 and 337 KB; one CTA of 16 rows of the
+    GRU reverse at H = 64: 289 KB), the wrapper refuses too."""
     real_f, real_b = k_gru.launch_config, k_lstm.backward_launch_config
-    real_lf = k_lstm.launch_config
+    real_lf, real_gb = k_lstm.launch_config, k_gru.backward_launch_config
     monkeypatch.setattr(k_gru, "launch_config", lambda *a, **kw: real_f(
         *a, rows_per_cluster=rows, cluster_size=cluster_size))
     monkeypatch.setattr(k_lstm, "launch_config", lambda *a, **kw: real_lf(
         *a, rows_per_cluster=rows, cluster_size=cluster_size))
     monkeypatch.setattr(k_lstm, "backward_launch_config", lambda *a, **kw: real_b(
+        *a, rows_per_cluster=rows, cluster_size=cluster_size))
+    monkeypatch.setattr(k_gru, "backward_launch_config", lambda *a, **kw: real_gb(
         *a, rows_per_cluster=rows, cluster_size=cluster_size))
     for H in (64, 128):
         refused = (cluster_size == 1 and H == 128, cluster_size <= 2 and rows == 16 and H == 128)
@@ -1123,14 +1147,22 @@ def test_f32_cluster_kernels_every_tiling(cuda, cluster_size, rows, monkeypatch)
         else:
             for a, b in zip(k_lstm.lstm_backward(*planes), k_lstm.plain_backward(*planes)):
                 torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        gplanes = _gate_planes(11, 9, H, torch.float32, cuda, seed=rows)
+        if refused[0] or refused[1] or (cluster_size == 1 and rows == 16):
+            with pytest.raises(ValueError, match="shared memory"):
+                k_gru.gru_backward(*gplanes)
+        else:
+            for a, b in zip(k_gru.gru_backward(*gplanes), k_gru.plain_backward(*gplanes)):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("M,D,N", [(64 * 200, 128, 384), (256 * 50, 100, 300), (15, 4, 12),
-                                   (140, 200, 132), (128 * 200, 128, 512)])
+                                   (140, 200, 132), (128 * 200, 128, 512),
+                                   (128 * 200, 128, 384), (1, 4, 4), (333, 36, 520)])
 def test_f32_input_projection_kernel_matches_f64(cuda, M, D, N):
     """The f32 forward's input projection (f32 FMAs, no TF32): ragged row and
-    column tiles, D not a multiple of the 16-deep chunk; against x @ W_x + b
-    in f64 at 1e-5."""
+    column tiles, D not a multiple of the 32-deep chunk, fewer tiles than
+    CTAs and more; against x @ W_x + b in f64 at 1e-5."""
     rng = np.random.default_rng(M + D)
     x = torch.from_numpy(rng.normal(size=(M, D)).astype(np.float32)).to(cuda)
     w_x = torch.from_numpy((rng.normal(size=(D, N)) * D ** -0.5).astype(np.float32)).to(cuda)

@@ -219,7 +219,8 @@ def test_lstm_launch_configs_at_the_training_shape():
     buffer [hi, lo][512][8] bf16, three stages of six [8][132] f32 gate
     planes and [8][136] bf16 g_ys, and the sums its warp pairs exchange
     ([8][32][4] f32). f32: both directions on thread block clusters. The
-    forward: the f32 projection's 128 x 64 tiles, then clusters of 4 CTAs
+    forward: the persistent f32 projection (1,600 tiles of 64 x 128 on 528
+    CTAs), then clusters of 4 CTAs
     over 4 rows (32 clusters, 128 CTAs: one wave on the card's 132 SMs),
     each CTA 32 units with their W_h
     columns of all four gates (64 KB) in its shared memory and, at 16 k
@@ -239,7 +240,7 @@ def test_lstm_launch_configs_at_the_training_shape():
                    "clusters": 32, "grid": 128, "threads": 256, "units_per_cta": 32,
                    "k_slices": 8, "k_slice": 16,
                    "smem_bytes": (4 * 16 * 256 + 2 * 4 * 132 + 4 * 256 * 5) * 4 + 16,
-                   "w_in_regs": 1, "xproj_grid": [200, 8], "xproj_threads": 256}
+                   "w_in_regs": 1, "xproj_grid": [528], "xproj_threads": 128}
     small = cuda_lstm.launch_config(64, 200, 64, 64, torch.float32)
     assert (small["cluster_size"], small["rows_per_cluster"], small["units_per_cta"],
             small["k_slices"], small["k_slice"], small["w_in_regs"]) == (4, 4, 16, 16, 4, 0)

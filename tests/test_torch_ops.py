@@ -195,8 +195,9 @@ def test_gru_launch_config_at_the_serving_shape():
     """bf16: the tensor-core design, 8 rows a block (8 blocks at B=64), 8
     warps of 16 units at H=128 with W_h in registers, the h double buffer
     [2][128][8] bf16, and the input projection's 64 x 64 tiles over
-    B*T = 12,800 rows and 3H = 384 columns. f32: the f32 projection's
-    128 x 64 tiles, then clusters of 4 CTAs over 4 rows (16 clusters, 64
+    B*T = 12,800 rows and 3H = 384 columns. f32: the persistent f32
+    projection (600 tiles of 64 x 128 on 4 CTAs a SM: 528 CTAs of 128
+    threads), then clusters of 4 CTAs over 4 rows (16 clusters, 64
     CTAs), each CTA 32 units of 8 k-slices of 16 (256 threads) with its
     W_h columns (48 KB, and in registers: 48 a thread), the h buffers
     [2][4][132] and the operand ring [4][256][4] f32 in shared memory."""
@@ -209,9 +210,56 @@ def test_gru_launch_config_at_the_serving_shape():
                    "clusters": 16, "grid": 64, "threads": 256, "units_per_cta": 32,
                    "k_slices": 8, "k_slice": 16,
                    "smem_bytes": (3 * 16 * 256 + 2 * 4 * 132 + 4 * 256 * 4) * 4 + 16,
-                   "w_in_regs": 1, "xproj_grid": [100, 6], "xproj_threads": 256}
+                   "w_in_regs": 1, "xproj_grid": [528], "xproj_threads": 128}
     for cfg in (bf16, f32):
         assert cfg["smem_bytes"] <= cuda_gru.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("M,N", [(1, 4), (63, 300), (64, 384), (65, 512), (12800, 384),
+                                 (25600, 384), (25600, 512), (12837, 300)])
+@pytest.mark.parametrize("ctas", ["launch", 7])
+def test_f32_projection_schedule_covers_every_tile_once(M, N, ctas):
+    """The persistent f32 projection (csrc/rnn.cuh xproj_f32_kernel), as its
+    index maps lay it out: CTA c of the grid takes tiles c, c + grid, ...
+    (tile j: row block j % m_tiles, column block j // m_tiles), each thread
+    of a tile its 8 rows (4 tm + r and 32 + 4 tm + r) by 8 columns (4 tn + j
+    and 64 + 4 tn + j); every output of [M, N] is written exactly once, over
+    the grid launch_config reports and a grid of 7 CTAs alike. A chunk's
+    copies cover xT [32][64] and W_x [32][128] once each."""
+    tm_rows, tn_cols = cuda_gru.F32_PROJ_TILE
+    NT = cuda_gru.F32_PROJ_THREADS
+    G = cuda_gru.xproj_f32_grid(M, N) if ctas == "launch" else ctas
+    tid = np.arange(NT)
+    lane, warp = tid & 31, tid >> 5
+    tm, tn = (warp >> 1) * 4 + (lane >> 3), (warp & 1) * 8 + (lane & 7)
+    rows = np.concatenate([4 * tm[:, None] + np.arange(4), tm_rows // 2 + 4 * tm[:, None]
+                           + np.arange(4)], axis=1)  # [NT, 8]
+    cols = np.concatenate([4 * tn[:, None] + np.arange(4), 64 + 4 * tn[:, None]
+                           + np.arange(4)], axis=1)  # [NT, 8]
+    m_tiles = -(-M // tm_rows)
+    tiles = m_tiles * -(-N // tn_cols)
+    hits = np.zeros((M, N), np.int64)
+    for c in range(G):
+        for tile in range(c, tiles, G):
+            m0, n0 = tile % m_tiles * tm_rows, tile // m_tiles * tn_cols
+            r = (m0 + rows)[:, :, None].repeat(8, axis=2)
+            k = (n0 + cols)[:, None, :].repeat(8, axis=1)
+            ok = (r < M) & (k < N)
+            np.add.at(hits, (r[ok], k[ok]), 1)
+    assert (hits == 1).all()
+    # One chunk's copies: x transposed (a warp 4 rows by 8 k), W_x in float4s.
+    seen_x = np.zeros((32, tm_rows), np.int64)
+    for q in range(tm_rows * 32 // NT):
+        g = q * (NT // 32) + warp
+        np.add.at(seen_x, (g // (tm_rows // 4) * 8 + (lane >> 2),
+                           g % (tm_rows // 4) * 4 + (lane & 3)), 1)
+    assert (seen_x == 1).all()
+    seen_w = np.zeros((32, tn_cols), np.int64)
+    for q in range(32 * tn_cols // 4 // NT):
+        c = tid + q * NT
+        for j in range(4):
+            np.add.at(seen_w, (c >> 5, (c & 31) * 4 + j), 1)
+    assert (seen_w == 1).all()
 
 
 @pytest.mark.parametrize("H,hp,in_regs", [(4, 16, 1), (64, 64, 1), (100, 112, 1),

@@ -420,8 +420,8 @@ def test_gru_launch_config_takes_the_rsc15_width():
     112 (7 warps, zero weights and biases past 100), 8 rows a block: 32
     blocks at B=256. The reset variant's reverse recurrence (bf16 weights)
     runs on the tensor cores too, with the same padding and blocks, h_in
-    read in f32 as the keep path hands it over; with f32 weights it keeps
-    the CUDA-core design, W_h^T (120 KB) in shared memory. The f32 forward
+    read in f32 as the keep path hands it over; with f32 weights it runs on
+    clusters of 2 CTAs of 50 units over 4 rows (128 CTAs). The f32 forward
     runs on clusters of 2 CTAs over 4 rows: 4 CTAs would make 256 CTAs at
     B=256, two waves on 132 SMs."""
     assert cuda_gru.launch_config(256, 50, 100, 100, torch.bfloat16) == {
@@ -438,7 +438,8 @@ def test_gru_launch_config_takes_the_rsc15_width():
                    "hidden_padded": 112, "w_in_regs": 1, "d_terms": 2,
                    "smem_bytes": 2 * 2 * 3 * 112 * 8 * 2 + 3 * stage}
     assert cuda_gru.backward_launch_config(256, 50, 100, torch.float32) == {
-        "design": "cuda-core", "grid": 256, "threads": 100, "rows_per_block": 1,
-        "w_in_smem": 1, "smem_bytes": 2 * 300 * 4 + 300 * 100 * 4}
+        "design": "cluster", "cluster_size": 2, "rows_per_cluster": 4, "clusters": 64,
+        "grid": 128, "threads": 224, "units_per_cta": 50, "k_slices": 32, "k_slice": 12,
+        "smem_bytes": (8 * 12 * 224 + 2 * 4 * 388 + 4 * 224 * 12) * 4 + 16}
     with pytest.raises(ValueError, match=r"D\*2 % 8"):
         cuda_gru.launch_config(256, 50, 102, 100, torch.bfloat16)

@@ -166,7 +166,11 @@ def test_gru_backward_launch_config_at_the_training_shape():
     fragments in registers, the d_hproj^T double buffer [2][hi, lo][384][8]
     bf16 and three stages of the two projections' six [8][132] f32 gate
     blocks, h_in [8][136] bf16 and g_ys [8][136] bf16; the keep path reads
-    h_in in f32 ([8][132]). f32 weights: the CUDA-core design, as before."""
+    h_in in f32 ([8][132]). f32 weights: thread block clusters, 2 CTAs of
+    64 units over 4 rows (32 clusters), each CTA W_h's rows of its units
+    (all 384 columns, 12 a lane of a warp's 32 for 8 units: 96 KB), the
+    d_hproj double buffer [2][4][388] and a ring of 4 stages of each pair's
+    12 operand floats; at H=256 a CTA of 32 units (8 CTAs) is what fits."""
     bf16 = cuda_gru.backward_launch_config(128, 200, 128, torch.bfloat16)
     stage = 6 * 8 * 132 * 4 + 8 * 136 * 2 + 8 * 136 * 2
     assert bf16 == {"design": "mma.sync", "grid": 16, "threads": 256, "rows_per_block": 8,
@@ -177,13 +181,16 @@ def test_gru_backward_launch_config_at_the_training_shape():
     assert keep["smem_bytes"] - bf16["smem_bytes"] == 3 * 8 * (132 * 4 - 136 * 2)
     for cfg in (bf16, keep):
         assert cfg["smem_bytes"] <= cuda_gru.SMEM_LIMIT
-    with pytest.raises(ValueError, match="rows_per_block is the f32 design's"):
-        cuda_gru.backward_launch_config(128, 200, 128, torch.bfloat16, rows_per_block=1)
+    with pytest.raises(ValueError, match="rows_per_cluster and cluster_size are the f32"):
+        cuda_gru.backward_launch_config(128, 200, 128, torch.bfloat16, rows_per_cluster=4)
     f32 = cuda_gru.backward_launch_config(128, 200, 128, torch.float32)
-    assert f32 == {"design": "cuda-core", "grid": 128, "threads": 128, "rows_per_block": 1,
-                   "w_in_smem": 1, "smem_bytes": 2 * 3 * 128 * 4 + 3 * 128 * 128 * 4}
+    assert f32 == {"design": "cluster", "cluster_size": 2, "rows_per_cluster": 4,
+                   "clusters": 32, "grid": 64, "threads": 256, "units_per_cta": 64,
+                   "k_slices": 32, "k_slice": 12,
+                   "smem_bytes": (8 * 12 * 256 + 2 * 4 * 388 + 4 * 256 * 12) * 4 + 16}
     wide = cuda_gru.backward_launch_config(8, 5, 256, torch.float32)
-    assert (wide["rows_per_block"], wide["w_in_smem"]) == (2, 0)
+    assert (wide["cluster_size"], wide["units_per_cta"], wide["threads"], wide["k_slice"]) == (
+        8, 32, 128, 24)
     with pytest.raises(ValueError, match="H % 4"):
         cuda_gru.backward_launch_config(8, 5, 10, torch.float32)
 
