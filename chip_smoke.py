@@ -32,13 +32,19 @@ source, all at once). Each phase prints one JSON line:
   e. train_kernels  the training path's kernels against their plain
               versions at its shapes (B=128, T=200, D=H=128, S=256, the
               [3418, 128] table): the gather's scatter-add backward with
-              planted out-of-range ids; the GRU reverse recurrence (d_xp,
-              dh0) and the weight gradients through autograd, bf16 and f32;
-              the sampled-softmax head's NLL and its loss and gradients,
-              bf16 and f32, and the device time of its backward (a plain
-              recompute); with kernel, plain, library and bound times and
-              each kernel's design and launch config (mma.sync, cluster or
-              cuda-core);
+              planted out-of-range ids, deterministic (two runs equal bit
+              for bit, and equal to plain_ordered, its order in plain
+              tensor code), its device operations a call counted by
+              torch.profiler (at most 2), and again on ids padded as
+              training pads them (about half on row 0) beside index_add_;
+              the GRU reverse recurrence (d_xp, dh0) and the
+              weight gradients through autograd, bf16 and f32; the
+              sampled-softmax head's NLL and its loss and gradients, bf16
+              and f32, the device time of its backward (a plain
+              recompute), and the f32 head at beauty's step (N=6,400,
+              S=256, H=256); with kernel, plain, library and bound times
+              and each kernel's design and launch config (mma.sync,
+              cluster, simt-stream or sorted-chunks);
   f. train    `Trainer.train_step_multi` on the same configuration at full
               width: Zipf histories of 5..200 items packed into [8, 128, 202]
               int16 wire groups, six groups through the kernels (counters
@@ -48,6 +54,9 @@ source, all at once). Each phase prints one JSON line:
               below the first's, and each kernel launches its expected
               number of times per step (none in the plain run); examples/s,
               step ms and a device-time split of a step by CUDA events;
+              one step's gradients and one K=8 group, each run twice from
+              one state on one batch group, equal bit for bit (every
+              gradient, parameter and optimizer-state leaf);
   g. tower_kernels  the SASRec and LSTM towers' kernels against their plain
               versions at the training shapes, bf16 and f32: causal
               attention at [128, 200, 1, 64] (also against
@@ -96,10 +105,12 @@ source, all at once). Each phase prints one JSON line:
               reverse recurrence), configs/ml1m_gru4rec.json and
               configs/ml1m_sasrec.json (warmup 0, as phase i), as phase f
               with two groups, step-1 loss and gradient norm within 1e-4
-              relative of the plain run;
+              relative of the plain run; on gru4rec f32 also phase f's
+              bit-for-bit check of two runs;
   m. the kernels line: {"kernels": [{name, route, source, replaces,
               launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
-              library_ms, design, dtype}, ...]}: the fourteen bf16 kernels
+              library_ms, design, dtype}, ...]} (the scatter-add also
+              with deterministic and launches_per_call): the fourteen bf16 kernels
               (each bf16 RNN forward is two: its input projection and the
               scan) and the eight f32 kernels the f32 paths run (each f32
               RNN forward is two as well), `launches` counted on a training
@@ -121,6 +132,7 @@ they run).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -311,9 +323,11 @@ def _kernel_name(demangled: str) -> str:
 
 
 # Kernels whose registers and spills the build phase always reports,
-# spilling or not: the f32 projection GEMM and the f32 GRU reverse
-# recurrence, every instantiation.
-WATCH = ("xproj_f32_kernel", "gru_backward_cluster_kernel")
+# spilling or not: the newest designs, every instantiation (the f32 head,
+# the deterministic scatter-add's two kernels, and the f32 projection GEMM
+# that shares the head's main loop).
+WATCH = ("head_f32_kernel", "scatter_partials_kernel", "scatter_combine_kernel",
+         "xproj_f32_kernel")
 
 
 def _demangled(kernels: dict) -> dict:
@@ -690,7 +704,27 @@ def phase_serve(dev, seed: int, path: str, requests: list, overrides=()) -> dict
     return result
 
 
+def _device_ops(fn) -> list:
+    """The device operations (kernels, copies, memsets) that one call of
+    `fn` runs, by torch.profiler: [name, ...]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() for _ in range(e.count)
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+
+
 def _scatter_add_check(rng, dev, table) -> dict:
+    """The deterministic scatter-add at the training shape: Zipf(1.0) ids
+    with planted out-of-range ones, two runs bit for bit equal, equal to
+    `plain_ordered` (its order in plain tensor code) bit for bit, and within
+    the f32 summation bound of the plain version (`index_put_`); its device
+    operations a call counted by the profiler (at most 2); the same on ids
+    padded as the training path pads them (rows of 5..TRAIN_T positions,
+    the rest on the padding row 0: about half), timed beside index_add_."""
     D = table.shape[1]
     N = TRAIN_B * TRAIN_T
     ids_np = zipf_items(rng, N).astype(np.int32)
@@ -699,20 +733,42 @@ def _scatter_add_check(rng, dev, table) -> dict:
     ids = torch.from_numpy(ids_np).to(dev)
     g = torch.from_numpy(rng.normal(scale=1e-2, size=(N, D)).astype(np.float32)).to(dev)
     got = k_gather.embedding_scatter_add(g, ids, VOCAB)
+    again = k_gather.embedding_scatter_add(g, ids, VOCAB)
     torch.cuda.synchronize()
+    plan = k_gather.check_scatter_add_launchable(g, ids, VOCAB)
+    check(torch.equal(got, again), "scatter-add: two runs on the same inputs differ")
+    check(torch.equal(got, k_gather.plain_ordered(g, ids, VOCAB, plan["chunk"])),
+          "scatter-add kernel is not bit-exact against plain_ordered (its order)")
     want = k_gather.plain_backward(g, ids, VOCAB)
     err = max_err(got, want)
-    # Atomics add each row's terms in an order that changes run to run: the
-    # classic bound for n terms is n * 2^-24 * sum |terms|.
+    # index_put_ adds each row's terms in another order: the classic bound
+    # for n terms is n * 2^-24 * sum |terms|.
     valid = ids_np[(ids_np >= -VOCAB) & (ids_np < VOCAB)] % VOCAB
     n_max = int(np.bincount(valid, minlength=VOCAB).max())
     tol = n_max * 2.0 ** -24 * k_gather.plain_backward(g.abs(), ids, VOCAB).max().item()
     check(err <= tol, f"scatter-add kernel vs plain max abs err {err} > {tol}")
+    ops = _device_ops(lambda: k_gather.embedding_scatter_add(g, ids, VOCAB))
+    check(0 < len(ops) <= 2, f"scatter-add: {len(ops)} device operations a call "
+                             f"(at most 2): {ops}")
+    # The training path's padding: each row's positions past its length on row 0.
+    pad_np = zipf_items(rng, N).reshape(TRAIN_B, TRAIN_T)
+    pad_np[np.arange(TRAIN_T)[None, :] >= rng.integers(5, TRAIN_T + 1, size=(TRAIN_B, 1))] = 0
+    pad_np = pad_np.reshape(-1)
+    pad_ids = torch.from_numpy(pad_np).to(dev)
+    got_pad = k_gather.embedding_scatter_add(g, pad_ids, VOCAB)
+    torch.cuda.synchronize()
+    check(torch.equal(got_pad, k_gather.embedding_scatter_add(g, pad_ids, VOCAB)),
+          "scatter-add: two runs on padded ids differ")
+    check(torch.equal(got_pad, k_gather.plain_ordered(g, pad_ids, VOCAB, plan["chunk"])),
+          "scatter-add kernel is not bit-exact against plain_ordered on padded ids")
     s_bytes = N * D * 4 + N * 4 + VOCAB * D * 4
     s_bound, s_by = bound(s_bytes, 0, torch.float32)
     ids_long = ids_ok.long()
     return {
         "shape": {"table": [VOCAB, D], "ids": [TRAIN_B, TRAIN_T], "dtype": "float32"},
+        "design": "sorted-chunks", "deterministic": True, "bit_exact_twice": True,
+        "bit_exact_vs_plain_ordered": True, "plan": plan,
+        "launches_per_call": len(ops), "device_ops_per_call": ops,
         "max_abs_err": err, "tolerance": tol, "max_ids_per_row": n_max,
         "kernel_ms": time_ms(lambda: k_gather.embedding_scatter_add(g, ids, VOCAB)),
         "plain_ms": time_ms(lambda: k_gather.plain_backward(g, ids, VOCAB)),
@@ -720,6 +776,14 @@ def _scatter_add_check(rng, dev, table) -> dict:
         "library_ms": time_ms(lambda: torch.zeros(VOCAB, D, device=dev)
                               .index_add_(0, ids_long, g)),
         "bound_ms": s_bound, "bound_by": s_by, "bytes": int(s_bytes),
+        "padded": {
+            "padding_share": float(np.mean(pad_np == 0)),
+            "max_ids_per_row": int(np.bincount(pad_np, minlength=VOCAB).max()),
+            "bit_exact_twice": True, "bit_exact_vs_plain_ordered": True,
+            "kernel_ms": time_ms(lambda: k_gather.embedding_scatter_add(g, pad_ids, VOCAB)),
+            "library_ms": time_ms(lambda: torch.zeros(VOCAB, D, device=dev)
+                                  .index_add_(0, pad_ids, g)),
+        },
     }
 
 
@@ -847,18 +911,31 @@ def _gru_backward_checks(rng, dev, x32, reset=None) -> dict:
     return out
 
 
-def _head_checks(rng, dev, table) -> dict:
-    D = table.shape[1]
-    N, S = TRAIN_B * TRAIN_T, NUM_NEG
+def _head_inputs(rng, dev, table, N: int, S: int):
+    """Zipf targets, S log-uniform negatives (two planted accidental hits
+    beside the natural ones), their logQ, tanh'd h and the table's rows."""
     targets = torch.from_numpy(zipf_items(rng, N).astype(np.int32)).to(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(rng.integers(2 ** 31)))
     neg_ids, nlq = sample_log_uniform(gen, S, VOCAB)
-    neg_ids[:2] = targets[:2]  # plant accidental hits beside the natural ones
+    neg_ids[:2] = targets[:2]
     nlq = log_uniform_log_prob(neg_ids, VOCAB)
     plq = log_uniform_log_prob(targets, VOCAB)
-    h32 = torch.tanh(torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32))).to(dev)
-    pos32, neg32 = table[targets.long()], table[neg_ids.long()]
+    h32 = torch.tanh(torch.from_numpy(rng.normal(size=(N, table.shape[1]))
+                                      .astype(np.float32))).to(dev)
+    return h32, table[targets.long()], table[neg_ids.long()], targets, neg_ids, plq, nlq
+
+
+def _head_bound(N: int, S: int, D: int, dtype) -> tuple:
+    es = 2 if dtype == torch.bfloat16 else 4
+    h_bytes = (2 * N * D + S * D) * es + N * 4 * 3 + S * 4 * 2
+    return (*bound(h_bytes, 2 * N * S * D + 2 * N * D, dtype), h_bytes)
+
+
+def _head_checks(rng, dev, table) -> dict:
+    D = table.shape[1]
+    N, S = TRAIN_B * TRAIN_T, NUM_NEG
+    h32, pos32, neg32, targets, neg_ids, plq, nlq = _head_inputs(rng, dev, table, N, S)
     w = torch.ones(N, device=dev)
     hits = int((neg_ids[None, :] == targets[:, None]).sum())
     out = {}
@@ -886,10 +963,7 @@ def _head_checks(rng, dev, table) -> dict:
         check(loss_rel <= tol, f"head {name}: loss relative err {loss_rel} > {tol}")
         for k, e in grad_rel.items():
             check(e <= 2 * tol, f"head {name}: {k} relative err {e} > {2 * tol}")
-        es = args[0].element_size()
-        h_bytes = (2 * N * D + S * D) * es + N * 4 * 3 + S * 4 * 2
-        h_flops = 2 * N * S * D + 2 * N * D
-        h_bound, h_by = bound(h_bytes, h_flops, dtype)
+        h_bound, h_by, h_bytes = _head_bound(N, S, D, dtype)
         hb, nb = args[0], args[2]
         launch = k_head.launch_config(N, S, D, dtype)
         g = torch.ones(N, device=dev)
@@ -904,12 +978,40 @@ def _head_checks(rng, dev, table) -> dict:
             "loss_rel_err": loss_rel, "grad_rel_err": grad_rel, "loss_tolerance": tol,
             "kernel_ms": time_ms(lambda: k_head.sampled_softmax_nll(*args)),
             "plain_ms": time_ms(lambda: k_head.plain(*args)),
-            # No single PyTorch call computes this function.
+            # No single PyTorch call computes this function; h @ neg.T alone
+            # (in this dtype; f32 with TF32 off) is the yardstick of its GEMM.
             "library_ms": None,
             "partial_yardstick_matmul_ms": time_ms(lambda: hb @ nb.T),
             "bound_ms": h_bound, "bound_by": h_by, "bytes": int(h_bytes),
-            "flops": int(h_flops),
+            "flops": int(2 * N * S * D + 2 * N * D),
         }
+        out[name]["kernel_over_matmul"] = (out[name]["kernel_ms"]["median"]
+                                           / out[name]["partial_yardstick_matmul_ms"]["median"])
+    # The f32 head at beauty's and steam's step (configs/beauty_gru.json:
+    # B=128, T=50, D=H=256, 256 negatives), which the first f32 design
+    # refused.
+    Nb, Sb, Db = TRAIN_B * 50, NUM_NEG, 256
+    wide = torch.from_numpy(rng.normal(scale=Db ** -0.5, size=(VOCAB, Db))
+                            .astype(np.float32)).to(dev)
+    args = _head_inputs(rng, dev, wide, Nb, Sb)
+    got = k_head.sampled_softmax_nll(*args)
+    torch.cuda.synchronize()
+    err = max_err(got, k_head.plain(*args))
+    check(bool(torch.isfinite(got).all()), "head float32 beauty: non-finite nll")
+    check(err <= HEAD_TOL, f"head float32 beauty: kernel vs plain max abs err {err} > "
+                           f"{HEAD_TOL}")
+    b_bound, b_by, b_bytes = _head_bound(Nb, Sb, Db, torch.float32)
+    launch = k_head.launch_config(Nb, Sb, Db, torch.float32)
+    hb, nb = args[0], args[2]
+    out["float32_beauty"] = {
+        "shape": {"N": Nb, "S": Sb, "H": Db, "dtype": "float32"},
+        "launch": launch, "design": launch["design"], "max_abs_err": err,
+        "tolerance": HEAD_TOL,
+        "kernel_ms": time_ms(lambda: k_head.sampled_softmax_nll(*args)),
+        "plain_ms": time_ms(lambda: k_head.plain(*args)),
+        "partial_yardstick_matmul_ms": time_ms(lambda: hb @ nb.T),
+        "bound_ms": b_bound, "bound_by": b_by, "bytes": int(b_bytes),
+    }
     return out
 
 
@@ -1392,9 +1494,50 @@ def _leaves(carry) -> list:
     return [x for c in carry for x in _leaves(c)]
 
 
+def _opt_leaves(opt_state: dict) -> dict:
+    """{name: tensor} of the optimizer state's tensors (Adam's mu and nu,
+    Adagrad's sums of squares)."""
+    return {f"{kind}/{k}": v for kind, tree in opt_state.items() if isinstance(tree, dict)
+            for k, v in tree.items()}
+
+
+def _reproducibility_check(tr: Trainer, state, group) -> dict:
+    """One step's gradients twice, then two K-step groups from one cloned
+    state on one batch group: every gradient, parameter and optimizer-state
+    leaf equal bit for bit. The embedding table's gradient comes from the
+    scatter-add alone. Names the leaves that differ, if any."""
+    grads = []
+    for _ in range(2):
+        params = {k: v.detach().clone().requires_grad_(True) for k, v in state.params.items()}
+        loss = tr.forward(state, params, tr._device_batch(group[0]))[0]
+        grads.append(tr.backward(loss, params))
+    grad_diff = [k for k in grads[0] if not torch.equal(grads[0][k], grads[1][k])]
+    embedding = [k for k in grads[0] if "embedding" in k]
+    check(embedding and not set(embedding) & set(grad_diff),
+          f"reproducible: the embedding gradient differs between two runs ({grad_diff})")
+    ends = []
+    for _ in range(2):
+        start = dataclasses.replace(
+            state, params={k: v.clone() for k, v in state.params.items()},
+            opt_state={k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v)
+                       for k, v in state.opt_state.items()})
+        ends.append(tr.train_step_multi(start, group)[0])
+    a, b = ends
+    leaves = {**{f"params/{k}": (v, b.params[k]) for k, v in a.params.items()},
+              **{k: (v, _opt_leaves(b.opt_state)[k]) for k, v in _opt_leaves(a.opt_state).items()}}
+    differ = [k for k, (u, v) in leaves.items() if not torch.equal(u, v)]
+    check(not grad_diff, f"reproducible: step-1 gradients differ between two runs: {grad_diff}")
+    check(not differ, f"reproducible: after {len(group)} steps these leaves differ: {differ}")
+    return {"steps": len(group), "gradient_leaves": len(grads[0]),
+            "embedding_gradients": embedding, "state_leaves_compared": len(leaves),
+            "leaves": sorted(leaves), "bitwise_equal": True}
+
+
 def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int,
-                overrides=()) -> dict:
+                overrides=(), reproducible: bool = False) -> dict:
     """`overrides`: config changes for this run, each named in its result.
+    `reproducible`: also run one K-step group twice from one state on one
+    batch group and require equal bits (_reproducibility_check).
     A session-parallel configuration trains on windows of synthetic
     sessions with its path's shapes (SESSION_DATA), carrying the recurrent
     state from window to window."""
@@ -1469,6 +1612,7 @@ def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int
         peaks.append(torch.cuda.max_memory_allocated())
     launches = read_counters()
     steps = groups * K
+    repro = _reproducibility_check(tr, tr.init_state(seed), batches[0]) if reproducible else None
 
     # One group through the plain versions: no kernel may launch.
     before = read_counters()
@@ -1545,6 +1689,8 @@ def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int
         "plain_launches": plain_launches, "peak_memory_bytes": int(max(peaks)),
         "peak_memory_bytes_by_group": [int(p) for p in peaks],
     }
+    if repro is not None:
+        result["reproducible"] = repro
     if session:
         result.update({
             "data": {"synthetic_dataset": SESSION_DATA[path], "seed": seed,
@@ -1564,7 +1710,8 @@ def _kernel_entry(name, source, replaces, launches, rec, plain_key="plain_ms", *
             "ms": rec["kernel_ms"]["median"], "plain_ms": rec[plain_key]["median"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": None if lib is None else lib["median"],
-            "design": rec.get("design", "cuda-core"), **extra}
+            "design": rec.get("design", "cuda-core"),
+            **{k: rec[k] for k in ("deterministic", "launches_per_call") if k in rec}, **extra}
 
 
 def main(argv=None) -> int:
@@ -1584,7 +1731,8 @@ def main(argv=None) -> int:
     requests = make_requests(rng, RunConfig.load(CONFIGS["gru4rec"]).data.max_len)
     serve = {"gru4rec": phase_serve(dev, args.seed, "gru4rec", requests)}
     tkern = phase_train_kernels(rng, dev)
-    train = {"gru4rec": phase_train(rng, dev, args.seed, "gru4rec", groups=6)}
+    train = {"gru4rec": phase_train(rng, dev, args.seed, "gru4rec", groups=6,
+                                    reproducible=True)}
     towers = phase_tower_kernels(rng, dev)
     for path in ("sasrec", "lstm"):
         serve[path] = phase_serve(dev, args.seed, path, requests)
@@ -1599,7 +1747,7 @@ def main(argv=None) -> int:
         serve[f"{path}_f32"] = phase_serve(dev, args.seed, path, requests, overrides=[F32])
     train["lstm_f32"] = phase_train(rng, dev, args.seed, "lstm", groups=2, overrides=[F32])
     train["gru4rec_f32"] = phase_train(rng, dev, args.seed, "gru4rec", groups=2,
-                                       overrides=[F32])
+                                       overrides=[F32], reproducible=True)
     train["sasrec_f32"] = phase_train(rng, dev, args.seed, "sasrec", groups=2,
                                       overrides=[F32, "train.warmup_steps=0"])
 

@@ -1,11 +1,15 @@
-// The CUDA side of `kernel_probes.py xproj` (built by it with nvcc, never by
-// the package): variants of the f32 input projection (csrc/rnn.cuh
-// xproj_f32_kernel: tile rows, k chunk, ring stages, CTAs a SM), the card's
-// f32 FMA rate on independent register chains, and an 8 x 8 outer-product
-// projection loop (128 x 128 tiles, x transposed in shared memory, 3 stages,
-// 2 CTAs a SM) whose refills, shared-memory reads in the loop and stores
-// can each be switched off, to see what its time is made of.
+// The CUDA side of `kernel_probes.py xproj` and `kernel_probes.py head`
+// (built by it with nvcc, never by the package): variants of the f32 input
+// projection (csrc/rnn.cuh xproj_f32_kernel: tile rows, k chunk, ring
+// stages, CTAs a SM), the card's f32 FMA rate on independent register
+// chains, and an 8 x 8 outer-product projection loop (128 x 128 tiles, x
+// transposed in shared memory, 3 stages, 2 CTAs a SM) whose refills,
+// shared-memory reads in the loop and stores can each be switched off, to
+// see what its time is made of; variants of the f32 sampled-softmax head
+// (csrc/softmax_head.cu head_f32_kernel: rows a block, k chunk, ring
+// stages, CTAs a SM).
 #include "seqrec_tpu_torch/csrc/rnn.cuh"
+#include "seqrec_tpu_torch/csrc/softmax_head.cu"
 
 namespace {
 
@@ -160,6 +164,18 @@ PROJ(loop_no_smem_reads, (launch_t<false, false, true>))
 PROJ(loop_no_stores, (launch_t<false, true, false>))
 PROJ(loop_bare, (launch_t<false, false, false>))
 PROJ(loop_full, (launch_t<true, true, true>))
+
+#define HEAD(name, call)                                                                  \
+  int name(const void* h, const void* pos, const void* neg, const void* t, const void* ni, \
+           const void* plq, const void* nlq, void* nll, int N, int S, int H, void* s) {    \
+    return call(h, pos, neg, t, ni, plq, nlq, nll, N, S, H, static_cast<cudaStream_t>(s));  \
+  }
+HEAD(head_m64_k32_s2_c3, (launch_head_f32_variant<64, 32, 2, 3>))
+HEAD(head_m64_k16_s2_c4, (launch_head_f32_variant<64, 16, 2, 4>))
+HEAD(head_m64_k32_s3_c2, (launch_head_f32_variant<64, 32, 3, 2>))
+HEAD(head_m64_k32_s2_c4, (launch_head_f32_variant<64, 32, 2, 4>))
+HEAD(head_m128_k32_s2_c2, (launch_head_f32_variant<128, 32, 2, 2>))
+HEAD(head_m128_k16_s2_c2, (launch_head_f32_variant<128, 16, 2, 2>))
 
 int ffma_rate(float* out, int iters, int blocks) {
   ffma_bench<<<blocks, 256>>>(out, iters);

@@ -2,6 +2,8 @@
 
     python3 kernel_probes.py clusters [--out FILE]
     python3 kernel_probes.py xproj [--out FILE]
+    python3 kernel_probes.py head [--out FILE]
+    python3 kernel_probes.py scatter [--out FILE]
 
 `clusters` sweeps the f32 cluster recurrences over their cluster size C and
 rows a cluster R (each launch checked against its plain version first):
@@ -23,6 +25,22 @@ shipped one is m64_k32_s2_c4) beside torch.addmm f32, and an 8 x 8
 outer-product loop with its refills, its shared-memory reads and its stores
 switched off one by one; and the card's f32 FMA rate on independent
 register chains.
+
+`head` builds kernel_probes.cu too and times variants of the f32
+sampled-softmax head (rows a block, k chunk, ring stages, CTAs a SM; the
+shipped ones are head_m128_k32_s2_c2 at H <= 128 and N >= 12,288, else
+head_m64_k32_s2_c3), each checked against the plain version
+first (1e-4), at N=25,600, S=256, H=128 (ML-1M GRU4Rec's step), N=6,400,
+S=256, H=256 (beauty's), N=300, S=2,048, H=128 and N=12,800, S=256, H=100,
+beside the wrapper, the plain version and f32 `h @ neg.T` alone (TF32
+off), with ptxas's registers and spills of each variant.
+
+`scatter` times the deterministic scatter-add (csrc/gather.cu) at chunks
+of 256 and 512 positions (scatter_add_plan's choice beside the other), each checked bit for bit against plain_ordered first, on Zipf(1.0)
+ids at ML-1M GRU4Rec's step (25,600 ids into [3418, 128], also with half the
+positions on the padding row), beauty's (6,400 into [12102, 256]) and
+rsc15's (12,800 into [37484, 100]): the call by CUDA events, each of its two
+kernels by torch.profiler, beside index_add_.
 
 Each prints one JSON object as its last line, beside the card's name and
 power limit, and exits non-zero without CUDA.
@@ -145,17 +163,13 @@ def probe_clusters() -> dict:
     return out
 
 
-def probe_xproj() -> dict:
+def _probe_lib():
+    """Build kernel_probes.cu into seqrec_tpu_torch/build/; (library, ptxas
+    log)."""
     import ctypes
 
-    import numpy as np
-    import torch
-
-    import chip_smoke as cs
     from seqrec_tpu_torch.ops import _build
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", 0)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = _build.BUILD_DIR / "libkernel_probes.so"
     r = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(HERE), "-o",
@@ -163,7 +177,20 @@ def probe_xproj() -> dict:
                        capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc kernel_probes.cu failed:\n{r.stdout}{r.stderr}")
-    lib = ctypes.CDLL(str(lib_path))
+    return ctypes.CDLL(str(lib_path)), r.stdout + r.stderr
+
+
+def probe_xproj() -> dict:
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    lib, _ = _probe_lib()
     variants = ["m128_k32_s3_c2", "m64_k32_s2_c4", "m64_k32_s3_c3", "m64_k16_s3_c4",
                 "m64_k16_s4_c4"]
     loops = ["loop_full", "loop_no_refill", "loop_no_smem_reads", "loop_no_stores", "loop_bare"]
@@ -204,11 +231,140 @@ def probe_xproj() -> dict:
     return out
 
 
+def probe_head() -> dict:
+    import ctypes
+    import re
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from seqrec_tpu_torch.ops.cuda import head as k_head
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    lib, log = _probe_lib()
+    variants = ["head_m64_k32_s2_c3", "head_m64_k16_s2_c4", "head_m64_k32_s3_c2",
+                "head_m64_k32_s2_c4", "head_m128_k32_s2_c2", "head_m128_k16_s2_c2"]
+    for name in variants:
+        getattr(lib, name).argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+    # ptxas's registers and spills of each head_f32_kernel instantiation.
+    ptxas = {}
+    for block in re.split(r"Compiling entry function ", log):
+        m = re.match(r"'(\S*head_f32_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E\S*)'", block)
+        if m:
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+            ptxas["m{}_k{}_s{}_c{}".format(*m.groups()[1:])] = {
+                "registers": int(regs.group(1)) if regs else None,
+                "spill_stores": int(spill.group(1)) if spill else None,
+                "spill_loads": int(spill.group(2)) if spill else None}
+    out = {"ptxas": ptxas, "shapes": {}}
+    rng = np.random.default_rng(0)
+    for N, S, H in ((25_600, 256, 128), (6_400, 256, 256), (300, 2_048, 128),
+                    (12_800, 256, 100)):
+        V = cs.VOCAB
+        table = torch.from_numpy(rng.normal(scale=H ** -0.5, size=(V, H))
+                                 .astype(np.float32)).to(dev)
+        targets = torch.from_numpy(cs.zipf_items(rng, N, ranked=True).astype(np.int32)).to(dev)
+        neg_ids = torch.from_numpy(cs.zipf_items(rng, S, ranked=True).astype(np.int32)).to(dev)
+        h = torch.tanh(torch.from_numpy(rng.normal(size=(N, H)).astype(np.float32))).to(dev)
+        plq = torch.from_numpy(rng.normal(size=N).astype(np.float32) - 6).to(dev)
+        nlq = torch.from_numpy(rng.normal(size=S).astype(np.float32) - 6).to(dev)
+        args = (h, table[targets.long()], table[neg_ids.long()], targets, neg_ids, plq, nlq)
+        want = k_head.plain(*args)
+        neg = args[2]
+        flops = 2.0 * N * S * H + 2.0 * N * H
+        rec = {"wrapper_ms": cs.time_ms(lambda: k_head.sampled_softmax_nll(*args))["median"],
+               "plain_ms": cs.time_ms(lambda: k_head.plain(*args))["median"],
+               "matmul_f32_ms": cs.time_ms(lambda: h @ neg.T)["median"],
+               "bound_ms": cs.bound((2 * N * H + S * H) * 4 + N * 12 + S * 8, flops,
+                                    torch.float32)[0]}
+        for name in variants:
+            nll = torch.empty(N, device=dev)
+            fn = getattr(lib, name)
+
+            def call():
+                rc = fn(*(a.data_ptr() for a in args), nll.data_ptr(), N, S, H,
+                        torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"{name}: CUDA error {rc}")
+
+            call()
+            torch.cuda.synchronize()
+            err = (nll - want).abs().max().item()
+            if not err <= 1e-4:
+                raise AssertionError(f"{name} {N}x{S}x{H}: max abs err {err} vs plain")
+            ms = cs.time_ms(call)["median"]
+            rec[name] = {"ms": ms, "max_abs_err": err, "tflops": flops / ms / 1e9}
+        out["shapes"][f"N{N}_S{S}_H{H}"] = rec
+    return out
+
+
+def probe_scatter() -> dict:
+    import re
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from seqrec_tpu_torch.ops.cuda import gather as k_gather
+
+    dev = torch.device("cuda", 0)
+    lib = k_gather._lib()
+    rng = np.random.default_rng(0)
+    out = {}
+    for n, V, D, pad in ((25_600, 3_418, 128, 0.0), (25_600, 3_418, 128, 0.5),
+                         (6_400, 12_102, 256, 0.0), (12_800, 37_484, 100, 0.0)):
+        p = 1.0 / np.arange(1, V)
+        ids_np = rng.choice(np.arange(1, V), size=n, p=p / p.sum())
+        ids_np[rng.random(n) < pad] = 0
+        ids = torch.from_numpy(ids_np).to(dev)
+        g = torch.from_numpy(rng.normal(scale=1e-2, size=(n, D)).astype(np.float32)).to(dev)
+        rec = {"max_ids_per_row": int(np.bincount(ids_np, minlength=V).max()),
+               "plan_chunk": k_gather.scatter_add_plan(n, V, D)["chunk"],
+               "index_add_ms": cs.time_ms(
+                   lambda: torch.zeros(V, D, device=dev).index_add_(0, ids, g))["median"]}
+        for chunk in k_gather.CHUNKS:
+            nbytes = lib.seqrec_scatter_add_scratch_bytes(n, D, chunk)
+            scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            res = torch.empty(V, D, device=dev)
+
+            def call():
+                rc = lib.seqrec_scatter_add_rows(
+                    g.data_ptr(), ids.data_ptr(), 1, n, V, D, chunk,
+                    scratch.data_ptr(), nbytes, res.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"scatter chunk {chunk}: CUDA error {rc}")
+
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(res, k_gather.plain_ordered(g, ids, V, chunk)):
+                raise AssertionError(f"scatter n={n} chunk={chunk}: not plain_ordered's bits")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    call()
+                torch.cuda.synchronize()
+            kernels = {}
+            for e in prof.key_averages():
+                name = re.search(r"\w+_kernel", e.key)
+                if name and e.self_device_time_total > 0:
+                    kernels[name.group(0)] = e.self_device_time_total / 20 / 1e3
+            rec[f"chunk{chunk}"] = {"ms": cs.time_ms(call)["median"], "kernels_ms": kernels}
+        out[f"n{n}_V{V}_D{D}_pad{pad}"] = rec
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="probe", required=True)
     for name, text in (("clusters", "the f32 cluster recurrences over C and R"),
-                       ("xproj", "the f32 input projection's variants and its loop's parts")):
+                       ("xproj", "the f32 input projection's variants and its loop's parts"),
+                       ("head", "the f32 sampled-softmax head's variants"),
+                       ("scatter", "the deterministic scatter-add's chunk sizes")):
         sub.add_parser(name, help=text).add_argument(
             "--out", help="also write the result (indented JSON) to this file")
     args = ap.parse_args(argv)
@@ -220,7 +376,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
-    result = probe_clusters() if args.probe == "clusters" else probe_xproj()
+    result = {"clusters": probe_clusters, "xproj": probe_xproj, "head": probe_head,
+              "scatter": probe_scatter}[args.probe]()
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

@@ -27,7 +27,14 @@ A turn times, by CUDA events (chip_smoke.time_ms, median of 21 runs):
     backward through gru_scan's autograd at both shapes; the f32 input
     projection at M=12,800 and 25,600 with N=384 and N=512 (D=128), beside
     torch.addmm f32 on the same values; the
-    sampled-softmax head forward at N=25,600, S=256, H=128, bf16 and f32;
+    sampled-softmax head forward at N=25,600, S=256, H=128, bf16 and f32
+    (f32 beside `h @ neg.T` alone), and f32 at beauty's N=6,400, S=256,
+    H=256 (a checkout that refuses it records its error); the scatter-add
+    (the gather's backward) at 25,600 Zipf ids into the [3418, 128] table,
+    unpadded and padded as the training path pads (about half of the
+    positions on the padding row), and at rsc15's 12,800 ids into
+    [37,484, 100] and beauty's 6,400 into [12,102, 256], each beside
+    index_add_ and with its ids on the heaviest row;
     the LSTM forward bf16 and f32 (projection included) at B=64 and B=128,
     its reset variant bf16 and f32 at B=128, beside torch.nn.LSTM in f32 (cuDNN,
     TF32 off) forward and backward (fwd+bwd - fwd) on the same inputs; the
@@ -124,6 +131,7 @@ def _worker(label: str) -> dict:
     from seqrec_tpu_torch.models.convert import flax_to_state_dict, random_params
     from seqrec_tpu_torch.ops import _build, reference
     from seqrec_tpu_torch.ops.cuda import attention as k_attn
+    from seqrec_tpu_torch.ops.cuda import gather as k_gather
     from seqrec_tpu_torch.ops.cuda import gru as k_gru
     from seqrec_tpu_torch.ops.cuda import head as k_head
     from seqrec_tpu_torch.ops.cuda import lstm as k_lstm
@@ -244,6 +252,49 @@ def _worker(label: str) -> dict:
                  targets, neg_ids, plq, nlq)
         kern[f"head_{dname(dtype)}_N{N}"] = {
             "ms": med(lambda: k_head.sampled_softmax_nll(*hargs))}
+        if dtype == torch.float32:
+            hn = hargs[2]
+            kern[f"head_{dname(dtype)}_N{N}"]["matmul_f32_ms"] = med(lambda: hh @ hn.T)
+    # The f32 head at beauty's step (B=128, T=50, D=H=256, S=256): a
+    # checkout whose kernel refuses the shape records its error.
+    Nb, Db = 128 * 50, 256
+    wide = torch.from_numpy(rng.normal(scale=Db ** -0.5, size=(cs.VOCAB, Db))
+                            .astype(np.float32)).to(dev)
+    hw = torch.tanh(torch.from_numpy(rng.normal(size=(Nb, Db)).astype(np.float32))).to(dev)
+    bargs = (hw, wide[targets[:Nb].long()], wide[neg_ids.long()], targets[:Nb], neg_ids,
+             plq[:Nb], nlq)
+    try:
+        kern[f"head_float32_N{Nb}_H{Db}"] = {
+            "ms": med(lambda: k_head.sampled_softmax_nll(*bargs)),
+            "matmul_f32_ms": med(lambda: hw @ bargs[2].T)}
+    except ValueError as e:
+        kern[f"head_float32_N{Nb}_H{Db}"] = {"error": str(e)}
+
+    # The scatter-add (the gather's backward), beside index_add_, on Zipf(1.0)
+    # ids over items 1..V-1: at GRU4Rec's training shape (25,600 ids into
+    # the [3418, 128] table), unpadded and padded as the training path pads
+    # (rows of 5..200 positions, the rest on the padding row 0: about half
+    # of all positions); at rsc15's (12,800 ids, [37,484, 100]) and beauty's
+    # (6,400 ids, [12,102, 256]) step.
+    def zipf_over(V, n):
+        p = 1.0 / np.arange(1, V)
+        return rng.choice(np.arange(1, V), size=n, p=p / p.sum())
+
+    padded = zipf_over(cs.VOCAB, N).reshape(128, 200)
+    padded[np.arange(200)[None, :] >= rng.integers(5, 201, size=(128, 1))] = 0
+    for label, V, D, ids_np in (
+            (f"scatter_add_N{N}", cs.VOCAB, H, cs.zipf_items(rng, N)),
+            (f"scatter_add_N{N}_padded", cs.VOCAB, H, padded.reshape(-1)),
+            ("scatter_add_N12800_V37484_D100", 37_484, 100, zipf_over(37_484, 12_800)),
+            ("scatter_add_N6400_V12102_D256", 12_102, 256, zipf_over(12_102, 6_400))):
+        sids = torch.from_numpy(ids_np.astype(np.int64)).to(dev)
+        sg = torch.from_numpy(rng.normal(scale=1e-2, size=(len(ids_np), D))
+                              .astype(np.float32)).to(dev)
+        kern[label] = {
+            "ms": med(lambda: k_gather.embedding_scatter_add(sg, sids, V)),
+            "index_add_ms": med(lambda: torch.zeros(V, D, device=dev).index_add_(0, sids, sg)),
+            "max_ids_per_row": int(np.bincount(ids_np, minlength=V).max()),
+            "padding_share": float(np.mean(ids_np == 0))}
 
     # The LSTM: forward scans beside nn.LSTM f32 on the same values, then the
     # reverse recurrence on gate planes of the forward's ranges.

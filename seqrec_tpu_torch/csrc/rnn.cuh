@@ -15,7 +15,8 @@
 // 8-byte-aligned row). N is 3H (GRU) or 4H (LSTM).
 //
 // f32: the same projection on the CUDA cores (xproj_f32_kernel: a
-// persistent SIMT GEMM, f32 products, no TF32), and what the cluster
+// persistent SIMT GEMM on simt_gemm.cuh's main loop, f32 products, no
+// TF32), and what the cluster
 // recurrences share: the cluster
 // primitives (rank, distributed shared memory stores, the cluster barrier),
 // the k-sliced layout of a CTA's weights and of the exchanged vector, the
@@ -28,6 +29,7 @@
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "simt_gemm.cuh"
 
 // An unnamed namespace inside: each library that includes this header
 // keeps its own copy of the kernel, and exports none of it.
@@ -197,14 +199,10 @@ __device__ __forceinline__ void zero_smem(unsigned char* p, int bytes) {
 // What bounds it: its operations (3.36 GFLOP at M = 25,600, D = 128,
 // N = 512: 0.050 ms at 67 TFLOP/s; 1.26 GFLOP at M = 12,800, N = 384),
 // issued from operands in shared memory. The design:
-// - kTileM x 128 output tiles, kTileM / 8 x 16 threads of 8 x 8 outputs:
-//   rows 4 tm .. +3 and kTileM / 2 + 4 tm .. +3, columns 4 tn .. +3 and
-//   64 + 4 tn .. +3, a warp's lanes 4 (tm) by 8 (tn). Per k a thread reads
-//   2 float4 of x and 2 of W_x for 64 FMAs (4 a float); a warp's x read is 4
-//   consecutive float4 and its W_x read 8, no bank conflicts.
-// - x is transposed on its way into shared memory (xT [k][m], one 4-byte
-//   cp.async an element: a warp's 32 copies are 4 rows by 8 k, each row's 8
-//   k one 32-byte sector, into 32 distinct banks), so a thread's rows of one
+// - kTileM x 128 output tiles, 8 x 8 outputs a thread: simt_gemm.cuh's
+//   main loop (shared with the f32 sampled-softmax head).
+// - x is transposed on its way into shared memory (simt::copy_transposed:
+//   xT [k][m], one 4-byte cp.async an element), so a thread's rows of one
 //   k are float4 reads; W_x [k][n] arrives in 16-byte pieces. Zero past M,
 //   D and N (multiples of 4). k chunks of kTileK in a ring of kStagesT
 //   stages filled kStagesT - 1 chunks ahead; one barrier a chunk.
@@ -218,7 +216,7 @@ __device__ __forceinline__ void zero_smem(unsigned char* p, int bytes) {
 //   that reads xp next starts at t = 0 of every row.
 // Each output sums its products in k order, then adds b, as
 // torch.matmul(x, w_x) + b does.
-constexpr int kF32TileN = 128;  // columns of an xp tile
+constexpr int kF32TileN = simt::kTileN;  // columns of an xp tile
 
 template <int kTileM, int kTileK, int kStagesT>
 constexpr int f32_proj_smem() {
@@ -233,8 +231,8 @@ xproj_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_x,
   constexpr int LDT = kTileM + 4;         // floats a k row of xT (the pad: distinct banks)
   constexpr int SF = kTileK * (LDT + kF32TileN);  // floats a stage: xT, then W_x
   extern __shared__ __align__(16) float fsm[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tm = (warp >> 1) * 4 + (lane >> 3), tn = (warp & 1) * 8 + (lane & 7);
+  const int tid = threadIdx.x;
+  const simt::Place p = simt::place();
   const int m_tiles = (M + kTileM - 1) / kTileM;
   const int tiles = m_tiles * ((N + kF32TileN - 1) / kF32TileN);
   const int chunks = (D + kTileK - 1) / kTileK;
@@ -249,14 +247,7 @@ xproj_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_x,
       const int m0 = tile % m_tiles * kTileM, n0 = tile / m_tiles * kF32TileN;
       float* xs = fsm + (i % kStagesT) * SF;
       float* ws = xs + kTileK * LDT;
-#pragma unroll
-      for (int q = 0; q < kTileM * kTileK / NT; ++q) {
-        const int g = q * (NT / 32) + warp;  // 4 rows x 8 k a warp
-        const int m = g % (kTileM / 4) * 4 + (lane & 3), k = g / (kTileM / 4) * 8 + (lane >> 2);
-        const bool in = m0 + m < M && k0 + k < D;
-        mma::cp_async4_zfill(xs + k * LDT + m,
-                             in ? x + static_cast<size_t>(m0 + m) * D + k0 + k : x, in ? 4 : 0);
-      }
+      simt::copy_transposed<kTileM, kTileK, NT>(xs, LDT, x, M, D, m0, k0);
 #pragma unroll
       for (int q = 0; q < kTileK * kF32TileN / 4 / NT; ++q) {
         const int c = tid + q * NT;
@@ -271,10 +262,7 @@ xproj_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_x,
   };
 
   float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  simt::zero(acc);
 #pragma unroll
   for (int i = 0; i < kStagesT - 1; ++i) stage(i);
   for (int i = 0; i < iters; ++i) {
@@ -282,31 +270,18 @@ xproj_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_x,
     __syncthreads();                     // ... everyone's; chunk i - 1's stage is free
     stage(i + kStagesT - 1);
     const float* xs = fsm + (i % kStagesT) * SF;
-    const float* ws = xs + kTileK * LDT;
-#pragma unroll 4
-    for (int k = 0; k < kTileK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(xs + k * LDT + 4 * tm);
-      const float4 a1 = *reinterpret_cast<const float4*>(xs + k * LDT + kTileM / 2 + 4 * tm);
-      const float4 b0 = *reinterpret_cast<const float4*>(ws + k * kF32TileN + 4 * tn);
-      const float4 b1 = *reinterpret_cast<const float4*>(ws + k * kF32TileN + 64 + 4 * tn);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float w[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(a[r], w[j], acc[r][j]);
-    }
+    simt::fma_chunk<kTileM, kTileK, LDT, kF32TileN>(acc, xs, xs + kTileK * LDT, p);
     if (i % chunks == chunks - 1) {  // the tile's last chunk: b, then store
       const int tile = blockIdx.x + (i / chunks) * G;
       const int m0 = tile % m_tiles * kTileM, n0 = tile / m_tiles * kF32TileN;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int col = n0 + 64 * h + 4 * tn;
+        const int col = n0 + 64 * h + 4 * p.tn;
         if (col < N) {
           const float4 bias = *reinterpret_cast<const float4*>(b + col);
 #pragma unroll
           for (int r = 0; r < 8; ++r) {
-            const int row = m0 + (r < 4 ? 4 * tm + r : kTileM / 2 + 4 * tm + r - 4);
+            const int row = m0 + simt::row_of<kTileM>(r, p.tm);
             if (row < M) {
               *reinterpret_cast<float4*>(xp + static_cast<size_t>(row) * N + col) =
                   make_float4(acc[r][4 * h] + bias.x, acc[r][4 * h + 1] + bias.y,
@@ -315,10 +290,7 @@ xproj_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_x,
           }
         }
       }
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
+      simt::zero(acc);
     }
   }
   mma::cp_async_wait<0>();  // no copy outlives the block

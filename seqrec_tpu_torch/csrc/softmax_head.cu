@@ -13,8 +13,8 @@
 //   m     = max(max_j s_j, pos)
 //   nll   = m + log(sum_j exp(s_j - m) + exp(pos - m)) - pos
 //
-// What bounds it: bytes. At the training shape (N = 25,600 rows, S = 256,
-// H = 128, bf16) the kernel must read h and pos (13.1 MB) and write 100 KB;
+// What bounds it in bf16: bytes. At the training shape (N = 25,600 rows,
+// S = 256, H = 128) the kernel must read h and pos (13.1 MB) and write 100 KB;
 // the 2*N*S*H = 1.68 GFLOP are 1.7 us at the bf16 tensor-core rate against
 // 4.0 us of bytes. Two designs, chosen by dtype:
 //
@@ -40,18 +40,36 @@
 // score -inf (exp 0); rows past N are computed and never written; H pads
 // with zeros to Hp in {16, 32, 64, 128, 256} (mma's depth is 16).
 //
-// f32: the CUDA-core design of the first port (head_forward_kernel), kept,
-// because TF32 tensor cores keep ~3 digits and the f32 contract is f32
-// products. One block of 8 warps owns 64 rows. The negatives are staged
-// once per block into shared memory, TRANSPOSED ([H][S]: 128 KB at S=256,
-// H=128), with their logQ and ids; the 64 h rows are staged too. Each warp
-// owns 8 rows; lane l owns negatives j = l + 32m, so a warp's reads of
-// negT[k][j] are consecutive (no bank conflicts) and its reads of h[row][k]
-// are broadcasts. Each lane keeps an 8 x 8 register tile of logits and
-// folds it into a running (max, sum of exp) per row, 256 negatives at a
-// time; the lanes' partial (max, sum) pairs are combined by warp shuffles.
-// The positive logit is a warp-wide dot product. Rows past N are masked
-// here; nothing is padded.
+// f32 (head_f32_kernel): a SIMT GEMM, [N, H] x [H, S], on the CUDA cores
+// (TF32 keeps ~3 digits and the f32 contract is f32 products), with a
+// row-wise online logsumexp as its epilogue. Bound by its operations: at
+// N = 25,600, S = 256, H = 128 the 1.68 GFLOP take 0.025 ms at 67 TFLOP/s,
+// the 26 MB of h and pos 0.008 ms. A block owns 64 rows (128 threads,
+// three blocks an SM at H <= 128, two at 256) or, at H <= 128 where N
+// gives enough blocks, 128 rows (256 threads, two an SM: 200 blocks fill
+// the card in one wave at N = 25,600, where 400 of 64 rows leave a second
+// wave of 4) and walks all of S:
+// - its h rows stay resident in shared memory for the whole walk,
+//   transposed once on the way in, a k chunk with each of the first stages
+//   (hT [H][rows + 4], zero past N and H: 35 KB at 64 rows and H = 128, 70
+//   KB at H = 256, 68 KB at 128 rows);
+// - the negatives stream through a cp.async ring in S-tiles of 128, one
+//   32-deep k chunk a stage, transposed on the way in ([32][132]: 17 KB a
+//   stage), so shared memory does not grow with S: any S, any H <= 256
+//   with H % 4 == 0;
+// - the FMAs are simt_gemm.cuh's main loop, which the f32 input projection
+//   (rnn.cuh) runs too: 8 x 8 outputs a thread, 4 FMAs a float read from
+//   shared memory;
+// - after a tile's last chunk each thread takes -logQ, the hit mask and
+//   -inf past S on its 8 x 8 logits; the 8 lanes of a warp that share 8
+//   rows find each row's max and sum of exponentials by xor-shuffles, and
+//   one of them, the row's owner, folds them into the row's running
+//   (m, l): 2 registers a thread, not 16. At the end the warp pair's two
+//   halves of S join through shared memory;
+// - the positive logit is an f32 dot of h and pos, 8 lanes a row, summed
+//   by shuffles, taken while the first copies are in flight.
+// The negatives are read from L2 once a block (128 KB at S = 256, H = 128).
+// Rows past N are computed and never written.
 //
 // The C interface returns cudaGetLastError() after the launch; the launch is
 // asynchronous on the caller's stream and allocates nothing.
@@ -62,158 +80,214 @@
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "simt_gemm.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = 8;
-constexpr int kRows = kWarps * kRowsPerWarp;  // rows per block
-constexpr int kNJ = 8;                         // negatives per lane per chunk
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-template <typename T>
-__device__ __forceinline__ T zero();
-template <>
-__device__ __forceinline__ float zero<float>() { return 0.0f; }
+// ---------------------------------------------------------------------------
+// f32: a SIMT GEMM with an online-logsumexp epilogue
+// ---------------------------------------------------------------------------
 
-// exp(m - M) * s, with an empty partial (m = -inf) contributing nothing.
-__device__ __forceinline__ float rescale(float s, float m, float M) {
-  return m == -INFINITY ? 0.0f : s * expf(m - M);
+constexpr int kF32MaxH = 256;
+
+// Shared memory of head_f32_kernel<kTileM, kTileK, kStages> at width H
+// (bytes): hT, the ring, then the positive logits, the odd warps' (m, l)
+// and the rows' targets.
+template <int kTileM, int kTileK, int kStages>
+__host__ __device__ constexpr int head_f32_smem(int H) {
+  return ((H + kTileK - 1) / kTileK * kTileK * (kTileM + 4) +
+          kStages * kTileK * (simt::kTileN + 4) + 4 * kTileM) * 4;
 }
 
-// The f32 design (CUDA cores).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-head_forward_kernel(const T* __restrict__ h, const T* __restrict__ pos,
-                    const T* __restrict__ neg, const int* __restrict__ targets,
-                    const int* __restrict__ neg_ids,
-                    const float* __restrict__ pos_log_q,
-                    const float* __restrict__ neg_log_q,
-                    float* __restrict__ nll, int N, int S, int Sp, int ld,
-                    int H) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* hs = reinterpret_cast<float*>(smem);          // [kRows][H] f32
-  float* nlq = hs + kRows * H;                          // [Sp]
-  int* nid = reinterpret_cast<int*>(nlq + Sp);          // [Sp]
-  T* negT = reinterpret_cast<T*>(nid + Sp);             // [H][ld], ld >= Sp
+// l_a e^(m_a - M) + l_b e^(m_b - M), M = max(m_a, m_b), with an empty
+// partial (m = -inf) contributing nothing.
+__device__ __forceinline__ void merge(float& m, float& l, float m2, float l2) {
+  const float M = fmaxf(m, m2);
+  l = (m == -INFINITY ? 0.0f : l * exp2f((m - M) * kLog2e)) +
+      (m2 == -INFINITY ? 0.0f : l2 * exp2f((m2 - M) * kLog2e));
+  m = M;
+}
 
-  const int row0 = blockIdx.x * kRows;
-  // Coalesced global reads (k fastest); the row stride ld = Sp + 4 bytes'
-  // worth of elements spreads the transposed writes over the banks.
-  for (int c = threadIdx.x; c < Sp * H; c += kThreads) {
-    const int j = c / H, k = c - j * H;
-    negT[k * ld + j] = j < S ? neg[static_cast<size_t>(j) * H + k] : zero<T>();
-  }
-  for (int j = threadIdx.x; j < Sp; j += kThreads) {
-    nlq[j] = j < S ? neg_log_q[j] : 0.0f;
-    nid[j] = j < S ? neg_ids[j] : 0;
-  }
-  for (int c = threadIdx.x; c < kRows * H; c += kThreads) {
-    const int r = c / H, k = c - r * H;
-    const int row = row0 + r;
-    hs[c] = row < N ? to_f(h[static_cast<size_t>(row) * H + k]) : 0.0f;
-  }
-  __syncthreads();
+template <int kTileM, int kTileK, int kStages, int kMinCtas>
+__global__ void __launch_bounds__(kTileM * 2, kMinCtas)
+head_f32_kernel(const float* __restrict__ h, const float* __restrict__ pos,
+                const float* __restrict__ neg, const int* __restrict__ targets,
+                const int* __restrict__ neg_ids, const float* __restrict__ pos_log_q,
+                const float* __restrict__ neg_log_q, float* __restrict__ nll, int N, int S,
+                int H) {
+  constexpr int NT = kTileM * 2, LDT = kTileM + 4, LDN = simt::kTileN + 4;
+  constexpr int kStage = kTileK * LDN;  // floats a stage
+  extern __shared__ __align__(16) float fsm[];
+  const int chunks = (H + kTileK - 1) / kTileK;
+  float* hT = fsm;                                  // [chunks * kTileK][LDT]
+  float* ring = hT + chunks * kTileK * LDT;         // kStages x [kTileK][LDN]
+  float* pdot = ring + kStages * kStage;            // [kTileM] positive logits
+  float* part = pdot + kTileM;                      // [kTileM][2] odd warps' (m, l)
+  int* tgt = reinterpret_cast<int*>(part + 2 * kTileM);  // [kTileM] targets
+  const int row0 = blockIdx.x * kTileM;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int iters = (S + simt::kTileN - 1) / simt::kTileN * chunks;
+  const simt::Place p = simt::place();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int lr0 = warp * kRowsPerWarp;  // this warp's first local row
-  if (row0 + lr0 >= N) return;          // no barrier follows
-
-  int tgt[kRowsPerWarp];
-  float m_run[kRowsPerWarp], s_run[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = row0 + lr0 + r;
-    tgt[r] = row < N ? targets[row] : 0;
-    m_run[r] = -INFINITY;
-    s_run[r] = 0.0f;
-  }
-
-  for (int jb = 0; jb < Sp; jb += 32 * kNJ) {
-    float acc[kRowsPerWarp][kNJ];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-      for (int m = 0; m < kNJ; ++m) acc[r][m] = 0.0f;
-
-    for (int k = 0; k < H; ++k) {
-      float nv[kNJ];
-#pragma unroll
-      for (int m = 0; m < kNJ; ++m) {
-        const int j = jb + 32 * m + lane;
-        nv[m] = (jb + 32 * m < Sp) ? to_f(negT[k * ld + j]) : 0.0f;
-      }
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float hv = hs[(lr0 + r) * H + k];
-#pragma unroll
-        for (int m = 0; m < kNJ; ++m) acc[r][m] = fmaf(hv, nv[m], acc[r][m]);
-      }
+  // Iteration i: k chunk i % chunks of S-tile i / chunks; its group also
+  // brings the block's h rows of chunk i while i < chunks, so the first
+  // FMAs wait for one chunk of h, not all of it.
+  auto stage = [&](int i) {
+    if (i < chunks) {
+      simt::copy_transposed<kTileM, kTileK, NT>(hT + i * kTileK * LDT, LDT, h, N, H, row0,
+                                                i * kTileK);
     }
+    if (i < iters) {
+      simt::copy_transposed<simt::kTileN, kTileK, NT>(ring + (i % kStages) * kStage, LDN, neg,
+                                                       S, H, i / chunks * simt::kTileN,
+                                                       i % chunks * kTileK);
+    }
+    mma::cp_async_commit();  // an empty group past the last keeps the count
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) stage(i);
 
+  // The positive logits while the copies fly: 8 lanes a row, each lane 4
+  // of every 32 k, all of a warp's loads issued before its sums.
+  {
+    constexpr int kRowsPerWarp = kTileM / (NT / 32);  // 16
+    const int sub = lane >> 3, kl = 4 * (lane & 7);
+    float dot[kRowsPerWarp / 4];
 #pragma unroll
-    for (int m = 0; m < kNJ; ++m) {
-      const int j = jb + 32 * m + lane;
-      if (j >= S) continue;
-      const float q = nlq[j];
-      const int id = nid[j];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float v = id == tgt[r] ? kNegInf : acc[r][m] - q;
-        if (v > m_run[r]) {
-          s_run[r] = rescale(s_run[r], m_run[r], v) + 1.0f;
-          m_run[r] = v;
-        } else {
-          s_run[r] += expf(v - m_run[r]);
+    for (int g = 0; g < kRowsPerWarp / 4; ++g) {
+      const int row = row0 + warp * kRowsPerWarp + 4 * g + sub;
+      dot[g] = 0.0f;
+      if (row < N) {
+        const float* hr = h + static_cast<size_t>(row) * H;
+        const float* pr = pos + static_cast<size_t>(row) * H;
+#pragma unroll 2
+        for (int k = kl; k < H; k += 32) {
+          const float4 a = *reinterpret_cast<const float4*>(hr + k);
+          const float4 b = *reinterpret_cast<const float4*>(pr + k);
+          dot[g] = fmaf(a.x, b.x, dot[g]);
+          dot[g] = fmaf(a.y, b.y, dot[g]);
+          dot[g] = fmaf(a.z, b.z, dot[g]);
+          dot[g] = fmaf(a.w, b.w, dot[g]);
         }
       }
     }
+#pragma unroll
+    for (int g = 0; g < kRowsPerWarp / 4; ++g) {
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], off);
+      const int lr = warp * kRowsPerWarp + 4 * g + sub, row = row0 + lr;
+      if ((lane & 7) == 0) pdot[lr] = row < N ? dot[g] - pos_log_q[row] : 0.0f;
+    }
   }
 
+  for (int r = threadIdx.x; r < kTileM; r += NT) tgt[r] = row0 + r < N ? targets[row0 + r] : 0;
+  // The 8 lanes that share 8 rows (lane / 8) each keep the running (m, l)
+  // of one of them, row_of(lane % 8), over the warp's 64 columns of S.
+  const int group = lane & ~7, me = lane & 7;
+  float m_own = -INFINITY, l_own = 0.0f;
+
+  float acc[8][8];
+  simt::zero(acc);
+  for (int i = 0; i < iters; ++i) {
+    mma::cp_async_wait<kStages - 2>();  // this thread's copies of chunk i have landed
+    __syncthreads();                    // ... everyone's; chunk i - 1's stage is free
+    stage(i + kStages - 1);
+    const int c = i % chunks;
+    simt::fma_chunk<kTileM, kTileK, LDT, LDN>(acc, hT + c * kTileK * LDT,
+                                              ring + (i % kStages) * kStage, p);
+    if (c != chunks - 1) continue;
+    // The S-tile's logits are whole: minus logQ, the hit mask, -inf past S;
+    // then, row by row, the 8 lanes' max and sum of exponentials by
+    // shuffles, folded into the row owner's (m, l).
+    const int col0 = i / chunks * simt::kTileN;
+    float q[8];
+    int id[8];
+    bool in[8];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    // Combine the lanes' (max, sum) pairs.
-    float m = m_run[r], s = s_run[r];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
-      const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
-      const float M = fmaxf(m, m2);
-      s = rescale(s, m, M) + rescale(s2, m2, M);
-      m = M;
+    for (int j = 0; j < 8; ++j) {
+      const int col = col0 + simt::col_of(j, p.tn);
+      in[j] = col < S;
+      q[j] = in[j] ? neg_log_q[col] : 0.0f;
+      id[j] = in[j] ? neg_ids[col] : 0;
     }
-    const int row = row0 + lr0 + r;
-    if (row >= N) continue;  // uniform across the warp
-    float dot = 0.0f;
-    const T* p = pos + static_cast<size_t>(row) * H;
-    for (int k = lane; k < H; k += 32) dot = fmaf(hs[(lr0 + r) * H + k], to_f(p[k]), dot);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-    const float pl = dot - pos_log_q[row];
-    const float M = fmaxf(m, pl);
-    const float lse = M + logf(rescale(s, m, M) + expf(pl - M));
-    if (lane == 0) nll[row] = lse - pl;
+    for (int r = 0; r < 8; ++r) {
+      const int target = tgt[simt::row_of<kTileM>(r, p.tm)];
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float v = !in[j] ? -INFINITY : (id[j] == target ? kNegInf : acc[r][j] - q[j]);
+        acc[r][j] = v;
+        tmax = fmaxf(tmax, v);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) {
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+      }
+      const float m_old = __shfl_sync(0xffffffffu, m_own, group + r);
+      const float m_new = fmaxf(m_old, tmax);  // -inf only if no column is real yet
+      float sum = 0.0f;
+      if (m_new != -INFINITY) {
+        // The difference first: at a row of hits (v = m = -1e30) it is 0.
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sum += exp2f((acc[r][j] - m_new) * kLog2e);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (me == r && m_new != -INFINITY) {
+        l_own = l_own * exp2f((m_old - m_new) * kLog2e) + sum;
+        m_own = m_new;
+      }
+    }
+    simt::zero(acc);
   }
+  mma::cp_async_wait<0>();  // no copy outlives the block
+
+  // Each lane owns one row's (m, l) over its warp's half of S: the odd
+  // warp's half joins the even one's.
+  const int lr = simt::row_of<kTileM>(me, p.tm), row = row0 + lr;
+  if (warp & 1) {
+    part[2 * lr] = m_own;
+    part[2 * lr + 1] = l_own;
+  }
+  __syncthreads();
+  if ((warp & 1) || row >= N) return;
+  merge(m_own, l_own, part[2 * lr], part[2 * lr + 1]);
+  const float pl = pdot[lr], M = fmaxf(m_own, pl);
+  nll[row] = M + logf(l_own * expf(m_own - M) + expf(pl - M)) - pl;
 }
 
-template <typename T>
-int launch(const void* h, const void* pos, const void* neg, const int* targets,
-           const int* neg_ids, const float* pos_log_q, const float* neg_log_q,
-           float* nll, int N, int S, int Sp, int ld, int H, size_t smem,
-           cudaStream_t stream) {
-  auto kernel = head_forward_kernel<T>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// Launch variant <kTileM, kTileK, kStages, kMinCtas> of the f32 head; a
+// CUDA error code (0: launched). H % 4 == 0, H <= kF32MaxH, any S >= 1.
+template <int kTileM, int kTileK, int kStages, int kMinCtas>
+int launch_head_f32_variant(const void* h, const void* pos, const void* neg,
+                            const void* targets, const void* neg_ids, const void* pos_log_q,
+                            const void* neg_log_q, void* nll, int N, int S, int H,
+                            cudaStream_t stream) {
+  if (N <= 0 || S <= 0 || H <= 0 || H % 4 != 0 || H > kF32MaxH) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem = head_f32_smem<kTileM, kTileK, kStages>(H);
+  auto kernel = head_f32_kernel<kTileM, kTileK, kStages, kMinCtas>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((N + kRows - 1) / kRows), block(kThreads);
-  kernel<<<grid, block, smem, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(pos),
-      static_cast<const T*>(neg), targets, neg_ids, pos_log_q, neg_log_q, nll,
-      N, S, Sp, ld, H);
+  kernel<<<(N + kTileM - 1) / kTileM, kTileM * 2, smem, stream>>>(
+      static_cast<const float*>(h), static_cast<const float*>(pos),
+      static_cast<const float*>(neg), static_cast<const int*>(targets),
+      static_cast<const int*>(neg_ids), static_cast<const float*>(pos_log_q),
+      static_cast<const float*>(neg_log_q), static_cast<float*>(nll), N, S, H);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The shipped variants: 32-deep k chunks in a 2-stage ring, and 128-row
+// blocks of 256 threads, two an SM (H <= 128), or 64-row blocks of 128
+// threads, three an SM at H <= 128 (two at 256); registers for that many.
+constexpr int kF32KChunk = 32, kF32Stages = 2;
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -222,7 +296,6 @@ int launch(const void* h, const void* pos, const void* neg, const int* targets,
 constexpr int kMmaRows = 16 * kWarps;  // rows a block: 16 a warp
 constexpr int kSTile = 64;             // negatives a stage
 constexpr int kHeadStages = 3;         // the negatives' ring
-constexpr float kLog2e = 1.4426950408889634f;
 
 // A stage: the tile's negatives [kSTile][Hp + 8] bf16, then their ids
 // [kSTile] int and logQ [kSTile] f32 (bytes).
@@ -412,30 +485,27 @@ int launch_mma_ks(const void* h, const void* pos, const void* neg, const int* ta
 
 extern "C" {
 
-// The f32 design. h, pos [N, H], neg [S, H] float (dtype 0); targets [N],
-// neg_ids [S] int32; pos_log_q [N], neg_log_q [S] float; nll [N] float. All
-// contiguous. Sp = S rounded up to 32; ld = the transposed negatives' row
-// stride in elements; smem_bytes as the caller computed it for this layout,
-// checked again here.
+// The f32 design. h, pos [N, H], neg [S, H] float; targets [N], neg_ids
+// [S] int32; pos_log_q [N], neg_log_q [S] float; nll [N] float. All
+// contiguous, 16-byte aligned; H % 4 == 0, H <= 256 (H <= 128 with 128
+// rows a block); any S > 0. rows: 64 or 128 rows a block; smem_bytes as the
+// caller computed it for this layout, checked again here.
 int seqrec_head_forward(const void* h, const void* pos, const void* neg,
                         const void* targets, const void* neg_ids,
                         const void* pos_log_q, const void* neg_log_q, void* nll,
-                        int N, int S, int Sp, int ld, int H, int dtype,
-                        long long smem_bytes, void* stream) {
-  const size_t es = 4;
-  if (N <= 0 || S <= 0 || H <= 0 || dtype != 0 || Sp != (S + 31) / 32 * 32 || ld < Sp) {
-    return static_cast<int>(cudaErrorInvalidValue);
+                        int N, int S, int H, int rows, long long smem_bytes, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H > 0 && H <= 128 && rows == 128 &&
+      head_f32_smem<128, kF32KChunk, kF32Stages>(H) == smem_bytes) {
+    return launch_head_f32_variant<128, kF32KChunk, kF32Stages, 2>(
+        h, pos, neg, targets, neg_ids, pos_log_q, neg_log_q, nll, N, S, H, s);
   }
-  const size_t smem = static_cast<size_t>(kRows) * H * 4 +
-                      static_cast<size_t>(Sp) * 8 +
-                      static_cast<size_t>(H) * ld * es;
-  if (static_cast<long long>(smem) != smem_bytes) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (H > 0 && H <= kF32MaxH && rows == 64 &&
+      head_f32_smem<64, kF32KChunk, kF32Stages>(H) == smem_bytes) {
+    return launch_head_f32_variant<64, kF32KChunk, kF32Stages, 3>(
+        h, pos, neg, targets, neg_ids, pos_log_q, neg_log_q, nll, N, S, H, s);
   }
-  return launch<float>(h, pos, neg, static_cast<const int*>(targets),
-                       static_cast<const int*>(neg_ids), static_cast<const float*>(pos_log_q),
-                       static_cast<const float*>(neg_log_q), static_cast<float*>(nll), N, S,
-                       Sp, ld, H, smem, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The bf16 design (tensor cores). h, pos [N, H], neg [S, H] bf16; targets

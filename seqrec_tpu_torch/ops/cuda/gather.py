@@ -7,6 +7,12 @@ design. Same contract as the plain versions: `jnp.take` semantics, ids in
 [-V, V) wrap, other ids give NaN rows forward and drop their cotangent rows
 backward. The table's gradient is accumulated in f32 and cast to the
 table's dtype.
+
+The scatter-add is deterministic: every row sums its terms in an order the
+ids' positions fix (chunks of positions, runs of one id in a chunk cut into
+sub-runs of 32; `scatter_add_plan`), so the same inputs give the same bits
+on every run. `plain_ordered` adds in that order in plain tensor code, for
+the tests.
 """
 
 from __future__ import annotations
@@ -20,6 +26,14 @@ from seqrec_tpu_torch.ops import reference
 
 plain = reference.embedding_gather
 plain_backward = reference.embedding_scatter_add
+
+# The scatter-add's order (csrc/gather.cu, which also owns its scratch
+# layout): positions a sub-run, the chunk sizes, and the largest table it
+# takes (ids kept as int32).
+SUB_RUN = 32
+CHUNKS = (256, 512)
+MAX_ROWS = 2 ** 31 - 1
+MAX_IDS = 2 ** 31 - 1  # positions are kept as int32 too
 
 # The dtype's quiet-NaN bit pattern, repeated to fill 32 bits.
 _NAN_WORD = {torch.float32: 0x7FC00000, torch.bfloat16: 0x7FC07FC0}
@@ -37,10 +51,14 @@ def _lib() -> ctypes.CDLL:
     bwd = lib.seqrec_scatter_add_rows
     bwd.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # g, ids, int64?
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,  # n, V, D
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,  # n, V, D, chunk
+        ctypes.c_void_p, ctypes.c_longlong,  # scratch, its bytes
         ctypes.c_void_p, ctypes.c_void_p,  # out, stream
     ]
     bwd.restype = ctypes.c_int
+    size = lib.seqrec_scatter_add_scratch_bytes
+    size.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]  # n, D, chunk
+    size.restype = ctypes.c_longlong
     lib.seqrec_gather_error_string.argtypes = [ctypes.c_int]
     lib.seqrec_gather_error_string.restype = ctypes.c_char_p
     return lib
@@ -89,9 +107,23 @@ def _gather_kernel(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def scatter_add_plan(n: int, num_rows: int, D: int) -> dict:
+    """The deterministic scatter-add's two launches for n ids into a
+    [num_rows, D] table: chunks of `chunk` positions (256 up to n = 16,384,
+    else 512: 25 to 50 chunks, one block each, at the training shapes),
+    then a warp a table row. ValueError for what it cannot take."""
+    if not 0 <= n <= MAX_IDS or D <= 0 or not 0 < num_rows <= MAX_ROWS:
+        raise ValueError(f"scatter_add: n={n}, num_rows={num_rows}, D={D}; the kernel "
+                         f"takes 0 <= n <= {MAX_IDS}, 0 < num_rows <= {MAX_ROWS} and D > 0")
+    chunk = CHUNKS[0] if n <= 64 * CHUNKS[0] else CHUNKS[1]
+    return {"chunk": chunk, "chunks": -(-n // chunk), "threads": chunk, "sub_run": SUB_RUN,
+            "launches": 2 if n else 0, "deterministic": True}
+
+
 def check_scatter_add_launchable(g: torch.Tensor, ids: torch.Tensor,
-                                 num_rows: int) -> None:
-    """Raise ValueError for inputs the scatter-add kernel cannot take."""
+                                 num_rows: int) -> dict:
+    """Raise ValueError for inputs the scatter-add kernel cannot take; else
+    its plan."""
     if ids.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"scatter_add: ids dtype {ids.dtype} not in int32/int64")
     if not g.is_floating_point():
@@ -102,6 +134,63 @@ def check_scatter_add_launchable(g: torch.Tensor, ids: torch.Tensor,
             or num_rows <= 0 or g.shape[-1] <= 0:
         raise ValueError(f"scatter_add: g {tuple(g.shape)} does not match ids "
                          f"{tuple(ids.shape)} and num_rows={num_rows}")
+    return scatter_add_plan(ids.numel(), num_rows, g.shape[-1])
+
+
+def _sequential_sums(values: torch.Tensor, seg: torch.Tensor, groups: int) -> torch.Tensor:
+    """[groups, D]: each group's rows of `values` summed from 0 in their
+    order (`seg` [m] sorted, the group of each row), one f32 add at a
+    time."""
+    out = torch.zeros((groups, values.shape[1]), dtype=torch.float32, device=values.device)
+    if seg.numel() == 0:
+        return out
+    idx = torch.arange(seg.numel(), device=seg.device)
+    rank = idx - torch.searchsorted(seg, seg)
+    for k in range(int(rank.max()) + 1):
+        at = rank == k
+        out[seg[at]] = out[seg[at]] + values[at]
+    return out
+
+
+def plain_ordered(g: torch.Tensor, ids: torch.Tensor, num_rows: int,
+                  chunk: int) -> torch.Tensor:
+    """The scatter-add in the kernel's order, in plain tensor code (for the
+    tests: the kernel equals it bit for bit): a row's terms summed from 0
+    in position order within each sub-run (at most SUB_RUN of one id's
+    positions in one chunk of `chunk`), the sub-runs of a run summed from 0
+    in order, then the chunks' partials from 0 in chunk order."""
+    ids = ids.reshape(-1).long()
+    g = g.reshape(ids.shape[0], g.shape[-1]).float()
+    valid = (ids >= -num_rows) & (ids < num_rows)
+    pos = torch.arange(ids.numel(), device=ids.device)[valid]
+    rows = torch.where(ids < 0, ids + num_rows, ids)[valid]
+    chunk_of = pos // chunk
+    # Sort by (chunk, row), positions ascending within.
+    order = torch.argsort(chunk_of * num_rows + rows, stable=True)
+    pos, rows, chunk_of = pos[order], rows[order], chunk_of[order]
+    run_key = chunk_of * num_rows + rows
+    _, run = torch.unique_consecutive(run_key, return_inverse=True)
+    rank = torch.arange(run.numel(), device=run.device) - torch.searchsorted(run, run)
+    _, sub = torch.unique_consecutive(run * (chunk // SUB_RUN + 1) + rank // SUB_RUN,
+                                      return_inverse=True)
+    n_sub = int(sub.max()) + 1 if sub.numel() else 0
+    sub_sums = _sequential_sums(g[pos], sub, n_sub)
+    first = torch.ones_like(sub, dtype=torch.bool)
+    first[1:] = sub[1:] != sub[:-1]
+    n_run = int(run.max()) + 1 if run.numel() else 0
+    run_sums = _sequential_sums(sub_sums, run[first], n_run)
+    head = torch.ones_like(run, dtype=torch.bool)
+    head[1:] = run[1:] != run[:-1]
+    run_rows, run_chunks = rows[head], chunk_of[head]
+    # Per table row, its chunks' partials in chunk order.
+    order = torch.argsort(run_rows * (int(chunk_of.max()) + 1 if chunk_of.numel() else 1)
+                          + run_chunks, stable=True)
+    out = torch.zeros((num_rows, g.shape[1]), dtype=torch.float32, device=g.device)
+    seg_rows = run_rows[order]
+    if seg_rows.numel():
+        uniq, seg = torch.unique_consecutive(seg_rows, return_inverse=True)
+        out[uniq] = _sequential_sums(run_sums[order], seg, uniq.numel())
+    return out
 
 
 def embedding_scatter_add(g: torch.Tensor, ids: torch.Tensor,
@@ -109,25 +198,28 @@ def embedding_scatter_add(g: torch.Tensor, ids: torch.Tensor,
     """The gather's transpose -> a [num_rows, D] f32 table holding each row
     of `g` ([*ids.shape, D]) summed at its id (wrapped; out-of-range ids
     dropped). A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel or raises."""
+    the kernels (two, deterministic) or raises."""
     if g.device.type == "cpu":
         return plain_backward(g, ids, num_rows)
     if g.device.type != "cuda":
         raise ValueError(f"scatter_add: no kernel for device {g.device}")
-    check_scatter_add_launchable(g, ids, num_rows)
+    plan = check_scatter_add_launchable(g, ids, num_rows)
     D = g.shape[-1]
     n = ids.numel()
+    if n == 0:
+        return torch.zeros((num_rows, D), dtype=torch.float32, device=g.device)
     ids_c = ids.contiguous()
     g_c = g.to(torch.float32).contiguous()
-    out = torch.zeros((num_rows, D), dtype=torch.float32, device=g.device)
-    if n == 0:
-        return out
+    dev = g.device
     lib = _lib()
-    with torch.cuda.device(g.device):
+    nbytes = lib.seqrec_scatter_add_scratch_bytes(n, D, plan["chunk"])
+    out = torch.empty((num_rows, D), dtype=torch.float32, device=dev)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
         rc = lib.seqrec_scatter_add_rows(
             g_c.data_ptr(), ids_c.data_ptr(), int(ids_c.dtype == torch.int64), n,
-            num_rows, D, out.data_ptr(),
-            torch.cuda.current_stream(g.device).cuda_stream,
+            num_rows, D, plan["chunk"], scratch.data_ptr(), nbytes, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         msg = lib.seqrec_gather_error_string(rc).decode()

@@ -10,9 +10,11 @@ note):
   pattern with the negatives as keys: a warp's 16 h rows as A fragments in
   registers, the negatives streamed through shared memory in S-tiles of 64
   (any S), an online logsumexp per row on the accumulators.
-- f32 (`design` "cuda-core"): f32 FMAs on the CUDA cores with all S
-  negatives staged transposed in shared memory, as before (S * H * 4 bytes
-  must fit a block's 227 KB).
+- f32 (`design` "simt-stream"): a SIMT GEMM on the CUDA cores (f32 FMAs,
+  no TF32; the main loop of the f32 input projection, `csrc/simt_gemm.cuh`)
+  with an online logsumexp as its epilogue: a block's 64 or 128 h rows
+  resident in shared memory, the negatives streamed in S-tiles of 128
+  through a cp.async ring (any S, any H <= 256 with H % 4 == 0).
 
 The backward is the JAX package's `_head_core_bwd`: a recompute of the
 softmax in plain tensor code (`reference.sampled_softmax_nll_bwd`), whose two
@@ -39,18 +41,27 @@ from seqrec_tpu_torch.ops import reference
 plain = reference.sampled_softmax_nll
 
 SMEM_LIMIT = 232_448  # shared memory one block may opt in to on sm_90 (227 KB)
-ROWS_PER_BLOCK = 64  # kRows in csrc/softmax_head.cu: the f32 design's rows a block
-MMA_ROWS = 128  # kMmaRows: the bf16 design's rows a block, 16 a warp
+MMA_ROWS = 128  # kMmaRows in csrc/softmax_head.cu: the bf16 design's rows a block, 16 a warp
 S_TILE = 64  # kSTile: negatives a stage of the bf16 design's ring
 STAGES = 3  # kHeadStages
 MMA_MAX_H = 256
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The f32 design (simt::kTileN, kF32KChunk, kF32Stages, kF32MaxH): 64 or
+# 128 h rows a block, resident, on 2 threads a row of 8 x 8 logits each.
+ROWS_PER_BLOCK = 64
+WIDE_ROWS = 128  # at H <= WIDE_MAX_H and N >= WIDE_MIN_N
+WIDE_MAX_H = 128
+WIDE_MIN_N = 96 * WIDE_ROWS  # 96 blocks: most of the card's 132 SMs
+F32_S_TILE = 128  # negatives an S-tile
+F32_K_CHUNK = 32  # k a ring stage
+F32_STAGES = 2
+F32_MAX_H = 256
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("softmax_head")
     fn = lib.seqrec_head_forward
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -74,10 +85,15 @@ def launch_config(N: int, S: int, H: int, dtype: torch.dtype) -> Dict:
     registers), a ring of STAGES S-tiles of 64 negatives [64][Hp + 8] bf16
     with their ids and logQ: any S.
 
-    f32 ("cuda-core"): 64 rows a block; the negatives live in shared memory
-    transposed, so S * H * 4 bytes (plus 64 f32 rows of h) must fit in the
-    227 KB a block can have: at H=128, S up to 352."""
-    if dtype not in _DTYPE_CODE:
+    f32 ("simt-stream"): 64 rows a block of 128 threads (8 x 8 logits a
+    thread), or 128 rows of 256 threads where H <= 128 and N >= 12,288 (at
+    least 96 such blocks; one wave of 200 at N = 25,600 where 400 blocks of
+    64 rows leave a second wave of 4): their h transposed into shared
+    memory once ([Hp][rows + 4] f32, H padded with zeros to Hp, a multiple
+    of the 32-deep k chunk), the negatives streamed in S-tiles of 128
+    through a ring of two k chunks ([32][132] f32 each): any S, and H <= 256
+    with H % 4 == 0 (16-byte rows for the positive logit's float4 reads)."""
+    if dtype not in _DTYPES:
         raise ValueError(f"softmax_head: dtype {dtype} not in float32/bfloat16")
     if min(N, S, H) <= 0:
         raise ValueError(f"softmax_head: empty shape N={N} S={S} H={H}")
@@ -89,16 +105,14 @@ def launch_config(N: int, S: int, H: int, dtype: torch.dtype) -> Dict:
         return {"design": "mma.sync", "grid": -(-N // MMA_ROWS), "threads": 256,
                 "rows_per_block": MMA_ROWS, "hidden_padded": hp, "s_tile": S_TILE,
                 "smem_bytes": STAGES * (S_TILE * (hp + 8) * 2 + S_TILE * 8)}
-    sp = -(-S // 32) * 32
-    ld = sp + 1  # one extra 32-bit word per row: no bank conflicts
-    smem = ROWS_PER_BLOCK * H * 4 + sp * 8 + H * ld * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"softmax_head: {S} negatives of width {H} in {dtype} need {smem} "
-            f"bytes of shared memory, over the {SMEM_LIMIT} a block can have"
-        )
-    return {"design": "cuda-core", "grid": -(-N // ROWS_PER_BLOCK), "threads": 256,
-            "s_padded": sp, "ld": ld, "smem_bytes": smem}
+    if H % 4 != 0 or H > F32_MAX_H:
+        raise ValueError(f"softmax_head: f32 needs H % 4 == 0 and H <= {F32_MAX_H} (H={H})")
+    rows = WIDE_ROWS if H <= WIDE_MAX_H and N >= WIDE_MIN_N else ROWS_PER_BLOCK
+    hp = -(-H // F32_K_CHUNK) * F32_K_CHUNK
+    smem = (hp * (rows + 4) + F32_STAGES * F32_K_CHUNK * (F32_S_TILE + 4) + 4 * rows) * 4
+    return {"design": "simt-stream", "grid": -(-N // rows), "threads": 2 * rows,
+            "rows_per_block": rows, "hidden_padded": hp, "s_tile": F32_S_TILE,
+            "k_chunk": F32_K_CHUNK, "stages": F32_STAGES, "smem_bytes": smem}
 
 
 def check_launchable(h, pos_emb, neg_emb, targets, neg_ids, pos_log_q,
@@ -143,13 +157,14 @@ def _forward_kernel(h, pos_emb, neg_emb, targets, neg_ids, pos_log_q,
             if args[2].data_ptr() % 16 or args[0].data_ptr() % 4 or args[1].data_ptr() % 4:
                 raise ValueError("softmax_head: neg_emb must be 16-byte aligned, h and "
                                  "pos_emb 4-byte aligned")
-            rc = lib.seqrec_head_forward_mma(
-                *(a.data_ptr() for a in args), nll.data_ptr(), N, S, H, cfg["smem_bytes"],
-                stream)
+            rc = lib.seqrec_head_forward_mma(*(a.data_ptr() for a in args), nll.data_ptr(),
+                                             N, S, H, cfg["smem_bytes"], stream)
         else:
-            rc = lib.seqrec_head_forward(
-                *(a.data_ptr() for a in args), nll.data_ptr(), N, S, cfg["s_padded"],
-                cfg["ld"], H, _DTYPE_CODE[h.dtype], cfg["smem_bytes"], stream)
+            # h and pos_emb are read in float4s for the positive logit: a
+            # view that starts off a 16-byte boundary is copied.
+            args[:2] = [a if a.data_ptr() % 16 == 0 else a.clone() for a in args[:2]]
+            rc = lib.seqrec_head_forward(*(a.data_ptr() for a in args), nll.data_ptr(), N, S,
+                                         H, cfg["rows_per_block"], cfg["smem_bytes"], stream)
     if rc != 0:
         msg = lib.seqrec_head_error_string(rc).decode()
         raise RuntimeError(f"softmax_head kernel launch failed: CUDA error {rc} ({msg})")

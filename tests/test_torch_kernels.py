@@ -10,8 +10,10 @@ Tolerances: gather bit-exact; GRU 1e-5 in f32 (same math, another summation
 order) and 3e-2 in bf16 (the plain version rounds every gate op to bf16, the
 kernel only the new h); the bf16 GRU and LSTM forwards' input projection
 1e-5 (exact bf16 products summed in f32 on both sides, in another order).
-Scatter-add 1e-5 (f32 atomics: the order of each
-row's sum changes from run to run). Head 1e-5 (both sides multiply
+Scatter-add 1e-5 against `index_put_` (the kernel
+adds each row's terms in another, fixed order) and bit-exact against
+`plain_ordered`, which adds in the kernel's order, and against itself from
+run to run. Head 1e-5 (both sides multiply
 in f32, bf16 inputs exactly, on the tensor cores in bf16; only the summation
 order and the exponential's last bits differ). GRU and
 LSTM backward 1e-4 (f32 carries over T steps, another summation order in
@@ -26,6 +28,8 @@ reset plane equal the no-reset kernels bit for bit (a multiply by 1.0). Attentio
 the plain version, which rounds its scores to bf16, and 2e-2 against the
 plain version in f32 on the same bf16 inputs (the kernel rounds only the
 probabilities and the output to bf16)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -234,6 +238,80 @@ def test_scatter_add_kernel_matches_plain(cuda, ids_dtype, D):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _zipf_ids(rng, n, V, pad_share=0.0):
+    p = 1.0 / np.arange(1, V)
+    ids = rng.choice(np.arange(1, V), size=n, p=p / p.sum())
+    ids[rng.random(n) < pad_share] = 0  # the padding id's positions
+    return ids
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n,V,D,pad_share", [(25_600, 3_418, 128, 0.0),
+                                             (25_600, 3_418, 128, 0.5),
+                                             (6_400, 12_102, 256, 0.3),
+                                             (12_800, 37_484, 100, 0.0),
+                                             (51_200, 500, 30, 0.9),
+                                             (1, 5, 4, 0.0), (777, 3, 7, 0.0)])
+def test_scatter_add_kernel_is_deterministic_and_plain_ordered(cuda, ids_dtype, n, V, D,
+                                                              pad_share):
+    """Zipf(1.0) ids (the head item about a tenth of them), a padding row
+    with `pad_share` of the positions (runs far longer than a chunk's
+    sub-runs), planted out-of-range ids: two runs give equal bits, equal to
+    `plain_ordered` (the kernel's order in plain tensor code) bit for bit,
+    in two launches and no memset."""
+    rng = np.random.default_rng(n + D)
+    ids = _zipf_ids(rng, n, V, pad_share)
+    ids[:min(n, 5)] = [-1, -V, V, -V - 1, 10 ** 6][:min(n, 5)]
+    ids = torch.from_numpy(ids).to(cuda, ids_dtype)
+    g = torch.from_numpy(rng.normal(scale=1e-2, size=(n, D)).astype(np.float32)).to(cuda)
+    before = k_gather.embedding_scatter_add.launches
+    a = k_gather.embedding_scatter_add(g, ids, V)
+    b = k_gather.embedding_scatter_add(g, ids, V)
+    torch.cuda.synchronize()
+    assert k_gather.embedding_scatter_add.launches == before + 2
+    assert torch.equal(a, b)
+    plan = k_gather.scatter_add_plan(n, V, D)
+    assert plan["launches"] == 2
+    assert torch.equal(a, k_gather.plain_ordered(g, ids, V, plan["chunk"]))
+    torch.testing.assert_close(a, k_gather.plain_backward(g, ids, V), rtol=1e-5, atol=1e-5)
+
+
+def test_scatter_add_kernel_every_id_one_row_and_an_empty_table_row(cuda):
+    """Every position on one table row (one run over every chunk), and rows
+    no id reaches written as zeros without a memset."""
+    V, n, D = 9, 5_000, 128
+    g = torch.randn(n, D, generator=torch.Generator().manual_seed(0)).to(cuda)
+    ids = torch.full((n,), 4, dtype=torch.int64, device=cuda)
+    out = k_gather.embedding_scatter_add(g, ids, V)
+    chunk = k_gather.scatter_add_plan(n, V, D)["chunk"]
+    assert torch.equal(out, k_gather.plain_ordered(g, ids, V, chunk))
+    assert not bool(out[torch.arange(V, device=cuda) != 4].any())
+
+
+@pytest.mark.parametrize("n,D,chunk", [(1, 4, 256), (12_800, 100, 256), (25_600, 128, 512)])
+def test_scatter_add_scratch_is_sized_and_checked_in_c(cuda, n, D, chunk):
+    """gather.cu owns the scratch layout: its size holds a partial row and
+    a run pair a position, 2 * chunk / 32 sub-run rows and a 1,025-int
+    directory a chunk; a launch given a byte less refuses and writes
+    nothing, and one given the size runs."""
+    lib = k_gather._lib()
+    chunks = -(-n // chunk)
+    nbytes = lib.seqrec_scatter_add_scratch_bytes(n, D, chunk)
+    assert nbytes >= chunks * (chunk * D * 4 + chunk // 16 * D * 4 + chunk * 8 + 1025 * 4)
+    assert lib.seqrec_scatter_add_scratch_bytes(n, D, 128) == -1
+    g = torch.ones(n, D, device=cuda)
+    ids = torch.full((n,), 3, dtype=torch.int32, device=cuda)
+    out = torch.full((9, D), 7.0, device=cuda)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (g.data_ptr(), ids.data_ptr(), 0, n, 9, D, chunk, scratch.data_ptr())
+    assert lib.seqrec_scatter_add_rows(*args, nbytes - 1, out.data_ptr(), stream) != 0
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+    assert lib.seqrec_scatter_add_rows(*args, nbytes, out.data_ptr(), stream) == 0
+    assert torch.equal(out, k_gather.plain_ordered(g, ids, 9, chunk))
+
+
 def test_gather_backward_through_autograd_uses_the_scatter_kernel(cuda):
     table = torch.randn(40, 32, device=cuda, requires_grad=True)
     ids = torch.tensor([[1, 2, 2, -1, 99]], device=cuda)
@@ -360,12 +438,7 @@ def _head_args(N, S, H, dtype, device, seed=0):
 @pytest.mark.parametrize("N,S,H", [(300, 256, 128), (1000, 100, 64), (64, 37, 32),
                                    (5, 1, 8), (130, 600, 128)])
 def test_head_kernel_matches_plain(cuda, dtype, N, S, H):
-    """bf16: the tensor-core design takes every shape here; f32: the
-    CUDA-core design raises where its negatives do not fit shared memory."""
-    if dtype == torch.float32 and k_head.ROWS_PER_BLOCK * H * 4 + S * H * 4 > k_head.SMEM_LIMIT:
-        with pytest.raises(ValueError, match="shared memory"):
-            k_head.launch_config(N, S, H, dtype)
-        return
+    """Both designs stream their negatives and take every shape here."""
     args = _head_args(N, S, H, dtype, cuda, seed=N + S)
     before = k_head.sampled_softmax_nll.launches
     got = k_head.sampled_softmax_nll(*args)
@@ -374,6 +447,29 @@ def test_head_kernel_matches_plain(cuda, dtype, N, S, H):
     want = k_head.plain(*args)
     assert got.dtype == torch.float32 and tuple(got.shape) == (N,)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("N,S,H", [(6_400, 256, 256), (300, 2_048, 128), (257, 100, 100),
+                                   (25_600, 256, 128), (65, 129, 4), (64, 128, 252)])
+def test_head_f32_kernel_streams_any_s_and_a_row_of_only_hits(cuda, N, S, H):
+    """The f32 SIMT design at beauty's width (N = 6,400, S = 256, H = 256,
+    which the first f32 design refused), at S = 2,048, and ragged (N not a
+    multiple of its 64-row block, S of its 128-negative tile, H of its
+    32-deep k chunk): the NLL within 1e-4 of the plain version (HEAD_TOL).
+    Row 3's target is every negative's id: its NLL is 0 on both sides."""
+    h, pos, neg, targets, neg_ids, plq, nlq = _head_args(N, S, H, torch.float32, cuda,
+                                                         seed=N + S)
+    neg_ids[:] = 3 * S + 1
+    targets[3] = 3 * S + 1
+    assert k_head.launch_config(N, S, H, torch.float32)["design"] == "simt-stream"
+    before = k_head.sampled_softmax_nll.launches
+    got = k_head.sampled_softmax_nll(h, pos, neg, targets, neg_ids, plq, nlq)
+    torch.cuda.synchronize()
+    assert k_head.sampled_softmax_nll.launches == before + 1
+    want = k_head.plain(h, pos, neg, targets, neg_ids, plq, nlq)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert got[3].item() == 0.0 and want[3].item() == 0.0
 
 
 @pytest.mark.parametrize("N,S,H", [(300, 100, 128), (25_600, 256, 128), (129, 2048, 128),
@@ -413,12 +509,37 @@ def test_head_loss_fwd_bwd_matches_the_plain_loss(cuda):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
+def test_head_f32_kernel_takes_views_off_a_16_byte_boundary(cuda):
+    """h and pos_emb as views that start 4 bytes past a 16-byte boundary
+    (the f32 design reads them in float4s): the wrapper copies them, and
+    the NLL equals the one of aligned copies bit for bit."""
+    h, pos, neg, targets, neg_ids, plq, nlq = _head_args(70, 130, 64, torch.float32, cuda)
+    flat_h = torch.empty(70 * 64 + 1, device=cuda)
+    flat_p = torch.empty(70 * 64 + 1, device=cuda)
+    flat_h[1:] = h.reshape(-1)
+    flat_p[1:] = pos.reshape(-1)
+    hv, pv = flat_h[1:].view(70, 64), flat_p[1:].view(70, 64)
+    assert hv.data_ptr() % 16 and pv.data_ptr() % 16
+    got = k_head.sampled_softmax_nll(hv, pv, neg, targets, neg_ids, plq, nlq)
+    want = k_head.sampled_softmax_nll(h, pos, neg, targets, neg_ids, plq, nlq)
+    assert torch.equal(got, want)
+
+
 def test_head_kernel_raises_on_what_it_cannot_take(cuda):
+    """2,000 negatives (past what the first f32 design could stage) launch;
+    an f32 width past 256 or not a multiple of 4, or operands of two
+    dtypes, raise."""
     h, pos, neg, targets, neg_ids, plq, nlq = _head_args(8, 16, 32, torch.float32, cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        k_head.sampled_softmax_nll(h, pos, torch.zeros(2000, 32, device=cuda),
-                                   targets, torch.zeros(2000, dtype=torch.int32, device=cuda),
-                                   plq, torch.zeros(2000, device=cuda))
+    many = (torch.randn(2000, 32, device=cuda) * 0.1,
+            torch.arange(2000, dtype=torch.int32, device=cuda) + 1000,
+            torch.zeros(2000, device=cuda))
+    got = k_head.sampled_softmax_nll(h, pos, many[0], targets, many[1], plq, many[2])
+    torch.testing.assert_close(got, k_head.plain(h, pos, many[0], targets, many[1], plq,
+                                                 many[2]), rtol=1e-5, atol=1e-5)
+    for width, match in ((260, "H <= 256"), (30, "H % 4 == 0")):
+        a = _head_args(8, 16, width, torch.float32, cuda)
+        with pytest.raises(ValueError, match=match):
+            k_head.sampled_softmax_nll(*a)
     with pytest.raises(ValueError, match="one dtype"):
         k_head.sampled_softmax_nll(h, pos.bfloat16(), neg, targets, neg_ids, plq, nlq)
 
@@ -481,6 +602,41 @@ def test_train_step_with_kernels_matches_plain(cuda):
     assert a["nonfinite"] == b["nonfinite"] == 0.0 and a["tokens"] == b["tokens"]
     assert abs(a["loss"] - b["loss"]) <= 2e-2 * abs(b["loss"])
     assert abs(a["grad_norm"] - b["grad_norm"]) <= 5e-2 * b["grad_norm"]
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_train_step_multi_is_bitwise_reproducible(cuda, compute_dtype):
+    """Two K=4 groups through the kernels from one cloned state on one batch
+    group give the same parameters and optimizer state bit for bit (the
+    scatter-add is deterministic; cuBLAS on one stream is)."""
+    from seqrec_tpu_torch.config import RunConfig
+    from seqrec_tpu_torch.train.trainer import Trainer
+
+    class DS:
+        vocab_size, num_users = 80, 0
+
+    rng = np.random.default_rng(1)
+    tokens = np.zeros((4, 8, 22), np.int16)
+    for k in range(4):
+        for r in range(8):
+            n = rng.integers(3, 21)
+            tokens[k, r, :n + 1] = rng.integers(1, 80, size=n + 1)
+    cfg = RunConfig.load("configs/ml1m_gru4rec.json").apply_overrides(
+        ["model.embed_dim=32", "model.num_negatives=50", "data.max_len=20",
+         f"model.compute_dtype={compute_dtype}"])
+    tr = Trainer(cfg, DS(), device=cuda)
+    state = tr.init_state(3)
+    runs = []
+    for _ in range(2):
+        s0 = dataclasses.replace(state, params={k: v.clone() for k, v in state.params.items()})
+        runs.append(tr.train_step_multi(s0, tokens)[0])
+    a, b = runs
+    assert a.params.keys() == b.params.keys()
+    for k in a.params:
+        assert torch.equal(a.params[k], b.params[k]), k
+    for moment in ("mu", "nu"):
+        for k in a.opt_state[moment]:
+            assert torch.equal(a.opt_state[moment][k], b.opt_state[moment][k]), (moment, k)
 
 
 # ---------------------------------------------------------------------------

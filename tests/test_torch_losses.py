@@ -137,6 +137,29 @@ def test_head_plain_matches_pallas_interpret(dtype):
     np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
 
 
+def test_head_plain_matches_pallas_interpret_at_beauty_width():
+    """At beauty's and steam's width (H = 256, 256 negatives) in f32, which
+    the first f32 design refused on the card: the wrapper on a CPU tensor
+    (its plain version) against the TPU kernel in Pallas's interpreter."""
+    rng = np.random.default_rng(11)
+    n, s_, h_ = 40, 256, 256
+    h = rng.normal(size=(n, h_)).astype(np.float32) * h_ ** -0.25
+    pos = rng.normal(size=(n, h_)).astype(np.float32) * h_ ** -0.25
+    neg = rng.normal(size=(s_, h_)).astype(np.float32) * h_ ** -0.25
+    targets = rng.integers(1, 3 * s_, size=n).astype(np.int32)
+    neg_ids = rng.integers(1, 3 * s_, size=s_).astype(np.int32)
+    neg_ids[:3] = targets[:3]  # accidental hits
+    plq = (rng.normal(size=n) - 6).astype(np.float32)
+    nlq = (rng.normal(size=s_) - 6).astype(np.float32)
+    arrays = (h, pos, neg, targets, neg_ids, plq, nlq)
+    want = pl_head._head_pallas(*(jnp.asarray(a) for a in arrays), interpret=True)
+    before = cuda_head.sampled_softmax_nll.launches
+    got = cuda_head.sampled_softmax_nll(*(torch.from_numpy(a) for a in arrays))
+    assert cuda_head.sampled_softmax_nll.launches == before
+    assert tuple(got.shape) == (n,) and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
+
+
 def test_head_loss_and_grads_match_pallas_custom_vjp():
     """Loss and gradients of the wrapper's autograd Function (plain forward,
     recompute backward) against jax.grad through the Pallas head's custom
@@ -187,39 +210,69 @@ def test_head_without_logq_matches_xla():
 def test_head_launch_config_at_the_training_shape():
     """bf16: the tensor-core design, 128 rows a block (200 blocks at N =
     25,600), a ring of three S-tiles of 64 negatives [64][136] bf16 with
-    their ids and logQ. f32: the CUDA-core design, the negatives transposed
-    in shared memory."""
+    their ids and logQ. f32: the streamed SIMT design, 128 rows a block of
+    256 threads (200 blocks, two an SM: one wave), their h resident
+    ([128][132] f32), a ring of two 32-deep k chunks of a 128-negative
+    S-tile ([32][132] f32); at beauty's width 64 rows a block of 128
+    threads, two an SM."""
     cfg = cuda_head.launch_config(25_600, 256, 128, torch.bfloat16)
     assert cfg == {"design": "mma.sync", "grid": 200, "threads": 256, "rows_per_block": 128,
                    "hidden_padded": 128, "s_tile": 64,
                    "smem_bytes": 3 * (64 * 136 * 2 + 64 * 8)}
     assert 2 * cfg["smem_bytes"] <= cuda_head.SMEM_LIMIT  # two blocks share an SM
     f32 = cuda_head.launch_config(25_600, 256, 128, torch.float32)
-    assert f32 == {"design": "cuda-core", "grid": 400, "threads": 256, "s_padded": 256,
-                   "ld": 257, "smem_bytes": 64 * 128 * 4 + 256 * 8 + 128 * 257 * 4}
-    assert f32["smem_bytes"] <= cuda_head.SMEM_LIMIT
-    odd = cuda_head.launch_config(100, 100, 128, torch.float32)
-    assert (odd["grid"], odd["s_padded"], odd["ld"]) == (2, 128, 129)
+    assert f32 == {"design": "simt-stream", "grid": 200, "threads": 256,
+                   "rows_per_block": 128, "hidden_padded": 128, "s_tile": 128, "k_chunk": 32,
+                   "stages": 2, "smem_bytes": (128 * 132 + 2 * 32 * 132 + 4 * 128) * 4}
+    assert 2 * f32["smem_bytes"] <= cuda_head.SMEM_LIMIT  # two blocks share an SM
+    odd = cuda_head.launch_config(100, 100, 100, torch.float32)
+    assert (odd["grid"], odd["rows_per_block"], odd["hidden_padded"]) == (2, 64, 128)
+    assert odd["smem_bytes"] == (128 * 68 + 2 * 32 * 132 + 4 * 64) * 4
+    assert 3 * odd["smem_bytes"] <= cuda_head.SMEM_LIMIT  # three blocks share an SM
+    beauty = cuda_head.launch_config(6_400, 256, 256, torch.float32)
+    assert (beauty["grid"], beauty["rows_per_block"], beauty["hidden_padded"]) == (100, 64, 256)
+    assert 2 * beauty["smem_bytes"] <= cuda_head.SMEM_LIMIT
+    wide = cuda_head.launch_config(12_800, 256, 256, torch.float32)
+    assert wide["rows_per_block"] == 64  # 128 rows only at H <= 128
 
 
 @pytest.mark.parametrize("S,H,hp", [(2048, 128, 128), (1, 8, 16), (100_000, 64, 64),
                                     (256, 136, 256)])
 def test_head_bf16_takes_any_number_of_negatives(S, H, hp):
-    """The bf16 design streams the negatives in S-tiles, so its shared
-    memory does not grow with S: S = 2048 at H = 128 (eight times what the
-    f32 design can stage) is launchable; H pads to a power of two >= 16."""
+    """Both designs stream the negatives in S-tiles, so their shared memory
+    does not grow with S: S = 2048 at H = 128 (eight times what the first
+    f32 design could stage) is launchable in bf16 and in f32; bf16 pads H
+    to a power of two >= 16, f32 to a multiple of its 32-deep k chunk."""
     cfg = cuda_head.launch_config(300, S, H, torch.bfloat16)
     assert (cfg["grid"], cfg["hidden_padded"]) == (3, hp)
     assert 2 * cfg["smem_bytes"] <= cuda_head.SMEM_LIMIT
     if S == 2048:
-        with pytest.raises(ValueError, match="shared memory"):
-            cuda_head.launch_config(300, S, H, torch.float32)
+        f32 = cuda_head.launch_config(300, S, H, torch.float32)
+        assert f32["design"] == "simt-stream" and f32["grid"] == 5
+        assert f32["smem_bytes"] == cuda_head.launch_config(300, 1, H, torch.float32)[
+            "smem_bytes"]
+
+
+@pytest.mark.parametrize("S", [1, 127, 128, 129, 256, 2048, 100_000])
+@pytest.mark.parametrize("N,H", [(6_400, 4), (6_400, 100), (6_400, 128), (6_400, 256),
+                                 (25_600, 100), (25_600, 128), (25_600, 256)])
+def test_head_f32_takes_any_s_at_h_up_to_256(S, N, H):
+    """The f32 design's shared memory depends on H and its rows a block
+    only, whatever S: three blocks of 64 rows an SM at H <= 128, two at 256,
+    two of 128 rows (at H <= 128 and N >= 12,288)."""
+    cfg = cuda_head.launch_config(N, S, H, torch.float32)
+    rows = 128 if H <= 128 and N >= 12_288 else 64
+    assert (cfg["rows_per_block"], cfg["threads"], cfg["grid"]) == (rows, 2 * rows, -(-N // rows))
+    assert cfg["hidden_padded"] == -(-H // 32) * 32
+    per_sm = 3 if rows == 64 and H <= 128 else 2
+    assert per_sm * cfg["smem_bytes"] <= cuda_head.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("shape,dtype,match", [
     ((8, 16, 32), torch.float64, "dtype"),
     ((0, 16, 32), torch.float32, "empty"),
-    ((8, 400, 128), torch.float32, "shared memory"),
+    ((8, 400, 260), torch.float32, "H <= 256"),
+    ((8, 400, 130), torch.float32, "H % 4 == 0"),
     ((8, 800, 264), torch.bfloat16, "H <= 256"),
 ])
 def test_head_kernel_rejects_what_it_cannot_take(shape, dtype, match):

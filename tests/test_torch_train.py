@@ -300,6 +300,109 @@ def test_scatter_add_kernel_rejects_what_it_cannot_take(g_shape, ids_dtype, num_
         cuda_gather.check_scatter_add_launchable(g, ids, num_rows)
 
 
+@pytest.mark.parametrize("n,num_rows,D,chunk,chunks", [
+    (0, 9, 4, 256, 0),
+    (1, 9, 4, 256, 1),
+    (6_400, 12_102, 256, 256, 25),  # beauty's step: B=128, T=50
+    (12_800, 37_484, 100, 256, 50),  # rsc15: B=256, T=50
+    (25_600, 3_418, 128, 512, 50),  # ML-1M GRU4Rec: B=128, T=200
+    (16_384, 3_418, 128, 256, 64),
+    (16_385, 3_418, 128, 512, 33),
+    (1_000_000, 10_000_001, 128, 512, 1954),
+])
+def test_scatter_add_plan_chunks_and_launches(n, num_rows, D, chunk, chunks):
+    """The deterministic scatter-add's plan: chunks of 256 positions up to
+    n = 16,384, else 512 (25 to 50 of them at the training shapes), a
+    block of a thread a position for each, two launches (none for no
+    ids)."""
+    plan = cuda_gather.scatter_add_plan(n, num_rows, D)
+    assert (plan["chunk"], plan["chunks"]) == (chunk, chunks)
+    assert plan["chunks"] * chunk >= n > (plan["chunks"] - 1) * chunk or n == 0
+    assert plan["threads"] == chunk and plan["sub_run"] == 32 and plan["deterministic"]
+    assert plan["launches"] == (2 if n else 0)
+
+
+@pytest.mark.parametrize("n,num_rows,D", [(-1, 9, 4), (5, 0, 4), (5, 2 ** 31, 4), (5, 9, 0),
+                                          (2 ** 31, 9, 4)])
+def test_scatter_add_plan_rejects_what_it_cannot_take(n, num_rows, D):
+    with pytest.raises(ValueError, match="scatter_add"):
+        cuda_gather.scatter_add_plan(n, num_rows, D)
+
+
+def _ordered_loop(g, ids, num_rows, chunk):
+    """The scatter-add's stated order, one numpy f32 add at a time: per
+    chunk of `chunk` positions, each id's positions in order cut into
+    sub-runs of 32, each summed from 0; a run's sub-run sums from 0; a
+    table row's chunk partials from 0 in chunk order."""
+    n, d = g.shape
+    parts = {}
+    for c0 in range(0, n, chunk):
+        runs = {}
+        for p in range(c0, min(n, c0 + chunk)):
+            if -num_rows <= ids[p] < num_rows:
+                runs.setdefault(int(ids[p]) % num_rows, []).append(p)
+        for row, ps in runs.items():
+            subs = []
+            for s0 in range(0, len(ps), 32):
+                acc = np.zeros(d, np.float32)
+                for p in ps[s0:s0 + 32]:
+                    acc = acc + g[p]
+                subs.append(acc)
+            part = subs[0]
+            if len(subs) > 1:
+                part = np.zeros(d, np.float32)
+                for sub in subs:
+                    part = part + sub
+            parts.setdefault(row, []).append(part)
+    out = np.zeros((num_rows, d), np.float32)
+    for row, ps in parts.items():
+        for part in ps:
+            out[row] = out[row] + part
+    return out
+
+
+@pytest.mark.parametrize("n,num_rows,D,heavy", [(1, 5, 3, False), (700, 7, 4, False),
+                                                (3_000, 40, 8, True), (5_000, 3, 5, True)])
+def test_scatter_add_plain_ordered_is_the_stated_order(n, num_rows, D, heavy):
+    """`plain_ordered` (what the card's kernel equals bit for bit) adds in
+    the order gather.cu states: against a numpy loop of single f32 adds,
+    bit for bit, with out-of-range ids and, `heavy`, a row that takes a
+    third of all positions (runs of more than 32 in a chunk)."""
+    rng = np.random.default_rng(n)
+    ids = rng.integers(-num_rows - 2, num_rows + 2, size=n)
+    if heavy:
+        ids[rng.random(n) < 1 / 3] = 1
+    g = rng.normal(size=(n, D)).astype(np.float32)
+    chunk = cuda_gather.scatter_add_plan(n, num_rows, D)["chunk"]
+    got = cuda_gather.plain_ordered(torch.from_numpy(g), torch.from_numpy(ids), num_rows, chunk)
+    assert np.array_equal(got.numpy(), _ordered_loop(g, ids, num_rows, chunk))
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n,num_rows,D", [(25_600, 3_418, 16), (6_400, 200, 20)])
+def test_scatter_add_plain_ordered_within_the_f32_bound_of_index_put(ids_dtype, n, num_rows, D):
+    """`plain_ordered` against the plain version (`index_put_` with
+    accumulate) on Zipf(1.0) ids with a heavy padding row and planted
+    out-of-range ids: within the f32 summation bound n_max * 2^-24 *
+    sum |terms| of the row with the most ids (n_max), as chip_smoke checks
+    the kernel."""
+    rng = np.random.default_rng(D)
+    p = 1.0 / np.arange(1, num_rows)
+    ids = rng.choice(np.arange(1, num_rows), size=n, p=p / p.sum())
+    ids[rng.random(n) < 0.3] = 0  # the padding id
+    ids[:5] = [-1, -num_rows, num_rows, -num_rows - 1, 10 ** 6]
+    g = torch.from_numpy(rng.normal(scale=1e-2, size=(n, D)).astype(np.float32))
+    ids_t = torch.from_numpy(ids).to(ids_dtype)
+    chunk = cuda_gather.scatter_add_plan(n, num_rows, D)["chunk"]
+    got = cuda_gather.plain_ordered(g, ids_t, num_rows, chunk)
+    want = cuda_gather.plain_backward(g, ids_t, num_rows)
+    valid = ids[(ids >= -num_rows) & (ids < num_rows)] % num_rows
+    n_max = int(np.bincount(valid, minlength=num_rows).max())
+    tol = n_max * 2.0 ** -24 * cuda_gather.plain_backward(g.abs(), ids_t, num_rows).max().item()
+    assert n_max > 0.25 * n
+    assert (got - want).abs().max().item() <= tol
+
+
 # ---------------------------------------------------------------------------
 # Negative samplers
 # ---------------------------------------------------------------------------
