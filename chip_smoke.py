@@ -12,10 +12,14 @@ source, all at once). Each phase prints one JSON line:
               ptxas's registers and spills of every spilling kernel and of
               every instantiation of the newest designs (WATCH);
   c. kernels  each kernel against its plain PyTorch version at the serving
-              shapes (gather: [3418, 128] table, [64, 200] ids with planted
-              out-of-range ids, bit-exact; GRU: B=64, T=200, D=H=128 in f32
+              shapes (gather: from a [3418, D] f32 table into bf16 and f32,
+              at D=64 and 128, at serving's [64, 200] ids, training's
+              [128, 200] and the 256 negatives, with planted out-of-range
+              ids, bit-exact, beside F.embedding then .to(dtype); GRU:
+              B=64, T=200, D=H=128 in f32
               and bf16, and against torch.nn.GRU as a second oracle, and
-              also at the training shape B=128; the bf16 forward's input
+              also at the training shape B=128 and at the fit loop's
+              D=H=64; the bf16 forward's input
               projection kernel and the f32 one's, which the f32 GRU
               forward runs, the f32 one also at the training paths' M=25,600
               with N=384 and N=512, each beside torch.addmm f32), with kernel,
@@ -36,13 +40,16 @@ source, all at once). Each phase prints one JSON line:
               for bit, and equal to plain_ordered, its order in plain
               tensor code), its device operations a call counted by
               torch.profiler (at most 2), and again on ids padded as
-              training pads them (about half on row 0) beside index_add_;
+              training pads them (about half on row 0) beside index_add_,
+              there also on a bf16 cotangent (bit for bit its f32
+              widening's result);
               the GRU reverse recurrence (d_xp, dh0) and the
               weight gradients through autograd, bf16 and f32; the
               sampled-softmax head's NLL and its loss and gradients, bf16
               and f32, the device time of its backward (a plain
               recompute), and the f32 head at beauty's step (N=6,400,
-              S=256, H=256); with kernel, plain, library and bound times
+              S=256, H=256); the GRU reverse and the head also at the fit
+              loop's D=H=64; with kernel, plain, library and bound times
               and each kernel's design and launch config (mma.sync,
               cluster, simt-stream or sorted-chunks);
   f. train    `Trainer.train_step_multi` on the same configuration at full
@@ -56,7 +63,21 @@ source, all at once). Each phase prints one JSON line:
               step ms and a device-time split of a step by CUDA events;
               one step's gradients and one K=8 group, each run twice from
               one state on one batch group, equal bit for bit (every
-              gradient, parameter and optimizer-state leaf);
+              gradient, parameter and optimizer-state leaf); the device
+              launches a step also with the lookups as a gather then a cast
+              (before the gather wrote the compute dtype);
+  f2. fit     `Trainer(cfg).fit()` at bench.py's configuration (GRU4Rec,
+              B=128, T=200, D=H=64, 3,417 synthetic items, sampled softmax
+              over 256 log-uniform negatives, dropout 0, bf16): 104 steps
+              through the native loader and the prefetcher (prefetch depth
+              2), steps_per_call 8 and 1 alternated (8, 1, 1, 8); every
+              logged loss finite and the last below the first, each kernel's
+              launches a step as expected, one full-protocol eval with
+              finite metrics (recall@10 within 0.02 of the plain versions'
+              on the same weights), the four runs' final parameters equal
+              bit for bit; examples/s and step ms from the logger's lines,
+              the eval's seconds, and from a profiled short fit the device
+              time, launches and top kernels a step and the idle share;
   g. tower_kernels  the SASRec and LSTM towers' kernels against their plain
               versions at the training shapes, bf16 and f32: causal
               attention at [128, 200, 1, 64] (also against
@@ -112,11 +133,13 @@ source, all at once). Each phase prints one JSON line:
               library_ms, design, dtype}, ...]} (the scatter-add also
               with deterministic and launches_per_call): the fourteen bf16 kernels
               (each bf16 RNN forward is two: its input projection and the
-              scan) and the eight f32 kernels the f32 paths run (each f32
+              scan; the gather into bf16, its scatter-add on a bf16
+              cotangent) and the ten f32 kernels the f32 paths run (each f32
               RNN forward is two as well), `launches` counted on a training
               path (GRU4Rec's for the gather, scatter-add and head, the
               session paths' for the reset variants, the f32 paths' for the
-              f32 kernels; the counts of every path beside it).
+              f32 kernels; the counts of every path beside it, the fit
+              loop's included).
 
 Then the raw nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -135,22 +158,29 @@ import argparse
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from seqrec_tpu_torch import ops
 from seqrec_tpu_torch.config import RunConfig
+from seqrec_tpu_torch.data import native
 from seqrec_tpu_torch.data.batching import make_session_stream
 from seqrec_tpu_torch.data.dataset import synthetic_dataset
 from seqrec_tpu_torch.data.negative import log_uniform_log_prob, sample_log_uniform
+from seqrec_tpu_torch.data.prefetch import StagedBatch
 from seqrec_tpu_torch.eval import infer
+from seqrec_tpu_torch.eval.harness import evaluate
 from seqrec_tpu_torch.models import build_model
 from seqrec_tpu_torch.models.convert import flax_to_state_dict, random_params
-from seqrec_tpu_torch.models.model import SAMPLED_LOSSES
+from seqrec_tpu_torch.models.model import SAMPLED_LOSSES, SeqRecModel
 from seqrec_tpu_torch.ops import _build, reference
 from seqrec_tpu_torch.ops.cuda import attention as k_attn
 from seqrec_tpu_torch.ops.cuda import gather as k_gather
@@ -173,6 +203,11 @@ B, K = 64, 10  # serving batch (the CLI default) and top-k
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; f32 w/o tensor cores
 REPS = 21
+# The gather's shapes (phase c): serving's [64, 200] ids, training's
+# [128, 200] and the 256 negatives, at the fit loop's D=64 and at D=128.
+GATHER_WIDTHS = (64, 128)
+FIT_D = 64  # the fit loop's width: bench.py's GRU4Rec, D=H=64
+GATHER_SHAPES = ((64, 200), (128, 200), (256,))
 
 # Tolerances, each with its reason.
 GRU_F32_TOL = 1e-5  # same f32 math, another summation order
@@ -440,6 +475,56 @@ def _gru_forward_check(dev, x32, weights, h32, dtype, reset=None) -> dict:
     return rec
 
 
+def _gather_key(D: int, shape: tuple, dtype) -> str:
+    return f"{_dname(dtype)}_D{D}_{'x'.join(map(str, shape))}"
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _gather_check(rng, dev, D: int, shape: tuple, dtype) -> dict:
+    """The gather from a [VOCAB, D] f32 table at Zipf ids of `shape` into
+    `dtype`, five of them planted out of range: bit for bit against the
+    plain version with `dtype` (the NaN rows' words included) and equal,
+    NaN for NaN, to the plain gather cast with `.to(dtype)`; with kernel,
+    plain, library (F.embedding, then .to(dtype): two calls, on the
+    in-range copy of the ids) and bound times. The bound counts the
+    distinct rows read once in f32, the ids, and the output in `dtype`."""
+    table = torch.from_numpy(rng.normal(scale=D ** -0.5, size=(VOCAB, D))
+                             .astype(np.float32)).to(dev)
+    n = int(np.prod(shape))
+    ids_np = zipf_items(rng, n).astype(np.int32)
+    ids_ok = torch.from_numpy(ids_np.reshape(shape).copy()).to(dev)
+    ids_np[:5] = [-1, -VOCAB, VOCAB, -VOCAB - 1, 10 ** 6]
+    ids = torch.from_numpy(ids_np.reshape(shape)).to(dev)
+    name = f"gather {_gather_key(D, shape, dtype)}"
+    got = k_gather.embedding_gather(table, ids, dtype=dtype)
+    torch.cuda.synchronize()
+    check(got.dtype == dtype and tuple(got.shape) == (*shape, D), f"{name}: {got.dtype}")
+    check(torch.equal(_bits(got), _bits(k_gather.plain(table, ids, dtype=dtype))),
+          f"{name}: not bit-exact against its plain version")
+    cast = k_gather.plain(table, ids).to(dtype)
+    check(bool(((got == cast) | (torch.isnan(got) & torch.isnan(cast))).all()),
+          f"{name}: not the plain gather cast with .to")
+    flat = got.reshape(n, D)
+    check(bool(torch.isnan(flat[2:5]).all()) and not bool(torch.isnan(flat[:2]).any()),
+          f"{name}: planted ids do not wrap / NaN as jnp.take does")
+    valid = ids_np[(ids_np >= -VOCAB) & (ids_np < VOCAB)] % VOCAB
+    g_bytes = np.unique(valid).size * D * 4 + n * 4 + n * D * (2 if dtype == torch.bfloat16 else 4)
+    g_bound, g_by = bound(g_bytes, 0, torch.float32)
+    return {
+        "shape": {"table": [VOCAB, D], "table_dtype": "float32", "ids": list(shape),
+                  "dtype": _dname(dtype)},
+        "design": "4-rows-in-flight", "max_abs_err": 0.0, "bit_exact": True,
+        "kernel_ms": time_ms(lambda: k_gather.embedding_gather(table, ids, dtype=dtype)),
+        "plain_ms": time_ms(lambda: k_gather.plain(table, ids, dtype=dtype)),
+        "library_ms": time_ms(lambda: torch.nn.functional.embedding(ids_ok, table).to(dtype)),
+        "library": "F.embedding, then .to(dtype)",
+        "bound_ms": g_bound, "bound_by": g_by, "bytes": int(g_bytes),
+    }
+
+
 def phase_kernels(rng: np.random.Generator, dev) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -448,32 +533,17 @@ def phase_kernels(rng: np.random.Generator, dev) -> dict:
     out = {}
 
     # --- gather ------------------------------------------------------------
+    # Into the compute dtype, at serving's [64, 200] ids, training's
+    # [128, 200] and the 256 negatives, D=64 (the fit loop's) and D=128.
+    out["gather"] = {}
+    for D_ in GATHER_WIDTHS:
+        for shape in GATHER_SHAPES:
+            for dtype in (torch.bfloat16, torch.float32):
+                rec = _gather_check(rng, dev, D_, shape, dtype)
+                out["gather"][_gather_key(D_, shape, dtype)] = rec
     table = torch.from_numpy(
         rng.normal(scale=D ** -0.5, size=(VOCAB, D)).astype(np.float32)).to(dev)
-    ids_np = zipf_items(rng, B * T).reshape(B, T).astype(np.int32)
-    ids_ok = torch.from_numpy(ids_np.copy()).to(dev)
-    planted = np.array([-1, -VOCAB, VOCAB, -VOCAB - 1, 10 ** 6], np.int32)
-    ids_np[0, :5] = planted
-    ids = torch.from_numpy(ids_np).to(dev)
-    got = k_gather.embedding_gather(table, ids)
-    torch.cuda.synchronize()
-    want = k_gather.plain(table, ids)
-    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
-    check(bool(same.all()), "gather kernel is not bit-exact against its plain version")
-    check(bool(torch.isnan(got[0, 2:5]).all()) and not bool(torch.isnan(got[0, :2]).any()),
-          "gather: planted ids do not wrap / NaN as jnp.take does")
-    valid = ids_np[(ids_np >= -VOCAB) & (ids_np < VOCAB)] % VOCAB
-    g_bytes = np.unique(valid).size * D * 4 + ids_np.size * 4 + ids_np.size * D * 4
-    g_bound, g_by = bound(g_bytes, 0, torch.float32)
-    out["gather"] = {
-        "shape": {"table": [VOCAB, D], "ids": [B, T], "dtype": "float32"},
-        "max_abs_err": 0.0, "bit_exact": True,
-        "kernel_ms": time_ms(lambda: k_gather.embedding_gather(table, ids)),
-        "plain_ms": time_ms(lambda: k_gather.plain(table, ids)),
-        # F.embedding asserts on out-of-range ids: timed on the in-range copy.
-        "library_ms": time_ms(lambda: torch.nn.functional.embedding(ids_ok, table)),
-        "bound_ms": g_bound, "bound_by": g_by, "bytes": int(g_bytes),
-    }
+    ids_ok = torch.from_numpy(zipf_items(rng, B * T).reshape(B, T).astype(np.int32)).to(dev)
 
     # --- GRU scan ------------------------------------------------------------
     weights = [w.to(dev) for w in gru_weights(rng, D, H)]
@@ -488,6 +558,14 @@ def phase_kernels(rng: np.random.Generator, dev) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         out[f"gru_scan_{_dname(dtype)}_B{TRAIN_B}"] = _gru_forward_check(
             dev, x32_t, weights, torch.zeros(TRAIN_B, H, device=dev), dtype)
+    # The fit loop's width (bench.py's D=H=64) at the training shape.
+    table64 = torch.from_numpy(rng.normal(scale=FIT_D ** -0.5, size=(VOCAB, FIT_D))
+                               .astype(np.float32)).to(dev)
+    x32_64 = k_gather.plain(table64, ids_t)
+    weights64 = [w.to(dev) for w in gru_weights(rng, FIT_D, FIT_D)]
+    for dtype in (torch.float32, torch.bfloat16):
+        out[f"gru_scan_{_dname(dtype)}_B{TRAIN_B}_D{FIT_D}"] = _gru_forward_check(
+            dev, x32_64, weights64, torch.zeros(TRAIN_B, FIT_D, device=dev), dtype)
     out["gru_xproj"] = _xproj_check(k_gru, k_gru.gru_input_projection, x32, weights[0],
                                     weights[2])
     out["xproj_f32"] = _xproj_check(k_gru, k_gru.gru_input_projection, x32, weights[0],
@@ -764,6 +842,24 @@ def _scatter_add_check(rng, dev, table) -> dict:
     s_bytes = N * D * 4 + N * 4 + VOCAB * D * 4
     s_bound, s_by = bound(s_bytes, 0, torch.float32)
     ids_long = ids_ok.long()
+    # A bf16 cotangent (the bf16 paths' gather output's), on the padded ids
+    # as training pads them: widened by the kernel's loads, so bit for bit
+    # the call on its f32 widening and plain_ordered on it.
+    g16 = g.bfloat16()
+    got16 = k_gather.embedding_scatter_add(g16, pad_ids, VOCAB)
+    torch.cuda.synchronize()
+    check(torch.equal(got16, k_gather.embedding_scatter_add(g16, pad_ids, VOCAB)),
+          "scatter-add: two runs on a bf16 cotangent differ")
+    check(torch.equal(got16, k_gather.embedding_scatter_add(g16.float(), pad_ids, VOCAB)),
+          "scatter-add: a bf16 cotangent is not its f32 widening's bits")
+    check(torch.equal(got16, k_gather.plain_ordered(g16.float(), pad_ids, VOCAB,
+                                                    plan["chunk"])),
+          "scatter-add: a bf16 cotangent is not plain_ordered's bits")
+    ops16 = _device_ops(lambda: k_gather.embedding_scatter_add(g16, pad_ids, VOCAB))
+    check(0 < len(ops16) <= 2, f"scatter-add bf16: {len(ops16)} device operations a call: "
+                               f"{ops16}")
+    s16_bytes = N * D * 2 + N * 4 + VOCAB * D * 4
+    s16_bound, s16_by = bound(s16_bytes, 0, torch.float32)
     return {
         "shape": {"table": [VOCAB, D], "ids": [TRAIN_B, TRAIN_T], "dtype": "float32"},
         "design": "sorted-chunks", "deterministic": True, "bit_exact_twice": True,
@@ -776,6 +872,22 @@ def _scatter_add_check(rng, dev, table) -> dict:
         "library_ms": time_ms(lambda: torch.zeros(VOCAB, D, device=dev)
                               .index_add_(0, ids_long, g)),
         "bound_ms": s_bound, "bound_by": s_by, "bytes": int(s_bytes),
+        "bf16_cotangent": {
+            "shape": {"table": [VOCAB, D], "ids": [TRAIN_B, TRAIN_T], "g_dtype": "bfloat16",
+                      "padded": True},
+            "design": "sorted-chunks", "deterministic": True, "bit_exact_twice": True,
+            "bit_exact_vs_f32_widening": True, "bit_exact_vs_plain_ordered": True,
+            "launches_per_call": len(ops16), "device_ops_per_call": ops16,
+            "max_abs_err": 0.0,
+            "kernel_ms": time_ms(lambda: k_gather.embedding_scatter_add(g16, pad_ids, VOCAB)),
+            "widen_then_kernel_ms": time_ms(
+                lambda: k_gather.embedding_scatter_add(g16.float(), pad_ids, VOCAB)),
+            "plain_ms": time_ms(lambda: k_gather.plain_backward(g16, pad_ids, VOCAB)),
+            "library_ms": time_ms(lambda: torch.zeros(VOCAB, D, device=dev)
+                                  .index_add_(0, pad_ids, g16.float())),
+            "library": "index_add_ on the f32 widening (it takes no bf16 source into f32)",
+            "bound_ms": s16_bound, "bound_by": s16_by, "bytes": int(s16_bytes),
+        },
         "padded": {
             "padding_share": float(np.mean(pad_np == 0)),
             "max_ids_per_row": int(np.bincount(pad_np, minlength=VOCAB).max()),
@@ -932,7 +1044,7 @@ def _head_bound(N: int, S: int, D: int, dtype) -> tuple:
     return (*bound(h_bytes, 2 * N * S * D + 2 * N * D, dtype), h_bytes)
 
 
-def _head_checks(rng, dev, table) -> dict:
+def _head_checks(rng, dev, table, beauty: bool = True) -> dict:
     D = table.shape[1]
     N, S = TRAIN_B * TRAIN_T, NUM_NEG
     h32, pos32, neg32, targets, neg_ids, plq, nlq = _head_inputs(rng, dev, table, N, S)
@@ -987,6 +1099,8 @@ def _head_checks(rng, dev, table) -> dict:
         }
         out[name]["kernel_over_matmul"] = (out[name]["kernel_ms"]["median"]
                                            / out[name]["partial_yardstick_matmul_ms"]["median"])
+    if not beauty:
+        return out
     # The f32 head at beauty's and steam's step (configs/beauty_gru.json:
     # B=128, T=50, D=H=256, 256 negatives), which the first f32 design
     # refused.
@@ -1021,9 +1135,15 @@ def phase_train_kernels(rng: np.random.Generator, dev) -> dict:
         rng.normal(scale=D ** -0.5, size=(VOCAB, D)).astype(np.float32)).to(dev)
     ids = torch.from_numpy(zipf_items(rng, TRAIN_B * TRAIN_T).astype(np.int32)).to(dev)
     x32 = k_gather.plain(table, ids.reshape(TRAIN_B, TRAIN_T))
+    # The fit loop's width (D=H=64): the GRU reverse recurrence and the head.
+    table64 = torch.from_numpy(rng.normal(scale=FIT_D ** -0.5, size=(VOCAB, FIT_D))
+                               .astype(np.float32)).to(dev)
+    x32_64 = k_gather.plain(table64, ids.reshape(TRAIN_B, TRAIN_T))
     out = {"gather_backward": _scatter_add_check(rng, dev, table),
            "gru_backward": _gru_backward_checks(rng, dev, x32),
-           "softmax_head": _head_checks(rng, dev, table)}
+           "softmax_head": _head_checks(rng, dev, table),
+           f"gru_backward_D{FIT_D}": _gru_backward_checks(rng, dev, x32_64),
+           f"softmax_head_D{FIT_D}": _head_checks(rng, dev, table64, beauty=False)}
     emit({"phase": "train_kernels", **out})
     return out
 
@@ -1533,11 +1653,21 @@ def _reproducibility_check(tr: Trainer, state, group) -> dict:
             "leaves": sorted(leaves), "bitwise_equal": True}
 
 
+def _lookup_then_cast(self, table, ids):
+    """SeqRecModel._lookup as it was before the gather wrote the compute
+    dtype: a gather in the table's dtype, then a cast (a second launch, and
+    its gradient a third)."""
+    return ops.embedding_gather(table, ids, use_pallas=self.use_pallas).to(self.compute_dtype)
+
+
 def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int,
-                overrides=(), reproducible: bool = False) -> dict:
+                overrides=(), reproducible: bool = False, cast_launches: bool = False) -> dict:
     """`overrides`: config changes for this run, each named in its result.
     `reproducible`: also run one K-step group twice from one state on one
     batch group and require equal bits (_reproducibility_check).
+    `cast_launches`: also profile the steps with the lookups as they were
+    before the gather wrote the compute dtype (gather, then cast), for the
+    device launches a step before and after.
     A session-parallel configuration trains on windows of synthetic
     sessions with its path's shapes (SESSION_DATA), carrying the recurrent
     state from window to window."""
@@ -1665,6 +1795,17 @@ def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int
                        "total": e[0].elapsed_time(e[3])})
     split = {k: float(np.median([s[k] for s in splits])) for k in splits[0]}
     prof, state = profile_steps(tr, state, last[:4])
+    if cast_launches:
+        real = SeqRecModel._lookup
+        SeqRecModel._lookup = _lookup_then_cast
+        try:
+            prof_cast, state = profile_steps(tr, state, last[:4])
+        finally:
+            SeqRecModel._lookup = real
+        prof["gather_then_cast"] = {
+            k: prof_cast[k] for k in ("device_ms_per_step", "device_launches_per_step")}
+        prof["launches_saved_per_step"] = (prof_cast["device_launches_per_step"]
+                                           - prof["device_launches_per_step"])
     step_ms = float(np.median(times)) / K
     result = {
         "phase": "train_session" if session else "train", "config": config,
@@ -1703,6 +1844,192 @@ def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int
     return result
 
 
+FIT_STEPS = 104  # 13 groups of 8
+FIT_RUNS = (8, 1, 1, 8)  # steps_per_call of each run, alternated
+FIT_RECALL_TOL = 0.02  # recall@10, kernels vs plain on the same weights: bf16 scores' near-ties
+
+
+def fit_config(steps_per_call: int, out_dir: str, use_pallas: bool = True) -> RunConfig:
+    """bench.py's configuration (bench.py:67-81, benchmarks/throughput.py's
+    bench_config): GRU4Rec, B=128, T=200, D=H=64, 3,417 synthetic items,
+    sampled softmax over 256 log-uniform negatives, dropout 0, bf16
+    compute; the native loader, prefetch depth 2; FIT_STEPS steps, a log
+    line every 8, one full-protocol eval at the last step, checkpoints
+    off."""
+    cfg = RunConfig()
+    m, d, t = cfg.model, cfg.data, cfg.train
+    m.arch, m.embed_dim, m.num_layers, m.max_len = "gru4rec", FIT_D, 1, 200
+    m.loss, m.num_negatives, m.dropout_rate = "sampled_softmax", 256, 0.0
+    m.use_pallas = use_pallas
+    d.batch_size, d.max_len, d.synthetic_num_items = TRAIN_B, 200, VOCAB - 1
+    d.use_native_loader, d.prefetch_to_device = True, 2
+    t.steps_per_call, t.num_steps, t.log_every = steps_per_call, FIT_STEPS, 8
+    t.eval_every, t.checkpoint_every, t.out_dir = FIT_STEPS, 0, out_dir
+    return cfg
+
+
+def fit_dataset(cfg: RunConfig):
+    """The synthetic dataset benchmarks/throughput.py builds for this
+    config: max(4 B, 512) users, histories of 20..T+1 items."""
+    d = cfg.data
+    return synthetic_dataset(max(d.batch_size * 4, 512), d.synthetic_num_items, seed=d.seed,
+                             min_len=min(d.max_len, 20), max_len=d.max_len + 1)
+
+
+class _FitProbe:
+    """Wraps a Trainer's put_batch and evaluate: the thread and the kind of
+    each staged batch, and the launches, seconds and metrics of each eval."""
+
+    def __init__(self, tr: Trainer):
+        self.staged, self.evals = [], []
+        put, ev = tr.put_batch, tr.evaluate
+
+        def put_batch(batch):
+            staged = put(batch)
+            self.staged.append((threading.current_thread().name,
+                                isinstance(staged, StagedBatch)))
+            return staged
+
+        def evaluate_(state, split="val"):
+            before = read_counters()
+            t0 = time.perf_counter()
+            metrics = ev(state, split)
+            torch.cuda.synchronize()
+            self.evals.append({"seconds": time.perf_counter() - t0, "metrics": metrics,
+                               "launches": {k: v - before[k]
+                                            for k, v in read_counters().items()}})
+            return metrics
+
+        tr.put_batch, tr.evaluate = put_batch, evaluate_
+
+
+def _fit_run(dev, ds, K: int, out_dir: Path) -> tuple:
+    """One `Trainer(cfg).fit()` at fit_config(K): its checks and record,
+    and its final state."""
+    cfg = fit_config(K, str(out_dir))
+    tr = Trainer(cfg, ds, device=dev)
+    probe = _FitProbe(tr)
+    zero_counters()
+    t0 = time.perf_counter()
+    state, last_eval = tr.fit()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counters()
+    eval_launches = probe.evals[-1]["launches"] if probe.evals else {}
+    train_launches = {k: v - eval_launches.get(k, 0) for k, v in launches.items()}
+    lines = [json.loads(x) for x in (out_dir / "metrics.jsonl").read_text().splitlines()]
+    train = [r for r in lines if r["tag"] == "train"]
+    data = [r for r in lines if r["tag"] == "data"][0]
+    name = f"fit K={K}"
+    check(state.step == FIT_STEPS, f"{name}: stopped at step {state.step}")
+    check(tr.data_engine == "native" and data["engine"] == "native",
+          f"{name}: the native loader was not used ({tr.data_engine}: "
+          f"{native.build_error()})")
+    check(bool(probe.staged) and all(t == "seqrec-device-prefetch" and st
+                                     for t, st in probe.staged),
+          f"{name}: batches were not staged by the prefetcher's thread "
+          f"through pinned memory: {set(probe.staged)}")
+    check(len(train) == FIT_STEPS // 8 and all(np.isfinite(r["loss"]) for r in train),
+          f"{name}: logged losses {[r['loss'] for r in train]}")
+    check(train[-1]["loss"] < train[0]["loss"],
+          f"{name}: loss did not fall ({train[0]['loss']} -> {train[-1]['loss']})")
+    want = {k: v * FIT_STEPS for k, v in expected_launches(cfg, training=True).items()}
+    check(train_launches == want, f"{name}: kernel launches {train_launches}, expected {want}")
+    check(len(probe.evals) == 1 and last_eval == probe.evals[0]["metrics"],
+          f"{name}: {len(probe.evals)} evals")
+    check(last_eval["count"] > 0 and all(np.isfinite(v) for v in last_eval.values()),
+          f"{name}: eval metrics {last_eval}")
+    eps = [r["examples_per_s"] for r in train[1:]]  # the first window holds the warm-up
+    return {
+        "steps_per_call": K, "wall_s": wall_s, "data_engine": tr.data_engine,
+        "staged_batches": len(probe.staged), "prefetch_to_device": cfg.data.prefetch_to_device,
+        "examples_per_s_median": float(np.median(eps)),
+        "examples_per_s_min": min(eps), "examples_per_s_max": max(eps),
+        "step_ms_median": 1e3 * TRAIN_B / float(np.median(eps)),
+        "losses": [r["loss"] for r in train],
+        "launches": train_launches, "launches_per_step": {k: v / FIT_STEPS
+                                                          for k, v in train_launches.items()},
+        "eval": {"seconds": probe.evals[0]["seconds"], "metrics": last_eval,
+                 "launches": eval_launches},
+    }, tr, state
+
+
+def _fit_profile(dev, ds, out_dir: Path, steps: int = 16, top: int = 15) -> dict:
+    """torch.profiler over a short fit (K=8, no eval): device time and
+    launches a step and the kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = fit_config(8, str(out_dir))
+    cfg.train.num_steps, cfg.train.eval_every = steps, 0
+    tr = Trainer(cfg, ds, device=dev)
+    tr.fit()  # warm: the allocator and the loader
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tr.fit()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    check(bool(rows), "fit profile: the profiler recorded no device time")
+    rows.sort(key=lambda r: -r[1])
+    return {"steps": steps,
+            "device_ms_per_step": sum(r[1] for r in rows) / 1e3 / steps,
+            "device_launches_per_step": sum(r[2] for r in rows) / steps,
+            "top": [{"name": k[:90], "ms_per_step": t / 1e3 / steps, "calls_per_step": c / steps}
+                    for k, t, c in rows[:top]]}
+
+
+def phase_fit(dev) -> dict:
+    """`Trainer(cfg).fit()` at bench.py's configuration (fit_config): runs
+    of K=8 and K=1 alternated (FIT_RUNS), each through the native loader
+    and the prefetcher, its loss falling, each kernel launching its
+    expected count a step, one full-protocol eval; the first run's final
+    state also evaluated through the plain versions (recall@10 within
+    FIT_RECALL_TOL); every run's final parameters equal bit for bit (K=8
+    groups are K eager steps, and the step is deterministic); a profiled
+    short fit for the device time, launches and idle share of a step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
+    try:
+        ds = fit_dataset(fit_config(8, ""))
+        runs, finals = [], []
+        for i, K in enumerate(FIT_RUNS):
+            rec, tr, state = _fit_run(dev, ds, K, root / f"run{i}")
+            runs.append(rec)
+            finals.append(state)
+            if i == 0:
+                plain = Trainer(fit_config(K, "", use_pallas=False), ds, device=dev)
+                before = read_counters()
+                plain_eval = evaluate(plain.model, state.params, ds, plain.cfg.eval,
+                                      split="val", max_len=plain.cfg.data.max_len)
+                check(read_counters() == before, "fit: the plain eval launched kernels")
+                diff = abs(plain_eval["recall@10"] - rec["eval"]["metrics"]["recall@10"])
+                check(diff <= FIT_RECALL_TOL,
+                      f"fit: recall@10 {rec['eval']['metrics']['recall@10']} (kernels) vs "
+                      f"{plain_eval['recall@10']} (plain)")
+                rec["eval"]["plain_metrics"] = plain_eval
+        differ = [k for k in finals[0].params
+                  if not all(torch.equal(f.params[k], finals[0].params[k]) for f in finals)]
+        check(not differ, f"fit: final parameters differ between runs: {differ}")
+        prof = _fit_profile(dev, ds, root / "profile")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    by_k = {K: [r for r in runs if r["steps_per_call"] == K] for K in set(FIT_RUNS)}
+    summary = {f"K{K}": {"examples_per_s": [r["examples_per_s_median"] for r in rs],
+                         "step_ms": [r["step_ms_median"] for r in rs]}
+               for K, rs in sorted(by_k.items())}
+    k8_step = float(np.median(summary["K8"]["step_ms"]))
+    result = {
+        "phase": "fit", "config": "bench.py's GRU4Rec (fit_config)", "vocab": ds.vocab_size,
+        "users": ds.num_users, "batch_size": TRAIN_B, "seq_len": 200, "embed_dim": FIT_D,
+        "num_negatives": 256, "compute_dtype": "bfloat16", "steps": FIT_STEPS,
+        "runs": runs, "summary": summary, "final_params_bitwise_equal_across_runs": True,
+        "launches": runs[0]["launches"], "profile": prof,
+        "device_idle_share": 1.0 - prof["device_ms_per_step"] / k8_step,
+        "eval_seconds": runs[0]["eval"]["seconds"],
+    }
+    emit(result)
+    return result
+
+
 def _kernel_entry(name, source, replaces, launches, rec, plain_key="plain_ms", **extra):
     lib = rec["library_ms"]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1732,7 +2059,8 @@ def main(argv=None) -> int:
     serve = {"gru4rec": phase_serve(dev, args.seed, "gru4rec", requests)}
     tkern = phase_train_kernels(rng, dev)
     train = {"gru4rec": phase_train(rng, dev, args.seed, "gru4rec", groups=6,
-                                    reproducible=True)}
+                                    reproducible=True, cast_launches=True)}
+    fit = phase_fit(dev)
     towers = phase_tower_kernels(rng, dev)
     for path in ("sasrec", "lstm"):
         serve[path] = phase_serve(dev, args.seed, path, requests)
@@ -1752,16 +2080,23 @@ def main(argv=None) -> int:
                                       overrides=[F32, "train.warmup_steps=0"])
 
     def counts(kernel):
-        return {f"{kind}_{path}": runs[path]["launches"][kernel]
-                for kind, runs in (("train", train), ("serve", serve)) for path in runs}
+        return {"fit_bench_gru4rec": fit["launches"][kernel],
+                **{f"{kind}_{path}": runs[path]["launches"][kernel]
+                   for kind, runs in (("train", train), ("serve", serve)) for path in runs}}
+
+    gather = kern["gather"]
 
     # name, source, the TPU kernel it replaces, its phase record and dtype,
     # the training path whose count is `launches`, and (where the name is
     # not) its counter.
     table = [
-        ("gather", "gather.cu", "gather.py:86", kern["gather"], "float32", "gru4rec"),
-        ("gather_backward", "gather.cu", "gather.py:106", tkern["gather_backward"],
-         "float32", "gru4rec"),
+        # The gather at the training shape into bf16 (the bf16 paths' lookups).
+        ("gather", "gather.cu", "gather.py:86", gather[_gather_key(128, (TRAIN_B, TRAIN_T),
+                                                                   torch.bfloat16)],
+         "bfloat16", "gru4rec"),
+        # Its backward on the bf16 cotangent of those paths, padded ids.
+        ("gather_backward", "gather.cu", "gather.py:106",
+         tkern["gather_backward"]["bf16_cotangent"], "bfloat16", "gru4rec"),
         ("gru_scan", "gru.cu", "gru.py:177", kern["gru_scan_bfloat16"], "bfloat16", "gru4rec"),
         # The part of _gru_step_body's step that does not depend on h.
         ("gru_xproj", "rnn.cuh", "gru.py:110", kern["gru_xproj"], "bfloat16", "gru4rec"),
@@ -1786,6 +2121,11 @@ def main(argv=None) -> int:
         ("lstm_backward_reset", "lstm.cu", "lstm.py:265",
          skern["lstm_backward_reset"]["ml1m"]["bfloat16"], "bfloat16", "lstm_session"),
         # The f32 kernels of the f32 paths.
+        ("gather_f32", "gather.cu", "gather.py:86",
+         gather[_gather_key(128, (TRAIN_B, TRAIN_T), torch.float32)], "float32", "gru4rec_f32",
+         "gather"),
+        ("gather_backward_f32", "gather.cu", "gather.py:106", tkern["gather_backward"],
+         "float32", "gru4rec_f32", "gather_backward"),
         ("gru_scan_f32", "gru.cu", "gru.py:177", kern["gru_scan_float32"], "float32",
          "gru4rec_f32", "gru_scan"),
         ("xproj_f32", "rnn.cuh", "gru.py:110", kern["xproj_f32"], "float32", "gru4rec_f32"),

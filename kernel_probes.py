@@ -4,6 +4,7 @@
     python3 kernel_probes.py xproj [--out FILE]
     python3 kernel_probes.py head [--out FILE]
     python3 kernel_probes.py scatter [--out FILE]
+    python3 kernel_probes.py gather [--out FILE]
 
 `clusters` sweeps the f32 cluster recurrences over their cluster size C and
 rows a cluster R (each launch checked against its plain version first):
@@ -41,6 +42,16 @@ ids at ML-1M GRU4Rec's step (25,600 ids into [3418, 128], also with half the
 positions on the padding row), beauty's (6,400 into [12102, 256]) and
 rsc15's (12,800 into [37484, 100]): the call by CUDA events, each of its two
 kernels by torch.profiler, beside index_add_.
+
+`gather` builds kernel_probes_gather.cu and times the gather from an f32
+[3418, D] table into bf16 and f32 with 1, 2, 4 (shipped) or 8 rows in
+flight a lane group, and the row-group design tried first (1 to 8
+vectors in flight a lane, with and without its one-wave grid), each
+checked bit for bit against the plain version first, beside the design
+the redesign replaced (f32 out; with its separate cast for bf16),
+F.embedding (then .to(bf16)), the wrapper and an empty kernel (the floor
+of a launch timed this way), at training's [128, 200] ids at D=64 and
+128, serving's [64, 200] at D=128 and the 256 negatives at D=64.
 
 Each prints one JSON object as its last line, beside the card's name and
 power limit, and exits non-zero without CUDA.
@@ -334,7 +345,7 @@ def probe_scatter() -> dict:
 
             def call():
                 rc = lib.seqrec_scatter_add_rows(
-                    g.data_ptr(), ids.data_ptr(), 1, n, V, D, chunk,
+                    g.data_ptr(), 0, ids.data_ptr(), 1, n, V, D, chunk,
                     scratch.data_ptr(), nbytes, res.data_ptr(),
                     torch.cuda.current_stream().cuda_stream)
                 if rc != 0:
@@ -358,13 +369,82 @@ def probe_scatter() -> dict:
     return out
 
 
+def probe_gather() -> dict:
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from seqrec_tpu_torch.ops import _build
+    from seqrec_tpu_torch.ops.cuda import gather as k_gather
+
+    dev = torch.device("cuda", 0)
+    lib_path = _build.BUILD_DIR / "libkernel_probes_gather.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    r = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(HERE), "-o",
+                        str(lib_path), str(HERE / "kernel_probes_gather.cu")],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc kernel_probes_gather.cu failed:\n{r.stdout}{r.stderr}")
+    lib = ctypes.CDLL(str(lib_path))
+    variants = ["rows_1", "rows_2", "rows_4", "rows_8", "row_groups_u1", "row_groups_u2",
+                "row_groups_u4", "row_groups_u8", "row_groups_u4_full_grid", "gather_previous"]
+    for name in variants:
+        getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                                       ctypes.c_int, ctypes.c_void_p]
+    lib.empty_launch.argtypes = [ctypes.c_void_p]
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    out = {"empty_kernel_ms": cs.time_ms(lambda: lib.empty_launch(stream()))["median"],
+           "shapes": {}}
+    rng = np.random.default_rng(0)
+    for D, shape in ((64, (128, 200)), (128, (128, 200)), (128, (64, 200)), (64, (256,))):
+        table = torch.from_numpy(rng.normal(scale=D ** -0.5, size=(cs.VOCAB, D))
+                                 .astype(np.float32)).to(dev)
+        n = int(np.prod(shape))
+        ids = torch.from_numpy(cs.zipf_items(rng, n).reshape(shape).astype(np.int32)).to(dev)
+        rec = {"f32_embedding_ms": cs.time_ms(
+                   lambda: torch.nn.functional.embedding(ids, table))["median"],
+               "bf16_embedding_to_ms": cs.time_ms(
+                   lambda: torch.nn.functional.embedding(ids, table).bfloat16())["median"]}
+        for dtype in (torch.bfloat16, torch.float32):
+            want = k_gather.plain(table, ids, dtype=dtype)
+            dn = str(dtype).split(".")[-1]
+            rec[f"wrapper_{dn}_ms"] = cs.time_ms(
+                lambda: k_gather.embedding_gather(table, ids, dtype=dtype))["median"]
+            for name in variants:
+                if name == "gather_previous" and dtype == torch.bfloat16:
+                    continue
+                res = torch.empty((*shape, D), dtype=dtype, device=dev)
+                fn = getattr(lib, name)
+
+                def call():
+                    rc = fn(table.data_ptr(), cs.VOCAB, D, ids.data_ptr(), n, res.data_ptr(),
+                            int(dtype == torch.bfloat16), stream())
+                    if rc != 0:
+                        raise RuntimeError(f"gather {name}: CUDA error {rc}")
+
+                call()
+                torch.cuda.synchronize()
+                if not torch.equal(res, want):
+                    raise AssertionError(f"gather {name} {dn} D={D} {shape}: not the plain bits")
+                rec[f"{name}_{dn}_ms"] = cs.time_ms(call)["median"]
+                if name == "gather_previous":
+                    rec["gather_previous_then_cast_bf16_ms"] = cs.time_ms(
+                        lambda: (call(), res.bfloat16()))["median"]
+        out["shapes"][f"D{D}_{'x'.join(map(str, shape))}"] = rec
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="probe", required=True)
     for name, text in (("clusters", "the f32 cluster recurrences over C and R"),
                        ("xproj", "the f32 input projection's variants and its loop's parts"),
                        ("head", "the f32 sampled-softmax head's variants"),
-                       ("scatter", "the deterministic scatter-add's chunk sizes")):
+                       ("scatter", "the deterministic scatter-add's chunk sizes"),
+                       ("gather", "the gather's loads in flight, grid and the replaced design")):
         sub.add_parser(name, help=text).add_argument(
             "--out", help="also write the result (indented JSON) to this file")
     args = ap.parse_args(argv)
@@ -377,7 +457,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(HERE))
     result = {"clusters": probe_clusters, "xproj": probe_xproj, "head": probe_head,
-              "scatter": probe_scatter}[args.probe]()
+              "scatter": probe_scatter, "gather": probe_gather}[args.probe]()
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

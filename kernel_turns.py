@@ -34,7 +34,13 @@ A turn times, by CUDA events (chip_smoke.time_ms, median of 21 runs):
     unpadded and padded as the training path pads (about half of the
     positions on the padding row), and at rsc15's 12,800 ids into
     [37,484, 100] and beauty's 6,400 into [12,102, 256], each beside
-    index_add_ and with its ids on the heaviest row;
+    index_add_ and with its ids on the heaviest row; the gather from an f32
+    table into bf16 and f32 at serving's [64, 200] ids, training's
+    [128, 200] and the 256 negatives, D=64 and 128 (a checkout whose gather
+    takes no dtype: its gather, then .to(dtype), as its model did), beside
+    F.embedding then .to(dtype), and the scatter-add on a bf16 cotangent
+    at the training shape, padded (a checkout that widens it first: its
+    widening and its kernel);
     the LSTM forward bf16 and f32 (projection included) at B=64 and B=128,
     its reset variant bf16 and f32 at B=128, beside torch.nn.LSTM in f32 (cuDNN,
     TF32 off) forward and backward (fwd+bwd - fwd) on the same inputs; the
@@ -295,6 +301,34 @@ def _worker(label: str) -> dict:
             "index_add_ms": med(lambda: torch.zeros(V, D, device=dev).index_add_(0, sids, sg)),
             "max_ids_per_row": int(np.bincount(ids_np, minlength=V).max()),
             "padding_share": float(np.mean(ids_np == 0))}
+
+    # The gather into the compute dtype (a checkout whose gather takes no
+    # dtype: its gather, then .to(dtype), as its model did), beside
+    # F.embedding then .to(dtype), at serving's [64, 200] ids, training's
+    # [128, 200] and the 256 negatives, D=64 and D=128; and the scatter-add
+    # on a bf16 cotangent at the training shape, padded ids (a checkout
+    # that widens it first: its widening and its kernel).
+    takes_dtype = "dtype" in inspect.signature(k_gather.embedding_gather).parameters
+    for D in (64, 128):
+        gtable = torch.from_numpy(rng.normal(scale=D ** -0.5, size=(cs.VOCAB, D))
+                                  .astype(np.float32)).to(dev)
+        for shape in ((64, 200), (128, 200), (256,)):
+            gids = torch.from_numpy(cs.zipf_items(rng, int(np.prod(shape))).reshape(shape)
+                                    .astype(np.int32)).to(dev)
+            for dtype in (torch.bfloat16, torch.float32):
+                if takes_dtype:
+                    ms = med(lambda: k_gather.embedding_gather(gtable, gids, dtype=dtype))
+                else:
+                    ms = med(lambda: k_gather.embedding_gather(gtable, gids).to(dtype))
+                kern[f"gather_{dname(dtype)}_D{D}_{'x'.join(map(str, shape))}"] = {
+                    "ms": ms, "one_launch": takes_dtype or dtype == torch.float32,
+                    "embedding_to_ms": med(lambda: torch.nn.functional.embedding(
+                        gids, gtable).to(dtype))}
+        g16 = torch.from_numpy(rng.normal(scale=1e-2, size=(N, D)).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        pids = torch.from_numpy(padded.reshape(-1).astype(np.int64)).to(dev)
+        kern[f"scatter_add_bf16_cotangent_D{D}_padded"] = {
+            "ms": med(lambda: k_gather.embedding_scatter_add(g16, pids, cs.VOCAB))}
 
     # The LSTM: forward scans beside nn.LSTM f32 on the same values, then the
     # reverse recurrence on gate planes of the forward's ranges.

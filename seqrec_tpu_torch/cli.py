@@ -1,10 +1,17 @@
-"""CLI: ``python -m seqrec_tpu_torch recommend ...``.
+"""CLI: ``python -m seqrec_tpu_torch {train,recommend} ...``.
 
-The port's counterpart of `seqrec_tpu/cli.py`. This slice has the
-`recommend` subcommand (JSON-lines histories in, top-k JSON lines out):
+The port's counterpart of `seqrec_tpu/cli.py`, with two subcommands:
 
+    python -m seqrec_tpu_torch train --config configs/ml1m_gru4rec.json \
+        --set data.dataset=synthetic --set train.checkpoint_every=0
     python -m seqrec_tpu_torch recommend --config configs/ml1m_gru4rec.json \
         --weights params.npz --input histories.jsonl --k 10
+
+`train` runs `Trainer.fit` (the dataset from `data.dataset` under
+`data.data_dir`, prepared on the fly when it is missing), then the test
+split's eval, and prints `{"final_test": {...}}` after the logger's lines.
+Checkpoints are not ported yet (ROADMAP.md Queue 1 item 5), so a config
+that asks for them raises: pass `--set train.checkpoint_every=0`.
 
 `--weights` is a `.npz` of the JAX parameter tree (see models.convert) where
 the JAX CLI takes an orbax `--ckpt`; the catalog size is the row count of
@@ -28,6 +35,17 @@ def _load_cfg(args) -> RunConfig:
     if args.set:
         cfg = cfg.apply_overrides(args.set)
     return cfg
+
+
+def cmd_train(args) -> int:
+    """Train, then evaluate on the test split."""
+    cfg = _load_cfg(args)
+    from seqrec_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, device=args.device)
+    state, _ = tr.fit()
+    print(json.dumps({"final_test": tr.evaluate(state, split="test")}))
+    return 0
 
 
 def cmd_recommend(args) -> int:
@@ -64,16 +82,26 @@ def cmd_recommend(args) -> int:
     return 0
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    parser = argparse.ArgumentParser(prog="seqrec_tpu_torch")
-    sub = parser.add_subparsers(dest="cmd", required=True)
-
-    p = sub.add_parser("recommend", help="top-k recommendations for histories")
+def _add_common(p) -> None:
     p.add_argument("--config", default=None, help="JSON config file")
     p.add_argument(
         "--set", action="append", default=[], metavar="KEY=VAL",
         help="dotted config override, e.g. model.use_pallas=false",
     )
+    p.add_argument("--device", default=DEFAULT_DEVICE,
+                   help="torch device (default cuda; 'cpu' runs the plain path)")
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = argparse.ArgumentParser(prog="seqrec_tpu_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("train", help="train a model, then evaluate it on the test split")
+    _add_common(p)
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("recommend", help="top-k recommendations for histories")
+    _add_common(p)
     p.add_argument("--weights", required=True,
                    help=".npz of the JAX parameter tree (models/convert.py)")
     p.add_argument("--input", default=None,
@@ -82,8 +110,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--allow_repeats", action="store_true",
                    help="do not exclude items already in the history")
-    p.add_argument("--device", default=DEFAULT_DEVICE,
-                   help="torch device (default cuda; 'cpu' runs the plain path)")
     p.set_defaults(fn=cmd_recommend)
 
     args = parser.parse_args(argv)

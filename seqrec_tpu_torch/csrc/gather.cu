@@ -1,31 +1,56 @@
-// Embedding row gather for Hopper (sm_90a): out[r, :] = table[ids[r], :].
+// Embedding row gather for Hopper (sm_90a): out[r, :] = table[ids[r], :],
+// written in the caller's compute dtype.
 //
 // Replaces the TPU kernel seqrec_tpu/ops/pallas/gather.py (_gather_kernel,
 // launched by _gather_pallas), which issues one HBM->VMEM row DMA per
-// scalar-prefetched id, eight rows per grid step.
+// scalar-prefetched id, eight rows per grid step, and the `astype` to the
+// compute dtype that follows every lookup in seqrec_tpu/models/model.py
+// (XLA fuses it into the gather; here it is the kernel's store).
 //
 // What bounds it here: bytes. Each output row is one read of a table row and
-// one write; there is no arithmetic. At the serving shape (12,800 ids into a
-// [3418, 128] f32 table) the table (1.75 MB) sits in the 50 MB L2 after its
-// first touch, so the floor is the output write plus the distinct rows read.
+// one write in the output dtype; there is no arithmetic. At the training
+// shape (25,600 ids into a [3418, 128] f32 table) the table (1.75 MB) sits
+// in the 50 MB L2 after its first touch, so the floor is the output write
+// plus the distinct rows read; a bf16 output halves the write.
 //
-// Design: many rows per block and a group of lanes per row (one warp for a
-// 512-byte f32 row of D=128, fewer lanes for shorter rows), each lane moving
-// 16 bytes at a time, so a warp's loads and stores are whole 512-byte
-// coalesced transactions. Each lane group reads its own id; ids need no
-// prefetch pass. The grid strides over rows, so any number of ids launches.
+// Design (the gather's, not the TPU's DMA blocks):
+// - A lane group of up to 32 lanes a row (a warp a 512-byte f32 row at
+//   D=128; 16 lanes, two rows a warp, at D=64), a 16-byte vector a lane,
+//   so a warp's loads and stores are whole coalesced segments.
+// - Each lane group takes kRows = 4 rows, a block's rows apart, and issues
+//   the loads of all four before it stores any: four rows in flight a
+//   lane, to hide the latency of rows whose ids it has just read (one
+//   load a lane before).
+// - A lane group reads its own rows' ids: all its lanes read one address,
+//   one transaction the hardware broadcasts.
+// - A block for every 4 x (256 / lanes) rows; no grid-stride loop.
+// - The store converts: f32 rows to bf16 go out as 8-byte packs of four
+//   round-to-nearest-even values (cvt.rn.bf16x2.f32), bf16 to f32 as two
+//   16-byte stores, the same dtype as it came.
+// - Table reads take the non-coherent path (__ldg): no kernel writes the
+//   table while this one runs.
+// Measured against the alternatives on an H100 (kernel_probes.py gather,
+// PERF.md): one row a lane group is up to 0.0014 ms slower at 25,600
+// rows; a warp's rows in groups with their ids loaded once and shuffled,
+// 1 to 8 vectors in flight a lane and a one-wave grid-stride loop, is
+// 0.001-0.0015 ms slower at every shape (64 registers, half the warps a
+// SM, and per-lane index math in the chain of a launch this short).
 //
 // Out-of-range contract (jnp.take, as ops/reference.py): ids in [-V, V) wrap,
-// any other id writes a NaN row (the caller passes the dtype's NaN bit
-// pattern), and no address outside the table is ever read.
+// any other id writes a NaN row (the output dtype's quiet NaN, 0x7FC0 in
+// bf16, as the plain version and JAX's astype write it), and no address
+// outside the table is ever read.
 //
 // Backward (seqrec_scatter_add_rows): the gather's transpose. Replaces the
 // dense scatter-add of seqrec_tpu/ops/pallas/gather.py::_gather_core_bwd
 // (`zeros_like(table).at[ids].add(g)`, an XLA scatter on the TPU): each of
 // n f32 cotangent rows added into a [V, D] f32 table at its id. Ids in
 // [-V, V) wrap; any other id's row is dropped, as XLA's scatter drops
-// out-of-bounds updates. Bound by bytes: the cotangent read once (13.1 MB
-// for the inputs' 25,600 rows of 128 floats) and the table's 1.75 MB
+// out-of-bounds updates. The cotangent comes in the compute dtype (f32 or
+// bf16, the gather's output dtype) and is widened to f32 as it is loaded
+// (exactly), a template parameter on its element type: no separate
+// widening pass. Bound by bytes: the cotangent read once (13.1 MB for the
+// inputs' 25,600 rows of 128 floats, half in bf16) and the table's 1.75 MB
 // written.
 //
 // Deterministic: the same inputs give the same bits on every run, because
@@ -75,40 +100,127 @@
 // cudaGetLastError() after the launch; the launch is asynchronous on the
 // caller's stream and allocates nothing.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 1LL << 20;
+constexpr int kRows = 4;  // rows a lane group loads before it stores any
 
-template <typename Id>
+// A dtype's quiet NaN (0x7FC00000 in f32, 0x7FC0 in bf16), repeated to
+// fill 32 bits.
+template <typename T>
+struct NanWord;
+template <>
+struct NanWord<float> {
+  static constexpr unsigned int kValue = 0x7FC00000u;
+};
+template <>
+struct NanWord<__nv_bfloat16> {
+  static constexpr unsigned int kValue = 0x7FC07FC0u;
+};
+
+// The output bytes of one 16-byte input vector, all NaN words of Out.
+template <int kBytes>
+__device__ __forceinline__ void store_words(unsigned char* dst, unsigned int w) {
+  if constexpr (kBytes == 8) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w, w);
+  } else {
+    for (int i = 0; i < kBytes / 16; ++i) reinterpret_cast<uint4*>(dst)[i] = make_uint4(w, w, w, w);
+  }
+}
+
+// A 16-byte input vector's values stored in the output dtype at dst.
+template <typename In, typename Out>
+struct Convert;
+template <typename T>
+struct Convert<T, T> {
+  static constexpr int kOutBytes = 16;
+  __device__ static void store(unsigned char* dst, uint4 v) {
+    *reinterpret_cast<uint4*>(dst) = v;
+  }
+};
+template <>
+struct Convert<float, __nv_bfloat16> {
+  static constexpr int kOutBytes = 8;
+  __device__ static void store(unsigned char* dst, uint4 v) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(__uint_as_float(v.x), __uint_as_float(v.y));
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(__uint_as_float(v.z), __uint_as_float(v.w));
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2(*reinterpret_cast<const unsigned int*>(&lo),
+                   *reinterpret_cast<const unsigned int*>(&hi));
+  }
+};
+template <>
+struct Convert<__nv_bfloat16, float> {
+  static constexpr int kOutBytes = 32;
+  __device__ static void store(unsigned char* dst, uint4 v) {
+    // A bf16 is the top half of the f32 with the same value: exact.
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    d[0] = make_uint4(v.x << 16, v.x & 0xffff0000u, v.y << 16, v.y & 0xffff0000u);
+    d[1] = make_uint4(v.z << 16, v.z & 0xffff0000u, v.w << 16, v.w & 0xffff0000u);
+  }
+};
+
+
+// lanes: the lanes of a row (a power of two up to 32, the smallest that
+// covers the row's 16-byte vectors, then passes over the rest); a block
+// has kThreads / lanes lane groups, and lane group j of block b takes rows
+// (b * kR + k) * rows_per_block + j, k < kR: kR rows, all their loads
+// before any store.
+template <typename Id, typename In, typename Out, int kR = kRows>
 __global__ void __launch_bounds__(kThreads)
-gather_rows_kernel(const uint4* __restrict__ table, long long num_rows,
-                   int vecs_per_row, int lanes_per_row,
-                   const Id* __restrict__ ids, long long n,
-                   uint4* __restrict__ out, unsigned int nan_word) {
-  const int rows_per_block = kThreads / lanes_per_row;
-  const int slot = threadIdx.x / lanes_per_row;
-  const int lane = threadIdx.x % lanes_per_row;
-  const uint4 nan4 = make_uint4(nan_word, nan_word, nan_word, nan_word);
-  const long long stride = static_cast<long long>(gridDim.x) * rows_per_block;
-  for (long long r = static_cast<long long>(blockIdx.x) * rows_per_block + slot;
-       r < n; r += stride) {
-    const long long id = static_cast<long long>(ids[r]);
-    uint4* dst = out + r * vecs_per_row;
-    if (id >= -num_rows && id < num_rows) {
-      const uint4* src = table + (id < 0 ? id + num_rows : id) * vecs_per_row;
-      for (int c = lane; c < vecs_per_row; c += lanes_per_row) {
-        dst[c] = __ldg(src + c);
+gather_rows_kernel(const uint4* __restrict__ table, long long num_rows, int vecs, int lanes,
+                   const Id* __restrict__ ids, long long n, unsigned char* __restrict__ out) {
+  constexpr int kOut = Convert<In, Out>::kOutBytes;
+  const int rows_per_block = kThreads / lanes;
+  const int slot = threadIdx.x / lanes;
+  const int lane = threadIdx.x % lanes;
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block * kR + slot;
+  long long id[kR];
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const long long r = r0 + k * rows_per_block;
+    id[k] = r < n ? static_cast<long long>(ids[r]) : 0;
+  }
+  for (int c = lane; c < vecs; c += lanes) {
+    uint4 v[kR];
+#pragma unroll
+    for (int k = 0; k < kR; ++k) {
+      if (r0 + k * rows_per_block < n && id[k] >= -num_rows && id[k] < num_rows) {
+        v[k] = __ldg(table + (id[k] < 0 ? id[k] + num_rows : id[k]) * vecs + c);
       }
-    } else {
-      for (int c = lane; c < vecs_per_row; c += lanes_per_row) {
-        dst[c] = nan4;
+    }
+#pragma unroll
+    for (int k = 0; k < kR; ++k) {
+      const long long r = r0 + k * rows_per_block;
+      if (r >= n) break;
+      unsigned char* dst = out + (r * vecs + c) * kOut;
+      if (id[k] >= -num_rows && id[k] < num_rows) {
+        Convert<In, Out>::store(dst, v[k]);
+      } else {  // the output dtype's NaN, not a converted one
+        store_words<kOut>(dst, NanWord<Out>::kValue);
       }
     }
   }
+}
+
+// kR: rows a lane group keeps in flight (kRows; the other counts are for
+// kernel_probes.py gather).
+template <typename Id, typename In, typename Out, int kR = kRows>
+int launch_gather(const void* table, long long num_rows, int vecs, const void* ids, long long n,
+                  void* out, cudaStream_t s) {
+  int lanes = 1;
+  while (lanes < vecs && lanes < 32) lanes <<= 1;
+  const long long per_block = static_cast<long long>(kThreads / lanes) * kR;
+  const long long blocks = (n + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  gather_rows_kernel<Id, In, Out, kR><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      static_cast<const uint4*>(table), num_rows, vecs, lanes, static_cast<const Id*>(ids), n,
+      static_cast<unsigned char*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -175,6 +287,61 @@ __device__ __forceinline__ float load_l2(const float* p) {
   return v;
 }
 
+// A unit of g at unit index i, widened to f32: g holds f32 or bf16 values
+// (the cotangent in the compute dtype). The widening is exact (a bf16 is
+// the top half of the f32 of the same value), so a bf16 g sums the same
+// values in the same order as its f32 widening. nc: the partials kernel's
+// loads (load_ahead); run: the combine's (through L2, as load_l2).
+template <typename V, typename G>
+struct GLoad;
+// run: the combine's load of a run's sum, unit i of a row of g (from_g)
+// or of partial. In f32 one load, its address selected: a branch between
+// two volatile loads there made the combine 12% slower on an H100.
+template <typename V>
+struct GLoad<V, float> {
+  __device__ static V nc(const void* g, long long i) {
+    return load_ahead(static_cast<const V*>(g) + i);
+  }
+  __device__ static V run(const void* g, const V* partial, long long i, bool from_g) {
+    return load_l2((from_g ? static_cast<const V*>(g) : partial) + i);
+  }
+};
+__device__ __forceinline__ float4 widen4(unsigned a, unsigned b) {
+  return make_float4(__uint_as_float(a << 16), __uint_as_float(a & 0xffff0000u),
+                     __uint_as_float(b << 16), __uint_as_float(b & 0xffff0000u));
+}
+template <>
+struct GLoad<float4, __nv_bfloat16> {
+  __device__ static float4 nc(const void* g, long long i) {
+    unsigned a, b;
+    asm volatile("ld.global.nc.v2.u32 {%0, %1}, [%2];"
+                 : "=r"(a), "=r"(b) : "l"(static_cast<const uint2*>(g) + i));
+    return widen4(a, b);
+  }
+  __device__ static float4 run(const void* g, const float4* partial, long long i, bool from_g) {
+    // Plain L2 loads (not volatile asm), so that the compiler predicates
+    // the two instead of branching: ordered after griddepcontrol.wait by
+    // its memory clobber.
+    const uint2 u = from_g ? __ldcg(static_cast<const uint2*>(g) + i) : make_uint2(0u, 0u);
+    const float4 v = from_g ? make_float4(0.f, 0.f, 0.f, 0.f) : __ldcg(partial + i);
+    return from_g ? widen4(u.x, u.y) : v;
+  }
+};
+template <>
+struct GLoad<float, __nv_bfloat16> {
+  __device__ static float nc(const void* g, long long i) {
+    unsigned short h;
+    asm volatile("ld.global.nc.u16 %0, [%1];"
+                 : "=h"(h) : "l"(static_cast<const unsigned short*>(g) + i));
+    return __uint_as_float(static_cast<unsigned>(h) << 16);
+  }
+  __device__ static float run(const void* g, const float* partial, long long i, bool from_g) {
+    const unsigned short h = from_g ? __ldcg(static_cast<const unsigned short*>(g) + i) : 0;
+    const float v = from_g ? 0.f : __ldcg(partial + i);
+    return from_g ? __uint_as_float(static_cast<unsigned>(h) << 16) : v;
+  }
+};
+
 // Exclusive prefix sum of v over the block (blockDim.x threads, a multiple
 // of 32); *total gets the block's sum. Four 16-bit counters share v.
 __device__ unsigned long long block_exclusive_scan(unsigned long long v,
@@ -226,9 +393,9 @@ __device__ __forceinline__ int first_not_below(const unsigned long long* keys, i
 // kBuckets + 1 ints a chunk: dir[b] is the first run whose id is at least
 // b * ceil(V / kBuckets), dir[kBuckets] the chunk's number of runs; sub
 // 2 C / kSubRun rows a chunk.
-template <typename Id, typename V, int C>
+template <typename Id, typename V, typename G, int C>
 __global__ void __launch_bounds__(C)
-scatter_partials_kernel(const float* __restrict__ g, const Id* __restrict__ ids, long long n,
+scatter_partials_kernel(const void* __restrict__ g, const Id* __restrict__ ids, long long n,
                         long long num_rows, int D, float* sub, float* partial,
                         int2* __restrict__ runs, int* __restrict__ dir) {
   constexpr int kW = sizeof(V) / 4;           // floats a unit
@@ -244,7 +411,6 @@ scatter_partials_kernel(const float* __restrict__ g, const Id* __restrict__ ids,
   int* multis = msub_idx + C;                       // [C] first slots of multi runs
   const long long base = static_cast<long long>(blockIdx.x) * C;
   const int units = D / kW;
-  const V* gv = reinterpret_cast<const V*>(g);
   constexpr int sub_rows = 2 * C / kSubRun;
   V* subv = reinterpret_cast<V*>(sub) + static_cast<long long>(blockIdx.x) * sub_rows * units;
   V* partv = reinterpret_cast<V*>(partial) + base * units;
@@ -332,7 +498,8 @@ scatter_partials_kernel(const float* __restrict__ g, const Id* __restrict__ ids,
 #pragma unroll
         for (int q = 0; q < kAhead1; ++q) {
           const int f = b0 + q < e_end && msub_idx[b0 + q] >= 0 ? b0 + q : first;
-          rows[q] = load_ahead(gv + (base + static_cast<int>(keys[f] & 0xffffffffu)) * units + cc);
+          rows[q] = GLoad<V, G>::nc(
+              g, (base + static_cast<int>(keys[f] & 0xffffffffu)) * units + cc);
         }
 #pragma unroll
         for (int q = 0; q < kAhead1; ++q) {
@@ -398,9 +565,9 @@ scatter_partials_kernel(const float* __restrict__ g, const Id* __restrict__ ids,
 // Launch 2: a warp a table row; runs and dir as launch 1 left them (C
 // pairs and kBuckets + 1 directory entries a chunk); a run's sum is a row
 // of g or of partial, as its ref says.
-template <typename V>
+template <typename V, typename G>
 __global__ void __launch_bounds__(kCombineWarps * 32)
-scatter_combine_kernel(const float* g, const float* partial, const int2* runs,
+scatter_combine_kernel(const void* g, const float* partial, const int2* runs,
                        const int* dir, int chunks, int C, long long num_rows, int D,
                        float* out) {
   constexpr int kW = sizeof(V) / 4;
@@ -409,7 +576,6 @@ scatter_combine_kernel(const float* g, const float* partial, const int2* runs,
   if (v >= num_rows) return;  // warp-uniform
   const int units = D / kW;
   const int bucket = static_cast<int>(v / ((num_rows + kBuckets - 1) / kBuckets));
-  const V* gv = reinterpret_cast<const V*>(g);
   const V* pv = reinterpret_cast<const V*>(partial);
   V* ov = reinterpret_cast<V*>(out) + v * units;
   // Launched early (programmatic dependent launch): wait for the partials
@@ -485,8 +651,8 @@ scatter_combine_kernel(const float* g, const float* partial, const int2* runs,
             const int r = __shfl_sync(0xffffffffu, ref[i], b);
             got += mask != 0u;
             mask &= mask - 1;
-            rows[q] = load_l2(r >= 0 ? gv + static_cast<long long>(r) * units + cc
-                                     : pv + static_cast<long long>(-1 - r) * units + cc);
+            const long long at = static_cast<long long>(r >= 0 ? r : -1 - r) * units + cc;
+            rows[q] = GLoad<V, G>::run(g, pv, at, r >= 0);
           }
 #pragma unroll
           for (int q = 0; q < kAhead; ++q) {
@@ -499,13 +665,13 @@ scatter_combine_kernel(const float* g, const float* partial, const int2* runs,
   }
 }
 
-template <typename Id, typename V, int C>
+template <typename Id, typename V, typename G, int C>
 int launch_partials(const void* g, const void* ids, long long n, long long num_rows, int D,
                     void* partial, void* sub, int2* runs, void* dir, cudaStream_t s) {
   const long long chunks = (n + C - 1) / C;
   const size_t smem = static_cast<size_t>(C) * (8 + 4 * 4);
-  scatter_partials_kernel<Id, V, C><<<static_cast<unsigned>(chunks), C, smem, s>>>(
-      static_cast<const float*>(g), static_cast<const Id*>(ids), n, num_rows, D,
+  scatter_partials_kernel<Id, V, G, C><<<static_cast<unsigned>(chunks), C, smem, s>>>(
+      g, static_cast<const Id*>(ids), n, num_rows, D,
       static_cast<float*>(sub), static_cast<float*>(partial), runs, static_cast<int*>(dir));
   return static_cast<int>(cudaGetLastError());
 }
@@ -531,7 +697,7 @@ ScratchLayout scratch_layout(long long n, int D, int chunk) {
   return l;
 }
 
-template <typename Id, typename V>
+template <typename Id, typename V, typename G>
 int launch_scatter(const void* g, const void* ids, long long n, long long num_rows, int D,
                    int chunk, unsigned char* scratch, void* out, cudaStream_t s) {
   const long long chunks = (n + chunk - 1) / chunk;
@@ -541,9 +707,9 @@ int launch_scatter(const void* g, const void* ids, long long n, long long num_ro
   int2* runs = reinterpret_cast<int2*>(scratch + l.runs);
   void* dir = scratch + l.dir;
   if (chunks > 0) {
-    const int e = chunk == 256 ? launch_partials<Id, V, 256>(g, ids, n, num_rows, D, partial,
+    const int e = chunk == 256 ? launch_partials<Id, V, G, 256>(g, ids, n, num_rows, D, partial,
                                                              sub, runs, dir, s)
-                               : launch_partials<Id, V, 512>(g, ids, n, num_rows, D, partial,
+                               : launch_partials<Id, V, G, 512>(g, ids, n, num_rows, D, partial,
                                                              sub, runs, dir, s);
     if (e != 0) return e;
   }
@@ -559,7 +725,7 @@ int launch_scatter(const void* g, const void* ids, long long n, long long num_ro
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, scatter_combine_kernel<V>, static_cast<const float*>(g),
+      &cfg, scatter_combine_kernel<V, G>, g,
       static_cast<const float*>(partial), static_cast<const int2*>(runs),
       static_cast<const int*>(dir), static_cast<int>(chunks), chunk, num_rows, D,
       static_cast<float*>(out));
@@ -570,34 +736,33 @@ int launch_scatter(const void* g, const void* ids, long long n, long long num_ro
 
 extern "C" {
 
-// table: [num_rows, row_bytes] on the device, 16-byte aligned;
-// ids: n ints (int64 when ids_are_int64, else int32); out: [n, row_bytes].
-int seqrec_gather_rows(const void* table, long long num_rows,
-                       long long row_bytes, const void* ids, int ids_are_int64,
-                       long long n, void* out, unsigned int nan_word,
-                       void* stream) {
-  if (num_rows <= 0 || row_bytes <= 0 || row_bytes % 16 != 0 || n < 0) {
+// table: [num_rows, D] float (table_is_bf16 = 0) or bf16 on the device,
+// 16-byte aligned, rows of a multiple of 16 bytes; ids: n ints (int64 when
+// ids_are_int64, else int32); out: [n, D] float (out_is_bf16 = 0) or bf16,
+// 16-byte aligned.
+int seqrec_gather_rows(const void* table, long long num_rows, long long D, int table_is_bf16,
+                       const void* ids, int ids_are_int64, long long n, void* out,
+                       int out_is_bf16, void* stream) {
+  const long long row_bytes = D * (table_is_bf16 ? 2 : 4);
+  if (num_rows <= 0 || D <= 0 || row_bytes % 16 != 0 || row_bytes / 16 > 0x7fffffffLL || n < 0 ||
+      (reinterpret_cast<uintptr_t>(table) | reinterpret_cast<uintptr_t>(out)) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
   const int vecs = static_cast<int>(row_bytes / 16);
-  int lanes = 1;
-  while (lanes < vecs && lanes < 32) lanes <<= 1;
-  const int rows_per_block = kThreads / lanes;
-  long long blocks = (n + rows_per_block - 1) / rows_per_block;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint4* t = static_cast<const uint4*>(table);
-  uint4* o = static_cast<uint4*>(out);
-  if (ids_are_int64) {
-    gather_rows_kernel<long long><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        t, num_rows, vecs, lanes, static_cast<const long long*>(ids), n, o,
-        nan_word);
-  } else {
-    gather_rows_kernel<int><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        t, num_rows, vecs, lanes, static_cast<const int*>(ids), n, o, nan_word);
+  using bf16 = __nv_bfloat16;
+  const int kind = (ids_are_int64 ? 4 : 0) | (table_is_bf16 ? 2 : 0) | (out_is_bf16 ? 1 : 0);
+  switch (kind) {
+    case 0: return launch_gather<int, float, float>(table, num_rows, vecs, ids, n, out, s);
+    case 1: return launch_gather<int, float, bf16>(table, num_rows, vecs, ids, n, out, s);
+    case 2: return launch_gather<int, bf16, float>(table, num_rows, vecs, ids, n, out, s);
+    case 3: return launch_gather<int, bf16, bf16>(table, num_rows, vecs, ids, n, out, s);
+    case 4: return launch_gather<long long, float, float>(table, num_rows, vecs, ids, n, out, s);
+    case 5: return launch_gather<long long, float, bf16>(table, num_rows, vecs, ids, n, out, s);
+    case 6: return launch_gather<long long, bf16, float>(table, num_rows, vecs, ids, n, out, s);
+    default: return launch_gather<long long, bf16, bf16>(table, num_rows, vecs, ids, n, out, s);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The scratch bytes seqrec_scatter_add_rows needs for n ids of D floats in
@@ -607,13 +772,14 @@ long long seqrec_scatter_add_scratch_bytes(long long n, int D, int chunk) {
   return scratch_layout(n, D, chunk).bytes;
 }
 
-// g: [n, D] float; ids: n ints (int64 when ids_are_int64, else int32);
+// g: [n, D] float (g_is_bf16 = 0) or bf16, widened to f32 as it is read;
+// ids: n ints (int64 when ids_are_int64, else int32);
 // out: [num_rows, D] float, every row written. chunk: positions a chunk,
 // 256 or 512. scratch: scratch_bytes on the device, 16-byte aligned, at
 // least seqrec_scatter_add_scratch_bytes(n, D, chunk). n < 2^31 (positions
 // are kept as int32). num_rows < 2^31 (ids are kept as int32). n == 0
 // launches only the second kernel, which writes zeros.
-int seqrec_scatter_add_rows(const void* g, const void* ids, int ids_are_int64,
+int seqrec_scatter_add_rows(const void* g, int g_is_bf16, const void* ids, int ids_are_int64,
                             long long n, long long num_rows, int D, int chunk,
                             void* scratch, long long scratch_bytes, void* out, void* stream) {
   if (num_rows <= 0 || num_rows > 0x7fffffffLL || D <= 0 || n < 0 || n > 0x7fffffffLL ||
@@ -624,14 +790,26 @@ int seqrec_scatter_add_rows(const void* g, const void* ids, int ids_are_int64,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned char* sc = static_cast<unsigned char*>(scratch);
-  const bool vec4 = D % 4 == 0 && ((reinterpret_cast<uintptr_t>(g) |
-                                     reinterpret_cast<uintptr_t>(out)) % 16 == 0);
-  if (ids_are_int64) {
-    return vec4 ? launch_scatter<long long, float4>(g, ids, n, num_rows, D, chunk, sc, out, s)
-                : launch_scatter<long long, float>(g, ids, n, num_rows, D, chunk, sc, out, s);
+  // float4 units: 4 values of g (16 bytes in f32, 8 in bf16) and of out.
+  const uintptr_t g_align = g_is_bf16 ? 8 : 16;
+  const bool vec4 = D % 4 == 0 && reinterpret_cast<uintptr_t>(g) % g_align == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  using bf16 = __nv_bfloat16;
+  const int kind = (ids_are_int64 ? 4 : 0) | (g_is_bf16 ? 2 : 0) | (vec4 ? 1 : 0);
+  switch (kind) {
+    case 0: return launch_scatter<int, float, float>(g, ids, n, num_rows, D, chunk, sc, out, s);
+    case 1: return launch_scatter<int, float4, float>(g, ids, n, num_rows, D, chunk, sc, out, s);
+    case 2: return launch_scatter<int, float, bf16>(g, ids, n, num_rows, D, chunk, sc, out, s);
+    case 3: return launch_scatter<int, float4, bf16>(g, ids, n, num_rows, D, chunk, sc, out, s);
+    case 4:
+      return launch_scatter<long long, float, float>(g, ids, n, num_rows, D, chunk, sc, out, s);
+    case 5:
+      return launch_scatter<long long, float4, float>(g, ids, n, num_rows, D, chunk, sc, out, s);
+    case 6:
+      return launch_scatter<long long, float, bf16>(g, ids, n, num_rows, D, chunk, sc, out, s);
+    default:
+      return launch_scatter<long long, float4, bf16>(g, ids, n, num_rows, D, chunk, sc, out, s);
   }
-  return vec4 ? launch_scatter<int, float4>(g, ids, n, num_rows, D, chunk, sc, out, s)
-              : launch_scatter<int, float>(g, ids, n, num_rows, D, chunk, sc, out, s);
 }
 
 const char* seqrec_gather_error_string(int code) {

@@ -5,7 +5,9 @@ one JSON line each in the CLI) and recommendations go out in the same order
 as `{"user", "items", "scores"}`. Each batch is padded to [batch_size,
 max_len], scored against the whole catalog on the model's device, and its
 top `k + max_len` items are fetched so that the host-side exclusion of seen
-items cannot empty the list.
+items cannot empty the list. Where [batch_size, V] f32 scores would exceed
+`chunked.CHUNK_THRESHOLD_BYTES` the catalog is scored in blocks
+(`chunked.chunked_topk`), with the same result.
 
 Top-k is a stable descending sort, so equal scores keep the lower item id
 first, as `jax.lax.top_k` orders them.
@@ -13,16 +15,13 @@ first, as `jax.lax.top_k` orders them.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Iterator, List, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from seqrec_tpu_torch.eval import chunked
 from seqrec_tpu_torch.eval.metrics import mask_scores
-
-# Above this many bytes of [B, V] f32 scores the reference streams the
-# catalog in blocks (seqrec_tpu/eval/chunked.py); the port does not yet.
-CHUNK_THRESHOLD_BYTES = 512 << 20
 
 
 def _pack(
@@ -45,9 +44,16 @@ def _pack(
 
 @torch.inference_mode()
 def topk_step(model, inputs: torch.Tensor, mask: torch.Tensor,
-              users: torch.Tensor, fetch_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+              users: torch.Tensor, fetch_k: int,
+              chunk: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scores of one packed batch, pad column masked, top `fetch_k` as
-    (values [B, fetch_k] f32, item ids [B, fetch_k])."""
+    (values [B, fetch_k] f32, item ids [B, fetch_k]). `chunk`: score the
+    catalog in blocks of that many rows (None: all at once)."""
+    if chunk is not None:
+        return chunked.chunked_topk(
+            model.output_table(), model.last_hidden(inputs, mask, users=users), fetch_k,
+            bias=model.output_bias_value(), num_valid=model.vocab_size,
+            compute_dtype=model.compute_dtype, chunk=chunk)
     scores = mask_scores(model.scores(inputs, mask, users=users))
     vals, ids = torch.sort(scores, dim=-1, descending=True, stable=True)
     return vals[:, :fetch_k], ids[:, :fetch_k]
@@ -61,15 +67,14 @@ def recommend(
     batch_size: int = 64,
     max_len: int = 200,
     exclude_history: bool = True,
+    chunk: Optional[int] = None,
 ) -> Iterator[Dict]:
     """Yield {"user", "items", "scores"} per input history dict (in order),
-    computed on the device that holds `model`."""
-    if 4 * batch_size * model.table_size > CHUNK_THRESHOLD_BYTES:
-        raise NotImplementedError(
-            "recommend: catalogs whose [batch, V] scores exceed "
-            f"{CHUNK_THRESHOLD_BYTES} bytes need the chunked top-k, not "
-            "ported yet (ROADMAP.md Queue 1 item 4, eval)"
-        )
+    computed on the device that holds `model`. `chunk`: the catalog block
+    of the chunked top-k (None: `chunked.DEFAULT_CHUNK`, read at call
+    time)."""
+    use_chunked = 4 * batch_size * model.table_size > chunked.CHUNK_THRESHOLD_BYTES
+    block = (chunk or chunked.DEFAULT_CHUNK) if use_chunked else None
     device = model.item_embedding.device
     # Over-fetch so host-side history exclusion cannot empty the list.
     fetch_k = min(k + (max_len if exclude_history else 0), model.vocab_size - 1)
@@ -86,7 +91,7 @@ def recommend(
         vals, ids = topk_step(
             model, torch.from_numpy(inputs).to(device),
             torch.from_numpy(mask).to(device), torch.from_numpy(u).to(device),
-            fetch_k,
+            fetch_k, block,
         )
         vals = vals.cpu().numpy()
         ids = ids.cpu().numpy()

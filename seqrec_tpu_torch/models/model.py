@@ -116,8 +116,9 @@ class SeqRecModel(nn.Module):
     # ---- helpers -------------------------------------------------------
 
     def _lookup(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-        out = ops.embedding_gather(table, ids, use_pallas=self.use_pallas)
-        return out.to(self.compute_dtype)
+        """Rows of `table` in the compute dtype (the gather writes it)."""
+        return ops.embedding_gather(table, ids, dtype=self.compute_dtype,
+                                    use_pallas=self.use_pallas)
 
     def output_table(self) -> torch.Tensor:
         return self.item_embedding if self.tie_embeddings else self.output_embedding
@@ -234,9 +235,7 @@ class SeqRecModel(nn.Module):
                 logits = torch.where(cols[None, :] < self.vocab_size, logits,
                                      torch.full_like(logits, NEG_FILL))
             return logits
-        cand = ops.embedding_gather(out_table, candidates,
-                                    use_pallas=self.use_pallas)
-        cand = cand.to(self.compute_dtype)  # [B, C, H]
+        cand = self._lookup(out_table, candidates)  # [B, C, H]
         logits = torch.einsum("bh,bch->bc", h_last, cand).float()
         if bias is not None:
             logits = logits + reference.embedding_gather(

@@ -2,11 +2,14 @@
 transpose, a scatter-add, joined by a `torch.autograd.Function`.
 
 Replaces `seqrec_tpu/ops/pallas/gather.py::embedding_gather` and its custom
-VJP `_gather_core_bwd`. Both are bound by bytes; see the source note for the
-design. Same contract as the plain versions: `jnp.take` semantics, ids in
-[-V, V) wrap, other ids give NaN rows forward and drop their cotangent rows
-backward. The table's gradient is accumulated in f32 and cast to the
-table's dtype.
+VJP `_gather_core_bwd`, with the `astype` to the compute dtype that the
+JAX model puts after every lookup folded into the gather's store. Both are
+bound by bytes; see the source note for the design. Same contract as the
+plain versions: `jnp.take` semantics, ids in [-V, V) wrap, other ids give
+NaN rows forward and drop their cotangent rows backward. The output is in
+`dtype` (f32 or bf16, round to nearest even), the cotangent comes back in
+it and is widened to f32 by the scatter-add's loads; the table's gradient
+is accumulated in f32 and cast to the table's dtype.
 
 The scatter-add is deterministic: every row sums its terms in an order the
 ids' positions fix (chunks of positions, runs of one id in a chunk cut into
@@ -35,22 +38,22 @@ CHUNKS = (256, 512)
 MAX_ROWS = 2 ** 31 - 1
 MAX_IDS = 2 ** 31 - 1  # positions are kept as int32 too
 
-# The dtype's quiet-NaN bit pattern, repeated to fill 32 bits.
-_NAN_WORD = {torch.float32: 0x7FC00000, torch.bfloat16: 0x7FC07FC0}
+# The dtypes the kernels read and write.
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gather")
     fn = lib.seqrec_gather_rows
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,  # table, V, row bytes
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,  # table, V, D, bf16?
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,  # ids, int64?, n
-        ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p,  # out, nan word, stream
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # out, bf16?, stream
     ]
     fn.restype = ctypes.c_int
     bwd = lib.seqrec_scatter_add_rows
     bwd.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # g, ids, int64?
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,  # g, bf16?, ids, int64?
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,  # n, V, D, chunk
         ctypes.c_void_p, ctypes.c_longlong,  # scratch, its bytes
         ctypes.c_void_p, ctypes.c_void_p,  # out, stream
@@ -64,12 +67,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def check_launchable(table: torch.Tensor, ids: torch.Tensor) -> None:
-    """Raise ValueError for inputs the kernel cannot take."""
+def check_launchable(table: torch.Tensor, ids: torch.Tensor,
+                     dtype: torch.dtype | None = None) -> None:
+    """Raise ValueError for inputs the kernel cannot take (`dtype`: the
+    output's, the table's when None)."""
     if table.dim() != 2:
         raise ValueError(f"gather: table must be [V, D], got {tuple(table.shape)}")
-    if table.dtype not in _NAN_WORD:
+    if table.dtype not in DTYPES:
         raise ValueError(f"gather: table dtype {table.dtype} not in float32/bfloat16")
+    if dtype is not None and dtype not in DTYPES:
+        raise ValueError(f"gather: output dtype {dtype} not in float32/bfloat16")
     if ids.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"gather: ids dtype {ids.dtype} not in int32/int64")
     if ids.device != table.device:
@@ -84,20 +91,19 @@ def check_launchable(table: torch.Tensor, ids: torch.Tensor) -> None:
         )
 
 
-def _gather_kernel(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    check_launchable(table, ids)
+def _gather_kernel(table: torch.Tensor, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    check_launchable(table, ids, dtype)
     ids_c = ids.contiguous()
-    out = torch.empty((*ids.shape, table.shape[1]), dtype=table.dtype,
-                      device=table.device)
+    out = torch.empty((*ids.shape, table.shape[1]), dtype=dtype, device=table.device)
     if ids_c.numel() == 0:
         return out
     lib = _lib()
     with torch.cuda.device(table.device):
         rc = lib.seqrec_gather_rows(
-            table.data_ptr(), table.shape[0],
-            table.shape[1] * table.element_size(),
+            table.data_ptr(), table.shape[0], table.shape[1],
+            int(table.dtype == torch.bfloat16),
             ids_c.data_ptr(), int(ids_c.dtype == torch.int64), ids_c.numel(),
-            out.data_ptr(), _NAN_WORD[table.dtype],
+            out.data_ptr(), int(dtype == torch.bfloat16),
             torch.cuda.current_stream(table.device).cuda_stream,
         )
     if rc != 0:
@@ -126,8 +132,8 @@ def check_scatter_add_launchable(g: torch.Tensor, ids: torch.Tensor,
     its plan."""
     if ids.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"scatter_add: ids dtype {ids.dtype} not in int32/int64")
-    if not g.is_floating_point():
-        raise ValueError(f"scatter_add: g dtype {g.dtype} is not floating")
+    if g.dtype not in DTYPES:
+        raise ValueError(f"scatter_add: g dtype {g.dtype} not in float32/bfloat16")
     if ids.device != g.device:
         raise ValueError(f"scatter_add: ids on {ids.device}, g on {g.device}")
     if g.dim() != ids.dim() + 1 or tuple(g.shape[:-1]) != tuple(ids.shape) \
@@ -196,9 +202,10 @@ def plain_ordered(g: torch.Tensor, ids: torch.Tensor, num_rows: int,
 def embedding_scatter_add(g: torch.Tensor, ids: torch.Tensor,
                           num_rows: int) -> torch.Tensor:
     """The gather's transpose -> a [num_rows, D] f32 table holding each row
-    of `g` ([*ids.shape, D]) summed at its id (wrapped; out-of-range ids
-    dropped). A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernels (two, deterministic) or raises."""
+    of `g` ([*ids.shape, D], f32 or bf16, summed as its f32 widening) at
+    its id (wrapped; out-of-range ids dropped). A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernels (two, deterministic) or
+    raises."""
     if g.device.type == "cpu":
         return plain_backward(g, ids, num_rows)
     if g.device.type != "cuda":
@@ -209,7 +216,7 @@ def embedding_scatter_add(g: torch.Tensor, ids: torch.Tensor,
     if n == 0:
         return torch.zeros((num_rows, D), dtype=torch.float32, device=g.device)
     ids_c = ids.contiguous()
-    g_c = g.to(torch.float32).contiguous()
+    g_c = g.contiguous()
     dev = g.device
     lib = _lib()
     nbytes = lib.seqrec_scatter_add_scratch_bytes(n, D, plan["chunk"])
@@ -217,7 +224,8 @@ def embedding_scatter_add(g: torch.Tensor, ids: torch.Tensor,
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         rc = lib.seqrec_scatter_add_rows(
-            g_c.data_ptr(), ids_c.data_ptr(), int(ids_c.dtype == torch.int64), n,
+            g_c.data_ptr(), int(g_c.dtype == torch.bfloat16), ids_c.data_ptr(),
+            int(ids_c.dtype == torch.int64), n,
             num_rows, D, plan["chunk"], scratch.data_ptr(), nbytes, out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -232,32 +240,35 @@ embedding_scatter_add.launches = 0
 
 
 class _Gather(torch.autograd.Function):
-    """rows of `table` for `ids`; the gradient reaches the table only."""
+    """rows of `table` for `ids` in `dtype`; the gradient (in `dtype`)
+    reaches the table only."""
 
     @staticmethod
-    def forward(ctx, table, ids):
+    def forward(ctx, table, ids, dtype):
         ctx.save_for_backward(ids)
         ctx.num_rows, ctx.table_dtype = table.shape[0], table.dtype
         if table.device.type == "cpu":
-            return plain(table, ids)
-        return _gather_kernel(table, ids)
+            return plain(table, ids, dtype=dtype)
+        return _gather_kernel(table, ids, dtype)
 
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
         d_table = embedding_scatter_add(g, ids, ctx.num_rows)
-        return d_table.to(ctx.table_dtype), None
+        return d_table.to(ctx.table_dtype), None, None
 
 
-def embedding_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """`table[ids]` with jnp.take's out-of-range contract -> [*ids.shape, D],
-    differentiable in `table`.
+def embedding_gather(table: torch.Tensor, ids: torch.Tensor, *,
+                     dtype: torch.dtype | None = None) -> torch.Tensor:
+    """`table[ids].to(dtype)` with jnp.take's out-of-range contract ->
+    [*ids.shape, D] in `dtype` (the table's when None), differentiable in
+    `table`. The cast is the kernel's store, not a second pass.
 
     A CPU tensor takes the plain versions; a CUDA tensor launches the
     kernels or raises."""
     if table.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gather: no kernel for device {table.device}")
-    return _Gather.apply(table, ids)
+    return _Gather.apply(table, ids, table.dtype if dtype is None else dtype)
 
 
 embedding_gather.launches = 0

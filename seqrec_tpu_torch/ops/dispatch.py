@@ -18,10 +18,10 @@ from seqrec_tpu_torch.ops.cuda import head as cuda_head
 from seqrec_tpu_torch.ops.cuda import lstm as cuda_lstm
 
 
-def embedding_gather(table, ids, *, use_pallas: bool = True):
+def embedding_gather(table, ids, *, dtype=None, use_pallas: bool = True):
     if use_pallas:
-        return cuda_gather.embedding_gather(table, ids)
-    return reference.embedding_gather(table, ids)
+        return cuda_gather.embedding_gather(table, ids, dtype=dtype)
+    return reference.embedding_gather(table, ids, dtype=dtype)
 
 
 def gru_scan(x, h0, w_x, w_h, b_x=None, b_h=None, *, reset_mask=None,

@@ -22,8 +22,11 @@ import torch
 # ---------------------------------------------------------------------------
 
 
-def embedding_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Rows of `table` ([V, D], floating) for integer `ids` (any shape).
+def embedding_gather(table: torch.Tensor, ids: torch.Tensor, *,
+                     dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Rows of `table` ([V, D], floating) for integer `ids` (any shape), in
+    `dtype` (the table's when None): JAX's `embedding_gather(...)
+    .astype(dtype)`.
 
     `jnp.take` semantics: ids in [-V, V) wrap as Python indexing does, and any
     other id gives a NaN row instead of reading out of bounds."""
@@ -32,8 +35,11 @@ def embedding_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     valid = (ids >= -V) & (ids < V)
     rows = torch.where(ids < 0, ids + V, ids)
     rows = torch.where(valid, rows, torch.zeros_like(rows))
-    out = table[rows]
-    nan = torch.full((), float("nan"), dtype=table.dtype, device=table.device)
+    out = table[rows] if dtype is None else table[rows].to(dtype)
+    # The NaN row is made in the output dtype (its quiet NaN, 0x7FC0 in
+    # bf16, as JAX's astype gives), not cast: torch's vectorized f32->bf16
+    # cast turns a NaN into 0xFFFF.
+    nan = torch.full((), float("nan"), dtype=out.dtype, device=table.device)
     return torch.where(valid[..., None], out, nan)
 
 

@@ -1,6 +1,10 @@
-"""The training step: the port of `seqrec_tpu/train/trainer.py`'s dense and
-session-parallel `_train_step_impl`, `_train_step_multi_impl` and their
-compact wire formats.
+"""The training engine: the port of `seqrec_tpu/train/trainer.py`, its dense
+and session-parallel steps, their compact wire formats, the fit loop and
+eval.
+
+    trainer = Trainer(cfg)                   # the dataset from cfg.data
+    state, last_eval = trainer.fit()         # loader -> prefetcher -> steps
+    metrics = trainer.evaluate(state, split="test")
 
     trainer = Trainer(cfg, ds)               # ds: anything with vocab_size, num_users
     state = trainer.init_state(seed)
@@ -19,32 +23,98 @@ stream (`data.batching.make_session_stream`): the step runs
 previous window left, and the new state carries the window's final state,
 detached (truncated BPTT: gradients stop at the window boundary, as
 `jax.lax.stop_gradient` stops them in the JAX step).
-Metrics stay on the device (no host sync inside a step). The fit loop, the
-data pipeline and a CUDA-graph capture of a K-step group come with later
-slices (ROADMAP.md Queue 1 item 3).
+Metrics stay on the device (no host sync inside a step).
+
+`fit` runs the JAX package's loop: the native C++ loader (or the Python
+batcher when the engine cannot be built), `train.steps_per_call` batches
+of one bucket packed into one [K, B, T+2] wire group on the feeder side,
+a `DevicePrefetcher` that stages wires through pinned memory on a side
+stream, the log, eval and heartbeat cadences at group boundaries, the
+`debug_nans` halt and the `fail_after_step` return. Checkpoints
+(ROADMAP.md Queue 1 item 5) and `profile_dir` (item 10) raise, naming
+their items; a CUDA-graph capture of the K-step group is item 3b.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+import os
+import time
+import warnings
+from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from seqrec_tpu_torch.config import RunConfig
+from seqrec_tpu_torch.data import native
+from seqrec_tpu_torch.data.batching import make_session_stream, make_train_batches
+from seqrec_tpu_torch.data.dataset import load_dataset
 from seqrec_tpu_torch.data.negative import sample_negatives
+from seqrec_tpu_torch.data.prefetch import DevicePrefetcher, HostStager, StagedBatch
+from seqrec_tpu_torch.eval.harness import evaluate
 from seqrec_tpu_torch.models import build_model
 from seqrec_tpu_torch.models.convert import flax_to_state_dict, random_params
 from seqrec_tpu_torch.models.model import SAMPLED_LOSSES
 from seqrec_tpu_torch.models.towers import zero_carry
+from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.runtime import DEFAULT_DEVICE, resolve_device
 from seqrec_tpu_torch.train.state import (
     TrainState,
     global_norm,
     make_optimizer,
 )
+from seqrec_tpu_torch.utils.logging import Heartbeat, MetricsLogger
 
 Batch = Union[np.ndarray, torch.Tensor, Dict[str, np.ndarray]]
+
+
+def _crossed(every: int, lo: int, hi: int) -> bool:
+    """True when a step s in [lo, hi) has (s + 1) % every == 0: fit's
+    cadence checks over a group of steps (at hi == lo + 1, exactly
+    (lo + 1) % every == 0)."""
+    return every > 0 and (hi // every) > (lo // every)
+
+
+class DeclinedDict(dict):
+    """A batch dict that `pack` already declined (not canonical): put_batch
+    does not try to pack it a second time."""
+
+
+def _group_wires(it, pack, k: int, limit: int):
+    """Group up to `k` consecutive same-bucket canonical batches from `it`
+    into one stacked [k, B, W] wire array (train.steps_per_call). Yields
+    (bucket, payload), payload one of: a stacked group, a single [B, W]
+    wire, or the batch dict (a DeclinedDict) when `pack` declines it. Order
+    is kept exactly; at most `limit` batches go out inside full groups, so
+    that fit never runs past num_steps."""
+    buf = []  # staged (bucket, wire) of one bucket and shape
+    emitted = 0
+    for bucket, batch in it:
+        wire = pack(batch)
+        if buf and (wire is None or bucket != buf[0][0] or wire.shape != buf[0][1].shape):
+            for b, w in buf:
+                yield b, w
+            emitted += len(buf)
+            buf = []
+        if wire is None:
+            yield bucket, DeclinedDict(batch)
+            emitted += 1
+            continue
+        buf.append((bucket, wire))
+        if len(buf) == k:
+            if emitted + k <= limit:
+                yield bucket, np.stack([w for _, w in buf])
+            else:  # the tail: not enough steps left for a full group
+                for b, w in buf:
+                    yield b, w
+            emitted += k
+            buf = []
+    for b, w in buf:
+        yield b, w
+
+
+def _ready(staged):
+    return staged.ready() if isinstance(staged, StagedBatch) else staged
 
 
 def _detach(carry):
@@ -55,11 +125,11 @@ def _detach(carry):
 
 
 class Trainer:
-    def __init__(self, cfg: RunConfig, ds, *,
+    def __init__(self, cfg: RunConfig, ds=None, *,
                  device: Union[str, torch.device] = DEFAULT_DEVICE):
         self.cfg = cfg
-        self.ds = ds
         self.device = resolve_device(device)
+        self.ds = ds if ds is not None else load_dataset(cfg.data)
         if cfg.train.sparse_embedding_update:
             raise NotImplementedError(
                 "train.sparse_embedding_update: ROADMAP.md Queue 1 item 8 "
@@ -67,10 +137,15 @@ class Trainer:
         if cfg.mesh.shard_embeddings and cfg.mesh.model_axis > 1:
             raise NotImplementedError(
                 "mesh.shard_embeddings: ROADMAP.md Queue 1 item 9 (multi-GPU)")
-        self.model = build_model(cfg.model, ds.vocab_size, num_users=ds.num_users,
+        self.model = build_model(cfg.model, self.ds.vocab_size, num_users=self.ds.num_users,
                                  neg_sampler=cfg.data.neg_sampler,
                                  device=self.device)
         self.optimizer = make_optimizer(cfg.train)
+        # One device: the local batch is the global batch.
+        self.local_batch = self.global_batch = cfg.data.batch_size
+        self.num_devices = 1
+        self.data_engine: Optional[str] = None  # "native" or "python", once chosen
+        self._stager: Optional[HostStager] = None
 
     # ---- state ----------------------------------------------------------
 
@@ -330,3 +405,198 @@ class Trainer:
         if self.cfg.data.session_parallel:
             return self._unpack_session_wire(wire)
         return self._unpack_wire(wire)
+
+    def put_batch(self, batch):
+        """Stage a host batch on the device: a wire ([B, W] or a [K, B, W]
+        group), or a dict, packed into its wire when it is canonical. For
+        a CUDA device a `StagedBatch` (copied through pinned memory on a
+        side stream; `ready()` on the consuming thread), else tensors."""
+        if isinstance(batch, dict) and not isinstance(batch, DeclinedDict):
+            packed = self.pack_batch(batch)
+            if packed is not None:
+                batch = packed
+        if self.device.type == "cuda":
+            if self._stager is None:
+                self._stager = HostStager(self.device,
+                                          slots=self.cfg.data.prefetch_to_device + 2)
+            return self._stager(batch)
+        if isinstance(batch, dict):
+            return {k: self._to_device(v) for k, v in batch.items()}
+        return self._to_device(batch)
+
+    # ---- data ------------------------------------------------------------
+
+    def train_iterator(self) -> Iterator:
+        """The training stream: the native engine when it is built and
+        `data.use_native_loader` is set, else the Python batcher (the same
+        batch semantics). `data_engine` records which. (Resuming past
+        consumed batches comes with checkpoints, ROADMAP.md Queue 1 item 5.)"""
+        if self.cfg.data.session_parallel:
+            return self._make_session_iterator()
+        d = self.cfg.data
+        if d.use_native_loader and native.available():
+            self.data_engine = "native"
+            return native.NativeTrainLoader(
+                self.ds, batch_size=self.local_batch, max_len=d.max_len, buckets=d.buckets,
+                seed=d.seed)
+        self.data_engine = "python"
+        return make_train_batches(
+            self.ds, batch_size=self.local_batch, max_len=d.max_len, buckets=d.buckets,
+            seed=d.seed)
+
+    def _make_session_iterator(self):
+        """The session-parallel stream: the native engine when it is built
+        and `data.use_native_loader` is set (it fills windows and packs the
+        session wire off the GIL), else the Python stream."""
+        # The snapshot ring covers the feeder's read-ahead: with
+        # steps_per_call grouping it stages whole K-groups, so the gap
+        # between the stream's head and the loop grows to about
+        # K * (prefetch depth + 2) batches.
+        spc = self._steps_per_call()
+        depth = max(16, spc * (self.cfg.data.prefetch_to_device + 2) + spc)
+        if self.cfg.data.use_native_loader and native.available():
+            T, E, _ = self._session_wire_cols
+            self.data_engine = "native"
+            return native.NativeSessionLoader(
+                self.ds, batch_size=self.local_batch, window=T, ends_budget=E,
+                wire_dtype=self._wire_dtype, seed=self.cfg.data.seed, snapshot_depth=depth)
+        self.data_engine = "python"
+        return make_session_stream(self.ds, batch_size=self.local_batch,
+                                   window=self.cfg.data.max_len, seed=self.cfg.data.seed,
+                                   snapshot_depth=depth)
+
+    def precompile(self) -> None:
+        """Build the CUDA kernels before the loop, so that no nvcc time
+        falls inside the first group (the JAX package compiles its steps
+        here; eager torch has nothing else to compile)."""
+        if self.device.type == "cuda" and self.cfg.model.use_pallas:
+            _build.build()
+            for name in _build.SOURCES:
+                _build.load(name)
+
+    # ---- the loop --------------------------------------------------------
+
+    def _steps_per_call(self) -> int:
+        """The effective train.steps_per_call: debug_nans forces 1 (it halts
+        at the step that went non-finite)."""
+        if self.cfg.train.debug_nans:
+            return 1
+        return max(1, int(self.cfg.train.steps_per_call))
+
+    def _check_fit_supported(self) -> None:
+        t = self.cfg.train
+        if t.resume or (t.out_dir and t.checkpoint_every > 0):
+            raise NotImplementedError(
+                "train.checkpoint_every > 0 with train.out_dir, or train.resume: "
+                "ROADMAP.md Queue 1 item 5 (checkpoint and resume); set "
+                "train.checkpoint_every=0")
+        if t.profile_dir:
+            raise NotImplementedError("train.profile_dir: ROADMAP.md Queue 1 item 10 "
+                                      "(the rest of the CLI, torch.profiler)")
+
+    def fit(self, state: Optional[TrainState] = None
+            ) -> Tuple[TrainState, Dict[str, float]]:
+        """Train to `train.num_steps` from `state` (a fresh one from
+        train.seed when None). Returns (state, the last eval's metrics)."""
+        cfg = self.cfg
+        self._check_fit_supported()
+        out_dir = cfg.train.out_dir
+        logger = MetricsLogger(out_dir, tensorboard=cfg.train.tensorboard)
+        heartbeat = Heartbeat(out_dir) if out_dir else None
+        if state is None:
+            state = self.init_state()
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            cfg.save(os.path.join(out_dir, "config.json"))
+
+        it = self.train_iterator()
+        self.precompile()
+        start_step = state.step
+        spc = self._steps_per_call()
+        logger.log(start_step, "data", {
+            "engine": self.data_engine, "prefetch_to_device": cfg.data.prefetch_to_device,
+            "steps_per_call": spc, "native_unavailable": native.build_error() or ""})
+        if spc > 1 and 0 < cfg.train.log_every < spc:
+            warnings.warn(
+                f"train.log_every={cfg.train.log_every} < steps_per_call={spc}: log "
+                "boundaries inside a group collapse to one line a group (loss = group "
+                "mean, grad_norm = group max)", stacklevel=2)
+        # Pack and stack K consecutive same-bucket batches on the feeder's
+        # side, so that the loop takes one staged group a K steps.
+        src: Iterator = it
+        if spc > 1:
+            src = _group_wires(it, self.pack_batch, spc, cfg.train.num_steps - start_step)
+        # Host-to-device prefetch: the next batches are built, packed and
+        # copied from a background thread while the loop's steps run.
+        # Built after the iterator, so its queue holds exactly the next
+        # batches.
+        prefetcher: Optional[DevicePrefetcher] = None
+        if cfg.data.prefetch_to_device > 0:
+            prefetcher = DevicePrefetcher(src, self.put_batch,
+                                          depth=cfg.data.prefetch_to_device)
+            feed: Iterator = prefetcher
+        else:
+            feed = ((b, _ready(self.put_batch(h))) for b, h in src)
+        pending: Dict[str, torch.Tensor] = {}
+        t_window = time.perf_counter()
+        examples_window = 0
+        last_eval: Dict[str, float] = {}
+        try:
+            step = start_step
+            while step < cfg.train.num_steps:
+                bucket, batch = next(feed)
+                # A stacked group is [K, B, W]; a dict or a single wire is
+                # one step. A cadence fires when its boundary falls in
+                # [step, hi).
+                k = batch.shape[0] if isinstance(batch, torch.Tensor) and batch.dim() == 3 else 1
+                hi = step + k
+                if k > 1:
+                    state, metrics = self.train_step_multi(state, batch)
+                else:
+                    state, metrics = self.train_step(state, batch)
+                examples_window += self.global_batch * k
+                pending, pending_step = metrics, hi - 1
+
+                if cfg.train.debug_nans and bool(metrics["nonfinite"]):
+                    # _steps_per_call() makes k == 1 here: hi - 1 is the step.
+                    logger.log(hi - 1, "fatal", {"nonfinite_grads_at": hi - 1})
+                    raise FloatingPointError(
+                        f"non-finite loss/gradients at step {hi - 1} (train.debug_nans)")
+
+                if _crossed(cfg.train.log_every, step, hi):
+                    m = {key: float(v) for key, v in pending.items()}
+                    dt = time.perf_counter() - t_window
+                    eps = examples_window / dt if dt > 0 else 0.0
+                    logger.log(pending_step, "train", {
+                        "loss": m["loss"], "grad_norm": m["grad_norm"],
+                        "lr": float(self.optimizer.schedule(pending_step)), "bucket": bucket,
+                        "examples_per_s": eps,
+                        "examples_per_s_per_chip": eps / self.num_devices})
+                    t_window = time.perf_counter()
+                    examples_window = 0
+                    if heartbeat:
+                        heartbeat.beat(pending_step)
+
+                if _crossed(cfg.train.eval_every, step, hi):
+                    last_eval = self.evaluate(state, split="val")
+                    logger.log(pending_step, "eval/val", last_eval)
+                    t_window = time.perf_counter()
+                    examples_window = 0
+
+                if cfg.train.fail_after_step is not None and hi >= cfg.train.fail_after_step:
+                    logger.log(hi - 1, "fault_injection", {"exit_at": hi})
+                    return state, last_eval
+                step = hi
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+            if hasattr(it, "close"):
+                it.close()
+            logger.close()
+        return state, last_eval
+
+    # ---- eval -----------------------------------------------------------
+
+    def evaluate(self, state: TrainState, split: str = "val") -> Dict[str, float]:
+        return evaluate(self.model, state.params, self.ds, self.cfg.eval, split=split,
+                        max_len=self.cfg.data.max_len)

@@ -6,7 +6,8 @@ port's dependencies:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
 
-Tolerances: gather bit-exact; GRU 1e-5 in f32 (same math, another summation
+Tolerances: gather bit-exact, also when it writes the compute dtype
+(against the plain gather cast with `.to`); GRU 1e-5 in f32 (same math, another summation
 order) and 3e-2 in bf16 (the plain version rounds every gate op to bf16, the
 kernel only the new h); the bf16 GRU and LSTM forwards' input projection
 1e-5 (exact bf16 products summed in f32 on both sides, in another order).
@@ -78,6 +79,42 @@ def test_gather_kernel_is_bit_exact(cuda, dtype, ids_dtype, D):
     assert torch.isnan(got[:, 5:8]).all() and not torch.isnan(got[:, :5]).any()
 
 
+@pytest.mark.parametrize("table_dtype,dtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("V,D,shape", [(3418, 64, (128, 200)), (3418, 128, (64, 200)),
+                                       (3418, 128, (256,)), (37, 8, (3, 9)),
+                                       (37, 600, (5, 7)), (101, 200, (33,))])
+def test_gather_kernel_writes_the_compute_dtype_bit_exact(cuda, table_dtype, dtype, ids_dtype,
+                                                          V, D, shape):
+    """The gather's output in the compute dtype equals the plain gather
+    cast with `.to(dtype)` (f32 -> bf16 rounds to nearest even on both
+    sides), NaN rows of out-of-range ids included, and the plain version
+    with `dtype=` bit for bit: at the training
+    and serving shapes (rows in groups of 8 at D=64, 4 at D=128), the 256
+    negatives, a row of 16 bytes and rows longer than a warp's 128 vectors
+    (D=600 in f32: two passes)."""
+    rng = np.random.default_rng(V + D)
+    table = torch.from_numpy(rng.normal(size=(V, D)).astype(np.float32)).to(cuda, table_dtype)
+    ids = rng.integers(0, V, size=shape).reshape(-1)
+    ids[:5] = [-1, -V, V, -V - 1, 10 ** 6][:min(5, ids.size)]
+    ids = torch.from_numpy(ids.reshape(shape)).to(cuda, ids_dtype)
+    before = k_gather.embedding_gather.launches
+    got = k_gather.embedding_gather(table, ids, dtype=dtype)
+    torch.cuda.synchronize()
+    assert k_gather.embedding_gather.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (*shape, D)
+    cast = k_gather.plain(table, ids).to(dtype)
+    assert _nan_equal(got, cast)
+    # Bit for bit, -0.0 and the NaN rows' words included, against the plain
+    # version with the same dtype (its NaN rows made in that dtype).
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), k_gather.plain(table, ids, dtype=dtype).view(bits))
+    flat = got.reshape(-1, D)
+    assert bool(torch.isnan(flat[2:5]).all()) and not bool(torch.isnan(flat[:2]).any())
+
+
 def test_gather_kernel_empty_ids_launch_nothing(cuda):
     table = torch.zeros(4, 16, device=cuda)
     before = k_gather.embedding_gather.launches
@@ -106,7 +143,8 @@ def _gru_args(B, T, D, H, dtype, device, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,D,H", [(5, 7, 16, 32), (3, 1, 32, 16), (64, 50, 128, 128),
-                                     (7, 9, 64, 96), (3, 5, 16, 132), (4, 6, 32, 256)])
+                                     (7, 9, 64, 96), (3, 5, 16, 132), (4, 6, 32, 256),
+                                     (128, 200, 64, 64), (64, 200, 64, 64)])
 def test_gru_kernel_matches_plain(cuda, dtype, B, T, D, H):
     args = _gru_args(B, T, D, H, dtype, cuda)
     before = k_gru.gru_scan.launches
@@ -304,12 +342,32 @@ def test_scatter_add_scratch_is_sized_and_checked_in_c(cuda, n, D, chunk):
     out = torch.full((9, D), 7.0, device=cuda)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
-    args = (g.data_ptr(), ids.data_ptr(), 0, n, 9, D, chunk, scratch.data_ptr())
+    args = (g.data_ptr(), 0, ids.data_ptr(), 0, n, 9, D, chunk, scratch.data_ptr())
     assert lib.seqrec_scatter_add_rows(*args, nbytes - 1, out.data_ptr(), stream) != 0
     torch.cuda.synchronize()
     assert bool((out == 7.0).all())
     assert lib.seqrec_scatter_add_rows(*args, nbytes, out.data_ptr(), stream) == 0
     assert torch.equal(out, k_gather.plain_ordered(g, ids, 9, chunk))
+
+
+@pytest.mark.parametrize("n,V,D,pad_share", [(25_600, 3_418, 64, 0.5), (25_600, 3_418, 128, 0.0),
+                                             (256, 3_418, 64, 0.0), (777, 3, 7, 0.0),
+                                             (12_800, 37_484, 100, 0.0)])
+def test_scatter_add_kernel_takes_a_bf16_cotangent(cuda, n, V, D, pad_share):
+    """A bf16 cotangent (the bf16 paths' gather output's) is widened to f32
+    by the kernel's loads: the result equals the same call on its f32
+    widening bit for bit, and `plain_ordered` on it, and two runs agree."""
+    rng = np.random.default_rng(n + D)
+    ids = torch.from_numpy(_zipf_ids(rng, n, V, pad_share)).to(cuda)
+    g = torch.from_numpy(rng.normal(scale=1e-2, size=(n, D)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    a = k_gather.embedding_scatter_add(g, ids, V)
+    b = k_gather.embedding_scatter_add(g, ids, V)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a, k_gather.embedding_scatter_add(g.float(), ids, V))
+    chunk = k_gather.scatter_add_plan(n, V, D)["chunk"]
+    assert torch.equal(a, k_gather.plain_ordered(g.float(), ids, V, chunk))
 
 
 def test_gather_backward_through_autograd_uses_the_scatter_kernel(cuda):
@@ -344,7 +402,7 @@ def _gate_planes(B, T, H, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,H,R", [(5, 7, 32, None), (3, 1, 16, None),
                                      (128, 50, 128, None), (11, 9, 64, 8),
-                                     (4, 6, 256, None)])
+                                     (4, 6, 256, None), (128, 200, 64, None)])
 def test_gru_backward_kernel_matches_plain(cuda, dtype, B, T, H, R, monkeypatch):
     """bf16 weights run the tensor-core design (8 rows a block, no row
     choice), f32 weights the cluster design (also at 8 rows a cluster)."""
@@ -436,7 +494,7 @@ def _head_args(N, S, H, dtype, device, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,S,H", [(300, 256, 128), (1000, 100, 64), (64, 37, 32),
-                                   (5, 1, 8), (130, 600, 128)])
+                                   (5, 1, 8), (130, 600, 128), (25_600, 256, 64)])
 def test_head_kernel_matches_plain(cuda, dtype, N, S, H):
     """Both designs stream their negatives and take every shape here."""
     args = _head_args(N, S, H, dtype, cuda, seed=N + S)
@@ -1382,3 +1440,70 @@ def test_attention_f32_kernel_at_the_training_shape_and_serving_batch(cuda):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, k_attn.plain(q, k, v), rtol=2e-5, atol=2e-5)
     assert torch.equal(k_attn.causal_attention(q[:64], k[:64], v[:64]), got[:64])
+
+
+# ---------------------------------------------------------------------------
+# The fit loop on the card: staging through pinned memory, and fit itself
+# ---------------------------------------------------------------------------
+
+
+def test_host_stager_copies_through_pinned_memory_in_order(cuda):
+    """HostStager: wires and dicts staged on a side stream, taken on the
+    current stream (`ready`), equal to what went in, many more batches than
+    pinned slots (a slot is rewritten only after its copy completed)."""
+    from seqrec_tpu_torch.data.prefetch import DevicePrefetcher, HostStager, StagedBatch
+
+    stager = HostStager(cuda, slots=2)
+    rng = np.random.default_rng(0)
+    src = []
+    for i in range(20):
+        wire = rng.integers(0, 3000, size=(8, 6, 202)).astype(np.int16)
+        src.append((i, wire if i % 3 else {"inputs": wire[0].astype(np.int32),
+                                          "mask": np.ones((6, 202), np.float32)}))
+    staged = stager(src[1][1])
+    assert isinstance(staged, StagedBatch) and staged.tensors.is_pinned() is False
+    got = list(DevicePrefetcher(iter(src), stager, depth=3))
+    torch.cuda.synchronize()
+    assert [b for b, _ in got] == list(range(20))
+    for (_, want), (_, dev_batch) in zip(src, got):
+        if isinstance(want, dict):
+            for k in want:
+                assert dev_batch[k].device.type == "cuda"
+                np.testing.assert_array_equal(dev_batch[k].cpu().numpy(), want[k])
+        else:
+            assert dev_batch.dtype == torch.int16 and dev_batch.device.type == "cuda"
+            np.testing.assert_array_equal(dev_batch.cpu().numpy(), want)
+    assert all(len(ring) <= 2 for ring in stager._pool.values())
+
+
+@pytest.mark.parametrize("session", [False, True])
+def test_fit_on_the_card_is_reproducible_across_prefetch_and_grouping(cuda, tmp_path, session):
+    """Trainer.fit through the kernels at a small size: the native loader,
+    prefetch depth 2 and K=4 against prefetch 0 and K=1 give the same final
+    parameters bit for bit (the same batches, K eager steps a group, a
+    deterministic step), and the kernels launched."""
+    from seqrec_tpu_torch.config import RunConfig
+    from seqrec_tpu_torch.data.dataset import synthetic_dataset
+    from seqrec_tpu_torch.train.trainer import Trainer
+
+    ds = synthetic_dataset(80, 300, seed=1, min_len=4, max_len=40)
+    finals = []
+    for prefetch, k in ((2, 4), (0, 1)):
+        cfg = RunConfig()
+        cfg.model.embed_dim, cfg.model.loss, cfg.model.num_negatives = 64, "sampled_softmax", 64
+        cfg.model.dropout_rate = 0.1
+        cfg.data.batch_size, cfg.data.max_len = 16, 32
+        cfg.data.session_parallel = session
+        cfg.data.prefetch_to_device = prefetch
+        cfg.train.steps_per_call, cfg.train.num_steps = k, 12
+        cfg.train.eval_every, cfg.train.checkpoint_every = 12, 0
+        cfg.train.out_dir = str(tmp_path / f"{prefetch}_{k}")
+        tr = Trainer(cfg, ds, device=cuda)
+        before = k_gather.embedding_gather.launches
+        state, metrics = tr.fit()
+        assert tr.data_engine == "native" and state.step == 12
+        assert k_gather.embedding_gather.launches > before
+        assert metrics["count"] > 0 and all(np.isfinite(v) for v in metrics.values())
+        finals.append(state)
+    for name in finals[0].params:
+        assert torch.equal(finals[0].params[name], finals[1].params[name]), name

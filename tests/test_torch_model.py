@@ -184,10 +184,18 @@ def test_pack_matches_jax():
 
 
 def test_recommend_refuses_catalogs_that_need_chunked_topk(monkeypatch):
+    """Past the threshold `recommend` no longer refuses: it takes the
+    chunked top-k (blocks of 7 rows here, the last one clamped), with the
+    dense path's items and scores."""
+    from seqrec_tpu_torch.eval import chunked
+
     _, _, tm = _pair(loss="full_softmax")
-    monkeypatch.setattr(infer, "CHUNK_THRESHOLD_BYTES", 4 * 4 * VOCAB - 1)
-    with pytest.raises(NotImplementedError, match="chunked top-k"):
-        list(infer.recommend(tm, _histories(2), batch_size=4, max_len=T))
+    want = list(infer.recommend(tm, _histories(6), k=5, batch_size=4, max_len=T))
+    monkeypatch.setattr(chunked, "CHUNK_THRESHOLD_BYTES", 4 * 4 * VOCAB - 1)
+    got = list(infer.recommend(tm, _histories(6), k=5, batch_size=4, max_len=T, chunk=7))
+    for g, w in zip(got, want, strict=True):
+        assert g["items"] == w["items"]
+        np.testing.assert_allclose(g["scores"], w["scores"], **F32_TOL)
 
 
 def test_training_and_unported_towers_raise():

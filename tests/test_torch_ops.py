@@ -90,6 +90,78 @@ def test_dispatch_gather_on_cpu_gives_plain(use_pallas):
     np.testing.assert_array_equal(_np(got), _np(reference.embedding_gather(table, ids)))
 
 
+def _bits(a) -> np.ndarray:
+    """The raw bits of a JAX or torch f32/bf16 array, as unsigned ints."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        return a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32).numpy().view(
+            np.uint16 if a.dtype == torch.bfloat16 else np.uint32)
+    a = np.asarray(a)
+    return a.view(np.uint16 if a.dtype.name == "bfloat16" else np.uint32)
+
+
+@pytest.mark.parametrize("table_dtype,dtype", [("float32", "bfloat16"), ("float32", "float32"),
+                                               ("bfloat16", "float32"),
+                                               ("bfloat16", "bfloat16")])
+def test_gather_dtype_matches_jax_astype_bit_for_bit(table_dtype, dtype):
+    """`embedding_gather(table, ids, dtype=...)` is JAX's
+    `embedding_gather(table, ids).astype(dtype)` (round to nearest even)
+    bit for bit, NaN rows of out-of-range ids included, at D=64, through
+    the plain version, the kernel wrapper and dispatch on the CPU."""
+    rng = np.random.default_rng(64)
+    table = rng.normal(size=(V, 64)).astype(np.float32)
+    jdt, tdt = DTYPES[table_dtype]
+    odt_j, odt_t = DTYPES[dtype]
+    want = xla_ops.embedding_gather(jnp.asarray(table, jdt),
+                                    jnp.asarray(_WRAP_AND_NAN_IDS)).astype(odt_j)
+    t = torch.from_numpy(table).to(tdt)
+    ids = torch.from_numpy(_WRAP_AND_NAN_IDS)
+    for got in (reference.embedding_gather(t, ids, dtype=odt_t),
+                cuda_gather.embedding_gather(t, ids, dtype=odt_t),
+                dispatch.embedding_gather(t, ids, dtype=odt_t, use_pallas=False)):
+        assert got.dtype == odt_t and tuple(got.shape) == (2, 5, 64)
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("ids", [_WRAP_AND_NAN_IDS, np.array([[1, 1, 1, 2, 1, 3]] * 4, np.int32)])
+def test_gather_bf16_table_gradient_matches_jax_bit_for_bit(ids):
+    """The table's gradient through the gather with a bf16 output: the bf16
+    cotangent widened to f32 and added at each id (out-of-range ids
+    dropped), as JAX's VJP of `embedding_gather(...).astype(bfloat16)`,
+    bit for bit; the scatter-add launches nothing on the CPU."""
+    rng = np.random.default_rng(7)
+    table = rng.normal(size=(V, 64)).astype(np.float32)
+    g = jnp.asarray(rng.normal(size=(*ids.shape, 64)).astype(np.float32), jnp.bfloat16)
+    _, vjp = jax.vjp(lambda t: xla_ops.embedding_gather(t, jnp.asarray(ids)).astype(jnp.bfloat16),
+                     jnp.asarray(table))
+    (want,) = vjp(g)
+    t = torch.from_numpy(table).requires_grad_(True)
+    before = cuda_gather.embedding_scatter_add.launches
+    out = cuda_gather.embedding_gather(t, torch.from_numpy(ids), dtype=torch.bfloat16)
+    out.backward(torch.from_numpy(np.asarray(g.astype(jnp.float32))).to(torch.bfloat16))
+    assert cuda_gather.embedding_scatter_add.launches == before
+    assert t.grad.dtype == torch.float32
+    np.testing.assert_array_equal(_bits(t.grad), _bits(want))
+
+
+def test_gather_launchable_checks_at_d64():
+    """The kernel's limits at the fit loop's width: an f32 or bf16 table of
+    D=64 writes f32 or bf16; other output dtypes and rows that are not a
+    16-byte multiple raise."""
+    ids = torch.zeros(128, 200, dtype=torch.int32)
+    for table_dtype in (torch.float32, torch.bfloat16):
+        for dtype in (None, torch.float32, torch.bfloat16):
+            cuda_gather.check_launchable(torch.zeros(3418, 64, dtype=table_dtype), ids, dtype)
+    with pytest.raises(ValueError, match="output dtype"):
+        cuda_gather.check_launchable(torch.zeros(3418, 64), ids, torch.float16)
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_gather.check_launchable(torch.zeros(3418, 4, dtype=torch.bfloat16), ids)
+    g = torch.zeros(128, 200, 64, dtype=torch.bfloat16)
+    assert cuda_gather.check_scatter_add_launchable(g, ids, 3418)["chunk"] == 512
+    with pytest.raises(ValueError, match="g dtype"):
+        cuda_gather.check_scatter_add_launchable(g.half(), ids, 3418)
+
+
 @pytest.mark.parametrize("table,ids,match", [
     (torch.zeros(7, 16, dtype=torch.float64), torch.zeros(3, dtype=torch.int32), "dtype"),
     (torch.zeros(7), torch.zeros(3, dtype=torch.int32), r"\[V, D\]"),
