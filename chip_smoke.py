@@ -128,6 +128,48 @@ source, all at once). Each phase prints one JSON line:
               with two groups, step-1 loss and gradient norm within 1e-4
               relative of the plain run; on gru4rec f32 also phase f's
               bit-for-bit check of two runs;
+  n. sparse   the sparse row-wise embedding step through `Trainer(cfg).fit()`:
+              configs/synthetic10m_singlechip.json unchanged but for
+              num_steps=48 and a temporary out_dir and data_dir (10,000,001 x
+              128 f32 table, 100,000 synthetic users, B=256, T=50, 512
+              log-uniform negatives, adagrad, clip 5, K=8, bf16), from a state
+              drawn once (its seconds: the table in row blocks), and the same
+              fit through the plain versions from a clone of that state (the
+              step updates the table in place): every group's loss finite,
+              step 1 and each group's mean loss and largest gradient norm
+              within phase f's bf16 limits of the plain fit's (the loss is
+              flat over these 48 steps: how far the tower and the 1,024 most
+              drawn rows moved is reported), each kernel's launches a step
+              (the gather once more: it fetches the sub-table), peak device
+              memory under the table and its accumulator plus 2 GB (no [V, D]
+              gradient, one table), table rows changed at most steps x
+              budget; ex/s and step ms by CUDA events between groups, the
+              device time and idle share of a step, the device times of the
+              unique set and remaps, the sub-table fetch, the scatter-add into
+              the sub-table (beside index_add_) and the row update, and each
+              step's distinct ids (replayed after the run); then
+              configs/rsc15_10m.json on one card (mesh.model_axis=1,
+              mesh.shard_embeddings=false, checkpoint_every=0: the
+              session-parallel sparse step, capped at 16,384 unique ids with
+              the sentinel row, dropout 0.1, 2,048 negatives) with the same
+              checks, a finite carry and the ids past the cap a step; after
+              each, the GRU forward (and its input projection), the GRU
+              reverse recurrence (their reset variants on rsc15_10m, with a
+              carried-in state) and the head at that path's own shapes (B=256,
+              T=50, H=128; N=12,800 with S=512 and 2,048), bf16, against their
+              plain versions at phases c, e and j's limits; then at
+              configs/ml1m_gru4rec.json's table in f32 the sparse step against
+              the dense one, sgd and adagrad, a K=8 group: every parameter
+              within 1e-5 relative;
+  o. checkpoint  configs/ml1m_gru4rec.json as shipped but checkpoint_every=16
+              and 48 steps (synthetic ML-1M-shaped data): a straight fit against
+              one killed at step 24 and resumed, every parameter and optimizer
+              leaf equal bit for bit, the saves' bytes and seconds; the `eval`
+              subcommand's metrics equal `Trainer.evaluate`'s and `recommend
+              --ckpt` the top-k of `recommend` on the in-memory state; then the
+              same resume check on configs/rsc15_gru4rec.json (session-parallel:
+              the stream's snapshot, the carry) and on the sparse step at
+              ML-1M's catalog (lazy adam's row state);
   m. the kernels line: {"kernels": [{name, route, source, replaces,
               launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
               library_ms, design, dtype}, ...]} (the scatter-add also
@@ -139,7 +181,7 @@ source, all at once). Each phase prints one JSON line:
               path (GRU4Rec's for the gather, scatter-add and head, the
               session paths' for the reset variants, the f32 paths' for the
               f32 kernels; the counts of every path beside it, the fit
-              loop's included).
+              loop's and the sparse fits' included).
 
 Then the raw nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -155,7 +197,9 @@ they run).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import shutil
@@ -169,7 +213,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from seqrec_tpu_torch import ops
+from seqrec_tpu_torch import cli, ops
 from seqrec_tpu_torch.config import RunConfig
 from seqrec_tpu_torch.data import native
 from seqrec_tpu_torch.data.batching import make_session_stream
@@ -187,6 +231,8 @@ from seqrec_tpu_torch.ops.cuda import gather as k_gather
 from seqrec_tpu_torch.ops.cuda import gru as k_gru
 from seqrec_tpu_torch.ops.cuda import head as k_head
 from seqrec_tpu_torch.ops.cuda import lstm as k_lstm
+from seqrec_tpu_torch.train import sparse_embed
+from seqrec_tpu_torch.train.state import clone_state
 from seqrec_tpu_torch.train.trainer import Trainer
 
 CONFIGS = {"gru4rec": "configs/ml1m_gru4rec.json", "sasrec": "configs/ml1m_sasrec.json",
@@ -912,8 +958,9 @@ def _leaf_grads(scan, leaves, rest, reset, g):
     return [t.grad for t in leaves]
 
 
-def _gru_backward_checks(rng, dev, x32, reset=None) -> dict:
-    """The GRU reverse recurrence against its plain version, bf16 and f32, on
+def _gru_backward_checks(rng, dev, x32, reset=None,
+                         dtypes=(torch.bfloat16, torch.float32)) -> dict:
+    """The GRU reverse recurrence against its plain version in `dtypes`, on
     the projections of a kernel forward (the bf16 kernel recomputes the
     gates from them), and the whole backward through autograd
     (forward and backward kernels). Without `reset` (h0 = 0), also the cuDNN
@@ -926,7 +973,7 @@ def _gru_backward_checks(rng, dev, x32, reset=None) -> dict:
     g32 = torch.from_numpy(rng.normal(scale=1e-2, size=(B, T, H)).astype(np.float32)).to(dev)
     h32 = torch.zeros(B, H, device=dev) if reset is None else _state(rng, dev, B, H)
     out = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         name = f"gru backward {_dname(dtype)} {B}x{T}x{H}" + ("" if reset is None else " keep")
         x, g, h0 = x32.to(dtype), g32.to(dtype), h32.to(dtype)
         wx_c, wh_c = w_x.to(dtype), w_h.to(dtype)
@@ -1044,22 +1091,23 @@ def _head_bound(N: int, S: int, D: int, dtype) -> tuple:
     return (*bound(h_bytes, 2 * N * S * D + 2 * N * D, dtype), h_bytes)
 
 
-def _head_checks(rng, dev, table, beauty: bool = True) -> dict:
+def _head_checks(rng, dev, table, beauty: bool = True, N: int = TRAIN_B * TRAIN_T,
+                 S: int = NUM_NEG, dtypes=(torch.bfloat16, torch.float32)) -> dict:
     D = table.shape[1]
-    N, S = TRAIN_B * TRAIN_T, NUM_NEG
     h32, pos32, neg32, targets, neg_ids, plq, nlq = _head_inputs(rng, dev, table, N, S)
     w = torch.ones(N, device=dev)
     hits = int((neg_ids[None, :] == targets[:, None]).sum())
     out = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         name = str(dtype).split(".")[-1]
+        label = f"head {name} N={N} S={S}"
         args = (h32.to(dtype), pos32.to(dtype), neg32.to(dtype), targets, neg_ids, plq, nlq)
         got = k_head.sampled_softmax_nll(*args)
         torch.cuda.synchronize()
         want = k_head.plain(*args)
         err = max_err(got, want)
-        check(bool(torch.isfinite(got).all()), f"head {name}: non-finite nll")
-        check(err <= HEAD_TOL, f"head {name}: kernel vs plain max abs err {err} > {HEAD_TOL}")
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite nll")
+        check(err <= HEAD_TOL, f"{label}: kernel vs plain max abs err {err} > {HEAD_TOL}")
         # Loss and gradients, kernel forward + recompute backward, against
         # autograd through the plain loss (the JAX package's XLA formula).
         res = []
@@ -1072,9 +1120,9 @@ def _head_checks(rng, dev, table, beauty: bool = True) -> dict:
         loss_rel = abs(res[0][0].item() - res[1][0].item()) / abs(res[1][0].item())
         grad_rel = {k: rel_err(a, b) for k, a, b in zip(("dh", "dpos", "dneg"),
                                                         res[0][1:], res[1][1:])}
-        check(loss_rel <= tol, f"head {name}: loss relative err {loss_rel} > {tol}")
+        check(loss_rel <= tol, f"{label}: loss relative err {loss_rel} > {tol}")
         for k, e in grad_rel.items():
-            check(e <= 2 * tol, f"head {name}: {k} relative err {e} > {2 * tol}")
+            check(e <= 2 * tol, f"{label}: {k} relative err {e} > {2 * tol}")
         h_bound, h_by, h_bytes = _head_bound(N, S, D, dtype)
         hb, nb = args[0], args[2]
         launch = k_head.launch_config(N, S, D, dtype)
@@ -1622,8 +1670,8 @@ def _opt_leaves(opt_state: dict) -> dict:
 
 
 def _reproducibility_check(tr: Trainer, state, group) -> dict:
-    """One step's gradients twice, then two K-step groups from one cloned
-    state on one batch group: every gradient, parameter and optimizer-state
+    """One step's gradients twice, then two K-step groups from clones of one
+    state (the sparse step updates its tables in place) on one batch group: every gradient, parameter and optimizer-state
     leaf equal bit for bit. The embedding table's gradient comes from the
     scatter-add alone. Names the leaves that differ, if any."""
     grads = []
@@ -1635,13 +1683,7 @@ def _reproducibility_check(tr: Trainer, state, group) -> dict:
     embedding = [k for k in grads[0] if "embedding" in k]
     check(embedding and not set(embedding) & set(grad_diff),
           f"reproducible: the embedding gradient differs between two runs ({grad_diff})")
-    ends = []
-    for _ in range(2):
-        start = dataclasses.replace(
-            state, params={k: v.clone() for k, v in state.params.items()},
-            opt_state={k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v)
-                       for k, v in state.opt_state.items()})
-        ends.append(tr.train_step_multi(start, group)[0])
+    ends = [tr.train_step_multi(clone_state(state), group)[0] for _ in range(2)]
     a, b = ends
     leaves = {**{f"params/{k}": (v, b.params[k]) for k, v in a.params.items()},
               **{k: (v, _opt_leaves(b.opt_state)[k]) for k, v in _opt_leaves(a.opt_state).items()}}
@@ -2030,6 +2072,536 @@ def phase_fit(dev) -> dict:
     return result
 
 
+SPARSE_STEPS = 48  # six groups of 8
+SPARSE_MEM_SLACK = 2e9  # bytes over the table and its accumulator: no [V, D] gradient
+SPARSE_DENSE_TOL = 1e-5  # sparse vs dense, f32: the JAX package's rtol for the same check
+FP_BLOCK_ROWS = 1 << 20  # rows a block of the table's fingerprint
+HOT_ROWS = 1024  # the most drawn rows: synthetic ids are Zipf ranks (id 1 the most drawn)
+
+
+def expected_sparse_launches(cfg: RunConfig) -> dict:
+    """A sparse step's launches: the dense step's, plus one gather a sparse
+    table (it fetches the step's sub-table); the three lookups read the
+    sub-table, and only their scatter-adds run (into the sub-table)."""
+    want = expected_launches(cfg, training=True)
+    want["gather"] += 1 if cfg.model.tie_embeddings else 2
+    return want
+
+
+class _GroupProbe:
+    """Wraps a Trainer's steps as `fit` calls them: each call's metrics
+    (device tensors, read after the run), its steps and a CUDA event after
+    it. `close()` gives the Trainer its own methods back."""
+
+    def __init__(self, tr: Trainer):
+        self.tr = tr
+        self.metrics, self.steps, self.events = [], [], []
+        inside = [False]
+        multi, single = tr.train_step_multi, tr.train_step
+
+        def record(out, k):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.events.append(e)
+            self.metrics.append(out[1])
+            self.steps.append(k)
+            return out
+
+        def multi_(state, wires):
+            inside[0] = True
+            try:
+                return record(multi(state, wires), len(wires))
+            finally:
+                inside[0] = False
+
+        def single_(state, batch):
+            out = single(state, batch)
+            return out if inside[0] else record(out, 1)
+
+        tr.train_step_multi, tr.train_step = multi_, single_
+
+    def close(self) -> None:
+        del self.tr.train_step_multi, self.tr.train_step  # the class's methods again
+
+    def read(self) -> dict:
+        torch.cuda.synchronize()
+        ms = [self.events[i - 1].elapsed_time(self.events[i]) / self.steps[i]
+              for i in range(2, len(self.events))]  # the first interval holds the warm-up
+        return {"metrics": [{k: float(v) for k, v in m.items()} for m in self.metrics],
+                "step_ms": ms}
+
+
+def _fingerprint(table: torch.Tensor) -> torch.Tensor:
+    """[V, 2] int64 sums of each row's bit patterns (plain and weighted by
+    column): a row whose bits change changes its fingerprint. In blocks,
+    so that no [V, D] int64 temporary exists."""
+    w = torch.arange(1, table.shape[1] + 1, device=table.device, dtype=torch.int64)
+    out = torch.empty((table.shape[0], 2), dtype=torch.int64, device=table.device)
+    for r0 in range(0, table.shape[0], FP_BLOCK_ROWS):
+        bits = table[r0:r0 + FP_BLOCK_ROWS].view(torch.int32).to(torch.int64)
+        out[r0:r0 + FP_BLOCK_ROWS, 0] = bits.sum(1)
+        out[r0:r0 + FP_BLOCK_ROWS, 1] = (bits * w).sum(1)
+    return out
+
+
+def _first_batches(tr: Trainer, n: int) -> list:
+    """The first `n` batches `fit` will take (a fresh stream from batch 0),
+    as wires (a dict where a window does not pack)."""
+    it = tr.train_iterator()
+    try:
+        out = []
+        for _ in range(n):
+            batch = next(it)[1]
+            wire = tr.pack_batch(batch)
+            out.append(batch if wire is None else wire)
+        return out
+    finally:
+        if hasattr(it, "close"):
+            it.close()
+
+
+def _distinct_ids(tr: Trainer, state, steps: int) -> list:
+    """The distinct ids (inputs, targets and negatives) of each of a fit's
+    first `steps` steps, replayed after the run, so that nothing of it runs
+    inside the timed fit: the same batches from a fresh stream, the same
+    negatives (their generator is a function of the seed and the step)."""
+    out = []
+    for i, wire in enumerate(_first_batches(tr, steps)):
+        batch = tr._device_batch(wire)
+        gen = tr._generators(dataclasses.replace(state, step=i))[0]
+        inputs = batch["inputs"]
+        ids = torch.cat([inputs.reshape(-1), batch["targets"].reshape(-1),
+                         tr.sample_negatives(gen)[0].to(inputs.dtype)])
+        s = torch.sort(ids).values
+        out.append(1 + (s[1:] != s[:-1]).sum())
+    return [int(d) for d in out]
+
+
+def _sparse_kernel_checks(rng, dev, cfg: RunConfig) -> dict:
+    """The tower's and the head's kernels at the sparse path's own shapes
+    (the gather's and the scatter-add's: `_sparse_bookkeeping`), in its
+    compute dtype, against their plain versions at phases c, e and j's
+    limits: the GRU forward (and its input projection) and reverse
+    recurrence at B x T x H, with a reset plane and a carried-in state
+    where the path is session-parallel, and the head at N = B*T rows and
+    the config's S negatives."""
+    m = cfg.model
+    B, T, D, H = cfg.data.batch_size, cfg.data.max_len, m.embed_dim, m.hidden
+    check(m.arch == "gru4rec" and D == H and m.loss == "sampled_softmax",
+          f"sparse kernels: {m.arch} D={D} H={H} {m.loss}")
+    dtype = getattr(torch, m.compute_dtype)
+    x32 = _zipf_embeddings(rng, dev, B, T, D)
+    weights = [w.to(dev) for w in gru_weights(rng, D, H)]
+    reset, h32 = None, torch.zeros(B, H, device=dev)
+    if cfg.data.session_parallel:
+        reset, h32 = _reset_plane(rng, B, T, dev), _state(rng, dev, B, H)
+    table = torch.from_numpy(rng.normal(scale=D ** -0.5, size=(VOCAB, D))
+                             .astype(np.float32)).to(dev)
+    return {
+        "gru_scan": _gru_forward_check(dev, x32, weights, h32, dtype, reset),
+        "gru_xproj": _xproj_check(k_gru, k_gru.gru_input_projection, x32, weights[0],
+                                  weights[2], dtype),
+        "gru_backward": _gru_backward_checks(rng, dev, x32, reset, dtypes=(dtype,))[
+            _dname(dtype)],
+        "softmax_head": _head_checks(rng, dev, table, beauty=False, N=B * T,
+                                     S=m.num_negatives, dtypes=(dtype,))[_dname(dtype)],
+    }
+
+
+def _sparse_bookkeeping(tr: Trainer, state, wire) -> dict:
+    """Device times of the sparse step's parts at this run's shapes, on one
+    of its batches (after the run: the row update adds zeros): the unique
+    set and the remaps, the gather's sub-table fetch from the [V, D] table,
+    the lookups' scatter-add into the [K(+1), D] sub-table (beside
+    index_add_), and the row update of the table and its state."""
+    cfg = tr.cfg
+    batch = tr._device_batch(wire)
+    neg_ids = tr.sample_negatives(tr._generators(state)[0])[0]
+    inputs, targets = batch["inputs"], batch["targets"]
+    ids = torch.cat([inputs.reshape(-1), targets.reshape(-1), neg_ids.to(inputs.dtype)])
+    table = state.params["item_embedding"]
+    cap = cfg.train.sparse_unique_budget
+    budget = sparse_embed.unique_budget(ids.numel(), table.shape[0])
+    budget = min(budget, cap) if cap else budget
+    remap = sparse_embed.remap_capped if cap else sparse_embed.remap
+    uids = sparse_embed.collect_unique(ids, budget)
+    rows = budget + (1 if cap else 0)
+    D = table.shape[1]
+
+    def bookkeeping():
+        u = sparse_embed.collect_unique(ids, budget)
+        return remap(u, inputs), remap(u, targets), remap(u, neg_ids)
+
+    pos = remap(uids, inputs).reshape(-1)
+    g = torch.randn((pos.numel(), D), device=table.device).to(tr.model.compute_dtype)
+    got = k_gather.embedding_scatter_add(g, pos, rows)
+    want = torch.zeros((rows, D), device=table.device).index_add_(0, pos.long(), g.float())
+    err = max_err(got, want)
+    check(err <= 1e-5 * max(want.abs().max().item(), 1.0),
+          f"sparse: scatter-add into the sub-table, max abs err {err}")
+    fetched = k_gather.embedding_gather(table, uids)
+    check(torch.equal(fetched, table[uids.long()]), "sparse: the sub-table fetch is not exact")
+    zeros = torch.zeros((budget, D), device=table.device)
+    row_opt = state.embed_opt["item_embedding"]
+    sb = bound(pos.numel() * (D * g.element_size() + 4) + rows * D * 4, 0, torch.float32)
+    fb = bound(budget * (4 + 2 * D * 4), 0, torch.float32)
+    return {
+        "budget": budget, "sub_table_rows": rows, "distinct_ids": int(
+            sparse_embed._first_occurrence_mask(uids).sum()),
+        "unique_and_remap_ms": time_ms(bookkeeping)["median"],
+        "row_update_ms": time_ms(lambda: sparse_embed.row_update(
+            cfg.train.optimizer, 0.0, table, row_opt, uids, zeros, state.step))["median"],
+        "fetch": {"kernel_ms": time_ms(lambda: k_gather.embedding_gather(table, uids))["median"],
+                  "library_ms": time_ms(lambda: table[uids.long()])["median"],
+                  "bound_ms": fb[0], "bound_by": fb[1]},
+        "scatter_add": {
+            "ids": pos.numel(), "rows": rows, "cotangent_dtype": _dname(g.dtype),
+            "max_abs_err": err, "plan": k_gather.scatter_add_plan(pos.numel(), rows, D),
+            "kernel_ms": time_ms(lambda: k_gather.embedding_scatter_add(g, pos, rows))["median"],
+            "library_ms": time_ms(lambda: torch.zeros((rows, D), device=table.device)
+                                  .index_add_(0, pos.long(), g.float()))["median"],
+            "bound_ms": sb[0], "bound_by": sb[1]},
+    }
+
+
+def _moved(new: torch.Tensor, old: torch.Tensor) -> float:
+    """|new - old| relative to |old| (Frobenius), or absolute where old is 0
+    (the biases start at 0)."""
+    d, n = float((new - old).norm()), float(old.norm())
+    return d / n if n > 0 else d
+
+
+def _sparse_run(dev, rng, seed: int, config: str, root: Path, overrides=()) -> dict:
+    """`Trainer(cfg).fit()` on `config` (the sparse step) for SPARSE_STEPS
+    steps from a state drawn once, and the same fit through the plain
+    versions from a clone of that state (the step updates the tables in
+    place): every group's loss finite; step 1, and each group's mean loss
+    and largest gradient norm, within phase f's bf16 limits of the plain
+    run's (the loss is flat at these configs over 48 steps, so a falling
+    loss would decide nothing; how far the tower and the most drawn rows
+    moved is reported); each kernel's launches a step; peak device memory
+    under the table and its row state plus SPARSE_MEM_SLACK (no [V, D]
+    gradient, one table); table rows changed at most steps x budget; ex/s
+    and step ms (CUDA events between groups), the device time and idle
+    share of a step (torch.profiler), the init seconds, the bookkeeping's
+    device times, each step's distinct ids (replayed after the run) and
+    those past a cap, and the tower's and the head's kernels at this
+    path's shapes."""
+    cfg = RunConfig.load(config).apply_overrides([
+        f"train.num_steps={SPARSE_STEPS}", f"train.out_dir={root / 'run'}",
+        f"data.data_dir={root / 'data'}", *overrides])
+    check(cfg.train.sparse_embedding_update and cfg.model.use_pallas,
+          f"{config}: the sparse step through the kernels")
+    name = " ".join([config, *overrides])
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device=dev)
+    data_s = time.perf_counter() - t0
+    plain = Trainer(cfg.apply_overrides(["model.use_pallas=false",
+                                         f"train.out_dir={root / 'plain'}"]), tr.ds, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    table = state.params["item_embedding"]
+    table_bytes = table.numel() * table.element_size()
+    state_bytes = table_bytes + sum(t.numel() * t.element_size()
+                                    for t in state.embed_opt["item_embedding"].values())
+
+    # Step 1 from one state, through the kernels and through the plain
+    # versions (each on a clone).
+    group = _first_batches(tr, tr._steps_per_call())
+    step1 = {}
+    for use_pallas, t in ((True, tr), (False, plain)):
+        m = t.train_step(clone_state(state), group[0])[1]  # the clone goes with the new state
+        step1[use_pallas] = {k: float(v) for k, v in m.items()}
+    a, b = step1[True], step1[False]
+    loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    norm_rel = abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+    check(loss_rel <= STEP1_LOSS_TOL and norm_rel <= STEP1_NORM_TOL,
+          f"{name}: step-1 loss / grad_norm {a} (kernels) vs {b} (plain)")
+    # The whole fit through the plain versions, from a clone.
+    probe = _GroupProbe(plain)
+    before = read_counters()
+    t0 = time.perf_counter()
+    plain_end, _ = plain.fit(clone_state(state))
+    torch.cuda.synchronize()
+    plain_fit_s = time.perf_counter() - t0
+    probe.close()
+    check(read_counters() == before, f"{name}: the plain fit launched kernels")
+    plain_run = probe.read()
+    del plain_end
+
+    tables = plain._sparse_table_names()
+    tower0 = {k: v.clone() for k, v in state.params.items() if k not in tables}
+    hot0 = table[1:1 + HOT_ROWS].clone()
+    fp0 = _fingerprint(table)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()  # the state, the fingerprint, the copies
+    probe = _GroupProbe(tr)
+    zero_counters()
+    t0 = time.perf_counter()
+    state, _ = tr.fit(state)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counters()
+    probe.close()
+    run = probe.read()
+    table = state.params["item_embedding"]
+    changed = int((_fingerprint(table) != fp0).any(1).sum())
+    moved = {"tower": {k: _moved(state.params[k], v) for k, v in tower0.items()},
+             f"rows_1_to_{HOT_ROWS}": _moved(table[1:1 + HOT_ROWS], hot0)}
+    del fp0, tower0, hot0
+
+    losses = [m["loss"] for m in run["metrics"]]
+    steps = sum(probe.steps)
+    K, B = cfg.train.steps_per_call, cfg.data.batch_size
+    budget = sparse_embed.unique_budget(
+        B * cfg.data.max_len * 2 + cfg.model.num_negatives, table.shape[0])
+    if cfg.train.sparse_unique_budget:
+        budget = min(budget, cfg.train.sparse_unique_budget)
+    check(state.step == SPARSE_STEPS == steps, f"{name}: stopped at step {state.step}")
+    check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and not m["nonfinite"]
+              for m in run["metrics"]), f"{name}: non-finite metrics {run['metrics']}")
+    check(len(run["metrics"]) == len(plain_run["metrics"]),
+          f"{name}: {len(run['metrics'])} groups vs {len(plain_run['metrics'])} (plain)")
+    group_rel = [{k: abs(x[k] - y[k]) / abs(y[k]) for k in ("loss", "grad_norm")}
+                 for x, y in zip(run["metrics"], plain_run["metrics"])]
+    check(all(g["loss"] <= STEP1_LOSS_TOL and g["grad_norm"] <= STEP1_NORM_TOL
+              for g in group_rel),
+          f"{name}: group loss / grad_norm vs the plain fit's, relative {group_rel}")
+    want = {k: v * steps for k, v in expected_sparse_launches(cfg).items()}
+    check(launches == want, f"{name}: kernel launches {launches}, expected {want}")
+    check(peak < state_bytes + SPARSE_MEM_SLACK,
+          f"{name}: peak device memory {peak} >= {state_bytes} + {SPARSE_MEM_SLACK} "
+          f"({resident} allocated when the fit started)")
+    check(0 < changed <= steps * budget,
+          f"{name}: {changed} table rows changed, bound {steps} x {budget}")
+    if cfg.data.session_parallel:
+        check(all(bool(torch.isfinite(c).all()) for c in _leaves(state.carry)),
+              f"{name}: non-finite carry")
+    step_ms = float(np.median(run["step_ms"]))
+    distinct = _distinct_ids(tr, state, steps)
+    prof, state = profile_steps(tr, state, [group[i] for i in range(4)])
+    parts = _sparse_bookkeeping(tr, state, group[0])
+    result = {
+        "config": config, "overrides": list(overrides), "vocab": tr.ds.vocab_size,
+        "users": tr.ds.num_users, "table": list(table.shape), "optimizer": cfg.train.optimizer,
+        "batch_size": B, "seq_len": cfg.data.max_len, "num_negatives": cfg.model.num_negatives,
+        "compute_dtype": cfg.model.compute_dtype, "steps_per_call": K, "steps": steps,
+        "unique_budget": budget, "data_engine": tr.data_engine,
+        "data_seconds": data_s, "init_seconds": init_s, "fit_seconds": fit_s,
+        "losses": losses, "plain_losses": [m["loss"] for m in plain_run["metrics"]],
+        "group_rel_err_vs_plain": group_rel, "plain_fit_seconds": plain_fit_s,
+        "step1": {"kernels": a, "plain": b, "loss_rel_err": loss_rel,
+                  "grad_norm_rel_err": norm_rel},
+        "moved": moved,
+        "step_ms_median": step_ms, "step_ms": run["step_ms"],
+        "examples_per_s": B / (step_ms / 1e3),
+        "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "peak_memory_bytes": peak, "table_and_row_state_bytes": state_bytes,
+        "allocated_at_fit_start_bytes": resident,
+        "peak_memory_limit_bytes": state_bytes + SPARSE_MEM_SLACK,
+        "table_rows_changed": changed, "table_rows_changed_bound": steps * budget,
+        "profile": prof, "device_idle_share": 1.0 - prof["device_ms_per_step"] / step_ms,
+        "bookkeeping": parts, "distinct_ids_per_step": distinct,
+    }
+    cap = cfg.train.sparse_unique_budget
+    if cap:
+        over = [max(0, d - cap) for d in distinct]
+        result["overflowed_ids_per_step"] = {"mean": float(np.mean(over)), "max": max(over),
+                                             "min": min(over)}
+    del state, tr, plain
+    torch.cuda.empty_cache()
+    result["kernels"] = _sparse_kernel_checks(rng, dev, cfg)
+    return result
+
+
+def _sparse_against_dense(dev, rng, seed: int) -> dict:
+    """configs/ml1m_gru4rec.json in f32, one K=8 group of Zipf histories:
+    the sparse step against the dense step from one state, for sgd and
+    adagrad (where the two are the same update), every parameter within
+    SPARSE_DENSE_TOL relative to its largest value; adagrad's row state
+    against the dense accumulator's rows too."""
+    out = {}
+    for opt in ("sgd", "adagrad"):
+        base = RunConfig.load(CONFIGS["gru4rec"]).apply_overrides(
+            [F32, f"train.optimizer={opt}"])
+        trs = {sp: Trainer(base.apply_overrides([f"train.sparse_embedding_update={sp}"]),
+                           _Catalog(), device=dev) for sp in ("false", "true")}
+        K, B, T = base.train.steps_per_call, base.data.batch_size, base.data.max_len
+        group = _train_wires(rng, trs["false"], 1, K, B, T)[0]
+        ends = {}
+        for sp, tr in trs.items():
+            zero_counters()
+            ends[sp], m = tr.train_step_multi(tr.init_state(seed), group)
+            check(np.isfinite(float(m["loss"])), f"sparse vs dense {opt}: non-finite loss")
+            want = {k: v * K for k, v in (expected_sparse_launches(tr.cfg) if sp == "true"
+                                          else expected_launches(tr.cfg, True)).items()}
+            check(read_counters() == want, f"sparse vs dense {opt} ({sp}): launches "
+                                           f"{read_counters()}, expected {want}")
+        errs = {k: rel_err(ends["true"].params[k], ends["false"].params[k])
+                for k in ends["false"].params}
+        if opt == "adagrad":
+            errs["row_state/item_embedding"] = rel_err(
+                ends["true"].embed_opt["item_embedding"]["acc"],
+                ends["false"].opt_state["sum_of_squares"]["item_embedding"])
+        bad = {k: e for k, e in errs.items() if e > SPARSE_DENSE_TOL}
+        check(not bad, f"sparse vs dense {opt}: {bad} > {SPARSE_DENSE_TOL}")
+        out[opt] = {"steps": K, "rel_err": errs, "tolerance": SPARSE_DENSE_TOL}
+    return out
+
+
+def phase_sparse(dev, seed: int) -> dict:
+    """n. The sparse step, one card: configs/synthetic10m_singlechip.json
+    unchanged but for num_steps and a temporary out_dir and data_dir, and
+    configs/rsc15_10m.json on one card (mesh.model_axis=1,
+    mesh.shard_embeddings=false; its sharding waits for multi-GPU) with
+    checkpoint_every=0 (its end-of-run save would write the 10 GB state),
+    each through `Trainer(cfg).fit()`; then the sparse step against the
+    dense one at ML-1M's table in f32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_sparse_"))
+    rng = np.random.default_rng(seed)
+    try:
+        runs = {"synthetic10m": _sparse_run(dev, rng, seed,
+                                            "configs/synthetic10m_singlechip.json",
+                                            root / "s10m"),
+                "rsc15_10m": _sparse_run(dev, rng, seed, "configs/rsc15_10m.json",
+                                         root / "rsc15",
+                                         overrides=["mesh.model_axis=1",
+                                                    "mesh.shard_embeddings=false",
+                                                    "train.checkpoint_every=0"])}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    result = {"phase": "sparse", "runs": runs,
+              "sparse_vs_dense": _sparse_against_dense(dev, rng, seed)}
+    emit(result)
+    return result
+
+
+CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AFTER = 48, 16, 24
+
+
+def _state_tensors(state) -> dict:
+    out = {f"params/{k}": v for k, v in state.params.items()}
+    out.update({f"opt/{k}": v for k, v in _opt_leaves(state.opt_state).items()})
+    for name, tree in (state.embed_opt or {}).items():
+        out.update({f"embed_opt/{name}/{k}": v for k, v in tree.items()})
+    if state.carry is not None:
+        out.update({f"carry/{i}": c for i, c in enumerate(_leaves(state.carry))})
+    return out
+
+
+def _resume_check(dev, name: str, config: str, root: Path, overrides) -> tuple:
+    """A straight CKPT_STEPS-step fit against one killed at CKPT_FAIL_AFTER
+    and resumed (checkpoint_every=CKPT_EVERY): every state leaf equal bit
+    for bit. Returns (record, the resumed trainer, its final state)."""
+    def fit(out: str, *extra):
+        cfg = RunConfig.load(config).apply_overrides([
+            f"train.num_steps={CKPT_STEPS}", f"train.checkpoint_every={CKPT_EVERY}",
+            f"train.out_dir={root / out}", f"data.data_dir={root / 'data'}",
+            *overrides, *extra])
+        tr = Trainer(cfg, device=dev)
+        t0 = time.perf_counter()
+        state, _ = tr.fit()
+        torch.cuda.synchronize()
+        return tr, state, time.perf_counter() - t0
+
+    tr_s, straight, straight_s = fit("straight")
+    tr_k, killed, killed_s = fit("resumed", f"train.fail_after_step={CKPT_FAIL_AFTER}")
+    tr_r, resumed, resumed_s = fit("resumed", "train.resume=true")
+    # The killed run stops at the first group boundary at or past the step.
+    check(killed.step >= CKPT_FAIL_AFTER and resumed.step == straight.step == CKPT_STEPS,
+          f"resume {name}: steps {killed.step}, {resumed.step}, {straight.step}")
+    a, b = _state_tensors(straight), _state_tensors(resumed)
+    check(sorted(a) == sorted(b), f"resume {name}: state leaves {sorted(a)} vs {sorted(b)}")
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    check(not differ, f"resume {name}: these leaves differ from the straight run: {differ}")
+    check(straight.opt_state["count"] == resumed.opt_state["count"],
+          f"resume {name}: optimizer counts differ")
+    saves = tr_k.ckpt.saves + tr_r.ckpt.saves
+    return {
+        "config": config, "overrides": list(overrides), "steps": CKPT_STEPS,
+        "checkpoint_every": CKPT_EVERY, "fail_after_step": CKPT_FAIL_AFTER,
+        "killed_at_step": killed.step,
+        "data_engine": tr_r.data_engine, "leaves_compared": len(a), "bitwise_equal": True,
+        "killed_saved_steps": [s["step"] for s in tr_k.ckpt.saves],
+        "resumed_saved_steps": [s["step"] for s in tr_r.ckpt.saves],
+        "save_bytes": saves[-1]["bytes"],
+        "save_host_copy_s": [s["host_copy_s"] for s in saves],
+        "save_write_s": [s.get("write_s") for s in saves],
+        "fit_seconds": {"straight": straight_s, "killed": killed_s, "resumed": resumed_s},
+    }, tr_r, resumed
+
+
+def _cli_lines(argv) -> list:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        check(cli.main(argv) == 0, f"cli {argv[0]} failed")
+    return [json.loads(x) for x in out.getvalue().splitlines() if x.strip()]
+
+
+def phase_checkpoint(dev, seed: int, requests: list) -> dict:
+    """o. Checkpoint and resume through `Trainer(cfg).fit()`:
+    configs/ml1m_gru4rec.json as shipped but checkpoint_every=16 and 48 steps
+    (K=8: saves at 16, 24 where it is killed, then 32 and 48), on synthetic
+    ML-1M-shaped data; then configs/rsc15_gru4rec.json (session-parallel:
+    the stream's snapshot and its engine) and the sparse step at ML-1M's
+    catalog. Each: a killed and resumed run equal to a straight one bit for
+    bit. On the first, the `eval` subcommand's metrics equal
+    `Trainer.evaluate`'s and `recommend --ckpt` the top-k of `recommend` on
+    the in-memory state."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    ml1m = ["data.dataset=synthetic", f"data.synthetic_num_items={VOCAB - 1}",
+            "data.synthetic_num_users=6040", "data.synthetic_min_len=20",
+            "data.synthetic_max_len=201"]
+    rsc = SESSION_DATA["rsc15_gru4rec"]
+    rsc15 = ["data.dataset=synthetic", f"data.synthetic_num_items={rsc['num_items']}",
+             f"data.synthetic_num_users={rsc['num_users']}",
+             f"data.synthetic_min_len={rsc['min_len']}",
+             f"data.synthetic_max_len={rsc['max_len']}"]
+    try:
+        runs = {}
+        runs["gru4rec"], tr, state = _resume_check(dev, "gru4rec", CONFIGS["gru4rec"],
+                                                   root / "gru4rec", ml1m)
+        run_cfg = str(Path(tr.cfg.train.out_dir) / "config.json")
+        t0 = time.perf_counter()
+        ev = _cli_lines(["eval", "--config", run_cfg, "--split", "test",
+                         "--device", str(dev)])[-1]
+        eval_s = time.perf_counter() - t0
+        want = tr.evaluate(state, split="test")
+        check(ev == {"step": CKPT_STEPS, "split": "test", **want},
+              f"checkpoint: eval subcommand {ev} vs Trainer.evaluate {want}")
+        src = root / "requests.jsonl"
+        src.write_text("".join(json.dumps(r) + "\n" for r in requests))
+        got = _cli_lines(["recommend", "--config", run_cfg, "--input", str(src),
+                          "--device", str(dev)])
+        model = build_model(tr.cfg.model, tr.ds.vocab_size, device=dev)
+        model.load_state_dict(state.params)
+        model.eval()
+        want = json.loads(json.dumps(list(infer.recommend(
+            model, requests, k=10, max_len=tr.cfg.data.max_len))))
+        check(got == want, "checkpoint: recommend --ckpt differs from recommend on the "
+                           "in-memory state")
+        runs["gru4rec"]["cli"] = {"eval": ev, "eval_seconds": eval_s, "eval_equal": True,
+                                  "recommend_requests": len(requests), "recommend_equal": True}
+        runs["rsc15_gru4rec"] = _resume_check(dev, "rsc15_gru4rec", CONFIGS["rsc15_gru4rec"],
+                                              root / "rsc15", rsc15)[0]
+        runs["gru4rec_sparse"] = _resume_check(dev, "gru4rec sparse", CONFIGS["gru4rec"],
+                                               root / "sparse",
+                                               ml1m + ["train.sparse_embedding_update=true"])[0]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    result = {"phase": "checkpoint", "runs": runs}
+    emit(result)
+    return result
+
+
 def _kernel_entry(name, source, replaces, launches, rec, plain_key="plain_ms", **extra):
     lib = rec["library_ms"]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2078,11 +2650,15 @@ def main(argv=None) -> int:
                                        overrides=[F32], reproducible=True)
     train["sasrec_f32"] = phase_train(rng, dev, args.seed, "sasrec", groups=2,
                                       overrides=[F32, "train.warmup_steps=0"])
+    sparse = phase_sparse(dev, args.seed)
+    phase_checkpoint(dev, args.seed, requests)
 
     def counts(kernel):
         return {"fit_bench_gru4rec": fit["launches"][kernel],
                 **{f"{kind}_{path}": runs[path]["launches"][kernel]
-                   for kind, runs in (("train", train), ("serve", serve)) for path in runs}}
+                   for kind, runs in (("train", train), ("serve", serve)) for path in runs},
+                **{f"fit_sparse_{path}": run["launches"][kernel]
+                   for path, run in sparse["runs"].items()}}
 
     gather = kern["gather"]
 

@@ -1,22 +1,31 @@
-"""CLI: ``python -m seqrec_tpu_torch {train,recommend} ...``.
+"""CLI: ``python -m seqrec_tpu_torch {train,eval,recommend} ...``.
 
-The port's counterpart of `seqrec_tpu/cli.py`, with two subcommands:
+The port's counterpart of `seqrec_tpu/cli.py`:
 
     python -m seqrec_tpu_torch train --config configs/ml1m_gru4rec.json \
-        --set data.dataset=synthetic --set train.checkpoint_every=0
+        --set data.dataset=synthetic
+    python -m seqrec_tpu_torch train --config configs/ml1m_gru4rec.json \
+        --set data.dataset=synthetic --set train.resume=true
+    python -m seqrec_tpu_torch eval --config configs/ml1m_gru4rec.json \
+        --set data.dataset=synthetic --split test
+    python -m seqrec_tpu_torch recommend --config configs/ml1m_gru4rec.json \
+        --ckpt runs/ml1m_gru4rec/ckpt --input histories.jsonl --k 10
     python -m seqrec_tpu_torch recommend --config configs/ml1m_gru4rec.json \
         --weights params.npz --input histories.jsonl --k 10
 
 `train` runs `Trainer.fit` (the dataset from `data.dataset` under
-`data.data_dir`, prepared on the fly when it is missing), then the test
-split's eval, and prints `{"final_test": {...}}` after the logger's lines.
-Checkpoints are not ported yet (ROADMAP.md Queue 1 item 5), so a config
-that asks for them raises: pass `--set train.checkpoint_every=0`.
+`data.data_dir`, prepared on the fly when it is missing), with checkpoints
+under `train.out_dir`/ckpt every `train.checkpoint_every` steps and at the
+end, resuming the newest with `train.resume=true`; then the test split's
+eval, and prints `{"final_test": {...}}` after the logger's lines. `eval`
+restores the newest checkpoint (`--ckpt`, default `train.out_dir`/ckpt)
+and prints `{"step", "split", **metrics}`.
 
-`--weights` is a `.npz` of the JAX parameter tree (see models.convert) where
-the JAX CLI takes an orbax `--ckpt`; the catalog size is the row count of
-`item_embedding` (and the user count that of `user_embedding`, less one).
-`--device` defaults to cuda and raises without it.
+`recommend` reads the parameters of the port's newest checkpoint
+(`--ckpt`), or a `.npz` of the JAX parameter tree (`--weights`, see
+models.convert); the catalog size is the row count of `item_embedding` (and
+the user count that of `user_embedding`, less one). `--device` defaults to
+cuda and raises without it.
 """
 
 from __future__ import annotations
@@ -48,14 +57,36 @@ def cmd_train(args) -> int:
     return 0
 
 
+def _ckpt_dir(args, cfg: RunConfig) -> str:
+    return args.ckpt or f"{cfg.train.out_dir}/ckpt"
+
+
+def cmd_eval(args) -> int:
+    """Evaluate the newest checkpoint on a split."""
+    cfg = _load_cfg(args)
+    from seqrec_tpu_torch.train.checkpoint import CheckpointManager
+    from seqrec_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, device=args.device)
+    mgr = CheckpointManager(_ckpt_dir(args, cfg))
+    state, step, _, _ = mgr.restore(tr.abstract_state(), device=tr.device)
+    m = tr.evaluate(state, split=args.split)
+    print(json.dumps({"step": step, "split": args.split, **m}))
+    return 0
+
+
 def cmd_recommend(args) -> int:
     """Batch inference: JSON-lines histories in, top-k recommendations out."""
     cfg = _load_cfg(args)
     from seqrec_tpu_torch.eval.infer import recommend
     from seqrec_tpu_torch.models import build_model
     from seqrec_tpu_torch.models.convert import flax_to_state_dict, load_npz
+    from seqrec_tpu_torch.train.checkpoint import CheckpointManager
 
-    state = flax_to_state_dict(load_npz(args.weights))
+    if args.weights:
+        state = flax_to_state_dict(load_npz(args.weights))
+    else:
+        state = CheckpointManager(_ckpt_dir(args, cfg)).restore_params(device="cpu")
     num_users = (state["user_embedding"].shape[0] - 1
                  if "user_embedding" in state else 0)
     model = build_model(cfg.model, state["item_embedding"].shape[0],
@@ -100,10 +131,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     _add_common(p)
     p.set_defaults(fn=cmd_train)
 
+    p = sub.add_parser("eval", help="evaluate the newest checkpoint")
+    _add_common(p)
+    p.add_argument("--ckpt", default=None, help="checkpoint dir (default out_dir/ckpt)")
+    p.add_argument("--split", default="test", choices=["val", "test"])
+    p.set_defaults(fn=cmd_eval)
+
     p = sub.add_parser("recommend", help="top-k recommendations for histories")
     _add_common(p)
-    p.add_argument("--weights", required=True,
-                   help=".npz of the JAX parameter tree (models/convert.py)")
+    src = p.add_mutually_exclusive_group()
+    src.add_argument("--ckpt", default=None,
+                     help="checkpoint dir of this package (default out_dir/ckpt)")
+    src.add_argument("--weights", default=None,
+                     help=".npz of the JAX parameter tree (models/convert.py)")
     p.add_argument("--input", default=None,
                    help="JSONL file of {'user':..,'history':[..]} (default stdin)")
     p.add_argument("--k", type=int, default=10)

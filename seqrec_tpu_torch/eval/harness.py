@@ -173,8 +173,8 @@ def evaluate(
     max_len: int = 200,
 ) -> Dict[str, float]:
     """Metrics of `model` with `params` (a state_dict-shaped dict, as
-    `TrainState.params`) on `ds`'s `split`, on the model's device."""
-    device = model.item_embedding.device
+    `TrainState.params`) on `ds`'s `split`, on the parameters' device."""
+    device = params["item_embedding"].device
     B = eval_cfg.batch_size
     # Large catalogs: stream the catalog in blocks instead of building
     # [B, V] scores (eval/chunked.py); on past CHUNK_THRESHOLD_BYTES, or

@@ -24,7 +24,9 @@ checkpoint: normal(1/sqrt(D)) tables; Glorot-uniform `*_wx`, orthogonal
 `*_wh`, zero biases but the LSTM's forget block at +1; and SASRec's
 normal(0.02) `pos_embedding`, LeCun-normal dense `kernel`s (truncated at two
 standard deviations, over the fan-in), LayerNorm `scale` ones and zero
-`bias`es.
+`bias`es. `init_state_dict` gives the same values as a state_dict on a
+device, drawing the embedding tables in row blocks straight into the device
+tensor (a 10M-row table is never whole on the host).
 """
 
 from __future__ import annotations
@@ -119,6 +121,10 @@ def _init_leaf(rng: np.random.Generator, leaf: str, shape) -> np.ndarray:
     return a
 
 
+def _is_table(leaf: str) -> bool:
+    return leaf.endswith("_embedding") and leaf != "pos_embedding"
+
+
 def random_params(model, seed: int) -> Dict:
     """A flax-layout tree for `model` (a SeqRecModel), drawn with numpy from
     `seed` with the flax initializers' distributions, in f32. Leaves nest by
@@ -131,3 +137,33 @@ def random_params(model, seed: int) -> Dict:
         flat[path] = _init_leaf(rng, path.rsplit("/", 1)[-1],
                                 tuple(p.shape)).astype(np.float32)
     return {"params": _unflatten(flat)}
+
+
+TABLE_BLOCK_ROWS = 1 << 19  # rows a block of init_state_dict's table draws
+
+
+def init_state_dict(model, seed: int, device, block_rows: int = TABLE_BLOCK_ROWS
+                    ) -> Dict[str, torch.Tensor]:
+    """`flax_to_state_dict(random_params(model, seed))` on `device`, bit for
+    bit, without the whole tree on the host: an embedding table's normal
+    draws are made `block_rows` rows at a time (a numpy Generator gives the
+    same stream in consecutive blocks) and each block, cast to f32, is
+    written into the device tensor. The other leaves are drawn whole, in
+    the same order from the same generator."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        shape = tuple(p.shape)
+        if not _is_table(leaf):
+            out[name] = torch.from_numpy(
+                _init_leaf(rng, leaf, shape).astype(np.float32)).to(device)
+            continue
+        t = torch.empty(shape, dtype=torch.float32, device=device)
+        scale = 1.0 / np.sqrt(shape[1])
+        for r0 in range(0, shape[0], block_rows):
+            n = min(block_rows, shape[0] - r0)
+            block = rng.normal(scale=scale, size=(n, shape[1])).astype(np.float32)
+            t[r0:r0 + n].copy_(torch.from_numpy(block))
+        out[name] = t
+    return out

@@ -133,12 +133,20 @@ class SeqRecModel(nn.Module):
         method=)`), so `torch.func.functional_call` can reach `loss`."""
         return getattr(self, method)(*args, **kwargs)
 
+    def _input_table(self, table_override: Optional[torch.Tensor]) -> torch.Tensor:
+        """The table the inputs are looked up in: the item table, or the
+        sparse step's [K, D] sub-table (`inputs` then hold positions in it,
+        and the cotangent is [K, D], never [V, D])."""
+        return self.item_embedding if table_override is None else table_override
+
     def encode(self, inputs: torch.Tensor, mask: torch.Tensor, *,
                users: Optional[torch.Tensor] = None, deterministic: bool = True,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               table_override: Optional[torch.Tensor] = None) -> torch.Tensor:
         """ids [B, T] -> per-step hidden states [B, T, H]. Unless
-        `deterministic`, input and inter-layer dropout draw from `generator`."""
-        x = self._lookup(self.item_embedding, inputs)
+        `deterministic`, input and inter-layer dropout draw from `generator`.
+        `table_override`: see `_input_table`."""
+        x = self._lookup(self._input_table(table_override), inputs)
         if self.use_user_embedding and users is not None:
             x = x + self._lookup(self.user_embedding, users)[:, None, :]
         if not deterministic and self.arch == "gru4rec":
@@ -148,44 +156,72 @@ class SeqRecModel(nn.Module):
     def loss(self, batch: Dict[str, torch.Tensor], *,
              neg_ids: Optional[torch.Tensor] = None,  # [S] shared negatives
              neg_log_q: Optional[torch.Tensor] = None,  # [S]
+             pos_log_q: Optional[torch.Tensor] = None,  # [B*T]; see _head_loss
              deterministic: bool = False,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None,
+             table_override: Optional[torch.Tensor] = None,  # [K, D]; see encode
+             out_table_override: Optional[torch.Tensor] = None):  # [K2, H], untied
         """Masked training loss of a batch {inputs, targets, mask[, users]}.
         Returns (sum of loss, sum of weights)."""
         h = self.encode(batch["inputs"], batch["mask"], users=batch.get("users"),
-                        deterministic=deterministic, generator=generator)
-        return self._head_loss(h, batch["targets"], batch["mask"], neg_ids, neg_log_q)
+                        deterministic=deterministic, generator=generator,
+                        table_override=table_override)
+        return self._head_loss(h, batch["targets"], batch["mask"], neg_ids, neg_log_q,
+                               pos_log_q=pos_log_q, table_override=table_override,
+                               out_table_override=out_table_override)
 
     def loss_stream(self, batch: Dict[str, torch.Tensor], carry, *,
                     neg_ids: Optional[torch.Tensor] = None,
                     neg_log_q: Optional[torch.Tensor] = None,
+                    pos_log_q: Optional[torch.Tensor] = None,
                     deterministic: bool = False,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    table_override: Optional[torch.Tensor] = None,
+                    out_table_override: Optional[torch.Tensor] = None):
         """One session-parallel window (the original GRU4Rec training
         regime, truncated BPTT): `batch` is a dense packed window {inputs,
         targets, mask, reset} (`data.batching.make_session_stream`), `carry`
         the recurrent state from the previous window (`towers.zero_carry` to
         start). Returns (sum of loss, sum of weights, new carry); the trainer
-        detaches the new carry at the window boundary."""
+        detaches the new carry at the window boundary. The sub-table
+        overrides and `pos_log_q` are the sparse step's, as in `loss`."""
         if self.arch != "gru4rec":
             raise ValueError("session-parallel streaming needs an RNN tower")
         if self.use_user_embedding:
             raise ValueError("session streams are anonymous; disable use_user_embedding")
-        x = self._lookup(self.item_embedding, batch["inputs"])
+        x = self._lookup(self._input_table(table_override), batch["inputs"])
         if not deterministic:
             x = dropout(x, self.dropout_rate, generator)
         h, new_carry = self.tower(x, batch["mask"], carry=carry, reset=batch["reset"],
                                   deterministic=deterministic, generator=generator)
         loss_sum, w_sum = self._head_loss(h, batch["targets"], batch["mask"],
-                                          neg_ids, neg_log_q)
+                                          neg_ids, neg_log_q, pos_log_q=pos_log_q,
+                                          table_override=table_override,
+                                          out_table_override=out_table_override)
         return loss_sum, w_sum, new_carry
 
-    def _head_loss(self, h, targets, mask, neg_ids, neg_log_q):
+    def _head_loss(self, h, targets, mask, neg_ids, neg_log_q, pos_log_q=None,
+                   table_override=None, out_table_override=None):
+        """The sparse step passes its sub-tables: `targets` and `neg_ids`
+        are then positions in the output sub-table (`out_table_override`
+        when the tables are untied, else `table_override`), and `pos_log_q`
+        comes precomputed from the original ids (the logQ correction needs
+        ids, not positions). Accidental hits are found by position: with
+        the exact budget remapping is a bijection on the ids present, so the
+        answer is the same; a capped budget sends every overflowed id to the
+        one sentinel position, as the JAX package does."""
         B, T, H = h.shape
         h2 = h.reshape(B * T, H)
         t2 = targets.reshape(B * T)
         w2 = mask.reshape(B * T).float()
-        out_table = self.output_table()
+        if out_table_override is not None:
+            out_table = out_table_override
+        elif table_override is not None:
+            if not self.tie_embeddings:
+                raise ValueError("untied output table needs out_table_override")
+            out_table = table_override
+        else:
+            out_table = self.output_table()
         if self.loss_type == "full_softmax":
             return reference.full_softmax_loss(
                 h2, out_table.to(self.compute_dtype), t2, w2,
@@ -199,8 +235,7 @@ class SeqRecModel(nn.Module):
         pos_emb = self._lookup(out_table, t2)
         neg_emb = self._lookup(out_table, neg_ids)
         if self.loss_type == "sampled_softmax":
-            pos_log_q = None
-            if neg_log_q is not None:
+            if pos_log_q is None and neg_log_q is not None:
                 pos_log_q = pos_log_prob(t2, self.vocab_size, self.neg_sampler)
             return ops.sampled_softmax_loss(
                 h2, pos_emb, neg_emb, t2, neg_ids, w2,

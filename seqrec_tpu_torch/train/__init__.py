@@ -1,2 +1,3 @@
-"""Training: the train state, schedules and optimizer (`state`) and the
-training step (`trainer.Trainer`)."""
+"""Training: the train state, schedules and optimizer (`state`), the
+sparse row-wise embedding updates (`sparse_embed`), checkpoints
+(`checkpoint`) and the training step and fit loop (`trainer.Trainer`)."""

@@ -11,6 +11,9 @@ its formulas, written out in plain tensor code over a dict of parameters:
 
 It is functional, as optax is: `update` returns new tensors and new state
 and changes nothing it was given, so a step can be replayed from a state.
+(The sparse embedding step is not: it updates its [V, D] tables and their
+row state in place, `train/sparse_embed.py`; `clone_state` copies a state
+for a replay.)
 """
 
 from __future__ import annotations
@@ -45,6 +48,30 @@ class TrainState:
     # Session-parallel training: the recurrent state carried from one window
     # into the next (`towers.zero_carry`'s layout), detached; None otherwise.
     carry: Any = None
+    # Sparse embedding updates (train.sparse_embedding_update): the row-wise
+    # optimizer state of each sparse table, {table name: {leaf: [V, D]}}
+    # (`sparse_embed.init_row_opt`); those tables are then left out of
+    # `opt_state`. None otherwise.
+    embed_opt: Any = None
+
+
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree
+
+
+def clone_state(state: TrainState) -> TrainState:
+    """A copy of `state` that shares no tensor with it: a step that updates
+    in place (the sparse step's tables and row state) can then be replayed
+    from the original."""
+    return dataclasses.replace(state, params=_clone(state.params),
+                               opt_state=_clone(state.opt_state), carry=_clone(state.carry),
+                               embed_opt=_clone(state.embed_opt))
 
 
 def make_schedule(cfg: TrainConfig) -> Schedule:
@@ -90,11 +117,12 @@ class Optimizer:
     """`init(params) -> state`; `update(grads, state, params) -> (updates,
     new_state)`; `apply(params, updates) -> new params`."""
 
-    def __init__(self, cfg: TrainConfig):
+    def __init__(self, cfg: TrainConfig, with_clip: bool = True):
         if cfg.optimizer not in ("adam", "adagrad", "sgd"):
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
         self.kind = cfg.optimizer
-        self.clip = cfg.grad_clip_norm if cfg.grad_clip_norm and cfg.grad_clip_norm > 0 else None
+        clip = with_clip and cfg.grad_clip_norm and cfg.grad_clip_norm > 0
+        self.clip = cfg.grad_clip_norm if clip else None
         self.weight_decay = cfg.weight_decay if cfg.weight_decay and cfg.weight_decay > 0 else 0.0
         self.schedule = make_schedule(cfg)
         self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8  # optax.scale_by_adam
@@ -146,5 +174,9 @@ class Optimizer:
         return {k: p + updates[k].to(p.dtype) for k, p in params.items()}
 
 
-def make_optimizer(cfg: TrainConfig) -> Optimizer:
-    return Optimizer(cfg)
+def make_optimizer(cfg: TrainConfig, *, with_clip: bool = True) -> Optimizer:
+    """`with_clip=False` for the sparse embedding step, which clips the
+    global norm of the tower's and the sub-tables' gradients together
+    before it hands the tower's part over: a clip in the chain would see
+    only part of the gradient and clip a second time."""
+    return Optimizer(cfg, with_clip=with_clip)

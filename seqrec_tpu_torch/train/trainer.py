@@ -15,7 +15,13 @@ A step runs eagerly on the device: negatives drawn on the device, the loss
 through the kernels (gather, the tower's GRU or LSTM scan or causal
 attention, sampled-softmax head) and their backward kernels, the global
 gradient norm, and the optimizer. It is functional, as the JAX step is:
-the state it was given is left as it was.
+the state it was given is left as it was, with one exception. With
+`train.sparse_embedding_update` the step touches only the rows of the
+batch's ids (`_sparse_step`, `train/sparse_embed.py`): no [V, D] gradient
+exists, and the [V, D] tables and their row state (`embed_opt`) are updated
+IN PLACE, the counterpart of the JAX step's donated state; the new state
+shares them with the old one. A caller that replays a step from one state
+clones it first (`state.clone_state`).
 
 With `data.session_parallel` a batch is one window of a session-parallel
 stream (`data.batching.make_session_stream`): the step runs
@@ -29,10 +35,15 @@ Metrics stay on the device (no host sync inside a step).
 batcher when the engine cannot be built), `train.steps_per_call` batches
 of one bucket packed into one [K, B, T+2] wire group on the feeder side,
 a `DevicePrefetcher` that stages wires through pinned memory on a side
-stream, the log, eval and heartbeat cadences at group boundaries, the
-`debug_nans` halt and the `fail_after_step` return. Checkpoints
-(ROADMAP.md Queue 1 item 5) and `profile_dir` (item 10) raise, naming
-their items; a CUDA-graph capture of the K-step group is item 3b.
+stream, the log, eval, heartbeat and checkpoint cadences at group
+boundaries, the `debug_nans` halt and the `fail_after_step` return (with a
+checkpoint). With `train.resume` it restores the newest checkpoint under
+`out_dir/ckpt` and resumes the data where the run left it: the bucketed
+loaders fast-forward past the batches consumed, a session-parallel stream
+restores its snapshot with the engine that took it. A killed and resumed
+run equals a straight one bit for bit. `profile_dir` (ROADMAP.md Queue 1
+item 10) raises, naming its item; a CUDA-graph capture of the K-step group
+is item 3b.
 """
 
 from __future__ import annotations
@@ -40,24 +51,27 @@ from __future__ import annotations
 import os
 import time
 import warnings
-from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from seqrec_tpu_torch.config import RunConfig
 from seqrec_tpu_torch.data import native
 from seqrec_tpu_torch.data.batching import make_session_stream, make_train_batches
 from seqrec_tpu_torch.data.dataset import load_dataset
-from seqrec_tpu_torch.data.negative import sample_negatives
+from seqrec_tpu_torch.data.negative import pos_log_prob, sample_negatives
 from seqrec_tpu_torch.data.prefetch import DevicePrefetcher, HostStager, StagedBatch
 from seqrec_tpu_torch.eval.harness import evaluate
 from seqrec_tpu_torch.models import build_model
-from seqrec_tpu_torch.models.convert import flax_to_state_dict, random_params
+from seqrec_tpu_torch.models.convert import init_state_dict
 from seqrec_tpu_torch.models.model import SAMPLED_LOSSES
 from seqrec_tpu_torch.models.towers import zero_carry
-from seqrec_tpu_torch.ops import _build
+from seqrec_tpu_torch.ops import _build, embedding_gather
 from seqrec_tpu_torch.runtime import DEFAULT_DEVICE, resolve_device
+from seqrec_tpu_torch.train import sparse_embed
+from seqrec_tpu_torch.train.checkpoint import CheckpointManager
 from seqrec_tpu_torch.train.state import (
     TrainState,
     global_norm,
@@ -130,39 +144,70 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.ds = ds if ds is not None else load_dataset(cfg.data)
-        if cfg.train.sparse_embedding_update:
-            raise NotImplementedError(
-                "train.sparse_embedding_update: ROADMAP.md Queue 1 item 8 "
-                "(sparse embedding updates)")
+        self._sparse = bool(cfg.train.sparse_embedding_update)
+        if self._sparse:
+            sparse_embed.validate_config(cfg)
         if cfg.mesh.shard_embeddings and cfg.mesh.model_axis > 1:
-            raise NotImplementedError(
-                "mesh.shard_embeddings: ROADMAP.md Queue 1 item 9 (multi-GPU)")
+            what = ("mesh.shard_embeddings with train.sparse_embedding_update (the sharded "
+                    "pair sharded_sub_table and sharded_row_update)" if self._sparse
+                    else "mesh.shard_embeddings")
+            raise NotImplementedError(f"{what}: ROADMAP.md Queue 1 item 9 (multi-GPU)")
         self.model = build_model(cfg.model, self.ds.vocab_size, num_users=self.ds.num_users,
                                  neg_sampler=cfg.data.neg_sampler,
                                  device=self.device)
-        self.optimizer = make_optimizer(cfg.train)
+        if self._sparse:
+            # The state holds the [V, D] tables and every call passes them
+            # in; the module's own copies would be a second table on the
+            # device, so they keep only their shapes.
+            for name in self._sparse_table_names():
+                p = getattr(self.model, name)
+                setattr(self.model, name, nn.Parameter(
+                    torch.empty(p.shape, dtype=p.dtype, device="meta"), requires_grad=False))
+        # The sparse step clips the global norm of the tower's and the
+        # sub-tables' gradients together; the optimizer must not clip again.
+        self.optimizer = make_optimizer(cfg.train, with_clip=not self._sparse)
         # One device: the local batch is the global batch.
         self.local_batch = self.global_batch = cfg.data.batch_size
         self.num_devices = 1
         self.data_engine: Optional[str] = None  # "native" or "python", once chosen
         self._stager: Optional[HostStager] = None
+        self.ckpt: Optional[CheckpointManager] = None  # fit's, when it checkpoints
 
     # ---- state ----------------------------------------------------------
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Parameters drawn with numpy from `seed` (`models.convert`'s flax
-        initializer distributions), zero optimizer state, step 0, and for
-        session-parallel training a zero carry in the compute dtype."""
+        initializer distributions; the tables in row blocks straight into
+        the device), zero optimizer state, step 0, and for session-parallel
+        training a zero carry in the compute dtype. In sparse mode the
+        tables' optimizer state is row-wise (`embed_opt`) and `opt_state`
+        covers the other parameters only."""
         seed = self.cfg.train.seed if seed is None else seed
-        params = {k: v.to(self.device)
-                  for k, v in flax_to_state_dict(random_params(self.model, seed)).items()}
+        return self._state(init_state_dict(self.model, seed, self.device), seed, self.device)
+
+    def abstract_state(self) -> TrainState:
+        """The state's structure, shapes and dtypes on the meta device (no
+        memory, nothing drawn): what a checkpoint restores into."""
+        params = {k: torch.empty(p.shape, dtype=torch.float32, device="meta")
+                  for k, p in self.model.named_parameters()}
+        return self._state(params, self.cfg.train.seed, torch.device("meta"))
+
+    def _state(self, params, seed: int, device) -> TrainState:
         carry = None
         if self.cfg.data.session_parallel:
             m = self.cfg.model
             carry = zero_carry(m.cell_type, m.num_layers, self.cfg.data.batch_size, m.hidden,
-                               self.model.compute_dtype, self.device)
-        return TrainState(step=0, params=params, opt_state=self.optimizer.init(params),
-                          rng_seed=seed + 1, carry=carry)
+                               self.model.compute_dtype, device)
+        embed_opt = None
+        if self._sparse:
+            names = self._sparse_table_names()
+            opt_state = self.optimizer.init({k: v for k, v in params.items() if k not in names})
+            embed_opt = {n: sparse_embed.init_row_opt(self.cfg.train.optimizer, params[n])
+                         for n in names}
+        else:
+            opt_state = self.optimizer.init(params)
+        return TrainState(step=0, params=params, opt_state=opt_state, rng_seed=seed + 1,
+                          carry=carry, embed_opt=embed_opt)
 
     def _generators(self, state: TrainState) -> Tuple[torch.Generator, torch.Generator]:
         """(negatives, dropout) generators of this step: a function of the
@@ -192,6 +237,10 @@ class Trainer:
         for a session window) or a batch dict {inputs, targets, mask[, users]
         [, reset]} of numpy arrays or tensors."""
         batch = self._device_batch(batch)
+        if self._sparse:
+            neg_gen, dropout_gen = self._generators(state)
+            neg_ids, neg_log_q = self.sample_negatives(neg_gen)
+            return self._sparse_step(state, batch, neg_ids, neg_log_q, dropout_gen)
         params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
         loss, w_sum, carry = self.forward(state, params, batch)
         grads = self.backward(loss, params)
@@ -237,6 +286,121 @@ class Trainer:
         new_state = TrainState(step=state.step + 1,
                                params=self.optimizer.apply(params, updates),
                                opt_state=opt_state, rng_seed=state.rng_seed, carry=carry)
+        metrics = {"loss": loss.detach(), "tokens": w_sum.detach(),
+                   "grad_norm": gnorm, "nonfinite": nonfinite}
+        return new_state, metrics
+
+    # ---- the sparse step ---------------------------------------------------
+
+    def _sparse_table_names(self) -> List[str]:
+        names = ["item_embedding"]
+        if not self.cfg.model.tie_embeddings:
+            names.append("output_embedding")
+        return names
+
+    def _sparse_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                     neg_ids: torch.Tensor, neg_log_q: Optional[torch.Tensor],
+                     dropout_gen: torch.Generator
+                     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """The large-catalog step (`train/sparse_embed.py`), the JAX
+        package's `_sparse_step` with the same arguments: the batch's
+        unique ids (inputs, targets and negatives in one set for tied
+        tables; untied, the output table its own set of targets and
+        negatives), the [K, D] sub-tables fetched by the gather kernel and
+        differentiated in place of the tables, the tower and sub-table
+        gradients clipped by their global norm together, the optimizer on
+        the tower and a row update of each table and its row state, in
+        place. With train.sparse_unique_budget the budget is capped: ids
+        past it embed as a zeros sentinel row at position K, whose gradient
+        row is dropped. No host sync and no data-dependent shape."""
+        cfg = self.cfg
+        tied = cfg.model.tie_embeddings
+        use_pallas = cfg.model.use_pallas
+        names = self._sparse_table_names()
+        tables = {n: state.params[n] for n in names}
+        rest = {k: v.detach().requires_grad_(True) for k, v in state.params.items()
+                if k not in tables}
+
+        inputs, targets = batch["inputs"], batch["targets"]
+        neg_ids = neg_ids.to(targets.dtype)
+        out_ids = torch.cat([targets.reshape(-1), neg_ids])
+        in_ids = torch.cat([inputs.reshape(-1), out_ids]) if tied else inputs.reshape(-1)
+        rows = tables["item_embedding"].shape[0]
+        cap = int(cfg.train.sparse_unique_budget or 0)
+        remap = sparse_embed.remap_capped if cap else sparse_embed.remap
+
+        def unique(ids: torch.Tensor) -> torch.Tensor:
+            budget = sparse_embed.unique_budget(ids.numel(), rows)
+            return sparse_embed.collect_unique(ids, min(budget, cap) if cap else budget)
+
+        def sub_table(table: torch.Tensor, uids: torch.Tensor) -> torch.Tensor:
+            sub = embedding_gather(table, uids, use_pallas=use_pallas)
+            if cap:
+                sub = torch.cat([sub, sub.new_zeros((1, sub.shape[1]))])
+            return sub.detach().requires_grad_(True)
+
+        uids_in = unique(in_ids)
+        subs = {"in": sub_table(tables["item_embedding"], uids_in)}
+        uids_out = uids_in
+        if not tied:
+            uids_out = unique(out_ids)
+            subs["out"] = sub_table(tables["output_embedding"], uids_out)
+
+        batch_r = dict(batch, inputs=remap(uids_in, inputs), targets=remap(uids_out, targets))
+        pos_log_q = None
+        if cfg.model.loss == "sampled_softmax" and neg_log_q is not None:
+            # From the ORIGINAL ids (batch_r holds positions), under the law
+            # the negatives were drawn from.
+            pos_log_q = pos_log_prob(targets.reshape(-1), self.ds.vocab_size,
+                                     cfg.data.neg_sampler)
+        kwargs = {"neg_ids": remap(uids_out, neg_ids), "neg_log_q": neg_log_q,
+                  "pos_log_q": pos_log_q, "deterministic": False, "generator": dropout_gen,
+                  "table_override": subs["in"], "out_table_override": subs.get("out")}
+        params = {**rest, **tables}
+        carry = None
+        if cfg.data.session_parallel:
+            loss_sum, w_sum, carry = torch.func.functional_call(
+                self.model, params, (batch_r, state.carry), {"method": "loss_stream", **kwargs})
+            carry = _detach(carry)  # TBPTT, and no sub-table in the next step's graph
+        else:
+            loss_sum, w_sum = torch.func.functional_call(
+                self.model, params, (batch_r,), {"method": "loss", **kwargs})
+        loss = loss_sum / torch.clamp(w_sum, min=1.0)
+
+        leaves = {**{f"sub/{k}": v for k, v in subs.items()}, **rest}
+        grads = self.backward(loss, leaves)
+        gnorm = global_norm(grads.values())
+        nonfinite = ~torch.isfinite(gnorm) | ~torch.isfinite(loss)
+        clip = cfg.train.grad_clip_norm
+        if clip and clip > 0:
+            # min(1, clip / max(norm, 1e-12)); a tensor numerator, so that
+            # the division is one rounding (a Python float over a tensor is
+            # a reciprocal and a product in torch).
+            scale = torch.clamp(torch.full_like(gnorm, clip) / torch.clamp(gnorm, min=1e-12),
+                                max=1.0)
+            grads = {k: g * scale for k, g in grads.items()}
+        if cfg.train.sanitize_nans:
+            grads = {k: torch.where(torch.isfinite(g).all(), g, torch.nan_to_num(g))
+                     for k, g in grads.items()}
+
+        rest = {k: v.detach() for k, v in rest.items()}
+        updates, opt_state = self.optimizer.update({k: grads[k] for k in rest},
+                                                   state.opt_state, rest)
+        rest = self.optimizer.apply(rest, updates)
+        lr = self.optimizer.schedule(state.step)
+        with torch.no_grad():
+            for name, uids, key in (("item_embedding", uids_in, "in"),
+                                    ("output_embedding", uids_out, "out"))[:len(names)]:
+                g = grads[f"sub/{key}"]
+                if cap:
+                    g = g[:-1]  # the sentinel row: overflowed ids update nothing
+                sparse_embed.row_update(cfg.train.optimizer, lr, tables[name],
+                                        state.embed_opt[name], uids, g, state.step)
+        new_state = TrainState(
+            step=state.step + 1,
+            params={k: tables[k] if k in tables else rest[k] for k in state.params},
+            opt_state=opt_state, rng_seed=state.rng_seed, carry=carry,
+            embed_opt=state.embed_opt)
         metrics = {"loss": loss.detach(), "tokens": w_sum.detach(),
                    "grad_norm": gnorm, "nonfinite": nonfinite}
         return new_state, metrics
@@ -426,11 +590,13 @@ class Trainer:
 
     # ---- data ------------------------------------------------------------
 
-    def train_iterator(self) -> Iterator:
+    def train_iterator(self, skip_batches: int = 0) -> Iterator:
         """The training stream: the native engine when it is built and
         `data.use_native_loader` is set, else the Python batcher (the same
-        batch semantics). `data_engine` records which. (Resuming past
-        consumed batches comes with checkpoints, ROADMAP.md Queue 1 item 5.)"""
+        batch semantics). `data_engine` records which. `skip_batches`
+        fast-forwards a bucketed stream past that many batches without
+        building them (resume); a session-parallel stream resumes from its
+        snapshot instead (`fit`)."""
         if self.cfg.data.session_parallel:
             return self._make_session_iterator()
         d = self.cfg.data
@@ -438,28 +604,37 @@ class Trainer:
             self.data_engine = "native"
             return native.NativeTrainLoader(
                 self.ds, batch_size=self.local_batch, max_len=d.max_len, buckets=d.buckets,
-                seed=d.seed)
+                seed=d.seed, skip_batches=skip_batches)
         self.data_engine = "python"
         return make_train_batches(
             self.ds, batch_size=self.local_batch, max_len=d.max_len, buckets=d.buckets,
-            seed=d.seed)
+            seed=d.seed, skip_batches=skip_batches)
 
-    def _make_session_iterator(self):
+    def _make_session_iterator(self, engine: str = "auto"):
         """The session-parallel stream: the native engine when it is built
         and `data.use_native_loader` is set (it fills windows and packs the
-        session wire off the GIL), else the Python stream."""
+        session wire off the GIL), else the Python stream. `engine`
+        ("native" or "python") pins the kind when a checkpoint written by
+        that loader is resumed: their shuffles differ, so a snapshot means
+        something only to the engine that took it."""
         # The snapshot ring covers the feeder's read-ahead: with
         # steps_per_call grouping it stages whole K-groups, so the gap
         # between the stream's head and the loop grows to about
         # K * (prefetch depth + 2) batches.
         spc = self._steps_per_call()
         depth = max(16, spc * (self.cfg.data.prefetch_to_device + 2) + spc)
-        if self.cfg.data.use_native_loader and native.available():
+        use_native = engine == "native" or (self.cfg.data.use_native_loader
+                                            and engine != "python")
+        if use_native and native.available():
             T, E, _ = self._session_wire_cols
             self.data_engine = "native"
             return native.NativeSessionLoader(
                 self.ds, batch_size=self.local_batch, window=T, ends_budget=E,
                 wire_dtype=self._wire_dtype, seed=self.cfg.data.seed, snapshot_depth=depth)
+        if engine == "native":
+            raise RuntimeError(
+                "the checkpoint was written by the native session loader, but the native "
+                f"engine is not available: {native.build_error()}")
         self.data_engine = "python"
         return make_session_stream(self.ds, batch_size=self.local_batch,
                                    window=self.cfg.data.max_len, seed=self.cfg.data.seed,
@@ -485,32 +660,63 @@ class Trainer:
 
     def _check_fit_supported(self) -> None:
         t = self.cfg.train
-        if t.resume or (t.out_dir and t.checkpoint_every > 0):
-            raise NotImplementedError(
-                "train.checkpoint_every > 0 with train.out_dir, or train.resume: "
-                "ROADMAP.md Queue 1 item 5 (checkpoint and resume); set "
-                "train.checkpoint_every=0")
         if t.profile_dir:
             raise NotImplementedError("train.profile_dir: ROADMAP.md Queue 1 item 10 "
                                       "(the rest of the CLI, torch.profiler)")
 
     def fit(self, state: Optional[TrainState] = None
             ) -> Tuple[TrainState, Dict[str, float]]:
-        """Train to `train.num_steps` from `state` (a fresh one from
-        train.seed when None). Returns (state, the last eval's metrics)."""
+        """Train to `train.num_steps` from `state` (when None: the newest
+        checkpoint under out_dir/ckpt with train.resume, else a fresh state
+        from train.seed). Returns (state, the last eval's metrics).
+        Checkpoints go to out_dir/ckpt every train.checkpoint_every steps
+        (at the group boundary past each multiple), at fail_after_step and
+        at the end."""
         cfg = self.cfg
         self._check_fit_supported()
         out_dir = cfg.train.out_dir
         logger = MetricsLogger(out_dir, tensorboard=cfg.train.tensorboard)
         heartbeat = Heartbeat(out_dir) if out_dir else None
+        ckpt = self.ckpt = (
+            CheckpointManager(os.path.join(out_dir, "ckpt"), keep=cfg.train.keep_checkpoints)
+            if out_dir and cfg.train.checkpoint_every > 0 else None)
+        data_position = 0  # batches consumed: the resume point of the data
+        data_state = None
         if state is None:
-            state = self.init_state()
+            if cfg.train.resume and ckpt is not None and ckpt.latest_step() is not None:
+                state, _, data_position, data_state = ckpt.restore(self.abstract_state(),
+                                                                   device=self.device)
+            else:
+                state = self.init_state()
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
             cfg.save(os.path.join(out_dir, "config.json"))
 
-        it = self.train_iterator()
+        it = self.train_iterator(skip_batches=data_position)
+        if cfg.data.session_parallel and data_position:
+            if data_state is not None:
+                # The snapshot is restored by the loader kind that took it
+                # (the Python stream and the native engine shuffle apart).
+                want = data_state.get("engine", "python")
+                have = "native" if isinstance(it, native.NativeSessionLoader) else "python"
+                if want != have:
+                    if hasattr(it, "close"):
+                        it.close()
+                    it = self._make_session_iterator(engine=want)
+                it.restore(data_state)
+            else:
+                for _ in range(data_position):  # a checkpoint without a snapshot: replay
+                    next(it)
         self.precompile()
+
+        def pipeline_state() -> Optional[dict]:
+            """The stream's snapshot at the loop's position, for a save. The
+            feeder reads ahead of the loop; the session stream keeps a ring
+            of recent snapshots for that."""
+            if cfg.data.session_parallel:
+                return it.state_at(data_position)
+            return None
+
         start_step = state.step
         spc = self._steps_per_call()
         logger.log(start_step, "data", {
@@ -550,6 +756,7 @@ class Trainer:
                 # [step, hi).
                 k = batch.shape[0] if isinstance(batch, torch.Tensor) and batch.dim() == 3 else 1
                 hi = step + k
+                data_position += k
                 if k > 1:
                     state, metrics = self.train_step_multi(state, batch)
                 else:
@@ -559,9 +766,12 @@ class Trainer:
 
                 if cfg.train.debug_nans and bool(metrics["nonfinite"]):
                     # _steps_per_call() makes k == 1 here: hi - 1 is the step.
+                    if ckpt is not None:
+                        ckpt.wait()
                     logger.log(hi - 1, "fatal", {"nonfinite_grads_at": hi - 1})
                     raise FloatingPointError(
-                        f"non-finite loss/gradients at step {hi - 1} (train.debug_nans)")
+                        f"non-finite loss/gradients at step {hi - 1} (train.debug_nans); "
+                        "the last finite checkpoint is intact")
 
                 if _crossed(cfg.train.log_every, step, hi):
                     m = {key: float(v) for key, v in pending.items()}
@@ -583,15 +793,27 @@ class Trainer:
                     t_window = time.perf_counter()
                     examples_window = 0
 
+                if ckpt is not None and _crossed(cfg.train.checkpoint_every, step, hi):
+                    ckpt.save(hi, state, data_position, data_state=pipeline_state())
+
                 if cfg.train.fail_after_step is not None and hi >= cfg.train.fail_after_step:
+                    if ckpt is not None:
+                        if ckpt.latest_step() != hi:
+                            ckpt.save(hi, state, data_position, data_state=pipeline_state())
+                        ckpt.wait()
                     logger.log(hi - 1, "fault_injection", {"exit_at": hi})
                     return state, last_eval
                 step = hi
+            if ckpt is not None:  # before the stream closes: its snapshot
+                ckpt.save(cfg.train.num_steps, state, data_position,
+                          data_state=pipeline_state())
         finally:
             if prefetcher is not None:
                 prefetcher.close()
             if hasattr(it, "close"):
                 it.close()
+            if ckpt is not None:
+                ckpt.close()
             logger.close()
         return state, last_eval
 

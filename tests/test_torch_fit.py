@@ -383,8 +383,6 @@ def test_fit_debug_nans_halts_and_fail_after_step_returns(tiny_ds, tmp_path):
 
 
 @pytest.mark.parametrize("setting,match", [
-    ({"train.checkpoint_every": 5}, "item 5"),
-    ({"train.resume": True}, "item 5"),
     ({"train.profile_dir": "prof"}, "item 10"),
 ])
 def test_fit_raises_for_what_is_not_ported(tiny_ds, tmp_path, setting, match):

@@ -30,7 +30,6 @@ the plain version, which rounds its scores to bf16, and 2e-2 against the
 plain version in f32 on the same bf16 inputs (the kernel rounds only the
 probabilities and the output to bf16)."""
 
-import dataclasses
 
 import numpy as np
 import pytest
@@ -638,6 +637,7 @@ def test_train_step_with_kernels_matches_plain(cuda):
     versions, from the same state with the same draws: loss and gradient
     norm within bf16 noise."""
     from seqrec_tpu_torch.config import RunConfig
+    from seqrec_tpu_torch.train.state import clone_state
     from seqrec_tpu_torch.train.trainer import Trainer
 
     class DS:
@@ -668,6 +668,7 @@ def test_train_step_multi_is_bitwise_reproducible(cuda, compute_dtype):
     group give the same parameters and optimizer state bit for bit (the
     scatter-add is deterministic; cuBLAS on one stream is)."""
     from seqrec_tpu_torch.config import RunConfig
+    from seqrec_tpu_torch.train.state import clone_state
     from seqrec_tpu_torch.train.trainer import Trainer
 
     class DS:
@@ -686,8 +687,7 @@ def test_train_step_multi_is_bitwise_reproducible(cuda, compute_dtype):
     state = tr.init_state(3)
     runs = []
     for _ in range(2):
-        s0 = dataclasses.replace(state, params={k: v.clone() for k, v in state.params.items()})
-        runs.append(tr.train_step_multi(s0, tokens)[0])
+        runs.append(tr.train_step_multi(clone_state(state), tokens)[0])
     a, b = runs
     assert a.params.keys() == b.params.keys()
     for k in a.params:
@@ -1507,3 +1507,103 @@ def test_fit_on_the_card_is_reproducible_across_prefetch_and_grouping(cuda, tmp_
         finals.append(state)
     for name in finals[0].params:
         assert torch.equal(finals[0].params[name], finals[1].params[name]), name
+
+
+# ---------------------------------------------------------------------------
+# The sparse embedding step and checkpoint resume on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tied,session", [(True, False), (False, False), (True, True)])
+def test_sparse_step_kernels_match_plain(cuda, tied, session):
+    """One sparse step (f32 compute) through the kernels and through the
+    plain versions, each from a clone of one state: loss and gradient norm
+    within 1e-4 relative, the tables and their row state within 1e-4 of
+    their largest value, rows no id touched unchanged bit for bit. The
+    gather fetches each sub-table and does the three lookups on it; the
+    scatter-add runs for the lookups only."""
+    from seqrec_tpu_torch.config import RunConfig
+    from seqrec_tpu_torch.train.state import clone_state
+    from seqrec_tpu_torch.train.trainer import Trainer
+
+    class DS:
+        vocab_size, num_users = 500, 0
+
+    overrides = ["model.embed_dim=32", "model.num_negatives=50", "data.max_len=20",
+                 "data.batch_size=8",
+                 "model.compute_dtype=float32", "model.dropout_rate=0.0",
+                 "train.sparse_embedding_update=true", "train.optimizer=adagrad",
+                 f"model.tie_embeddings={str(tied).lower()}",
+                 f"data.session_parallel={str(session).lower()}"]
+    if not tied:
+        overrides.append("model.hidden_dim=48")
+    cfg = RunConfig.load("configs/ml1m_gru4rec.json").apply_overrides(overrides)
+    rng = np.random.default_rng(2)
+    inputs = rng.integers(1, 500, size=(8, 20)).astype(np.int32)
+    targets = rng.integers(1, 500, size=(8, 20)).astype(np.int32)
+    batch = {"inputs": inputs, "targets": targets, "mask": np.ones((8, 20), np.float32)}
+    if session:
+        batch["reset"] = (rng.random((8, 20)) < 0.2).astype(np.float32)
+    runs = {}
+    state = Trainer(cfg, DS(), device=cuda).init_state(3)
+    for use_pallas in (True, False):
+        tr = Trainer(cfg.apply_overrides([f"model.use_pallas={str(use_pallas).lower()}"]), DS(),
+                     device=cuda)
+        before = (k_gather.embedding_gather.launches, k_gather.embedding_scatter_add.launches)
+        runs[use_pallas] = tr.train_step(clone_state(state), batch)
+        torch.cuda.synchronize()
+        launched = (k_gather.embedding_gather.launches - before[0],
+                    k_gather.embedding_scatter_add.launches - before[1])
+        assert launched == (((4 if tied else 5), 3) if use_pallas else (0, 0))
+    (k, mk), (p, mp) = runs[True], runs[False]
+    for key in ("loss", "grad_norm"):
+        assert abs(float(mk[key]) - float(mp[key])) <= 1e-4 * abs(float(mp[key])), key
+    names = ["item_embedding"] + ([] if tied else ["output_embedding"])
+    for name in names:
+        for a, b in [(k.params[name], p.params[name]),
+                     (k.embed_opt[name]["acc"], p.embed_opt[name]["acc"])]:
+            assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item(), name
+    touched = np.unique(np.concatenate([inputs.ravel(), targets.ravel()]))
+    untouched = torch.ones(500, dtype=torch.bool)
+    untouched[torch.from_numpy(touched).long()] = False
+    untouched[tr.sample_negatives(tr._generators(state)[0])[0].long().cpu()] = False
+    assert torch.equal(k.params["item_embedding"][untouched.to(cuda)],
+                       state.params["item_embedding"][untouched.to(cuda)])
+
+
+@pytest.mark.parametrize("mode", ["bucketed", "session", "sparse"])
+def test_fit_resume_equals_straight_on_the_card(cuda, tmp_path, mode):
+    """Trainer.fit through the kernels: a run killed at step 8
+    (checkpoint_every=5, K=4) and resumed equals a straight 12-step run bit
+    for bit, every parameter and optimizer-state leaf."""
+    from seqrec_tpu_torch.config import RunConfig
+    from seqrec_tpu_torch.data.dataset import synthetic_dataset
+    from seqrec_tpu_torch.train.trainer import Trainer
+
+    ds = synthetic_dataset(80, 300, seed=1, min_len=4, max_len=40)
+
+    def fit(out, **train):
+        cfg = RunConfig()
+        cfg.model.embed_dim, cfg.model.loss, cfg.model.num_negatives = 64, "sampled_softmax", 64
+        cfg.model.dropout_rate = 0.1
+        cfg.data.batch_size, cfg.data.max_len = 16, 32
+        cfg.data.session_parallel = mode == "session"
+        cfg.train.sparse_embedding_update = mode == "sparse"
+        cfg.train.optimizer = "adagrad" if mode == "sparse" else "adam"
+        cfg.train.steps_per_call, cfg.train.num_steps = 4, 12
+        cfg.train.eval_every, cfg.train.out_dir = 0, str(tmp_path / out)
+        for key, v in train.items():
+            setattr(cfg.train, key, v)
+        tr = Trainer(cfg, ds, device=cuda)
+        return tr, tr.fit()[0]
+
+    _, straight = fit("s", checkpoint_every=0)
+    _, killed = fit("k", checkpoint_every=5, fail_after_step=8)
+    tr, resumed = fit("k", checkpoint_every=5, resume=True)
+    assert killed.step == 8 and resumed.step == 12 and tr.ckpt.all_steps()[0] == 8
+    for name in straight.params:
+        assert torch.equal(straight.params[name], resumed.params[name]), name
+    opt = (lambda s: s.embed_opt["item_embedding"]) if mode == "sparse" else (
+        lambda s: s.opt_state["mu"])
+    for name, t in opt(straight).items():
+        assert torch.equal(t, opt(resumed)[name]), name

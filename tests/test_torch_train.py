@@ -765,8 +765,9 @@ def test_train_step_sanitizes_and_flags_nonfinite_grads(monkeypatch):
 
 
 def test_trainer_refuses_unported_modes_and_defaults_to_cuda(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Trainer(_run_cfg().apply_overrides(["train.sparse_embedding_update=true"]),
+    with pytest.raises(NotImplementedError, match="sharded_row_update.*item 9"):
+        Trainer(_run_cfg().apply_overrides(["train.sparse_embedding_update=true",
+                                            "mesh.shard_embeddings=true", "mesh.model_axis=2"]),
                 _DS(VOCAB), device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         Trainer(_run_cfg().apply_overrides(["mesh.shard_embeddings=true",
