@@ -170,6 +170,31 @@ source, all at once). Each phase prints one JSON line:
               same resume check on configs/rsc15_gru4rec.json (session-parallel:
               the stream's snapshot, the carry) and on the sparse step at
               ML-1M's catalog (lazy adam's row state);
+  p. sharded  p1: one K=8 group of configs/ml1m_gru4rec.json (dropout 0)
+              through the mesh trainer over an NCCL process group of one
+              rank, every parameter and optimizer leaf bit for bit the group
+              with no process group; p2: two ranks of this script
+              (--p2-rank) sharing cuda:0 over gloo (NCCL refuses two ranks
+              on one device; every collective is staged through host
+              memory, so p2's collective times say nothing of NCCL): the
+              dense sharded ML-1M step (model_axis=2, f32, adagrad) and an
+              f32 K=8 group of configs/synthetic10m_sharded.json, both at
+              lr 0.05, each held against one rank on the global batch (1e-5
+              of each leaf's largest value), each also reading a planted
+              fault (shard 1's row update skipped) that must exceed 1e-5,
+              then 48-step fits of
+              configs/synthetic10m_sharded.json and configs/rsc15_10m.json
+              as shipped (model_axis=2, 5,000,004-row shards): finite global
+              losses alike on both ranks, each kernel's launches a step,
+              peak memory under the shard and its row state plus 2 GB, shard
+              rows changed at most steps x budget, ex/s, step, device and
+              collective ms a step; p3: the gather's and the scatter-add's
+              shard-window variants bit for bit against their plain versions
+              at the sharded fetch's and the dense sharded step's shapes,
+              timed beside the library call and the bound. The same p2 work
+              over NCCL, a card a rank: torchrun --nproc_per_node=N
+              chip_smoke.py --sharded-ranks DIR, then chip_smoke.py
+              --sharded-check DIR (one JSON line);
   m. the kernels line: {"kernels": [{name, route, source, replaces,
               launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
               library_ms, design, dtype}, ...]} (the scatter-add also
@@ -181,7 +206,8 @@ source, all at once). Each phase prints one JSON line:
               path (GRU4Rec's for the gather, scatter-add and head, the
               session paths' for the reset variants, the f32 paths' for the
               f32 kernels; the counts of every path beside it, the fit
-              loop's and the sparse fits' included).
+              loop's and the sparse fits' included), and the two
+              shard-window variants, their launches counted on p2's rank 0.
 
 Then the raw nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -199,8 +225,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import datetime
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -208,7 +236,9 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -217,7 +247,7 @@ from seqrec_tpu_torch import cli, ops
 from seqrec_tpu_torch.config import RunConfig
 from seqrec_tpu_torch.data import native
 from seqrec_tpu_torch.data.batching import make_session_stream
-from seqrec_tpu_torch.data.dataset import synthetic_dataset
+from seqrec_tpu_torch.data.dataset import load_dataset, synthetic_dataset
 from seqrec_tpu_torch.data.negative import log_uniform_log_prob, sample_log_uniform
 from seqrec_tpu_torch.data.prefetch import StagedBatch
 from seqrec_tpu_torch.eval import infer
@@ -231,6 +261,7 @@ from seqrec_tpu_torch.ops.cuda import gather as k_gather
 from seqrec_tpu_torch.ops.cuda import gru as k_gru
 from seqrec_tpu_torch.ops.cuda import head as k_head
 from seqrec_tpu_torch.ops.cuda import lstm as k_lstm
+from seqrec_tpu_torch.runtime.mesh import init_distributed, make_mesh, shutdown
 from seqrec_tpu_torch.train import sparse_embed
 from seqrec_tpu_torch.train.state import clone_state
 from seqrec_tpu_torch.train.trainer import Trainer
@@ -1545,6 +1576,8 @@ COUNTERS = {
     "lstm_backward_reset": (k_lstm.lstm_backward, "reset_launches"),
     "xproj_f32": (k_gru.gru_input_projection, "f32_launches"),
     "lstm_xproj_f32": (k_lstm.lstm_input_projection, "f32_launches"),
+    "gather_window": (k_gather.embedding_gather_window, "launches"),
+    "gather_backward_window": (k_gather.embedding_scatter_add_window, "launches"),
 }
 
 
@@ -1695,10 +1728,10 @@ def _reproducibility_check(tr: Trainer, state, group) -> dict:
             "leaves": sorted(leaves), "bitwise_equal": True}
 
 
-def _lookup_then_cast(self, table, ids):
-    """SeqRecModel._lookup as it was before the gather wrote the compute
-    dtype: a gather in the table's dtype, then a cast (a second launch, and
-    its gradient a third)."""
+def _lookup_then_cast(self, table, ids, sharded=False):
+    """SeqRecModel._lookup (of a model whose tables are whole) as it was
+    before the gather wrote the compute dtype: a gather in the table's
+    dtype, then a cast (a second launch, and its gradient a third)."""
     return ops.embedding_gather(table, ids, use_pallas=self.use_pallas).to(self.compute_dtype)
 
 
@@ -2483,6 +2516,572 @@ def phase_sparse(dev, seed: int) -> dict:
     return result
 
 
+P_RANKS = 2  # phase p2's ranks, both on cuda:0 over gloo
+P_STEPS = 48  # each p2 fit: six groups of 8
+P_TOL = 1e-5  # f32, the ranks against one rank: the JAX package's sharded rtol
+# The group checks' learning rate: at the configs' 1e-3 (adagrad, accumulators
+# from 0.1) a K=8 group moves a row ~2e-5 of its norm, inside P_TOL; at 0.05 a
+# skipped or misplaced shard update reads far past it (each check reads one).
+P2_LR = "train.learning_rate=0.05"
+P_RANK_TIMEOUT_S = 420  # the two ranks take ~100 s on an H100
+P_COLLECTIVE_TIMEOUT_S = 300  # a collective a peer never joins fails, it does not hang
+
+
+def expected_sharded_launches(cfg: RunConfig, sparse: bool) -> dict:
+    """Launches a step on one rank of a row-sharded path (model axis 2).
+    Sparse: the sparse step's, its sub-table fetched by the window gather
+    instead of the gather. Dense: the inputs' and the positives' lookups
+    are each a window gather and the dedup inverse's gather, with a window
+    scatter-add and the inverse's scatter-add backward; the negatives' a
+    window gather and a window scatter-add."""
+    if sparse:
+        want = expected_launches(cfg, training=True)
+        want["gather_window"] = 1 if cfg.model.tie_embeddings else 2
+        return want
+    want = expected_launches(cfg, training=True)
+    want.update(gather=2, gather_backward=2, gather_window=3, gather_backward_window=3)
+    return want
+
+
+def _p1_nccl(dev, seed: int, root: Path) -> dict:
+    """p1. NCCL at world size 1: one K=8 group of configs/ml1m_gru4rec.json
+    (dropout 0) through the mesh trainer over a process group of one rank,
+    every parameter and optimizer leaf equal bit for bit to the same group
+    with no process group."""
+    cfg = RunConfig.load(CONFIGS["gru4rec"]).apply_overrides(["model.dropout_rate=0.0"])
+    K, B, T = cfg.train.steps_per_call, cfg.data.batch_size, cfg.data.max_len
+    plain_tr = Trainer(cfg, _Catalog(), device=dev)
+    group = _train_wires(np.random.default_rng(seed + 11), plain_tr, 1, K, B, T)[0]
+    want, wm = plain_tr.train_step_multi(plain_tr.init_state(seed), group)
+    init_distributed(f"file://{root / 'nccl_store'}", 1, 0, backend="nccl", device=dev)
+    try:
+        mesh = make_mesh(1)
+        check(mesh.distributed and mesh.backend == "nccl", f"p1: {mesh}")
+        tr = Trainer(cfg, _Catalog(), device=dev, mesh=mesh)
+        zero_counters()
+        got, gm = tr.train_step_multi(tr.init_state(seed), group)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        stats = dict(mesh.stats)
+    finally:
+        shutdown()
+    got_opt = _opt_leaves(got.opt_state)
+    leaves = {**{f"params/{k}": (got.params[k], v) for k, v in want.params.items()},
+              **{f"opt/{k}": (got_opt[k], v) for k, v in _opt_leaves(want.opt_state).items()}}
+    differ = [k for k, (a, b) in leaves.items() if not torch.equal(a, b)]
+    check(not differ, f"p1: the NCCL world-1 group differs from the one without a process "
+                      f"group at {differ}")
+    check(float(gm["loss"]) == float(wm["loss"]), f"p1: loss {gm['loss']} vs {wm['loss']}")
+    want_l = {k: v * K for k, v in expected_launches(cfg, training=True).items()}
+    check(launches == want_l, f"p1: launches {launches}, expected {want_l}")
+    return {"config": CONFIGS["gru4rec"], "overrides": ["model.dropout_rate=0.0"],
+            "backend": "nccl", "world": 1, "steps": K, "leaves_bit_equal": len(leaves),
+            "loss": float(gm["loss"]), "collectives": stats}
+
+
+def _p2_sparse_cfg(config: str, root: Path, rank: int, overrides=()) -> RunConfig:
+    name = Path(config).stem
+    return RunConfig.load(config).apply_overrides([
+        f"train.num_steps={P_STEPS}", f"train.out_dir={root / 'run' / name / str(rank)}",
+        f"data.data_dir={root / 'data' / name}", "train.checkpoint_every=0", *overrides])
+
+
+def _cpu_tree(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    return tree
+
+
+def _p2_dense(dev, mesh, seed: int, root: Path) -> dict:
+    """The dense sharded step: configs/ml1m_gru4rec.json with
+    mesh.model_axis=2 and mesh.shard_embeddings (its 3,424-row padded table
+    split in two), f32, adagrad, dropout 0, one K=8 group; this rank's rows
+    of a global [8, 256, 202] group. Saves its state for the parent's
+    one-rank check."""
+    rank = mesh.rank
+    cfg = RunConfig.load(CONFIGS["gru4rec"]).apply_overrides(P2_DENSE)
+    tr = Trainer(cfg, _Catalog(), device=dev, mesh=mesh)
+    K, B, T = cfg.train.steps_per_call, cfg.data.batch_size, cfg.data.max_len
+    group = _train_wires(np.random.default_rng(seed + 12), tr, 1, K, mesh.size * B, T)[0]
+    state = tr.init_state(seed)
+    mesh.stats.update(calls=0, bytes=0, seconds=0.0)
+    zero_counters()
+    end, m = tr.train_step_multi(state, group[:, rank * B:(rank + 1) * B])
+    torch.cuda.synchronize()
+    launches = read_counters()
+    want = {k: v * K for k, v in expected_sharded_launches(cfg, sparse=False).items()}
+    check(launches == want, f"p2 dense rank {rank}: launches {launches}, expected {want}")
+    torch.save({"params": _cpu_tree(end.params), "opt": _cpu_tree(_opt_leaves(end.opt_state)),
+                "loss": float(m["loss"])}, root / f"dense.rank{rank}.pt")
+    if rank == 0:
+        np.save(root / "dense_group.npy", group)
+    return {"launches": launches, "loss": float(m["loss"]), "collectives": dict(mesh.stats)}
+
+
+def _global_distinct(tr: Trainer, mesh, state, batches: list) -> list:
+    """Each step's distinct ids over the global batch (the ranks' inputs and
+    targets all-gathered, and the step's negatives), replayed after the run."""
+    out = []
+    for i, wire in enumerate(batches):
+        batch = tr._device_batch(wire)
+        local = torch.cat([batch["inputs"].reshape(-1), batch["targets"].reshape(-1)])
+        gen = tr._generators(dataclasses.replace(state, step=i))[0]
+        ids = torch.cat([mesh.all_gather(local), tr.sample_negatives(gen)[0].to(local.dtype)])
+        out.append(int(torch.unique(ids).numel()))
+    return out
+
+
+def _p2_f32_group(cfg: RunConfig, ds, dev, mesh, state, root: Path) -> dict:
+    """The f32 check's ranks' side: one K=8 group of this rank's first
+    batches in f32 at P2_LR from `state` (updated in place); saves the
+    wires, the rows of this rank's shard that the group's global ids touch
+    and their accumulator, before and after, and the tower before and
+    after."""
+    rank = mesh.rank
+    tr = Trainer(cfg.apply_overrides([F32, P2_LR]), ds, device=dev, mesh=mesh)
+    K = cfg.train.steps_per_call
+    wires = np.stack(_first_batches(tr, K))
+    ids = []
+    for i, w in enumerate(wires):
+        b = tr._device_batch(w)
+        local = torch.cat([b["inputs"].reshape(-1), b["targets"].reshape(-1)])
+        gen = tr._generators(dataclasses.replace(state, step=i))[0]
+        ids += [mesh.all_gather(local), tr.sample_negatives(gen)[0].to(local.dtype)]
+    table = state.params["item_embedding"]
+    rows = table.shape[0]
+    row0 = mesh.axis_index("model") * rows  # this shard's first row
+    touched = torch.unique(torch.cat(ids)).long()
+    mine = touched[(touched >= row0) & (touched < row0 + rows)]
+    tables = tr._sparse_table_names()
+    before = {"rows": table[mine - row0].cpu(),
+              "acc": state.embed_opt["item_embedding"]["acc"][mine - row0].cpu(),
+              "tower": _cpu_tree({k: v for k, v in state.params.items() if k not in tables})}
+    end, m = tr.train_step_multi(state, wires)
+    torch.cuda.synchronize()
+    torch.save({"wires": wires, "ids": mine.cpu(), "before": before,
+                "rows": table[mine - row0].cpu(),
+                "acc": end.embed_opt["item_embedding"]["acc"][mine - row0].cpu(),
+                "tower": _cpu_tree({k: v for k, v in end.params.items() if k not in tables}),
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "vocab_size": int(ds.vocab_size), "num_users": int(ds.num_users)},
+               root / f"f32.rank{rank}.pt")
+    return {"touched_rows": int(mine.numel()), "loss": float(m["loss"])}
+
+
+def _p2_sparse(dev, mesh, seed: int, root: Path, config: str, f32_check: bool = False) -> dict:
+    """One sharded config through `Trainer.fit` on this rank for P_STEPS
+    steps (the dataset the parent prepared): the init seconds (this rank
+    draws the whole table's stream and keeps its shard), the f32 group
+    first where asked (the fit then starts from the state it left, its step
+    counter at 0), then the bf16 fit with the launch counters and the
+    collectives' stats zeroed just before it: every group's loss and
+    gradient norm finite, each kernel's launches a step, peak memory under
+    the shard and its row state plus SPARSE_MEM_SLACK, shard rows changed
+    at most steps x the global budget; ex/s (global) and step ms by CUDA
+    events between groups, device ms a step (torch.profiler over 4 steps),
+    the collectives' ms a step (host clock, synchronized: under gloo each
+    one is staged through host memory)."""
+    rank = mesh.rank
+    cfg = _p2_sparse_cfg(config, root, rank)
+    name = f"{config} (rank {rank})"
+    t0 = time.perf_counter()
+    ds = load_dataset(cfg.data)
+    tr = Trainer(cfg, ds, device=dev, mesh=mesh)
+    data_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    result = {"config": config, "rank": rank, "data_seconds": data_s, "init_seconds": init_s}
+    if f32_check:
+        result["f32_group"] = _p2_f32_group(cfg, ds, dev, mesh, state, root)
+        state = dataclasses.replace(state, step=0)
+    table = state.params["item_embedding"]
+    state_bytes = table.numel() * table.element_size() + sum(
+        t.numel() * t.element_size() for t in state.embed_opt["item_embedding"].values())
+    fp0 = _fingerprint(table)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    probe = _GroupProbe(tr)
+    mesh.stats.update(calls=0, bytes=0, seconds=0.0)
+    zero_counters()
+    t0 = time.perf_counter()
+    state, _ = tr.fit(state)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counters()
+    collectives = dict(mesh.stats)
+    probe.close()
+    run = probe.read()
+    steps = sum(probe.steps)
+    changed = int((_fingerprint(table) != fp0).any(1).sum())
+    del fp0
+    K, B, T = cfg.train.steps_per_call, cfg.data.batch_size, cfg.data.max_len
+    budget = sparse_embed.unique_budget(mesh.size * B * T * 2 + cfg.model.num_negatives,
+                                        tr.model.table_size)
+    if cfg.train.sparse_unique_budget:
+        budget = min(budget, cfg.train.sparse_unique_budget)
+    check(state.step == P_STEPS == steps, f"{name}: stopped at step {state.step}")
+    check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and not m["nonfinite"]
+              for m in run["metrics"]), f"{name}: non-finite metrics {run['metrics']}")
+    want = {k: v * steps for k, v in expected_sharded_launches(cfg, sparse=True).items()}
+    check(launches == want, f"{name}: kernel launches {launches}, expected {want}")
+    check(peak < state_bytes + SPARSE_MEM_SLACK,
+          f"{name}: peak device memory {peak} >= {state_bytes} + {SPARSE_MEM_SLACK}")
+    # At most steps x budget; none at all is possible on a shard whose ids
+    # all lie past a binding cap (the cap keeps the smallest ids), so the
+    # summary wants rows changed on the model group as a whole.
+    check(changed <= steps * budget,
+          f"{name}: {changed} shard rows changed, bound {steps} x {budget}")
+    if cfg.data.session_parallel:
+        check(all(bool(torch.isfinite(c).all()) for c in _leaves(state.carry)),
+              f"{name}: non-finite carry")
+    step_ms = float(np.median(run["step_ms"]))
+    batches = _first_batches(tr, K)
+    distinct = _global_distinct(tr, mesh, state, batches)
+    prof, state = profile_steps(tr, state, batches[:4])
+    result.update({
+        "world": mesh.size, "mesh": dict(mesh.shape), "backend": mesh.backend,
+        "shard": list(table.shape), "table_rows": tr.model.table_size,
+        "batch_size_per_rank": B, "global_batch": tr.global_batch, "seq_len": T,
+        "num_negatives": cfg.model.num_negatives, "compute_dtype": cfg.model.compute_dtype,
+        "steps": steps, "unique_budget": budget, "data_engine": tr.data_engine,
+        "fit_seconds": fit_s, "losses": [m["loss"] for m in run["metrics"]],
+        "grad_norms": [m["grad_norm"] for m in run["metrics"]],
+        "step_ms_median": step_ms, "step_ms": run["step_ms"],
+        "examples_per_s_global": tr.global_batch / (step_ms / 1e3),
+        "device_ms_per_step": prof["device_ms_per_step"], "profile": prof,
+        "collectives": collectives, "collective_ms_per_step": collectives["seconds"] * 1e3 / steps,
+        "collective_calls_per_step": collectives["calls"] / steps,
+        "collective_bytes_per_step": collectives["bytes"] / steps,
+        "launches": launches, "peak_memory_bytes": peak, "shard_and_row_state_bytes": state_bytes,
+        "allocated_at_fit_start_bytes": resident,
+        "peak_memory_limit_bytes": state_bytes + SPARSE_MEM_SLACK,
+        "shard_rows_changed": changed, "shard_rows_changed_bound": steps * budget,
+        "global_distinct_ids_first_steps": distinct,
+    })
+    if cfg.train.sparse_unique_budget:
+        result["overflowed_ids_first_steps"] = [max(0, d - budget) for d in distinct]
+    del state, tr
+    torch.cuda.empty_cache()
+    return result
+
+
+P2_DENSE = [F32, "train.optimizer=adagrad", P2_LR, "model.dropout_rate=0.0",
+            "mesh.model_axis=2", "mesh.shard_embeddings=true"]
+P2_CONFIGS = ("configs/synthetic10m_sharded.json", "configs/rsc15_10m.json")
+
+
+def p2_rank(rank: Optional[int], root: Path, seed: int) -> int:
+    """One rank of phase p2: with `rank` (`--p2-rank`), a process of its own
+    on cuda:0, joined to the other over gloo (NCCL refuses two ranks on one
+    device); without (`--sharded-ranks`, under torchrun), torchrun's rank on
+    cuda:LOCAL_RANK over NCCL, as many ranks as torchrun starts."""
+    timeout = datetime.timedelta(seconds=P_COLLECTIVE_TIMEOUT_S)
+    if rank is None:
+        dev = init_distributed(timeout=timeout)
+    else:
+        dev = init_distributed(f"file://{root / 'store'}", P_RANKS, rank, backend="gloo",
+                               device="cuda:0", timeout=timeout)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        mesh = make_mesh(2, timed=True)
+        rank = mesh.rank
+        t0 = time.perf_counter()
+        if rank == 0:  # prepared once, read by every rank
+            for config in P2_CONFIGS:
+                load_dataset(_p2_sparse_cfg(config, root, 0).data)
+        mesh.barrier()
+        out = {"rank": rank, "mesh": dict(mesh.shape), "backend": mesh.backend,
+               "device": str(dev), "data_seconds": time.perf_counter() - t0,
+               "dense_ml1m": _p2_dense(dev, mesh, seed, root)}
+        out["synthetic10m"] = _p2_sparse(dev, mesh, seed, root, P2_CONFIGS[0], f32_check=True)
+        out["rsc15_10m"] = _p2_sparse(dev, mesh, seed, root, P2_CONFIGS[1])
+        (root / f"rank{rank}.json").write_text(json.dumps(out))
+        mesh.barrier()
+    except BaseException:
+        # A failed rank leaves at once: a process-group teardown would wait
+        # for the peers, which wait in their next collective for this rank.
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    shutdown()
+    return 0
+
+
+def _spawn_ranks(root: Path, seed: int) -> list:
+    """Run p2's two ranks (this script with --p2-rank) and wait for both;
+    kills both and raises, with their logs' tails, if either fails or
+    outlives P_RANK_TIMEOUT_S."""
+    procs, logs = [], []
+    for r in range(P_RANKS):
+        log = open(root / f"rank{r}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--p2-rank", str(r),
+             "--p2-dir", str(root), "--seed", str(seed)],
+            stdout=log, stderr=subprocess.STDOUT, cwd=Path.cwd()))
+    deadline = time.monotonic() + P_RANK_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break  # one failed: the other would wait for it forever
+            time.sleep(1.0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    if any(p.returncode != 0 for p in procs):
+        tails = {r: (root / f"rank{r}.log").read_text()[-3000:] for r in range(P_RANKS)}
+        raise CheckFailed(f"p2: ranks exited {[p.returncode for p in procs]}: {tails}")
+    return [json.loads((root / f"rank{r}.json").read_text()) for r in range(P_RANKS)]
+
+
+def _rel_err_np(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+def _same_on_ranks(ranks: list, get, what: str, model_axis: int = 0) -> None:
+    """Replicas hold the same bits: every rank (model_axis 0), or the
+    ranks of each model index."""
+    for r, rec in enumerate(ranks):
+        ref = ranks[r % model_axis] if model_axis else ranks[0]
+        check(torch.equal(get(rec), get(ref)), f"{what}: rank {r} differs from its replica")
+
+
+def _p2_check_dense(dev, seed: int, root: Path, world: int = P_RANKS) -> dict:
+    """The dense sharded group against one rank: the same config at model
+    axis 1 (shard_embeddings pads the table to the same 3,424 rows, so the
+    same seed draws the same state), the global batch, on the global group.
+    The table is the model group's shards in order (ranks 0 and 1). The
+    planted fault: shard 1's rows and accumulator left as they were before
+    the group (its update skipped), read the same way; it must exceed P_TOL,
+    or the check could not see such a fault."""
+    cfg = RunConfig.load(CONFIGS["gru4rec"]).apply_overrides(
+        [*P2_DENSE[:-2], "mesh.model_axis=1", "mesh.shard_embeddings=true",
+         f"data.batch_size={world * RunConfig.load(CONFIGS['gru4rec']).data.batch_size}"])
+    tr = Trainer(cfg, _Catalog(), device=dev)
+    start = tr.init_state(seed)
+    before = {"item_embedding": start.params["item_embedding"].cpu().clone(),
+              **{f"opt/{k}": v.cpu().clone() for k, v in _opt_leaves(start.opt_state).items()
+                 if k.endswith("item_embedding")}}  # cloned: the step may update in place
+    want, m = tr.train_step_multi(start, np.load(root / "dense_group.npy"))
+    ranks = [torch.load(root / f"dense.rank{r}.pt") for r in range(world)]
+    errs, fault = {}, {}
+    for k, v in want.params.items():
+        sharded = k == "item_embedding"
+        _same_on_ranks(ranks, lambda r: r["params"][k], f"p2 dense {k}", 2 if sharded else 0)
+        got = torch.cat([r["params"][k] for r in ranks[:2]]) if sharded else ranks[0]["params"][k]
+        errs[k] = _rel_err_np(got, v.cpu())
+        if sharded:
+            rows = ranks[0]["params"][k].shape[0]
+            fault[k] = _rel_err_np(torch.cat([ranks[0]["params"][k], before[k][rows:]]), v.cpu())
+    for k, v in _opt_leaves(want.opt_state).items():
+        sharded = k.endswith("item_embedding")
+        got = torch.cat([r["opt"][k] for r in ranks[:2]]) if sharded else ranks[0]["opt"][k]
+        errs[f"opt/{k}"] = _rel_err_np(got, v.cpu())
+        if sharded:
+            rows = ranks[0]["opt"][k].shape[0]
+            fault[f"opt/{k}"] = _rel_err_np(
+                torch.cat([ranks[0]["opt"][k], before[f"opt/{k}"][rows:]]), v.cpu())
+    bad = {k: e for k, e in errs.items() if e > P_TOL}
+    check(not bad, f"p2 dense: the ranks vs one rank {bad} > {P_TOL}")
+    loss_rel = abs(ranks[0]["loss"] - float(m["loss"])) / abs(float(m["loss"]))
+    check(loss_rel <= P_TOL, f"p2 dense: loss {ranks[0]['loss']} vs {float(m['loss'])}")
+    check(max(fault.values()) > P_TOL,
+          f"p2 dense: shard 1's update skipped reads {fault}, within {P_TOL}: unseen")
+    return {"rel_err": errs, "loss_rel_err": loss_rel, "tolerance": P_TOL,
+            "planted_fault_rel_err": fault}
+
+
+def _p2_check_f32(dev, root: Path, world: int = P_RANKS) -> dict:
+    """The f32 sparse group against one rank: configs/synthetic10m_sharded.json
+    in f32 at model axis 1, batch 512, on the ranks' wires side by side (the
+    global batch), from a state holding the rows the group touches (their
+    values before it, from the ranks) and the ranks' tower: the touched rows,
+    their accumulator and the tower after it, within P_TOL of each leaf's
+    largest value. The rows it does not touch, it does not read. The planted
+    fault, shard 1's touched rows and accumulator as before the group (its
+    update skipped), must read past P_TOL."""
+    cfg = RunConfig.load(P2_CONFIGS[0]).apply_overrides(
+        [F32, P2_LR, "mesh.model_axis=1", "mesh.shard_embeddings=false",
+         f"data.batch_size={world * RunConfig.load(P2_CONFIGS[0]).data.batch_size}"])
+    ranks = [torch.load(root / f"f32.rank{r}.pt", weights_only=False) for r in range(world)]
+    for k in ranks[0]["tower"]:
+        _same_on_ranks(ranks, lambda r: r["tower"][k], f"p2 f32 {k}")
+
+    class _DS:
+        vocab_size, num_users = ranks[0]["vocab_size"], ranks[0]["num_users"]
+
+    tr = Trainer(cfg, _DS(), device=dev)
+    D = cfg.model.embed_dim
+    shards = ranks[:2]  # the model group of data index 0 (its replicas: the same rows)
+    for key in ("ids", "rows", "acc"):
+        _same_on_ranks(ranks, lambda x: x[key], f"p2 f32 {key}", 2)
+    ids = torch.cat([r["ids"] for r in shards]).to(dev)
+    table = torch.zeros((_DS.vocab_size, D), dtype=torch.float32, device=dev)
+    table[ids] = torch.cat([r["before"]["rows"] for r in shards]).to(dev)
+    params = {**{k: v.to(dev) for k, v in ranks[0]["before"]["tower"].items()},
+              "item_embedding": table}
+    state = tr._state(params, cfg.train.seed, dev)
+    wires = np.concatenate([r["wires"] for r in ranks], axis=1)
+    end, m = tr.train_step_multi(state, wires)
+    want_rows, want_acc = table[ids].cpu(), end.embed_opt["item_embedding"]["acc"][ids].cpu()
+    errs = {"item_embedding[touched]": _rel_err_np(
+                torch.cat([r["rows"] for r in shards]), want_rows),
+            "acc[touched]": _rel_err_np(torch.cat([r["acc"] for r in shards]), want_acc)}
+    fault = {"item_embedding[touched]": _rel_err_np(
+                 torch.cat([shards[0]["rows"], shards[1]["before"]["rows"]]), want_rows),
+             "acc[touched]": _rel_err_np(
+                 torch.cat([shards[0]["acc"], shards[1]["before"]["acc"]]), want_acc)}
+    for k, v in ranks[0]["tower"].items():
+        errs[k] = _rel_err_np(v, end.params[k].cpu())
+    loss_rel = abs(ranks[0]["loss"] - float(m["loss"])) / abs(float(m["loss"]))
+    errs["loss"] = loss_rel
+    bad = {k: e for k, e in errs.items() if e > P_TOL}
+    check(not bad, f"p2 f32: the ranks vs one rank {bad} > {P_TOL}")
+    check(max(fault.values()) > P_TOL,
+          f"p2 f32: shard 1's update skipped reads {fault}, within {P_TOL}: unseen")
+    out = {"touched_rows": int(ids.numel()), "rel_err": errs, "tolerance": P_TOL,
+           "planted_fault_rel_err": fault, "shard1_touched_rows": int(shards[1]["ids"].numel()),
+           "global_batch": int(wires.shape[1])}
+    del table, state, end, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _window_gather_check(rng, dev, rows: int, n: int, D: int, dtype) -> dict:
+    """p3. The window gather at the sharded fetch's shape: n ids over the
+    whole table of 2 x rows rows into the second shard (rows [rows, 2 rows),
+    as rank 1 holds it), about half of them off the window: bit for bit
+    against its plain version; kernel, plain (torch.where(owned,
+    shard[clamp], 0)), library (F.embedding of the clamped local ids, then
+    torch.where) and bound times. The bound counts the distinct owned rows
+    read once in f32, the ids, and the output in `dtype`."""
+    shard = torch.randn((rows, D), device=dev)
+    ids = torch.from_numpy(rng.integers(0, 2 * rows, size=n).astype(np.int32)).to(dev)
+    row0 = rows
+    got = k_gather.embedding_gather_window(shard, ids, row0, dtype=dtype)
+    want = reference.embedding_gather_window(shard, ids, row0, dtype=dtype)
+    torch.cuda.synchronize()
+    check(torch.equal(_bits(got), _bits(want)), f"gather window {_dname(dtype)}: not bit-exact")
+    local, owned = reference.window_ids(ids, row0, rows)
+    clamped = local.clamp(0, rows - 1)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    owned_rows = int(torch.unique(local[owned]).numel())
+    b = bound(owned_rows * D * 4 + n * 4 + n * D * torch.tensor([], dtype=dtype).element_size(),
+              0, torch.float32)
+    return {
+        "shape": {"shard": [rows, D], "row0": row0, "ids": n, "owned_ids": int(owned.sum()),
+                  "dtype": _dname(dtype)},
+        "design": "4-rows-in-flight, shard window", "max_abs_err": 0.0, "bit_exact": True,
+        "kernel_ms": time_ms(lambda: k_gather.embedding_gather_window(shard, ids, row0,
+                                                                      dtype=dtype)),
+        "plain_ms": time_ms(lambda: reference.embedding_gather_window(shard, ids, row0,
+                                                                      dtype=dtype)),
+        "library_ms": time_ms(lambda: torch.where(
+            owned[:, None], torch.nn.functional.embedding(clamped, shard).to(dtype), zero)),
+        "library": "F.embedding of the clamped local ids, .to(dtype), then torch.where",
+        "bound_ms": b[0], "bound_by": b[1],
+    }
+
+
+def _window_scatter_check(rng, dev, rows: int, n: int, D: int) -> dict:
+    """p3. The window scatter-add at the dense sharded step's shape: the
+    all-gathered cotangent of 2 x 128 x 200 Zipf ids (ML-1M's catalog) into
+    the second half of its 3,424-row table: bit for bit against the plain
+    ordered version, two runs bit for bit; kernel, plain, library
+    (index_add_ of the owned rows, selected outside the timing) and bound
+    times. The bound counts g and the ids read once and the shard written."""
+    ids = torch.from_numpy(zipf_items(rng, n).astype(np.int32)).to(dev)
+    g = torch.randn((n, D), device=dev)
+    row0 = rows
+    got = k_gather.embedding_scatter_add_window(g, ids, row0, rows)
+    again = k_gather.embedding_scatter_add_window(g, ids, row0, rows)
+    plan = k_gather.scatter_add_plan(n, rows, D)
+    want = k_gather.plain_ordered_window(g, ids, row0, rows, plan["chunk"])
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "scatter-add window: two runs differ")
+    check(torch.equal(got, want), f"scatter-add window: not bit-exact against plain_ordered, "
+                                  f"max abs err {max_err(got, want)}")
+    local, owned = reference.window_ids(ids, row0, rows)
+    l_own, g_own = local[owned], g[owned]
+    b = bound(n * D * 4 + n * 4 + rows * D * 4, 0, torch.float32)
+    return {
+        "shape": {"shard": [rows, D], "row0": row0, "ids": n, "owned_ids": int(owned.sum()),
+                  "cotangent_dtype": "float32"},
+        "design": "sorted-chunks, shard window", "max_abs_err": 0.0, "bit_exact": True,
+        "deterministic": True, "launches_per_call": plan["launches"], "plan": plan,
+        "kernel_ms": time_ms(lambda: k_gather.embedding_scatter_add_window(g, ids, row0, rows)),
+        "plain_ms": time_ms(lambda: reference.embedding_scatter_add_window(g, ids, row0, rows)),
+        "library_ms": time_ms(lambda: torch.zeros((rows, D), device=dev)
+                              .index_add_(0, l_own, g_own)),
+        "library": "index_add_ of the owned rows",
+        "bound_ms": b[0], "bound_by": b[1],
+    }
+
+
+def phase_sharded(dev, seed: int) -> dict:
+    """p. Multi-rank execution on the one card: p1 NCCL at world size 1;
+    p2 two ranks sharing cuda:0 over gloo (the dense sharded step at ML-1M,
+    configs/synthetic10m_sharded.json with its f32 check, and
+    configs/rsc15_10m.json, both as shipped at model_axis=2 but for
+    P_STEPS steps and temporary directories); p3 the window kernels against
+    their plain versions. Under gloo every collective is staged through
+    host memory: p2's collective times say nothing of NVLink or NCCL."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    rng = np.random.default_rng(seed + 14)
+    try:
+        p1 = _p1_nccl(dev, seed, root)
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(root, seed)
+        ranks_s = time.perf_counter() - t0
+        p2 = sharded_summary(dev, seed, root, ranks)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n_fetch = P_RANKS * 256 * 50 * 2 + 512  # synthetic10m_sharded's global ids a step
+    p3 = {"gather_window": {
+              _dname(dt): _window_gather_check(rng, dev, 10_000_008 // P_RANKS, n_fetch, 128, dt)
+              for dt in (torch.float32, torch.bfloat16)},
+          "gather_backward_window": _window_scatter_check(rng, dev, 3424 // P_RANKS,
+                                                          P_RANKS * TRAIN_B * TRAIN_T, 128)}
+    result = {"phase": "sharded",
+              "note": "p2's two ranks share one card over gloo, every collective staged through "
+                      "host memory: its collective times say nothing of NVLink or NCCL",
+              "p1_nccl_world1": p1, "p2_ranks_seconds": ranks_s,
+              "p2_gloo_two_ranks_one_card": ranks, **p2, "p3": p3}
+    emit(result)
+    return result
+
+
+def sharded_summary(dev, seed: int, root: Path, ranks: list) -> dict:
+    """The one-process checks of p2's ranks (`ranks`: their records, by
+    rank; their files under `root`): the global loss and gradient norm of
+    every group alike on every rank, the dense group and the f32 sparse
+    group against one rank on the global batch."""
+    for path in ("synthetic10m", "rsc15_10m"):
+        for r in ranks[1:]:
+            check(r[path]["losses"] == ranks[0][path]["losses"]
+                  and r[path]["grad_norms"] == ranks[0][path]["grad_norms"],
+                  f"p2 {path}: rank {r['rank']} logs other global losses than rank 0")
+        changed = sum(r[path]["shard_rows_changed"] for r in ranks[:2])
+        check(changed > 0, f"p2 {path}: no row of the table changed")
+    world = len(ranks)
+    return {"p2_dense_vs_one_rank": _p2_check_dense(dev, seed, root, world),
+            "p2_f32_vs_one_rank": _p2_check_f32(dev, root, world)}
+
+
 CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AFTER = 48, 16, 24
 
 
@@ -2616,11 +3215,32 @@ def _kernel_entry(name, source, replaces, launches, rec, plain_key="plain_ms", *
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--p2-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--p2-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-ranks", metavar="DIR", default=None,
+                    help="under torchrun: each rank does phase p2's work over NCCL on its "
+                         "own card, writing into DIR")
+    ap.add_argument("--sharded-check", metavar="DIR", default=None,
+                    help="after --sharded-ranks: the one-rank checks of DIR, one JSON line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on the GPU",
               file=sys.stderr)
         return 2
+    if args.p2_rank is not None:  # one of phase p2's ranks, started by phase_sharded
+        return p2_rank(args.p2_rank, Path(args.p2_dir), args.seed)
+    if args.sharded_ranks:
+        Path(args.sharded_ranks).mkdir(parents=True, exist_ok=True)
+        return p2_rank(None, Path(args.sharded_ranks), args.seed)
+    if args.sharded_check:
+        root = Path(args.sharded_check)
+        ranks = [json.loads(p.read_text()) for p in
+                 sorted(root.glob("rank*.json"), key=lambda p: int(p.stem[4:]))]
+        check(bool(ranks), f"--sharded-check: no rank*.json under {root}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        emit({"phase": "sharded_ranks", "world": len(ranks), "ranks": ranks,
+              **sharded_summary(torch.device("cuda", 0), args.seed, root, ranks)})
+        return 0
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
 
@@ -2652,6 +3272,7 @@ def main(argv=None) -> int:
                                       overrides=[F32, "train.warmup_steps=0"])
     sparse = phase_sparse(dev, args.seed)
     phase_checkpoint(dev, args.seed, requests)
+    sharded = phase_sharded(dev, args.seed)
 
     def counts(kernel):
         return {"fit_bench_gru4rec": fit["launches"][kernel],
@@ -2718,7 +3339,7 @@ def main(argv=None) -> int:
         ("lstm_backward_f32", "lstm.cu", "lstm.py:209", towers["lstm_backward"]["float32"],
          "float32", "lstm_f32", "lstm_backward"),
     ]
-    emit({"kernels": [
+    kernels = [
         _kernel_entry(kname, "seqrec_tpu_torch/csrc/" + source,
                       "seqrec_tpu/ops/pallas/" + replaces,
                       train[path]["launches"][counter[0] if counter else kname], rec,
@@ -2726,7 +3347,23 @@ def main(argv=None) -> int:
                       launches_counted_on=" ".join(["train", train[path]["config"],
                                                     *train[path]["overrides"]]),
                       launches_by_path=counts(counter[0] if counter else kname))
-        for kname, source, replaces, rec, dtype, path, *counter in table]})
+        for kname, source, replaces, rec, dtype, path, *counter in table]
+    # The shard-window variants (phase p): launches on p2's rank 0, the
+    # window gather's on the sharded sparse fit, the window scatter-add's on
+    # the dense sharded group (the sparse step's sub-table needs none).
+    rank0 = sharded["p2_gloo_two_ranks_one_card"][0]
+    by_path = lambda k: {f"p2_rank0_{p}": rank0[p]["launches"][k]  # noqa: E731
+                         for p in ("dense_ml1m", "synthetic10m", "rsc15_10m")}
+    for kname, replaces, rec, path, on in (
+            ("gather_window", "gather.py:86", sharded["p3"]["gather_window"]["float32"],
+             "synthetic10m", f"p2 rank 0 fit {P2_CONFIGS[0]}"),
+            ("gather_backward_window", "gather.py:106", sharded["p3"]["gather_backward_window"],
+             "dense_ml1m", f"p2 rank 0 group {CONFIGS['gru4rec']} {' '.join(P2_DENSE)}")):
+        kernels.append(_kernel_entry(kname, "seqrec_tpu_torch/csrc/gather.cu",
+                                     "seqrec_tpu/ops/pallas/" + replaces,
+                                     rank0[path]["launches"][kname], rec, dtype="float32",
+                                     launches_counted_on=on, launches_by_path=by_path(kname)))
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -24,8 +24,20 @@ and prints `{"step", "split", **metrics}`.
 `recommend` reads the parameters of the port's newest checkpoint
 (`--ckpt`), or a `.npz` of the JAX parameter tree (`--weights`, see
 models.convert); the catalog size is the row count of `item_embedding` (and
-the user count that of `user_embedding`, less one). `--device` defaults to
-cuda and raises without it.
+the user count that of `user_embedding`, less one; a checkpoint's meta.json
+names both). `--device` defaults to cuda and raises without it.
+
+Every subcommand runs on several devices, one process each, under torchrun
+or with the JAX CLI's flags:
+
+    torchrun --nproc_per_node=2 -m seqrec_tpu_torch train \
+        --config configs/synthetic10m_sharded.json
+    python -m seqrec_tpu_torch train --config ... --coordinator host:port \
+        --num_processes 2 --process_id 0        # and 1, on the other process
+
+Each rank takes cuda:LOCAL_RANK (or its --device), the mesh comes from
+`mesh.model_axis`, and rank 0 prints; the torch.distributed backend is
+nccl on CUDA and gloo on the CPU.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ from typing import List, Optional
 
 from seqrec_tpu_torch.config import RunConfig
 from seqrec_tpu_torch.runtime import DEFAULT_DEVICE
+from seqrec_tpu_torch.runtime.mesh import init_distributed, make_mesh, process_index
 
 
 def _load_cfg(args) -> RunConfig:
@@ -46,14 +59,27 @@ def _load_cfg(args) -> RunConfig:
     return cfg
 
 
+def _init_runtime(args):
+    """The process group from the flags or torchrun's environment (none for
+    one process); this rank's device."""
+    return init_distributed(args.coordinator, args.num_processes, args.process_id,
+                            device=args.device)
+
+
+def _print0(obj) -> None:
+    if process_index() == 0:
+        print(json.dumps(obj), flush=True)
+
+
 def cmd_train(args) -> int:
     """Train, then evaluate on the test split."""
     cfg = _load_cfg(args)
+    device = _init_runtime(args)
     from seqrec_tpu_torch.train.trainer import Trainer
 
-    tr = Trainer(cfg, device=args.device)
+    tr = Trainer(cfg, device=device)
     state, _ = tr.fit()
-    print(json.dumps({"final_test": tr.evaluate(state, split="test")}))
+    _print0({"final_test": tr.evaluate(state, split="test")})
     return 0
 
 
@@ -64,33 +90,41 @@ def _ckpt_dir(args, cfg: RunConfig) -> str:
 def cmd_eval(args) -> int:
     """Evaluate the newest checkpoint on a split."""
     cfg = _load_cfg(args)
+    device = _init_runtime(args)
     from seqrec_tpu_torch.train.checkpoint import CheckpointManager
     from seqrec_tpu_torch.train.trainer import Trainer
 
-    tr = Trainer(cfg, device=args.device)
-    mgr = CheckpointManager(_ckpt_dir(args, cfg))
+    tr = Trainer(cfg, device=device)
+    mgr = CheckpointManager(_ckpt_dir(args, cfg), mesh=tr.mesh)
     state, step, _, _ = mgr.restore(tr.abstract_state(), device=tr.device)
     m = tr.evaluate(state, split=args.split)
-    print(json.dumps({"step": step, "split": args.split, **m}))
+    _print0({"step": step, "split": args.split, **m})
     return 0
 
 
 def cmd_recommend(args) -> int:
     """Batch inference: JSON-lines histories in, top-k recommendations out."""
     cfg = _load_cfg(args)
+    device = _init_runtime(args)
     from seqrec_tpu_torch.eval.infer import recommend
     from seqrec_tpu_torch.models import build_model
-    from seqrec_tpu_torch.models.convert import flax_to_state_dict, load_npz
+    from seqrec_tpu_torch.models.convert import flax_to_state_dict, load_npz, shard_state_dict
     from seqrec_tpu_torch.train.checkpoint import CheckpointManager
 
+    mesh = make_mesh(cfg.mesh.model_axis)
+    meta = {}
     if args.weights:
         state = flax_to_state_dict(load_npz(args.weights))
     else:
-        state = CheckpointManager(_ckpt_dir(args, cfg)).restore_params(device="cpu")
-    num_users = (state["user_embedding"].shape[0] - 1
-                 if "user_embedding" in state else 0)
-    model = build_model(cfg.model, state["item_embedding"].shape[0],
-                        num_users=num_users, device=args.device)
+        mgr = CheckpointManager(_ckpt_dir(args, cfg), mesh=mesh)
+        meta = mgr.read_meta()
+        state = mgr.restore_params(device="cpu")
+    num_users = meta.get("num_users", state["user_embedding"].shape[0] - 1
+                         if "user_embedding" in state else 0)
+    model = build_model(cfg.model, meta.get("vocab_size", state["item_embedding"].shape[0]),
+                        num_users=num_users, device=device, mesh=mesh, mesh_cfg=cfg.mesh)
+    if args.weights:  # a whole tree: this rank's shard of it
+        state = shard_state_dict(state, model)
     model.load_state_dict(state)
     model.eval()
 
@@ -109,7 +143,7 @@ def cmd_recommend(args) -> int:
         model, read_histories(), k=args.k, batch_size=args.batch_size,
         max_len=cfg.data.max_len, exclude_history=not args.allow_repeats,
     ):
-        print(json.dumps(out))
+        _print0(out)
     return 0
 
 
@@ -120,7 +154,12 @@ def _add_common(p) -> None:
         help="dotted config override, e.g. model.use_pallas=false",
     )
     p.add_argument("--device", default=DEFAULT_DEVICE,
-                   help="torch device (default cuda; 'cpu' runs the plain path)")
+                   help="torch device (default cuda, cuda:LOCAL_RANK under a process group; "
+                        "'cpu' runs the plain path)")
+    p.add_argument("--coordinator", default=None,
+                   help="rank 0's address host:port (or an init URL) for a multi-process run")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

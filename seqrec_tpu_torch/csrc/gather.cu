@@ -165,15 +165,31 @@ struct Convert<__nv_bfloat16, float> {
 };
 
 
+// Where an id reads (the table row it names, when it names one): jnp.take's
+// contract, ids in [-V, V) wrapping; or with kWindow, a row shard's: the
+// caller has taken row0 off the id, and only [0, V) reads.
+template <bool kWindow>
+__device__ __forceinline__ bool in_table(long long id, long long num_rows) {
+  return kWindow ? id >= 0 && id < num_rows : id >= -num_rows && id < num_rows;
+}
+template <bool kWindow>
+__device__ __forceinline__ long long table_row(long long id, long long num_rows) {
+  return kWindow || id >= 0 ? id : id + num_rows;
+}
+
 // lanes: the lanes of a row (a power of two up to 32, the smallest that
 // covers the row's 16-byte vectors, then passes over the rest); a block
 // has kThreads / lanes lane groups, and lane group j of block b takes rows
 // (b * kR + k) * rows_per_block + j, k < kR: kR rows, all their loads
-// before any store.
-template <typename Id, typename In, typename Out, int kR = kRows>
+// before any store. kWindow: the shard window [row0, row0 + num_rows) of a
+// row-sharded table (table holds its num_rows rows): id - row0 reads its
+// row, an id outside the window writes a zero row (its rows live on
+// another shard), JAX's jnp.where(owned, shard[clip(id - row0)], 0).
+template <typename Id, typename In, typename Out, int kR = kRows, bool kWindow = false>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const uint4* __restrict__ table, long long num_rows, int vecs, int lanes,
-                   const Id* __restrict__ ids, long long n, unsigned char* __restrict__ out) {
+                   const Id* __restrict__ ids, long long n, unsigned char* __restrict__ out,
+                   long long row0) {
   constexpr int kOut = Convert<In, Out>::kOutBytes;
   const int rows_per_block = kThreads / lanes;
   const int slot = threadIdx.x / lanes;
@@ -183,14 +199,14 @@ gather_rows_kernel(const uint4* __restrict__ table, long long num_rows, int vecs
 #pragma unroll
   for (int k = 0; k < kR; ++k) {
     const long long r = r0 + k * rows_per_block;
-    id[k] = r < n ? static_cast<long long>(ids[r]) : 0;
+    id[k] = r < n ? static_cast<long long>(ids[r]) - (kWindow ? row0 : 0) : 0;
   }
   for (int c = lane; c < vecs; c += lanes) {
     uint4 v[kR];
 #pragma unroll
     for (int k = 0; k < kR; ++k) {
-      if (r0 + k * rows_per_block < n && id[k] >= -num_rows && id[k] < num_rows) {
-        v[k] = __ldg(table + (id[k] < 0 ? id[k] + num_rows : id[k]) * vecs + c);
+      if (r0 + k * rows_per_block < n && in_table<kWindow>(id[k], num_rows)) {
+        v[k] = __ldg(table + table_row<kWindow>(id[k], num_rows) * vecs + c);
       }
     }
 #pragma unroll
@@ -198,10 +214,10 @@ gather_rows_kernel(const uint4* __restrict__ table, long long num_rows, int vecs
       const long long r = r0 + k * rows_per_block;
       if (r >= n) break;
       unsigned char* dst = out + (r * vecs + c) * kOut;
-      if (id[k] >= -num_rows && id[k] < num_rows) {
+      if (in_table<kWindow>(id[k], num_rows)) {
         Convert<In, Out>::store(dst, v[k]);
-      } else {  // the output dtype's NaN, not a converted one
-        store_words<kOut>(dst, NanWord<Out>::kValue);
+      } else {  // a zero row off the window, else the output dtype's NaN
+        store_words<kOut>(dst, kWindow ? 0u : NanWord<Out>::kValue);
       }
     }
   }
@@ -209,17 +225,17 @@ gather_rows_kernel(const uint4* __restrict__ table, long long num_rows, int vecs
 
 // kR: rows a lane group keeps in flight (kRows; the other counts are for
 // kernel_probes.py gather).
-template <typename Id, typename In, typename Out, int kR = kRows>
+template <typename Id, typename In, typename Out, int kR = kRows, bool kWindow = false>
 int launch_gather(const void* table, long long num_rows, int vecs, const void* ids, long long n,
-                  void* out, cudaStream_t s) {
+                  void* out, cudaStream_t s, long long row0 = 0) {
   int lanes = 1;
   while (lanes < vecs && lanes < 32) lanes <<= 1;
   const long long per_block = static_cast<long long>(kThreads / lanes) * kR;
   const long long blocks = (n + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  gather_rows_kernel<Id, In, Out, kR><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+  gather_rows_kernel<Id, In, Out, kR, kWindow><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
       static_cast<const uint4*>(table), num_rows, vecs, lanes, static_cast<const Id*>(ids), n,
-      static_cast<unsigned char*>(out));
+      static_cast<unsigned char*>(out), row0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -386,18 +402,20 @@ __device__ __forceinline__ int first_not_below(const unsigned long long* keys, i
   return lo;
 }
 
-// Launch 1: chunk blockIdx.x of C positions. runs holds C (id, ref) pairs
+// Launch 1: chunk blockIdx.x of C positions. kWindow: ids are a row shard's,
+// as the gather's (id - row0 in [0, num_rows) adds, any other id adds
+// nothing: its row lives on another shard). runs holds C (id, ref) pairs
 // a chunk: the chunk's runs sorted by id, and where each run's sum is: a
 // run of one position is that row of g itself (ref = its position), any
 // other run a row of partial (ref = -1 - its slot). dir holds
 // kBuckets + 1 ints a chunk: dir[b] is the first run whose id is at least
 // b * ceil(V / kBuckets), dir[kBuckets] the chunk's number of runs; sub
 // 2 C / kSubRun rows a chunk.
-template <typename Id, typename V, typename G, int C>
+template <typename Id, typename V, typename G, int C, bool kWindow>
 __global__ void __launch_bounds__(C)
 scatter_partials_kernel(const void* __restrict__ g, const Id* __restrict__ ids, long long n,
                         long long num_rows, int D, float* sub, float* partial,
-                        int2* __restrict__ runs, int* __restrict__ dir) {
+                        int2* __restrict__ runs, int* __restrict__ dir, long long row0) {
   constexpr int kW = sizeof(V) / 4;           // floats a unit
   constexpr int kAhead1 = 16;  // row loads before their adds
   constexpr int nw = C / 32;
@@ -421,9 +439,9 @@ scatter_partials_kernel(const void* __restrict__ g, const Id* __restrict__ ids, 
   // Keys: (wrapped id, position in the chunk); dropped and absent ones last.
   unsigned long long key = ~0ull;
   if (base + t < n) {
-    long long id = static_cast<long long>(ids[base + t]);
-    if (id >= -num_rows && id < num_rows) {
-      key = (static_cast<unsigned long long>(id < 0 ? id + num_rows : id) << 32) |
+    const long long id = static_cast<long long>(ids[base + t]) - (kWindow ? row0 : 0);
+    if (in_table<kWindow>(id, num_rows)) {
+      key = (static_cast<unsigned long long>(table_row<kWindow>(id, num_rows)) << 32) |
             static_cast<unsigned>(t);
     }
   }
@@ -665,14 +683,16 @@ scatter_combine_kernel(const void* g, const float* partial, const int2* runs,
   }
 }
 
-template <typename Id, typename V, typename G, int C>
+template <typename Id, typename V, typename G, int C, bool kWindow>
 int launch_partials(const void* g, const void* ids, long long n, long long num_rows, int D,
-                    void* partial, void* sub, int2* runs, void* dir, cudaStream_t s) {
+                    void* partial, void* sub, int2* runs, void* dir, long long row0,
+                    cudaStream_t s) {
   const long long chunks = (n + C - 1) / C;
   const size_t smem = static_cast<size_t>(C) * (8 + 4 * 4);
-  scatter_partials_kernel<Id, V, G, C><<<static_cast<unsigned>(chunks), C, smem, s>>>(
+  scatter_partials_kernel<Id, V, G, C, kWindow><<<static_cast<unsigned>(chunks), C, smem, s>>>(
       g, static_cast<const Id*>(ids), n, num_rows, D,
-      static_cast<float*>(sub), static_cast<float*>(partial), runs, static_cast<int*>(dir));
+      static_cast<float*>(sub), static_cast<float*>(partial), runs, static_cast<int*>(dir),
+      row0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -697,9 +717,9 @@ ScratchLayout scratch_layout(long long n, int D, int chunk) {
   return l;
 }
 
-template <typename Id, typename V, typename G>
+template <typename Id, typename V, typename G, bool kWindow>
 int launch_scatter(const void* g, const void* ids, long long n, long long num_rows, int D,
-                   int chunk, unsigned char* scratch, void* out, cudaStream_t s) {
+                   int chunk, unsigned char* scratch, void* out, long long row0, cudaStream_t s) {
   const long long chunks = (n + chunk - 1) / chunk;
   const ScratchLayout l = scratch_layout(n, D, chunk);
   void* partial = scratch + l.partial;
@@ -707,10 +727,11 @@ int launch_scatter(const void* g, const void* ids, long long n, long long num_ro
   int2* runs = reinterpret_cast<int2*>(scratch + l.runs);
   void* dir = scratch + l.dir;
   if (chunks > 0) {
-    const int e = chunk == 256 ? launch_partials<Id, V, G, 256>(g, ids, n, num_rows, D, partial,
-                                                             sub, runs, dir, s)
-                               : launch_partials<Id, V, G, 512>(g, ids, n, num_rows, D, partial,
-                                                             sub, runs, dir, s);
+    const int e = chunk == 256
+                      ? launch_partials<Id, V, G, 256, kWindow>(g, ids, n, num_rows, D, partial,
+                                                                sub, runs, dir, row0, s)
+                      : launch_partials<Id, V, G, 512, kWindow>(g, ids, n, num_rows, D, partial,
+                                                                sub, runs, dir, row0, s);
     if (e != 0) return e;
   }
   // The combine may start while the partials grid runs (programmatic
@@ -732,6 +753,65 @@ int launch_scatter(const void* g, const void* ids, long long n, long long num_ro
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
+template <bool kWindow>
+int gather_rows(const void* table, long long num_rows, long long D, int table_is_bf16,
+                const void* ids, int ids_are_int64, long long n, void* out, int out_is_bf16,
+                long long row0, void* stream) {
+  const long long row_bytes = D * (table_is_bf16 ? 2 : 4);
+  if (num_rows <= 0 || D <= 0 || row_bytes % 16 != 0 || row_bytes / 16 > 0x7fffffffLL || n < 0 ||
+      row0 < 0 || row0 > 0x7fffffffLL ||
+      (reinterpret_cast<uintptr_t>(table) | reinterpret_cast<uintptr_t>(out)) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  const int vecs = static_cast<int>(row_bytes / 16);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  constexpr int R = kRows;
+  const int kind = (ids_are_int64 ? 4 : 0) | (table_is_bf16 ? 2 : 0) | (out_is_bf16 ? 1 : 0);
+  switch (kind) {
+    case 0: return launch_gather<int, float, float, R, kWindow>(table, num_rows, vecs, ids, n, out, s, row0);
+    case 1: return launch_gather<int, float, bf16, R, kWindow>(table, num_rows, vecs, ids, n, out, s, row0);
+    case 2: return launch_gather<int, bf16, float, R, kWindow>(table, num_rows, vecs, ids, n, out, s, row0);
+    case 3: return launch_gather<int, bf16, bf16, R, kWindow>(table, num_rows, vecs, ids, n, out, s, row0);
+    case 4: return launch_gather<long long, float, float, R, kWindow>(table, num_rows, vecs, ids, n, out, s, row0);
+    case 5: return launch_gather<long long, float, bf16, R, kWindow>(table, num_rows, vecs, ids, n, out, s, row0);
+    case 6: return launch_gather<long long, bf16, float, R, kWindow>(table, num_rows, vecs, ids, n, out, s, row0);
+    default: return launch_gather<long long, bf16, bf16, R, kWindow>(table, num_rows, vecs, ids, n, out, s, row0);
+  }
+}
+
+template <bool kWindow>
+int scatter_add_rows(const void* g, int g_is_bf16, const void* ids, int ids_are_int64,
+                     long long n, long long num_rows, int D, int chunk, void* scratch,
+                     long long scratch_bytes, void* out, long long row0, void* stream) {
+  if (num_rows <= 0 || num_rows > 0x7fffffffLL || D <= 0 || n < 0 || n > 0x7fffffffLL ||
+      (chunk != 256 && chunk != 512) || row0 < 0 || row0 > 0x7fffffffLL ||
+      scratch_bytes < scratch_layout(n, D, chunk).bytes ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  // float4 units: 4 values of g (16 bytes in f32, 8 in bf16) and of out.
+  const uintptr_t g_align = g_is_bf16 ? 8 : 16;
+  const bool vec4 = D % 4 == 0 && reinterpret_cast<uintptr_t>(g) % g_align == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  using bf16 = __nv_bfloat16;
+  constexpr bool W = kWindow;
+  const int kind = (ids_are_int64 ? 4 : 0) | (g_is_bf16 ? 2 : 0) | (vec4 ? 1 : 0);
+  switch (kind) {
+    case 0: return launch_scatter<int, float, float, W>(g, ids, n, num_rows, D, chunk, sc, out, row0, s);
+    case 1: return launch_scatter<int, float4, float, W>(g, ids, n, num_rows, D, chunk, sc, out, row0, s);
+    case 2: return launch_scatter<int, float, bf16, W>(g, ids, n, num_rows, D, chunk, sc, out, row0, s);
+    case 3: return launch_scatter<int, float4, bf16, W>(g, ids, n, num_rows, D, chunk, sc, out, row0, s);
+    case 4: return launch_scatter<long long, float, float, W>(g, ids, n, num_rows, D, chunk, sc, out, row0, s);
+    case 5: return launch_scatter<long long, float4, float, W>(g, ids, n, num_rows, D, chunk, sc, out, row0, s);
+    case 6: return launch_scatter<long long, float, bf16, W>(g, ids, n, num_rows, D, chunk, sc, out, row0, s);
+    default: return launch_scatter<long long, float4, bf16, W>(g, ids, n, num_rows, D, chunk, sc, out, row0, s);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -743,26 +823,18 @@ extern "C" {
 int seqrec_gather_rows(const void* table, long long num_rows, long long D, int table_is_bf16,
                        const void* ids, int ids_are_int64, long long n, void* out,
                        int out_is_bf16, void* stream) {
-  const long long row_bytes = D * (table_is_bf16 ? 2 : 4);
-  if (num_rows <= 0 || D <= 0 || row_bytes % 16 != 0 || row_bytes / 16 > 0x7fffffffLL || n < 0 ||
-      (reinterpret_cast<uintptr_t>(table) | reinterpret_cast<uintptr_t>(out)) % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n == 0) return 0;
-  const int vecs = static_cast<int>(row_bytes / 16);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
-  const int kind = (ids_are_int64 ? 4 : 0) | (table_is_bf16 ? 2 : 0) | (out_is_bf16 ? 1 : 0);
-  switch (kind) {
-    case 0: return launch_gather<int, float, float>(table, num_rows, vecs, ids, n, out, s);
-    case 1: return launch_gather<int, float, bf16>(table, num_rows, vecs, ids, n, out, s);
-    case 2: return launch_gather<int, bf16, float>(table, num_rows, vecs, ids, n, out, s);
-    case 3: return launch_gather<int, bf16, bf16>(table, num_rows, vecs, ids, n, out, s);
-    case 4: return launch_gather<long long, float, float>(table, num_rows, vecs, ids, n, out, s);
-    case 5: return launch_gather<long long, float, bf16>(table, num_rows, vecs, ids, n, out, s);
-    case 6: return launch_gather<long long, bf16, float>(table, num_rows, vecs, ids, n, out, s);
-    default: return launch_gather<long long, bf16, bf16>(table, num_rows, vecs, ids, n, out, s);
-  }
+  return gather_rows<false>(table, num_rows, D, table_is_bf16, ids, ids_are_int64, n, out,
+                            out_is_bf16, 0, stream);
+}
+
+// The shard-window variant: table holds rows [row0, row0 + num_rows) of a
+// row-sharded table (0 <= row0 < 2^31); an id in the window reads its row,
+// any other id writes a zero row.
+int seqrec_gather_rows_window(const void* table, long long num_rows, long long D,
+                              int table_is_bf16, const void* ids, int ids_are_int64, long long n,
+                              void* out, int out_is_bf16, long long row0, void* stream) {
+  return gather_rows<true>(table, num_rows, D, table_is_bf16, ids, ids_are_int64, n, out,
+                           out_is_bf16, row0, stream);
 }
 
 // The scratch bytes seqrec_scatter_add_rows needs for n ids of D floats in
@@ -782,34 +854,19 @@ long long seqrec_scatter_add_scratch_bytes(long long n, int D, int chunk) {
 int seqrec_scatter_add_rows(const void* g, int g_is_bf16, const void* ids, int ids_are_int64,
                             long long n, long long num_rows, int D, int chunk,
                             void* scratch, long long scratch_bytes, void* out, void* stream) {
-  if (num_rows <= 0 || num_rows > 0x7fffffffLL || D <= 0 || n < 0 || n > 0x7fffffffLL ||
-      (chunk != 256 && chunk != 512) ||
-      scratch_bytes < scratch_layout(n, D, chunk).bytes ||
-      reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned char* sc = static_cast<unsigned char*>(scratch);
-  // float4 units: 4 values of g (16 bytes in f32, 8 in bf16) and of out.
-  const uintptr_t g_align = g_is_bf16 ? 8 : 16;
-  const bool vec4 = D % 4 == 0 && reinterpret_cast<uintptr_t>(g) % g_align == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  using bf16 = __nv_bfloat16;
-  const int kind = (ids_are_int64 ? 4 : 0) | (g_is_bf16 ? 2 : 0) | (vec4 ? 1 : 0);
-  switch (kind) {
-    case 0: return launch_scatter<int, float, float>(g, ids, n, num_rows, D, chunk, sc, out, s);
-    case 1: return launch_scatter<int, float4, float>(g, ids, n, num_rows, D, chunk, sc, out, s);
-    case 2: return launch_scatter<int, float, bf16>(g, ids, n, num_rows, D, chunk, sc, out, s);
-    case 3: return launch_scatter<int, float4, bf16>(g, ids, n, num_rows, D, chunk, sc, out, s);
-    case 4:
-      return launch_scatter<long long, float, float>(g, ids, n, num_rows, D, chunk, sc, out, s);
-    case 5:
-      return launch_scatter<long long, float4, float>(g, ids, n, num_rows, D, chunk, sc, out, s);
-    case 6:
-      return launch_scatter<long long, float, bf16>(g, ids, n, num_rows, D, chunk, sc, out, s);
-    default:
-      return launch_scatter<long long, float4, bf16>(g, ids, n, num_rows, D, chunk, sc, out, s);
-  }
+  return scatter_add_rows<false>(g, g_is_bf16, ids, ids_are_int64, n, num_rows, D, chunk,
+                                 scratch, scratch_bytes, out, 0, stream);
+}
+
+// The shard-window variant: out holds rows [row0, row0 + num_rows) of a
+// row-sharded table (0 <= row0 < 2^31); an id in the window adds at row
+// id - row0, any other id adds nothing. The same scratch as above.
+int seqrec_scatter_add_rows_window(const void* g, int g_is_bf16, const void* ids,
+                                   int ids_are_int64, long long n, long long num_rows, int D,
+                                   int chunk, void* scratch, long long scratch_bytes, void* out,
+                                   long long row0, void* stream) {
+  return scatter_add_rows<true>(g, g_is_bf16, ids, ids_are_int64, n, num_rows, D, chunk,
+                                scratch, scratch_bytes, out, row0, stream);
 }
 
 const char* seqrec_gather_error_string(int code) {

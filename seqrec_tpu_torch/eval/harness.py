@@ -1,5 +1,5 @@
 """Eval harness: full-catalog and sampled-negative ranking protocols, the
-port of `seqrec_tpu/eval/harness.py` on one device.
+port of `seqrec_tpu/eval/harness.py`.
 
 - "full": rank the held-out item against the whole catalog (pad masked
   out): exact metrics, the GRU4Rec paper's protocol.
@@ -10,8 +10,16 @@ port of `seqrec_tpu/eval/harness.py` on one device.
 
 Metric sums are accumulated over batches on the host in f64 and finalized
 to means at the end. The JAX package's compiled-step cache has no
-counterpart here (eager torch compiles nothing); its multi-process sum and
-row-sharded path wait for ROADMAP.md Queue 1 item 9.
+counterpart here (eager torch compiles nothing).
+
+Over a mesh (`runtime.mesh`), each rank evaluates its own shard of the
+users (`host_shard=(rank, world)`; the sampled protocol's candidates from
+`seed + 7919 rank`, as a JAX host draws them), and the sums are summed over
+the world at the end, so the metrics are global. A model with row-sharded
+tables ranks the full protocol with `eval.sharded.sharded_ranks` (its
+lookups are collectives too), so the ranks first agree on the largest
+number of batches any of them holds and the others pad with empty batches:
+a collective that one rank skips would hang the rest.
 """
 
 from __future__ import annotations
@@ -24,7 +32,9 @@ import torch
 from seqrec_tpu_torch.config import EvalConfig
 from seqrec_tpu_torch.data.batching import make_eval_batches, pad_batch_rows
 from seqrec_tpu_torch.data.dataset import SequenceDataset
+from seqrec_tpu_torch.data.batching import _pack_eval
 from seqrec_tpu_torch.eval import chunked
+from seqrec_tpu_torch.eval.sharded import sharded_ranks
 from seqrec_tpu_torch.eval.metrics import (
     finalize_metrics,
     mask_scores,
@@ -132,12 +142,18 @@ def _output_table(model, params):
 
 @torch.inference_mode()
 def _full_sums(model, params, batch, ks, use_chunked: bool, chunk: int,
-               exclude_history: bool) -> Dict[str, torch.Tensor]:
+               exclude_history: bool, mesh=None) -> Dict[str, torch.Tensor]:
     users = batch.get("users")
     # eval.exclude_history: a user's own history must not outrank the
     # held-out target. The model saw only the last max_len items, so that
     # window is what is excluded.
     excl = batch["inputs"] if exclude_history else None
+    if model.sharded:
+        h_last = _call(model, params, "last_hidden", batch["inputs"], batch["mask"], users=users)
+        table, bias = _output_table(model, params)
+        ranks = sharded_ranks(table, h_last.float(), batch["target"], mesh, bias=bias,
+                              num_valid=model.vocab_size, exclude=excl)
+        return rank_metrics(ranks, batch["valid"], ks)
     if use_chunked:
         h_last = _call(model, params, "last_hidden", batch["inputs"], batch["mask"], users=users)
         table, bias = _output_table(model, params)
@@ -171,9 +187,12 @@ def evaluate(
     *,
     split: str = "val",
     max_len: int = 200,
+    mesh=None,
 ) -> Dict[str, float]:
     """Metrics of `model` with `params` (a state_dict-shaped dict, as
-    `TrainState.params`) on `ds`'s `split`, on the parameters' device."""
+    `TrainState.params`) on `ds`'s `split`, on the parameters' device. Over
+    a `mesh` (every rank calls this together), this rank's users, and the
+    global metrics."""
     device = params["item_embedding"].device
     B = eval_cfg.batch_size
     # Large catalogs: stream the catalog in blocks instead of building
@@ -185,10 +204,16 @@ def evaluate(
     chunk = eval_cfg.full_chunk_items or chunked.DEFAULT_CHUNK
     if eval_cfg.protocol not in ("full", "sampled"):
         raise ValueError(f"unknown eval protocol {eval_cfg.protocol!r}")
-    rng = np.random.default_rng(eval_cfg.seed)
+    rank, world = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+    rng = np.random.default_rng(eval_cfg.seed + 7919 * rank)
+    batches = list(make_eval_batches(ds, split=split, batch_size=B, max_len=max_len,
+                                     max_batches=eval_cfg.max_batches,
+                                     host_shard=(rank, world)))
+    if model.sharded:  # every rank runs the same number of collective lookups
+        empty = pad_batch_rows(_pack_eval([], max_len), B)
+        batches += [empty] * (mesh.pmax_int(len(batches)) - len(batches))
     sums: Optional[Dict[str, np.ndarray]] = None
-    for batch in make_eval_batches(ds, split=split, batch_size=B, max_len=max_len,
-                                   max_batches=eval_cfg.max_batches):
+    for batch in batches:
         batch = pad_batch_rows(batch, B)
         if eval_cfg.protocol == "sampled":
             batch["candidates"] = sample_eval_candidates_batch(
@@ -198,7 +223,7 @@ def evaluate(
             out = _sampled_sums(model, params, dev_batch, eval_cfg.ks)
         else:
             out = _full_sums(model, params, dev_batch, eval_cfg.ks, use_chunked, chunk,
-                             bool(eval_cfg.exclude_history))
+                             bool(eval_cfg.exclude_history), mesh)
         # One copy to the host a batch; f32 sums widened to f64.
         vals = torch.stack(list(out.values())).cpu().numpy().astype(np.float64)
         out = dict(zip(out, vals))
@@ -207,6 +232,17 @@ def evaluate(
         else:
             for k, v in out.items():
                 sums[k] += v
+    if world > 1:
+        sums = _allreduce_sums(sums, eval_cfg.ks, mesh)
     if not sums:
         return {"count": 0.0}
     return finalize_metrics(sums)
+
+
+def _allreduce_sums(sums: Optional[Dict[str, np.ndarray]], ks, mesh) -> Dict[str, np.ndarray]:
+    """The ranks' metric sums summed over the world, in one order of keys
+    (a rank without a batch sends zeros)."""
+    keys = ["count"] + [f"{m}@{k}" for k in ks for m in ("recall", "mrr", "ndcg")]
+    local = np.asarray([float((sums or {}).get(k, 0.0)) for k in keys], np.float64)
+    total = mesh.psum_host(local)
+    return {k: total[i] for i, k in enumerate(keys)}

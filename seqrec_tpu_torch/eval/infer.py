@@ -11,6 +11,10 @@ items cannot empty the list. Where [batch_size, V] f32 scores would exceed
 
 Top-k is a stable descending sort, so equal scores keep the lower item id
 first, as `jax.lax.top_k` orders them.
+
+A model with row-sharded tables (`SeqRecModel.sharded`) takes the sharded
+top-k (`eval.sharded.sharded_topk`): every rank of its model group calls
+`recommend` with the same histories, and each gets the whole answer.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from seqrec_tpu_torch.eval import chunked
 from seqrec_tpu_torch.eval.metrics import mask_scores
+from seqrec_tpu_torch.eval.sharded import sharded_topk
 
 
 def _pack(
@@ -48,7 +53,13 @@ def topk_step(model, inputs: torch.Tensor, mask: torch.Tensor,
               chunk: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scores of one packed batch, pad column masked, top `fetch_k` as
     (values [B, fetch_k] f32, item ids [B, fetch_k]). `chunk`: score the
-    catalog in blocks of that many rows (None: all at once)."""
+    catalog in blocks of that many rows (None: all at once). A row-sharded
+    model takes the sharded top-k (a collective over its model group)."""
+    if model.sharded:
+        return sharded_topk(model.output_table(),
+                            model.last_hidden(inputs, mask, users=users).float(), fetch_k,
+                            model.mesh, bias=model.output_bias_value(),
+                            num_valid=model.vocab_size)
     if chunk is not None:
         return chunked.chunked_topk(
             model.output_table(), model.last_hidden(inputs, mask, users=users), fetch_k,
@@ -73,7 +84,8 @@ def recommend(
     computed on the device that holds `model`. `chunk`: the catalog block
     of the chunked top-k (None: `chunked.DEFAULT_CHUNK`, read at call
     time)."""
-    use_chunked = 4 * batch_size * model.table_size > chunked.CHUNK_THRESHOLD_BYTES
+    use_chunked = (not model.sharded
+                   and 4 * batch_size * model.table_size > chunked.CHUNK_THRESHOLD_BYTES)
     block = (chunk or chunked.DEFAULT_CHUNK) if use_chunked else None
     device = model.item_embedding.device
     # Over-fetch so host-side history exclusion cannot empty the list.

@@ -27,6 +27,14 @@ standard deviations, over the fan-in), LayerNorm `scale` ones and zero
 `bias`es. `init_state_dict` gives the same values as a state_dict on a
 device, drawing the embedding tables in row blocks straight into the device
 tensor (a 10M-row table is never whole on the host).
+
+A model with row-sharded tables (`SeqRecModel.table_window`) holds one
+rank's shard of each: `random_params` draws the whole tables all the same
+(the JAX tree), `shard_state_dict` cuts a whole state_dict into this rank's
+shard, and `init_state_dict` draws the whole stream and keeps the shard's
+rows only: a rank draws, and drops, the blocks of every other shard (the
+tower's draws come after the tables' in the one numpy stream), and never
+holds more than a block of another shard's rows.
 """
 
 from __future__ import annotations
@@ -125,18 +133,39 @@ def _is_table(leaf: str) -> bool:
     return leaf.endswith("_embedding") and leaf != "pos_embedding"
 
 
+def _whole_shape(model, name: str, p) -> tuple:
+    """The shape of the whole parameter `name` (a row-sharded table's whole
+    rows; `model` may be any module without `table_window`)."""
+    window = getattr(model, "table_window", lambda _: None)(name)
+    return tuple(p.shape) if window is None else (window[1], *p.shape[1:])
+
+
 def random_params(model, seed: int) -> Dict:
     """A flax-layout tree for `model` (a SeqRecModel), drawn with numpy from
     `seed` with the flax initializers' distributions, in f32. Leaves nest by
     their full path (`tower.block0.LayerNorm_0.scale` ->
-    params/tower/block0/LayerNorm_0/scale)."""
+    params/tower/block0/LayerNorm_0/scale). A row-sharded model's tables are
+    drawn whole."""
     rng = np.random.default_rng(seed)
     flat = {}
     for name, p in model.named_parameters():
         path = name.replace(".", "/")
         flat[path] = _init_leaf(rng, path.rsplit("/", 1)[-1],
-                                tuple(p.shape)).astype(np.float32)
+                                _whole_shape(model, name, p)).astype(np.float32)
     return {"params": _unflatten(flat)}
+
+
+def shard_state_dict(state: Mapping[str, torch.Tensor], model) -> Dict[str, torch.Tensor]:
+    """A whole state_dict (`flax_to_state_dict` of a JAX tree) cut to the
+    shard `model` holds of each row-sharded table; other leaves as given."""
+    out = {}
+    for name, t in state.items():
+        window = model.table_window(name)
+        if window is not None:
+            rows = getattr(model, name).shape[0]
+            t = t[window[0]:window[0] + rows]
+        out[name] = t
+    return out
 
 
 TABLE_BLOCK_ROWS = 1 << 19  # rows a block of init_state_dict's table draws
@@ -154,16 +183,22 @@ def init_state_dict(model, seed: int, device, block_rows: int = TABLE_BLOCK_ROWS
     out = {}
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        shape = tuple(p.shape)
+        shape = _whole_shape(model, name, p)
         if not _is_table(leaf):
             out[name] = torch.from_numpy(
                 _init_leaf(rng, leaf, shape).astype(np.float32)).to(device)
             continue
-        t = torch.empty(shape, dtype=torch.float32, device=device)
+        # The rows this module keeps: all of them, or its shard's window.
+        window = getattr(model, "table_window", lambda _: None)(name)
+        lo = 0 if window is None else window[0]
+        hi = lo + p.shape[0]
+        t = torch.empty((hi - lo, shape[1]), dtype=torch.float32, device=device)
         scale = 1.0 / np.sqrt(shape[1])
         for r0 in range(0, shape[0], block_rows):
             n = min(block_rows, shape[0] - r0)
             block = rng.normal(scale=scale, size=(n, shape[1])).astype(np.float32)
-            t[r0:r0 + n].copy_(torch.from_numpy(block))
+            a, b = max(r0, lo), min(r0 + n, hi)
+            if a < b:  # the part of the block in the window
+                t[a - lo:b - lo].copy_(torch.from_numpy(block[a - r0:b - r0]))
         out[name] = t
     return out

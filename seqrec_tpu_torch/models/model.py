@@ -12,6 +12,16 @@ Methods: `encode`, `last_hidden`, `scores` (serving), `loss` (training,
 every loss type) and `loss_stream` (session-parallel training with a
 carried recurrent state). Dropout draws from an explicit `torch.Generator`
 passed in.
+
+Row-sharded tables (a `mesh` with model axis M > 1 and `shard_embeddings`,
+as the JAX model's): each rank's module holds its shard of every table,
+rows [m rows / M, (m + 1) rows / M) of the padded table (`table_size` is
+the whole table's rows), and looks its own ids up through
+`parallel.embedding.sharded_gather` (the shared negatives through
+`replicated_gather`), a collective over the model group. The sparse
+step's sub-tables are replicated and take the plain gather. The full
+softmax over a sharded table (its [N, V] logits) is not ported: such a
+model raises.
 """
 
 from __future__ import annotations
@@ -26,7 +36,9 @@ from seqrec_tpu_torch.config import ModelConfig
 from seqrec_tpu_torch.data.negative import pos_log_prob
 from seqrec_tpu_torch.models.towers import RNNTower, SASRecTower, dropout
 from seqrec_tpu_torch.ops import reference
+from seqrec_tpu_torch.parallel.embedding import padded_vocab, replicated_gather, sharded_gather
 from seqrec_tpu_torch.runtime import DEFAULT_DEVICE, resolve_device
+from seqrec_tpu_torch.runtime.mesh import MODEL_AXIS, Mesh
 
 NEG_FILL = -1e30  # logit of a padded-vocab column
 
@@ -74,11 +86,29 @@ class SeqRecModel(nn.Module):
         param_dtype: torch.dtype = torch.float32,
         compute_dtype: torch.dtype = torch.bfloat16,
         device: Optional[torch.device] = None,
+        # Row-sharded tables over the mesh's model axis (see the module
+        # docstring); dedup_lookup: dedup ids before the exchange.
+        mesh: Optional[Mesh] = None,
+        shard_embeddings: bool = False,
+        dedup_lookup: bool = True,
     ):
         super().__init__()
         rows = table_size if table_size is not None else vocab_size
         if rows < vocab_size:
             raise ValueError("table_size must be >= vocab_size")
+        self.mesh = mesh
+        self.sharded = bool(shard_embeddings and mesh is not None
+                            and mesh.shape[MODEL_AXIS] > 1)
+        self.dedup_lookup = dedup_lookup
+        shards = mesh.shape[MODEL_AXIS] if self.sharded else 1
+        if rows % shards:
+            raise ValueError(f"vocab {rows} must divide model shards {shards}; "
+                             "use padded_vocab()")
+        if self.sharded and loss_type == "full_softmax":
+            raise NotImplementedError(
+                "loss full_softmax over a row-sharded table (mesh.shard_embeddings with "
+                "mesh.model_axis > 1): its [N, V] logits across shards are not ported; "
+                "use a sampled loss or mesh.shard_embeddings=false")
         self.vocab_size = vocab_size
         self.table_size = rows
         self.use_user_embedding = use_user_embedding
@@ -90,17 +120,27 @@ class SeqRecModel(nn.Module):
         self.dropout_rate = dropout_rate
         self.loss_type = loss_type
         self.neg_sampler = neg_sampler
-        self.item_embedding = _param((rows, embed_dim), param_dtype, device)
+        # name -> rows of the whole table, for the tables held as shards
+        self.sharded_rows: Dict[str, int] = {}
+        local = rows // shards
+        self.item_embedding = _param((local, embed_dim), param_dtype, device)
         if tie_embeddings:
             if hidden != embed_dim:
                 raise ValueError("tie_embeddings requires hidden == embed_dim")
         else:
-            self.output_embedding = _param((rows, hidden), param_dtype, device)
+            self.output_embedding = _param((local, hidden), param_dtype, device)
         if output_bias:
             self.output_bias = _param((rows,), param_dtype, device)
         if use_user_embedding:
             u_rows = user_table_size if user_table_size is not None else num_users + 1
-            self.user_embedding = _param((u_rows, embed_dim), param_dtype, device)
+            if u_rows % shards:
+                raise ValueError(f"user table {u_rows} must divide model shards {shards}")
+            self.user_embedding = _param((u_rows // shards, embed_dim), param_dtype, device)
+        if self.sharded:
+            self.sharded_rows = {n: rows for n in ("item_embedding", "output_embedding")
+                                 if hasattr(self, n)}
+            if use_user_embedding:
+                self.sharded_rows["user_embedding"] = u_rows
         if arch == "gru4rec":
             self.tower = RNNTower(embed_dim, hidden, num_layers, cell=cell_type,
                                   residual=residual, use_pallas=use_pallas,
@@ -115,8 +155,22 @@ class SeqRecModel(nn.Module):
 
     # ---- helpers -------------------------------------------------------
 
-    def _lookup(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-        """Rows of `table` in the compute dtype (the gather writes it)."""
+    def table_window(self, name: str) -> Optional[tuple]:
+        """(row0, rows of the whole table) of a table this module holds as
+        a shard; None for a whole one."""
+        if name not in self.sharded_rows:
+            return None
+        rows = getattr(self, name).shape[0]
+        return (self.mesh.axis_index(MODEL_AXIS) * rows, self.sharded_rows[name])
+
+    def _lookup(self, table: torch.Tensor, ids: torch.Tensor,
+                sharded: bool = False) -> torch.Tensor:
+        """Rows of `table` in the compute dtype (the gather writes it).
+        `sharded`: `table` is one of this module's row-sharded tables and
+        `ids` this rank's (the collective lookup) when the model is sharded."""
+        if sharded and self.sharded:
+            return sharded_gather(table, ids, self.mesh, dedup=self.dedup_lookup,
+                                  dtype=self.compute_dtype, use_pallas=self.use_pallas)
         return ops.embedding_gather(table, ids, dtype=self.compute_dtype,
                                     use_pallas=self.use_pallas)
 
@@ -146,9 +200,10 @@ class SeqRecModel(nn.Module):
         """ids [B, T] -> per-step hidden states [B, T, H]. Unless
         `deterministic`, input and inter-layer dropout draw from `generator`.
         `table_override`: see `_input_table`."""
-        x = self._lookup(self._input_table(table_override), inputs)
+        x = self._lookup(self._input_table(table_override), inputs,
+                         sharded=table_override is None)
         if self.use_user_embedding and users is not None:
-            x = x + self._lookup(self.user_embedding, users)[:, None, :]
+            x = x + self._lookup(self.user_embedding, users, sharded=True)[:, None, :]
         if not deterministic and self.arch == "gru4rec":
             x = dropout(x, self.dropout_rate, generator)
         return self.tower(x, mask, deterministic=deterministic, generator=generator)
@@ -189,7 +244,8 @@ class SeqRecModel(nn.Module):
             raise ValueError("session-parallel streaming needs an RNN tower")
         if self.use_user_embedding:
             raise ValueError("session streams are anonymous; disable use_user_embedding")
-        x = self._lookup(self._input_table(table_override), batch["inputs"])
+        x = self._lookup(self._input_table(table_override), batch["inputs"],
+                         sharded=table_override is None)
         if not deterministic:
             x = dropout(x, self.dropout_rate, generator)
         h, new_carry = self.tower(x, batch["mask"], carry=carry, reset=batch["reset"],
@@ -232,8 +288,13 @@ class SeqRecModel(nn.Module):
             raise ValueError(f"unknown loss {self.loss_type!r}")
         if neg_ids is None:
             raise ValueError(f"{self.loss_type} needs neg_ids")
-        pos_emb = self._lookup(out_table, t2)
-        neg_emb = self._lookup(out_table, neg_ids)
+        whole = out_table_override is None and table_override is None
+        pos_emb = self._lookup(out_table, t2, sharded=whole)
+        if whole and self.sharded:  # the negatives are alike on every rank
+            neg_emb = replicated_gather(out_table, neg_ids, self.mesh,
+                                        dtype=self.compute_dtype, use_pallas=self.use_pallas)
+        else:
+            neg_emb = self._lookup(out_table, neg_ids)
         if self.loss_type == "sampled_softmax":
             if pos_log_q is None and neg_log_q is not None:
                 pos_log_q = pos_log_prob(t2, self.vocab_size, self.neg_sampler)
@@ -258,6 +319,9 @@ class SeqRecModel(nn.Module):
         """f32 scores from the last real position of each row: [B, rows]
         against the whole catalog, or [B, C] against per-row `candidates`.
         Empty rows give scores that callers mask out."""
+        if candidates is None and self.sharded:
+            raise ValueError("scores over the whole catalog of a row-sharded model: rank "
+                             "with eval.sharded.sharded_ranks / sharded_topk")
         h_last = self.last_hidden(inputs, mask, users=users)  # [B, H]
         out_table = self.output_table()
         bias = self.output_bias_value()
@@ -270,7 +334,7 @@ class SeqRecModel(nn.Module):
                 logits = torch.where(cols[None, :] < self.vocab_size, logits,
                                      torch.full_like(logits, NEG_FILL))
             return logits
-        cand = self._lookup(out_table, candidates)  # [B, C, H]
+        cand = self._lookup(out_table, candidates, sharded=True)  # [B, C, H]
         logits = torch.einsum("bh,bch->bc", h_last, cand).float()
         if bias is not None:
             logits = logits + reference.embedding_gather(
@@ -287,13 +351,24 @@ def _dtype(name: str) -> torch.dtype:
 
 def build_model(cfg: ModelConfig, vocab_size: int, *, num_users: int = 0,
                 neg_sampler: str = "log_uniform",
-                device: str | torch.device = DEFAULT_DEVICE) -> SeqRecModel:
+                device: str | torch.device = DEFAULT_DEVICE,
+                mesh: Optional[Mesh] = None, mesh_cfg=None) -> SeqRecModel:
     """The model a `ModelConfig` describes, on `device` (CUDA unless the
     caller asks for another; raises without CUDA). Parameters are zeros until
-    a state_dict is loaded (see models.convert)."""
+    a state_dict is loaded (see models.convert). With a `mesh` and
+    `mesh_cfg.shard_embeddings`, the tables are padded to divide the model
+    axis (`padded_vocab`, as the JAX package pads them) and, past one
+    shard, held as this rank's shard."""
     dev = resolve_device(device)
+    shard = bool(mesh_cfg is not None and mesh_cfg.shard_embeddings and mesh is not None)
+    table_size, user_table_size = vocab_size, num_users + 1
+    if shard:
+        table_size = padded_vocab(vocab_size, mesh.shape[MODEL_AXIS])
+        user_table_size = padded_vocab(num_users + 1, mesh.shape[MODEL_AXIS])
     return SeqRecModel(
         vocab_size,
+        table_size=table_size,
+        user_table_size=user_table_size,
         num_users=num_users,
         use_user_embedding=cfg.use_user_embedding,
         arch=cfg.arch,
@@ -315,4 +390,7 @@ def build_model(cfg: ModelConfig, vocab_size: int, *, num_users: int = 0,
         param_dtype=_dtype(cfg.param_dtype),
         compute_dtype=_dtype(cfg.compute_dtype),
         device=dev,
+        mesh=mesh,
+        shard_embeddings=shard,
+        dedup_lookup=True if mesh_cfg is None else mesh_cfg.dedup_lookup,
     )

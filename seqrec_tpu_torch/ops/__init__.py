@@ -8,6 +8,9 @@
 from seqrec_tpu_torch.ops.dispatch import (  # noqa: F401
     causal_attention,
     embedding_gather,
+    embedding_gather_window,
+    embedding_scatter_add,
+    embedding_scatter_add_window,
     gru_scan,
     lstm_scan,
     sampled_softmax_loss,

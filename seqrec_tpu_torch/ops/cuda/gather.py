@@ -16,6 +16,17 @@ ids' positions fix (chunks of positions, runs of one id in a chunk cut into
 sub-runs of 32; `scatter_add_plan`), so the same inputs give the same bits
 on every run. `plain_ordered` adds in that order in plain tensor code, for
 the tests.
+
+The shard-window variants (`embedding_gather_window`,
+`embedding_scatter_add_window`) are the same kernels instantiated for a row
+shard of a row-sharded table (a template flag, not a runtime branch): the
+tensor holds rows [row0, row0 + rows) of the whole table; an id in that
+window reads (adds into) row id - row0, any other id gives a zero row (adds
+nothing): its row lives on another shard. They are what
+`parallel/embedding.py` and the sharded sparse pair launch; their plain
+versions are `ops.reference.embedding_gather_window` and
+`embedding_scatter_add_window`, and `plain_ordered_window` the
+scatter-add's order.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ SUB_RUN = 32
 CHUNKS = (256, 512)
 MAX_ROWS = 2 ** 31 - 1
 MAX_IDS = 2 ** 31 - 1  # positions are kept as int32 too
+MAX_ROW0 = 2 ** 31 - 1  # a shard window starts below 2^31 (ids are int32 or int64)
 
 # The dtypes the kernels read and write.
 DTYPES = (torch.float32, torch.bfloat16)
@@ -62,6 +74,12 @@ def _lib() -> ctypes.CDLL:
     size = lib.seqrec_scatter_add_scratch_bytes
     size.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]  # n, D, chunk
     size.restype = ctypes.c_longlong
+    win = lib.seqrec_gather_rows_window
+    win.argtypes = fn.argtypes[:-1] + [ctypes.c_longlong, ctypes.c_void_p]  # ..., row0, stream
+    win.restype = ctypes.c_int
+    bwin = lib.seqrec_scatter_add_rows_window
+    bwin.argtypes = bwd.argtypes[:-1] + [ctypes.c_longlong, ctypes.c_void_p]  # ..., row0, stream
+    bwin.restype = ctypes.c_int
     lib.seqrec_gather_error_string.argtypes = [ctypes.c_int]
     lib.seqrec_gather_error_string.restype = ctypes.c_char_p
     return lib
@@ -237,6 +255,104 @@ def embedding_scatter_add(g: torch.Tensor, ids: torch.Tensor,
 
 
 embedding_scatter_add.launches = 0
+
+
+def check_window(row0: int, rows: int) -> None:
+    """Raise ValueError for a shard window the kernels cannot take: they
+    take 0 <= row0 <= MAX_ROW0 and 0 < rows <= MAX_ROWS (ids are compared
+    with the window as int64)."""
+    if not (0 <= row0 <= MAX_ROW0 and 0 < rows <= MAX_ROWS):
+        raise ValueError(f"shard window [{row0}, {row0} + {rows}): the kernels take "
+                         f"0 <= row0 <= {MAX_ROW0} and 0 < rows <= {MAX_ROWS}")
+
+
+def embedding_gather_window(table: torch.Tensor, ids: torch.Tensor, row0: int, *,
+                            dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Rows of a row shard (`table` [rows, D] holds rows [row0, row0 +
+    rows) of the whole table) for `ids` -> [*ids.shape, D] in `dtype` (the
+    table's when None): an id in the window its row, any other id a zero
+    row. Not differentiable itself (`parallel.embedding` joins it to its
+    transpose). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    dtype = table.dtype if dtype is None else dtype
+    if table.device.type == "cpu":
+        return reference.embedding_gather_window(table, ids, row0, dtype=dtype)
+    if table.device.type != "cuda":
+        raise ValueError(f"gather: no kernel for device {table.device}")
+    check_launchable(table, ids, dtype)
+    check_window(int(row0), table.shape[0])
+    ids_c = ids.contiguous()
+    out = torch.empty((*ids.shape, table.shape[1]), dtype=dtype, device=table.device)
+    if ids_c.numel() == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(table.device):
+        rc = lib.seqrec_gather_rows_window(
+            table.data_ptr(), table.shape[0], table.shape[1],
+            int(table.dtype == torch.bfloat16),
+            ids_c.data_ptr(), int(ids_c.dtype == torch.int64), ids_c.numel(),
+            out.data_ptr(), int(dtype == torch.bfloat16), int(row0),
+            torch.cuda.current_stream(table.device).cuda_stream,
+        )
+    if rc != 0:
+        msg = lib.seqrec_gather_error_string(rc).decode()
+        raise RuntimeError(f"gather window kernel launch failed: CUDA error {rc} ({msg})")
+    embedding_gather_window.launches += 1
+    return out
+
+
+embedding_gather_window.launches = 0
+
+
+def embedding_scatter_add_window(g: torch.Tensor, ids: torch.Tensor, row0: int,
+                                 num_rows: int) -> torch.Tensor:
+    """The window gather's transpose -> a [num_rows, D] f32 shard holding
+    each row of `g` ([*ids.shape, D], f32 or bf16) added at id - row0 where
+    the id lies in [row0, row0 + num_rows); other ids add nothing.
+    Deterministic, in `embedding_scatter_add`'s order over the ids in the
+    window (`plain_ordered_window`). A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernels (two) or raises."""
+    if g.device.type == "cpu":
+        return reference.embedding_scatter_add_window(g, ids, row0, num_rows)
+    if g.device.type != "cuda":
+        raise ValueError(f"scatter_add: no kernel for device {g.device}")
+    plan = check_scatter_add_launchable(g, ids, num_rows)
+    check_window(int(row0), num_rows)
+    D = g.shape[-1]
+    n = ids.numel()
+    if n == 0:
+        return torch.zeros((num_rows, D), dtype=torch.float32, device=g.device)
+    ids_c = ids.contiguous()
+    g_c = g.contiguous()
+    dev = g.device
+    lib = _lib()
+    nbytes = lib.seqrec_scatter_add_scratch_bytes(n, D, plan["chunk"])
+    out = torch.empty((num_rows, D), dtype=torch.float32, device=dev)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.seqrec_scatter_add_rows_window(
+            g_c.data_ptr(), int(g_c.dtype == torch.bfloat16), ids_c.data_ptr(),
+            int(ids_c.dtype == torch.int64), n,
+            num_rows, D, plan["chunk"], scratch.data_ptr(), nbytes, out.data_ptr(), int(row0),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        msg = lib.seqrec_gather_error_string(rc).decode()
+        raise RuntimeError(f"scatter_add window kernel launch failed: CUDA error {rc} ({msg})")
+    embedding_scatter_add_window.launches += 1
+    return out
+
+
+embedding_scatter_add_window.launches = 0
+
+
+def plain_ordered_window(g: torch.Tensor, ids: torch.Tensor, row0: int, num_rows: int,
+                         chunk: int) -> torch.Tensor:
+    """`plain_ordered` for the shard window: the window scatter-add's order
+    in plain tensor code (ids off the window dropped, as out-of-range ids
+    are)."""
+    local, owned = reference.window_ids(ids, row0, num_rows)
+    return plain_ordered(g, torch.where(owned, local, num_rows), num_rows, chunk)
 
 
 class _Gather(torch.autograd.Function):

@@ -24,6 +24,24 @@ def embedding_gather(table, ids, *, dtype=None, use_pallas: bool = True):
     return reference.embedding_gather(table, ids, dtype=dtype)
 
 
+def embedding_gather_window(table, ids, row0, *, dtype=None, use_pallas: bool = True):
+    if use_pallas:
+        return cuda_gather.embedding_gather_window(table, ids, row0, dtype=dtype)
+    return reference.embedding_gather_window(table, ids, row0, dtype=dtype)
+
+
+def embedding_scatter_add(g, ids, num_rows, *, use_pallas: bool = True):
+    if use_pallas:
+        return cuda_gather.embedding_scatter_add(g, ids, num_rows)
+    return reference.embedding_scatter_add(g, ids, num_rows)
+
+
+def embedding_scatter_add_window(g, ids, row0, num_rows, *, use_pallas: bool = True):
+    if use_pallas:
+        return cuda_gather.embedding_scatter_add_window(g, ids, row0, num_rows)
+    return reference.embedding_scatter_add_window(g, ids, row0, num_rows)
+
+
 def gru_scan(x, h0, w_x, w_h, b_x=None, b_h=None, *, reset_mask=None,
              use_pallas: bool = True):
     if use_pallas:

@@ -56,6 +56,37 @@ def embedding_scatter_add(g: torch.Tensor, ids: torch.Tensor,
     return out.index_put_((rows,), g[valid], accumulate=True)
 
 
+def window_ids(ids: torch.Tensor, row0: int, rows: int) -> tuple:
+    """(ids - row0 as int64, owned): an id's row in the shard window
+    [row0, row0 + rows) of a row-sharded table, and whether it lies there."""
+    local = ids.long() - row0
+    return local, (local >= 0) & (local < rows)
+
+
+def embedding_gather_window(table: torch.Tensor, ids: torch.Tensor, row0: int, *,
+                            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The gather from a row shard: `table` ([rows, D]) holds rows [row0,
+    row0 + rows) of the whole table; an id in that window gives its row, any
+    other id a zero row (it lives on another shard): JAX's
+    `jnp.where(owned, shard[clip(id - row0)], 0)`, in `dtype`."""
+    rows = table.shape[0]
+    local, owned = window_ids(ids, row0, rows)
+    out = table[local.clamp(0, rows - 1)]
+    if dtype is not None:
+        out = out.to(dtype)
+    return torch.where(owned[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                           device=out.device))
+
+
+def embedding_scatter_add_window(g: torch.Tensor, ids: torch.Tensor, row0: int,
+                                 num_rows: int) -> torch.Tensor:
+    """The window gather's transpose: a zeroed [num_rows, D] f32 shard with
+    each row of `g` added at id - row0 where the id lies in the window;
+    other ids add nothing."""
+    local, owned = window_ids(ids, row0, num_rows)
+    return embedding_scatter_add(g, torch.where(owned, local, num_rows), num_rows)
+
+
 # ---------------------------------------------------------------------------
 # GRU
 # ---------------------------------------------------------------------------

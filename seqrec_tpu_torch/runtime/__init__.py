@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the multi-device
+runtime (`runtime.mesh`: the process group and the ('data', 'model') mesh)."""
 
 from __future__ import annotations
 
@@ -19,3 +20,16 @@ def resolve_device(device: str | torch.device = DEFAULT_DEVICE) -> torch.device:
             "the plain PyTorch path on the CPU"
         )
     return dev
+
+
+from seqrec_tpu_torch.runtime.mesh import (  # noqa: E402,F401
+    DATA_AXIS,
+    MODEL_AXIS,
+    WORLD,
+    Mesh,
+    init_distributed,
+    make_mesh,
+    process_count,
+    process_index,
+    rank_device,
+)

@@ -1,5 +1,5 @@
 """Sparse (row-wise) embedding updates for large catalogs: the port of
-`seqrec_tpu/train/sparse_embed.py` on one device.
+`seqrec_tpu/train/sparse_embed.py`.
 
 Dense training builds a [V, D] gradient for the item table every step; at
 V = 10M, D = 128 that is 5.1 GB of gradient and as much optimizer-state
@@ -29,18 +29,29 @@ square root: XLA:CPU's `rsqrt` is an approximation that differs from the
 correctly rounded value by 1 ulp in about one case in seven, where
 `torch.rsqrt` is `1 / sqrt`; that row update agrees to 1 ulp.
 
-The row-sharded pair (`sharded_sub_table`, `sharded_row_update`) waits for
-ROADMAP.md Queue 1 item 9 (multi-GPU).
+Row-sharded tables (`mesh.shard_embeddings`, the mesh's 'model' axis
+M > 1) compose with this as in the JAX package: the trainer takes the
+unique set of the GLOBAL batch (its ids all-gathered over the world), the
+same [K] set on every rank; `sharded_sub_table` fetches the [K, D]
+sub-table, each shard the rows it owns (the gather kernel's shard-window
+variant, zeros elsewhere) summed over the model group, replicated;
+the step differentiates the replicated sub-table as on one device (its
+cotangent summed over the world); and `sharded_row_update` applies the
+optimizer on each shard to the rows it owns only (`row_update` at local
+row offsets, other shards' ids masked). No dense [V, D] or [V/M, D]
+gradient exists.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from seqrec_tpu_torch.models.model import SAMPLED_LOSSES
+from seqrec_tpu_torch.ops import dispatch, reference
+from seqrec_tpu_torch.runtime.mesh import MODEL_AXIS, Mesh
 
 # optax defaults, mirrored (see the module docstring).
 ADAGRAD_INIT_ACC = 0.1
@@ -129,7 +140,9 @@ def _bias_correction(b: float, step: int) -> float:
 
 def row_update(optimizer: str, lr: float, table: torch.Tensor,
                row_opt: Dict[str, torch.Tensor], uids: torch.Tensor,
-               g_rows: torch.Tensor, step: int) -> None:
+               g_rows: torch.Tensor, step: int, *,
+               indices: Optional[torch.Tensor] = None,
+               extra_valid: Optional[torch.Tensor] = None) -> None:
     """One optimizer step on the rows `uids` (sorted, with fill duplicates)
     of `table` [V, D] and of its row state `row_opt`, IN PLACE: `g_rows`
     [K, D] is the gradient of the gathered sub-table, `step` the 0-based
@@ -138,10 +151,17 @@ def row_update(optimizer: str, lr: float, table: torch.Tensor,
     Every write is an `index_add_` of a delta masked to the first occurrence
     of its id: a duplicate fill slot adds exactly zero, for every optimizer
     below (adam's moment deltas included), so the order of the adds does not
-    change the result."""
-    valid = _first_occurrence_mask(uids)[:, None].to(torch.float32)
+    change the result. `indices` ([K], default `uids`) and `extra_valid`
+    ([K] bool) are for a row shard (`sharded_row_update`): the rows are
+    written at local offsets, and the slots of ids that other shards own are
+    masked: their delta is exactly zero at whatever row they were clipped
+    to."""
+    first = _first_occurrence_mask(uids)
+    if extra_valid is not None:
+        first = first & extra_valid
+    valid = first[:, None].to(torch.float32)
     g = g_rows.to(torch.float32) * valid
-    idx = uids.long()
+    idx = (uids if indices is None else indices).long()
 
     if optimizer == "sgd":
         table.index_add_(0, idx, (-lr * g).to(table.dtype))
@@ -175,6 +195,36 @@ def row_update(optimizer: str, lr: float, table: torch.Tensor,
         return
 
     raise ValueError(f"unsupported optimizer {optimizer!r}")
+
+
+def sharded_sub_table(table: torch.Tensor, uids: torch.Tensor, mesh: Mesh, *,
+                      use_pallas: bool = True) -> torch.Tensor:
+    """The [K, D] rows `uids` of a row-sharded table whose shard on this
+    rank is `table`, replicated on every rank of the model group: each
+    shard's owned rows (the shard-window gather, zeros elsewhere), summed
+    over the model group. A fetch: the caller differentiates the returned
+    sub-table, never through this. With one shard, the gather."""
+    M = mesh.shape[MODEL_AXIS]
+    if M == 1:
+        return dispatch.embedding_gather(table, uids, use_pallas=use_pallas)
+    row0 = mesh.axis_index(MODEL_AXIS) * table.shape[0]
+    contrib = dispatch.embedding_gather_window(table, uids, row0, use_pallas=use_pallas)
+    return mesh.psum(contrib, MODEL_AXIS)
+
+
+def sharded_row_update(optimizer: str, lr: float, table: torch.Tensor,
+                       row_opt: Dict[str, torch.Tensor], uids: torch.Tensor,
+                       g_rows: torch.Tensor, step: int, mesh: Mesh) -> None:
+    """`row_update` on a row shard (`table` and `row_opt` this rank's
+    shard; `uids` and `g_rows` replicated): each shard updates the rows it
+    owns, in place; other shards' ids are clipped into the window and
+    masked (their delta is exactly zero)."""
+    if mesh.shape[MODEL_AXIS] == 1:
+        return row_update(optimizer, lr, table, row_opt, uids, g_rows, step)
+    rows = table.shape[0]
+    local, owned = reference.window_ids(uids, mesh.axis_index(MODEL_AXIS) * rows, rows)
+    return row_update(optimizer, lr, table, row_opt, uids, g_rows, step,
+                      indices=local.clamp(0, rows - 1), extra_valid=owned)
 
 
 def validate_config(cfg) -> None:

@@ -138,13 +138,16 @@ class Optimizer:
                                        for k, p in params.items()}
         return state
 
-    def update(self, grads: Tensors, state: Dict, params: Tensors
-               ) -> Tuple[Tensors, Dict]:
+    def update(self, grads: Tensors, state: Dict, params: Tensors,
+               g_norm: torch.Tensor | None = None) -> Tuple[Tensors, Dict]:
+        """`g_norm`: the clip's global norm when `grads` alone do not give
+        it (row-sharded leaves: the mesh's norm, `Trainer._grad_norm`)."""
         u = dict(grads)
         if self.clip is not None:
             # optax: select(norm < max, t, (t / norm) * max); not
             # torch's clip_grad_norm_, which scales by max / (norm + 1e-6).
-            g_norm = global_norm(u.values())
+            if g_norm is None:
+                g_norm = global_norm(u.values())
             u = {k: torch.where(g_norm < self.clip, g, (g / g_norm) * self.clip)
                  for k, g in u.items()}
         count = state["count"]

@@ -44,6 +44,28 @@ restores its snapshot with the engine that took it. A killed and resumed
 run equals a straight one bit for bit. `profile_dir` (ROADMAP.md Queue 1
 item 10) raises, naming its item; a CUDA-graph capture of the K-step group
 is item 3b.
+
+Multi-device (one process per device, `runtime.mesh`): with a process group
+up, the trainer makes the ('data', 'model') mesh from `mesh.model_axis` (or
+takes the caller's) and trains as the JAX package does on the same global
+batch. `data.batch_size` is per device: the global batch is batch_size x
+world (`local_batch`, `global_batch`), and each rank reads its own shard of
+the users (`host_shard`), as a JAX host does. The loss is global,
+sum / max(global weights, 1): each rank all-reduces the weight sum before
+its backward pass and differentiates its own loss sum over it, and the
+gradients are summed: over the world for replicated leaves (the tower, an
+unsharded table), over the data group for row-sharded ones (the tables
+with `mesh.shard_embeddings`, their optimizer moments). The clip's global
+norm counts each row once (the sharded leaves' squares summed over the
+model group, the replicated ones once). The sparse step takes the unique
+set of the global batch (the ids all-gathered over the world), fetches the
+sub-table with `sharded_sub_table`, sums its cotangent over the world and
+updates each shard's own rows (`sharded_row_update`). Negatives are drawn
+alike on every rank (from the seed and the step); dropout draws from a
+stream of the rank's own past rank 0. The session carry stays rank-local.
+Only rank 0 logs; each rank beats its own heartbeat and checkpoints its
+own shard (`train/checkpoint.py`). Without a process group the mesh is
+1 x 1 and nothing of this runs.
 """
 
 from __future__ import annotations
@@ -69,7 +91,8 @@ from seqrec_tpu_torch.models.convert import init_state_dict
 from seqrec_tpu_torch.models.model import SAMPLED_LOSSES
 from seqrec_tpu_torch.models.towers import zero_carry
 from seqrec_tpu_torch.ops import _build, embedding_gather
-from seqrec_tpu_torch.runtime import DEFAULT_DEVICE, resolve_device
+from seqrec_tpu_torch.runtime import DEFAULT_DEVICE
+from seqrec_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, WORLD, Mesh, make_mesh, rank_device
 from seqrec_tpu_torch.train import sparse_embed
 from seqrec_tpu_torch.train.checkpoint import CheckpointManager
 from seqrec_tpu_torch.train.state import (
@@ -140,21 +163,21 @@ def _detach(carry):
 
 class Trainer:
     def __init__(self, cfg: RunConfig, ds=None, *,
-                 device: Union[str, torch.device] = DEFAULT_DEVICE):
+                 device: Union[str, torch.device] = DEFAULT_DEVICE,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = rank_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh.model_axis)
         self.ds = ds if ds is not None else load_dataset(cfg.data)
         self._sparse = bool(cfg.train.sparse_embedding_update)
         if self._sparse:
             sparse_embed.validate_config(cfg)
-        if cfg.mesh.shard_embeddings and cfg.mesh.model_axis > 1:
-            what = ("mesh.shard_embeddings with train.sparse_embedding_update (the sharded "
-                    "pair sharded_sub_table and sharded_row_update)" if self._sparse
-                    else "mesh.shard_embeddings")
-            raise NotImplementedError(f"{what}: ROADMAP.md Queue 1 item 9 (multi-GPU)")
         self.model = build_model(cfg.model, self.ds.vocab_size, num_users=self.ds.num_users,
                                  neg_sampler=cfg.data.neg_sampler,
-                                 device=self.device)
+                                 device=self.device, mesh=self.mesh, mesh_cfg=cfg.mesh)
+        # The leaves held as row shards (their gradients sum over the data
+        # group only, their squares over the model group in the norm).
+        self._sharded = frozenset(self.model.sharded_rows)
         if self._sparse:
             # The state holds the [V, D] tables and every call passes them
             # in; the module's own copies would be a second table on the
@@ -166,9 +189,11 @@ class Trainer:
         # The sparse step clips the global norm of the tower's and the
         # sub-tables' gradients together; the optimizer must not clip again.
         self.optimizer = make_optimizer(cfg.train, with_clip=not self._sparse)
-        # One device: the local batch is the global batch.
-        self.local_batch = self.global_batch = cfg.data.batch_size
-        self.num_devices = 1
+        # data.batch_size is per device, as in the JAX package.
+        self.num_devices = self.mesh.size
+        self.local_batch = cfg.data.batch_size
+        self.global_batch = cfg.data.batch_size * self.num_devices
+        self.host_shard = (self.mesh.rank, self.mesh.size)
         self.data_engine: Optional[str] = None  # "native" or "python", once chosen
         self._stager: Optional[HostStager] = None
         self.ckpt: Optional[CheckpointManager] = None  # fit's, when it checkpoints
@@ -212,12 +237,19 @@ class Trainer:
     def _generators(self, state: TrainState) -> Tuple[torch.Generator, torch.Generator]:
         """(negatives, dropout) generators of this step: a function of the
         state's seed and step only, so K grouped steps draw what K single
-        steps draw."""
+        steps draw. The negatives are alike on every rank (JAX draws them
+        once a step, replicated); dropout's stream past rank 0 folds the
+        rank in (JAX draws one mask over the global batch), so rank 0, and a
+        run of one device, keep theirs."""
         base = (state.rng_seed % 2 ** 31) * 2 ** 32 + 2 * state.step
+        seeds = [base, base + 1]
+        if self.mesh.rank > 0:
+            seeds[1] = int(np.random.SeedSequence([base + 1, self.mesh.rank])
+                           .generate_state(1, np.uint64)[0])
         gens = []
-        for offset in (0, 1):
+        for seed in seeds:
             g = torch.Generator(device=self.device)
-            g.manual_seed(base + offset)
+            g.manual_seed(seed)
             gens.append(g)
         return gens[0], gens[1]
 
@@ -265,24 +297,70 @@ class Trainer:
         else:
             loss_sum, w_sum = torch.func.functional_call(
                 self.model, params, (batch,), {"method": "loss", **kwargs})
+        w_sum = self._global_weights(w_sum)
         return loss_sum / torch.clamp(w_sum, min=1.0), w_sum, carry
+
+    def _global_weights(self, w_sum: torch.Tensor) -> torch.Tensor:
+        """The weight sum of the global batch (before the backward pass: the
+        loss each rank differentiates is its sum over the global weights)."""
+        return self.mesh.psum(w_sum.detach(), WORLD) if self.mesh.distributed else w_sum
 
     @staticmethod
     def backward(loss: torch.Tensor, params) -> Dict[str, torch.Tensor]:
         return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
 
+    def _reduce_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each gradient summed over the ranks that share its leaf: the world
+        for replicated leaves, the data group for row-sharded ones (one
+        flat buffer each)."""
+        if not self.mesh.distributed:
+            return grads
+        out = dict(grads)
+        for axis, names in ((WORLD, [k for k in grads if k not in self._sharded]),
+                            (DATA_AXIS, [k for k in grads if k in self._sharded])):
+            if not names:
+                continue
+            flat = self.mesh.psum(torch.cat([grads[k].reshape(-1) for k in names]), axis)
+            for k, g in zip(names, flat.split([grads[k].numel() for k in names])):
+                out[k] = g.view_as(grads[k])
+        return out
+
+    def _grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of the (reduced) gradients, each row counted
+        once: the sharded leaves' squares summed over the model group, the
+        replicated ones once."""
+        sharded = [k for k in grads if k in self._sharded]
+        if not sharded:
+            return global_norm(grads.values())
+        sq = lambda ks: sum(torch.sum(grads[k].float() * grads[k].float()) for k in ks)  # noqa: E731
+        shard = self.mesh.psum(sq(sharded), MODEL_AXIS)
+        return torch.sqrt(sq([k for k in grads if k not in self._sharded]) + shard)
+
+    def _global_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The global batch's loss from each rank's sum over the global
+        weights."""
+        return self.mesh.psum(loss.detach(), WORLD) if self.mesh.distributed else loss.detach()
+
     def update(self, state: TrainState, params, grads, loss, w_sum, carry=None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """Gradient norm, non-finite flag, optional sanitizing, and the
-        optimizer: the new state (carrying `carry`) and the step's metrics."""
-        gnorm = global_norm(grads.values())
+        """Gradient reduction over the mesh, norm, non-finite flag, optional
+        sanitizing, and the optimizer: the new state (carrying `carry`) and
+        the step's metrics (global loss and tokens)."""
+        grads = self._reduce_grads(grads)
+        loss = self._global_loss(loss)
+        gnorm = self._grad_norm(grads)
         # One NaN/inf anywhere poisons the global norm: one scalar check.
         nonfinite = ~torch.isfinite(gnorm) | ~torch.isfinite(loss)
         if self.cfg.train.sanitize_nans:
             grads = {k: torch.where(torch.isfinite(g).all(), g, torch.nan_to_num(g))
                      for k, g in grads.items()}
         params = {k: v.detach() for k, v in params.items()}
-        updates, opt_state = self.optimizer.update(grads, state.opt_state, params)
+        # The clip's norm over row shards is the mesh's (on sanitized grads).
+        clip_norm = None
+        if self._sharded:
+            clip_norm = self._grad_norm(grads) if self.cfg.train.sanitize_nans else gnorm
+        updates, opt_state = self.optimizer.update(grads, state.opt_state, params,
+                                                   g_norm=clip_norm)
         new_state = TrainState(step=state.step + 1,
                                params=self.optimizer.apply(params, updates),
                                opt_state=opt_state, rng_seed=state.rng_seed, carry=carry)
@@ -312,10 +390,18 @@ class Trainer:
         the tower and a row update of each table and its row state, in
         place. With train.sparse_unique_budget the budget is capped: ids
         past it embed as a zeros sentinel row at position K, whose gradient
-        row is dropped. No host sync and no data-dependent shape."""
+        row is dropped. No host sync and no data-dependent shape.
+
+        Over a mesh the unique set is the global batch's (this rank's ids
+        all-gathered over the world, as JAX's step sees the global batch):
+        one set on every rank. Row-sharded tables fetch it with
+        `sharded_sub_table` and update their own rows with
+        `sharded_row_update`; the sub-tables' and the tower's gradients
+        are summed over the world."""
         cfg = self.cfg
         tied = cfg.model.tie_embeddings
         use_pallas = cfg.model.use_pallas
+        mesh = self.mesh
         names = self._sparse_table_names()
         tables = {n: state.params[n] for n in names}
         rest = {k: v.detach().requires_grad_(True) for k, v in state.params.items()
@@ -323,9 +409,13 @@ class Trainer:
 
         inputs, targets = batch["inputs"], batch["targets"]
         neg_ids = neg_ids.to(targets.dtype)
-        out_ids = torch.cat([targets.reshape(-1), neg_ids])
-        in_ids = torch.cat([inputs.reshape(-1), out_ids]) if tied else inputs.reshape(-1)
-        rows = tables["item_embedding"].shape[0]
+        all_inputs, all_targets = inputs, targets
+        if mesh.distributed:
+            all_inputs = mesh.all_gather(inputs, WORLD)
+            all_targets = mesh.all_gather(targets, WORLD)
+        out_ids = torch.cat([all_targets.reshape(-1), neg_ids])
+        in_ids = torch.cat([all_inputs.reshape(-1), out_ids]) if tied else all_inputs.reshape(-1)
+        rows = self.model.table_size  # the whole table's rows, sharded or not
         cap = int(cfg.train.sparse_unique_budget or 0)
         remap = sparse_embed.remap_capped if cap else sparse_embed.remap
 
@@ -334,7 +424,10 @@ class Trainer:
             return sparse_embed.collect_unique(ids, min(budget, cap) if cap else budget)
 
         def sub_table(table: torch.Tensor, uids: torch.Tensor) -> torch.Tensor:
-            sub = embedding_gather(table, uids, use_pallas=use_pallas)
+            if self.model.sharded:
+                sub = sparse_embed.sharded_sub_table(table, uids, mesh, use_pallas=use_pallas)
+            else:
+                sub = embedding_gather(table, uids, use_pallas=use_pallas)
             if cap:
                 sub = torch.cat([sub, sub.new_zeros((1, sub.shape[1]))])
             return sub.detach().requires_grad_(True)
@@ -365,11 +458,13 @@ class Trainer:
         else:
             loss_sum, w_sum = torch.func.functional_call(
                 self.model, params, (batch_r,), {"method": "loss", **kwargs})
+        w_sum = self._global_weights(w_sum)
         loss = loss_sum / torch.clamp(w_sum, min=1.0)
 
         leaves = {**{f"sub/{k}": v for k, v in subs.items()}, **rest}
-        grads = self.backward(loss, leaves)
-        gnorm = global_norm(grads.values())
+        grads = self._reduce_grads(self.backward(loss, leaves))
+        loss = self._global_loss(loss)
+        gnorm = self._grad_norm(grads)
         nonfinite = ~torch.isfinite(gnorm) | ~torch.isfinite(loss)
         clip = cfg.train.grad_clip_norm
         if clip and clip > 0:
@@ -394,8 +489,13 @@ class Trainer:
                 g = grads[f"sub/{key}"]
                 if cap:
                     g = g[:-1]  # the sentinel row: overflowed ids update nothing
-                sparse_embed.row_update(cfg.train.optimizer, lr, tables[name],
-                                        state.embed_opt[name], uids, g, state.step)
+                if self.model.sharded:
+                    sparse_embed.sharded_row_update(cfg.train.optimizer, lr, tables[name],
+                                                    state.embed_opt[name], uids, g,
+                                                    state.step, mesh)
+                else:
+                    sparse_embed.row_update(cfg.train.optimizer, lr, tables[name],
+                                            state.embed_opt[name], uids, g, state.step)
         new_state = TrainState(
             step=state.step + 1,
             params={k: tables[k] if k in tables else rest[k] for k in state.params},
@@ -600,15 +700,20 @@ class Trainer:
         if self.cfg.data.session_parallel:
             return self._make_session_iterator()
         d = self.cfg.data
+        if self.mesh.size > 1 and d.buckets and (self._sparse or self._sharded):
+            raise NotImplementedError(
+                "data.buckets with more than one rank and the sparse step or sharded tables: "
+                "each rank's loader picks its own bucket, and the ids' collectives need one "
+                "shape on every rank")
         if d.use_native_loader and native.available():
             self.data_engine = "native"
             return native.NativeTrainLoader(
                 self.ds, batch_size=self.local_batch, max_len=d.max_len, buckets=d.buckets,
-                seed=d.seed, skip_batches=skip_batches)
+                seed=d.seed, host_shard=self.host_shard, skip_batches=skip_batches)
         self.data_engine = "python"
         return make_train_batches(
             self.ds, batch_size=self.local_batch, max_len=d.max_len, buckets=d.buckets,
-            seed=d.seed, skip_batches=skip_batches)
+            seed=d.seed, host_shard=self.host_shard, skip_batches=skip_batches)
 
     def _make_session_iterator(self, engine: str = "auto"):
         """The session-parallel stream: the native engine when it is built
@@ -630,7 +735,8 @@ class Trainer:
             self.data_engine = "native"
             return native.NativeSessionLoader(
                 self.ds, batch_size=self.local_batch, window=T, ends_budget=E,
-                wire_dtype=self._wire_dtype, seed=self.cfg.data.seed, snapshot_depth=depth)
+                wire_dtype=self._wire_dtype, seed=self.cfg.data.seed,
+                host_shard=self.host_shard, snapshot_depth=depth)
         if engine == "native":
             raise RuntimeError(
                 "the checkpoint was written by the native session loader, but the native "
@@ -638,7 +744,7 @@ class Trainer:
         self.data_engine = "python"
         return make_session_stream(self.ds, batch_size=self.local_batch,
                                    window=self.cfg.data.max_len, seed=self.cfg.data.seed,
-                                   snapshot_depth=depth)
+                                   host_shard=self.host_shard, snapshot_depth=depth)
 
     def precompile(self) -> None:
         """Build the CUDA kernels before the loop, so that no nvcc time
@@ -675,10 +781,13 @@ class Trainer:
         cfg = self.cfg
         self._check_fit_supported()
         out_dir = cfg.train.out_dir
-        logger = MetricsLogger(out_dir, tensorboard=cfg.train.tensorboard)
-        heartbeat = Heartbeat(out_dir) if out_dir else None
+        rank = self.mesh.rank
+        logger = MetricsLogger(out_dir, tensorboard=cfg.train.tensorboard, host0=rank == 0)
+        heartbeat = Heartbeat(out_dir, rank) if out_dir else None
         ckpt = self.ckpt = (
-            CheckpointManager(os.path.join(out_dir, "ckpt"), keep=cfg.train.keep_checkpoints)
+            CheckpointManager(os.path.join(out_dir, "ckpt"), keep=cfg.train.keep_checkpoints,
+                              mesh=self.mesh, info={"vocab_size": int(self.ds.vocab_size),
+                                                    "num_users": int(self.ds.num_users)})
             if out_dir and cfg.train.checkpoint_every > 0 else None)
         data_position = 0  # batches consumed: the resume point of the data
         data_state = None
@@ -688,7 +797,7 @@ class Trainer:
                                                                    device=self.device)
             else:
                 state = self.init_state()
-        if out_dir:
+        if out_dir and rank == 0:
             os.makedirs(out_dir, exist_ok=True)
             cfg.save(os.path.join(out_dir, "config.json"))
 
@@ -820,5 +929,7 @@ class Trainer:
     # ---- eval -----------------------------------------------------------
 
     def evaluate(self, state: TrainState, split: str = "val") -> Dict[str, float]:
+        """The global metrics: each rank evaluates its own users, the sums
+        are summed over the world (a collective: every rank calls this)."""
         return evaluate(self.model, state.params, self.ds, self.cfg.eval, split=split,
-                        max_len=self.cfg.data.max_len)
+                        max_len=self.cfg.data.max_len, mesh=self.mesh)

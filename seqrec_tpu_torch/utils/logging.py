@@ -3,7 +3,9 @@
 
 One JSON line per record to stdout and to `metrics.jsonl` in the run's
 out dir; TensorBoard scalars too when `tensorboard` is set and
-`torch.utils.tensorboard` imports. One process writes (the port runs one).
+`torch.utils.tensorboard` imports. Host 0 writes (`host0`: the rank's say;
+the other ranks' loggers write nothing). Every rank beats its own
+`heartbeat_<rank>`.
 """
 
 from __future__ import annotations
@@ -15,10 +17,12 @@ from typing import Any, Dict, Optional
 
 
 class MetricsLogger:
-    def __init__(self, out_dir: Optional[str] = None, tensorboard: bool = False):
+    def __init__(self, out_dir: Optional[str] = None, tensorboard: bool = False,
+                 host0: bool = True):
+        self._is_host0 = host0
         self._file = None
         self._tb = None
-        if out_dir:
+        if host0 and out_dir:
             os.makedirs(out_dir, exist_ok=True)
             self._file = open(os.path.join(out_dir, "metrics.jsonl"), "a")
             if tensorboard:
@@ -30,6 +34,8 @@ class MetricsLogger:
                     self._tb = None
 
     def log(self, step: int, tag: str, metrics: Dict[str, Any]) -> None:
+        if not self._is_host0:
+            return
         rec = {"step": int(step), "tag": tag, "time": time.time()}
         rec.update({k: _to_py(v) for k, v in metrics.items()})
         line = json.dumps(rec)
@@ -58,11 +64,12 @@ def _to_py(v: Any) -> Any:
 
 
 class Heartbeat:
-    """A heartbeat file a monitor can watch: the last logged step and time."""
+    """A heartbeat file a monitor can watch, one a process
+    (`heartbeat_<rank>`): the last logged step and time."""
 
-    def __init__(self, out_dir: str):
+    def __init__(self, out_dir: str, rank: int = 0):
         os.makedirs(out_dir, exist_ok=True)
-        self._path = os.path.join(out_dir, "heartbeat_0")  # one process: index 0
+        self._path = os.path.join(out_dir, f"heartbeat_{rank}")
 
     def beat(self, step: int) -> None:
         with open(self._path, "w") as f:

@@ -325,6 +325,59 @@ def test_scatter_add_kernel_every_id_one_row_and_an_empty_table_row(cuda):
     assert not bool(out[torch.arange(V, device=cuda) != 4].any())
 
 
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row0", [0, 37, 2 ** 31 - 1 - 200])
+def test_gather_window_kernel_is_bit_exact(cuda, dtype, ids_dtype, row0):
+    """The shard-window variant: ids in [row0, row0 + rows) read row
+    id - row0, every other id (below, above, negative) a zero row; bit for
+    bit against its plain version, in f32 and bf16."""
+    rows, D = 64, 128
+    shard = torch.randn(rows, D, device=cuda)
+    ids = torch.randint(max(row0 - 80, -5), row0 + rows + 80, (7, 41), device=cuda).to(ids_dtype)
+    before = k_gather.embedding_gather_window.launches
+    got = k_gather.embedding_gather_window(shard, ids, row0, dtype=dtype)
+    assert k_gather.embedding_gather_window.launches == before + 1
+    want = reference.embedding_gather_window(shard, ids, row0, dtype=dtype)
+    assert got.dtype == dtype and torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                                       else torch.int32),
+                                              want.view(torch.int16 if dtype == torch.bfloat16
+                                                        else torch.int32))
+    local = ids.long() - row0
+    assert not bool(got[(local < 0) | (local >= rows)].any())
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,rows,D", [(25_600, 1712, 128), (700, 50, 64), (3, 10, 4)])
+def test_scatter_add_window_kernel_is_plain_ordered_and_deterministic(cuda, ids_dtype, g_dtype,
+                                                                      n, rows, D):
+    """The window scatter-add adds only the window's ids, at id - row0, in
+    the scatter-add's order: bit for bit against plain_ordered_window and
+    against itself."""
+    row0 = rows
+    ids = torch.randint(-3, 3 * rows, (n,), device=cuda).to(ids_dtype)
+    g = torch.randn(n, D, device=cuda).to(g_dtype)
+    before = k_gather.embedding_scatter_add_window.launches
+    a = k_gather.embedding_scatter_add_window(g, ids, row0, rows)
+    b = k_gather.embedding_scatter_add_window(g, ids, row0, rows)
+    assert k_gather.embedding_scatter_add_window.launches == before + 2
+    assert torch.equal(a, b)
+    chunk = k_gather.scatter_add_plan(n, rows, D)["chunk"]
+    assert torch.equal(a, k_gather.plain_ordered_window(g, ids, row0, rows, chunk))
+    want = reference.embedding_scatter_add_window(g, ids, row0, rows)
+    assert torch.allclose(a, want, rtol=1e-5, atol=1e-5)
+
+
+def test_window_kernels_raise_on_a_window_they_cannot_take(cuda):
+    shard = torch.zeros(8, 4, device=cuda)
+    ids = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shard window"):
+        k_gather.embedding_gather_window(shard, ids, -1)
+    with pytest.raises(ValueError, match="shard window"):
+        k_gather.embedding_scatter_add_window(torch.zeros(3, 4, device=cuda), ids, 2 ** 31, 8)
+
+
 @pytest.mark.parametrize("n,D,chunk", [(1, 4, 256), (12_800, 100, 256), (25_600, 128, 512)])
 def test_scatter_add_scratch_is_sized_and_checked_in_c(cuda, n, D, chunk):
     """gather.cu owns the scratch layout: its size holds a partial row and

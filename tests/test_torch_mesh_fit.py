@@ -1,0 +1,219 @@
+"""The port's eval, checkpoint and resume, and `recommend` over a mesh of two
+gloo ranks with row-sharded tables (`mesh.model_axis=2`), on the CPU
+(`torch_mesh_worker.py` "fit", no JAX in the ranks).
+
+- The full-protocol eval at world 2 (each rank its own users, the sharded
+  ranks, the sums summed over the ranks; the ranks hold different numbers
+  of batches, so one pads) against the JAX package's single-process
+  `evaluate` of the same parameters on the same dataset: within 1e-5
+  relative (f32 metric sums in another order; the ranks are integers and
+  equal).
+- The sampled protocol at world 2: the same global metrics on both ranks,
+  over every eval user (its candidates depend on the rank's seed, as a JAX
+  host's do, so it is not held against one process).
+- A fit killed at step 8 and resumed from its checkpoints against a
+  straight one, the sparse step and the sparse session-parallel step (the
+  stream's snapshot and the carry, rank-local): every leaf on every rank
+  bit for bit; each rank's part of the checkpoint and rank 0's meta.json
+  with the mesh; a restore on another mesh refused, naming both.
+- `recommend` with the sharded top-k against one rank's whole model: the
+  same items, scores within 1e-6 relative (the dot products of another
+  matmul's shape).
+"""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from seqrec_tpu.config import RunConfig as JaxRunConfig
+from seqrec_tpu.data.dataset import synthetic_dataset as jax_synthetic_dataset
+from seqrec_tpu.eval.harness import evaluate as jax_evaluate
+from seqrec_tpu.models import build_model as jax_build_model
+from seqrec_tpu_torch.parallel.embedding import padded_vocab
+from seqrec_tpu_torch.train.checkpoint import CheckpointManager
+from seqrec_tpu_torch.train.state import TrainState
+from torch_mesh_worker import spawn
+
+DATASET = {"num_users": 61, "num_items": 90, "seed": 4, "min_len": 4, "max_len": 14}
+MODEL = {"model.embed_dim": 16, "model.use_pallas": False, "model.compute_dtype": "float32",
+         "model.dropout_rate": 0.0, "model.loss": "sampled_softmax", "model.num_negatives": 24,
+         "model.max_len": 12, "data.max_len": 12, "mesh.model_axis": 2,
+         "mesh.shard_embeddings": True}
+EVAL = {**MODEL, "eval.batch_size": 10, "eval.exclude_history": True, "eval.num_negatives": 20}
+FIT = {**MODEL, "data.batch_size": 4, "data.use_native_loader": False,
+       "train.sparse_embedding_update": True, "train.optimizer": "adagrad",
+       "train.num_steps": 12, "train.steps_per_call": 4, "train.checkpoint_every": 5,
+       "train.eval_every": 0, "train.log_every": 4, "train.learning_rate": 0.05}
+FITS = {"sparse": FIT,
+        "sparse_session": {**FIT, "data.session_parallel": True,
+                           "train.sparse_unique_budget": 40}}
+
+
+def _apply(cfg, settings):
+    for key, v in settings.items():
+        section, name = key.split(".")
+        setattr(getattr(cfg, section), name, v)
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    d = tmp_path_factory.mktemp("mesh_fit")
+    jds = jax_synthetic_dataset(**{k: v for k, v in DATASET.items()
+                                   if k not in ("num_users", "num_items")},
+                                num_users=DATASET["num_users"], num_items=DATASET["num_items"])
+    jcfg = _apply(JaxRunConfig(), {k: v for k, v in EVAL.items() if not k.startswith("mesh.")})
+    jm = jax_build_model(jcfg.model, jds.vocab_size)
+    T = jcfg.data.max_len
+    params = jax.tree_util.tree_map(np.asarray, jm.init(
+        jax.random.key(0), jnp.zeros((2, T), jnp.int32), jnp.ones((2, T), jnp.float32)))
+    table = params["params"]["item_embedding"]
+    pad = padded_vocab(jds.vocab_size, 2) - table.shape[0]
+    io = {"params/item_embedding": np.concatenate([table, np.zeros((pad, table.shape[1]),
+                                                                    np.float32)])}
+    for k, v in params["params"]["tower"].items():
+        io[f"params/tower.{k}"] = v
+    np.savez(d / "inputs.npz", **io)
+    (d / "inputs.json").write_text(json.dumps({"dataset": DATASET, "eval": EVAL, "fit": FITS}))
+    outs = spawn("fit", 2, d, timeout=60)
+    want = {split: jax_evaluate(jm, params, jds, jcfg.eval, split=split, max_len=T)
+            for split in ("val", "test")}
+    return d, outs, want, jds
+
+
+def _metrics(o, protocol, split):
+    return dict(zip(o[f"eval/{protocol}/{split}/keys"], o[f"eval/{protocol}/{split}/values"]))
+
+
+@pytest.mark.parametrize("split", ["val", "test"])
+def test_full_eval_at_world_2_equals_jax_single_process(run, split):
+    _, outs, want, _ = run
+    got = [_metrics(o, "full", split) for o in outs]
+    assert got[0] == got[1]  # the global metrics, on each rank
+    assert sorted(got[0]) == sorted(want[split])
+    for k, v in want[split].items():
+        np.testing.assert_allclose(got[0][k], float(v), rtol=1e-5, atol=1e-7, err_msg=k)
+    assert got[0]["count"] > 0
+
+
+@pytest.mark.parametrize("split", ["val", "test"])
+def test_sampled_eval_at_world_2_counts_every_user_once(run, split):
+    _, outs, want, _ = run
+    got = [_metrics(o, "sampled", split) for o in outs]
+    assert got[0] == got[1]
+    assert got[0]["count"] == float(want[split]["count"])
+    assert all(np.isfinite(v) and 0.0 <= v <= max(1.0, got[0]["count"]) for v in got[0].values())
+
+
+@pytest.mark.parametrize("case", list(FITS))
+def test_resume_at_world_2_is_bit_for_bit(run, case):
+    d, outs, _, _ = run
+    for o in outs:
+        assert int(o[f"fit/{case}/killed/step"][0]) == 8
+        assert int(o[f"fit/{case}/straight/step"][0]) == int(o[f"fit/{case}/resumed/step"][0]) == 12
+        keys = [k for k in o if k.startswith(f"fit/{case}/straight/")]
+        assert any("embed_opt" in k for k in keys)
+        for k in keys:
+            np.testing.assert_array_equal(o[k.replace("/straight/", "/resumed/")], o[k], err_msg=k)
+    # The sharded table really differs between the ranks (two shards).
+    key = f"fit/{case}/straight/params/item_embedding"
+    assert not np.array_equal(outs[0][key], outs[1][key])
+    ckpt = d / case / "resumed" / "ckpt"
+    steps = sorted(int(n) for n in os.listdir(ckpt) if n.isdigit())
+    assert steps[0] == 8 and steps[-1] == 12
+    parts = [f"{n}.rank{r}{e}" for r in range(2)
+             for n, e in (("params", ".pt"), ("state", ".pt"), ("data", ".json"), ("done", ""))]
+    assert sorted(os.listdir(ckpt / "12")) == sorted(["meta.json"] + parts)
+    meta = json.loads((ckpt / "12" / "meta.json").read_text())
+    assert meta["mesh"] == {"data": 1, "model": 2} and meta["step"] == 12
+    assert meta["vocab_size"] == run[3].vocab_size
+    data = json.loads((ckpt / "12" / "data.rank1.json").read_text())
+    assert data["data_position"] == 12
+    assert ("data_state" in data) == (case == "sparse_session")
+
+
+def test_restore_on_another_mesh_is_refused(run):
+    d, _, _, _ = run
+    mgr = CheckpointManager(str(d / "sparse" / "resumed" / "ckpt"))  # one process: 1 x 1
+    for read in (lambda: mgr.restore(TrainState(step=0, params={}, opt_state={}, rng_seed=0),
+                                     device="cpu"),
+                 lambda: mgr.restore_params("cpu"), mgr.read_meta):
+        with pytest.raises(ValueError, match=r"mesh of 1 x 2 .*this run's is 1 x 1"):
+            read()
+
+
+def test_a_one_process_checkpoint_is_refused_at_world_2(tmp_path):
+    """A checkpoint of one process (no rank parts) read on either rank of a
+    1 x 2 mesh: the ValueError naming both meshes, before any rank's part is
+    opened. The mesh is a stand-in: the manager reads its shape, rank and
+    size, and sums rank 0's save token with `psum_host`."""
+    from types import SimpleNamespace
+
+    import torch
+
+    state = TrainState(step=3, params={"w": torch.ones(2)}, opt_state={}, rng_seed=0)
+    assert CheckpointManager(str(tmp_path), async_save=False).save(3, state, data_position=0)
+    for rank in (0, 1):
+        mesh = SimpleNamespace(shape={"data": 1, "model": 2}, rank=rank, size=2,
+                               psum_host=lambda x: x)
+        mgr = CheckpointManager(str(tmp_path), mesh=mesh)
+        for read in (lambda: mgr.restore(state, device="cpu"),
+                     lambda: mgr.restore_params("cpu"), mgr.read_meta):
+            with pytest.raises(ValueError, match=r"mesh of 1 x 1 .*this run's is 1 x 2"):
+                read()
+
+
+def test_recommend_sharded_equals_the_whole_model(run):
+    _, outs, _, _ = run
+    for o in outs:
+        np.testing.assert_array_equal(o["recommend/sharded/items"], o["recommend/whole/items"])
+        np.testing.assert_allclose(o["recommend/sharded/scores"], o["recommend/whole/scores"],
+                                   rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(outs[0]["recommend/sharded/items"],
+                                  outs[1]["recommend/sharded/items"])
+
+
+def test_train_cli_runs_on_two_processes_with_the_coordinator_flags(tmp_path):
+    """`python -m seqrec_tpu_torch train --coordinator ... --num_processes 2
+    --process_id r` on the CPU: both ranks train the sharded sparse config
+    and evaluate; rank 0 alone prints and writes metrics.jsonl; each rank
+    beats its own heartbeat."""
+    import subprocess
+    import sys
+
+    from seqrec_tpu_torch.config import RunConfig
+    from seqrec_tpu_torch.data.dataset import load_dataset
+
+    sets = [f"{k}={str(v).lower() if isinstance(v, bool) else v}" for k, v in FIT.items()
+            if k not in ("train.num_steps",)]
+    sets += ["data.dataset=synthetic", f"data.data_dir={tmp_path / 'data'}",
+             "data.synthetic_num_users=80", "data.synthetic_num_items=120",
+             "train.num_steps=8", "train.checkpoint_every=4", f"train.out_dir={tmp_path / 'run'}",
+             "eval.batch_size=16"]
+    load_dataset(RunConfig().apply_overrides(sets).data)  # once, before the ranks read it
+    argv = [sys.executable, "-m", "seqrec_tpu_torch", "train", "--device", "cpu",
+            "--coordinator", f"file://{tmp_path / 'store'}", "--num_processes", "2"]
+    for s in sets:
+        argv += ["--set", s]
+    procs = [subprocess.Popen(argv + ["--process_id", str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              env={**os.environ, "OMP_NUM_THREADS": "1"}) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0, 0], [o[1][-3000:] for o in outs]
+    lines0 = [json.loads(x) for x in outs[0][0].splitlines() if x.startswith("{")]
+    assert "final_test" in lines0[-1] and lines0[-1]["final_test"]["count"] > 0
+    assert not [x for x in outs[1][0].splitlines() if x.startswith("{")]
+    logged = (tmp_path / "run" / "metrics.jsonl").read_text().splitlines()
+    assert [json.loads(x)["step"] for x in logged if '"train"' in x] == [3, 7]
+    assert {"heartbeat_0", "heartbeat_1"} <= set(os.listdir(tmp_path / "run"))
+    assert json.loads((tmp_path / "run" / "ckpt" / "8" / "meta.json").read_text())["mesh"] == {
+        "data": 1, "model": 2}

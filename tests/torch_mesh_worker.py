@@ -1,0 +1,296 @@
+"""One gloo rank of the port's multi-rank tests, on the CPU, importing no JAX.
+
+    python tests/torch_mesh_worker.py <init url> <world> <rank> <scenario> <dir>
+
+The test spawns `world` of these (`spawn`), each joins the process group
+through a `file://` store in the test's own directory (so parallel test
+workers never race for a port), reads `<dir>/inputs.npz` (and
+`<dir>/inputs.json`), runs its scenario and writes `<dir>/out.rank<r>.npz`.
+The JAX side of each comparison runs in the test's process.
+
+Scenarios:
+- functions: the mesh, `sharded_gather` (forward and gradient, dedup on and
+  off), `replicated_gather`, `sharded_ranks`, `sharded_topk`,
+  `sharded_sub_table` and `sharded_row_update` on meshes of model_axis 2, 4
+  and 1 over the world;
+- steps: the trainer's K steps (dense, sparse exact, sparse capped,
+  session-parallel) from given parameters, batches and negatives;
+- fit: the full-protocol eval of given parameters, a straight fit against a
+  killed and resumed one, and `recommend` sharded against one rank's whole
+  model.
+"""
+
+from __future__ import annotations
+
+import faulthandler
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parent
+
+
+def spawn(scenario: str, world: int, directory: Path, timeout: float = 150.0) -> list:
+    """Run `world` ranks of `scenario` over `directory`; their outputs, by
+    rank. Each rank has `timeout` seconds: a hang fails this test only (the
+    ranks are killed), it does not eat the suite's clock."""
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(ROOT),
+           "SEQREC_WORKER_DUMP_S": str(max(5, int(timeout) - 10))}
+    store = directory / "store"
+    store.unlink(missing_ok=True)
+    procs = [subprocess.Popen(
+        [sys.executable, str(HERE / "torch_mesh_worker.py"), f"file://{store}", str(world),
+         str(r), scenario, str(directory)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=ROOT)
+        for r in range(world)]
+    deadline = time.monotonic() + timeout
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            logs.append(out.decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(r, p.returncode, log[-4000:]) for r, (p, log) in enumerate(zip(procs, logs))
+           if p.returncode != 0]
+    assert not bad, f"{scenario} ranks failed: {bad}"
+    return [dict(np.load(directory / f"out.rank{r}.npz")) for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# The ranks' side (imports torch and the port only)
+# ---------------------------------------------------------------------------
+
+
+def _t(a):
+    import torch
+
+    return torch.from_numpy(np.array(a))
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _functions(io: dict, rank: int) -> dict:
+    import torch
+
+    from seqrec_tpu_torch.eval.sharded import sharded_ranks, sharded_topk
+    from seqrec_tpu_torch.parallel.embedding import replicated_gather, sharded_gather
+    from seqrec_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+    from seqrec_tpu_torch.train import sparse_embed
+
+    out = {}
+    for M in (2, 4, 1):
+        mesh = make_mesh(M)
+        p = f"M{M}/"
+        out[p + "shape"] = np.array([mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]])
+        out[p + "coords"] = np.array([mesh.axis_index(DATA_AXIS), mesh.axis_index(MODEL_AXIS)])
+        m = mesh.axis_index(MODEL_AXIS)
+        world = mesh.size
+        # Lookups: rank r's batch rows [r B, (r + 1) B); its table shard.
+        table, ids, cot = io[p + "table"], io[p + "ids"], io[p + "cot"]
+        rows = table.shape[0] // M
+        B = ids.shape[0] // world
+        mine = slice(rank * B, (rank + 1) * B)
+        for dedup in (True, False):
+            shard = _t(table[m * rows:(m + 1) * rows]).requires_grad_(True)
+            acts = sharded_gather(shard, _t(ids[mine]), mesh, dedup=dedup, use_pallas=True)
+            (acts * _t(cot[mine])).sum().backward()
+            out[p + f"gather_dedup{int(dedup)}"] = _np(acts)
+            out[p + f"grad_dedup{int(dedup)}"] = _np(mesh.psum(shard.grad, DATA_AXIS))
+        shard = _t(table[m * rows:(m + 1) * rows]).requires_grad_(True)
+        neg = _t(io[p + "neg"])
+        rep = replicated_gather(shard, neg, mesh, dtype=torch.bfloat16)
+        (rep.float() * _t(io[p + "neg_cot"][rank])).sum().backward()
+        out[p + "replicated"] = _np(rep.float())
+        out[p + "replicated_grad"] = _np(mesh.psum(shard.grad, DATA_AXIS))
+        # Ranking: rank r's query rows.
+        h, tg, excl = io[p + "h"], io[p + "targets"], io[p + "exclude"]
+        Bq = h.shape[0] // world
+        q = slice(rank * Bq, (rank + 1) * Bq)
+        otab, bias = io[p + "out_table"], io[p + "bias"]
+        orows = otab.shape[0] // M
+        oshard, bshard = _t(otab[m * orows:(m + 1) * orows]), _t(bias[m * orows:(m + 1) * orows])
+        nv = int(io[p + "num_valid"])
+        for tag, b, ex in (("bias", bshard, None), ("nobias", None, None),
+                           ("exclude", bshard, _t(excl[q]))):
+            out[p + f"ranks_{tag}"] = _np(sharded_ranks(oshard, _t(h[q]), _t(tg[q]), mesh,
+                                                        bias=b, num_valid=nv, exclude=ex))
+        for tag, b in (("bias", bshard), ("nobias", None)):
+            vals, top = sharded_topk(oshard, _t(h[q]), 7, mesh, bias=b, num_valid=nv)
+            out[p + f"topk_vals_{tag}"], out[p + f"topk_ids_{tag}"] = _np(vals), _np(top)
+        # The sharded sparse pair.
+        uids = _t(io[p + "uids"])
+        stab = io[p + "sparse_table"]
+        srows = stab.shape[0] // M
+        out[p + "sub_table"] = _np(sparse_embed.sharded_sub_table(
+            _t(stab[m * srows:(m + 1) * srows]), uids, mesh))
+        for opt in ("sgd", "adagrad", "adam"):
+            t = _t(stab[m * srows:(m + 1) * srows])
+            row_opt = {k: _t(v[m * srows:(m + 1) * srows])
+                       for k, v in _opt_leaves(io, p + opt).items()}
+            sparse_embed.sharded_row_update(opt, 0.05, t, row_opt, uids, _t(io[p + "g_rows"]),
+                                            6, mesh)
+            out[p + f"row_update_{opt}/table"] = _np(t)
+            for k, v in row_opt.items():
+                out[p + f"row_update_{opt}/{k}"] = _np(v)
+    return out
+
+
+def _opt_leaves(io: dict, prefix: str) -> dict:
+    return {k[len(prefix) + 1:]: v for k, v in io.items() if k.startswith(prefix + "/")}
+
+
+class _DS:
+    def __init__(self, vocab: int, users: int = 0):
+        self.vocab_size, self.num_users = vocab, users
+
+
+def _config(settings: dict):
+    from seqrec_tpu_torch.config import RunConfig
+
+    cfg = RunConfig()
+    for key, v in settings.items():
+        section, name = key.split(".")
+        setattr(getattr(cfg, section), name, v)
+    return cfg
+
+
+def _gather_state(tr, state, out: dict, prefix: str) -> None:
+    """Every leaf of this rank's state under `prefix` (the test assembles the
+    shards)."""
+    for k, v in state.params.items():
+        out[f"{prefix}params/{k}"] = _np(v)
+    for k, tree in (state.embed_opt or {}).items():
+        for leaf, v in tree.items():
+            out[f"{prefix}embed_opt/{k}/{leaf}"] = _np(v)
+    for part in ("mu", "nu", "sum_of_squares"):
+        for k, v in state.opt_state.get(part, {}).items():
+            out[f"{prefix}opt/{part}/{k}"] = _np(v)
+    if state.carry is not None:
+        for i, c in enumerate(state.carry):
+            out[f"{prefix}carry/{i}"] = _np(c)
+
+
+def _steps(io: dict, rank: int, spec: dict) -> dict:
+    import torch
+
+    from seqrec_tpu_torch.models.convert import shard_state_dict
+    from seqrec_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    for case, settings in spec["cases"].items():
+        cfg = _config(settings)
+        tr = Trainer(cfg, _DS(spec["vocab"]), device="cpu")
+        world, B = tr.mesh.size, tr.local_batch
+        whole = {k[len(case) + 8:]: torch.from_numpy(v) for k, v in io.items()
+                 if k.startswith(f"{case}/params/")}
+        state = tr._state(shard_state_dict(whole, tr.model), 3, torch.device("cpu"))
+        if f"{case}/carry" in io:
+            state.carry = (_t(io[f"{case}/carry"][rank * B:(rank + 1) * B]),)
+        negs = [(_t(n), _t(q) if q.size else None)
+                for n, q in zip(io[f"{case}/neg"], io[f"{case}/neg_log_q"])]
+        drawn = iter(negs)
+        tr.sample_negatives = lambda gen: next(drawn)
+        keys = [k for k in ("inputs", "targets", "mask", "reset") if f"{case}/{k}" in io]
+        metrics = []
+        for s in range(io[f"{case}/inputs"].shape[0]):
+            batch = {k: io[f"{case}/{k}"][s, rank * B:(rank + 1) * B] for k in keys}
+            state, m = tr.train_step(state, batch)
+            metrics.append([float(m["loss"]), float(m["grad_norm"]), float(m["tokens"])])
+        out[f"{case}/metrics"] = np.array(metrics)
+        out[f"{case}/world"] = np.array([world, B])
+        _gather_state(tr, state, out, f"{case}/")
+    return out
+
+
+def _fit(io: dict, rank: int, spec: dict, directory: Path) -> dict:
+    import torch
+
+    from seqrec_tpu_torch.data.dataset import synthetic_dataset
+    from seqrec_tpu_torch.eval.infer import recommend
+    from seqrec_tpu_torch.models import build_model
+    from seqrec_tpu_torch.models.convert import shard_state_dict
+    from seqrec_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    ds = synthetic_dataset(**spec["dataset"])
+    whole = {k[len("params/"):]: torch.from_numpy(v) for k, v in io.items()
+             if k.startswith("params/")}
+    # Both protocols' eval of the given parameters.
+    for protocol in ("full", "sampled"):
+        cfg = _config({**spec["eval"], "eval.protocol": protocol})
+        tr = Trainer(cfg, ds, device="cpu")
+        state = tr._state(shard_state_dict(whole, tr.model), 0, torch.device("cpu"))
+        for split in ("val", "test"):
+            m = tr.evaluate(state, split=split)
+            out[f"eval/{protocol}/{split}/keys"] = np.array(sorted(m))
+            out[f"eval/{protocol}/{split}/values"] = np.array([m[k] for k in sorted(m)])
+    # recommend: the sharded top-k against one rank's whole model.
+    tr.model.load_state_dict(state.params)
+    tr.model.eval()
+    full = build_model(cfg.model, ds.vocab_size, device="cpu")
+    full.load_state_dict({k: v[:ds.vocab_size] if k == "item_embedding" else v
+                          for k, v in whole.items()})
+    full.eval()
+    hist = [{"user": i, "history": [int(x) for x in ds.seq(i)[-5:]]} for i in range(9)]
+    for tag, model in (("sharded", tr.model), ("whole", full)):
+        recs = list(recommend(model, hist, k=5, batch_size=4, max_len=cfg.data.max_len))
+        out[f"recommend/{tag}/items"] = np.array([r["items"] for r in recs])
+        out[f"recommend/{tag}/scores"] = np.array([r["scores"] for r in recs])
+    # A straight fit against one killed and resumed, each case.
+    for case, settings in spec["fit"].items():
+        for run, extra in (("straight", {}), ("killed", {"train.fail_after_step": 8}),
+                           ("resumed", {"train.resume": True})):
+            where = directory / case / ("straight" if run == "straight" else "resumed")
+            c = _config({**settings, "train.out_dir": str(where), **extra})
+            tr = Trainer(c, ds, device="cpu")
+            final, _ = tr.fit()
+            out[f"fit/{case}/{run}/step"] = np.array([final.step])
+            _gather_state(tr, final, out, f"fit/{case}/{run}/")
+    return out
+
+
+def main(argv) -> int:
+    init_url, world, rank, scenario, directory = argv[1:6]
+    # A hang prints every thread's stack and exits (the test shows it).
+    faulthandler.dump_traceback_later(int(os.environ.get("SEQREC_WORKER_DUMP_S", "600")),
+                                      exit=True)
+    import torch
+
+    torch.set_num_threads(1)
+    from seqrec_tpu_torch.runtime import mesh as rt
+
+    rt.init_distributed(init_url, int(world), int(rank), device="cpu")
+    directory = Path(directory)
+    with np.load(directory / "inputs.npz") as f:
+        io = {k: f[k] for k in f.files}
+    spec_path = directory / "inputs.json"
+    spec = json.loads(spec_path.read_text()) if spec_path.exists() else {}
+    rank = int(rank)
+    if scenario == "functions":
+        out = _functions(io, rank)
+    elif scenario == "steps":
+        out = _steps(io, rank, spec)
+    elif scenario == "fit":
+        out = _fit(io, rank, spec, directory)
+    else:
+        raise ValueError(f"unknown scenario {scenario!r}")
+    np.savez(directory / f"out.rank{rank}.npz", **out)
+    torch.distributed.barrier()
+    rt.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
