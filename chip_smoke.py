@@ -78,6 +78,12 @@ source, all at once). Each phase prints one JSON line:
               bit for bit; examples/s and step ms from the logger's lines,
               the eval's seconds, and from a profiled short fit the device
               time, launches and top kernels a step and the idle share;
+              then a 40-step fit with train.profile_dir (a temporary
+              directory) and profile_steps (8, 24): one Chrome trace whose
+              groups are exactly the window's three (their labels), naming
+              each hand-written kernel of the path, its launches a step equal
+              to the counters', its device operations a step beside the
+              profiled fit's;
   g. tower_kernels  the SASRec and LSTM towers' kernels against their plain
               versions at the training shapes, bf16 and f32: causal
               attention at [128, 200, 1, 64] (also against
@@ -182,7 +188,18 @@ source, all at once). Each phase prints one JSON line:
               lr 0.05, each held against one rank on the global batch (1e-5
               of each leaf's largest value), each also reading a planted
               fault (shard 1's row update skipped) that must exceed 1e-5,
-              then 48-step fits of
+              then configs/ml100k_gru.json with mesh.model_axis=2 and
+              mesh.shard_embeddings (the vocab-parallel full softmax over
+              848-row shards of the table and its output bias, buckets
+              [50, 100, 200] on one global stream, synthetic data of
+              ML-100K's shape): an f32 K=8 group (adagrad, dropout 0) at lr
+              0.05 against one rank on the global batch (1e-5), with its
+              planted fault (shard 1's table and bias rows as before the
+              group), then a 48-step bf16 fit as shipped (dropout 0.1,
+              adam): finite global losses alike on both ranks, the last
+              group's below the first's, launches a step, ex/s, step,
+              device and collective ms, peak memory, and the full-protocol
+              sharded eval; then 48-step fits of
               configs/synthetic10m_sharded.json and configs/rsc15_10m.json
               as shipped (model_axis=2, 5,000,004-row shards): finite global
               losses alike on both ranks, each kernel's launches a step,
@@ -195,6 +212,15 @@ source, all at once). Each phase prints one JSON line:
               over NCCL, a card a rank: torchrun --nproc_per_node=N
               chip_smoke.py --sharded-ranks DIR, then chip_smoke.py
               --sharded-check DIR (one JSON line);
+  q. remat    SASRec block rematerialization on configs/ml1m_sasrec.json
+              at full width (B=128, T=200, D=64, 2 blocks, dropout 0.2,
+              warmup 0 as phase i), bf16 and f32: one K=8 group with
+              model.remat=true and one without from one state on one batch
+              group, every first-step gradient, parameter and optimizer leaf
+              and the metrics bit for bit; the attention kernel's launches a
+              step (twice a block with remat: the backward replays the
+              forward); peak device memory and step ms each way, four timed
+              groups each, alternated;
   m. the kernels line: {"kernels": [{name, route, source, replaces,
               launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
               library_ms, design, dtype}, ...]} (the scatter-add also
@@ -206,7 +232,8 @@ source, all at once). Each phase prints one JSON line:
               path (GRU4Rec's for the gather, scatter-add and head, the
               session paths' for the reset variants, the f32 paths' for the
               f32 kernels; the counts of every path beside it, the fit
-              loop's and the sparse fits' included), and the two
+              loop's, the profile_dir fit's, the sparse fits', p2 rank 0's
+              ml100k fit's and phase q's included), and the two
               shard-window variants, their launches counted on p2's rank 0.
 
 Then the raw nvidia-smi name/power-limit line, and last
@@ -2085,6 +2112,7 @@ def phase_fit(dev) -> dict:
                   if not all(torch.equal(f.params[k], finals[0].params[k]) for f in finals)]
         check(not differ, f"fit: final parameters differ between runs: {differ}")
         prof = _fit_profile(dev, ds, root / "profile")
+        traced = _fit_trace(dev, ds, root / "trace", prof)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     by_k = {K: [r for r in runs if r["steps_per_call"] == K] for K in set(FIT_RUNS)}
@@ -2099,10 +2127,88 @@ def phase_fit(dev) -> dict:
         "runs": runs, "summary": summary, "final_params_bitwise_equal_across_runs": True,
         "launches": runs[0]["launches"], "profile": prof,
         "device_idle_share": 1.0 - prof["device_ms_per_step"] / k8_step,
-        "eval_seconds": runs[0]["eval"]["seconds"],
+        "eval_seconds": runs[0]["eval"]["seconds"], "profile_dir_fit": traced,
     }
     emit(result)
     return result
+
+
+# The profile_dir fit (phase f2): a trace from the group holding step 8 to
+# the one holding step 24 (three groups of 8) in a 40-step fit.
+TRACE_WINDOW, TRACE_FIT_STEPS = (8, 24), 40
+# The hand-written kernels' function names (csrc/*.cu, *.cuh), as a trace
+# names them inside their demangled signatures.
+HANDWRITTEN = ("gather_rows_kernel", "scatter_partials_kernel", "scatter_combine_kernel",
+               "xproj_kernel", "xproj_f32_kernel", "gru_forward_mma_kernel",
+               "gru_forward_cluster_kernel", "gru_backward_mma_kernel",
+               "gru_backward_cluster_kernel", "lstm_forward_mma_kernel",
+               "lstm_forward_cluster_kernel", "lstm_backward_mma_kernel",
+               "lstm_backward_cluster_kernel", "head_mma_kernel", "head_f32_kernel",
+               "attention_mma_kernel", "attention_f32_kernel")
+# Each of them on a bf16 GRU4Rec path, and the counter that counts its
+# launches (the scatter-add's two kernels: one each a call).
+TRACE_COUNTERS = {"gather_rows_kernel": "gather", "scatter_partials_kernel": "gather_backward",
+                  "scatter_combine_kernel": "gather_backward", "xproj_kernel": "gru_xproj",
+                  "gru_forward_mma_kernel": "gru_scan", "gru_backward_mma_kernel": "gru_backward",
+                  "head_mma_kernel": "softmax_head"}
+
+
+def _handwritten(name: str) -> Optional[str]:
+    for h in HANDWRITTEN:
+        if re.search(rf"(?<![A-Za-z0-9_]){h}(?![A-Za-z0-9_])", name):
+            return h
+    return None
+
+
+def _fit_trace(dev, ds, out_dir: Path, prof: dict) -> dict:
+    """`Trainer.fit` at fit_config(8) for TRACE_FIT_STEPS steps with
+    train.profile_dir and profile_steps=TRACE_WINDOW: one Chrome trace in
+    the directory, its groups exactly the window's (three of 8 steps, by
+    their labels), naming each hand-written kernel of the path; its launches
+    a step, each against the counters over the fit, and all its device
+    operations a step beside `prof` (f2's own profiled fit)."""
+    cfg = fit_config(8, str(out_dir / "run"))
+    cfg.train.num_steps, cfg.train.eval_every = TRACE_FIT_STEPS, 0
+    cfg.train.profile_dir, cfg.train.profile_steps = str(out_dir / "trace"), TRACE_WINDOW
+    tr = Trainer(cfg, ds, device=dev)
+    zero_counters()
+    t0 = time.perf_counter()
+    state, _ = tr.fit()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counters()
+    trace = tr.profile_trace
+    check(trace is not None and os.listdir(out_dir / "trace") == [os.path.basename(trace)],
+          f"fit trace: {trace}, {os.listdir(out_dir / 'trace')}")
+    events = json.loads(Path(trace).read_text())["traceEvents"]
+    lo = TRACE_WINDOW[0] - TRACE_WINDOW[0] % 8
+    hi = TRACE_WINDOW[1] - TRACE_WINDOW[1] % 8 + 8
+    want_groups = [f"seqrec_group[{a},{a + 8})" for a in range(lo, hi, 8)]
+    groups = sorted({e["name"] for e in events
+                     if e.get("ph") == "X" and e.get("name", "").startswith("seqrec_group[")})
+    check(groups == sorted(want_groups), f"fit trace: groups {groups}, expected {want_groups}")
+    steps = hi - lo
+    by_kernel = {}
+    device_ops = 0
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device_ops += 1
+        if e.get("cat") == "kernel":
+            h = _handwritten(e.get("name", ""))
+            if h is not None:
+                by_kernel[h] = by_kernel.get(h, 0) + 1
+    per_step = {k: v / steps for k, v in sorted(by_kernel.items())}
+    counted = {k: launches[c] / TRACE_FIT_STEPS for k, c in TRACE_COUNTERS.items()}
+    check(set(per_step) == set(TRACE_COUNTERS),
+          f"fit trace: hand-written kernels {sorted(per_step)}, expected {sorted(TRACE_COUNTERS)}")
+    check(per_step == counted, f"fit trace: launches a step {per_step} vs the counters {counted}")
+    return {"profile_dir": "a temporary directory", "profile_steps": list(TRACE_WINDOW),
+            "trace_file": os.path.basename(trace), "trace_bytes": os.path.getsize(trace),
+            "steps": TRACE_FIT_STEPS, "wall_s": wall_s, "groups": groups,
+            "handwritten_launches_per_step": per_step, "counters_per_step": counted,
+            "device_operations_per_step": device_ops / steps,
+            "f2_profile_device_launches_per_step": prof["device_launches_per_step"],
+            "final_step": state.step}
 
 
 SPARSE_STEPS = 48  # six groups of 8
@@ -2516,6 +2622,105 @@ def phase_sparse(dev, seed: int) -> dict:
     return result
 
 
+REMAT_TURNS = 4  # timed K=8 groups each way, alternated (off, on, off, on, ...)
+
+
+def _remat_group(cfg: RunConfig, dev, seed: int, group) -> dict:
+    """One configuration's K=8 group from the seed's state on `group`: the
+    first step's gradients, the group's end state and metrics and its
+    launches; then REMAT_TURNS timed groups from the same state, each with
+    its peak device memory."""
+    tr = Trainer(cfg, _Catalog(), device=dev)
+    state = tr.init_state(seed)
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in state.params.items()}
+    loss = tr.forward(state, params, tr._device_batch(group[0]))[0]
+    grads = {k: g.detach() for k, g in tr.backward(loss, params).items()}
+    del params, loss
+    zero_counters()
+    end, m = tr.train_step_multi(state, group)
+    torch.cuda.synchronize()
+    return {"trainer": tr, "state": state, "grads": grads, "end": end,
+            "metrics": {k: float(v) for k, v in m.items()}, "launches": read_counters()}
+
+
+def _remat_time(run: dict, group) -> tuple:
+    """(ms a step, peak device memory over the group) of one K=8 group."""
+    tr, state = run["trainer"], run["state"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr.train_step_multi(state, group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(group), torch.cuda.max_memory_allocated()
+
+
+def phase_remat(rng: np.random.Generator, dev, seed: int) -> dict:
+    """q. SASRec block rematerialization: configs/ml1m_sasrec.json at full
+    width (B=128, T=200, D=64, 2 blocks, dropout 0.2 as shipped, warmup 0
+    as phase i), bf16 and f32, one K=8 group with model.remat=true and one
+    with false from one state on one batch group: every gradient of the
+    first step, every parameter and optimizer leaf and the group's metrics
+    equal bit for bit (dropout is on: the replay draws the forward's masks);
+    the attention kernel's launches a step (remat: twice a block, the
+    forward again in the backward's replay; the other kernels as without);
+    the peak device memory and the step ms each way (REMAT_TURNS groups
+    each, alternated)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        base = RunConfig.load(CONFIGS["sasrec"]).apply_overrides(
+            ["train.warmup_steps=0", f"model.compute_dtype={dtype}"])
+        K, B, T = base.train.steps_per_call, base.data.batch_size, base.data.max_len
+        check(base.model.dropout_rate == 0.2, "remat: the shipped dropout changed")
+        group = [_on_device(w, dev) for w in _train_wires(rng, Trainer(base, _Catalog(),
+                                                                       device=dev), 1, K, B, T)[0]]
+        runs = {remat: _remat_group(base.apply_overrides([f"model.remat={str(remat).lower()}"]),
+                                    dev, seed, group) for remat in (False, True)}
+        a, b = runs[False], runs[True]
+        differ = [f"grad/{k}" for k in a["grads"] if not torch.equal(a["grads"][k], b["grads"][k])]
+        differ += [f"params/{k}" for k in a["end"].params
+                   if not torch.equal(a["end"].params[k], b["end"].params[k])]
+        oa, ob = _opt_leaves(a["end"].opt_state), _opt_leaves(b["end"].opt_state)
+        differ += [f"opt/{k}" for k in oa if not torch.equal(oa[k], ob[k])]
+        check(not differ, f"remat {dtype}: these leaves differ from the group without remat: "
+                          f"{differ}")
+        check(a["metrics"] == b["metrics"], f"remat {dtype}: metrics {b['metrics']} vs "
+                                            f"{a['metrics']}")
+        for remat, run in runs.items():
+            want = {k: v * K for k, v in expected_launches(run["trainer"].cfg,
+                                                           training=True).items()}
+            want["causal_attention"] *= 1 + remat
+            check(run["launches"] == want, f"remat={remat} {dtype}: launches "
+                                           f"{run['launches']}, expected {want}")
+        turns = {False: [], True: []}
+        for _ in range(REMAT_TURNS):
+            for remat in (False, True):
+                turns[remat].append(_remat_time(runs[remat], group))
+        rec = {}
+        for remat, ts in turns.items():
+            rec["remat" if remat else "no_remat"] = {
+                "step_ms": [t[0] for t in ts],
+                "step_ms_median": float(np.median([t[0] for t in ts])),
+                "peak_memory_bytes": [t[1] for t in ts],
+                "launches_per_step": {k: v / K for k, v in runs[remat]["launches"].items()
+                                      if v}}
+        off, on = rec["no_remat"], rec["remat"]
+        rec.update({
+            "bit_equal_leaves": len(a["grads"]) + len(a["end"].params) + len(oa),
+            "loss": a["metrics"]["loss"],
+            "peak_memory_saved_bytes": max(off["peak_memory_bytes"]) - max(on["peak_memory_bytes"]),
+            "peak_memory_ratio": max(on["peak_memory_bytes"]) / max(off["peak_memory_bytes"]),
+            "step_ms_ratio": on["step_ms_median"] / off["step_ms_median"]})
+        out[dtype] = rec
+        del runs, group
+        torch.cuda.empty_cache()
+    result = {"phase": "remat", "config": CONFIGS["sasrec"], "overrides": ["train.warmup_steps=0"],
+              "batch_size": TRAIN_B, "seq_len": TRAIN_T, "steps": 8, **out}
+    emit(result)
+    return result
+
+
 P_RANKS = 2  # phase p2's ranks, both on cuda:0 over gloo
 P_STEPS = 48  # each p2 fit: six groups of 8
 P_TOL = 1e-5  # f32, the ranks against one rank: the JAX package's sharded rtol
@@ -2533,13 +2738,17 @@ def expected_sharded_launches(cfg: RunConfig, sparse: bool) -> dict:
     instead of the gather. Dense: the inputs' and the positives' lookups
     are each a window gather and the dedup inverse's gather, with a window
     scatter-add and the inverse's scatter-add backward; the negatives' a
-    window gather and a window scatter-add."""
+    window gather and a window scatter-add. The full softmax looks up the
+    inputs alone (its loss is the vocab-parallel matmuls)."""
     if sparse:
         want = expected_launches(cfg, training=True)
         want["gather_window"] = 1 if cfg.model.tie_embeddings else 2
         return want
     want = expected_launches(cfg, training=True)
-    want.update(gather=2, gather_backward=2, gather_window=3, gather_backward_window=3)
+    if cfg.model.loss in SAMPLED_LOSSES:
+        want.update(gather=2, gather_backward=2, gather_window=3, gather_backward_window=3)
+    else:  # the full softmax: the inputs' lookup only (the loss is matmuls)
+        want.update(gather=1, gather_backward=1, gather_window=1, gather_backward_window=1)
     return want
 
 
@@ -2775,6 +2984,121 @@ def _p2_sparse(dev, mesh, seed: int, root: Path, config: str, f32_check: bool = 
 P2_DENSE = [F32, "train.optimizer=adagrad", P2_LR, "model.dropout_rate=0.0",
             "mesh.model_axis=2", "mesh.shard_embeddings=true"]
 P2_CONFIGS = ("configs/synthetic10m_sharded.json", "configs/rsc15_10m.json")
+# configs/ml100k_gru.json (the full softmax, buckets [50, 100, 200]) sharded
+# as shipped but for the mesh, on synthetic data of ML-100K's shape: 1,682
+# items, 943 users with histories of 20..201 (ML-100K's users rate >= 20
+# items, ~106 on average).
+ML100K = "configs/ml100k_gru.json"
+ML100K_SETS = ["mesh.model_axis=2", "mesh.shard_embeddings=true", "data.dataset=synthetic",
+               "data.synthetic_num_items=1682", "data.synthetic_num_users=943",
+               "data.synthetic_min_len=20", "data.synthetic_max_len=201",
+               "train.eval_every=0"]
+# Its f32 group check: adagrad (as P2_DENSE: adam's m / sqrt(v) turns the
+# rounding of a near-zero gradient into a whole step), dropout 0 (rank 1
+# draws its own masks), at P2_LR.
+ML100K_CHECK = [F32, "train.optimizer=adagrad", P2_LR, "model.dropout_rate=0.0"]
+
+
+def _p2_ml100k_cfg(root: Path, rank: int, overrides=()) -> RunConfig:
+    return _p2_sparse_cfg(ML100K, root, rank, [*ML100K_SETS, *overrides])
+
+
+def _p2_ml100k(dev, mesh, seed: int, root: Path) -> dict:
+    """configs/ml100k_gru.json sharded on this rank: the vocab-parallel full
+    softmax with its output bias shard, the bucketed stream of one process
+    (every rank the same bucket), the window gather and scatter-add.
+    First the f32 K=8 group check (ML100K_CHECK) from the seed's state on
+    the stream's first K batches: saves this rank's wires, buckets, state
+    before and after for the parent's one-rank check. Then the bf16 fit as
+    shipped (adam, dropout 0.1) for P_STEPS steps with the counters and the
+    collectives' stats zeroed just before it: every group's global loss
+    finite, the last group's below the first, each kernel's launches a step;
+    ex/s and step ms by CUDA events between groups, device ms a step
+    (torch.profiler over 4 steps), collective ms a step, peak memory; then
+    the full-protocol eval, sharded."""
+    rank = mesh.rank
+    cfg = _p2_ml100k_cfg(root, rank)
+    ds = load_dataset(cfg.data)
+    c32 = cfg.apply_overrides(ML100K_CHECK)
+    tr = Trainer(c32, ds, device=dev, mesh=mesh)
+    check(tr.model.sharded and tr._global_stream(),
+          f"ml100k rank {rank}: not sharded on one global stream")
+    K = c32.train.steps_per_call
+    it = tr.train_iterator()
+    try:
+        first = [next(it) for _ in range(K)]
+    finally:
+        it.close()
+    wires = [tr.pack_batch(b) for _, b in first]
+    state = tr.init_state()
+    before = {"params": _cpu_tree(state.params), "opt": _cpu_tree(_opt_leaves(state.opt_state))}
+    end, m = tr.train_step_multi(state, wires)
+    torch.cuda.synchronize()
+    torch.save({"wires": wires, "buckets": [int(b) for b, _ in first], "before": before,
+                "params": _cpu_tree(end.params), "opt": _cpu_tree(_opt_leaves(end.opt_state)),
+                "loss": float(m["loss"]), "vocab_size": int(ds.vocab_size),
+                "num_users": int(ds.num_users)}, root / f"ml100k.rank{rank}.pt")
+    del tr, state, end
+
+    tr = Trainer(cfg, ds, device=dev, mesh=mesh)
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    probe = _GroupProbe(tr)
+    mesh.stats.update(calls=0, bytes=0, seconds=0.0)
+    zero_counters()
+    t0 = time.perf_counter()
+    state, _ = tr.fit(state)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counters()
+    collectives = dict(mesh.stats)
+    probe.close()
+    run = probe.read()
+    steps = sum(probe.steps)
+    name = f"{ML100K} sharded (rank {rank})"
+    losses = [m["loss"] for m in run["metrics"]]
+    check(state.step == P_STEPS == steps, f"{name}: stopped at step {state.step}")
+    check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and not m["nonfinite"]
+              for m in run["metrics"]), f"{name}: non-finite metrics {run['metrics']}")
+    check(losses[-1] < losses[0], f"{name}: loss did not fall ({losses[0]} -> {losses[-1]})")
+    want = {k: v * steps for k, v in expected_sharded_launches(cfg, sparse=False).items()}
+    check(launches == want, f"{name}: kernel launches {launches}, expected {want}")
+    t0 = time.perf_counter()
+    metrics = tr.evaluate(state, split="test")
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    check(metrics["count"] > 0 and all(np.isfinite(v) for v in metrics.values()),
+          f"{name}: eval metrics {metrics}")
+    step_ms = float(np.median(run["step_ms"]))
+    prof, state = profile_steps(tr, state, _first_batches(tr, 4))
+    result = {
+        "config": ML100K, "overrides": ML100K_SETS, "rank": rank, "world": mesh.size,
+        "mesh": dict(mesh.shape), "backend": mesh.backend,
+        "table_rows": tr.model.table_size, "shard": list(state.params["item_embedding"].shape),
+        "output_bias_shard": list(state.params["output_bias"].shape),
+        "batch_size_per_rank": cfg.data.batch_size, "global_batch": tr.global_batch,
+        "buckets": list(cfg.data.buckets), "data_engine": tr.data_engine,
+        "group_steps": probe.steps,
+        "steps": steps, "fit_seconds": fit_s, "losses": losses,
+        "grad_norms": [m["grad_norm"] for m in run["metrics"]],
+        "step_ms_median": step_ms, "step_ms": run["step_ms"],
+        "examples_per_s_global": tr.global_batch / (step_ms / 1e3),
+        "device_ms_per_step": prof["device_ms_per_step"], "profile": prof,
+        "collectives": collectives, "collective_ms_per_step": collectives["seconds"] * 1e3 / steps,
+        "collective_calls_per_step": collectives["calls"] / steps,
+        "collective_bytes_per_step": collectives["bytes"] / steps,
+        "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "peak_memory_bytes": peak, "allocated_at_fit_start_bytes": resident,
+        "eval_test": metrics, "eval_seconds": eval_s,
+        "f32_group": {"buckets": [int(b) for b, _ in first], "loss": float(m["loss"])},
+    }
+    del state, tr
+    torch.cuda.empty_cache()
+    return result
 
 
 def p2_rank(rank: Optional[int], root: Path, seed: int) -> int:
@@ -2796,10 +3120,12 @@ def p2_rank(rank: Optional[int], root: Path, seed: int) -> int:
         if rank == 0:  # prepared once, read by every rank
             for config in P2_CONFIGS:
                 load_dataset(_p2_sparse_cfg(config, root, 0).data)
+            load_dataset(_p2_ml100k_cfg(root, 0).data)
         mesh.barrier()
         out = {"rank": rank, "mesh": dict(mesh.shape), "backend": mesh.backend,
                "device": str(dev), "data_seconds": time.perf_counter() - t0,
-               "dense_ml1m": _p2_dense(dev, mesh, seed, root)}
+               "dense_ml1m": _p2_dense(dev, mesh, seed, root),
+               "ml100k": _p2_ml100k(dev, mesh, seed, root)}
         out["synthetic10m"] = _p2_sparse(dev, mesh, seed, root, P2_CONFIGS[0], f32_check=True)
         out["rsc15_10m"] = _p2_sparse(dev, mesh, seed, root, P2_CONFIGS[1])
         (root / f"rank{rank}.json").write_text(json.dumps(out))
@@ -2959,6 +3285,72 @@ def _p2_check_f32(dev, root: Path, world: int = P_RANKS) -> dict:
     return out
 
 
+def _p2_check_ml100k(dev, root: Path, world: int = P_RANKS) -> dict:
+    """The ml100k f32 group against one rank: the same config unsharded at
+    model axis 1 (its table unpadded: 1,683 rows), the global batch (the
+    ranks' wires side by side: every rank held the same bucket), from the
+    ranks' starting state (the shards side by side, cut to the true vocab:
+    the padded rows are never read and take no gradient, their logits at
+    -1e30). Every leaf within P_TOL of its largest value, the table and the
+    output bias assembled from the model group's shards. The planted fault:
+    shard 1's table and bias rows, and their accumulators, as before the
+    group; it must read past P_TOL."""
+    ranks = [torch.load(root / f"ml100k.rank{r}.pt", weights_only=False) for r in range(world)]
+    for r in ranks[1:]:
+        check(r["buckets"] == ranks[0]["buckets"],
+              f"p2 ml100k: rank buckets {r['buckets']} vs {ranks[0]['buckets']}")
+    nv = ranks[0]["vocab_size"]
+    cfg = RunConfig.load(ML100K).apply_overrides(
+        [*ML100K_SETS[2:], *ML100K_CHECK, "mesh.model_axis=1", "mesh.shard_embeddings=false",
+         f"data.batch_size={world * RunConfig.load(ML100K).data.batch_size}"])
+
+    class _DS:
+        vocab_size, num_users = nv, ranks[0]["num_users"]
+
+    tr = Trainer(cfg, _DS(), device=dev)
+
+    def sharded(k: str) -> bool:
+        return k.endswith("item_embedding") or k.endswith("output_bias")
+
+    def whole(key: str, k: str, when: str = "after") -> torch.Tensor:
+        """Leaf `k` of `key` ('params' / 'opt') before or after the group,
+        the model group's shards side by side (cut to the true vocab) when
+        it is sharded."""
+        part = [r["before"] if when == "before" else r for r in ranks[:2]]
+        return torch.cat([p[key][k] for p in part])[:nv] if sharded(k) else part[0][key][k]
+
+    params = {k: whole("params", k, "before").to(dev) for k in ranks[0]["before"]["params"]}
+    state = tr._state(params, cfg.train.seed, dev)
+    start_opt = _opt_leaves(state.opt_state)
+    for k in ranks[0]["before"]["opt"]:  # the ranks started where this starts
+        check(torch.equal(whole("opt", k, "before"), start_opt[k].cpu()),
+              f"p2 ml100k: starting optimizer leaf {k} differs")
+    wires = [np.concatenate([r["wires"][i] for r in ranks]) for i in range(len(ranks[0]["wires"]))]
+    end, m = tr.train_step_multi(state, wires)
+    errs, fault = {}, {}
+    for key, want in (("params", end.params), ("opt", _opt_leaves(end.opt_state))):
+        for k, v in want.items():
+            _same_on_ranks(ranks, lambda r: r[key][k], f"p2 ml100k {key}/{k}",
+                           2 if sharded(k) else 0)
+            errs[f"{key}/{k}"] = _rel_err_np(whole(key, k), v.cpu())
+            if sharded(k):
+                planted = torch.cat([ranks[0][key][k], ranks[1]["before"][key][k]])[:nv]
+                fault[f"{key}/{k}"] = _rel_err_np(planted, v.cpu())
+    loss_rel = abs(ranks[0]["loss"] - float(m["loss"])) / abs(float(m["loss"]))
+    errs["loss"] = loss_rel
+    bad = {k: e for k, e in errs.items() if e > P_TOL}
+    check(not bad, f"p2 ml100k: the ranks vs one rank {bad} > {P_TOL}")
+    check(max(fault.values()) > P_TOL,
+          f"p2 ml100k: shard 1's update skipped reads {fault}, within {P_TOL}: unseen")
+    out = {"rel_err": errs, "tolerance": P_TOL, "planted_fault_rel_err": fault,
+           "buckets": ranks[0]["buckets"], "global_batch": int(wires[0].shape[0]),
+           "vocab": nv, "table_rows_sharded": int(ranks[0]["params"]["item_embedding"].shape[0])
+           * 2}
+    del state, end, tr
+    torch.cuda.empty_cache()
+    return out
+
+
 def _window_gather_check(rng, dev, rows: int, n: int, D: int, dtype) -> dict:
     """p3. The window gather at the sharded fetch's shape: n ids over the
     whole table of 2 x rows rows into the second shard (rows [rows, 2 rows),
@@ -3077,9 +3469,15 @@ def sharded_summary(dev, seed: int, root: Path, ranks: list) -> dict:
                   f"p2 {path}: rank {r['rank']} logs other global losses than rank 0")
         changed = sum(r[path]["shard_rows_changed"] for r in ranks[:2])
         check(changed > 0, f"p2 {path}: no row of the table changed")
+    for r in ranks[1:]:
+        check(r["ml100k"]["losses"] == ranks[0]["ml100k"]["losses"]
+              and r["ml100k"]["grad_norms"] == ranks[0]["ml100k"]["grad_norms"]
+              and r["ml100k"]["eval_test"] == ranks[0]["ml100k"]["eval_test"],
+              f"p2 ml100k: rank {r['rank']} logs other global losses or metrics than rank 0")
     world = len(ranks)
     return {"p2_dense_vs_one_rank": _p2_check_dense(dev, seed, root, world),
-            "p2_f32_vs_one_rank": _p2_check_f32(dev, root, world)}
+            "p2_f32_vs_one_rank": _p2_check_f32(dev, root, world),
+            "p2_ml100k_vs_one_rank": _p2_check_ml100k(dev, root, world)}
 
 
 CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AFTER = 48, 16, 24
@@ -3273,13 +3671,23 @@ def main(argv=None) -> int:
     sparse = phase_sparse(dev, args.seed)
     phase_checkpoint(dev, args.seed, requests)
     sharded = phase_sharded(dev, args.seed)
+    remat = phase_remat(rng, dev, args.seed)
+
+    p2_rank0 = sharded["p2_gloo_two_ranks_one_card"][0]
 
     def counts(kernel):
         return {"fit_bench_gru4rec": fit["launches"][kernel],
+                "fit_bench_gru4rec_profile_dir": fit["profile_dir_fit"]["counters_per_step"].get(
+                    next((h for h, c in TRACE_COUNTERS.items() if c == kernel), ""), 0.0)
+                * TRACE_FIT_STEPS,
                 **{f"{kind}_{path}": runs[path]["launches"][kernel]
                    for kind, runs in (("train", train), ("serve", serve)) for path in runs},
                 **{f"fit_sparse_{path}": run["launches"][kernel]
-                   for path, run in sparse["runs"].items()}}
+                   for path, run in sparse["runs"].items()},
+                "p2_rank0_fit_ml100k_sharded": p2_rank0["ml100k"]["launches"][kernel],
+                **{f"train_remat_{dtype}_{way}": remat[dtype][way]["launches_per_step"].get(
+                    kernel, 0.0) * 8 for dtype in ("bfloat16", "float32")
+                   for way in ("no_remat", "remat")}}
 
     gather = kern["gather"]
 
@@ -3351,9 +3759,9 @@ def main(argv=None) -> int:
     # The shard-window variants (phase p): launches on p2's rank 0, the
     # window gather's on the sharded sparse fit, the window scatter-add's on
     # the dense sharded group (the sparse step's sub-table needs none).
-    rank0 = sharded["p2_gloo_two_ranks_one_card"][0]
+    rank0 = p2_rank0
     by_path = lambda k: {f"p2_rank0_{p}": rank0[p]["launches"][k]  # noqa: E731
-                         for p in ("dense_ml1m", "synthetic10m", "rsc15_10m")}
+                         for p in ("dense_ml1m", "ml100k", "synthetic10m", "rsc15_10m")}
     for kname, replaces, rec, path, on in (
             ("gather_window", "gather.py:86", sharded["p3"]["gather_window"]["float32"],
              "synthetic10m", f"p2 rank 0 fit {P2_CONFIGS[0]}"),

@@ -1,4 +1,4 @@
-"""CLI: ``python -m seqrec_tpu_torch {train,eval,recommend} ...``.
+"""CLI: ``python -m seqrec_tpu_torch {train,eval,prepare-data,recommend} ...``.
 
 The port's counterpart of `seqrec_tpu/cli.py`:
 
@@ -8,6 +8,7 @@ The port's counterpart of `seqrec_tpu/cli.py`:
         --set data.dataset=synthetic --set train.resume=true
     python -m seqrec_tpu_torch eval --config configs/ml1m_gru4rec.json \
         --set data.dataset=synthetic --split test
+    python -m seqrec_tpu_torch prepare-data synthetic --data_dir data
     python -m seqrec_tpu_torch recommend --config configs/ml1m_gru4rec.json \
         --ckpt runs/ml1m_gru4rec/ckpt --input histories.jsonl --k 10
     python -m seqrec_tpu_torch recommend --config configs/ml1m_gru4rec.json \
@@ -19,7 +20,10 @@ under `train.out_dir`/ckpt every `train.checkpoint_every` steps and at the
 end, resuming the newest with `train.resume=true`; then the test split's
 eval, and prints `{"final_test": {...}}` after the logger's lines. `eval`
 restores the newest checkpoint (`--ckpt`, default `train.out_dir`/ckpt)
-and prints `{"step", "split", **metrics}`.
+and prints `{"step", "split", **metrics}`. `prepare-data` builds a dataset's
+canonical files under `--data_dir/<name>` from its raw file there (nothing
+is downloaded; `synthetic` needs none) and prints `{"dataset", "num_users",
+"num_items", "num_interactions"}`, as the JAX CLI does.
 
 `recommend` reads the parameters of the port's newest checkpoint
 (`--ckpt`), or a `.npz` of the JAX parameter tree (`--weights`, see
@@ -102,6 +106,24 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def cmd_prepare_data(args) -> int:
+    """Build the canonical dataset format (`data.dataset.prepare_dataset`)."""
+    from seqrec_tpu_torch.config import DataConfig
+    from seqrec_tpu_torch.data.dataset import prepare_dataset
+
+    cfg = DataConfig(dataset=args.dataset, data_dir=args.data_dir)
+    if args.config:
+        cfg = RunConfig.load(args.config).data
+    ds = prepare_dataset(args.dataset, args.data_dir, cfg)
+    print(json.dumps({
+        "dataset": args.dataset,
+        "num_users": ds.num_users,
+        "num_items": ds.vocab_size - 1,
+        "num_interactions": int(len(ds.items)),
+    }), flush=True)
+    return 0
+
+
 def cmd_recommend(args) -> int:
     """Batch inference: JSON-lines histories in, top-k recommendations out."""
     cfg = _load_cfg(args)
@@ -175,6 +197,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--ckpt", default=None, help="checkpoint dir (default out_dir/ckpt)")
     p.add_argument("--split", default="test", choices=["val", "test"])
     p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("prepare-data", help="build the canonical dataset format")
+    p.add_argument("dataset", help="ml-100k | ml-1m | beauty | steam | synthetic")
+    p.add_argument("--data_dir", default="data")
+    p.add_argument("--config", default=None)
+    p.set_defaults(fn=cmd_prepare_data)
 
     p = sub.add_parser("recommend", help="top-k recommendations for histories")
     _add_common(p)

@@ -29,7 +29,8 @@ device, drawing the embedding tables in row blocks straight into the device
 tensor (a 10M-row table is never whole on the host).
 
 A model with row-sharded tables (`SeqRecModel.table_window`) holds one
-rank's shard of each: `random_params` draws the whole tables all the same
+rank's shard of each (and of the full softmax's output bias):
+`random_params` draws the whole tables all the same
 (the JAX tree), `shard_state_dict` cuts a whole state_dict into this rank's
 shard, and `init_state_dict` draws the whole stream and keeps the shard's
 rows only: a rank draws, and drops, the blocks of every other shard (the
@@ -184,12 +185,14 @@ def init_state_dict(model, seed: int, device, block_rows: int = TABLE_BLOCK_ROWS
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         shape = _whole_shape(model, name, p)
-        if not _is_table(leaf):
-            out[name] = torch.from_numpy(
-                _init_leaf(rng, leaf, shape).astype(np.float32)).to(device)
-            continue
         # The rows this module keeps: all of them, or its shard's window.
         window = getattr(model, "table_window", lambda _: None)(name)
+        if not _is_table(leaf):  # drawn whole; a sharded one (the output bias) cut
+            a = _init_leaf(rng, leaf, shape)
+            if window is not None:
+                a = a[window[0]:window[0] + p.shape[0]]
+            out[name] = torch.from_numpy(a.astype(np.float32)).to(device)
+            continue
         lo = 0 if window is None else window[0]
         hi = lo + p.shape[0]
         t = torch.empty((hi - lo, shape[1]), dtype=torch.float32, device=device)

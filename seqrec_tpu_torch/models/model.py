@@ -18,10 +18,11 @@ as the JAX model's): each rank's module holds its shard of every table,
 rows [m rows / M, (m + 1) rows / M) of the padded table (`table_size` is
 the whole table's rows), and looks its own ids up through
 `parallel.embedding.sharded_gather` (the shared negatives through
-`replicated_gather`), a collective over the model group. The sparse
-step's sub-tables are replicated and take the plain gather. The full
-softmax over a sharded table (its [N, V] logits) is not ported: such a
-model raises.
+`replicated_gather`), a collective over the model group. The output
+bias of the full softmax is held as the same rows' shard, and the full
+softmax runs vocab-parallel (`parallel.softmax.sharded_full_softmax_loss`:
+each rank's [M N, V / M] logits, never [N, V]). The sparse step's
+sub-tables are replicated and take the plain gather.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from seqrec_tpu_torch.data.negative import pos_log_prob
 from seqrec_tpu_torch.models.towers import RNNTower, SASRecTower, dropout
 from seqrec_tpu_torch.ops import reference
 from seqrec_tpu_torch.parallel.embedding import padded_vocab, replicated_gather, sharded_gather
+from seqrec_tpu_torch.parallel.softmax import sharded_full_softmax_loss
 from seqrec_tpu_torch.runtime import DEFAULT_DEVICE, resolve_device
 from seqrec_tpu_torch.runtime.mesh import MODEL_AXIS, Mesh
 
@@ -104,11 +106,6 @@ class SeqRecModel(nn.Module):
         if rows % shards:
             raise ValueError(f"vocab {rows} must divide model shards {shards}; "
                              "use padded_vocab()")
-        if self.sharded and loss_type == "full_softmax":
-            raise NotImplementedError(
-                "loss full_softmax over a row-sharded table (mesh.shard_embeddings with "
-                "mesh.model_axis > 1): its [N, V] logits across shards are not ported; "
-                "use a sampled loss or mesh.shard_embeddings=false")
         self.vocab_size = vocab_size
         self.table_size = rows
         self.use_user_embedding = use_user_embedding
@@ -130,15 +127,15 @@ class SeqRecModel(nn.Module):
         else:
             self.output_embedding = _param((local, hidden), param_dtype, device)
         if output_bias:
-            self.output_bias = _param((rows,), param_dtype, device)
+            self.output_bias = _param((local,), param_dtype, device)
         if use_user_embedding:
             u_rows = user_table_size if user_table_size is not None else num_users + 1
             if u_rows % shards:
                 raise ValueError(f"user table {u_rows} must divide model shards {shards}")
             self.user_embedding = _param((u_rows // shards, embed_dim), param_dtype, device)
         if self.sharded:
-            self.sharded_rows = {n: rows for n in ("item_embedding", "output_embedding")
-                                 if hasattr(self, n)}
+            self.sharded_rows = {n: rows for n in ("item_embedding", "output_embedding",
+                                                   "output_bias") if hasattr(self, n)}
             if use_user_embedding:
                 self.sharded_rows["user_embedding"] = u_rows
         if arch == "gru4rec":
@@ -279,6 +276,9 @@ class SeqRecModel(nn.Module):
         else:
             out_table = self.output_table()
         if self.loss_type == "full_softmax":
+            if self.sharded and out_table_override is None and table_override is None:
+                return sharded_full_softmax_loss(h2, out_table, self.output_bias_value(), t2,
+                                                 w2, self.mesh, num_valid=self.vocab_size)
             return reference.full_softmax_loss(
                 h2, out_table.to(self.compute_dtype), t2, w2,
                 bias=self.output_bias_value(),
@@ -336,9 +336,13 @@ class SeqRecModel(nn.Module):
             return logits
         cand = self._lookup(out_table, candidates, sharded=True)  # [B, C, H]
         logits = torch.einsum("bh,bch->bc", h_last, cand).float()
-        if bias is not None:
-            logits = logits + reference.embedding_gather(
-                bias[:, None], candidates)[..., 0].float()
+        if bias is not None:  # plain lookups of the bias, sharded or whole
+            if self.sharded:
+                b = sharded_gather(bias[:, None], candidates, self.mesh,
+                                   dedup=self.dedup_lookup, use_pallas=False)
+            else:
+                b = reference.embedding_gather(bias[:, None], candidates)
+            logits = logits + b[..., 0].float()
         return logits
 
 

@@ -12,6 +12,15 @@ loads by name.
 
 Dropout (training only) uses flax's formula with an explicit
 `torch.Generator` (`dropout`).
+
+`SASRecTower(remat=True)` rematerializes each block (the JAX package's
+`nn.remat(SASRecBlock)`): a block's activations are not kept for the
+backward pass but recomputed there (`torch.utils.checkpoint`, non-reentrant).
+The replay draws the same dropout masks: the block's generator state is
+saved before the forward, set back for the replay, and the state the
+generator had before the replay is restored after it, so the draws after
+the block (and the next step's) are those of the run without remat. Values
+and gradients are the same; only the memory and the work change.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from seqrec_tpu_torch import ops
 
@@ -212,10 +222,7 @@ class SASRecTower(nn.Module):
                  remat: bool = False, param_dtype=torch.float32,
                  device: Optional[torch.device] = None):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "SASRecTower(remat=True) is not ported yet: ROADMAP.md Queue 1 "
-                "item 11 (SASRec block rematerialization)")
+        self.remat = remat
         self.hidden = hidden
         self.max_len = max_len
         self.dropout_rate = dropout_rate
@@ -242,5 +249,42 @@ class SASRecTower(nn.Module):
         keep = mask[:, :, None].to(x.dtype)
         x = x * keep
         for i in range(self.num_layers):
-            x = getattr(self, f"block{i}")(x, deterministic, generator) * keep
+            block = getattr(self, f"block{i}")
+            if self.remat and torch.is_grad_enabled():
+                x = _remat_block(block, x, deterministic, generator)
+            else:
+                x = block(x, deterministic, generator)
+            x = x * keep
         return self.LayerNorm_0(x)
+
+
+def _remat_block(block: nn.Module, x: torch.Tensor, deterministic: bool,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """`block(x, deterministic, generator)` with its activations recomputed
+    in the backward pass. The first call is the forward; any later one is
+    the replay, which
+    - runs on the parameter tensors the forward saw (the trainer's
+      `functional_call` has put the module's own back by then);
+    - draws from the generator state the forward started from, and then
+      gives the generator back the state it had (also when the replay stops
+      early, once every saved tensor is recomputed).
+    All draws come from `generator`, so the global RNG states are not
+    saved."""
+    params = dict(block.named_parameters())
+    saved = None if generator is None else generator.get_state()
+    calls = [0]
+
+    def run(inp):
+        calls[0] += 1
+        if calls[0] == 1:
+            return block(inp, deterministic, generator)
+        now = None if saved is None else generator.get_state()
+        if saved is not None:
+            generator.set_state(saved)
+        try:
+            return torch.func.functional_call(block, params, (inp, deterministic, generator))
+        finally:
+            if now is not None:
+                generator.set_state(now)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)

@@ -41,9 +41,18 @@ checkpoint). With `train.resume` it restores the newest checkpoint under
 `out_dir/ckpt` and resumes the data where the run left it: the bucketed
 loaders fast-forward past the batches consumed, a session-parallel stream
 restores its snapshot with the engine that took it. A killed and resumed
-run equals a straight one bit for bit. `profile_dir` (ROADMAP.md Queue 1
-item 10) raises, naming its item; a CUDA-graph capture of the K-step group
-is item 3b.
+run equals a straight one bit for bit. With `train.profile_dir`, process 0
+traces the groups from the one holding `profile_steps[0]` to the one
+holding `profile_steps[1]` (or the loop's end) with `torch.profiler`, the
+CUDA activity included on a CUDA device (it raises if the profiler cannot
+trace it), each group under a `seqrec_group[lo,hi)` label, and writes a
+Chrome trace into `profile_dir` (`profile_trace` names it). A CUDA-graph
+capture of the K-step group is ROADMAP.md Queue 1 item 3b.
+`train.compilation_cache_dir` is read and does nothing: it keys XLA's
+persistent compilation cache, and nothing in eager torch compiles. The
+port's persistent build cache is `ops/_build.py`'s content-hashed
+`seqrec_tpu_torch/build/` (listed in `.gitignore`); moving the builds to
+that key's `~/.cache/seqrec_xla` would take them out of the checkout.
 
 Multi-device (one process per device, `runtime.mesh`): with a process group
 up, the trainer makes the ('data', 'model') mesh from `mesh.model_axis` (or
@@ -70,6 +79,7 @@ own shard (`train/checkpoint.py`). Without a process group the mesh is
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 import warnings
@@ -150,6 +160,25 @@ def _group_wires(it, pack, k: int, limit: int):
         yield b, w
 
 
+class _RankRows:
+    """The rows [r B, (r + 1) B) of every batch of a global bucketed stream
+    (`Trainer.train_iterator`); closes the stream it reads."""
+
+    def __init__(self, it, rank: int, rows: int):
+        self._it, self._lo, self._hi = it, rank * rows, (rank + 1) * rows
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        bucket, batch = next(self._it)
+        return bucket, {k: v[self._lo:self._hi] for k, v in batch.items()}
+
+    def close(self) -> None:
+        if hasattr(self._it, "close"):
+            self._it.close()
+
+
 def _ready(staged):
     return staged.ready() if isinstance(staged, StagedBatch) else staged
 
@@ -197,6 +226,7 @@ class Trainer:
         self.data_engine: Optional[str] = None  # "native" or "python", once chosen
         self._stager: Optional[HostStager] = None
         self.ckpt: Optional[CheckpointManager] = None  # fit's, when it checkpoints
+        self.profile_trace: Optional[str] = None  # the trace fit wrote (profile_dir)
 
     # ---- state ----------------------------------------------------------
 
@@ -696,24 +726,44 @@ class Trainer:
         batch semantics). `data_engine` records which. `skip_batches`
         fast-forwards a bucketed stream past that many batches without
         building them (resume); a session-parallel stream resumes from its
-        snapshot instead (`fit`)."""
+        snapshot instead (`fit`).
+
+        Over several ranks a stream is built in one of two ways:
+        - each rank its own shard of the users (`host_shard=(rank, world)`,
+          `local_batch` rows), as a JAX host reads its own: the default;
+        - with more than one bucket and the sparse step or row-sharded
+          tables, every rank builds the stream of one process
+          (`host_shard=(0, 1)`, `global_batch` rows) and keeps its rows
+          [r B, (r + 1) B): the JAX package's one-process batch over
+          several devices, bit for bit. Every rank then holds the same
+          bucket, so the ids' collectives see one shape on every rank (a
+          rank's own loader would pick its own bucket). Each rank does the
+          host work of the whole global batch."""
         if self.cfg.data.session_parallel:
             return self._make_session_iterator()
         d = self.cfg.data
-        if self.mesh.size > 1 and d.buckets and (self._sparse or self._sharded):
-            raise NotImplementedError(
-                "data.buckets with more than one rank and the sparse step or sharded tables: "
-                "each rank's loader picks its own bucket, and the ids' collectives need one "
-                "shape on every rank")
+        whole = self._global_stream()
+        batch, shard = (self.global_batch, (0, 1)) if whole else (self.local_batch,
+                                                                   self.host_shard)
         if d.use_native_loader and native.available():
             self.data_engine = "native"
-            return native.NativeTrainLoader(
-                self.ds, batch_size=self.local_batch, max_len=d.max_len, buckets=d.buckets,
-                seed=d.seed, host_shard=self.host_shard, skip_batches=skip_batches)
-        self.data_engine = "python"
-        return make_train_batches(
-            self.ds, batch_size=self.local_batch, max_len=d.max_len, buckets=d.buckets,
-            seed=d.seed, host_shard=self.host_shard, skip_batches=skip_batches)
+            it = native.NativeTrainLoader(
+                self.ds, batch_size=batch, max_len=d.max_len, buckets=d.buckets,
+                seed=d.seed, host_shard=shard, skip_batches=skip_batches)
+        else:
+            self.data_engine = "python"
+            it = make_train_batches(
+                self.ds, batch_size=batch, max_len=d.max_len, buckets=d.buckets,
+                seed=d.seed, host_shard=shard, skip_batches=skip_batches)
+        return _RankRows(it, self.mesh.rank, self.local_batch) if whole else it
+
+    def _global_stream(self) -> bool:
+        """Whether each rank reads its rows of one global stream (see
+        `train_iterator`): several ranks, several buckets, and the ids'
+        collectives of the sparse step or of row-sharded tables."""
+        d = self.cfg.data
+        buckets = {min(b, d.max_len) for b in d.buckets}
+        return self.mesh.size > 1 and len(buckets) > 1 and bool(self._sparse or self._sharded)
 
     def _make_session_iterator(self, engine: str = "auto"):
         """The session-parallel stream: the native engine when it is built
@@ -764,11 +814,32 @@ class Trainer:
             return 1
         return max(1, int(self.cfg.train.steps_per_call))
 
-    def _check_fit_supported(self) -> None:
-        t = self.cfg.train
-        if t.profile_dir:
-            raise NotImplementedError("train.profile_dir: ROADMAP.md Queue 1 item 10 "
-                                      "(the rest of the CLI, torch.profiler)")
+    def _start_profile(self):
+        """A started `torch.profiler.profile`: the host's activity, and the
+        device's on a CUDA device (raises when this torch cannot trace it:
+        a trace of the host alone would pass for one of the steps)."""
+        from torch.profiler import ProfilerActivity, profile, supported_activities
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            if ProfilerActivity.CUDA not in supported_activities():
+                raise RuntimeError("train.profile_dir: this torch's profiler cannot trace CUDA "
+                                   f"activity (it supports {supported_activities()})")
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, lo: int, hi: int) -> str:
+        """Stop the trace of steps [lo, hi) and write it into profile_dir."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.cfg.train.profile_dir, exist_ok=True)
+        self.profile_trace = os.path.join(self.cfg.train.profile_dir,
+                                          f"trace_steps_{lo}_{hi}.json")
+        prof.export_chrome_trace(self.profile_trace)
+        return self.profile_trace
 
     def fit(self, state: Optional[TrainState] = None
             ) -> Tuple[TrainState, Dict[str, float]]:
@@ -779,7 +850,6 @@ class Trainer:
         (at the group boundary past each multiple), at fail_after_step and
         at the end."""
         cfg = self.cfg
-        self._check_fit_supported()
         out_dir = cfg.train.out_dir
         rank = self.mesh.rank
         logger = MetricsLogger(out_dir, tensorboard=cfg.train.tensorboard, host0=rank == 0)
@@ -856,6 +926,9 @@ class Trainer:
         t_window = time.perf_counter()
         examples_window = 0
         last_eval: Dict[str, float] = {}
+        # The trace in progress, its first step and its end so far.
+        prof, prof_lo, prof_hi, traced = None, 0, 0, False
+        self.profile_trace = None
         try:
             step = start_step
             while step < cfg.train.num_steps:
@@ -865,11 +938,17 @@ class Trainer:
                 # [step, hi).
                 k = batch.shape[0] if isinstance(batch, torch.Tensor) and batch.dim() == 3 else 1
                 hi = step + k
+                if (cfg.train.profile_dir and not traced and rank == 0
+                        and step <= cfg.train.profile_steps[0] < hi):
+                    prof, prof_lo, traced = self._start_profile(), step, True
                 data_position += k
-                if k > 1:
-                    state, metrics = self.train_step_multi(state, batch)
-                else:
-                    state, metrics = self.train_step(state, batch)
+                with (torch.profiler.record_function(f"seqrec_group[{step},{hi})")
+                      if prof is not None else contextlib.nullcontext()):
+                    if k > 1:
+                        state, metrics = self.train_step_multi(state, batch)
+                    else:
+                        state, metrics = self.train_step(state, batch)
+                prof_hi = hi
                 examples_window += self.global_batch * k
                 pending, pending_step = metrics, hi - 1
 
@@ -896,6 +975,10 @@ class Trainer:
                     if heartbeat:
                         heartbeat.beat(pending_step)
 
+                if prof is not None and step <= cfg.train.profile_steps[1] < hi:
+                    self._stop_profile(prof, prof_lo, hi)
+                    prof = None
+
                 if _crossed(cfg.train.eval_every, step, hi):
                     last_eval = self.evaluate(state, split="val")
                     logger.log(pending_step, "eval/val", last_eval)
@@ -917,6 +1000,8 @@ class Trainer:
                 ckpt.save(cfg.train.num_steps, state, data_position,
                           data_state=pipeline_state())
         finally:
+            if prof is not None:  # the window ran past the loop's end
+                self._stop_profile(prof, prof_lo, prof_hi)
             if prefetcher is not None:
                 prefetcher.close()
             if hasattr(it, "close"):

@@ -10,6 +10,7 @@ and the raises for what is not ported yet."""
 import json
 import threading
 import time
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -383,13 +384,47 @@ def test_fit_debug_nans_halts_and_fail_after_step_returns(tiny_ds, tmp_path):
 
 
 @pytest.mark.parametrize("setting,match", [
-    ({"train.profile_dir": "prof"}, "item 10"),
+    ({"train.resume": True}, "resharding on restore is not ported"),
 ])
 def test_fit_raises_for_what_is_not_ported(tiny_ds, tmp_path, setting, match):
-    tr = Trainer(_apply(RunConfig(), _settings(tmp_path, **setting)), _port_ds(tiny_ds),
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
+    """What fit still lacks: resuming a checkpoint that another mesh wrote
+    (the JAX package's orbax reshards it). A one-process checkpoint,
+    relabelled as a 1 x 2 mesh's, is refused before any state is read."""
+    tr = Trainer(_apply(RunConfig(), _settings(tmp_path, **{
+        "train.num_steps": 4, "train.checkpoint_every": 4})), _port_ds(tiny_ds), device="cpu")
+    tr.fit()
+    meta = tmp_path / "run" / "ckpt" / "4" / "meta.json"
+    meta.write_text(json.dumps({**json.loads(meta.read_text()),
+                                "mesh": {"data": 1, "model": 2}}))
+    tr = Trainer(_apply(RunConfig(), _settings(tmp_path, **{
+        "train.checkpoint_every": 4, **setting})), _port_ds(tiny_ds), device="cpu")
+    with pytest.raises(ValueError, match=match):
         tr.fit()
+
+
+@pytest.mark.parametrize("k,window,groups", [
+    (4, (4, 8), ["[4,8)", "[8,12)"]),
+    (4, (5, 50), ["[4,8)", "[8,12)", "[12,13)"]),  # stopped at the loop's end
+    (1, (2, 3), ["[2,3)", "[3,4)"]),
+])
+def test_profile_dir_traces_the_window_of_groups(tiny_ds, tmp_path, k, window, groups):
+    """train.profile_dir: the trace starts at the group holding
+    profile_steps[0] and stops after the group holding profile_steps[1] (or
+    at the loop's end), as the JAX fit's jax.profiler window; it holds those
+    groups and no other, each under its label, the steps' work inside them."""
+    tr = Trainer(_apply(RunConfig(), _settings(tmp_path, **{
+        "train.steps_per_call": k, "data.buckets": (), "train.profile_steps": window,
+        "train.profile_dir": str(tmp_path / "prof")})), _port_ds(tiny_ds), device="cpu")
+    state, _ = tr.fit()
+    assert state.step == 13
+    hi = groups[-1].split(",")[1][:-1]
+    assert tr.profile_trace == str(tmp_path / "prof" / f"trace_steps_{window[0] - window[0] % k}"
+                                                       f"_{hi}.json")
+    events = json.loads(Path(tr.profile_trace).read_text())
+    names = [e["name"] for e in events["traceEvents"] if e.get("ph") == "X"]
+    assert sorted({n for n in names if n.startswith("seqrec_group")}) == sorted(
+        f"seqrec_group{g}" for g in groups)
+    assert any(n.startswith("aten::") for n in names)  # the steps' ops are in the trace
 
 
 def test_trainer_without_a_dataset_loads_cfg_data(tmp_path):

@@ -19,7 +19,12 @@ Tolerances, each with its reason:
   order: torch.matmul against XLA's einsum);
 - `sharded_row_update`: sgd, adam and adagrad's accumulator bit for bit;
   adagrad's table to 1 ulp (XLA:CPU's rsqrt, as test_torch_sparse.py
-  states), 1e-6 relative.
+  states), 1e-6 relative;
+- `sharded_full_softmax_loss` (each rank's loss sum, and the gradients of
+  h, the table and the bias) against `ops/xla.py::full_softmax_loss` on the
+  whole table and the global batch: 1e-6 relative to the largest magnitude
+  (the logsumexp combined over shards, then the same f32 formulas); the
+  weight sums bit for bit.
 """
 
 import jax
@@ -30,6 +35,7 @@ import torch
 
 from seqrec_tpu.eval.sharded import sharded_ranks as jax_ranks
 from seqrec_tpu.eval.sharded import sharded_topk as jax_topk
+from seqrec_tpu.ops.xla import full_softmax_loss as jax_full_softmax_loss
 from seqrec_tpu.parallel.embedding import padded_vocab as jax_padded_vocab
 from seqrec_tpu.parallel.embedding import sharded_gather as jax_gather
 from seqrec_tpu.runtime import make_mesh as jax_make_mesh
@@ -66,6 +72,18 @@ def _inputs(M: int, rng: np.random.Generator) -> dict:
         "uids": uids, "sparse_table": rng.normal(size=(V, D)).astype(np.float32),
         "g_rows": rng.normal(size=(uids.shape[0], D)).astype(np.float32),
     }
+    # The full softmax's inputs, from a stream of their own (the draws
+    # above stay as they were): 6 rows a rank, some weights 0, each rank
+    # its own cotangent on its loss sum.
+    srng = np.random.default_rng(100 + M)
+    io.update({
+        "sm_h": srng.normal(size=(WORLD * 6, H)).astype(np.float32),
+        "sm_table": srng.normal(size=(V, H)).astype(np.float32),
+        "sm_bias": srng.normal(size=V).astype(np.float32),
+        "sm_targets": srng.integers(1, NV, size=WORLD * 6).astype(np.int32),
+        "sm_weights": (srng.random(WORLD * 6) < 0.8).astype(np.float32),
+        "sm_g": srng.uniform(0.5, 2.0, size=WORLD).astype(np.float32),
+    })
     io["exclude"][:, 0] = io["targets"]  # the target itself is never excluded
     io["exclude"][:, 1] = io["exclude"][:, 2]  # a repeated id counts once
     for opt in OPTIMIZERS:
@@ -274,6 +292,36 @@ def test_sharded_row_update_equals_jax(run, M, optimizer):
                                       np.asarray(v), err_msg=k)
 
 
+@pytest.mark.parametrize("M", MESHES)
+def test_sharded_full_softmax_equals_jax_on_the_whole_table(run, M):
+    """Each rank's loss over its own rows, and the gradients of Σ_r g_r ×
+    rank r's loss sum (a row's weight times its owner's g), against JAX's
+    full softmax on the whole padded table and the global batch, the
+    padded rows masked (num_valid)."""
+    inputs, outs = run
+    io, p = inputs[M], f"M{M}/"
+    h, table, bias = (jnp.asarray(io[k]) for k in ("sm_h", "sm_table", "sm_bias"))
+    targets, w = jnp.asarray(io["sm_targets"]), io["sm_weights"]
+    n = h.shape[0] // WORLD
+    w_g = jnp.asarray(w * np.repeat(io["sm_g"], n))
+
+    def loss(h_, t_, b_, weights):
+        return jax_full_softmax_loss(h_, t_, targets, weights, bias=b_, num_valid=NV)[0]
+
+    d_h, d_t, d_b = _jit(jax.grad(lambda a, b, c: loss(a, b, c, w_g), argnums=(0, 1, 2)),
+                         h, table, bias)
+    rows = [slice(r * n, (r + 1) * n) for r in range(WORLD)]
+    want = np.array([float(jax_full_softmax_loss(h[s], table, targets[s], jnp.asarray(w[s]),
+                                                 bias=bias, num_valid=NV)[0]) for s in rows])
+    _close(_by_rank(outs, p + "sm_loss"), want, 1e-6, f"M={M} loss sums")
+    np.testing.assert_array_equal(_by_rank(outs, p + "sm_w"),
+                                  [w[s].sum(dtype=np.float32) for s in rows])
+    _close(_by_rank(outs, p + "sm_d_h"), np.asarray(d_h), 1e-6, f"M={M} d_h")
+    _close(_assembled(outs, p + "sm_d_table", M), np.asarray(d_t), 1e-6, f"M={M} d_table")
+    _close(_assembled(outs, p + "sm_d_bias", M), np.asarray(d_b), 1e-6, f"M={M} d_bias")
+    assert np.abs(np.asarray(d_t)[NV:]).max() == 0.0  # the padded rows take nothing
+
+
 def test_row_update_indices_and_extra_valid_equal_jax():
     """row_update's shard arguments on one process: local indices and a
     mask, as JAX's."""
@@ -367,15 +415,50 @@ def test_a_shard_draws_the_whole_stream_and_keeps_its_rows(block_rows):
         assert torch.equal(towers[0][k], towers[1][k]), k
 
 
+def test_a_full_softmax_shard_draws_the_whole_stream_and_keeps_its_bias_rows():
+    """A full-softmax model's output bias is cut like its table: the
+    shard's rows of the whole draw, bit for bit, on each rank; the two
+    ranks' shards side by side are the whole tree's bias."""
+    from seqrec_tpu_torch.config import RunConfig
+    from seqrec_tpu_torch.models import build_model
+    from seqrec_tpu_torch.models.convert import (flax_to_state_dict, init_state_dict,
+                                                 random_params, shard_state_dict)
+
+    cfg = RunConfig().apply_overrides(["model.embed_dim=8", "model.loss=full_softmax",
+                                       "mesh.shard_embeddings=true", "mesh.model_axis=2"])
+    biases = []
+    for r in (0, 1):
+        model = build_model(cfg.model, 45, device="cpu", mesh=_StubMesh(r), mesh_cfg=cfg.mesh)
+        whole = flax_to_state_dict(random_params(model, 5))
+        assert tuple(whole["output_bias"].shape) == (48,)
+        got = init_state_dict(model, 5, "cpu", block_rows=7)
+        want = shard_state_dict(whole, model)
+        assert sorted(got) == sorted(want)
+        for k in got:
+            assert torch.equal(got[k], want[k]), k
+        model.load_state_dict(got)  # the shapes the model holds
+        biases.append(got["output_bias"])
+    assert torch.equal(torch.cat(biases), whole["output_bias"])
+
+
 def test_a_sharded_model_refuses_what_is_not_ported():
+    """The full softmax over a row-sharded table builds (the JAX package's
+    default loss), its output bias held as the same rows' shard and
+    counted among the sharded leaves; scores over the whole catalog of a
+    sharded model still refuse, naming the sharded rankers."""
     from seqrec_tpu_torch.config import RunConfig
     from seqrec_tpu_torch.models import build_model
 
     cfg = RunConfig().apply_overrides(["model.embed_dim=8", "model.loss=full_softmax",
                                        "mesh.shard_embeddings=true", "mesh.model_axis=2"])
-    with pytest.raises(NotImplementedError, match="full_softmax over a row-sharded table"):
-        build_model(cfg.model, 45, device="cpu", mesh=_StubMesh(0), mesh_cfg=cfg.mesh)
-    cfg = cfg.apply_overrides(["model.loss=sampled_softmax"])
-    model = build_model(cfg.model, 45, device="cpu", mesh=_StubMesh(0), mesh_cfg=cfg.mesh)
-    with pytest.raises(ValueError, match="sharded_ranks / sharded_topk"):
-        model.scores(torch.ones(2, 3, dtype=torch.int32), torch.ones(2, 3))
+    for r in (0, 1):
+        model = build_model(cfg.model, 45, device="cpu", mesh=_StubMesh(r), mesh_cfg=cfg.mesh)
+        assert model.sharded and model.table_size == 48
+        assert tuple(model.output_bias.shape) == (24,)
+        assert model.sharded_rows == {"item_embedding": 48, "output_bias": 48}
+        assert model.table_window("output_bias") == (24 * r, 48)
+    for loss in ("full_softmax", "sampled_softmax"):
+        model = build_model(cfg.apply_overrides([f"model.loss={loss}"]).model, 45, device="cpu",
+                            mesh=_StubMesh(0), mesh_cfg=cfg.mesh)
+        with pytest.raises(ValueError, match="sharded_ranks / sharded_topk"):
+            model.scores(torch.ones(2, 3, dtype=torch.int32), torch.ones(2, 3))

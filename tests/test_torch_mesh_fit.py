@@ -19,6 +19,17 @@ gloo ranks with row-sharded tables (`mesh.model_axis=2`), on the CPU
 - `recommend` with the sharded top-k against one rank's whole model: the
   same items, scores within 1e-6 relative (the dot products of another
   matmul's shape).
+- A full-softmax model (its output bias row-sharded with the table): the
+  full-protocol eval at world 2 against the JAX package's single-process
+  eval, within 1e-5 relative as above; its candidate scores (the sharded
+  bias lookup) against one rank's whole model, within 1e-6 relative.
+- The bucketed stream of a sharded model at world 2 (several buckets): each
+  rank's batches are its rows of the JAX package's one-process stream of
+  the global batch, bit for bit, for the Python batcher and the native
+  engine, and both ranks hold the same bucket; a bucketed full-softmax fit
+  killed and resumed equals a straight one (the case `bucketed`).
+- A fit with `train.profile_dir` at world 2: process 0 alone writes the
+  trace, and it holds the window's groups, each under its label.
 """
 
 import json
@@ -30,6 +41,8 @@ import numpy as np
 import pytest
 
 from seqrec_tpu.config import RunConfig as JaxRunConfig
+from seqrec_tpu.data import native as jax_native
+from seqrec_tpu.data.batching import make_train_batches as jax_make_train_batches
 from seqrec_tpu.data.dataset import synthetic_dataset as jax_synthetic_dataset
 from seqrec_tpu.eval.harness import evaluate as jax_evaluate
 from seqrec_tpu.models import build_model as jax_build_model
@@ -48,9 +61,18 @@ FIT = {**MODEL, "data.batch_size": 4, "data.use_native_loader": False,
        "train.sparse_embedding_update": True, "train.optimizer": "adagrad",
        "train.num_steps": 12, "train.steps_per_call": 4, "train.checkpoint_every": 5,
        "train.eval_every": 0, "train.log_every": 4, "train.learning_rate": 0.05}
+FULL = {**MODEL, "model.loss": "full_softmax"}
+BUCKETED = {**FULL, "data.batch_size": 4, "data.buckets": [6, 12]}
 FITS = {"sparse": FIT,
         "sparse_session": {**FIT, "data.session_parallel": True,
-                           "train.sparse_unique_budget": 40}}
+                           "train.sparse_unique_budget": 40},
+        "bucketed": {**BUCKETED, "model.dropout_rate": 0.1, "data.use_native_loader": True,
+                     **{k: v for k, v in FIT.items() if k.startswith("train.")},
+                     "train.sparse_embedding_update": False}}
+STREAM_BATCHES = 6
+PROFILE = {**FULL, "data.batch_size": 4, "data.use_native_loader": False,
+           "train.num_steps": 12, "train.steps_per_call": 4, "train.profile_steps": [4, 8],
+           "train.checkpoint_every": 0, "train.eval_every": 0, "train.log_every": 4}
 
 
 def _apply(cfg, settings):
@@ -77,11 +99,35 @@ def run(tmp_path_factory):
                                                                     np.float32)])}
     for k, v in params["params"]["tower"].items():
         io[f"params/tower.{k}"] = v
+    # The full-softmax model: JAX's own init, its bias drawn (it starts at
+    # zeros) so that its shards matter; the tables padded to the mesh.
+    fcfg = _apply(JaxRunConfig(), {k: v for k, v in {**EVAL, **FULL}.items()
+                                   if not k.startswith("mesh.")})
+    fm = jax_build_model(fcfg.model, jds.vocab_size)
+    fparams = jax.tree_util.tree_map(np.asarray, fm.init(
+        jax.random.key(1), jnp.zeros((2, T), jnp.int32), jnp.ones((2, T), jnp.float32)))
+    rng = np.random.default_rng(7)
+    fparams["params"]["output_bias"] = rng.normal(
+        scale=0.5, size=fparams["params"]["output_bias"].shape).astype(np.float32)
+    for k in ("item_embedding", "output_bias"):
+        v = fparams["params"][k]
+        io[f"fs_params/{k}"] = np.concatenate([v, np.zeros((pad, *v.shape[1:]), np.float32)])
+    for k, v in fparams["params"]["tower"].items():
+        io[f"fs_params/tower.{k}"] = v
+    io["fs_cand/inputs"] = rng.integers(1, jds.vocab_size, size=(6, T)).astype(np.int32)
+    io["fs_cand/mask"] = (np.arange(T)[None, :] < rng.integers(1, T + 1, size=(6, 1))
+                          ).astype(np.float32)
+    io["fs_cand/inputs"] *= io["fs_cand/mask"].astype(np.int32)
+    io["fs_cand/candidates"] = rng.integers(1, jds.vocab_size, size=(6, 9)).astype(np.int32)
     np.savez(d / "inputs.npz", **io)
-    (d / "inputs.json").write_text(json.dumps({"dataset": DATASET, "eval": EVAL, "fit": FITS}))
-    outs = spawn("fit", 2, d, timeout=60)
+    (d / "inputs.json").write_text(json.dumps({
+        "dataset": DATASET, "eval": EVAL, "fit": FITS, "eval_fs": {**EVAL, **FULL},
+        "stream": BUCKETED, "stream_batches": STREAM_BATCHES, "profile": PROFILE}))
+    outs = spawn("fit", 2, d, timeout=90)
     want = {split: jax_evaluate(jm, params, jds, jcfg.eval, split=split, max_len=T)
             for split in ("val", "test")}
+    want.update({f"fs/{split}": jax_evaluate(fm, fparams, jds, fcfg.eval, split=split,
+                                             max_len=T) for split in ("val", "test")})
     return d, outs, want, jds
 
 
@@ -101,6 +147,59 @@ def test_full_eval_at_world_2_equals_jax_single_process(run, split):
 
 
 @pytest.mark.parametrize("split", ["val", "test"])
+def test_full_softmax_eval_at_world_2_equals_jax_single_process(run, split):
+    """The sharded ranks with the output bias's shards (`output_bias_value`)."""
+    _, outs, want, _ = run
+    got = [dict(zip(o[f"eval_fs/full/{split}/keys"], o[f"eval_fs/full/{split}/values"]))
+           for o in outs]
+    assert got[0] == got[1]
+    assert sorted(got[0]) == sorted(want[f"fs/{split}"])
+    for k, v in want[f"fs/{split}"].items():
+        np.testing.assert_allclose(got[0][k], float(v), rtol=1e-5, atol=1e-7, err_msg=k)
+    assert got[0]["count"] > 0
+
+
+def test_full_softmax_candidate_scores_equal_the_whole_model(run):
+    _, outs, _, _ = run
+    for o in outs:
+        np.testing.assert_allclose(o["fs_scores/sharded"], o["fs_scores/whole"],
+                                   rtol=1e-6, atol=1e-6)
+    assert not np.array_equal(outs[0]["fs_scores/whole"], outs[1]["fs_scores/whole"])
+
+
+@pytest.mark.parametrize("engine", ["python", "native"])
+def test_bucketed_sharded_stream_is_jaxs_one_process_stream(run, engine):
+    _, outs, _, jds = run
+    for o in outs:
+        assert str(o[f"stream/{engine}/engine"][0]) == engine
+    B, W = BUCKETED["data.batch_size"], len(outs)
+    kw = dict(batch_size=B * W, max_len=BUCKETED["data.max_len"],
+              buckets=BUCKETED["data.buckets"], seed=JaxRunConfig().data.seed, host_shard=(0, 1))
+    stream = (jax_native.NativeTrainLoader(jds, **kw) if engine == "native"
+              else jax_make_train_batches(jds, **kw))
+    buckets = set()
+    for i in range(STREAM_BATCHES):
+        bucket, want = next(stream)
+        buckets.add(bucket)
+        for r, o in enumerate(outs):
+            assert int(o[f"stream/{engine}/{i}/bucket"][0]) == bucket
+            for k, v in want.items():
+                np.testing.assert_array_equal(o[f"stream/{engine}/{i}/{k}"],
+                                              v[r * B:(r + 1) * B], err_msg=f"{i} {k} rank {r}")
+    assert len(buckets) > 1  # the ranks agreed on more than one bucket
+    if hasattr(stream, "close"):
+        stream.close()
+
+
+def test_profiled_fit_traces_the_window_on_process_0_only(run):
+    d, outs, _, _ = run
+    trace = str(outs[0]["profile/trace"][0])
+    assert trace.endswith("trace_steps_4_12.json") and str(outs[1]["profile/trace"][0]) == ""
+    assert os.listdir(d / "prof") == [os.path.basename(trace)]
+    assert list(outs[0]["profile/labels"]) == ["seqrec_group[4,8)", "seqrec_group[8,12)"]
+
+
+@pytest.mark.parametrize("split", ["val", "test"])
 def test_sampled_eval_at_world_2_counts_every_user_once(run, split):
     _, outs, want, _ = run
     got = [_metrics(o, "sampled", split) for o in outs]
@@ -116,7 +215,7 @@ def test_resume_at_world_2_is_bit_for_bit(run, case):
         assert int(o[f"fit/{case}/killed/step"][0]) == 8
         assert int(o[f"fit/{case}/straight/step"][0]) == int(o[f"fit/{case}/resumed/step"][0]) == 12
         keys = [k for k in o if k.startswith(f"fit/{case}/straight/")]
-        assert any("embed_opt" in k for k in keys)
+        assert any("embed_opt" in k for k in keys) == case.startswith("sparse")
         for k in keys:
             np.testing.assert_array_equal(o[k.replace("/straight/", "/resumed/")], o[k], err_msg=k)
     # The sharded table really differs between the ranks (two shards).

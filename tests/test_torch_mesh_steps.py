@@ -14,9 +14,12 @@ same negatives injected on both sides (dropout 0):
 - sparse_session_capped: the sparse step on session-parallel windows with
   the carry, unique budget capped below the step's distinct ids (the
   sentinel row), as configs/rsc15_10m.json;
-- session: the dense session-parallel step (BPR-max, uniform negatives).
+- session: the dense session-parallel step (BPR-max, uniform negatives);
+- dense_full_softmax: the full softmax (the JAX package's default loss)
+  with its output bias, vocab-parallel over the row-sharded table and bias
+  (the path of tests/sharding/test_mesh.py::test_sharded_embedding_trainer).
 All with `mesh.shard_embeddings` (tables padded to the mesh, row-sharded at
-model axis 2). Each rank reads its rows [r B, (r + 1) B) of the global
+model axis 2; the full softmax's output bias too). Each rank reads its rows [r B, (r + 1) B) of the global
 batch.
 
 Tolerance: every step's loss and gradient norm, and every parameter, row
@@ -52,7 +55,8 @@ def _settings(case: str, model_axis: int) -> dict:
     sparse = case.startswith("sparse")
     s = {"model.embed_dim": 16, "model.use_pallas": False, "model.compute_dtype": "float32",
          "model.dropout_rate": 0.0, "model.num_negatives": S, "model.max_len": T,
-         "model.loss": "bpr_max" if case == "session" else "sampled_softmax",
+         "model.loss": {"session": "bpr_max", "dense_full_softmax": "full_softmax"}.get(
+             case, "sampled_softmax"),
          "data.batch_size": B, "data.max_len": T, "data.session_parallel": session,
          "data.neg_sampler": "uniform" if case == "session" else "log_uniform",
          "train.optimizer": "adagrad", "train.grad_clip_norm": 1.0,
@@ -63,7 +67,7 @@ def _settings(case: str, model_axis: int) -> dict:
     return s
 
 
-CASES = ("dense", "sparse", "sparse_session_capped", "session")
+CASES = ("dense", "sparse", "sparse_session_capped", "session", "dense_full_softmax")
 
 
 class _DS:
@@ -161,7 +165,7 @@ def _assembled(outs, key, M, sharded):
 
 
 def _sharded(name, M):
-    return M > 1 and name in ("item_embedding", "output_embedding")
+    return M > 1 and name in ("item_embedding", "output_embedding", "output_bias")
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -199,14 +199,17 @@ def test_recommend_refuses_catalogs_that_need_chunked_topk(monkeypatch):
 
 
 def test_training_and_unported_towers_raise():
-    """`loss`, `loss_stream` and the LSTM and SASRec towers are ported;
-    SASRec's `remat` still raises, naming its ROADMAP item, and
-    `loss_stream` refuses a model with a user table, as the JAX package's."""
+    """`loss`, `loss_stream` and the LSTM and SASRec towers are ported,
+    SASRec's `remat` too (it builds, with the parameter names of the
+    tower without remat, as the JAX package keeps them); `loss_stream`
+    refuses a model with a user table, as the JAX package's."""
     _, _, tm = _pair(loss="full_softmax", use_user_embedding=True)
     with pytest.raises(ValueError, match="anonymous"):
         tm.loss_stream({}, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        build_model(ModelConfig(arch="sasrec", remat=True), VOCAB, device="cpu")
+    names = [sorted(dict(build_model(ModelConfig(arch="sasrec", remat=remat), VOCAB,
+                                     device="cpu").named_parameters()))
+             for remat in (True, False)]
+    assert names[0] == names[1] and "tower.block0.qkv.kernel" in names[0]
     for arch, cell in (("gru4rec", "lstm"), ("sasrec", "gru")):
         m = build_model(ModelConfig(arch=arch, cell_type=cell), VOCAB, device="cpu")
         assert m.tower is not None

@@ -11,13 +11,17 @@ The JAX side of each comparison runs in the test's process.
 Scenarios:
 - functions: the mesh, `sharded_gather` (forward and gradient, dedup on and
   off), `replicated_gather`, `sharded_ranks`, `sharded_topk`,
-  `sharded_sub_table` and `sharded_row_update` on meshes of model_axis 2, 4
-  and 1 over the world;
-- steps: the trainer's K steps (dense, sparse exact, sparse capped,
-  session-parallel) from given parameters, batches and negatives;
-- fit: the full-protocol eval of given parameters, a straight fit against a
-  killed and resumed one, and `recommend` sharded against one rank's whole
-  model.
+  `sharded_sub_table`, `sharded_row_update` and `sharded_full_softmax_loss`
+  (loss, weights and gradients) on meshes of model_axis 2, 4 and 1 over the
+  world;
+- steps: the trainer's K steps (dense, dense full softmax, sparse exact,
+  sparse capped, session-parallel) from given parameters, batches and
+  negatives;
+- fit: the full-protocol eval of given parameters (a sampled-loss model and
+  a full-softmax one with its bias), the full-softmax model's candidate
+  scores, the bucketed stream's first batches (each engine), a straight fit
+  against a killed and resumed one, a profiled fit, and `recommend` sharded
+  against one rank's whole model.
 """
 
 from __future__ import annotations
@@ -86,6 +90,7 @@ def _functions(io: dict, rank: int) -> dict:
 
     from seqrec_tpu_torch.eval.sharded import sharded_ranks, sharded_topk
     from seqrec_tpu_torch.parallel.embedding import replicated_gather, sharded_gather
+    from seqrec_tpu_torch.parallel.softmax import sharded_full_softmax_loss
     from seqrec_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
     from seqrec_tpu_torch.train import sparse_embed
 
@@ -144,6 +149,23 @@ def _functions(io: dict, rank: int) -> dict:
             out[p + f"row_update_{opt}/table"] = _np(t)
             for k, v in row_opt.items():
                 out[p + f"row_update_{opt}/{k}"] = _np(v)
+        # The full softmax over the sharded table: rank r's rows, its
+        # cotangent g[r] on its loss sum.
+        sh, st, sb = io[p + "sm_h"], io[p + "sm_table"], io[p + "sm_bias"]
+        n = sh.shape[0] // world
+        mine = slice(rank * n, (rank + 1) * n)
+        srows = st.shape[0] // M
+        h = _t(sh[mine]).requires_grad_(True)
+        shard = _t(st[m * srows:(m + 1) * srows]).requires_grad_(True)
+        bshard = _t(sb[m * srows:(m + 1) * srows]).requires_grad_(True)
+        loss, w = sharded_full_softmax_loss(h, shard, bshard, _t(io[p + "sm_targets"][mine]),
+                                            _t(io[p + "sm_weights"][mine]), mesh,
+                                            num_valid=int(io[p + "num_valid"]))
+        (loss * float(io[p + "sm_g"][rank])).backward()
+        out[p + "sm_loss"], out[p + "sm_w"] = _np(loss)[None], _np(w)[None]
+        out[p + "sm_d_h"] = _np(h.grad)
+        out[p + "sm_d_table"] = _np(mesh.psum(shard.grad, DATA_AXIS))
+        out[p + "sm_d_bias"] = _np(mesh.psum(bshard.grad, DATA_AXIS))
     return out
 
 
@@ -248,6 +270,53 @@ def _fit(io: dict, rank: int, spec: dict, directory: Path) -> dict:
         recs = list(recommend(model, hist, k=5, batch_size=4, max_len=cfg.data.max_len))
         out[f"recommend/{tag}/items"] = np.array([r["items"] for r in recs])
         out[f"recommend/{tag}/scores"] = np.array([r["scores"] for r in recs])
+    # The full-softmax model (its output bias sharded too): the full
+    # protocol's eval, and candidate scores against one rank's whole model.
+    fs = {k[len("fs_params/"):]: torch.from_numpy(v) for k, v in io.items()
+          if k.startswith("fs_params/")}
+    cfg = _config({**spec["eval_fs"], "eval.protocol": "full"})
+    tr = Trainer(cfg, ds, device="cpu")
+    state = tr._state(shard_state_dict(fs, tr.model), 0, torch.device("cpu"))
+    for split in ("val", "test"):
+        m = tr.evaluate(state, split=split)
+        out[f"eval_fs/full/{split}/keys"] = np.array(sorted(m))
+        out[f"eval_fs/full/{split}/values"] = np.array([m[k] for k in sorted(m)])
+    tr.model.load_state_dict(state.params)
+    tr.model.eval()
+    full = build_model(cfg.model, ds.vocab_size, device="cpu")
+    full.load_state_dict({k: v[:ds.vocab_size] if k in ("item_embedding", "output_bias") else v
+                          for k, v in fs.items()})
+    full.eval()
+    n = io["fs_cand/inputs"].shape[0] // 2
+    rows = slice(rank * n, (rank + 1) * n)
+    args = (_t(io["fs_cand/inputs"][rows]), _t(io["fs_cand/mask"][rows]))
+    cands = _t(io["fs_cand/candidates"][rows])
+    with torch.no_grad():
+        out["fs_scores/sharded"] = _np(tr.model.scores(*args, candidates=cands))
+        out["fs_scores/whole"] = _np(full.scores(*args, candidates=cands))
+    # The bucketed stream of a sharded model: each engine's first batches.
+    for engine in ("python", "native"):
+        c = _config({**spec["stream"], "data.use_native_loader": engine == "native"})
+        tr = Trainer(c, ds, device="cpu")
+        it = tr.train_iterator()
+        out[f"stream/{engine}/engine"] = np.array([tr.data_engine])
+        for i in range(spec["stream_batches"]):
+            bucket, b = next(it)
+            out[f"stream/{engine}/{i}/bucket"] = np.array([bucket])
+            for k, v in b.items():
+                out[f"stream/{engine}/{i}/{k}"] = v
+        it.close()
+    # A profiled fit: process 0 alone writes the trace.
+    c = _config({**spec["profile"], "train.out_dir": str(directory / "profiled"),
+                 "train.profile_dir": str(directory / "prof")})
+    tr = Trainer(c, ds, device="cpu")
+    tr.fit()
+    out["profile/trace"] = np.array([tr.profile_trace or ""])
+    labels = []
+    if tr.profile_trace:
+        events = json.loads(Path(tr.profile_trace).read_text())["traceEvents"]
+        labels = sorted({e["name"] for e in events if e.get("name", "").startswith("seqrec_group[")})
+    out["profile/labels"] = np.array(labels)
     # A straight fit against one killed and resumed, each case.
     for case, settings in spec["fit"].items():
         for run, extra in (("straight", {}), ("killed", {"train.fail_after_step": 8}),
