@@ -221,6 +221,23 @@ source, all at once). Each phase prints one JSON line:
               step (twice a block with remat: the backward replays the
               forward); peak device memory and step ms each way, four timed
               groups each, alternated;
+  r. reshard  resharding on restore, checkpoints written by two ranks of
+              this script (--r-rank) sharing cuda:0 over gloo, read by this
+              one process at 1 x 1: r1 configs/ml1m_gru4rec.json at full
+              width (bf16) with mesh.model_axis=2 and mesh.shard_embeddings,
+              24 steps and a checkpoint, restored with the table padded
+              alike (3,424 rows at model axis 1 and 2): every leaf the two
+              ranks' parts put together, bit for bit; the `eval` subcommand
+              in f32 on it within 1e-5 relative of the two ranks' f32 eval;
+              `recommend --ckpt` of it answering the 320 requests; 24 more
+              steps resumed from it through the kernels (finite losses, the
+              last group's below the first's, each kernel's launches); r2
+              the same config with the tables whole written at 2 x 1,
+              restored bit for bit, one K=8 group from it; r3 a
+              configs/rsc15_gru4rec.json (session-parallel) checkpoint of
+              the two ranks refused, the ValueError naming the carry and
+              both global shapes; each restore's seconds, bytes read and
+              host peak resident set;
   m. the kernels line: {"kernels": [{name, route, source, replaces,
               launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
               library_ms, design, dtype}, ...]} (the scatter-add also
@@ -233,7 +250,7 @@ source, all at once). Each phase prints one JSON line:
               session paths' for the reset variants, the f32 paths' for the
               f32 kernels; the counts of every path beside it, the fit
               loop's, the profile_dir fit's, the sparse fits', p2 rank 0's
-              ml100k fit's and phase q's included), and the two
+              ml100k fit's, phase q's and phase r's included), and the two
               shard-window variants, their launches counted on p2's rank 0.
 
 Then the raw nvidia-smi name/power-limit line, and last
@@ -290,7 +307,7 @@ from seqrec_tpu_torch.ops.cuda import head as k_head
 from seqrec_tpu_torch.ops.cuda import lstm as k_lstm
 from seqrec_tpu_torch.runtime.mesh import init_distributed, make_mesh, shutdown
 from seqrec_tpu_torch.train import sparse_embed
-from seqrec_tpu_torch.train.state import clone_state
+from seqrec_tpu_torch.train.state import TrainState, clone_state
 from seqrec_tpu_torch.train.trainer import Trainer
 
 CONFIGS = {"gru4rec": "configs/ml1m_gru4rec.json", "sasrec": "configs/ml1m_sasrec.json",
@@ -3141,17 +3158,17 @@ def p2_rank(rank: Optional[int], root: Path, seed: int) -> int:
     return 0
 
 
-def _spawn_ranks(root: Path, seed: int) -> list:
-    """Run p2's two ranks (this script with --p2-rank) and wait for both;
-    kills both and raises, with their logs' tails, if either fails or
-    outlives P_RANK_TIMEOUT_S."""
+def _spawn_ranks(root: Path, seed: int, role: str = "p2", world: int = P_RANKS) -> list:
+    """Run a phase's ranks (this script with --<role>-rank: p2's or r's)
+    and wait for all; kills all and raises, with their logs' tails, if one
+    fails or outlives P_RANK_TIMEOUT_S."""
     procs, logs = [], []
-    for r in range(P_RANKS):
+    for r in range(world):
         log = open(root / f"rank{r}.log", "w")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--p2-rank", str(r),
-             "--p2-dir", str(root), "--seed", str(seed)],
+            [sys.executable, str(Path(__file__).resolve()), f"--{role}-rank", str(r),
+             f"--{role}-dir", str(root), "--seed", str(seed)],
             stdout=log, stderr=subprocess.STDOUT, cwd=Path.cwd()))
     deadline = time.monotonic() + P_RANK_TIMEOUT_S
     try:
@@ -3167,9 +3184,9 @@ def _spawn_ranks(root: Path, seed: int) -> list:
         for log in logs:
             log.close()
     if any(p.returncode != 0 for p in procs):
-        tails = {r: (root / f"rank{r}.log").read_text()[-3000:] for r in range(P_RANKS)}
-        raise CheckFailed(f"p2: ranks exited {[p.returncode for p in procs]}: {tails}")
-    return [json.loads((root / f"rank{r}.json").read_text()) for r in range(P_RANKS)]
+        tails = {r: (root / f"rank{r}.log").read_text()[-3000:] for r in range(world)}
+        raise CheckFailed(f"{role}: ranks exited {[p.returncode for p in procs]}: {tails}")
+    return [json.loads((root / f"rank{r}.json").read_text()) for r in range(world)]
 
 
 def _rel_err_np(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3599,6 +3616,314 @@ def phase_checkpoint(dev, seed: int, requests: list) -> dict:
     return result
 
 
+# ---- r. resharding on restore ------------------------------------------------
+
+R_RANKS = 2  # phase r's writer ranks, both on cuda:0 over gloo (as p2)
+R_STEPS = 24  # the 2-rank fit, and the resumed one-process fit after it
+R_GROUP_STEPS = 8  # r2 and r3's writer fits: one K=8 group
+R_EVAL_TOL = 1e-5  # f32 metric sums over two ranks against one process (as p2's eval)
+RSS_SAMPLE_S = 0.0005  # the resident set's sampling period during a restore
+ML1M_DATA = ["data.dataset=synthetic", f"data.synthetic_num_items={VOCAB - 1}",
+             "data.synthetic_num_users=6040", "data.synthetic_min_len=20",
+             "data.synthetic_max_len=201"]
+RSC15_DATA = ["data.dataset=synthetic"] + [
+    f"data.synthetic_{k}={v}" for k, v in SESSION_DATA["rsc15_gru4rec"].items()]
+R1_SETS = ["mesh.model_axis=2", "mesh.shard_embeddings=true"]  # the writer's mesh: 1 x 2
+R1_ONE = ["mesh.model_axis=1", "mesh.shard_embeddings=true"]  # the reader's: 1 x 1
+R2_SETS = ["mesh.model_axis=1", "mesh.shard_embeddings=false"]  # 2 x 1 writes, 1 x 1 reads
+
+
+def _r_cfg(run: str, root: Path, *sets) -> RunConfig:
+    """Phase r's run `run` under `root`: r1 and r2 configs/ml1m_gru4rec.json
+    on synthetic ML-1M-shaped data, r3 configs/rsc15_gru4rec.json on
+    synthetic RSC15-shaped sessions, eval off, a log line a group."""
+    config, data = ((CONFIGS["rsc15_gru4rec"], RSC15_DATA) if run == "r3"
+                    else (CONFIGS["gru4rec"], ML1M_DATA))
+    return RunConfig.load(config).apply_overrides([
+        *data, f"data.data_dir={root / 'data' / Path(config).stem}",
+        f"train.out_dir={root / run}", "train.eval_every=0", "train.log_every=8", *sets])
+
+
+def r_rank(rank: int, root: Path, seed: int) -> int:
+    """One of phase r's writer ranks (`--r-rank`), on cuda:0 over gloo: r1
+    the 2-rank sharded fit (1 x 2, R_STEPS steps, a checkpoint at the end)
+    and that checkpoint's full-protocol eval in f32 on the two ranks; r2 a
+    K=8 group at 2 x 1 with the tables whole; r3 a K=8 group of the
+    session-parallel rsc15_gru4rec at 2 x 1. Writes rank<r>.json."""
+    timeout = datetime.timedelta(seconds=P_COLLECTIVE_TIMEOUT_S)
+    dev = init_distributed(f"file://{root / 'store'}", R_RANKS, rank, backend="gloo",
+                           device="cuda:0", timeout=timeout)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        sharded, whole = make_mesh(2), make_mesh(1)
+        if rank == 0:  # prepared once, read by every rank
+            load_dataset(_r_cfg("r1", root).data)
+            load_dataset(_r_cfg("r3", root).data)
+        sharded.barrier()
+        out = {"rank": rank}
+        cfg = _r_cfg("r1", root, *R1_SETS, f"train.num_steps={R_STEPS}",
+                     f"train.checkpoint_every={R_STEPS}")
+        tr = Trainer(cfg, device=dev, mesh=sharded)
+        t0 = time.perf_counter()
+        state, _ = tr.fit()
+        torch.cuda.synchronize()
+        out["r1_fit_seconds"] = time.perf_counter() - t0
+        out["r1_shard_rows"] = int(state.params["item_embedding"].shape[0])
+        del state, tr
+        tr = Trainer(cfg.apply_overrides([F32]), device=dev, mesh=sharded)
+        state = tr.checkpoint_manager(str(root / "r1" / "ckpt")).restore(
+            tr.abstract_state(), device=dev)[0]
+        out["r1_eval_f32"] = tr.evaluate(state, split="test")
+        del state, tr
+        for run, sets in (("r2", R2_SETS), ("r3", ())):
+            cfg = _r_cfg(run, root, *sets, f"train.num_steps={R_GROUP_STEPS}",
+                         f"train.checkpoint_every={R_GROUP_STEPS}")
+            tr = Trainer(cfg, device=dev, mesh=whole)
+            state, _ = tr.fit()
+            out[f"{run}_step"] = int(state.step)
+            del state, tr
+        torch.cuda.empty_cache()
+        (root / f"rank{rank}.json").write_text(json.dumps(out))
+        sharded.barrier()
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    shutdown()
+    return 0
+
+
+def _host_rss_bytes() -> int:
+    """This process's resident set now (/proc/self/status VmRSS)."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) * 1024
+    return -1
+
+
+class _RssPeak:
+    """The largest resident set sampled every RSS_SAMPLE_S while the block
+    runs (the card's machine has no VmHWM to reset), with the one before."""
+
+    def __enter__(self):
+        self.before = self.peak = _host_rss_bytes()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.is_set():
+                self.peak = max(self.peak, _host_rss_bytes())
+                self._stop.wait(RSS_SAMPLE_S)
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _host_rss_bytes())
+        return False
+
+
+def _timed_restore(tr: Trainer, ckpt: Path, dev) -> tuple:
+    """`restore` of the newest checkpoint under `ckpt` into `tr`'s state:
+    the state, and its seconds, bytes read, the host's resident set before
+    it and its sampled peak during it."""
+    mgr = tr.checkpoint_manager(str(ckpt))
+    abstract = tr.abstract_state()
+    with _RssPeak() as rss:
+        t0 = time.perf_counter()
+        state, step, pos, _ = mgr.restore(abstract, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    rec = mgr.restores[-1]
+    return state, {"step": step, "data_position": pos, "seconds": seconds,
+                   "bytes_read": rec["bytes_read"], "leaves": rec["leaves"],
+                   "writer_mesh": rec["writer_mesh"], "host_rss_before_bytes": rss.before,
+                   "host_rss_peak_bytes": rss.peak,
+                   "host_rss_peak_above_before_bytes": rss.peak - rss.before,
+                   "rss_sample_s": RSS_SAMPLE_S}
+
+
+def _rank_parts(step_dir: Path, world: int) -> list:
+    """Each writer rank's part of a checkpoint, by `_state_tensors`'s keys."""
+    out = []
+    for r in range(world):
+        rest = torch.load(step_dir / f"state.rank{r}.pt", weights_only=True)
+        out.append(_state_tensors(TrainState(
+            step=0, params=torch.load(step_dir / f"params.rank{r}.pt", weights_only=True),
+            opt_state=rest["opt_state"], rng_seed=0, carry=rest["carry"],
+            embed_opt=rest["embed_opt"])))
+    return out
+
+
+def _bitwise_restored(name: str, state, parts: list, sharded: set) -> int:
+    """Every leaf of the restored `state` equal bit for bit to the writer
+    ranks' parts put together (a row-sharded leaf: the model ranks' rows in
+    order; any other: rank 0's, alike on every rank). Returns the count."""
+    got = {k: v.cpu() for k, v in _state_tensors(state).items()}
+    check(sorted(got) == sorted(parts[0]), f"{name}: leaves {sorted(got)} vs {sorted(parts[0])}")
+    for k, v in got.items():
+        owner = k.rsplit("/", 1)[-1] if not k.startswith("embed_opt/") else k.split("/")[1]
+        if owner in sharded:
+            want = torch.cat([p[k] for p in parts])
+        else:
+            for p in parts[1:]:
+                check(torch.equal(p[k], parts[0][k]), f"{name}: {k} differs between ranks")
+            want = parts[0][k]
+        check(want.dtype == v.dtype and torch.equal(want, v),
+              f"{name}: {k} is not the writer's bit for bit")
+    return len(got)
+
+
+def _logged(out_dir: Path, since_step: int) -> list:
+    """The train lines of `out_dir`/metrics.jsonl past `since_step`."""
+    lines = [json.loads(x) for x in (out_dir / "metrics.jsonl").read_text().splitlines()]
+    return [x for x in lines if x["tag"] == "train" and x["step"] >= since_step]
+
+
+def phase_reshard(dev, seed: int, requests: list) -> dict:
+    """r. Resharding on restore: checkpoints written by two ranks sharing
+    cuda:0 over gloo (`--r-rank`), read by this one process on the 1 x 1
+    mesh. r1: configs/ml1m_gru4rec.json at full width with
+    mesh.model_axis=2 and mesh.shard_embeddings (1,712-row shards of the
+    3,424-row padded table), R_STEPS steps in bf16, a checkpoint at the end,
+    restored at 1 x 1 (padded alike): every leaf the two ranks' parts put
+    together, bit for bit; the `eval` subcommand in f32 on it against the
+    two ranks' f32 eval (R_EVAL_TOL relative); `recommend --ckpt` of it for
+    the 320 requests; then R_STEPS more steps resumed from it through the
+    kernels (counters zeroed just before, read just after): finite losses,
+    the last group's below the first's, each kernel's launches. r2: the
+    same config with the tables whole written at 2 x 1, restored bit for
+    bit, one K=8 group from it. r3: configs/rsc15_gru4rec.json
+    (session-parallel) written at 2 x 1: restored by one process, the
+    ValueError naming the carry and both global shapes. Each restore's
+    seconds, bytes read and host resident set (before, sampled peak)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_reshard_"))
+    rng = np.random.default_rng(seed + 16)
+    phase_t0 = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(root, seed, role="r", world=R_RANKS)
+        ranks_s = time.perf_counter() - t0
+        # r1: the 1 x 2 checkpoint at 1 x 1, resumed for R_STEPS more steps.
+        cfg = _r_cfg("r1", root, *R1_ONE, f"train.num_steps={2 * R_STEPS}",
+                     f"train.checkpoint_every={R_STEPS}", "train.resume=true")
+        tr = Trainer(cfg, device=dev)
+        ckpt = root / "r1" / "ckpt"
+        check(json.loads((ckpt / str(R_STEPS) / "meta.json").read_text())["mesh"] == {
+            "data": 1, "model": 2}, "r1: the checkpoint is not the 1 x 2 mesh's")
+        state, r1_restore = _timed_restore(tr, ckpt, dev)
+        check(r1_restore["step"] == R_STEPS and state.params["item_embedding"].shape[0] ==
+              tr.model.table_size == 2 * ranks[0]["r1_shard_rows"],
+              f"r1: restored step {r1_restore['step']}, table "
+              f"{tuple(state.params['item_embedding'].shape)}")
+        leaves = _bitwise_restored("r1", state, _rank_parts(ckpt / str(R_STEPS), R_RANKS),
+                                   {"item_embedding"})
+        del state
+        run_cfg = str(root / "r1" / "config.json")  # the writer's, model_axis 2
+        t0 = time.perf_counter()
+        ev = _cli_lines(["eval", "--config", run_cfg, "--set", "mesh.model_axis=1",
+                         "--set", F32, "--split", "test", "--device", str(dev)])[-1]
+        eval_s = time.perf_counter() - t0
+        want = ranks[0]["r1_eval_f32"]
+        check(ranks[1]["r1_eval_f32"] == want, "r1: the two ranks' evals differ")
+        check(ev.pop("step") == R_STEPS and ev.pop("split") == "test" and sorted(ev) ==
+              sorted(want), f"r1: eval subcommand {ev}")
+        eval_err = max(abs(ev[k] - v) / max(abs(v), 1e-12) for k, v in want.items())
+        check(eval_err <= R_EVAL_TOL and want["count"] > 0,
+              f"r1: eval at 1 x 1 {ev} vs the two ranks' {want} ({eval_err:.3g} relative)")
+        src = root / "requests.jsonl"
+        src.write_text("".join(json.dumps(r) + "\n" for r in requests))
+        t0 = time.perf_counter()
+        recs = _cli_lines(["recommend", "--config", run_cfg, "--set", "mesh.model_axis=1",
+                           "--ckpt", str(ckpt), "--input", str(src), "--device", str(dev)])
+        rec_s = time.perf_counter() - t0
+        check(len(recs) == len(requests) and all(
+            len(r["items"]) == K and np.isfinite(r["scores"]).all() for r in recs),
+            f"r1: recommend --ckpt answered {len(recs)} of {len(requests)}")
+        probe = _GroupProbe(tr)
+        zero_counters()
+        t0 = time.perf_counter()
+        state, _ = tr.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = read_counters()
+        probe.close()
+        run = probe.read()
+        steps = sum(probe.steps)
+        losses = [m["loss"] for m in run["metrics"]]
+        check(state.step == 2 * R_STEPS and steps == R_STEPS,
+              f"r1: the resumed fit stopped at {state.step} after {steps} steps")
+        check(all(np.isfinite(m["loss"]) and not m["nonfinite"] for m in run["metrics"]),
+              f"r1: non-finite metrics {run['metrics']}")
+        # A group is K=8 steps; bucket changes split fit's calls into single
+        # steps, so each group's loss is the mean over its steps' calls.
+        per_step = np.repeat(losses, probe.steps)
+        groups = per_step.reshape(-1, cfg.train.steps_per_call).mean(axis=1)
+        check(groups[-1] < groups[0], f"r1: the group loss did not fall ({groups.tolist()})")
+        want_l = {k: v * steps for k, v in expected_launches(cfg, training=True).items()}
+        check(launches == want_l, f"r1: kernel launches {launches}, expected {want_l}")
+        logged = _logged(root / "r1", R_STEPS)
+        del state, tr
+        torch.cuda.empty_cache()
+        # r2: tables whole, written at 2 x 1, read at 1 x 1; one K=8 group.
+        cfg = _r_cfg("r2", root, *R2_SETS)
+        tr = Trainer(cfg, device=dev)
+        state, r2_restore = _timed_restore(tr, root / "r2" / "ckpt", dev)
+        r2_leaves = _bitwise_restored(
+            "r2", state, _rank_parts(root / "r2" / "ckpt" / str(R_GROUP_STEPS), R_RANKS), set())
+        group = _on_device(_train_wires(rng, tr, 1, 8, TRAIN_B, TRAIN_T)[0], dev)
+        zero_counters()
+        state, m = tr.train_step_multi(state, group)
+        torch.cuda.synchronize()
+        r2_launches = read_counters()
+        check(np.isfinite(float(m["loss"])) and state.step == R_GROUP_STEPS + 8,
+              f"r2: group from the restored state: loss {float(m['loss'])}, step {state.step}")
+        want_l = {k: v * 8 for k, v in expected_launches(cfg, training=True).items()}
+        check(r2_launches == want_l, f"r2: kernel launches {r2_launches}, expected {want_l}")
+        del state, tr
+        # r3: the session carry of two ranks refused by one process.
+        tr = Trainer(_r_cfg("r3", root), device=dev)
+        B, H = tr.cfg.data.batch_size, tr.cfg.model.hidden
+        msg = None
+        try:
+            tr.checkpoint_manager(str(root / "r3" / "ckpt")).restore(tr.abstract_state(), dev)
+        except ValueError as e:
+            msg = str(e)
+        shapes = f"/carry/0 ({R_RANKS * B}, {H}) bfloat16 vs ({B}, {H}) bfloat16"
+        check(msg is not None and shapes in msg and "mesh of 2 x 1" in msg,
+              f"r3: the restore did not refuse the carry as '{shapes}': {msg}")
+        del tr
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    result = {
+        "phase": "reshard",
+        "note": "the writers are two ranks sharing cuda:0 over gloo; every restore is by this "
+                "one process at 1 x 1, its bytes read and host peak on the card's host",
+        "seconds": time.perf_counter() - phase_t0, "ranks_seconds": ranks_s, "ranks": ranks,
+        "r1": {"config": CONFIGS["gru4rec"], "writer": R1_SETS, "reader": R1_ONE,
+               "restore": r1_restore, "leaves_bit_equal": leaves,
+               "eval_f32_1x1": ev, "eval_f32_two_ranks": want, "eval_rel_err": eval_err,
+               "eval_seconds": eval_s, "recommend_requests": len(recs),
+               "recommend_seconds": rec_s, "resumed_steps": steps, "resumed_fit_seconds": fit_s,
+               "losses": losses, "group_losses": groups.tolist(),
+               "step_ms_median": float(np.median(run["step_ms"])),
+               "examples_per_s": [x["examples_per_s"] for x in logged],
+               "launches": launches},
+        "r2": {"config": CONFIGS["gru4rec"], "writer": R2_SETS, "restore": r2_restore,
+               "leaves_bit_equal": r2_leaves, "group_loss": float(m["loss"]),
+               "launches": r2_launches},
+        "r3": {"config": CONFIGS["rsc15_gru4rec"], "refused": msg},
+    }
+    emit(result)
+    return result
+
+
 def _kernel_entry(name, source, replaces, launches, rec, plain_key="plain_ms", **extra):
     lib = rec["library_ms"]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3615,6 +3940,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--p2-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--p2-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--r-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--r-dir", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--sharded-ranks", metavar="DIR", default=None,
                     help="under torchrun: each rank does phase p2's work over NCCL on its "
                          "own card, writing into DIR")
@@ -3627,6 +3954,8 @@ def main(argv=None) -> int:
         return 2
     if args.p2_rank is not None:  # one of phase p2's ranks, started by phase_sharded
         return p2_rank(args.p2_rank, Path(args.p2_dir), args.seed)
+    if args.r_rank is not None:  # one of phase r's writer ranks, started by phase_reshard
+        return r_rank(args.r_rank, Path(args.r_dir), args.seed)
     if args.sharded_ranks:
         Path(args.sharded_ranks).mkdir(parents=True, exist_ok=True)
         return p2_rank(None, Path(args.sharded_ranks), args.seed)
@@ -3672,6 +4001,7 @@ def main(argv=None) -> int:
     phase_checkpoint(dev, args.seed, requests)
     sharded = phase_sharded(dev, args.seed)
     remat = phase_remat(rng, dev, args.seed)
+    reshard = phase_reshard(dev, args.seed, requests)
 
     p2_rank0 = sharded["p2_gloo_two_ranks_one_card"][0]
 
@@ -3687,7 +4017,9 @@ def main(argv=None) -> int:
                 "p2_rank0_fit_ml100k_sharded": p2_rank0["ml100k"]["launches"][kernel],
                 **{f"train_remat_{dtype}_{way}": remat[dtype][way]["launches_per_step"].get(
                     kernel, 0.0) * 8 for dtype in ("bfloat16", "float32")
-                   for way in ("no_remat", "remat")}}
+                   for way in ("no_remat", "remat")},
+                "fit_reshard_r1_resumed_1x1": reshard["r1"]["launches"][kernel],
+                "train_reshard_r2_group_1x1": reshard["r2"]["launches"][kernel]}
 
     gather = kern["gather"]
 

@@ -31,6 +31,17 @@ models.convert); the catalog size is the row count of `item_embedding` (and
 the user count that of `user_embedding`, less one; a checkpoint's meta.json
 names both). `--device` defaults to cuda and raises without it.
 
+`eval` and `recommend --ckpt` read a checkpoint of any mesh on their own
+(`train/checkpoint.py` reshards it where every leaf's global shape agrees,
+as orbax does): a 2-rank run's checkpoint serves from one process,
+
+    python -m seqrec_tpu_torch recommend --config configs/ml1m_gru4rec.json \
+        --set mesh.shard_embeddings=true --ckpt runs/sharded/ckpt
+
+and `train.resume=true` resumes a run on another mesh. `recommend` reads
+the parameters alone, so it also serves a session-parallel checkpoint on
+another world size, which the whole state (the carry) would refuse.
+
 Every subcommand runs on several devices, one process each, under torchrun
 or with the JAX CLI's flags:
 
@@ -95,12 +106,11 @@ def cmd_eval(args) -> int:
     """Evaluate the newest checkpoint on a split."""
     cfg = _load_cfg(args)
     device = _init_runtime(args)
-    from seqrec_tpu_torch.train.checkpoint import CheckpointManager
     from seqrec_tpu_torch.train.trainer import Trainer
 
     tr = Trainer(cfg, device=device)
-    mgr = CheckpointManager(_ckpt_dir(args, cfg), mesh=tr.mesh)
-    state, step, _, _ = mgr.restore(tr.abstract_state(), device=tr.device)
+    state, step, _, _ = tr.checkpoint_manager(_ckpt_dir(args, cfg)).restore(
+        tr.abstract_state(), device=tr.device)
     m = tr.evaluate(state, split=args.split)
     _print0({"step": step, "split": args.split, **m})
     return 0
@@ -134,19 +144,25 @@ def cmd_recommend(args) -> int:
     from seqrec_tpu_torch.train.checkpoint import CheckpointManager
 
     mesh = make_mesh(cfg.mesh.model_axis)
-    meta = {}
+    shapes = {}
     if args.weights:
         state = flax_to_state_dict(load_npz(args.weights))
+        shapes = {k: v.shape for k, v in state.items()}
+        meta = {}
     else:
         mgr = CheckpointManager(_ckpt_dir(args, cfg), mesh=mesh)
         meta = mgr.read_meta()
-        state = mgr.restore_params(device="cpu")
-    num_users = meta.get("num_users", state["user_embedding"].shape[0] - 1
-                         if "user_embedding" in state else 0)
-    model = build_model(cfg.model, meta.get("vocab_size", state["item_embedding"].shape[0]),
+        if "vocab_size" not in meta:  # written without the trainer's info: the tables' rows
+            shapes = {k: v.shape for k, v in mgr.restore_params(device="cpu").items()}
+    num_users = meta.get("num_users", shapes["user_embedding"][0] - 1
+                         if "user_embedding" in shapes else 0)
+    model = build_model(cfg.model, meta.get("vocab_size", shapes.get("item_embedding", (0,))[0]),
                         num_users=num_users, device=device, mesh=mesh, mesh_cfg=cfg.mesh)
     if args.weights:  # a whole tree: this rank's shard of it
         state = shard_state_dict(state, model)
+    else:  # a checkpoint of any mesh: this rank's part of each parameter
+        state = mgr.restore_params(device="cpu", like=dict(model.named_parameters()),
+                                   row_sharded=model.sharded_rows)
     model.load_state_dict(state)
     model.eval()
 

@@ -38,9 +38,13 @@ a `DevicePrefetcher` that stages wires through pinned memory on a side
 stream, the log, eval, heartbeat and checkpoint cadences at group
 boundaries, the `debug_nans` halt and the `fail_after_step` return (with a
 checkpoint). With `train.resume` it restores the newest checkpoint under
-`out_dir/ckpt` and resumes the data where the run left it: the bucketed
-loaders fast-forward past the batches consumed, a session-parallel stream
-restores its snapshot with the engine that took it. A killed and resumed
+`out_dir/ckpt`, written on this mesh or another (`train/checkpoint.py`
+reshards it where every leaf's global shape agrees, as orbax does), and
+resumes the data where the run left it: the bucketed loaders fast-forward
+past the batches consumed, on this run's mesh (its `host_shard` and global
+batch, as a JAX process with another device count does), a
+session-parallel stream restores its snapshot with the engine that took
+it. A killed and resumed
 run equals a straight one bit for bit. With `train.profile_dir`, process 0
 traces the groups from the one holding `profile_steps[0]` to the one
 holding `profile_steps[1]` (or the loop's end) with `torch.profiler`, the
@@ -841,6 +845,16 @@ class Trainer:
         prof.export_chrome_trace(self.profile_trace)
         return self.profile_trace
 
+    def checkpoint_manager(self, directory: str, keep: int = 3) -> CheckpointManager:
+        """A checkpoint manager of this run's mesh and its row-sharded
+        leaves, which writes the vocab_size and num_users `recommend --ckpt`
+        reads; its `restore` reads a checkpoint of any mesh that holds this
+        run's global shapes."""
+        return CheckpointManager(directory, keep=keep, mesh=self.mesh,
+                                 row_sharded=self._sharded,
+                                 info={"vocab_size": int(self.ds.vocab_size),
+                                       "num_users": int(self.ds.num_users)})
+
     def fit(self, state: Optional[TrainState] = None
             ) -> Tuple[TrainState, Dict[str, float]]:
         """Train to `train.num_steps` from `state` (when None: the newest
@@ -855,9 +869,7 @@ class Trainer:
         logger = MetricsLogger(out_dir, tensorboard=cfg.train.tensorboard, host0=rank == 0)
         heartbeat = Heartbeat(out_dir, rank) if out_dir else None
         ckpt = self.ckpt = (
-            CheckpointManager(os.path.join(out_dir, "ckpt"), keep=cfg.train.keep_checkpoints,
-                              mesh=self.mesh, info={"vocab_size": int(self.ds.vocab_size),
-                                                    "num_users": int(self.ds.num_users)})
+            self.checkpoint_manager(os.path.join(out_dir, "ckpt"), keep=cfg.train.keep_checkpoints)
             if out_dir and cfg.train.checkpoint_every > 0 else None)
         data_position = 0  # batches consumed: the resume point of the data
         data_state = None

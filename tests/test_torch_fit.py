@@ -384,18 +384,18 @@ def test_fit_debug_nans_halts_and_fail_after_step_returns(tiny_ds, tmp_path):
 
 
 @pytest.mark.parametrize("setting,match", [
-    ({"train.resume": True}, "resharding on restore is not ported"),
+    ({"train.resume": True, "model.embed_dim": 24},
+     r"/params/item_embedding \(\d+, 16\) float32 vs \(\d+, 24\) float32"),
 ])
 def test_fit_raises_for_what_is_not_ported(tiny_ds, tmp_path, setting, match):
-    """What fit still lacks: resuming a checkpoint that another mesh wrote
-    (the JAX package's orbax reshards it). A one-process checkpoint,
-    relabelled as a 1 x 2 mesh's, is refused before any state is read."""
+    """What fit refuses on resume, as the JAX package's orbax restore does:
+    a checkpoint whose leaves' global shapes are not this run's (here a
+    narrower model's), every such leaf named with both shapes, before any
+    state is read. (A checkpoint of another mesh with this run's global
+    shapes restores: tests/test_torch_reshard.py.)"""
     tr = Trainer(_apply(RunConfig(), _settings(tmp_path, **{
         "train.num_steps": 4, "train.checkpoint_every": 4})), _port_ds(tiny_ds), device="cpu")
     tr.fit()
-    meta = tmp_path / "run" / "ckpt" / "4" / "meta.json"
-    meta.write_text(json.dumps({**json.loads(meta.read_text()),
-                                "mesh": {"data": 1, "model": 2}}))
     tr = Trainer(_apply(RunConfig(), _settings(tmp_path, **{
         "train.checkpoint_every": 4, **setting})), _port_ds(tiny_ds), device="cpu")
     with pytest.raises(ValueError, match=match):

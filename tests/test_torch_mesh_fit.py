@@ -15,7 +15,9 @@ gloo ranks with row-sharded tables (`mesh.model_axis=2`), on the CPU
   straight one, the sparse step and the sparse session-parallel step (the
   stream's snapshot and the carry, rank-local): every leaf on every rank
   bit for bit; each rank's part of the checkpoint and rank 0's meta.json
-  with the mesh; a restore on another mesh refused, naming both.
+  with the mesh; that checkpoint restored by one process where the global
+  shapes agree (the shards put together), refused, naming the leaves and
+  both shapes, where they do not.
 - `recommend` with the sharded top-k against one rank's whole model: the
   same items, scores within 1e-6 relative (the dot products of another
   matmul's shape).
@@ -39,6 +41,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from seqrec_tpu.config import RunConfig as JaxRunConfig
 from seqrec_tpu.data import native as jax_native
@@ -46,9 +49,11 @@ from seqrec_tpu.data.batching import make_train_batches as jax_make_train_batche
 from seqrec_tpu.data.dataset import synthetic_dataset as jax_synthetic_dataset
 from seqrec_tpu.eval.harness import evaluate as jax_evaluate
 from seqrec_tpu.models import build_model as jax_build_model
+from seqrec_tpu_torch.config import RunConfig as PortRunConfig
 from seqrec_tpu_torch.parallel.embedding import padded_vocab
 from seqrec_tpu_torch.train.checkpoint import CheckpointManager
 from seqrec_tpu_torch.train.state import TrainState
+from seqrec_tpu_torch.train.trainer import Trainer
 from torch_mesh_worker import spawn
 
 DATASET = {"num_users": 61, "num_items": 90, "seed": 4, "min_len": 4, "max_len": 14}
@@ -235,34 +240,86 @@ def test_resume_at_world_2_is_bit_for_bit(run, case):
     assert ("data_state" in data) == (case == "sparse_session")
 
 
+class _DS:
+    def __init__(self, vocab: int, users: int = 0):
+        self.vocab_size, self.num_users = vocab, users
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, torch.Tensor):
+        return {path: tree}
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _leaves(sub, f"{path}/{key}").items()}
+    if isinstance(tree, (tuple, list)):
+        return {k: v for i, sub in enumerate(tree) for k, v in _leaves(sub, f"{path}/{i}").items()}
+    return {}
+
+
 def test_restore_on_another_mesh_is_refused(run):
-    d, _, _, _ = run
-    mgr = CheckpointManager(str(d / "sparse" / "resumed" / "ckpt"))  # one process: 1 x 1
-    for read in (lambda: mgr.restore(TrainState(step=0, params={}, opt_state={}, rng_seed=0),
-                                     device="cpu"),
-                 lambda: mgr.restore_params("cpu"), mgr.read_meta):
-        with pytest.raises(ValueError, match=r"mesh of 1 x 2 .*this run's is 1 x 1"):
-            read()
+    """The 1 x 2 sparse checkpoint (vocab 91, padded to 96 at model axis 1
+    and 2 alike) restores at 1 x 1 with the tables padded
+    (`mesh.shard_embeddings`), as orbax restores it: every table, row-state
+    and moment leaf the two ranks' shards put together, every other leaf
+    rank 0's, bit for bit. Without the padding (91 rows) the global shapes
+    differ: refused, the leaves named with both shapes."""
+    d, _, _, jds = run
+    ckpt = d / "sparse" / "resumed" / "ckpt"
+    parts = [{**_leaves(torch.load(ckpt / "12" / f"params.rank{r}.pt"), "/params"),
+              **_leaves(torch.load(ckpt / "12" / f"state.rank{r}.pt"))} for r in range(2)]
+    one = _apply(PortRunConfig(), {**FIT, "mesh.model_axis": 1})
+    tr = Trainer(one, _DS(jds.vocab_size), device="cpu")
+    mgr = tr.checkpoint_manager(str(ckpt))  # one process: 1 x 1
+    state, step, pos, data_state = mgr.restore(tr.abstract_state(), device="cpu")
+    assert (step, pos, data_state) == (12, 12, None) and mgr.read_meta()["data_position"] == 12
+    got = _leaves({"params": state.params, "opt_state": state.opt_state,
+                   "embed_opt": state.embed_opt, "carry": state.carry})
+    assert sorted(got) == sorted(parts[0])
+    sharded = {"/params/item_embedding", "/embed_opt/item_embedding/acc"}
+    assert sharded <= set(got) and got["/params/item_embedding"].shape[0] == 96
+    for k, v in got.items():
+        want = torch.cat([parts[0][k], parts[1][k]]) if k in sharded else parts[0][k]
+        assert torch.equal(v, want), k
+    params = mgr.restore_params("cpu", like=state.params)
+    assert all(torch.equal(params[k], v) for k, v in state.params.items())
+    whole = _apply(PortRunConfig(), {**FIT, "mesh.model_axis": 1,
+                                     "mesh.shard_embeddings": False})
+    tr = Trainer(whole, _DS(jds.vocab_size), device="cpu")
+    mgr = tr.checkpoint_manager(str(ckpt))
+    shapes = r"mesh of 1 x 2 .*this run's, 1 x 1.*/params/item_embedding \(96, 16\) float32 vs " \
+             r"\(91, 16\) float32"
+    with pytest.raises(ValueError, match=r"/embed_opt/item_embedding/acc \(96, 16\) float32 vs "
+                                         r"\(91, 16\) float32; " + shapes[shapes.index("/params"):]):
+        mgr.restore(tr.abstract_state(), device="cpu")
+    with pytest.raises(ValueError, match=shapes):
+        mgr.restore_params("cpu", like=dict(tr.model.named_parameters()))
 
 
 def test_a_one_process_checkpoint_is_refused_at_world_2(tmp_path):
     """A checkpoint of one process (no rank parts) read on either rank of a
-    1 x 2 mesh: the ValueError naming both meshes, before any rank's part is
-    opened. The mesh is a stand-in: the manager reads its shape, rank and
-    size, and sums rank 0's save token with `psum_host`."""
+    1 x 2 mesh: its replicated `w` restores on both ranks, as orbax restores
+    a replicated leaf on any mesh; a state whose `w` has another shape is
+    refused, naming it and both shapes, before anything is read. The mesh
+    is a stand-in: the manager reads its shape, rank and size, and sums
+    rank 0's save token with `psum_host`."""
     from types import SimpleNamespace
 
-    import torch
-
-    state = TrainState(step=3, params={"w": torch.ones(2)}, opt_state={}, rng_seed=0)
-    assert CheckpointManager(str(tmp_path), async_save=False).save(3, state, data_position=0)
+    state = TrainState(step=3, params={"w": torch.arange(2.0)}, opt_state={"count": 3},
+                       rng_seed=5)
+    assert CheckpointManager(str(tmp_path), async_save=False).save(3, state, data_position=4)
+    wrong = TrainState(step=3, params={"w": torch.ones(3)}, opt_state={}, rng_seed=0)
     for rank in (0, 1):
         mesh = SimpleNamespace(shape={"data": 1, "model": 2}, rank=rank, size=2,
                                psum_host=lambda x: x)
         mgr = CheckpointManager(str(tmp_path), mesh=mesh)
-        for read in (lambda: mgr.restore(state, device="cpu"),
-                     lambda: mgr.restore_params("cpu"), mgr.read_meta):
-            with pytest.raises(ValueError, match=r"mesh of 1 x 1 .*this run's is 1 x 2"):
+        got, step, pos, _ = mgr.restore(state, device="cpu")
+        assert (step, pos, got.step, got.rng_seed, got.opt_state) == (3, 4, 3, 5, {"count": 3})
+        assert torch.equal(got.params["w"], state.params["w"])
+        assert torch.equal(mgr.restore_params("cpu")["w"], state.params["w"])
+        assert mgr.read_meta()["data_position"] == 4
+        for read in (lambda: mgr.restore(wrong, device="cpu"),
+                     lambda: mgr.restore_params("cpu", like=wrong.params)):
+            with pytest.raises(ValueError, match=r"mesh of 1 x 1 .*this run's, 1 x 2.*"
+                                                 r"/params/w \(2,\) float32 vs \(3,\) float32"):
                 read()
 
 

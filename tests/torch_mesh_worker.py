@@ -21,7 +21,11 @@ Scenarios:
   a full-softmax one with its bias), the full-softmax model's candidate
   scores, the bucketed stream's first batches (each engine), a straight fit
   against a killed and resumed one, a profiled fit, and `recommend` sharded
-  against one rank's whole model.
+  against one rank's whole model;
+- reshard: checkpoints of every case saved from each mesh of this world
+  and restored on each (world 2 and world 4 run at once, and wait for each
+  other's saves), a fit killed at (1, 2) and resumed at (2, 1), and a
+  round trip (2, 1) -> (4, 1) -> (2, 1).
 """
 
 from __future__ import annotations
@@ -44,6 +48,12 @@ def spawn(scenario: str, world: int, directory: Path, timeout: float = 150.0) ->
     """Run `world` ranks of `scenario` over `directory`; their outputs, by
     rank. Each rank has `timeout` seconds: a hang fails this test only (the
     ranks are killed), it does not eat the suite's clock."""
+    return finish(start(scenario, world, directory, timeout))
+
+
+def start(scenario: str, world: int, directory: Path, timeout: float = 150.0) -> tuple:
+    """Start `world` ranks of `scenario` over `directory` (`finish` waits
+    for them): spawns of other directories may run meanwhile."""
     env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(ROOT),
            "SEQREC_WORKER_DUMP_S": str(max(5, int(timeout) - 10))}
     store = directory / "store"
@@ -53,7 +63,11 @@ def spawn(scenario: str, world: int, directory: Path, timeout: float = 150.0) ->
          str(r), scenario, str(directory)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=ROOT)
         for r in range(world)]
-    deadline = time.monotonic() + timeout
+    return scenario, directory, procs, time.monotonic() + timeout
+
+
+def finish(started: tuple) -> list:
+    scenario, directory, procs, deadline = started
     logs = []
     try:
         for p in procs:
@@ -67,7 +81,7 @@ def spawn(scenario: str, world: int, directory: Path, timeout: float = 150.0) ->
     bad = [(r, p.returncode, log[-4000:]) for r, (p, log) in enumerate(zip(procs, logs))
            if p.returncode != 0]
     assert not bad, f"{scenario} ranks failed: {bad}"
-    return [dict(np.load(directory / f"out.rank{r}.npz")) for r in range(world)]
+    return [dict(np.load(directory / f"out.rank{r}.npz")) for r in range(len(procs))]
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +344,234 @@ def _fit(io: dict, rank: int, spec: dict, directory: Path) -> dict:
     return out
 
 
+# ---- reshard: checkpoints written on one mesh, restored on another -------
+
+
+def state_from_leaves(leaves: dict, step: int):
+    """A TrainState from its leaves by path (`/params/<p>`,
+    `/opt_state/<moment>/<p>`, `/embed_opt/<p>/<leaf>`, `/carry/<layer>`)."""
+    from seqrec_tpu_torch.train.state import TrainState
+
+    params, opt, embed, carry = {}, {"count": step}, {}, {}
+    for path, t in leaves.items():
+        parts = path.split("/")[1:]
+        if parts[0] == "params":
+            params[parts[1]] = t
+        elif parts[0] == "opt_state":
+            opt.setdefault(parts[1], {})[parts[2]] = t
+        elif parts[0] == "embed_opt":
+            embed.setdefault(parts[1], {})[parts[2]] = t
+        else:
+            carry[int(parts[1])] = t
+    return TrainState(step=step, params=params, opt_state=opt, rng_seed=1,
+                      carry=tuple(carry[i] for i in sorted(carry)) or None,
+                      embed_opt=embed or None)
+
+
+def state_leaves(state) -> dict:
+    """Every tensor of a TrainState by path (the inverse of
+    `state_from_leaves`)."""
+    from seqrec_tpu_torch.train.checkpoint import _as_tree, _tensors
+
+    return dict(_tensors(_as_tree(state)))
+
+
+def _part(tr, path: str, a: np.ndarray) -> np.ndarray:
+    """This rank's part of the global leaf `a` on the trainer's mesh."""
+    from seqrec_tpu_torch.train.checkpoint import _owner
+
+    mesh = tr.mesh
+    if path.startswith("/carry/"):
+        n = a.shape[0] // mesh.size
+        return a[mesh.rank * n:(mesh.rank + 1) * n]
+    if _owner(path) in tr._sharded:
+        n = a.shape[0] // mesh.shape["model"]
+        m = mesh.coords["model"]
+        return a[m * n:(m + 1) * n]
+    return a
+
+
+def _wait_for(paths, seconds: float = 100.0) -> None:
+    deadline = time.monotonic() + seconds
+    while not all(p.exists() for p in paths):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"waited {seconds} s for {[str(p) for p in paths]}")
+        time.sleep(0.05)
+
+
+def _save_part(tr, leaves: dict, step: int, where: Path) -> None:
+    """Save this rank's part of the global `leaves` as step `step`."""
+    state = state_from_leaves({p: _t(_part(tr, p, a)) for p, a in leaves.items()}, step)
+    mgr = tr.checkpoint_manager(str(where))
+    mgr.save(step, state, data_position=step)
+    mgr.wait()
+
+
+def _restored(tr, where: Path, out: dict, prefix: str) -> None:
+    """Restore the newest checkpoint under `where` on the trainer's mesh:
+    every leaf of this rank's part, the step, count, data position and
+    bytes read under `prefix`, or the refusal's message."""
+    mgr = tr.checkpoint_manager(str(where))
+    try:
+        state, step, pos, _ = mgr.restore(tr.abstract_state(), device="cpu")
+    except ValueError as e:
+        out[prefix + "error"] = np.array([str(e)])
+        return
+    out[prefix + "meta"] = np.array([step, state.step, state.opt_state["count"], pos,
+                                     mgr.restores[-1]["bytes_read"]])
+    for path, t in state_leaves(state).items():
+        out[prefix + path] = _np(t)
+
+
+class _First:
+    """An iterator that keeps its first item (fit's first resumed batch)."""
+
+    def __init__(self, it):
+        self.it, self.first = it, None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = next(self.it)
+        if self.first is None:
+            self.first = item
+        return item
+
+    def close(self) -> None:
+        if hasattr(self.it, "close"):
+            self.it.close()
+
+
+def resume_on(cfg, ckpt_from: Path, out_dir: Path, out: dict, prefix: str, rank: int = 0):
+    """Resume the fit of `cfg` with train.resume into `out_dir` from a copy
+    of the checkpoint directory `ckpt_from`: the state it restores, its
+    first batch beside `train_iterator(skip_batches=<position>)`'s, its
+    final step and the losses it logged, under `prefix`. Rank 0 makes the
+    copy; the trainer's mesh waits for it."""
+    import shutil
+
+    from seqrec_tpu_torch.train.trainer import Trainer
+
+    cfg.train.out_dir, cfg.train.resume = str(out_dir), True
+    if rank == 0:
+        shutil.copytree(ckpt_from, out_dir / "ckpt")
+    tr = Trainer(cfg, device="cpu")
+    tr.mesh.barrier()
+    _restored(tr, out_dir / "ckpt", out, prefix + "restored/")
+    real = tr.train_iterator
+    seen = {}
+
+    def spy(skip_batches: int = 0):
+        seen["skip"] = skip_batches
+        seen["it"] = _First(real(skip_batches=skip_batches))
+        return seen["it"]
+
+    tr.train_iterator = spy
+    final, _ = tr.fit()
+    fresh = real(skip_batches=seen["skip"])
+    bucket, batch = next(fresh)
+    fresh.close()
+    first_bucket, first = seen["it"].first
+    out[prefix + "skip"] = np.array([seen["skip"]])
+    out[prefix + "first_equal"] = np.array([first_bucket == bucket and sorted(first) == sorted(batch)
+                                            and all(np.array_equal(first[k], batch[k])
+                                                    for k in batch)])
+    out[prefix + "final_step"] = np.array([final.step])
+    if rank == 0:
+        logged = [json.loads(x) for x in (out_dir / "metrics.jsonl").read_text().splitlines()]
+        out[prefix + "losses"] = np.array([x["loss"] for x in logged if x["tag"] == "train"])
+
+
+def _reshard(io: dict, rank: int, spec: dict, directory: Path) -> dict:
+    """Phase 1: save every case's state from each mesh of this world (the
+    test gives the global leaves; each rank keeps its part), and on world 2
+    the killed fit at (1, 2) with its eval and top-k; then mark this world
+    saved. Phase 2, once every world has saved: restore every case's
+    checkpoint of every mesh on each mesh of this world. Then world 4
+    restores the round trip's (2, 1) checkpoint at (4, 1) and saves it at
+    once; world 2 resumes the killed fit at (2, 1) and restores that round
+    trip at (2, 1)."""
+    import torch
+
+    from seqrec_tpu_torch.eval.infer import recommend
+    from seqrec_tpu_torch.runtime.mesh import process_count
+    from seqrec_tpu_torch.train.trainer import Trainer
+
+    from seqrec_tpu_torch.runtime.mesh import make_mesh
+
+    root, world = Path(spec["root"]), process_count()
+    mine = [m for m in spec["meshes"] if m[0] * m[1] == world]
+    meshes = {m[1]: make_mesh(m[1]) for m in mine}  # each made once: its groups too
+    out = {}
+    t0 = time.perf_counter()
+
+    def trainer(case: str, mesh):
+        return Trainer(_config({**spec["cases"][case], "mesh.model_axis": mesh[1]}),
+                       _DS(spec["vocab"][case]), device="cpu", mesh=meshes[mesh[1]])
+
+    def lap(what: str) -> None:
+        print(f"rank {rank}: {what} at {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def name(mesh) -> str:
+        return f"{mesh[0]}x{mesh[1]}"
+
+    for mesh in mine:
+        for case in spec["cases"]:
+            leaves = {k.split("|")[2]: v for k, v in io.items()
+                      if k.startswith(f"{case}|{name(mesh)}|")}
+            tr = trainer(case, mesh)
+            out[f"{case}|{name(mesh)}|sharded"] = np.array(sorted(tr._sharded) or [""])
+            _save_part(tr, leaves, spec["step"], root / "port" / case / name(mesh))
+    if world == 2:  # the killed fit at (1, 2), its eval and top-k at step 8
+        kill = _config({**spec["kill"], "train.out_dir": str(root / "kill" / "run"),
+                        "train.fail_after_step": 8})
+        tr = Trainer(kill, device="cpu")
+        killed, _ = tr.fit()
+        for path, t in state_leaves(killed).items():
+            out["kill/killer" + path] = _np(t)
+        tr = Trainer(_config(spec["kill"]), device="cpu")
+        state = tr.checkpoint_manager(str(root / "kill" / "run" / "ckpt")).restore(
+            tr.abstract_state(), device="cpu")[0]
+        m = tr.evaluate(state, split="test")
+        out["kill/eval/keys"] = np.array(sorted(m))
+        out["kill/eval/values"] = np.array([m[k] for k in sorted(m)])
+        tr.model.load_state_dict(state.params)
+        tr.model.eval()
+        with torch.no_grad():
+            recs = list(recommend(tr.model, spec["histories"], k=5, batch_size=4,
+                                  max_len=tr.cfg.data.max_len))
+        out["kill/recommend/items"] = np.array([r["items"] for r in recs])
+        out["kill/recommend/scores"] = np.array([r["scores"] for r in recs])
+    lap("saved")
+    if rank == 0:
+        (root / f"saved.w{world}").write_text("")
+    _wait_for([root / f"saved.w{w}" for w in (1, 2, 4)])
+    for reader in mine:
+        for case in spec["cases"]:
+            for writer in spec["meshes"]:
+                _restored(trainer(case, reader), root / "port" / case / name(writer), out,
+                          f"{case}|{name(writer)}|{name(reader)}|")
+    lap("restored")
+    case = spec["round_trip"]
+    if world == 4:  # the round trip: (2, 1) restored at (4, 1), saved at once
+        tr = trainer(case, (4, 1))
+        state, step, pos, _ = tr.checkpoint_manager(
+            str(root / "port" / case / "2x1")).restore(tr.abstract_state(), device="cpu")
+        mgr = tr.checkpoint_manager(str(root / "round_trip"))
+        mgr.save(step, state, data_position=pos)
+        mgr.wait()
+        if rank == 0:
+            (root / "round_trip.saved").write_text("")
+    if world == 2:
+        resume_on(_config({**spec["kill"], "mesh.model_axis": 1}), root / "kill" / "run" / "ckpt",
+                  root / "kill" / "at_2x1", out, "kill/2x1/", rank)
+        _wait_for([root / "round_trip.saved"])
+        _restored(trainer(case, (2, 1)), root / "round_trip", out, "round_trip|")
+    lap("done")
+    return out
+
+
 def main(argv) -> int:
     init_url, world, rank, scenario, directory = argv[1:6]
     # A hang prints every thread's stack and exits (the test shows it).
@@ -353,6 +595,8 @@ def main(argv) -> int:
         out = _steps(io, rank, spec)
     elif scenario == "fit":
         out = _fit(io, rank, spec, directory)
+    elif scenario == "reshard":
+        out = _reshard(io, rank, spec, directory)
     else:
         raise ValueError(f"unknown scenario {scenario!r}")
     np.savez(directory / f"out.rank{rank}.npz", **out)
