@@ -238,6 +238,33 @@ source, all at once). Each phase prints one JSON line:
               the two ranks refused, the ValueError naming the carry and
               both global shapes; each restore's seconds, bytes read and
               host peak resident set;
+  s. benchmark  the `benchmark` subcommand and its runner
+              (seqrec_tpu_torch/benchmarks/), each line beside the card's
+              name and power limit: s1 `benchmark` at bench.py's
+              configuration (the port's `bench_config`, written to a
+              temporary config file), chains of 96 and 288 steps after 5
+              warmup steps: exactly the runner's keys, backend cuda, a
+              finite step time, `reliable`, and each kernel's launches a
+              step over the timed chains (counters zeroed just before them,
+              read just after) as the training path expects; s2
+              `run_pipeline_alternating` of that configuration, Trainer.fit
+              end to end, K=8 against K=1 (96 / 288 steps, 5 reps, settle
+              on), the launches over all of it, beside phase f2's logger
+              ex/s; s3 configs/beauty_gru.json (2 GRU layers, D=H=256,
+              buckets 10/20/50, tied embeddings, S=256, dropout 0.2, bf16):
+              its bf16 GRU forward, projection, reverse and head against
+              their plain versions at its step (B=128, T=50, D=H=256, S=256;
+              each kernel's own limit, in the kernels line as
+              `at_beauty_gru`), step 1 through the kernels against the plain
+              versions (1e-5 / 5e-3 relative) and two planted faults (units
+              128..255 of the GRU's output, or of its gate gradients, zeroed
+              for a step) that those limits must fail, then `benchmark`
+              (48 / 144 steps); s4
+              `benchmark` on configs/rsc15_gru4rec.json (48 / 144) and on
+              configs/synthetic10m_singlechip.json (32 / 96): one
+              `init_state`, a clone a chain, peak device memory under two
+              states (table and accumulator) plus 2 GB, the seed state's
+              table and accumulator unchanged (fingerprints);
   m. the kernels line: {"kernels": [{name, route, source, replaces,
               launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
               library_ms, design, dtype}, ...]} (the scatter-add also
@@ -250,7 +277,7 @@ source, all at once). Each phase prints one JSON line:
               session paths' for the reset variants, the f32 paths' for the
               f32 kernels; the counts of every path beside it, the fit
               loop's, the profile_dir fit's, the sparse fits', p2 rank 0's
-              ml100k fit's, phase q's and phase r's included), and the two
+              ml100k fit's, phase q's, phase r's and phase s's included), and the two
               shard-window variants, their launches counted on p2's rank 0.
 
 Then the raw nvidia-smi name/power-limit line, and last
@@ -288,6 +315,8 @@ import numpy as np
 import torch
 
 from seqrec_tpu_torch import cli, ops
+from seqrec_tpu_torch.benchmarks import throughput
+from seqrec_tpu_torch.benchmarks.throughput import bench_config
 from seqrec_tpu_torch.config import RunConfig
 from seqrec_tpu_torch.data import native
 from seqrec_tpu_torch.data.batching import make_session_stream
@@ -1968,31 +1997,25 @@ FIT_RUNS = (8, 1, 1, 8)  # steps_per_call of each run, alternated
 FIT_RECALL_TOL = 0.02  # recall@10, kernels vs plain on the same weights: bf16 scores' near-ties
 
 
+def s_bench_config(use_pallas: bool = True) -> RunConfig:
+    """bench.py's headline configuration (bench.py:67-81), built by the
+    port's own `bench_config`: GRU4Rec, B=128, T=200, D=H=64, 3,417 items,
+    sampled softmax over 256 log-uniform negatives, dropout 0, bf16; the
+    native loader, prefetch depth 2 (the defaults)."""
+    return bench_config("gru4rec", batch_size=TRAIN_B, max_len=TRAIN_T, embed_dim=FIT_D,
+                        num_items=VOCAB - 1, loss="sampled_softmax", num_negatives=NUM_NEG,
+                        use_pallas=use_pallas)
+
+
 def fit_config(steps_per_call: int, out_dir: str, use_pallas: bool = True) -> RunConfig:
-    """bench.py's configuration (bench.py:67-81, benchmarks/throughput.py's
-    bench_config): GRU4Rec, B=128, T=200, D=H=64, 3,417 synthetic items,
-    sampled softmax over 256 log-uniform negatives, dropout 0, bf16
-    compute; the native loader, prefetch depth 2; FIT_STEPS steps, a log
-    line every 8, one full-protocol eval at the last step, checkpoints
-    off."""
-    cfg = RunConfig()
-    m, d, t = cfg.model, cfg.data, cfg.train
-    m.arch, m.embed_dim, m.num_layers, m.max_len = "gru4rec", FIT_D, 1, 200
-    m.loss, m.num_negatives, m.dropout_rate = "sampled_softmax", 256, 0.0
-    m.use_pallas = use_pallas
-    d.batch_size, d.max_len, d.synthetic_num_items = TRAIN_B, 200, VOCAB - 1
-    d.use_native_loader, d.prefetch_to_device = True, 2
+    """bench.py's configuration (s_bench_config) for phase f2's fits:
+    FIT_STEPS steps, a log line every 8, one full-protocol eval at the last
+    step, checkpoints off."""
+    cfg = s_bench_config(use_pallas)
+    t = cfg.train
     t.steps_per_call, t.num_steps, t.log_every = steps_per_call, FIT_STEPS, 8
     t.eval_every, t.checkpoint_every, t.out_dir = FIT_STEPS, 0, out_dir
     return cfg
-
-
-def fit_dataset(cfg: RunConfig):
-    """The synthetic dataset benchmarks/throughput.py builds for this
-    config: max(4 B, 512) users, histories of 20..T+1 items."""
-    d = cfg.data
-    return synthetic_dataset(max(d.batch_size * 4, 512), d.synthetic_num_items, seed=d.seed,
-                             min_len=min(d.max_len, 20), max_len=d.max_len + 1)
 
 
 class _FitProbe:
@@ -2108,7 +2131,7 @@ def phase_fit(dev) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
     try:
-        ds = fit_dataset(fit_config(8, ""))
+        ds = throughput.default_dataset(fit_config(8, ""))
         runs, finals = [], []
         for i, K in enumerate(FIT_RUNS):
             rec, tr, state = _fit_run(dev, ds, K, root / f"run{i}")
@@ -3924,13 +3947,331 @@ def phase_reshard(dev, seed: int, requests: list) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# s. The `benchmark` subcommand and its runner
+# ---------------------------------------------------------------------------
+
+S_STEPS = 96  # s1 and s2's chains: 96 and 288 steps (12 and 36 groups of 8)
+S_WARMUP = 5
+S_PIPE_REPS = 5  # s2's alternated reps (run_pipeline_alternating's default)
+# s3 and s4's chains, shorter: each config's own step rate makes the long
+# chain outlast the short one by well over 0.05 s.
+S_SHORT_STEPS = {"beauty_gru": 48, "rsc15_gru4rec": 48, "synthetic10m_singlechip": 32}
+# configs/beauty_gru.json's step: B=128, its longest bucket T=50, D=H=256.
+BEAUTY_T, BEAUTY_D = 50, 256
+# s3's step 1, kernels vs plain at beauty's width (relative). At init the
+# sampled-softmax loss sits near its uniform value whatever the tower
+# gives, so its gap is ~1e-7 (2.3e-7 read, H100); the gradient norm's
+# ~1e-3 (7.1e-4 read). Both well under phase f's limits, which a fault in
+# the units past 128 could pass; s3's planted faults show these catch it.
+S3_STEP1_LOSS_TOL = 1e-5
+S3_STEP1_NORM_TOL = 5e-3
+# The key set of the runner's line (the JAX runner's, benchmarks/throughput.py).
+S_KEYS = ("backend", "chain_long_s", "chain_short_s", "examples_per_s",
+          "examples_per_s_per_chip", "global_batch", "host_load_1m", "num_devices",
+          "reliable", "seq_len", "slopes_ms", "spread_ms", "spread_pct", "step_time_ms",
+          "steps", "warmup_s")
+
+
+class _ChainCounter:
+    """Wraps the runner's `chain_slope_ms`: the counters are zeroed just
+    before the timed chains and read just after, with the steps they ran
+    (each rep: a seed step and n_short steps, a seed step and n_long)."""
+
+    def __init__(self):
+        self.launches, self.steps = None, 0
+        self._real = throughput.chain_slope_ms
+
+    def __enter__(self):
+        def counted(step, seed, n_short=50, n_long=150, reps=4):
+            zero_counters()
+            out = self._real(step, seed, n_short=n_short, n_long=n_long, reps=reps)
+            self.launches = read_counters()
+            self.steps = reps * (n_short + 1 + n_long + 1)
+            return out
+
+        throughput.chain_slope_ms = counted
+        return self
+
+    def __exit__(self, *exc):
+        throughput.chain_slope_ms = self._real
+
+
+def _s_benchmark(name: str, config: str, steps: int, want_per_step: dict, card: str,
+                 sets=()) -> dict:
+    """`python -m seqrec_tpu_torch benchmark --config config --steps steps
+    --warmup S_WARMUP` in this process: one line of exactly S_KEYS on the
+    card, a finite positive step time, `reliable`, and each kernel's
+    launches a step of the timed chains equal to `want_per_step`."""
+    argv = ["benchmark", "--config", config, "--steps", str(steps),
+            "--warmup", str(S_WARMUP), *[a for s in sets for a in ("--set", s)]]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _ChainCounter() as chains:
+        lines = _cli_lines(argv)
+    wall_s = time.perf_counter() - t0
+    check(len(lines) == 1, f"benchmark {name}: {len(lines)} lines printed")
+    res = lines[0]
+    check(tuple(sorted(res)) == S_KEYS, f"benchmark {name}: keys {sorted(res)}")
+    check(res["backend"] == "cuda", f"benchmark {name}: backend {res['backend']}")
+    ms = res["step_time_ms"]
+    check(bool(np.isfinite(ms)) and ms > 0 and res["reliable"],
+          f"benchmark {name}: step_time_ms {ms}, reliable {res['reliable']}, "
+          f"slopes {res['slopes_ms']}")
+    check(res["examples_per_s"] == res["global_batch"] / (ms / 1e3)
+          and res["num_devices"] == 1, f"benchmark {name}: {res}")
+    want = {k: v * chains.steps for k, v in want_per_step.items()}
+    check(chains.launches == want,
+          f"benchmark {name}: launches over the timed chains {chains.launches}, expected {want}")
+    return {"card": card, "config": config, "sets": list(sets), "argv": argv, "result": res,
+            "wall_s": wall_s, "chain_steps": chains.steps, "launches": chains.launches,
+            "launches_per_step": {k: v / chains.steps for k, v in chains.launches.items()},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _beauty_kernel_checks(rng, dev) -> dict:
+    """s3's kernels in bf16 at configs/beauty_gru.json's step (B=128, its
+    longest bucket T=50, D=H=256, S=256 over N=B*T rows), where the GRU
+    forward and reverse take their H > 128 instantiations (W_h's fragments
+    read from global memory every step) and the head pads H to 256: each
+    against its plain version with its own tolerance, as phases c and e
+    hold them at D=H=128 and 64. Layer 2 takes layer 1's [B, T, 256]
+    output, the same shapes."""
+    B, T, D = TRAIN_B, BEAUTY_T, BEAUTY_D
+    table = torch.from_numpy(rng.normal(scale=D ** -0.5, size=(VOCAB, D))
+                             .astype(np.float32)).to(dev)
+    ids = torch.from_numpy(zipf_items(rng, B * T).reshape(B, T).astype(np.int32)).to(dev)
+    x32 = k_gather.plain(table, ids)
+    weights = [w.to(dev) for w in gru_weights(rng, D, D)]
+    bf16 = torch.bfloat16
+    return {
+        "gru_scan": _gru_forward_check(dev, x32, weights, torch.zeros(B, D, device=dev), bf16),
+        "gru_xproj": _xproj_check(k_gru, k_gru.gru_input_projection, x32, weights[0],
+                                  weights[2]),
+        "gru_backward": _gru_backward_checks(rng, dev, x32, dtypes=(bf16,))["bfloat16"],
+        "softmax_head": _head_checks(rng, dev, table, beauty=False, N=B * T,
+                                     dtypes=(bf16,))["bfloat16"],
+    }
+
+
+def _upper_units_zeroed(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """`t` [..., groups * H] with units H/2.. of each of its `groups` gate
+    blocks zeroed: what a kernel that dropped the units past 128 would
+    hand back at H = 256."""
+    v = t.view(*t.shape[:-1], groups, -1)
+    v[..., v.shape[-1] // 2:] = 0
+    return t
+
+
+def _step1_faults() -> dict:
+    """Planted faults for s3's step 1, each a patch of the GRU wrapper
+    module for one step: the forward's output or the reverse's gate
+    gradients (d_xp, dn_r) with their upper half of units zeroed."""
+    real_fwd, real_bwd = k_gru._forward_kernel, k_gru.gru_backward
+
+    def fwd(*args, **kw):
+        return _upper_units_zeroed(real_fwd(*args, **kw), 1)
+
+    def bwd(*args, **kw):
+        d_xp, dh0, dn_r = real_bwd(*args, **kw)
+        return _upper_units_zeroed(d_xp, 3), dh0, _upper_units_zeroed(dn_r, 1)
+
+    # The wrapper counts its launches under the module's name while it
+    # stands in: the planted runs add nothing to the real counters.
+    bwd.launches = bwd.reset_launches = 0
+
+    return {"gru_forward_upper_units_zeroed": ("_forward_kernel", fwd),
+            "gru_backward_upper_units_zeroed": ("gru_backward", bwd)}
+
+
+def _s_step1(dev, seed: int, cfg: RunConfig, name: str) -> dict:
+    """One step from one state through the kernels and one through the
+    plain versions, on the runner's first staged batch: loss and gradient
+    norm within S3_STEP1_*_TOL; no kernel launch in the plain one. Then the
+    same step through the kernels under each planted fault
+    (`_step1_faults`): the limits must fail every one."""
+    ds = throughput.default_dataset(cfg)
+    tr = Trainer(cfg, ds, device=dev)
+    plain = Trainer(cfg.apply_overrides(["model.use_pallas=false"]), ds, device=dev)
+    batch = throughput.stage_batches(tr, 1)[0]
+    step1 = {}
+    for use_pallas, t in ((True, tr), (False, plain)):
+        before = read_counters()
+        m = t.train_step(t.init_state(seed), batch)[1]
+        step1[use_pallas] = {k: float(v) for k, v in m.items()}
+        moved = {k: v - before[k] for k, v in read_counters().items() if v != before[k]}
+        check(bool(moved) == use_pallas,
+              f"{name}: step 1 {'through the kernels' if use_pallas else 'plain'} "
+              f"launched {moved}")
+    a, b = step1[True], step1[False]
+
+    def gaps(m: dict) -> tuple:
+        return (abs(m["loss"] - b["loss"]) / abs(b["loss"]),
+                abs(m["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"]))
+
+    loss_rel, norm_rel = gaps(a)
+    check(np.isfinite(a["loss"]) and loss_rel <= S3_STEP1_LOSS_TOL
+          and norm_rel <= S3_STEP1_NORM_TOL,
+          f"{name}: step-1 loss / grad_norm {a} (kernels) vs {b} (plain)")
+    faults = {}
+    for fault, (attr, patched) in _step1_faults().items():
+        real = getattr(k_gru, attr)
+        setattr(k_gru, attr, patched)
+        try:
+            m = {k: float(v) for k, v in tr.train_step(tr.init_state(seed), batch)[1].items()}
+        finally:
+            setattr(k_gru, attr, real)
+        f_loss, f_norm = gaps(m)
+        faults[fault] = {"loss_rel": f_loss, "grad_norm_rel": f_norm,
+                         "caught": f_loss > S3_STEP1_LOSS_TOL or f_norm > S3_STEP1_NORM_TOL}
+        check(faults[fault]["caught"],
+              f"{name}: planted fault {fault} passes the step-1 limits: {faults[fault]}")
+    return {"kernels": a, "plain": b, "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+            "loss_tolerance": S3_STEP1_LOSS_TOL, "grad_norm_tolerance": S3_STEP1_NORM_TOL,
+            "planted_faults": faults}
+
+
+def _s_pipeline(dev, fit: dict, card: str) -> dict:
+    """s2: `run_pipeline_alternating` at bench.py's configuration, K=8
+    against K=1 (Trainer.fit end to end, S_STEPS-step chains, S_PIPE_REPS
+    reps, settle on), the counters over all of it; the logger lines of
+    each fit call are kept off this script's output."""
+    cfgs = {}
+    for K in (8, 1):
+        cfgs[f"K{K}"] = s_bench_config()
+        cfgs[f"K{K}"].train.steps_per_call = K
+    zero_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        both = throughput.run_pipeline_alternating(cfgs, steps=S_STEPS, warmup=S_WARMUP,
+                                                   reps=S_PIPE_REPS, settle=True, device=dev)
+    wall_s = time.perf_counter() - t0
+    launches = read_counters()
+    steps = len(cfgs) * (S_WARMUP + S_STEPS + S_PIPE_REPS * 4 * S_STEPS)
+    want = {k: v * steps for k, v in expected_launches(cfgs["K8"], training=True).items()}
+    check(launches == want, f"benchmark s2: launches {launches}, expected {want}")
+    for name, res in both.items():
+        check(tuple(sorted(res)) == tuple(sorted(S_KEYS + ("loader", "prefetch_depth",
+                                                           "settle_s"))),
+              f"benchmark s2 {name}: keys {sorted(res)}")
+        check(res["backend"] == "cuda" and res["loader"] == "native"
+              and bool(np.isfinite(res["step_time_ms"])) and res["reliable"],
+              f"benchmark s2 {name}: {res}")
+    return {"card": card, "config": "bench.py's GRU4Rec (s_bench_config)", "wall_s": wall_s,
+            "K8": both["K8"], "K1": both["K1"], "fit_steps_run": steps, "launches": launches,
+            "k8_over_k1_step_ms": both["K8"]["step_time_ms"] / both["K1"]["step_time_ms"],
+            "f2_logger_examples_per_s": fit["summary"]}
+
+
+def phase_benchmark(rng: np.random.Generator, dev, seed: int, card: str, fit: dict) -> dict:
+    """s. The `benchmark` subcommand and its runner on the card. s1: the
+    subcommand at bench.py's configuration (a temporary config file written
+    from the port's `bench_config`), S_STEPS / 3 x S_STEPS-step chains:
+    the runner's key set, `backend` cuda, a finite step time, `reliable`,
+    and each kernel's launches a step of the timed chains as the training
+    path expects (`expected_launches`). s2: `run_pipeline_alternating` of
+    the same config, K=8 against K=1 (`_s_pipeline`), beside phase f2's
+    logger ex/s. s3: configs/beauty_gru.json (2 GRU layers, D=H=256, buckets
+    10/20/50, tied embeddings, S=256, dropout 0.2, bf16): each of its
+    kernels against its plain version at its step's shape
+    (`_beauty_kernel_checks`), step 1 through the kernels against the plain
+    versions (S3_STEP1_*_TOL, and planted faults that those limits must
+    catch), then the subcommand. s4: the subcommand on configs/rsc15_gru4rec.json
+    (session-parallel, BPR-max over 2,048) and on
+    configs/synthetic10m_singlechip.json (the sparse step over a
+    10,000,001-row table): one `init_state` and a clone a chain, peak device
+    memory under two states (table and accumulator) plus 2 GB, and the seed
+    state's table and accumulator unchanged by the run (fingerprints)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_benchmark_"))
+    out = {"phase": "benchmark", "card": card}
+    try:
+        bench_file = root / "bench.json"
+        bench_file.write_text(s_bench_config().to_json())
+        out["s1"] = _s_benchmark("s1 bench.py's config", str(bench_file), S_STEPS,
+                                 expected_launches(s_bench_config(), training=True), card)
+        emit({"phase": "benchmark_s1", **out["s1"]})
+        out["s2"] = _s_pipeline(dev, fit, card)
+        emit({"phase": "benchmark_s2", **out["s2"]})
+
+        beauty = "configs/beauty_gru.json"
+        cfg = RunConfig.load(beauty)
+        kernels = _beauty_kernel_checks(rng, dev)
+        emit({"phase": "benchmark_s3_kernels", "card": card, **kernels})
+        step1 = _s_step1(dev, seed, cfg, "s3 beauty_gru")
+        out["s3"] = {**_s_benchmark("s3 beauty_gru", beauty, S_SHORT_STEPS["beauty_gru"],
+                                    expected_launches(cfg, training=True), card),
+                     "step1": step1, "kernels": kernels}
+        emit({"phase": "benchmark_s3", **out["s3"]})
+
+        rsc15 = CONFIGS["rsc15_gru4rec"]
+        out["s4_rsc15_gru4rec"] = _s_benchmark(
+            "s4 rsc15_gru4rec", rsc15, S_SHORT_STEPS["rsc15_gru4rec"],
+            expected_launches(RunConfig.load(rsc15), training=True), card)
+        emit({"phase": "benchmark_s4_rsc15_gru4rec", **out["s4_rsc15_gru4rec"]})
+
+        big = "configs/synthetic10m_singlechip.json"
+        cfg = RunConfig.load(big)
+        seeds = []
+        real_init = Trainer.init_state
+
+        def init_state(self, seed=None):
+            t0 = time.perf_counter()
+            state = real_init(self, seed)
+            torch.cuda.synchronize()
+            opt = state.embed_opt["item_embedding"]
+            seeds.append({"state": state, "init_s": time.perf_counter() - t0,
+                          "table_fp": _fingerprint(state.params["item_embedding"]),
+                          "opt_fp": {k: _fingerprint(v) for k, v in opt.items()}})
+            return state
+
+        Trainer.init_state = init_state
+        try:
+            run = _s_benchmark("s4 synthetic10m_singlechip", big,
+                               S_SHORT_STEPS["synthetic10m_singlechip"],
+                               expected_sparse_launches(cfg), card)
+        finally:
+            Trainer.init_state = real_init
+        check(len(seeds) == 1, f"s4 synthetic10m: init_state ran {len(seeds)} times")
+        seed0 = seeds.pop()
+        state = seed0.pop("state")
+        table = state.params["item_embedding"]
+        opt = state.embed_opt["item_embedding"]
+        state_bytes = sum(t.numel() * t.element_size() for t in (table, *opt.values()))
+        limit_gb = (2 * state_bytes + SPARSE_MEM_SLACK) / 1e9
+        check(run["peak_gb"] < limit_gb,
+              f"s4 synthetic10m: peak {run['peak_gb']:.3f} GB >= {limit_gb:.3f}")
+        unchanged = (torch.equal(_fingerprint(table), seed0["table_fp"])
+                     and all(torch.equal(_fingerprint(v), seed0["opt_fp"][k])
+                             for k, v in opt.items()))
+        check(unchanged, "s4 synthetic10m: the seed state's table or accumulator changed")
+        out["s4_synthetic10m_singlechip"] = {
+            **run, "init_s": seed0["init_s"], "state_gb": state_bytes / 1e9,
+            "peak_limit_gb": limit_gb, "seed_state_unchanged": True}
+        del state, table, opt, seed0
+        emit({"phase": "benchmark_s4_synthetic10m_singlechip",
+              **out["s4_synthetic10m_singlechip"]})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - phase_t0
+    emit({"phase": "benchmark", "seconds": out["seconds"],
+          "examples_per_s": {k: v["result"]["examples_per_s"] for k, v in out.items()
+                             if isinstance(v, dict) and "result" in v}})
+    return out
+
+
+def _median(ms) -> Optional[float]:
+    return None if ms is None else ms["median"]
+
+
 def _kernel_entry(name, source, replaces, launches, rec, plain_key="plain_ms", **extra):
-    lib = rec["library_ms"]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": rec["max_abs_err"],
             "ms": rec["kernel_ms"]["median"], "plain_ms": rec[plain_key]["median"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": None if lib is None else lib["median"],
+            "library_ms": _median(rec["library_ms"]),
             "design": rec.get("design", "cuda-core"),
             **{k: rec[k] for k in ("deterministic", "launches_per_call") if k in rec}, **extra}
 
@@ -4002,6 +4343,7 @@ def main(argv=None) -> int:
     sharded = phase_sharded(dev, args.seed)
     remat = phase_remat(rng, dev, args.seed)
     reshard = phase_reshard(dev, args.seed, requests)
+    bench = phase_benchmark(rng, dev, args.seed, smi, fit)
 
     p2_rank0 = sharded["p2_gloo_two_ranks_one_card"][0]
 
@@ -4019,7 +4361,9 @@ def main(argv=None) -> int:
                     kernel, 0.0) * 8 for dtype in ("bfloat16", "float32")
                    for way in ("no_remat", "remat")},
                 "fit_reshard_r1_resumed_1x1": reshard["r1"]["launches"][kernel],
-                "train_reshard_r2_group_1x1": reshard["r2"]["launches"][kernel]}
+                "train_reshard_r2_group_1x1": reshard["r2"]["launches"][kernel],
+                **{f"benchmark_{k}": v["launches"][kernel] for k, v in bench.items()
+                   if isinstance(v, dict) and "launches" in v}}
 
     gather = kern["gather"]
 
@@ -4088,6 +4432,15 @@ def main(argv=None) -> int:
                                                     *train[path]["overrides"]]),
                       launches_by_path=counts(counter[0] if counter else kname))
         for kname, source, replaces, rec, dtype, path, *counter in table]
+    # The bf16 kernels of s3 also at configs/beauty_gru.json's step.
+    for entry in kernels:
+        rec = bench["s3"]["kernels"].get(entry["name"])
+        if rec is not None:
+            entry["at_beauty_gru"] = {
+                "shape": rec["shape"], "max_abs_err": rec["max_abs_err"],
+                "tolerance": rec["tolerance"], "ms": rec["kernel_ms"]["median"],
+                "plain_ms": rec["plain_ms"]["median"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": _median(rec["library_ms"])}
     # The shard-window variants (phase p): launches on p2's rank 0, the
     # window gather's on the sharded sparse fit, the window scatter-add's on
     # the dense sharded group (the sparse step's sub-table needs none).

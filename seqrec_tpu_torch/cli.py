@@ -1,4 +1,4 @@
-"""CLI: ``python -m seqrec_tpu_torch {train,eval,prepare-data,recommend} ...``.
+"""CLI: ``python -m seqrec_tpu_torch {train,eval,prepare-data,recommend,benchmark} ...``.
 
 The port's counterpart of `seqrec_tpu/cli.py`:
 
@@ -13,6 +13,7 @@ The port's counterpart of `seqrec_tpu/cli.py`:
         --ckpt runs/ml1m_gru4rec/ckpt --input histories.jsonl --k 10
     python -m seqrec_tpu_torch recommend --config configs/ml1m_gru4rec.json \
         --weights params.npz --input histories.jsonl --k 10
+    python -m seqrec_tpu_torch benchmark --config configs/beauty_gru.json --steps 100
 
 `train` runs `Trainer.fit` (the dataset from `data.dataset` under
 `data.data_dir`, prepared on the fly when it is missing), with checkpoints
@@ -30,6 +31,15 @@ is downloaded; `synthetic` needs none) and prints `{"dataset", "num_users",
 models.convert); the catalog size is the row count of `item_embedding` (and
 the user count that of `user_embedding`, less one; a checkpoint's meta.json
 names both). `--device` defaults to cuda and raises without it.
+
+`benchmark` times the train step of the config (`--set` applies) on a
+synthetic dataset of `data.synthetic_num_items` items, over 8 batches
+staged on the device, by the slope between chains of `--steps` and 3 x
+`--steps` steps after `--warmup` steps (`benchmarks/throughput.py`), and
+prints the JAX CLI's JSON line: steps, global_batch, seq_len, num_devices,
+step_time_ms, examples_per_s, examples_per_s_per_chip, chain_short_s,
+chain_long_s, slopes_ms, spread_ms, spread_pct, host_load_1m, reliable,
+warmup_s, backend. `--device cpu` runs the plain versions on the CPU.
 
 `eval` and `recommend --ckpt` read a checkpoint of any mesh on their own
 (`train/checkpoint.py` reshards it where every leaf's global shape agrees,
@@ -52,7 +62,10 @@ or with the JAX CLI's flags:
 
 Each rank takes cuda:LOCAL_RANK (or its --device), the mesh comes from
 `mesh.model_axis`, and rank 0 prints; the torch.distributed backend is
-nccl on CUDA and gloo on the CPU.
+nccl on CUDA and gloo on the CPU. There `benchmark` times every rank's
+chain and reports num_devices = the world size, global_batch =
+batch_size x world and examples_per_s_per_chip = examples_per_s / world,
+as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -185,6 +198,16 @@ def cmd_recommend(args) -> int:
     return 0
 
 
+def cmd_benchmark(args) -> int:
+    """Examples/s of the train step (`benchmarks.throughput.run_benchmark`)."""
+    cfg = _load_cfg(args)
+    device = _init_runtime(args)
+    from seqrec_tpu_torch.benchmarks.throughput import run_benchmark
+
+    _print0(run_benchmark(cfg, steps=args.steps, warmup=args.warmup, device=device))
+    return 0
+
+
 def _add_common(p) -> None:
     p.add_argument("--config", default=None, help="JSON config file")
     p.add_argument(
@@ -234,6 +257,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--allow_repeats", action="store_true",
                    help="do not exclude items already in the history")
     p.set_defaults(fn=cmd_recommend)
+
+    p = sub.add_parser("benchmark", help="measure examples/s/chip of the train step")
+    _add_common(p)
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--warmup", type=int, default=10)
+    p.set_defaults(fn=cmd_benchmark)
 
     args = parser.parse_args(argv)
     return args.fn(args)

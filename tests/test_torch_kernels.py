@@ -143,7 +143,8 @@ def _gru_args(B, T, D, H, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,D,H", [(5, 7, 16, 32), (3, 1, 32, 16), (64, 50, 128, 128),
                                      (7, 9, 64, 96), (3, 5, 16, 132), (4, 6, 32, 256),
-                                     (128, 200, 64, 64), (64, 200, 64, 64)])
+                                     (128, 200, 64, 64), (64, 200, 64, 64),
+                                     (128, 50, 256, 256)])
 def test_gru_kernel_matches_plain(cuda, dtype, B, T, D, H):
     args = _gru_args(B, T, D, H, dtype, cuda)
     before = k_gru.gru_scan.launches
@@ -454,7 +455,8 @@ def _gate_planes(B, T, H, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,H,R", [(5, 7, 32, None), (3, 1, 16, None),
                                      (128, 50, 128, None), (11, 9, 64, 8),
-                                     (4, 6, 256, None), (128, 200, 64, None)])
+                                     (4, 6, 256, None), (128, 200, 64, None),
+                                     (128, 50, 256, None)])
 def test_gru_backward_kernel_matches_plain(cuda, dtype, B, T, H, R, monkeypatch):
     """bf16 weights run the tensor-core design (8 rows a block, no row
     choice), f32 weights the cluster design (also at 8 rows a cluster)."""
@@ -583,12 +585,12 @@ def test_head_f32_kernel_streams_any_s_and_a_row_of_only_hits(cuda, N, S, H):
 
 
 @pytest.mark.parametrize("N,S,H", [(300, 100, 128), (25_600, 256, 128), (129, 2048, 128),
-                                   (77, 1, 64), (5, 65, 8)])
+                                   (77, 1, 64), (5, 65, 8), (6_400, 256, 256)])
 def test_head_bf16_kernel_ragged_tiles_and_a_row_of_only_hits(cuda, N, S, H):
     """The tensor-core head with N not a multiple of its 128-row block, S
     not a multiple of its 64-negative tile (and S = 2048, past what one
-    block could stage), H padded to 16: the NLL within 1e-5 of the plain
-    version. Row 3's target is every negative's id, so all its negatives
+    block could stage), H padded to 16, and beauty's step (H = 256): the
+    NLL within 1e-5 of the plain version. Row 3's target is every negative's id, so all its negatives
     are accidental hits: its NLL is 0 on both sides."""
     h, pos, neg, targets, neg_ids, plq, nlq = _head_args(N, S, H, torch.bfloat16, cuda,
                                                          seed=N + S)

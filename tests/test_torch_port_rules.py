@@ -1,6 +1,6 @@
-"""Rules the PyTorch port keeps: no JAX, CUDA by default (and a clear error
-without it), kernels built only when first launched, and a `recommend` CLI
-that runs end to end."""
+"""Rules the PyTorch port keeps: no JAX and nothing of the JAX repository's
+`benchmarks/`, CUDA by default (and a clear error without it), kernels built
+only when first launched, and a `recommend` CLI that runs end to end."""
 
 import ast
 import json
@@ -22,7 +22,7 @@ from seqrec_tpu_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "seqrec_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "seqrec_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "seqrec_tpu", "benchmarks")
 
 
 def _imported_modules(path: Path):

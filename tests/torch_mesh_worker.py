@@ -25,7 +25,10 @@ Scenarios:
 - reshard: checkpoints of every case saved from each mesh of this world
   and restored on each (world 2 and world 4 run at once, and wait for each
   other's saves), a fit killed at (1, 2) and resumed at (2, 1), and a
-  round trip (2, 1) -> (4, 1) -> (2, 1).
+  round trip (2, 1) -> (4, 1) -> (2, 1);
+- benchmark: the `benchmark` subcommand with `--coordinator`,
+  `--num_processes` and `--process_id` (the CLI joins the process group
+  itself), each rank's standard output kept.
 """
 
 from __future__ import annotations
@@ -572,6 +575,20 @@ def _reshard(io: dict, rank: int, spec: dict, directory: Path) -> dict:
     return out
 
 
+def _benchmark(rank: int, world: int, init_url: str, spec: dict) -> dict:
+    import contextlib
+    import io
+
+    from seqrec_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["benchmark", "--device", "cpu", "--config", spec["config"],
+                       "--coordinator", init_url, "--num_processes", str(world),
+                       "--process_id", str(rank), *spec["args"]])
+    return {"rc": np.array(rc), "stdout": np.array(out.getvalue())}
+
+
 def main(argv) -> int:
     init_url, world, rank, scenario, directory = argv[1:6]
     # A hang prints every thread's stack and exits (the test shows it).
@@ -582,7 +599,8 @@ def main(argv) -> int:
     torch.set_num_threads(1)
     from seqrec_tpu_torch.runtime import mesh as rt
 
-    rt.init_distributed(init_url, int(world), int(rank), device="cpu")
+    if scenario != "benchmark":  # the benchmark subcommand joins the group itself
+        rt.init_distributed(init_url, int(world), int(rank), device="cpu")
     directory = Path(directory)
     with np.load(directory / "inputs.npz") as f:
         io = {k: f[k] for k in f.files}
@@ -597,6 +615,8 @@ def main(argv) -> int:
         out = _fit(io, rank, spec, directory)
     elif scenario == "reshard":
         out = _reshard(io, rank, spec, directory)
+    elif scenario == "benchmark":
+        out = _benchmark(rank, int(world), init_url, spec)
     else:
         raise ValueError(f"unknown scenario {scenario!r}")
     np.savez(directory / f"out.rank{rank}.npz", **out)
