@@ -255,7 +255,12 @@ source, all at once). Each phase prints one JSON line:
               its bf16 GRU forward, projection, reverse and head against
               their plain versions at its step (B=128, T=50, D=H=256, S=256;
               each kernel's own limit, in the kernels line as
-              `at_beauty_gru`), step 1 through the kernels against the plain
+              `at_beauty_gru`, the GRU's cluster layouts also as entries of
+              their own), those layouts' edges (B=64 and 3, T=10 and 20,
+              H=200, the reset variant with h_in in f32 on the keep path;
+              each output twice, bit for bit), serving beauty_gru (batch
+              64, k=10) through the kernels against the plain path with
+              phase d's checks, step 1 through the kernels against the plain
               versions (1e-5 / 5e-3 relative) and two planted faults (units
               128..255 of the GRU's output, or of its gate gradients, zeroed
               for a step) that those limits must fail, then `benchmark`
@@ -277,8 +282,10 @@ source, all at once). Each phase prints one JSON line:
               session paths' for the reset variants, the f32 paths' for the
               f32 kernels; the counts of every path beside it, the fit
               loop's, the profile_dir fit's, the sparse fits', p2 rank 0's
-              ml100k fit's, phase q's, phase r's and phase s's included), and the two
-              shard-window variants, their launches counted on p2's rank 0.
+              ml100k fit's, phase q's, phase r's and phase s's included), the two
+              shard-window variants, their launches counted on p2's rank 0,
+              and the GRU's two cluster layouts (Hp > 128, `gru_scan_wide`,
+              `gru_backward_wide`), their launches counted on s3's chains.
 
 Then the raw nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -340,7 +347,8 @@ from seqrec_tpu_torch.train.state import TrainState, clone_state
 from seqrec_tpu_torch.train.trainer import Trainer
 
 CONFIGS = {"gru4rec": "configs/ml1m_gru4rec.json", "sasrec": "configs/ml1m_sasrec.json",
-           "lstm": "configs/ml1m_lstm.json", "rsc15_gru4rec": "configs/rsc15_gru4rec.json"}
+           "lstm": "configs/ml1m_lstm.json", "rsc15_gru4rec": "configs/rsc15_gru4rec.json",
+           "beauty_gru": "configs/beauty_gru.json"}
 VOCAB = 3418  # ML-1M: 3,417 items + the pad row (bench.py's catalog)
 # Synthetic sessions with each session path's shapes (synthetic_dataset's
 # arguments). RSC15: the catalog after the GRU4Rec paper's filtering (Hidasi
@@ -368,7 +376,7 @@ XPROJ_TOL = 1e-5  # exact bf16 products summed in f32 on both sides, another ord
 # GRU 1e-2 (CPU emulation: 1e-3); SASRec 5e-2 (the plain attention rounds
 # its scores to bf16, through two blocks and LayerNorms); LSTM 5e-2 (the
 # plain scan also rounds its cell state to bf16 each step, over 200 steps).
-SCORE_TOL = {"gru4rec": 1e-2, "sasrec": 5e-2, "lstm": 5e-2}
+SCORE_TOL = {"gru4rec": 1e-2, "sasrec": 5e-2, "lstm": 5e-2, "beauty_gru": 1e-2}
 # f32 serving: the same f32 math through the tower in another summation
 # order (the GRU forward's f32 limit is 1e-5), then a 128-term score dot.
 F32_SCORE_TOL = 1e-4
@@ -805,7 +813,8 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
     softmax (BPR-max and the other ranking losses are plain tensor code);
     the tower's kernel once per layer or block (a bf16 GRU or LSTM forward
     with its input projection, an f32 one with the f32 one), and its
-    backward per layer, the reset variants on a session-parallel path."""
+    backward per layer, the reset variants on a session-parallel path; a
+    bf16 GRU above Hp = 128 counts each again as its cluster layout."""
     m = cfg.model
     want = dict.fromkeys(COUNTERS, 0)
     if m.arch == "sasrec":
@@ -819,6 +828,10 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
             want["xproj_f32" if m.cell_type == "gru" else "lstm_xproj_f32"] = m.num_layers
         if training:
             want[f"{m.cell_type}_backward{variant}"] = m.num_layers
+        if (m.cell_type == "gru" and m.compute_dtype == "bfloat16"
+                and 16 * -(-m.hidden // 16) > k_gru.WH_REG_LIMIT):  # the cluster layouts
+            want["gru_scan_wide"] = m.num_layers
+            want["gru_backward_wide"] = m.num_layers if training else 0
     if training:
         lookups = 3 if m.loss in SAMPLED_LOSSES else 1
         want.update(gather=lookups, gather_backward=lookups,
@@ -1151,26 +1164,23 @@ def _gru_backward_checks(rng, dev, x32, reset=None,
                                       library_ms=None, library=NO_RESET_LIBRARY)
     if reset is not None:
         return out
-    # Library yardstick: cuDNN's GRU backward in f32 (TF32 off), timed as
-    # (forward + backward) - forward. The port never calls it.
-    lib = torch.nn.GRU(D, H, batch_first=True, device=dev, dtype=torch.float32)
-    with torch.no_grad():
-        lib.weight_ih_l0.copy_(w_x.T)
-        lib.weight_hh_l0.copy_(w_h.T)
-        lib.bias_ih_l0.copy_(b_x)
-        lib.bias_hh_l0.copy_(b_h)
-    xg = x32.detach().clone().requires_grad_(True)
-    h0f = torch.zeros(1, B, H, device=dev)
-
-    def lib_fwd_bwd():
-        lib(xg, h0f)[0].backward(g32)
-
-    fb = time_ms(lib_fwd_bwd)
-    fw = time_ms(lambda: lib(xg, h0f)[0])
-    lib_ms = fb["median"] - fw["median"]
-    for rec in out.values():
-        rec["library_ms"] = {"median": lib_ms, "fwd_bwd": fb, "fwd": fw,
-                             "what": "torch.nn.GRU f32 (cuDNN), backward = fwd+bwd - fwd"}
+    # Library yardstick: cuDNN's GRU backward in each record's dtype (TF32
+    # off), timed as (forward + backward) - forward. The port never calls it.
+    for dname, rec in out.items():
+        dtype = getattr(torch, dname)
+        lib = torch.nn.GRU(D, H, batch_first=True, device=dev, dtype=dtype)
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(w_x.T)
+            lib.weight_hh_l0.copy_(w_h.T)
+            lib.bias_ih_l0.copy_(b_x)
+            lib.bias_hh_l0.copy_(b_h)
+        xg = x32.to(dtype).detach().clone().requires_grad_(True)
+        h0f = torch.zeros(1, B, H, device=dev, dtype=dtype)
+        gd = g32.to(dtype)
+        fb = time_ms(lambda: lib(xg, h0f)[0].backward(gd))
+        fw = time_ms(lambda: lib(xg, h0f)[0])
+        rec["library_ms"] = {"median": fb["median"] - fw["median"], "fwd_bwd": fb, "fwd": fw,
+                             "what": f"torch.nn.GRU {dname} (cuDNN), backward = fwd+bwd - fwd"}
     return out
 
 
@@ -1562,20 +1572,19 @@ def _lstm_checks(rng, dev, x32, reset=None) -> dict:
         return {"lstm_scan": fwd, "lstm_backward": bwd}
     out = {"lstm_scan": fwd, "lstm_backward": bwd, "lstm_xproj": xproj["bfloat16"],
            "lstm_xproj_f32": xproj["float32"]}
-    # Library yardstick: cuDNN's LSTM backward in f32 (TF32 off), timed as
-    # (forward + backward) - forward. The port never calls it.
-    lib = _nn_lstm(w_x, w_h, b, torch.float32, dev)
-    xg = x32.detach().clone().requires_grad_(True)
-    state0 = (torch.zeros(1, Bl, H, device=dev), torch.zeros(1, Bl, H, device=dev))
-
-    def lib_fwd_bwd():
-        lib(xg, state0)[0].backward(g32)
-
-    fb = time_ms(lib_fwd_bwd)
-    fw = time_ms(lambda: lib(xg, state0)[0])
-    for rec in bwd.values():
+    # Library yardstick: cuDNN's LSTM backward in each record's dtype (TF32
+    # off), timed as (forward + backward) - forward. The port never calls it.
+    for dname, rec in bwd.items():
+        dtype = getattr(torch, dname)
+        lib = _nn_lstm(w_x, w_h, b, dtype, dev)
+        xg = x32.to(dtype).detach().clone().requires_grad_(True)
+        state0 = (torch.zeros(1, Bl, H, device=dev, dtype=dtype),
+                  torch.zeros(1, Bl, H, device=dev, dtype=dtype))
+        gd = g32.to(dtype)
+        fb = time_ms(lambda: lib(xg, state0)[0].backward(gd))
+        fw = time_ms(lambda: lib(xg, state0)[0])
         rec["library_ms"] = {"median": fb["median"] - fw["median"], "fwd_bwd": fb, "fwd": fw,
-                             "what": "torch.nn.LSTM f32 (cuDNN), backward = fwd+bwd - fwd"}
+                             "what": f"torch.nn.LSTM {dname} (cuDNN), backward = fwd+bwd - fwd"}
     return out
 
 
@@ -1631,7 +1640,9 @@ def phase_session_kernels(rng: np.random.Generator, dev) -> dict:
 
 
 # Each kernel's launch counter: (wrapper, attribute). The reset variants
-# count apart from their no-reset counterparts, on the same wrappers.
+# count apart from their no-reset counterparts, on the same wrappers; the
+# bf16 GRU's cluster layouts (Hp > 128) count again, either variant, in
+# `wide_launches`.
 COUNTERS = {
     "gather": (k_gather.embedding_gather, "launches"),
     "gather_backward": (k_gather.embedding_scatter_add, "launches"),
@@ -1651,6 +1662,8 @@ COUNTERS = {
     "lstm_xproj_f32": (k_lstm.lstm_input_projection, "f32_launches"),
     "gather_window": (k_gather.embedding_gather_window, "launches"),
     "gather_backward_window": (k_gather.embedding_scatter_add_window, "launches"),
+    "gru_scan_wide": (k_gru.gru_scan, "wide_launches"),
+    "gru_backward_wide": (k_gru.gru_backward, "wide_launches"),
 }
 
 
@@ -3959,6 +3972,12 @@ S_PIPE_REPS = 5  # s2's alternated reps (run_pipeline_alternating's default)
 S_SHORT_STEPS = {"beauty_gru": 48, "rsc15_gru4rec": 48, "synthetic10m_singlechip": 32}
 # configs/beauty_gru.json's step: B=128, its longest bucket T=50, D=H=256.
 BEAUTY_T, BEAUTY_D = 50, 256
+# s3's edges of the bf16 GRU cluster layouts (Hp > 128), (B, T, H, reset):
+# serving's batch, a ragged cluster, beauty's short buckets, a width that
+# pads (200 -> 208, units and k to 256) and, at beauty's width, the reset
+# variant, whose reverse takes h_in in f32 on the keep path.
+WIDE_EDGES = ((64, 50, 256, False), (3, 50, 256, False), (128, 10, 256, False),
+              (128, 20, 256, False), (128, 50, 200, False), (128, 50, 256, True))
 # s3's step 1, kernels vs plain at beauty's width (relative). At init the
 # sampled-softmax loss sits near its uniform value whatever the tower
 # gives, so its gap is ~1e-7 (2.3e-7 read, H100); the gradient norm's
@@ -4032,10 +4051,10 @@ def _s_benchmark(name: str, config: str, steps: int, want_per_step: dict, card: 
 def _beauty_kernel_checks(rng, dev) -> dict:
     """s3's kernels in bf16 at configs/beauty_gru.json's step (B=128, its
     longest bucket T=50, D=H=256, S=256 over N=B*T rows), where the GRU
-    forward and reverse take their H > 128 instantiations (W_h's fragments
-    read from global memory every step) and the head pads H to 256: each
-    against its plain version with its own tolerance, as phases c and e
-    hold them at D=H=128 and 64. Layer 2 takes layer 1's [B, T, 256]
+    forward and reverse take their cluster layouts (Hp > 128: W_h split
+    between the CTAs of a thread block cluster) and the head pads H to 256:
+    each against its plain version with its own tolerance, as phases c and
+    e hold them at D=H=128 and 64. Layer 2 takes layer 1's [B, T, 256]
     output, the same shapes."""
     B, T, D = TRAIN_B, BEAUTY_T, BEAUTY_D
     table = torch.from_numpy(rng.normal(scale=D ** -0.5, size=(VOCAB, D))
@@ -4052,6 +4071,54 @@ def _beauty_kernel_checks(rng, dev) -> dict:
         "softmax_head": _head_checks(rng, dev, table, beauty=False, N=B * T,
                                      dtypes=(bf16,))["bfloat16"],
     }
+
+
+def _wide_edge_checks(rng, dev) -> dict:
+    """The bf16 GRU cluster layouts at WIDE_EDGES: the forward against its
+    plain version (GRU_BF16_TOL), then the reverse recurrence on that
+    forward's projections, h_in as the backward hands it over (bf16, or f32
+    scaled by keep on the reset variant's keep path), against its plain
+    version (GRU_BWD_TOL relative); each output of each kernel twice, bit
+    for bit."""
+    bf16 = torch.bfloat16
+    out = {}
+    for B, T, H, reset in WIDE_EDGES:
+        name = f"gru wide B{B} T{T} H{H}" + (" reset" if reset else "")
+        x32 = _zipf_embeddings(rng, dev, B, T, H)
+        w_x, w_h, b_x, b_h = (w.to(dev) for w in gru_weights(rng, H, H))
+        plane = _reset_plane(rng, B, T, dev) if reset else None
+        x, h0, wx, wh = x32.to(bf16), _state(rng, dev, B, H).to(bf16), w_x.to(bf16), w_h.to(bf16)
+        fargs = (x, h0, wx, wh, b_x, b_h)
+        launch = k_gru.launch_config(B, T, H, H, bf16)
+        check(launch.get("layout") == "cluster", f"{name}: not the cluster layout: {launch}")
+        ys = k_gru.gru_scan(*fargs, reset_mask=plane)[0]
+        check(torch.equal(ys, k_gru.gru_scan(*fargs, reset_mask=plane)[0]),
+              f"{name}: two forward launches differ")
+        f_err = max_err(ys, k_gru.plain(*fargs, reset_mask=plane)[0])
+        check(bool(torch.isfinite(ys).all()) and f_err <= GRU_BF16_TOL,
+              f"{name}: forward max abs err {f_err} > {GRU_BF16_TOL}")
+        with torch.no_grad():
+            x_proj = torch.matmul(x.float(), wx.float()) + b_x
+            h_in, keep, h_proj = reference.gru_bwd_project(x_proj, ys, h0, wh, b_h, plane)
+        g = torch.from_numpy(rng.normal(scale=1e-2, size=(B, T, H)).astype(np.float32)).to(
+            dev, bf16)
+        planes = (x_proj, h_proj, h_in, g, wh, keep)
+        got = k_gru.gru_backward(*planes)
+        check(all(torch.equal(a, b) for a, b in zip(got, k_gru.gru_backward(*planes))),
+              f"{name}: two reverse launches differ")
+        b_errs = {k: rel_err(a, b) for k, a, b in zip(("d_xp", "dh0", "dn_r"), got,
+                                                      k_gru.plain_backward(*planes))}
+        check(max(b_errs.values()) <= GRU_BWD_TOL,
+              f"{name}: reverse relative errs {b_errs} > {GRU_BWD_TOL}")
+        out[name.replace(" ", "_")] = {
+            "shape": {"B": B, "T": T, "D": H, "H": H, "reset": reset},
+            "cluster_size": launch["cluster_size"], "grid": launch["grid"],
+            "h_in_dtype": _dname(h_in.dtype), "forward_max_abs_err": f_err,
+            "forward_tolerance": GRU_BF16_TOL, "backward_rel_err": b_errs,
+            "backward_tolerance": GRU_BWD_TOL, "twice_bit_for_bit": True,
+            "forward_ms": time_ms(lambda: k_gru.gru_scan(*fargs, reset_mask=plane))["median"],
+            "backward_ms": time_ms(lambda: k_gru.gru_backward(*planes))["median"]}
+    return out
 
 
 def _upper_units_zeroed(t: torch.Tensor, groups: int) -> torch.Tensor:
@@ -4078,7 +4145,7 @@ def _step1_faults() -> dict:
 
     # The wrapper counts its launches under the module's name while it
     # stands in: the planted runs add nothing to the real counters.
-    bwd.launches = bwd.reset_launches = 0
+    bwd.launches = bwd.reset_launches = bwd.wide_launches = 0
 
     return {"gru_forward_upper_units_zeroed": ("_forward_kernel", fwd),
             "gru_backward_upper_units_zeroed": ("gru_backward", bwd)}
@@ -4174,9 +4241,12 @@ def phase_benchmark(rng: np.random.Generator, dev, seed: int, card: str, fit: di
     logger ex/s. s3: configs/beauty_gru.json (2 GRU layers, D=H=256, buckets
     10/20/50, tied embeddings, S=256, dropout 0.2, bf16): each of its
     kernels against its plain version at its step's shape
-    (`_beauty_kernel_checks`), step 1 through the kernels against the plain
-    versions (S3_STEP1_*_TOL, and planted faults that those limits must
-    catch), then the subcommand. s4: the subcommand on configs/rsc15_gru4rec.json
+    (`_beauty_kernel_checks`), the GRU cluster layouts' edges
+    (`_wide_edge_checks`), serving (batch 64, k=10, histories of 5..50 over
+    ML-1M's 3,417 items, not Beauty's 12,101) through the kernels against
+    the plain path (phase d's checks and limits), step 1 through the kernels
+    against the plain versions (S3_STEP1_*_TOL, and planted faults that
+    those limits must catch), then the subcommand. s4: the subcommand on configs/rsc15_gru4rec.json
     (session-parallel, BPR-max over 2,048) and on
     configs/synthetic10m_singlechip.json (the sparse step over a
     10,000,001-row table): one `init_state` and a clone a chain, peak device
@@ -4199,10 +4269,13 @@ def phase_benchmark(rng: np.random.Generator, dev, seed: int, card: str, fit: di
         cfg = RunConfig.load(beauty)
         kernels = _beauty_kernel_checks(rng, dev)
         emit({"phase": "benchmark_s3_kernels", "card": card, **kernels})
+        edges = _wide_edge_checks(rng, dev)
+        emit({"phase": "benchmark_s3_wide_edges", "card": card, **edges})
+        serve = phase_serve(dev, seed, "beauty_gru", make_requests(rng, cfg.data.max_len))
         step1 = _s_step1(dev, seed, cfg, "s3 beauty_gru")
         out["s3"] = {**_s_benchmark("s3 beauty_gru", beauty, S_SHORT_STEPS["beauty_gru"],
                                     expected_launches(cfg, training=True), card),
-                     "step1": step1, "kernels": kernels}
+                     "step1": step1, "kernels": kernels, "wide_edges": edges, "serve": serve}
         emit({"phase": "benchmark_s3", **out["s3"]})
 
         rsc15 = CONFIGS["rsc15_gru4rec"]
@@ -4441,6 +4514,21 @@ def main(argv=None) -> int:
                 "tolerance": rec["tolerance"], "ms": rec["kernel_ms"]["median"],
                 "plain_ms": rec["plain_ms"]["median"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": _median(rec["library_ms"])}
+    # The GRU's cluster layouts (Hp > 128), at beauty_gru's step: their own
+    # counters' launches over s3's timed chains (2 a step), and one a layer
+    # a served batch.
+    s3 = bench["s3"]
+    for kname, counter, replaces, rec in (
+            ("gru_scan_wide", "gru_scan_wide", "gru.py:177", s3["kernels"]["gru_scan"]),
+            ("gru_backward_wide", "gru_backward_wide", "gru.py:190",
+             s3["kernels"]["gru_backward"])):
+        kernels.append(_kernel_entry(
+            kname, "seqrec_tpu_torch/csrc/gru.cu", "seqrec_tpu/ops/pallas/" + replaces,
+            s3["launches"][counter], rec, dtype="bfloat16", layout="cluster",
+            cluster_size=rec["launch"]["cluster_size"], shape=rec["shape"],
+            launches_counted_on=f"benchmark s3 {CONFIGS['beauty_gru']} (its timed chains)",
+            launches_by_path={"benchmark_s3": s3["launches"][counter],
+                              "serve_beauty_gru": s3["serve"]["launches"][counter]}))
     # The shard-window variants (phase p): launches on p2's rank 0, the
     # window gather's on the sharded sparse fit, the window scatter-add's on
     # the dense sharded group (the sparse step's sub-table needs none).

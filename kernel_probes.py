@@ -5,6 +5,7 @@
     python3 kernel_probes.py head [--out FILE]
     python3 kernel_probes.py scatter [--out FILE]
     python3 kernel_probes.py gather [--out FILE]
+    python3 kernel_probes.py gru_wide [--out FILE]
 
 `clusters` sweeps the f32 cluster recurrences over their cluster size C and
 rows a cluster R (each launch checked against its plain version first):
@@ -52,6 +53,17 @@ the redesign replaced (f32 out; with its separate cast for bf16),
 F.embedding (then .to(bf16)), the wrapper and an empty kernel (the floor
 of a launch timed this way), at training's [128, 200] ids at D=64 and
 128, serving's [64, 200] at D=128 and the 256 negatives at D=64.
+
+`gru_wide` times the bf16 GRU recurrences above Hp = 128 (csrc/gru.cu's
+cluster layouts, 4 CTAs of 64 units, every fragment in registers), each
+checked against its plain version first (forward 3e-2 absolute, reverse
+1e-4 relative) and twice bit for bit: the forward
+(gru_scan, the projection and the fragment packing included) at B=64 and
+128, T=50, D=H=256 and B=128, T=20, D=H=200, and the reverse recurrence
+(gru_backward on seeded projections) at B=128, T=50, H=256 with h_in in
+bf16, and with a keep plane and h_in in f32; beside the
+packing of the fragments alone and torch.nn.GRU in bf16 (forward;
+forward + backward - forward).
 
 Each prints one JSON object as its last line, beside the card's name and
 power limit, and exits non-zero without CUDA.
@@ -171,6 +183,88 @@ def probe_clusters() -> dict:
         want = k_gru.plain_backward(*args)
         sweep(k_gru, "backward_launch_config", lambda: k_gru.gru_backward(*args), want, B, H,
               1e-4, f"B{B}_T{T}_H{H}" + ("_keep" if reset else ""), "gru_backward")
+    return out
+
+
+def probe_gru_wide() -> dict:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from seqrec_tpu_torch.ops import _build
+    from seqrec_tpu_torch.ops.cuda import gru as k_gru
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _build.build(["gru"])
+    rng = np.random.default_rng(0)
+    out = {"forward": {}, "backward": {}}
+
+    def timed(run, check, key, group):
+        got = run()
+        again = run()
+        torch.cuda.synchronize()
+        err = check(got)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{group} {key}: two launches differ")
+        out[group][key] = {"ms": cs.time_ms(run)["median"], "err": err,
+                           "cluster_size": k_gru.WIDE_CLUSTER}
+
+    for B, T, H in ((64, 50, 256), (128, 50, 256), (128, 20, 200)):
+        x = cs._zipf_embeddings(rng, dev, B, T, H).bfloat16()
+        w_x, w_h, b_x, b_h = (w.to(dev) for w in cs.gru_weights(rng, H, H))
+        h0 = cs._state(rng, dev, B, H).bfloat16()
+        args = (x, h0, w_x.bfloat16(), w_h.bfloat16(), b_x, b_h)
+        want = k_gru.plain(*args)[0].float()
+
+        def check_fwd(got):
+            err = cs.max_err(got[0], want)
+            if err > cs.GRU_BF16_TOL:
+                raise AssertionError(f"gru_wide forward B{B}: max abs err {err}")
+            return err
+
+        timed(lambda: (k_gru.gru_scan(*args)[0],), check_fwd, f"B{B}_T{T}_H{H}", "forward")
+        lib = torch.nn.GRU(H, H, batch_first=True, device=dev, dtype=torch.bfloat16)
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(w_x.T)
+            lib.weight_hh_l0.copy_(w_h.T)
+            lib.bias_ih_l0.copy_(b_x)
+            lib.bias_hh_l0.copy_(b_h)
+            out["forward"][f"B{B}_T{T}_H{H}"]["nn_gru_bf16_ms"] = cs.time_ms(
+                lambda: lib(x, h0[None]))["median"]
+        out["forward"][f"B{B}_T{T}_H{H}"]["pack_fragments_ms"] = cs.time_ms(
+            lambda: k_gru.forward_fragments(args[3]))["median"]
+
+    B, T, H = 128, 50, 256
+    x_proj = cs._state(rng, dev, B * T, 3 * H).reshape(B, T, 3 * H) * 4
+    h_proj = cs._state(rng, dev, B * T, 3 * H).reshape(B, T, 3 * H) * 4
+    h_in = torch.tanh(cs._state(rng, dev, B * T, H).reshape(B, T, H))
+    g_ys = (cs._state(rng, dev, B * T, H).reshape(B, T, H) * 0.02).bfloat16()
+    w_h = cs.gru_weights(rng, H, H)[1].to(dev).bfloat16()
+    for key, keep in (("B128_T50_H256", None),
+                      ("B128_T50_H256_keep", (1.0 - cs._reset_plane(rng, B, T, dev))[..., None])):
+        hin = h_in.bfloat16() if keep is None else h_in * keep
+        bargs = (x_proj, h_proj, hin, g_ys, w_h, keep)
+        want_b = k_gru.plain_backward(*bargs)
+
+        def check_bwd(got):
+            err = max(cs.rel_err(a, b) for a, b in zip(got, want_b))
+            if err > cs.GRU_BWD_TOL:
+                raise AssertionError(f"gru_wide backward {key}: relative err {err}")
+            return err
+
+        timed(lambda: k_gru.gru_backward(*bargs), check_bwd, key, "backward")
+    out["backward"]["B128_T50_H256"]["pack_fragments_ms"] = cs.time_ms(
+        lambda: k_gru.wide_backward_fragments(w_h))["median"]
+    # nn.GRU bf16 (cuDNN): backward as (forward + backward) - forward.
+    x = cs._zipf_embeddings(rng, dev, B, T, H).bfloat16().requires_grad_(True)
+    lib = torch.nn.GRU(H, H, batch_first=True, device=dev, dtype=torch.bfloat16)
+    h0 = torch.zeros(1, B, H, device=dev, dtype=torch.bfloat16)
+    g = (cs._state(rng, dev, B * T, H).reshape(B, T, H) * 0.02).bfloat16()
+    fb = cs.time_ms(lambda: lib(x, h0)[0].backward(g))["median"]
+    fw = cs.time_ms(lambda: lib(x, h0)[0])["median"]
+    out["backward"]["B128_T50_H256"]["nn_gru_bf16_backward_ms"] = fb - fw
     return out
 
 
@@ -444,7 +538,8 @@ def main(argv=None) -> int:
                        ("xproj", "the f32 input projection's variants and its loop's parts"),
                        ("head", "the f32 sampled-softmax head's variants"),
                        ("scatter", "the deterministic scatter-add's chunk sizes"),
-                       ("gather", "the gather's loads in flight, grid and the replaced design")):
+                       ("gather", "the gather's loads in flight, grid and the replaced design"),
+                       ("gru_wide", "the bf16 GRU cluster layouts")):
         sub.add_parser(name, help=text).add_argument(
             "--out", help="also write the result (indented JSON) to this file")
     args = ap.parse_args(argv)
@@ -457,7 +552,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(HERE))
     result = {"clusters": probe_clusters, "xproj": probe_xproj, "head": probe_head,
-              "scatter": probe_scatter, "gather": probe_gather}[args.probe]()
+              "scatter": probe_scatter, "gather": probe_gather,
+              "gru_wide": probe_gru_wide}[args.probe]()
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

@@ -4,6 +4,7 @@ NVIDIA GPU: parent, change, change, parent.
     git archive <parent commit> seqrec_tpu_torch chip_smoke.py configs | tar -x -C <dir>
     python3 kernel_turns.py --parent <dir> [--out FILE]
     python3 kernel_turns.py --parent <dir> --pairs 10 [--path gru4rec] [--out FILE]
+    python3 kernel_turns.py --parent <dir> --only rnn [--out FILE]
 
 <dir> is a directory that .gitignore lists, inside the checkout or not.
 
@@ -18,13 +19,13 @@ A turn times, by CUDA events (chip_smoke.time_ms, median of 21 runs):
 
   - kernels at the main paths' shapes: causal attention bf16 and f32 at
     [128, 200, 1, 64] and [64, 200, 1, 64], beside
-    F.scaled_dot_product_attention on the same inputs; the GRU forward bf16
-    at B=64 and B=128, T=200, D=H=128 (and f32 at B=64), beside
-    torch.nn.GRU in f32 (cuDNN, TF32 off); its reset variant bf16 at B=256,
-    T=50, D=H=100; the GRU reverse recurrence bf16 and f32 at B=128, T=200,
-    D=H=128 and its keep path at B=256, T=50, D=H=100 (each checkout's
-    kernel on the operands its own backward hands it), and the whole GRU
-    backward through gru_scan's autograd at both shapes; the f32 input
+    F.scaled_dot_product_attention on the same inputs; the f32 GRU forward
+    at B=64 and B=128, T=200, D=H=128, beside torch.nn.GRU in f32 (cuDNN,
+    TF32 off); the f32 GRU reverse recurrence at B=128, T=200, D=H=128 and
+    its keep path at B=256, T=50, D=H=100 (each checkout's kernel on the
+    operands its own backward hands it), and the whole GRU backward through
+    gru_scan's autograd at both shapes (the bf16 GRU: the recurrences' rows
+    below); the f32 input
     projection at M=12,800 and 25,600 with N=384 and N=512 (D=128), beside
     torch.addmm f32 on the same values; the
     sampled-softmax head forward at N=25,600, S=256, H=128, bf16 and f32
@@ -60,6 +61,20 @@ A turn times, by CUDA events (chip_smoke.time_ms, median of 21 runs):
     (`encode_device_ms`), so that the events bracket the device's work even
     where the host takes longer than chip_smoke's ~1 ms sleep to queue a
     batch's launches (SASRec's encode).
+
+Every turn also times the recurrences' rows (`_rnn_rows`, alone with
+--only rnn, a turn of ~1 minute): the bf16 GRU forward (gru_scan, the
+projection included) at B=64 and 128, T=200, D=H=128, its reset variant at
+B=256, T=50, D=H=100, and at beauty_gru's step, B=64 and 128, T=50,
+D=H=256; the bf16 GRU reverse recurrence (gru_backward on the operands of
+reference.gru_bwd_project, the whole backward through autograd too) at
+B=128, T=200, H=128, its keep path at B=256, T=50, H=100 and at B=128,
+T=50, H=256; each with a digest (sha1) of its outputs, so that the turns
+show bit for bit where parent and change agree; beside torch.nn.GRU in
+bf16 and in f32 (TF32 off) on the same values, forward and forward +
+backward - forward; and torch.nn.LSTM in bf16 at the LSTM's main shapes
+(B=64 and 128, T=200, D=H=128; its backward at B=128), the bf16 library
+times of the LSTM's rows.
 
 With --pairs N, a turn is only one training path (--path, a chip_smoke
 CONFIGS key, default gru4rec): chip_smoke.phase_train with two groups, its
@@ -126,7 +141,97 @@ def _path_worker(label: str, path: str) -> dict:
                      "device_launches_per_step": r["profile"]["device_launches_per_step"]}}
 
 
-def _worker(label: str) -> dict:
+def _rnn_rows() -> dict:
+    """The recurrences' rows of a turn (see the module note), on the data
+    of rng 2: kernel ms, digests of the outputs and the library times."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from seqrec_tpu_torch.ops import reference
+    from seqrec_tpu_torch.ops.cuda import gru as k_gru
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(2)
+    med = lambda fn: cs.time_ms(fn)["median"]  # noqa: E731
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def digest(ts) -> str:
+        h = hashlib.sha1()
+        for t in ts:
+            h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def nn_rnn(cls, w_x, w_h, b_x, b_h, dtype):
+        lib = cls(w_x.shape[0], w_h.shape[0], batch_first=True, device=dev, dtype=dtype)
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(w_x.T)
+            lib.weight_hh_l0.copy_(w_h.T)
+            lib.bias_ih_l0.copy_(b_x)
+            lib.bias_hh_l0.copy_(b_h)
+        return lib
+
+    def library(cls, x, state, w, g):
+        """nn.GRU / nn.LSTM in bf16 and f32: forward ms, fwd+bwd - fwd ms."""
+        rec = {}
+        for dtype in (bf16, f32):
+            lib = nn_rnn(cls, *w, dtype)
+            xd = x.to(dtype).detach().clone().requires_grad_(True)
+            sd = tuple(t.to(dtype)[None] for t in state)
+            sd = sd[0] if cls is torch.nn.GRU else sd
+            gd = g.to(dtype)
+            fw = med(lambda: lib(xd, sd)[0])
+            rec[f"nn_{cls.__name__.lower()}_{str(dtype)[6:]}_ms"] = fw
+            rec[f"nn_{cls.__name__.lower()}_{str(dtype)[6:]}_backward_ms"] = med(
+                lambda: lib(xd, sd)[0].backward(gd)) - fw
+        return rec
+
+    rows = {}
+    for B, T, H, reset in ((64, 200, 128, False), (128, 200, 128, False), (256, 50, 100, True),
+                           (64, 50, 256, False), (128, 50, 256, False)):
+        x = cs._zipf_embeddings(rng, dev, B, T, H)
+        w = [t.to(dev) for t in cs.gru_weights(rng, H, H)]
+        h0 = cs._state(rng, dev, B, H)
+        plane = cs._reset_plane(rng, B, T, dev) if reset else None
+        g = cs._state(rng, dev, B * T, H).reshape(B, T, H) * 0.02
+        xb, hb = x.bfloat16(), h0.bfloat16()
+        rec = {"ms": med(lambda: k_gru.gru_scan(xb, hb, *w, reset_mask=plane)),
+               "digest": digest([k_gru.gru_scan(xb, hb, *w, reset_mask=plane)[0]])}
+        if not reset:
+            rec.update(library(torch.nn.GRU, x, (h0,), w, g))
+        rows[f"gru_bfloat16_B{B}_T{T}_H{H}" + ("_reset" if reset else "")] = rec
+        if (B, T) in ((64, 200), (64, 50)):
+            continue
+        # The reverse recurrence on the operands the backward hands it, and
+        # the whole backward through autograd.
+        w_x, w_h, b_x, b_h = w
+        wxb, whb = w_x.bfloat16(), w_h.bfloat16()
+        gb = g.bfloat16()
+        with torch.no_grad():
+            ys = k_gru.gru_scan(xb, hb, wxb, whb, b_x, b_h, reset_mask=plane)[0]
+            x_proj = torch.matmul(xb.float(), wxb.float()) + b_x
+            h_in, keep, h_proj = reference.gru_bwd_project(x_proj, ys, hb, whb, b_h, plane)
+        args = (x_proj, h_proj, h_in, gb, whb, keep)
+        leaves = [t.clone().requires_grad_(True) for t in (xb, hb, *w)]
+        ys_a = k_gru.gru_scan(*leaves, reset_mask=plane)[0]
+        rows[f"gru_backward_bfloat16_B{B}_T{T}_H{H}" + ("_keep" if reset else "")] = {
+            "ms": med(lambda: k_gru.gru_backward(*args)),
+            "digest": digest(k_gru.gru_backward(*args)),
+            "autograd_backward_ms": med(
+                lambda: torch.autograd.backward(ys_a, gb, retain_graph=True))}
+    for B in (64, 128):
+        x = cs._zipf_embeddings(rng, dev, B, 200, 128)
+        w_x, w_h, b = (t.to(dev) for t in cs.lstm_weights(rng, 128, 128))
+        state = (cs._state(rng, dev, B, 128), cs._state(rng, dev, B, 128))
+        g = cs._state(rng, dev, B * 200, 128).reshape(B, 200, 128) * 0.02
+        rows[f"nn_lstm_B{B}_T200_H128"] = library(
+            torch.nn.LSTM, x, state, (w_x, w_h, b, torch.zeros_like(b)), g)
+    return rows
+
+
+def _worker(label: str, only: str = "") -> dict:
     import numpy as np
     import torch
 
@@ -145,6 +250,9 @@ def _worker(label: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if only == "rnn":
+        _build.build(["gru"])
+        return {"label": label, "root": str(Path.cwd()), "kernels": _rnn_rows(), "paths": {}}
     _build.build()
     rng = np.random.default_rng(0)
     med = lambda fn: cs.time_ms(fn)["median"]  # noqa: E731
@@ -174,8 +282,8 @@ def _worker(label: str) -> dict:
         w_x, w_h, b_x, b_h = (w.to(dev) for w in cs.gru_weights(rng, D, D))
         return zipf_embeddings(Bg, T, D), state(Bg, D), (w_x, w_h, b_x, b_h)
 
-    for Bg, dtype in ((64, torch.bfloat16), (128, torch.bfloat16), (64, torch.float32),
-                      (128, torch.float32)):
+    # The f32 GRU rows (the bf16 ones are _rnn_rows').
+    for Bg, dtype in ((64, torch.float32), (128, torch.float32)):
         x, h0, (w_x, w_h, b_x, b_h) = gru_inputs(Bg, 200, 128)
         xd, hd = x.to(dtype), h0.to(dtype)
         rec = {"ms": med(lambda: k_gru.gru_scan(xd, hd, w_x, w_h, b_x, b_h))}
@@ -191,13 +299,10 @@ def _worker(label: str) -> dict:
     x, h0, w = gru_inputs(256, 50, 100)
     reset = torch.from_numpy((rng.random((256, 50)) < 1 / RESET_EVERY)
                              .astype(np.float32)).to(dev)
-    xb, hb = x.bfloat16(), h0.bfloat16()
-    kern["gru_reset_bfloat16_B256_rsc15"] = {
-        "ms": med(lambda: k_gru.gru_scan(xb, hb, *w, reset_mask=reset))}
     kern["gru_reset_float32_B256_rsc15"] = {
         "ms": med(lambda: k_gru.gru_scan(x, h0, *w, reset_mask=reset))}
 
-    def gru_reverse(x, h0, w, reset=None, dtype=torch.bfloat16):
+    def gru_reverse(x, h0, w, reset=None, dtype=torch.float32):
         """(ms of the reverse-recurrence kernel, ms of the whole backward
         through gru_scan's autograd) in `dtype`, on a kernel forward: the kernel on
         the operands the checkout's own backward hands it, the two projections
@@ -222,15 +327,12 @@ def _worker(label: str) -> dict:
         ys, _ = k_gru.gru_scan(*leaves, reset_mask=reset)
         return kernel_ms, med(lambda: torch.autograd.backward(ys, g, retain_graph=True))
 
-    for dtype in (torch.bfloat16, torch.float32):
-        ms, autograd_ms = gru_reverse(x, h0, w, reset, dtype)
-        kern[f"gru_backward_keep_{dname(dtype)}_B256_rsc15"] = {
-            "ms": ms, "autograd_backward_ms": autograd_ms}
+    ms, autograd_ms = gru_reverse(x, h0, w, reset, torch.float32)
+    kern["gru_backward_keep_float32_B256_rsc15"] = {"ms": ms, "autograd_backward_ms": autograd_ms}
     x, h0, w = gru_inputs(128, 200, 128)
     H = 128
-    for dtype in (torch.bfloat16, torch.float32):
-        ms, autograd_ms = gru_reverse(x, h0, w, None, dtype)
-        kern[f"gru_backward_{dname(dtype)}_B128"] = {"ms": ms, "autograd_backward_ms": autograd_ms}
+    ms, autograd_ms = gru_reverse(x, h0, w, None, torch.float32)
+    kern["gru_backward_float32_B128"] = {"ms": ms, "autograd_backward_ms": autograd_ms}
 
     # The f32 input projection at the f32 paths' shapes, beside torch.addmm.
     for M, N, project in ((64 * 200, 384, k_gru.gru_input_projection),
@@ -288,7 +390,7 @@ def _worker(label: str) -> dict:
 
     padded = zipf_over(cs.VOCAB, N).reshape(128, 200)
     padded[np.arange(200)[None, :] >= rng.integers(5, 201, size=(128, 1))] = 0
-    for label, V, D, ids_np in (
+    for row, V, D, ids_np in (
             (f"scatter_add_N{N}", cs.VOCAB, H, cs.zipf_items(rng, N)),
             (f"scatter_add_N{N}_padded", cs.VOCAB, H, padded.reshape(-1)),
             ("scatter_add_N12800_V37484_D100", 37_484, 100, zipf_over(37_484, 12_800)),
@@ -296,7 +398,7 @@ def _worker(label: str) -> dict:
         sids = torch.from_numpy(ids_np.astype(np.int64)).to(dev)
         sg = torch.from_numpy(rng.normal(scale=1e-2, size=(len(ids_np), D))
                               .astype(np.float32)).to(dev)
-        kern[label] = {
+        kern[row] = {
             "ms": med(lambda: k_gather.embedding_scatter_add(sg, sids, V)),
             "index_add_ms": med(lambda: torch.zeros(V, D, device=dev).index_add_(0, sids, sg)),
             "max_ids_per_row": int(np.bincount(ids_np, minlength=V).max()),
@@ -407,6 +509,8 @@ def _worker(label: str) -> dict:
                     ts.append(start.elapsed_time(end))
         return float(np.median(ts))
 
+    kern.update(_rnn_rows())
+
     # The paths draw from their own generator, so that both checkouts serve
     # and train on the same data whatever the kernel phase drew.
     rng = np.random.default_rng(1)
@@ -437,6 +541,18 @@ def _worker(label: str) -> dict:
     return {"label": label, "root": str(Path.cwd()), "kernels": kern, "paths": paths}
 
 
+def _same_bits(turns: list) -> dict:
+    """For each row with a digest: whether all turns, the parent's two and
+    the change's two gave the same bits."""
+    keys = [k for k, v in turns[0]["kernels"].items() if isinstance(v, dict) and "digest" in v]
+    out = {}
+    for k in keys:
+        got = [(t["label"], t["kernels"][k]["digest"]) for t in turns]
+        out[k] = {"all": len({d for _, d in got}) == 1,
+                  **{lab: len({d for a, d in got if a == lab}) == 1 for lab in ("parent", "change")}}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="root of the parent checkout")
@@ -444,11 +560,14 @@ def main(argv=None) -> int:
     ap.add_argument("--pairs", type=int, default=0,
                     help="time one training path in this many alternating pairs instead")
     ap.add_argument("--path", default="gru4rec", help="the training path of --pairs")
+    ap.add_argument("--only", choices=("rnn",), default="",
+                    help="time only the recurrences' rows (no paths)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
         sys.path.insert(0, str(Path.cwd()))
-        rec = _path_worker(args.worker, args.path) if args.pairs else _worker(args.worker)
+        rec = (_path_worker(args.worker, args.path) if args.pairs
+               else _worker(args.worker, args.only))
         print(json.dumps(rec), flush=True)
         return 0
 
@@ -468,7 +587,8 @@ def main(argv=None) -> int:
                  for label in (ORDER[:2] if i % 2 == 0 else ORDER[2:])]
         extra = ["--pairs", str(args.pairs), "--path", args.path]
     else:
-        order, extra = [(None, label) for label in ORDER], []
+        order = [(None, label) for label in ORDER]
+        extra = ["--only", args.only] if args.only else []
     turns = []
     for pair, label in order:
         root = roots[label]
@@ -483,6 +603,8 @@ def main(argv=None) -> int:
             turns[-1]["pair"] = pair
         print(json.dumps({"turn": label, **turns[-1]}), flush=True)
     result = {"device": smi, "turns": turns}
+    if not args.pairs:
+        result["same_bits"] = _same_bits(turns)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

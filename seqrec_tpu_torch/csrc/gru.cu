@@ -44,8 +44,9 @@
 //    n), so the r, z and n sums of one (unit, row) land in the same
 //    register of the same lane and the gate math needs no exchange. W_h^T's
 //    A fragments are loaded once, with zeros past H, and held in registers
-//    for the whole scan while Hp <= 128 (96 registers a lane at H=128);
-//    above that they are read from global memory (L1/L2) each step. h^T's
+//    for the whole scan (96 registers a lane at H=128). Above Hp = 128 they
+//    do not fit one SM, and gru_forward_wide_kernel (below) splits W_h^T
+//    between the CTAs of a thread block cluster instead. h^T's
 //    B fragments come by ldmatrix.trans from a unit-major [Hp][8] bf16
 //    buffer in shared memory (double-buffered: one barrier a step; a unit's
 //    8 rows are one 16-byte ldmatrix row), into which each lane writes its
@@ -111,9 +112,9 @@
 // and the two products share the A fragments (one ldmatrix.x4.trans brings
 // both B fragments): W_h is exact in bf16, so only d's tail below 2^-17 of
 // it is lost. W_h's A fragments come packed by the wrapper
-// (ops/cuda/gru.py backward_fragments) and stay in registers up to Hp = 128
-// (96 a lane at H=128); above that they are read from global memory every
-// step.
+// (ops/cuda/gru.py backward_fragments) and stay in registers (96 a lane at
+// H=128); above Hp = 128 gru_backward_wide_kernel (below) splits K between
+// the CTAs of a cluster, each with its slice of W_h in registers.
 // A lane computes the gate cotangents of its own (unit, row) pairs with no
 // exchange, writes d_xp and dn_r = dpre_n r (the n-block of d_hproj, for
 // the weight gradients), and keeps dh in f32 registers (with dh z for the
@@ -159,6 +160,7 @@
 namespace {
 
 constexpr int kMaxHidden = 256;  // the widest H the kernels are laid out for
+constexpr int kMaxMmaBlock = 128;  // the widest H of the bf16 one-block designs
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -404,8 +406,8 @@ int launch_cluster_fwd(int R, int S, bool w_in_regs, int clusters, int C, int th
 // ---------------------------------------------------------------------------
 
 // W_h[k][gate H + unit] and W_h[k + 1][...] as one bf16 pair (the low half
-// the lower k): a fragment register of W_h^T; zero past H (k even,
-// H % 4 == 0).
+// the lower k): a fragment register of W_h^T, read once at the start of the
+// scan; zero past H (k even, H % 4 == 0).
 __device__ __forceinline__ uint32_t wh_pair(const __nv_bfloat16* w_h, int H,
                                             int k, int gate, int unit) {
   if (k >= H || unit >= H) return 0u;
@@ -429,23 +431,20 @@ __device__ __forceinline__ void wh_frag(uint32_t a[4], const __nv_bfloat16* w_h,
 // The recurrence, transposed: hp^T = W_h^T h_in^T, so the hidden units are
 // mma's M (one m16 tile of each gate a warp) and the batch rows its N (one
 // n8 tile: kRows rows a block, none idle). kKS: Hp / 16 (k16 steps and
-// warps), with W_h^T's A fragments in registers; 0 for Hp > 128, where the
-// step count is `ks_rt` and the fragments are read from global memory every
-// step. kReset as the f32 kernel's.
+// warps, Hp <= 128), with W_h^T's A fragments in registers. kReset as the
+// f32 kernel's. Wider Hp: gru_forward_wide_kernel.
 using rnn::kRows;
 template <int kKS, bool kReset>
-__global__ void __launch_bounds__(kKS > 0 ? 32 * kKS : 32 * 16, 1)
+__global__ void __launch_bounds__(32 * kKS, 1)
 gru_forward_mma_kernel(const float* __restrict__ xp,
                        const __nv_bfloat16* __restrict__ h0,
                        const __nv_bfloat16* __restrict__ w_h,
                        const float* __restrict__ b_h,
                        const float* __restrict__ keep,
-                       __nv_bfloat16* __restrict__ ys, int B, int Tn, int H,
-                       int ks_rt) {
-  constexpr bool kRegs = kKS > 0;
+                       __nv_bfloat16* __restrict__ ys, int B, int Tn, int H) {
   constexpr int R = kRows;
-  const int KS = kRegs ? kKS : ks_rt;
-  const int Hp = 16 * KS;
+  constexpr int KS = kKS;
+  constexpr int Hp = 16 * KS;
   extern __shared__ __align__(16) unsigned char smem[];
   // h^T, unit-major: [2][Hp][R] bf16 (a unit's 8 rows are 16 bytes).
   __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -467,13 +466,11 @@ gru_forward_mma_kernel(const float* __restrict__ xp,
     row_base[e] = static_cast<size_t>(b) * Tn;
   }
 
-  uint32_t whf[kRegs ? kKS : 1][3][4];
-  if (kRegs) {
+  uint32_t whf[kKS][3][4];
 #pragma unroll
-    for (int st = 0; st < (kRegs ? kKS : 1); ++st)
+  for (int st = 0; st < kKS; ++st)
 #pragma unroll
-      for (int q = 0; q < 3; ++q) wh_frag(whf[st][q], w_h, H, st, q, u, gr, tq);
-  }
+    for (int q = 0; q < 3; ++q) wh_frag(whf[st][q], w_h, H, st, q, u, gr, tq);
   float bh[3][2];
 #pragma unroll
   for (int q = 0; q < 3; ++q)
@@ -537,12 +534,7 @@ gru_forward_mma_kernel(const float* __restrict__ xp,
       uint32_t b[2];
       mma::ldmatrix_x2_trans(b, hc + 16 * st * R + b_off);
 #pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        uint32_t a_mem[4];
-        if (!kRegs) wh_frag(a_mem, w_h, H, st, q, u, gr, tq);
-        const uint32_t* a = kRegs ? whf[kRegs ? st : 0][q] : a_mem;
-        mma::bf16_16x8x16(acc[q], a, b[0], b[1]);
-      }
+      for (int q = 0; q < 3; ++q) mma::bf16_16x8x16(acc[q], whf[st][q], b[0], b[1]);
     }
 
     __nv_bfloat16* hn = hs + (cur ^ 1) * Hp * R;
@@ -584,7 +576,7 @@ int launch_mma(const float* xp, const void* h0, const void* w_h,
     if (e != cudaSuccess) return static_cast<int>(e);
     kernel<<<grid, block, smem, s>>>(
         xp, static_cast<const __nv_bfloat16*>(h0), static_cast<const __nv_bfloat16*>(w_h),
-        b_h, keep, static_cast<__nv_bfloat16*>(ys), B, Tn, H, ks);
+        b_h, keep, static_cast<__nv_bfloat16*>(ys), B, Tn, H);
     return static_cast<int>(cudaGetLastError());
   };
   switch (ks) {
@@ -596,7 +588,7 @@ int launch_mma(const float* xp, const void* h0, const void* w_h,
     case 6: return launch(gru_forward_mma_kernel<6, kReset>);
     case 7: return launch(gru_forward_mma_kernel<7, kReset>);
     case 8: return launch(gru_forward_mma_kernel<8, kReset>);
-    default: return launch(gru_forward_mma_kernel<0, kReset>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -869,9 +861,7 @@ using rnn::zero_smem;
 constexpr int kGates = 3;  // r, z, n
 
 // The reverse recurrence's shared memory (bytes): the d_hproj^T double
-// buffer [2][hi, lo][3 Hp][8] bf16 (one buffer above Hp = 128, where two
-// would not fit beside an f32 h_in at H = 256), then the ring of per-step
-// stages. A
+// buffer [2][hi, lo][3 Hp][8] bf16, then the ring of per-step stages. A
 // stage holds the six gate blocks of the two projections, x_r, x_z, x_n,
 // h_r, h_z, h_n [6][8][Hp + 4] f32, h_in [8][Hp + 4] f32 or [8][Hp + 8] bf16
 // (at byte `hin`), and g_ys [8][Hp + 8] bf16 (at `gy`); the pads keep a
@@ -881,30 +871,29 @@ struct BwdSmem {
   __host__ __device__ BwdSmem(int Hp, int hin_bytes)
       : part(kGates * Hp * kRows), sp(Hp + 4), sg(Hp + 8), sh(hin_bytes == 4 ? sp : sg),
         hin(6 * kRows * sp * 4), gy(hin + kRows * sh * hin_bytes),
-        ring((Hp <= 128 ? 2 : 1) * 2 * part * 2),
+        ring(2 * 2 * part * 2),
         stage(gy + kRows * sg * 2), total(ring + kStages * stage) {}
 };
 
-// dh_prev^T = W_h d_hproj^T, K = 3 Hp (Hp = 16 ceil(H / 16)). kMT = Hp / 16
-// (warps, m16 tiles of units, each warp its own tile over all 3 kMT
-// k-steps), with W_h's A fragments in registers; 0 for Hp > 128 (count
-// `mt_rt`, fragments read from global memory every step). w_frag: [Hp/16
-// tiles][3 Hp/16 k-steps][32 lanes] x 16 bytes. The gates come from the
-// two f32 projections xp = x W_x + b_x and hp = h_in W_h + b_h ([B, T, 3H]),
+// dh_prev^T = W_h d_hproj^T, K = 3 Hp (Hp = 16 ceil(H / 16) <= 128; wider:
+// gru_backward_wide_kernel). kMT = Hp / 16 (warps, m16 tiles of units, each
+// warp its own tile over all 3 kMT k-steps), with W_h's A fragments in
+// registers. w_frag: [Hp/16 tiles][3 Hp/16 k-steps][32 lanes] x 16 bytes.
+// The gates come from the two f32 projections xp = x W_x + b_x and hp = h_in W_h + b_h ([B, T, 3H]),
 // one step ahead of their use; the kernel writes d_xp and the n-block of
 // d_hproj (dn_r = dpre_n r, [B, T, H]) for the weight gradients. kReset as
 // the f32 kernel's; HT is h_in's dtype (float or bf16).
 template <int kMT, bool kReset, typename HT>
-__global__ void __launch_bounds__(kMT > 0 ? 32 * kMT : 32 * 16, 1)
+__global__ void __launch_bounds__(32 * kMT, 1)
 gru_backward_mma_kernel(const float* __restrict__ xp, const float* __restrict__ hp,
                         const HT* __restrict__ h_in, const __nv_bfloat16* __restrict__ g_ys,
                         const uint4* __restrict__ w_frag, const float* __restrict__ keep,
                         float* __restrict__ d_xp, float* __restrict__ dn_r,
-                        float* __restrict__ dh0, int B, int Tn, int H, int mt_rt) {
-  constexpr bool kRegs = kMT > 0;
+                        float* __restrict__ dh0, int B, int Tn, int H) {
   constexpr int R = kRows;
-  const int MT = kRegs ? kMT : mt_rt;
-  const int Hp = 16 * MT, KS = kGates * MT, H3 = kGates * H;
+  constexpr int MT = kMT;
+  constexpr int Hp = 16 * MT, KS = kGates * MT;
+  const int H3 = kGates * H;
   const BwdSmem L(Hp, sizeof(HT));
   extern __shared__ __align__(16) unsigned char smem[];
   // d_hproj^T, k-major (k = gate Hp + unit): [2][hi, lo][3 Hp][R] bf16.
@@ -914,11 +903,9 @@ gru_backward_mma_kernel(const float* __restrict__ xp, const float* __restrict__ 
   const int b0 = blockIdx.x * R;
 
   const uint4* wf = w_frag + static_cast<size_t>(warp) * KS * 32 + lane;
-  uint32_t wr[kRegs ? kGates * kMT : 1][4];
-  if (kRegs) {
+  uint32_t wr[KS][4];
 #pragma unroll
-    for (int st = 0; st < (kRegs ? kGates * kMT : 1); ++st) load_frag(wr[st], wf + st * 32);
-  }
+  for (int st = 0; st < KS; ++st) load_frag(wr[st], wf + st * 32);
 
   // The step's operands arrive in a ring of kStages stages, by cp.async,
   // kStages - 1 steps ahead of their use. Rows past B and units past H are
@@ -994,7 +981,7 @@ gru_backward_mma_kernel(const float* __restrict__ xp, const float* __restrict__ 
     const unsigned char* st = smem + L.ring + (s % kStages) * L.stage;
     const HT* hs = reinterpret_cast<const HT*>(st + L.hin);
     const __nv_bfloat16* gs = reinterpret_cast<const __nv_bfloat16*>(st + L.gy);
-    __nv_bfloat16* db = dbuf + (kRegs ? s & 1 : 0) * 2 * L.part;  // this step's d_hproj^T
+    __nv_bfloat16* db = dbuf + (s & 1) * 2 * L.part;  // this step's d_hproj^T
 
     float dhz[4];
 #pragma unroll
@@ -1048,11 +1035,8 @@ gru_backward_mma_kernel(const float* __restrict__ xp, const float* __restrict__ 
         const int k = st2 + par;
         if (k < KS) {
           if (k + 1 < KS) mma::ldmatrix_x4_trans(bq[par ^ 1], dk + 16 * (k + 1) * R);
-          uint32_t a_mem[4];
-          if (!kRegs) load_frag(a_mem, wf + k * 32);
-          const uint32_t* a = kRegs ? wr[kRegs && k < kGates * kMT ? k : 0] : a_mem;
-          mma::bf16_16x8x16(acc[0], a, bq[par][0], bq[par][1]);
-          mma::bf16_16x8x16(acc[1], a, bq[par][2], bq[par][3]);
+          mma::bf16_16x8x16(acc[0], wr[k], bq[par][0], bq[par][1]);
+          mma::bf16_16x8x16(acc[1], wr[k], bq[par][2], bq[par][3]);
         }
       }
     }
@@ -1064,7 +1048,6 @@ gru_backward_mma_kernel(const float* __restrict__ xp, const float* __restrict__ 
       carry[p] = dhz[p] + (acc[0][p] + acc[1][p]);
       if (kReset) carry[p] *= ck[p & 1];  // dh_prev *= keep[t]
     }
-    if (!kRegs) __syncthreads();  // one d_hproj^T buffer: every read is done
   }
 #pragma unroll
   for (int m = 0; m < 2; ++m)
@@ -1087,7 +1070,7 @@ int launch_bwd_mma(const float* xp, const float* hp, const void* h_in, const voi
     if (e != cudaSuccess) return static_cast<int>(e);
     kernel<<<grid, block, smem, s>>>(
         xp, hp, static_cast<const HT*>(h_in), static_cast<const __nv_bfloat16*>(g_ys),
-        static_cast<const uint4*>(w_frag), keep, d_xp, dn_r, dh0, B, Tn, H, mt);
+        static_cast<const uint4*>(w_frag), keep, d_xp, dn_r, dh0, B, Tn, H);
     return static_cast<int>(cudaGetLastError());
   };
   switch (mt) {
@@ -1099,8 +1082,523 @@ int launch_bwd_mma(const float* xp, const float* hp, const void* h_in, const voi
     case 6: return launch(gru_backward_mma_kernel<6, kReset, HT>);
     case 7: return launch(gru_backward_mma_kernel<7, kReset, HT>);
     case 8: return launch(gru_backward_mma_kernel<8, kReset, HT>);
-    default: return launch(gru_backward_mma_kernel<0, kReset, HT>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 above Hp = 128: both recurrences on thread block clusters
+// ---------------------------------------------------------------------------
+//
+// At Hp = 256, W_h is 384 KB of bf16: more than one SM's registers (256 KB)
+// or shared memory (227 KB). The block designs above hold it in registers
+// only up to Hp = 128, and reading its fragments from global memory every
+// step costs ~16.5 us a step at B=128, H=256 (PERF.md). Here a cluster of
+// kWideCluster = 4 CTAs owns 8 batch rows (one n8 tile, as the block
+// designs) and splits W_h between its CTAs, each CTA's quarter held in its
+// registers for the whole scan, so that a step reads no weight from L2 (an
+// H100 probe found 4 CTAs 31-39% faster than 2 CTAs of 128 units, half of
+// whose fragments must sit in shared memory; PERF.md). Each layout pads
+// units and k to kWide = 256 (zero weights, biases and operands; a padded
+// unit stays 0), so one instantiation takes every 128 < Hp <= 256. Per step
+// the CTAs exchange the smaller of the two vectors on the serial chain
+// through distributed shared memory (st.async, counted by an mbarrier a
+// buffer, rnn.cuh): the forward its units of h (bf16, 4 KB a step a
+// cluster), the reverse its partial sums of dh_prev (f32, 8 KB), never the
+// 3H-wide projections or cotangents.
+
+constexpr int kWide = 256;        // units and k the cluster layouts pad to (kMaxHidden)
+constexpr int kWideCluster = 4;   // CTAs a cluster
+constexpr int kWideUnits = kWide / kWideCluster;  // units a CTA owns: 64
+constexpr int kWideWarps = 8;     // a CTA of either recurrence
+constexpr int kWideThreads = 32 * kWideWarps;
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// (a, b) into `addr` (a map()ped address, 8-byte aligned) of a CTA whose
+// mbarrier is at `mbar`, counting 8 bytes there.
+__device__ __forceinline__ void store_async2(unsigned addr, float a, float b, unsigned mbar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];"
+      ::"r"(addr), "r"(__float_as_uint(a)), "r"(__float_as_uint(b)), "r"(mbar) : "memory");
+}
+
+// The wide forward's shared memory (bytes): h^T's two buffers [2][kWide][8]
+// bf16 (unit-major, as the block design's), the K halves' partial sums
+// [4 tiles][2 halves][3 gates x 2 rows][32 lanes] f32, then two mbarriers.
+constexpr int kWideFwdRed = 2 * kWide * kRows * 2;
+constexpr int kWideFwdMbar = kWideFwdRed + 4 * 2 * 6 * 32 * 4;
+constexpr int kWideFwdSmem = kWideFwdMbar + 2 * 8;
+
+// The forward recurrence for 128 < Hp <= 256, hp^T = W_h^T h_in^T as in the
+// block design (units as M, 8 rows as N), on a cluster of kWideCluster
+// CTAs: CTA c owns units [c U, c U + U), U = kWideUnits, of all three gates,
+// so the r, z and n sums of a (unit, row) pair land in one lane and the gate
+// math needs no exchange. 8 warps, two a tile of 16 units, each over half of
+// K (8 k-steps: 96 fragment registers a lane); the pair adds its partial
+// sums through shared memory (a named barrier a tile) and each warp takes
+// the gate math of one of the tile's two 8-unit halves. w_frag: W_h^T's A
+// fragments [16 tiles][16 k-steps][3 gates][32 lanes] x 16 bytes
+// (ops/cuda/gru.py forward_fragments), zero past H. A step: every thread
+// waits for the mbarrier of h(t)'s buffer, loads its xp (and keep) of step
+// t+1, runs the products from that buffer, computes h' of its pairs, writes
+// ys and stores h' (times keep[t+1] in the reset variant; two rows a 4-byte
+// st.async) into the next buffer of every CTA of the cluster. No CTA
+// barrier on the chain: a CTA's warps read buffer t & 1 before they store
+// their units of h'(t), and no CTA refills that buffer (with h'(t+1)) before
+// it has all of h'(t). The numerics are the block design's: products and
+// gate math in f32, h rounded to bf16 every step.
+template <bool kReset>
+__global__ void __launch_bounds__(kWideThreads, 1)
+gru_forward_wide_kernel(const float* __restrict__ xp, const __nv_bfloat16* __restrict__ h0,
+                        const uint4* __restrict__ w_frag, const float* __restrict__ b_h,
+                        const float* __restrict__ keep, __nv_bfloat16* __restrict__ ys, int B,
+                        int Tn, int H) {
+  constexpr int R = kRows;
+  constexpr int kTiles = kWideUnits / 16;  // m16 tiles of units a CTA: 4, two warps each
+  constexpr int kKS = kWide / 16 / 2;      // k-steps a warp, half of K: 8
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][kWide][R]
+  float* red = reinterpret_cast<float*>(smem + kWideFwdRed);
+  uint64_t* mb = reinterpret_cast<uint64_t*>(smem + kWideFwdMbar);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int tile = warp % kTiles, half = warp / kTiles;
+  const int gtile = static_cast<int>(rnn::cluster::rank()) * kTiles + tile;
+  const int b0 = static_cast<int>(rnn::cluster::id()) * R;
+  const int H3 = 3 * H;
+  // The lane's gate-math pairs: unit `unit` (in the warp's 8-unit half of
+  // its tile) of rows 2 tq + e.
+  const int unit = 16 * gtile + 8 * half + gr;
+  const bool unit_ok = unit < H;
+  bool row_ok[2];
+  size_t row_base[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int b = b0 + 2 * tq + e;
+    row_ok[e] = b < B;
+    row_base[e] = static_cast<size_t>(b) * Tn;
+  }
+
+  // W_h^T's fragments of the warp's tile and half of K, into registers.
+  const uint4* wf = w_frag + (static_cast<size_t>(gtile) * (kWide / 16) + half * kKS) * 3 * 32 + lane;
+  uint32_t wr[kKS][3][4];
+#pragma unroll
+  for (int j = 0; j < kKS; ++j)
+#pragma unroll
+    for (int q = 0; q < 3; ++q) rnn::load_frag(wr[j][q], wf + (j * 3 + q) * 32);
+  float bh[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) bh[q] = unit_ok ? b_h[q * H + unit] : 0.0f;
+
+  // h_in of step 0 (keep[0] h0, rounded to bf16) of every unit of the
+  // cluster's rows into buffer 0 (zeros past H and B), and of the lane's
+  // pairs into registers.
+  for (int c = tid; c < kWide * R; c += kWideThreads) {
+    const int k = c / R, b = b0 + c % R;
+    float h = 0.0f;
+    if (k < H && b < B) {
+      h = __bfloat162float(h0[static_cast<size_t>(b) * H + k]);
+      if (kReset) h = __bfloat162float(__float2bfloat16(h * keep[static_cast<size_t>(b) * Tn]));
+    }
+    hs[c] = __float2bfloat16(h);
+  }
+  float hreg[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    float h = 0.0f;
+    if (row_ok[e] && unit_ok) {
+      h = __bfloat162float(h0[static_cast<size_t>(b0 + 2 * tq + e) * H + unit]);
+      if (kReset) h = __bfloat162float(__float2bfloat16(h * keep[row_base[e]]));
+    }
+    hreg[e] = h;
+  }
+
+  // h'(t) lands in buffer (t+1) & 1: every unit of every row, kWide R bf16 a fill.
+  const unsigned fill = kWide * R * 2;
+  if (tid == 0) {
+    rnn::cluster::mbar_init(&mb[0]);
+    rnn::cluster::mbar_init(&mb[1]);
+    rnn::cluster::mbar_init_fence();
+    if (Tn >= 2) rnn::cluster::mbar_expect(&mb[1], fill);  // h'(0)
+    if (Tn >= 3) rnn::cluster::mbar_expect(&mb[0], fill);  // h'(1)
+  }
+  rnn::cluster::sync();  // every CTA running, its mbarriers set and buffer 0 written
+  unsigned hs_at[kWideCluster], mb_at[kWideCluster];  // the cluster's CTAs' buffers and mbarriers
+#pragma unroll
+  for (int p = 0; p < kWideCluster; ++p) {
+    hs_at[p] = rnn::cluster::map(hs, p);
+    mb_at[p] = rnn::cluster::map(mb, p);
+  }
+
+  // xp (and keep) of step t for the lane's pairs: [gate][e].
+  auto load_step = [&](int t, float (&xv)[3][2], float (&kv)[2]) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      kv[e] = kReset && row_ok[e] ? keep[row_base[e] + t] : 1.0f;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        xv[q][e] = row_ok[e] && unit_ok ? xp[(row_base[e] + t) * H3 + q * H + unit] : 0.0f;
+      }
+    }
+  };
+  float xc[3][2], keep0[2];  // keep[0] is already in h_in of step 0
+  load_step(0, xc, keep0);
+
+  // The pair of warps over K's two halves: each hands the other its partial
+  // sums of the other's 8-unit half and adds the other's of its own.
+  float* mine = red + (tile * 2 + half) * 6 * 32 + lane;
+  const float* theirs = red + (tile * 2 + (half ^ 1)) * 6 * 32 + lane;
+  const int b_off = (lane & 15) * R + half * kKS * 16 * R;  // the lane's ldmatrix row
+  for (int t = 0; t < Tn; ++t) {
+    if (t > 0) {  // wait for h'(t-1): fill n of buffer t & 1
+      const int q = t & 1;
+      const unsigned n = q ? (t - 1) >> 1 : (t >> 1) - 1;
+      rnn::cluster::mbar_wait(&mb[q], n & 1);
+      if (tid == 0 && t + 2 < Tn) rnn::cluster::mbar_expect(&mb[q], fill);  // h'(t+1)
+    }
+    float xn[3][2], kn[2] = {};  // the last step hands nothing on
+    if (t + 1 < Tn) load_step(t + 1, xn, kn);
+
+    const __nv_bfloat16* hc = hs + (t & 1) * kWide * R + b_off;
+    float acc[3][4];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kKS; ++j) {
+      uint32_t b[2];
+      mma::ldmatrix_x2_trans(b, hc + 16 * j * R);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) mma::bf16_16x8x16(acc[q], wr[j][q], b[0], b[1]);
+    }
+    // The tile's full sums of the lane's pairs: [gate][e]. (A select, not
+    // acc[q][2 half + e]: a runtime index would put acc in local memory.)
+    float s[3][2];
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) mine[(q * 2 + e) * 32] = half ? acc[q][e] : acc[q][2 + e];
+    named_sync(1 + tile, 64);
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[q][e] = (half ? acc[q][2 + e] : acc[q][e]) + theirs[(q * 2 + e) * 32];
+      }
+
+    const unsigned nb = ((t + 1) & 1) * kWide * R * 2;  // the next buffer's byte offset
+    __nv_bfloat16 hk[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float rg = rnn::fast_sigmoid(xc[0][e] + (s[0][e] + bh[0]));
+      const float zg = rnn::fast_sigmoid(xc[1][e] + (s[1][e] + bh[1]));
+      const float ng = rnn::fast_tanh(xc[2][e] + rg * (s[2][e] + bh[2]));
+      const __nv_bfloat16 hq = __float2bfloat16((1.0f - zg) * ng + zg * hreg[e]);
+      if (row_ok[e] && unit_ok) ys[(row_base[e] + t) * H + unit] = hq;
+      // keep[t+1] scales the h' this step hands to the next one.
+      hk[e] = kReset ? __float2bfloat16(__bfloat162float(hq) * kn[e]) : hq;
+      hreg[e] = __bfloat162float(hk[e]);
+    }
+    if (t + 1 < Tn) {
+      const __nv_bfloat162 v = __halves2bfloat162(hk[0], hk[1]);
+      const float bits = __uint_as_float(*reinterpret_cast<const uint32_t*>(&v));
+      const unsigned off = nb + (unit * R + 2 * tq) * 2;
+#pragma unroll
+      for (int p = 0; p < kWideCluster; ++p) {
+        rnn::cluster::store_async(hs_at[p] + off, bits, mb_at[p] + ((t + 1) & 1) * 8);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) xc[q][e] = xn[q][e];
+  }
+  rnn::cluster::sync();  // no CTA leaves while the cluster may still address it
+}
+
+template <bool kReset>
+int launch_fwd_wide(cudaStream_t s, const float* xp, const void* h0, const void* w_frag,
+                    const float* b_h, const float* keep, void* ys, int B, int Tn, int H) {
+  const int clusters = (B + kRows - 1) / kRows;
+  return rnn::launch_clusters(gru_forward_wide_kernel<kReset>, clusters, kWideCluster,
+                              kWideThreads, kWideFwdSmem, s, xp,
+                              static_cast<const __nv_bfloat16*>(h0),
+                              static_cast<const uint4*>(w_frag), b_h, keep,
+                              static_cast<__nv_bfloat16*>(ys), B, Tn, H);
+}
+
+// The wide reverse recurrence's shared memory (bytes), U = kWideUnits units
+// a CTA: d_hproj^T of the CTA's own gate columns [hi, lo][3 U][8] bf16 (one
+// buffer: a CTA barrier a step orders its reads and the next step's
+// writes), the partial sums of dh_prev for the CTA's units from every CTA
+// [2][kWideCluster][U][8] f32 (double-buffered), the ring of kStages stages
+// of the CTA's units' operands (as BwdSmem's, U wide: the six gate blocks
+// [6][8][U + 4] f32, h_in [8][U + 4] f32 or [8][U + 8] bf16 at byte `hin`,
+// g_ys [8][U + 8] bf16 at `gy`), then two mbarriers.
+struct WideBwdSmem {
+  int part, sp, sg, sh, recv, ring, hin, gy, stage, mbar, total;
+  __host__ __device__ explicit WideBwdSmem(int hin_bytes)
+      : part(kGates * kWideUnits * kRows), sp(kWideUnits + 4), sg(kWideUnits + 8),
+        sh(hin_bytes == 4 ? sp : sg), recv(2 * part * 2), ring(recv + 2 * kWide * kRows * 4),
+        hin(6 * kRows * sp * 4), gy(hin + kRows * sh * hin_bytes), stage(gy + kRows * sg * 2),
+        mbar(ring + kStages * stage), total(mbar + 2 * 8) {}
+};
+
+// The reverse recurrence for 128 < Hp <= 256, dh_prev^T = W_h d_hproj^T
+// (units as M, 8 rows as N, K = the 3 Hp gate columns), on a cluster of
+// kWideCluster CTAs, K split between them: CTA c owns units [c U, c U + U),
+// U = kWideUnits, computes their gate cotangents (d_hproj of its own 3 U
+// gate columns, no exchange of d_hproj), and multiplies W_h's rows of ALL
+// kWide units over those columns (A fragments [kWideCluster][16 tiles]
+// [12 k-steps][32] x 16 bytes, ops/cuda/gru.py wide_backward_fragments): 8
+// warps, each two tiles of 16 units, all 12 k-steps in registers (96 a
+// lane). Each warp stores its two tiles' partial sums (hi + lo) into the
+// owner CTA of those units (two rows an 8-byte st.async), and each CTA adds
+// the kWideCluster partials of its units in CTA order. d_hproj goes to the
+// tensor cores as hi = bf16(d) and lo = bf16(d - hi), as in the block
+// design. A step, t = T-1 .. 0: each thread's kP (unit, row) pairs (unit
+// tid / (8 / kP), kP consecutive rows) take their gate cotangents from the
+// gates computed a step ahead, write d_xp and dn_r, and d_hproj's terms
+// into shared memory; a CTA barrier; the products; the partials to their
+// owners; the next step's gates from the ring (while the exchange is in
+// flight); one thread waits for the mbarrier of this step's partials, then
+// a CTA barrier; each thread adds its pairs' partials: dh_prev = dh z + sum
+// (times keep[t]). The ring holds only the CTA's units' operands, filled by
+// cp.async two steps ahead. HT is h_in's dtype.
+template <bool kReset, typename HT>
+__global__ void __launch_bounds__(kWideThreads, 1)
+gru_backward_wide_kernel(const float* __restrict__ xp, const float* __restrict__ hp,
+                         const HT* __restrict__ h_in, const __nv_bfloat16* __restrict__ g_ys,
+                         const uint4* __restrict__ w_frag, const float* __restrict__ keep,
+                         float* __restrict__ d_xp, float* __restrict__ dn_r,
+                         float* __restrict__ dh0, int B, int Tn, int H) {
+  constexpr int R = kRows;
+  constexpr int U = kWideUnits;                // units a CTA owns: 64
+  constexpr int kKS = kGates * U / 16;         // k-steps of its gate columns: 12
+  constexpr int kP = U * R / kWideThreads;     // pairs a thread: 2
+  constexpr int kPerUnit = R / kP;             // threads a unit: 4
+  const WideBwdSmem L(sizeof(HT));
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* db = reinterpret_cast<__nv_bfloat16*>(smem);  // [hi, lo][3 U][R]
+  float* recv = reinterpret_cast<float*>(smem + L.recv);       // [2][kWideCluster][U][R]
+  uint64_t* mb = reinterpret_cast<uint64_t*>(smem + L.mbar);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int rank = static_cast<int>(rnn::cluster::rank());
+  const int b0 = static_cast<int>(rnn::cluster::id()) * R;
+  const int H3 = kGates * H;
+  // The thread's pairs: local unit ul (unit rank U + ul) of rows r0 .. r0 + kP - 1.
+  const int ul = tid / kPerUnit, r0 = (tid % kPerUnit) * kP, unit = rank * U + ul;
+  const bool unit_ok = unit < H;
+  bool row_ok[kP];
+  size_t row_base[kP];
+#pragma unroll
+  for (int i = 0; i < kP; ++i) {
+    const int b = b0 + r0 + i;
+    row_ok[i] = b < B;
+    row_base[i] = static_cast<size_t>(b) * Tn;
+  }
+
+  // W_h's rows of the warp's tiles 2 warp, 2 warp + 1 (units 32 warp ..) over
+  // this CTA's gate columns; the owner CTA of those units and their place there.
+  const uint4* wf = w_frag + (static_cast<size_t>(rank) * 16 + 2 * warp) * kKS * 32 + lane;
+  uint32_t wr[2][kKS][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kKS; ++j) rnn::load_frag(wr[i][j], wf + (i * kKS + j) * 32);
+  const int owner = 32 * warp / U, ou = 32 * warp % U;
+
+  // The ring: step t's operands of the CTA's units into a stage, by
+  // cp.async, 4 values a piece; zeros past B and H. (Nothing else needs
+  // zeros: every step writes all of d_hproj^T, every fill all of recv.)
+  auto stage_step = [&](int t, int slot) {
+    if (t >= 0) {
+      unsigned char* st = smem + L.ring + slot * L.stage;
+      for (int c = tid; c < 8 * R * (U / 4); c += kWideThreads) {
+        const int j = c / (R * (U / 4)), rem = c % (R * (U / 4));
+        const int r = rem / (U / 4), k = 4 * (rem % (U / 4));
+        const int b = b0 + r, col = rank * U + k;
+        const bool in = b < B && col < H;
+        const size_t bt = static_cast<size_t>(b) * Tn + t;
+        if (j < 6) {
+          float* dst = reinterpret_cast<float*>(st) + (j * R + r) * L.sp + k;
+          mma::cp_async16_zfill(dst, in ? (j < 3 ? xp : hp) + bt * H3 + (j % 3) * H + col : xp,
+                                in ? 16 : 0);
+        } else if (j == 6) {
+          HT* dst = reinterpret_cast<HT*>(st + L.hin) + r * L.sh + k;
+          if (sizeof(HT) == 4) {
+            mma::cp_async16_zfill(dst, in ? h_in + bt * H + col : h_in, in ? 16 : 0);
+          } else {
+            mma::cp_async8_zfill(dst, in ? h_in + bt * H + col : h_in, in ? 8 : 0);
+          }
+        } else {
+          __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(st + L.gy) + r * L.sg + k;
+          mma::cp_async8_zfill(dst, in ? g_ys + bt * H + col : g_ys, in ? 8 : 0);
+        }
+      }
+    }
+    mma::cp_async_commit();  // an empty group past t = 0 keeps the count
+  };
+  stage_step(Tn - 1, 0);
+  stage_step(Tn - 2, 1);
+
+  auto load_keep = [&](int t, float (&kv)[kP]) {
+#pragma unroll
+    for (int i = 0; i < kP; ++i) kv[i] = kReset && row_ok[i] ? keep[row_base[i] + t] : 1.0f;
+  };
+  float nk[kP];
+  load_keep(Tn - 1, nk);
+
+  // Iteration s's partials land in recv[s & 1]: kWide R floats a fill, from every CTA.
+  const unsigned fill = kWide * R * 4;
+  if (tid == 0) {
+    rnn::cluster::mbar_init(&mb[0]);
+    rnn::cluster::mbar_init(&mb[1]);
+    rnn::cluster::mbar_init_fence();
+    rnn::cluster::mbar_expect(&mb[0], fill);
+    if (Tn >= 2) rnn::cluster::mbar_expect(&mb[1], fill);
+  }
+  rnn::cluster::sync();  // every CTA running, its buffers zero and its mbarriers set
+  const unsigned recv_at = rnn::cluster::map(recv, owner) +
+                           ((rank * U + ou + gr) * R + 2 * tq) * 4;  // + slot, tile, half
+  const unsigned mb_at = rnn::cluster::map(mb, owner);
+  mma::cp_async_wait<1>();
+  __syncthreads();
+
+  // r, z, n, hn of the thread's pairs from a stage (rnn.cuh's fast gate
+  // functions, as the block design's).
+  auto gates = [&](int slot, float (&g)[kP][4]) {
+    const float* ps = reinterpret_cast<const float*>(smem + L.ring + slot * L.stage);
+    const int blk = R * L.sp;
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      const float* x = ps + (r0 + i) * L.sp + ul;
+      const float r = rnn::fast_sigmoid(x[0] + x[3 * blk]);
+      const float hn = x[5 * blk];
+      g[i][0] = r;
+      g[i][1] = rnn::fast_sigmoid(x[blk] + x[4 * blk]);
+      g[i][2] = rnn::fast_tanh(x[2 * blk] + r * hn);
+      g[i][3] = hn;
+    }
+  };
+  float gt[kP][4];
+  gates(0, gt);
+
+  float carry[kP];
+#pragma unroll
+  for (int i = 0; i < kP; ++i) carry[i] = 0.0f;
+  // lanes 0-15 address hi's k rows 0-15 of a k-step, lanes 16-31 lo's.
+  const __nv_bfloat16* dk = db + (lane & 15) * R + (lane >> 4) * L.part;
+  for (int t = Tn - 1, s = 0; t >= 0; --t, ++s) {
+    stage_step(t - 2, (s + 2) % kStages);
+    float ck[kP];
+#pragma unroll
+    for (int i = 0; i < kP; ++i) ck[i] = nk[i];
+    if (t > 0) load_keep(t - 1, nk);
+    const unsigned char* st = smem + L.ring + (s % kStages) * L.stage;
+    const HT* hs = reinterpret_cast<const HT*>(st + L.hin);
+    const __nv_bfloat16* gs = reinterpret_cast<const __nv_bfloat16*>(st + L.gy);
+
+    float dhz[kP], dq[kGates][kP];
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      const int row = r0 + i;
+      const float rv = gt[i][0], zv = gt[i][1], nv = gt[i][2], hnv = gt[i][3];
+      const float hin = to_f(hs[row * L.sh + ul]);
+      const float dh = carry[i] + __bfloat162float(gs[row * L.sg + ul]);
+      const float dpre_n = dh * (1.0f - zv) * (1.0f - nv * nv);
+      const float dpre_z = dh * (hin - nv) * zv * (1.0f - zv);
+      const float dpre_r = dpre_n * hnv * rv * (1.0f - rv);
+      dq[0][i] = dpre_r;
+      dq[1][i] = dpre_z;
+      dq[2][i] = dpre_n * rv;
+      if (unit_ok && row_ok[i]) {
+        float* out = d_xp + (row_base[i] + t) * H3 + unit;
+        out[0] = dpre_r;
+        out[H] = dpre_z;
+        out[2 * H] = dpre_n;
+        dn_r[(row_base[i] + t) * H + unit] = dq[2][i];
+      }
+      dhz[i] = dh * zv;
+    }
+    // d_hproj split for the product: hi = bf16(d), lo = bf16(d - hi), two rows a word.
+#pragma unroll
+    for (int q = 0; q < kGates; ++q)
+#pragma unroll
+      for (int i = 0; i < kP; i += 2) {
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(dq[q][i], dq[q][i + 1]);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(dq[q][i] - __low2float(hi),
+                                                       dq[q][i + 1] - __high2float(hi));
+        __nv_bfloat16* row = db + (q * U + ul) * R + r0 + i;
+        *reinterpret_cast<__nv_bfloat162*>(row) = hi;
+        *reinterpret_cast<__nv_bfloat162*>(row + L.part) = lo;
+      }
+    mma::cp_async_wait<1>();  // step t-1's operands have landed (this thread's)
+    __syncthreads();          // ... everyone's, and d_hproj^T is whole
+
+    // Four independent chains (two tiles, hi and lo); B fragments a k-step ahead.
+    float acc[2][2][4] = {};
+    uint32_t bq[2][4];
+    mma::ldmatrix_x4_trans(bq[0], dk);
+#pragma unroll
+    for (int j = 0; j < kKS; ++j) {
+      if (j + 1 < kKS) mma::ldmatrix_x4_trans(bq[(j + 1) & 1], dk + 16 * (j + 1) * R);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mma::bf16_16x8x16(acc[i][0], wr[i][j], bq[j & 1][0], bq[j & 1][1]);
+        mma::bf16_16x8x16(acc[i][1], wr[i][j], bq[j & 1][2], bq[j & 1][3]);
+      }
+    }
+    // This CTA's partial sums of the warp's 32 units into their owner.
+    const unsigned slot = (s & 1) * kWideCluster * U * R * 4;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        store_async2(recv_at + slot + (16 * i + 8 * m) * R * 4,
+                     acc[i][0][2 * m] + acc[i][1][2 * m],
+                     acc[i][0][2 * m + 1] + acc[i][1][2 * m + 1], mb_at + (s & 1) * 8);
+      }
+    // Step t-1's gates (its stage landed before this step's barrier), while
+    // the partials are in flight.
+    if (t > 0) gates((s + 1) % kStages, gt);
+    if (tid == 0) {  // every CTA's partials of this step: fill s >> 1 of buffer s & 1
+      rnn::cluster::mbar_wait(&mb[s & 1], (s >> 1) & 1);
+      if (s + 2 < Tn) rnn::cluster::mbar_expect(&mb[s & 1], fill);
+    }
+    __syncthreads();
+    const float* got = recv + (s & 1) * kWideCluster * U * R + ul * R + r0;
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      float sum = got[i];
+#pragma unroll
+      for (int c = 1; c < kWideCluster; ++c) sum += got[c * U * R + i];
+      carry[i] = dhz[i] + sum;
+      if (kReset) carry[i] *= ck[i];  // dh_prev *= keep[t]
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kP; ++i) {
+    if (unit_ok && row_ok[i]) dh0[static_cast<size_t>(b0 + r0 + i) * H + unit] = carry[i];
+  }
+  mma::cp_async_wait<0>();  // no copy outlives the block
+  rnn::cluster::sync();
+}
+
+template <bool kReset, typename HT>
+int launch_bwd_wide(size_t smem, cudaStream_t s, const float* xp, const float* hp,
+                    const void* h_in, const void* g_ys, const void* w_frag, const float* keep,
+                    float* d_xp, float* dn_r, float* dh0, int B, int Tn, int H) {
+  const int clusters = (B + kRows - 1) / kRows;
+  return rnn::launch_clusters(gru_backward_wide_kernel<kReset, HT>, clusters, kWideCluster,
+                              kWideThreads, smem, s, xp, hp, static_cast<const HT*>(h_in),
+                              static_cast<const __nv_bfloat16*>(g_ys),
+                              static_cast<const uint4*>(w_frag), keep, d_xp, dn_r, dh0, B, Tn,
+                              H);
 }
 
 }  // namespace
@@ -1166,15 +1664,16 @@ int seqrec_gru_xproj(const void* x, const void* w_x, const void* b_x, void* xp,
   return rnn::launch_xproj(x, w_x, b_x, xp, M, D, N3, static_cast<cudaStream_t>(stream));
 }
 
-// The bf16 recurrence on tensor cores. xp [B, T, 3H] float (the input
-// projection, b_x included), h0 [B, H] and w_h [H, 3H] bf16, b_h [3H] float,
-// keep [B, T] float (1 - reset) or null, ys [B, T, H] bf16; contiguous,
-// 16-byte aligned; H % 4 == 0, H <= 256. smem_bytes (the h double buffer,
-// 2 Hp 8 bf16) as the caller computed it, checked again here.
+// The bf16 recurrence on tensor cores, one block of 8 rows (Hp <= 128).
+// xp [B, T, 3H] float (the input projection, b_x included), h0 [B, H] and
+// w_h [H, 3H] bf16, b_h [3H] float, keep [B, T] float (1 - reset) or null,
+// ys [B, T, H] bf16; contiguous, 16-byte aligned; H % 4 == 0, H <= 128.
+// smem_bytes (the h double buffer, 2 Hp 8 bf16) as the caller computed it,
+// checked again here.
 int seqrec_gru_forward_mma(const void* xp, const void* h0, const void* w_h,
                            const void* b_h, const void* keep, void* ys, int B,
                            int Tn, int H, long long smem_bytes, void* stream) {
-  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0) {
+  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxMmaBlock || H % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int hp = 16 * ((H + 15) / 16);
@@ -1188,6 +1687,27 @@ int seqrec_gru_forward_mma(const void* xp, const void* h0, const void* w_h,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return kp == nullptr ? launch_mma<false>(x, h0, w_h, bh, kp, ys, B, Tn, H, smem, s)
                        : launch_mma<true>(x, h0, w_h, bh, kp, ys, B, Tn, H, smem, s);
+}
+
+// The bf16 recurrence above Hp = 128, on clusters of kWideCluster CTAs of
+// kWideThreads threads, a cluster 8 batch rows. xp, h0, b_h, keep and ys
+// as seqrec_gru_forward_mma's; w_frag W_h^T's packed A fragments
+// [16][16][3][32] x 16 bytes (units and k padded to 256); 128 < H <= 256,
+// H % 4 == 0. smem_bytes (kWideFwdSmem) as the caller computed it, checked
+// again here.
+int seqrec_gru_forward_wide(const void* xp, const void* h0, const void* w_frag,
+                            const void* b_h, const void* keep, void* ys, int B, int Tn, int H,
+                            long long smem_bytes, void* stream) {
+  if (B <= 0 || Tn <= 0 || H <= kMaxMmaBlock || H > kMaxHidden || H % 4 != 0 ||
+      smem_bytes != kWideFwdSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* x = static_cast<const float*>(xp);
+  const float* bh = static_cast<const float*>(b_h);
+  const float* kp = static_cast<const float*>(keep);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return kp == nullptr ? launch_fwd_wide<false>(s, x, h0, w_frag, bh, kp, ys, B, Tn, H)
+                       : launch_fwd_wide<true>(s, x, h0, w_frag, bh, kp, ys, B, Tn, H);
 }
 
 // The f32 reverse recurrence on thread block clusters, the gate recompute
@@ -1236,18 +1756,18 @@ int seqrec_gru_backward(const void* xp, const void* hp, const void* h_in, const 
 }
 
 // The bf16-weight reverse recurrence on tensor cores, the gate recompute
-// folded in. xp, hp [B, T, 3H] float (x W_x + b_x and h_in W_h + b_h);
-// h_in [B, T, H] of hin_dtype (0 = float, 1 = bf16); g_ys [B, T, H] bf16;
-// w_frag W_h's packed A fragments [Hp/16][3 Hp/16][32] x 16 bytes
-// (Hp = 16 ceil(H / 16)); keep [B, T] float (1 - reset) or null; d_xp
-// [B, T, 3H], dn_r [B, T, H] and dh0 [B, H] float. All contiguous, 16-byte
-// aligned; H % 4 == 0, H <= 256. smem_bytes (BwdSmem) as the caller
-// computed it, checked again here.
+// folded in, one block of 8 rows (Hp <= 128). xp, hp [B, T, 3H] float
+// (x W_x + b_x and h_in W_h + b_h); h_in [B, T, H] of hin_dtype (0 = float,
+// 1 = bf16); g_ys [B, T, H] bf16; w_frag W_h's packed A fragments
+// [Hp/16][3 Hp/16][32] x 16 bytes (Hp = 16 ceil(H / 16)); keep [B, T] float
+// (1 - reset) or null; d_xp [B, T, 3H], dn_r [B, T, H] and dh0 [B, H]
+// float. All contiguous, 16-byte aligned; H % 4 == 0, H <= 128. smem_bytes
+// (BwdSmem) as the caller computed it, checked again here.
 int seqrec_gru_backward_mma(const void* xp, const void* hp, const void* h_in,
                             const void* g_ys, const void* w_frag, const void* keep,
                             void* d_xp, void* dn_r, void* dh0, int B, int Tn, int H,
                             int hin_dtype, long long smem_bytes, void* stream) {
-  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxHidden || H % 4 != 0 ||
+  if (B <= 0 || Tn <= 0 || H <= 0 || H > kMaxMmaBlock || H % 4 != 0 ||
       (hin_dtype != 0 && hin_dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1270,6 +1790,41 @@ int seqrec_gru_backward_mma(const void* xp, const void* hp, const void* h_in,
   return kp == nullptr
              ? launch_bwd_mma<false, __nv_bfloat16>(x, hpr, h_in, g_ys, w_frag, kp, dxp, dnr, dh, B, Tn, H, smem, s)
              : launch_bwd_mma<true, __nv_bfloat16>(x, hpr, h_in, g_ys, w_frag, kp, dxp, dnr, dh, B, Tn, H, smem, s);
+}
+
+// The bf16-weight reverse recurrence above Hp = 128, on clusters of
+// kWideCluster CTAs of kWideThreads threads, a cluster 8 batch rows.
+// Operands as seqrec_gru_backward_mma's but w_frag: W_h's packed A
+// fragments [4][16][12][32] x 16 bytes (units and gate columns padded to
+// 256); 128 < H <= 256, H % 4 == 0. smem_bytes (WideBwdSmem) as the caller
+// computed it, checked again here.
+int seqrec_gru_backward_wide(const void* xp, const void* hp, const void* h_in,
+                             const void* g_ys, const void* w_frag, const void* keep,
+                             void* d_xp, void* dn_r, void* dh0, int B, int Tn, int H,
+                             int hin_dtype, long long smem_bytes, void* stream) {
+  if (B <= 0 || Tn <= 0 || H <= kMaxMmaBlock || H > kMaxHidden || H % 4 != 0 ||
+      (hin_dtype != 0 && hin_dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = WideBwdSmem(hin_dtype == 0 ? 4 : 2).total;
+  if (static_cast<long long>(smem) != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* x = static_cast<const float*>(xp);
+  const float* hpr = static_cast<const float*>(hp);
+  const float* kp = static_cast<const float*>(keep);
+  float* dxp = static_cast<float*>(d_xp);
+  float* dnr = static_cast<float*>(dn_r);
+  float* dh = static_cast<float*>(dh0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hin_dtype == 0) {
+    return kp == nullptr
+               ? launch_bwd_wide<false, float>(smem, s, x, hpr, h_in, g_ys, w_frag, kp, dxp, dnr, dh, B, Tn, H)
+               : launch_bwd_wide<true, float>(smem, s, x, hpr, h_in, g_ys, w_frag, kp, dxp, dnr, dh, B, Tn, H);
+  }
+  return kp == nullptr
+             ? launch_bwd_wide<false, __nv_bfloat16>(smem, s, x, hpr, h_in, g_ys, w_frag, kp, dxp, dnr, dh, B, Tn, H)
+             : launch_bwd_wide<true, __nv_bfloat16>(smem, s, x, hpr, h_in, g_ys, w_frag, kp, dxp, dnr, dh, B, Tn, H);
 }
 
 const char* seqrec_gru_error_string(int code) {

@@ -7,7 +7,8 @@ launched at :177) and its custom VJP `_gru_core_bwd`, both variants: without
 a reset mask, and with one (session-parallel training), where a keep plane
 `1 - reset` [B, T] f32 goes to both kernels. The two variants count their
 launches apart: `gru_scan.launches` / `gru_scan.reset_launches`, and the
-same two on `gru_backward`.
+same two on `gru_backward`; each also counts its launches of the cluster
+layout above Hp = 128 (either variant) in `.wide_launches`.
 
 Forward, two hand-written designs chosen by dtype (each computes the whole
 function in its own numerics; neither gives way to the other):
@@ -22,7 +23,12 @@ function in its own numerics; neither gives way to the other):
   padded unit stays 0); Hp / 16 warps each own 16 units of every gate, so a
   lane holds the r, z and n sums of its own (unit, row) pairs; W_h^T's
   fragments stay in registers for the whole scan up to Hp = 128. One
-  barrier a step; the step's latency times T binds.
+  barrier a step; the step's latency times T binds. Above Hp = 128 W_h^T
+  (384 KB at H = 256) fits no SM, so a thread block cluster of
+  WIDE_CLUSTER CTAs owns the 8 rows, each CTA a quarter of the units with
+  its slice of W_h^T in registers (`forward_fragments`), and the new h goes
+  to every CTA through distributed shared memory (`st.async`, an mbarrier
+  a buffer).
 - f32 (`design` "cluster"): f32 FMAs on the CUDA cores (TF32 tensor cores
   would keep ~3 digits, not the f32 products of the contract). The
   projection goes off the serial chain here too, as a persistent f32 SIMT
@@ -49,7 +55,12 @@ by W_h's dtype:
   r, z, n and hn from the two projections itself, a step ahead, and writes
   the n-block of d_hproj beside d_xp. d_hproj is f32 in the contract, so it goes to the
   tensor cores as two bf16 terms, hi = bf16(d) and lo = bf16(d - hi); W_h's
-  fragments are packed here (`backward_fragments`).
+  fragments are packed here (`backward_fragments`). Above Hp = 128, a
+  cluster of WIDE_CLUSTER CTAs splits K: each CTA computes the
+  cotangents of its units and multiplies W_h's rows of all units over its
+  own gate columns (`wide_backward_fragments`, in registers), and the
+  partial sums of dh_prev go to the units' owners through distributed
+  shared memory.
 - f32 weights (`design` "cluster", both variants): the f32 LSTM reverse
   recurrence's design with three gates, on thread block clusters (W_h's rows
   of a CTA's units in its shared memory, each step's d_hproj pushed to every
@@ -85,7 +96,13 @@ plain_backward = reference.gru_bwd_fused
 SMEM_LIMIT = 232_448
 MAX_HIDDEN = 256  # kMaxHidden in csrc/gru.cu
 PROJ_TILE = 64  # kProjTile in csrc/gru.cu: rows and columns of an xp tile
-WH_REG_LIMIT = 128  # Hp up to which the bf16 scan holds W_h in registers
+WH_REG_LIMIT = 128  # Hp up to which a bf16 recurrence runs in one block, W_h in registers
+# The bf16 recurrences above WH_REG_LIMIT (csrc/gru.cu, the cluster layouts):
+WIDE = 256  # kWide: units and k (and gate columns) padded to this width
+WIDE_THREADS = 256  # kWideThreads: 8 warps a CTA
+# kWideCluster: CTAs a cluster, each WIDE / 4 = 64 units with every fragment
+# in registers (4 CTAs ran 31-39% faster than 2 on an H100, PERF.md).
+WIDE_CLUSTER = 4
 MMA_ROWS = 8  # kRows in csrc/rnn.cuh: batch rows a bf16 recurrence block, one n8 tile
 RING_STAGES = 3  # kStages in csrc/rnn.cuh: per-step operands staged this deep
 # The f32 cluster recurrences (csrc/rnn.cuh): a cluster of C CTAs owns R rows.
@@ -127,6 +144,11 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     mma.restype = ctypes.c_int
+    wide = lib.seqrec_gru_forward_wide
+    wide.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    wide.restype = ctypes.c_int
     bwd = lib.seqrec_gru_backward
     bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
         ctypes.c_longlong, ctypes.c_void_p,
@@ -137,6 +159,11 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     bwd_mma.restype = ctypes.c_int
+    bwd_wide = lib.seqrec_gru_backward_wide
+    bwd_wide.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+        ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    bwd_wide.restype = ctypes.c_int
     lib.seqrec_gru_error_string.argtypes = [ctypes.c_int]
     lib.seqrec_gru_error_string.restype = ctypes.c_char_p
     return lib
@@ -231,13 +258,19 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
 
     bf16 ("mma.sync"): the projection's grid of 64 x 64 xp tiles, then the
     scan: 8 batch rows a block, the N of each mma (one n8 tile), Hp = 16
-    ceil(H / 16) and Hp / 16 warps, W_h^T's fragments in registers up to
-    Hp = 128 (read from global memory above), and the h double buffer
-    [2][Hp][8] bf16 (unit-major) in shared memory. The latency of a step
-    binds, and it grows with the rows a block computes: an H100 sweep at
-    B=64 and 128, T=200, D=H=128 and at B=256, T=50, D=H=100 found 8 rows
-    1.5-1.8x faster than 16 (PERF.md), so the design has no other choice;
-    `rows_per_cluster` and `cluster_size` are the f32 design's alone.
+    ceil(H / 16) and Hp / 16 warps, W_h^T's fragments in registers, and the
+    h double buffer [2][Hp][8] bf16 (unit-major) in shared memory, up to
+    Hp = WH_REG_LIMIT. The latency of a step binds, and it grows with the
+    rows a block computes: an H100 sweep at B=64 and 128, T=200, D=H=128
+    and at B=256, T=50, D=H=100 found 8 rows 1.5-1.8x faster than 16
+    (PERF.md), so the design has no other choice; `rows_per_cluster` and
+    `cluster_size` are the f32 design's alone. Above Hp = WH_REG_LIMIT
+    (`layout` "cluster"): the 8 rows go to a cluster of WIDE_CLUSTER CTAs
+    of WIDE_THREADS threads, units and k padded to WIDE, each CTA WIDE /
+    WIDE_CLUSTER units of all three gates with their W_h^T fragments in
+    registers (two warps a 16-unit tile, each over half of K, the halves
+    added through shared memory), h^T's two buffers [2][WIDE][8] bf16 and
+    two mbarriers.
 
     f32 ("cluster"): the persistent projection (`xproj_f32_grid` CTAs of
     F32_PROJ_THREADS threads over 64 x 128 xp tiles, f32 FMAs), then the
@@ -261,6 +294,11 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
                              f"bf16 takes {MMA_ROWS} rows a block")
         R = MMA_ROWS
         hp = 16 * -(-H // 16)
+        if hp > WH_REG_LIMIT:
+            return {**_wide_layout(B, hp), "k_split": 2, "wh_in_regs": 1,
+                    "smem_bytes": _wide_forward_smem(),
+                    "xproj_grid": [-(-(B * T) // PROJ_TILE), -(-(3 * H) // PROJ_TILE)],
+                    "xproj_threads": 128}
         return {
             "design": "mma.sync",
             "grid": -(-B // R),
@@ -279,15 +317,45 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
             "xproj_grid": [xproj_f32_grid(B * T, 3 * H)], "xproj_threads": F32_PROJ_THREADS}
 
 
+def _wide_layout(B: int, hp: int) -> Dict:
+    """What the bf16 cluster layouts share: a cluster of WIDE_CLUSTER CTAs a
+    block of MMA_ROWS rows, WIDE / WIDE_CLUSTER units a CTA."""
+    clusters = -(-B // MMA_ROWS)
+    return {"design": "mma.sync", "layout": "cluster", "cluster_size": WIDE_CLUSTER,
+            "clusters": clusters, "grid": clusters * WIDE_CLUSTER, "threads": WIDE_THREADS,
+            "rows_per_block": MMA_ROWS, "hidden_padded": hp, "width_padded": WIDE,
+            "units_per_cta": WIDE // WIDE_CLUSTER}
+
+
+def _wide_forward_smem() -> int:
+    """kWideFwdSmem in csrc/gru.cu: h^T's buffers [2][WIDE][8] bf16, the K
+    halves' partial sums [4 tiles][2][6][32] f32 and two mbarriers."""
+    return 2 * WIDE * MMA_ROWS * 2 + 4 * 2 * 6 * 32 * 4 + 16
+
+
+def _ring_stage(width: int, h_in_bytes: int) -> int:
+    """One ring stage of the bf16 reverse recurrences: the two projections'
+    six gate blocks [6][8][width + 4] f32, h_in [8][width + 4] f32 or
+    [8][width + 8] bf16 and g_ys [8][width + 8] bf16."""
+    h_row = width + 4 if h_in_bytes == 4 else width + 8
+    return (6 * MMA_ROWS * (width + 4) * 4 + MMA_ROWS * h_row * h_in_bytes
+            + MMA_ROWS * (width + 8) * 2)
+
+
 def _backward_smem(hp: int, h_in_bytes: int) -> int:
     """BwdSmem in csrc/gru.cu: the d_hproj^T double buffer [2][hi, lo][3 Hp][8]
-    bf16 (one buffer above Hp = WH_REG_LIMIT), then RING_STAGES stages of the
-    two projections' six gate blocks [6][8][Hp + 4] f32, h_in [8][Hp + 4]
-    f32 or [8][Hp + 8] bf16 and g_ys [8][Hp + 8] bf16."""
-    h_row = hp + 4 if h_in_bytes == 4 else hp + 8
-    stage = 6 * MMA_ROWS * (hp + 4) * 4 + MMA_ROWS * h_row * h_in_bytes + MMA_ROWS * (hp + 8) * 2
-    buffers = 2 if hp <= WH_REG_LIMIT else 1
-    return buffers * 2 * 3 * hp * MMA_ROWS * 2 + RING_STAGES * stage
+    bf16, then RING_STAGES stages (`_ring_stage`, Hp wide)."""
+    return 2 * 2 * 3 * hp * MMA_ROWS * 2 + RING_STAGES * _ring_stage(hp, h_in_bytes)
+
+
+def _wide_backward_smem(h_in_bytes: int) -> int:
+    """WideBwdSmem in csrc/gru.cu, U = WIDE / WIDE_CLUSTER: d_hproj^T of the
+    CTA's gate columns [hi, lo][3 U][8] bf16, the partial sums
+    [2][WIDE_CLUSTER][U][8] f32, RING_STAGES stages (`_ring_stage`, U wide)
+    and two mbarriers."""
+    U = WIDE // WIDE_CLUSTER
+    return (2 * 3 * U * MMA_ROWS * 2 + 2 * WIDE * MMA_ROWS * 4
+            + RING_STAGES * _ring_stage(U, h_in_bytes) + 16)
 
 
 def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
@@ -298,15 +366,20 @@ def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
 
     bf16 ("mma.sync"): the forward's blocks of 8 rows and padding (Hp = 16
     ceil(H / 16), Hp / 16 warps, each its own m16 tile of units over all of
-    K = 3 Hp, the gate columns). W_h's fragments in registers up to
-    Hp = 128; in shared memory the d_hproj^T double buffer
-    [2][hi, lo][3 Hp][8] bf16 (one buffer and a second barrier a step above
-    Hp = 128, the generic design) and a ring of RING_STAGES stages of the
+    K = 3 Hp, the gate columns), up to Hp = WH_REG_LIMIT: W_h's fragments
+    in registers; in shared memory the d_hproj^T double buffer
+    [2][hi, lo][3 Hp][8] bf16 and a ring of RING_STAGES stages of the
     step's two projections (the gates are recomputed from them a step
     ahead), h_in (in `h_in_dtype`: bf16, or f32 on the keep path) and g_ys,
     which cp.async fills two steps ahead of their use. d_hproj goes to the
     tensor cores as two bf16 terms (`d_terms`). `rows_per_cluster` and
-    `cluster_size` are the f32 design's alone.
+    `cluster_size` are the f32 design's alone. Above Hp = WH_REG_LIMIT
+    (`layout` "cluster"): a cluster of WIDE_CLUSTER CTAs of WIDE_THREADS
+    threads, K split between them: each CTA computes the cotangents of its
+    U = WIDE / WIDE_CLUSTER units and multiplies W_h's rows of all WIDE
+    units over its own 3 U gate columns (8 warps, two 16-unit tiles each,
+    every fragment in registers), the partial sums of dh_prev going to the
+    units' owners; its ring holds only its units' operands.
 
     f32 ("cluster"): thread block clusters (`cluster_config` with K = 3H,
     the step's d_hproj, in GRU_BWD_CLUSTERS' order; at H=256 W_h's rows of
@@ -322,9 +395,13 @@ def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
         if rows_per_cluster is not None or cluster_size is not None:
             raise ValueError(f"gru: rows_per_cluster and cluster_size are the f32 design's; "
                              f"bf16 takes {MMA_ROWS} rows a block")
+        hp = 16 * -(-H // 16)
         if h_in_dtype not in _DTYPE_CODE:
             raise ValueError(f"gru backward: h_in dtype {h_in_dtype} not in float32/bfloat16")
-        hp = 16 * -(-H // 16)
+        h_bytes = torch.empty((), dtype=h_in_dtype).element_size()
+        if hp > WH_REG_LIMIT:
+            return {**_wide_layout(B, hp), "w_in_regs": 1, "d_terms": 2,
+                    "smem_bytes": _wide_backward_smem(h_bytes)}
         return {
             "design": "mma.sync",
             "grid": -(-B // MMA_ROWS),
@@ -333,7 +410,7 @@ def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
             "hidden_padded": hp,
             "w_in_regs": int(hp <= WH_REG_LIMIT),
             "d_terms": 2,
-            "smem_bytes": _backward_smem(hp, torch.empty((), dtype=h_in_dtype).element_size()),
+            "smem_bytes": _backward_smem(hp, h_bytes),
         }
     return cluster_config(B, H, 3 * H, BWD_UNITS, BWD_OPERANDS, cluster_size, rows_per_cluster,
                           GRU_BWD_CLUSTERS, "gru backward", unit_block=BWD_UNITS)
@@ -359,6 +436,36 @@ def backward_fragments(w_h: torch.Tensor) -> torch.Tensor:
         w = torch.nn.functional.pad(w, (0, hp - H, 0, 0, 0, hp - H))
     w = w.reshape(mt, 2, 8, 3 * mt, 2, 4, 2)  # tile, mh, g, st, kh, q, pair
     return w.permute(0, 3, 2, 5, 4, 1, 6).reshape(mt, 3 * mt, 32, 8)
+
+
+def forward_fragments(w_h: torch.Tensor) -> torch.Tensor:
+    """W_h [H, 3H] -> [16, 16, 3, 32, 8] bf16: the bf16 cluster forward's A
+    operand, W_h^T of each gate (A_q[unit][k] = W_h[k, q H + unit]) with
+    units and k padded to WIDE (zero past H), as fragments [16-unit tile]
+    [k-step][gate][lane]: a lane reads a fragment in one 16-byte load. One
+    copy."""
+    H = w_h.shape[0]
+    w = w_h.to(torch.bfloat16).reshape(H, 3, H)  # k, gate, unit
+    w = torch.nn.functional.pad(w, (0, WIDE - H, 0, 0, 0, WIDE - H))
+    a = w.permute(1, 2, 0)  # gate, unit, k
+    a = a.reshape(3, WIDE // 16, 2, 8, WIDE // 16, 2, 4, 2)  # gate, tile, mh, g, st, kh, q, pair
+    return a.permute(1, 4, 0, 3, 6, 5, 2, 7).reshape(WIDE // 16, WIDE // 16, 3, 32, 8)
+
+
+def wide_backward_fragments(w_h: torch.Tensor) -> torch.Tensor:
+    """W_h [H, 3H] -> [C, 16, 3 U / 16, 32, 8] bf16 (C = WIDE_CLUSTER,
+    U = WIDE / C): the bf16 cluster reverse recurrence's A operand. CTA c
+    multiplies W_h's rows of all WIDE units over its own gate columns, local
+    column q U + j being W_h's q H + c U + j (zero past H, and rows past H),
+    as fragments [CTA][16-unit tile][k-step][lane]. One copy."""
+    H = w_h.shape[0]
+    C, U = WIDE_CLUSTER, WIDE // WIDE_CLUSTER
+    w = w_h.to(torch.bfloat16).reshape(H, 3, H)  # unit, gate, column
+    w = torch.nn.functional.pad(w, (0, WIDE - H, 0, 0, 0, WIDE - H))
+    w = w.reshape(WIDE, 3, C, U).permute(2, 0, 1, 3)  # CTA, unit, gate, column
+    ks = 3 * U // 16
+    w = w.reshape(C, WIDE // 16, 2, 8, ks, 2, 4, 2)  # CTA, tile, mh, g, st, kh, q, pair
+    return w.permute(0, 1, 4, 3, 6, 5, 2, 7).reshape(C, WIDE // 16, ks, 32, 8)
 
 
 def _check_operands(args, dev) -> None:
@@ -449,7 +556,15 @@ def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None) -> torch.Tensor:
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     keep_ptr = None if keep is None else keep.data_ptr()
-    if cfg["design"] == "mma.sync":
+    if cfg.get("layout") == "cluster":
+        xp = gru_input_projection(x, w_x, b_x)
+        args = [xp, h0.contiguous(), forward_fragments(w_h), b_h.contiguous()]
+        _check_operands(args + ([] if keep is None else [keep]), dev)
+        with torch.cuda.device(dev):
+            rc = lib.seqrec_gru_forward_wide(
+                *(a.data_ptr() for a in args), keep_ptr, ys.data_ptr(), B, T, H,
+                cfg["smem_bytes"], stream)
+    elif cfg["design"] == "mma.sync":
         xp = gru_input_projection(x, w_x, b_x)
         args = [xp] + [t.contiguous() for t in (h0, w_h, b_h)]
         _check_operands(args + ([] if keep is None else [keep]), dev)
@@ -472,6 +587,8 @@ def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None) -> torch.Tensor:
         gru_scan.launches += 1
     else:
         gru_scan.reset_launches += 1
+    if cfg.get("layout") == "cluster":
+        gru_scan.wide_launches += 1
     return ys
 
 
@@ -509,13 +626,18 @@ def gru_backward(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     if cfg["design"] == "mma.sync":
+        wide = cfg.get("layout") == "cluster"
+        frags = wide_backward_fragments(w_h) if wide else backward_fragments(w_h)
         args = [x_proj.float().contiguous(), h_proj.float().contiguous(), h_in.contiguous(),
-                g_ys.to(torch.bfloat16).contiguous(), backward_fragments(w_h)]
+                g_ys.to(torch.bfloat16).contiguous(), frags]
         _check_operands(args + ([] if keep is None else [keep]), dev)
+        ptrs = [a.data_ptr() for a in args] + [keep_ptr, d_xp.data_ptr(), dn_r.data_ptr(),
+                                               dh0.data_ptr(), B, T, H, _DTYPE_CODE[h_in.dtype]]
         with torch.cuda.device(dev):
-            rc = lib.seqrec_gru_backward_mma(
-                *(a.data_ptr() for a in args), keep_ptr, d_xp.data_ptr(), dn_r.data_ptr(),
-                dh0.data_ptr(), B, T, H, _DTYPE_CODE[h_in.dtype], cfg["smem_bytes"], stream)
+            if wide:
+                rc = lib.seqrec_gru_backward_wide(*ptrs, cfg["smem_bytes"], stream)
+            else:
+                rc = lib.seqrec_gru_backward_mma(*ptrs, cfg["smem_bytes"], stream)
     else:
         args = [t.float().contiguous() for t in (x_proj, h_proj, h_in, g_ys, w_h)]
         _check_operands(args + ([] if keep is None else [keep]), dev)
@@ -530,11 +652,14 @@ def gru_backward(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
         gru_backward.launches += 1
     else:
         gru_backward.reset_launches += 1
+    if cfg.get("layout") == "cluster":
+        gru_backward.wide_launches += 1
     return d_xp, dh0, dn_r
 
 
 gru_backward.launches = 0
 gru_backward.reset_launches = 0
+gru_backward.wide_launches = 0
 
 
 class _GRUScan(torch.autograd.Function):
@@ -600,3 +725,4 @@ def gru_scan(
 
 gru_scan.launches = 0
 gru_scan.reset_launches = 0
+gru_scan.wide_launches = 0

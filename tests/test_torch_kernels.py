@@ -530,6 +530,97 @@ def test_gru_bf16_backward_kernel_padding_and_ragged_rows(cuda, T, H, with_keep)
         assert not bool(k_gru.gru_backward(*planes, keep)[1].any())
 
 
+WIDE_SHAPES = [(H, B, T) for H in (136, 200, 256) for B in (3, 64, 128) for T in (1, 10, 50)]
+
+
+@pytest.mark.parametrize("with_reset", [False, True])
+@pytest.mark.parametrize("H,B,T", WIDE_SHAPES)
+def test_gru_bf16_wide_forward_matches_plain_twice(cuda, H, B, T, with_reset):
+    """The bf16 forward above Hp = 128 (clusters of 4 CTAs, W_h^T split by
+    units, h exchanged through distributed shared memory): widths padded to
+    256 from 136 and 200, a ragged cluster (B = 3), serving's B = 64 and
+    training's B = 128, one step and beauty's buckets. Within the bf16
+    tolerance of the plain version, and two launches agree bit for bit."""
+    args = _gru_args(B, T, H, H, torch.bfloat16, cuda, seed=H + B + T)
+    reset = _reset_plane(B, T, cuda, seed=H) if with_reset else None
+    assert k_gru.launch_config(B, T, H, H, torch.bfloat16)["layout"] == "cluster"
+    counter = "reset_launches" if with_reset else "launches"
+    before = [getattr(k_gru.gru_scan, c) for c in (counter, "wide_launches")]
+    ys = k_gru.gru_scan(*args, reset_mask=reset)[0]
+    again = k_gru.gru_scan(*args, reset_mask=reset)[0]
+    torch.cuda.synchronize()
+    assert [getattr(k_gru.gru_scan, c) for c in (counter, "wide_launches")] == [
+        n + 2 for n in before]
+    assert torch.equal(ys, again)
+    want, _ = k_gru.plain(*args, reset_mask=reset)
+    torch.testing.assert_close(ys.float(), want.float(), rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("with_keep", [False, True])
+@pytest.mark.parametrize("h_in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,B,T", WIDE_SHAPES)
+def test_gru_bf16_wide_backward_matches_plain_twice(cuda, H, B, T, h_in_dtype, with_keep):
+    """The bf16-weight reverse recurrence above Hp = 128 (clusters of 4 CTAs,
+    K split between them, the partial sums of dh_prev exchanged through
+    distributed shared memory), h_in in bf16 or f32, with and without a keep
+    plane: d_xp, dh0 and dn_r within 1e-4 of the plain f32 loop relative to
+    their largest values, and two launches bit for bit."""
+    x_proj, h_proj, h_in, g, w_h = _gate_planes(B, T, H, torch.bfloat16, cuda, seed=H + B + T)
+    keep = (1.0 - _reset_plane(B, T, cuda, seed=H))[:, :, None] if with_keep else None
+    h_in = h_in.to(h_in_dtype) if keep is None else (h_in.float() * keep).to(h_in_dtype)
+    planes = (x_proj, h_proj, h_in, g, w_h)
+    assert k_gru.backward_launch_config(B, T, H, w_h.dtype, h_in_dtype=h_in_dtype)[
+        "layout"] == "cluster"
+    counter = "launches" if keep is None else "reset_launches"
+    before = [getattr(k_gru.gru_backward, c) for c in (counter, "wide_launches")]
+    got = k_gru.gru_backward(*planes, keep)
+    again = k_gru.gru_backward(*planes, keep)
+    torch.cuda.synchronize()
+    assert [getattr(k_gru.gru_backward, c) for c in (counter, "wide_launches")] == [
+        n + 2 for n in before]
+    for name, a, b, c in zip(("d_xp", "dh0", "dn_r"), got, again,
+                             k_gru.plain_backward(*planes, keep)):
+        assert torch.equal(a, b), name
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4 * c.abs().max().item(), msg=name)
+
+
+def test_gru_bf16_wide_autograd_at_beauty_matches_plain(cuda):
+    """gru_scan's autograd end to end at configs/beauty_gru.json's step (B=128,
+    T=50, D=H=256, bf16): one forward and one reverse launch, each gradient
+    within 2^-7 (relative to its largest value, chip_smoke's
+    GRU_BWD_BF16_W_TOL) of reference.gru_bwd_math's (the plain reverse loop
+    on the kernel forward's states), every gradient rounded to bf16 as the
+    autograd path does; twice bit for bit."""
+    B, T, D, H = 128, 50, 256, 256
+    args = _gru_args(B, T, D, H, torch.bfloat16, cuda, seed=7)
+    g = torch.from_numpy(np.random.default_rng(8).normal(scale=1e-2, size=(B, T, H))
+                         .astype(np.float32)).to(cuda).bfloat16()
+    x, h0, w_x, w_h, b_x, b_h = args
+
+    def grads():
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, h0, w_x, w_h)]
+        ys = k_gru.gru_scan(*leaves, b_x, b_h)[0]
+        ys.backward(g)
+        return ys.detach(), [t.grad for t in leaves]
+
+    counts = lambda: (k_gru.gru_scan.launches, k_gru.gru_backward.launches,  # noqa: E731
+                      k_gru.gru_scan.wide_launches, k_gru.gru_backward.wide_launches)
+    before = counts()
+    ys, got = grads()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1, 1)
+    ys2, got2 = grads()
+    assert torch.equal(ys, ys2) and all(torch.equal(a, b) for a, b in zip(got, got2))
+    wx_c, wh_c = w_x.bfloat16(), w_h.bfloat16()
+    x_proj = torch.matmul(x.float(), wx_c.float()) + b_x
+    d_xp, dh0, dwh, _ = reference.gru_bwd_math(x_proj, ys, h0, wh_c, b_h, g, None)
+    want = [t.bfloat16() for t in (torch.matmul(d_xp, wx_c.float().T), dh0,
+                                   torch.einsum("btd,btk->dk", x.float(), d_xp), dwh)]
+    for name, a, b in zip(("x", "h0", "w_x", "w_h"), got, want):
+        err = (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+        assert err <= 2 ** -7, (name, err)
+
+
 def _head_args(N, S, H, dtype, device, seed=0):
     rng = np.random.default_rng(seed)
     V = 3 * S

@@ -335,14 +335,23 @@ def test_f32_projection_schedule_covers_every_tile_once(M, N, ctas):
 
 
 @pytest.mark.parametrize("H,hp,in_regs", [(4, 16, 1), (64, 64, 1), (100, 112, 1),
-                                          (128, 128, 1), (132, 144, 0), (256, 256, 0)])
+                                          (128, 128, 1), (132, 144, 1), (256, 256, 1)])
 def test_gru_bf16_pads_the_hidden_width_to_whole_mma_tiles(H, hp, in_regs):
-    """H pads to a multiple of 16 (mma's depth and n8 pairs): Hp / 16 warps,
-    W_h's fragments in registers up to Hp = 128. Every width the CUDA-core
+    """H pads to a multiple of 16 (mma's depth and n8 pairs), W_h's fragments
+    in registers at every width: up to Hp = 128 one block of Hp / 16 warps;
+    above, a cluster of 4 CTAs of 8 warps (256 threads), each CTA 64 of the
+    units and k padded to 256 (h^T's buffers [2][256][8] bf16 and the K
+    halves' partial sums [4][2][6][32] f32). Every width the CUDA-core
     design took in bf16 is taken, and wider ones too."""
     cfg = cuda_gru.launch_config(3, 7, 8, H, torch.bfloat16)
-    assert (cfg["hidden_padded"], cfg["threads"], cfg["wh_in_regs"]) == (hp, 2 * hp, in_regs)
-    assert cfg["smem_bytes"] == 2 * hp * 8 * 2 <= cuda_gru.SMEM_LIMIT
+    assert (cfg["hidden_padded"], cfg["wh_in_regs"]) == (hp, in_regs)
+    if hp <= cuda_gru.WH_REG_LIMIT:
+        assert (cfg["threads"], cfg["grid"]) == (2 * hp, 1)
+        assert cfg["smem_bytes"] == 2 * hp * 8 * 2 <= cuda_gru.SMEM_LIMIT
+    else:
+        assert (cfg["threads"], cfg["cluster_size"], cfg["grid"]) == (256, 4, 4)
+        assert cfg["smem_bytes"] == 2 * 256 * 8 * 2 + 4 * 2 * 6 * 32 * 4 + 16 <= \
+            cuda_gru.SMEM_LIMIT
     assert cfg["xproj_grid"] == [1, -(-3 * H // 64)]
 
 

@@ -196,19 +196,29 @@ def test_gru_backward_launch_config_at_the_training_shape():
 
 
 @pytest.mark.parametrize("H,hp,in_regs", [(4, 16, 1), (100, 112, 1), (128, 128, 1),
-                                          (132, 144, 0), (256, 256, 0)])
+                                          (132, 144, 1), (256, 256, 1)])
 def test_gru_bf16_backward_pads_to_whole_tiles(H, hp, in_regs):
     """The bf16 reverse recurrence pads H as the forward does, to a multiple
-    of 16: Hp / 16 warps, W_h's fragments in registers and d_hproj^T
-    double-buffered up to Hp = 128, and its shared memory fits a block's up
-    to H = 256 with h_in in f32."""
-    for h_dt, h_row, h_es in ((torch.bfloat16, hp + 8, 2), (torch.float32, hp + 4, 4)):
+    of 16, W_h's fragments in registers at every width: up to Hp = 128 one
+    block of Hp / 16 warps with d_hproj^T double-buffered; above, a cluster
+    of 4 CTAs of 256 threads over 8 rows, K split between them (units and
+    gate columns padded to 256: each CTA 64 units' 192 columns, d_hproj^T
+    of them [hi, lo][192][8] bf16, the partial sums [2][4][64][8] f32 and
+    its units' ring stages, 64 wide). Its shared memory fits a CTA up to
+    H = 256 with h_in in f32."""
+    for h_dt, h_row, h_es in ((torch.bfloat16, 8, 2), (torch.float32, 4, 4)):
         cfg = cuda_gru.backward_launch_config(11, 7, H, torch.bfloat16, h_in_dtype=h_dt)
-        assert (cfg["hidden_padded"], cfg["threads"], cfg["w_in_regs"]) == (hp, 2 * hp, in_regs)
-        assert cfg["grid"] == 2
-        stage = 6 * 8 * (hp + 4) * 4 + 8 * h_row * h_es + 8 * (hp + 8) * 2
-        buffers = 2 if in_regs else 1  # d_hproj^T: one buffer past the registers' widths
-        assert cfg["smem_bytes"] == buffers * 2 * 3 * hp * 8 * 2 + 3 * stage <= cuda_gru.SMEM_LIMIT
+        assert (cfg["hidden_padded"], cfg["w_in_regs"]) == (hp, in_regs)
+        if hp <= cuda_gru.WH_REG_LIMIT:
+            assert (cfg["threads"], cfg["grid"]) == (2 * hp, 2)
+            stage = 6 * 8 * (hp + 4) * 4 + 8 * (hp + h_row) * h_es + 8 * (hp + 8) * 2
+            assert cfg["smem_bytes"] == 2 * 2 * 3 * hp * 8 * 2 + 3 * stage <= \
+                cuda_gru.SMEM_LIMIT
+        else:
+            assert (cfg["threads"], cfg["cluster_size"], cfg["grid"]) == (256, 4, 8)
+            stage = 6 * 8 * 68 * 4 + 8 * (64 + h_row) * h_es + 8 * 72 * 2
+            assert cfg["smem_bytes"] == (2 * 192 * 8 * 2 + 2 * 4 * 64 * 8 * 4 + 3 * stage
+                                         + 16) <= cuda_gru.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("H", [100, 128])
