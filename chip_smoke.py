@@ -270,6 +270,21 @@ source, all at once). Each phase prints one JSON line:
               `init_state`, a clone a chain, peak device memory under two
               states (table and accumulator) plus 2 GB, the seed state's
               table and accumulator unchanged (fingerprints);
+  t. widths   (run after l, before n) the published widths, whose rows
+              are not 16-byte multiples: SASRec as published (configs/ml1m_sasrec.json with
+              model.embed_dim=50: d = 50, 2 blocks, 1 head, T = 200) and
+              GRU4Rec's 100 units under configs/ml1m_gru4rec.json's sampled
+              softmax (model.embed_dim=100). The gather from a [3418, 50]
+              f32 table at [128, 200] and [64, 200] ids into bf16 and f32
+              (bit for bit, NaN rows), its scatter-add at D = 50 (the
+              float-unit path, f32 and bf16 cotangents), the attention on the
+              block's qkv slices at [128, 200, 1, 50] (SDPA beside it, with
+              the backend it takes), the head at N = 25,600, S = 256, H = 50
+              in both dtypes and H = 100 in bf16, each at its phase's limit
+              with kernel, plain, library and bound times; SASRec d = 50
+              served (as phase h) and trained (as phases i and l, three
+              groups) in bf16 and f32; GRU4Rec D = H = 100 trained, two K = 8
+              groups (as phase f);
   m. the kernels line: {"kernels": [{name, route, source, replaces,
               launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
               library_ms, design, dtype}, ...]} (the scatter-add also
@@ -285,7 +300,10 @@ source, all at once). Each phase prints one JSON line:
               ml100k fit's, phase q's, phase r's and phase s's included), the two
               shard-window variants, their launches counted on p2's rank 0,
               and the GRU's two cluster layouts (Hp > 128, `gru_scan_wide`,
-              `gru_backward_wide`), their launches counted on s3's chains.
+              `gru_backward_wide`), their launches counted on s3's chains;
+              the gather, scatter-add, attention and head entries also
+              `at_published_widths` (phase t: their d = 50 / H = 100 times,
+              bound, plain and library, and launches a step on that path).
 
 Then the raw nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -958,14 +976,15 @@ def _device_ops(fn) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def _scatter_add_check(rng, dev, table) -> dict:
+def _scatter_add_check(rng, dev, table, count_ops: bool = True) -> dict:
     """The deterministic scatter-add at the training shape: Zipf(1.0) ids
     with planted out-of-range ones, two runs bit for bit equal, equal to
     `plain_ordered` (its order in plain tensor code) bit for bit, and within
-    the f32 summation bound of the plain version (`index_put_`); its device
-    operations a call counted by the profiler (at most 2); the same on ids
-    padded as the training path pads them (rows of 5..TRAIN_T positions,
-    the rest on the padding row 0: about half), timed beside index_add_."""
+    the f32 summation bound of the plain version (`index_put_`); with
+    `count_ops`, its device operations a call counted by the profiler (at
+    most 2); the same on ids padded as the training path pads them (rows of
+    5..TRAIN_T positions, the rest on the padding row 0: about half), timed
+    beside index_add_."""
     D = table.shape[1]
     N = TRAIN_B * TRAIN_T
     ids_np = zipf_items(rng, N).astype(np.int32)
@@ -988,9 +1007,10 @@ def _scatter_add_check(rng, dev, table) -> dict:
     n_max = int(np.bincount(valid, minlength=VOCAB).max())
     tol = n_max * 2.0 ** -24 * k_gather.plain_backward(g.abs(), ids, VOCAB).max().item()
     check(err <= tol, f"scatter-add kernel vs plain max abs err {err} > {tol}")
-    ops = _device_ops(lambda: k_gather.embedding_scatter_add(g, ids, VOCAB))
-    check(0 < len(ops) <= 2, f"scatter-add: {len(ops)} device operations a call "
-                             f"(at most 2): {ops}")
+    ops = (_device_ops(lambda: k_gather.embedding_scatter_add(g, ids, VOCAB))
+           if count_ops else None)
+    check(ops is None or 0 < len(ops) <= 2, f"scatter-add: {len(ops or ())} device operations "
+                                            f"a call (at most 2): {ops}")
     # The training path's padding: each row's positions past its length on row 0.
     pad_np = zipf_items(rng, N).reshape(TRAIN_B, TRAIN_T)
     pad_np[np.arange(TRAIN_T)[None, :] >= rng.integers(5, TRAIN_T + 1, size=(TRAIN_B, 1))] = 0
@@ -1018,16 +1038,17 @@ def _scatter_add_check(rng, dev, table) -> dict:
     check(torch.equal(got16, k_gather.plain_ordered(g16.float(), pad_ids, VOCAB,
                                                     plan["chunk"])),
           "scatter-add: a bf16 cotangent is not plain_ordered's bits")
-    ops16 = _device_ops(lambda: k_gather.embedding_scatter_add(g16, pad_ids, VOCAB))
-    check(0 < len(ops16) <= 2, f"scatter-add bf16: {len(ops16)} device operations a call: "
-                               f"{ops16}")
+    ops16 = (_device_ops(lambda: k_gather.embedding_scatter_add(g16, pad_ids, VOCAB))
+             if count_ops else None)
+    check(ops16 is None or 0 < len(ops16) <= 2,
+          f"scatter-add bf16: {len(ops16 or ())} device operations a call: {ops16}")
     s16_bytes = N * D * 2 + N * 4 + VOCAB * D * 4
     s16_bound, s16_by = bound(s16_bytes, 0, torch.float32)
     return {
         "shape": {"table": [VOCAB, D], "ids": [TRAIN_B, TRAIN_T], "dtype": "float32"},
         "design": "sorted-chunks", "deterministic": True, "bit_exact_twice": True,
         "bit_exact_vs_plain_ordered": True, "plan": plan,
-        "launches_per_call": len(ops), "device_ops_per_call": ops,
+        "launches_per_call": None if ops is None else len(ops), "device_ops_per_call": ops,
         "max_abs_err": err, "tolerance": tol, "max_ids_per_row": n_max,
         "kernel_ms": time_ms(lambda: k_gather.embedding_scatter_add(g, ids, VOCAB)),
         "plain_ms": time_ms(lambda: k_gather.plain_backward(g, ids, VOCAB)),
@@ -1040,7 +1061,8 @@ def _scatter_add_check(rng, dev, table) -> dict:
                       "padded": True},
             "design": "sorted-chunks", "deterministic": True, "bit_exact_twice": True,
             "bit_exact_vs_f32_widening": True, "bit_exact_vs_plain_ordered": True,
-            "launches_per_call": len(ops16), "device_ops_per_call": ops16,
+            "launches_per_call": None if ops16 is None else len(ops16),
+            "device_ops_per_call": ops16,
             "max_abs_err": 0.0,
             "kernel_ms": time_ms(lambda: k_gather.embedding_scatter_add(g16, pad_ids, VOCAB)),
             "widen_then_kernel_ms": time_ms(
@@ -1310,17 +1332,36 @@ def phase_train_kernels(rng: np.random.Generator, dev) -> dict:
     return out
 
 
-def _attention_checks(rng, dev) -> dict:
+def _sdpa_backend(q, k, v) -> str:
+    """The backend F.scaled_dot_product_attention picks for these [B, N, T,
+    Dh] inputs, causal, with no mask and no dropout (torch's own choice
+    function)."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, None, 0.0, True)).name
+
+
+def _attention_checks(rng, dev, Dh: int = 64, sliced: bool = False) -> dict:
     """Causal attention at SASRec's training shape (ml1m_sasrec: B=128,
     T=200, one head of Dh=64): q, k, v of unit scale, as a LayerNorm'd
-    input through the qkv projection gives them."""
-    Bq, T, N, Dh = TRAIN_B, TRAIN_T, 1, 64
-    qkv32 = [torch.from_numpy(rng.normal(size=(Bq, T, N, Dh)).astype(np.float32)).to(dev)
-             for _ in range(3)]
+    input through the qkv projection gives them. `sliced`: q, k and v are
+    the SASRec block's slices of one [B, T, 3, 1, Dh] projection (rows 3 Dh
+    apart), read in place as the model's path reads them."""
+    Bq, T, N = TRAIN_B, TRAIN_T, 1
+    if sliced:
+        proj = torch.from_numpy(rng.normal(size=(Bq, T, 3, N, Dh)).astype(np.float32)).to(dev)
+    else:
+        qkv32 = [torch.from_numpy(rng.normal(size=(Bq, T, N, Dh)).astype(np.float32)).to(dev)
+                 for _ in range(3)]
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = _dname(dtype)
-        q, k, v = (t.to(dtype) for t in qkv32)
+        if sliced:
+            q, k, v = proj.to(dtype).unbind(2)
+            check(k_attn._kernel_view(q).data_ptr() == q.data_ptr(),
+                  f"attention {name} Dh={Dh}: the projection's slices are not read in place")
+        else:
+            q, k, v = (t.to(dtype) for t in qkv32)
         got = k_attn.causal_attention(q, k, v)
         torch.cuda.synchronize()
         want = k_attn.plain(q, k, v)
@@ -1354,14 +1395,15 @@ def _attention_checks(rng, dev) -> dict:
         b64_bound = bound(a_bytes / 2, a_flops / 2, dtype)
         check(torch.equal(k_attn.causal_attention(q64, k64, v64), got[:B]),
               f"attention {name}: the first {B} rows alone differ from the batch's")
-        launch = k_attn.launch_config(Bq, T, N, Dh, dtype)
+        launch = k_attn.launch_config(Bq, T, N, Dh, dtype, k_attn.operand_align(q, k, v))
         out[name] = {
-            "shape": {"B": Bq, "T": T, "N": N, "Dh": Dh, "dtype": name},
+            "shape": {"B": Bq, "T": T, "N": N, "Dh": Dh, "dtype": name,
+                      "qkv_slices": sliced},
             "launch": launch, "design": launch["design"],
             "max_abs_err": err, "errors": errs, "tolerance": tol,
             "kernel_ms": time_ms(lambda: k_attn.causal_attention(q, k, v)),
             "plain_ms": time_ms(lambda: k_attn.plain(q, k, v)),
-            "library_ms": time_ms(sdpa),
+            "library_ms": time_ms(sdpa), "library_backend": _sdpa_backend(qt, kt, vt),
             "bound_ms": a_bound, "bound_by": a_by, "bytes": int(a_bytes),
             "flops": int(a_flops),
             f"B{B}": {
@@ -4335,6 +4377,122 @@ def phase_benchmark(rng: np.random.Generator, dev, seed: int, card: str, fit: di
     return out
 
 
+# Phase t: the published widths. SASRec as published (Kang & McAuley, ICDM
+# 2018: d = 50, 2 blocks, 1 head, n = 200) is configs/ml1m_sasrec.json with
+# its d set to 50; GRU4Rec's 100 units (configs/rsc15_gru4rec.json's width)
+# under configs/ml1m_gru4rec.json's sampled softmax.
+D50, D100 = 50, 100
+D50_SET, D100_SET = f"model.embed_dim={D50}", f"model.embed_dim={D100}"
+
+
+def _widths_kernel_checks(rng, dev) -> dict:
+    """The slice's kernels at SASRec d = 50's shapes, and the head at
+    GRU4Rec's H = 100: the gather from a [3418, 50] f32 table at training's
+    [128, 200] and serving's [64, 200] ids into bf16 and f32 (bit for bit,
+    NaN rows), its scatter-add at D = 50 (the float-unit path; f32 and bf16
+    cotangents), the attention on the block's qkv slices at [128, 200, 1,
+    50] in both dtypes, the head at N = 25,600, S = 256, H = 50 in both and
+    H = 100 in bf16; each at its phase's limit, with kernel, plain, library
+    and bound times (medians of 21 CUDA-event runs)."""
+    out = {"gather": {}}
+    for shape in ((TRAIN_B, TRAIN_T), (B, TRAIN_T)):
+        for dtype in (torch.bfloat16, torch.float32):
+            rec = _gather_check(rng, dev, D50, shape, dtype)
+            rec["launch"] = k_gather.launch_config(D50, torch.float32, dtype)
+            out["gather"][_gather_key(D50, shape, dtype)] = rec
+    table = torch.from_numpy(rng.normal(scale=D50 ** -0.5, size=(VOCAB, D50))
+                             .astype(np.float32)).to(dev)
+    # The profiler's count of its device operations is phase e's (the
+    # launches do not depend on D): after phase f2's scheduled profiler
+    # (train.profile_dir) it recorded none for one call's window on an H100,
+    # where phase t run alone counted 2.
+    out["gather_backward"] = _scatter_add_check(rng, dev, table, count_ops=False)
+    check(out["gather_backward"]["plan"]["unit"] == "float",
+          f"scatter-add D={D50}: plan {out['gather_backward']['plan']}")
+    out["causal_attention"] = _attention_checks(rng, dev, Dh=D50, sliced=True)
+    out["softmax_head"] = _head_checks(rng, dev, table, beauty=False)
+    table100 = torch.from_numpy(rng.normal(scale=D100 ** -0.5, size=(VOCAB, D100))
+                                .astype(np.float32)).to(dev)
+    out[f"softmax_head_H{D100}"] = _head_checks(rng, dev, table100, beauty=False,
+                                                dtypes=(torch.bfloat16,))
+    return out
+
+
+def phase_widths(rng: np.random.Generator, dev, seed: int, card: str,
+                 requests: list) -> dict:
+    """t. The published widths through the normal entry points: the
+    kernels at their shapes (`_widths_kernel_checks`); SASRec d = 50 served
+    (phase h: 320 requests, batch 64, k = 10, within SCORE_TOL of the plain
+    path in bf16, F32_SCORE_TOL in f32) and trained (phases i and l: three
+    K = 8 groups, warmup 0, step 1 within phase f's limits of the plain
+    versions, the loss falls, each kernel's launches a step as expected) in
+    bf16 and f32; one K = 8 group and a second of GRU4Rec at D = H = 100
+    under the sampled softmax (bf16), with the same checks."""
+    phase_t0 = time.perf_counter()
+    kernels = _widths_kernel_checks(rng, dev)
+    emit({"phase": "widths_kernels", "card": card, **kernels})
+    serve = {"sasrec_d50": phase_serve(dev, seed, "sasrec", requests, overrides=[D50_SET]),
+             "sasrec_d50_f32": phase_serve(dev, seed, "sasrec", requests,
+                                           overrides=[D50_SET, F32])}
+    train = {"sasrec_d50": phase_train(rng, dev, seed, "sasrec", groups=3,
+                                       overrides=[D50_SET, "train.warmup_steps=0"]),
+             "sasrec_d50_f32": phase_train(rng, dev, seed, "sasrec", groups=3,
+                                           overrides=[D50_SET, F32, "train.warmup_steps=0"]),
+             "gru4rec_d100": phase_train(rng, dev, seed, "gru4rec", groups=2,
+                                         overrides=[D100_SET])}
+    seconds = time.perf_counter() - phase_t0
+    emit({"phase": "widths", "card": card, "seconds": seconds,
+          "serve": {k: {"requests_per_s": v["requests_per_s"],
+                        "max_score_diff_vs_plain": v["max_score_diff_vs_plain"],
+                        "score_tolerance": v["score_tolerance"], "launches": v["launches"]}
+                    for k, v in serve.items()},
+          "train": {k: {"examples_per_s": v["examples_per_s"],
+                        "step_ms_median": v["step_ms_median"], "step1": v["step1"],
+                        "launches_per_step": v["launches_per_step"]}
+                    for k, v in train.items()}})
+    return {"kernels": kernels, "serve": serve, "train": train, "seconds": seconds}
+
+
+def _widths_entries(widths: dict) -> dict:
+    """{kernels-line name: [records]}: each kernel's numbers at the
+    published widths, with its launches a step on that width's training
+    path."""
+    k, train = widths["kernels"], widths["train"]
+    g = k["gather"]
+
+    def rec(r, path, counter, what):
+        return {"at": what, "shape": r["shape"], "launch": r.get("launch"),
+                "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"]["median"],
+                "plain_ms": r["plain_ms"]["median"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": _median(r.get("library_ms")),
+                "library": r.get("library", r.get("library_backend")),
+                "partial_yardstick_matmul_ms": _median(r.get("partial_yardstick_matmul_ms")),
+                "launches_per_step": train[path]["launches_per_step"][counter],
+                "launches_counted_on": " ".join(["train", train[path]["config"],
+                                                 *train[path]["overrides"]])}
+
+    bf, f32 = torch.bfloat16, torch.float32
+    sas = f"sasrec d={D50}"
+    return {
+        "gather": [rec(g[_gather_key(D50, (TRAIN_B, TRAIN_T), bf)], "sasrec_d50", "gather", sas)],
+        "gather_f32": [rec(g[_gather_key(D50, (TRAIN_B, TRAIN_T), f32)], "sasrec_d50_f32",
+                           "gather", sas)],
+        "gather_backward": [rec(k["gather_backward"]["bf16_cotangent"], "sasrec_d50",
+                                "gather_backward", sas)],
+        "gather_backward_f32": [rec(k["gather_backward"], "sasrec_d50_f32", "gather_backward",
+                                    sas)],
+        "causal_attention": [rec(k["causal_attention"]["bfloat16"], "sasrec_d50",
+                                 "causal_attention", sas)],
+        "causal_attention_f32": [rec(k["causal_attention"]["float32"], "sasrec_d50_f32",
+                                     "causal_attention", sas)],
+        "softmax_head": [rec(k["softmax_head"]["bfloat16"], "sasrec_d50", "softmax_head", sas),
+                         rec(k[f"softmax_head_H{D100}"]["bfloat16"], "gru4rec_d100",
+                             "softmax_head", f"gru4rec D=H={D100}")],
+        "softmax_head_f32": [rec(k["softmax_head"]["float32"], "sasrec_d50_f32",
+                                 "softmax_head", sas)],
+    }
+
+
 def _median(ms) -> Optional[float]:
     return None if ms is None else ms["median"]
 
@@ -4411,6 +4569,9 @@ def main(argv=None) -> int:
                                        overrides=[F32], reproducible=True)
     train["sasrec_f32"] = phase_train(rng, dev, args.seed, "sasrec", groups=2,
                                       overrides=[F32, "train.warmup_steps=0"])
+    widths = phase_widths(rng, dev, args.seed, smi, requests)  # t, beside h, i and l
+    serve.update(widths["serve"])
+    train.update(widths["train"])
     sparse = phase_sparse(dev, args.seed)
     phase_checkpoint(dev, args.seed, requests)
     sharded = phase_sharded(dev, args.seed)
@@ -4514,6 +4675,11 @@ def main(argv=None) -> int:
                 "tolerance": rec["tolerance"], "ms": rec["kernel_ms"]["median"],
                 "plain_ms": rec["plain_ms"]["median"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": _median(rec["library_ms"])}
+    # The slice's kernels at the published widths (phase t).
+    at_widths = _widths_entries(widths)
+    for entry in kernels:
+        if entry["name"] in at_widths:
+            entry["at_published_widths"] = at_widths[entry["name"]]
     # The GRU's cluster layouts (Hp > 128), at beauty_gru's step: their own
     # counters' launches over s3's timed chains (2 a step), and one a layer
     # a served batch.

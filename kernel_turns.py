@@ -62,6 +62,10 @@ A turn times, by CUDA events (chip_smoke.time_ms, median of 21 runs):
     where the host takes longer than chip_smoke's ~1 ms sleep to queue a
     batch's launches (SASRec's encode).
 
+The attention, head, scatter-add and gather rows also carry a digest
+(sha1) of their outputs, as the recurrences' rows do: `same_bits` in the
+last line says where parent and change agree bit for bit.
+
 Every turn also times the recurrences' rows (`_rnn_rows`, alone with
 --only rnn, a turn of ~1 minute): the bf16 GRU forward (gru_scan, the
 projection included) at B=64 and 128, T=200, D=H=128, its reset variant at
@@ -141,11 +145,21 @@ def _path_worker(label: str, path: str) -> dict:
                      "device_launches_per_step": r["profile"]["device_launches_per_step"]}}
 
 
+def _digest(ts) -> str:
+    """sha1 of the tensors' bytes: equal digests are equal bits."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha1()
+    for t in ts:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def _rnn_rows() -> dict:
     """The recurrences' rows of a turn (see the module note), on the data
     of rng 2: kernel ms, digests of the outputs and the library times."""
-    import hashlib
-
     import numpy as np
     import torch
 
@@ -158,11 +172,7 @@ def _rnn_rows() -> dict:
     med = lambda fn: cs.time_ms(fn)["median"]  # noqa: E731
     bf16, f32 = torch.bfloat16, torch.float32
 
-    def digest(ts) -> str:
-        h = hashlib.sha1()
-        for t in ts:
-            h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
-        return h.hexdigest()
+    digest = _digest
 
     def nn_rnn(cls, w_x, w_h, b_x, b_h, dtype):
         lib = cls(w_x.shape[0], w_h.shape[0], batch_first=True, device=dev, dtype=dtype)
@@ -275,6 +285,7 @@ def _worker(label: str, only: str = "") -> dict:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         kern[f"attention_{dname(dtype)}_B{Bq}"] = {
             "ms": med(lambda: k_attn.causal_attention(q, k, v)),
+            "digest": _digest([k_attn.causal_attention(q, k, v)]),
             "sdpa_ms": med(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True))}
 
@@ -359,7 +370,8 @@ def _worker(label: str, only: str = "") -> dict:
         hargs = (hh.to(dtype), table[targets.long()].to(dtype), table[neg_ids.long()].to(dtype),
                  targets, neg_ids, plq, nlq)
         kern[f"head_{dname(dtype)}_N{N}"] = {
-            "ms": med(lambda: k_head.sampled_softmax_nll(*hargs))}
+            "ms": med(lambda: k_head.sampled_softmax_nll(*hargs)),
+            "digest": _digest([k_head.sampled_softmax_nll(*hargs)])}
         if dtype == torch.float32:
             hn = hargs[2]
             kern[f"head_{dname(dtype)}_N{N}"]["matmul_f32_ms"] = med(lambda: hh @ hn.T)
@@ -374,6 +386,7 @@ def _worker(label: str, only: str = "") -> dict:
     try:
         kern[f"head_float32_N{Nb}_H{Db}"] = {
             "ms": med(lambda: k_head.sampled_softmax_nll(*bargs)),
+            "digest": _digest([k_head.sampled_softmax_nll(*bargs)]),
             "matmul_f32_ms": med(lambda: hw @ bargs[2].T)}
     except ValueError as e:
         kern[f"head_float32_N{Nb}_H{Db}"] = {"error": str(e)}
@@ -400,6 +413,7 @@ def _worker(label: str, only: str = "") -> dict:
                               .astype(np.float32)).to(dev)
         kern[row] = {
             "ms": med(lambda: k_gather.embedding_scatter_add(sg, sids, V)),
+            "digest": _digest([k_gather.embedding_scatter_add(sg, sids, V)]),
             "index_add_ms": med(lambda: torch.zeros(V, D, device=dev).index_add_(0, sids, sg)),
             "max_ids_per_row": int(np.bincount(ids_np, minlength=V).max()),
             "padding_share": float(np.mean(ids_np == 0))}
@@ -419,18 +433,20 @@ def _worker(label: str, only: str = "") -> dict:
                                     .astype(np.int32)).to(dev)
             for dtype in (torch.bfloat16, torch.float32):
                 if takes_dtype:
-                    ms = med(lambda: k_gather.embedding_gather(gtable, gids, dtype=dtype))
+                    fn = lambda: k_gather.embedding_gather(gtable, gids, dtype=dtype)  # noqa: E731
                 else:
-                    ms = med(lambda: k_gather.embedding_gather(gtable, gids).to(dtype))
+                    fn = lambda: k_gather.embedding_gather(gtable, gids).to(dtype)  # noqa: E731
                 kern[f"gather_{dname(dtype)}_D{D}_{'x'.join(map(str, shape))}"] = {
-                    "ms": ms, "one_launch": takes_dtype or dtype == torch.float32,
+                    "ms": med(fn), "digest": _digest([fn()]),
+                    "one_launch": takes_dtype or dtype == torch.float32,
                     "embedding_to_ms": med(lambda: torch.nn.functional.embedding(
                         gids, gtable).to(dtype))}
         g16 = torch.from_numpy(rng.normal(scale=1e-2, size=(N, D)).astype(np.float32)).to(
             dev, torch.bfloat16)
         pids = torch.from_numpy(padded.reshape(-1).astype(np.int64)).to(dev)
         kern[f"scatter_add_bf16_cotangent_D{D}_padded"] = {
-            "ms": med(lambda: k_gather.embedding_scatter_add(g16, pids, cs.VOCAB))}
+            "ms": med(lambda: k_gather.embedding_scatter_add(g16, pids, cs.VOCAB)),
+            "digest": _digest([k_gather.embedding_scatter_add(g16, pids, cs.VOCAB)])}
 
     # The LSTM: forward scans beside nn.LSTM f32 on the same values, then the
     # reverse recurrence on gate planes of the forward's ranges.

@@ -96,23 +96,35 @@ constexpr int kMmaThreads = 128;  // 4 warps
 constexpr int kWarpRows = 16;     // query rows a warp owns
 
 // Start the copy of rows [t0, t0 + 64) of one (b, n) slice into a [64][kD + 8]
-// tile; rows at or past T and columns at or past Dh are zero-filled.
-template <int kD>
+// tile in pieces of kU bytes (16, 8 or 4 by cp.async; 2, one bf16, by a
+// plain load and store); rows at or past T and columns at or past Dh are
+// zero-filled.
+template <int kD, int kU>
 __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
                                            const __nv_bfloat16* src,
                                            long long stride_t, int t0, int Tn,
                                            int Dh) {
-  constexpr int kLd = kD + 8, kPieces = kD / 8;  // 16-byte pieces a row
+  constexpr int kLd = kD + 8, kE = kU / 2, kPieces = kD / kE;  // kU-byte pieces a row
   for (int c = threadIdx.x; c < kTile * kPieces; c += kMmaThreads) {
-    const int r = c / kPieces, j = (c % kPieces) * 8;
+    const int r = c / kPieces, j = (c % kPieces) * kE;
     const bool real = t0 + r < Tn && j < Dh;
     const __nv_bfloat16* from = real ? src + (t0 + r) * stride_t + j : src;
-    mma::cp_async16_zfill(dst + r * kLd + j, from, real ? 16 : 0);
+    if constexpr (kU == 16) {
+      mma::cp_async16_zfill(dst + r * kLd + j, from, real ? 16 : 0);
+    } else if constexpr (kU == 8) {
+      mma::cp_async8_zfill(dst + r * kLd + j, from, real ? 8 : 0);
+    } else if constexpr (kU == 4) {
+      mma::cp_async4_zfill(dst + r * kLd + j, from, real ? 4 : 0);
+    } else {
+      dst[r * kLd + j] = real ? *from : __ushort_as_bfloat16(0);
+    }
   }
 }
 
-// kD: the padded head dim; kQRegs: Q's fragments held in registers.
-template <int kD, bool kQRegs>
+// kD: the padded head dim; kQRegs: Q's fragments held in registers; kU:
+// the bytes a piece of q, k and v is staged in (16 where rows, strides and
+// bases are 16-byte multiples, as they always were before; else 8, 4 or 2).
+template <int kD, bool kQRegs, int kU = 16>
 __global__ void __launch_bounds__(kMmaThreads)
 attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -141,10 +153,10 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vg = v + b * sv_b + static_cast<long long>(n) * Dh;
 
   auto stage_kv = [&](int kt) {  // key tile kt into stage kt % 2
-    stage_tile<kD>(tile_at(kt & 1, 0), kg, sk_t, kt * kTile, Tn, Dh);
-    stage_tile<kD>(tile_at(kt & 1, 1), vg, sv_t, kt * kTile, Tn, Dh);
+    stage_tile<kD, kU>(tile_at(kt & 1, 0), kg, sk_t, kt * kTile, Tn, Dh);
+    stage_tile<kD, kU>(tile_at(kt & 1, 1), vg, sv_t, kt * kTile, Tn, Dh);
   };
-  stage_tile<kD>(qs, qg, sq_t, qi * kTile, Tn, Dh);
+  stage_tile<kD, kU>(qs, qg, sq_t, qi * kTile, Tn, Dh);
   stage_kv(0);
   mma::cp_async_commit();
 
@@ -265,9 +277,15 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     __nv_bfloat16* orow = o + ((static_cast<long long>(b) * Tn + t) * N + n) * Dh + 2 * tq;
 #pragma unroll
     for (int d = 0; d < 2 * kKs; ++d) {
-      if (8 * d < Dh) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * d) =
-            __floats2bfloat162_rn(acc[d][2 * h] / denom, acc[d][2 * h + 1] / denom);
+      const __nv_bfloat162 pair =
+          __floats2bfloat162_rn(acc[d][2 * h] / denom, acc[d][2 * h + 1] / denom);
+      if constexpr (kU == 16) {  // Dh % 8 == 0: whole 8-column blocks
+        if (8 * d < Dh) *reinterpret_cast<__nv_bfloat162*>(orow + 8 * d) = pair;
+      } else if (Dh % 2 == 0) {  // o's rows are 4-byte aligned: pairs
+        if (8 * d + 2 * tq < Dh) *reinterpret_cast<__nv_bfloat162*>(orow + 8 * d) = pair;
+      } else {  // an odd Dh: o's rows are 2-byte aligned, one bf16 a store
+        if (8 * d + 2 * tq < Dh) orow[8 * d] = pair.x;
+        if (8 * d + 2 * tq + 1 < Dh) orow[8 * d + 1] = pair.y;
       }
     }
   }
@@ -291,23 +309,37 @@ constexpr int kLdP = kF32WarpRows + 4;
 constexpr int kPFloats = kF32Warps * kF32Rows * kLdP;
 
 // Start the copy of rows [t0, t0 + kF32Rows) of one (b, n) slice into a
-// [kF32Rows][Dh + 4] f32 tile; rows at or past T are zero-filled.
+// [kF32Rows][dh4 + 4] f32 tile in pieces of kU bytes (16, 8 or 4) by
+// cp.async; rows at or past T, and columns from Dh to dh4 (Dh rounded up to
+// the float4 groups), are zero-filled.
+template <int kU>
 __device__ __forceinline__ void stage_f32(float* dst, int ld, const float* src,
-                                          long long stride_t, int t0, int Tn, int Dh) {
-  const int pieces = Dh / 4;
+                                          long long stride_t, int t0, int Tn, int Dh,
+                                          int dh4) {
+  constexpr int kE = kU / 4;  // floats a piece
+  const int pieces = dh4 / kE;
   for (int c = threadIdx.x; c < kF32Rows * pieces; c += blockDim.x) {
-    const int r = c / pieces, j = (c - r * pieces) * 4;
-    const bool real = t0 + r < Tn;
-    mma::cp_async16_zfill(dst + r * ld + j, real ? src + (t0 + r) * stride_t + j : src,
-                          real ? 16 : 0);
+    const int r = c / pieces, j = (c - r * pieces) * kE;
+    const bool real = t0 + r < Tn && (kU == 16 || j < Dh);
+    const float* from = real ? src + (t0 + r) * stride_t + j : src;
+    if constexpr (kU == 16) {
+      mma::cp_async16_zfill(dst + r * ld + j, from, real ? 16 : 0);
+    } else if constexpr (kU == 8) {
+      mma::cp_async8_zfill(dst + r * ld + j, from, real ? 8 : 0);
+    } else {
+      mma::cp_async4_zfill(dst + r * ld + j, from, real ? 4 : 0);
+    }
   }
 }
 
 // kGroups: float4 column groups of the output a lane owns (Dh <= 64 kGroups).
-// Block i takes query tile
+// kU: the bytes a piece of q, k and v is staged in (16 as before; 8 or 4
+// where a row, a stride or a base is not a 16-byte multiple: Dh is then
+// padded with zeros to dh4, a multiple of 4, in shared memory, and o is
+// stored a float at a time). Block i takes query tile
 // n_tiles - 1 - i / (B N) of (b, n) = i % (B N): the blocks with the most
 // key tiles start first.
-template <int kGroups>
+template <int kGroups, int kU = 16>
 __global__ void __launch_bounds__(kF32Threads)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, int N,
@@ -315,7 +347,8 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      long long sk_b, long long sk_t, long long sv_b,
                      long long sv_t, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = Dh + 4;  // a tile row: rows 4 banks apart
+  const int dh4 = kU == 16 ? Dh : (Dh + 3) & ~3;  // the head dim in float4 groups
+  const int ld = dh4 + 4;  // a tile row: rows 4 banks apart
   float* qs = reinterpret_cast<float*>(smem);  // [32][ld]
   float* kvs = qs + kF32Rows * ld;             // [2 stages][K, V][32][ld]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -330,17 +363,17 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int row0 = warp * kF32WarpRows + rg * kLR;  // the lane's first row in the tile
   const int q_pos = qi * kF32Rows + row0;              // ... and in the sequence
   const bool live = qi * kF32Rows + warp * kF32WarpRows < Tn;  // a row of the warp's before T
-  const int groups = Dh / 4;
+  const int groups = dh4 / 4;
   // Column offsets of the (b, n) slice; the head stride is Dh.
   const float* qg = q + b * sq_b + static_cast<long long>(n) * Dh;
   const float* kg = k + b * sk_b + static_cast<long long>(n) * Dh;
   const float* vg = v + b * sv_b + static_cast<long long>(n) * Dh;
 
   auto stage_kv = [&](int kt) {  // key tile kt into stage kt % 2
-    stage_f32(tile_at(kt & 1, 0), ld, kg, sk_t, kt * kF32Rows, Tn, Dh);
-    stage_f32(tile_at(kt & 1, 1), ld, vg, sv_t, kt * kF32Rows, Tn, Dh);
+    stage_f32<kU>(tile_at(kt & 1, 0), ld, kg, sk_t, kt * kF32Rows, Tn, Dh, dh4);
+    stage_f32<kU>(tile_at(kt & 1, 1), ld, vg, sv_t, kt * kF32Rows, Tn, Dh, dh4);
   };
-  stage_f32(qs, ld, qg, sq_t, qi * kF32Rows, Tn, Dh);
+  stage_f32<kU>(qs, ld, qg, sq_t, qi * kF32Rows, Tn, Dh, dh4);
   stage_kv(0);
   mma::cp_async_commit();
 
@@ -367,7 +400,7 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < kLR; ++i) s[i][0] = s[i][1] = 0.0f;
 #pragma unroll 4
-      for (int d = 0; d < Dh; d += 4) {
+      for (int d = 0; d < dh4; d += 4) {
         const float4 k0 = *reinterpret_cast<const float4*>(kb + c * ld + d);
         const float4 k1 = *reinterpret_cast<const float4*>(kb + (c + 16) * ld + d);
 #pragma unroll
@@ -460,9 +493,17 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int cg = 0; cg < kGroups; ++cg) {
       const int grp = c + 16 * cg;
       if (grp < groups) {
-        *reinterpret_cast<float4*>(orow + 4 * grp) =
-            make_float4(acc[i][cg][0] / denom, acc[i][cg][1] / denom, acc[i][cg][2] / denom,
-                        acc[i][cg][3] / denom);
+        const float4 ov = make_float4(acc[i][cg][0] / denom, acc[i][cg][1] / denom,
+                                      acc[i][cg][2] / denom, acc[i][cg][3] / denom);
+        if constexpr (kU == 16) {
+          *reinterpret_cast<float4*>(orow + 4 * grp) = ov;
+        } else {  // the first Dh columns, a float a store
+          const float vals[4] = {ov.x, ov.y, ov.z, ov.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (4 * grp + e < Dh) orow[4 * grp + e] = vals[e];
+          }
+        }
       }
     }
   }
@@ -479,8 +520,20 @@ size_t smem_bytes(int Dh, int dtype) {
   if (dtype == 1) {  // Q, and K and V double-buffered: [64][kD + 8] bf16 each
     return 5 * static_cast<size_t>(kTile) * (padded_head_dim(Dh) + 8) * 2;
   }
-  // Q, K and V double-buffered: [32][Dh + 4] f32 each; the warps' P tiles.
-  return (5 * static_cast<size_t>(kF32Rows) * (Dh + 4) + kPFloats) * 4;
+  // Q, K and V double-buffered: [32][dh4 + 4] f32 each (Dh rounded up to a
+  // multiple of 4); the warps' P tiles.
+  return (5 * static_cast<size_t>(kF32Rows) * (((Dh + 3) & ~3) + 4) + kPFloats) * 4;
+}
+
+// The bytes a piece of q, k and v is staged in: the widest of 16, 8, 4 and 2
+// that divides a head's row (Dh * es), every base address and every batch
+// and time stride in bytes; 0 where none does.
+int stage_unit(int Dh, int es, const void* q, const void* k, const void* v, long long sq_b,
+               long long sq_t, long long sk_b, long long sk_t, long long sv_b, long long sv_t) {
+  return mma::copy_unit(
+      static_cast<unsigned long long>(Dh * es) | reinterpret_cast<uintptr_t>(q) |
+      reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+      static_cast<unsigned long long>((sq_b | sq_t | sk_b | sk_t | sv_b | sv_t) * es));
 }
 
 // bf16: a (64-row query tile, b n) grid; f32: one dimension of 32-row
@@ -509,18 +562,21 @@ extern "C" {
 
 // q, k, v: [B, T, N, Dh] of the working dtype (0 = float, 1 = bf16), Dh
 // contiguous and the head stride Dh; the batch and time strides of each
-// (s*_b, s*_t) in elements, each a multiple of 16 bytes, as are the
-// pointers. o: a contiguous [B, T, N, Dh]. smem_bytes as the caller
-// computed it, checked again here. bf16 runs the tensor-core kernel, f32 the
-// CUDA-core one; (Tn / 32 rounded up) B N < 2^31.
+// (s*_b, s*_t) in elements. Any Dh <= 256: `unit` (16, 8, 4 or, in bf16, 2
+// bytes) is the widest that divides Dh * es, the pointers and the strides in
+// bytes, as the caller computed it, checked again here. o: a contiguous
+// [B, T, N, Dh]. smem_bytes as the caller computed it, checked again here.
+// bf16 runs the tensor-core kernel, f32 the CUDA-core one; (Tn / 32 rounded
+// up) B N < 2^31.
 int seqrec_attention_forward(const void* q, const void* k, const void* v,
                              void* o, int B, int N, int Tn, int Dh, int dtype,
                              long long sq_b, long long sq_t, long long sk_b,
                              long long sk_t, long long sv_b, long long sv_t,
-                             float scale, long long smem_bytes_in, void* stream) {
+                             float scale, long long smem_bytes_in, int unit,
+                             void* stream) {
   const int es = dtype == 0 ? 4 : 2;
-  if (B <= 0 || N <= 0 || Tn <= 0 || Dh <= 0 || Dh > kMaxDh ||
-      (dtype != 0 && dtype != 1) || (Dh * es) % 16 != 0) {
+  if (B <= 0 || N <= 0 || Tn <= 0 || Dh <= 0 || Dh > kMaxDh || (dtype != 0 && dtype != 1) ||
+      unit < es || unit != stage_unit(Dh, es, q, k, v, sq_b, sq_t, sk_b, sk_t, sv_b, sv_t)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = smem_bytes(Dh, dtype);
@@ -530,18 +586,32 @@ int seqrec_attention_forward(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SEQREC_ATTN_ARGS q, k, v, o, B, N, Tn, Dh, sq_b, sq_t, sk_b, sk_t, sv_b, sv_t, scale, smem, s
   if (dtype == 0) {
-    const int groups = (Dh / 4 + 15) / 16;  // float4 groups a lane owns
-    if (groups <= 1) return launch<float>(attention_f32_kernel<1>, kF32Threads, SEQREC_ATTN_ARGS);
-    if (groups <= 2) return launch<float>(attention_f32_kernel<2>, kF32Threads, SEQREC_ATTN_ARGS);
-    return launch<float>(attention_f32_kernel<4>, kF32Threads, SEQREC_ATTN_ARGS);
+    const int groups = ((Dh + 3) / 4 + 15) / 16;  // float4 groups a lane owns
+    const int g = groups <= 1 ? 1 : groups <= 2 ? 2 : 4;
+    switch (g * 100 + unit) {
+#define SEQREC_F32(G, U) \
+  case G * 100 + U: return launch<float>(attention_f32_kernel<G, U>, kF32Threads, SEQREC_ATTN_ARGS);
+      SEQREC_F32(1, 16) SEQREC_F32(1, 8) SEQREC_F32(1, 4)
+      SEQREC_F32(2, 16) SEQREC_F32(2, 8) SEQREC_F32(2, 4)
+      SEQREC_F32(4, 16) SEQREC_F32(4, 8) SEQREC_F32(4, 4)
+#undef SEQREC_F32
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   using bf = __nv_bfloat16;
-  switch (padded_head_dim(Dh)) {
-    case 16: return launch<bf>(attention_mma_kernel<16, true>, kMmaThreads, SEQREC_ATTN_ARGS);
-    case 32: return launch<bf>(attention_mma_kernel<32, true>, kMmaThreads, SEQREC_ATTN_ARGS);
-    case 64: return launch<bf>(attention_mma_kernel<64, true>, kMmaThreads, SEQREC_ATTN_ARGS);
-    case 128: return launch<bf>(attention_mma_kernel<128, true>, kMmaThreads, SEQREC_ATTN_ARGS);
-    default: return launch<bf>(attention_mma_kernel<256, false>, kMmaThreads, SEQREC_ATTN_ARGS);
+  switch (padded_head_dim(Dh) * 100 + unit) {
+#define SEQREC_BF16(D, R, U) \
+  case D * 100 + U: return launch<bf>(attention_mma_kernel<D, R, U>, kMmaThreads, SEQREC_ATTN_ARGS);
+#define SEQREC_BF16_UNITS(D, R) \
+  SEQREC_BF16(D, R, 16) SEQREC_BF16(D, R, 8) SEQREC_BF16(D, R, 4) SEQREC_BF16(D, R, 2)
+    SEQREC_BF16_UNITS(16, true)
+    SEQREC_BF16_UNITS(32, true)
+    SEQREC_BF16_UNITS(64, true)
+    SEQREC_BF16_UNITS(128, true)
+    SEQREC_BF16_UNITS(256, false)
+#undef SEQREC_BF16_UNITS
+#undef SEQREC_BF16
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef SEQREC_ATTN_ARGS
 }

@@ -16,7 +16,12 @@
 // Design (the gather's, not the TPU's DMA blocks):
 // - A lane group of up to 32 lanes a row (a warp a 512-byte f32 row at
 //   D=128; 16 lanes, two rows a warp, at D=64), a 16-byte vector a lane,
-//   so a warp's loads and stores are whole coalesced segments.
+//   so a warp's loads and stores are whole coalesced segments. A row that
+//   is not a multiple of 16 bytes (or a table whose base is not 16-byte
+//   aligned) moves in the widest unit of 8, 4 or 2 bytes that divides its
+//   bytes and the base: SASRec's d = 50 is 200-byte f32 rows, 8-byte
+//   units, 25 a row. The unit is a template parameter (U); rows of 16-byte
+//   multiples run the uint4 instantiation they always ran.
 // - Each lane group takes kRows = 4 rows, a block's rows apart, and issues
 //   the loads of all four before it stores any: four rows in flight a
 //   lane, to hide the latency of rows whose ids it has just read (one
@@ -26,7 +31,10 @@
 // - A block for every 4 x (256 / lanes) rows; no grid-stride loop.
 // - The store converts: f32 rows to bf16 go out as 8-byte packs of four
 //   round-to-nearest-even values (cvt.rn.bf16x2.f32), bf16 to f32 as two
-//   16-byte stores, the same dtype as it came.
+//   16-byte stores, the same dtype as it came; a narrower unit converts
+//   the same way into an output piece of its own width (an 8-byte f32
+//   piece into a 4-byte bf16 pair, a 4-byte one into one bf16 by
+//   cvt.rn.bf16.f32).
 // - Table reads take the non-coherent path (__ldg): no kernel writes the
 //   table while this one runs.
 // Measured against the alternatives on an H100 (kernel_probes.py gather,
@@ -104,6 +112,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -122,28 +132,35 @@ struct NanWord<__nv_bfloat16> {
   static constexpr unsigned int kValue = 0x7FC07FC0u;
 };
 
-// The output bytes of one 16-byte input vector, all NaN words of Out.
+// kBytes output bytes (2 to 32), all of them words w (a dtype's NaN word
+// repeated, or 0): the store of one input unit's output.
 template <int kBytes>
 __device__ __forceinline__ void store_words(unsigned char* dst, unsigned int w) {
-  if constexpr (kBytes == 8) {
+  if constexpr (kBytes == 2) {
+    *reinterpret_cast<unsigned short*>(dst) = static_cast<unsigned short>(w);
+  } else if constexpr (kBytes == 4) {
+    *reinterpret_cast<unsigned int*>(dst) = w;
+  } else if constexpr (kBytes == 8) {
     *reinterpret_cast<uint2*>(dst) = make_uint2(w, w);
   } else {
     for (int i = 0; i < kBytes / 16; ++i) reinterpret_cast<uint4*>(dst)[i] = make_uint4(w, w, w, w);
   }
 }
 
-// A 16-byte input vector's values stored in the output dtype at dst.
-template <typename In, typename Out>
+// One input unit U's values stored in the output dtype at dst. The unit a
+// lane moves is the widest of 16, 8, 4 or 2 bytes that divides the row's
+// bytes and the table's base (gather_rows chooses it): rows of 16-byte
+// multiples take uint4, as they always did; the narrower units are the same
+// kernel's loads and stores at another width.
+template <typename In, typename Out, typename U = uint4>
 struct Convert;
-template <typename T>
-struct Convert<T, T> {
-  static constexpr int kOutBytes = 16;
-  __device__ static void store(unsigned char* dst, uint4 v) {
-    *reinterpret_cast<uint4*>(dst) = v;
-  }
+template <typename T, typename U>
+struct Convert<T, T, U> {
+  static constexpr int kOutBytes = sizeof(U);
+  __device__ static void store(unsigned char* dst, U v) { *reinterpret_cast<U*>(dst) = v; }
 };
 template <>
-struct Convert<float, __nv_bfloat16> {
+struct Convert<float, __nv_bfloat16, uint4> {
   static constexpr int kOutBytes = 8;
   __device__ static void store(unsigned char* dst, uint4 v) {
     const __nv_bfloat162 lo = __floats2bfloat162_rn(__uint_as_float(v.x), __uint_as_float(v.y));
@@ -153,14 +170,40 @@ struct Convert<float, __nv_bfloat16> {
                    *reinterpret_cast<const unsigned int*>(&hi));
   }
 };
+// An 8-byte f32 piece: one 4-byte bf16 pair; a 4-byte one: one bf16.
 template <>
-struct Convert<__nv_bfloat16, float> {
-  static constexpr int kOutBytes = 32;
-  __device__ static void store(unsigned char* dst, uint4 v) {
-    // A bf16 is the top half of the f32 with the same value: exact.
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    d[0] = make_uint4(v.x << 16, v.x & 0xffff0000u, v.y << 16, v.y & 0xffff0000u);
-    d[1] = make_uint4(v.z << 16, v.z & 0xffff0000u, v.w << 16, v.w & 0xffff0000u);
+struct Convert<float, __nv_bfloat16, uint2> {
+  static constexpr int kOutBytes = 4;
+  __device__ static void store(unsigned char* dst, uint2 v) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(__uint_as_float(v.x), __uint_as_float(v.y));
+    *reinterpret_cast<unsigned int*>(dst) = *reinterpret_cast<const unsigned int*>(&p);
+  }
+};
+template <>
+struct Convert<float, __nv_bfloat16, unsigned> {
+  static constexpr int kOutBytes = 2;
+  __device__ static void store(unsigned char* dst, unsigned v) {
+    *reinterpret_cast<__nv_bfloat16*>(dst) = __float2bfloat16_rn(__uint_as_float(v));
+  }
+};
+// bf16 to f32: a bf16 is the top half of the f32 with the same value: exact.
+// Each 32-bit word of bf16 pairs becomes two floats.
+template <typename U>
+struct Convert<__nv_bfloat16, float, U> {
+  static constexpr int kOutBytes = 2 * sizeof(U);
+  __device__ static void store(unsigned char* dst, U v) {
+    if constexpr (sizeof(U) == 16) {
+      uint4* d = reinterpret_cast<uint4*>(dst);
+      d[0] = make_uint4(v.x << 16, v.x & 0xffff0000u, v.y << 16, v.y & 0xffff0000u);
+      d[1] = make_uint4(v.z << 16, v.z & 0xffff0000u, v.w << 16, v.w & 0xffff0000u);
+    } else if constexpr (sizeof(U) == 8) {
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(v.x << 16, v.x & 0xffff0000u, v.y << 16, v.y & 0xffff0000u);
+    } else if constexpr (sizeof(U) == 4) {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(v << 16, v & 0xffff0000u);
+    } else {  // one bf16
+      *reinterpret_cast<unsigned int*>(dst) = static_cast<unsigned int>(v) << 16;
+    }
   }
 };
 
@@ -178,19 +221,20 @@ __device__ __forceinline__ long long table_row(long long id, long long num_rows)
 }
 
 // lanes: the lanes of a row (a power of two up to 32, the smallest that
-// covers the row's 16-byte vectors, then passes over the rest); a block
+// covers the row's units U, then passes over the rest); a block
 // has kThreads / lanes lane groups, and lane group j of block b takes rows
 // (b * kR + k) * rows_per_block + j, k < kR: kR rows, all their loads
 // before any store. kWindow: the shard window [row0, row0 + num_rows) of a
 // row-sharded table (table holds its num_rows rows): id - row0 reads its
 // row, an id outside the window writes a zero row (its rows live on
 // another shard), JAX's jnp.where(owned, shard[clip(id - row0)], 0).
-template <typename Id, typename In, typename Out, int kR = kRows, bool kWindow = false>
+template <typename Id, typename In, typename Out, int kR = kRows, bool kWindow = false,
+          typename U = uint4>
 __global__ void __launch_bounds__(kThreads)
-gather_rows_kernel(const uint4* __restrict__ table, long long num_rows, int vecs, int lanes,
+gather_rows_kernel(const U* __restrict__ table, long long num_rows, int vecs, int lanes,
                    const Id* __restrict__ ids, long long n, unsigned char* __restrict__ out,
                    long long row0) {
-  constexpr int kOut = Convert<In, Out>::kOutBytes;
+  constexpr int kOut = Convert<In, Out, U>::kOutBytes;
   const int rows_per_block = kThreads / lanes;
   const int slot = threadIdx.x / lanes;
   const int lane = threadIdx.x % lanes;
@@ -202,7 +246,7 @@ gather_rows_kernel(const uint4* __restrict__ table, long long num_rows, int vecs
     id[k] = r < n ? static_cast<long long>(ids[r]) - (kWindow ? row0 : 0) : 0;
   }
   for (int c = lane; c < vecs; c += lanes) {
-    uint4 v[kR];
+    U v[kR];
 #pragma unroll
     for (int k = 0; k < kR; ++k) {
       if (r0 + k * rows_per_block < n && in_table<kWindow>(id[k], num_rows)) {
@@ -215,7 +259,7 @@ gather_rows_kernel(const uint4* __restrict__ table, long long num_rows, int vecs
       if (r >= n) break;
       unsigned char* dst = out + (r * vecs + c) * kOut;
       if (in_table<kWindow>(id[k], num_rows)) {
-        Convert<In, Out>::store(dst, v[k]);
+        Convert<In, Out, U>::store(dst, v[k]);
       } else {  // a zero row off the window, else the output dtype's NaN
         store_words<kOut>(dst, kWindow ? 0u : NanWord<Out>::kValue);
       }
@@ -224,8 +268,9 @@ gather_rows_kernel(const uint4* __restrict__ table, long long num_rows, int vecs
 }
 
 // kR: rows a lane group keeps in flight (kRows; the other counts are for
-// kernel_probes.py gather).
-template <typename Id, typename In, typename Out, int kR = kRows, bool kWindow = false>
+// kernel_probes.py gather). vecs: units U a row.
+template <typename Id, typename In, typename Out, int kR = kRows, bool kWindow = false,
+          typename U = uint4>
 int launch_gather(const void* table, long long num_rows, int vecs, const void* ids, long long n,
                   void* out, cudaStream_t s, long long row0 = 0) {
   int lanes = 1;
@@ -233,8 +278,8 @@ int launch_gather(const void* table, long long num_rows, int vecs, const void* i
   const long long per_block = static_cast<long long>(kThreads / lanes) * kR;
   const long long blocks = (n + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  gather_rows_kernel<Id, In, Out, kR, kWindow><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      static_cast<const uint4*>(table), num_rows, vecs, lanes, static_cast<const Id*>(ids), n,
+  gather_rows_kernel<Id, In, Out, kR, kWindow, U><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      static_cast<const U*>(table), num_rows, vecs, lanes, static_cast<const Id*>(ids), n,
       static_cast<unsigned char*>(out), row0);
   return static_cast<int>(cudaGetLastError());
 }
@@ -753,32 +798,56 @@ int launch_scatter(const void* g, const void* ids, long long n, long long num_ro
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
+// One table dtype's launches at unit U: by ids' width and output dtype.
+template <typename In, typename U, bool kWindow>
+int launch_gather_unit(int kind, const void* table, long long num_rows, int vecs,
+                       const void* ids, long long n, void* out, cudaStream_t s, long long row0) {
+  using bf16 = __nv_bfloat16;
+  constexpr int R = kRows;
+  switch (kind) {  // (ids are int64) * 2 + (out is bf16)
+    case 0: return launch_gather<int, In, float, R, kWindow, U>(table, num_rows, vecs, ids, n, out, s, row0);
+    case 1: return launch_gather<int, In, bf16, R, kWindow, U>(table, num_rows, vecs, ids, n, out, s, row0);
+    case 2: return launch_gather<long long, In, float, R, kWindow, U>(table, num_rows, vecs, ids, n, out, s, row0);
+    default: return launch_gather<long long, In, bf16, R, kWindow, U>(table, num_rows, vecs, ids, n, out, s, row0);
+  }
+}
+
 template <bool kWindow>
 int gather_rows(const void* table, long long num_rows, long long D, int table_is_bf16,
                 const void* ids, int ids_are_int64, long long n, void* out, int out_is_bf16,
                 long long row0, void* stream) {
   const long long row_bytes = D * (table_is_bf16 ? 2 : 4);
-  if (num_rows <= 0 || D <= 0 || row_bytes % 16 != 0 || row_bytes / 16 > 0x7fffffffLL || n < 0 ||
+  const int unit = mma::copy_unit(static_cast<unsigned long long>(row_bytes) |
+                                  reinterpret_cast<uintptr_t>(table));
+  // The output's unit: the input unit's values in the output dtype (up to 32
+  // bytes, stored as 16-byte halves).
+  const int out_unit = unit * (out_is_bf16 ? 2 : 4) / (table_is_bf16 ? 2 : 4);
+  if (num_rows <= 0 || D <= 0 || unit == 0 || row_bytes / unit > 0x7fffffffLL || n < 0 ||
       row0 < 0 || row0 > 0x7fffffffLL ||
-      (reinterpret_cast<uintptr_t>(table) | reinterpret_cast<uintptr_t>(out)) % 16 != 0) {
+      reinterpret_cast<uintptr_t>(out) % (out_unit < 16 ? out_unit : 16) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
-  const int vecs = static_cast<int>(row_bytes / 16);
+  const int vecs = static_cast<int>(row_bytes / unit);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
-  constexpr int R = kRows;
-  const int kind = (ids_are_int64 ? 4 : 0) | (table_is_bf16 ? 2 : 0) | (out_is_bf16 ? 1 : 0);
-  switch (kind) {
-    case 0: return launch_gather<int, float, float, R, kWindow>(table, num_rows, vecs, ids, n, out, s, row0);
-    case 1: return launch_gather<int, float, bf16, R, kWindow>(table, num_rows, vecs, ids, n, out, s, row0);
-    case 2: return launch_gather<int, bf16, float, R, kWindow>(table, num_rows, vecs, ids, n, out, s, row0);
-    case 3: return launch_gather<int, bf16, bf16, R, kWindow>(table, num_rows, vecs, ids, n, out, s, row0);
-    case 4: return launch_gather<long long, float, float, R, kWindow>(table, num_rows, vecs, ids, n, out, s, row0);
-    case 5: return launch_gather<long long, float, bf16, R, kWindow>(table, num_rows, vecs, ids, n, out, s, row0);
-    case 6: return launch_gather<long long, bf16, float, R, kWindow>(table, num_rows, vecs, ids, n, out, s, row0);
-    default: return launch_gather<long long, bf16, bf16, R, kWindow>(table, num_rows, vecs, ids, n, out, s, row0);
+  const int kind = (ids_are_int64 ? 2 : 0) | (out_is_bf16 ? 1 : 0);
+#define SEQREC_GATHER_ARGS kind, table, num_rows, vecs, ids, n, out, s, row0
+  if (!table_is_bf16) {  // f32 rows are multiples of 4 bytes
+    switch (unit) {
+      case 16: return launch_gather_unit<float, uint4, kWindow>(SEQREC_GATHER_ARGS);
+      case 8: return launch_gather_unit<float, uint2, kWindow>(SEQREC_GATHER_ARGS);
+      case 4: return launch_gather_unit<float, unsigned, kWindow>(SEQREC_GATHER_ARGS);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
+  switch (unit) {
+    case 16: return launch_gather_unit<bf16, uint4, kWindow>(SEQREC_GATHER_ARGS);
+    case 8: return launch_gather_unit<bf16, uint2, kWindow>(SEQREC_GATHER_ARGS);
+    case 4: return launch_gather_unit<bf16, unsigned, kWindow>(SEQREC_GATHER_ARGS);
+    default: return launch_gather_unit<bf16, unsigned short, kWindow>(SEQREC_GATHER_ARGS);
+  }
+#undef SEQREC_GATHER_ARGS
 }
 
 template <bool kWindow>
@@ -816,10 +885,11 @@ int scatter_add_rows(const void* g, int g_is_bf16, const void* ids, int ids_are_
 
 extern "C" {
 
-// table: [num_rows, D] float (table_is_bf16 = 0) or bf16 on the device,
-// 16-byte aligned, rows of a multiple of 16 bytes; ids: n ints (int64 when
-// ids_are_int64, else int32); out: [n, D] float (out_is_bf16 = 0) or bf16,
-// 16-byte aligned.
+// table: [num_rows, D] float (table_is_bf16 = 0) or bf16 on the device, any
+// D >= 1 (the unit: the widest of 16, 8, 4 or 2 bytes dividing the row's
+// bytes and the table's base); ids: n ints (int64 when ids_are_int64, else
+// int32); out: [n, D] float (out_is_bf16 = 0) or bf16, aligned to the
+// output unit (16-byte aligned always does).
 int seqrec_gather_rows(const void* table, long long num_rows, long long D, int table_is_bf16,
                        const void* ids, int ids_are_int64, long long n, void* out,
                        int out_is_bf16, void* stream) {

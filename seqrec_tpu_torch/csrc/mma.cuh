@@ -18,6 +18,16 @@
 
 namespace mma {
 
+// The widest copy unit of 16, 8, 4 or 2 bytes that divides `a`, the OR of a
+// row's bytes, its base addresses and its strides in bytes; 0 where none
+// does. The gather, the attention and the head move their rows in it.
+inline int copy_unit(unsigned long long a) {
+  for (int u = 16; u >= 2; u >>= 1) {
+    if (a % u == 0) return u;
+  }
+  return 0;
+}
+
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }

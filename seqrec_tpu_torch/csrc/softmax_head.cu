@@ -113,7 +113,10 @@ __device__ __forceinline__ void merge(float& m, float& l, float m2, float l2) {
   m = M;
 }
 
-template <int kTileM, int kTileK, int kStages, int kMinCtas>
+// kVec4: h and pos rows are read in float4s for the positive logit (H % 4
+// == 0, both 16-byte aligned: every shape the kernel took before); else a
+// float at a time, the same products summed in the same order.
+template <int kTileM, int kTileK, int kStages, int kMinCtas, bool kVec4 = true>
 __global__ void __launch_bounds__(kTileM * 2, kMinCtas)
 head_f32_kernel(const float* __restrict__ h, const float* __restrict__ pos,
                 const float* __restrict__ neg, const int* __restrict__ targets,
@@ -167,12 +170,19 @@ head_f32_kernel(const float* __restrict__ h, const float* __restrict__ pos,
         const float* pr = pos + static_cast<size_t>(row) * H;
 #pragma unroll 2
         for (int k = kl; k < H; k += 32) {
-          const float4 a = *reinterpret_cast<const float4*>(hr + k);
-          const float4 b = *reinterpret_cast<const float4*>(pr + k);
-          dot[g] = fmaf(a.x, b.x, dot[g]);
-          dot[g] = fmaf(a.y, b.y, dot[g]);
-          dot[g] = fmaf(a.z, b.z, dot[g]);
-          dot[g] = fmaf(a.w, b.w, dot[g]);
+          if constexpr (kVec4) {
+            const float4 a = *reinterpret_cast<const float4*>(hr + k);
+            const float4 b = *reinterpret_cast<const float4*>(pr + k);
+            dot[g] = fmaf(a.x, b.x, dot[g]);
+            dot[g] = fmaf(a.y, b.y, dot[g]);
+            dot[g] = fmaf(a.z, b.z, dot[g]);
+            dot[g] = fmaf(a.w, b.w, dot[g]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (k + e < H) dot[g] = fmaf(hr[k + e], pr[k + e], dot[g]);
+            }
+          }
         }
       }
     }
@@ -262,18 +272,19 @@ head_f32_kernel(const float* __restrict__ h, const float* __restrict__ pos,
   nll[row] = M + logf(l_own * expf(m_own - M) + expf(pl - M)) - pl;
 }
 
-// Launch variant <kTileM, kTileK, kStages, kMinCtas> of the f32 head; a
-// CUDA error code (0: launched). H % 4 == 0, H <= kF32MaxH, any S >= 1.
-template <int kTileM, int kTileK, int kStages, int kMinCtas>
+// Launch variant <kTileM, kTileK, kStages, kMinCtas, kVec4> of the f32 head;
+// a CUDA error code (0: launched). H <= kF32MaxH (H % 4 == 0 with kVec4), any
+// S >= 1.
+template <int kTileM, int kTileK, int kStages, int kMinCtas, bool kVec4 = true>
 int launch_head_f32_variant(const void* h, const void* pos, const void* neg,
                             const void* targets, const void* neg_ids, const void* pos_log_q,
                             const void* neg_log_q, void* nll, int N, int S, int H,
                             cudaStream_t stream) {
-  if (N <= 0 || S <= 0 || H <= 0 || H % 4 != 0 || H > kF32MaxH) {
+  if (N <= 0 || S <= 0 || H <= 0 || (kVec4 && H % 4 != 0) || H > kF32MaxH) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem = head_f32_smem<kTileM, kTileK, kStages>(H);
-  auto kernel = head_f32_kernel<kTileM, kTileK, kStages, kMinCtas>;
+  auto kernel = head_f32_kernel<kTileM, kTileK, kStages, kMinCtas, kVec4>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<(N + kTileM - 1) / kTileM, kTileM * 2, smem, stream>>>(
@@ -307,8 +318,12 @@ __device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v 
 __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
 // kKS: Hp / 16, the k16 steps of a row (H padded to Hp with zeros; Hp in
-// {16, 32, 64, 128, 256}).
-template <int kKS>
+// {16, 32, 64, 128, 256}). kU: the bytes a negative's row is copied in
+// (16 where H % 8 == 0 and the bases are 16-byte aligned, every shape the
+// kernel took before; 8 or 4 by cp.async; 2, one bf16, by a plain load and
+// store), and h and pos are read as bf16 pairs where kU >= 4 (H even, the
+// bases 4-byte aligned), else one bf16 at a time.
+template <int kKS, int kU = 16>
 __global__ void __launch_bounds__(kThreads, kKS <= 8 ? 2 : 1)
 head_mma_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __restrict__ pos,
                 const __nv_bfloat16* __restrict__ neg, const int* __restrict__ targets,
@@ -328,16 +343,25 @@ head_mma_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __rest
   }
   __syncthreads();
   const int tiles = (S + kSTile - 1) / kSTile;
-  const int pieces = H / 8;  // 16-byte pieces of a negative's row
+  constexpr int kE = kU / 2;  // bf16 a piece
+  const int pieces = H / kE;  // kU-byte pieces of a negative's row
   auto stage_tile = [&](int j) {
     if (j < tiles) {
       unsigned char* st = smem + (j % kHeadStages) * kStage;
       __nv_bfloat16* ns = reinterpret_cast<__nv_bfloat16*>(st);
       for (int c = threadIdx.x; c < kSTile * pieces; c += kThreads) {
-        const int r = c / pieces, k = 8 * (c - r * pieces), jr = j * kSTile + r;
+        const int r = c / pieces, k = kE * (c - r * pieces), jr = j * kSTile + r;
         const bool in = jr < S;
-        mma::cp_async16_zfill(ns + r * ld + k, in ? neg + static_cast<size_t>(jr) * H + k : neg,
-                              in ? 16 : 0);
+        const __nv_bfloat16* from = in ? neg + static_cast<size_t>(jr) * H + k : neg;
+        if constexpr (kU == 16) {
+          mma::cp_async16_zfill(ns + r * ld + k, from, in ? 16 : 0);
+        } else if constexpr (kU == 8) {
+          mma::cp_async8_zfill(ns + r * ld + k, from, in ? 8 : 0);
+        } else if constexpr (kU == 4) {
+          mma::cp_async4_zfill(ns + r * ld + k, from, in ? 4 : 0);
+        } else {
+          ns[r * ld + k] = in ? *from : __ushort_as_bfloat16(0);
+        }
       }
       int* ids = reinterpret_cast<int*>(st + kSTile * ld * 2);
       float* lq = reinterpret_cast<float*>(ids + kSTile);
@@ -375,8 +399,16 @@ head_mma_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __rest
         uint32_t hv = 0u, pv = 0u;
         if (row_in && k < H) {
           const size_t at = static_cast<size_t>(row) * H + k;
-          hv = *reinterpret_cast<const uint32_t*>(h + at);
-          pv = *reinterpret_cast<const uint32_t*>(pos + at);
+          if constexpr (kU >= 4) {  // H even: k + 1 < H too
+            hv = *reinterpret_cast<const uint32_t*>(h + at);
+            pv = *reinterpret_cast<const uint32_t*>(pos + at);
+          } else {  // an element tail: k + 1 may be past H
+            const unsigned short* hs = reinterpret_cast<const unsigned short*>(h + at);
+            const unsigned short* ps = reinterpret_cast<const unsigned short*>(pos + at);
+            const bool two = k + 1 < H;
+            hv = hs[0] | (two ? static_cast<uint32_t>(hs[1]) << 16 : 0u);
+            pv = ps[0] | (two ? static_cast<uint32_t>(ps[1]) << 16 : 0u);
+          }
         }
         a[st][2 * kh + mh] = hv;
         pdot[mh] = fmaf(bf16_lo(hv), bf16_lo(pv), pdot[mh]);
@@ -465,11 +497,11 @@ head_mma_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __rest
   }
 }
 
-template <int kKS>
+template <int kKS, int kU>
 int launch_mma_ks(const void* h, const void* pos, const void* neg, const int* targets,
                   const int* neg_ids, const float* pos_log_q, const float* neg_log_q,
                   float* nll, int N, int S, int H, size_t smem, cudaStream_t stream) {
-  auto kernel = head_mma_kernel<kKS>;
+  auto kernel = head_mma_kernel<kKS, kU>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -487,37 +519,56 @@ extern "C" {
 
 // The f32 design. h, pos [N, H], neg [S, H] float; targets [N], neg_ids
 // [S] int32; pos_log_q [N], neg_log_q [S] float; nll [N] float. All
-// contiguous, 16-byte aligned; H % 4 == 0, H <= 256 (H <= 128 with 128
-// rows a block); any S > 0. rows: 64 or 128 rows a block; smem_bytes as the
-// caller computed it for this layout, checked again here.
+// contiguous; H <= 256 (H <= 128 with 128 rows a block); any S > 0.
+// pos_unit: 16 where H % 4 == 0 and h, pos and neg are 16-byte aligned (the
+// positive logit in float4s), else 4, as the caller computed it, checked
+// again here. rows: 64 or 128 rows a block; smem_bytes as the caller
+// computed it for this layout, checked again here.
 int seqrec_head_forward(const void* h, const void* pos, const void* neg,
                         const void* targets, const void* neg_ids,
                         const void* pos_log_q, const void* neg_log_q, void* nll,
-                        int N, int S, int H, int rows, long long smem_bytes, void* stream) {
+                        int N, int S, int H, int rows, long long smem_bytes, int pos_unit,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec4 = mma::copy_unit(static_cast<unsigned long long>(H) * 4 |
+                                   reinterpret_cast<uintptr_t>(h) |
+                                   reinterpret_cast<uintptr_t>(pos) |
+                                   reinterpret_cast<uintptr_t>(neg)) == 16;
+  if (pos_unit != (vec4 ? 16 : 4) ||
+      (reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(pos) |
+       reinterpret_cast<uintptr_t>(neg)) % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#define SEQREC_HEAD_ARGS h, pos, neg, targets, neg_ids, pos_log_q, neg_log_q, nll, N, S, H, s
   if (H > 0 && H <= 128 && rows == 128 &&
       head_f32_smem<128, kF32KChunk, kF32Stages>(H) == smem_bytes) {
-    return launch_head_f32_variant<128, kF32KChunk, kF32Stages, 2>(
-        h, pos, neg, targets, neg_ids, pos_log_q, neg_log_q, nll, N, S, H, s);
+    return vec4 ? launch_head_f32_variant<128, kF32KChunk, kF32Stages, 2>(SEQREC_HEAD_ARGS)
+                : launch_head_f32_variant<128, kF32KChunk, kF32Stages, 2, false>(SEQREC_HEAD_ARGS);
   }
   if (H > 0 && H <= kF32MaxH && rows == 64 &&
       head_f32_smem<64, kF32KChunk, kF32Stages>(H) == smem_bytes) {
-    return launch_head_f32_variant<64, kF32KChunk, kF32Stages, 3>(
-        h, pos, neg, targets, neg_ids, pos_log_q, neg_log_q, nll, N, S, H, s);
+    return vec4 ? launch_head_f32_variant<64, kF32KChunk, kF32Stages, 3>(SEQREC_HEAD_ARGS)
+                : launch_head_f32_variant<64, kF32KChunk, kF32Stages, 3, false>(SEQREC_HEAD_ARGS);
   }
+#undef SEQREC_HEAD_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The bf16 design (tensor cores). h, pos [N, H], neg [S, H] bf16; targets
 // [N], neg_ids [S] int32; pos_log_q [N], neg_log_q [S] float; nll [N]
-// float. All contiguous, 16-byte aligned; H % 8 == 0, H <= 256; any S > 0.
-// smem_bytes (the ring: 3 stages of stage_bytes(Hp), Hp = H padded to 16,
-// 32, 64, 128 or 256) as the caller computed it, checked again here.
+// float. All contiguous; any H <= 256; any S > 0. unit: the widest of 16,
+// 8, 4 and 2 bytes that divides H * 2 and the bases of h, pos and neg, as
+// the caller computed it, checked again here. smem_bytes (the ring: 3 stages
+// of stage_bytes(Hp), Hp = H padded to 16, 32, 64, 128 or 256) as the
+// caller computed it, checked again here.
 int seqrec_head_forward_mma(const void* h, const void* pos, const void* neg,
                             const void* targets, const void* neg_ids,
                             const void* pos_log_q, const void* neg_log_q, void* nll,
-                            int N, int S, int H, long long smem_bytes, void* stream) {
-  if (N <= 0 || S <= 0 || H <= 0 || H % 8 != 0 || H > 256) {
+                            int N, int S, int H, long long smem_bytes, int unit, void* stream) {
+  if (N <= 0 || S <= 0 || H <= 0 || H > 256 ||
+      unit != mma::copy_unit(static_cast<unsigned long long>(H) * 2 |
+                             reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(pos) |
+                             reinterpret_cast<uintptr_t>(neg))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int ks = H <= 16 ? 1 : H <= 32 ? 2 : H <= 64 ? 4 : H <= 128 ? 8 : 16;
@@ -531,12 +582,17 @@ int seqrec_head_forward_mma(const void* h, const void* pos, const void* neg,
   const float* nlq = static_cast<const float*>(neg_log_q);
   float* out = static_cast<float*>(nll);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (ks) {
-    case 1: return launch_mma_ks<1>(h, pos, neg, t, ni, plq, nlq, out, N, S, H, smem, s);
-    case 2: return launch_mma_ks<2>(h, pos, neg, t, ni, plq, nlq, out, N, S, H, smem, s);
-    case 4: return launch_mma_ks<4>(h, pos, neg, t, ni, plq, nlq, out, N, S, H, smem, s);
-    case 8: return launch_mma_ks<8>(h, pos, neg, t, ni, plq, nlq, out, N, S, H, smem, s);
-    case 16: return launch_mma_ks<16>(h, pos, neg, t, ni, plq, nlq, out, N, S, H, smem, s);
+  switch (ks * 100 + unit) {
+#define SEQREC_MMA(KS, U) \
+  case KS * 100 + U: return launch_mma_ks<KS, U>(h, pos, neg, t, ni, plq, nlq, out, N, S, H, smem, s);
+#define SEQREC_MMA_UNITS(KS) SEQREC_MMA(KS, 16) SEQREC_MMA(KS, 8) SEQREC_MMA(KS, 4) SEQREC_MMA(KS, 2)
+    SEQREC_MMA_UNITS(1)
+    SEQREC_MMA_UNITS(2)
+    SEQREC_MMA_UNITS(4)
+    SEQREC_MMA_UNITS(8)
+    SEQREC_MMA_UNITS(16)
+#undef SEQREC_MMA_UNITS
+#undef SEQREC_MMA
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -6,7 +6,11 @@ kernel `_attn_kernel`, launched at :98) and its custom VJP `_attn_core_bwd`.
 Forward: a kernel, on the [B, T, N, Dh] layout as it comes (the slices of
 the qkv projection need no copy) and any T: the ragged last tile is
 zero-filled in shared memory, where the TPU wrapper pads T to its 128-row
-tile in device memory. Backward, as `_attn_core_bwd`: a recompute of the
+tile in device memory. Any Dh <= 256: q, k and v are staged in the widest
+unit of 16, 8, 4 or (bf16) 2 bytes that divides a head's row, their bases
+and their strides (SASRec at d = 50 reads 100-byte bf16 rows, 300 bytes
+apart, in 4-byte pieces), zero-padded in shared memory, never copied.
+Backward, as `_attn_core_bwd`: a recompute of the
 materialized [T, T] attention in plain tensor code
 (`reference.causal_attention`) and its autograd; a flash backward kernel is
 ROADMAP.md Queue 2 speed work.
@@ -49,6 +53,7 @@ import torch
 
 from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.ops import reference
+from seqrec_tpu_torch.ops.cuda import unit_bytes
 
 plain = reference.causal_attention
 
@@ -64,7 +69,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("attention")
     fn = lib.seqrec_attention_forward
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p]
+        ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.seqrec_attention_error_string.argtypes = [ctypes.c_int]
     lib.seqrec_attention_error_string.restype = ctypes.c_char_p
@@ -77,54 +83,72 @@ def head_dim_padded(Dh: int) -> int:
     return next(d for d in (16, 32, 64, 128, 256) if d >= Dh)
 
 
-def launch_config(B: int, T: int, N: int, Dh: int, dtype: torch.dtype) -> Dict:
-    """Design, grid, block and shared memory of one launch; ValueError for a
-    shape the kernels cannot take: Dh <= 256 and Dh * element size a
-    multiple of 16 bytes. bf16: a [64-row query tiles, B N] grid of 128
-    threads; Q and double-buffered K and V tiles of 64 rows of kD + 8 bf16
-    (at Dh = 64: 45 KB; at 256: 165 KB). f32: a one-dimensional grid of
-    ceil(T / 32) B N blocks (the tiles with the most keys first) of four
-    warps, 4 query rows a lane; Q and double-buffered K and V tiles of 32
-    rows of Dh + 4 f32 and each warp's [32][12] f32 P tile (at Dh = 64:
-    49 KB, four blocks an SM; at 256: 168 KB)."""
+def launch_config(B: int, T: int, N: int, Dh: int, dtype: torch.dtype,
+                  align: int = 16) -> Dict:
+    """Design, grid, block, staging unit and shared memory of one launch;
+    ValueError for a shape the kernels cannot take: any Dh from 1 to 256.
+    `align`: what the operands' bases and batch and time strides (in bytes)
+    are all multiples of (`operand_align`; 16 for contiguous tensors of
+    16-byte multiples). `unit_bytes`: the widest of 16, 8, 4 and 2 that
+    divides Dh * element size and `align`, the piece q, k and v are staged
+    in (an f32 operand is 4-byte aligned at least, so f32 takes 16, 8 or 4).
+    bf16: a [64-row query tiles, B N] grid of 128 threads; Q and
+    double-buffered K and V tiles of 64 rows of kD + 8 bf16 (at Dh = 64:
+    45 KB; at 256: 165 KB). f32: a one-dimensional grid of ceil(T / 32) B N
+    blocks (the tiles with the most keys first) of four warps, 4 query rows
+    a lane; Q and double-buffered K and V tiles of 32 rows of Dh4 + 4 f32
+    (Dh4: Dh rounded up to the float4 groups, zero-padded) and each warp's
+    [32][12] f32 P tile (at Dh = 64: 49 KB, four blocks an SM; at 256:
+    168 KB)."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"attention: dtype {dtype} not in float32/bfloat16")
     if min(B, T, N, Dh) <= 0:
         raise ValueError(f"attention: empty shape B={B} T={T} N={N} Dh={Dh}")
-    es = torch.empty((), dtype=dtype).element_size()
-    if Dh > MAX_HEAD_DIM or (Dh * es) % 16 != 0:
-        raise ValueError(f"attention: needs Dh <= {MAX_HEAD_DIM} and Dh*{es} % 16 == 0 "
-                         f"(Dh={Dh})")
+    if Dh > MAX_HEAD_DIM:
+        raise ValueError(f"attention: needs Dh <= {MAX_HEAD_DIM} (Dh={Dh})")
+    es = dtype.itemsize
+    unit = unit_bytes(Dh * es, align)
+    if unit < es or align < es:
+        raise ValueError(f"attention: {dtype} operands must be {es}-byte aligned "
+                         f"(align={align})")
     if dtype == torch.bfloat16:
         kD = head_dim_padded(Dh)
         return {"design": "mma.sync", "grid": [-(-T // TILE), B * N], "threads": 128,
-                "head_dim_padded": kD, "smem_bytes": 5 * TILE * (kD + 8) * 2}
+                "head_dim_padded": kD, "unit_bytes": unit,
+                "smem_bytes": 5 * TILE * (kD + 8) * 2}
     warps = F32_TILE // (2 * F32_LANE_ROWS)
     p_tiles = warps * F32_TILE * (2 * F32_LANE_ROWS + 4)  # kPFloats
+    dh4 = -(-Dh // 4) * 4
     return {"design": "flash-fma", "grid": [-(-T // F32_TILE) * B * N], "threads": 32 * warps,
-            "query_tile": F32_TILE, "key_tile": F32_TILE,
-            "smem_bytes": (5 * F32_TILE * (Dh + 4) + p_tiles) * 4}
+            "query_tile": F32_TILE, "key_tile": F32_TILE, "head_dim_padded": dh4,
+            "unit_bytes": unit, "smem_bytes": (5 * F32_TILE * (dh4 + 4) + p_tiles) * 4}
+
+
+def operand_align(*ts: torch.Tensor) -> int:
+    """The widest of 16, 8, 4 and 2 bytes that the base addresses and the
+    batch and time strides (in bytes) of every [B, T, N, Dh] operand are
+    multiples of."""
+    return unit_bytes(16, *(t.data_ptr() for t in ts),
+                      *(t.stride(d) * t.element_size() for t in ts for d in (0, 1)))
 
 
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
-    """`t` itself where the kernel can read it in place (Dh contiguous, the
-    head stride Dh, 16-byte aligned rows), else a contiguous copy."""
+    """`t` itself where the kernel can read it in place (Dh contiguous and
+    the head stride Dh: a strided view of Dh-contiguous rows at any
+    alignment), else a contiguous copy."""
     B, T, N, Dh = t.shape
-    es = t.element_size()
-    ok = (t.stride(3) == 1 and (N == 1 or t.stride(2) == Dh)
-          and t.data_ptr() % 16 == 0
-          and all((t.stride(d) * es) % 16 == 0 for d in (0, 1)))
+    ok = t.stride(3) == 1 and (N == 1 or t.stride(2) == Dh)
     return t if ok else t.contiguous()
 
 
 def _forward_kernel(q, k, v, scale: float) -> torch.Tensor:
     B, T, N, Dh = q.shape
-    cfg = launch_config(B, T, N, Dh, q.dtype)
     for name, t in (("k", k), ("v", v)):
         if tuple(t.shape) != (B, T, N, Dh) or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"attention: {name} {tuple(t.shape)} {t.dtype} on {t.device} "
                              f"does not match q {tuple(q.shape)} {q.dtype} on {q.device}")
     q, k, v = (_kernel_view(t) for t in (q, k, v))
+    cfg = launch_config(B, T, N, Dh, q.dtype, operand_align(q, k, v))
     out = torch.empty((B, T, N, Dh), dtype=q.dtype, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
@@ -132,7 +156,8 @@ def _forward_kernel(q, k, v, scale: float) -> torch.Tensor:
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, N, T, Dh, _DTYPE_CODE[q.dtype],
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            float(scale), cfg["smem_bytes"], torch.cuda.current_stream(q.device).cuda_stream,
+            float(scale), cfg["smem_bytes"], cfg["unit_bytes"],
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
         msg = lib.seqrec_attention_error_string(rc).decode()

@@ -37,6 +37,7 @@ import torch
 
 from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.ops import reference
+from seqrec_tpu_torch.ops.cuda import unit_bytes
 
 plain = reference.embedding_gather
 plain_backward = reference.embedding_scatter_add
@@ -52,6 +53,8 @@ MAX_ROW0 = 2 ** 31 - 1  # a shard window starts below 2^31 (ids are int32 or int
 
 # The dtypes the kernels read and write.
 DTYPES = (torch.float32, torch.bfloat16)
+THREADS = 256  # kThreads in csrc/gather.cu
+ROWS_IN_FLIGHT = 4  # kRows: rows a lane group loads before it stores any
 
 
 def _lib() -> ctypes.CDLL:
@@ -85,10 +88,39 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def launch_config(D: int, table_dtype: torch.dtype, dtype: torch.dtype | None = None,
+                  base: int = 0) -> dict:
+    """The gather's unit and lanes for [V, D] rows of `table_dtype` at a
+    table address `base` (0: a 16-byte aligned one) into `dtype` (the
+    table's when None); ValueError for what it cannot take. Any D >= 1: the
+    unit is the widest of 16, 8, 4 and 2 bytes that divides the row's bytes
+    and the base (an f32 table's rows always take 4), its output piece the
+    same values in `dtype`; a row is `units` of them on `lanes` lanes (a
+    power of two up to 32), 256 / lanes rows a block, 4 in flight a lane
+    group."""
+    dtype = table_dtype if dtype is None else dtype
+    if table_dtype not in DTYPES or dtype not in DTYPES:
+        raise ValueError(f"gather: table dtype {table_dtype} and output dtype {dtype} must "
+                         "be float32/bfloat16")
+    if D <= 0:
+        raise ValueError(f"gather: D={D}; the kernel takes D >= 1")
+    es = table_dtype.itemsize
+    unit = unit_bytes(D * es, base)
+    if unit == 0:
+        raise ValueError(f"gather: a {table_dtype} table at address {base:#x} is not "
+                         f"{es}-byte aligned")
+    units = D * es // unit
+    lanes = min(32, 1 << (units - 1).bit_length())
+    out_es = dtype.itemsize
+    return {"unit_bytes": unit, "out_unit_bytes": unit * out_es // es, "units": units,
+            "lanes": lanes, "rows_per_block": THREADS // lanes * ROWS_IN_FLIGHT,
+            "threads": THREADS}
+
+
 def check_launchable(table: torch.Tensor, ids: torch.Tensor,
-                     dtype: torch.dtype | None = None) -> None:
+                     dtype: torch.dtype | None = None) -> dict:
     """Raise ValueError for inputs the kernel cannot take (`dtype`: the
-    output's, the table's when None)."""
+    output's, the table's when None); else its launch configuration."""
     if table.dim() != 2:
         raise ValueError(f"gather: table must be [V, D], got {tuple(table.shape)}")
     if table.dtype not in DTYPES:
@@ -101,12 +133,7 @@ def check_launchable(table: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"gather: ids on {ids.device}, table on {table.device}")
     if not table.is_contiguous():
         raise ValueError("gather: table must be contiguous")
-    row_bytes = table.shape[1] * table.element_size()
-    if row_bytes % 16 != 0 or table.data_ptr() % 16 != 0:
-        raise ValueError(
-            f"gather: rows must be 16-byte multiples on a 16-byte aligned base "
-            f"(D={table.shape[1]}, {table.dtype})"
-        )
+    return launch_config(table.shape[1], table.dtype, dtype, table.data_ptr())
 
 
 def _gather_kernel(table: torch.Tensor, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -135,19 +162,23 @@ def scatter_add_plan(n: int, num_rows: int, D: int) -> dict:
     """The deterministic scatter-add's two launches for n ids into a
     [num_rows, D] table: chunks of `chunk` positions (256 up to n = 16,384,
     else 512: 25 to 50 chunks, one block each, at the training shapes),
-    then a warp a table row. ValueError for what it cannot take."""
+    then a warp a table row. `unit`: the f32 values a lane adds at once,
+    "float4" where D % 4 == 0 (on aligned bases), else "float" (any D).
+    ValueError for what it cannot take."""
     if not 0 <= n <= MAX_IDS or D <= 0 or not 0 < num_rows <= MAX_ROWS:
         raise ValueError(f"scatter_add: n={n}, num_rows={num_rows}, D={D}; the kernel "
                          f"takes 0 <= n <= {MAX_IDS}, 0 < num_rows <= {MAX_ROWS} and D > 0")
     chunk = CHUNKS[0] if n <= 64 * CHUNKS[0] else CHUNKS[1]
     return {"chunk": chunk, "chunks": -(-n // chunk), "threads": chunk, "sub_run": SUB_RUN,
-            "launches": 2 if n else 0, "deterministic": True}
+            "launches": 2 if n else 0, "deterministic": True,
+            "unit": "float4" if D % 4 == 0 else "float"}
 
 
 def check_scatter_add_launchable(g: torch.Tensor, ids: torch.Tensor,
                                  num_rows: int) -> dict:
     """Raise ValueError for inputs the scatter-add kernel cannot take; else
-    its plan."""
+    its plan, its unit at g's base (float4 needs 16 bytes of f32 g, or 8 of
+    bf16, aligned)."""
     if ids.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"scatter_add: ids dtype {ids.dtype} not in int32/int64")
     if g.dtype not in DTYPES:
@@ -158,7 +189,10 @@ def check_scatter_add_launchable(g: torch.Tensor, ids: torch.Tensor,
             or num_rows <= 0 or g.shape[-1] <= 0:
         raise ValueError(f"scatter_add: g {tuple(g.shape)} does not match ids "
                          f"{tuple(ids.shape)} and num_rows={num_rows}")
-    return scatter_add_plan(ids.numel(), num_rows, g.shape[-1])
+    plan = scatter_add_plan(ids.numel(), num_rows, g.shape[-1])
+    if g.data_ptr() % (4 * g.element_size()) != 0:  # four values of g
+        plan["unit"] = "float"
+    return plan
 
 
 def _sequential_sums(values: torch.Tensor, seg: torch.Tensor, groups: int) -> torch.Tensor:

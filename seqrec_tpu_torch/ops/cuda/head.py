@@ -14,7 +14,15 @@ note):
   no TF32; the main loop of the f32 input projection, `csrc/simt_gemm.cuh`)
   with an online logsumexp as its epilogue: a block's 64 or 128 h rows
   resident in shared memory, the negatives streamed in S-tiles of 128
-  through a cp.async ring (any S, any H <= 256 with H % 4 == 0).
+  through a cp.async ring (any S, any H <= 256).
+
+Every H from 1 to 256 in both dtypes: bf16 copies a negative's row in the
+widest unit of 16, 8, 4 or 2 bytes that divides its bytes and the bases
+(zero-filled to Hp in shared memory) and reads h as bf16 pairs, or one bf16
+at a time where that unit is 2 bytes (H odd, or a base off a 4-byte
+boundary); f32 reads h and pos a float at a time for the
+positive logit where they are not 16-byte rows on 16-byte bases. No operand
+is copied for the kernel's sake.
 
 The backward is the JAX package's `_head_core_bwd`: a recompute of the
 softmax in plain tensor code (`reference.sampled_softmax_nll_bwd`), whose two
@@ -37,6 +45,7 @@ import torch
 
 from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.ops import reference
+from seqrec_tpu_torch.ops.cuda import unit_bytes
 
 plain = reference.sampled_softmax_nll
 
@@ -62,12 +71,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("softmax_head")
     fn = lib.seqrec_head_forward
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     mma = lib.seqrec_head_forward_mma
     mma.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
     ]
     mma.restype = ctypes.c_int
     lib.seqrec_head_error_string.argtypes = [ctypes.c_int]
@@ -75,15 +84,18 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def launch_config(N: int, S: int, H: int, dtype: torch.dtype) -> Dict:
+def launch_config(N: int, S: int, H: int, dtype: torch.dtype, align: int = 16) -> Dict:
     """Design, grid and shared-memory layout for one launch; ValueError for
-    a shape the kernel cannot take.
+    a shape the kernel cannot take: any H from 1 to 256, any S. `align`:
+    what the bases of h, pos_emb and neg_emb are all multiples of (16 for
+    tensors of their own).
 
     bf16 ("mma.sync"): 128 rows a block (8 warps of 16), H padded with
-    zeros to Hp in {16, 32, 64, 128, 256} (needs H % 8 == 0 for 16-byte
-    copies of a negative's row, and H <= 256: a warp's h rows stay in
-    registers), a ring of STAGES S-tiles of 64 negatives [64][Hp + 8] bf16
-    with their ids and logQ: any S.
+    zeros to Hp in {16, 32, 64, 128, 256} (H <= 256: a warp's h rows stay
+    in registers), a negative's row copied in pieces of `unit_bytes`, the
+    widest of 16, 8, 4 and 2 that divides H * 2 and `align` (h and pos read
+    as bf16 pairs at 4 and up, else one bf16 at a time), a ring of STAGES
+    S-tiles of 64 negatives [64][Hp + 8] bf16 with their ids and logQ.
 
     f32 ("simt-stream"): 64 rows a block of 128 threads (8 x 8 logits a
     thread), or 128 rows of 256 threads where H <= 128 and N >= 12,288 (at
@@ -91,34 +103,42 @@ def launch_config(N: int, S: int, H: int, dtype: torch.dtype) -> Dict:
     64 rows leave a second wave of 4): their h transposed into shared
     memory once ([Hp][rows + 4] f32, H padded with zeros to Hp, a multiple
     of the 32-deep k chunk), the negatives streamed in S-tiles of 128
-    through a ring of two k chunks ([32][132] f32 each): any S, and H <= 256
-    with H % 4 == 0 (16-byte rows for the positive logit's float4 reads)."""
+    through a ring of two k chunks ([32][132] f32 each): any S, and H <= 256;
+    `pos_unit_bytes` 16 where h and pos are 16-byte rows (H % 4 == 0) and
+    `align` is 16 (the positive logit's float4 reads), else 4."""
     if dtype not in _DTYPES:
         raise ValueError(f"softmax_head: dtype {dtype} not in float32/bfloat16")
     if min(N, S, H) <= 0:
         raise ValueError(f"softmax_head: empty shape N={N} S={S} H={H}")
+    es = dtype.itemsize
+    if align < es or align % es:
+        raise ValueError(f"softmax_head: {dtype} operands must be {es}-byte aligned "
+                         f"(align={align})")
     if dtype == torch.bfloat16:
-        if H % 8 != 0 or H > MMA_MAX_H:
-            raise ValueError(f"softmax_head: bf16 needs H % 8 == 0 and H <= {MMA_MAX_H} "
-                             f"(H={H})")
+        if H > MMA_MAX_H:
+            raise ValueError(f"softmax_head: bf16 needs H <= {MMA_MAX_H} (H={H})")
         hp = max(16, 1 << (H - 1).bit_length())
         return {"design": "mma.sync", "grid": -(-N // MMA_ROWS), "threads": 256,
                 "rows_per_block": MMA_ROWS, "hidden_padded": hp, "s_tile": S_TILE,
+                "unit_bytes": unit_bytes(H * 2, align),
                 "smem_bytes": STAGES * (S_TILE * (hp + 8) * 2 + S_TILE * 8)}
-    if H % 4 != 0 or H > F32_MAX_H:
-        raise ValueError(f"softmax_head: f32 needs H % 4 == 0 and H <= {F32_MAX_H} (H={H})")
+    if H > F32_MAX_H:
+        raise ValueError(f"softmax_head: f32 needs H <= {F32_MAX_H} (H={H})")
     rows = WIDE_ROWS if H <= WIDE_MAX_H and N >= WIDE_MIN_N else ROWS_PER_BLOCK
     hp = -(-H // F32_K_CHUNK) * F32_K_CHUNK
     smem = (hp * (rows + 4) + F32_STAGES * F32_K_CHUNK * (F32_S_TILE + 4) + 4 * rows) * 4
     return {"design": "simt-stream", "grid": -(-N // rows), "threads": 2 * rows,
             "rows_per_block": rows, "hidden_padded": hp, "s_tile": F32_S_TILE,
-            "k_chunk": F32_K_CHUNK, "stages": F32_STAGES, "smem_bytes": smem}
+            "k_chunk": F32_K_CHUNK, "stages": F32_STAGES,
+            "pos_unit_bytes": 16 if unit_bytes(H * 4, align) == 16 else 4,
+            "smem_bytes": smem}
 
 
 def check_launchable(h, pos_emb, neg_emb, targets, neg_ids, pos_log_q,
                      neg_log_q) -> Dict[str, int]:
     """Raise ValueError for inputs the kernel cannot take; else its launch
-    configuration."""
+    configuration (at the bases of h, pos_emb and neg_emb as they are
+    passed; the kernel reads contiguous copies of any that are not)."""
     if h.dim() != 2 or neg_emb.dim() != 2:
         raise ValueError(f"softmax_head: h {tuple(h.shape)} and neg_emb "
                          f"{tuple(neg_emb.shape)} must be 2-D")
@@ -134,37 +154,36 @@ def check_launchable(h, pos_emb, neg_emb, targets, neg_ids, pos_log_q,
             raise ValueError(f"softmax_head: {name} on {t.device}, h on {h.device}")
     if pos_emb.dtype != h.dtype or neg_emb.dtype != h.dtype:
         raise ValueError("softmax_head: h, pos_emb and neg_emb need one dtype")
-    return launch_config(N, S, H, h.dtype)
+    return launch_config(N, S, H, h.dtype, unit_bytes(16, *(t.data_ptr() for t in
+                                                             (h, pos_emb, neg_emb))))
 
 
 def _forward_kernel(h, pos_emb, neg_emb, targets, neg_ids, pos_log_q,
                     neg_log_q) -> torch.Tensor:
-    cfg = check_launchable(h, pos_emb, neg_emb, targets, neg_ids, pos_log_q,
-                           neg_log_q)
+    cfg = check_launchable(h, pos_emb, neg_emb, targets, neg_ids, pos_log_q, neg_log_q)
     N, H = h.shape
     S = neg_emb.shape[0]
     args = [h.contiguous(), pos_emb.contiguous(), neg_emb.contiguous(),
             targets.to(torch.int32).contiguous(), neg_ids.to(torch.int32).contiguous(),
             pos_log_q.to(torch.float32).contiguous(),
             neg_log_q.to(torch.float32).contiguous()]
+    if any(a.data_ptr() != t.data_ptr() for a, t in zip(args, (h, pos_emb, neg_emb))):
+        # The units at the bases the kernel reads (a view off a 16-byte
+        # boundary takes a narrower one; nothing is copied for its sake).
+        cfg = launch_config(N, S, H, h.dtype,
+                            unit_bytes(16, *(a.data_ptr() for a in args[:3])))
     nll = torch.empty((N,), dtype=torch.float32, device=h.device)
     lib = _lib()
     stream = torch.cuda.current_stream(h.device).cuda_stream
     with torch.cuda.device(h.device):
         if cfg["design"] == "mma.sync":
-            # Rows of neg_emb are copied in 16-byte pieces, h and pos_emb
-            # read in 4-byte pairs.
-            if args[2].data_ptr() % 16 or args[0].data_ptr() % 4 or args[1].data_ptr() % 4:
-                raise ValueError("softmax_head: neg_emb must be 16-byte aligned, h and "
-                                 "pos_emb 4-byte aligned")
             rc = lib.seqrec_head_forward_mma(*(a.data_ptr() for a in args), nll.data_ptr(),
-                                             N, S, H, cfg["smem_bytes"], stream)
+                                             N, S, H, cfg["smem_bytes"], cfg["unit_bytes"],
+                                             stream)
         else:
-            # h and pos_emb are read in float4s for the positive logit: a
-            # view that starts off a 16-byte boundary is copied.
-            args[:2] = [a if a.data_ptr() % 16 == 0 else a.clone() for a in args[:2]]
             rc = lib.seqrec_head_forward(*(a.data_ptr() for a in args), nll.data_ptr(), N, S,
-                                         H, cfg["rows_per_block"], cfg["smem_bytes"], stream)
+                                         H, cfg["rows_per_block"], cfg["smem_bytes"],
+                                         cfg["pos_unit_bytes"], stream)
     if rc != 0:
         msg = lib.seqrec_head_error_string(rc).decode()
         raise RuntimeError(f"softmax_head kernel launch failed: CUDA error {rc} ({msg})")

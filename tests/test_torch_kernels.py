@@ -123,9 +123,16 @@ def test_gather_kernel_empty_ids_launch_nothing(cuda):
 
 
 def test_gather_kernel_raises_on_rows_it_cannot_take(cuda):
-    with pytest.raises(ValueError, match="16-byte"):
-        k_gather.embedding_gather(torch.zeros(4, 6, device=cuda),
-                                  torch.zeros(2, dtype=torch.int32, device=cuda))
+    """Rows of 24 bytes (D = 6 in f32), which the 16-byte design refused,
+    launch in 8-byte units and give the plain version's bits; a table that
+    is not a contiguous [V, D] still raises."""
+    table = torch.arange(24, dtype=torch.float32, device=cuda).reshape(4, 6)
+    ids = torch.tensor([3, 0, -1, 4], dtype=torch.int32, device=cuda)
+    assert k_gather.check_launchable(table, ids)["unit_bytes"] == 8
+    got = k_gather.embedding_gather(table, ids)
+    assert _nan_equal(got, k_gather.plain(table, ids))
+    with pytest.raises(ValueError, match="contiguous"):
+        k_gather.embedding_gather(table.t(), ids)
 
 
 def _gru_args(B, T, D, H, dtype, device, seed=0):
@@ -714,8 +721,9 @@ def test_head_loss_fwd_bwd_matches_the_plain_loss(cuda):
 
 def test_head_f32_kernel_takes_views_off_a_16_byte_boundary(cuda):
     """h and pos_emb as views that start 4 bytes past a 16-byte boundary
-    (the f32 design reads them in float4s): the wrapper copies them, and
-    the NLL equals the one of aligned copies bit for bit."""
+    (the f32 design reads aligned ones in float4s): the kernel reads them a
+    float at a time, no copy, and the NLL equals the one of aligned copies
+    bit for bit (the same products summed in the same order)."""
     h, pos, neg, targets, neg_ids, plq, nlq = _head_args(70, 130, 64, torch.float32, cuda)
     flat_h = torch.empty(70 * 64 + 1, device=cuda)
     flat_p = torch.empty(70 * 64 + 1, device=cuda)
@@ -723,6 +731,8 @@ def test_head_f32_kernel_takes_views_off_a_16_byte_boundary(cuda):
     flat_p[1:] = pos.reshape(-1)
     hv, pv = flat_h[1:].view(70, 64), flat_p[1:].view(70, 64)
     assert hv.data_ptr() % 16 and pv.data_ptr() % 16
+    assert k_head.check_launchable(hv, pv, neg, targets, neg_ids, plq, nlq)[
+        "pos_unit_bytes"] == 4
     got = k_head.sampled_softmax_nll(hv, pv, neg, targets, neg_ids, plq, nlq)
     want = k_head.sampled_softmax_nll(h, pos, neg, targets, neg_ids, plq, nlq)
     assert torch.equal(got, want)
@@ -730,8 +740,9 @@ def test_head_f32_kernel_takes_views_off_a_16_byte_boundary(cuda):
 
 def test_head_kernel_raises_on_what_it_cannot_take(cuda):
     """2,000 negatives (past what the first f32 design could stage) launch;
-    an f32 width past 256 or not a multiple of 4, or operands of two
-    dtypes, raise."""
+    an f32 width not a multiple of 4 (H = 30), which the float4 design
+    refused, launches too; a width past 256, or operands of two dtypes,
+    raise."""
     h, pos, neg, targets, neg_ids, plq, nlq = _head_args(8, 16, 32, torch.float32, cuda)
     many = (torch.randn(2000, 32, device=cuda) * 0.1,
             torch.arange(2000, dtype=torch.int32, device=cuda) + 1000,
@@ -739,8 +750,12 @@ def test_head_kernel_raises_on_what_it_cannot_take(cuda):
     got = k_head.sampled_softmax_nll(h, pos, many[0], targets, many[1], plq, many[2])
     torch.testing.assert_close(got, k_head.plain(h, pos, many[0], targets, many[1], plq,
                                                  many[2]), rtol=1e-5, atol=1e-5)
-    for width, match in ((260, "H <= 256"), (30, "H % 4 == 0")):
+    for width, match in ((260, "H <= 256"), (30, None)):
         a = _head_args(8, 16, width, torch.float32, cuda)
+        if match is None:
+            torch.testing.assert_close(k_head.sampled_softmax_nll(*a), k_head.plain(*a),
+                                       rtol=1e-5, atol=1e-5)
+            continue
         with pytest.raises(ValueError, match=match):
             k_head.sampled_softmax_nll(*a)
     with pytest.raises(ValueError, match="one dtype"):
@@ -1753,3 +1768,133 @@ def test_fit_resume_equals_straight_on_the_card(cuda, tmp_path, mode):
         lambda s: s.opt_state["mu"])
     for name, t in opt(straight).items():
         assert torch.equal(t, opt(resumed)[name]), name
+
+
+# ---------------------------------------------------------------------------
+# Every width up to 256: rows that are not 16-byte multiples (SASRec at its
+# paper's d = 50, GRU4Rec's 100 units under a sampled softmax). Each kernel
+# runs twice on the same inputs (equal bits) and is held against its plain
+# version at its usual limit: the gather bit for bit, the head 1e-4
+# (HEAD_TOL), the attention 2e-5 in f32 and, in bf16, 5e-2 against the
+# plain version and 2e-2 against f32 math on the same inputs.
+# ---------------------------------------------------------------------------
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("table_dtype,dtype", [
+    (torch.float32, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("D", [50, 25, 3])
+def test_gather_kernel_takes_every_width_bit_exact_twice(cuda, table_dtype, dtype, D):
+    """At serving's [64, 200] Zipf ids with planted out-of-range ones, from
+    a [3418, D] table whose rows are not 16-byte multiples (f32 D = 50: 8-byte
+    units; 25 and 3: 4-byte; bf16 2- or 4-byte), also through a base 4
+    bytes off a 16-byte boundary, and the shard-window variant: bit for bit
+    the plain version (NaN rows' words included), the same bits twice."""
+    V = 3418
+    rng = np.random.default_rng(D)
+    ids = rng.integers(0, V, size=(64, 200))
+    ids[0, :5] = [-1, -V, V, -V - 1, 10 ** 6]
+    ids = torch.from_numpy(ids).to(cuda, torch.int32)
+    flat = torch.from_numpy(rng.normal(size=V * D + 2).astype(np.float32)).to(cuda, table_dtype)
+    es = flat.element_size()
+    for off in (0, 4 // es):
+        table = flat[off:off + V * D].view(V, D)
+        cfg = k_gather.check_launchable(table, ids, dtype)
+        assert cfg == k_gather.launch_config(D, table_dtype, dtype, table.data_ptr())
+        assert cfg["unit_bytes"] < 16
+        a = k_gather.embedding_gather(table, ids, dtype=dtype)
+        b = k_gather.embedding_gather(table, ids, dtype=dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(a), _bits(b))
+        assert torch.equal(_bits(a), _bits(k_gather.plain(table, ids, dtype=dtype)))
+        assert bool(torch.isnan(a[0, 2:5]).all()) and not bool(torch.isnan(a[0, :2]).any())
+    row0 = 1000
+    shard = flat[:V * D].view(V, D)[row0:row0 + 500]
+    win = k_gather.embedding_gather_window(shard, ids, row0, dtype=dtype)
+    assert torch.equal(_bits(win), _bits(reference.embedding_gather_window(
+        shard, ids, row0, dtype=dtype)))
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_scatter_add_kernel_at_d50_takes_the_float_unit(cuda, g_dtype):
+    """The gather's backward at SASRec d = 50's training shape (25,600 Zipf
+    ids, half of them padding, into 3,418 rows): the float-unit path with
+    an f32 and a bf16 cotangent, the same bits twice, bit for bit
+    plain_ordered and within 1e-5 of the plain version."""
+    rng = np.random.default_rng(50)
+    V, n, D = 3418, 25_600, 50
+    ids = torch.from_numpy(_zipf_ids(rng, n, V, 0.5)).to(cuda)
+    g = torch.from_numpy(rng.normal(scale=1e-2, size=(n, D)).astype(np.float32)).to(cuda)
+    g = g.to(g_dtype)
+    plan = k_gather.check_scatter_add_launchable(g, ids, V)
+    assert plan["unit"] == "float"
+    a = k_gather.embedding_scatter_add(g, ids, V)
+    b = k_gather.embedding_scatter_add(g, ids, V)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a, k_gather.plain_ordered(g, ids, V, plan["chunk"]))
+    torch.testing.assert_close(a, k_gather.plain_backward(g, ids, V), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [50, 25, 6])
+@pytest.mark.parametrize("N", [1, 2])
+def test_attention_kernel_takes_every_head_dim_twice(cuda, dtype, Dh, N):
+    """q, k and v as the SASRec block slices them from one [B, T, 3, N, Dh]
+    projection (rows 3 N Dh apart: 4-byte or, for an odd Dh in bf16, 2-byte
+    aligned), read in place, T = 200 and a ragged 65: the same bits twice,
+    within the usual limits of the plain version; the first rows alone give
+    the batch's bits."""
+    for T in (200, 65):
+        qkv = torch.randn(8, T, 3, N, Dh, generator=torch.Generator().manual_seed(Dh * T + N))
+        qkv = qkv.to(cuda, dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        assert k_attn._kernel_view(q).data_ptr() == q.data_ptr()
+        cfg = k_attn.launch_config(8, T, N, Dh, dtype, k_attn.operand_align(q, k, v))
+        assert cfg["unit_bytes"] < 16
+        before = k_attn.causal_attention.launches
+        a = k_attn.causal_attention(q, k, v)
+        b = k_attn.causal_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert k_attn.causal_attention.launches == before + 2
+        assert a.dtype == dtype and tuple(a.shape) == (8, T, N, Dh)
+        assert torch.equal(a, b)
+        assert torch.equal(k_attn.causal_attention(q[:3], k[:3], v[:3]), a[:3])
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, k_attn.plain(q, k, v), rtol=2e-5, atol=2e-5)
+        else:
+            torch.testing.assert_close(a.float(), k_attn.plain(q, k, v).float(), rtol=5e-2,
+                                       atol=5e-2)
+            exact = k_attn.plain(q.float(), k.float(), v.float())
+            torch.testing.assert_close(a.float(), exact, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [50, 100, 30])
+def test_head_kernel_takes_every_width_twice(cuda, dtype, H):
+    """The head at widths that are not 16-byte rows (bf16 H = 50 and 30:
+    4-byte pieces; H = 100: 8-byte; f32 50 and 30: the positive logit a
+    float at a time; f32 100 in float4s), at the training step's N = 25,600, S = 256 and a
+    ragged N = 300, S = 100, also with h a view 2 bytes (bf16) or 4 bytes
+    (f32) off a 4- or 16-byte boundary: the same bits twice, within 1e-4
+    of the plain version."""
+    for N, S in ((25_600, 256), (300, 100)):
+        h, pos, neg, targets, neg_ids, plq, nlq = _head_args(N, S, H, dtype, cuda, seed=N + H)
+        flat = torch.empty(N * H + 1, dtype=dtype, device=cuda)
+        flat[1:] = h.reshape(-1)
+        for hh in (h, flat[1:].view(N, H)):
+            cfg = k_head.check_launchable(hh, pos, neg, targets, neg_ids, plq, nlq)
+            unit = cfg.get("unit_bytes", cfg.get("pos_unit_bytes"))
+            assert unit < 16 or (dtype == torch.float32 and H % 4 == 0 and hh is h)
+            before = k_head.sampled_softmax_nll.launches
+            a = k_head.sampled_softmax_nll(hh, pos, neg, targets, neg_ids, plq, nlq)
+            b = k_head.sampled_softmax_nll(hh, pos, neg, targets, neg_ids, plq, nlq)
+            torch.cuda.synchronize()
+            assert k_head.sampled_softmax_nll.launches == before + 2
+            assert torch.equal(a, b)
+            want = k_head.plain(hh, pos, neg, targets, neg_ids, plq, nlq)
+            torch.testing.assert_close(a, want, rtol=0, atol=1e-4)

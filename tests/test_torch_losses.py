@@ -217,13 +217,14 @@ def test_head_launch_config_at_the_training_shape():
     threads, two an SM."""
     cfg = cuda_head.launch_config(25_600, 256, 128, torch.bfloat16)
     assert cfg == {"design": "mma.sync", "grid": 200, "threads": 256, "rows_per_block": 128,
-                   "hidden_padded": 128, "s_tile": 64,
+                   "hidden_padded": 128, "s_tile": 64, "unit_bytes": 16,
                    "smem_bytes": 3 * (64 * 136 * 2 + 64 * 8)}
     assert 2 * cfg["smem_bytes"] <= cuda_head.SMEM_LIMIT  # two blocks share an SM
     f32 = cuda_head.launch_config(25_600, 256, 128, torch.float32)
     assert f32 == {"design": "simt-stream", "grid": 200, "threads": 256,
                    "rows_per_block": 128, "hidden_padded": 128, "s_tile": 128, "k_chunk": 32,
-                   "stages": 2, "smem_bytes": (128 * 132 + 2 * 32 * 132 + 4 * 128) * 4}
+                   "stages": 2, "pos_unit_bytes": 16,
+                   "smem_bytes": (128 * 132 + 2 * 32 * 132 + 4 * 128) * 4}
     assert 2 * f32["smem_bytes"] <= cuda_head.SMEM_LIMIT  # two blocks share an SM
     odd = cuda_head.launch_config(100, 100, 100, torch.float32)
     assert (odd["grid"], odd["rows_per_block"], odd["hidden_padded"]) == (2, 64, 128)
@@ -272,10 +273,18 @@ def test_head_f32_takes_any_s_at_h_up_to_256(S, N, H):
     ((8, 16, 32), torch.float64, "dtype"),
     ((0, 16, 32), torch.float32, "empty"),
     ((8, 400, 260), torch.float32, "H <= 256"),
-    ((8, 400, 130), torch.float32, "H % 4 == 0"),
+    ((8, 400, 130), torch.float32, None),  # refused by the float4-only design; taken now
     ((8, 800, 264), torch.bfloat16, "H <= 256"),
 ])
 def test_head_kernel_rejects_what_it_cannot_take(shape, dtype, match):
+    """Widths past 256, other dtypes and empty shapes raise; an f32 H that
+    is not a multiple of 4 (130) launches, its positive logit a float at a
+    time."""
+    if match is None:
+        cfg = cuda_head.launch_config(*shape, dtype)
+        assert (cfg["design"], cfg["pos_unit_bytes"], cfg["hidden_padded"]) == (
+            "simt-stream", 4, 160)
+        return
     with pytest.raises(ValueError, match=match):
         cuda_head.launch_config(*shape, dtype)
 

@@ -146,16 +146,18 @@ def test_gather_bf16_table_gradient_matches_jax_bit_for_bit(ids):
 
 def test_gather_launchable_checks_at_d64():
     """The kernel's limits at the fit loop's width: an f32 or bf16 table of
-    D=64 writes f32 or bf16; other output dtypes and rows that are not a
-    16-byte multiple raise."""
+    D=64 writes f32 or bf16 in 16-byte units; other output dtypes raise;
+    rows that are not a 16-byte multiple (which the 16-byte design refused)
+    take a narrower unit."""
     ids = torch.zeros(128, 200, dtype=torch.int32)
     for table_dtype in (torch.float32, torch.bfloat16):
         for dtype in (None, torch.float32, torch.bfloat16):
             cuda_gather.check_launchable(torch.zeros(3418, 64, dtype=table_dtype), ids, dtype)
     with pytest.raises(ValueError, match="output dtype"):
         cuda_gather.check_launchable(torch.zeros(3418, 64), ids, torch.float16)
-    with pytest.raises(ValueError, match="16-byte"):
-        cuda_gather.check_launchable(torch.zeros(3418, 4, dtype=torch.bfloat16), ids)
+    assert cuda_gather.check_launchable(torch.zeros(3418, 64), ids)["unit_bytes"] == 16
+    assert cuda_gather.check_launchable(torch.zeros(3418, 4, dtype=torch.bfloat16),
+                                        ids)["unit_bytes"] == 8
     g = torch.zeros(128, 200, 64, dtype=torch.bfloat16)
     assert cuda_gather.check_scatter_add_launchable(g, ids, 3418)["chunk"] == 512
     with pytest.raises(ValueError, match="g dtype"):
@@ -165,12 +167,18 @@ def test_gather_launchable_checks_at_d64():
 @pytest.mark.parametrize("table,ids,match", [
     (torch.zeros(7, 16, dtype=torch.float64), torch.zeros(3, dtype=torch.int32), "dtype"),
     (torch.zeros(7), torch.zeros(3, dtype=torch.int32), r"\[V, D\]"),
-    (torch.zeros(7, 6), torch.zeros(3, dtype=torch.int32), "16-byte"),
+    (torch.zeros(7, 6), torch.zeros(3, dtype=torch.int32), None),  # 8-byte units now
     (torch.zeros(7, 16), torch.zeros(3), "ids dtype"),
     (torch.zeros(16, 7).T, torch.zeros(3, dtype=torch.int32), "contiguous"),
     (torch.zeros(7, 16), torch.zeros(3, dtype=torch.int32, device="meta"), "ids on"),
 ])
 def test_gather_kernel_rejects_what_it_cannot_take(table, ids, match):
+    """Other dtypes and shapes, non-contiguous tables and ids elsewhere
+    raise; 24-byte f32 rows (refused by the 16-byte design) take 8-byte
+    units."""
+    if match is None:
+        assert cuda_gather.check_launchable(table, ids)["unit_bytes"] == 8
+        return
     with pytest.raises(ValueError, match=match):
         cuda_gather.check_launchable(table, ids)
 

@@ -134,10 +134,10 @@ def test_attention_launch_config_at_the_training_shape():
     (49 KB: four blocks an SM)."""
     cfg = cuda_attention.launch_config(128, 200, 1, 64, torch.bfloat16)
     assert cfg == {"design": "mma.sync", "grid": [4, 128], "threads": 128,
-                   "head_dim_padded": 64, "smem_bytes": 5 * 64 * 72 * 2}
+                   "head_dim_padded": 64, "unit_bytes": 16, "smem_bytes": 5 * 64 * 72 * 2}
     f32 = cuda_attention.launch_config(128, 200, 1, 64, torch.float32)
     assert f32 == {"design": "flash-fma", "grid": [896], "threads": 128, "query_tile": 32,
-                   "key_tile": 32,
+                   "key_tile": 32, "head_dim_padded": 64, "unit_bytes": 16,
                    "smem_bytes": (5 * 32 * 68 + 4 * 32 * 12) * 4}
     assert 4 * f32["smem_bytes"] <= 228 * 1024  # an SM's shared memory
     for dtype in (torch.float32, torch.bfloat16):
@@ -182,11 +182,19 @@ def test_attention_bf16_pads_the_head_dim_to_mma_depth(Dh, kD):
 @pytest.mark.parametrize("shape,dtype,match", [
     ((2, 8, 1, 64), torch.float64, "dtype"),
     ((2, 8, 1, 264), torch.float32, "Dh <= 256"),
-    ((2, 8, 1, 12), torch.bfloat16, r"Dh\*2 % 16"),
-    ((2, 8, 1, 6), torch.float32, r"Dh\*4 % 16"),
+    ((2, 8, 1, 12), torch.bfloat16, None),  # refused by the 16-byte design; 8-byte pieces now
+    ((2, 8, 1, 6), torch.float32, None),  # the same; 8-byte pieces, Dh padded to 8
     ((0, 8, 1, 64), torch.float32, "empty"),
 ])
 def test_attention_kernel_rejects_what_it_cannot_take(shape, dtype, match):
+    """Head dims past 256, other dtypes and empty shapes raise; a head row
+    that is not a 16-byte multiple (Dh = 12 in bf16, 6 in f32) launches in
+    8-byte pieces."""
+    if match is None:
+        cfg = cuda_attention.launch_config(*shape, dtype)
+        assert cfg["unit_bytes"] == 8 and cfg["head_dim_padded"] == (16 if shape[3] == 12
+                                                                     else 8)
+        return
     with pytest.raises(ValueError, match=match):
         cuda_attention.launch_config(*shape, dtype)
 
