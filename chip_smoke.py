@@ -285,6 +285,20 @@ source, all at once). Each phase prints one JSON line:
               served (as phase h) and trained (as phases i and l, three
               groups) in bf16 and f32; GRU4Rec D = H = 100 trained, two K = 8
               groups (as phase f);
+  u. wide     (run after t, before n) above H = 256: the GRU's grid-persistent
+              layouts (forward and reverse, both variants, bf16 and f32) and
+              the head's K split against their plain versions, each launched
+              twice bit for bit, at the JAX package's wide GRU4Rec
+              (benchmarks/shapes.py's gru4rec_D512_B256_T200_S512: B=256,
+              T=200, D=H=512, the head at N=51,200, S=512; nn.GRU and h @
+              neg.T beside them) and at rsc15's reset shape with GRU4Rec's
+              1,000 units (B=256, T=50); the wide demo, built by the port's
+              bench_config (100,000 items, 512 sampled negatives), served as
+              phase d and trained, two K=8 groups in bf16 and in f32, as
+              phase f; GRU4Rec-1000 (configs/rsc15_gru4rec.json with
+              model.embed_dim=1000) trained session-parallel with the carry,
+              two K=8 groups, as phase k; the `train` subcommand on it (16
+              steps over 10,000 synthetic sessions, then its full eval);
   m. the kernels line: {"kernels": [{name, route, source, replaces,
               launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
               library_ms, design, dtype}, ...]} (the scatter-add also
@@ -303,7 +317,12 @@ source, all at once). Each phase prints one JSON line:
               `gru_backward_wide`), their launches counted on s3's chains;
               the gather, scatter-add, attention and head entries also
               `at_published_widths` (phase t: their d = 50 / H = 100 times,
-              bound, plain and library, and launches a step on that path).
+              bound, plain and library, and launches a step on that path);
+              the GRU's grid layouts and the head's K split in bf16 and f32
+              (`gru_scan_grid`, `gru_backward_grid`, `softmax_head_ksplit`,
+              each also `_f32`; phase u), their launches counted on the wide
+              demo's bf16 and f32 training paths, the GRU's also
+              `at_rsc15_h1000_reset`.
 
 Then the raw nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -394,7 +413,10 @@ XPROJ_TOL = 1e-5  # exact bf16 products summed in f32 on both sides, another ord
 # GRU 1e-2 (CPU emulation: 1e-3); SASRec 5e-2 (the plain attention rounds
 # its scores to bf16, through two blocks and LayerNorms); LSTM 5e-2 (the
 # plain scan also rounds its cell state to bf16 each step, over 200 steps).
-SCORE_TOL = {"gru4rec": 1e-2, "sasrec": 5e-2, "lstm": 5e-2, "beauty_gru": 1e-2}
+# The wide GRU4Rec (phase u): 512-term score dots, beauty_gru's 1e-2 at D =
+# 256 times sqrt(512 / 256), rounded up.
+SCORE_TOL = {"gru4rec": 1e-2, "sasrec": 5e-2, "lstm": 5e-2, "beauty_gru": 1e-2,
+             "gru4rec_wide": 2e-2}
 # f32 serving: the same f32 math through the tower in another summation
 # order (the GRU forward's f32 limit is 1e-5), then a 128-term score dot.
 F32_SCORE_TOL = 1e-4
@@ -469,15 +491,16 @@ def bound(bytes_moved: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def zipf_items(rng: np.random.Generator, n: int, ranked: bool = False) -> np.ndarray:
-    """Item ids 1..VOCAB-1 with Zipf(1.0) popularity over a random ranking,
+def zipf_items(rng: np.random.Generator, n: int, ranked: bool = False,
+               vocab: int = VOCAB) -> np.ndarray:
+    """Item ids 1..vocab-1 with Zipf(1.0) popularity over a random ranking,
     or, `ranked`, with id = popularity rank (as the data prep assigns ids,
     and as the log-uniform negative sampler assumes)."""
-    ranks = np.arange(1, VOCAB)
+    ranks = np.arange(1, vocab)
     p = 1.0 / ranks
     p /= p.sum()
     order = ranks if ranked else rng.permutation(ranks)
-    return order[rng.choice(VOCAB - 1, size=n, p=p)]
+    return order[rng.choice(vocab - 1, size=n, p=p)]
 
 
 def gru_weights(rng: np.random.Generator, D: int, H: int):
@@ -588,11 +611,12 @@ def _dname(dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
-def _gru_forward_check(dev, x32, weights, h32, dtype, reset=None) -> dict:
+def _gru_forward_check(dev, x32, weights, h32, dtype, reset=None, twice: bool = False) -> dict:
     """The GRU forward kernel against its plain version in `dtype`. Without
     `reset`, also against torch.nn.GRU (the library yardstick). With a [B, T]
     `reset` plane, the reset variant: also bit-exact against the no-reset
-    kernel on an all-zero plane, and blind to h0 with a reset at t=0."""
+    kernel on an all-zero plane, and blind to h0 with a reset at t=0.
+    `twice`: a second launch gives the same bits."""
     B, T, D = x32.shape
     H = h32.shape[-1]
     name = f"gru {_dname(dtype)} {B}x{T}x{D}" + ("" if reset is None else " reset")
@@ -600,6 +624,9 @@ def _gru_forward_check(dev, x32, weights, h32, dtype, reset=None) -> dict:
     args = (x, h0, *weights)
     ys, h_last = k_gru.gru_scan(*args, reset_mask=reset)
     torch.cuda.synchronize()
+    if twice:
+        check(torch.equal(ys, k_gru.gru_scan(*args, reset_mask=reset)[0]),
+              f"{name}: two launches differ")
     ys_plain, _ = k_gru.plain(*args, reset_mask=reset)
     tol = GRU_F32_TOL if dtype == torch.float32 else GRU_BF16_TOL
     err = max_err(ys, ys_plain)
@@ -611,7 +638,7 @@ def _gru_forward_check(dev, x32, weights, h32, dtype, reset=None) -> dict:
     launch = k_gru.launch_config(B, T, D, H, dtype)
     rec = {"shape": {"B": B, "T": T, "D": D, "H": H, "dtype": _dname(dtype)},
            "launch": launch, "design": launch["design"],
-           "max_abs_err": err, "tolerance": tol}
+           "max_abs_err": err, "tolerance": tol, **({"twice_bit_for_bit": True} if twice else {})}
     if reset is None:
         w_x, w_h, b_x, b_h = weights
         lib = torch.nn.GRU(D, H, batch_first=True, device=dev, dtype=dtype)
@@ -817,10 +844,12 @@ def _agree(a: dict, b: dict, tol: float) -> tuple:
     return diff, mismatched
 
 
-def make_requests(rng: np.random.Generator, max_len: int, n_requests: int = 320) -> list:
+def make_requests(rng: np.random.Generator, max_len: int, n_requests: int = 320,
+                  vocab: int = VOCAB) -> list:
     """Zipf-distributed histories of 5..max_len items, one per user."""
     lengths = rng.integers(5, max_len + 1, size=n_requests)
-    return [{"user": i, "history": zipf_items(rng, n).tolist()} for i, n in enumerate(lengths)]
+    return [{"user": i, "history": zipf_items(rng, n, vocab=vocab).tolist()}
+            for i, n in enumerate(lengths)]
 
 
 def expected_launches(cfg: RunConfig, training: bool) -> dict:
@@ -832,7 +861,9 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
     the tower's kernel once per layer or block (a bf16 GRU or LSTM forward
     with its input projection, an f32 one with the f32 one), and its
     backward per layer, the reset variants on a session-parallel path; a
-    bf16 GRU above Hp = 128 counts each again as its cluster layout."""
+    bf16 GRU above Hp = 128 counts each again as its cluster layout, and a
+    GRU of either dtype above H = 256 as its grid layout; a sampled-softmax
+    head wider than 256 counts again as the K split."""
     m = cfg.model
     want = dict.fromkeys(COUNTERS, 0)
     if m.arch == "sasrec":
@@ -847,21 +878,26 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
         if training:
             want[f"{m.cell_type}_backward{variant}"] = m.num_layers
         if (m.cell_type == "gru" and m.compute_dtype == "bfloat16"
-                and 16 * -(-m.hidden // 16) > k_gru.WH_REG_LIMIT):  # the cluster layouts
-            want["gru_scan_wide"] = m.num_layers
+                and k_gru.WH_REG_LIMIT < 16 * -(-m.hidden // 16) <= k_gru.MAX_HIDDEN):
+            want["gru_scan_wide"] = m.num_layers  # the cluster layouts
             want["gru_backward_wide"] = m.num_layers if training else 0
+        if m.cell_type == "gru" and m.hidden > k_gru.MAX_HIDDEN:  # the grid layouts
+            want["gru_scan_grid"] = m.num_layers
+            want["gru_backward_grid"] = m.num_layers if training else 0
     if training:
         lookups = 3 if m.loss in SAMPLED_LOSSES else 1
-        want.update(gather=lookups, gather_backward=lookups,
-                    softmax_head=int(m.loss == "sampled_softmax"))
+        head = int(m.loss == "sampled_softmax")
+        want.update(gather=lookups, gather_backward=lookups, softmax_head=head,
+                    softmax_head_ksplit=head * int(m.hidden > k_head.MMA_MAX_H))
     else:
         want["gather"] = 1
     return want
 
 
-def phase_serve(dev, seed: int, path: str, requests: list, overrides=()) -> dict:
+def phase_serve(dev, seed: int, path: str, requests: list, overrides=(),
+                vocab: int = VOCAB) -> dict:
     """`overrides`: config changes for this run, named in its result (the
-    f32 path: F32)."""
+    f32 path: F32). `vocab`: the catalog's rows (ML-1M's by default)."""
     config = CONFIGS[path]
     cfg = RunConfig.load(config).apply_overrides(list(overrides))
     check(cfg.model.use_pallas, f"{config} must enable the kernels")
@@ -869,7 +905,7 @@ def phase_serve(dev, seed: int, path: str, requests: list, overrides=()) -> dict
     models = {}
     for use_pallas in (True, False):
         mcfg = cfg.apply_overrides([f"model.use_pallas={str(use_pallas).lower()}"]).model
-        m = build_model(mcfg, VOCAB, device=dev)
+        m = build_model(mcfg, vocab, device=dev)
         models[use_pallas] = m
     state = flax_to_state_dict(random_params(models[True], seed))
     for m in models.values():
@@ -910,7 +946,7 @@ def phase_serve(dev, seed: int, path: str, requests: list, overrides=()) -> dict
         for rec in (a, b):
             items = rec["items"]
             check(len(items) == K and len(set(items)) == K, "serve: not k distinct items")
-            check(all(0 < i < VOCAB for i in items), "serve: pad or unknown item")
+            check(all(0 < i < vocab for i in items), "serve: pad or unknown item")
             check(not set(items) & set(req["history"]), "serve: recommended a seen item")
             s = np.asarray(rec["scores"])
             check(bool(np.isfinite(s).all()) and bool((np.diff(s) <= 0).all()),
@@ -925,7 +961,7 @@ def phase_serve(dev, seed: int, path: str, requests: list, overrides=()) -> dict
     packed = infer._pack([r["history"] for r in first], [r["user"] for r in first], B, max_len)
     pack_ms = (time.perf_counter() - t0) * 1e3
     inputs, mask, users = (torch.from_numpy(a).to(dev) for a in packed)
-    fetch_k = min(K + max_len, VOCAB - 1)
+    fetch_k = min(K + max_len, vocab - 1)
     m = models[True]
     with torch.inference_mode():
         step = {
@@ -947,7 +983,7 @@ def phase_serve(dev, seed: int, path: str, requests: list, overrides=()) -> dict
 
     result = {
         "phase": "serve", "config": config, "overrides": list(overrides),
-        "compute_dtype": cfg.model.compute_dtype, "vocab": VOCAB, "requests": n_requests,
+        "compute_dtype": cfg.model.compute_dtype, "vocab": vocab, "requests": n_requests,
         "batch_size": B, "k": K, "batches": n_b,
         "requests_per_s": n_requests / (sum(times) / 1e3),
         "batch_ms_median": float(np.median(times)), "batch_ms_min": min(times),
@@ -1098,14 +1134,15 @@ def _leaf_grads(scan, leaves, rest, reset, g):
 
 
 def _gru_backward_checks(rng, dev, x32, reset=None,
-                         dtypes=(torch.bfloat16, torch.float32)) -> dict:
+                         dtypes=(torch.bfloat16, torch.float32), twice: bool = False) -> dict:
     """The GRU reverse recurrence against its plain version in `dtypes`, on
     the projections of a kernel forward (the bf16 kernel recomputes the
     gates from them), and the whole backward through autograd
     (forward and backward kernels). Without `reset` (h0 = 0), also the cuDNN
     yardstick. With a [B, T] `reset` plane (and a random h0), the keep
     variant: also bit-exact against the no-keep kernel on an all-ones plane,
-    and dh0 = 0 under a reset at t=0."""
+    and dh0 = 0 under a reset at t=0. `twice`: a second launch gives the
+    same bits."""
     B, T, D = x32.shape
     H = D
     w_x, w_h, b_x, b_h = (w.to(dev) for w in gru_weights(rng, D, H))
@@ -1123,6 +1160,9 @@ def _gru_backward_checks(rng, dev, x32, reset=None,
         planes = (x_proj, h_proj, h_in, g, wh_c)
         got_b = k_gru.gru_backward(*planes, keep)
         torch.cuda.synchronize()
+        if twice:
+            check(all(torch.equal(a, b) for a, b in zip(got_b, k_gru.gru_backward(*planes, keep))),
+                  f"{name}: two launches differ")
         want_b = k_gru.plain_backward(*planes, keep)
         errs = {k: rel_err(a, b) for k, a, b in zip(("d_xp", "dh0", "dn_r"), got_b, want_b)}
         for k, e in errs.items():
@@ -1173,6 +1213,7 @@ def _gru_backward_checks(rng, dev, x32, reset=None,
             "shape": {"B": B, "T": T, "H": H, "dtype": _dname(dtype),
                       "h_in_dtype": _dname(h_in.dtype)},
             "launch": launch, "design": launch["design"],
+            **({"twice_bit_for_bit": True} if twice else {}),
             "rel_err": errs, "tolerance": GRU_BWD_TOL,
             "autograd_rel_err": w_errs, "autograd_tolerance": w_tol,
             "max_abs_err": max(max_err(a, b) for a, b in zip(got_b, want_b)),
@@ -1228,7 +1269,8 @@ def _head_bound(N: int, S: int, D: int, dtype) -> tuple:
 
 
 def _head_checks(rng, dev, table, beauty: bool = True, N: int = TRAIN_B * TRAIN_T,
-                 S: int = NUM_NEG, dtypes=(torch.bfloat16, torch.float32)) -> dict:
+                 S: int = NUM_NEG, dtypes=(torch.bfloat16, torch.float32),
+                 twice: bool = False) -> dict:
     D = table.shape[1]
     h32, pos32, neg32, targets, neg_ids, plq, nlq = _head_inputs(rng, dev, table, N, S)
     w = torch.ones(N, device=dev)
@@ -1240,6 +1282,9 @@ def _head_checks(rng, dev, table, beauty: bool = True, N: int = TRAIN_B * TRAIN_
         args = (h32.to(dtype), pos32.to(dtype), neg32.to(dtype), targets, neg_ids, plq, nlq)
         got = k_head.sampled_softmax_nll(*args)
         torch.cuda.synchronize()
+        if twice:
+            check(torch.equal(got, k_head.sampled_softmax_nll(*args)),
+                  f"{label}: two launches differ")
         want = k_head.plain(*args)
         err = max_err(got, want)
         check(bool(torch.isfinite(got).all()), f"{label}: non-finite nll")
@@ -1266,6 +1311,7 @@ def _head_checks(rng, dev, table, beauty: bool = True, N: int = TRAIN_B * TRAIN_
         out[name] = {
             "shape": {"N": N, "S": S, "H": D, "dtype": name, "accidental_hits": hits},
             "launch": launch, "design": launch["design"],
+            **({"twice_bit_for_bit": True} if twice else {}),
             "max_abs_err": err, "tolerance": HEAD_TOL,
             # The backward, the JAX package's recompute in plain tensor code
             # (no kernel here or there): its device time beside the forward's.
@@ -1684,7 +1730,8 @@ def phase_session_kernels(rng: np.random.Generator, dev) -> dict:
 # Each kernel's launch counter: (wrapper, attribute). The reset variants
 # count apart from their no-reset counterparts, on the same wrappers; the
 # bf16 GRU's cluster layouts (Hp > 128) count again, either variant, in
-# `wide_launches`.
+# `wide_launches`, the GRU's grid layouts (H > 256, either dtype) in
+# `grid_launches`, and the head's K split (H > 256) in `ksplit_launches`.
 COUNTERS = {
     "gather": (k_gather.embedding_gather, "launches"),
     "gather_backward": (k_gather.embedding_scatter_add, "launches"),
@@ -1706,6 +1753,9 @@ COUNTERS = {
     "gather_backward_window": (k_gather.embedding_scatter_add_window, "launches"),
     "gru_scan_wide": (k_gru.gru_scan, "wide_launches"),
     "gru_backward_wide": (k_gru.gru_backward, "wide_launches"),
+    "gru_scan_grid": (k_gru.gru_scan, "grid_launches"),
+    "gru_backward_grid": (k_gru.gru_backward, "grid_launches"),
+    "softmax_head_ksplit": (k_head.sampled_softmax_nll, "ksplit_launches"),
 }
 
 
@@ -1772,10 +1822,16 @@ def profile_steps(tr: Trainer, state, batches: list, top: int = 15) -> dict:
 
 
 class _Catalog:
-    vocab_size, num_users = VOCAB, 0
+    """A dataset's sizes alone: `vocab` rows (ML-1M's catalog by default)."""
+
+    num_users = 0
+
+    def __init__(self, vocab: int = VOCAB):
+        self.vocab_size = vocab
 
 
-def _train_wires(rng, trainer, groups: int, K: int, B: int, T: int) -> list:
+def _train_wires(rng, trainer, groups: int, K: int, B: int, T: int,
+                 vocab: int = VOCAB) -> list:
     """`groups` [K, B, T+2] wire groups of Zipf histories (ids ranked by
     popularity), 5..T positions a row."""
     wires = []
@@ -1783,7 +1839,7 @@ def _train_wires(rng, trainer, groups: int, K: int, B: int, T: int) -> list:
         inputs = np.zeros((B, T), np.int32)
         targets = np.zeros((B, T), np.int32)
         for r, n in enumerate(rng.integers(5, T + 1, size=B)):
-            seq = zipf_items(rng, n + 1, ranked=True)
+            seq = zipf_items(rng, n + 1, ranked=True, vocab=vocab)
             inputs[r, :n], targets[r, :n] = seq[:-1], seq[1:]
         wire = trainer.pack_train_batch({"inputs": inputs, "targets": targets,
                                          "mask": (targets != 0).astype(np.float32)})
@@ -1864,7 +1920,8 @@ def _lookup_then_cast(self, table, ids, sharded=False):
 
 
 def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int,
-                overrides=(), reproducible: bool = False, cast_launches: bool = False) -> dict:
+                overrides=(), reproducible: bool = False, cast_launches: bool = False,
+                vocab: int = VOCAB) -> dict:
     """`overrides`: config changes for this run, each named in its result.
     `reproducible`: also run one K-step group twice from one state on one
     batch group and require equal bits (_reproducibility_check).
@@ -1873,7 +1930,8 @@ def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int
     device launches a step before and after.
     A session-parallel configuration trains on windows of synthetic
     sessions with its path's shapes (SESSION_DATA), carrying the recurrent
-    state from window to window."""
+    state from window to window; any other on Zipf histories over `vocab`
+    rows (ML-1M's catalog by default)."""
     config = CONFIGS[path]
     cfg = RunConfig.load(config).apply_overrides(list(overrides))
     check(cfg.model.use_pallas, f"{config} must enable the kernels")
@@ -1881,7 +1939,7 @@ def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int
     K, B = cfg.train.steps_per_call, cfg.data.batch_size
     T = cfg.data.max_len if session else max(cfg.data.buckets or (cfg.data.max_len,))
     t0 = time.perf_counter()
-    ds = synthetic_dataset(**SESSION_DATA[path], seed=seed) if session else _Catalog()
+    ds = synthetic_dataset(**SESSION_DATA[path], seed=seed) if session else _Catalog(vocab)
     trainers = {}
     for use_pallas in (True, False):
         c = cfg.apply_overrides([f"model.use_pallas={str(use_pallas).lower()}"])
@@ -1892,7 +1950,7 @@ def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int
         T_, E, W = trainers[True]._session_wire_cols
         width = T_ + E + W
     else:
-        batches = _train_wires(rng, trainers[True], groups, K, B, T)
+        batches = _train_wires(rng, trainers[True], groups, K, B, T, vocab)
         width = T + 2
     data_s = time.perf_counter() - t0
     wire_dtype = np.dtype(trainers[True]._wire_dtype)
@@ -4493,6 +4551,195 @@ def _widths_entries(widths: dict) -> dict:
     }
 
 
+# Phase u: above H = 256, the GRU's grid layouts and the head's K split.
+# The JAX package's wide GRU4Rec (benchmarks/shapes.py:70-72,
+# gru4rec_D512_B256_T200_S512), built by the port's own bench_config:
+WIDE_D, WIDE_B, WIDE_T, WIDE_ITEMS, WIDE_NEG = 512, 256, 200, 100_000, 512
+# GRU4Rec with its paper's 1,000 hidden units (Hidasi et al., ICLR 2016,
+# Table 3): configs/rsc15_gru4rec.json at model.embed_dim=1000.
+H1000 = 1000
+H1000_SET = f"model.embed_dim={H1000}"
+# The CLI's run on GRU4Rec-1000: RSC15's session shapes, 10,000 sessions
+# (not 100,000: its closing full eval scores every session's test click).
+U_CLI_SETS = [H1000_SET, "data.dataset=synthetic", "data.synthetic_num_users=10000",
+              *[f"data.synthetic_{k}={v}" for k, v in SESSION_DATA["rsc15_gru4rec"].items()
+                if k != "num_users"],
+              "train.num_steps=16", "train.log_every=8", "train.eval_every=0",
+              "train.checkpoint_every=0"]
+
+
+def wide_config() -> RunConfig:
+    """The wide GRU4Rec as benchmarks/shapes.py:70-72 builds it, through the
+    port's bench_config: GRU4Rec, B=256, T=200, D=H=512, 100,000 items,
+    sampled softmax over 512 negatives, dropout 0, bf16; K=8 steps a call."""
+    cfg = bench_config("gru4rec", batch_size=WIDE_B, max_len=WIDE_T, embed_dim=WIDE_D,
+                       num_items=WIDE_ITEMS, loss="sampled_softmax", num_negatives=WIDE_NEG)
+    cfg.train.steps_per_call = 8
+    return cfg
+
+
+def _wide_kernel_checks(rng, dev) -> dict:
+    """The grid layouts and the head's K split against their plain versions
+    in bf16 and f32, each launched twice with the same bits: at the wide
+    demo's step (B=256, T=200, D=H=512; the head at N=51,200, S=512) the GRU
+    forward (nn.GRU beside it), its reverse recurrence and the gradients
+    through autograd (cuDNN's backward beside it) and the head (h @ neg.T
+    beside it); at rsc15's reset shape with 1,000 units (B=256, T=50) the
+    reset variants of both scans, with a carried-in state. Each at its
+    phase's limit (c, e, j), with kernel, plain, library and bound times."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dtypes = (torch.bfloat16, torch.float32)
+    x32 = _zipf_embeddings(rng, dev, WIDE_B, WIDE_T, WIDE_D)
+    weights = [w.to(dev) for w in gru_weights(rng, WIDE_D, WIDE_D)]
+    h0 = torch.zeros(WIDE_B, WIDE_D, device=dev)
+    table = torch.from_numpy(rng.normal(scale=WIDE_D ** -0.5, size=(VOCAB, WIDE_D))
+                             .astype(np.float32)).to(dev)
+    wide = {"gru_scan": {_dname(dt): _gru_forward_check(dev, x32, weights, h0, dt, twice=True)
+                         for dt in dtypes},
+            "gru_backward": _gru_backward_checks(rng, dev, x32, twice=True),
+            "softmax_head": _head_checks(rng, dev, table, beauty=False, N=WIDE_B * WIDE_T,
+                                         S=WIDE_NEG, twice=True)}
+    del x32, table
+    x32 = _zipf_embeddings(rng, dev, 256, 50, H1000)
+    reset = _reset_plane(rng, 256, 50, dev)
+    weights = [w.to(dev) for w in gru_weights(rng, H1000, H1000)]
+    h32 = _state(rng, dev, 256, H1000)
+    rsc15 = {"gru_scan_reset": {_dname(dt): _gru_forward_check(dev, x32, weights, h32, dt, reset,
+                                                               twice=True) for dt in dtypes},
+             "gru_backward_reset": _gru_backward_checks(rng, dev, x32, reset, twice=True)}
+    for rec in [*wide["gru_scan"].values(), *wide["gru_backward"].values(),
+                *rsc15["gru_scan_reset"].values(), *rsc15["gru_backward_reset"].values()]:
+        check(rec["launch"]["layout"] == "grid", f"phase u: not the grid layout: {rec['launch']}")
+    for rec in wide["softmax_head"].values():
+        check(rec["launch"]["layout"] == "k-split", f"phase u: not the K split: {rec['launch']}")
+    return {"wide_demo": wide, f"rsc15_h{H1000}": rsc15}
+
+
+def _wide_cli() -> dict:
+    """`python -m seqrec_tpu_torch train --config configs/rsc15_gru4rec.json
+    --set model.embed_dim=1000 ...` in this process (U_CLI_SETS: synthetic
+    sessions of RSC15's shapes, 16 steps, two K = 8 groups): every logged
+    loss finite, the closing full eval's metrics finite, the grid layouts'
+    reverse launched once a step and their forward at least once (the eval
+    encodes with it too)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["train", "--config", CONFIGS["rsc15_gru4rec"],
+                *[a for x in U_CLI_SETS + [f"data.data_dir={tmp}/data", f"train.out_dir={tmp}/run"]
+                  for a in ("--set", x)]]
+        zero_counters()
+        t0 = time.perf_counter()
+        lines = _cli_lines(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counters()
+    logged = [x for x in lines if "loss" in x]
+    final = lines[-1].get("final_test")
+    check(bool(logged) and all(np.isfinite(x["loss"]) for x in logged),
+          f"cli train {H1000_SET}: logged lines {logged}")
+    check(isinstance(final, dict) and all(np.isfinite(v) for v in final.values()),
+          f"cli train {H1000_SET}: final line {lines[-1]}")
+    check(launches["gru_backward_grid"] == launches["gru_backward_reset"] == 16
+          and launches["gru_scan_grid"] >= 16,
+          f"cli train {H1000_SET}: launches {launches}")
+    return {"argv": [a.replace(tmp, "<tmp>") for a in argv], "seconds": seconds,
+            "logged": logged, "final_test": final, "launches": launches}
+
+
+def phase_wide(rng: np.random.Generator, dev, seed: int, card: str) -> dict:
+    """u. Above H = 256 through the normal entry points: the kernels at the
+    two paths' shapes (`_wide_kernel_checks`); the wide GRU4Rec (wide_config,
+    written to a temporary config file) served (phase d: 320 Zipf histories
+    of 5..200 over its 100,000 items, batch 64, k = 10, within
+    SCORE_TOL["gru4rec_wide"] of the plain path) and trained, two K = 8
+    groups in bf16 and in f32 (phase f's checks: step 1 within its limits of
+    the plain versions, the loss falls, each kernel's launches a step as
+    expected, the grid layouts' and the K split's included); GRU4Rec-1000
+    (configs/rsc15_gru4rec.json, model.embed_dim=1000) trained
+    session-parallel, two K = 8 groups with the carry (phase k's checks);
+    and the `train` subcommand on it (`_wide_cli`)."""
+    phase_t0 = time.perf_counter()
+    kernels = _wide_kernel_checks(rng, dev)
+    emit({"phase": "wide_kernels", "card": card, **kernels})
+    vocab = WIDE_ITEMS + 1
+    with tempfile.TemporaryDirectory() as tmp:
+        CONFIGS["gru4rec_wide"] = str(Path(tmp) / "gru4rec_wide.json")
+        Path(CONFIGS["gru4rec_wide"]).write_text(wide_config().to_json())
+        requests = make_requests(rng, WIDE_T, vocab=vocab)
+        serve = {"gru4rec_wide": phase_serve(dev, seed, "gru4rec_wide", requests, vocab=vocab)}
+        train = {"gru4rec_wide": phase_train(rng, dev, seed, "gru4rec_wide", groups=2,
+                                             vocab=vocab),
+                 "gru4rec_wide_f32": phase_train(rng, dev, seed, "gru4rec_wide", groups=2,
+                                                 overrides=[F32], vocab=vocab)}
+    wide_source = ("benchmarks/throughput.py::bench_config(gru4rec, B=256, T=200, D=512, "
+                   "100,000 items, sampled_softmax, 512 negatives)")
+    for run in (*serve.values(), *train.values()):
+        run["config"] = wide_source
+    train[f"rsc15_gru4rec_h{H1000}"] = phase_train(rng, dev, seed, "rsc15_gru4rec", groups=2,
+                                                   overrides=[H1000_SET])
+    cli_run = _wide_cli()
+    seconds = time.perf_counter() - phase_t0
+    emit({"phase": "wide", "card": card, "seconds": seconds, "cli": cli_run,
+          "serve": {k: {"requests_per_s": v["requests_per_s"],
+                        "batch_ms_median": v["batch_ms_median"],
+                        "encode_device_ms": v["batch_breakdown"]["encode_device_ms"],
+                        "max_score_diff_vs_plain": v["max_score_diff_vs_plain"],
+                        "score_tolerance": v["score_tolerance"], "launches": v["launches"]}
+                    for k, v in serve.items()},
+          "train": {k: {"examples_per_s": v["examples_per_s"],
+                        "step_ms_median": v["step_ms_median"],
+                        "device_step_ms": v["device_step_ms"],
+                        "device_idle_share": v["device_idle_share"], "step1": v["step1"],
+                        "group_losses": [g["loss"] for g in v["group_metrics"]],
+                        "peak_memory_bytes": v["peak_memory_bytes"],
+                        "launches_per_step": v["launches_per_step"]}
+                    for k, v in train.items()}})
+    return {"kernels": kernels, "serve": serve, "train": train, "cli": cli_run,
+            "seconds": seconds}
+
+
+def _wide_entries(wide: dict) -> list:
+    """The kernels line's entries of the new layouts: the bf16 ones with
+    their launches on the wide demo's bf16 training path, the f32 ones on
+    its f32 path, each also at rsc15's reset shape with 1,000 units (the GRU)
+    and with its launches on every path of phase u."""
+    k, train, serve, cli_run = wide["kernels"], wide["train"], wide["serve"], wide["cli"]
+    rsc15 = k[f"rsc15_h{H1000}"]
+    out = []
+    for kname, counter, source, replaces, recs, at_h1000 in (
+            ("gru_scan_grid", "gru_scan_grid", "gru.cu", "gru.py:177",
+             k["wide_demo"]["gru_scan"], rsc15["gru_scan_reset"]),
+            ("gru_backward_grid", "gru_backward_grid", "gru.cu", "gru.py:190",
+             k["wide_demo"]["gru_backward"], rsc15["gru_backward_reset"]),
+            ("softmax_head_ksplit", "softmax_head_ksplit", "softmax_head.cu",
+             "softmax_head.py:115", k["wide_demo"]["softmax_head"], None)):
+        for dtype, path, suffix in (("bfloat16", "gru4rec_wide", ""),
+                                    ("float32", "gru4rec_wide_f32", "_f32")):
+            rec = recs[dtype]
+            extra = {}
+            if at_h1000 is not None:
+                r = at_h1000[dtype]
+                extra["at_rsc15_h1000_reset"] = {
+                    "shape": r["shape"], "launch": r["launch"], "max_abs_err": r["max_abs_err"],
+                    "ms": r["kernel_ms"]["median"], "plain_ms": r["plain_ms"]["median"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": _median(r.get("library_ms")),
+                    "library": r.get("library")}
+            out.append(_kernel_entry(
+                kname + suffix, "seqrec_tpu_torch/csrc/" + source,
+                "seqrec_tpu/ops/pallas/" + replaces, train[path]["launches"][counter], rec,
+                dtype=dtype, layout=rec["launch"]["layout"], shape=rec["shape"],
+                launches_counted_on=f"train {train[path]['config']} "
+                                    + " ".join(train[path]["overrides"]),
+                launches_by_path={**{f"train_{p}": r["launches"][counter]
+                                     for p, r in train.items()},
+                                  **{f"serve_{p}": r["launches"][counter]
+                                     for p, r in serve.items()},
+                                  f"cli_train_rsc15_h{H1000}": cli_run["launches"][counter]},
+                **extra))
+    return out
+
+
 def _median(ms) -> Optional[float]:
     return None if ms is None else ms["median"]
 
@@ -4572,6 +4819,9 @@ def main(argv=None) -> int:
     widths = phase_widths(rng, dev, args.seed, smi, requests)  # t, beside h, i and l
     serve.update(widths["serve"])
     train.update(widths["train"])
+    wide = phase_wide(rng, dev, args.seed, smi)  # u, above H = 256
+    serve.update(wide["serve"])
+    train.update(wide["train"])
     sparse = phase_sparse(dev, args.seed)
     phase_checkpoint(dev, args.seed, requests)
     sharded = phase_sharded(dev, args.seed)
@@ -4710,6 +4960,8 @@ def main(argv=None) -> int:
                                      "seqrec_tpu/ops/pallas/" + replaces,
                                      rank0[path]["launches"][kname], rec, dtype="float32",
                                      launches_counted_on=on, launches_by_path=by_path(kname)))
+    # The GRU's grid layouts and the head's K split (H > 256, phase u).
+    kernels += _wide_entries(wide)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

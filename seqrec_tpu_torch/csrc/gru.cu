@@ -149,6 +149,12 @@
 // The gates come from the two f32 projections, one step ahead, with the
 // accurate f32 sigmoid and tanh, in place of four torch passes and their
 // planes.
+//
+// Above H = 256 (the wide GRU4Rec at D = H = 512, GRU4Rec's 1,000 units) no
+// cluster holds W_h: both recurrences, in both dtypes, run the
+// grid-persistent layout at the end of this file (one cooperative launch,
+// each CTA a slice of the units with their W_h values in its shared memory,
+// the step's vector through L2 and one grid barrier a step).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -159,7 +165,7 @@
 
 namespace {
 
-constexpr int kMaxHidden = 256;  // the widest H the kernels are laid out for
+constexpr int kMaxHidden = 256;  // the widest H of the block and cluster layouts (wider: the grid layout)
 constexpr int kMaxMmaBlock = 128;  // the widest H of the bf16 one-block designs
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -1601,6 +1607,557 @@ int launch_bwd_wide(size_t smem, cudaStream_t s, const float* xp, const float* h
                               H);
 }
 
+
+// ---------------------------------------------------------------------------
+// Above H = 256: both recurrences on a grid-persistent layout, both dtypes
+// ---------------------------------------------------------------------------
+//
+// At H = 512 W_h is 1.5 MB of bf16 and at H = 1,000 6 MB (12 MB in f32): no
+// cluster of CTAs holds it in registers or shared memory. Here one
+// cooperative launch keeps every CTA of the grid resident for the whole scan
+// (cudaLaunchKernelEx with the cooperative attribute: the runtime refuses a
+// grid that would not be resident at once, so no CTA spins on one that never
+// runs). CTA (tile, group) owns a slice of the hidden units, kGridUnits(dtype)
+// of them (16 in bf16: one m16 tile; 8 in f32), with W_h's values of those
+// units, all three gates, resident in its shared memory (96 Kp bytes, Kp = H
+// padded to kGridK(dtype): 96 KB at Kp = 1,024), and a group of batch rows;
+// the row groups split the rows as far as the card's SMs allow beside the
+// unit slices (ops/cuda/gru.py launch_config). The step's vector on the
+// serial chain goes through global memory, read through L2 only (ld.global.cg:
+// never a stale L1 line), double-buffered, with one grid-wide barrier a step
+// (grid_sync: a release add on a counter, acquire reads until it reaches the
+// step's target). The counter and the vector's buffers are a workspace the
+// wrapper zeroes on the stream before each launch (no host synchronisation,
+// so a CUDA graph could capture it). Each CTA owns whole units, so no output
+// needs a cross-CTA sum, nothing is added atomically, and the bits are the
+// same from run to run.
+//
+// Forward, h' = GRU(xp[t], h_in): every CTA reads its rows of the whole
+// h_in(t) from buffer t & 1, computes its units' r, z and n sums, then h',
+// writes ys and keep[t+1] h' (rounded to the working dtype) into buffer
+// (t+1) & 1, then the barrier. bf16: hp^T = W_h^T h_in^T on mma.sync (units
+// as M, 8 rows as N), a warp 16 rows (two n8 tiles) at a time over all of
+// K, W_h^T's A fragments from shared memory (packed by the wrapper,
+// ops/cuda/gru.py grid_pack), h_in's B fragments straight from L2, one
+// 16-byte read a lane for two k16 steps: K is permuted so that lane (g, q)
+// reads k = 32 c + 8 q .. + 7 of its row g, and the wrapper packs W_h^T in
+// the same order (a sum over k in any order is the same sum; mma's own order
+// is fixed, so the bits repeat). The r, z and n sums of a (unit, row) land
+// in one lane: the gate math needs no exchange. f32: the same on the CUDA
+// cores, a warp's lanes each over a slice of K (float4 k = 128 j + 4 lane)
+// for 4 rows x 2 units x 3 gates, then rnn.cuh's reduce-scatter leaves each
+// owner lane one (row, unit)'s sums; accurate sigmoid and tanh, as the f32
+// cluster design.
+//
+// Reverse (the K split of the lead): a step is two phases with the barrier
+// between. Phase A: each CTA computes the gate cotangents of its own (unit,
+// row) pairs from the two f32 projections (the gates recomputed there), its
+// dh carry (a per-pair f32 plane in the workspace, written only by the lane
+// that owns the pair) and g_y, writes d_xp and dn_r, and publishes its
+// units' d_hproj columns to global memory (bf16: two bf16 terms, hi =
+// bf16(d) and lo = bf16(d - hi), the cotangent's contract; f32: as it is).
+// Phase B: each CTA reads its rows of the whole d_hproj and forms
+// dh_prev = dh z + d_hproj W_h^T for its units in a fixed order (bf16:
+// units as M, K = the 3 Kp gate columns, hi and lo products sharing the A
+// fragments; f32: the forward's slices and reduce-scatter with one unit a
+// lane), times keep[t]. The lane that owns a pair in phase B owns it in
+// phase A, so the carry needs no exchange.
+//
+// What bounds them: as the other layouts, the serial chain, now one grid
+// barrier (~1-3 us) and one CTA's share of the step's products a step. bf16
+// at the wide demo (B = 256, H = 512): 128 CTAs, 64 rows each, 768 mma.sync
+// a CTA a step.
+
+constexpr int kGridThreads = 256;   // 8 warps a CTA
+constexpr int kGridCounter = 256;   // workspace bytes before the planes: the barrier's counter
+__host__ __device__ constexpr int kGridUnits(bool bf16) { return bf16 ? 16 : 8; }
+__host__ __device__ constexpr int kGridK(bool bf16) { return bf16 ? 32 : 128; }
+__host__ __device__ constexpr int kGridRowTile(bool bf16) { return bf16 ? 16 : 4; }
+__host__ __device__ inline int grid_kpad(int H, bool bf16) {
+  return (H + kGridK(bf16) - 1) / kGridK(bf16) * kGridK(bf16);
+}
+__host__ __device__ inline int grid_rows(int B, bool bf16) {
+  return (B + kGridRowTile(bf16) - 1) / kGridRowTile(bf16) * kGridRowTile(bf16);
+}
+// Shared memory of every grid kernel (bytes): W_h's values of the CTA's units.
+__host__ __device__ inline int grid_smem(int H, bool bf16) { return 96 * grid_kpad(H, bf16); }
+// Workspace bytes: the counter, then the forward's h buffers [2][rows][Kp],
+// or the reverse's d_hproj buffers ([2][hi, lo][rows][3 Kp] bf16 or
+// [2][rows][3 Kp] f32: 24 rows Kp bytes either way) and the carry [rows][Kp] f32.
+__host__ inline size_t grid_workspace(int B, int H, bool bf16, bool reverse) {
+  const size_t plane = static_cast<size_t>(grid_rows(B, bf16)) * grid_kpad(H, bf16);
+  return kGridCounter + (reverse ? 28 * plane : 2 * plane * (bf16 ? 2 : 4));
+}
+
+// The grid barrier: every CTA adds one to *ctr and waits until it holds
+// `target` (gridDim.x times the barriers passed so far, this one included).
+// What any thread of any CTA wrote before it is visible to every thread
+// after it (the CTA barrier, then a release add and acquire reads at gpu
+// scope, with the fences cooperative groups' grid sync uses). A barrier
+// that never completes (a fault, not a slow CTA: the launch is cooperative)
+// traps after ~2^28 reads, tens of seconds, so that the caller gets an
+// error and not a hung card.
+__device__ __forceinline__ void grid_sync(unsigned* ctr, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(ctr) : "memory");
+    unsigned v, spins = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(ctr) : "memory");
+      if (++spins == (1u << 28)) __trap();
+    } while (v < target);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float ldcg_bf16(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// The CTA's place: unit slice `tile` of `tiles`, row group `group` of
+// `groups`; its row tiles [r0, r1) of `row_tiles` (kGridRowTile rows each).
+struct GridPlace {
+  int tile, r0, r1;
+  __device__ GridPlace(int tiles, int row_tiles, int groups) {
+    tile = blockIdx.x % tiles;
+    const int group = blockIdx.x / tiles, per = (row_tiles + groups - 1) / groups;
+    r0 = group * per;
+    r1 = min(row_tiles, r0 + per);
+  }
+};
+
+// The CTA's packed weights (`words` 16-byte words from `src`) into shared memory.
+__device__ __forceinline__ void grid_load_weights(uint4* dst, const uint4* src, int words) {
+  for (int i = threadIdx.x; i < words; i += kGridThreads) dst[i] = src[i];
+  __syncthreads();
+}
+
+// bf16 forward. w_frag: W_h^T's A fragments [tiles][Kp/16 k-steps][3 gates]
+// [32 lanes] x 16 bytes in the permuted K order (ops/cuda/gru.py grid_pack);
+// ws: the counter, then h_in's buffers [2][rows][Kp] bf16.
+template <bool kReset>
+__global__ void __launch_bounds__(kGridThreads, 1)
+gru_forward_grid_kernel(const float* __restrict__ xp, const __nv_bfloat16* __restrict__ h0,
+                        const uint4* __restrict__ w_frag, const float* __restrict__ b_h,
+                        const float* __restrict__ keep, __nv_bfloat16* __restrict__ ys,
+                        unsigned char* __restrict__ ws, int B, int Tn, int H, int groups) {
+  extern __shared__ __align__(16) uint4 wsm[];
+  const int Kp = grid_kpad(H, true), KS = Kp / 16, H3 = 3 * H;
+  const int tiles = (H + 15) / 16, pairs = grid_rows(B, true) / 16;
+  const GridPlace at(tiles, pairs, groups);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+  unsigned* bar = reinterpret_cast<unsigned*>(ws);
+  __nv_bfloat16* hbuf = reinterpret_cast<__nv_bfloat16*>(ws + kGridCounter);
+  const size_t plane = static_cast<size_t>(pairs) * 16 * Kp;
+  const unsigned G = gridDim.x;
+
+  // h_in(0) of the CTA's units and rows (keep[0] h0, rounded to bf16) into buffer 0.
+  for (int c = threadIdx.x; c < (at.r1 - at.r0) * 256; c += kGridThreads) {
+    const int row = 16 * at.r0 + c / 16, unit = 16 * at.tile + c % 16;
+    if (row < B && unit < H) {
+      float h = __bfloat162float(h0[static_cast<size_t>(row) * H + unit]);
+      if (kReset) h *= keep[static_cast<size_t>(row) * Tn];
+      hbuf[static_cast<size_t>(row) * Kp + unit] = __float2bfloat16(h);
+    }
+  }
+  grid_load_weights(wsm, w_frag + static_cast<size_t>(at.tile) * KS * 3 * 32, KS * 3 * 32);
+  float bh[3][2];
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh) {
+      const int unit = 16 * at.tile + gr + 8 * mh;
+      bh[q][mh] = unit < H ? b_h[q * H + unit] : 0.0f;
+    }
+  grid_sync(bar, G);
+
+  for (int t = 0; t < Tn; ++t) {
+    const __nv_bfloat16* hc = hbuf + (t & 1) * plane;
+    __nv_bfloat16* hn = hbuf + ((t + 1) & 1) * plane;
+    for (int p = at.r0 + warp; p < at.r1; p += kGridThreads / 32) {
+      // The lane's C positions: unit 16 tile + gr + 8 (i >> 1), row
+      // 16 p + 8 nt + 2 tq + (i & 1); their xp before the products.
+      float xv[2][4][3];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = 16 * p + 8 * nt + 2 * tq + (i & 1), unit = 16 * at.tile + gr + 8 * (i >> 1);
+          const bool ok = row < B && unit < H;
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            xv[nt][i][q] = ok ? xp[(static_cast<size_t>(row) * Tn + t) * H3 + q * H + unit] : 0.0f;
+          }
+        }
+      float acc[2][3][4] = {};
+      const uint4* h4[2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        h4[nt] = reinterpret_cast<const uint4*>(hc + static_cast<size_t>(16 * p + 8 * nt + gr) * Kp + 8 * tq);
+      }
+      for (int c = 0; c < Kp / 32; ++c) {
+        uint4 hv[2];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) hv[nt] = __ldcg(h4[nt] + 4 * c);
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            uint32_t a[4];
+            load_frag(a, wsm + ((2 * c + kk) * 3 + q) * 32 + lane);
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              mma::bf16_16x8x16(acc[nt][q], a, kk ? hv[nt].z : hv[nt].x, kk ? hv[nt].w : hv[nt].y);
+            }
+          }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = 16 * p + 8 * nt + 2 * tq + (i & 1), mh = i >> 1;
+          const int unit = 16 * at.tile + gr + 8 * mh;
+          if (row >= B || unit >= H) continue;
+          const size_t bt = static_cast<size_t>(row) * Tn + t;
+          const float hin = ldcg_bf16(hc + static_cast<size_t>(row) * Kp + unit);
+          const float rg = rnn::fast_sigmoid(xv[nt][i][0] + (acc[nt][0][i] + bh[0][mh]));
+          const float zg = rnn::fast_sigmoid(xv[nt][i][1] + (acc[nt][1][i] + bh[1][mh]));
+          const float ng = rnn::fast_tanh(xv[nt][i][2] + rg * (acc[nt][2][i] + bh[2][mh]));
+          const __nv_bfloat16 hq = __float2bfloat16((1.0f - zg) * ng + zg * hin);
+          ys[bt * H + unit] = hq;
+          if (t + 1 < Tn) {  // keep[t+1] scales the h' this step hands to the next one
+            hn[static_cast<size_t>(row) * Kp + unit] =
+                kReset ? __float2bfloat16(__bfloat162float(hq) * keep[bt + 1]) : hq;
+          }
+        }
+    }
+    if (t + 1 < Tn) grid_sync(bar, G * (t + 2));
+  }
+}
+
+// f32 forward. w4: W_h's columns of each slice's 8 units, [tiles][Kp/128]
+// [8 units][3 gates][32 lanes] float4 (lane's k = 128 j + 4 lane .. + 3);
+// ws: the counter, then h_in's buffers [2][rows][Kp] f32.
+template <bool kReset>
+__global__ void __launch_bounds__(kGridThreads, 1)
+gru_forward_grid_f32_kernel(const float* __restrict__ xp, const float* __restrict__ h0,
+                            const float4* __restrict__ w4, const float* __restrict__ b_h,
+                            const float* __restrict__ keep, float* __restrict__ ys,
+                            unsigned char* __restrict__ ws, int B, int Tn, int H, int groups) {
+  extern __shared__ __align__(16) float4 wsm4[];
+  const int Kp = grid_kpad(H, false), J = Kp / 128, H3 = 3 * H;
+  const int tiles = (H + 7) / 8, quads = grid_rows(B, false) / 4;
+  const GridPlace at(tiles, quads, groups);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned* bar = reinterpret_cast<unsigned*>(ws);
+  float* hbuf = reinterpret_cast<float*>(ws + kGridCounter);
+  const size_t plane = static_cast<size_t>(quads) * 4 * Kp;
+  const unsigned G = gridDim.x;
+
+  for (int c = threadIdx.x; c < (at.r1 - at.r0) * 32; c += kGridThreads) {
+    const int row = 4 * at.r0 + c / 8, unit = 8 * at.tile + c % 8;
+    if (row < B && unit < H) {
+      const float h = h0[static_cast<size_t>(row) * H + unit];
+      hbuf[static_cast<size_t>(row) * Kp + unit] =
+          kReset ? __fmul_rn(h, keep[static_cast<size_t>(row) * Tn]) : h;
+    }
+  }
+  grid_load_weights(reinterpret_cast<uint4*>(wsm4),
+                    reinterpret_cast<const uint4*>(w4) + static_cast<size_t>(at.tile) * J * 8 * 3 * 32,
+                    J * 8 * 3 * 32);
+  grid_sync(bar, G);
+
+  // A task: 4 rows (a quad) x 2 units; after the reduce-scatter the lanes with
+  // (lane & 3) == 0 own row lane >> 3 of unit (lane >> 2) & 1.
+  using Own = rnn::Owner<4, 2, 32>;
+  const Own own(lane);
+  for (int t = 0; t < Tn; ++t) {
+    const float* hc = hbuf + (t & 1) * plane;
+    float* hn = hbuf + ((t + 1) & 1) * plane;
+    for (int task = warp; task < (at.r1 - at.r0) * 4; task += kGridThreads / 32) {
+      const int rq = at.r0 + task / 4, up = task % 4;
+      const int row = 4 * rq + own.row0, unit = 8 * at.tile + 2 * up + own.ut0;
+      const bool ok = own.owner && row < B && unit < H;
+      const size_t bt = static_cast<size_t>(row) * Tn + t;
+      float x[3], bh[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        x[q] = ok ? xp[bt * H3 + q * H + unit] : 0.0f;
+        bh[q] = ok ? b_h[q * H + unit] : 0.0f;
+      }
+      float acc[4][2][3] = {};
+      const float4* h4 = reinterpret_cast<const float4*>(hc + static_cast<size_t>(4 * rq) * Kp) + lane;
+      const float4* wt = wsm4 + (2 * up) * 3 * 32 + lane;
+      for (int j = 0; j < J; ++j) {
+        float4 hv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) hv[r] = __ldcg(h4 + r * (Kp / 4) + 32 * j);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            const float4 w = wt[((j * 8 + u) * 3 + q) * 32];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) dot4(acc[r][u][q], hv[r], w);
+          }
+      }
+      rnn::reduce_scatter<4, 2, 16, 4, 2, 3>(acc, lane);
+      if (!ok) continue;
+      const float hin = __ldcg(hc + static_cast<size_t>(row) * Kp + unit);
+      const float rg = sigmoidf(x[0] + (acc[0][0][0] + bh[0]));
+      const float zg = sigmoidf(x[1] + (acc[0][0][1] + bh[1]));
+      const float ng = tanhf(x[2] + rg * (acc[0][0][2] + bh[2]));
+      const float hq = (1.0f - zg) * ng + zg * hin;
+      ys[bt * H + unit] = hq;
+      if (t + 1 < Tn) hn[static_cast<size_t>(row) * Kp + unit] = kReset ? __fmul_rn(hq, keep[bt + 1]) : hq;
+    }
+    if (t + 1 < Tn) grid_sync(bar, G * (t + 2));
+  }
+}
+
+// bf16-weight reverse. w_frag: W_h's A fragments [tiles][3 Kp/16 k-steps]
+// [32 lanes] x 16 bytes, A[unit][q Kp + j] = W_h[unit][q H + j] (zero past
+// H) in the permuted K order; ws: the counter, d_hproj's buffers
+// [2][hi, lo][rows][3 Kp] bf16, then the carry [rows][Kp] f32. HT: h_in's dtype.
+template <bool kReset, typename HT>
+__global__ void __launch_bounds__(kGridThreads, 1)
+gru_backward_grid_kernel(const float* __restrict__ xp, const float* __restrict__ hp,
+                         const HT* __restrict__ h_in, const __nv_bfloat16* __restrict__ g_ys,
+                         const uint4* __restrict__ w_frag, const float* __restrict__ keep,
+                         float* __restrict__ d_xp, float* __restrict__ dn_r,
+                         float* __restrict__ dh0, unsigned char* __restrict__ ws, int B, int Tn,
+                         int H, int groups) {
+  extern __shared__ __align__(16) uint4 wsm[];
+  const int Kp = grid_kpad(H, true), Kc = 3 * Kp, H3 = 3 * H;
+  const int tiles = (H + 15) / 16, rows = grid_rows(B, true), pairs = rows / 16;
+  const GridPlace at(tiles, pairs, groups);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+  unsigned* bar = reinterpret_cast<unsigned*>(ws);
+  const size_t term = static_cast<size_t>(rows) * Kc;
+  __nv_bfloat16* dbuf = reinterpret_cast<__nv_bfloat16*>(ws + kGridCounter);
+  float* carry = reinterpret_cast<float*>(dbuf + 4 * term);
+  const unsigned G = gridDim.x;
+  grid_load_weights(wsm, w_frag + static_cast<size_t>(at.tile) * (Kc / 16) * 32, (Kc / 16) * 32);
+
+  for (int t = Tn - 1, s = 0; t >= 0; --t, ++s) {
+    __nv_bfloat16* db = dbuf + (s & 1) * 2 * term;
+    // Phase A: the lane's pairs (phase B's C positions).
+    for (int p = at.r0 + warp; p < at.r1; p += kGridThreads / 32) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = 16 * p + 8 * nt + 2 * tq + (i & 1), unit = 16 * at.tile + gr + 8 * (i >> 1);
+          if (row >= B || unit >= H) continue;
+          const size_t bt = static_cast<size_t>(row) * Tn + t;
+          const float* x = xp + bt * H3 + unit;
+          const float* hq = hp + bt * H3 + unit;
+          const float rv = rnn::fast_sigmoid(x[0] + hq[0]);
+          const float zv = rnn::fast_sigmoid(x[H] + hq[H]);
+          const float hnv = hq[2 * H];
+          const float nv = rnn::fast_tanh(x[2 * H] + rv * hnv);
+          const float hin = to_f(h_in[bt * H + unit]);
+          float* cr = carry + static_cast<size_t>(row) * Kp + unit;
+          const float dh = *cr + __bfloat162float(g_ys[bt * H + unit]);
+          const float dpre_n = dh * (1.0f - zv) * (1.0f - nv * nv);
+          const float dpre_z = dh * (hin - nv) * zv * (1.0f - zv);
+          const float dpre_r = dpre_n * hnv * rv * (1.0f - rv);
+          float* out = d_xp + bt * H3 + unit;
+          out[0] = dpre_r;
+          out[H] = dpre_z;
+          out[2 * H] = dpre_n;
+          const float d[3] = {dpre_r, dpre_z, dpre_n * rv};
+          dn_r[bt * H + unit] = d[2];
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            const __nv_bfloat16 hi = __float2bfloat16(d[q]);
+            const size_t at_q = static_cast<size_t>(row) * Kc + q * Kp + unit;
+            db[at_q] = hi;
+            db[term + at_q] = __float2bfloat16(d[q] - __bfloat162float(hi));
+          }
+          *cr = dh * zv;
+        }
+    }
+    grid_sync(bar, G * (s + 1));
+    // Phase B: dh_prev^T = W_h d_hproj^T for the CTA's units.
+    for (int p = at.r0 + warp; p < at.r1; p += kGridThreads / 32) {
+      float acc[2][2][4] = {};  // [n8 tile][hi, lo]
+      const uint4* d4[2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        d4[nt] = reinterpret_cast<const uint4*>(db + static_cast<size_t>(16 * p + 8 * nt + gr) * Kc + 8 * tq);
+      }
+      for (int c = 0; c < Kc / 32; ++c) {
+        uint4 v[2][2];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          v[nt][0] = __ldcg(d4[nt] + 4 * c);
+          v[nt][1] = __ldcg(d4[nt] + term / 8 + 4 * c);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          uint32_t a[4];
+          load_frag(a, wsm + (2 * c + kk) * 32 + lane);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              mma::bf16_16x8x16(acc[nt][e], a, kk ? v[nt][e].z : v[nt][e].x,
+                                kk ? v[nt][e].w : v[nt][e].y);
+            }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = 16 * p + 8 * nt + 2 * tq + (i & 1), unit = 16 * at.tile + gr + 8 * (i >> 1);
+          if (row >= B || unit >= H) continue;
+          float* cr = carry + static_cast<size_t>(row) * Kp + unit;
+          float c = *cr + (acc[nt][0][i] + acc[nt][1][i]);
+          if (kReset) c *= keep[static_cast<size_t>(row) * Tn + t];  // dh_prev *= keep[t]
+          *cr = c;
+          if (t == 0) dh0[static_cast<size_t>(row) * H + unit] = c;
+        }
+    }
+  }
+}
+
+// f32 reverse. w4: W_h's rows of each slice's 8 units over the 3 Kp gate
+// columns (column q Kp + j is W_h's q H + j, zero past H), [tiles][3 Kp/128]
+// [8 units][32 lanes] float4; ws: the counter, d_hproj's buffers
+// [2][rows][3 Kp] f32, then the carry [rows][Kp] f32.
+template <bool kReset>
+__global__ void __launch_bounds__(kGridThreads, 1)
+gru_backward_grid_f32_kernel(const float* __restrict__ xp, const float* __restrict__ hp,
+                             const float* __restrict__ h_in, const float* __restrict__ g_ys,
+                             const float4* __restrict__ w4, const float* __restrict__ keep,
+                             float* __restrict__ d_xp, float* __restrict__ dn_r,
+                             float* __restrict__ dh0, unsigned char* __restrict__ ws, int B,
+                             int Tn, int H, int groups) {
+  extern __shared__ __align__(16) float4 wsm4[];
+  const int Kp = grid_kpad(H, false), Kc = 3 * Kp, J = Kc / 128, H3 = 3 * H;
+  const int tiles = (H + 7) / 8, rows = grid_rows(B, false), quads = rows / 4;
+  const GridPlace at(tiles, quads, groups);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned* bar = reinterpret_cast<unsigned*>(ws);
+  const size_t plane = static_cast<size_t>(rows) * Kc;
+  float* dbuf = reinterpret_cast<float*>(ws + kGridCounter);
+  float* carry = dbuf + 2 * plane;
+  const unsigned G = gridDim.x;
+  grid_load_weights(reinterpret_cast<uint4*>(wsm4),
+                    reinterpret_cast<const uint4*>(w4) + static_cast<size_t>(at.tile) * J * 8 * 32,
+                    J * 8 * 32);
+  // A task: a quad of rows x the slice's 8 units; after the reduce-scatter
+  // lane owns row lane >> 3 of unit lane & 7, in both phases.
+  using Own = rnn::Owner<4, 8, 32>;
+  const Own own(lane);
+  const int unit = 8 * at.tile + own.ut0;
+
+  for (int t = Tn - 1, s = 0; t >= 0; --t, ++s) {
+    float* db = dbuf + (s & 1) * plane;
+    for (int rq = at.r0 + warp; rq < at.r1; rq += kGridThreads / 32) {
+      const int row = 4 * rq + own.row0;
+      if (row >= B || unit >= H) continue;
+      const size_t bt = static_cast<size_t>(row) * Tn + t;
+      const float* x = xp + bt * H3 + unit;
+      const float* hq = hp + bt * H3 + unit;
+      const float r = sigmoidf(x[0] + hq[0]);
+      const float z = sigmoidf(x[H] + hq[H]);
+      const float hn = hq[2 * H];
+      const float n = tanhf(x[2 * H] + r * hn);
+      float* cr = carry + static_cast<size_t>(row) * Kp + unit;
+      const float dh = *cr + g_ys[bt * H + unit];
+      const float dpre_n = dh * (1.0f - z) * (1.0f - n * n);
+      const float dpre_z = dh * (h_in[bt * H + unit] - n) * (z * (1.0f - z));
+      const float dpre_r = dpre_n * hn * (r * (1.0f - r));
+      float* out = d_xp + bt * H3 + unit;
+      out[0] = dpre_r;
+      out[H] = dpre_z;
+      out[2 * H] = dpre_n;
+      const float dn = dpre_n * r;
+      dn_r[bt * H + unit] = dn;
+      float* dr = db + static_cast<size_t>(row) * Kc + unit;
+      dr[0] = dpre_r;
+      dr[Kp] = dpre_z;
+      dr[2 * Kp] = dn;
+      *cr = __fmul_rn(dh, z);
+    }
+    grid_sync(bar, G * (s + 1));
+    for (int rq = at.r0 + warp; rq < at.r1; rq += kGridThreads / 32) {
+      float acc[4][8][1] = {};
+      const float4* d4 = reinterpret_cast<const float4*>(db + static_cast<size_t>(4 * rq) * Kc) + lane;
+      const float4* wt = wsm4 + lane;
+      for (int j = 0; j < J; ++j) {
+        float4 dv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dv[r] = __ldcg(d4 + r * (Kc / 4) + 32 * j);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const float4 w = wt[(j * 8 + u) * 32];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) dot4(acc[r][u][0], dv[r], w);
+        }
+      }
+      rnn::reduce_scatter<4, 8, 16, 4, 8, 1>(acc, lane);
+      const int row = 4 * rq + own.row0;
+      if (row >= B || unit >= H) continue;
+      float* cr = carry + static_cast<size_t>(row) * Kp + unit;
+      const float dn = __fadd_rn(*cr, acc[0][0][0]);
+      const float c = kReset ? __fmul_rn(dn, keep[static_cast<size_t>(row) * Tn + t]) : dn;
+      *cr = c;
+      if (t == 0) dh0[static_cast<size_t>(row) * H + unit] = c;
+    }
+  }
+}
+
+// Launch `kernel` on `grid` CTAs of kGridThreads threads with `smem` bytes
+// of dynamic shared memory, cooperatively (every CTA resident at once, or
+// the launch fails); a CUDA error code.
+template <typename... Params, typename... Args>
+int launch_grid(void (*kernel)(Params...), int grid, int smem, cudaStream_t s, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kGridThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// What the grid entry points check: H past the cluster layouts' kMaxHidden
+// (the grid layout is chosen only there), H % 4 == 0, the unit slices and
+// row groups within the card's SMs, the shared memory within the 227 KB a
+// CTA may have, and the caller's shared-memory and workspace sizes.
+int grid_check(int B, int Tn, int H, bool bf16, bool reverse, int groups, long long smem_bytes,
+               long long ws_bytes, int* grid) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || Tn <= 0 || H <= kMaxHidden || H % 4 != 0 || groups <= 0) return bad;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (H + kGridUnits(bf16) - 1) / kGridUnits(bf16);
+  const int row_tiles = grid_rows(B, bf16) / kGridRowTile(bf16);
+  *grid = tiles * groups;
+  if (groups > row_tiles || *grid > sms || grid_smem(H, bf16) > 232448 ||
+      smem_bytes != grid_smem(H, bf16) ||
+      ws_bytes != static_cast<long long>(grid_workspace(B, H, bf16, reverse))) {
+    return bad;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1825,6 +2382,97 @@ int seqrec_gru_backward_wide(const void* xp, const void* hp, const void* h_in,
   return kp == nullptr
              ? launch_bwd_wide<false, __nv_bfloat16>(smem, s, x, hpr, h_in, g_ys, w_frag, kp, dxp, dnr, dh, B, Tn, H)
              : launch_bwd_wide<true, __nv_bfloat16>(smem, s, x, hpr, h_in, g_ys, w_frag, kp, dxp, dnr, dh, B, Tn, H);
+}
+
+// The grid-persistent forward above H = 256 (either dtype: 0 float, 1
+// bf16), one cooperative launch of tiles x groups CTAs. xp [B, T, 3H] float
+// (the input projection, b_x included), h0 [B, H] and ys [B, T, H] of the
+// dtype, b_h [3H] float, keep [B, T] float (1 - reset) or null; w_pack the
+// wrapper's packing of W_h (bf16: [tiles][Kp/16][3][32] x 16 bytes; float:
+// [tiles][Kp/128][8][3][32] float4); ws a zeroed workspace of
+// grid_workspace(B, H, dtype, forward) bytes. All contiguous, 16-byte
+// aligned; H % 4 == 0, 256 < H. groups, smem_bytes and ws_bytes as the
+// caller computed them, checked again here (grid_check).
+int seqrec_gru_forward_grid(const void* xp, const void* h0, const void* w_pack, const void* b_h,
+                            const void* keep, void* ys, void* ws, int B, int Tn, int H,
+                            int dtype, int groups, long long smem_bytes, long long ws_bytes,
+                            void* stream) {
+  int grid = 0;
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool bf16 = dtype == 1;
+  const int rc = grid_check(B, Tn, H, bf16, false, groups, smem_bytes, ws_bytes, &grid);
+  if (rc != 0) return rc;
+  const float* x = static_cast<const float*>(xp);
+  const float* bh = static_cast<const float*>(b_h);
+  const float* kp = static_cast<const float*>(keep);
+  unsigned char* w = static_cast<unsigned char*>(ws);
+  const int smem = grid_smem(H, bf16);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    const auto* h = static_cast<const __nv_bfloat16*>(h0);
+    const auto* wf = static_cast<const uint4*>(w_pack);
+    auto* y = static_cast<__nv_bfloat16*>(ys);
+    return kp == nullptr
+               ? launch_grid(gru_forward_grid_kernel<false>, grid, smem, s, x, h, wf, bh, kp, y, w, B, Tn, H, groups)
+               : launch_grid(gru_forward_grid_kernel<true>, grid, smem, s, x, h, wf, bh, kp, y, w, B, Tn, H, groups);
+  }
+  const auto* h = static_cast<const float*>(h0);
+  const auto* wf = static_cast<const float4*>(w_pack);
+  auto* y = static_cast<float*>(ys);
+  return kp == nullptr
+             ? launch_grid(gru_forward_grid_f32_kernel<false>, grid, smem, s, x, h, wf, bh, kp, y, w, B, Tn, H, groups)
+             : launch_grid(gru_forward_grid_f32_kernel<true>, grid, smem, s, x, h, wf, bh, kp, y, w, B, Tn, H, groups);
+}
+
+// The grid-persistent reverse recurrence above H = 256, the gate recompute
+// folded in; dtype is W_h's (0 float, 1 bf16). xp, hp [B, T, 3H] float;
+// h_in [B, T, H] of hin_dtype (float with float weights; float or bf16 with
+// bf16 ones); g_ys [B, T, H] of the weights' dtype; w_pack the wrapper's
+// packing of W_h (bf16: [tiles][3 Kp/16][32] x 16 bytes; float:
+// [tiles][3 Kp/128][8][32] float4); keep [B, T] float or null; d_xp
+// [B, T, 3H], dn_r [B, T, H], dh0 [B, H] float; ws a zeroed workspace of
+// grid_workspace(B, H, dtype, reverse) bytes. As the forward otherwise.
+int seqrec_gru_backward_grid(const void* xp, const void* hp, const void* h_in, const void* g_ys,
+                             const void* w_pack, const void* keep, void* d_xp, void* dn_r,
+                             void* dh0, void* ws, int B, int Tn, int H, int dtype, int hin_dtype,
+                             int groups, long long smem_bytes, long long ws_bytes, void* stream) {
+  int grid = 0;
+  if ((dtype != 0 && dtype != 1) || (hin_dtype != 0 && hin_dtype != 1) ||
+      (dtype == 0 && hin_dtype != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool bf16 = dtype == 1;
+  const int rc = grid_check(B, Tn, H, bf16, true, groups, smem_bytes, ws_bytes, &grid);
+  if (rc != 0) return rc;
+  const float* x = static_cast<const float*>(xp);
+  const float* hpr = static_cast<const float*>(hp);
+  const float* kp = static_cast<const float*>(keep);
+  float* dxp = static_cast<float*>(d_xp);
+  float* dnr = static_cast<float*>(dn_r);
+  float* dh = static_cast<float*>(dh0);
+  unsigned char* w = static_cast<unsigned char*>(ws);
+  const int smem = grid_smem(H, bf16);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!bf16) {
+    const auto* hi = static_cast<const float*>(h_in);
+    const auto* gy = static_cast<const float*>(g_ys);
+    const auto* wf = static_cast<const float4*>(w_pack);
+    return kp == nullptr
+               ? launch_grid(gru_backward_grid_f32_kernel<false>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups)
+               : launch_grid(gru_backward_grid_f32_kernel<true>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups);
+  }
+  const auto* gy = static_cast<const __nv_bfloat16*>(g_ys);
+  const auto* wf = static_cast<const uint4*>(w_pack);
+  if (hin_dtype == 0) {
+    const auto* hi = static_cast<const float*>(h_in);
+    return kp == nullptr
+               ? launch_grid(gru_backward_grid_kernel<false, float>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups)
+               : launch_grid(gru_backward_grid_kernel<true, float>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups);
+  }
+  const auto* hi = static_cast<const __nv_bfloat16*>(h_in);
+  return kp == nullptr
+             ? launch_grid(gru_backward_grid_kernel<false, __nv_bfloat16>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups)
+             : launch_grid(gru_backward_grid_kernel<true, __nv_bfloat16>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups);
 }
 
 const char* seqrec_gru_error_string(int code) {

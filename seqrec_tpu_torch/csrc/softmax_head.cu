@@ -71,6 +71,14 @@
 // The negatives are read from L2 once a block (128 KB at S = 256, H = 128).
 // Rows past N are computed and never written.
 //
+// Above H = 256 (the wide GRU4Rec's D = H = 512, and wider) neither design
+// keeps a row on chip as it is: bf16 takes head_mma_ksplit_kernel (below:
+// the block's h rows resident in shared memory, H walked in chunks of 128
+// through the negatives' ring, each S-tile's logits summed in f32 across the
+// chunks, then the same epilogue), f32 the same SIMT design on 32-row
+// blocks, whose transposed h fits shared memory up to H = 1,376 (its k
+// chunks are already a K split).
+//
 // The C interface returns cudaGetLastError() after the launch; the launch is
 // asynchronous on the caller's stream and allocates nothing.
 
@@ -280,7 +288,7 @@ int launch_head_f32_variant(const void* h, const void* pos, const void* neg,
                             const void* targets, const void* neg_ids, const void* pos_log_q,
                             const void* neg_log_q, void* nll, int N, int S, int H,
                             cudaStream_t stream) {
-  if (N <= 0 || S <= 0 || H <= 0 || (kVec4 && H % 4 != 0) || H > kF32MaxH) {
+  if (N <= 0 || S <= 0 || H <= 0 || (kVec4 && H % 4 != 0) || (kTileM > 32 && H > kF32MaxH)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem = head_f32_smem<kTileM, kTileK, kStages>(H);
@@ -513,13 +521,235 @@ int launch_mma_ks(const void* h, const void* pos, const void* neg, const int* ta
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 above H = 256: the K split
+// ---------------------------------------------------------------------------
+//
+// Past H = 256 a warp's h rows no longer fit its registers as A fragments
+// (64 registers a lane at 256). head_mma_ksplit_kernel keeps the block's h
+// rows in shared memory instead ([kKsRows][Hp + 8] bf16, Hp = H padded to
+// the chunk, zero past H and N: 129 KB at Hp = 1,024) and walks H in chunks
+// of kKsChunk = 128: the negatives stream through the ring as (S-tile, k
+// chunk) stages of [64][128 + 8] bf16 with the tile's ids and logQ, the A
+// fragments of a chunk come by ldmatrix from the resident rows, and each
+// S-tile's logits accumulate in f32 across its chunks; after a tile's last
+// chunk the epilogue is head_mma_kernel's (logQ, the hit mask, the online
+// logsumexp), unchanged. 64 rows a block (4 warps of 16): 128 would need
+// 258 KB of h at Hp = 1,024. The positive logit is an f32 dot of the
+// resident h row and pos, 4 lanes a row as in head_mma_kernel.
+constexpr int kKsRows = 64;
+constexpr int kKsThreads = 2 * kKsRows;  // 4 warps
+constexpr int kKsChunk = 128;            // k a stage
+constexpr int kKsLd = kKsChunk + 8;      // bf16 a stage's row
+__host__ __device__ constexpr int ksplit_stage_bytes() { return kSTile * kKsLd * 2 + kSTile * 8; }
+__host__ __device__ inline int ksplit_hp(int H) { return (H + kKsChunk - 1) / kKsChunk * kKsChunk; }
+__host__ __device__ inline int ksplit_smem(int H) {
+  return kKsRows * (ksplit_hp(H) + 8) * 2 + kHeadStages * ksplit_stage_bytes();
+}
+
+// kU as head_mma_kernel's: the bytes a row of h, pos and the negatives is
+// copied and read in (16, 8, 4 by cp.async; 2, one bf16, by plain loads).
+template <int kU>
+__global__ void __launch_bounds__(kKsThreads, 1)
+head_mma_ksplit_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __restrict__ pos,
+                       const __nv_bfloat16* __restrict__ neg, const int* __restrict__ targets,
+                       const int* __restrict__ neg_ids, const float* __restrict__ pos_log_q,
+                       const float* __restrict__ neg_log_q, float* __restrict__ nll, int N,
+                       int S, int H) {
+  constexpr int kE = kU / 2;  // bf16 a piece
+  const int Hp = ksplit_hp(H), ldh = Hp + 8, chunks = Hp / kKsChunk;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);  // [kKsRows][ldh]
+  unsigned char* ring = smem + kKsRows * ldh * 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int blk0 = blockIdx.x * kKsRows, row0 = blk0 + warp * 16;
+
+  // Zero the resident rows once: columns past H and rows past N stay zero.
+  for (int c = threadIdx.x; c < kKsRows * ldh / 8; c += kKsThreads) {
+    reinterpret_cast<uint4*>(hs)[c] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  // A piece of kU bytes from `from` (valid or not) into `to`.
+  auto copy = [&](__nv_bfloat16* to, const __nv_bfloat16* from, bool in) {
+    if constexpr (kU == 16) {
+      mma::cp_async16_zfill(to, from, in ? 16 : 0);
+    } else if constexpr (kU == 8) {
+      mma::cp_async8_zfill(to, from, in ? 8 : 0);
+    } else if constexpr (kU == 4) {
+      mma::cp_async4_zfill(to, from, in ? 4 : 0);
+    } else {
+      *to = in ? *from : __ushort_as_bfloat16(0);
+    }
+  };
+  const int row_pieces = H / kE;
+  for (int c = threadIdx.x; c < kKsRows * row_pieces; c += kKsThreads) {
+    const int r = c / row_pieces, k = kE * (c - r * row_pieces);
+    const bool in = blk0 + r < N;
+    copy(hs + r * ldh + k, in ? h + static_cast<size_t>(blk0 + r) * H + k : h, in);
+  }
+  const int tiles = (S + kSTile - 1) / kSTile, iters = tiles * chunks;
+  // Iteration i: k chunk i % chunks of S-tile i / chunks. Pieces past H or
+  // S are zero-filled: a slot holds other chunks before.
+  auto stage = [&](int i) {
+    if (i < iters) {
+      const int j = i / chunks, k0 = (i % chunks) * kKsChunk;
+      unsigned char* st = ring + (i % kHeadStages) * ksplit_stage_bytes();
+      __nv_bfloat16* ns = reinterpret_cast<__nv_bfloat16*>(st);
+      constexpr int kPieces = kKsChunk / kE;
+      for (int c = threadIdx.x; c < kSTile * kPieces; c += kKsThreads) {
+        const int r = c / kPieces, k = kE * (c - r * kPieces), jr = j * kSTile + r;
+        const bool in = jr < S && k0 + k < H;
+        copy(ns + r * kKsLd + k, in ? neg + static_cast<size_t>(jr) * H + k0 + k : neg, in);
+      }
+      int* ids = reinterpret_cast<int*>(st + kSTile * kKsLd * 2);
+      float* lq = reinterpret_cast<float*>(ids + kSTile);
+      for (int c = threadIdx.x; c < 2 * kSTile; c += kKsThreads) {
+        const int r = c % kSTile, jr = j * kSTile + r;
+        const bool in = jr < S;
+        if (c < kSTile) {
+          mma::cp_async4_zfill(ids + r, in ? neg_ids + jr : neg_ids, in ? 4 : 0);
+        } else {
+          mma::cp_async4_zfill(lq + r, in ? neg_log_q + jr : neg_log_q, in ? 4 : 0);
+        }
+      }
+    }
+    mma::cp_async_commit();  // an empty group past the last keeps the count
+  };
+  stage(0);  // its group carries the resident rows too
+  stage(1);
+  mma::cp_async_wait<1>();
+  __syncthreads();
+
+  // The positive logit: rows gr and gr + 8 of the warp, the quad's lanes
+  // over k = 2 tq + 8 m (pairs) or tq + 4 m (one bf16 at a time).
+  float pdot[2] = {0.0f, 0.0f};
+  int tgt[2];
+#pragma unroll
+  for (int mh = 0; mh < 2; ++mh) {
+    const int lr = warp * 16 + gr + 8 * mh, row = blk0 + lr;
+    tgt[mh] = row < N ? targets[row] : 0;
+    if (row >= N) continue;
+    const __nv_bfloat16* hr = hs + lr * ldh;
+    const __nv_bfloat16* pr = pos + static_cast<size_t>(row) * H;
+    if constexpr (kU >= 4) {  // H even: pairs
+      for (int k = 2 * tq; k < H; k += 8) {
+        const uint32_t hv = *reinterpret_cast<const uint32_t*>(hr + k);
+        const uint32_t pv = *reinterpret_cast<const uint32_t*>(pr + k);
+        pdot[mh] = fmaf(bf16_lo(hv), bf16_lo(pv), pdot[mh]);
+        pdot[mh] = fmaf(bf16_hi(hv), bf16_hi(pv), pdot[mh]);
+      }
+    } else {
+      for (int k = tq; k < H; k += 4) {
+        pdot[mh] = fmaf(__bfloat162float(hr[k]), __bfloat162float(pr[k]), pdot[mh]);
+      }
+    }
+  }
+
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+  const int a_off = (warp * 16 + (lane & 15)) * ldh + (lane >> 4) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * kKsLd + ((lane >> 3) & 1) * 8;
+  float acc[kSTile / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < kSTile / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+  for (int i = 0; i < iters; ++i) {
+    mma::cp_async_wait<1>();  // iteration i's stage has landed (this thread's pieces)
+    __syncthreads();          // ... everyone's; iteration i - 1's slot is free
+    stage(i + 2);
+    const int j = i / chunks, c = i % chunks;
+    const unsigned char* st = ring + (i % kHeadStages) * ksplit_stage_bytes();
+    const __nv_bfloat16* ns = reinterpret_cast<const __nv_bfloat16*>(st);
+#pragma unroll
+    for (int s = 0; s < kKsChunk / 16; ++s) {
+      uint32_t a[4];
+      mma::ldmatrix_x4(a, hs + a_off + c * kKsChunk + 16 * s);
+#pragma unroll
+      for (int np = 0; np < kSTile / 16; ++np) {
+        uint32_t b[4];
+        mma::ldmatrix_x4(b, ns + 16 * np * kKsLd + 16 * s + b_off);
+        mma::bf16_16x8x16(acc[2 * np], a, b[0], b[1]);
+        mma::bf16_16x8x16(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+    if (c != chunks - 1) continue;
+    // The S-tile's logits are whole: head_mma_kernel's epilogue.
+    const int* ids = reinterpret_cast<const int*>(st + kSTile * kKsLd * 2);
+    const float* lq = reinterpret_cast<const float*>(ids + kSTile);
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < kSTile / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * nt + 2 * tq + e;
+        const bool in = j * kSTile + col < S;
+        const int id = ids[col];
+        const float q = lq[col];
+#pragma unroll
+        for (int mh = 0; mh < 2; ++mh) {
+          float v = acc[nt][2 * mh + e] - q;
+          v = !in ? -INFINITY : (id == tgt[mh] ? kNegInf : v);
+          acc[nt][2 * mh + e] = v;
+          tmax[mh] = fmaxf(tmax[mh], v);
+        }
+      }
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh) {
+      tmax[mh] = fmaxf(tmax[mh], __shfl_xor_sync(0xffffffffu, tmax[mh], 1));
+      tmax[mh] = fmaxf(tmax[mh], __shfl_xor_sync(0xffffffffu, tmax[mh], 2));
+      const float m_new = fmaxf(m_run[mh], tmax[mh]);
+      float sum = 0.0f;
+#pragma unroll
+      for (int nt = 0; nt < kSTile / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) sum += exp2f((acc[nt][2 * mh + e] - m_new) * kLog2e);
+      l_run[mh] = l_run[mh] * exp2f((m_run[mh] - m_new) * kLog2e) + sum;
+      m_run[mh] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < kSTile / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+  }
+  mma::cp_async_wait<0>();  // no copy outlives the block
+
+#pragma unroll
+  for (int mh = 0; mh < 2; ++mh) {
+    float l = l_run[mh], dot = pdot[mh];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+    dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+    const int row = row0 + gr + 8 * mh;
+    if (tq == 0 && row < N) {
+      const float pl = dot - pos_log_q[row];
+      const float m = m_run[mh], M = fmaxf(m, pl);
+      const float lse = M + logf(l * expf(m - M) + expf(pl - M));
+      nll[row] = lse - pl;
+    }
+  }
+}
+
+template <int kU>
+int launch_ksplit(const void* h, const void* pos, const void* neg, const int* targets,
+                  const int* neg_ids, const float* pos_log_q, const float* neg_log_q,
+                  float* nll, int N, int S, int H, int smem, cudaStream_t stream) {
+  auto kernel = head_mma_ksplit_kernel<kU>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<(N + kKsRows - 1) / kKsRows, kKsThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(pos),
+      static_cast<const __nv_bfloat16*>(neg), targets, neg_ids, pos_log_q, neg_log_q, nll, N,
+      S, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // The f32 design. h, pos [N, H], neg [S, H] float; targets [N], neg_ids
 // [S] int32; pos_log_q [N], neg_log_q [S] float; nll [N] float. All
-// contiguous; H <= 256 (H <= 128 with 128 rows a block); any S > 0.
+// contiguous; H <= 256 with 64 rows a block (H <= 128 with 128), H > 256
+// with 32 (as far as hT fits shared memory); any S > 0.
 // pos_unit: 16 where H % 4 == 0 and h, pos and neg are 16-byte aligned (the
 // positive logit in float4s), else 4, as the caller computed it, checked
 // again here. rows: 64 or 128 rows a block; smem_bytes as the caller
@@ -540,6 +770,13 @@ int seqrec_head_forward(const void* h, const void* pos, const void* neg,
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #define SEQREC_HEAD_ARGS h, pos, neg, targets, neg_ids, pos_log_q, neg_log_q, nll, N, S, H, s
+  // Above kF32MaxH: 32-row blocks, so that hT stays resident (the same
+  // kernel, its k chunks the K split); at and below it the shipped variants.
+  if (H > kF32MaxH && rows == 32 && head_f32_smem<32, kF32KChunk, kF32Stages>(H) <= 232448 &&
+      head_f32_smem<32, kF32KChunk, kF32Stages>(H) == smem_bytes) {
+    return vec4 ? launch_head_f32_variant<32, kF32KChunk, kF32Stages, 1>(SEQREC_HEAD_ARGS)
+                : launch_head_f32_variant<32, kF32KChunk, kF32Stages, 1, false>(SEQREC_HEAD_ARGS);
+  }
   if (H > 0 && H <= 128 && rows == 128 &&
       head_f32_smem<128, kF32KChunk, kF32Stages>(H) == smem_bytes) {
     return vec4 ? launch_head_f32_variant<128, kF32KChunk, kF32Stages, 2>(SEQREC_HEAD_ARGS)
@@ -556,20 +793,38 @@ int seqrec_head_forward(const void* h, const void* pos, const void* neg,
 
 // The bf16 design (tensor cores). h, pos [N, H], neg [S, H] bf16; targets
 // [N], neg_ids [S] int32; pos_log_q [N], neg_log_q [S] float; nll [N]
-// float. All contiguous; any H <= 256; any S > 0. unit: the widest of 16,
+// float. All contiguous; any H (past 256 the K split, as far as its
+// resident rows fit shared memory); any S > 0. unit: the widest of 16,
 // 8, 4 and 2 bytes that divides H * 2 and the bases of h, pos and neg, as
 // the caller computed it, checked again here. smem_bytes (the ring: 3 stages
-// of stage_bytes(Hp), Hp = H padded to 16, 32, 64, 128 or 256) as the
-// caller computed it, checked again here.
+// of stage_bytes(Hp), Hp = H padded to 16, 32, 64, 128 or 256; past 256
+// ksplit_smem(H)) as the caller computed it, checked again here.
 int seqrec_head_forward_mma(const void* h, const void* pos, const void* neg,
                             const void* targets, const void* neg_ids,
                             const void* pos_log_q, const void* neg_log_q, void* nll,
                             int N, int S, int H, long long smem_bytes, int unit, void* stream) {
-  if (N <= 0 || S <= 0 || H <= 0 || H > 256 ||
+  if (N <= 0 || S <= 0 || H <= 0 ||
       unit != mma::copy_unit(static_cast<unsigned long long>(H) * 2 |
                              reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(pos) |
                              reinterpret_cast<uintptr_t>(neg))) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (H > 256) {  // the K split (head_mma_ksplit_kernel), only past 256
+    const int smem = ksplit_smem(H);
+    if (smem > 232448 || smem != smem_bytes) return static_cast<int>(cudaErrorInvalidValue);
+    const int* t = static_cast<const int*>(targets);
+    const int* ni = static_cast<const int*>(neg_ids);
+    const float* plq = static_cast<const float*>(pos_log_q);
+    const float* nlq = static_cast<const float*>(neg_log_q);
+    float* out = static_cast<float*>(nll);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (unit) {
+      case 16: return launch_ksplit<16>(h, pos, neg, t, ni, plq, nlq, out, N, S, H, smem, s);
+      case 8: return launch_ksplit<8>(h, pos, neg, t, ni, plq, nlq, out, N, S, H, smem, s);
+      case 4: return launch_ksplit<4>(h, pos, neg, t, ni, plq, nlq, out, N, S, H, smem, s);
+      case 2: return launch_ksplit<2>(h, pos, neg, t, ni, plq, nlq, out, N, S, H, smem, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   const int ks = H <= 16 ? 1 : H <= 32 ? 2 : H <= 64 ? 4 : H <= 128 ? 8 : 16;
   const size_t smem = static_cast<size_t>(kHeadStages) * stage_bytes(16 * ks);

@@ -8,7 +8,17 @@ a reset mask, and with one (session-parallel training), where a keep plane
 `1 - reset` [B, T] f32 goes to both kernels. The two variants count their
 launches apart: `gru_scan.launches` / `gru_scan.reset_launches`, and the
 same two on `gru_backward`; each also counts its launches of the cluster
-layout above Hp = 128 (either variant) in `.wide_launches`.
+layout above Hp = 128 (either variant) in `.wide_launches`, and of the grid
+layout above H = 256 (either variant, either dtype) in `.grid_launches`.
+
+Above H = 256 (the JAX package's wide GRU4Rec at D = H = 512, GRU4Rec's
+1,000 units) no cluster holds W_h, and both directions in both dtypes run
+csrc/gru.cu's grid-persistent layout (`grid_config`): one cooperative
+launch, each CTA a slice of the units with their W_h values resident in its
+shared memory (`grid_pack`) for a group of batch rows, the step's vector
+through L2 in a zeroed workspace, one grid barrier a step; the reverse
+publishes each step's d_hproj columns, then forms dh_prev from the whole
+of it (the K split) with no atomics.
 
 Forward, two hand-written designs chosen by dtype (each computes the whole
 function in its own numerics; neither gives way to the other):
@@ -82,6 +92,7 @@ rounded to the weights' working dtype, as the JAX package's VJP does.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -94,7 +105,7 @@ plain_backward = reference.gru_bwd_fused
 
 # Shared memory one block may opt in to on sm_90 (227 KB).
 SMEM_LIMIT = 232_448
-MAX_HIDDEN = 256  # kMaxHidden in csrc/gru.cu
+MAX_HIDDEN = 256  # kMaxHidden in csrc/gru.cu: the widest H of the block and cluster layouts
 PROJ_TILE = 64  # kProjTile in csrc/gru.cu: rows and columns of an xp tile
 WH_REG_LIMIT = 128  # Hp up to which a bf16 recurrence runs in one block, W_h in registers
 # The bf16 recurrences above WH_REG_LIMIT (csrc/gru.cu, the cluster layouts):
@@ -126,6 +137,15 @@ GRU_BWD_CLUSTERS = ((2, 4), (4, 4), (2, 8), (4, 8), (8, 4), (2, 16), (4, 16), (8
 BWD_UNITS = 8  # kBwdUnits in csrc/gru.cu: units a warp of the f32 reverse recurrence sums for
 BWD_OPERANDS = 12  # kBwdOperands: ring floats of a (unit, row) pair a step
 GRU_REG_SLICE = 16  # kGruRegSlice in csrc/gru.cu: a W_h slice of this length stays in registers
+# The grid-persistent layout above MAX_HIDDEN (csrc/gru.cu, both dtypes):
+GRID_THREADS = 256  # kGridThreads: 8 warps a CTA
+GRID_COUNTER = 256  # kGridCounter: workspace bytes before the planes (the barrier's counter)
+# kGridUnits, kGridK, kGridRowTile: units a CTA (bf16 one m16 tile), the
+# multiple K pads to (bf16 two k16 steps a 16-byte read; f32 a warp's 32
+# float4s) and the rows a task (bf16 two n8 tiles; f32 a quad).
+GRID_UNITS = {torch.bfloat16: 16, torch.float32: 8}
+GRID_K = {torch.bfloat16: 32, torch.float32: 128}
+GRID_ROW_TILE = {torch.bfloat16: 16, torch.float32: 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -164,6 +184,14 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     bwd_wide.restype = ctypes.c_int
+    fwd_grid = lib.seqrec_gru_forward_grid
+    fwd_grid.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [
+        ctypes.c_void_p]
+    fwd_grid.restype = ctypes.c_int
+    bwd_grid = lib.seqrec_gru_backward_grid
+    bwd_grid.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + [
+        ctypes.c_void_p]
+    bwd_grid.restype = ctypes.c_int
     lib.seqrec_gru_error_string.argtypes = [ctypes.c_int]
     lib.seqrec_gru_error_string.restype = ctypes.c_char_p
     return lib
@@ -174,9 +202,69 @@ def _check_dims(B: int, T: int, H: int, dtype: torch.dtype) -> int:
         raise ValueError(f"gru: dtype {dtype} not in float32/bfloat16")
     if min(B, T, H) <= 0:
         raise ValueError(f"gru: empty shape B={B} T={T} H={H}")
-    if H % 4 != 0 or H > MAX_HIDDEN:
-        raise ValueError(f"gru: needs H % 4 == 0 and H <= {MAX_HIDDEN} (H={H})")
+    limit = grid_max_hidden(dtype)
+    if H % 4 != 0 or H > limit:
+        raise ValueError(f"gru: needs H % 4 == 0 and H <= {limit} in {dtype} (H={H}; the grid "
+                         f"layout's unit slices must fit the card's {NUM_SMS} SMs and its W_h "
+                         f"values {SMEM_LIMIT} bytes of shared memory a CTA)")
     return torch.empty((), dtype=dtype).element_size()
+
+
+def _grid_kpad(H: int, dtype: torch.dtype) -> int:
+    return -(-H // GRID_K[dtype]) * GRID_K[dtype]
+
+
+def _grid_smem(H: int, dtype: torch.dtype) -> int:
+    """grid_smem in csrc/gru.cu: W_h's values of a CTA's units, 96 Kp bytes
+    in every grid kernel (bf16: 16 units x 3 gates x Kp x 2 bytes; f32: 8
+    units x 3 gates x Kp x 4)."""
+    return 96 * _grid_kpad(H, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def grid_max_hidden(dtype: torch.dtype) -> int:
+    """The widest H (a multiple of 4) of the grid layout: its unit slices
+    (ceil(H / GRID_UNITS) CTAs, each at least one row group) fit the
+    card's NUM_SMS in one cooperative wave, and a CTA's W_h values fit
+    SMEM_LIMIT. 2,112 in bf16 (132 slices of 16 units), 1,056 in f32 (132
+    slices of 8)."""
+    H = NUM_SMS * GRID_UNITS[dtype]
+    while _grid_smem(H, dtype) > SMEM_LIMIT:
+        H -= 4
+    return H
+
+
+def grid_config(B: int, H: int, dtype: torch.dtype, reverse: bool) -> Dict:
+    """The grid-persistent layout of csrc/gru.cu above MAX_HIDDEN (either
+    dtype, either direction): one cooperative launch of `unit_slices` x
+    `row_groups` CTAs of GRID_THREADS threads, all resident at once. CTA
+    (slice, group) owns GRID_UNITS units (their W_h values, all three gates,
+    in its shared memory: `smem_bytes`, 96 Kp bytes with K padded to
+    `k_padded`) for the group's batch rows; the row groups split the rows
+    into tasks of GRID_ROW_TILE rows as far as the card's NUM_SMS allow
+    beside the slices (more groups, fewer rows a CTA), each group a whole
+    number of tasks and none empty. `workspace_bytes`: the zeroed workspace
+    the wrapper hands the kernel (the barrier's counter, then the forward's
+    h buffers [2][rows][Kp] or the reverse's d_hproj buffers and carry)."""
+    units, tile = GRID_UNITS[dtype], GRID_ROW_TILE[dtype]
+    slices = -(-H // units)
+    row_tiles = -(-B // tile)
+    per = -(-row_tiles // max(1, min(NUM_SMS // slices, row_tiles)))
+    groups = -(-row_tiles // per)
+    kp = _grid_kpad(H, dtype)
+    plane = row_tiles * tile * kp
+    ws = GRID_COUNTER + (28 * plane if reverse else 2 * plane * dtype.itemsize)
+    return {"design": "mma.sync" if dtype == torch.bfloat16 else "fma", "layout": "grid",
+            "grid": slices * groups, "threads": GRID_THREADS, "units_per_cta": units,
+            "unit_slices": slices, "row_groups": groups, "rows_per_group": per * tile,
+            "k_padded": kp, "smem_bytes": _grid_smem(H, dtype), "workspace_bytes": ws,
+            "max_hidden": grid_max_hidden(dtype)}
+
+
+def _not_cluster(rows_per_cluster, cluster_size, H: int) -> None:
+    if rows_per_cluster is not None or cluster_size is not None:
+        raise ValueError(f"gru: rows_per_cluster and cluster_size are the f32 cluster design's; "
+                         f"the grid layout above H = {MAX_HIDDEN} takes neither (H={H})")
 
 
 def _slice_len(K: int, S: int) -> int:
@@ -284,10 +372,20 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
     from shared memory. Its step is latency (the exchange, the gate math),
     then one CTA's FMAs and shared-memory reads for its rows and units: 4
     rows a cluster and 4 CTAs were fastest at B=64 and 128, D=H=128; at
-    B=256 that is 256 CTAs, two waves, and 2 CTAs win."""
+    B=256 that is 256 CTAs, two waves, and 2 CTAs win.
+
+    Above MAX_HIDDEN, either dtype (`layout` "grid", `grid_config`): the
+    projection as above, then the grid-persistent recurrence, up to
+    `grid_max_hidden(dtype)`; ValueError past it, naming H and the limit."""
     es = _check_dims(B, T, H, dtype)
     if D <= 0 or D % 4 != 0:  # rows of x copied in 8- or 16-byte pieces
         raise ValueError(f"gru: needs D*{es} % {4 * es} == 0 (D={D}, H={H})")
+    if H > MAX_HIDDEN:
+        _not_cluster(rows_per_cluster, cluster_size, H)
+        xproj = ({"xproj_grid": [-(-(B * T) // PROJ_TILE), -(-(3 * H) // PROJ_TILE)],
+                  "xproj_threads": 128} if dtype == torch.bfloat16 else
+                 {"xproj_grid": [xproj_f32_grid(B * T, 3 * H)], "xproj_threads": F32_PROJ_THREADS})
+        return {**grid_config(B, H, dtype, reverse=False), **xproj}
     if dtype == torch.bfloat16:
         if rows_per_cluster is not None or cluster_size is not None:
             raise ValueError(f"gru: rows_per_cluster and cluster_size are the f32 design's; "
@@ -389,15 +487,24 @@ def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
     double buffer and a ring of each (unit, row) pair's step operands (the
     two projections' three gates, h_in, g_y and keep: BWD_OPERANDS floats).
     A warp sums for BWD_UNITS units, its 32 lanes each over a slice of the
-    3H columns."""
+    3H columns.
+
+    Above MAX_HIDDEN, either dtype (`layout` "grid", `grid_config`): the
+    grid-persistent reverse recurrence, K split by phases: each CTA
+    publishes its units' d_hproj columns, then (after the grid barrier)
+    reads the whole d_hproj of its rows and forms dh_prev for its units."""
     _check_dims(B, T, H, dtype)
+    if dtype == torch.bfloat16 and h_in_dtype not in _DTYPE_CODE:
+        raise ValueError(f"gru backward: h_in dtype {h_in_dtype} not in float32/bfloat16")
+    if H > MAX_HIDDEN:
+        _not_cluster(rows_per_cluster, cluster_size, H)
+        cfg = grid_config(B, H, dtype, reverse=True)
+        return {**cfg, "d_terms": 2} if dtype == torch.bfloat16 else cfg
     if dtype == torch.bfloat16:
         if rows_per_cluster is not None or cluster_size is not None:
             raise ValueError(f"gru: rows_per_cluster and cluster_size are the f32 design's; "
                              f"bf16 takes {MMA_ROWS} rows a block")
         hp = 16 * -(-H // 16)
-        if h_in_dtype not in _DTYPE_CODE:
-            raise ValueError(f"gru backward: h_in dtype {h_in_dtype} not in float32/bfloat16")
         h_bytes = torch.empty((), dtype=h_in_dtype).element_size()
         if hp > WH_REG_LIMIT:
             return {**_wide_layout(B, hp), "w_in_regs": 1, "d_terms": 2,
@@ -466,6 +573,40 @@ def wide_backward_fragments(w_h: torch.Tensor) -> torch.Tensor:
     ks = 3 * U // 16
     w = w.reshape(C, WIDE // 16, 2, 8, ks, 2, 4, 2)  # CTA, tile, mh, g, st, kh, q, pair
     return w.permute(0, 1, 4, 3, 6, 5, 2, 7).reshape(C, WIDE // 16, ks, 32, 8)
+
+
+def grid_pack(w_h: torch.Tensor, dtype: torch.dtype, reverse: bool) -> torch.Tensor:
+    """W_h [H, 3H] -> the grid layout's packed weights (csrc/gru.cu), one
+    slice of GRID_UNITS units a CTA, zero past H. One copy.
+
+    bf16, A fragments of mma.sync.m16n8k16 with K permuted so that lane
+    (g, q) of k-steps 2c, 2c + 1 covers k = 32 c + 8 q .. + 7 (its one
+    16-byte read of a B row): register 2 kh + mh of k-step 2 c + kk holds
+    units 16 tile + 8 mh + g at k = 32 c + 8 q + 4 kk + 2 kh (+ 1).
+    Forward: A = W_h^T of each gate, [tiles][Kp/16][3][32][8]; reverse:
+    A[unit][q Kp + j] = W_h[unit, q H + j], [tiles][3 Kp/16][32][8].
+    f32, the values a lane's float4 k = 128 j + 4 lane reads: forward
+    [tiles][Kp/128][8 units][3 gates][32][4] of W_h[k, q H + unit];
+    reverse [tiles][3 Kp/128][8 units][32][4] of W_h[unit, column]."""
+    H = w_h.shape[0]
+    units, kp = GRID_UNITS[dtype], _grid_kpad(H, dtype)
+    tiles = -(-H // units)
+    w = w_h.to(dtype).reshape(H, 3, H)
+    pad = torch.nn.functional.pad
+    if dtype == torch.bfloat16:
+        if reverse:  # unit, gate, column
+            a = pad(w, (0, kp - H, 0, 0, 0, units * tiles - H))
+            a = a.reshape(tiles, 2, 8, 3 * kp // 32, 4, 2, 2, 2)  # tile mh g c q kk kh pair
+            return a.permute(0, 3, 5, 2, 4, 6, 1, 7).reshape(tiles, 3 * kp // 16, 32, 8).contiguous()
+        a = pad(w.permute(1, 2, 0), (0, kp - H, 0, units * tiles - H))  # gate, unit, k
+        a = a.reshape(3, tiles, 2, 8, kp // 32, 4, 2, 2, 2)  # gate tile mh g c q kk kh pair
+        return a.permute(1, 4, 6, 0, 3, 5, 7, 2, 8).reshape(tiles, kp // 16, 3, 32, 8).contiguous()
+    if reverse:  # unit, gate, column
+        a = pad(w, (0, kp - H, 0, 0, 0, units * tiles - H)).reshape(tiles, 8, 3 * kp // 128, 32, 4)
+        return a.permute(0, 2, 1, 3, 4).contiguous()
+    a = pad(w, (0, units * tiles - H, 0, 0, 0, kp - H))  # k, gate, unit
+    a = a.reshape(kp // 128, 32, 4, 3, tiles, 8)  # j lane e gate tile unit
+    return a.permute(4, 0, 5, 3, 1, 2).contiguous()
 
 
 def _check_operands(args, dev) -> None:
@@ -556,7 +697,17 @@ def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None) -> torch.Tensor:
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     keep_ptr = None if keep is None else keep.data_ptr()
-    if cfg.get("layout") == "cluster":
+    if cfg.get("layout") == "grid":
+        xp = gru_input_projection(x, w_x, b_x)
+        ws = torch.zeros(cfg["workspace_bytes"], dtype=torch.uint8, device=dev)
+        args = [xp, h0.contiguous(), grid_pack(w_h, dtype, reverse=False), b_h.contiguous()]
+        _check_operands(args + ([] if keep is None else [keep]) + [ws], dev)
+        with torch.cuda.device(dev):
+            rc = lib.seqrec_gru_forward_grid(
+                *(a.data_ptr() for a in args), keep_ptr, ys.data_ptr(), ws.data_ptr(), B, T, H,
+                _DTYPE_CODE[dtype], cfg["row_groups"], cfg["smem_bytes"],
+                cfg["workspace_bytes"], stream)
+    elif cfg.get("layout") == "cluster":
         xp = gru_input_projection(x, w_x, b_x)
         args = [xp, h0.contiguous(), forward_fragments(w_h), b_h.contiguous()]
         _check_operands(args + ([] if keep is None else [keep]), dev)
@@ -589,6 +740,8 @@ def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None) -> torch.Tensor:
         gru_scan.reset_launches += 1
     if cfg.get("layout") == "cluster":
         gru_scan.wide_launches += 1
+    elif cfg.get("layout") == "grid":
+        gru_scan.grid_launches += 1
     return ys
 
 
@@ -625,7 +778,20 @@ def gru_backward(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
     dn_r = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if cfg["design"] == "mma.sync":
+    if cfg.get("layout") == "grid":
+        bf16 = w_h.dtype == torch.bfloat16
+        ws = torch.zeros(cfg["workspace_bytes"], dtype=torch.uint8, device=dev)
+        args = [x_proj.float().contiguous(), h_proj.float().contiguous(),
+                (h_in if bf16 else h_in.float()).contiguous(),
+                g_ys.to(w_h.dtype).contiguous(), grid_pack(w_h, w_h.dtype, reverse=True)]
+        _check_operands(args + ([] if keep is None else [keep]) + [ws], dev)
+        with torch.cuda.device(dev):
+            rc = lib.seqrec_gru_backward_grid(
+                *(a.data_ptr() for a in args), keep_ptr, d_xp.data_ptr(), dn_r.data_ptr(),
+                dh0.data_ptr(), ws.data_ptr(), B, T, H, _DTYPE_CODE[w_h.dtype],
+                _DTYPE_CODE[args[2].dtype], cfg["row_groups"], cfg["smem_bytes"],
+                cfg["workspace_bytes"], stream)
+    elif cfg["design"] == "mma.sync":
         wide = cfg.get("layout") == "cluster"
         frags = wide_backward_fragments(w_h) if wide else backward_fragments(w_h)
         args = [x_proj.float().contiguous(), h_proj.float().contiguous(), h_in.contiguous(),
@@ -654,12 +820,15 @@ def gru_backward(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
         gru_backward.reset_launches += 1
     if cfg.get("layout") == "cluster":
         gru_backward.wide_launches += 1
+    elif cfg.get("layout") == "grid":
+        gru_backward.grid_launches += 1
     return d_xp, dh0, dn_r
 
 
 gru_backward.launches = 0
 gru_backward.reset_launches = 0
 gru_backward.wide_launches = 0
+gru_backward.grid_launches = 0
 
 
 class _GRUScan(torch.autograd.Function):
@@ -726,3 +895,4 @@ def gru_scan(
 gru_scan.launches = 0
 gru_scan.reset_launches = 0
 gru_scan.wide_launches = 0
+gru_scan.grid_launches = 0

@@ -16,6 +16,12 @@ note):
   resident in shared memory, the negatives streamed in S-tiles of 128
   through a cp.async ring (any S, any H <= 256).
 
+Above H = 256 (up to `max_hidden`: 1,280 in bf16, 1,376 in f32) the K
+split (`layout` "k-split", counted again in `.ksplit_launches`): bf16 on
+64-row blocks whose h rows stay resident in shared memory while H is walked
+in chunks of 128 through the negatives' ring, each S-tile's logits summed in
+f32 across the chunks; f32 the design above on 32-row blocks.
+
 Every H from 1 to 256 in both dtypes: bf16 copies a negative's row in the
 widest unit of 16, 8, 4 or 2 bytes that divides its bytes and the bases
 (zero-filled to Hp in shared memory) and reads h as bf16 pairs, or one bf16
@@ -39,6 +45,7 @@ two differ by summation order (and the exponential's last bits) only.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -64,6 +71,11 @@ F32_S_TILE = 128  # negatives an S-tile
 F32_K_CHUNK = 32  # k a ring stage
 F32_STAGES = 2
 F32_MAX_H = 256
+# Above MMA_MAX_H / F32_MAX_H, the K split (csrc/softmax_head.cu):
+KSPLIT_ROWS = 64  # kKsRows: bf16 rows a block (4 warps), their h resident in shared memory
+KSPLIT_CHUNK = 128  # kKsChunk: k a stage of the negatives' ring
+KSPLIT_STAGE = S_TILE * (KSPLIT_CHUNK + 8) * 2 + S_TILE * 8  # ksplit_stage_bytes
+F32_KSPLIT_ROWS = 32  # f32 rows a block past F32_MAX_H (hT resident)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -82,6 +94,35 @@ def _lib() -> ctypes.CDLL:
     lib.seqrec_head_error_string.argtypes = [ctypes.c_int]
     lib.seqrec_head_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _ksplit_smem(H: int) -> int:
+    """ksplit_smem in csrc/softmax_head.cu: the block's h rows [64][Hp + 8]
+    bf16 (Hp = H padded to KSPLIT_CHUNK), then STAGES ring stages."""
+    return KSPLIT_ROWS * (-(-H // KSPLIT_CHUNK) * KSPLIT_CHUNK + 8) * 2 + STAGES * KSPLIT_STAGE
+
+
+def _f32_smem(H: int, rows: int) -> int:
+    """head_f32_smem: hT [Hp][rows + 4] (Hp = H padded to F32_K_CHUNK), the
+    ring of F32_STAGES [32][132] chunks, the positive logits, the odd warps'
+    (m, l) and the targets."""
+    hp = -(-H // F32_K_CHUNK) * F32_K_CHUNK
+    return (hp * (rows + 4) + F32_STAGES * F32_K_CHUNK * (F32_S_TILE + 4) + 4 * rows) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def max_hidden(dtype: torch.dtype) -> int:
+    """The widest H the head takes in `dtype`: the widest padded width whose
+    K split's resident rows still fit SMEM_LIMIT (1,280 in bf16, 1,376 in
+    f32)."""
+    if dtype == torch.bfloat16:
+        unit, fits = KSPLIT_CHUNK, _ksplit_smem
+    else:
+        unit, fits = F32_K_CHUNK, lambda h: _f32_smem(h, F32_KSPLIT_ROWS)
+    H = 4096
+    while fits(H) > SMEM_LIMIT:
+        H -= unit
+    return H
 
 
 def launch_config(N: int, S: int, H: int, dtype: torch.dtype, align: int = 16) -> Dict:
@@ -105,7 +146,14 @@ def launch_config(N: int, S: int, H: int, dtype: torch.dtype, align: int = 16) -
     of the 32-deep k chunk), the negatives streamed in S-tiles of 128
     through a ring of two k chunks ([32][132] f32 each): any S, and H <= 256;
     `pos_unit_bytes` 16 where h and pos are 16-byte rows (H % 4 == 0) and
-    `align` is 16 (the positive logit's float4 reads), else 4."""
+    `align` is 16 (the positive logit's float4 reads), else 4.
+
+    Above 256 (`layout` "k-split"), up to `max_hidden(dtype)`: bf16 on
+    blocks of KSPLIT_ROWS rows (4 warps), their h rows resident in shared
+    memory ([64][Hp + 8] bf16, Hp = H padded to KSPLIT_CHUNK) and H walked
+    in chunks of 128 through the ring (stages of 64 negatives x 128 k), each
+    S-tile's logits summed in f32 across the chunks; f32 the design above on
+    blocks of F32_KSPLIT_ROWS rows, whose transposed h fits."""
     if dtype not in _DTYPES:
         raise ValueError(f"softmax_head: dtype {dtype} not in float32/bfloat16")
     if min(N, S, H) <= 0:
@@ -114,24 +162,30 @@ def launch_config(N: int, S: int, H: int, dtype: torch.dtype, align: int = 16) -
     if align < es or align % es:
         raise ValueError(f"softmax_head: {dtype} operands must be {es}-byte aligned "
                          f"(align={align})")
+    limit = max_hidden(dtype)
+    if H > limit:
+        raise ValueError(f"softmax_head: {dtype} needs H <= {limit} (H={H}; the K split's "
+                         f"resident h rows must fit {SMEM_LIMIT} bytes of shared memory)")
+    if dtype == torch.bfloat16 and H > MMA_MAX_H:
+        return {"design": "mma.sync", "layout": "k-split", "grid": -(-N // KSPLIT_ROWS),
+                "threads": 2 * KSPLIT_ROWS, "rows_per_block": KSPLIT_ROWS,
+                "hidden_padded": -(-H // KSPLIT_CHUNK) * KSPLIT_CHUNK, "s_tile": S_TILE,
+                "k_chunk": KSPLIT_CHUNK, "unit_bytes": unit_bytes(H * 2, align),
+                "smem_bytes": _ksplit_smem(H), "max_hidden": limit}
     if dtype == torch.bfloat16:
-        if H > MMA_MAX_H:
-            raise ValueError(f"softmax_head: bf16 needs H <= {MMA_MAX_H} (H={H})")
         hp = max(16, 1 << (H - 1).bit_length())
         return {"design": "mma.sync", "grid": -(-N // MMA_ROWS), "threads": 256,
                 "rows_per_block": MMA_ROWS, "hidden_padded": hp, "s_tile": S_TILE,
                 "unit_bytes": unit_bytes(H * 2, align),
                 "smem_bytes": STAGES * (S_TILE * (hp + 8) * 2 + S_TILE * 8)}
-    if H > F32_MAX_H:
-        raise ValueError(f"softmax_head: f32 needs H <= {F32_MAX_H} (H={H})")
-    rows = WIDE_ROWS if H <= WIDE_MAX_H and N >= WIDE_MIN_N else ROWS_PER_BLOCK
-    hp = -(-H // F32_K_CHUNK) * F32_K_CHUNK
-    smem = (hp * (rows + 4) + F32_STAGES * F32_K_CHUNK * (F32_S_TILE + 4) + 4 * rows) * 4
-    return {"design": "simt-stream", "grid": -(-N // rows), "threads": 2 * rows,
-            "rows_per_block": rows, "hidden_padded": hp, "s_tile": F32_S_TILE,
-            "k_chunk": F32_K_CHUNK, "stages": F32_STAGES,
-            "pos_unit_bytes": 16 if unit_bytes(H * 4, align) == 16 else 4,
-            "smem_bytes": smem}
+    rows = (F32_KSPLIT_ROWS if H > F32_MAX_H else
+            WIDE_ROWS if H <= WIDE_MAX_H and N >= WIDE_MIN_N else ROWS_PER_BLOCK)
+    cfg = {"design": "simt-stream", "grid": -(-N // rows), "threads": 2 * rows,
+           "rows_per_block": rows, "hidden_padded": -(-H // F32_K_CHUNK) * F32_K_CHUNK,
+           "s_tile": F32_S_TILE, "k_chunk": F32_K_CHUNK, "stages": F32_STAGES,
+           "pos_unit_bytes": 16 if unit_bytes(H * 4, align) == 16 else 4,
+           "smem_bytes": _f32_smem(H, rows)}
+    return {**cfg, "layout": "k-split", "max_hidden": limit} if H > F32_MAX_H else cfg
 
 
 def check_launchable(h, pos_emb, neg_emb, targets, neg_ids, pos_log_q,
@@ -188,6 +242,8 @@ def _forward_kernel(h, pos_emb, neg_emb, targets, neg_ids, pos_log_q,
         msg = lib.seqrec_head_error_string(rc).decode()
         raise RuntimeError(f"softmax_head kernel launch failed: CUDA error {rc} ({msg})")
     sampled_softmax_nll.launches += 1
+    if cfg.get("layout") == "k-split":
+        sampled_softmax_nll.ksplit_launches += 1
     return nll
 
 
@@ -222,6 +278,7 @@ def sampled_softmax_nll(h, pos_emb, neg_emb, targets, neg_ids, pos_log_q,
 
 
 sampled_softmax_nll.launches = 0
+sampled_softmax_nll.ksplit_launches = 0  # the K split's launches above 256 (in .launches too)
 
 
 def sampled_softmax_loss(

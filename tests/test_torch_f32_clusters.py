@@ -278,7 +278,9 @@ def test_cluster_choice_at_the_paths_shapes(which, B, H, want):
      "rows_per_cluster 3"),
     (lambda: cuda_gru.backward_launch_config(8, 5, 16, torch.bfloat16, cluster_size=2),
      "f32 design"),
-    (lambda: cuda_gru.backward_launch_config(8, 5, 260, torch.float32), "H <= 256"),
+    (lambda: cuda_gru.backward_launch_config(8, 5, 1060, torch.float32), "H <= 1056"),
+    (lambda: cuda_gru.backward_launch_config(8, 5, 260, torch.float32, cluster_size=4),
+     "the grid layout above H = 256 takes neither"),
 ])
 def test_cluster_configs_refuse_what_the_kernels_cannot_take(call, match):
     with pytest.raises(ValueError, match=match):

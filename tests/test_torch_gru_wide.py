@@ -85,15 +85,20 @@ def test_wide_backward_launch_config(H, B, h_in_dtype):
 
 @pytest.mark.parametrize("config", ["forward", "backward"])
 def test_wide_layouts_refuse_what_they_cannot_take(config):
-    """H = 260 is past the 256 the layouts pad to; the cluster size (4) and
-    the rows a cluster (8, one n8 tile) are no choice."""
+    """H = 260 is past the 256 the cluster layouts pad to: it takes the grid
+    layout, and H past the grid layout's limit (2,112 in bf16) raises,
+    naming it; the cluster size (4) and the rows a cluster (8, one n8 tile)
+    are no choice."""
     def cfg(B, H, **kw):
         if config == "forward":
             return cuda_gru.launch_config(B, 50, 64, H, torch.bfloat16, **kw)
         return cuda_gru.backward_launch_config(B, 50, H, torch.bfloat16, **kw)
 
-    with pytest.raises(ValueError, match="H <= 256"):
-        cfg(64, 260)
+    assert cfg(64, 260)["layout"] == "grid"
+    limit = cuda_gru.grid_max_hidden(torch.bfloat16)
+    assert cfg(64, limit)["layout"] == "grid"
+    with pytest.raises(ValueError, match=f"H <= {limit}"):
+        cfg(64, limit + 4)
     with pytest.raises(ValueError, match="rows_per_cluster and cluster_size are the f32"):
         cfg(64, 256, rows_per_cluster=4)
     with pytest.raises(ValueError, match="rows_per_cluster and cluster_size are the f32"):

@@ -741,8 +741,8 @@ def test_head_f32_kernel_takes_views_off_a_16_byte_boundary(cuda):
 def test_head_kernel_raises_on_what_it_cannot_take(cuda):
     """2,000 negatives (past what the first f32 design could stage) launch;
     an f32 width not a multiple of 4 (H = 30), which the float4 design
-    refused, launches too; a width past 256, or operands of two dtypes,
-    raise."""
+    refused, launches too, and so does H = 260 (the K split); a width past
+    the K split's limit (1,376 in f32), or operands of two dtypes, raise."""
     h, pos, neg, targets, neg_ids, plq, nlq = _head_args(8, 16, 32, torch.float32, cuda)
     many = (torch.randn(2000, 32, device=cuda) * 0.1,
             torch.arange(2000, dtype=torch.int32, device=cuda) + 1000,
@@ -750,7 +750,7 @@ def test_head_kernel_raises_on_what_it_cannot_take(cuda):
     got = k_head.sampled_softmax_nll(h, pos, many[0], targets, many[1], plq, many[2])
     torch.testing.assert_close(got, k_head.plain(h, pos, many[0], targets, many[1], plq,
                                                  many[2]), rtol=1e-5, atol=1e-5)
-    for width, match in ((260, "H <= 256"), (30, None)):
+    for width, match in ((1380, "H <= 1376"), (30, None), (260, None)):
         a = _head_args(8, 16, width, torch.float32, cuda)
         if match is None:
             torch.testing.assert_close(k_head.sampled_softmax_nll(*a), k_head.plain(*a),
@@ -1898,3 +1898,145 @@ def test_head_kernel_takes_every_width_twice(cuda, dtype, H):
             assert torch.equal(a, b)
             want = k_head.plain(hh, pos, neg, targets, neg_ids, plq, nlq)
             torch.testing.assert_close(a, want, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Above H = 256: the GRU's grid-persistent layout and the head's K split
+# ---------------------------------------------------------------------------
+
+GRID_SHAPES = [(H, B, T) for H in (260, 384, 512, 1000, 1024) for B in (1, 3, 8, 256)
+               for T in (1, 7, 50)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,B,T", GRID_SHAPES)
+def test_gru_grid_forward_matches_plain_twice(cuda, H, B, T, dtype):
+    """The GRU forward above H = 256 (one cooperative launch, each CTA a
+    slice of the units with their W_h values in shared memory, h through L2
+    and a grid barrier a step), both variants: within the dtype's tolerance
+    of the plain version, two launches bit for bit, each counted by the
+    variant's counter and `grid_launches`; an all-zero reset plane gives
+    the no-reset kernel's bits."""
+    args = _gru_args(B, T, H, H, dtype, cuda, seed=H + B + T)
+    assert k_gru.launch_config(B, T, H, H, dtype)["layout"] == "grid"
+    for reset in (None, _reset_plane(B, T, cuda, seed=H)):
+        counter = "launches" if reset is None else "reset_launches"
+        before = [getattr(k_gru.gru_scan, c) for c in (counter, "grid_launches")]
+        ys = k_gru.gru_scan(*args, reset_mask=reset)[0]
+        again = k_gru.gru_scan(*args, reset_mask=reset)[0]
+        torch.cuda.synchronize()
+        assert [getattr(k_gru.gru_scan, c) for c in (counter, "grid_launches")] == [
+            n + 2 for n in before]
+        assert torch.equal(ys, again)
+        want, _ = k_gru.plain(*args, reset_mask=reset)
+        torch.testing.assert_close(ys.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+        if reset is not None:
+            assert torch.equal(k_gru.gru_scan(*args, reset_mask=torch.zeros_like(reset))[0],
+                               k_gru.gru_scan(*args)[0])
+
+
+@pytest.mark.parametrize("dtype,h_in_dtype", [(torch.float32, torch.float32),
+                                              (torch.bfloat16, torch.bfloat16),
+                                              (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("H,B,T", GRID_SHAPES)
+def test_gru_grid_backward_matches_plain_twice(cuda, H, B, T, dtype, h_in_dtype):
+    """The reverse recurrence above H = 256 (each CTA publishes its units'
+    d_hproj, a grid barrier, then forms dh_prev for its units from the whole
+    d_hproj of its rows), with and without a keep plane, h_in in either
+    dtype under bf16 weights: d_xp, dh0 and dn_r within 1e-4 of the plain
+    f32 loop relative to their largest values, two launches bit for bit."""
+    x_proj, h_proj, h_in, g, w_h = _gate_planes(B, T, H, dtype, cuda, seed=H + B + T)
+    assert k_gru.backward_launch_config(B, T, H, dtype, h_in_dtype=h_in_dtype)[
+        "layout"] == "grid"
+    for keep in (None, (1.0 - _reset_plane(B, T, cuda, seed=H))[:, :, None]):
+        h = h_in.to(h_in_dtype) if keep is None else (h_in.float() * keep).to(h_in_dtype)
+        planes = (x_proj, h_proj, h, g, w_h)
+        counter = "launches" if keep is None else "reset_launches"
+        before = [getattr(k_gru.gru_backward, c) for c in (counter, "grid_launches")]
+        got = k_gru.gru_backward(*planes, keep)
+        again = k_gru.gru_backward(*planes, keep)
+        torch.cuda.synchronize()
+        assert [getattr(k_gru.gru_backward, c) for c in (counter, "grid_launches")] == [
+            n + 2 for n in before]
+        for name, a, b, c in zip(("d_xp", "dh0", "dn_r"), got, again,
+                                 k_gru.plain_backward(*planes, keep)):
+            assert torch.equal(a, b), name
+            torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4 * c.abs().max().item(),
+                                       msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_grid_autograd_at_the_wide_demo_matches_plain(cuda, dtype):
+    """gru_scan's autograd at the wide GRU4Rec's step (B=256, T=200,
+    D=H=512): one forward and one reverse launch of the grid layout, each
+    gradient within 2^-7 (bf16; 1e-4 in f32) relative to its largest value
+    of reference.gru_bwd_math's on the kernel forward's states; twice bit
+    for bit."""
+    B, T, D, H = 256, 200, 512, 512
+    args = _gru_args(B, T, D, H, dtype, cuda, seed=11)
+    g = torch.from_numpy(np.random.default_rng(12).normal(scale=1e-2, size=(B, T, H))
+                         .astype(np.float32)).to(cuda, dtype)
+    x, h0, w_x, w_h, b_x, b_h = args
+
+    def grads():
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, h0, w_x, w_h)]
+        ys = k_gru.gru_scan(*leaves, b_x, b_h)[0]
+        ys.backward(g)
+        return ys.detach(), [t.grad for t in leaves]
+
+    counts = lambda: (k_gru.gru_scan.grid_launches, k_gru.gru_backward.grid_launches)  # noqa: E731
+    before = counts()
+    ys, got = grads()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1)
+    ys2, got2 = grads()
+    assert torch.equal(ys, ys2) and all(torch.equal(a, b) for a, b in zip(got, got2))
+    wx_c, wh_c = w_x.to(dtype), w_h.to(dtype)
+    x_proj = torch.matmul(x.float(), wx_c.float()) + b_x
+    d_xp, dh0, dwh, _ = reference.gru_bwd_math(x_proj, ys, h0, wh_c, b_h, g, None)
+    want = [t.to(dtype) for t in (torch.matmul(d_xp, wx_c.float().T), dh0,
+                                  torch.einsum("btd,btk->dk", x.float(), d_xp), dwh)]
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+    for name, a, b in zip(("x", "h0", "w_x", "w_h"), got, want):
+        err = (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [260, 384, 512, 1000, 1024])
+@pytest.mark.parametrize("N,S", [(1, 512), (257, 100), (51_200, 512)])
+def test_head_ksplit_matches_plain_twice(cuda, N, S, H, dtype):
+    """The head above H = 256 (bf16: 64-row blocks with their h rows
+    resident, H walked in chunks of 128 through the negatives' ring; f32:
+    32-row blocks): within 1e-5 of the plain version (1e-4 in f32, as
+    HEAD_TOL), twice bit for bit, counted by `ksplit_launches`. Row 0's
+    target is every negative's id: its NLL is 0 on both sides."""
+    h, pos, neg, targets, neg_ids, plq, nlq = _head_args(N, S, H, dtype, cuda, seed=N + H)
+    neg_ids[:] = 3 * S + 1
+    targets[0] = 3 * S + 1
+    assert k_head.launch_config(N, S, H, dtype)["layout"] == "k-split"
+    before = [k_head.sampled_softmax_nll.launches, k_head.sampled_softmax_nll.ksplit_launches]
+    got = k_head.sampled_softmax_nll(h, pos, neg, targets, neg_ids, plq, nlq)
+    again = k_head.sampled_softmax_nll(h, pos, neg, targets, neg_ids, plq, nlq)
+    torch.cuda.synchronize()
+    assert [k_head.sampled_softmax_nll.launches,
+            k_head.sampled_softmax_nll.ksplit_launches] == [n + 2 for n in before]
+    assert torch.equal(got, again)
+    want = k_head.plain(h, pos, neg, targets, neg_ids, plq, nlq)
+    tol = 1e-4 if dtype == torch.float32 else 1e-5
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert got[0].item() == 0.0 and want[0].item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_ksplit_odd_width_and_the_limit(cuda, dtype):
+    """An odd width past 256 (bf16 copies one element at a time, f32 reads
+    the positive logit a float at a time) and the widest H each design
+    takes, against the plain version; one past it raises."""
+    limit = k_head.max_hidden(dtype)
+    for H in (257, limit):
+        args = _head_args(300, 130, H, dtype, cuda, seed=H)
+        tol = 1e-4 if dtype == torch.float32 else 1e-5
+        torch.testing.assert_close(k_head.sampled_softmax_nll(*args), k_head.plain(*args),
+                                   rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match=f"H <= {limit}"):
+        k_head.sampled_softmax_nll(*_head_args(8, 16, limit + 1, dtype, cuda))

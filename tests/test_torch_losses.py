@@ -272,14 +272,20 @@ def test_head_f32_takes_any_s_at_h_up_to_256(S, N, H):
 @pytest.mark.parametrize("shape,dtype,match", [
     ((8, 16, 32), torch.float64, "dtype"),
     ((0, 16, 32), torch.float32, "empty"),
-    ((8, 400, 260), torch.float32, "H <= 256"),
+    ((8, 400, 1380), torch.float32, "H <= 1376"),
     ((8, 400, 130), torch.float32, None),  # refused by the float4-only design; taken now
-    ((8, 800, 264), torch.bfloat16, "H <= 256"),
+    ((8, 800, 1284), torch.bfloat16, "H <= 1280"),
 ])
 def test_head_kernel_rejects_what_it_cannot_take(shape, dtype, match):
-    """Widths past 256, other dtypes and empty shapes raise; an f32 H that
-    is not a multiple of 4 (130) launches, its positive logit a float at a
-    time."""
+    """Widths past the K split's limit (1,376 in f32, 1,280 in bf16), other
+    dtypes and empty shapes raise; H = 260 and the limit take the K split;
+    an f32 H that is not a multiple of 4 (130) launches, its positive logit
+    a float at a time."""
+    if match is not None and match.startswith("H <= "):
+        limit = int(match[5:])
+        assert cuda_head.max_hidden(dtype) == limit
+        for H in (260, limit):
+            assert cuda_head.launch_config(*shape[:2], H, dtype)["layout"] == "k-split"
     if match is None:
         cfg = cuda_head.launch_config(*shape, dtype)
         assert (cfg["design"], cfg["pos_unit_bytes"], cfg["hidden_padded"]) == (

@@ -402,21 +402,25 @@ def test_gru_input_projection_on_cpu_matches_the_pallas_step_xp(with_bias):
     ((4, 5, 8, 12), torch.float64, "dtype"),
     ((4, 5, 8, 10), torch.float32, "H % 4"),
     ((4, 5, 6, 12), torch.float32, "D\\*4 % 16"),
-    ((4, 5, 8, 260), torch.float32, "H <= 256"),
+    ((4, 5, 8, 1060), torch.float32, "H <= 1056"),
     ((4, 5, 8, 256), torch.float32, "shared"),
-    ((4, 5, 8, 260), torch.bfloat16, "H <= 256"),
+    ((4, 5, 8, 2116), torch.bfloat16, "H <= 2112"),
     ((4, 5, 6, 12), torch.bfloat16, "D\\*2 % 8"),
     ((0, 5, 8, 12), torch.float32, "empty"),
 ])
 def test_gru_kernel_rejects_what_it_cannot_take(shape, dtype, match):
     """f32 at H=256 runs on clusters of 8 CTAs (each 32 units' W_h columns,
     96 KB); asked for 2, a CTA's slice (384 KB) and threads (1,024) do not
-    fit."""
+    fit. Past 256 the grid layout takes H = 260 and raises past its limit
+    (1,056 in f32, 2,112 in bf16), naming it."""
     kw = {"cluster_size": 2} if match == "shared" else {}
     with pytest.raises(ValueError, match=match):
         cuda_gru.launch_config(*shape, dtype, **kw)
     if match == "shared":
         assert cuda_gru.launch_config(*shape, dtype)["cluster_size"] == 8
+    if match.startswith("H <= "):
+        assert cuda_gru.launch_config(4, 5, 8, 260, dtype)["layout"] == "grid"
+        assert cuda_gru.grid_max_hidden(dtype) == shape[3] - 4
 
 
 # ---------------------------------------------------------------------------

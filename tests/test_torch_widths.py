@@ -147,7 +147,7 @@ def test_head_takes_every_width(dtype):
     odd) and pads it to Hp; f32 reads the positive logit in float4s where H
     % 4 == 0, else a float at a time; two blocks fit an SM at the training
     step's N = 25,600, S = 256; check_launchable agrees on tensors; past 256
-    still raises."""
+    raises past the K split's limit."""
     es = torch.empty((), dtype=dtype).element_size()
     for H in WIDTHS:
         cfg = cuda_head.launch_config(25_600, 256, H, dtype)
@@ -169,8 +169,10 @@ def test_head_takes_every_width(dtype):
              torch.zeros(5, 48, dtype=dtype)]
     off = cuda_head.check_launchable(*t)
     assert off["unit_bytes" if dtype == torch.bfloat16 else "pos_unit_bytes"] == es
-    with pytest.raises(ValueError, match="H <= 256"):
-        cuda_head.launch_config(8, 16, 257, dtype)
+    assert cuda_head.launch_config(8, 16, 257, dtype)["layout"] == "k-split"
+    limit = cuda_head.max_hidden(dtype)
+    with pytest.raises(ValueError, match=f"H <= {limit}"):
+        cuda_head.launch_config(8, 16, limit + 1, dtype)
 
 
 # ---------------------------------------------------------------------------
