@@ -299,6 +299,22 @@ source, all at once). Each phase prints one JSON line:
               model.embed_dim=1000) trained session-parallel with the carry,
               two K=8 groups, as phase k; the `train` subcommand on it (16
               steps over 10,000 synthetic sessions, then its full eval);
+  v. wide_lstm (run after u, before n) the LSTM's grid-persistent layouts
+              (forward and reverse, both variants, bf16 and f32) against
+              their plain versions, each launched twice bit for bit, as
+              phase g's checks (nn.LSTM beside them, the gradients through
+              autograd), at the wide LSTM's step (the JAX package's
+              benchmarks/scan_ab.py wide_lstm_D512 in a whole model: B=256,
+              T=200, D=H=512) and at ml1m_lstm's reset shape at that width
+              (B=128, T=200); the wide LSTM (benchmarks/shapes.py:70-72's
+              arguments through the port's bench_config, model.cell_type
+              "lstm": 100,000 items, 512 sampled negatives) served as phase
+              d and trained, two K=8 groups in bf16 and in f32, as phase f;
+              configs/ml1m_lstm.json session-parallel at model.embed_dim=512
+              trained with the carry, two K=8 groups, as phase k; and the
+              wide SASRec (benchmarks/shapes.py:65-68's
+              sasrec_2xD256_B256_T200_S512 through bench_config) served and
+              trained the same way in bf16 and f32;
   m. the kernels line: {"kernels": [{name, route, source, replaces,
               launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
               library_ms, design, dtype}, ...]} (the scatter-add also
@@ -322,7 +338,10 @@ source, all at once). Each phase prints one JSON line:
               (`gru_scan_grid`, `gru_backward_grid`, `softmax_head_ksplit`,
               each also `_f32`; phase u), their launches counted on the wide
               demo's bf16 and f32 training paths, the GRU's also
-              `at_rsc15_h1000_reset`.
+              `at_rsc15_h1000_reset`; the LSTM's grid layouts in bf16 and
+              f32 (`lstm_scan_grid`, `lstm_backward_grid`, each also `_f32`;
+              phase v), their launches counted on the wide LSTM's bf16 and
+              f32 training paths, each also `at_ml1m_lstm_h512_reset`.
 
 Then the raw nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -415,8 +434,10 @@ XPROJ_TOL = 1e-5  # exact bf16 products summed in f32 on both sides, another ord
 # plain scan also rounds its cell state to bf16 each step, over 200 steps).
 # The wide GRU4Rec (phase u): 512-term score dots, beauty_gru's 1e-2 at D =
 # 256 times sqrt(512 / 256), rounded up.
+# The wide LSTM (phase v): the wide GRU4Rec's 512-term limit. The wide
+# SASRec (phase v): ml1m_sasrec's 5e-2 at d = 64 times sqrt(256 / 64).
 SCORE_TOL = {"gru4rec": 1e-2, "sasrec": 5e-2, "lstm": 5e-2, "beauty_gru": 1e-2,
-             "gru4rec_wide": 2e-2}
+             "gru4rec_wide": 2e-2, "lstm_wide": 2e-2, "sasrec_wide": 1e-1}
 # f32 serving: the same f32 math through the tower in another summation
 # order (the GRU forward's f32 limit is 1e-5), then a 128-term score dot.
 F32_SCORE_TOL = 1e-4
@@ -862,7 +883,7 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
     with its input projection, an f32 one with the f32 one), and its
     backward per layer, the reset variants on a session-parallel path; a
     bf16 GRU above Hp = 128 counts each again as its cluster layout, and a
-    GRU of either dtype above H = 256 as its grid layout; a sampled-softmax
+    GRU or LSTM of either dtype above H = 256 as its grid layout; a sampled-softmax
     head wider than 256 counts again as the K split."""
     m = cfg.model
     want = dict.fromkeys(COUNTERS, 0)
@@ -881,9 +902,10 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
                 and k_gru.WH_REG_LIMIT < 16 * -(-m.hidden // 16) <= k_gru.MAX_HIDDEN):
             want["gru_scan_wide"] = m.num_layers  # the cluster layouts
             want["gru_backward_wide"] = m.num_layers if training else 0
-        if m.cell_type == "gru" and m.hidden > k_gru.MAX_HIDDEN:  # the grid layouts
-            want["gru_scan_grid"] = m.num_layers
-            want["gru_backward_grid"] = m.num_layers if training else 0
+        grid_above = (k_gru if m.cell_type == "gru" else k_lstm).MAX_HIDDEN
+        if m.hidden > grid_above:  # the grid layouts
+            want[f"{m.cell_type}_scan_grid"] = m.num_layers
+            want[f"{m.cell_type}_backward_grid"] = m.num_layers if training else 0
     if training:
         lookups = 3 if m.loss in SAMPLED_LOSSES else 1
         head = int(m.loss == "sampled_softmax")
@@ -1487,10 +1509,11 @@ def _nn_lstm(w_x, w_h, b, dtype, dev):
     return lib
 
 
-def _lstm_checks(rng, dev, x32, reset=None) -> dict:
+def _lstm_checks(rng, dev, x32, reset=None, twice: bool = False) -> dict:
     """The LSTM forward and its reverse recurrence against their plain
     versions, bf16 and f32, fed the embeddings of Zipf ids, and the whole
-    backward through autograd. Without `reset` (h0 = c0 = 0), also against
+    backward through autograd (`twice`: a second launch of each gives the
+    same bits). Without `reset` (h0 = c0 = 0), also against
     torch.nn.LSTM and its cuDNN times, each forward also beside nn.LSTM in
     f32 and at serving's batch (the first B rows, the batch's bits), and
     its input projection. With a [B, T] `reset` plane (and a
@@ -1513,6 +1536,10 @@ def _lstm_checks(rng, dev, x32, reset=None) -> dict:
         args = (x, h0, c0, w_x, w_h, b)
         ys, (h_last, c_last) = k_lstm.lstm_scan(*args, reset_mask=reset)
         torch.cuda.synchronize()
+        if twice:
+            again = k_lstm.lstm_scan(*args, reset_mask=reset)
+            check(torch.equal(ys, again[0]) and torch.equal(c_last, again[1][1]),
+                  f"{name}: two launches differ")
         ys_p, (_, c_p) = k_lstm.plain(*args, reset_mask=reset)
         tol = LSTM_F32_TOL if dtype == torch.float32 else LSTM_BF16_TOL
         err, c_err = max_err(ys, ys_p), max_err(c_last, c_p)
@@ -1530,7 +1557,8 @@ def _lstm_checks(rng, dev, x32, reset=None) -> dict:
         launch = k_lstm.launch_config(Bl, T, D, H, dtype)
         rec = {"shape": {"B": Bl, "T": T, "D": D, "H": H, "dtype": _dname(dtype)},
                "launch": launch, "design": launch["design"],
-               "max_abs_err": max(err, c_err), "tolerance": tol}
+               "max_abs_err": max(err, c_err), "tolerance": tol,
+               **({"twice_bit_for_bit": True} if twice else {})}
         if reset is None:
             lib = _nn_lstm(w_x, w_h, b, dtype, dev)
             with torch.no_grad():
@@ -1599,6 +1627,10 @@ def _lstm_checks(rng, dev, x32, reset=None) -> dict:
         bargs = (*planes, g, wh_c, keep, dcl)
         dz, dh0, dc0 = k_lstm.lstm_backward(*bargs)
         torch.cuda.synchronize()
+        if twice:
+            check(all(torch.equal(u, v) for u, v in zip((dz, dh0, dc0),
+                                                        k_lstm.lstm_backward(*bargs))),
+                  f"{name}: two launches differ")
         want = k_lstm.plain_backward(*bargs)
         errs = {k: rel_err(u, v) for k, u, v in zip(("dz", "dh0", "dc0"), (dz, dh0, dc0), want)}
         for k, e in errs.items():
@@ -1646,6 +1678,7 @@ def _lstm_checks(rng, dev, x32, reset=None) -> dict:
             "launch": b_launch, "design": b_launch["design"],
             "rel_err": errs, "tolerance": LSTM_BWD_TOL,
             "autograd_rel_err": w_errs, "autograd_tolerance": w_tol,
+            **({"twice_bit_for_bit": True} if twice else {}),
             "max_abs_err": max(max_err(u, v) for u, v in zip((dz, dh0, dc0), want)),
             "kernel_ms": time_ms(lambda: k_lstm.lstm_backward(*bargs)),
             "plain_ms": time_ms(lambda: k_lstm.plain_backward(*bargs), reps=5),
@@ -1730,8 +1763,9 @@ def phase_session_kernels(rng: np.random.Generator, dev) -> dict:
 # Each kernel's launch counter: (wrapper, attribute). The reset variants
 # count apart from their no-reset counterparts, on the same wrappers; the
 # bf16 GRU's cluster layouts (Hp > 128) count again, either variant, in
-# `wide_launches`, the GRU's grid layouts (H > 256, either dtype) in
-# `grid_launches`, and the head's K split (H > 256) in `ksplit_launches`.
+# `wide_launches`, the GRU's and the LSTM's grid layouts (H > 256, either
+# dtype) in `grid_launches`, and the head's K split (H > 256) in
+# `ksplit_launches`.
 COUNTERS = {
     "gather": (k_gather.embedding_gather, "launches"),
     "gather_backward": (k_gather.embedding_scatter_add, "launches"),
@@ -1756,6 +1790,8 @@ COUNTERS = {
     "gru_scan_grid": (k_gru.gru_scan, "grid_launches"),
     "gru_backward_grid": (k_gru.gru_backward, "grid_launches"),
     "softmax_head_ksplit": (k_head.sampled_softmax_nll, "ksplit_launches"),
+    "lstm_scan_grid": (k_lstm.lstm_scan, "grid_launches"),
+    "lstm_backward_grid": (k_lstm.lstm_backward, "grid_launches"),
 }
 
 
@@ -4740,6 +4776,144 @@ def _wide_entries(wide: dict) -> list:
     return out
 
 
+# Phase v: above H = 256, the LSTM's grid layouts. The wide LSTM: the JAX
+# package's wide_lstm_D512 scan (benchmarks/scan_ab.py:49) in a whole model,
+# benchmarks/shapes.py:70-72's arguments (WIDE_*) through the port's
+# bench_config with model.cell_type "lstm". Path (ii): configs/ml1m_lstm.json
+# session-parallel at model.embed_dim=512 (B=128, T=200, two residual layers).
+LSTM_WIDE_SESSION = ["data.session_parallel=true", f"model.embed_dim={WIDE_D}"]
+# The wide SASRec: benchmarks/shapes.py:65-68, sasrec_2xD256_B256_T200_S512.
+SASREC_WIDE_D = 256
+
+
+def wide_lstm_config() -> RunConfig:
+    """The wide LSTM: wide_config() with model.cell_type "lstm" (one layer,
+    B=256, T=200, D=H=512, 100,000 items, 512 sampled negatives, dropout 0,
+    bf16; K=8 steps a call)."""
+    cfg = wide_config()
+    cfg.model.cell_type = "lstm"
+    return cfg
+
+
+def wide_sasrec_config() -> RunConfig:
+    """benchmarks/shapes.py:65-68's wide SASRec through the port's
+    bench_config: 2 blocks of d = 256, B=256, T=200, 100,000 items, 512
+    sampled negatives, dropout 0, bf16; K=8 steps a call."""
+    cfg = bench_config("sasrec", batch_size=WIDE_B, max_len=WIDE_T, embed_dim=SASREC_WIDE_D,
+                       num_layers=2, num_items=WIDE_ITEMS, loss="sampled_softmax",
+                       num_negatives=WIDE_NEG)
+    cfg.train.steps_per_call = 8
+    return cfg
+
+
+def _wide_lstm_kernel_checks(rng, dev) -> dict:
+    """The LSTM's grid layouts against their plain versions in bf16 and f32
+    (phase g's `_lstm_checks`: the forward beside nn.LSTM, the reverse
+    recurrence beside cuDNN's backward, the gradients through autograd),
+    each launched twice with the same bits: at the wide LSTM's step (B=256,
+    T=200, D=H=512) and, the reset variants with a carried-in state, at path
+    (ii)'s shape (B=128, T=200, D=H=512)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x32 = _zipf_embeddings(rng, dev, WIDE_B, WIDE_T, WIDE_D)
+    wide = _lstm_checks(rng, dev, x32, twice=True)
+    del x32
+    x32 = _zipf_embeddings(rng, dev, TRAIN_B, TRAIN_T, WIDE_D)
+    reset = _lstm_checks(rng, dev, x32, _reset_plane(rng, TRAIN_B, TRAIN_T, dev), twice=True)
+    for rec in [*wide["lstm_scan"].values(), *wide["lstm_backward"].values(),
+                *reset["lstm_scan"].values(), *reset["lstm_backward"].values()]:
+        check(rec["launch"]["layout"] == "grid", f"phase v: not the grid layout: {rec['launch']}")
+    return {"wide_lstm": wide, f"ml1m_lstm_h{WIDE_D}_reset": reset}
+
+
+def phase_wide_lstm(rng: np.random.Generator, dev, seed: int, card: str) -> dict:
+    """v. The LSTM above H = 256 through the normal entry points: the
+    kernels at the two paths' shapes (`_wide_lstm_kernel_checks`); the wide
+    LSTM (wide_lstm_config, written to a temporary config file) served
+    (phase d: 320 Zipf histories of 5..200 over its 100,000 items, batch 64,
+    k = 10, within SCORE_TOL["lstm_wide"] of the plain path in bf16,
+    F32_SCORE_TOL in f32) and trained, two K = 8 groups in bf16 and in f32
+    (phase f's checks: step 1 within its limits of the plain versions, the
+    loss falls, each kernel's launches a step as expected, the grid
+    layouts' and the K split's included); configs/ml1m_lstm.json
+    session-parallel at model.embed_dim=512, two K = 8 groups with the carry
+    (phase k's checks); and the wide SASRec (wide_sasrec_config), which
+    needs no new kernel, served and trained the same way in bf16 and f32."""
+    phase_t0 = time.perf_counter()
+    kernels = _wide_lstm_kernel_checks(rng, dev)
+    emit({"phase": "wide_lstm_kernels", "card": card, **kernels})
+    vocab = WIDE_ITEMS + 1
+    serve, train = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for path, cfg in (("lstm_wide", wide_lstm_config()),
+                          ("sasrec_wide", wide_sasrec_config())):
+            CONFIGS[path] = str(Path(tmp) / f"{path}.json")
+            Path(CONFIGS[path]).write_text(cfg.to_json())
+        requests = make_requests(rng, WIDE_T, vocab=vocab)
+        for path in ("lstm_wide", "sasrec_wide"):
+            for suffix, overrides in (("", []), ("_f32", [F32])):
+                serve[path + suffix] = phase_serve(dev, seed, path, requests, overrides=overrides,
+                                                   vocab=vocab)
+                train[path + suffix] = phase_train(rng, dev, seed, path, groups=2,
+                                                   overrides=overrides, vocab=vocab)
+    sources = {"lstm_wide": "benchmarks/throughput.py::bench_config(gru4rec, B=256, T=200, "
+                            "D=512, 100,000 items, sampled_softmax, 512 negatives), "
+                            "model.cell_type=lstm",
+               "sasrec_wide": "benchmarks/throughput.py::bench_config(sasrec, B=256, T=200, "
+                              "D=256, 2 blocks, 100,000 items, sampled_softmax, 512 negatives)"}
+    for runs in (serve, train):
+        for key, run in runs.items():
+            run["config"] = sources[key.removesuffix("_f32")]
+    train[f"ml1m_lstm_session_h{WIDE_D}"] = phase_train(rng, dev, seed, "lstm", groups=2,
+                                                         overrides=LSTM_WIDE_SESSION)
+    seconds = time.perf_counter() - phase_t0
+    emit({"phase": "wide_lstm", "card": card, "seconds": seconds,
+          "serve": {k: {"requests_per_s": v["requests_per_s"],
+                        "batch_ms_median": v["batch_ms_median"],
+                        "encode_device_ms": v["batch_breakdown"]["encode_device_ms"],
+                        "max_score_diff_vs_plain": v["max_score_diff_vs_plain"],
+                        "score_tolerance": v["score_tolerance"], "launches": v["launches"]}
+                    for k, v in serve.items()},
+          "train": {k: {"examples_per_s": v["examples_per_s"],
+                        "step_ms_median": v["step_ms_median"],
+                        "device_step_ms": v["device_step_ms"],
+                        "device_idle_share": v["device_idle_share"], "step1": v["step1"],
+                        "group_losses": [g["loss"] for g in v["group_metrics"]],
+                        "peak_memory_bytes": v["peak_memory_bytes"],
+                        "launches_per_step": v["launches_per_step"]}
+                    for k, v in train.items()}})
+    return {"kernels": kernels, "serve": serve, "train": train, "seconds": seconds}
+
+
+def _wide_lstm_entries(wide: dict) -> list:
+    """The kernels line's entries of the LSTM's grid layouts: the bf16 ones
+    with their launches on the wide LSTM's bf16 training path, the f32 ones
+    on its f32 path, each also at path (ii)'s reset shape and with its
+    launches on every path of phase v."""
+    k, train, serve = wide["kernels"], wide["train"], wide["serve"]
+    at_reset = k[f"ml1m_lstm_h{WIDE_D}_reset"]
+    out = []
+    for kname, key, replaces in (("lstm_scan_grid", "lstm_scan", "lstm.py:153"),
+                                 ("lstm_backward_grid", "lstm_backward", "lstm.py:209")):
+        for dtype, path, suffix in (("bfloat16", "lstm_wide", ""),
+                                    ("float32", "lstm_wide_f32", "_f32")):
+            rec, r = k["wide_lstm"][key][dtype], at_reset[key][dtype]
+            out.append(_kernel_entry(
+                kname + suffix, "seqrec_tpu_torch/csrc/lstm.cu",
+                "seqrec_tpu/ops/pallas/" + replaces, train[path]["launches"][kname], rec,
+                dtype=dtype, layout=rec["launch"]["layout"], shape=rec["shape"],
+                launches_counted_on=f"train {train[path]['config']} "
+                                    + " ".join(train[path]["overrides"]),
+                launches_by_path={**{f"train_{p}": t["launches"][kname] for p, t in train.items()},
+                                  **{f"serve_{p}": v["launches"][kname] for p, v in serve.items()}},
+                **{f"at_ml1m_lstm_h{WIDE_D}_reset": {
+                    "shape": r["shape"], "launch": r["launch"], "max_abs_err": r["max_abs_err"],
+                    "ms": r["kernel_ms"]["median"], "plain_ms": r["plain_ms"]["median"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": _median(r.get("library_ms")), "library": r.get("library")}}))
+    return out
+
+
 def _median(ms) -> Optional[float]:
     return None if ms is None else ms["median"]
 
@@ -4822,6 +4996,9 @@ def main(argv=None) -> int:
     wide = phase_wide(rng, dev, args.seed, smi)  # u, above H = 256
     serve.update(wide["serve"])
     train.update(wide["train"])
+    wide_lstm = phase_wide_lstm(rng, dev, args.seed, smi)  # v, the LSTM above H = 256
+    serve.update(wide_lstm["serve"])
+    train.update(wide_lstm["train"])
     sparse = phase_sparse(dev, args.seed)
     phase_checkpoint(dev, args.seed, requests)
     sharded = phase_sharded(dev, args.seed)
@@ -4962,6 +5139,8 @@ def main(argv=None) -> int:
                                      launches_counted_on=on, launches_by_path=by_path(kname)))
     # The GRU's grid layouts and the head's K split (H > 256, phase u).
     kernels += _wide_entries(wide)
+    # The LSTM's grid layouts (H > 256, phase v).
+    kernels += _wide_lstm_entries(wide_lstm)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

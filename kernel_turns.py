@@ -62,7 +62,7 @@ A turn times, by CUDA events (chip_smoke.time_ms, median of 21 runs):
     where the host takes longer than chip_smoke's ~1 ms sleep to queue a
     batch's launches (SASRec's encode).
 
-The attention, head, scatter-add and gather rows also carry a digest
+The attention, head, scatter-add, gather and LSTM rows also carry a digest
 (sha1) of their outputs, as the recurrences' rows do: `same_bits` in the
 last line says where parent and change agree bit for bit.
 
@@ -464,16 +464,20 @@ def _worker(label: str, only: str = "") -> dict:
     for Bl, dtype in ((128, torch.bfloat16), (64, torch.bfloat16), (128, torch.float32),
                       (64, torch.float32)):
         xd, hd, cd = x[:Bl].to(dtype), h0[:Bl].to(dtype), c0[:Bl].to(dtype)
-        rec = {"ms": med(lambda: k_lstm.lstm_scan(xd, hd, cd, w_x, w_h, b))}
+        ys, (_, c_last) = k_lstm.lstm_scan(xd, hd, cd, w_x, w_h, b)
+        rec = {"ms": med(lambda: k_lstm.lstm_scan(xd, hd, cd, w_x, w_h, b)),
+               "digest": _digest([ys, c_last])}
         xf, state0 = x[:Bl], (h0[:Bl][None], c0[:Bl][None])
         with torch.no_grad():
             rec["nn_lstm_f32_ms"] = med(lambda: lib(xf, state0))
         kern[f"lstm_{dname(dtype)}_B{Bl}"] = rec
     xb, hb, cb = x.bfloat16(), h0.bfloat16(), c0.bfloat16()
-    kern["lstm_reset_bfloat16_B128"] = {
-        "ms": med(lambda: k_lstm.lstm_scan(xb, hb, cb, w_x, w_h, b, reset_mask=reset))}
-    kern["lstm_reset_float32_B128"] = {
-        "ms": med(lambda: k_lstm.lstm_scan(x, h0, c0, w_x, w_h, b, reset_mask=reset))}
+    for key, args in (("lstm_reset_bfloat16_B128", (xb, hb, cb)),
+                      ("lstm_reset_float32_B128", (x, h0, c0))):
+        ys, (_, c_last) = k_lstm.lstm_scan(*args, w_x, w_h, b, reset_mask=reset)
+        kern[key] = {
+            "ms": med(lambda: k_lstm.lstm_scan(*args, w_x, w_h, b, reset_mask=reset)),
+            "digest": _digest([ys, c_last])}
     xg = x.detach().clone().requires_grad_(True)
     g32 = (x * 0.1).detach()
 
@@ -495,12 +499,16 @@ def _worker(label: str, only: str = "") -> dict:
     for key, kp in (("lstm_backward_bfloat16_B128", None),
                     ("lstm_backward_keep_bfloat16_B128", keep)):
         kern[key] = {"ms": med(lambda: k_lstm.lstm_backward(
-            i_, f_, g_, o_, tanh_c, c_in, g_ys, whb, kp, dc_last))}
+            i_, f_, g_, o_, tanh_c, c_in, g_ys, whb, kp, dc_last)),
+            "digest": _digest(k_lstm.lstm_backward(i_, f_, g_, o_, tanh_c, c_in, g_ys, whb,
+                                                   kp, dc_last))}
     g32 = g_ys.float()
     for key, kp in (("lstm_backward_float32_B128", None),
                     ("lstm_backward_keep_float32_B128", keep)):
         kern[key] = {"ms": med(lambda: k_lstm.lstm_backward(
-            i_, f_, g_, o_, tanh_c, c_in, g32, w_h, kp, dc_last))}
+            i_, f_, g_, o_, tanh_c, c_in, g32, w_h, kp, dc_last)),
+            "digest": _digest(k_lstm.lstm_backward(i_, f_, g_, o_, tanh_c, c_in, g32, w_h,
+                                                   kp, dc_last))}
 
     def encode_device_ms(path: str, batch: list, overrides=()) -> float:
         cfg = RunConfig.load(cs.CONFIGS[path]).apply_overrides(list(overrides))

@@ -1613,24 +1613,11 @@ int launch_bwd_wide(size_t smem, cudaStream_t s, const float* xp, const float* h
 // ---------------------------------------------------------------------------
 //
 // At H = 512 W_h is 1.5 MB of bf16 and at H = 1,000 6 MB (12 MB in f32): no
-// cluster of CTAs holds it in registers or shared memory. Here one
-// cooperative launch keeps every CTA of the grid resident for the whole scan
-// (cudaLaunchKernelEx with the cooperative attribute: the runtime refuses a
-// grid that would not be resident at once, so no CTA spins on one that never
-// runs). CTA (tile, group) owns a slice of the hidden units, kGridUnits(dtype)
-// of them (16 in bf16: one m16 tile; 8 in f32), with W_h's values of those
-// units, all three gates, resident in its shared memory (96 Kp bytes, Kp = H
-// padded to kGridK(dtype): 96 KB at Kp = 1,024), and a group of batch rows;
-// the row groups split the rows as far as the card's SMs allow beside the
-// unit slices (ops/cuda/gru.py launch_config). The step's vector on the
-// serial chain goes through global memory, read through L2 only (ld.global.cg:
-// never a stale L1 line), double-buffered, with one grid-wide barrier a step
-// (grid_sync: a release add on a counter, acquire reads until it reaches the
-// step's target). The counter and the vector's buffers are a workspace the
-// wrapper zeroes on the stream before each launch (no host synchronisation,
-// so a CUDA graph could capture it). Each CTA owns whole units, so no output
-// needs a cross-CTA sum, nothing is added atomically, and the bits are the
-// same from run to run.
+// cluster of CTAs holds it in registers or shared memory. rnn.cuh's grid
+// layout (one cooperative launch, a CTA a slice of the units with W_h's
+// values of those units, all three gates, resident in its shared memory: 96
+// Kp bytes, 96 KB at Kp = 1,024; the step's vector through L2 under one grid
+// barrier a step, in a workspace the wrapper zeroes) runs both directions.
 //
 // Forward, h' = GRU(xp[t], h_in): every CTA reads its rows of the whole
 // h_in(t) from buffer t & 1, computes its units' r, z and n sums, then h',
@@ -1668,70 +1655,20 @@ int launch_bwd_wide(size_t smem, cudaStream_t s, const float* xp, const float* h
 // at the wide demo (B = 256, H = 512): 128 CTAs, 64 rows each, 768 mma.sync
 // a CTA a step.
 
-constexpr int kGridThreads = 256;   // 8 warps a CTA
-constexpr int kGridCounter = 256;   // workspace bytes before the planes: the barrier's counter
-__host__ __device__ constexpr int kGridUnits(bool bf16) { return bf16 ? 16 : 8; }
-__host__ __device__ constexpr int kGridK(bool bf16) { return bf16 ? 32 : 128; }
-__host__ __device__ constexpr int kGridRowTile(bool bf16) { return bf16 ? 16 : 4; }
-__host__ __device__ inline int grid_kpad(int H, bool bf16) {
-  return (H + kGridK(bf16) - 1) / kGridK(bf16) * kGridK(bf16);
-}
-__host__ __device__ inline int grid_rows(int B, bool bf16) {
-  return (B + kGridRowTile(bf16) - 1) / kGridRowTile(bf16) * kGridRowTile(bf16);
-}
-// Shared memory of every grid kernel (bytes): W_h's values of the CTA's units.
-__host__ __device__ inline int grid_smem(int H, bool bf16) { return 96 * grid_kpad(H, bf16); }
-// Workspace bytes: the counter, then the forward's h buffers [2][rows][Kp],
-// or the reverse's d_hproj buffers ([2][hi, lo][rows][3 Kp] bf16 or
-// [2][rows][3 Kp] f32: 24 rows Kp bytes either way) and the carry [rows][Kp] f32.
+using rnn::grid_kpad;
+using rnn::grid_load_weights;
+using rnn::grid_rows;
+using rnn::grid_sync;
+using rnn::GridPlace;
+using rnn::kGridCounter;
+using rnn::kGridThreads;
+using rnn::ldcg_bf16;
+constexpr int kGridGates = 3;  // r, z, n
+// Workspace bytes a (row, k) of the [rows][Kp] plane: the forward's h buffers
+// [2][rows][Kp]; the reverse's d_hproj buffers ([2][hi, lo][rows][3 Kp] bf16
+// or [2][rows][3 Kp] f32: 24 bytes either way) and the carry [rows][Kp] f32.
 __host__ inline size_t grid_workspace(int B, int H, bool bf16, bool reverse) {
-  const size_t plane = static_cast<size_t>(grid_rows(B, bf16)) * grid_kpad(H, bf16);
-  return kGridCounter + (reverse ? 28 * plane : 2 * plane * (bf16 ? 2 : 4));
-}
-
-// The grid barrier: every CTA adds one to *ctr and waits until it holds
-// `target` (gridDim.x times the barriers passed so far, this one included).
-// What any thread of any CTA wrote before it is visible to every thread
-// after it (the CTA barrier, then a release add and acquire reads at gpu
-// scope, with the fences cooperative groups' grid sync uses). A barrier
-// that never completes (a fault, not a slow CTA: the launch is cooperative)
-// traps after ~2^28 reads, tens of seconds, so that the caller gets an
-// error and not a hung card.
-__device__ __forceinline__ void grid_sync(unsigned* ctr, unsigned target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(ctr) : "memory");
-    unsigned v, spins = 0;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(ctr) : "memory");
-      if (++spins == (1u << 28)) __trap();
-    } while (v < target);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ float ldcg_bf16(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
-}
-
-// The CTA's place: unit slice `tile` of `tiles`, row group `group` of
-// `groups`; its row tiles [r0, r1) of `row_tiles` (kGridRowTile rows each).
-struct GridPlace {
-  int tile, r0, r1;
-  __device__ GridPlace(int tiles, int row_tiles, int groups) {
-    tile = blockIdx.x % tiles;
-    const int group = blockIdx.x / tiles, per = (row_tiles + groups - 1) / groups;
-    r0 = group * per;
-    r1 = min(row_tiles, r0 + per);
-  }
-};
-
-// The CTA's packed weights (`words` 16-byte words from `src`) into shared memory.
-__device__ __forceinline__ void grid_load_weights(uint4* dst, const uint4* src, int words) {
-  for (int i = threadIdx.x; i < words; i += kGridThreads) dst[i] = src[i];
-  __syncthreads();
+  return rnn::grid_workspace(B, H, bf16, reverse ? 28 : 2 * (bf16 ? 2 : 4));
 }
 
 // bf16 forward. w_frag: W_h^T's A fragments [tiles][Kp/16 k-steps][3 gates]
@@ -2113,51 +2050,6 @@ gru_backward_grid_f32_kernel(const float* __restrict__ xp, const float* __restri
   }
 }
 
-// Launch `kernel` on `grid` CTAs of kGridThreads threads with `smem` bytes
-// of dynamic shared memory, cooperatively (every CTA resident at once, or
-// the launch fails); a CUDA error code.
-template <typename... Params, typename... Args>
-int launch_grid(void (*kernel)(Params...), int grid, int smem, cudaStream_t s, Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kGridThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// What the grid entry points check: H past the cluster layouts' kMaxHidden
-// (the grid layout is chosen only there), H % 4 == 0, the unit slices and
-// row groups within the card's SMs, the shared memory within the 227 KB a
-// CTA may have, and the caller's shared-memory and workspace sizes.
-int grid_check(int B, int Tn, int H, bool bf16, bool reverse, int groups, long long smem_bytes,
-               long long ws_bytes, int* grid) {
-  const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0 || Tn <= 0 || H <= kMaxHidden || H % 4 != 0 || groups <= 0) return bad;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int tiles = (H + kGridUnits(bf16) - 1) / kGridUnits(bf16);
-  const int row_tiles = grid_rows(B, bf16) / kGridRowTile(bf16);
-  *grid = tiles * groups;
-  if (groups > row_tiles || *grid > sms || grid_smem(H, bf16) > 232448 ||
-      smem_bytes != grid_smem(H, bf16) ||
-      ws_bytes != static_cast<long long>(grid_workspace(B, H, bf16, reverse))) {
-    return bad;
-  }
-  return 0;
-}
-
 }  // namespace
 
 extern "C" {
@@ -2400,28 +2292,29 @@ int seqrec_gru_forward_grid(const void* xp, const void* h0, const void* w_pack, 
   int grid = 0;
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const bool bf16 = dtype == 1;
-  const int rc = grid_check(B, Tn, H, bf16, false, groups, smem_bytes, ws_bytes, &grid);
+  const int rc = rnn::grid_check(B, Tn, H, bf16, kGridGates, groups, smem_bytes, ws_bytes,
+                                 grid_workspace(B, H, bf16, false), &grid);
   if (rc != 0) return rc;
   const float* x = static_cast<const float*>(xp);
   const float* bh = static_cast<const float*>(b_h);
   const float* kp = static_cast<const float*>(keep);
   unsigned char* w = static_cast<unsigned char*>(ws);
-  const int smem = grid_smem(H, bf16);
+  const int smem = rnn::grid_smem(H, bf16, kGridGates);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     const auto* h = static_cast<const __nv_bfloat16*>(h0);
     const auto* wf = static_cast<const uint4*>(w_pack);
     auto* y = static_cast<__nv_bfloat16*>(ys);
     return kp == nullptr
-               ? launch_grid(gru_forward_grid_kernel<false>, grid, smem, s, x, h, wf, bh, kp, y, w, B, Tn, H, groups)
-               : launch_grid(gru_forward_grid_kernel<true>, grid, smem, s, x, h, wf, bh, kp, y, w, B, Tn, H, groups);
+               ? rnn::launch_grid(gru_forward_grid_kernel<false>, grid, smem, s, x, h, wf, bh, kp, y, w, B, Tn, H, groups)
+               : rnn::launch_grid(gru_forward_grid_kernel<true>, grid, smem, s, x, h, wf, bh, kp, y, w, B, Tn, H, groups);
   }
   const auto* h = static_cast<const float*>(h0);
   const auto* wf = static_cast<const float4*>(w_pack);
   auto* y = static_cast<float*>(ys);
   return kp == nullptr
-             ? launch_grid(gru_forward_grid_f32_kernel<false>, grid, smem, s, x, h, wf, bh, kp, y, w, B, Tn, H, groups)
-             : launch_grid(gru_forward_grid_f32_kernel<true>, grid, smem, s, x, h, wf, bh, kp, y, w, B, Tn, H, groups);
+             ? rnn::launch_grid(gru_forward_grid_f32_kernel<false>, grid, smem, s, x, h, wf, bh, kp, y, w, B, Tn, H, groups)
+             : rnn::launch_grid(gru_forward_grid_f32_kernel<true>, grid, smem, s, x, h, wf, bh, kp, y, w, B, Tn, H, groups);
 }
 
 // The grid-persistent reverse recurrence above H = 256, the gate recompute
@@ -2442,7 +2335,8 @@ int seqrec_gru_backward_grid(const void* xp, const void* hp, const void* h_in, c
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool bf16 = dtype == 1;
-  const int rc = grid_check(B, Tn, H, bf16, true, groups, smem_bytes, ws_bytes, &grid);
+  const int rc = rnn::grid_check(B, Tn, H, bf16, kGridGates, groups, smem_bytes, ws_bytes,
+                                 grid_workspace(B, H, bf16, true), &grid);
   if (rc != 0) return rc;
   const float* x = static_cast<const float*>(xp);
   const float* hpr = static_cast<const float*>(hp);
@@ -2451,28 +2345,28 @@ int seqrec_gru_backward_grid(const void* xp, const void* hp, const void* h_in, c
   float* dnr = static_cast<float*>(dn_r);
   float* dh = static_cast<float*>(dh0);
   unsigned char* w = static_cast<unsigned char*>(ws);
-  const int smem = grid_smem(H, bf16);
+  const int smem = rnn::grid_smem(H, bf16, kGridGates);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!bf16) {
     const auto* hi = static_cast<const float*>(h_in);
     const auto* gy = static_cast<const float*>(g_ys);
     const auto* wf = static_cast<const float4*>(w_pack);
     return kp == nullptr
-               ? launch_grid(gru_backward_grid_f32_kernel<false>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups)
-               : launch_grid(gru_backward_grid_f32_kernel<true>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups);
+               ? rnn::launch_grid(gru_backward_grid_f32_kernel<false>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups)
+               : rnn::launch_grid(gru_backward_grid_f32_kernel<true>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups);
   }
   const auto* gy = static_cast<const __nv_bfloat16*>(g_ys);
   const auto* wf = static_cast<const uint4*>(w_pack);
   if (hin_dtype == 0) {
     const auto* hi = static_cast<const float*>(h_in);
     return kp == nullptr
-               ? launch_grid(gru_backward_grid_kernel<false, float>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups)
-               : launch_grid(gru_backward_grid_kernel<true, float>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups);
+               ? rnn::launch_grid(gru_backward_grid_kernel<false, float>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups)
+               : rnn::launch_grid(gru_backward_grid_kernel<true, float>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups);
   }
   const auto* hi = static_cast<const __nv_bfloat16*>(h_in);
   return kp == nullptr
-             ? launch_grid(gru_backward_grid_kernel<false, __nv_bfloat16>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups)
-             : launch_grid(gru_backward_grid_kernel<true, __nv_bfloat16>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups);
+             ? rnn::launch_grid(gru_backward_grid_kernel<false, __nv_bfloat16>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups)
+             : rnn::launch_grid(gru_backward_grid_kernel<true, __nv_bfloat16>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups);
 }
 
 const char* seqrec_gru_error_string(int code) {

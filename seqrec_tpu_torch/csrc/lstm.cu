@@ -135,7 +135,7 @@
 
 namespace {
 
-constexpr int kMaxHidden = 256;  // the widest H the kernels are laid out for
+constexpr int kMaxHidden = 256;  // the widest H of the block and cluster layouts (wider: the grid layout)
 // Units a warp of the f32 cluster reverse recurrence sums for (its 32 lanes
 // split their K = 4H columns): each dz value read from shared memory serves
 // this many units.
@@ -1061,6 +1061,477 @@ int launch_bwd_mma(const float* const* planes, const void* g_ys, const void* w_f
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Above H = 256: both recurrences on rnn.cuh's grid-persistent layout
+// ---------------------------------------------------------------------------
+//
+// At H = 512 W_h is 2 MB of bf16 (4 MB in f32), at H = 1,000 8 MB: no
+// cluster of CTAs holds it. rnn.cuh's grid layout, as gru.cu's: one
+// cooperative launch of unit slices x row groups, CTA (tile, group) keeping
+// W_h's values of its units, all four gates (i|f|g|o blocks), in its shared
+// memory (128 Kp bytes: 64 KB at H = 512), the step's vector through L2 in
+// a zeroed workspace, one grid barrier a step. Its limits (ops/cuda/lstm.py
+// grid_max_hidden): in bf16 a CTA's 128 Kp bytes bind at H = 1,792; in f32
+// the 132 SMs bind (132 slices of 8 units: H = 1,056).
+//
+// Forward, both dtypes: every CTA reads its rows of the whole h_in(t) from
+// buffer t & 1, forms its units' four gate sums, c' and h', writes ys (and
+// the f32 cell plane when the caller keeps it for the backward), and hands
+// keep[t+1] h' (rounded to the working dtype) to buffer (t+1) & 1; then the
+// barrier. The products are laid out so that the i, f, g and o sums of a
+// (unit, row) pair land in one lane (bf16: a warp 16 rows x the CTA's 16
+// units on mma.sync, four accumulators of one C position, W_h^T's A
+// fragments gate by gate; f32: a task 4 rows x 2 units x 4 gates, the
+// reduce-scatter leaving each owner lane its pair's four sums), so c' needs
+// no exchange: the owner lane reads c from, and writes c' (times keep[t+1])
+// to, the workspace's [rows][Kp] f32 cell plane, which no other lane and no
+// other CTA touches. c stays in f32 and is never rounded; c_T takes the
+// unscaled c'. bf16 gate math from the hardware exp2 and a fast divide (as
+// the one-block kernel); f32 accurate sigmoid and tanh (as the cluster
+// kernel).
+//
+// Reverse, both dtypes (the K split of gru.cu's grid reverse, four gates): a
+// step is two phases with the barrier between. Phase A: the owner lane of
+// each (unit, row) pair adds g_y to its dh carry, forms dc, the four dz
+// values and dc f (times keep[t]) from the step's gate planes, writes d_xp,
+// and publishes its units' dz columns to the step's buffer (bf16: two bf16
+// terms, hi = bf16(dz) and lo = bf16(dz - hi), the f32 cotangent's contract;
+// f32: as it is). Phase B: each CTA forms dh_prev = dz W_h^T for its units
+// from its rows of the whole dz in a fixed order (bf16: units as M, K = the
+// 4 Kp gate columns, the hi and lo products sharing the A fragments; f32:
+// the forward's slices with 8 units a task and the reduce-scatter), times
+// keep[t]. dh and dc are carried per pair in f32 planes of the workspace
+// (dc starts at the cotangent of c_T), each read and written only by the
+// lane that owns the pair in both phases, so the bits repeat from run to
+// run. dh0 and dc0 are the carries after t = 0.
+//
+// What bounds them: the serial chain, one grid barrier and one CTA's share
+// of the step's products a step (bf16 at the wide LSTM, B = 256, H = 512:
+// 128 CTAs of 64 rows, 1,024 mma.sync a CTA a step forward).
+
+using rnn::grid_kpad;
+using rnn::grid_load_weights;
+using rnn::grid_rows;
+using rnn::grid_sync;
+using rnn::GridPlace;
+using rnn::kGridCounter;
+using rnn::kGridThreads;
+// Workspace bytes a (row, k) of the [rows][Kp] plane: the forward's h
+// buffers [2][rows][Kp] of the dtype and the cell plane [rows][Kp] f32; the
+// reverse's dz buffers ([2][hi, lo][rows][4 Kp] bf16 or [2][rows][4 Kp]
+// f32: 32 bytes either way), then the dh and dc carries [2][rows][Kp] f32.
+__host__ inline size_t grid_workspace(int B, int H, bool bf16, bool reverse) {
+  return rnn::grid_workspace(B, H, bf16, reverse ? 40 : 2 * (bf16 ? 2 : 4) + 4);
+}
+
+// bf16 forward. w_frag: W_h^T's A fragments [tiles][Kp/16 k-steps][4 gates]
+// [32 lanes] x 16 bytes in the permuted K order (ops/cuda/gru.py grid_pack);
+// ws: the counter, h_in's buffers [2][rows][Kp] bf16, the cells [rows][Kp] f32.
+template <bool kReset>
+__global__ void __launch_bounds__(kGridThreads, 1)
+lstm_forward_grid_kernel(const float* __restrict__ xp, const __nv_bfloat16* __restrict__ h0,
+                         const __nv_bfloat16* __restrict__ c0, const uint4* __restrict__ w_frag,
+                         const float* __restrict__ keep, __nv_bfloat16* __restrict__ ys,
+                         float* __restrict__ c_last, float* __restrict__ cs,
+                         unsigned char* __restrict__ ws, int B, int Tn, int H, int groups) {
+  extern __shared__ __align__(16) uint4 wsm[];
+  const int Kp = grid_kpad(H, true), KS = Kp / 16, H4 = kGates * H;
+  const int tiles = (H + 15) / 16, pairs = grid_rows(B, true) / 16;
+  const GridPlace at(tiles, pairs, groups);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+  unsigned* bar = reinterpret_cast<unsigned*>(ws);
+  const size_t plane = static_cast<size_t>(pairs) * 16 * Kp;
+  __nv_bfloat16* hbuf = reinterpret_cast<__nv_bfloat16*>(ws + kGridCounter);
+  float* cells = reinterpret_cast<float*>(hbuf + 2 * plane);
+  const unsigned G = gridDim.x;
+
+  // Step 0's state of the CTA's units and rows: keep[0] h0 rounded to bf16
+  // into buffer 0, keep[0] c0 into the cell plane.
+  for (int c = threadIdx.x; c < (at.r1 - at.r0) * 256; c += kGridThreads) {
+    const int row = 16 * at.r0 + c / 16, unit = 16 * at.tile + c % 16;
+    if (row < B && unit < H) {
+      const size_t i = static_cast<size_t>(row) * H + unit;
+      float h = __bfloat162float(h0[i]), cv = __bfloat162float(c0[i]);
+      if (kReset) {
+        const float k0 = keep[static_cast<size_t>(row) * Tn];
+        h *= k0;
+        cv *= k0;
+      }
+      hbuf[static_cast<size_t>(row) * Kp + unit] = __float2bfloat16(h);
+      cells[static_cast<size_t>(row) * Kp + unit] = cv;
+    }
+  }
+  grid_load_weights(wsm, w_frag + static_cast<size_t>(at.tile) * KS * kGates * 32,
+                    KS * kGates * 32);
+  grid_sync(bar, G);
+
+  for (int t = 0; t < Tn; ++t) {
+    const __nv_bfloat16* hc = hbuf + (t & 1) * plane;
+    __nv_bfloat16* hn = hbuf + ((t + 1) & 1) * plane;
+    for (int p = at.r0 + warp; p < at.r1; p += kGridThreads / 32) {
+      // The lane's C positions: unit 16 tile + gr + 8 (i >> 1), row
+      // 16 p + 8 nt + 2 tq + (i & 1); their xp before the products.
+      float xv[2][4][kGates];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = 16 * p + 8 * nt + 2 * tq + (i & 1), unit = 16 * at.tile + gr + 8 * (i >> 1);
+          const bool ok = row < B && unit < H;
+#pragma unroll
+          for (int q = 0; q < kGates; ++q) {
+            xv[nt][i][q] = ok ? xp[(static_cast<size_t>(row) * Tn + t) * H4 + q * H + unit] : 0.0f;
+          }
+        }
+      float acc[2][kGates][4] = {};
+      const uint4* h4[2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        h4[nt] = reinterpret_cast<const uint4*>(hc + static_cast<size_t>(16 * p + 8 * nt + gr) * Kp + 8 * tq);
+      }
+      for (int c = 0; c < Kp / 32; ++c) {
+        uint4 hv[2];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) hv[nt] = __ldcg(h4[nt] + 4 * c);
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int q = 0; q < kGates; ++q) {
+            uint32_t a[4];
+            load_frag(a, wsm + ((2 * c + kk) * kGates + q) * 32 + lane);
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              mma::bf16_16x8x16(acc[nt][q], a, kk ? hv[nt].z : hv[nt].x, kk ? hv[nt].w : hv[nt].y);
+            }
+          }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = 16 * p + 8 * nt + 2 * tq + (i & 1), unit = 16 * at.tile + gr + 8 * (i >> 1);
+          if (row >= B || unit >= H) continue;
+          const size_t bt = static_cast<size_t>(row) * Tn + t;
+          float* cell = cells + static_cast<size_t>(row) * Kp + unit;
+          const float ig = rnn::fast_sigmoid(xv[nt][i][0] + acc[nt][0][i]);
+          const float fg = rnn::fast_sigmoid(xv[nt][i][1] + acc[nt][1][i]);
+          const float gg = rnn::fast_tanh(xv[nt][i][2] + acc[nt][2][i]);
+          const float og = rnn::fast_sigmoid(xv[nt][i][3] + acc[nt][3][i]);
+          const float c = fg * *cell + ig * gg;
+          const __nv_bfloat16 hq = __float2bfloat16(og * rnn::fast_tanh(c));
+          ys[bt * H + unit] = hq;
+          if (cs != nullptr) cs[bt * H + unit] = c;
+          if (t + 1 < Tn) {  // keep[t+1] scales the h' and c' this step hands to the next one
+            const float kn = kReset ? keep[bt + 1] : 1.0f;
+            hn[static_cast<size_t>(row) * Kp + unit] =
+                kReset ? __float2bfloat16(__bfloat162float(hq) * kn) : hq;
+            *cell = kReset ? c * kn : c;
+          } else {
+            c_last[static_cast<size_t>(row) * H + unit] = c;
+          }
+        }
+    }
+    if (t + 1 < Tn) grid_sync(bar, G * (t + 2));
+  }
+}
+
+// f32 forward. w4: W_h's columns of each slice's 8 units, [tiles][Kp/128]
+// [8 units][4 gates][32 lanes] float4 (lane's k = 128 j + 4 lane .. + 3);
+// ws: the counter, h_in's buffers [2][rows][Kp] f32, the cells [rows][Kp] f32.
+template <bool kReset>
+__global__ void __launch_bounds__(kGridThreads, 1)
+lstm_forward_grid_f32_kernel(const float* __restrict__ xp, const float* __restrict__ h0,
+                             const float* __restrict__ c0, const float4* __restrict__ w4,
+                             const float* __restrict__ keep, float* __restrict__ ys,
+                             float* __restrict__ c_last, float* __restrict__ cs,
+                             unsigned char* __restrict__ ws, int B, int Tn, int H, int groups) {
+  extern __shared__ __align__(16) float4 wsm4[];
+  const int Kp = grid_kpad(H, false), J = Kp / 128, H4 = kGates * H;
+  const int tiles = (H + 7) / 8, quads = grid_rows(B, false) / 4;
+  const GridPlace at(tiles, quads, groups);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned* bar = reinterpret_cast<unsigned*>(ws);
+  float* hbuf = reinterpret_cast<float*>(ws + kGridCounter);
+  const size_t plane = static_cast<size_t>(quads) * 4 * Kp;
+  float* cells = hbuf + 2 * plane;
+  const unsigned G = gridDim.x;
+
+  for (int c = threadIdx.x; c < (at.r1 - at.r0) * 32; c += kGridThreads) {
+    const int row = 4 * at.r0 + c / 8, unit = 8 * at.tile + c % 8;
+    if (row < B && unit < H) {
+      const size_t i = static_cast<size_t>(row) * H + unit;
+      const float k0 = kReset ? keep[static_cast<size_t>(row) * Tn] : 1.0f;
+      hbuf[static_cast<size_t>(row) * Kp + unit] = kReset ? __fmul_rn(h0[i], k0) : h0[i];
+      cells[static_cast<size_t>(row) * Kp + unit] = kReset ? __fmul_rn(c0[i], k0) : c0[i];
+    }
+  }
+  grid_load_weights(reinterpret_cast<uint4*>(wsm4),
+                    reinterpret_cast<const uint4*>(w4) + static_cast<size_t>(at.tile) * J * 8 * kGates * 32,
+                    J * 8 * kGates * 32);
+  grid_sync(bar, G);
+
+  // A task: 4 rows (a quad) x 2 units; after the reduce-scatter the lanes with
+  // (lane & 3) == 0 own row lane >> 3 of unit (lane >> 2) & 1.
+  using Own = rnn::Owner<4, 2, 32>;
+  const Own own(lane);
+  for (int t = 0; t < Tn; ++t) {
+    const float* hc = hbuf + (t & 1) * plane;
+    float* hn = hbuf + ((t + 1) & 1) * plane;
+    for (int task = warp; task < (at.r1 - at.r0) * 4; task += kGridThreads / 32) {
+      const int rq = at.r0 + task / 4, up = task % 4;
+      const int row = 4 * rq + own.row0, unit = 8 * at.tile + 2 * up + own.ut0;
+      const bool ok = own.owner && row < B && unit < H;
+      const size_t bt = static_cast<size_t>(row) * Tn + t;
+      float x[kGates];
+#pragma unroll
+      for (int q = 0; q < kGates; ++q) x[q] = ok ? xp[bt * H4 + q * H + unit] : 0.0f;
+      float acc[4][2][kGates] = {};
+      const float4* h4 = reinterpret_cast<const float4*>(hc + static_cast<size_t>(4 * rq) * Kp) + lane;
+      const float4* wt = wsm4 + (2 * up) * kGates * 32 + lane;
+      for (int j = 0; j < J; ++j) {
+        float4 hv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) hv[r] = __ldcg(h4 + r * (Kp / 4) + 32 * j);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int q = 0; q < kGates; ++q) {
+            const float4 w = wt[((j * 8 + u) * kGates + q) * 32];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) dot4(acc[r][u][q], hv[r], w);
+          }
+      }
+      rnn::reduce_scatter<4, 2, 16, 4, 2, kGates>(acc, lane);
+      if (!ok) continue;
+      float* cell = cells + static_cast<size_t>(row) * Kp + unit;
+      const float ig = sigmoidf(x[0] + acc[0][0][0]);
+      const float fg = sigmoidf(x[1] + acc[0][0][1]);
+      const float gg = tanhf(x[2] + acc[0][0][2]);
+      const float og = sigmoidf(x[3] + acc[0][0][3]);
+      const float c = fg * *cell + ig * gg;
+      const float h = og * tanhf(c);
+      ys[bt * H + unit] = h;
+      if (cs != nullptr) cs[bt * H + unit] = c;
+      if (t + 1 < Tn) {
+        const float kn = kReset ? keep[bt + 1] : 1.0f;
+        hn[static_cast<size_t>(row) * Kp + unit] = kReset ? __fmul_rn(h, kn) : h;
+        *cell = kReset ? __fmul_rn(c, kn) : c;
+      } else {
+        c_last[static_cast<size_t>(row) * H + unit] = c;
+      }
+    }
+    if (t + 1 < Tn) grid_sync(bar, G * (t + 2));
+  }
+}
+
+// bf16 reverse. w_frag: W_h's A fragments [tiles][4 Kp/16 k-steps][32 lanes]
+// x 16 bytes, A[unit][q Kp + j] = W_h[unit][q H + j] (zero past H) in the
+// permuted K order; ws: the counter, dz's buffers [2][hi, lo][rows][4 Kp]
+// bf16, then the dh and dc carries [rows][Kp] f32 each.
+template <bool kReset>
+__global__ void __launch_bounds__(kGridThreads, 1)
+lstm_backward_grid_kernel(const float* __restrict__ ig, const float* __restrict__ fg,
+                          const float* __restrict__ gg, const float* __restrict__ og,
+                          const float* __restrict__ tcg, const float* __restrict__ cing,
+                          const __nv_bfloat16* __restrict__ g_ys,
+                          const uint4* __restrict__ w_frag, const float* __restrict__ keep,
+                          const float* __restrict__ dc_last, float* __restrict__ d_xp,
+                          float* __restrict__ dh0, float* __restrict__ dc0,
+                          unsigned char* __restrict__ ws, int B, int Tn, int H, int groups) {
+  extern __shared__ __align__(16) uint4 wsm[];
+  const int Kp = grid_kpad(H, true), Kc = kGates * Kp, H4 = kGates * H;
+  const int tiles = (H + 15) / 16, rows = grid_rows(B, true), pairs = rows / 16;
+  const GridPlace at(tiles, pairs, groups);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+  unsigned* bar = reinterpret_cast<unsigned*>(ws);
+  const size_t term = static_cast<size_t>(rows) * Kc;
+  __nv_bfloat16* dbuf = reinterpret_cast<__nv_bfloat16*>(ws + kGridCounter);
+  float* dh_c = reinterpret_cast<float*>(dbuf + 4 * term);
+  float* dc_c = dh_c + static_cast<size_t>(rows) * Kp;
+  const unsigned G = gridDim.x;
+  grid_load_weights(wsm, w_frag + static_cast<size_t>(at.tile) * (Kc / 16) * 32, (Kc / 16) * 32);
+  // The dc carries of the lane's pairs start at the cotangent of c_T (dh's
+  // at 0: the zeroed workspace); the lane that writes one is the one that
+  // reads it.
+  for (int p = at.r0 + warp; p < at.r1; p += kGridThreads / 32)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = 16 * p + 8 * nt + 2 * tq + (i & 1), unit = 16 * at.tile + gr + 8 * (i >> 1);
+        if (row < B && unit < H) {
+          dc_c[static_cast<size_t>(row) * Kp + unit] = dc_last[static_cast<size_t>(row) * H + unit];
+        }
+      }
+
+  for (int t = Tn - 1, s = 0; t >= 0; --t, ++s) {
+    __nv_bfloat16* db = dbuf + (s & 1) * 2 * term;
+    // Phase A: the lane's pairs (phase B's C positions).
+    for (int p = at.r0 + warp; p < at.r1; p += kGridThreads / 32) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = 16 * p + 8 * nt + 2 * tq + (i & 1), unit = 16 * at.tile + gr + 8 * (i >> 1);
+          if (row >= B || unit >= H) continue;
+          const size_t bt = static_cast<size_t>(row) * Tn + t, e = bt * H + unit;
+          const float iv = ig[e], fv = fg[e], gv = gg[e], ov = og[e], tc = tcg[e], cin = cing[e];
+          const size_t own = static_cast<size_t>(row) * Kp + unit;
+          const float dh = dh_c[own] + __bfloat162float(g_ys[e]);
+          const float dc = dc_c[own] + dh * ov * (1.0f - tc * tc);
+          const float d[kGates] = {dc * gv * iv * (1.0f - iv), dc * cin * fv * (1.0f - fv),
+                                   dc * iv * (1.0f - gv * gv), dh * tc * ov * (1.0f - ov)};
+          float* out = d_xp + bt * H4 + unit;
+#pragma unroll
+          for (int q = 0; q < kGates; ++q) {
+            out[q * H] = d[q];
+            const __nv_bfloat16 hi = __float2bfloat16(d[q]);
+            const size_t at_q = static_cast<size_t>(row) * Kc + q * Kp + unit;
+            db[at_q] = hi;
+            db[term + at_q] = __float2bfloat16(d[q] - __bfloat162float(hi));
+          }
+          float dcn = dc * fv;
+          if (kReset) dcn *= keep[bt];  // dc_prev *= keep[t]
+          dc_c[own] = dcn;
+          if (t == 0) dc0[static_cast<size_t>(row) * H + unit] = dcn;
+        }
+    }
+    grid_sync(bar, G * (s + 1));
+    // Phase B: dh_prev^T = W_h dz^T for the CTA's units.
+    for (int p = at.r0 + warp; p < at.r1; p += kGridThreads / 32) {
+      float acc[2][2][4] = {};  // [n8 tile][hi, lo]
+      const uint4* d4[2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        d4[nt] = reinterpret_cast<const uint4*>(db + static_cast<size_t>(16 * p + 8 * nt + gr) * Kc + 8 * tq);
+      }
+      for (int c = 0; c < Kc / 32; ++c) {
+        uint4 v[2][2];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          v[nt][0] = __ldcg(d4[nt] + 4 * c);
+          v[nt][1] = __ldcg(d4[nt] + term / 8 + 4 * c);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          uint32_t a[4];
+          load_frag(a, wsm + (2 * c + kk) * 32 + lane);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              mma::bf16_16x8x16(acc[nt][e], a, kk ? v[nt][e].z : v[nt][e].x,
+                                kk ? v[nt][e].w : v[nt][e].y);
+            }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = 16 * p + 8 * nt + 2 * tq + (i & 1), unit = 16 * at.tile + gr + 8 * (i >> 1);
+          if (row >= B || unit >= H) continue;
+          float dh = acc[nt][0][i] + acc[nt][1][i];
+          if (kReset) dh *= keep[static_cast<size_t>(row) * Tn + t];  // dh_prev *= keep[t]
+          dh_c[static_cast<size_t>(row) * Kp + unit] = dh;
+          if (t == 0) dh0[static_cast<size_t>(row) * H + unit] = dh;
+        }
+    }
+  }
+}
+
+// f32 reverse. w4: W_h's rows of each slice's 8 units over the 4 Kp gate
+// columns (column q Kp + j is W_h's q H + j, zero past H), [tiles][4 Kp/128]
+// [8 units][32 lanes] float4; ws: the counter, dz's buffers [2][rows][4 Kp]
+// f32, then the dh and dc carries [rows][Kp] f32 each.
+template <bool kReset>
+__global__ void __launch_bounds__(kGridThreads, 1)
+lstm_backward_grid_f32_kernel(const float* __restrict__ ig, const float* __restrict__ fg,
+                              const float* __restrict__ gg, const float* __restrict__ og,
+                              const float* __restrict__ tcg, const float* __restrict__ cing,
+                              const float* __restrict__ g_ys, const float4* __restrict__ w4,
+                              const float* __restrict__ keep, const float* __restrict__ dc_last,
+                              float* __restrict__ d_xp, float* __restrict__ dh0,
+                              float* __restrict__ dc0, unsigned char* __restrict__ ws, int B,
+                              int Tn, int H, int groups) {
+  extern __shared__ __align__(16) float4 wsm4[];
+  const int Kp = grid_kpad(H, false), Kc = kGates * Kp, J = Kc / 128, H4 = kGates * H;
+  const int tiles = (H + 7) / 8, rows = grid_rows(B, false), quads = rows / 4;
+  const GridPlace at(tiles, quads, groups);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned* bar = reinterpret_cast<unsigned*>(ws);
+  const size_t plane = static_cast<size_t>(rows) * Kc;
+  float* dbuf = reinterpret_cast<float*>(ws + kGridCounter);
+  float* dh_c = dbuf + 2 * plane;
+  float* dc_c = dh_c + static_cast<size_t>(rows) * Kp;
+  const unsigned G = gridDim.x;
+  grid_load_weights(reinterpret_cast<uint4*>(wsm4),
+                    reinterpret_cast<const uint4*>(w4) + static_cast<size_t>(at.tile) * J * 8 * 32,
+                    J * 8 * 32);
+  // A task: a quad of rows x the slice's 8 units; after the reduce-scatter
+  // lane owns row lane >> 3 of unit lane & 7, in both phases.
+  using Own = rnn::Owner<4, 8, 32>;
+  const Own own(lane);
+  const int unit = 8 * at.tile + own.ut0;
+  for (int rq = at.r0 + warp; rq < at.r1; rq += kGridThreads / 32) {
+    const int row = 4 * rq + own.row0;
+    if (row < B && unit < H) {
+      dc_c[static_cast<size_t>(row) * Kp + unit] = dc_last[static_cast<size_t>(row) * H + unit];
+    }
+  }
+
+  for (int t = Tn - 1, s = 0; t >= 0; --t, ++s) {
+    float* db = dbuf + (s & 1) * plane;
+    for (int rq = at.r0 + warp; rq < at.r1; rq += kGridThreads / 32) {
+      const int row = 4 * rq + own.row0;
+      if (row >= B || unit >= H) continue;
+      const size_t bt = static_cast<size_t>(row) * Tn + t, e = bt * H + unit;
+      const float iv = ig[e], fv = fg[e], gv = gg[e], ov = og[e], tc = tcg[e], cin = cing[e];
+      const size_t own_at = static_cast<size_t>(row) * Kp + unit;
+      const float dh = dh_c[own_at] + g_ys[e];
+      const float dc = dc_c[own_at] + dh * ov * (1.0f - tc * tc);
+      const float d[kGates] = {dc * gv * iv * (1.0f - iv), dc * cin * fv * (1.0f - fv),
+                               dc * iv * (1.0f - gv * gv), dh * tc * ov * (1.0f - ov)};
+      float* out = d_xp + bt * H4 + unit;
+      float* dr = db + static_cast<size_t>(row) * Kc + unit;
+#pragma unroll
+      for (int q = 0; q < kGates; ++q) {
+        out[q * H] = d[q];
+        dr[q * Kp] = d[q];
+      }
+      float dcn = __fmul_rn(dc, fv);
+      if (kReset) dcn = __fmul_rn(dcn, keep[bt]);  // dc_prev *= keep[t]
+      dc_c[own_at] = dcn;
+      if (t == 0) dc0[static_cast<size_t>(row) * H + unit] = dcn;
+    }
+    grid_sync(bar, G * (s + 1));
+    for (int rq = at.r0 + warp; rq < at.r1; rq += kGridThreads / 32) {
+      float acc[4][8][1] = {};
+      const float4* d4 = reinterpret_cast<const float4*>(db + static_cast<size_t>(4 * rq) * Kc) + lane;
+      const float4* wt = wsm4 + lane;
+      for (int j = 0; j < J; ++j) {
+        float4 dv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dv[r] = __ldcg(d4 + r * (Kc / 4) + 32 * j);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const float4 w = wt[(j * 8 + u) * 32];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) dot4(acc[r][u][0], dv[r], w);
+        }
+      }
+      rnn::reduce_scatter<4, 8, 16, 4, 8, 1>(acc, lane);
+      const int row = 4 * rq + own.row0;
+      if (row >= B || unit >= H) continue;
+      const float dh = kReset ? __fmul_rn(acc[0][0][0], keep[static_cast<size_t>(row) * Tn + t])
+                              : acc[0][0][0];  // dh_prev *= keep[t]
+      dh_c[static_cast<size_t>(row) * Kp + unit] = dh;
+      if (t == 0) dh0[static_cast<size_t>(row) * H + unit] = dh;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1235,6 +1706,98 @@ int seqrec_lstm_backward_mma(const void* i, const void* f, const void* g,
   return kp == nullptr
              ? launch_bwd_mma<false>(planes, g_ys, w_frag, kp, dcl, dxp, dh, dc, B, Tn, H, smem, s)
              : launch_bwd_mma<true>(planes, g_ys, w_frag, kp, dcl, dxp, dh, dc, B, Tn, H, smem, s);
+}
+
+// The grid-persistent forward above H = 256 (either dtype: 0 float, 1
+// bf16), one cooperative launch of tiles x groups CTAs. xp [B, T, 4H] float
+// (the input projection, b included), h0, c0 [B, H] and ys [B, T, H] of the
+// dtype, keep [B, T] float (1 - reset) or null, c_last [B, H] and cs
+// [B, T, H] (null: not written) float; w_pack ops/cuda/gru.py grid_pack's
+// packing of W_h (bf16: [tiles][Kp/16][4][32] x 16 bytes; float:
+// [tiles][Kp/128][8][4][32] float4); ws a zeroed workspace of
+// grid_workspace(B, H, dtype, forward) bytes. All contiguous, 16-byte
+// aligned; H % 4 == 0, 256 < H. groups, smem_bytes and ws_bytes as the
+// caller computed them, checked again here (rnn::grid_check).
+int seqrec_lstm_forward_grid(const void* xp, const void* h0, const void* c0, const void* w_pack,
+                             const void* keep, void* ys, void* c_last, void* cs, void* ws, int B,
+                             int Tn, int H, int dtype, int groups, long long smem_bytes,
+                             long long ws_bytes, void* stream) {
+  int grid = 0;
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool bf16 = dtype == 1;
+  const int rc = rnn::grid_check(B, Tn, H, bf16, kGates, groups, smem_bytes, ws_bytes,
+                                 grid_workspace(B, H, bf16, false), &grid);
+  if (rc != 0) return rc;
+  const float* x = static_cast<const float*>(xp);
+  const float* kp = static_cast<const float*>(keep);
+  float* cl = static_cast<float*>(c_last);
+  float* cp = static_cast<float*>(cs);
+  unsigned char* w = static_cast<unsigned char*>(ws);
+  const int smem = rnn::grid_smem(H, bf16, kGates);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    const auto* h = static_cast<const __nv_bfloat16*>(h0);
+    const auto* c = static_cast<const __nv_bfloat16*>(c0);
+    const auto* wf = static_cast<const uint4*>(w_pack);
+    auto* y = static_cast<__nv_bfloat16*>(ys);
+    return kp == nullptr
+               ? rnn::launch_grid(lstm_forward_grid_kernel<false>, grid, smem, s, x, h, c, wf, kp, y, cl, cp, w, B, Tn, H, groups)
+               : rnn::launch_grid(lstm_forward_grid_kernel<true>, grid, smem, s, x, h, c, wf, kp, y, cl, cp, w, B, Tn, H, groups);
+  }
+  const auto* h = static_cast<const float*>(h0);
+  const auto* c = static_cast<const float*>(c0);
+  const auto* wf = static_cast<const float4*>(w_pack);
+  auto* y = static_cast<float*>(ys);
+  return kp == nullptr
+             ? rnn::launch_grid(lstm_forward_grid_f32_kernel<false>, grid, smem, s, x, h, c, wf, kp, y, cl, cp, w, B, Tn, H, groups)
+             : rnn::launch_grid(lstm_forward_grid_f32_kernel<true>, grid, smem, s, x, h, c, wf, kp, y, cl, cp, w, B, Tn, H, groups);
+}
+
+// The grid-persistent reverse recurrence above H = 256 (dtype 0 float, 1
+// bf16: g_ys's and the weights'). i, f, g, o, tanh_c, c_in [B, T, H] float;
+// g_ys [B, T, H] of the dtype; w_pack grid_pack's packing of W_h (bf16:
+// [tiles][4 Kp/16][32] x 16 bytes; float: [tiles][4 Kp/128][8][32] float4);
+// keep [B, T] float or null; dc_last, dh0, dc0 [B, H] and d_xp [B, T, 4H]
+// float; ws a zeroed workspace of grid_workspace(B, H, dtype, reverse)
+// bytes. As the forward otherwise.
+int seqrec_lstm_backward_grid(const void* i, const void* f, const void* g, const void* o,
+                              const void* tanh_c, const void* c_in, const void* g_ys,
+                              const void* w_pack, const void* keep, const void* dc_last,
+                              void* d_xp, void* dh0, void* dc0, void* ws, int B, int Tn, int H,
+                              int dtype, int groups, long long smem_bytes, long long ws_bytes,
+                              void* stream) {
+  int grid = 0;
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool bf16 = dtype == 1;
+  const int rc = rnn::grid_check(B, Tn, H, bf16, kGates, groups, smem_bytes, ws_bytes,
+                                 grid_workspace(B, H, bf16, true), &grid);
+  if (rc != 0) return rc;
+  const float* pi = static_cast<const float*>(i);
+  const float* pf = static_cast<const float*>(f);
+  const float* pg = static_cast<const float*>(g);
+  const float* po = static_cast<const float*>(o);
+  const float* ptc = static_cast<const float*>(tanh_c);
+  const float* pci = static_cast<const float*>(c_in);
+  const float* kp = static_cast<const float*>(keep);
+  const float* dcl = static_cast<const float*>(dc_last);
+  float* dxp = static_cast<float*>(d_xp);
+  float* dh = static_cast<float*>(dh0);
+  float* dc = static_cast<float*>(dc0);
+  unsigned char* w = static_cast<unsigned char*>(ws);
+  const int smem = rnn::grid_smem(H, bf16, kGates);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    const auto* gy = static_cast<const __nv_bfloat16*>(g_ys);
+    const auto* wf = static_cast<const uint4*>(w_pack);
+    return kp == nullptr
+               ? rnn::launch_grid(lstm_backward_grid_kernel<false>, grid, smem, s, pi, pf, pg, po, ptc, pci, gy, wf, kp, dcl, dxp, dh, dc, w, B, Tn, H, groups)
+               : rnn::launch_grid(lstm_backward_grid_kernel<true>, grid, smem, s, pi, pf, pg, po, ptc, pci, gy, wf, kp, dcl, dxp, dh, dc, w, B, Tn, H, groups);
+  }
+  const auto* gy = static_cast<const float*>(g_ys);
+  const auto* wf = static_cast<const float4*>(w_pack);
+  return kp == nullptr
+             ? rnn::launch_grid(lstm_backward_grid_f32_kernel<false>, grid, smem, s, pi, pf, pg, po, ptc, pci, gy, wf, kp, dcl, dxp, dh, dc, w, B, Tn, H, groups)
+             : rnn::launch_grid(lstm_backward_grid_f32_kernel<true>, grid, smem, s, pi, pf, pg, po, ptc, pci, gy, wf, kp, dcl, dxp, dh, dc, w, B, Tn, H, groups);
 }
 
 const char* seqrec_lstm_error_string(int code) {

@@ -22,6 +22,9 @@
 // the k-sliced layout of a CTA's weights and of the exchanged vector, the
 // reduce-scatter that turns a unit's partial sums into one owner lane's
 // gate sums, and the cluster launch.
+//
+// Above H = 256, both: the grid-persistent layouts' barrier, place,
+// workspace sizing, checks and cooperative launch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -540,6 +543,142 @@ constexpr bool cluster_shape_ok(int R, int S) {
 }
 constexpr int kClusterMaxThreads = 512;
 constexpr int kClusterMax = 8;  // the portable cluster size
+
+// ---------------------------------------------------------------------------
+// Above H = 256: what the grid-persistent layouts of gru.cu and lstm.cu share
+// ---------------------------------------------------------------------------
+//
+// W_h of 1.5 MB and more fits no cluster of CTAs. One cooperative launch
+// keeps every CTA of the grid resident for the whole scan (cudaLaunchKernelEx
+// with the cooperative attribute: the runtime refuses a grid that would not
+// be resident at once, so no CTA spins on one that never runs). CTA (tile,
+// group) owns a slice of the hidden units, kGridUnits(dtype) of them (16 in
+// bf16: one m16 tile; 8 in f32), with W_h's values of those units, every
+// gate, resident in its shared memory (32 x gates x Kp bytes, Kp = H padded
+// to kGridK(dtype)), and a group of batch rows; the row groups split the
+// rows as far as the card's SMs allow beside the unit slices (the wrappers'
+// grid_config). The step's vector on the serial chain goes through global
+// memory, read through L2 only (ld.global.cg: never a stale L1 line),
+// double-buffered, with one grid-wide barrier a step (grid_sync). The
+// counter and the planes are a workspace the wrapper zeroes on the stream
+// before each launch (no host synchronisation, so a CUDA graph could
+// capture it). Each CTA owns whole units, so no output needs a cross-CTA
+// sum, nothing is added atomically, and the bits are the same from run to
+// run.
+
+constexpr int kGridAbove = 256;     // the grid layouts take H past this (the block and cluster layouts' widest)
+constexpr int kGridThreads = 256;   // 8 warps a CTA
+constexpr int kGridCounter = 256;   // workspace bytes before the planes: the barrier's counter
+__host__ __device__ constexpr int kGridUnits(bool bf16) { return bf16 ? 16 : 8; }
+__host__ __device__ constexpr int kGridK(bool bf16) { return bf16 ? 32 : 128; }
+__host__ __device__ constexpr int kGridRowTile(bool bf16) { return bf16 ? 16 : 4; }
+__host__ __device__ inline int grid_kpad(int H, bool bf16) {
+  return (H + kGridK(bf16) - 1) / kGridK(bf16) * kGridK(bf16);
+}
+__host__ __device__ inline int grid_rows(int B, bool bf16) {
+  return (B + kGridRowTile(bf16) - 1) / kGridRowTile(bf16) * kGridRowTile(bf16);
+}
+// Shared memory of a grid kernel (bytes): W_h's values of the CTA's units,
+// `gates` gates (bf16: 16 units x gates x Kp x 2 bytes; f32: 8 x gates x Kp x 4).
+__host__ __device__ inline int grid_smem(int H, bool bf16, int gates) {
+  return 32 * gates * grid_kpad(H, bf16);
+}
+// Workspace bytes: the counter, then `plane_bytes` bytes for each (row, k)
+// of the [rows][Kp] plane (each kernel's buffers and carries).
+__host__ inline size_t grid_workspace(int B, int H, bool bf16, int plane_bytes) {
+  const size_t plane = static_cast<size_t>(grid_rows(B, bf16)) * grid_kpad(H, bf16);
+  return kGridCounter + static_cast<size_t>(plane_bytes) * plane;
+}
+
+// The grid barrier: every CTA adds one to *ctr and waits until it holds
+// `target` (gridDim.x times the barriers passed so far, this one included).
+// What any thread of any CTA wrote before it is visible to every thread
+// after it (the CTA barrier, then a release add and acquire reads at gpu
+// scope, with the fences cooperative groups' grid sync uses). A barrier
+// that never completes (a fault, not a slow CTA: the launch is cooperative)
+// traps after ~2^28 reads, tens of seconds, so that the caller gets an
+// error and not a hung card.
+__device__ __forceinline__ void grid_sync(unsigned* ctr, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(ctr) : "memory");
+    unsigned v, spins = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(ctr) : "memory");
+      if (++spins == (1u << 28)) __trap();
+    } while (v < target);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float ldcg_bf16(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// The CTA's place: unit slice `tile` of `tiles`, row group `group` of
+// `groups`; its row tiles [r0, r1) of `row_tiles` (kGridRowTile rows each).
+struct GridPlace {
+  int tile, r0, r1;
+  __device__ GridPlace(int tiles, int row_tiles, int groups) {
+    tile = blockIdx.x % tiles;
+    const int group = blockIdx.x / tiles, per = (row_tiles + groups - 1) / groups;
+    r0 = group * per;
+    r1 = min(row_tiles, r0 + per);
+  }
+};
+
+// The CTA's packed weights (`words` 16-byte words from `src`) into shared memory.
+__device__ __forceinline__ void grid_load_weights(uint4* dst, const uint4* src, int words) {
+  for (int i = threadIdx.x; i < words; i += kGridThreads) dst[i] = src[i];
+  __syncthreads();
+}
+
+// Launch `kernel` on `grid` CTAs of kGridThreads threads with `smem` bytes
+// of dynamic shared memory, cooperatively (every CTA resident at once, or
+// the launch fails); a CUDA error code.
+template <typename... Params, typename... Args>
+int launch_grid(void (*kernel)(Params...), int grid, int smem, cudaStream_t s, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kGridThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// What the grid entry points check: H past kGridAbove (the grid layouts are
+// chosen only there), H % 4 == 0, the unit slices and row groups within the
+// card's SMs, the shared memory of `gates` gates within the 227 KB a CTA
+// may have, and the caller's shared-memory size and workspace size (`ws_want`
+// as the kernel's file computes it).
+int grid_check(int B, int Tn, int H, bool bf16, int gates, int groups, long long smem_bytes,
+               long long ws_bytes, size_t ws_want, int* grid) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || Tn <= 0 || H <= kGridAbove || H % 4 != 0 || groups <= 0) return bad;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (H + kGridUnits(bf16) - 1) / kGridUnits(bf16);
+  const int row_tiles = grid_rows(B, bf16) / kGridRowTile(bf16);
+  *grid = tiles * groups;
+  if (groups > row_tiles || *grid > sms || grid_smem(H, bf16, gates) > 232448 ||
+      smem_bytes != grid_smem(H, bf16, gates) || ws_bytes != static_cast<long long>(ws_want)) {
+    return bad;
+  }
+  return 0;
+}
 
 }  // namespace
 }  // namespace rnn

@@ -214,56 +214,65 @@ def _grid_kpad(H: int, dtype: torch.dtype) -> int:
     return -(-H // GRID_K[dtype]) * GRID_K[dtype]
 
 
-def _grid_smem(H: int, dtype: torch.dtype) -> int:
-    """grid_smem in csrc/gru.cu: W_h's values of a CTA's units, 96 Kp bytes
-    in every grid kernel (bf16: 16 units x 3 gates x Kp x 2 bytes; f32: 8
-    units x 3 gates x Kp x 4)."""
-    return 96 * _grid_kpad(H, dtype)
+def _grid_smem(H: int, dtype: torch.dtype, gates: int = 3) -> int:
+    """rnn::grid_smem in csrc/rnn.cuh: W_h's values of a CTA's units, 32
+    gates Kp bytes in every grid kernel (bf16: 16 units x gates x Kp x 2
+    bytes; f32: 8 units x gates x Kp x 4); 96 Kp for the GRU."""
+    return 32 * gates * _grid_kpad(H, dtype)
 
 
 @functools.lru_cache(maxsize=None)
-def grid_max_hidden(dtype: torch.dtype) -> int:
-    """The widest H (a multiple of 4) of the grid layout: its unit slices
-    (ceil(H / GRID_UNITS) CTAs, each at least one row group) fit the
-    card's NUM_SMS in one cooperative wave, and a CTA's W_h values fit
-    SMEM_LIMIT. 2,112 in bf16 (132 slices of 16 units), 1,056 in f32 (132
-    slices of 8)."""
+def grid_max_hidden(dtype: torch.dtype, gates: int = 3) -> int:
+    """The widest H (a multiple of 4) of a grid layout of `gates` gates: its
+    unit slices (ceil(H / GRID_UNITS) CTAs, each at least one row group) fit
+    the card's NUM_SMS in one cooperative wave, and a CTA's W_h values fit
+    SMEM_LIMIT. The GRU's: 2,112 in bf16 (132 slices of 16 units), 1,056 in
+    f32 (132 slices of 8)."""
     H = NUM_SMS * GRID_UNITS[dtype]
-    while _grid_smem(H, dtype) > SMEM_LIMIT:
+    while _grid_smem(H, dtype, gates) > SMEM_LIMIT:
         H -= 4
     return H
 
 
-def grid_config(B: int, H: int, dtype: torch.dtype, reverse: bool) -> Dict:
-    """The grid-persistent layout of csrc/gru.cu above MAX_HIDDEN (either
-    dtype, either direction): one cooperative launch of `unit_slices` x
-    `row_groups` CTAs of GRID_THREADS threads, all resident at once. CTA
-    (slice, group) owns GRID_UNITS units (their W_h values, all three gates,
-    in its shared memory: `smem_bytes`, 96 Kp bytes with K padded to
-    `k_padded`) for the group's batch rows; the row groups split the rows
-    into tasks of GRID_ROW_TILE rows as far as the card's NUM_SMS allow
-    beside the slices (more groups, fewer rows a CTA), each group a whole
-    number of tasks and none empty. `workspace_bytes`: the zeroed workspace
-    the wrapper hands the kernel (the barrier's counter, then the forward's
-    h buffers [2][rows][Kp] or the reverse's d_hproj buffers and carry)."""
+def grid_layout(B: int, H: int, dtype: torch.dtype, gates: int, plane_bytes: int) -> Dict:
+    """csrc/rnn.cuh's grid-persistent layout above MAX_HIDDEN (either dtype,
+    either direction, the GRU's 3 gates or the LSTM's 4): one cooperative
+    launch of `unit_slices` x `row_groups` CTAs of GRID_THREADS threads, all
+    resident at once. CTA (slice, group) owns GRID_UNITS units (their W_h
+    values, every gate, in its shared memory: `smem_bytes`, 32 gates Kp bytes
+    with K padded to `k_padded`) for the group's batch rows; the row groups
+    split the rows into tasks of GRID_ROW_TILE rows as far as the card's
+    NUM_SMS allow beside the slices (more groups, fewer rows a CTA), each
+    group a whole number of tasks and none empty. `workspace_bytes`: the
+    zeroed workspace the wrapper hands the kernel, the barrier's counter and
+    then `plane_bytes` bytes for each (row, k) of the [rows][Kp] plane (each
+    kernel's buffers and carries)."""
     units, tile = GRID_UNITS[dtype], GRID_ROW_TILE[dtype]
     slices = -(-H // units)
     row_tiles = -(-B // tile)
     per = -(-row_tiles // max(1, min(NUM_SMS // slices, row_tiles)))
     groups = -(-row_tiles // per)
     kp = _grid_kpad(H, dtype)
-    plane = row_tiles * tile * kp
-    ws = GRID_COUNTER + (28 * plane if reverse else 2 * plane * dtype.itemsize)
     return {"design": "mma.sync" if dtype == torch.bfloat16 else "fma", "layout": "grid",
             "grid": slices * groups, "threads": GRID_THREADS, "units_per_cta": units,
             "unit_slices": slices, "row_groups": groups, "rows_per_group": per * tile,
-            "k_padded": kp, "smem_bytes": _grid_smem(H, dtype), "workspace_bytes": ws,
-            "max_hidden": grid_max_hidden(dtype)}
+            "k_padded": kp, "smem_bytes": _grid_smem(H, dtype, gates),
+            "workspace_bytes": GRID_COUNTER + plane_bytes * row_tiles * tile * kp,
+            "max_hidden": grid_max_hidden(dtype, gates)}
 
 
-def _not_cluster(rows_per_cluster, cluster_size, H: int) -> None:
+def grid_config(B: int, H: int, dtype: torch.dtype, reverse: bool) -> Dict:
+    """The GRU's grid layout (`grid_layout` with three gates): its workspace
+    holds the forward's h buffers [2][rows][Kp] or the reverse's d_hproj
+    buffers and carry (gru.cu's grid_workspace)."""
+    return grid_layout(B, H, dtype, 3, 28 if reverse else 2 * dtype.itemsize)
+
+
+def not_cluster(rows_per_cluster, cluster_size, H: int, who: str = "gru") -> None:
+    """The grid layout (above MAX_HIDDEN, the GRU's and the LSTM's) takes no
+    f32 cluster options."""
     if rows_per_cluster is not None or cluster_size is not None:
-        raise ValueError(f"gru: rows_per_cluster and cluster_size are the f32 cluster design's; "
+        raise ValueError(f"{who}: rows_per_cluster and cluster_size are the f32 cluster design's; "
                          f"the grid layout above H = {MAX_HIDDEN} takes neither (H={H})")
 
 
@@ -381,7 +390,7 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
     if D <= 0 or D % 4 != 0:  # rows of x copied in 8- or 16-byte pieces
         raise ValueError(f"gru: needs D*{es} % {4 * es} == 0 (D={D}, H={H})")
     if H > MAX_HIDDEN:
-        _not_cluster(rows_per_cluster, cluster_size, H)
+        not_cluster(rows_per_cluster, cluster_size, H)
         xproj = ({"xproj_grid": [-(-(B * T) // PROJ_TILE), -(-(3 * H) // PROJ_TILE)],
                   "xproj_threads": 128} if dtype == torch.bfloat16 else
                  {"xproj_grid": [xproj_f32_grid(B * T, 3 * H)], "xproj_threads": F32_PROJ_THREADS})
@@ -497,7 +506,7 @@ def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
     if dtype == torch.bfloat16 and h_in_dtype not in _DTYPE_CODE:
         raise ValueError(f"gru backward: h_in dtype {h_in_dtype} not in float32/bfloat16")
     if H > MAX_HIDDEN:
-        _not_cluster(rows_per_cluster, cluster_size, H)
+        not_cluster(rows_per_cluster, cluster_size, H)
         cfg = grid_config(B, H, dtype, reverse=True)
         return {**cfg, "d_terms": 2} if dtype == torch.bfloat16 else cfg
     if dtype == torch.bfloat16:
@@ -576,36 +585,38 @@ def wide_backward_fragments(w_h: torch.Tensor) -> torch.Tensor:
 
 
 def grid_pack(w_h: torch.Tensor, dtype: torch.dtype, reverse: bool) -> torch.Tensor:
-    """W_h [H, 3H] -> the grid layout's packed weights (csrc/gru.cu), one
-    slice of GRID_UNITS units a CTA, zero past H. One copy.
+    """W_h [H, G H] (G = 3 gates: the GRU's; 4: the LSTM's) -> the grid
+    layout's packed weights (csrc/gru.cu, csrc/lstm.cu), one slice of
+    GRID_UNITS units a CTA, zero past H. One copy.
 
     bf16, A fragments of mma.sync.m16n8k16 with K permuted so that lane
     (g, q) of k-steps 2c, 2c + 1 covers k = 32 c + 8 q .. + 7 (its one
     16-byte read of a B row): register 2 kh + mh of k-step 2 c + kk holds
     units 16 tile + 8 mh + g at k = 32 c + 8 q + 4 kk + 2 kh (+ 1).
-    Forward: A = W_h^T of each gate, [tiles][Kp/16][3][32][8]; reverse:
-    A[unit][q Kp + j] = W_h[unit, q H + j], [tiles][3 Kp/16][32][8].
+    Forward: A = W_h^T of each gate, [tiles][Kp/16][G][32][8]; reverse:
+    A[unit][q Kp + j] = W_h[unit, q H + j], [tiles][G Kp/16][32][8].
     f32, the values a lane's float4 k = 128 j + 4 lane reads: forward
-    [tiles][Kp/128][8 units][3 gates][32][4] of W_h[k, q H + unit];
-    reverse [tiles][3 Kp/128][8 units][32][4] of W_h[unit, column]."""
+    [tiles][Kp/128][8 units][G gates][32][4] of W_h[k, q H + unit];
+    reverse [tiles][G Kp/128][8 units][32][4] of W_h[unit, column]."""
     H = w_h.shape[0]
+    G = w_h.shape[1] // H
     units, kp = GRID_UNITS[dtype], _grid_kpad(H, dtype)
     tiles = -(-H // units)
-    w = w_h.to(dtype).reshape(H, 3, H)
+    w = w_h.to(dtype).reshape(H, G, H)
     pad = torch.nn.functional.pad
     if dtype == torch.bfloat16:
         if reverse:  # unit, gate, column
             a = pad(w, (0, kp - H, 0, 0, 0, units * tiles - H))
-            a = a.reshape(tiles, 2, 8, 3 * kp // 32, 4, 2, 2, 2)  # tile mh g c q kk kh pair
-            return a.permute(0, 3, 5, 2, 4, 6, 1, 7).reshape(tiles, 3 * kp // 16, 32, 8).contiguous()
+            a = a.reshape(tiles, 2, 8, G * kp // 32, 4, 2, 2, 2)  # tile mh g c q kk kh pair
+            return a.permute(0, 3, 5, 2, 4, 6, 1, 7).reshape(tiles, G * kp // 16, 32, 8).contiguous()
         a = pad(w.permute(1, 2, 0), (0, kp - H, 0, units * tiles - H))  # gate, unit, k
-        a = a.reshape(3, tiles, 2, 8, kp // 32, 4, 2, 2, 2)  # gate tile mh g c q kk kh pair
-        return a.permute(1, 4, 6, 0, 3, 5, 7, 2, 8).reshape(tiles, kp // 16, 3, 32, 8).contiguous()
+        a = a.reshape(G, tiles, 2, 8, kp // 32, 4, 2, 2, 2)  # gate tile mh g c q kk kh pair
+        return a.permute(1, 4, 6, 0, 3, 5, 7, 2, 8).reshape(tiles, kp // 16, G, 32, 8).contiguous()
     if reverse:  # unit, gate, column
-        a = pad(w, (0, kp - H, 0, 0, 0, units * tiles - H)).reshape(tiles, 8, 3 * kp // 128, 32, 4)
+        a = pad(w, (0, kp - H, 0, 0, 0, units * tiles - H)).reshape(tiles, 8, G * kp // 128, 32, 4)
         return a.permute(0, 2, 1, 3, 4).contiguous()
     a = pad(w, (0, units * tiles - H, 0, 0, 0, kp - H))  # k, gate, unit
-    a = a.reshape(kp // 128, 32, 4, 3, tiles, 8)  # j lane e gate tile unit
+    a = a.reshape(kp // 128, 32, 4, G, tiles, 8)  # j lane e gate tile unit
     return a.permute(4, 0, 5, 3, 1, 2).contiguous()
 
 

@@ -7,7 +7,20 @@ Replaces `seqrec_tpu/ops/pallas/lstm.py::lstm_scan` (the TPU kernel
 without a reset mask, and with one (session-parallel training), where a
 keep plane `1 - reset` [B, T] f32 goes to both kernels. The two variants
 count their launches apart: `lstm_scan.launches` / `lstm_scan.reset_launches`,
-and the same two on `lstm_backward`.
+and the same two on `lstm_backward`; each also counts its launches of the
+grid layout above H = 256 (either variant, either dtype) in `.grid_launches`.
+
+Above H = 256 (the JAX package's wide LSTM at D = H = 512, benchmarks/
+scan_ab.py's wide_lstm_D512) no cluster holds W_h, and both directions in
+both dtypes run csrc/lstm.cu's grid-persistent layout (`grid_config`, the
+GRU's with four gates): one cooperative launch, each CTA a slice of the
+units with their W_h values, all four gates, resident in its shared memory
+(`gru.grid_pack`) for a group of batch rows, the step's vector through L2
+in a zeroed workspace, one grid barrier a step; a (unit, row) pair's four
+gate sums land in one lane, which alone reads and writes its f32 cell in the
+workspace. The reverse publishes each step's dz columns, then forms dh_prev
+from the whole of it (the K split) with no atomics. Up to
+`grid_max_hidden`: 1,792 in bf16, 1,056 in f32.
 
 Two hand-written designs chosen by dtype (each computes the whole function
 in its own numerics; neither gives way to the other):
@@ -69,15 +82,17 @@ import torch
 
 from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.ops import reference
-from seqrec_tpu_torch.ops.cuda.gru import (F32_PROJ_THREADS, MMA_ROWS, RING_STAGES,
-                                           cluster_config, plain_input_projection,
+from seqrec_tpu_torch.ops.cuda.gru import (F32_PROJ_THREADS, MMA_ROWS, NUM_SMS, RING_STAGES,
+                                           SMEM_LIMIT, cluster_config, grid_layout, grid_pack,
+                                           grid_max_hidden as _grid_max_hidden,
+                                           not_cluster, plain_input_projection,
                                            xproj_f32_grid)
 
 plain = reference.lstm_scan
 plain_backward = reference.lstm_bwd_scan
 
-SMEM_LIMIT = 232_448  # shared memory one block may opt in to on sm_90 (227 KB)
-MAX_HIDDEN = 256  # kMaxHidden in csrc/lstm.cu
+MAX_HIDDEN = 256  # kMaxHidden in csrc/lstm.cu: the widest H of the block and cluster layouts
+GRID_GATES = 4  # i, f, g, o: the grid layout's W_h values a unit (csrc/lstm.cu, above MAX_HIDDEN)
 PROJ_TILE = 64  # kProjTile in csrc/rnn.cuh: rows and columns of an xp tile
 WH_REG_LIMIT = 128  # Hp up to which the bf16 kernels hold W_h in registers
 BWD_UNITS = 4  # kBwdUnits in csrc/lstm.cu: units a warp of the f32 reverse recurrence sums for
@@ -118,6 +133,14 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     bwd_mma.restype = ctypes.c_int
+    fwd_grid = lib.seqrec_lstm_forward_grid
+    fwd_grid.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [
+        ctypes.c_void_p]
+    fwd_grid.restype = ctypes.c_int
+    bwd_grid = lib.seqrec_lstm_backward_grid
+    bwd_grid.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [
+        ctypes.c_void_p]
+    bwd_grid.restype = ctypes.c_int
     lib.seqrec_lstm_error_string.argtypes = [ctypes.c_int]
     lib.seqrec_lstm_error_string.restype = ctypes.c_char_p
     return lib
@@ -128,9 +151,30 @@ def _check_dims(B: int, T: int, H: int, dtype: torch.dtype) -> int:
         raise ValueError(f"lstm: dtype {dtype} not in float32/bfloat16")
     if min(B, T, H) <= 0:
         raise ValueError(f"lstm: empty shape B={B} T={T} H={H}")
-    if H % 4 != 0 or H > MAX_HIDDEN:
-        raise ValueError(f"lstm: needs H % 4 == 0 and H <= {MAX_HIDDEN} (H={H})")
+    limit = grid_max_hidden(dtype)
+    if H % 4 != 0 or H > limit:
+        raise ValueError(f"lstm: needs H % 4 == 0 and H <= {limit} in {dtype} (H={H}; the grid "
+                         f"layout's unit slices must fit the card's {NUM_SMS} SMs and their W_h "
+                         f"values of four gates {SMEM_LIMIT} bytes of shared memory a CTA)")
     return torch.empty((), dtype=dtype).element_size()
+
+
+def grid_max_hidden(dtype: torch.dtype) -> int:
+    """The widest H (a multiple of 4) of the LSTM's grid layout
+    (`gru.grid_max_hidden` with four gates): 1,792 in bf16, where a CTA's
+    128 Kp bytes of W_h values reach SMEM_LIMIT; 1,056 in f32, where the
+    132 slices of 8 units fill the card's NUM_SMS."""
+    return _grid_max_hidden(dtype, GRID_GATES)
+
+
+def grid_config(B: int, H: int, dtype: torch.dtype, reverse: bool) -> Dict:
+    """The grid-persistent layout of csrc/lstm.cu above MAX_HIDDEN
+    (`gru.grid_layout` with four gates: a CTA's W_h values are 128 Kp
+    bytes). Its workspace (lstm.cu's grid_workspace): the forward's h
+    buffers [2][rows][Kp] of the dtype and the f32 cell plane [rows][Kp];
+    the reverse's dz buffers (32 bytes a (row, k): [2][hi, lo][rows][4 Kp]
+    bf16 or [2][rows][4 Kp] f32) and the f32 dh and dc carries."""
+    return grid_layout(B, H, dtype, GRID_GATES, 40 if reverse else 2 * dtype.itemsize + 4)
 
 
 def _padded(H: int) -> int:
@@ -166,6 +210,15 @@ def _mma_rows(rows_per_cluster: Optional[int], cluster_size: Optional[int]) -> i
     return MMA_ROWS
 
 
+def _xproj_layout(B: int, T: int, H: int, dtype: torch.dtype) -> Dict:
+    """The input projection's launch: bf16 a grid of 64 x 64 xp tiles of 128
+    threads; f32 the persistent grid (`gru.xproj_f32_grid`)."""
+    if dtype == torch.bfloat16:
+        return {"xproj_grid": [-(-(B * T) // PROJ_TILE), -(-(4 * H) // PROJ_TILE)],
+                "xproj_threads": 128}
+    return {"xproj_grid": [xproj_f32_grid(B * T, 4 * H)], "xproj_threads": F32_PROJ_THREADS}
+
+
 def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
                   rows_per_cluster: Optional[int] = None,
                   cluster_size: Optional[int] = None) -> Dict:
@@ -192,10 +245,17 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
     batch rows, each CTA ceil(H / C) units with their W_h columns in its
     shared memory, and in registers (`w_in_regs`) where a thread's slice is
     LSTM_REG_SLICE values with 8 slices a unit, up to 8 rows and
-    LSTM_REG_THREADS threads (H = 128 on 4 CTAs)."""
+    LSTM_REG_THREADS threads (H = 128 on 4 CTAs).
+
+    Above MAX_HIDDEN, either dtype (`layout` "grid", `grid_config`): the
+    projection as above, then the grid-persistent recurrence, up to
+    `grid_max_hidden(dtype)`; ValueError past it, naming H and the limit."""
     es = _check_dims(B, T, H, dtype)
     if D <= 0 or D % 4 != 0:  # x rows in 16-byte (f32) or 8-byte (bf16) pieces
         raise ValueError(f"lstm: needs D*{es} % {4 * es} == 0 (D={D}, H={H})")
+    if H > MAX_HIDDEN:
+        not_cluster(rows_per_cluster, cluster_size, H, "lstm")
+        return {**grid_config(B, H, dtype, reverse=False), **_xproj_layout(B, T, H, dtype)}
     if dtype == torch.bfloat16:
         R = _mma_rows(rows_per_cluster, cluster_size)
         hp = _padded(H)
@@ -207,15 +267,13 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
             "hidden_padded": hp,
             "wh_in_regs": int(hp <= WH_REG_LIMIT),
             "smem_bytes": _forward_smem(hp),
-            "xproj_grid": [-(-(B * T) // PROJ_TILE), -(-(4 * H) // PROJ_TILE)],
-            "xproj_threads": 128,
+            **_xproj_layout(B, T, H, dtype),
         }
     cfg = cluster_config(B, H, H, 4, 5, cluster_size, rows_per_cluster, LSTM_FWD_CLUSTERS,
                          "lstm")
     w_in_regs = (cfg["k_slice"] == LSTM_REG_SLICE and cfg["k_slices"] == 8
                  and cfg["rows_per_cluster"] <= 8 and cfg["threads"] <= LSTM_REG_THREADS)
-    return {**cfg, "w_in_regs": int(w_in_regs),
-            "xproj_grid": [xproj_f32_grid(B * T, 4 * H)], "xproj_threads": F32_PROJ_THREADS}
+    return {**cfg, "w_in_regs": int(w_in_regs), **_xproj_layout(B, T, H, dtype)}
 
 
 def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
@@ -244,8 +302,18 @@ def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
     double buffer. A warp sums for BWD_UNITS units, its 32 lanes each over
     a slice of the 4H columns, so that each dz value read from shared
     memory serves BWD_UNITS units (the step's product reads shared memory,
-    not the FMAs, at one unit a thread group)."""
+    not the FMAs, at one unit a thread group).
+
+    Above MAX_HIDDEN, either dtype (`layout` "grid", `grid_config`): the
+    grid-persistent reverse recurrence, K split by phases: each CTA
+    publishes its units' dz columns (bf16: as `dz_terms` bf16 terms), then
+    (after the grid barrier) reads the whole dz of its rows and forms
+    dh_prev for its units."""
     _check_dims(B, T, H, dtype)
+    if H > MAX_HIDDEN:
+        not_cluster(rows_per_cluster, cluster_size, H, "lstm")
+        cfg = grid_config(B, H, dtype, reverse=True)
+        return {**cfg, "dz_terms": 2} if dtype == torch.bfloat16 else cfg
     if dtype == torch.bfloat16:
         R = _mma_rows(rows_per_cluster, cluster_size)
         hp = _padded_pairs(H)
@@ -387,12 +455,22 @@ def _forward_kernel(x, h0, c0, w_x, w_h, b, with_cells: bool, keep=None):
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     xp = lstm_input_projection(x, w_x, b)
+    grid = cfg.get("layout") == "grid"
     mma = cfg["design"] == "mma.sync"
-    args = [xp] + [t.contiguous() for t in (h0, c0, forward_fragments(w_h) if mma else w_h)]
-    _check_operands(args + ([] if keep is None else [keep]), dev)
+    if grid:
+        w = grid_pack(w_h, dtype, reverse=False)
+    else:
+        w = forward_fragments(w_h) if mma else w_h
+    args = [xp] + [t.contiguous() for t in (h0, c0, w)]
+    ws = torch.zeros(cfg["workspace_bytes"], dtype=torch.uint8, device=dev) if grid else None
+    _check_operands(args + ([] if keep is None else [keep]) + ([] if ws is None else [ws]), dev)
     ptrs = [*(a.data_ptr() for a in args), keep_ptr, ys.data_ptr(), c_last.data_ptr(), cs_ptr]
     with torch.cuda.device(dev):
-        if mma:
+        if grid:
+            rc = lib.seqrec_lstm_forward_grid(
+                *ptrs, ws.data_ptr(), B, T, H, _DTYPE_CODE[dtype], cfg["row_groups"],
+                cfg["smem_bytes"], cfg["workspace_bytes"], stream)
+        elif mma:
             rc = lib.seqrec_lstm_forward_mma(*ptrs, B, T, H, cfg["smem_bytes"], stream)
         else:
             rc = lib.seqrec_lstm_forward(
@@ -404,6 +482,8 @@ def _forward_kernel(x, h0, c0, w_x, w_h, b, with_cells: bool, keep=None):
         lstm_scan.launches += 1
     else:
         lstm_scan.reset_launches += 1
+    if grid:
+        lstm_scan.grid_launches += 1
     return ys, c_last, cs
 
 
@@ -437,11 +517,17 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
         dc_last = torch.zeros((B, H), dtype=torch.float32, device=dev)
     keep = _keep_plane(keep, B, T)
     planes = [t.float().contiguous() for t in (i, f, g, o, tanh_c, c_in)]
+    grid = cfg.get("layout") == "grid"
     mma = cfg["design"] == "mma.sync"
-    w = backward_fragments(w_h) if mma else w_h.float().contiguous()
+    if grid:
+        w = grid_pack(w_h, dtype, reverse=True)
+    else:
+        w = backward_fragments(w_h) if mma else w_h.float().contiguous()
     args = planes + [g_ys.contiguous(), w]
     dc_last = dc_last.float().contiguous()
-    _check_operands(args + [dc_last] + ([] if keep is None else [keep]), dev)
+    ws = torch.zeros(cfg["workspace_bytes"], dtype=torch.uint8, device=dev) if grid else None
+    _check_operands(args + [dc_last] + ([] if keep is None else [keep])
+                    + ([] if ws is None else [ws]), dev)
     dz = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     dc0 = torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -450,7 +536,11 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if mma:
+        if grid:
+            rc = lib.seqrec_lstm_backward_grid(
+                *ptrs, ws.data_ptr(), B, T, H, _DTYPE_CODE[dtype], cfg["row_groups"],
+                cfg["smem_bytes"], cfg["workspace_bytes"], stream)
+        elif mma:
             rc = lib.seqrec_lstm_backward_mma(*ptrs, B, T, H, cfg["smem_bytes"], stream)
         else:
             rc = lib.seqrec_lstm_backward(
@@ -461,11 +551,14 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
         lstm_backward.launches += 1
     else:
         lstm_backward.reset_launches += 1
+    if grid:
+        lstm_backward.grid_launches += 1
     return dz, dh0, dc0
 
 
 lstm_backward.launches = 0
 lstm_backward.reset_launches = 0
+lstm_backward.grid_launches = 0
 
 
 class _LSTMScan(torch.autograd.Function):
@@ -539,3 +632,4 @@ def lstm_scan(
 
 lstm_scan.launches = 0
 lstm_scan.reset_launches = 0
+lstm_scan.grid_launches = 0

@@ -251,6 +251,13 @@ def test_cluster_choice_at_the_paths_shapes(which, B, H, want):
     assert cfg["grid"] <= cuda_gru.NUM_SMS
 
 
+def _past_the_lstm_grid(config):
+    """H = 260 takes the LSTM's f32 grid layout; then one past its limit
+    (1,056: 132 slices of 8 units), which raises."""
+    assert config(260)["layout"] == "grid"
+    return config(1060)
+
+
 @pytest.mark.parametrize("call,match", [
     (lambda: cuda_gru.launch_config(8, 5, 16, 16, torch.float32, rows_per_cluster=3),
      "rows_per_cluster 3"),
@@ -262,7 +269,8 @@ def test_cluster_choice_at_the_paths_shapes(which, B, H, want):
      "1024 threads"),
     (lambda: cuda_lstm.backward_launch_config(8, 5, 16, torch.bfloat16, cluster_size=4),
      "f32 design"),
-    (lambda: cuda_lstm.backward_launch_config(8, 5, 260, torch.float32), "H <= 256"),
+    (lambda: _past_the_lstm_grid(lambda H: cuda_lstm.backward_launch_config(
+        8, 5, H, torch.float32)), "H <= 1056"),
     (lambda: cuda_lstm.launch_config(8, 5, 16, 16, torch.float32, rows_per_cluster=3),
      "rows_per_cluster 3"),
     (lambda: cuda_lstm.launch_config(8, 5, 16, 256, torch.float32, cluster_size=4),
@@ -271,7 +279,8 @@ def test_cluster_choice_at_the_paths_shapes(which, B, H, want):
      "1024 threads"),
     (lambda: cuda_lstm.launch_config(8, 5, 16, 16, torch.bfloat16, cluster_size=4),
      "f32 design"),
-    (lambda: cuda_lstm.launch_config(8, 5, 16, 260, torch.float32), "H <= 256"),
+    (lambda: _past_the_lstm_grid(lambda H: cuda_lstm.launch_config(
+        8, 5, 16, H, torch.float32)), "H <= 1056"),
     (lambda: cuda_gru.backward_launch_config(8, 5, 256, torch.float32, cluster_size=4),
      "shared memory"),
     (lambda: cuda_gru.backward_launch_config(8, 5, 16, torch.float32, rows_per_cluster=3),

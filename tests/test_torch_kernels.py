@@ -2040,3 +2040,153 @@ def test_head_ksplit_odd_width_and_the_limit(cuda, dtype):
                                    rtol=tol, atol=tol)
     with pytest.raises(ValueError, match=f"H <= {limit}"):
         k_head.sampled_softmax_nll(*_head_args(8, 16, limit + 1, dtype, cuda))
+
+
+# ---------------------------------------------------------------------------
+# Above H = 256: the LSTM's grid-persistent layout
+# ---------------------------------------------------------------------------
+
+LSTM_GRID_SHAPES = [(H, B, T) for H in (260, 384, 512, 1000) for B in (1, 3, 8, 256)
+                    for T in (1, 7, 50)]
+LSTM_FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+
+
+def _lstm_grid_forward_twice(args, reset, dtype):
+    """Two launches of lstm_scan's grid layout (counted by the variant's
+    counter and `grid_launches`), bit for bit, within the LSTM's forward
+    tolerance of the plain version (ys and c_last); ys."""
+    counter = "launches" if reset is None else "reset_launches"
+    before = [getattr(k_lstm.lstm_scan, c) for c in (counter, "grid_launches")]
+    ys, (h, c) = k_lstm.lstm_scan(*args, reset_mask=reset)
+    again, (_, c2) = k_lstm.lstm_scan(*args, reset_mask=reset)
+    torch.cuda.synchronize()
+    assert [getattr(k_lstm.lstm_scan, c) for c in (counter, "grid_launches")] == [
+        n + 2 for n in before]
+    assert torch.equal(ys, again) and torch.equal(c, c2) and torch.equal(h, ys[:, -1])
+    want, (_, c_want) = k_lstm.plain(*args, reset_mask=reset)
+    tol = LSTM_FWD_TOL[dtype]
+    torch.testing.assert_close(ys.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(c.float(), c_want.float(), rtol=tol, atol=tol)
+    return ys
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,B,T", LSTM_GRID_SHAPES)
+def test_lstm_grid_forward_matches_plain_twice(cuda, H, B, T, dtype):
+    """The LSTM forward above H = 256 (one cooperative launch, each CTA a
+    slice of the units with their W_h values of four gates in shared memory,
+    h through L2 and a grid barrier a step, c in the owner lane's f32 plane),
+    both variants (with a carried-in h0, c0): within the dtype's tolerance
+    of the plain version, two launches bit for bit; an all-zero reset plane
+    gives the no-reset kernel's bits; the f32 cell plane it writes for the
+    backward is the plain serial recompute's, and c_last its last step."""
+    args = _lstm_args(B, T, H, H, dtype, cuda, seed=H + B + T)
+    assert k_lstm.launch_config(B, T, H, H, dtype)["layout"] == "grid"
+    for reset in (None, _reset_plane(B, T, cuda, seed=H)):
+        _lstm_grid_forward_twice(args, reset, dtype)
+        if reset is not None:
+            zero = k_lstm.lstm_scan(*args, reset_mask=torch.zeros_like(reset))
+            base = k_lstm.lstm_scan(*args)
+            assert torch.equal(zero[0], base[0]) and torch.equal(zero[1][1], base[1][1])
+        x, h0, c0, w_x, w_h, b = args
+        wx, wh = w_x.to(dtype), w_h.to(dtype)
+        ys, c_last, cs = k_lstm._forward_kernel(x, h0, c0, wx, wh, b, True,
+                                                None if reset is None else 1.0 - reset)
+        x_proj = torch.matmul(x.float(), wx.float()) + b
+        cells = reference.lstm_recompute_cells(x_proj, ys, h0, c0, wh, reset)
+        torch.testing.assert_close(cs, cells, rtol=1e-4, atol=1e-4)
+        assert torch.equal(c_last, cs[:, -1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,B,T", LSTM_GRID_SHAPES)
+def test_lstm_grid_backward_matches_plain_twice(cuda, H, B, T, dtype):
+    """The reverse recurrence above H = 256 (each CTA publishes its units'
+    dz, bf16 as hi and lo terms, a grid barrier, then forms dh_prev for its
+    units from the whole dz of its rows; dh and dc carried per pair from
+    dc_last), with and without a keep plane: dz, dh0 and dc0 within 1e-4 of
+    the plain f32 loop relative to their largest values, two launches bit
+    for bit; an all-ones keep plane gives the no-keep kernel's bits."""
+    planes = _lstm_planes(B, T, H, dtype, cuda, seed=H + B + T)
+    dc_last = torch.randn(B, H, device=cuda, generator=torch.Generator(cuda).manual_seed(H + B))
+    assert k_lstm.backward_launch_config(B, T, H, dtype)["layout"] == "grid"
+    for keep in (None, (1.0 - _reset_plane(B, T, cuda, seed=H))[:, :, None]):
+        counter = "launches" if keep is None else "reset_launches"
+        before = [getattr(k_lstm.lstm_backward, c) for c in (counter, "grid_launches")]
+        got = k_lstm.lstm_backward(*planes, keep, dc_last)
+        again = k_lstm.lstm_backward(*planes, keep, dc_last)
+        torch.cuda.synchronize()
+        assert [getattr(k_lstm.lstm_backward, c) for c in (counter, "grid_launches")] == [
+            n + 2 for n in before]
+        for name, a, b, c in zip(("dz", "dh0", "dc0"), got, again,
+                                 k_lstm.plain_backward(*planes, keep, dc_last)):
+            assert torch.equal(a, b), name
+            torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4 * c.abs().max().item(),
+                                       msg=name)
+        if keep is not None:
+            for a, b in zip(k_lstm.lstm_backward(*planes, torch.ones_like(keep), dc_last),
+                            k_lstm.lstm_backward(*planes, None, dc_last)):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_grid_at_its_limit_and_past_it(cuda, dtype):
+    """The widest H each dtype's grid layout takes (bf16 1,792: a CTA's
+    W_h values of four gates fill its shared memory; f32 1,056: 132 slices
+    of 8 units, one a SM), forward with a reset plane and reverse with a
+    keep plane, against the plain versions; one past it raises, naming it."""
+    limit = k_lstm.grid_max_hidden(dtype)
+    B, T = 5, 6
+    args = _lstm_args(B, T, limit, limit, dtype, cuda, seed=limit)
+    reset = _reset_plane(B, T, cuda, seed=limit)
+    _lstm_grid_forward_twice(args, reset, dtype)
+    planes = _lstm_planes(B, T, limit, dtype, cuda, seed=limit)
+    keep = (1.0 - reset)[:, :, None]
+    dc_last = torch.randn(B, limit, device=cuda)
+    for name, a, c in zip(("dz", "dh0", "dc0"), k_lstm.lstm_backward(*planes, keep, dc_last),
+                          k_lstm.plain_backward(*planes, keep, dc_last)):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4 * c.abs().max().item(), msg=name)
+    past = _lstm_args(B, T, limit + 4, limit + 4, dtype, cuda)
+    with pytest.raises(ValueError, match=f"H <= {limit}"):
+        k_lstm.lstm_scan(*past)
+    with pytest.raises(ValueError, match=f"H <= {limit}"):
+        k_lstm.lstm_backward(*_lstm_planes(B, T, limit + 4, dtype, cuda), None, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_grid_autograd_at_the_wide_lstm_matches_plain(cuda, dtype):
+    """lstm_scan's autograd at the wide LSTM's step (B=256, T=200, D=H=512),
+    with c_last in the loss: one forward and one reverse launch of the grid
+    layout, each gradient within 2^-7 (bf16; 1e-4 in f32) relative to its
+    largest value of reference.lstm_bwd_math's on the kernel forward's
+    states; twice bit for bit."""
+    B, T, D, H = 256, 200, 512, 512
+    x, h0, c0, w_x, w_h, b = _lstm_args(B, T, D, H, dtype, cuda, seed=11)
+    rng = np.random.default_rng(12)
+    g = torch.from_numpy(rng.normal(scale=1e-2, size=(B, T, H)).astype(np.float32)).to(cuda, dtype)
+    g_c = torch.from_numpy(rng.normal(scale=1e-2, size=(B, H)).astype(np.float32)).to(cuda, dtype)
+
+    def grads():
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, h0, c0, w_x, w_h)]
+        ys, (_, c_last) = k_lstm.lstm_scan(*leaves, b)
+        torch.autograd.backward((ys, c_last), (g, g_c))
+        return ys.detach(), [t.grad for t in leaves]
+
+    counts = lambda: (k_lstm.lstm_scan.grid_launches, k_lstm.lstm_backward.grid_launches)  # noqa: E731
+    before = counts()
+    ys, got = grads()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1)
+    ys2, got2 = grads()
+    assert torch.equal(ys, ys2) and all(torch.equal(a, b) for a, b in zip(got, got2))
+    wx_c, wh_c = w_x.to(dtype), w_h.to(dtype)
+    x_proj = torch.matmul(x.float(), wx_c.float()) + b
+    with torch.no_grad():
+        _, _, cs = k_lstm._forward_kernel(x, h0, c0, wx_c, wh_c, b, True)
+    d_xp, dh0, dc0, dwh, _ = reference.lstm_bwd_math(x_proj, ys, cs, h0, c0, wh_c, g, None,
+                                                     dc_last=g_c)
+    want = [t.to(dtype) for t in (torch.matmul(d_xp, wx_c.float().T), dh0, dc0,
+                                  torch.einsum("btd,btk->dk", x.float(), d_xp), dwh)]
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+    for name, a, w in zip(("x", "h0", "c0", "w_x", "w_h"), got, want):
+        err = (a.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+        assert err <= tol, (name, err)

@@ -349,7 +349,7 @@ def test_lstm_weights_are_k_packed_for_16_byte_reads(dtype, P):
     ((4, 5, 8, 10), torch.float32, "H % 4"),
     ((4, 5, 6, 12), torch.float32, r"D\*4 % 16"),
     ((4, 5, 6, 12), torch.bfloat16, r"D\*2 % 8"),
-    ((4, 5, 8, 260), torch.float32, "H <= 256"),
+    ((4, 5, 8, 1060), torch.float32, "H <= 1056"),
     ((0, 5, 8, 12), torch.float32, "empty"),
     ((4, 5, 8, 12), torch.float32, "rows_per_cluster 3"),
     ((4, 5, 8, 12), torch.bfloat16, "rows_per_cluster and cluster_size are the f32 design's"),
@@ -358,6 +358,8 @@ def test_lstm_kernel_rejects_what_it_cannot_take(shape, dtype, match):
     with pytest.raises(ValueError, match=match):
         cuda_lstm.launch_config(*shape, dtype,
                                 rows_per_cluster=3 if "rows_per_cluster" in match else None)
+    if "H <=" in match:  # the limit is the grid layout's, which takes H = 260
+        assert cuda_lstm.launch_config(4, 5, 8, 260, dtype)["layout"] == "grid"
 
 
 @pytest.mark.parametrize("with_bias", [False, True])
