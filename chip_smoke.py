@@ -315,6 +315,23 @@ source, all at once). Each phase prints one JSON line:
               wide SASRec (benchmarks/shapes.py:65-68's
               sasrec_2xD256_B256_T200_S512 through bench_config) served and
               trained the same way in bf16 and f32;
+  w. all_widths (run after v, before n) every width the JAX package takes:
+              the attention's Dh-sliced layout (Dh = 257 and 1,000, and
+              one SASRec head of d = 512 at B=256), the scans' padded route
+              (D = 50, H = 50 at B=128, T=200 and 102) and stepped layout
+              (each grid limit + 4 and 2,302, every variant; D = H = 2,304 at
+              B=256, T=200) and the head's streamed layout (each limit + 1;
+              N=51,200, S=512, H=2,304) against their plain versions, each
+              twice bit for bit, as phases c, e, g and j check them (SDPA,
+              nn.GRU / nn.LSTM and cuDNN's backward, h @ neg.T beside them);
+              then served as phase d and trained as phases f and k in bf16
+              and f32: w1 benchmarks/shapes.py:65-68's SASRec at
+              embed_dim=512 (2 blocks of one head), two K=4 groups; w2
+              configs/ml1m_gru4rec.json and configs/ml1m_lstm.json at
+              model.embed_dim=50 (the LSTM trained session-parallel), two K=8
+              groups; w3 benchmarks/shapes.py:70-72's wide demo at
+              embed_dim=2,304, the GRU and the LSTM cell, two groups of
+              W3_K steps at W3_LR; each section's and run's seconds;
   m. the kernels line: {"kernels": [{name, route, source, replaces,
               launches, max_abs_err, ms, plain_ms, bound_ms, bound_by,
               library_ms, design, dtype}, ...]} (the scatter-add also
@@ -341,7 +358,14 @@ source, all at once). Each phase prints one JSON line:
               `at_rsc15_h1000_reset`; the LSTM's grid layouts in bf16 and
               f32 (`lstm_scan_grid`, `lstm_backward_grid`, each also `_f32`;
               phase v), their launches counted on the wide LSTM's bf16 and
-              f32 training paths, each also `at_ml1m_lstm_h512_reset`.
+              f32 training paths, each also `at_ml1m_lstm_h512_reset`; phase
+              w's layouts in bf16 and f32 (`causal_attention_sliced`,
+              `gru_scan_padded`, `gru_backward_padded`, `lstm_scan_padded`,
+              `lstm_backward_padded`, `gru_scan_stepped`,
+              `gru_backward_stepped`, `lstm_scan_stepped`,
+              `lstm_backward_stepped`, `softmax_head_streamed`, each also
+              `_f32`), at w1's, w2's or w3's step, their launches counted on
+              that path's training run.
 
 Then the raw nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -524,13 +548,25 @@ def zipf_items(rng: np.random.Generator, n: int, ranked: bool = False,
     return order[rng.choice(vocab - 1, size=n, p=p)]
 
 
+def _orthogonal_rows(rng: np.random.Generator, G: int, H: int) -> torch.Tensor:
+    """[H, G H] f32 on the CPU with orthonormal rows: the QR of G H x H
+    normal draws, signs by R's diagonal. Past H = 1,024 (widths no phase
+    before w draws) the QR runs on the card in f64: the host's takes ~5 s
+    at 2,304."""
+    a = rng.normal(size=(G * H, H))
+    if H <= 1024:
+        q, r = np.linalg.qr(a)
+        return torch.from_numpy((q * np.sign(np.diag(r))).T.astype(np.float32))
+    q, r = torch.linalg.qr(torch.from_numpy(a).cuda())
+    return (q * torch.sign(torch.diagonal(r))).T.float().cpu()
+
+
 def gru_weights(rng: np.random.Generator, D: int, H: int):
     """w_x [D, 3H] Glorot-uniform, w_h [H, 3H] orthogonal rows, biases
     N(0, 0.1): f32 on the CPU."""
     lim = np.sqrt(6.0 / (D + 3 * H))
     w_x = torch.from_numpy(rng.uniform(-lim, lim, size=(D, 3 * H)).astype(np.float32))
-    q, r = np.linalg.qr(rng.normal(size=(3 * H, H)))
-    w_h = torch.from_numpy((q * np.sign(np.diag(r))).T.astype(np.float32))
+    w_h = _orthogonal_rows(rng, 3, H)
     b_x = torch.from_numpy(rng.normal(scale=0.1, size=3 * H).astype(np.float32))
     b_h = torch.from_numpy(rng.normal(scale=0.1, size=3 * H).astype(np.float32))
     return w_x, w_h, b_x, b_h
@@ -579,10 +615,13 @@ def _kernel_name(demangled: str) -> str:
 
 # Kernels whose registers and spills the build phase always reports,
 # spilling or not: the newest designs, every instantiation (the f32 head,
-# the deterministic scatter-add's two kernels, and the f32 projection GEMM
-# that shares the head's main loop).
+# the deterministic scatter-add's two kernels, the f32 projection GEMM
+# that shares the head's main loop; the sliced attention, the stepped
+# layouts' gate kernels and the bf16 head's K split with its streamed
+# variant).
 WATCH = ("head_f32_kernel", "scatter_partials_kernel", "scatter_combine_kernel",
-         "xproj_f32_kernel")
+         "xproj_f32_kernel", "attention_sliced", "gru_step", "lstm_step",
+         "head_mma_ksplit_kernel")
 
 
 def _demangled(kernels: dict) -> dict:
@@ -632,7 +671,8 @@ def _dname(dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
-def _gru_forward_check(dev, x32, weights, h32, dtype, reset=None, twice: bool = False) -> dict:
+def _gru_forward_check(dev, x32, weights, h32, dtype, reset=None, twice: bool = False,
+                       reps: int = REPS) -> dict:
     """The GRU forward kernel against its plain version in `dtype`. Without
     `reset`, also against torch.nn.GRU (the library yardstick). With a [B, T]
     `reset` plane, the reset variant: also bit-exact against the no-reset
@@ -656,7 +696,7 @@ def _gru_forward_check(dev, x32, weights, h32, dtype, reset=None, twice: bool = 
     check(err <= tol, f"{name}: kernel vs plain max abs err {err} > {tol}")
     es = x.element_size()
     r_bytes = (B * T * D + B * H + (D + H) * 3 * H + B * T * H) * es + 2 * 3 * H * 4
-    launch = k_gru.launch_config(B, T, D, H, dtype)
+    launch = k_gru.padded_launch_config(B, T, D, H, dtype)
     rec = {"shape": {"B": B, "T": T, "D": D, "H": H, "dtype": _dname(dtype)},
            "launch": launch, "design": launch["design"],
            "max_abs_err": err, "tolerance": tol, **({"twice_bit_for_bit": True} if twice else {})}
@@ -669,7 +709,7 @@ def _gru_forward_check(dev, x32, weights, h32, dtype, reset=None, twice: bool = 
             lib.bias_ih_l0.copy_(b_x)
             lib.bias_hh_l0.copy_(b_h)
             ys_lib, _ = lib(x, h0[None])
-            lib_ms = time_ms(lambda: lib(x, h0[None]))
+            lib_ms = time_ms(lambda: lib(x, h0[None]), reps=reps)
         lib_err = max_err(ys, ys_lib)
         lib_tol = GRU_CUDNN_F32_TOL if dtype == torch.float32 else GRU_BF16_TOL
         check(lib_err <= lib_tol, f"{name}: kernel vs torch.nn.GRU max abs err {lib_err} > "
@@ -691,7 +731,7 @@ def _gru_forward_check(dev, x32, weights, h32, dtype, reset=None, twice: bool = 
     r_flops = 2 * B * T * (D + H) * 3 * H
     r_bound, r_by = bound(r_bytes, r_flops, dtype)
     rec.update({
-        "kernel_ms": time_ms(lambda: k_gru.gru_scan(*args, reset_mask=reset)),
+        "kernel_ms": time_ms(lambda: k_gru.gru_scan(*args, reset_mask=reset), reps=reps),
         "plain_ms": time_ms(lambda: k_gru.plain(*args, reset_mask=reset), reps=5),
         "bound_ms": r_bound, "bound_by": r_by, "bytes": int(r_bytes),
         "flops": int(r_flops), "serial_steps": T,
@@ -805,7 +845,7 @@ def phase_kernels(rng: np.random.Generator, dev) -> dict:
     return out
 
 
-def _xproj_check(module, project, x32, w_x, b_x, dtype=torch.bfloat16) -> dict:
+def _xproj_check(module, project, x32, w_x, b_x, dtype=torch.bfloat16, reps: int = REPS) -> dict:
     """A forward's input projection kernel (`project`: x @ W_x + b_x into
     f32, all steps at once) against its module's plain version: the bf16
     GEMM (the GRU's and the LSTM's launch the same one) on bf16 values, or
@@ -837,9 +877,9 @@ def _xproj_check(module, project, x32, w_x, b_x, dtype=torch.bfloat16) -> dict:
         "shape": {"M": B * T, "D": D, "N": N, "dtype": _dname(dtype), "out": "float32"},
         "design": "mma.sync" if dtype == torch.bfloat16 else "persistent-simt",
         "max_abs_err": err, "errors": errs, "tolerance": XPROJ_TOL,
-        "kernel_ms": time_ms(lambda: project(x, wx, b_x)),
-        "plain_ms": time_ms(lambda: module.plain_input_projection(x, wx, b_x)),
-        "library_ms": time_ms(lambda: torch.addmm(b_x, xf, wf)),
+        "kernel_ms": time_ms(lambda: project(x, wx, b_x), reps=reps),
+        "plain_ms": time_ms(lambda: module.plain_input_projection(x, wx, b_x), reps=reps),
+        "library_ms": time_ms(lambda: torch.addmm(b_x, xf, wf), reps=reps),
         "library": f"torch.addmm f32 on the {_dname(dtype)} values (TF32 off)",
         "bound_ms": p_bound, "bound_by": p_by, "bytes": int(p_bytes), "flops": int(p_flops),
     }
@@ -883,12 +923,19 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
     with its input projection, an f32 one with the f32 one), and its
     backward per layer, the reset variants on a session-parallel path; a
     bf16 GRU above Hp = 128 counts each again as its cluster layout, and a
-    GRU or LSTM of either dtype above H = 256 as its grid layout; a sampled-softmax
-    head wider than 256 counts again as the K split."""
+    GRU or LSTM of either dtype above H = 256 as its grid layout, up to the
+    grid's limit, and past it as the stepped layout; a layer whose D or H is
+    not a multiple of 4 counts again as the padded route (its forward; its
+    reverse where H is not); attention wider than 256 a head counts again as the sliced
+    layout; a sampled-softmax head wider than 256 counts again as the K
+    split, and past its resident rows' limit as the streamed layout."""
     m = cfg.model
+    dtype = getattr(torch, m.compute_dtype)
     want = dict.fromkeys(COUNTERS, 0)
     if m.arch == "sasrec":
         want["causal_attention"] = m.num_layers
+        want["causal_attention_sliced"] = m.num_layers * int(
+            m.embed_dim // m.num_heads > k_attn.MAX_HEAD_DIM)
     else:
         variant = "_reset" if training and cfg.data.session_parallel else ""
         want[f"{m.cell_type}_scan{variant}"] = m.num_layers
@@ -902,22 +949,46 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
                 and k_gru.WH_REG_LIMIT < 16 * -(-m.hidden // 16) <= k_gru.MAX_HIDDEN):
             want["gru_scan_wide"] = m.num_layers  # the cluster layouts
             want["gru_backward_wide"] = m.num_layers if training else 0
-        grid_above = (k_gru if m.cell_type == "gru" else k_lstm).MAX_HIDDEN
-        if m.hidden > grid_above:  # the grid layouts
-            want[f"{m.cell_type}_scan_grid"] = m.num_layers
-            want[f"{m.cell_type}_backward_grid"] = m.num_layers if training else 0
+        mod = k_gru if m.cell_type == "gru" else k_lstm
+        if m.hidden > mod.MAX_HIDDEN:  # the grid layouts, or past their limit the stepped one
+            layout = "grid" if k_gru.padded_width(m.hidden) <= mod.grid_max_hidden(dtype) \
+                else "stepped"
+            want[f"{m.cell_type}_scan_{layout}"] = m.num_layers
+            want[f"{m.cell_type}_backward_{layout}"] = m.num_layers if training else 0
+        widths = [m.embed_dim] + [m.hidden] * (m.num_layers - 1)  # each layer's D
+        want[f"{m.cell_type}_scan_padded"] = sum(D % 4 != 0 or m.hidden % 4 != 0
+                                                 for D in widths)
+        want[f"{m.cell_type}_backward_padded"] = m.num_layers * int(
+            training and m.hidden % 4 != 0)
     if training:
         lookups = 3 if m.loss in SAMPLED_LOSSES else 1
         head = int(m.loss == "sampled_softmax")
+        resident = m.hidden <= k_head.max_hidden(dtype)
         want.update(gather=lookups, gather_backward=lookups, softmax_head=head,
-                    softmax_head_ksplit=head * int(m.hidden > k_head.MMA_MAX_H))
+                    softmax_head_ksplit=head * int(k_head.MMA_MAX_H < m.hidden and resident),
+                    softmax_head_streamed=head * int(not resident))
     else:
         want["gather"] = 1
     return want
 
 
+_DRAWN: dict = {}  # the last weights drawn by `drawn_params` and what they were drawn for
+
+
+def drawn_params(model, seed: int) -> dict:
+    """`flax_to_state_dict(random_params(model, seed))` (what init_state
+    draws, bit for bit, on one process), kept for the next call on a model
+    of the same parameter shapes and seed: a wide table's draw takes
+    seconds on the host."""
+    key = (seed, tuple((k, tuple(p.shape)) for k, p in model.named_parameters()))
+    if _DRAWN.get("key") != key:
+        _DRAWN.clear()
+        _DRAWN.update(key=key, state=flax_to_state_dict(random_params(model, seed)))
+    return _DRAWN["state"]
+
+
 def phase_serve(dev, seed: int, path: str, requests: list, overrides=(),
-                vocab: int = VOCAB) -> dict:
+                vocab: int = VOCAB, reps: int = REPS) -> dict:
     """`overrides`: config changes for this run, named in its result (the
     f32 path: F32). `vocab`: the catalog's rows (ML-1M's by default)."""
     config = CONFIGS[path]
@@ -929,7 +1000,7 @@ def phase_serve(dev, seed: int, path: str, requests: list, overrides=(),
         mcfg = cfg.apply_overrides([f"model.use_pallas={str(use_pallas).lower()}"]).model
         m = build_model(mcfg, vocab, device=dev)
         models[use_pallas] = m
-    state = flax_to_state_dict(random_params(models[True], seed))
+    state = drawn_params(models[True], seed)
     for m in models.values():
         m.load_state_dict(state)
         m.eval()
@@ -987,15 +1058,15 @@ def phase_serve(dev, seed: int, path: str, requests: list, overrides=(),
     m = models[True]
     with torch.inference_mode():
         step = {
-            "encode_ms": time_ms(lambda: m.encode(inputs, mask))["median"],
+            "encode_ms": time_ms(lambda: m.encode(inputs, mask), reps=reps)["median"],
             # Behind a ~30 ms sleep, so that the events bracket the device's
             # work even where the host takes longer than ~1 ms to queue the
             # launches (SASRec's encode): the device alone.
             "encode_device_ms": time_ms(lambda: m.encode(inputs, mask),
-                                        sleep_cycles=50_000_000)["median"],
-            "scores_ms": time_ms(lambda: m.scores(inputs, mask))["median"],
+                                        sleep_cycles=50_000_000, reps=reps)["median"],
+            "scores_ms": time_ms(lambda: m.scores(inputs, mask), reps=reps)["median"],
             "topk_step_ms": time_ms(
-                lambda: infer.topk_step(m, inputs, mask, users, fetch_k))["median"],
+                lambda: infer.topk_step(m, inputs, mask, users, fetch_k), reps=reps)["median"],
         }
     breakdown = {
         "pack_host_ms": pack_ms, **step,
@@ -1156,7 +1227,8 @@ def _leaf_grads(scan, leaves, rest, reset, g):
 
 
 def _gru_backward_checks(rng, dev, x32, reset=None,
-                         dtypes=(torch.bfloat16, torch.float32), twice: bool = False) -> dict:
+                         dtypes=(torch.bfloat16, torch.float32), twice: bool = False,
+                         H: Optional[int] = None, reps: int = REPS) -> dict:
     """The GRU reverse recurrence against its plain version in `dtypes`, on
     the projections of a kernel forward (the bf16 kernel recomputes the
     gates from them), and the whole backward through autograd
@@ -1164,9 +1236,9 @@ def _gru_backward_checks(rng, dev, x32, reset=None,
     yardstick. With a [B, T] `reset` plane (and a random h0), the keep
     variant: also bit-exact against the no-keep kernel on an all-ones plane,
     and dh0 = 0 under a reset at t=0. `twice`: a second launch gives the
-    same bits."""
+    same bits. `H`: the hidden width (D by default)."""
     B, T, D = x32.shape
-    H = D
+    H = D if H is None else H
     w_x, w_h, b_x, b_h = (w.to(dev) for w in gru_weights(rng, D, H))
     g32 = torch.from_numpy(rng.normal(scale=1e-2, size=(B, T, H)).astype(np.float32)).to(dev)
     h32 = torch.zeros(B, H, device=dev) if reset is None else _state(rng, dev, B, H)
@@ -1219,7 +1291,7 @@ def _gru_backward_checks(rng, dev, x32, reset=None,
         # f32 with a keep plane) and g_ys in bf16; f32 weights: CUDA cores, f32.
         # In: the two projections, h_in, g_ys, W_h (and keep); out: d_xp,
         # dn_r, dh0.
-        launch = k_gru.backward_launch_config(B, T, H, wh_c.dtype, h_in_dtype=h_in.dtype)
+        launch = k_gru.padded_backward_launch_config(B, T, H, wh_c.dtype, h_in_dtype=h_in.dtype)
         mma = launch["design"] == "mma.sync"
         hs, gs, ws = h_in.element_size(), 2 if mma else 4, wh_c.element_size()
         b_bytes = (2 * B * T * 3 * H * 4 + B * T * H * (hs + gs) + 3 * H * H * ws
@@ -1239,7 +1311,7 @@ def _gru_backward_checks(rng, dev, x32, reset=None,
             "rel_err": errs, "tolerance": GRU_BWD_TOL,
             "autograd_rel_err": w_errs, "autograd_tolerance": w_tol,
             "max_abs_err": max(max_err(a, b) for a, b in zip(got_b, want_b)),
-            "kernel_ms": time_ms(lambda: k_gru.gru_backward(*planes, keep)),
+            "kernel_ms": time_ms(lambda: k_gru.gru_backward(*planes, keep), reps=reps),
             "plain_ms": time_ms(lambda: k_gru.plain_backward(*planes, keep), reps=5),
             "bound_ms": b_bound, "bound_by": b_by, "bytes": int(b_bytes),
             "flops": int(b_flops), "serial_steps": T,
@@ -1262,8 +1334,8 @@ def _gru_backward_checks(rng, dev, x32, reset=None,
         xg = x32.to(dtype).detach().clone().requires_grad_(True)
         h0f = torch.zeros(1, B, H, device=dev, dtype=dtype)
         gd = g32.to(dtype)
-        fb = time_ms(lambda: lib(xg, h0f)[0].backward(gd))
-        fw = time_ms(lambda: lib(xg, h0f)[0])
+        fb = time_ms(lambda: lib(xg, h0f)[0].backward(gd), reps=reps)
+        fw = time_ms(lambda: lib(xg, h0f)[0], reps=reps)
         rec["library_ms"] = {"median": fb["median"] - fw["median"], "fwd_bwd": fb, "fwd": fw,
                              "what": f"torch.nn.GRU {dname} (cuDNN), backward = fwd+bwd - fwd"}
     return out
@@ -1292,7 +1364,7 @@ def _head_bound(N: int, S: int, D: int, dtype) -> tuple:
 
 def _head_checks(rng, dev, table, beauty: bool = True, N: int = TRAIN_B * TRAIN_T,
                  S: int = NUM_NEG, dtypes=(torch.bfloat16, torch.float32),
-                 twice: bool = False) -> dict:
+                 twice: bool = False, reps: int = REPS) -> dict:
     D = table.shape[1]
     h32, pos32, neg32, targets, neg_ids, plq, nlq = _head_inputs(rng, dev, table, N, S)
     w = torch.ones(N, device=dev)
@@ -1338,14 +1410,14 @@ def _head_checks(rng, dev, table, beauty: bool = True, N: int = TRAIN_B * TRAIN_
             # The backward, the JAX package's recompute in plain tensor code
             # (no kernel here or there): its device time beside the forward's.
             "backward_recompute_ms": time_ms(
-                lambda: reference.sampled_softmax_nll_bwd(g, *args)),
+                lambda: reference.sampled_softmax_nll_bwd(g, *args), reps=reps),
             "loss_rel_err": loss_rel, "grad_rel_err": grad_rel, "loss_tolerance": tol,
-            "kernel_ms": time_ms(lambda: k_head.sampled_softmax_nll(*args)),
-            "plain_ms": time_ms(lambda: k_head.plain(*args)),
+            "kernel_ms": time_ms(lambda: k_head.sampled_softmax_nll(*args), reps=reps),
+            "plain_ms": time_ms(lambda: k_head.plain(*args), reps=reps),
             # No single PyTorch call computes this function; h @ neg.T alone
             # (in this dtype; f32 with TF32 off) is the yardstick of its GEMM.
             "library_ms": None,
-            "partial_yardstick_matmul_ms": time_ms(lambda: hb @ nb.T),
+            "partial_yardstick_matmul_ms": time_ms(lambda: hb @ nb.T, reps=reps),
             "bound_ms": h_bound, "bound_by": h_by, "bytes": int(h_bytes),
             "flops": int(2 * N * S * D + 2 * N * D),
         }
@@ -1373,9 +1445,9 @@ def _head_checks(rng, dev, table, beauty: bool = True, N: int = TRAIN_B * TRAIN_
         "shape": {"N": Nb, "S": Sb, "H": Db, "dtype": "float32"},
         "launch": launch, "design": launch["design"], "max_abs_err": err,
         "tolerance": HEAD_TOL,
-        "kernel_ms": time_ms(lambda: k_head.sampled_softmax_nll(*args)),
-        "plain_ms": time_ms(lambda: k_head.plain(*args)),
-        "partial_yardstick_matmul_ms": time_ms(lambda: hb @ nb.T),
+        "kernel_ms": time_ms(lambda: k_head.sampled_softmax_nll(*args), reps=reps),
+        "plain_ms": time_ms(lambda: k_head.plain(*args), reps=reps),
+        "partial_yardstick_matmul_ms": time_ms(lambda: hb @ nb.T, reps=reps),
         "bound_ms": b_bound, "bound_by": b_by, "bytes": int(b_bytes),
     }
     return out
@@ -1409,13 +1481,18 @@ def _sdpa_backend(q, k, v) -> str:
     return SDPBackend(torch._fused_sdp_choice(q, k, v, None, 0.0, True)).name
 
 
-def _attention_checks(rng, dev, Dh: int = 64, sliced: bool = False) -> dict:
+def _attention_checks(rng, dev, Dh: int = 64, sliced: bool = False, Bq: int = TRAIN_B,
+                      twice: bool = False, reps: int = REPS) -> dict:
     """Causal attention at SASRec's training shape (ml1m_sasrec: B=128,
     T=200, one head of Dh=64): q, k, v of unit scale, as a LayerNorm'd
     input through the qkv projection gives them. `sliced`: q, k and v are
     the SASRec block's slices of one [B, T, 3, 1, Dh] projection (rows 3 Dh
-    apart), read in place as the model's path reads them."""
-    Bq, T, N = TRAIN_B, TRAIN_T, 1
+    apart), read in place as the model's path reads them. `Bq`: the batch
+    (at least B); `twice`: a second launch gives the same bits. Where SDPA
+    takes its math backend in bf16 (past its fused kernels' head dims), it
+    rounds its scores to bf16 as the plain version does, and is held to the
+    plain version's limit."""
+    T, N = TRAIN_T, 1
     if sliced:
         proj = torch.from_numpy(rng.normal(size=(Bq, T, 3, N, Dh)).astype(np.float32)).to(dev)
     else:
@@ -1432,6 +1509,9 @@ def _attention_checks(rng, dev, Dh: int = 64, sliced: bool = False) -> dict:
             q, k, v = (t.to(dtype) for t in qkv32)
         got = k_attn.causal_attention(q, k, v)
         torch.cuda.synchronize()
+        if twice:
+            check(torch.equal(got, k_attn.causal_attention(q, k, v)),
+                  f"attention {name} Dh={Dh}: two launches differ")
         want = k_attn.plain(q, k, v)
         err = max_err(got, want)
         check(bool(torch.isfinite(got).all()), f"attention {name}: non-finite output")
@@ -1450,8 +1530,11 @@ def _attention_checks(rng, dev, Dh: int = 64, sliced: bool = False) -> dict:
             return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
         lib_err = max_err(got, sdpa().transpose(1, 2))
-        check(lib_err <= ATTN_LIB_TOL[dtype],
-              f"attention {name}: kernel vs SDPA max abs err {lib_err} > {ATTN_LIB_TOL[dtype]}")
+        backend = _sdpa_backend(qt, kt, vt)
+        lib_tol = (ATTN_BF16_TOL if dtype == torch.bfloat16 and backend == "MATH"
+                   else ATTN_LIB_TOL[dtype])
+        check(lib_err <= lib_tol,
+              f"attention {name}: kernel vs SDPA ({backend}) max abs err {lib_err} > {lib_tol}")
         errs["vs_sdpa"] = lib_err
         es = q.element_size()
         a_bytes = 4 * Bq * T * N * Dh * es  # q, k, v read, o written
@@ -1468,17 +1551,19 @@ def _attention_checks(rng, dev, Dh: int = 64, sliced: bool = False) -> dict:
             "shape": {"B": Bq, "T": T, "N": N, "Dh": Dh, "dtype": name,
                       "qkv_slices": sliced},
             "launch": launch, "design": launch["design"],
+            **({"twice_bit_for_bit": True} if twice else {}),
             "max_abs_err": err, "errors": errs, "tolerance": tol,
-            "kernel_ms": time_ms(lambda: k_attn.causal_attention(q, k, v)),
-            "plain_ms": time_ms(lambda: k_attn.plain(q, k, v)),
-            "library_ms": time_ms(sdpa), "library_backend": _sdpa_backend(qt, kt, vt),
+            "kernel_ms": time_ms(lambda: k_attn.causal_attention(q, k, v), reps=reps),
+            "plain_ms": time_ms(lambda: k_attn.plain(q, k, v), reps=reps),
+            "library_ms": time_ms(sdpa, reps=reps), "library_backend": backend,
+            "library_tolerance": lib_tol,
             "bound_ms": a_bound, "bound_by": a_by, "bytes": int(a_bytes),
             "flops": int(a_flops),
             f"B{B}": {
                 "same_bits_as_the_batch": True,
-                "kernel_ms": time_ms(lambda: k_attn.causal_attention(q64, k64, v64)),
+                "kernel_ms": time_ms(lambda: k_attn.causal_attention(q64, k64, v64), reps=reps),
                 "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt64, kt64, vt64, is_causal=True)),
+                    qt64, kt64, vt64, is_causal=True), reps=reps),
                 "bound_ms": b64_bound[0], "bound_by": b64_bound[1]},
         }
     return out
@@ -1489,8 +1574,7 @@ def lstm_weights(rng: np.random.Generator, D: int, H: int):
     with the forget block +1: f32 on the CPU."""
     lim = np.sqrt(6.0 / (D + 4 * H))
     w_x = torch.from_numpy(rng.uniform(-lim, lim, size=(D, 4 * H)).astype(np.float32))
-    q, r = np.linalg.qr(rng.normal(size=(4 * H, H)))
-    w_h = torch.from_numpy((q * np.sign(np.diag(r))).T.astype(np.float32))
+    w_h = _orthogonal_rows(rng, 4, H)
     b = rng.normal(scale=0.1, size=4 * H)
     b[H:2 * H] += 1.0
     return w_x, w_h, torch.from_numpy(b.astype(np.float32))
@@ -1509,7 +1593,19 @@ def _nn_lstm(w_x, w_h, b, dtype, dev):
     return lib
 
 
-def _lstm_checks(rng, dev, x32, reset=None, twice: bool = False) -> dict:
+def _lstm_cells(x, h0, c0, w_x, w_h, b, keep):
+    """The forward kernel's ys and f32 cell plane c_1..c_T from one launch
+    that writes the plane, at any H and D: through the padded route's
+    operands where the wrapper pads them, sliced back."""
+    H = h0.shape[-1]
+    x_, (h0_, c0_), w_x_, w_h_, (b_,) = k_gru.pad_scan_operands(x, [h0, c0], w_x, w_h, [b])
+    ys, _, cs = k_lstm._forward_kernel(x_, h0_, c0_, w_x_, w_h_, b_, True, keep)
+    return ys[..., :H], cs[..., :H]
+
+
+def _lstm_checks(rng, dev, x32, reset=None, twice: bool = False,
+                 H: Optional[int] = None, dtypes=(torch.bfloat16, torch.float32),
+                 reps: int = REPS) -> dict:
     """The LSTM forward and its reverse recurrence against their plain
     versions, bf16 and f32, fed the embeddings of Zipf ids, and the whole
     backward through autograd (`twice`: a second launch of each gives the
@@ -1519,9 +1615,10 @@ def _lstm_checks(rng, dev, x32, reset=None, twice: bool = False) -> dict:
     its input projection. With a [B, T] `reset` plane (and a
     random h0, c0), the reset variants: also bit-exact against the no-reset
     kernels on an all-zero plane (all-ones keep), blind to h0 and c0 with a
-    reset at t=0, and dh0 = dc0 = 0 then."""
+    reset at t=0, and dh0 = dc0 = 0 then. `H`: the hidden width (D by
+    default). `reps`: time_ms's runs."""
     Bl, T, D = x32.shape
-    H = D
+    H = D if H is None else H
     w_x, w_h, b = (w.to(dev) for w in lstm_weights(rng, D, H))
     g32 = torch.from_numpy(rng.normal(scale=1e-2, size=(Bl, T, H)).astype(np.float32)).to(dev)
     dcl = torch.from_numpy(rng.normal(scale=1e-2, size=(Bl, H)).astype(np.float32)).to(dev)
@@ -1530,7 +1627,7 @@ def _lstm_checks(rng, dev, x32, reset=None, twice: bool = False) -> dict:
     else:
         h32, c32 = _state(rng, dev, Bl, H), _state(rng, dev, Bl, H)
     fwd, bwd, xproj = {}, {}, {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         name = f"lstm {_dname(dtype)} {Bl}x{T}x{D}" + ("" if reset is None else " reset")
         x, h0, c0 = x32.to(dtype), h32.to(dtype), c32.to(dtype)
         args = (x, h0, c0, w_x, w_h, b)
@@ -1554,7 +1651,7 @@ def _lstm_checks(rng, dev, x32, reset=None, twice: bool = False) -> dict:
                     + 4 * H * 4 + rows * H * 4)
 
         f_bytes = f_bytes_of(Bl)
-        launch = k_lstm.launch_config(Bl, T, D, H, dtype)
+        launch = k_lstm.padded_launch_config(Bl, T, D, H, dtype)
         rec = {"shape": {"B": Bl, "T": T, "D": D, "H": H, "dtype": _dname(dtype)},
                "launch": launch, "design": launch["design"],
                "max_abs_err": max(err, c_err), "tolerance": tol,
@@ -1563,13 +1660,14 @@ def _lstm_checks(rng, dev, x32, reset=None, twice: bool = False) -> dict:
             lib = _nn_lstm(w_x, w_h, b, dtype, dev)
             with torch.no_grad():
                 ys_lib, _ = lib(x, (h0[None], c0[None]))
-                lib_ms = time_ms(lambda: lib(x, (h0[None], c0[None])))
+                lib_ms = time_ms(lambda: lib(x, (h0[None], c0[None])), reps=reps)
             lib_err = max_err(ys, ys_lib)
             lib_tol = LSTM_CUDNN_F32_TOL if dtype == torch.float32 else LSTM_BF16_TOL
             check(lib_err <= lib_tol,
                   f"{name}: kernel vs torch.nn.LSTM max abs err {lib_err} > {lib_tol}")
             rec.update(max_abs_err_vs_nn_lstm=lib_err, tolerance_vs_nn_lstm=lib_tol,
                        library_ms=lib_ms)
+        if reset is None:
             # The aim's yardstick, nn.LSTM in f32 on the same values, and
             # serving's batch (B=64): the first half of the same inputs.
             f32 = dtype == torch.float32
@@ -1579,17 +1677,19 @@ def _lstm_checks(rng, dev, x32, reset=None, twice: bool = False) -> dict:
             check(torch.equal(k_lstm.lstm_scan(x64, h64, c64, w_x, w_h, b)[0], ys[:B]),
                   f"{name}: the first {B} rows alone differ from the batch's")
             with torch.no_grad():
-                rec["nn_lstm_f32_ms"] = lib_ms if f32 else time_ms(lambda: lib32(xf, (hf, cf)))
-                b64_lib = time_ms(lambda: lib32(xf[:B], (hf[:, :B], cf[:, :B])))
+                rec["nn_lstm_f32_ms"] = lib_ms if f32 else time_ms(lambda: lib32(xf, (hf, cf)),
+                                                                   reps=reps)
+                b64_lib = time_ms(lambda: lib32(xf[:B], (hf[:, :B], cf[:, :B])), reps=reps)
             b64_bound = bound(f_bytes_of(B), 2 * B * T * (D + H) * 4 * H, dtype)
             rec[f"B{B}"] = {
                 "same_bits_as_the_batch": True,
-                "kernel_ms": time_ms(lambda: k_lstm.lstm_scan(x64, h64, c64, w_x, w_h, b)),
+                "kernel_ms": time_ms(lambda: k_lstm.lstm_scan(x64, h64, c64, w_x, w_h, b),
+                                     reps=reps),
                 "nn_lstm_f32_ms": b64_lib,
                 "bound_ms": b64_bound[0], "bound_by": b64_bound[1]}
             xproj[_dname(dtype)] = _xproj_check(k_lstm, k_lstm.lstm_input_projection, x32,
-                                                w_x, b, dtype)
-        else:
+                                                w_x, b, dtype, reps=reps)
+        elif reset is not None:
             f_bytes += Bl * T * 4  # the keep plane
             zero = k_lstm.lstm_scan(*args, reset_mask=torch.zeros_like(reset))
             base = k_lstm.lstm_scan(*args)
@@ -1607,7 +1707,7 @@ def _lstm_checks(rng, dev, x32, reset=None, twice: bool = False) -> dict:
         f_flops = 2 * Bl * T * (D + H) * 4 * H
         f_bound, f_by = bound(f_bytes, f_flops, dtype)
         rec.update({
-            "kernel_ms": time_ms(lambda: k_lstm.lstm_scan(*args, reset_mask=reset)),
+            "kernel_ms": time_ms(lambda: k_lstm.lstm_scan(*args, reset_mask=reset), reps=reps),
             "plain_ms": time_ms(lambda: k_lstm.plain(*args, reset_mask=reset), reps=5),
             "bound_ms": f_bound, "bound_by": f_by, "bytes": int(f_bytes),
             "flops": int(f_flops), "serial_steps": T,
@@ -1618,8 +1718,7 @@ def _lstm_checks(rng, dev, x32, reset=None, twice: bool = False) -> dict:
         name = f"lstm backward {_dname(dtype)} {Bl}x{T}x{H}" + ("" if reset is None else " keep")
         wx_c, wh_c = w_x.to(dtype), w_h.to(dtype)
         with torch.no_grad():
-            ys_k, _, cs = k_lstm._forward_kernel(x, h0, c0, wx_c, wh_c, b, True,
-                                                 None if reset is None else 1.0 - reset)
+            ys_k, cs = _lstm_cells(x, h0, c0, wx_c, wh_c, b, None if reset is None else 1.0 - reset)
             x_proj = torch.matmul(x.float(), wx_c.float()) + b
             _, keep, *planes = reference.lstm_bwd_hoist(x_proj, ys_k, cs, h0, c0, wh_c, reset)
         check(torch.equal(ys_k, ys), f"{name}: the cell-plane run changed ys")
@@ -1667,7 +1766,7 @@ def _lstm_checks(rng, dev, x32, reset=None, twice: bool = False) -> dict:
         b_bytes = (6 * Bl * T * H * 4 + Bl * T * H * es + 4 * H * H * es + Bl * H * 4
                    + Bl * T * 4 * H * 4 + 2 * Bl * H * 4 + (0 if keep is None else Bl * T * 4))
         b_flops = 2 * Bl * T * 4 * H * H
-        b_launch = k_lstm.backward_launch_config(Bl, T, H, dtype)
+        b_launch = k_lstm.padded_backward_launch_config(Bl, T, H, dtype)
         if b_launch["design"] == "mma.sync":
             # dz goes to the tensor cores as bf16 terms: their products.
             b_bound, b_by = bound(b_bytes, b_launch["dz_terms"] * b_flops, torch.bfloat16)
@@ -1680,7 +1779,7 @@ def _lstm_checks(rng, dev, x32, reset=None, twice: bool = False) -> dict:
             "autograd_rel_err": w_errs, "autograd_tolerance": w_tol,
             **({"twice_bit_for_bit": True} if twice else {}),
             "max_abs_err": max(max_err(u, v) for u, v in zip((dz, dh0, dc0), want)),
-            "kernel_ms": time_ms(lambda: k_lstm.lstm_backward(*bargs)),
+            "kernel_ms": time_ms(lambda: k_lstm.lstm_backward(*bargs), reps=reps),
             "plain_ms": time_ms(lambda: k_lstm.plain_backward(*bargs), reps=5),
             "bound_ms": b_bound, "bound_by": b_by, "bytes": int(b_bytes),
             "flops": int(b_flops), "serial_steps": T,
@@ -1691,8 +1790,8 @@ def _lstm_checks(rng, dev, x32, reset=None, twice: bool = False) -> dict:
                                       library_ms=None, library=NO_RESET_LIBRARY)
     if reset is not None:
         return {"lstm_scan": fwd, "lstm_backward": bwd}
-    out = {"lstm_scan": fwd, "lstm_backward": bwd, "lstm_xproj": xproj["bfloat16"],
-           "lstm_xproj_f32": xproj["float32"]}
+    out = {"lstm_scan": fwd, "lstm_backward": bwd, "lstm_xproj": xproj.get("bfloat16"),
+           "lstm_xproj_f32": xproj.get("float32")}
     # Library yardstick: cuDNN's LSTM backward in each record's dtype (TF32
     # off), timed as (forward + backward) - forward. The port never calls it.
     for dname, rec in bwd.items():
@@ -1702,8 +1801,8 @@ def _lstm_checks(rng, dev, x32, reset=None, twice: bool = False) -> dict:
         state0 = (torch.zeros(1, Bl, H, device=dev, dtype=dtype),
                   torch.zeros(1, Bl, H, device=dev, dtype=dtype))
         gd = g32.to(dtype)
-        fb = time_ms(lambda: lib(xg, state0)[0].backward(gd))
-        fw = time_ms(lambda: lib(xg, state0)[0])
+        fb = time_ms(lambda: lib(xg, state0)[0].backward(gd), reps=reps)
+        fw = time_ms(lambda: lib(xg, state0)[0], reps=reps)
         rec["library_ms"] = {"median": fb["median"] - fw["median"], "fwd_bwd": fb, "fwd": fw,
                              "what": f"torch.nn.LSTM {dname} (cuDNN), backward = fwd+bwd - fwd"}
     return out
@@ -1792,6 +1891,19 @@ COUNTERS = {
     "softmax_head_ksplit": (k_head.sampled_softmax_nll, "ksplit_launches"),
     "lstm_scan_grid": (k_lstm.lstm_scan, "grid_launches"),
     "lstm_backward_grid": (k_lstm.lstm_backward, "grid_launches"),
+    # Every width (phase w): the attention's Dh-sliced layout, the scans'
+    # stepped layout past the grid's limit and padded route at H or D % 4,
+    # the head's streamed layout past its resident rows' limit.
+    "causal_attention_sliced": (k_attn.causal_attention, "sliced_launches"),
+    "gru_scan_stepped": (k_gru.gru_scan, "stepped_launches"),
+    "gru_backward_stepped": (k_gru.gru_backward, "stepped_launches"),
+    "lstm_scan_stepped": (k_lstm.lstm_scan, "stepped_launches"),
+    "lstm_backward_stepped": (k_lstm.lstm_backward, "stepped_launches"),
+    "gru_scan_padded": (k_gru.gru_scan, "padded_launches"),
+    "gru_backward_padded": (k_gru.gru_backward, "padded_launches"),
+    "lstm_scan_padded": (k_lstm.lstm_scan, "padded_launches"),
+    "lstm_backward_padded": (k_lstm.lstm_backward, "padded_launches"),
+    "softmax_head_streamed": (k_head.sampled_softmax_nll, "streamed_launches"),
 }
 
 
@@ -1957,7 +2069,7 @@ def _lookup_then_cast(self, table, ids, sharded=False):
 
 def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int,
                 overrides=(), reproducible: bool = False, cast_launches: bool = False,
-                vocab: int = VOCAB) -> dict:
+                vocab: int = VOCAB, shared_draw: bool = False) -> dict:
     """`overrides`: config changes for this run, each named in its result.
     `reproducible`: also run one K-step group twice from one state on one
     batch group and require equal bits (_reproducibility_check).
@@ -1967,7 +2079,9 @@ def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int
     A session-parallel configuration trains on windows of synthetic
     sessions with its path's shapes (SESSION_DATA), carrying the recurrent
     state from window to window; any other on Zipf histories over `vocab`
-    rows (ML-1M's catalog by default)."""
+    rows (ML-1M's catalog by default). `shared_draw`: the initial state's
+    parameters from `drawn_params` (the same bits as init_state's, kept
+    between runs of one model)."""
     config = CONFIGS[path]
     cfg = RunConfig.load(config).apply_overrides(list(overrides))
     check(cfg.model.use_pallas, f"{config} must enable the kernels")
@@ -1998,10 +2112,17 @@ def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int
                   f"{(B, width)}")
 
     # Step 1 through the kernels and through the plain versions: same state,
-    # batch and generators. (Also warms the kernel path up.)
+    # batch and generators. (Also warms the kernel path up.) The state is
+    # drawn once (init_state(seed), the same for both trainers) and cloned
+    # for every run from it: a wide table's draw takes seconds on the host.
+    if shared_draw:
+        state0 = trainers[True]._state(
+            {k: v.to(dev) for k, v in drawn_params(trainers[True].model, seed).items()}, seed, dev)
+    else:
+        state0 = trainers[True].init_state(seed)
     step1, carry1 = {}, {}
     for use_pallas, tr in trainers.items():
-        s1, m = tr.train_step(tr.init_state(seed), batches[0][0])
+        s1, m = tr.train_step(clone_state(state0), batches[0][0])
         step1[use_pallas] = {k: float(v) for k, v in m.items()}
         carry1[use_pallas] = s1.carry
     a, b = step1[True], step1[False]
@@ -2027,7 +2148,7 @@ def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int
     # The counted run: `groups` groups of K steps through the kernels.
     tr = trainers[True]
     zero_counters()
-    state = tr.init_state(seed)
+    state = clone_state(state0)
     times, group_metrics, peaks = [], [], []
     for gi in range(groups):
         torch.cuda.reset_peak_memory_stats()
@@ -2039,12 +2160,13 @@ def phase_train(rng: np.random.Generator, dev, seed: int, path: str, groups: int
         peaks.append(torch.cuda.max_memory_allocated())
     launches = read_counters()
     steps = groups * K
-    repro = _reproducibility_check(tr, tr.init_state(seed), batches[0]) if reproducible else None
+    repro = _reproducibility_check(tr, clone_state(state0), batches[0]) if reproducible else None
 
     # One group through the plain versions: no kernel may launch.
     before = read_counters()
     t0 = time.perf_counter()
-    _, pm = trainers[False].train_step_multi(trainers[False].init_state(seed), batches[0])
+    _, pm = trainers[False].train_step_multi(clone_state(state0), batches[0])
+    del state0
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     plain_launches = {k: v - before[k] for k, v in read_counters().items()}
@@ -4914,6 +5036,314 @@ def _wide_lstm_entries(wide: dict) -> list:
     return out
 
 
+# Phase w: every width the JAX package takes. (w1) One SASRec head of
+# d = 512: benchmarks/shapes.py:65-68's wide SASRec at embed_dim=512 (2
+# blocks, num_heads 1, B=256, T=200); (w2) d = 50 in the RNN towers:
+# configs/ml1m_gru4rec.json and configs/ml1m_lstm.json at model.embed_dim=50,
+# the LSTM also session-parallel; (w3) past every grid limit:
+# benchmarks/shapes.py:70-72's wide demo at embed_dim=2,304, the GRU cell and
+# the LSTM cell.
+W_SASREC_D = 512
+W_WIDE_D = 2304
+W_PAD_WIDTHS = (50, 102)  # the padded route's H at D = 50
+W_STEP_EDGE = 2302  # past every grid limit and not a multiple of 4
+W_REPS = 7  # time_ms's reps in phase w (REPS elsewhere): cuDNN at 2,304 takes ~0.4 s a call
+W_REQUESTS = 128  # w1's and w3's served requests: two batches of 64
+W3_K = 2  # steps a group on the w3 paths (two groups): the step takes ~10^2 ms
+# w3's learning rate: Adam's default 1e-3 scaled by 512 / 2,304. Adam moves
+# every coordinate by about lr a step, so a logit (a 2,304-term dot of item
+# rows of std 2,304^-1/2 and h) moves ~4.5x as far as at the wide demo's
+# 512. At 1e-3 the GRU cell's loss jumps at step 4 through the plain versions
+# as through the kernels, in bf16 and f32 (lr_curves.py, which runs both).
+W3_LR = 1e-3 * 512 / W_WIDE_D
+# Serve: the wide SASRec's 5e-2 at d = 64 times sqrt(512 / 64), rounded up;
+# the wide demo's 1e-2 at D = 256 times sqrt(2,304 / 256) (2,304-term dots).
+SCORE_TOL.update({"sasrec_d512": 1.5e-1, "gru4rec_w2304": 3e-2, "lstm_w2304": 3e-2})
+W_LSTM_SESSION = ["data.session_parallel=true", D50_SET]
+
+
+def w_sasrec_config() -> RunConfig:
+    """w1: benchmarks/shapes.py:65-68's SASRec through bench_config at
+    embed_dim=512: 2 blocks of one head of d = 512, B=256, T=200, 100,000
+    items, 512 sampled negatives, dropout 0, bf16; K=4 steps a call."""
+    cfg = bench_config("sasrec", batch_size=WIDE_B, max_len=WIDE_T, embed_dim=W_SASREC_D,
+                       num_layers=2, num_items=WIDE_ITEMS, loss="sampled_softmax",
+                       num_negatives=WIDE_NEG)
+    cfg.train.steps_per_call = 4
+    return cfg
+
+
+def w_wide_config(cell: str) -> RunConfig:
+    """w3: the wide demo (wide_config) at embed_dim=2,304 with `cell`;
+    W3_K steps a call at W3_LR."""
+    cfg = wide_config()
+    cfg.model.embed_dim = W_WIDE_D
+    cfg.model.cell_type = cell
+    cfg.train.steps_per_call = W3_K
+    cfg.train.learning_rate = W3_LR
+    return cfg
+
+
+def _records(obj):
+    """Every kernel check's record (a dict with a "launch") under `obj`."""
+    if isinstance(obj, dict):
+        if "launch" in obj:
+            yield obj
+        else:
+            for v in obj.values():
+                yield from _records(v)
+
+
+def _all_widths_kernel_checks(rng, dev) -> dict:
+    """Each new layout against its plain version, both dtypes, every
+    variant, each output launched twice with the same bits (phase c, e, g
+    and j's checks, their libraries beside them): the Dh-sliced attention at
+    Dh = 257 and 1,000 (B = 32) and at w1's step (B = 256, Dh = 512); the
+    padded scans at D = 50 and H = 50 (w2's step: B = 128, T = 200) and 102
+    (B = 64, T = 50), forward and reverse, with and without a reset plane;
+    the stepped scans at each grid limit + 4 and at 2,302 (B = 16, T = 20,
+    D = 64), every variant, and at w3's step (B = 256, T = 200, D = H =
+    2,304) without a reset; the streamed head at each limit + 1 (N = 4,096)
+    and at w3's (N = 51,200, S = 512, H = 2,304)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dtypes = (torch.bfloat16, torch.float32)
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    out = {"seconds": seconds,
+           "attention": {f"Dh{Dh}": _attention_checks(rng, dev, Dh=Dh, sliced=True, Bq=Bq,
+                                                       twice=True, reps=W_REPS)
+                         for Dh, Bq in ((257, 32), (1000, 32), (W_SASREC_D, WIDE_B))}}
+    for r in _records(out["attention"]):
+        check(r["launch"]["layout"] == "dh-sliced", f"phase w: not sliced: {r['launch']}")
+    lap("attention")
+
+    padded = {}
+    for H, (Bp, Tp) in zip(W_PAD_WIDTHS, ((TRAIN_B, TRAIN_T), (B, 50))):
+        x32 = _zipf_embeddings(rng, dev, Bp, Tp, D50)
+        weights = [w.to(dev) for w in gru_weights(rng, D50, H)]
+        reset = _reset_plane(rng, Bp, Tp, dev)
+        h32 = _state(rng, dev, Bp, H)
+        padded[f"H{H}"] = {
+            "gru_scan": {_dname(dt): _gru_forward_check(dev, x32, weights, torch.zeros_like(h32),
+                                                        dt, twice=True, reps=W_REPS)
+                         for dt in dtypes},
+            "gru_scan_reset": {_dname(dt): _gru_forward_check(dev, x32, weights, h32, dt, reset,
+                                                              twice=True, reps=W_REPS)
+                               for dt in dtypes},
+            "gru_backward": _gru_backward_checks(rng, dev, x32, twice=True, H=H, reps=W_REPS),
+            "gru_backward_reset": _gru_backward_checks(rng, dev, x32, reset, twice=True, H=H,
+                                                       reps=W_REPS),
+            "lstm": _lstm_checks(rng, dev, x32, twice=True, H=H, reps=W_REPS),
+            "lstm_reset": _lstm_checks(rng, dev, x32, reset, twice=True, H=H, reps=W_REPS)}
+    out["padded"] = padded
+    for r in _records(padded):
+        check(r["launch"].get("route") == "padded", f"phase w: not padded: {r['launch']}")
+    lap("padded")
+
+    # The stepped layouts' edges: each dtype's grid limit + 4, and 2,302.
+    stepped = {}
+    x32 = _zipf_embeddings(rng, dev, 16, 20, 64)
+    reset = _reset_plane(rng, 16, 20, dev)
+    for dt in dtypes:
+        for H in (k_gru.grid_max_hidden(dt) + 4, W_STEP_EDGE):
+            weights = [w.to(dev) for w in gru_weights(rng, 64, H)]
+            h32 = _state(rng, dev, 16, H)
+            stepped[f"gru_{_dname(dt)}_H{H}"] = {
+                "gru_scan": _gru_forward_check(dev, x32, weights, torch.zeros_like(h32), dt,
+                                               twice=True, reps=W_REPS),
+                "gru_scan_reset": _gru_forward_check(dev, x32, weights, h32, dt, reset,
+                                                     twice=True, reps=W_REPS),
+                "gru_backward": _gru_backward_checks(rng, dev, x32, dtypes=(dt,), twice=True,
+                                                     H=H, reps=W_REPS),
+                "gru_backward_reset": _gru_backward_checks(rng, dev, x32, reset, dtypes=(dt,),
+                                                           twice=True, H=H, reps=W_REPS)}
+    for H, dts in ((k_lstm.grid_max_hidden(torch.float32) + 4, (torch.float32,)),
+                   (k_lstm.grid_max_hidden(torch.bfloat16) + 4, (torch.bfloat16,)),
+                   (W_STEP_EDGE, dtypes)):
+        stepped[f"lstm_H{H}"] = {
+            "lstm": _lstm_checks(rng, dev, x32, twice=True, H=H, dtypes=dts, reps=W_REPS),
+            "lstm_reset": _lstm_checks(rng, dev, x32, reset, twice=True, H=H, dtypes=dts,
+                                       reps=W_REPS)}
+    lap("stepped_edges")
+    # At w3's step, without a reset (nn.GRU / nn.LSTM and cuDNN's backward beside them).
+    x32 = _zipf_embeddings(rng, dev, WIDE_B, WIDE_T, W_WIDE_D)
+    weights = [w.to(dev) for w in gru_weights(rng, W_WIDE_D, W_WIDE_D)]
+    h0 = torch.zeros(WIDE_B, W_WIDE_D, device=dev)
+    at_w3 = {"gru_scan": {_dname(dt): _gru_forward_check(dev, x32, weights, h0, dt, twice=True,
+                                                         reps=W_REPS)
+                          for dt in dtypes},
+             "gru_backward": _gru_backward_checks(rng, dev, x32, twice=True, reps=W_REPS)}
+    del weights
+    at_w3["lstm"] = _lstm_checks(rng, dev, x32, twice=True, reps=W_REPS)
+    del x32
+    stepped["w3"] = at_w3
+    out["stepped"] = stepped
+    lap("stepped_at_w3")
+    for name, recs in stepped.items():
+        for key, rec in recs.items():
+            mod = k_lstm if key.startswith("lstm") else k_gru
+            for r in _records(rec):
+                dt, H = getattr(torch, r["shape"]["dtype"]), r["shape"]["H"]
+                want = "grid" if k_gru.padded_width(H) <= mod.grid_max_hidden(dt) else "stepped"
+                check(r["launch"]["layout"] == want,
+                      f"phase w {name} {key}: not the {want} layout: {r['launch']}")
+
+    heads = {}
+    for dt in dtypes:
+        H = k_head.max_hidden(dt) + 1
+        table = torch.from_numpy(rng.normal(scale=H ** -0.5, size=(VOCAB, H))
+                                 .astype(np.float32)).to(dev)
+        heads[f"{_dname(dt)}_H{H}"] = _head_checks(rng, dev, table, beauty=False, N=4096,
+                                                   S=WIDE_NEG, dtypes=(dt,), twice=True,
+                                                   reps=W_REPS)
+    table = torch.from_numpy(rng.normal(scale=W_WIDE_D ** -0.5, size=(VOCAB, W_WIDE_D))
+                             .astype(np.float32)).to(dev)
+    heads["w3"] = _head_checks(rng, dev, table, beauty=False, N=WIDE_B * WIDE_T, S=WIDE_NEG,
+                               twice=True, reps=W_REPS)
+    del table
+    out["streamed_head"] = heads
+    for r in _records(heads):
+        check(r["launch"]["layout"] == "streamed", f"phase w: not streamed: {r['launch']}")
+    lap("streamed_head")
+    return out
+
+
+def phase_all_widths(rng: np.random.Generator, dev, seed: int, card: str) -> dict:
+    """w. Every width through the normal entry points: the new layouts at
+    their edges and at the paths' steps (`_all_widths_kernel_checks`); then
+    w1, w2 and w3 (see W_SASREC_D), each served (phase d: Zipf histories,
+    W_REQUESTS of them on w1 and w3, 320 on w2, batch 64, k = 10, within
+    SCORE_TOL of the plain path in bf16, F32_SCORE_TOL in f32) and trained
+    (phase f's and k's checks: step 1 within the plain path's limits, the
+    loss falls, every kernel's launches a step as expected, the new
+    layouts' counters included) in bf16 and f32: w1 two K = 4 groups, w2
+    two K = 8 groups (the LSTM session-parallel with the carry), w3 two
+    groups of W3_K steps. Every time_ms in the phase takes W_REPS reps."""
+    phase_t0 = time.perf_counter()
+    kernels = _all_widths_kernel_checks(rng, dev)
+    kernels_s = time.perf_counter() - phase_t0
+    emit({"phase": "all_widths_kernels", "card": card, "seconds": kernels_s, **kernels})
+    vocab = WIDE_ITEMS + 1
+    serve, train = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for path, cfg in (("sasrec_d512", w_sasrec_config()),
+                          ("gru4rec_w2304", w_wide_config("gru")),
+                          ("lstm_w2304", w_wide_config("lstm"))):
+            CONFIGS[path] = str(Path(tmp) / f"{path}.json")
+            Path(CONFIGS[path]).write_text(cfg.to_json())
+        requests = make_requests(rng, WIDE_T, n_requests=W_REQUESTS, vocab=vocab)
+        for path in ("sasrec_d512", "gru4rec_w2304", "lstm_w2304"):
+            dtypes = (("", []), ("_f32", [F32]))
+            for suffix, overrides in dtypes:  # one weight draw for both
+                t0 = time.perf_counter()
+                serve[path + suffix] = phase_serve(dev, seed, path, requests, overrides=overrides,
+                                                   vocab=vocab, reps=W_REPS)
+                serve[path + suffix]["seconds"] = time.perf_counter() - t0
+            for suffix, overrides in dtypes:
+                t0 = time.perf_counter()
+                train[path + suffix] = phase_train(rng, dev, seed, path, groups=2,
+                                                   overrides=overrides, vocab=vocab,
+                                                   shared_draw=True)
+                train[path + suffix]["seconds"] = time.perf_counter() - t0
+    _DRAWN.clear()
+    sources = {"sasrec_d512": "benchmarks/throughput.py::bench_config(sasrec, B=256, T=200, "
+                              "D=512, 2 blocks, 1 head, 100,000 items, sampled_softmax, "
+                              "512 negatives)",
+               "gru4rec_w2304": "benchmarks/throughput.py::bench_config(gru4rec, B=256, T=200, "
+                                "D=2304, 100,000 items, sampled_softmax, 512 negatives)",
+               "lstm_w2304": "benchmarks/throughput.py::bench_config(gru4rec, B=256, T=200, "
+                             "D=2304, 100,000 items, sampled_softmax, 512 negatives), "
+                             "model.cell_type=lstm"}
+    for runs in (serve, train):
+        for key, run in runs.items():
+            run["config"] = sources[key.removesuffix("_f32")]
+    requests = make_requests(rng, RunConfig.load(CONFIGS["gru4rec"]).data.max_len)
+    runs = [(serve, f"{path}_d50{suffix}", phase_serve, (dev, seed, path, requests),
+             sets + extra) for path, sets in (("gru4rec", [D50_SET]), ("lstm", [D50_SET]))
+            for suffix, extra in (("", []), ("_f32", [F32]))]
+    runs += [(train, f"{name}{suffix}", phase_train, (rng, dev, seed, path), sets + extra)
+             for name, path, sets in (("gru4rec_d50", "gru4rec", [D50_SET]),
+                                      ("lstm_session_d50", "lstm", W_LSTM_SESSION))
+             for suffix, extra in (("", []), ("_f32", [F32]))]
+    for into, name, run, args, overrides in runs:
+        t0 = time.perf_counter()
+        kw = {"groups": 2} if run is phase_train else {"reps": W_REPS}
+        into[name] = run(*args, overrides=overrides, **kw)
+        into[name]["seconds"] = time.perf_counter() - t0
+    seconds = time.perf_counter() - phase_t0
+    emit({"phase": "all_widths", "card": card, "seconds": seconds, "kernels_seconds": kernels_s,
+          "serve": {k: {"requests_per_s": v["requests_per_s"],
+                        "batch_ms_median": v["batch_ms_median"],
+                        "encode_device_ms": v["batch_breakdown"]["encode_device_ms"],
+                        "max_score_diff_vs_plain": v["max_score_diff_vs_plain"],
+                        "score_tolerance": v["score_tolerance"], "launches": v["launches"],
+                        "seconds": v.get("seconds")}
+                    for k, v in serve.items()},
+          "train": {k: {"examples_per_s": v["examples_per_s"],
+                        "step_ms_median": v["step_ms_median"],
+                        "device_step_ms": v["device_step_ms"],
+                        "device_idle_share": v["device_idle_share"], "step1": v["step1"],
+                        "group_losses": [g["loss"] for g in v["group_metrics"]],
+                        "peak_memory_bytes": v["peak_memory_bytes"],
+                        "launches_per_step": v["launches_per_step"],
+                        "seconds": v.get("seconds")}
+                    for k, v in train.items()}})
+    return {"kernels": kernels, "serve": serve, "train": train, "seconds": seconds}
+
+
+def _all_widths_entries(w: dict) -> list:
+    """The kernels line's entries of phase w's layouts, bf16 and f32: the
+    Dh-sliced attention (at w1's step, its launches on w1's training path),
+    the padded route's scans (at w2's step, on w2's GRU4Rec path), the
+    stepped scans (at w3's step, on w3's paths) and the streamed head (at
+    w3's step, on w3's GRU4Rec path); each with its launches on every path
+    of phase w."""
+    k, train, serve = w["kernels"], w["train"], w["serve"]
+    pad, w3 = k["padded"][f"H{D50}"], k["stepped"]["w3"]
+    out = []
+    for kname, counter, source, replaces, recs, path in (
+            ("causal_attention_sliced", "causal_attention_sliced", "attention.cu",
+             "attention.py:98", k["attention"][f"Dh{W_SASREC_D}"], "sasrec_d512"),
+            ("gru_scan_padded", "gru_scan_padded", "gru.cu", "gru.py:177", pad["gru_scan"],
+             "gru4rec_d50"),
+            ("gru_backward_padded", "gru_backward_padded", "gru.cu", "gru.py:190",
+             pad["gru_backward"], "gru4rec_d50"),
+            ("lstm_scan_padded", "lstm_scan_padded", "lstm.cu", "lstm.py:153",
+             pad["lstm"]["lstm_scan"], "lstm_session_d50"),
+            ("lstm_backward_padded", "lstm_backward_padded", "lstm.cu", "lstm.py:209",
+             pad["lstm"]["lstm_backward"], "lstm_session_d50"),
+            ("gru_scan_stepped", "gru_scan_stepped", "gru.cu", "gru.py:177", w3["gru_scan"],
+             "gru4rec_w2304"),
+            ("gru_backward_stepped", "gru_backward_stepped", "gru.cu", "gru.py:190",
+             w3["gru_backward"], "gru4rec_w2304"),
+            ("lstm_scan_stepped", "lstm_scan_stepped", "lstm.cu", "lstm.py:153",
+             w3["lstm"]["lstm_scan"], "lstm_w2304"),
+            ("lstm_backward_stepped", "lstm_backward_stepped", "lstm.cu", "lstm.py:209",
+             w3["lstm"]["lstm_backward"], "lstm_w2304"),
+            ("softmax_head_streamed", "softmax_head_streamed", "softmax_head.cu",
+             "softmax_head.py:115", k["streamed_head"]["w3"], "gru4rec_w2304")):
+        for dtype, suffix in (("bfloat16", ""), ("float32", "_f32")):
+            rec = recs[dtype]
+            p = path + suffix
+            out.append(_kernel_entry(
+                kname + suffix, "seqrec_tpu_torch/csrc/" + source,
+                "seqrec_tpu/ops/pallas/" + replaces, train[p]["launches"][counter], rec,
+                dtype=dtype, layout=rec["launch"].get("layout", rec["launch"].get("route")),
+                shape=rec["shape"],
+                launches_counted_on=f"train {train[p]['config']} "
+                                    + " ".join(train[p]["overrides"]),
+                launches_by_path={**{f"train_{q}": t["launches"][counter]
+                                     for q, t in train.items()},
+                                  **{f"serve_{q}": v["launches"][counter]
+                                     for q, v in serve.items()}}))
+    return out
+
+
 def _median(ms) -> Optional[float]:
     return None if ms is None else ms["median"]
 
@@ -4999,6 +5429,9 @@ def main(argv=None) -> int:
     wide_lstm = phase_wide_lstm(rng, dev, args.seed, smi)  # v, the LSTM above H = 256
     serve.update(wide_lstm["serve"])
     train.update(wide_lstm["train"])
+    all_widths = phase_all_widths(rng, dev, args.seed, smi)  # w, every width
+    serve.update(all_widths["serve"])
+    train.update(all_widths["train"])
     sparse = phase_sparse(dev, args.seed)
     phase_checkpoint(dev, args.seed, requests)
     sharded = phase_sharded(dev, args.seed)
@@ -5141,6 +5574,9 @@ def main(argv=None) -> int:
     kernels += _wide_entries(wide)
     # The LSTM's grid layouts (H > 256, phase v).
     kernels += _wide_lstm_entries(wide_lstm)
+    # Every width (phase w): the sliced attention, the padded and stepped
+    # scans, the streamed head.
+    kernels += _all_widths_entries(all_widths)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2050,6 +2050,119 @@ gru_backward_grid_f32_kernel(const float* __restrict__ xp, const float* __restri
   }
 }
 
+// ---------------------------------------------------------------------------
+// Past grid_max_hidden, both dtypes: the stepped layout (rnn.cuh)
+// ---------------------------------------------------------------------------
+
+// Forward step t of the GRU: the gates of (row, unit) from xp[:, t] and the
+// step's hp = h_in @ W_h + b_h (the GEMM just before), h' rounded to T into
+// ys[:, t], and into hbuf the next step's h_in: keep[t+1] * h' (rounded to
+// T) in the reset variant, h' itself without. hbuf holds this step's h_in
+// (h0, times keep[0] in the reset variant, before step 0): each thread reads
+// its own element before it writes it.
+template <typename T, bool kReset>
+__global__ void __launch_bounds__(rnn::kStepThreads)
+gru_step_kernel(const float* __restrict__ xp, const float* __restrict__ hp, T* __restrict__ hbuf,
+                const float* __restrict__ keep, T* __restrict__ ys, int B, int Tn, int H, int t) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(B) * H) return;
+  const int row = static_cast<int>(i / H), unit = static_cast<int>(i % H);
+  const size_t bt = static_cast<size_t>(row) * Tn + t;
+  const float* x = xp + bt * 3 * H + unit;
+  const float* hq = hp + static_cast<size_t>(row) * 3 * H + unit;
+  const float r = rnn::step_sigmoid<T>(x[0] + hq[0]);
+  const float z = rnn::step_sigmoid<T>(x[H] + hq[H]);
+  const float n = rnn::step_tanh<T>(x[2 * H] + r * hq[2 * H]);
+  const float h_in = rnn::step_load(hbuf[i]);
+  const T h = rnn::step_round<T>((1.0f - z) * n + z * h_in);
+  ys[bt * H + unit] = h;
+  if (kReset && t + 1 < Tn) {
+    hbuf[i] = rnn::step_round<T>(rnn::step_load(h) * keep[static_cast<size_t>(row) * Tn + t + 1]);
+  } else {
+    hbuf[i] = h;
+  }
+}
+
+// Reverse step t of the GRU (t = T-1 .. 0), as reference.gru_bwd_scan: the
+// carry dh_next = (z_buf + p) * keep[t+1] from step t+1 (z_buf: its dh z,
+// p: its d_hproj @ W_h^T, the GEMM just before; 0 at t = T-1), then the
+// gates recomputed from the two f32 projections, d_xp[:, t] and dn_r[:, t],
+// the GEMM's A (this step's d_hproj, bf16 as hi and lo terms with W's
+// dtype bf16) and z_buf = dh z. At t = -1 only dh0 = the carry into step 0.
+template <typename W, typename HIn, bool kKeep>
+__global__ void __launch_bounds__(rnn::kStepThreads)
+gru_step_backward_kernel(const float* __restrict__ xp, const float* __restrict__ hp,
+                         const HIn* __restrict__ h_in, const W* __restrict__ g_ys,
+                         const float* __restrict__ keep, const float* __restrict__ p,
+                         float* __restrict__ z_buf, W* __restrict__ a, float* __restrict__ d_xp,
+                         float* __restrict__ dn_r, float* __restrict__ dh0, int B, int Tn, int H,
+                         int t) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(B) * H) return;
+  const int row = static_cast<int>(i / H), unit = static_cast<int>(i % H);
+  float dh_next = 0.0f;
+  if (t < Tn - 1) {
+    dh_next = z_buf[i] + p[i];
+    if (kKeep) dh_next *= keep[static_cast<size_t>(row) * Tn + t + 1];
+  }
+  if (t < 0) {
+    dh0[i] = dh_next;
+    return;
+  }
+  const size_t bt = static_cast<size_t>(row) * Tn + t;
+  const float* x = xp + bt * 3 * H + unit;
+  const float* hq = hp + bt * 3 * H + unit;
+  const float r = sigmoidf(x[0] + hq[0]);
+  const float z = sigmoidf(x[H] + hq[H]);
+  const float hn = hq[2 * H];
+  const float n = tanhf(x[2 * H] + r * hn);
+  const float dh = dh_next + rnn::step_load(g_ys[bt * H + unit]);
+  const float dpre_n = dh * (1.0f - z) * (1.0f - n * n);
+  const float dpre_z = dh * (rnn::step_load(h_in[bt * H + unit]) - n) * (z * (1.0f - z));
+  const float dpre_r = dpre_n * hn * (r * (1.0f - r));
+  float* out = d_xp + bt * 3 * H + unit;
+  out[0] = dpre_r;
+  out[H] = dpre_z;
+  out[2 * H] = dpre_n;
+  const float dn = dpre_n * r;
+  dn_r[bt * H + unit] = dn;
+  rnn::step_store_d(a, row, 3 * H, unit, dpre_r);
+  rnn::step_store_d(a, row, 3 * H, H + unit, dpre_z);
+  rnn::step_store_d(a, row, 3 * H, 2 * H + unit, dn);
+  z_buf[i] = dh * z;
+}
+
+// The forward scan: T x (the step's GEMM, then its gates).
+template <typename T, bool kReset>
+int stepped_forward(const float* xp, T* hbuf, const T* w_h, const float* b_h, const float* keep,
+                    T* ys, float* hp, int B, int Tn, int H, cudaStream_t s) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  for (int t = 0; t < Tn; ++t) {
+    int rc = rnn::step_gemm(kBf16, hbuf, w_h, b_h, hp, B, H, 3 * H, s);
+    if (rc == 0) rc = rnn::launch_step(gru_step_kernel<T, kReset>, B, H, s, xp, hp, hbuf, keep, ys,
+                                       B, Tn, H, t);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+// The reverse recurrence: T x (the step's gates, then its GEMM), then dh0.
+template <typename W, typename HIn, bool kKeep>
+int stepped_backward(const float* xp, const float* hp, const HIn* h_in, const W* g_ys,
+                     const W* w_t, const float* zeros, const float* keep, float* d_xp,
+                     float* dn_r, float* dh0, W* a, float* p, float* z_buf, int B, int Tn, int H,
+                     cudaStream_t s) {
+  constexpr bool kBf16 = sizeof(W) == 2;
+  auto gates = gru_step_backward_kernel<W, HIn, kKeep>;
+  for (int t = Tn - 1; t >= -1; --t) {
+    int rc = rnn::launch_step(gates, B, H, s, xp, hp, h_in, g_ys, keep, p, z_buf, a, d_xp, dn_r,
+                              dh0, B, Tn, H, t);
+    if (rc == 0 && t >= 0) rc = rnn::step_gemm(kBf16, a, w_t, zeros, p, B, (kBf16 ? 6 : 3) * H, H, s);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -2367,6 +2480,82 @@ int seqrec_gru_backward_grid(const void* xp, const void* hp, const void* h_in, c
   return kp == nullptr
              ? rnn::launch_grid(gru_backward_grid_kernel<false, __nv_bfloat16>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups)
              : rnn::launch_grid(gru_backward_grid_kernel<true, __nv_bfloat16>, grid, smem, s, x, hpr, hi, gy, wf, kp, dxp, dnr, dh, w, B, Tn, H, groups);
+}
+
+// The stepped layout past grid_max_hidden (either dtype, dtype 0 float, 1
+// bf16): T launches of the projection GEMM (hp [B, 3H] f32 = hbuf @ w_h +
+// b_h) each followed by the step's gate kernel. xp [B, T, 3H] float (the
+// input projection, b_x included); hbuf [B, H] of the dtype, holding h0
+// (times keep[:, 0] in the reset variant) and, after the scan, the last
+// step's h handed on; w_h [H, 3H] of the dtype; b_h [3H] float; keep [B, T]
+// float or null; ys [B, T, H] of the dtype; hp [B, 3H] float scratch. All
+// contiguous, 16-byte aligned; H % 4 == 0.
+int seqrec_gru_forward_stepped(const void* xp, void* hbuf, const void* w_h, const void* b_h,
+                               const void* keep, void* ys, void* hp, int B, int Tn, int H,
+                               int dtype, void* stream) {
+  if (B <= 0 || Tn <= 0 || H <= 0 || H % 4 != 0 || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* x = static_cast<const float*>(xp);
+  const float* bh = static_cast<const float*>(b_h);
+  const float* kp = static_cast<const float*>(keep);
+  float* hq = static_cast<float*>(hp);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    using bf = __nv_bfloat16;
+    auto* hb = static_cast<bf*>(hbuf);
+    const auto* w = static_cast<const bf*>(w_h);
+    auto* y = static_cast<bf*>(ys);
+    return kp == nullptr ? stepped_forward<bf, false>(x, hb, w, bh, kp, y, hq, B, Tn, H, s)
+                         : stepped_forward<bf, true>(x, hb, w, bh, kp, y, hq, B, Tn, H, s);
+  }
+  auto* hb = static_cast<float*>(hbuf);
+  const auto* w = static_cast<const float*>(w_h);
+  auto* y = static_cast<float*>(ys);
+  return kp == nullptr ? stepped_forward<float, false>(x, hb, w, bh, kp, y, hq, B, Tn, H, s)
+                       : stepped_forward<float, true>(x, hb, w, bh, kp, y, hq, B, Tn, H, s);
+}
+
+// The stepped reverse recurrence; dtype is W_h's (0 float, 1 bf16). xp, hp
+// [B, T, 3H] float; h_in [B, T, H] of hin_dtype (float with float weights);
+// g_ys [B, T, H] of the weights' dtype; w_t W_h^T [3H, H] float, or
+// [W_h^T; W_h^T] [6H, H] bf16 (the hi and lo terms' rows); zeros [H] float
+// (the GEMM's bias); keep [B, T] float or null; d_xp [B, T, 3H], dn_r
+// [B, T, H], dh0 [B, H] float; scratch: a [B, 3H] float or [B, 6H] bf16
+// (the step's d_hproj), p and z [B, H] float. As the forward otherwise.
+int seqrec_gru_backward_stepped(const void* xp, const void* hp, const void* h_in,
+                                const void* g_ys, const void* w_t, const void* zeros,
+                                const void* keep, void* d_xp, void* dn_r, void* dh0, void* a,
+                                void* p, void* z, int B, int Tn, int H, int dtype, int hin_dtype,
+                                void* stream) {
+  if (B <= 0 || Tn <= 0 || H <= 0 || H % 4 != 0 || (dtype != 0 && dtype != 1) ||
+      (hin_dtype != 0 && hin_dtype != 1) || (dtype == 0 && hin_dtype != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* x = static_cast<const float*>(xp);
+  const float* hq = static_cast<const float*>(hp);
+  const float* zr = static_cast<const float*>(zeros);
+  const float* kp = static_cast<const float*>(keep);
+  float* dx = static_cast<float*>(d_xp);
+  float* dn = static_cast<float*>(dn_r);
+  float* d0 = static_cast<float*>(dh0);
+  float* pp = static_cast<float*>(p);
+  float* zb = static_cast<float*>(z);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SEQREC_STEP_BWD(W, HIn)                                                                  \
+  (kp == nullptr                                                                                 \
+       ? stepped_backward<W, HIn, false>(x, hq, static_cast<const HIn*>(h_in),                   \
+                                         static_cast<const W*>(g_ys), static_cast<const W*>(w_t), \
+                                         zr, kp, dx, dn, d0, static_cast<W*>(a), pp, zb, B, Tn,  \
+                                         H, s)                                                   \
+       : stepped_backward<W, HIn, true>(x, hq, static_cast<const HIn*>(h_in),                    \
+                                        static_cast<const W*>(g_ys), static_cast<const W*>(w_t),  \
+                                        zr, kp, dx, dn, d0, static_cast<W*>(a), pp, zb, B, Tn,   \
+                                        H, s))
+  if (dtype == 0) return SEQREC_STEP_BWD(float, float);
+  if (hin_dtype == 0) return SEQREC_STEP_BWD(__nv_bfloat16, float);
+  return SEQREC_STEP_BWD(__nv_bfloat16, __nv_bfloat16);
+#undef SEQREC_STEP_BWD
 }
 
 const char* seqrec_gru_error_string(int code) {

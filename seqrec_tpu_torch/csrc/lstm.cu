@@ -1532,6 +1532,124 @@ lstm_backward_grid_f32_kernel(const float* __restrict__ ig, const float* __restr
   }
 }
 
+// ---------------------------------------------------------------------------
+// Past grid_max_hidden, both dtypes: the stepped layout (rnn.cuh)
+// ---------------------------------------------------------------------------
+
+// Forward step t of the LSTM: c = keep[t] c (the reset variant) from the
+// f32 carry, the gates from xp[:, t] and the step's hp = h_in @ W_h (the
+// GEMM just before), c' into the carry (and the cell plane), h' rounded to
+// T into ys[:, t], and into hbuf the next step's h_in (keep[t+1] h' in the
+// reset variant). Each thread reads its own elements before it writes them.
+template <typename T, bool kReset>
+__global__ void __launch_bounds__(rnn::kStepThreads)
+lstm_step_kernel(const float* __restrict__ xp, const float* __restrict__ hp, T* __restrict__ hbuf,
+                 float* __restrict__ c_buf, const float* __restrict__ keep, T* __restrict__ ys,
+                 float* __restrict__ cs, int B, int Tn, int H, int t) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(B) * H) return;
+  const int row = static_cast<int>(i / H), unit = static_cast<int>(i % H);
+  const size_t bt = static_cast<size_t>(row) * Tn + t;
+  const float* x = xp + bt * 4 * H + unit;
+  const float* hq = hp + static_cast<size_t>(row) * 4 * H + unit;
+  float c = c_buf[i];
+  if (kReset) c *= keep[bt];
+  const float ig = rnn::step_sigmoid<T>(x[0] + hq[0]);
+  const float fg = rnn::step_sigmoid<T>(x[H] + hq[H]);
+  const float gg = rnn::step_tanh<T>(x[2 * H] + hq[2 * H]);
+  const float og = rnn::step_sigmoid<T>(x[3 * H] + hq[3 * H]);
+  c = fg * c + ig * gg;
+  c_buf[i] = c;
+  if (cs != nullptr) cs[bt * H + unit] = c;
+  const T h = rnn::step_round<T>(og * rnn::step_tanh<T>(c));
+  ys[bt * H + unit] = h;
+  if (kReset && t + 1 < Tn) {
+    hbuf[i] = rnn::step_round<T>(rnn::step_load(h) * keep[bt + 1]);
+  } else {
+    hbuf[i] = h;
+  }
+}
+
+// Reverse step t of the LSTM (t = T-1 .. 0), as reference.lstm_bwd_scan:
+// the carries from step t+1 (dh = p, its dz @ W_h^T, the GEMM just before;
+// dc = dc_buf), times keep[t+1]; at t = T-1 dh = 0 and dc = dc_last. Then
+// dz[:, t], the GEMM's A (dz, bf16 as hi and lo terms with W's dtype bf16)
+// and dc_buf = dc f. At t = -1 only dh0 and dc0, the carries into step 0.
+template <typename W, bool kKeep>
+__global__ void __launch_bounds__(rnn::kStepThreads)
+lstm_step_backward_kernel(const float* __restrict__ ig, const float* __restrict__ fg,
+                          const float* __restrict__ gg, const float* __restrict__ og,
+                          const float* __restrict__ tanh_c, const float* __restrict__ c_in,
+                          const W* __restrict__ g_ys, const float* __restrict__ keep,
+                          const float* __restrict__ dc_last, const float* __restrict__ p,
+                          float* __restrict__ dc_buf, W* __restrict__ a, float* __restrict__ dz,
+                          float* __restrict__ dh0, float* __restrict__ dc0, int B, int Tn, int H,
+                          int t) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(B) * H) return;
+  const int row = static_cast<int>(i / H), unit = static_cast<int>(i % H);
+  float dh_next = 0.0f, dc_next = dc_last[i];
+  if (t < Tn - 1) {
+    dh_next = p[i];
+    dc_next = dc_buf[i];
+    if (kKeep) {
+      const float k = keep[static_cast<size_t>(row) * Tn + t + 1];
+      dh_next *= k;
+      dc_next *= k;
+    }
+  }
+  if (t < 0) {
+    dh0[i] = dh_next;
+    dc0[i] = dc_next;
+    return;
+  }
+  const size_t o = (static_cast<size_t>(row) * Tn + t) * H + unit;
+  const float i_t = ig[o], f_t = fg[o], g_t = gg[o], o_t = og[o], tc = tanh_c[o];
+  const float dh = dh_next + rnn::step_load(g_ys[o]);
+  const float dc = dc_next + dh * o_t * (1.0f - tc * tc);
+  const float d[4] = {dc * g_t * i_t * (1.0f - i_t), dc * c_in[o] * f_t * (1.0f - f_t),
+                      dc * i_t * (1.0f - g_t * g_t), dh * tc * o_t * (1.0f - o_t)};
+  float* out = dz + (static_cast<size_t>(row) * Tn + t) * 4 * H + unit;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    out[q * H] = d[q];
+    rnn::step_store_d(a, row, 4 * H, q * H + unit, d[q]);
+  }
+  dc_buf[i] = dc * f_t;
+}
+
+// The forward scan: T x (the step's GEMM, then its gates).
+template <typename T, bool kReset>
+int stepped_forward(const float* xp, T* hbuf, float* c_buf, const T* w_h, const float* zeros,
+                    const float* keep, T* ys, float* cs, float* hp, int B, int Tn, int H,
+                    cudaStream_t s) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  for (int t = 0; t < Tn; ++t) {
+    int rc = rnn::step_gemm(kBf16, hbuf, w_h, zeros, hp, B, H, 4 * H, s);
+    if (rc == 0) rc = rnn::launch_step(lstm_step_kernel<T, kReset>, B, H, s, xp, hp, hbuf, c_buf,
+                                       keep, ys, cs, B, Tn, H, t);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+// The reverse recurrence: T x (the step's gates, then its GEMM), then dh0, dc0.
+template <typename W, bool kKeep>
+int stepped_backward(const float* const* planes, const W* g_ys, const W* w_t, const float* zeros,
+                     const float* keep, const float* dc_last, float* dz, float* dh0, float* dc0,
+                     W* a, float* p, float* dc_buf, int B, int Tn, int H, cudaStream_t s) {
+  constexpr bool kBf16 = sizeof(W) == 2;
+  auto gates = lstm_step_backward_kernel<W, kKeep>;
+  for (int t = Tn - 1; t >= -1; --t) {
+    int rc = rnn::launch_step(gates, B, H, s, planes[0], planes[1], planes[2], planes[3],
+                              planes[4], planes[5], g_ys, keep, dc_last, p, dc_buf, a, dz, dh0,
+                              dc0, B, Tn, H, t);
+    if (rc == 0 && t >= 0) rc = rnn::step_gemm(kBf16, a, w_t, zeros, p, B, (kBf16 ? 8 : 4) * H, H, s);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1798,6 +1916,86 @@ int seqrec_lstm_backward_grid(const void* i, const void* f, const void* g, const
   return kp == nullptr
              ? rnn::launch_grid(lstm_backward_grid_f32_kernel<false>, grid, smem, s, pi, pf, pg, po, ptc, pci, gy, wf, kp, dcl, dxp, dh, dc, w, B, Tn, H, groups)
              : rnn::launch_grid(lstm_backward_grid_f32_kernel<true>, grid, smem, s, pi, pf, pg, po, ptc, pci, gy, wf, kp, dcl, dxp, dh, dc, w, B, Tn, H, groups);
+}
+
+// The stepped layout past grid_max_hidden (either dtype, dtype 0 float, 1
+// bf16): T launches of the projection GEMM (hp [B, 4H] f32 = hbuf @ w_h)
+// each followed by the step's gate kernel. xp [B, T, 4H] float (the input
+// projection, b included); hbuf [B, H] of the dtype, holding h0 (times
+// keep[:, 0] in the reset variant); c_buf [B, H] float, holding c0 and,
+// after the scan, c_T; w_h [H, 4H] of the dtype; zeros [4H] float (the
+// GEMM's bias); keep [B, T] float or null; ys [B, T, H] of the dtype; cs
+// [B, T, H] float (the cell plane) or null; hp [B, 4H] float scratch. All
+// contiguous, 16-byte aligned; H % 4 == 0.
+int seqrec_lstm_forward_stepped(const void* xp, void* hbuf, void* c_buf, const void* w_h,
+                                const void* zeros, const void* keep, void* ys, void* cs,
+                                void* hp, int B, int Tn, int H, int dtype, void* stream) {
+  if (B <= 0 || Tn <= 0 || H <= 0 || H % 4 != 0 || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* x = static_cast<const float*>(xp);
+  float* c = static_cast<float*>(c_buf);
+  const float* zr = static_cast<const float*>(zeros);
+  const float* kp = static_cast<const float*>(keep);
+  float* cp = static_cast<float*>(cs);
+  float* hq = static_cast<float*>(hp);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    using bf = __nv_bfloat16;
+    auto* hb = static_cast<bf*>(hbuf);
+    const auto* w = static_cast<const bf*>(w_h);
+    auto* y = static_cast<bf*>(ys);
+    return kp == nullptr
+               ? stepped_forward<bf, false>(x, hb, c, w, zr, kp, y, cp, hq, B, Tn, H, s)
+               : stepped_forward<bf, true>(x, hb, c, w, zr, kp, y, cp, hq, B, Tn, H, s);
+  }
+  auto* hb = static_cast<float*>(hbuf);
+  const auto* w = static_cast<const float*>(w_h);
+  auto* y = static_cast<float*>(ys);
+  return kp == nullptr
+             ? stepped_forward<float, false>(x, hb, c, w, zr, kp, y, cp, hq, B, Tn, H, s)
+             : stepped_forward<float, true>(x, hb, c, w, zr, kp, y, cp, hq, B, Tn, H, s);
+}
+
+// The stepped reverse recurrence; dtype is g_ys' (0 float, 1 bf16). i, f,
+// g, o, tanh_c, c_in [B, T, H] float (c_in scaled by keep); g_ys [B, T, H]
+// of the dtype; w_t W_h^T [4H, H] float, or [W_h^T; W_h^T] [8H, H] bf16 (the
+// hi and lo terms' rows); zeros [H] float (the GEMM's bias); keep [B, T]
+// float or null; dc_last [B, H] float; dz [B, T, 4H], dh0, dc0 [B, H] float;
+// scratch: a [B, 4H] float or [B, 8H] bf16 (the step's dz), p and dc [B, H]
+// float. As the forward otherwise.
+int seqrec_lstm_backward_stepped(const void* i, const void* f, const void* g, const void* o,
+                                 const void* tanh_c, const void* c_in, const void* g_ys,
+                                 const void* w_t, const void* zeros, const void* keep,
+                                 const void* dc_last, void* dz, void* dh0, void* dc0, void* a,
+                                 void* p, void* dc, int B, int Tn, int H, int dtype,
+                                 void* stream) {
+  if (B <= 0 || Tn <= 0 || H <= 0 || H % 4 != 0 || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* planes[6] = {static_cast<const float*>(i), static_cast<const float*>(f),
+                            static_cast<const float*>(g), static_cast<const float*>(o),
+                            static_cast<const float*>(tanh_c), static_cast<const float*>(c_in)};
+  const float* zr = static_cast<const float*>(zeros);
+  const float* kp = static_cast<const float*>(keep);
+  const float* dcl = static_cast<const float*>(dc_last);
+  float* out = static_cast<float*>(dz);
+  float* d0 = static_cast<float*>(dh0);
+  float* c0 = static_cast<float*>(dc0);
+  float* pp = static_cast<float*>(p);
+  float* cb = static_cast<float*>(dc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SEQREC_STEP_BWD(W)                                                                      \
+  (kp == nullptr                                                                                \
+       ? stepped_backward<W, false>(planes, static_cast<const W*>(g_ys),                        \
+                                    static_cast<const W*>(w_t), zr, kp, dcl, out, d0, c0,        \
+                                    static_cast<W*>(a), pp, cb, B, Tn, H, s)                     \
+       : stepped_backward<W, true>(planes, static_cast<const W*>(g_ys),                         \
+                                   static_cast<const W*>(w_t), zr, kp, dcl, out, d0, c0,         \
+                                   static_cast<W*>(a), pp, cb, B, Tn, H, s))
+  if (dtype == 0) return SEQREC_STEP_BWD(float);
+  return SEQREC_STEP_BWD(__nv_bfloat16);
+#undef SEQREC_STEP_BWD
 }
 
 const char* seqrec_lstm_error_string(int code) {

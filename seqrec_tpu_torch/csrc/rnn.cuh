@@ -680,5 +680,83 @@ int grid_check(int B, int Tn, int H, bool bf16, int gates, int groups, long long
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// Past the grid layouts' limits, both dtypes: the stepped layout
+// ---------------------------------------------------------------------------
+//
+// Above grid_max_hidden no grid of unit slices fits the card at once, so the
+// serial chain goes back to the host's stream: each step of a scan is two
+// launches, a GEMM of the whole [B, K] vector (the projection kernels above,
+// f32 out: h @ W_h + b_h forward, d_hproj @ W_h^T reverse) and an
+// elementwise gate kernel of the file's cell (one thread a (row, unit)). No
+// H is too wide for it; the GEMM's tiles fill the card at B = 256 (432 bf16
+// CTAs of 64 x 64 at H = 2,304), and 2T launches a scan cost a few us each
+// beside a step's GEMM of 2 B H 3H (GRU) or 4H (LSTM) operations. The
+// reverse's bf16 GEMM takes the f32 cotangent as two bf16 terms, hi and lo
+// (A = [hi | lo], B = [W_h^T; W_h^T]), summed in f32, as every reverse
+// recurrence does.
+constexpr int kStepThreads = 256;  // a gate kernel's block
+
+// out [M, N] f32 = a [M, K] @ w [K, N] + b of the dtype (bf16: the tensor-core
+// projection; f32: the CUDA-core one); K % 4 == 0, N % 4 == 0.
+inline int step_gemm(bool bf16, const void* a, const void* w, const void* b, void* out, int M,
+                     int K, int N, cudaStream_t s) {
+  return bf16 ? launch_xproj(a, w, b, out, M, K, N, s)
+              : launch_xproj_f32(a, w, b, out, M, K, N, s);
+}
+
+// The gate nonlinearities of a step in the dtype's numerics: bf16 the fast
+// ones (h is rounded to bf16 after them), f32 the accurate ones.
+template <typename T>
+__device__ __forceinline__ float step_sigmoid(float v) {
+  if constexpr (sizeof(T) == 2) {
+    return fast_sigmoid(v);
+  } else {
+    return 1.0f / (1.0f + expf(-v));
+  }
+}
+template <typename T>
+__device__ __forceinline__ float step_tanh(float v) {
+  if constexpr (sizeof(T) == 2) {
+    return fast_tanh(v);
+  } else {
+    return tanhf(v);
+  }
+}
+
+__device__ __forceinline__ float step_load(float v) { return v; }
+__device__ __forceinline__ float step_load(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T step_round(float v) {
+  if constexpr (sizeof(T) == 2) {
+    return __float2bfloat16_rn(v);
+  } else {
+    return v;
+  }
+}
+
+// A reverse step's cotangent column `col` of row `row` into the GEMM's A:
+// bf16 [B][2 K] (hi = bf16(d) at col, lo = bf16(d - hi) at K + col), f32
+// [B][K] as it is.
+template <typename W>
+__device__ __forceinline__ void step_store_d(W* a, int row, int K, int col, float d) {
+  if constexpr (sizeof(W) == 2) {
+    const __nv_bfloat16 hi = __float2bfloat16_rn(d);
+    a[static_cast<size_t>(row) * 2 * K + col] = hi;
+    a[static_cast<size_t>(row) * 2 * K + K + col] = __float2bfloat16_rn(d - __bfloat162float(hi));
+  } else {
+    a[static_cast<size_t>(row) * K + col] = d;
+  }
+}
+
+// Launch a gate kernel over B H (row, unit) pairs; a CUDA error code.
+template <typename... Params, typename... Args>
+int launch_step(void (*kernel)(Params...), int B, int H, cudaStream_t s, Args... args) {
+  const long long pairs = static_cast<long long>(B) * H;
+  kernel<<<static_cast<unsigned>((pairs + kStepThreads - 1) / kStepThreads), kStepThreads, 0, s>>>(
+      args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace rnn

@@ -112,6 +112,14 @@ __host__ __device__ constexpr int head_f32_smem(int H) {
           kStages * kTileK * (simt::kTileN + 4) + 4 * kTileM) * 4;
 }
 
+// The streamed variant's (past the resident hT's limit): no hT; a ring
+// stage holds a k chunk of the negatives and the same chunk of the block's
+// h rows, transposed; any H.
+template <int kTileM, int kTileK, int kStages>
+__host__ __device__ constexpr int head_f32_stream_smem() {
+  return (kStages * kTileK * (simt::kTileN + 4 + kTileM + 4) + 4 * kTileM) * 4;
+}
+
 // l_a e^(m_a - M) + l_b e^(m_b - M), M = max(m_a, m_b), with an empty
 // partial (m = -inf) contributing nothing.
 __device__ __forceinline__ void merge(float& m, float& l, float m2, float l2) {
@@ -123,8 +131,12 @@ __device__ __forceinline__ void merge(float& m, float& l, float m2, float l2) {
 
 // kVec4: h and pos rows are read in float4s for the positive logit (H % 4
 // == 0, both 16-byte aligned: every shape the kernel took before); else a
-// float at a time, the same products summed in the same order.
-template <int kTileM, int kTileK, int kStages, int kMinCtas, bool kVec4 = true>
+// float at a time, the same products summed in the same order. kStream:
+// past the resident hT's limit, h's chunks stream through the ring beside
+// the negatives' (each chunk again for every S-tile, from L2), so no H is
+// too wide; the same FMAs in the same order.
+template <int kTileM, int kTileK, int kStages, int kMinCtas, bool kVec4 = true,
+          bool kStream = false>
 __global__ void __launch_bounds__(kTileM * 2, kMinCtas)
 head_f32_kernel(const float* __restrict__ h, const float* __restrict__ pos,
                 const float* __restrict__ neg, const int* __restrict__ targets,
@@ -132,11 +144,11 @@ head_f32_kernel(const float* __restrict__ h, const float* __restrict__ pos,
                 const float* __restrict__ neg_log_q, float* __restrict__ nll, int N, int S,
                 int H) {
   constexpr int NT = kTileM * 2, LDT = kTileM + 4, LDN = simt::kTileN + 4;
-  constexpr int kStage = kTileK * LDN;  // floats a stage
+  constexpr int kStage = kTileK * (LDN + (kStream ? LDT : 0));  // floats a stage
   extern __shared__ __align__(16) float fsm[];
   const int chunks = (H + kTileK - 1) / kTileK;
-  float* hT = fsm;                                  // [chunks * kTileK][LDT]
-  float* ring = hT + chunks * kTileK * LDT;         // kStages x [kTileK][LDN]
+  float* hT = fsm;                                  // [chunks * kTileK][LDT] (resident)
+  float* ring = hT + (kStream ? 0 : chunks * kTileK * LDT);  // kStages x [kTileK][LDN] (+ h's)
   float* pdot = ring + kStages * kStage;            // [kTileM] positive logits
   float* part = pdot + kTileM;                      // [kTileM][2] odd warps' (m, l)
   int* tgt = reinterpret_cast<int*>(part + 2 * kTileM);  // [kTileM] targets
@@ -149,7 +161,10 @@ head_f32_kernel(const float* __restrict__ h, const float* __restrict__ pos,
   // brings the block's h rows of chunk i while i < chunks, so the first
   // FMAs wait for one chunk of h, not all of it.
   auto stage = [&](int i) {
-    if (i < chunks) {
+    if (kStream && i < iters) {
+      simt::copy_transposed<kTileM, kTileK, NT>(ring + (i % kStages) * kStage + kTileK * LDN, LDT,
+                                                h, N, H, row0, i % chunks * kTileK);
+    } else if (!kStream && i < chunks) {
       simt::copy_transposed<kTileM, kTileK, NT>(hT + i * kTileK * LDT, LDT, h, N, H, row0,
                                                 i * kTileK);
     }
@@ -216,8 +231,9 @@ head_f32_kernel(const float* __restrict__ h, const float* __restrict__ pos,
     __syncthreads();                    // ... everyone's; chunk i - 1's stage is free
     stage(i + kStages - 1);
     const int c = i % chunks;
-    simt::fma_chunk<kTileM, kTileK, LDT, LDN>(acc, hT + c * kTileK * LDT,
-                                              ring + (i % kStages) * kStage, p);
+    const float* ns = ring + (i % kStages) * kStage;
+    simt::fma_chunk<kTileM, kTileK, LDT, LDN>(acc, kStream ? ns + kTileK * LDN
+                                                           : hT + c * kTileK * LDT, ns, p);
     if (c != chunks - 1) continue;
     // The S-tile's logits are whole: minus logQ, the hit mask, -inf past S;
     // then, row by row, the 8 lanes' max and sum of exponentials by
@@ -283,16 +299,19 @@ head_f32_kernel(const float* __restrict__ h, const float* __restrict__ pos,
 // Launch variant <kTileM, kTileK, kStages, kMinCtas, kVec4> of the f32 head;
 // a CUDA error code (0: launched). H <= kF32MaxH (H % 4 == 0 with kVec4), any
 // S >= 1.
-template <int kTileM, int kTileK, int kStages, int kMinCtas, bool kVec4 = true>
+template <int kTileM, int kTileK, int kStages, int kMinCtas, bool kVec4 = true,
+          bool kStream = false>
 int launch_head_f32_variant(const void* h, const void* pos, const void* neg,
                             const void* targets, const void* neg_ids, const void* pos_log_q,
                             const void* neg_log_q, void* nll, int N, int S, int H,
                             cudaStream_t stream) {
-  if (N <= 0 || S <= 0 || H <= 0 || (kVec4 && H % 4 != 0) || (kTileM > 32 && H > kF32MaxH)) {
+  if (N <= 0 || S <= 0 || H <= 0 || (kVec4 && H % 4 != 0) ||
+      (!kStream && kTileM > 32 && H > kF32MaxH)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int smem = head_f32_smem<kTileM, kTileK, kStages>(H);
-  auto kernel = head_f32_kernel<kTileM, kTileK, kStages, kMinCtas, kVec4>;
+  const int smem = kStream ? head_f32_stream_smem<kTileM, kTileK, kStages>()
+                           : head_f32_smem<kTileM, kTileK, kStages>(H);
+  auto kernel = head_f32_kernel<kTileM, kTileK, kStages, kMinCtas, kVec4, kStream>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<(N + kTileM - 1) / kTileM, kTileM * 2, smem, stream>>>(
@@ -547,10 +566,21 @@ __host__ __device__ inline int ksplit_hp(int H) { return (H + kKsChunk - 1) / kK
 __host__ __device__ inline int ksplit_smem(int H) {
   return kKsRows * (ksplit_hp(H) + 8) * 2 + kHeadStages * ksplit_stage_bytes();
 }
+// Past the resident rows' limit (the streamed variant): a ring stage also
+// holds the block's h rows of its chunk, [64][128 + 8] bf16, after the
+// negatives' chunk and their ids and logQ; nothing is resident.
+__host__ __device__ constexpr int kstream_stage_bytes() {
+  return ksplit_stage_bytes() + kKsRows * kKsLd * 2;
+}
+__host__ __device__ constexpr int kstream_smem() { return kHeadStages * kstream_stage_bytes(); }
 
 // kU as head_mma_kernel's: the bytes a row of h, pos and the negatives is
 // copied and read in (16, 8, 4 by cp.async; 2, one bf16, by plain loads).
-template <int kU>
+// kStream: the block's h rows are not resident; each stage brings their
+// chunk beside the negatives' (again for every S-tile, from L2), the A
+// fragments come from it, and the positive logit reads h from global
+// memory: any H, the same products summed in the same order.
+template <int kU, bool kStream = false>
 __global__ void __launch_bounds__(kKsThreads, 1)
 head_mma_ksplit_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __restrict__ pos,
                        const __nv_bfloat16* __restrict__ neg, const int* __restrict__ targets,
@@ -558,19 +588,22 @@ head_mma_ksplit_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16*
                        const float* __restrict__ neg_log_q, float* __restrict__ nll, int N,
                        int S, int H) {
   constexpr int kE = kU / 2;  // bf16 a piece
+  constexpr int kStage = kStream ? kstream_stage_bytes() : ksplit_stage_bytes();
   const int Hp = ksplit_hp(H), ldh = Hp + 8, chunks = Hp / kKsChunk;
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);  // [kKsRows][ldh]
-  unsigned char* ring = smem + kKsRows * ldh * 2;
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);  // [kKsRows][ldh] (resident)
+  unsigned char* ring = smem + (kStream ? 0 : kKsRows * ldh * 2);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gr = lane >> 2, tq = lane & 3;
   const int blk0 = blockIdx.x * kKsRows, row0 = blk0 + warp * 16;
 
   // Zero the resident rows once: columns past H and rows past N stay zero.
-  for (int c = threadIdx.x; c < kKsRows * ldh / 8; c += kKsThreads) {
-    reinterpret_cast<uint4*>(hs)[c] = make_uint4(0u, 0u, 0u, 0u);
+  if (!kStream) {
+    for (int c = threadIdx.x; c < kKsRows * ldh / 8; c += kKsThreads) {
+      reinterpret_cast<uint4*>(hs)[c] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    __syncthreads();
   }
-  __syncthreads();
   // A piece of kU bytes from `from` (valid or not) into `to`.
   auto copy = [&](__nv_bfloat16* to, const __nv_bfloat16* from, bool in) {
     if constexpr (kU == 16) {
@@ -584,7 +617,7 @@ head_mma_ksplit_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16*
     }
   };
   const int row_pieces = H / kE;
-  for (int c = threadIdx.x; c < kKsRows * row_pieces; c += kKsThreads) {
+  for (int c = threadIdx.x; !kStream && c < kKsRows * row_pieces; c += kKsThreads) {
     const int r = c / row_pieces, k = kE * (c - r * row_pieces);
     const bool in = blk0 + r < N;
     copy(hs + r * ldh + k, in ? h + static_cast<size_t>(blk0 + r) * H + k : h, in);
@@ -595,13 +628,21 @@ head_mma_ksplit_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16*
   auto stage = [&](int i) {
     if (i < iters) {
       const int j = i / chunks, k0 = (i % chunks) * kKsChunk;
-      unsigned char* st = ring + (i % kHeadStages) * ksplit_stage_bytes();
+      unsigned char* st = ring + (i % kHeadStages) * kStage;
       __nv_bfloat16* ns = reinterpret_cast<__nv_bfloat16*>(st);
       constexpr int kPieces = kKsChunk / kE;
       for (int c = threadIdx.x; c < kSTile * kPieces; c += kKsThreads) {
         const int r = c / kPieces, k = kE * (c - r * kPieces), jr = j * kSTile + r;
         const bool in = jr < S && k0 + k < H;
         copy(ns + r * kKsLd + k, in ? neg + static_cast<size_t>(jr) * H + k0 + k : neg, in);
+      }
+      if (kStream) {  // the block's h rows of chunk k0, zero past H and N
+        __nv_bfloat16* hc = reinterpret_cast<__nv_bfloat16*>(st + ksplit_stage_bytes());
+        for (int c = threadIdx.x; c < kKsRows * kPieces; c += kKsThreads) {
+          const int r = c / kPieces, k = kE * (c - r * kPieces);
+          const bool in = blk0 + r < N && k0 + k < H;
+          copy(hc + r * kKsLd + k, in ? h + static_cast<size_t>(blk0 + r) * H + k0 + k : h, in);
+        }
       }
       int* ids = reinterpret_cast<int*>(st + kSTile * kKsLd * 2);
       float* lq = reinterpret_cast<float*>(ids + kSTile);
@@ -631,7 +672,7 @@ head_mma_ksplit_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16*
     const int lr = warp * 16 + gr + 8 * mh, row = blk0 + lr;
     tgt[mh] = row < N ? targets[row] : 0;
     if (row >= N) continue;
-    const __nv_bfloat16* hr = hs + lr * ldh;
+    const __nv_bfloat16* hr = kStream ? h + static_cast<size_t>(row) * H : hs + lr * ldh;
     const __nv_bfloat16* pr = pos + static_cast<size_t>(row) * H;
     if constexpr (kU >= 4) {  // H even: pairs
       for (int k = 2 * tq; k < H; k += 8) {
@@ -648,7 +689,7 @@ head_mma_ksplit_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16*
   }
 
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
-  const int a_off = (warp * 16 + (lane & 15)) * ldh + (lane >> 4) * 8;
+  const int a_off = (warp * 16 + (lane & 15)) * (kStream ? kKsLd : ldh) + (lane >> 4) * 8;
   const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * kKsLd + ((lane >> 3) & 1) * 8;
   float acc[kSTile / 8][4];
 #pragma unroll
@@ -658,12 +699,15 @@ head_mma_ksplit_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16*
     __syncthreads();          // ... everyone's; iteration i - 1's slot is free
     stage(i + 2);
     const int j = i / chunks, c = i % chunks;
-    const unsigned char* st = ring + (i % kHeadStages) * ksplit_stage_bytes();
+    const unsigned char* st = ring + (i % kHeadStages) * kStage;
     const __nv_bfloat16* ns = reinterpret_cast<const __nv_bfloat16*>(st);
+    const __nv_bfloat16* as =
+        kStream ? reinterpret_cast<const __nv_bfloat16*>(st + ksplit_stage_bytes()) + a_off
+                : hs + a_off + c * kKsChunk;
 #pragma unroll
     for (int s = 0; s < kKsChunk / 16; ++s) {
       uint32_t a[4];
-      mma::ldmatrix_x4(a, hs + a_off + c * kKsChunk + 16 * s);
+      mma::ldmatrix_x4(a, as + 16 * s);
 #pragma unroll
       for (int np = 0; np < kSTile / 16; ++np) {
         uint32_t b[4];
@@ -728,11 +772,11 @@ head_mma_ksplit_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16*
   }
 }
 
-template <int kU>
+template <int kU, bool kStream = false>
 int launch_ksplit(const void* h, const void* pos, const void* neg, const int* targets,
                   const int* neg_ids, const float* pos_log_q, const float* neg_log_q,
                   float* nll, int N, int S, int H, int smem, cudaStream_t stream) {
-  auto kernel = head_mma_ksplit_kernel<kU>;
+  auto kernel = head_mma_ksplit_kernel<kU, kStream>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<(N + kKsRows - 1) / kKsRows, kKsThreads, smem, stream>>>(
@@ -758,7 +802,7 @@ int seqrec_head_forward(const void* h, const void* pos, const void* neg,
                         const void* targets, const void* neg_ids,
                         const void* pos_log_q, const void* neg_log_q, void* nll,
                         int N, int S, int H, int rows, long long smem_bytes, int pos_unit,
-                        void* stream) {
+                        int streamed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec4 = mma::copy_unit(static_cast<unsigned long long>(H) * 4 |
                                    reinterpret_cast<uintptr_t>(h) |
@@ -770,6 +814,19 @@ int seqrec_head_forward(const void* h, const void* pos, const void* neg,
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #define SEQREC_HEAD_ARGS h, pos, neg, targets, neg_ids, pos_log_q, neg_log_q, nll, N, S, H, s
+  // Past the resident hT's limit (streamed = 1, as the caller chose it): 64-row
+  // blocks, h's chunks streamed through the ring.
+  const bool resident_fits = head_f32_smem<32, kF32KChunk, kF32Stages>(H) <= 232448;
+  if (streamed != (H > kF32MaxH && !resident_fits ? 1 : 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (streamed) {
+    if (rows != 64 || smem_bytes != head_f32_stream_smem<64, kF32KChunk, kF32Stages>()) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return vec4 ? launch_head_f32_variant<64, kF32KChunk, kF32Stages, 2, true, true>(SEQREC_HEAD_ARGS)
+                : launch_head_f32_variant<64, kF32KChunk, kF32Stages, 2, false, true>(SEQREC_HEAD_ARGS);
+  }
   // Above kF32MaxH: 32-row blocks, so that hT stays resident (the same
   // kernel, its k chunks the K split); at and below it the shipped variants.
   if (H > kF32MaxH && rows == 32 && head_f32_smem<32, kF32KChunk, kF32Stages>(H) <= 232448 &&
@@ -802,12 +859,31 @@ int seqrec_head_forward(const void* h, const void* pos, const void* neg,
 int seqrec_head_forward_mma(const void* h, const void* pos, const void* neg,
                             const void* targets, const void* neg_ids,
                             const void* pos_log_q, const void* neg_log_q, void* nll,
-                            int N, int S, int H, long long smem_bytes, int unit, void* stream) {
+                            int N, int S, int H, long long smem_bytes, int unit, int streamed,
+                            void* stream) {
   if (N <= 0 || S <= 0 || H <= 0 ||
       unit != mma::copy_unit(static_cast<unsigned long long>(H) * 2 |
                              reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(pos) |
                              reinterpret_cast<uintptr_t>(neg))) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (streamed != (ksplit_smem(H) > 232448 ? 1 : 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (streamed) {  // past the resident rows' limit: h streamed through the ring
+    const int smem = kstream_smem();
+    if (smem != smem_bytes) return static_cast<int>(cudaErrorInvalidValue);
+    const int* t = static_cast<const int*>(targets);
+    const int* ni = static_cast<const int*>(neg_ids);
+    const float* plq = static_cast<const float*>(pos_log_q);
+    const float* nlq = static_cast<const float*>(neg_log_q);
+    float* out = static_cast<float*>(nll);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (unit) {
+      case 16: return launch_ksplit<16, true>(h, pos, neg, t, ni, plq, nlq, out, N, S, H, smem, s);
+      case 8: return launch_ksplit<8, true>(h, pos, neg, t, ni, plq, nlq, out, N, S, H, smem, s);
+      case 4: return launch_ksplit<4, true>(h, pos, neg, t, ni, plq, nlq, out, N, S, H, smem, s);
+      case 2: return launch_ksplit<2, true>(h, pos, neg, t, ni, plq, nlq, out, N, S, H, smem, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   if (H > 256) {  // the K split (head_mma_ksplit_kernel), only past 256
     const int smem = ksplit_smem(H);

@@ -6,10 +6,19 @@ kernel `_attn_kernel`, launched at :98) and its custom VJP `_attn_core_bwd`.
 Forward: a kernel, on the [B, T, N, Dh] layout as it comes (the slices of
 the qkv projection need no copy) and any T: the ragged last tile is
 zero-filled in shared memory, where the TPU wrapper pads T to its 128-row
-tile in device memory. Any Dh <= 256: q, k and v are staged in the widest
+tile in device memory. Any Dh: q, k and v are staged in the widest
 unit of 16, 8, 4 or (bf16) 2 bytes that divides a head's row, their bases
 and their strides (SASRec at d = 50 reads 100-byte bf16 rows, 300 bytes
 apart, in 4-byte pieces), zero-padded in shared memory, never copied.
+Above Dh = 256 (one SASRec head of d = 512, the JAX package's wide SASRec
+at `embed_dim=512`), both dtypes take the Dh-sliced layout (`layout`
+"dh-sliced", counted again in `.sliced_launches`): a third grid axis over
+the output's columns in slices of SLICE_COLS; each CTA computes the whole
+of S = Q K^T in chunks of SLICE_CHUNK columns of Q and K staged through
+shared memory, keeps the online softmax's m and l, and accumulates O for
+its own slice of V's columns. Every slice computes S in the same order, so
+every slice gets the same m and l bits; S is recomputed once a slice.
+
 Backward, as `_attn_core_bwd`: a recompute of the
 materialized [T, T] attention in plain tensor code
 (`reference.causal_attention`) and its autograd; a flash backward kernel is
@@ -61,7 +70,9 @@ SMEM_LIMIT = 232_448  # shared memory one block may opt in to on sm_90 (227 KB)
 TILE = 64  # kTile in csrc/attention.cu: the bf16 kernel's query rows a block, keys a tile
 F32_TILE = 32  # kF32Rows: the f32 kernel's query rows a block, keys a tile
 F32_LANE_ROWS = 4  # kLR: the f32 kernel's query rows a lane (4 warps a block)
-MAX_HEAD_DIM = 256  # kMaxDh
+MAX_HEAD_DIM = 256  # kMaxDh: the widest Dh of the designs above; past it the sliced layout
+SLICE_COLS = 256  # kSliceCols: the output columns a CTA of the sliced layout
+SLICE_CHUNK = 64  # kSlChunk: the columns of Q and K a stage of its ring
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -70,7 +81,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.seqrec_attention_forward
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
-                                  ctypes.c_void_p]
+                                  ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.seqrec_attention_error_string.argtypes = [ctypes.c_int]
     lib.seqrec_attention_error_string.restype = ctypes.c_char_p
@@ -86,7 +97,8 @@ def head_dim_padded(Dh: int) -> int:
 def launch_config(B: int, T: int, N: int, Dh: int, dtype: torch.dtype,
                   align: int = 16) -> Dict:
     """Design, grid, block, staging unit and shared memory of one launch;
-    ValueError for a shape the kernels cannot take: any Dh from 1 to 256.
+    ValueError only for an empty shape, another dtype or operands off their
+    element size.
     `align`: what the operands' bases and batch and time strides (in bytes)
     are all multiples of (`operand_align`; 16 for contiguous tensors of
     16-byte multiples). `unit_bytes`: the widest of 16, 8, 4 and 2 that
@@ -99,18 +111,38 @@ def launch_config(B: int, T: int, N: int, Dh: int, dtype: torch.dtype,
     a lane; Q and double-buffered K and V tiles of 32 rows of Dh4 + 4 f32
     (Dh4: Dh rounded up to the float4 groups, zero-padded) and each warp's
     [32][12] f32 P tile (at Dh = 64: 49 KB, four blocks an SM; at 256:
-    168 KB)."""
+    168 KB).
+
+    Above MAX_HEAD_DIM (`layout` "dh-sliced"): the grid gains a third axis,
+    `slices` = ceil(Dh / SLICE_COLS); the designs' query tiles, warps and
+    threads as above, each CTA over SLICE_COLS output columns. Shared
+    memory: a two-stage ring of Q's and K's SLICE_CHUNK-column chunks and
+    V's slice of a key tile (bf16: [2][2][64][72] and [64][264] bf16, 70 KB;
+    f32: [2][2][32][68] and [32][260] f32 and the warps' P tiles, 73 KB)."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"attention: dtype {dtype} not in float32/bfloat16")
     if min(B, T, N, Dh) <= 0:
         raise ValueError(f"attention: empty shape B={B} T={T} N={N} Dh={Dh}")
-    if Dh > MAX_HEAD_DIM:
-        raise ValueError(f"attention: needs Dh <= {MAX_HEAD_DIM} (Dh={Dh})")
     es = dtype.itemsize
     unit = unit_bytes(Dh * es, align)
     if unit < es or align < es:
         raise ValueError(f"attention: {dtype} operands must be {es}-byte aligned "
                          f"(align={align})")
+    if Dh > MAX_HEAD_DIM:
+        slices = -(-Dh // SLICE_COLS)
+        if dtype == torch.bfloat16:
+            return {"design": "mma.sync", "layout": "dh-sliced",
+                    "grid": [-(-T // TILE), B * N, slices], "threads": 128, "slices": slices,
+                    "slice_cols": SLICE_COLS, "k_chunk": SLICE_CHUNK, "unit_bytes": unit,
+                    "smem_bytes": (4 * TILE * (SLICE_CHUNK + 8) + TILE * (SLICE_COLS + 8)) * 2}
+        warps = F32_TILE // (2 * F32_LANE_ROWS)
+        p_tiles = warps * F32_TILE * (2 * F32_LANE_ROWS + 4)
+        return {"design": "flash-fma", "layout": "dh-sliced",
+                "grid": [-(-T // F32_TILE) * B * N, slices], "threads": 32 * warps,
+                "query_tile": F32_TILE, "key_tile": F32_TILE, "slices": slices,
+                "slice_cols": SLICE_COLS, "k_chunk": SLICE_CHUNK, "unit_bytes": unit,
+                "smem_bytes": (4 * F32_TILE * (SLICE_CHUNK + 4) + F32_TILE * (SLICE_COLS + 4)
+                               + p_tiles) * 4}
     if dtype == torch.bfloat16:
         kD = head_dim_padded(Dh)
         return {"design": "mma.sync", "grid": [-(-T // TILE), B * N], "threads": 128,
@@ -150,19 +182,22 @@ def _forward_kernel(q, k, v, scale: float) -> torch.Tensor:
     q, k, v = (_kernel_view(t) for t in (q, k, v))
     cfg = launch_config(B, T, N, Dh, q.dtype, operand_align(q, k, v))
     out = torch.empty((B, T, N, Dh), dtype=q.dtype, device=q.device)
+    sliced = cfg.get("layout") == "dh-sliced"
     lib = _lib()
     with torch.cuda.device(q.device):
         rc = lib.seqrec_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, N, T, Dh, _DTYPE_CODE[q.dtype],
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            float(scale), cfg["smem_bytes"], cfg["unit_bytes"],
+            float(scale), cfg["smem_bytes"], cfg["unit_bytes"], int(sliced),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
         msg = lib.seqrec_attention_error_string(rc).decode()
         raise RuntimeError(f"attention kernel launch failed: CUDA error {rc} ({msg})")
     causal_attention.launches += 1
+    if sliced:
+        causal_attention.sliced_launches += 1
     return out
 
 
@@ -204,3 +239,4 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 causal_attention.launches = 0
+causal_attention.sliced_launches = 0  # the Dh-sliced layout's launches above 256 (in .launches too)

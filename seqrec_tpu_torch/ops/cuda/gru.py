@@ -20,6 +20,25 @@ through L2 in a zeroed workspace, one grid barrier a step; the reverse
 publishes each step's d_hproj columns, then forms dh_prev from the whole
 of it (the K split) with no atomics.
 
+Past the grid layout's limit (`grid_max_hidden`: 2,112 in bf16, 1,056 in
+f32) the stepped layout (`layout` "stepped", `stepped_config`; counted
+again in `.stepped_launches`): every step of the scan is two launches, a
+GEMM of the whole [B, H] state (csrc/rnn.cuh's projection kernels, f32 out)
+and an elementwise gate kernel (csrc/gru.cu); the reverse's GEMM takes
+d_hproj as two bf16 terms in bf16. 2T launches a scan, no H too wide.
+
+Any H and D: the kernels need H % 4 == 0 and D % 4 == 0 (`launch_config`
+keeps that check, the kernels' mechanical limit); the public entry points
+(`gru_scan`, `gru_backward`, `gru_input_projection`) zero-pad the other
+widths to the next multiple of 4, each gate block on its own (`pad_gates`),
+launch the kernels on the padded tensors and slice the outputs back
+(counted again in `.padded_launches`). This is exact: a padded unit has
+zero weights and biases and starts from 0, so its gates are r = z = 1/2,
+n = tanh(0) = 0 and h' = (1 - z) 0 + z 0 = 0 at every step, and its
+cotangent stays 0; the padded rows and columns of W_h and W_x add only
+exact zeros to every real sum (`padded_launch_config` names the padded
+shape).
+
 Forward, two hand-written designs chosen by dtype (each computes the whole
 function in its own numerics; neither gives way to the other):
 
@@ -146,6 +165,7 @@ GRID_COUNTER = 256  # kGridCounter: workspace bytes before the planes (the barri
 GRID_UNITS = {torch.bfloat16: 16, torch.float32: 8}
 GRID_K = {torch.bfloat16: 32, torch.float32: 128}
 GRID_ROW_TILE = {torch.bfloat16: 16, torch.float32: 4}
+GATE_THREADS = 256  # kStepThreads in csrc/rnn.cuh: a stepped layout's gate kernel block
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -192,22 +212,92 @@ def _lib() -> ctypes.CDLL:
     bwd_grid.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + [
         ctypes.c_void_p]
     bwd_grid.restype = ctypes.c_int
+    fwd_step = lib.seqrec_gru_forward_stepped
+    fwd_step.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fwd_step.restype = ctypes.c_int
+    bwd_step = lib.seqrec_gru_backward_stepped
+    bwd_step.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    bwd_step.restype = ctypes.c_int
     lib.seqrec_gru_error_string.argtypes = [ctypes.c_int]
     lib.seqrec_gru_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_dims(B: int, T: int, H: int, dtype: torch.dtype) -> int:
+def _check_dims(B: int, T: int, H: int, dtype: torch.dtype, who: str = "gru") -> int:
     if dtype not in _DTYPE_CODE:
-        raise ValueError(f"gru: dtype {dtype} not in float32/bfloat16")
+        raise ValueError(f"{who}: dtype {dtype} not in float32/bfloat16")
     if min(B, T, H) <= 0:
-        raise ValueError(f"gru: empty shape B={B} T={T} H={H}")
-    limit = grid_max_hidden(dtype)
-    if H % 4 != 0 or H > limit:
-        raise ValueError(f"gru: needs H % 4 == 0 and H <= {limit} in {dtype} (H={H}; the grid "
-                         f"layout's unit slices must fit the card's {NUM_SMS} SMs and its W_h "
-                         f"values {SMEM_LIMIT} bytes of shared memory a CTA)")
+        raise ValueError(f"{who}: empty shape B={B} T={T} H={H}")
+    if H % 4 != 0:
+        raise ValueError(f"{who}: the kernels need H % 4 == 0 (H={H}; the public entry points "
+                         f"pad it, `padded_launch_config`)")
     return torch.empty((), dtype=dtype).element_size()
+
+
+def padded_width(n: int) -> int:
+    """n rounded up to the kernels' multiple of 4."""
+    return -(-n // 4) * 4
+
+
+def pad_gates(t: torch.Tensor, H: int, Hp: int, dim: int = -1) -> torch.Tensor:
+    """Axis `dim` of `t`, G blocks of H (gate blocks; G = 1 for a state),
+    zero-padded to G blocks of Hp, each block on its own (differentiable:
+    the gradient of the padding is dropped)."""
+    if Hp == H:
+        return t
+    dim %= t.dim()
+    G = t.shape[dim] // H
+    u = t.reshape(*t.shape[:dim], G, H, *t.shape[dim + 1:])
+    u = torch.nn.functional.pad(u, [0, 0] * (t.dim() - dim - 1) + [0, Hp - H])
+    return u.reshape(*t.shape[:dim], G * Hp, *t.shape[dim + 1:])
+
+
+def unpad_gates(t: torch.Tensor, H: int, Hp: int, dim: int = -1) -> torch.Tensor:
+    """`pad_gates` undone: the first H of each of axis `dim`'s blocks of Hp."""
+    if Hp == H:
+        return t
+    dim %= t.dim()
+    G = t.shape[dim] // Hp
+    u = t.reshape(*t.shape[:dim], G, Hp, *t.shape[dim + 1:]).narrow(dim + 1, 0, H)
+    return u.reshape(*t.shape[:dim], G * H, *t.shape[dim + 1:])
+
+
+def pad_scan_operands(x: torch.Tensor, states, w_x: torch.Tensor, w_h: torch.Tensor,
+                      biases) -> tuple:
+    """The padded route's operands, in the order given: x [B, T, D] with D
+    zero-padded to Dp, each state [B, H] and bias [G H] to Hp units a gate
+    block, W_x [D, G H] to [Dp, G Hp] and W_h [H, G H] to [Hp, G Hp] (Dp, Hp
+    = `padded_width` of D, H; zeros everywhere new; differentiable)."""
+    D, H = x.shape[-1], w_h.shape[0]
+    Dp, Hp = padded_width(D), padded_width(H)
+    pad = torch.nn.functional.pad
+    return (pad(x, (0, Dp - D)), [pad_gates(s, H, Hp) for s in states],
+            pad(pad_gates(w_x, H, Hp), (0, 0, 0, Dp - D)),
+            pad_gates(pad_gates(w_h, H, Hp), H, Hp, dim=0), [pad_gates(b, H, Hp) for b in biases])
+
+
+def stepped_config(B: int, T: int, H: int, dtype: torch.dtype, gates: int,
+                   reverse: bool) -> Dict:
+    """The stepped layout past `grid_max_hidden(dtype, gates)` (csrc/rnn.cuh,
+    either direction, the GRU's 3 gates or the LSTM's 4): each step a GEMM
+    of the [B, K] vector (forward: h [B, H] @ W_h [H, G H] + b_h; reverse:
+    the cotangent [B, G H], bf16 as `d_terms` (`dz_terms`) terms [B, 2 G H], @ W_h^T
+    stacked as often) into f32, then a gate kernel of GATE_THREADS threads
+    over the B H (row, unit) pairs; the reverse ends with one more gate
+    launch (dh0, and the LSTM's dc0). `launches_per_scan` counts both."""
+    bf16 = dtype == torch.bfloat16
+    K = (2 if bf16 else 1) * gates * H if reverse else H
+    N = H if reverse else gates * H
+    gemm = ({"gemm_grid": [-(-B // PROJ_TILE), -(-N // PROJ_TILE)], "gemm_threads": 128}
+            if bf16 else {"gemm_grid": [xproj_f32_grid(B, N)], "gemm_threads": F32_PROJ_THREADS})
+    cfg = {"design": "mma.sync" if bf16 else "fma", "layout": "stepped",
+           "gemm_m": B, "gemm_k": K, "gemm_n": N, **gemm,
+           "gate_grid": -(-(B * H) // GATE_THREADS), "threads": GATE_THREADS,
+           "launches_per_scan": 2 * T + (1 if reverse else 0),
+           "max_hidden": grid_max_hidden(dtype, gates)}
+    if reverse and bf16:  # named as the GRU's (d_hproj) and the LSTM's (dz) other layouts name it
+        return {**cfg, "d_terms" if gates == 3 else "dz_terms": 2}
+    return cfg
 
 
 def _grid_kpad(H: int, dtype: torch.dtype) -> int:
@@ -385,15 +475,20 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
 
     Above MAX_HIDDEN, either dtype (`layout` "grid", `grid_config`): the
     projection as above, then the grid-persistent recurrence, up to
-    `grid_max_hidden(dtype)`; ValueError past it, naming H and the limit."""
+    `grid_max_hidden(dtype)`; past it the projection, then the stepped
+    layout (`stepped_config`). ValueError only for an empty shape, another
+    dtype, or H or D not a multiple of 4 (`padded_launch_config`)."""
     es = _check_dims(B, T, H, dtype)
     if D <= 0 or D % 4 != 0:  # rows of x copied in 8- or 16-byte pieces
-        raise ValueError(f"gru: needs D*{es} % {4 * es} == 0 (D={D}, H={H})")
+        raise ValueError(f"gru: needs D*{es} % {4 * es} == 0 (D={D}, H={H}; the public entry "
+                         f"points pad it)")
     if H > MAX_HIDDEN:
         not_cluster(rows_per_cluster, cluster_size, H)
         xproj = ({"xproj_grid": [-(-(B * T) // PROJ_TILE), -(-(3 * H) // PROJ_TILE)],
                   "xproj_threads": 128} if dtype == torch.bfloat16 else
                  {"xproj_grid": [xproj_f32_grid(B * T, 3 * H)], "xproj_threads": F32_PROJ_THREADS})
+        if H > grid_max_hidden(dtype):
+            return {**stepped_config(B, T, H, dtype, 3, reverse=False), **xproj}
         return {**grid_config(B, H, dtype, reverse=False), **xproj}
     if dtype == torch.bfloat16:
         if rows_per_cluster is not None or cluster_size is not None:
@@ -422,6 +517,36 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
         cfg["rows_per_cluster"] <= 8
     return {**cfg, "w_in_regs": int(w_in_regs),
             "xproj_grid": [xproj_f32_grid(B * T, 3 * H)], "xproj_threads": F32_PROJ_THREADS}
+
+
+def padded_route(config, B: int, T: int, D: int, H: int, dtype: torch.dtype) -> Dict:
+    """A forward's launch at any D and H: `config` (a module's launch_config)
+    of the shape the public entry points pad it to (`padded_width`), with
+    `route` "padded" where that differs from (D, H)."""
+    Dp, Hp = padded_width(D), padded_width(H)
+    cfg = config(B, T, Dp, Hp, dtype)
+    if (Dp, Hp) == (D, H):
+        return cfg
+    return {**cfg, "route": "padded", "padded_from": [D, H], "padded_to": [Dp, Hp]}
+
+
+def padded_launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype) -> Dict:
+    """The GRU forward's launch at any D and H (`padded_route`)."""
+    return padded_route(launch_config, B, T, D, H, dtype)
+
+
+def padded_backward_route(config, B: int, T: int, H: int, dtype: torch.dtype, **kw) -> Dict:
+    """A reverse recurrence's launch at any H: `config` (a module's
+    backward_launch_config) of the width the wrapper pads H to, with `route`
+    "padded" where that differs from H."""
+    Hp = padded_width(H)
+    cfg = config(B, T, Hp, dtype, **kw)
+    return cfg if Hp == H else {**cfg, "route": "padded", "padded_from": H, "padded_to": Hp}
+
+
+def padded_backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype, **kw) -> Dict:
+    """The GRU reverse recurrence's launch at any H (`padded_backward_route`)."""
+    return padded_backward_route(backward_launch_config, B, T, H, dtype, **kw)
 
 
 def _wide_layout(B: int, hp: int) -> Dict:
@@ -501,12 +626,15 @@ def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
     Above MAX_HIDDEN, either dtype (`layout` "grid", `grid_config`): the
     grid-persistent reverse recurrence, K split by phases: each CTA
     publishes its units' d_hproj columns, then (after the grid barrier)
-    reads the whole d_hproj of its rows and forms dh_prev for its units."""
+    reads the whole d_hproj of its rows and forms dh_prev for its units;
+    past `grid_max_hidden(dtype)` the stepped layout (`stepped_config`)."""
     _check_dims(B, T, H, dtype)
     if dtype == torch.bfloat16 and h_in_dtype not in _DTYPE_CODE:
         raise ValueError(f"gru backward: h_in dtype {h_in_dtype} not in float32/bfloat16")
     if H > MAX_HIDDEN:
         not_cluster(rows_per_cluster, cluster_size, H)
+        if H > grid_max_hidden(dtype):
+            return stepped_config(B, T, H, dtype, 3, reverse=True)
         cfg = grid_config(B, H, dtype, reverse=True)
         return {**cfg, "d_terms": 2} if dtype == torch.bfloat16 else cfg
     if dtype == torch.bfloat16:
@@ -668,10 +796,15 @@ def gru_input_projection(x: torch.Tensor, w_x: torch.Tensor,
     if x.dtype != w_x.dtype or x.dtype not in _DTYPE_CODE:
         raise ValueError(f"gru: the input projection kernels take bf16 or f32 x and w_x of "
                          f"one dtype, got {x.dtype}, {w_x.dtype}")
-    if tuple(w_x.shape) != (D, N) or tuple(b_x.shape) != (N,) or D % 4 or N % 4:
-        raise ValueError(f"gru: input projection needs x [..., D], w_x [D, N], b_x [N] "
-                         f"with D % 4 == 0 and N % 4 == 0; got {tuple(x.shape)}, "
-                         f"{tuple(w_x.shape)}, {tuple(b_x.shape)}")
+    if tuple(w_x.shape) != (D, N) or tuple(b_x.shape) != (N,):
+        raise ValueError(f"gru: input projection needs x [..., D], w_x [D, N], b_x [N]; got "
+                         f"{tuple(x.shape)}, {tuple(w_x.shape)}, {tuple(b_x.shape)}")
+    if D % 4 or N % 4:  # zero rows and columns to multiples of 4: exact zeros in every sum
+        Dp, Np = padded_width(D), padded_width(N)
+        pad = torch.nn.functional.pad
+        xp = gru_input_projection(pad(x, (0, Dp - D)), pad(w_x, (0, Np - N, 0, Dp - D)),
+                                  pad(b_x, (0, Np - N)))
+        return xp[..., :N]
     args = [x.contiguous(), w_x.contiguous(), b_x.float().contiguous()]
     _check_operands(args, x.device)
     xp = torch.empty((*x.shape[:-1], N), dtype=torch.float32, device=x.device)
@@ -696,9 +829,10 @@ gru_input_projection.launches = 0
 gru_input_projection.f32_launches = 0
 
 
-def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None) -> torch.Tensor:
+def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None, padded: bool = False) -> torch.Tensor:
     """ys [B, T, H]; every operand already in its kernel dtype; `keep` the
-    [B, T] plane 1 - reset (the reset variant) or None."""
+    [B, T] plane 1 - reset (the reset variant) or None; `padded`: the
+    operands are the padded route's (counted in `.padded_launches`)."""
     B, T, D = x.shape
     H = h0.shape[-1]
     cfg = launch_config(B, T, D, H, x.dtype)
@@ -708,7 +842,18 @@ def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None) -> torch.Tensor:
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     keep_ptr = None if keep is None else keep.data_ptr()
-    if cfg.get("layout") == "grid":
+    if cfg.get("layout") == "stepped":
+        xp = gru_input_projection(x, w_x, b_x)
+        h_in = h0 if keep is None else h0.float() * keep[:, :1]  # step 0's h_in
+        hbuf = h_in.to(dtype).clone(memory_format=torch.contiguous_format)  # the kernels write it
+        hp = torch.empty((B, 3 * H), dtype=torch.float32, device=dev)
+        args = [xp, hbuf, w_h.contiguous(), b_h.contiguous()]
+        _check_operands(args + ([] if keep is None else [keep]) + [hp], dev)
+        with torch.cuda.device(dev):
+            rc = lib.seqrec_gru_forward_stepped(
+                *(a.data_ptr() for a in args), keep_ptr, ys.data_ptr(), hp.data_ptr(), B, T, H,
+                _DTYPE_CODE[dtype], stream)
+    elif cfg.get("layout") == "grid":
         xp = gru_input_projection(x, w_x, b_x)
         ws = torch.zeros(cfg["workspace_bytes"], dtype=torch.uint8, device=dev)
         args = [xp, h0.contiguous(), grid_pack(w_h, dtype, reverse=False), b_h.contiguous()]
@@ -753,12 +898,16 @@ def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None) -> torch.Tensor:
         gru_scan.wide_launches += 1
     elif cfg.get("layout") == "grid":
         gru_scan.grid_launches += 1
+    elif cfg.get("layout") == "stepped":
+        gru_scan.stepped_launches += 1
+    if padded:
+        gru_scan.padded_launches += 1
     return ys
 
 
 def gru_backward(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
                  g_ys: torch.Tensor, w_h: torch.Tensor,
-                 keep: Optional[torch.Tensor] = None
+                 keep: Optional[torch.Tensor] = None, *, padded: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The reverse recurrence of the GRU backward with the gate recompute
     folded in -> (d_xp [B,T,3H] f32, dh0 [B,H] f32, dn_r [B,T,H] f32),
@@ -769,6 +918,9 @@ def gru_backward(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
     tensor cores, reading h_in in its own dtype (bf16, or f32 where
     `reference.gru_bwd_project` scaled it by keep) and g_ys in bf16; f32
     weights run on thread block clusters, every operand in f32.
+    Any H: H % 4 != 0 is zero-padded (`pad_gates`) and the outputs sliced
+    back, counted again in `.padded_launches`; `padded`: the operands
+    already are the padded route's (`gru_scan`'s autograd), counted so too.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises."""
     if x_proj.device.type == "cpu":
@@ -776,6 +928,13 @@ def gru_backward(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
     if x_proj.device.type != "cuda":
         raise ValueError(f"gru: no kernel for device {x_proj.device}")
     B, T, H = h_in.shape
+    Hp = padded_width(H)
+    if Hp != H and tuple(w_h.shape) == (H, 3 * H):
+        d_xp, dh0, dn_r = gru_backward(
+            pad_gates(x_proj, H, Hp), pad_gates(h_proj, H, Hp), pad_gates(h_in, H, Hp),
+            pad_gates(g_ys, H, Hp), pad_gates(pad_gates(w_h, H, Hp), H, Hp, dim=0), keep,
+            padded=True)
+        return unpad_gates(d_xp, H, Hp), dh0[:, :H], dn_r[..., :H]
     dev = x_proj.device
     cfg = backward_launch_config(B, T, H, w_h.dtype, h_in_dtype=h_in.dtype)
     for name, t, shape in (("x_proj", x_proj, (B, T, 3 * H)), ("h_proj", h_proj, (B, T, 3 * H)),
@@ -789,7 +948,24 @@ def gru_backward(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
     dn_r = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if cfg.get("layout") == "grid":
+    if cfg.get("layout") == "stepped":
+        bf16 = w_h.dtype == torch.bfloat16
+        w_t = w_h.t()
+        w_t = torch.cat([w_t, w_t]).contiguous() if bf16 else w_t.float().contiguous()
+        zeros = torch.zeros(H, dtype=torch.float32, device=dev)
+        # Scratch: the step's d_hproj (bf16: its hi and lo terms), its product, dh z.
+        terms = torch.empty((B, (6 if bf16 else 3) * H), dtype=w_h.dtype, device=dev)
+        p, z = (torch.empty((B, H), dtype=torch.float32, device=dev) for _ in range(2))
+        args = [x_proj.float().contiguous(), h_proj.float().contiguous(),
+                (h_in if bf16 else h_in.float()).contiguous(),
+                g_ys.to(w_h.dtype).contiguous(), w_t, zeros]
+        _check_operands(args + ([] if keep is None else [keep]), dev)
+        with torch.cuda.device(dev):
+            rc = lib.seqrec_gru_backward_stepped(
+                *(a.data_ptr() for a in args), keep_ptr, d_xp.data_ptr(), dn_r.data_ptr(),
+                dh0.data_ptr(), terms.data_ptr(), p.data_ptr(), z.data_ptr(), B, T, H,
+                _DTYPE_CODE[w_h.dtype], _DTYPE_CODE[args[2].dtype], stream)
+    elif cfg.get("layout") == "grid":
         bf16 = w_h.dtype == torch.bfloat16
         ws = torch.zeros(cfg["workspace_bytes"], dtype=torch.uint8, device=dev)
         args = [x_proj.float().contiguous(), h_proj.float().contiguous(),
@@ -833,6 +1009,10 @@ def gru_backward(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
         gru_backward.wide_launches += 1
     elif cfg.get("layout") == "grid":
         gru_backward.grid_launches += 1
+    elif cfg.get("layout") == "stepped":
+        gru_backward.stepped_launches += 1
+    if padded:
+        gru_backward.padded_launches += 1
     return d_xp, dh0, dn_r
 
 
@@ -840,6 +1020,8 @@ gru_backward.launches = 0
 gru_backward.reset_launches = 0
 gru_backward.wide_launches = 0
 gru_backward.grid_launches = 0
+gru_backward.stepped_launches = 0  # the stepped layout past grid_max_hidden (a scan a count)
+gru_backward.padded_launches = 0  # launches at H % 4 != 0, zero-padded
 
 
 class _GRUScan(torch.autograd.Function):
@@ -847,13 +1029,14 @@ class _GRUScan(torch.autograd.Function):
     the working dtype; the counterpart of the JAX package's `_gru_core`."""
 
     @staticmethod
-    def forward(ctx, x, h0, w_x, w_h, b_x, b_h, reset):
+    def forward(ctx, x, h0, w_x, w_h, b_x, b_h, reset, padded=False, h_padded=False):
         if x.device.type == "cpu":
             ys, _ = plain(x, h0, w_x, w_h, b_x, b_h, reset_mask=reset)
         else:
             ys = _forward_kernel(x, h0, w_x, w_h, b_x, b_h,
-                                 None if reset is None else 1.0 - reset.float())
+                                 None if reset is None else 1.0 - reset.float(), padded)
         ctx.save_for_backward(x, ys, h0, w_x, w_h, b_x, b_h, reset)
+        ctx.h_padded = h_padded
         return ys
 
     @staticmethod
@@ -861,12 +1044,13 @@ class _GRUScan(torch.autograd.Function):
         x, ys, h0, w_x, w_h, b_x, b_h, reset = ctx.saved_tensors
         x_proj = plain_input_projection(x, w_x, b_x)
         d_xp, dh0, dW_h, db_h = reference.gru_bwd_math(
-            x_proj, ys, h0, w_h, b_h, g_ys, reset, scan=gru_backward)
+            x_proj, ys, h0, w_h, b_h, g_ys, reset,
+            scan=functools.partial(gru_backward, padded=ctx.h_padded))
         d_x = torch.matmul(d_xp, w_x.float().T).to(x.dtype)
         dW_x = torch.einsum("btd,btk->dk", x.float(), d_xp)
         db_x = d_xp.sum(dim=(0, 1))
         return (d_x, dh0.to(h0.dtype), dW_x.to(w_x.dtype), dW_h.to(w_h.dtype),
-                db_x, db_h, None)
+                db_x, db_h, None, None, None)
 
 
 def gru_scan(
@@ -884,7 +1068,9 @@ def gru_scan(
     step t) selects the reset variants of both kernels.
 
     A CPU tensor takes the plain versions (forward and reverse loop); a CUDA
-    tensor launches the kernels or raises."""
+    tensor launches the kernels or raises. On a CUDA tensor, a D or H that
+    is not a multiple of 4 takes the padded route (`pad_gates`, exact: see
+    the module note), counted again in `.padded_launches`."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gru: no kernel for device {x.device}")
     B, T, D = x.shape
@@ -896,10 +1082,18 @@ def gru_scan(
         )
     dtype = x.dtype
     zeros = torch.zeros(3 * H, dtype=torch.float32, device=x.device)
-    ys = _GRUScan.apply(
-        x, h0.to(dtype), w_x.to(dtype), w_h.to(dtype),
-        zeros if b_x is None else b_x.to(torch.float32),
-        zeros if b_h is None else b_h.to(torch.float32), reset_mask)
+    args = [x, h0.to(dtype), w_x.to(dtype), w_h.to(dtype),
+            zeros if b_x is None else b_x.to(torch.float32),
+            zeros if b_h is None else b_h.to(torch.float32)]
+    Dp, Hp = padded_width(D), padded_width(H)
+    padded = x.device.type == "cuda" and (Dp, Hp) != (D, H)
+    if padded:
+        x_, (h0_,), w_x_, w_h_, biases = pad_scan_operands(args[0], [args[1]], args[2], args[3],
+                                                           args[4:])
+        args = [x_, h0_, w_x_, w_h_, *biases]
+    ys = _GRUScan.apply(*args, reset_mask, padded, padded and Hp != H)
+    if padded:
+        ys = ys[..., :H]
     return ys, ys[:, -1]
 
 
@@ -907,3 +1101,5 @@ gru_scan.launches = 0
 gru_scan.reset_launches = 0
 gru_scan.wide_launches = 0
 gru_scan.grid_launches = 0
+gru_scan.stepped_launches = 0  # the stepped layout past grid_max_hidden (a scan a count)
+gru_scan.padded_launches = 0  # launches at D or H % 4 != 0, zero-padded

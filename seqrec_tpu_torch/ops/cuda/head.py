@@ -22,6 +22,13 @@ split (`layout` "k-split", counted again in `.ksplit_launches`): bf16 on
 in chunks of 128 through the negatives' ring, each S-tile's logits summed in
 f32 across the chunks; f32 the design above on 32-row blocks.
 
+Past `max_hidden` (the resident rows' limit) both dtypes stream h (`layout`
+"streamed", counted again in `.streamed_launches`): a stage of the ring
+brings the block's h rows of its k chunk beside the negatives' chunk, so no
+row stays resident and no H is too wide (bf16 64-row blocks, 128-deep
+chunks; f32 64-row blocks, 32-deep chunks); each S-tile's f32 logits are
+summed across the chunks as in the K split.
+
 Every H from 1 to 256 in both dtypes: bf16 copies a negative's row in the
 widest unit of 16, 8, 4 or 2 bytes that divides its bytes and the bases
 (zero-filled to Hp in shared memory) and reads h as bf16 pairs, or one bf16
@@ -76,6 +83,10 @@ KSPLIT_ROWS = 64  # kKsRows: bf16 rows a block (4 warps), their h resident in sh
 KSPLIT_CHUNK = 128  # kKsChunk: k a stage of the negatives' ring
 KSPLIT_STAGE = S_TILE * (KSPLIT_CHUNK + 8) * 2 + S_TILE * 8  # ksplit_stage_bytes
 F32_KSPLIT_ROWS = 32  # f32 rows a block past F32_MAX_H (hT resident)
+# Past max_hidden, h streamed (csrc/softmax_head.cu kstream_stage_bytes,
+# head_f32_stream_smem): a stage also holds the block's h rows of its chunk.
+STREAM_STAGE = KSPLIT_STAGE + KSPLIT_ROWS * (KSPLIT_CHUNK + 8) * 2
+F32_STREAM_ROWS = 64
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -83,12 +94,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("softmax_head")
     fn = lib.seqrec_head_forward
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     mma = lib.seqrec_head_forward_mma
     mma.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     mma.restype = ctypes.c_int
     lib.seqrec_head_error_string.argtypes = [ctypes.c_int]
@@ -110,11 +121,18 @@ def _f32_smem(H: int, rows: int) -> int:
     return (hp * (rows + 4) + F32_STAGES * F32_K_CHUNK * (F32_S_TILE + 4) + 4 * rows) * 4
 
 
+def _f32_stream_smem(rows: int) -> int:
+    """head_f32_stream_smem: F32_STAGES stages of a 32-deep k chunk of the
+    negatives [32][132] and of the block's h rows [32][rows + 4], then the
+    positive logits, the odd warps' (m, l) and the targets."""
+    return (F32_STAGES * F32_K_CHUNK * (F32_S_TILE + 4 + rows + 4) + 4 * rows) * 4
+
+
 @functools.lru_cache(maxsize=None)
 def max_hidden(dtype: torch.dtype) -> int:
-    """The widest H the head takes in `dtype`: the widest padded width whose
-    K split's resident rows still fit SMEM_LIMIT (1,280 in bf16, 1,376 in
-    f32)."""
+    """The widest H of the head's resident layouts in `dtype`: the widest
+    padded width whose K split's resident rows still fit SMEM_LIMIT (1,280
+    in bf16, 1,376 in f32). Past it h is streamed."""
     if dtype == torch.bfloat16:
         unit, fits = KSPLIT_CHUNK, _ksplit_smem
     else:
@@ -126,8 +144,9 @@ def max_hidden(dtype: torch.dtype) -> int:
 
 
 def launch_config(N: int, S: int, H: int, dtype: torch.dtype, align: int = 16) -> Dict:
-    """Design, grid and shared-memory layout for one launch; ValueError for
-    a shape the kernel cannot take: any H from 1 to 256, any S. `align`:
+    """Design, grid and shared-memory layout for one launch; ValueError only
+    for an empty shape, another dtype or operands off their element size:
+    any H, any S. `align`:
     what the bases of h, pos_emb and neg_emb are all multiples of (16 for
     tensors of their own).
 
@@ -153,7 +172,12 @@ def launch_config(N: int, S: int, H: int, dtype: torch.dtype, align: int = 16) -
     memory ([64][Hp + 8] bf16, Hp = H padded to KSPLIT_CHUNK) and H walked
     in chunks of 128 through the ring (stages of 64 negatives x 128 k), each
     S-tile's logits summed in f32 across the chunks; f32 the design above on
-    blocks of F32_KSPLIT_ROWS rows, whose transposed h fits."""
+    blocks of F32_KSPLIT_ROWS rows, whose transposed h fits.
+
+    Past `max_hidden(dtype)` (`layout` "streamed"): the K split with h's
+    chunks streamed through the ring beside the negatives' (bf16 stages of
+    STREAM_STAGE bytes, 64-row blocks; f32 64-row blocks of 128 threads,
+    stages of both 32-deep chunks): nothing resident, any H."""
     if dtype not in _DTYPES:
         raise ValueError(f"softmax_head: dtype {dtype} not in float32/bfloat16")
     if min(N, S, H) <= 0:
@@ -163,9 +187,19 @@ def launch_config(N: int, S: int, H: int, dtype: torch.dtype, align: int = 16) -
         raise ValueError(f"softmax_head: {dtype} operands must be {es}-byte aligned "
                          f"(align={align})")
     limit = max_hidden(dtype)
+    if H > limit and dtype == torch.bfloat16:
+        return {"design": "mma.sync", "layout": "streamed", "grid": -(-N // KSPLIT_ROWS),
+                "threads": 2 * KSPLIT_ROWS, "rows_per_block": KSPLIT_ROWS,
+                "hidden_padded": -(-H // KSPLIT_CHUNK) * KSPLIT_CHUNK, "s_tile": S_TILE,
+                "k_chunk": KSPLIT_CHUNK, "unit_bytes": unit_bytes(H * 2, align),
+                "smem_bytes": STAGES * STREAM_STAGE, "max_hidden": limit}
     if H > limit:
-        raise ValueError(f"softmax_head: {dtype} needs H <= {limit} (H={H}; the K split's "
-                         f"resident h rows must fit {SMEM_LIMIT} bytes of shared memory)")
+        return {"design": "simt-stream", "layout": "streamed", "grid": -(-N // F32_STREAM_ROWS),
+                "threads": 2 * F32_STREAM_ROWS, "rows_per_block": F32_STREAM_ROWS,
+                "hidden_padded": -(-H // F32_K_CHUNK) * F32_K_CHUNK, "s_tile": F32_S_TILE,
+                "k_chunk": F32_K_CHUNK, "stages": F32_STAGES,
+                "pos_unit_bytes": 16 if unit_bytes(H * 4, align) == 16 else 4,
+                "smem_bytes": _f32_stream_smem(F32_STREAM_ROWS), "max_hidden": limit}
     if dtype == torch.bfloat16 and H > MMA_MAX_H:
         return {"design": "mma.sync", "layout": "k-split", "grid": -(-N // KSPLIT_ROWS),
                 "threads": 2 * KSPLIT_ROWS, "rows_per_block": KSPLIT_ROWS,
@@ -227,23 +261,26 @@ def _forward_kernel(h, pos_emb, neg_emb, targets, neg_ids, pos_log_q,
         cfg = launch_config(N, S, H, h.dtype,
                             unit_bytes(16, *(a.data_ptr() for a in args[:3])))
     nll = torch.empty((N,), dtype=torch.float32, device=h.device)
+    streamed = cfg.get("layout") == "streamed"
     lib = _lib()
     stream = torch.cuda.current_stream(h.device).cuda_stream
     with torch.cuda.device(h.device):
         if cfg["design"] == "mma.sync":
             rc = lib.seqrec_head_forward_mma(*(a.data_ptr() for a in args), nll.data_ptr(),
                                              N, S, H, cfg["smem_bytes"], cfg["unit_bytes"],
-                                             stream)
+                                             int(streamed), stream)
         else:
             rc = lib.seqrec_head_forward(*(a.data_ptr() for a in args), nll.data_ptr(), N, S,
                                          H, cfg["rows_per_block"], cfg["smem_bytes"],
-                                         cfg["pos_unit_bytes"], stream)
+                                         cfg["pos_unit_bytes"], int(streamed), stream)
     if rc != 0:
         msg = lib.seqrec_head_error_string(rc).decode()
         raise RuntimeError(f"softmax_head kernel launch failed: CUDA error {rc} ({msg})")
     sampled_softmax_nll.launches += 1
     if cfg.get("layout") == "k-split":
         sampled_softmax_nll.ksplit_launches += 1
+    elif streamed:
+        sampled_softmax_nll.streamed_launches += 1
     return nll
 
 
@@ -279,6 +316,7 @@ def sampled_softmax_nll(h, pos_emb, neg_emb, targets, neg_ids, pos_log_q,
 
 sampled_softmax_nll.launches = 0
 sampled_softmax_nll.ksplit_launches = 0  # the K split's launches above 256 (in .launches too)
+sampled_softmax_nll.streamed_launches = 0  # past max_hidden, h streamed (in .launches too)
 
 
 def sampled_softmax_loss(

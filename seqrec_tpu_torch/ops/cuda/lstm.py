@@ -20,7 +20,18 @@ in a zeroed workspace, one grid barrier a step; a (unit, row) pair's four
 gate sums land in one lane, which alone reads and writes its f32 cell in the
 workspace. The reverse publishes each step's dz columns, then forms dh_prev
 from the whole of it (the K split) with no atomics. Up to
-`grid_max_hidden`: 1,792 in bf16, 1,056 in f32.
+`grid_max_hidden`: 1,792 in bf16, 1,056 in f32. Past it the stepped layout
+(`gru.stepped_config` with four gates, `layout` "stepped", counted again in
+`.stepped_launches`): each step a GEMM of the [B, H] state (csrc/rnn.cuh's
+projection kernels) and an elementwise gate kernel (csrc/lstm.cu) that
+carries c in f32; the reverse's GEMM takes dz as two bf16 terms in bf16.
+
+Any H and D: as the GRU's (`gru.pad_gates`), the public entry points
+(`lstm_scan`, `lstm_backward`, `lstm_input_projection`) zero-pad H and D to
+multiples of 4, each gate block on its own, and slice the outputs back
+(counted again in `.padded_launches`). Exact: a padded unit has zero
+weights and bias and starts from h = c = 0, so c' = f 0 + i tanh(0) = 0 and
+h' = o tanh(0) = 0 at every step, and its cotangents stay 0.
 
 Two hand-written designs chosen by dtype (each computes the whole function
 in its own numerics; neither gives way to the other):
@@ -76,17 +87,21 @@ weight gradients are rounded to the weights' working dtype.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.ops import reference
-from seqrec_tpu_torch.ops.cuda.gru import (F32_PROJ_THREADS, MMA_ROWS, NUM_SMS, RING_STAGES,
+from seqrec_tpu_torch.ops.cuda.gru import (F32_PROJ_THREADS, MMA_ROWS, RING_STAGES,
                                            SMEM_LIMIT, cluster_config, grid_layout, grid_pack,
                                            grid_max_hidden as _grid_max_hidden,
-                                           not_cluster, plain_input_projection,
+                                           not_cluster, pad_gates, pad_scan_operands,
+                                           padded_backward_route, padded_route, padded_width,
+                                           plain_input_projection, stepped_config, unpad_gates,
                                            xproj_f32_grid)
+from seqrec_tpu_torch.ops.cuda.gru import _check_dims as _gru_check_dims
 
 plain = reference.lstm_scan
 plain_backward = reference.lstm_bwd_scan
@@ -141,22 +156,19 @@ def _lib() -> ctypes.CDLL:
     bwd_grid.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [
         ctypes.c_void_p]
     bwd_grid.restype = ctypes.c_int
+    fwd_step = lib.seqrec_lstm_forward_stepped
+    fwd_step.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fwd_step.restype = ctypes.c_int
+    bwd_step = lib.seqrec_lstm_backward_stepped
+    bwd_step.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    bwd_step.restype = ctypes.c_int
     lib.seqrec_lstm_error_string.argtypes = [ctypes.c_int]
     lib.seqrec_lstm_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _check_dims(B: int, T: int, H: int, dtype: torch.dtype) -> int:
-    if dtype not in _DTYPE_CODE:
-        raise ValueError(f"lstm: dtype {dtype} not in float32/bfloat16")
-    if min(B, T, H) <= 0:
-        raise ValueError(f"lstm: empty shape B={B} T={T} H={H}")
-    limit = grid_max_hidden(dtype)
-    if H % 4 != 0 or H > limit:
-        raise ValueError(f"lstm: needs H % 4 == 0 and H <= {limit} in {dtype} (H={H}; the grid "
-                         f"layout's unit slices must fit the card's {NUM_SMS} SMs and their W_h "
-                         f"values of four gates {SMEM_LIMIT} bytes of shared memory a CTA)")
-    return torch.empty((), dtype=dtype).element_size()
+    return _gru_check_dims(B, T, H, dtype, "lstm")
 
 
 def grid_max_hidden(dtype: torch.dtype) -> int:
@@ -249,12 +261,19 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
 
     Above MAX_HIDDEN, either dtype (`layout` "grid", `grid_config`): the
     projection as above, then the grid-persistent recurrence, up to
-    `grid_max_hidden(dtype)`; ValueError past it, naming H and the limit."""
+    `grid_max_hidden(dtype)`; past it the projection, then the stepped
+    layout (`gru.stepped_config` with four gates). ValueError only for an
+    empty shape, another dtype, or H or D not a multiple of 4
+    (`padded_launch_config`)."""
     es = _check_dims(B, T, H, dtype)
     if D <= 0 or D % 4 != 0:  # x rows in 16-byte (f32) or 8-byte (bf16) pieces
-        raise ValueError(f"lstm: needs D*{es} % {4 * es} == 0 (D={D}, H={H})")
+        raise ValueError(f"lstm: needs D*{es} % {4 * es} == 0 (D={D}, H={H}; the public entry "
+                         f"points pad it)")
     if H > MAX_HIDDEN:
         not_cluster(rows_per_cluster, cluster_size, H, "lstm")
+        if H > grid_max_hidden(dtype):
+            return {**stepped_config(B, T, H, dtype, GRID_GATES, reverse=False),
+                    **_xproj_layout(B, T, H, dtype)}
         return {**grid_config(B, H, dtype, reverse=False), **_xproj_layout(B, T, H, dtype)}
     if dtype == torch.bfloat16:
         R = _mma_rows(rows_per_cluster, cluster_size)
@@ -308,10 +327,12 @@ def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
     grid-persistent reverse recurrence, K split by phases: each CTA
     publishes its units' dz columns (bf16: as `dz_terms` bf16 terms), then
     (after the grid barrier) reads the whole dz of its rows and forms
-    dh_prev for its units."""
+    dh_prev for its units; past `grid_max_hidden(dtype)` the stepped layout."""
     _check_dims(B, T, H, dtype)
     if H > MAX_HIDDEN:
         not_cluster(rows_per_cluster, cluster_size, H, "lstm")
+        if H > grid_max_hidden(dtype):
+            return stepped_config(B, T, H, dtype, GRID_GATES, reverse=True)
         cfg = grid_config(B, H, dtype, reverse=True)
         return {**cfg, "dz_terms": 2} if dtype == torch.bfloat16 else cfg
     if dtype == torch.bfloat16:
@@ -329,6 +350,16 @@ def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
         }
     return cluster_config(B, H, 4 * H, BWD_UNITS, 8, cluster_size, rows_per_cluster,
                           LSTM_CLUSTERS, "lstm backward", unit_block=BWD_UNITS)
+
+
+def padded_launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype) -> Dict:
+    """The LSTM forward's launch at any D and H (`gru.padded_route`)."""
+    return padded_route(launch_config, B, T, D, H, dtype)
+
+
+def padded_backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype, **kw) -> Dict:
+    """The LSTM reverse recurrence's launch at any H (`gru.padded_backward_route`)."""
+    return padded_backward_route(backward_launch_config, B, T, H, dtype, **kw)
 
 
 def _check_operands(args, dev) -> None:
@@ -400,10 +431,13 @@ def lstm_input_projection(x: torch.Tensor, w_x: torch.Tensor,
     if x.dtype != w_x.dtype or x.dtype not in _DTYPE_CODE:
         raise ValueError(f"lstm: the input projection kernels take bf16 or f32 x and w_x of "
                          f"one dtype, got {x.dtype}, {w_x.dtype}")
-    if x.shape[-1] != D or tuple(b.shape) != (N4,) or D % 4 or N4 % 4:
-        raise ValueError(f"lstm: input projection needs x [..., D], w_x [D, 4H], b [4H] "
-                         f"with D % 4 == 0 and 4H % 4 == 0; got {tuple(x.shape)}, "
-                         f"{tuple(w_x.shape)}, {tuple(b.shape)}")
+    if x.shape[-1] != D or tuple(b.shape) != (N4,):
+        raise ValueError(f"lstm: input projection needs x [..., D], w_x [D, 4H], b [4H]; got "
+                         f"{tuple(x.shape)}, {tuple(w_x.shape)}, {tuple(b.shape)}")
+    if D % 4:  # zero rows of W_x and columns of x to a multiple of 4: exact zeros in every sum
+        Dp = padded_width(D)
+        pad = torch.nn.functional.pad
+        return lstm_input_projection(pad(x, (0, Dp - D)), pad(w_x, (0, 0, 0, Dp - D)), b)
     args = [x.contiguous(), w_x.contiguous(), b.float().contiguous()]
     _check_operands(args, x.device)
     xp = torch.empty((*x.shape[:-1], N4), dtype=torch.float32, device=x.device)
@@ -438,10 +472,12 @@ def _keep_plane(keep: Optional[torch.Tensor], B: int, T: int) -> Optional[torch.
     return keep.reshape(B, T).float().contiguous()
 
 
-def _forward_kernel(x, h0, c0, w_x, w_h, b, with_cells: bool, keep=None):
+def _forward_kernel(x, h0, c0, w_x, w_h, b, with_cells: bool, keep=None,
+                    padded: bool = False):
     """(ys [B, T, H] in x.dtype, c_last [B, H] f32, cs [B, T, H] f32 or
     None); every operand already in its kernel dtype; `keep` the [B, T]
-    plane 1 - reset (the reset variant) or None."""
+    plane 1 - reset (the reset variant) or None; `padded`: the operands are
+    the padded route's (counted in `.padded_launches`)."""
     B, T, D = x.shape
     H = h0.shape[-1]
     cfg = launch_config(B, T, D, H, x.dtype)
@@ -455,6 +491,27 @@ def _forward_kernel(x, h0, c0, w_x, w_h, b, with_cells: bool, keep=None):
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     xp = lstm_input_projection(x, w_x, b)
+    if cfg.get("layout") == "stepped":
+        h_in = h0 if keep is None else h0.float() * keep[:, :1]  # step 0's h_in
+        hbuf = h_in.to(dtype).clone(memory_format=torch.contiguous_format)  # the kernels write it
+        c_buf = c0.float().clone(memory_format=torch.contiguous_format)  # c_T after the scan
+        zeros = torch.zeros(4 * H, dtype=torch.float32, device=dev)
+        hp = torch.empty((B, 4 * H), dtype=torch.float32, device=dev)
+        args = [xp, hbuf, c_buf, w_h.contiguous(), zeros]
+        _check_operands(args + ([] if keep is None else [keep]) + [hp], dev)
+        with torch.cuda.device(dev):
+            rc = lib.seqrec_lstm_forward_stepped(
+                *(a.data_ptr() for a in args), keep_ptr, ys.data_ptr(), cs_ptr, hp.data_ptr(),
+                B, T, H, _DTYPE_CODE[dtype], stream)
+        _raise_on(rc, lib, "forward")
+        if keep is None:
+            lstm_scan.launches += 1
+        else:
+            lstm_scan.reset_launches += 1
+        lstm_scan.stepped_launches += 1
+        if padded:
+            lstm_scan.padded_launches += 1
+        return ys, c_buf, cs
     grid = cfg.get("layout") == "grid"
     mma = cfg["design"] == "mma.sync"
     if grid:
@@ -484,6 +541,8 @@ def _forward_kernel(x, h0, c0, w_x, w_h, b, with_cells: bool, keep=None):
         lstm_scan.reset_launches += 1
     if grid:
         lstm_scan.grid_launches += 1
+    if padded:
+        lstm_scan.padded_launches += 1
     return ys, c_last, cs
 
 
@@ -491,20 +550,30 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
                   o: torch.Tensor, tanh_c: torch.Tensor, c_in: torch.Tensor,
                   g_ys: torch.Tensor, w_h: torch.Tensor,
                   keep: Optional[torch.Tensor] = None,
-                  dc_last: Optional[torch.Tensor] = None
+                  dc_last: Optional[torch.Tensor] = None, *, padded: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The reverse recurrence of the LSTM backward -> (dz [B,T,4H] f32,
     dh0 [B,H] f32, dc0 [B,H] f32), `reference.lstm_bwd_scan`'s contract;
     with `keep` ([B,T,1] or [B,T], 1 - reset) the reset variant, dh_prev and
     dc_prev *= keep[t] (`c_in` arrives scaled by `reference.lstm_bwd_hoist`).
     The kernel works in g_ys's dtype (that of the forward's h): bf16 on the
-    tensor cores, f32 on the CUDA cores. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    tensor cores, f32 on the CUDA cores. Any H: H % 4 != 0 is zero-padded
+    and the outputs sliced back, counted again in `.padded_launches`;
+    `padded`: the operands already are the padded route's (`lstm_scan`'s
+    autograd), counted so too. A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises."""
     if i.device.type == "cpu":
         return plain_backward(i, f, g, o, tanh_c, c_in, g_ys, w_h, keep, dc_last)
     if i.device.type != "cuda":
         raise ValueError(f"lstm: no kernel for device {i.device}")
     B, T, H = i.shape
+    Hp = padded_width(H)
+    if Hp != H and tuple(w_h.shape) == (H, 4 * H):  # zero-padded (exact; module note)
+        planes = [pad_gates(t, H, Hp) for t in (i, f, g, o, tanh_c, c_in, g_ys)]
+        dz, dh0, dc0 = lstm_backward(
+            *planes, pad_gates(pad_gates(w_h, H, Hp), H, Hp, dim=0), keep,
+            None if dc_last is None else pad_gates(dc_last, H, Hp), padded=True)
+        return unpad_gates(dz, H, Hp), dh0[:, :H], dc0[:, :H]
     dtype, dev = g_ys.dtype, i.device
     cfg = backward_launch_config(B, T, H, dtype)
     for name, t in (("f", f), ("g", g), ("o", o), ("tanh_c", tanh_c), ("c_in", c_in),
@@ -518,9 +587,13 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
     keep = _keep_plane(keep, B, T)
     planes = [t.float().contiguous() for t in (i, f, g, o, tanh_c, c_in)]
     grid = cfg.get("layout") == "grid"
+    stepped = cfg.get("layout") == "stepped"
     mma = cfg["design"] == "mma.sync"
     if grid:
         w = grid_pack(w_h, dtype, reverse=True)
+    elif stepped:  # W_h^T, stacked twice in bf16: the rows of dz's hi and lo terms
+        w = w_h.to(dtype).t()
+        w = torch.cat([w, w]).contiguous() if dtype == torch.bfloat16 else w.float().contiguous()
     else:
         w = backward_fragments(w_h) if mma else w_h.float().contiguous()
     args = planes + [g_ys.contiguous(), w]
@@ -536,7 +609,15 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if grid:
+        if stepped:  # scratch: the step's dz (bf16: hi and lo terms), its product, the dc carry
+            zeros = torch.zeros(H, dtype=torch.float32, device=dev)
+            terms = torch.empty((B, (8 if dtype == torch.bfloat16 else 4) * H), dtype=dtype,
+                                device=dev)
+            p, dc = (torch.empty((B, H), dtype=torch.float32, device=dev) for _ in range(2))
+            rc = lib.seqrec_lstm_backward_stepped(
+                *ptrs[:8], zeros.data_ptr(), *ptrs[8:], terms.data_ptr(), p.data_ptr(),
+                dc.data_ptr(), B, T, H, _DTYPE_CODE[dtype], stream)
+        elif grid:
             rc = lib.seqrec_lstm_backward_grid(
                 *ptrs, ws.data_ptr(), B, T, H, _DTYPE_CODE[dtype], cfg["row_groups"],
                 cfg["smem_bytes"], cfg["workspace_bytes"], stream)
@@ -553,12 +634,18 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
         lstm_backward.reset_launches += 1
     if grid:
         lstm_backward.grid_launches += 1
+    elif stepped:
+        lstm_backward.stepped_launches += 1
+    if padded:
+        lstm_backward.padded_launches += 1
     return dz, dh0, dc0
 
 
 lstm_backward.launches = 0
 lstm_backward.reset_launches = 0
 lstm_backward.grid_launches = 0
+lstm_backward.stepped_launches = 0  # the stepped layout past grid_max_hidden (a scan a count)
+lstm_backward.padded_launches = 0  # launches at H % 4 != 0, zero-padded
 
 
 class _LSTMScan(torch.autograd.Function):
@@ -568,16 +655,18 @@ class _LSTMScan(torch.autograd.Function):
     plane for the backward (the kernel writes it as it goes)."""
 
     @staticmethod
-    def forward(ctx, x, h0, c0, w_x, w_h, b, reset, with_cells):
+    def forward(ctx, x, h0, c0, w_x, w_h, b, reset, with_cells, padded=False,
+                h_padded=False):
         if x.device.type == "cpu":
             ys, (_, c_last) = plain(x, h0, c0, w_x, w_h, b, reset_mask=reset)
             cs = None
         else:
             ys, c_last, cs = _forward_kernel(
                 x, h0, c0, w_x, w_h, b, with_cells,
-                None if reset is None else 1.0 - reset.float())
+                None if reset is None else 1.0 - reset.float(), padded)
             c_last = c_last.to(x.dtype)
         ctx.save_for_backward(x, ys, cs, h0, c0, w_x, w_h, b, reset)
+        ctx.h_padded = h_padded
         return ys, c_last
 
     @staticmethod
@@ -588,11 +677,11 @@ class _LSTMScan(torch.autograd.Function):
             cs = reference.lstm_recompute_cells(x_proj, ys, h0, c0, w_h, reset)
         d_xp, dh0, dc0, dW_h, db = reference.lstm_bwd_math(
             x_proj, ys, cs, h0, c0, w_h, g_ys, reset, dc_last=g_c,
-            scan=lstm_backward)
+            scan=functools.partial(lstm_backward, padded=ctx.h_padded))
         d_x = torch.matmul(d_xp, w_x.float().T).to(x.dtype)
         dW_x = torch.einsum("btd,btk->dk", x.float(), d_xp)
         return (d_x, dh0.to(h0.dtype), dc0.to(c0.dtype), dW_x.to(w_x.dtype),
-                dW_h.to(w_h.dtype), db, None, None)
+                dW_h.to(w_h.dtype), db, None, None, None, None)
 
 
 def lstm_scan(
@@ -611,7 +700,9 @@ def lstm_scan(
     variants of both kernels.
 
     A CPU tensor takes the plain versions (forward and reverse loop); a
-    CUDA tensor launches the kernels or raises."""
+    CUDA tensor launches the kernels or raises. On a CUDA tensor, a D or H
+    that is not a multiple of 4 takes the padded route (`gru.pad_gates`,
+    exact: see the module note), counted again in `.padded_launches`."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm: no kernel for device {x.device}")
     B, T, D = x.shape
@@ -626,10 +717,20 @@ def lstm_scan(
            else b.to(torch.float32))
     operands = (x, h0.to(dtype), c0.to(dtype), w_x.to(dtype), w_h.to(dtype), b32)
     with_cells = torch.is_grad_enabled() and any(t.requires_grad for t in operands)
-    ys, c_last = _LSTMScan.apply(*operands, reset_mask, with_cells)
+    Dp, Hp = padded_width(D), padded_width(H)
+    padded = x.device.type == "cuda" and (Dp, Hp) != (D, H)
+    if padded:
+        x_, states, w_x_, w_h_, (b_,) = pad_scan_operands(
+            operands[0], operands[1:3], operands[3], operands[4], operands[5:])
+        operands = (x_, *states, w_x_, w_h_, b_)
+    ys, c_last = _LSTMScan.apply(*operands, reset_mask, with_cells, padded, padded and Hp != H)
+    if padded:
+        ys, c_last = ys[..., :H], c_last[..., :H]
     return ys, (ys[:, -1], c_last)
 
 
 lstm_scan.launches = 0
 lstm_scan.reset_launches = 0
 lstm_scan.grid_launches = 0
+lstm_scan.stepped_launches = 0  # the stepped layout past grid_max_hidden (a scan a count)
+lstm_scan.padded_launches = 0  # launches at D or H % 4 != 0, zero-padded

@@ -215,8 +215,8 @@ def _reset_plane(B, T, device, seed=0):
 def test_gru_kernel_without_biases_and_raises_on_reset(cuda):
     """Without biases the kernel matches the plain scan; a reset plane runs
     the reset variant (which raised before session-parallel training was
-    ported) and matches the plain scan; a plane or shape it cannot take
-    raises."""
+    ported) and matches the plain scan; a plane it cannot take raises, and
+    H = 6 (refused before) takes the padded route."""
     x, h0, w_x, w_h, _, _ = _gru_args(4, 5, 16, 16, torch.float32, cuda, seed=2)
     ys, _ = k_gru.gru_scan(x, h0, w_x, w_h)
     want, _ = k_gru.plain(x, h0, w_x, w_h)
@@ -230,8 +230,11 @@ def test_gru_kernel_without_biases_and_raises_on_reset(cuda):
     torch.testing.assert_close(ys, want, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="keep plane"):
         k_gru.gru_scan(x, h0, w_x, w_h, reset_mask=reset[:, :4])
-    with pytest.raises(ValueError, match="H % 4"):
-        k_gru.gru_scan(x, h0[:, :6], w_x[:, :18], w_h[:6, :18])
+    before = k_gru.gru_scan.padded_launches
+    ys, _ = k_gru.gru_scan(x, h0[:, :6], w_x[:, :18], w_h[:6, :18])
+    assert k_gru.gru_scan.padded_launches == before + 1 and tuple(ys.shape) == (4, 5, 6)
+    want, _ = k_gru.plain(x, h0[:, :6], w_x[:, :18], w_h[:6, :18])
+    torch.testing.assert_close(ys, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
@@ -741,8 +744,9 @@ def test_head_f32_kernel_takes_views_off_a_16_byte_boundary(cuda):
 def test_head_kernel_raises_on_what_it_cannot_take(cuda):
     """2,000 negatives (past what the first f32 design could stage) launch;
     an f32 width not a multiple of 4 (H = 30), which the float4 design
-    refused, launches too, and so does H = 260 (the K split); a width past
-    the K split's limit (1,376 in f32), or operands of two dtypes, raise."""
+    refused, launches too, and so does H = 260 (the K split) and a width
+    past the K split's limit (1,376 in f32: the streamed layout, within the
+    K split's f32 1e-4); operands of two dtypes raise."""
     h, pos, neg, targets, neg_ids, plq, nlq = _head_args(8, 16, 32, torch.float32, cuda)
     many = (torch.randn(2000, 32, device=cuda) * 0.1,
             torch.arange(2000, dtype=torch.int32, device=cuda) + 1000,
@@ -756,8 +760,10 @@ def test_head_kernel_raises_on_what_it_cannot_take(cuda):
             torch.testing.assert_close(k_head.sampled_softmax_nll(*a), k_head.plain(*a),
                                        rtol=1e-5, atol=1e-5)
             continue
-        with pytest.raises(ValueError, match=match):
-            k_head.sampled_softmax_nll(*a)
+        before = k_head.sampled_softmax_nll.streamed_launches
+        torch.testing.assert_close(k_head.sampled_softmax_nll(*a), k_head.plain(*a),
+                                   rtol=1e-4, atol=1e-4)
+        assert k_head.sampled_softmax_nll.streamed_launches == before + 1
     with pytest.raises(ValueError, match="one dtype"):
         k_head.sampled_softmax_nll(h, pos.bfloat16(), neg, targets, neg_ids, plq, nlq)
 
@@ -946,9 +952,11 @@ def test_attention_autograd_with_the_kernel_matches_plain_autograd(cuda):
 
 
 def test_attention_kernel_raises_on_what_it_cannot_take(cuda):
-    q, k, v = _qkv(2, 8, 1, 264, torch.float32, cuda)
-    with pytest.raises(ValueError, match="Dh <= 256"):
-        k_attn.causal_attention(q, k, v)
+    q, k, v = _qkv(2, 8, 1, 264, torch.float32, cuda)  # refused before: the sliced layout
+    before = k_attn.causal_attention.sliced_launches
+    torch.testing.assert_close(k_attn.causal_attention(q, k, v), k_attn.plain(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+    assert k_attn.causal_attention.sliced_launches == before + 1
     q, k, v = _qkv(2, 8, 1, 32, torch.float32, cuda)
     with pytest.raises(ValueError, match="does not match"):
         k_attn.causal_attention(q, k.bfloat16(), v)
@@ -1008,7 +1016,8 @@ def test_lstm_kernel_every_layout_and_the_cell_plane(cuda, cluster_size, rows, d
 def test_lstm_kernel_raises_on_reset_and_bad_shapes(cuda):
     """A reset plane runs the reset variant (which raised before
     session-parallel training was ported) and matches the plain scan, c_T
-    included; a plane or shape it cannot take raises."""
+    included; a plane it cannot take raises, and H = 6 (refused before)
+    takes the padded route."""
     x, h0, c0, w_x, w_h, b = _lstm_args(4, 5, 16, 16, torch.float32, cuda, seed=2)
     reset = _reset_plane(4, 5, cuda)
     before = (k_lstm.lstm_scan.launches, k_lstm.lstm_scan.reset_launches)
@@ -1020,8 +1029,12 @@ def test_lstm_kernel_raises_on_reset_and_bad_shapes(cuda):
     torch.testing.assert_close(c, c_want, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="keep plane"):
         k_lstm.lstm_scan(x, h0, c0, w_x, w_h, b, reset_mask=reset[:1])
-    with pytest.raises(ValueError, match="H % 4"):
-        k_lstm.lstm_scan(x, h0[:, :6], c0[:, :6], w_x[:, :24], w_h[:6, :24])
+    before = k_lstm.lstm_scan.padded_launches
+    ys, (_, c) = k_lstm.lstm_scan(x, h0[:, :6], c0[:, :6], w_x[:, :24], w_h[:6, :24])
+    assert k_lstm.lstm_scan.padded_launches == before + 1 and tuple(c.shape) == (4, 6)
+    want, (_, c_want) = k_lstm.plain(x, h0[:, :6], c0[:, :6], w_x[:, :24], w_h[:6, :24])
+    torch.testing.assert_close(ys, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(c, c_want, rtol=1e-5, atol=1e-5)
 
 
 def _lstm_planes(B, T, H, dtype, device, seed=0):
@@ -2031,15 +2044,20 @@ def test_head_ksplit_matches_plain_twice(cuda, N, S, H, dtype):
 def test_head_ksplit_odd_width_and_the_limit(cuda, dtype):
     """An odd width past 256 (bf16 copies one element at a time, f32 reads
     the positive logit a float at a time) and the widest H each design
-    takes, against the plain version; one past it raises."""
+    takes, against the plain version; one past it takes the streamed
+    layout."""
     limit = k_head.max_hidden(dtype)
     for H in (257, limit):
         args = _head_args(300, 130, H, dtype, cuda, seed=H)
         tol = 1e-4 if dtype == torch.float32 else 1e-5
         torch.testing.assert_close(k_head.sampled_softmax_nll(*args), k_head.plain(*args),
                                    rtol=tol, atol=tol)
-    with pytest.raises(ValueError, match=f"H <= {limit}"):
-        k_head.sampled_softmax_nll(*_head_args(8, 16, limit + 1, dtype, cuda))
+    args = _head_args(8, 16, limit + 1, dtype, cuda)
+    before = k_head.sampled_softmax_nll.streamed_launches
+    tol = 1e-4 if dtype == torch.float32 else 1e-5
+    torch.testing.assert_close(k_head.sampled_softmax_nll(*args), k_head.plain(*args),
+                               rtol=tol, atol=tol)
+    assert k_head.sampled_softmax_nll.streamed_launches == before + 1
 
 
 # ---------------------------------------------------------------------------
@@ -2134,7 +2152,8 @@ def test_lstm_grid_at_its_limit_and_past_it(cuda, dtype):
     """The widest H each dtype's grid layout takes (bf16 1,792: a CTA's
     W_h values of four gates fill its shared memory; f32 1,056: 132 slices
     of 8 units, one a SM), forward with a reset plane and reverse with a
-    keep plane, against the plain versions; one past it raises, naming it."""
+    keep plane, against the plain versions; one past it takes the stepped
+    layout, against the plain versions too."""
     limit = k_lstm.grid_max_hidden(dtype)
     B, T = 5, 6
     args = _lstm_args(B, T, limit, limit, dtype, cuda, seed=limit)
@@ -2147,10 +2166,15 @@ def test_lstm_grid_at_its_limit_and_past_it(cuda, dtype):
                           k_lstm.plain_backward(*planes, keep, dc_last)):
         torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4 * c.abs().max().item(), msg=name)
     past = _lstm_args(B, T, limit + 4, limit + 4, dtype, cuda)
-    with pytest.raises(ValueError, match=f"H <= {limit}"):
-        k_lstm.lstm_scan(*past)
-    with pytest.raises(ValueError, match=f"H <= {limit}"):
-        k_lstm.lstm_backward(*_lstm_planes(B, T, limit + 4, dtype, cuda), None, None)
+    before = (k_lstm.lstm_scan.stepped_launches, k_lstm.lstm_backward.stepped_launches)
+    torch.testing.assert_close(k_lstm.lstm_scan(*past)[0].float(), k_lstm.plain(*past)[0].float(),
+                               rtol=LSTM_FWD_TOL[dtype], atol=LSTM_FWD_TOL[dtype])
+    planes = _lstm_planes(B, T, limit + 4, dtype, cuda)
+    for name, a, c in zip(("dz", "dh0", "dc0"), k_lstm.lstm_backward(*planes, None, None),
+                          k_lstm.plain_backward(*planes, None, None)):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4 * c.abs().max().item(), msg=name)
+    assert (k_lstm.lstm_scan.stepped_launches, k_lstm.lstm_backward.stepped_launches) == (
+        before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -2190,3 +2214,347 @@ def test_lstm_grid_autograd_at_the_wide_lstm_matches_plain(cuda, dtype):
     for name, a, w in zip(("x", "h0", "c0", "w_x", "w_h"), got, want):
         err = (a.float() - w.float()).abs().max().item() / w.float().abs().max().item()
         assert err <= tol, (name, err)
+
+
+# ---------------------------------------------------------------------------
+# Every width: the Dh-sliced attention, the padded and stepped scans, the
+# streamed head
+# ---------------------------------------------------------------------------
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [257, 512, 1000])
+@pytest.mark.parametrize("B,T,N", [(2, 200, 1), (3, 65, 2), (1, 1, 1)])
+def test_attention_sliced_matches_plain_twice(cuda, dtype, Dh, B, T, N):
+    """Past Dh = 256 (a third grid axis of 256-column slices, S over the
+    whole Dh in chunks of 64 through shared memory): within the attention's
+    tolerances of the plain version, on q, k, v read in place as slices of
+    one [B, T, 3, N, Dh] projection, twice bit for bit, counted by
+    `sliced_launches`; the first B - 1 rows alone give the batch's bits."""
+    rng = np.random.default_rng(Dh + T)
+    proj = torch.from_numpy(rng.normal(size=(B, T, 3, N, Dh)).astype(np.float32)).to(cuda, dtype)
+    q, k, v = proj.unbind(2)
+    cfg = k_attn.launch_config(B, T, N, Dh, dtype, k_attn.operand_align(q, k, v))
+    assert cfg["layout"] == "dh-sliced" and cfg["slices"] == -(-Dh // 256)
+    before = [k_attn.causal_attention.launches, k_attn.causal_attention.sliced_launches]
+    got = k_attn.causal_attention(q, k, v)
+    again = k_attn.causal_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert [k_attn.causal_attention.launches, k_attn.causal_attention.sliced_launches] == [
+        n + 2 for n in before]
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), k_attn.plain(q, k, v).float(), rtol=ATTN_TOL[dtype],
+                               atol=ATTN_TOL[dtype])
+    if dtype == torch.bfloat16:  # the kernel's own rounding only: f32 math on the same inputs
+        torch.testing.assert_close(got.float(), k_attn.plain(q.float(), k.float(), v.float()),
+                                   rtol=2e-2, atol=2e-2)
+    if B > 1:
+        assert torch.equal(k_attn.causal_attention(q[:B - 1], k[:B - 1], v[:B - 1]), got[:B - 1])
+
+
+PAD_SHAPES = [(50, 50), (50, 102), (13, 7), (50, 64)]  # the last pads D alone
+
+
+def _grads(scan, leaves, rest, reset, g, g_c=None):
+    leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+    out = scan(*leaves, *rest, reset_mask=reset)
+    if g_c is None:
+        out[0].backward(g)
+    else:
+        torch.autograd.backward((out[0], out[1][1]), (g, g_c))
+    return out, [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,H", PAD_SHAPES)
+@pytest.mark.parametrize("with_reset", [False, True])
+def test_gru_padded_matches_plain_twice(cuda, dtype, D, H, with_reset):
+    """D or H not a multiple of 4 (SASRec's d = 50 in a GRU4Rec tower): the
+    padded route (zero units and inputs up to multiples of 4, each gate
+    block on its own) against the plain version, forward and every gradient
+    through autograd (1e-4 relative in f32; bf16 against the plain f32 loop
+    on the kernel forward's states at 2^-7), twice bit for bit, counted by
+    the forward's `padded_launches`, and the reverse's where H is padded."""
+    B, T = 64, 50
+    x, h0, w_x, w_h, b_x, b_h = _gru_args(B, T, D, H, dtype, cuda, seed=D + H)
+    reset = _reset_plane(B, T, cuda, seed=H) if with_reset else None
+    g = torch.from_numpy(np.random.default_rng(H).normal(scale=1e-2, size=(B, T, H))
+                         .astype(np.float32)).to(cuda, dtype)
+    cfg = k_gru.padded_launch_config(B, T, D, H, dtype)
+    assert cfg["route"] == "padded" and cfg["padded_to"] == [-(-D // 4) * 4, -(-H // 4) * 4]
+    before = (k_gru.gru_scan.padded_launches, k_gru.gru_backward.padded_launches)
+    (ys, h_last), got = _grads(k_gru.gru_scan, (x, h0, w_x, w_h), (b_x, b_h), reset, g)
+    (ys2, _), got2 = _grads(k_gru.gru_scan, (x, h0, w_x, w_h), (b_x, b_h), reset, g)
+    torch.cuda.synchronize()
+    assert (k_gru.gru_scan.padded_launches, k_gru.gru_backward.padded_launches) == (
+        before[0] + 2, before[1] + 2 * (H % 4 != 0))
+    assert torch.equal(ys, ys2) and all(torch.equal(a, b) for a, b in zip(got, got2))
+    assert tuple(ys.shape) == (B, T, H) and torch.equal(h_last, ys[:, -1])
+    want, _ = k_gru.plain(x, h0, w_x, w_h, b_x, b_h, reset_mask=reset)
+    torch.testing.assert_close(ys.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    if dtype == torch.float32:
+        _, want_g = _grads(k_gru.plain, (x, h0, w_x, w_h), (b_x, b_h), reset, g)
+        tol = 1e-4
+    else:
+        x_proj = torch.matmul(x.float(), w_x.to(dtype).float()) + b_x
+        d_xp, dh0, dwh, _ = reference.gru_bwd_math(x_proj, ys.detach(), h0, w_h.to(dtype), b_h,
+                                                   g, reset)
+        want_g = [t.to(dtype) for t in (torch.matmul(d_xp, w_x.to(dtype).float().T), dh0,
+                                        torch.einsum("btd,btk->dk", x.float(), d_xp), dwh)]
+        tol = 2 ** -7
+    for name, a, b in zip(("x", "h0", "w_x", "w_h"), got, want_g):
+        err = (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,H", PAD_SHAPES)
+@pytest.mark.parametrize("with_reset", [False, True])
+def test_lstm_padded_matches_plain_twice(cuda, dtype, D, H, with_reset):
+    """The LSTM's padded route, as the GRU's: forward (c_last included) and
+    every gradient through autograd with c_last in the loss, twice bit for
+    bit, counted by the forward's `padded_launches`, and the reverse's where
+    H is padded."""
+    B, T = 64, 50
+    x, h0, c0, w_x, w_h, b = _lstm_args(B, T, D, H, dtype, cuda, seed=D + H)
+    reset = _reset_plane(B, T, cuda, seed=H) if with_reset else None
+    rng = np.random.default_rng(H)
+    g = torch.from_numpy(rng.normal(scale=1e-2, size=(B, T, H)).astype(np.float32)).to(cuda, dtype)
+    g_c = torch.from_numpy(rng.normal(scale=1e-2, size=(B, H)).astype(np.float32)).to(cuda, dtype)
+    assert k_lstm.padded_launch_config(B, T, D, H, dtype)["route"] == "padded"
+    before = (k_lstm.lstm_scan.padded_launches, k_lstm.lstm_backward.padded_launches)
+    (ys, (_, c_last)), got = _grads(k_lstm.lstm_scan, (x, h0, c0, w_x, w_h), (b,), reset, g, g_c)
+    (ys2, (_, c2)), got2 = _grads(k_lstm.lstm_scan, (x, h0, c0, w_x, w_h), (b,), reset, g, g_c)
+    torch.cuda.synchronize()
+    assert (k_lstm.lstm_scan.padded_launches, k_lstm.lstm_backward.padded_launches) == (
+        before[0] + 2, before[1] + 2 * (H % 4 != 0))
+    assert torch.equal(ys, ys2) and torch.equal(c_last, c2)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, got2))
+    want, (_, c_want) = k_lstm.plain(x, h0, c0, w_x, w_h, b, reset_mask=reset)
+    tol = LSTM_FWD_TOL[dtype]
+    torch.testing.assert_close(ys.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(c_last.float(), c_want.float(), rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        _, want_g = _grads(k_lstm.plain, (x, h0, c0, w_x, w_h), (b,), reset, g, g_c)
+        for name, a, w in zip(("x", "h0", "c0", "w_x", "w_h"), got, want_g):
+            err = (a - w).abs().max().item() / w.abs().max().item()
+            assert err <= 1e-4, (name, err)
+
+
+@pytest.mark.parametrize("H", [50, 102])
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_padded_reverse_recurrences_match_plain(cuda, H, with_keep):
+    """gru_backward and lstm_backward called at H % 4 != 0 in both weight
+    dtypes: padded, launched, sliced back; within 1e-4 of the plain loops
+    relative to the largest value, twice bit for bit."""
+    B, T = 64, 50
+    keep = (1.0 - _reset_plane(B, T, cuda, seed=H))[:, :, None] if with_keep else None
+    for dtype in (torch.float32, torch.bfloat16):
+        x_proj, h_proj, h_in, g, w_h = _gate_planes(B, T, H, dtype, cuda, seed=H)
+        h = h_in if keep is None else (h_in.float() * keep)
+        planes = (x_proj, h_proj, h if dtype == torch.bfloat16 else h.float(), g, w_h)
+        before = k_gru.gru_backward.padded_launches
+        got, again = k_gru.gru_backward(*planes, keep), k_gru.gru_backward(*planes, keep)
+        assert k_gru.gru_backward.padded_launches == before + 2
+        for name, a, a2, c in zip(("d_xp", "dh0", "dn_r"), got, again,
+                                  k_gru.plain_backward(*planes, keep)):
+            assert torch.equal(a, a2) and a.shape == c.shape, name
+            torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4 * c.abs().max().item(),
+                                       msg=name)
+        lp = _lstm_planes(B, T, H, dtype, cuda, seed=H)
+        dcl = torch.randn(B, H, device=cuda)
+        got, again = (k_lstm.lstm_backward(*lp, keep, dcl) for _ in range(2))
+        for name, a, a2, c in zip(("dz", "dh0", "dc0"), got, again,
+                                  k_lstm.plain_backward(*lp, keep, dcl)):
+            assert torch.equal(a, a2) and a.shape == c.shape, name
+            torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4 * c.abs().max().item(),
+                                       msg=name)
+
+
+@pytest.mark.parametrize("D,N", [(50, 150), (13, 21), (50, 200)])
+def test_input_projections_pad_any_width(cuda, D, N):
+    """The projection GEMMs at D or N not a multiple of 4 (zero rows and
+    columns, then sliced): bf16 within 1e-5 of the plain f32 sums of the same
+    bf16 products, f32 within 1e-5."""
+    rng = np.random.default_rng(D + N)
+    x = torch.from_numpy(rng.normal(size=(3, 17, D)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.normal(size=(D, N)).astype(np.float32) * D ** -0.5).to(cuda)
+    b = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        for module, proj in ((k_gru, k_gru.gru_input_projection),
+                             (k_lstm, k_lstm.lstm_input_projection)):
+            if proj is k_lstm.lstm_input_projection and N % 4:
+                continue  # the LSTM's N is 4H
+            got = proj(x.to(dtype), w.to(dtype), b)
+            want = module.plain_input_projection(x.to(dtype), w.to(dtype), b)
+            assert got.shape == want.shape
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _stepped_widths(dtype, gates):
+    limit = k_gru.grid_max_hidden(dtype, gates)
+    return (limit + 4, 2302)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", [0, 1])
+@pytest.mark.parametrize("B,T", [(3, 7), (64, 1)])
+def test_gru_stepped_forward_matches_plain_twice(cuda, dtype, edge, B, T):
+    """Past the grid layout's limit (the step's GEMM, then its gate kernel,
+    T times): at the limit + 4 and at 2,302 (padded to 2,304 too), both
+    variants, within the dtype's tolerance of the plain version, twice bit
+    for bit, counted by `stepped_launches`; an all-zero reset plane gives
+    the no-reset bits."""
+    H = _stepped_widths(dtype, 3)[edge]
+    args = _gru_args(B, T, 64, H, dtype, cuda, seed=H + B)
+    assert k_gru.padded_launch_config(B, T, 64, H, dtype)["layout"] == "stepped"
+    for reset in (None, _reset_plane(B, T, cuda, seed=H)):
+        before = k_gru.gru_scan.stepped_launches
+        ys = k_gru.gru_scan(*args, reset_mask=reset)[0]
+        again = k_gru.gru_scan(*args, reset_mask=reset)[0]
+        torch.cuda.synchronize()
+        assert k_gru.gru_scan.stepped_launches == before + 2
+        assert torch.equal(ys, again)
+        want, _ = k_gru.plain(*args, reset_mask=reset)
+        torch.testing.assert_close(ys.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+        if reset is not None:
+            assert torch.equal(k_gru.gru_scan(*args, reset_mask=torch.zeros_like(reset))[0],
+                               k_gru.gru_scan(*args)[0])
+
+
+@pytest.mark.parametrize("dtype,h_in_dtype", [(torch.float32, torch.float32),
+                                              (torch.bfloat16, torch.bfloat16),
+                                              (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("edge", [0, 1])
+def test_gru_stepped_backward_matches_plain_twice(cuda, dtype, h_in_dtype, edge):
+    """The stepped reverse recurrence (the step's gates, then dh_prev =
+    d_hproj W_h^T as one GEMM, bf16 as hi and lo terms), with and without
+    a keep plane: within 1e-4 of the plain f32 loop relative to the largest
+    value, twice bit for bit, counted by `stepped_launches`."""
+    B, T = 5, 6
+    H = _stepped_widths(dtype, 3)[edge]
+    x_proj, h_proj, h_in, g, w_h = _gate_planes(B, T, H, dtype, cuda, seed=H)
+    for keep in (None, (1.0 - _reset_plane(B, T, cuda, seed=H))[:, :, None]):
+        h = h_in.to(h_in_dtype) if keep is None else (h_in.float() * keep).to(h_in_dtype)
+        planes = (x_proj, h_proj, h, g, w_h)
+        before = k_gru.gru_backward.stepped_launches
+        got, again = k_gru.gru_backward(*planes, keep), k_gru.gru_backward(*planes, keep)
+        torch.cuda.synchronize()
+        assert k_gru.gru_backward.stepped_launches == before + 2
+        for name, a, b, c in zip(("d_xp", "dh0", "dn_r"), got, again,
+                                 k_gru.plain_backward(*planes, keep)):
+            assert torch.equal(a, b), name
+            torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4 * c.abs().max().item(),
+                                       msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", [0, 1])
+def test_lstm_stepped_matches_plain_twice(cuda, dtype, edge):
+    """The LSTM past its grid limit, forward with and without a reset plane
+    (c_last included; the f32 cell plane against reference.lstm_recompute_cells
+    in f32) and the reverse with and without a keep plane and a dc_last,
+    against the plain versions, twice bit for bit."""
+    B, T = 3, 7
+    H = _stepped_widths(dtype, 4)[edge]
+    args = _lstm_args(B, T, 32, H, dtype, cuda, seed=H)
+    for reset in (None, _reset_plane(B, T, cuda, seed=H)):
+        before = k_lstm.lstm_scan.stepped_launches
+        ys, (_, c) = k_lstm.lstm_scan(*args, reset_mask=reset)
+        ys2, (_, c2) = k_lstm.lstm_scan(*args, reset_mask=reset)
+        torch.cuda.synchronize()
+        assert k_lstm.lstm_scan.stepped_launches == before + 2
+        assert torch.equal(ys, ys2) and torch.equal(c, c2)
+        want, (_, c_want) = k_lstm.plain(*args, reset_mask=reset)
+        tol = LSTM_FWD_TOL[dtype]
+        torch.testing.assert_close(ys.float(), want.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(c.float(), c_want.float(), rtol=tol, atol=tol)
+    if H % 4 == 0 and dtype == torch.float32:
+        x, h0, c0, w_x, w_h, b = args
+        with torch.no_grad():
+            _, _, cs = k_lstm._forward_kernel(x, h0, c0, w_x, w_h, b, True)
+            x_proj = torch.matmul(x, w_x) + b
+            want_cs = reference.lstm_recompute_cells(x_proj, k_lstm.lstm_scan(*args)[0], h0, c0, w_h)
+        torch.testing.assert_close(cs, want_cs, rtol=1e-5, atol=1e-5)
+    planes = _lstm_planes(B, T, H, dtype, cuda, seed=H)
+    for keep in (None, (1.0 - _reset_plane(B, T, cuda, seed=H))[:, :, None]):
+        dcl = torch.randn(B, H, device=cuda)
+        got, again = (k_lstm.lstm_backward(*planes, keep, dcl) for _ in range(2))
+        for name, a, a2, w in zip(("dz", "dh0", "dc0"), got, again,
+                                  k_lstm.plain_backward(*planes, keep, dcl)):
+            assert torch.equal(a, a2), name
+            torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4 * w.abs().max().item(),
+                                       msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_stepped_autograd_matches_plain(cuda, dtype, cell):
+    """A whole scan's gradients through autograd past the grid limit (D =
+    64, H = 2,304, B = 4, T = 5): one stepped forward and one stepped reverse,
+    each gradient within 2^-7 (bf16; 1e-4 in f32) relative to its largest
+    value of the plain reverse loop on the kernel forward's states."""
+    B, T, D, H = 4, 5, 64, 2304
+    rng = np.random.default_rng(5)
+    g = torch.from_numpy(rng.normal(scale=1e-2, size=(B, T, H)).astype(np.float32)).to(cuda, dtype)
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+    if cell == "gru":
+        x, h0, w_x, w_h, b_x, b_h = _gru_args(B, T, D, H, dtype, cuda, seed=3)
+        before = (k_gru.gru_scan.stepped_launches, k_gru.gru_backward.stepped_launches)
+        (ys, _), got = _grads(k_gru.gru_scan, (x, h0, w_x, w_h), (b_x, b_h), None, g)
+        assert (k_gru.gru_scan.stepped_launches, k_gru.gru_backward.stepped_launches) == (
+            before[0] + 1, before[1] + 1)
+        wx_c, wh_c = w_x.to(dtype), w_h.to(dtype)
+        x_proj = torch.matmul(x.float(), wx_c.float()) + b_x
+        d_xp, dh0, dwh, _ = reference.gru_bwd_math(x_proj, ys.detach(), h0, wh_c, b_h, g, None)
+        want = [torch.matmul(d_xp, wx_c.float().T), dh0,
+                torch.einsum("btd,btk->dk", x.float(), d_xp), dwh]
+    else:
+        x, h0, c0, w_x, w_h, b = _lstm_args(B, T, D, H, dtype, cuda, seed=3)
+        before = (k_lstm.lstm_scan.stepped_launches, k_lstm.lstm_backward.stepped_launches)
+        (ys, _), got = _grads(k_lstm.lstm_scan, (x, h0, c0, w_x, w_h), (b,), None, g)
+        assert (k_lstm.lstm_scan.stepped_launches, k_lstm.lstm_backward.stepped_launches) == (
+            before[0] + 1, before[1] + 1)
+        wx_c, wh_c = w_x.to(dtype), w_h.to(dtype)
+        x_proj = torch.matmul(x.float(), wx_c.float()) + b
+        with torch.no_grad():
+            _, _, cs = k_lstm._forward_kernel(x, h0, c0, wx_c, wh_c, b, True)
+        d_xp, dh0, dc0, dwh, _ = reference.lstm_bwd_math(x_proj, ys.detach(), cs, h0, c0, wh_c,
+                                                         g, None)
+        want = [torch.matmul(d_xp, wx_c.float().T), dh0, dc0,
+                torch.einsum("btd,btk->dk", x.float(), d_xp), dwh]
+    for i, (a, w) in enumerate(zip(got, want)):
+        err = (a.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+        assert err <= tol, (i, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", [0, 1])
+@pytest.mark.parametrize("N,S", [(1, 512), (257, 100), (300, 130)])
+def test_head_streamed_matches_plain_twice(cuda, dtype, edge, N, S):
+    """Past the resident rows' limit (h's chunks streamed through the ring
+    beside the negatives'): at the limit + 1 (an odd width: bf16 one
+    element a copy, f32 the positive logit a float at a time) and at 2,304,
+    within 1e-4 of the plain version (chip_smoke's HEAD_TOL: f32 sums of up
+    to 2,304 products in another order), twice bit for bit,
+    counted by `streamed_launches`; row 0's target is every negative's id:
+    its NLL is 0 on both sides."""
+    H = (k_head.max_hidden(dtype) + 1, 2304)[edge]
+    h, pos, neg, targets, neg_ids, plq, nlq = _head_args(N, S, H, dtype, cuda, seed=N + H)
+    if N == 1:
+        neg_ids[:] = 3 * S + 1
+        targets[0] = 3 * S + 1
+    assert k_head.launch_config(N, S, H, dtype)["layout"] == "streamed"
+    before = [k_head.sampled_softmax_nll.launches, k_head.sampled_softmax_nll.streamed_launches]
+    args = (h, pos, neg, targets, neg_ids, plq, nlq)
+    got, again = k_head.sampled_softmax_nll(*args), k_head.sampled_softmax_nll(*args)
+    torch.cuda.synchronize()
+    assert [k_head.sampled_softmax_nll.launches,
+            k_head.sampled_softmax_nll.streamed_launches] == [n + 2 for n in before]
+    assert torch.equal(got, again)
+    want = k_head.plain(*args)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    if N == 1:
+        assert got[0].item() == 0.0 and want[0].item() == 0.0

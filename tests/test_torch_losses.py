@@ -277,15 +277,18 @@ def test_head_f32_takes_any_s_at_h_up_to_256(S, N, H):
     ((8, 800, 1284), torch.bfloat16, "H <= 1280"),
 ])
 def test_head_kernel_rejects_what_it_cannot_take(shape, dtype, match):
-    """Widths past the K split's limit (1,376 in f32, 1,280 in bf16), other
-    dtypes and empty shapes raise; H = 260 and the limit take the K split;
-    an f32 H that is not a multiple of 4 (130) launches, its positive logit
-    a float at a time."""
+    """Other dtypes and empty shapes raise; H = 260 and the K split's limit
+    (1,376 in f32, 1,280 in bf16) take the K split, and widths past it the
+    streamed layout; an f32 H that is not a multiple of 4 (130) launches,
+    its positive logit a float at a time."""
     if match is not None and match.startswith("H <= "):
         limit = int(match[5:])
         assert cuda_head.max_hidden(dtype) == limit
         for H in (260, limit):
             assert cuda_head.launch_config(*shape[:2], H, dtype)["layout"] == "k-split"
+        cfg = cuda_head.launch_config(*shape, dtype)
+        assert cfg["layout"] == "streamed" and cfg["max_hidden"] == limit
+        return
     if match is None:
         cfg = cuda_head.launch_config(*shape, dtype)
         assert (cfg["design"], cfg["pos_unit_bytes"], cfg["hidden_padded"]) == (

@@ -355,6 +355,11 @@ def test_lstm_weights_are_k_packed_for_16_byte_reads(dtype, P):
     ((4, 5, 8, 12), torch.bfloat16, "rows_per_cluster and cluster_size are the f32 design's"),
 ])
 def test_lstm_kernel_rejects_what_it_cannot_take(shape, dtype, match):
+    if "H <=" in match:  # past the grid layout's limit the stepped layout takes it
+        cfg = cuda_lstm.launch_config(*shape, dtype)
+        assert cfg["layout"] == "stepped" and cfg["max_hidden"] == shape[3] - 4
+        assert cuda_lstm.launch_config(4, 5, 8, 260, dtype)["layout"] == "grid"
+        return
     with pytest.raises(ValueError, match=match):
         cuda_lstm.launch_config(*shape, dtype,
                                 rows_per_cluster=3 if "rows_per_cluster" in match else None)

@@ -411,16 +411,19 @@ def test_gru_input_projection_on_cpu_matches_the_pallas_step_xp(with_bias):
 def test_gru_kernel_rejects_what_it_cannot_take(shape, dtype, match):
     """f32 at H=256 runs on clusters of 8 CTAs (each 32 units' W_h columns,
     96 KB); asked for 2, a CTA's slice (384 KB) and threads (1,024) do not
-    fit. Past 256 the grid layout takes H = 260 and raises past its limit
-    (1,056 in f32, 2,112 in bf16), naming it."""
+    fit. Past 256 the grid layout takes H = 260, and past its limit (1,056
+    in f32, 2,112 in bf16) the stepped layout."""
+    if match.startswith("H <= "):
+        cfg = cuda_gru.launch_config(*shape, dtype)
+        assert cfg["layout"] == "stepped" and cfg["max_hidden"] == shape[3] - 4
+        assert cuda_gru.launch_config(4, 5, 8, 260, dtype)["layout"] == "grid"
+        assert cuda_gru.grid_max_hidden(dtype) == shape[3] - 4
+        return
     kw = {"cluster_size": 2} if match == "shared" else {}
     with pytest.raises(ValueError, match=match):
         cuda_gru.launch_config(*shape, dtype, **kw)
     if match == "shared":
         assert cuda_gru.launch_config(*shape, dtype)["cluster_size"] == 8
-    if match.startswith("H <= "):
-        assert cuda_gru.launch_config(4, 5, 8, 260, dtype)["layout"] == "grid"
-        assert cuda_gru.grid_max_hidden(dtype) == shape[3] - 4
 
 
 # ---------------------------------------------------------------------------

@@ -74,8 +74,9 @@ def test_gru_grid_layout_from_260_to_its_limit(dtype):
     """Forward and reverse (h_in in either dtype) at B = 1, 3 and 256: the
     grid layout, its unit slices and row groups within the card's SMs in one
     cooperative wave, the groups covering every row, a CTA's W_h values
-    within SMEM_LIMIT; the limit is at least 1,024 and H past it raises,
-    naming both. H = 257 is refused for H % 4 (the scans still need it)."""
+    within SMEM_LIMIT; the limit is at least 1,024 and H past it takes the
+    stepped layout. H = 257 is refused for H % 4 (the kernels still need it;
+    the public entry points pad it)."""
     limit = cuda_gru.grid_max_hidden(dtype)
     assert limit >= 1024
     units, tile = cuda_gru.GRID_UNITS[dtype], cuda_gru.GRID_ROW_TILE[dtype]
@@ -97,8 +98,8 @@ def test_gru_grid_layout_from_260_to_its_limit(dtype):
             assert bwd["workspace_bytes"] == cuda_gru.GRID_COUNTER + 28 * plane
     for call in (lambda H: cuda_gru.launch_config(8, 5, H, H, dtype),
                  lambda H: cuda_gru.backward_launch_config(8, 5, H, dtype)):
-        with pytest.raises(ValueError, match=f"H <= {limit} in {dtype}"):
-            call(limit + 4)
+        past = call(limit + 4)
+        assert past["layout"] == "stepped" and past["max_hidden"] == limit
         with pytest.raises(ValueError, match="H % 4"):
             call(257)
         with pytest.raises(ValueError, match="the grid layout above H = 256 takes neither"):
@@ -110,7 +111,7 @@ def test_head_ksplit_from_257_to_its_limit(dtype):
     """Every width past 256 at N = 1, 3 and 256: the K split (bf16 64-row
     blocks with their h rows resident and 128-deep chunks; f32 32-row
     blocks), within SMEM_LIMIT, up to a limit of at least 1,024; one past it
-    raises, naming it; check_launchable agrees on tensors."""
+    takes the streamed layout; check_launchable agrees on tensors."""
     limit = cuda_head.max_hidden(dtype)
     assert limit >= 1024
     for H in (257,) + _wide_widths(limit):
@@ -125,8 +126,8 @@ def test_head_ksplit_from_257_to_its_limit(dtype):
          torch.zeros(5, 260, dtype=dtype), torch.zeros(3, dtype=torch.int32),
          torch.zeros(5, dtype=torch.int32), torch.zeros(3), torch.zeros(5)]
     assert cuda_head.check_launchable(*t) == cuda_head.launch_config(3, 5, 260, dtype)
-    with pytest.raises(ValueError, match=f"H <= {limit}"):
-        cuda_head.launch_config(8, 16, limit + 1, dtype)
+    past = cuda_head.launch_config(8, 16, limit + 1, dtype)
+    assert past["layout"] == "streamed" and past["max_hidden"] == limit
 
 
 def _configs_at_or_below_256():

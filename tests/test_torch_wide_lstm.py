@@ -79,9 +79,10 @@ def test_lstm_grid_layout_from_260_to_its_limit(dtype):
     in one cooperative wave, the groups covering every row, a CTA's W_h
     values of four gates (128 Kp bytes) within SMEM_LIMIT, the workspace of
     each direction; the limit is 1,792 in bf16 (shared memory binds) and
-    1,056 in f32 (the SMs bind), and H past it raises, naming both. H = 257
-    is refused for H % 4 (the scans still need it), and the f32 cluster
-    design's options for the grid layout."""
+    1,056 in f32 (the SMs bind), and H past it takes the stepped layout.
+    H = 257 is refused for H % 4 (the kernels still need it; the public entry
+    points pad it), and the f32 cluster design's options for the grid
+    layout."""
     limit = cuda_lstm.grid_max_hidden(dtype)
     assert limit == {torch.bfloat16: 1792, torch.float32: 1056}[dtype]
     units, tile = cuda_gru.GRID_UNITS[dtype], cuda_gru.GRID_ROW_TILE[dtype]
@@ -105,8 +106,8 @@ def test_lstm_grid_layout_from_260_to_its_limit(dtype):
                                             else cuda_gru.F32_PROJ_THREADS)
     for call in (lambda H: cuda_lstm.launch_config(8, 5, H, H, dtype),
                  lambda H: cuda_lstm.backward_launch_config(8, 5, H, dtype)):
-        with pytest.raises(ValueError, match=f"H <= {limit} in {dtype}"):
-            call(limit + 4)
+        past = call(limit + 4)
+        assert past["layout"] == "stepped" and past["max_hidden"] == limit
         with pytest.raises(ValueError, match="H % 4"):
             call(257)
     for call in (lambda: cuda_lstm.launch_config(8, 5, 260, 260, dtype, rows_per_cluster=4),

@@ -113,7 +113,7 @@ def test_attention_takes_every_head_dim(dtype):
     operands' alignment; bf16 pads Dh to mma's depth, f32 to its float4
     groups; shared memory fits a block. The SASRec block's q, k and v (one
     head, slices of a [B, T, 3, 1, Dh] projection: rows 3 Dh apart) give
-    the unit the kernel stages them in; past 256 still raises."""
+    the unit the kernel stages them in; past 256 the Dh-sliced layout."""
     es = torch.empty((), dtype=dtype).element_size()
     for Dh in WIDTHS:
         cfg = cuda_attention.launch_config(128, 200, 1, Dh, dtype)
@@ -136,8 +136,8 @@ def test_attention_takes_every_head_dim(dtype):
     want = 4 if dtype == torch.bfloat16 else 8
     assert cuda_attention.launch_config(
         2, 5, 1, 50, dtype, cuda_attention.operand_align(*d50.unbind(2)))["unit_bytes"] == want
-    with pytest.raises(ValueError, match="Dh <= 256"):
-        cuda_attention.launch_config(2, 5, 1, 257, dtype)
+    past = cuda_attention.launch_config(2, 5, 1, 257, dtype)
+    assert past["layout"] == "dh-sliced" and past["slices"] == 2 and past["unit_bytes"] == es
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -147,7 +147,7 @@ def test_head_takes_every_width(dtype):
     odd) and pads it to Hp; f32 reads the positive logit in float4s where H
     % 4 == 0, else a float at a time; two blocks fit an SM at the training
     step's N = 25,600, S = 256; check_launchable agrees on tensors; past 256
-    raises past the K split's limit."""
+    the K split, and past its limit the streamed layout."""
     es = torch.empty((), dtype=dtype).element_size()
     for H in WIDTHS:
         cfg = cuda_head.launch_config(25_600, 256, H, dtype)
@@ -171,8 +171,7 @@ def test_head_takes_every_width(dtype):
     assert off["unit_bytes" if dtype == torch.bfloat16 else "pos_unit_bytes"] == es
     assert cuda_head.launch_config(8, 16, 257, dtype)["layout"] == "k-split"
     limit = cuda_head.max_hidden(dtype)
-    with pytest.raises(ValueError, match=f"H <= {limit}"):
-        cuda_head.launch_config(8, 16, limit + 1, dtype)
+    assert cuda_head.launch_config(8, 16, limit + 1, dtype)["layout"] == "streamed"
 
 
 # ---------------------------------------------------------------------------
