@@ -324,6 +324,10 @@ source, all at once). Each phase prints one JSON line:
               N=51,200, S=512, H=2,304) against their plain versions, each
               twice bit for bit, as phases c, e, g and j check them (SDPA,
               nn.GRU / nn.LSTM and cuDNN's backward, h @ neg.T beside them);
+              the stepped scans' bf16 step GEMM alone at w3's steps (the GRU's
+              and the LSTM's, forward and reverse) against its plain version
+              and torch.matmul in f32, twice bit for bit (torch.matmul in
+              bf16 beside it);
               then served as phase d and trained as phases f and k in bf16
               and f32: w1 benchmarks/shapes.py:65-68's SASRec at
               embed_dim=512 (2 blocks of one head), two K=4 groups; w2
@@ -365,9 +369,13 @@ source, all at once). Each phase prints one JSON line:
               `gru_backward_stepped`, `lstm_scan_stepped`,
               `lstm_backward_stepped`, `softmax_head_streamed`, each also
               `_f32`), at w1's, w2's or w3's step, their launches counted on
-              that path's training run.
+              that path's training run; the stepped scans' bf16 step GEMM
+              (`step_gemm`, forward; `step_gemm_reverse`; both on wgmma)
+              at w3's GRU step, its launches (one a step of each bf16
+              stepped scan) counted on w3's GRU training path.
 
-Then the raw nvidia-smi name/power-limit line, and last
+Before it a line {"phase": "run", "seconds", "all_widths_seconds"}; then
+the raw nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises: the script exits non-zero without the ok line. It
 exits non-zero too when CUDA is not available; there is no CPU path.
@@ -621,7 +629,7 @@ def _kernel_name(demangled: str) -> str:
 # variant).
 WATCH = ("head_f32_kernel", "scatter_partials_kernel", "scatter_combine_kernel",
          "xproj_f32_kernel", "attention_sliced", "gru_step", "lstm_step",
-         "head_mma_ksplit_kernel")
+         "head_mma_ksplit_kernel", "step_gemm_wgmma_kernel")
 
 
 def _demangled(kernels: dict) -> dict:
@@ -926,7 +934,8 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
     GRU or LSTM of either dtype above H = 256 as its grid layout, up to the
     grid's limit, and past it as the stepped layout; a layer whose D or H is
     not a multiple of 4 counts again as the padded route (its forward; its
-    reverse where H is not); attention wider than 256 a head counts again as the sliced
+    reverse where H is not); a bf16 stepped layer launches its step GEMM once
+    a step, T a forward and T a reverse; attention wider than 256 a head counts again as the sliced
     layout; a sampled-softmax head wider than 256 counts again as the K
     split, and past its resident rows' limit as the streamed layout."""
     m = cfg.model
@@ -955,6 +964,12 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
                 else "stepped"
             want[f"{m.cell_type}_scan_{layout}"] = m.num_layers
             want[f"{m.cell_type}_backward_{layout}"] = m.num_layers if training else 0
+            if layout == "stepped" and m.compute_dtype == "bfloat16":  # a step GEMM a step
+                d = cfg.data
+                T = d.max_len if not training or d.session_parallel else max(
+                    d.buckets or (d.max_len,))
+                want["step_gemm"] = m.num_layers * T
+                want["step_gemm_reverse"] = m.num_layers * T if training else 0
         widths = [m.embed_dim] + [m.hidden] * (m.num_layers - 1)  # each layer's D
         want[f"{m.cell_type}_scan_padded"] = sum(D % 4 != 0 or m.hidden % 4 != 0
                                                  for D in widths)
@@ -1292,7 +1307,7 @@ def _gru_backward_checks(rng, dev, x32, reset=None,
         # In: the two projections, h_in, g_ys, W_h (and keep); out: d_xp,
         # dn_r, dh0.
         launch = k_gru.padded_backward_launch_config(B, T, H, wh_c.dtype, h_in_dtype=h_in.dtype)
-        mma = launch["design"] == "mma.sync"
+        mma = wh_c.dtype == torch.bfloat16  # the tensor cores: mma.sync, or wgmma (stepped)
         hs, gs, ws = h_in.element_size(), 2 if mma else 4, wh_c.element_size()
         b_bytes = (2 * B * T * 3 * H * 4 + B * T * H * (hs + gs) + 3 * H * H * ws
                    + B * T * 3 * H * 4 + B * T * H * 4 + B * H * 4
@@ -1767,7 +1782,7 @@ def _lstm_checks(rng, dev, x32, reset=None, twice: bool = False,
                    + Bl * T * 4 * H * 4 + 2 * Bl * H * 4 + (0 if keep is None else Bl * T * 4))
         b_flops = 2 * Bl * T * 4 * H * H
         b_launch = k_lstm.padded_backward_launch_config(Bl, T, H, dtype)
-        if b_launch["design"] == "mma.sync":
+        if dtype == torch.bfloat16:
             # dz goes to the tensor cores as bf16 terms: their products.
             b_bound, b_by = bound(b_bytes, b_launch["dz_terms"] * b_flops, torch.bfloat16)
         else:
@@ -1904,6 +1919,9 @@ COUNTERS = {
     "lstm_scan_padded": (k_lstm.lstm_scan, "padded_launches"),
     "lstm_backward_padded": (k_lstm.lstm_backward, "padded_launches"),
     "softmax_head_streamed": (k_head.sampled_softmax_nll, "streamed_launches"),
+    # The bf16 stepped scans' step GEMM, one launch a step: forward, reverse.
+    "step_gemm": (k_gru.step_gemm, "launches"),
+    "step_gemm_reverse": (k_gru.step_gemm, "reverse_launches"),
 }
 
 
@@ -5048,6 +5066,12 @@ W_WIDE_D = 2304
 W_PAD_WIDTHS = (50, 102)  # the padded route's H at D = 50
 W_STEP_EDGE = 2302  # past every grid limit and not a multiple of 4
 W_REPS = 7  # time_ms's reps in phase w (REPS elsewhere): cuDNN at 2,304 takes ~0.4 s a call
+# The step GEMM alone against its plain version and torch.matmul in f32,
+# relative to the largest value, by terms: the same exact bf16 products
+# summed in f32 in another order, K (forward, up to 2,304) or 2 K (the
+# reverse's hi and lo, up to 2 x 9,216) of them; in one partial plane the
+# reverse's differed by up to 2.2e-5 on an H100 (kernel_probes.py step_gemm).
+STEP_GEMM_TOL = {1: 1e-5, 2: 5e-5}
 W_REQUESTS = 128  # w1's and w3's served requests: two batches of 64
 W3_K = 2  # steps a group on the w3 paths (two groups): the step takes ~10^2 ms
 # w3's learning rate: Adam's default 1e-3 scaled by 512 / 2,304. Adam moves
@@ -5092,6 +5116,65 @@ def _records(obj):
         else:
             for v in obj.values():
                 yield from _records(v)
+
+
+def _step_gemm_check(rng, dev, B: int, H: int, G: int, terms: int, reps: int) -> dict:
+    """The stepped scans' bf16 step GEMM alone (`k_gru.step_gemm`: its
+    partial planes) at one step, forward (terms 1: h [B, H] @ W_h [H, G H])
+    or reverse (2: the cotangent's hi and lo terms [B, 2 G H] on W_h as
+    stored), against its plain version (`plain_step_gemm`, the same split)
+    and, summed in split order, torch.matmul in f32 on the same bf16 values
+    (reverse: (hi + lo) @ W_h^T, exact in f32), each within STEP_GEMM_TOL
+    (by terms) of the largest value; twice bit for bit. The library yardstick is one
+    torch.matmul in bf16 on the same operands (bf16 out; the reverse on
+    W_h^T stacked twice, built outside the timing). The bound: a and W_h
+    read once and the product [B, N] f32 written once (the function's
+    output; the partial planes, `workspace_bytes`, are the design's
+    traffic, reported apart), 2 B K N terms operations."""
+    K, N = (G * H, H) if terms == 2 else (H, G * H)
+    w = torch.from_numpy(rng.normal(scale=H ** -0.5, size=(H, G * H)).astype(np.float32))
+    w = w.to(dev, torch.bfloat16)
+    if terms == 2:
+        d = torch.from_numpy(rng.normal(scale=1e-2, size=(B, K)).astype(np.float32)).to(dev)
+        hi = d.bfloat16()
+        lo = (d - hi.float()).bfloat16()
+        a = torch.cat([hi, lo], dim=1)
+        want = (hi.float() + lo.float()) @ w.float().T
+        stacked = torch.cat([w.T, w.T]).contiguous()
+        library = lambda: a @ stacked  # noqa: E731
+    else:
+        a = torch.from_numpy(rng.normal(size=(B, H)).astype(np.float32)).to(dev, torch.bfloat16)
+        want = a.float() @ w.float()
+        library = lambda: a @ w  # noqa: E731
+    name = f"step gemm {'reverse' if terms == 2 else 'forward'} B={B} K={K} N={N}"
+    counter = "launches" if terms == 1 else "reverse_launches"
+    before = getattr(k_gru.step_gemm, counter)
+    got, again = k_gru.step_gemm(a, w, terms), k_gru.step_gemm(a, w, terms)
+    torch.cuda.synchronize()
+    check(getattr(k_gru.step_gemm, counter) == before + 2, f"{name}: launches not counted")
+    cfg = k_gru.step_gemm_config(B, K, N, terms)
+    check(tuple(got.shape) == (cfg["splits"], B, N), f"{name}: {tuple(got.shape)}")
+    check(torch.equal(got, again), f"{name}: two launches differ")
+    plain = k_gru.plain_step_gemm(a, w, terms)
+    err, err_mm = rel_err(got, plain), rel_err(k_gru.step_product(got), want)
+    tol = STEP_GEMM_TOL[terms]
+    check(err <= tol and err_mm <= tol,
+          f"{name}: relative error {err} vs plain, {err_mm} vs matmul > {tol}")
+    flops = 2 * B * K * N * terms
+    nbytes = a.numel() * 2 + w.numel() * 2 + B * N * 4
+    b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+    return {"shape": {"B": B, "H": H, "gates": G, "M": B, "K": K, "N": N, "terms": terms,
+                      "dtype": "bfloat16"},
+            "design": cfg["design"], "launch": cfg, "max_abs_err": max_err(got, plain),
+            "relative_error": {"vs_plain": err, "vs_matmul_f32": err_mm},
+            "tolerance": tol, "twice_bitwise": True,
+            "kernel_ms": time_ms(lambda: k_gru.step_gemm(a, w, terms), reps=reps),
+            "plain_ms": time_ms(lambda: k_gru.plain_step_gemm(a, w, terms), reps=reps),
+            "library_ms": time_ms(library, reps=reps),
+            "library": "torch.matmul bf16 (bf16 out)" + (" on [hi | lo] and [W_h^T; W_h^T]"
+                                                        if terms == 2 else ""),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": int(nbytes), "flops": int(flops),
+            "workspace_bytes": int(got.numel() * 4)}
 
 
 def _all_widths_kernel_checks(rng, dev) -> dict:
@@ -5184,6 +5267,12 @@ def _all_widths_kernel_checks(rng, dev) -> dict:
     stepped["w3"] = at_w3
     out["stepped"] = stepped
     lap("stepped_at_w3")
+    # The step GEMM alone at w3's steps (the GRU's and the LSTM's).
+    out["step_gemm"] = {f"{cell}_{way}": _step_gemm_check(rng, dev, WIDE_B, W_WIDE_D, G, terms,
+                                                           W_REPS)
+                        for cell, G in (("gru", 3), ("lstm", 4))
+                        for way, terms in (("forward", 1), ("reverse", 2))}
+    lap("step_gemm")
     for name, recs in stepped.items():
         for key, rec in recs.items():
             mod = k_lstm if key.startswith("lstm") else k_gru
@@ -5341,6 +5430,23 @@ def _all_widths_entries(w: dict) -> list:
                                      for q, t in train.items()},
                                   **{f"serve_{q}": v["launches"][counter]
                                      for q, v in serve.items()}}))
+    # The stepped scans' bf16 step GEMM at w3's GRU step, forward and reverse.
+    for kname, way, replaces in (("step_gemm", "forward", "gru.py:177"),
+                                 ("step_gemm_reverse", "reverse", "gru.py:190")):
+        rec = k["step_gemm"][f"gru_{way}"]
+        p = "gru4rec_w2304"
+        out.append(_kernel_entry(
+            kname, "seqrec_tpu_torch/csrc/step_gemm.cuh", "seqrec_tpu/ops/pallas/" + replaces,
+            train[p]["launches"][kname], rec, dtype="bfloat16", layout="stepped",
+            shape=rec["shape"], launch=rec["launch"],
+            at_w3_lstm={key: k["step_gemm"][f"lstm_{way}"][key] for key in
+                        ("shape", "max_abs_err")} | {
+                "ms": k["step_gemm"][f"lstm_{way}"]["kernel_ms"]["median"],
+                "library_ms": k["step_gemm"][f"lstm_{way}"]["library_ms"]["median"],
+                "bound_ms": k["step_gemm"][f"lstm_{way}"]["bound_ms"]},
+            launches_counted_on=f"train {train[p]['config']} " + " ".join(train[p]["overrides"]),
+            launches_by_path={**{f"train_{q}": t["launches"][kname] for q, t in train.items()},
+                              **{f"serve_{q}": v["launches"][kname] for q, v in serve.items()}}))
     return out
 
 
@@ -5393,6 +5499,7 @@ def main(argv=None) -> int:
         return 0
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
+    run_t0 = time.perf_counter()
 
     smi, name = phase_device()
     phase_build()
@@ -5577,6 +5684,8 @@ def main(argv=None) -> int:
     # Every width (phase w): the sliced attention, the padded and stepped
     # scans, the streamed head.
     kernels += _all_widths_entries(all_widths)
+    emit({"phase": "run", "seconds": time.perf_counter() - run_t0,
+          "all_widths_seconds": all_widths["seconds"]})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,7 +7,9 @@
 // shared-memory reads in the loop and stores can each be switched off, to
 // see what its time is made of; variants of the f32 sampled-softmax head
 // (csrc/softmax_head.cu head_f32_kernel: rows a block, k chunk, ring
-// stages, CTAs a SM).
+// stages, CTAs a SM); and for `kernel_probes.py step_gemm`, variants of the
+// stepped layouts' bf16 step GEMM (csrc/step_gemm.cuh's kernel: rows a
+// block, ring stages, copy unit, TMA or cp.async, K splits).
 #include "seqrec_tpu_torch/csrc/rnn.cuh"
 #include "seqrec_tpu_torch/csrc/softmax_head.cu"
 
@@ -176,6 +178,64 @@ HEAD(head_m64_k32_s3_c2, (launch_head_f32_variant<64, 32, 3, 2>))
 HEAD(head_m64_k32_s2_c4, (launch_head_f32_variant<64, 32, 2, 4>))
 HEAD(head_m128_k32_s2_c2, (launch_head_f32_variant<128, 32, 2, 2>))
 HEAD(head_m128_k16_s2_c2, (launch_head_f32_variant<128, 16, 2, 2>))
+
+// The step GEMM's variants (csrc/step_gemm.cuh): the package's plan
+// (step_gemm_plan) at `bm` rows a block and `splits` K splits (0: the
+// plan's rule at that bm), with the variant's shared memory; the splits
+// used into *used.
+rnn::StepGemmPlan sg_plan(int bm, int terms, int M, int K, int N, int splits, int smem,
+                          int* used) {
+  rnn::StepGemmPlan p;
+  if (rnn::step_gemm_plan(M, K, N, terms, &p, bm, splits) != 0) return p;
+  p.smem = smem;
+  *used = p.splits;
+  return p;
+}
+
+// A variant of the package's wgmma kernel, by TMA (`tma`) or cp.async.
+int sg_run_wg(void (*kernel)(const __nv_bfloat16*, const __nv_bfloat16*, float*, int, int, int,
+                             int, int, rnn::StepGemmMaps),
+              int smem, int bm, bool tma, int terms, const void* a, const void* w, void* out,
+              int M, int K, int N, int splits, int* used, cudaStream_t s) {
+  rnn::StepGemmPlan p = sg_plan(bm, terms, M, K, N, splits, smem, used);
+  if (p.unit == 0) return static_cast<int>(cudaErrorInvalidValue);
+  p.tma = tma;
+  rnn::StepGemmMaps maps;
+  int rc = rnn::step_gemm_maps(p, a, w, M, K, N, terms, &maps);
+  if (rc != 0) return rc;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<p.grid_tiles * p.splits, rnn::kSgThreads, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(w),
+      static_cast<float*>(out), M, K, N, p.per, p.grid_tiles, maps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#define SG_SW(name, BM, T, U, ST, TMA)                                                        \
+  int name(const void* a, const void* w, void* out, int M, int K, int N, int splits,        \
+           int* used, void* s) {                                                             \
+    return sg_run_wg(rnn::step_gemm_wgmma_kernel<BM, T, U, TMA, ST>, rnn::wg_smem(BM, T, ST), \
+                     BM, TMA, T, a, w, out, M, K, N, splits, used,                          \
+                     static_cast<cudaStream_t>(s));                                          \
+  }
+SG_SW(sg_rev_sw_m128_s3_u16, 128, 2, 16, 3, false)
+SG_SW(sg_rev_sw_m128_s3_u8, 128, 2, 8, 3, false)
+SG_SW(sg_rev_sw_m128_s4_u16, 128, 2, 16, 4, false)
+SG_SW(sg_rev_sw_m128_s4_u8, 128, 2, 8, 4, false)
+SG_SW(sg_rev_sw_m256_s2_u16, 256, 2, 16, 2, false)
+SG_SW(sg_fwd_sw_m128_s3_u16, 128, 1, 16, 3, false)
+SG_SW(sg_fwd_sw_m128_s3_u8, 128, 1, 8, 3, false)
+SG_SW(sg_fwd_sw_m128_s4_u16, 128, 1, 16, 4, false)
+SG_SW(sg_fwd_sw_m256_s3_u16, 256, 1, 16, 3, false)
+SG_SW(sg_fwd_sw_m256_s3_u8, 256, 1, 8, 3, false)
+SG_SW(sg_fwd_sw_m256_s4_u16, 256, 1, 16, 4, false)
+SG_SW(sg_fwd_sw_m128_s4_u8, 128, 1, 8, 4, false)
+SG_SW(sg_fwd_sw_m256_s4_u8, 256, 1, 8, 4, false)
+SG_SW(sg_rev_tma_m128_s3_u16, 128, 2, 16, 3, true)
+SG_SW(sg_rev_tma_m128_s4_u16, 128, 2, 16, 4, true)
+SG_SW(sg_fwd_tma_m128_s3_u16, 128, 1, 16, 3, true)
+SG_SW(sg_fwd_tma_m256_s3_u16, 256, 1, 16, 3, true)
+SG_SW(sg_fwd_tma_m256_s4_u16, 256, 1, 16, 4, true)
 
 int ffma_rate(float* out, int iters, int blocks) {
   ffma_bench<<<blocks, 256>>>(out, iters);

@@ -6,6 +6,7 @@
     python3 kernel_probes.py scatter [--out FILE]
     python3 kernel_probes.py gather [--out FILE]
     python3 kernel_probes.py gru_wide [--out FILE]
+    python3 kernel_probes.py step_gemm [--out FILE]
 
 `clusters` sweeps the f32 cluster recurrences over their cluster size C and
 rows a cluster R (each launch checked against its plain version first):
@@ -64,6 +65,17 @@ checked against its plain version first (forward 3e-2 absolute, reverse
 bf16, and with a keep plane and h_in in f32; beside the
 packing of the fragments alone and torch.nn.GRU in bf16 (forward;
 forward + backward - forward).
+
+`step_gemm` builds kernel_probes.cu and times the stepped layouts' bf16
+step GEMM (csrc/step_gemm.cuh) at w3's steps (B=256, D=H=2,304: the GRU's
+and the LSTM's reverse, K = 3H and 4H two terms deep on W_h as stored, and
+forward, N = 3H and 4H) and at the edges (B=16 at the bf16 limits + 4,
+B=64 at 2,304): each variant (the package's wgmma in the 128-byte swizzle,
+fed by TMA or by cp.async in 16- or 8-byte pieces; an mma.sync design;
+wgmma without the swizzle; rows a block, ring stages) at its plan's K split, the shipped ones over other
+splits too, each checked against torch.matmul in f32 first (a variant
+past 1e-5 relative is listed untimed), beside the package's wrapper and
+torch.matmul in bf16.
 
 Each prints one JSON object as its last line, beside the card's name and
 power limit, and exits non-zero without CUDA.
@@ -531,6 +543,104 @@ def probe_gather() -> dict:
     return out
 
 
+def probe_step_gemm() -> dict:
+    """The stepped layouts' bf16 step GEMM (csrc/step_gemm.cuh) at w3's
+    steps and at the stepped edges: each variant of kernel_probes.cu's
+    (the package's wgmma kernel fed by TMA or cp.async; rows a block, ring
+    stages, copy unit) at step_gemm_plan's rule for its rows,
+    the shipped ones also over other K splits, each checked against
+    torch.matmul in f32 on the same bf16 values (forward h @ W_h; reverse
+    (hi + lo) @ W_h^T) first; beside the package's wrapper (the plan it
+    ships) and torch.matmul in bf16 (the reverse on [hi | lo] and W_h^T
+    stacked twice)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from seqrec_tpu_torch.ops.cuda import gru as k_gru
+
+    dev = torch.device("cuda", 0)
+    lib, log = _probe_lib()
+    names = ("sg_rev_sw_m128_s3_u16", "sg_rev_sw_m128_s4_u16", "sg_rev_sw_m128_s4_u8",
+             "sg_rev_sw_m128_s3_u8", "sg_rev_sw_m256_s2_u16", "sg_fwd_sw_m128_s3_u16",
+             "sg_fwd_sw_m128_s3_u8", "sg_fwd_sw_m128_s4_u16", "sg_fwd_sw_m256_s3_u16",
+             "sg_fwd_sw_m256_s3_u8", "sg_fwd_sw_m256_s4_u16", "sg_fwd_sw_m128_s4_u8",
+             "sg_fwd_sw_m256_s4_u8", "sg_rev_tma_m128_s3_u16", "sg_rev_tma_m128_s4_u16",
+             "sg_fwd_tma_m128_s3_u16", "sg_fwd_tma_m256_s3_u16", "sg_fwd_tma_m256_s4_u16")
+    for n in names:
+        getattr(lib, n).argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p, ctypes.c_void_p]
+    rng = np.random.default_rng(0)
+    out = {"ptxas": [ln for ln in log.splitlines() if "sg_" in ln or "step_gemm" in ln][-80:],
+           "shapes": {}}
+    for label, B, H, G, terms in (("w3_gru_reverse", 256, 2304, 3, 2),
+                                  ("w3_lstm_reverse", 256, 2304, 4, 2),
+                                  ("w3_gru_forward", 256, 2304, 3, 1),
+                                  ("w3_lstm_forward", 256, 2304, 4, 1),
+                                  ("edge_gru_reverse_B16", 16, 2116, 3, 2),
+                                  ("edge_lstm_reverse_B16", 16, 1796, 4, 2),
+                                  ("edge_gru_forward_B16", 16, 2116, 3, 1),
+                                  ("gru_reverse_B64", 64, 2304, 3, 2),
+                                  ("gru_forward_B64", 64, 2304, 3, 1)):
+        K, N = (G * H, H) if terms == 2 else (H, G * H)
+        w = torch.from_numpy(rng.normal(scale=H ** -0.5, size=(H, G * H)).astype(np.float32))
+        w = w.to(dev, torch.bfloat16)
+        if terms == 2:
+            d = torch.from_numpy(rng.normal(scale=1e-2, size=(B, K)).astype(np.float32)).to(dev)
+            hi = d.bfloat16()
+            lo = (d - hi.float()).bfloat16()
+            a = torch.cat([hi, lo], dim=1)
+            want = (hi.float() + lo.float()) @ w.float().T
+            stacked = torch.cat([w.T, w.T]).contiguous()
+            library = lambda: a @ stacked  # noqa: E731
+        else:
+            a = torch.from_numpy(rng.normal(size=(B, H)).astype(np.float32)).to(dev, torch.bfloat16)
+            want = a.float() @ w.float()
+            library = lambda: a @ w  # noqa: E731
+        cfg = k_gru.step_gemm_config(B, K, N, terms)
+        flops = 2.0 * B * K * N * terms
+        rec = {"M": B, "K": K, "N": N, "terms": terms, "config": cfg,
+               "bound_ms": max(flops / cs.PEAK_FLOPS[torch.bfloat16],
+                               (a.numel() * 2 + w.numel() * 2 + B * N * 4) / cs.HBM_BYTES_PER_S)
+               * 1e3,
+               "torch_matmul_bf16_ms": cs.time_ms(library)["median"],
+               "wrapper_ms": cs.time_ms(lambda: k_gru.step_gemm(a, w, terms))["median"],
+               "variants": {}}
+        ws = torch.empty((16, B, N), dtype=torch.float32, device=dev)
+        scale = want.abs().max().item()
+        ship = "sg_{}_{}_m{}_s{}".format("rev" if terms == 2 else "fwd",
+                                         "tma" if cfg["tma"] else "sw", cfg["block"][0],
+                                         cfg["stages"])
+        for n in names:
+            if (n.startswith("sg_rev") != (terms == 2) or
+                    (n.endswith("u16") and cfg["unit_bytes"] != 16)):
+                continue
+            fn = getattr(lib, n)
+            sweep = (0, 1, 2, 3, 4, 6, 8, 12) if n.startswith(ship) else (0,)
+            for splits in sweep:
+                used = ctypes.c_int(0)
+
+                def call():
+                    rc = fn(a.data_ptr(), w.data_ptr(), ws.data_ptr(), B, K, N, splits,
+                            ctypes.byref(used), torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError(f"{n}: CUDA error {rc}")
+
+                call()
+                torch.cuda.synchronize()
+                got = ws[:used.value].sum(dim=0)
+                err = (got - want).abs().max().item() / scale
+                ms = cs.time_ms(call)["median"] if err <= 1e-5 else None
+                rec["variants"][f"{n}_S{used.value}" + ("_auto" if splits == 0 else "")] = {
+                    "splits": used.value, "rel_err": err, "ok": err <= 1e-5, "ms": ms,
+                    "tflops": None if ms is None else flops / ms / 1e9}
+        out["shapes"][label] = rec
+        print(json.dumps({label: {k: v for k, v in rec.items() if k != "config"}}), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="probe", required=True)
@@ -539,7 +649,8 @@ def main(argv=None) -> int:
                        ("head", "the f32 sampled-softmax head's variants"),
                        ("scatter", "the deterministic scatter-add's chunk sizes"),
                        ("gather", "the gather's loads in flight, grid and the replaced design"),
-                       ("gru_wide", "the bf16 GRU cluster layouts")):
+                       ("gru_wide", "the bf16 GRU cluster layouts"),
+                       ("step_gemm", "the stepped layouts' bf16 step GEMM's variants")):
         sub.add_parser(name, help=text).add_argument(
             "--out", help="also write the result (indented JSON) to this file")
     args = ap.parse_args(argv)
@@ -553,7 +664,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(HERE))
     result = {"clusters": probe_clusters, "xproj": probe_xproj, "head": probe_head,
               "scatter": probe_scatter, "gather": probe_gather,
-              "gru_wide": probe_gru_wide}[args.probe]()
+              "gru_wide": probe_gru_wide, "step_gemm": probe_step_gemm}[args.probe]()
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

@@ -78,7 +78,14 @@ show bit for bit where parent and change agree; beside torch.nn.GRU in
 bf16 and in f32 (TF32 off) on the same values, forward and forward +
 backward - forward; and torch.nn.LSTM in bf16 at the LSTM's main shapes
 (B=64 and 128, T=200, D=H=128; its backward at B=128), the bf16 library
-times of the LSTM's rows.
+times of the LSTM's rows; and past the grid limits in bf16 (the stepped
+layouts) the GRU and LSTM forwards (the projection included, and timed
+alone) and reverse recurrences (and the device memory a reverse call takes
+beyond its inputs)
+at w3's step (B=256, T=200, D=H=2,304; nn.GRU / nn.LSTM in bf16
+and cuDNN's backward beside them) and at the stepped edges (B=16, T=20,
+D=64, H at each cell's bf16 grid limit + 4: 2,116 and 1,796), each with a
+digest.
 
 With --pairs N, a turn is only one training path (--path, a chip_smoke
 CONFIGS key, default gru4rec): chip_smoke.phase_train with two groups, its
@@ -166,6 +173,7 @@ def _rnn_rows() -> dict:
     import chip_smoke as cs
     from seqrec_tpu_torch.ops import reference
     from seqrec_tpu_torch.ops.cuda import gru as k_gru
+    from seqrec_tpu_torch.ops.cuda import lstm as k_lstm
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(2)
@@ -183,10 +191,10 @@ def _rnn_rows() -> dict:
             lib.bias_hh_l0.copy_(b_h)
         return lib
 
-    def library(cls, x, state, w, g):
-        """nn.GRU / nn.LSTM in bf16 and f32: forward ms, fwd+bwd - fwd ms."""
+    def library(cls, x, state, w, g, dtypes=(bf16, f32)):
+        """nn.GRU / nn.LSTM in `dtypes`: forward ms, fwd+bwd - fwd ms."""
         rec = {}
-        for dtype in (bf16, f32):
+        for dtype in dtypes:
             lib = nn_rnn(cls, *w, dtype)
             xd = x.to(dtype).detach().clone().requires_grad_(True)
             sd = tuple(t.to(dtype)[None] for t in state)
@@ -238,6 +246,76 @@ def _rnn_rows() -> dict:
         g = cs._state(rng, dev, B * 200, 128).reshape(B, 200, 128) * 0.02
         rows[f"nn_lstm_B{B}_T200_H128"] = library(
             torch.nn.LSTM, x, state, (w_x, w_h, b, torch.zeros_like(b)), g)
+
+    def peak_over(fn) -> int:
+        """Device memory a call takes at its peak beyond what was allocated
+        before it (its outputs and scratch)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(dev) - before
+
+    # Past the grid limits, bf16: the stepped layouts at w3's step and at the
+    # stepped edges, forward (the projection included) and reverse (with the
+    # peak memory a call takes), with nn.GRU / nn.LSTM in bf16 and cuDNN's
+    # backward beside them at w3.
+    for label, B, T, D, Hg, Hl in (("w3", 256, 200, 2304, 2304, 2304),
+                                   ("edge", 16, 20, 64, 2116, 1796)):
+        x = cs._zipf_embeddings(rng, dev, B, T, D)
+        xb = x.bfloat16()
+        w = [t.to(dev) for t in cs.gru_weights(rng, D, Hg)]
+        h0 = torch.zeros(B, Hg, device=dev)
+        hb = h0.bfloat16()
+        g = cs._state(rng, dev, B * T, Hg).reshape(B, T, Hg) * 0.02
+        rec = {"ms": med(lambda: k_gru.gru_scan(xb, hb, *w)),
+               "digest": digest([k_gru.gru_scan(xb, hb, *w)[0]])}
+        if label == "w3":
+            rec.update(library(torch.nn.GRU, x, (h0,), w, g, dtypes=(bf16,)))
+        rows[f"gru_stepped_bfloat16_{label}_B{B}_T{T}_H{Hg}"] = rec
+        w_x, w_h, b_x, b_h = w
+        wxb, whb, gb = w_x.bfloat16(), w_h.bfloat16(), g.bfloat16()
+        rec["input_projection_ms"] = med(lambda: k_gru.gru_input_projection(xb, wxb, b_x))
+        with torch.no_grad():
+            ys = k_gru.gru_scan(xb, hb, wxb, whb, b_x, b_h)[0]
+            x_proj = torch.matmul(xb.float(), wxb.float()) + b_x
+            h_in, keep, h_proj = reference.gru_bwd_project(x_proj, ys, hb, whb, b_h, None)
+        args = (x_proj, h_proj, h_in, gb, whb, keep)
+        rows[f"gru_backward_stepped_bfloat16_{label}_B{B}_T{T}_H{Hg}"] = {
+            "ms": med(lambda: k_gru.gru_backward(*args)),
+            "digest": digest(k_gru.gru_backward(*args)),
+            "peak_bytes_over_inputs": peak_over(lambda: k_gru.gru_backward(*args))}
+        del w, g, gb, ys, x_proj, h_in, h_proj, args
+        w_x, w_h, b = (t.to(dev) for t in cs.lstm_weights(rng, D, Hl))
+        state = (torch.zeros(B, Hl, device=dev), torch.zeros(B, Hl, device=dev))
+        sb = tuple(t.bfloat16() for t in state)
+        ys, (_, c_last) = k_lstm.lstm_scan(xb, *sb, w_x, w_h, b)
+        wxl = w_x.bfloat16()
+        rec = {"ms": med(lambda: k_lstm.lstm_scan(xb, *sb, w_x, w_h, b)),
+               "digest": digest([ys, c_last]),
+               "input_projection_ms": med(lambda: k_lstm.lstm_input_projection(xb, wxl, b))}
+        del ys, c_last
+        if label == "w3":
+            g = cs._state(rng, dev, B * T, Hl).reshape(B, T, Hl) * 0.02
+            rec.update(library(torch.nn.LSTM, x, state, (w_x, w_h, b, torch.zeros_like(b)), g,
+                               dtypes=(bf16,)))
+            del g
+        rows[f"lstm_stepped_bfloat16_{label}_B{B}_T{T}_H{Hl}"] = rec
+        # The reverse on gate planes in the forward's ranges.
+        i_, f_, o_, gp = (torch.from_numpy(rng.uniform(0.05, 0.95, size=(B, T, Hl))
+                                           .astype(np.float32)).to(dev) for _ in range(4))
+        g_ = torch.tanh(gp * 4 - 2)
+        tanh_c = torch.tanh(cs._state(rng, dev, B * T, Hl).reshape(B, T, Hl))
+        c_in = cs._state(rng, dev, B * T, Hl).reshape(B, T, Hl) * 2
+        g_ys = (cs._state(rng, dev, B * T, Hl).reshape(B, T, Hl) * 0.02).bfloat16()
+        whb = w_h.bfloat16()
+        largs = (i_, f_, g_, o_, tanh_c, c_in, g_ys, whb, None, state[1])
+        rows[f"lstm_backward_stepped_bfloat16_{label}_B{B}_T{T}_H{Hl}"] = {
+            "ms": med(lambda: k_lstm.lstm_backward(*largs)),
+            "digest": digest(k_lstm.lstm_backward(*largs)),
+            "peak_bytes_over_inputs": peak_over(lambda: k_lstm.lstm_backward(*largs))}
+        del i_, f_, o_, gp, g_, tanh_c, c_in, g_ys, largs, x, xb
     return rows
 
 
@@ -261,7 +339,7 @@ def _worker(label: str, only: str = "") -> dict:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     if only == "rnn":
-        _build.build(["gru"])
+        _build.build(["gru", "lstm"])
         return {"label": label, "root": str(Path.cwd()), "kernels": _rnn_rows(), "paths": {}}
     _build.build()
     rng = np.random.default_rng(0)

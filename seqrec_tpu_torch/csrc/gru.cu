@@ -2055,24 +2055,33 @@ gru_backward_grid_f32_kernel(const float* __restrict__ xp, const float* __restri
 // ---------------------------------------------------------------------------
 
 // Forward step t of the GRU: the gates of (row, unit) from xp[:, t] and the
-// step's hp = h_in @ W_h + b_h (the GEMM just before), h' rounded to T into
+// step's hp = h_in @ W_h + b_h (the GEMM just before: its `splits` partial
+// planes [splits][B][3H] summed in split order, then b_h added here where
+// b_h is given (bf16); f32's one plane has b_h in it), h' rounded to T into
 // ys[:, t], and into hbuf the next step's h_in: keep[t+1] * h' (rounded to
 // T) in the reset variant, h' itself without. hbuf holds this step's h_in
 // (h0, times keep[0] in the reset variant, before step 0): each thread reads
 // its own element before it writes it.
 template <typename T, bool kReset>
 __global__ void __launch_bounds__(rnn::kStepThreads)
-gru_step_kernel(const float* __restrict__ xp, const float* __restrict__ hp, T* __restrict__ hbuf,
+gru_step_kernel(const float* __restrict__ xp, const float* __restrict__ hp, int splits,
+                const float* __restrict__ b_h, T* __restrict__ hbuf,
                 const float* __restrict__ keep, T* __restrict__ ys, int B, int Tn, int H, int t) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= static_cast<long long>(B) * H) return;
   const int row = static_cast<int>(i / H), unit = static_cast<int>(i % H);
   const size_t bt = static_cast<size_t>(row) * Tn + t;
   const float* x = xp + bt * 3 * H + unit;
-  const float* hq = hp + static_cast<size_t>(row) * 3 * H + unit;
+  const size_t plane = static_cast<size_t>(B) * 3 * H, o = static_cast<size_t>(row) * 3 * H + unit;
+  float hq[3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    hq[g] = rnn::step_product(hp, splits, plane, o + g * H);
+    if (b_h != nullptr) hq[g] += b_h[g * H + unit];
+  }
   const float r = rnn::step_sigmoid<T>(x[0] + hq[0]);
-  const float z = rnn::step_sigmoid<T>(x[H] + hq[H]);
-  const float n = rnn::step_tanh<T>(x[2 * H] + r * hq[2 * H]);
+  const float z = rnn::step_sigmoid<T>(x[H] + hq[1]);
+  const float n = rnn::step_tanh<T>(x[2 * H] + r * hq[2]);
   const float h_in = rnn::step_load(hbuf[i]);
   const T h = rnn::step_round<T>((1.0f - z) * n + z * h_in);
   ys[bt * H + unit] = h;
@@ -2085,7 +2094,8 @@ gru_step_kernel(const float* __restrict__ xp, const float* __restrict__ hp, T* _
 
 // Reverse step t of the GRU (t = T-1 .. 0), as reference.gru_bwd_scan: the
 // carry dh_next = (z_buf + p) * keep[t+1] from step t+1 (z_buf: its dh z,
-// p: its d_hproj @ W_h^T, the GEMM just before; 0 at t = T-1), then the
+// p: its d_hproj @ W_h^T, the GEMM just before, its `splits` partial planes
+// [splits][B][H] summed in split order; 0 at t = T-1), then the
 // gates recomputed from the two f32 projections, d_xp[:, t] and dn_r[:, t],
 // the GEMM's A (this step's d_hproj, bf16 as hi and lo terms with W's
 // dtype bf16) and z_buf = dh z. At t = -1 only dh0 = the carry into step 0.
@@ -2093,7 +2103,7 @@ template <typename W, typename HIn, bool kKeep>
 __global__ void __launch_bounds__(rnn::kStepThreads)
 gru_step_backward_kernel(const float* __restrict__ xp, const float* __restrict__ hp,
                          const HIn* __restrict__ h_in, const W* __restrict__ g_ys,
-                         const float* __restrict__ keep, const float* __restrict__ p,
+                         const float* __restrict__ keep, const float* __restrict__ p, int splits,
                          float* __restrict__ z_buf, W* __restrict__ a, float* __restrict__ d_xp,
                          float* __restrict__ dn_r, float* __restrict__ dh0, int B, int Tn, int H,
                          int t) {
@@ -2102,7 +2112,7 @@ gru_step_backward_kernel(const float* __restrict__ xp, const float* __restrict__
   const int row = static_cast<int>(i / H), unit = static_cast<int>(i % H);
   float dh_next = 0.0f;
   if (t < Tn - 1) {
-    dh_next = z_buf[i] + p[i];
+    dh_next = z_buf[i] + rnn::step_product(p, splits, static_cast<size_t>(B) * H, i);
     if (kKeep) dh_next *= keep[static_cast<size_t>(row) * Tn + t + 1];
   }
   if (t < 0) {
@@ -2135,29 +2145,40 @@ gru_step_backward_kernel(const float* __restrict__ xp, const float* __restrict__
 // The forward scan: T x (the step's GEMM, then its gates).
 template <typename T, bool kReset>
 int stepped_forward(const float* xp, T* hbuf, const T* w_h, const float* b_h, const float* keep,
-                    T* ys, float* hp, int B, int Tn, int H, cudaStream_t s) {
+                    T* ys, float* hp, const rnn::StepGemmPlan& plan, int B, int Tn, int H,
+                    cudaStream_t s) {
   constexpr bool kBf16 = sizeof(T) == 2;
+  const float* gate_b = kBf16 ? b_h : nullptr;  // f32: b_h added in the GEMM
+  rnn::StepGemmMaps maps;
+  const int mrc = kBf16 ? rnn::step_gemm_maps(plan, hbuf, w_h, B, H, 3 * H, 1, &maps) : 0;
+  if (mrc != 0) return mrc;
   for (int t = 0; t < Tn; ++t) {
-    int rc = rnn::step_gemm(kBf16, hbuf, w_h, b_h, hp, B, H, 3 * H, s);
-    if (rc == 0) rc = rnn::launch_step(gru_step_kernel<T, kReset>, B, H, s, xp, hp, hbuf, keep, ys,
-                                       B, Tn, H, t);
+    int rc = rnn::step_gemm(kBf16, plan, maps, hbuf, w_h, b_h, hp, B, H, 3 * H, 1, s);
+    if (rc == 0) rc = rnn::launch_step(gru_step_kernel<T, kReset>, B, H, s, xp, hp, plan.splits,
+                                       gate_b, hbuf, keep, ys, B, Tn, H, t);
     if (rc != 0) return rc;
   }
   return 0;
 }
 
 // The reverse recurrence: T x (the step's gates, then its GEMM), then dh0.
+// w: bf16 W_h [H, 3H] as stored (the GEMM's [N][K]), f32 W_h^T [3H, H].
 template <typename W, typename HIn, bool kKeep>
 int stepped_backward(const float* xp, const float* hp, const HIn* h_in, const W* g_ys,
-                     const W* w_t, const float* zeros, const float* keep, float* d_xp,
-                     float* dn_r, float* dh0, W* a, float* p, float* z_buf, int B, int Tn, int H,
-                     cudaStream_t s) {
+                     const W* w, const float* zeros, const float* keep, float* d_xp,
+                     float* dn_r, float* dh0, W* a, float* p, float* z_buf,
+                     const rnn::StepGemmPlan& plan, int B, int Tn, int H, cudaStream_t s) {
   constexpr bool kBf16 = sizeof(W) == 2;
   auto gates = gru_step_backward_kernel<W, HIn, kKeep>;
+  rnn::StepGemmMaps maps;
+  const int mrc = kBf16 ? rnn::step_gemm_maps(plan, a, w, B, 3 * H, H, 2, &maps) : 0;
+  if (mrc != 0) return mrc;
   for (int t = Tn - 1; t >= -1; --t) {
-    int rc = rnn::launch_step(gates, B, H, s, xp, hp, h_in, g_ys, keep, p, z_buf, a, d_xp, dn_r,
-                              dh0, B, Tn, H, t);
-    if (rc == 0 && t >= 0) rc = rnn::step_gemm(kBf16, a, w_t, zeros, p, B, (kBf16 ? 6 : 3) * H, H, s);
+    int rc = rnn::launch_step(gates, B, H, s, xp, hp, h_in, g_ys, keep, p, plan.splits, z_buf, a,
+                              d_xp, dn_r, dh0, B, Tn, H, t);
+    if (rc == 0 && t >= 0) {
+      rc = rnn::step_gemm(kBf16, plan, maps, a, w, zeros, p, B, 3 * H, H, kBf16 ? 2 : 1, s);
+    }
     if (rc != 0) return rc;
   }
   return 0;
@@ -2224,6 +2245,23 @@ int seqrec_gru_forward(const void* xp, const void* h0, const void* w_h, const vo
 int seqrec_gru_xproj(const void* x, const void* w_x, const void* b_x, void* xp,
                      int M, int D, int N3, void* stream) {
   return rnn::launch_xproj(x, w_x, b_x, xp, M, D, N3, static_cast<cudaStream_t>(stream));
+}
+
+// The stepped layouts' bf16 step GEMM alone (csrc/step_gemm.cuh): into out,
+// ws_bytes of f32, its `splits` partial planes [splits][M][N] of a @ w;
+// terms 1: a [M, K], w [K, N]; terms 2: a [M, 2K] ([hi | lo] a row), w
+// [N, K]. block_m, splits and ws_bytes as step_gemm_plan computes them,
+// checked here. All contiguous; K % 4 == 0, N % 4 == 0.
+int seqrec_step_gemm(const void* a, const void* w, void* out, int M, int K, int N, int terms,
+                     int splits, int block_m, long long ws_bytes, void* stream) {
+  rnn::StepGemmPlan plan;
+  const int rc = rnn::stepped_plan(true, M, K, N, terms, splits, block_m, ws_bytes, &plan);
+  if (rc != 0) return rc;
+  rnn::StepGemmMaps maps;
+  const int mrc = rnn::step_gemm_maps(plan, a, w, M, K, N, terms, &maps);
+  if (mrc != 0) return mrc;
+  return rnn::launch_step_gemm(plan, maps, a, w, out, M, K, N, terms,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // The bf16 recurrence on tensor cores, one block of 8 rows (Hp <= 128).
@@ -2483,19 +2521,25 @@ int seqrec_gru_backward_grid(const void* xp, const void* hp, const void* h_in, c
 }
 
 // The stepped layout past grid_max_hidden (either dtype, dtype 0 float, 1
-// bf16): T launches of the projection GEMM (hp [B, 3H] f32 = hbuf @ w_h +
-// b_h) each followed by the step's gate kernel. xp [B, T, 3H] float (the
-// input projection, b_x included); hbuf [B, H] of the dtype, holding h0
-// (times keep[:, 0] in the reset variant) and, after the scan, the last
-// step's h handed on; w_h [H, 3H] of the dtype; b_h [3H] float; keep [B, T]
-// float or null; ys [B, T, H] of the dtype; hp [B, 3H] float scratch. All
+// bf16): T launches of the step's GEMM (hbuf @ w_h into hp, f32) each
+// followed by the step's gate kernel. xp [B, T, 3H] float (the input
+// projection, b_x included); hbuf [B, H] of the dtype, holding h0 (times
+// keep[:, 0] in the reset variant) and, after the scan, the last step's h
+// handed on; w_h [H, 3H] of the dtype; b_h [3H] float; keep [B, T] float or
+// null; ys [B, T, H] of the dtype; hp float scratch of ws_bytes: bf16 the
+// step GEMM's [splits][B][3H] partial planes (rows a block `block_m`, as
+// step_gemm_plan computes them), f32 [B, 3H] (splits 1, block_m 0). All
 // contiguous, 16-byte aligned; H % 4 == 0.
 int seqrec_gru_forward_stepped(const void* xp, void* hbuf, const void* w_h, const void* b_h,
                                const void* keep, void* ys, void* hp, int B, int Tn, int H,
-                               int dtype, void* stream) {
+                               int dtype, int splits, int block_m, long long ws_bytes,
+                               void* stream) {
   if (B <= 0 || Tn <= 0 || H <= 0 || H % 4 != 0 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  rnn::StepGemmPlan plan;
+  const int rc = rnn::stepped_plan(dtype == 1, B, H, 3 * H, 1, splits, block_m, ws_bytes, &plan);
+  if (rc != 0) return rc;
   const float* x = static_cast<const float*>(xp);
   const float* bh = static_cast<const float*>(b_h);
   const float* kp = static_cast<const float*>(keep);
@@ -2506,32 +2550,39 @@ int seqrec_gru_forward_stepped(const void* xp, void* hbuf, const void* w_h, cons
     auto* hb = static_cast<bf*>(hbuf);
     const auto* w = static_cast<const bf*>(w_h);
     auto* y = static_cast<bf*>(ys);
-    return kp == nullptr ? stepped_forward<bf, false>(x, hb, w, bh, kp, y, hq, B, Tn, H, s)
-                         : stepped_forward<bf, true>(x, hb, w, bh, kp, y, hq, B, Tn, H, s);
+    return kp == nullptr ? stepped_forward<bf, false>(x, hb, w, bh, kp, y, hq, plan, B, Tn, H, s)
+                         : stepped_forward<bf, true>(x, hb, w, bh, kp, y, hq, plan, B, Tn, H, s);
   }
   auto* hb = static_cast<float*>(hbuf);
   const auto* w = static_cast<const float*>(w_h);
   auto* y = static_cast<float*>(ys);
-  return kp == nullptr ? stepped_forward<float, false>(x, hb, w, bh, kp, y, hq, B, Tn, H, s)
-                       : stepped_forward<float, true>(x, hb, w, bh, kp, y, hq, B, Tn, H, s);
+  return kp == nullptr
+             ? stepped_forward<float, false>(x, hb, w, bh, kp, y, hq, plan, B, Tn, H, s)
+             : stepped_forward<float, true>(x, hb, w, bh, kp, y, hq, plan, B, Tn, H, s);
 }
 
 // The stepped reverse recurrence; dtype is W_h's (0 float, 1 bf16). xp, hp
 // [B, T, 3H] float; h_in [B, T, H] of hin_dtype (float with float weights);
-// g_ys [B, T, H] of the weights' dtype; w_t W_h^T [3H, H] float, or
-// [W_h^T; W_h^T] [6H, H] bf16 (the hi and lo terms' rows); zeros [H] float
-// (the GEMM's bias); keep [B, T] float or null; d_xp [B, T, 3H], dn_r
-// [B, T, H], dh0 [B, H] float; scratch: a [B, 3H] float or [B, 6H] bf16
-// (the step's d_hproj), p and z [B, H] float. As the forward otherwise.
+// g_ys [B, T, H] of the weights' dtype; w: bf16 W_h [H, 3H] as stored, f32
+// W_h^T [3H, H]; zeros [H] float (the f32 GEMM's bias); keep [B, T] float or
+// null; d_xp [B, T, 3H], dn_r [B, T, H], dh0 [B, H] float; scratch: a
+// [B, 3H] float or [B, 6H] bf16 (the step's d_hproj; bf16 its hi and lo
+// terms, [hi | lo] a row), p float of ws_bytes (bf16 the step GEMM's
+// [splits][B][H] partial planes, f32 [B, H]) and z [B, H] float. As the
+// forward otherwise.
 int seqrec_gru_backward_stepped(const void* xp, const void* hp, const void* h_in,
-                                const void* g_ys, const void* w_t, const void* zeros,
+                                const void* g_ys, const void* w, const void* zeros,
                                 const void* keep, void* d_xp, void* dn_r, void* dh0, void* a,
                                 void* p, void* z, int B, int Tn, int H, int dtype, int hin_dtype,
-                                void* stream) {
+                                int splits, int block_m, long long ws_bytes, void* stream) {
   if (B <= 0 || Tn <= 0 || H <= 0 || H % 4 != 0 || (dtype != 0 && dtype != 1) ||
       (hin_dtype != 0 && hin_dtype != 1) || (dtype == 0 && hin_dtype != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  rnn::StepGemmPlan plan;
+  const int rc = rnn::stepped_plan(dtype == 1, B, 3 * H, H, dtype == 1 ? 2 : 1, splits, block_m,
+                                   ws_bytes, &plan);
+  if (rc != 0) return rc;
   const float* x = static_cast<const float*>(xp);
   const float* hq = static_cast<const float*>(hp);
   const float* zr = static_cast<const float*>(zeros);
@@ -2545,13 +2596,13 @@ int seqrec_gru_backward_stepped(const void* xp, const void* hp, const void* h_in
 #define SEQREC_STEP_BWD(W, HIn)                                                                  \
   (kp == nullptr                                                                                 \
        ? stepped_backward<W, HIn, false>(x, hq, static_cast<const HIn*>(h_in),                   \
-                                         static_cast<const W*>(g_ys), static_cast<const W*>(w_t), \
-                                         zr, kp, dx, dn, d0, static_cast<W*>(a), pp, zb, B, Tn,  \
-                                         H, s)                                                   \
+                                         static_cast<const W*>(g_ys), static_cast<const W*>(w),   \
+                                         zr, kp, dx, dn, d0, static_cast<W*>(a), pp, zb, plan, B, \
+                                         Tn, H, s)                                               \
        : stepped_backward<W, HIn, true>(x, hq, static_cast<const HIn*>(h_in),                    \
-                                        static_cast<const W*>(g_ys), static_cast<const W*>(w_t),  \
-                                        zr, kp, dx, dn, d0, static_cast<W*>(a), pp, zb, B, Tn,   \
-                                        H, s))
+                                        static_cast<const W*>(g_ys), static_cast<const W*>(w),    \
+                                        zr, kp, dx, dn, d0, static_cast<W*>(a), pp, zb, plan, B,  \
+                                        Tn, H, s))
   if (dtype == 0) return SEQREC_STEP_BWD(float, float);
   if (hin_dtype == 0) return SEQREC_STEP_BWD(__nv_bfloat16, float);
   return SEQREC_STEP_BWD(__nv_bfloat16, __nv_bfloat16);

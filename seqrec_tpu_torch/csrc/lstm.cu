@@ -1538,26 +1538,30 @@ lstm_backward_grid_f32_kernel(const float* __restrict__ ig, const float* __restr
 
 // Forward step t of the LSTM: c = keep[t] c (the reset variant) from the
 // f32 carry, the gates from xp[:, t] and the step's hp = h_in @ W_h (the
-// GEMM just before), c' into the carry (and the cell plane), h' rounded to
+// GEMM just before: its `splits` partial planes [splits][B][4H] summed in
+// split order), c' into the carry (and the cell plane), h' rounded to
 // T into ys[:, t], and into hbuf the next step's h_in (keep[t+1] h' in the
 // reset variant). Each thread reads its own elements before it writes them.
 template <typename T, bool kReset>
 __global__ void __launch_bounds__(rnn::kStepThreads)
-lstm_step_kernel(const float* __restrict__ xp, const float* __restrict__ hp, T* __restrict__ hbuf,
-                 float* __restrict__ c_buf, const float* __restrict__ keep, T* __restrict__ ys,
-                 float* __restrict__ cs, int B, int Tn, int H, int t) {
+lstm_step_kernel(const float* __restrict__ xp, const float* __restrict__ hp, int splits,
+                 T* __restrict__ hbuf, float* __restrict__ c_buf, const float* __restrict__ keep,
+                 T* __restrict__ ys, float* __restrict__ cs, int B, int Tn, int H, int t) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= static_cast<long long>(B) * H) return;
   const int row = static_cast<int>(i / H), unit = static_cast<int>(i % H);
   const size_t bt = static_cast<size_t>(row) * Tn + t;
   const float* x = xp + bt * 4 * H + unit;
-  const float* hq = hp + static_cast<size_t>(row) * 4 * H + unit;
+  const size_t plane = static_cast<size_t>(B) * 4 * H, o = static_cast<size_t>(row) * 4 * H + unit;
+  float hq[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) hq[g] = rnn::step_product(hp, splits, plane, o + g * H);
   float c = c_buf[i];
   if (kReset) c *= keep[bt];
   const float ig = rnn::step_sigmoid<T>(x[0] + hq[0]);
-  const float fg = rnn::step_sigmoid<T>(x[H] + hq[H]);
-  const float gg = rnn::step_tanh<T>(x[2 * H] + hq[2 * H]);
-  const float og = rnn::step_sigmoid<T>(x[3 * H] + hq[3 * H]);
+  const float fg = rnn::step_sigmoid<T>(x[H] + hq[1]);
+  const float gg = rnn::step_tanh<T>(x[2 * H] + hq[2]);
+  const float og = rnn::step_sigmoid<T>(x[3 * H] + hq[3]);
   c = fg * c + ig * gg;
   c_buf[i] = c;
   if (cs != nullptr) cs[bt * H + unit] = c;
@@ -1571,8 +1575,9 @@ lstm_step_kernel(const float* __restrict__ xp, const float* __restrict__ hp, T* 
 }
 
 // Reverse step t of the LSTM (t = T-1 .. 0), as reference.lstm_bwd_scan:
-// the carries from step t+1 (dh = p, its dz @ W_h^T, the GEMM just before;
-// dc = dc_buf), times keep[t+1]; at t = T-1 dh = 0 and dc = dc_last. Then
+// the carries from step t+1 (dh = p, its dz @ W_h^T, the GEMM just before,
+// its `splits` partial planes [splits][B][H] summed in split order; dc =
+// dc_buf), times keep[t+1]; at t = T-1 dh = 0 and dc = dc_last. Then
 // dz[:, t], the GEMM's A (dz, bf16 as hi and lo terms with W's dtype bf16)
 // and dc_buf = dc f. At t = -1 only dh0 and dc0, the carries into step 0.
 template <typename W, bool kKeep>
@@ -1582,15 +1587,15 @@ lstm_step_backward_kernel(const float* __restrict__ ig, const float* __restrict_
                           const float* __restrict__ tanh_c, const float* __restrict__ c_in,
                           const W* __restrict__ g_ys, const float* __restrict__ keep,
                           const float* __restrict__ dc_last, const float* __restrict__ p,
-                          float* __restrict__ dc_buf, W* __restrict__ a, float* __restrict__ dz,
-                          float* __restrict__ dh0, float* __restrict__ dc0, int B, int Tn, int H,
-                          int t) {
+                          int splits, float* __restrict__ dc_buf, W* __restrict__ a,
+                          float* __restrict__ dz, float* __restrict__ dh0, float* __restrict__ dc0,
+                          int B, int Tn, int H, int t) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= static_cast<long long>(B) * H) return;
   const int row = static_cast<int>(i / H), unit = static_cast<int>(i % H);
   float dh_next = 0.0f, dc_next = dc_last[i];
   if (t < Tn - 1) {
-    dh_next = p[i];
+    dh_next = rnn::step_product(p, splits, static_cast<size_t>(B) * H, i);
     dc_next = dc_buf[i];
     if (kKeep) {
       const float k = keep[static_cast<size_t>(row) * Tn + t + 1];
@@ -1621,30 +1626,40 @@ lstm_step_backward_kernel(const float* __restrict__ ig, const float* __restrict_
 // The forward scan: T x (the step's GEMM, then its gates).
 template <typename T, bool kReset>
 int stepped_forward(const float* xp, T* hbuf, float* c_buf, const T* w_h, const float* zeros,
-                    const float* keep, T* ys, float* cs, float* hp, int B, int Tn, int H,
-                    cudaStream_t s) {
+                    const float* keep, T* ys, float* cs, float* hp, const rnn::StepGemmPlan& plan,
+                    int B, int Tn, int H, cudaStream_t s) {
   constexpr bool kBf16 = sizeof(T) == 2;
+  rnn::StepGemmMaps maps;
+  const int mrc = kBf16 ? rnn::step_gemm_maps(plan, hbuf, w_h, B, H, 4 * H, 1, &maps) : 0;
+  if (mrc != 0) return mrc;
   for (int t = 0; t < Tn; ++t) {
-    int rc = rnn::step_gemm(kBf16, hbuf, w_h, zeros, hp, B, H, 4 * H, s);
-    if (rc == 0) rc = rnn::launch_step(lstm_step_kernel<T, kReset>, B, H, s, xp, hp, hbuf, c_buf,
-                                       keep, ys, cs, B, Tn, H, t);
+    int rc = rnn::step_gemm(kBf16, plan, maps, hbuf, w_h, zeros, hp, B, H, 4 * H, 1, s);
+    if (rc == 0) rc = rnn::launch_step(lstm_step_kernel<T, kReset>, B, H, s, xp, hp, plan.splits,
+                                       hbuf, c_buf, keep, ys, cs, B, Tn, H, t);
     if (rc != 0) return rc;
   }
   return 0;
 }
 
 // The reverse recurrence: T x (the step's gates, then its GEMM), then dh0, dc0.
+// w: bf16 W_h [H, 4H] as stored (the GEMM's [N][K]), f32 W_h^T [4H, H].
 template <typename W, bool kKeep>
-int stepped_backward(const float* const* planes, const W* g_ys, const W* w_t, const float* zeros,
+int stepped_backward(const float* const* planes, const W* g_ys, const W* w, const float* zeros,
                      const float* keep, const float* dc_last, float* dz, float* dh0, float* dc0,
-                     W* a, float* p, float* dc_buf, int B, int Tn, int H, cudaStream_t s) {
+                     W* a, float* p, float* dc_buf, const rnn::StepGemmPlan& plan, int B, int Tn,
+                     int H, cudaStream_t s) {
   constexpr bool kBf16 = sizeof(W) == 2;
   auto gates = lstm_step_backward_kernel<W, kKeep>;
+  rnn::StepGemmMaps maps;
+  const int mrc = kBf16 ? rnn::step_gemm_maps(plan, a, w, B, 4 * H, H, 2, &maps) : 0;
+  if (mrc != 0) return mrc;
   for (int t = Tn - 1; t >= -1; --t) {
     int rc = rnn::launch_step(gates, B, H, s, planes[0], planes[1], planes[2], planes[3],
-                              planes[4], planes[5], g_ys, keep, dc_last, p, dc_buf, a, dz, dh0,
-                              dc0, B, Tn, H, t);
-    if (rc == 0 && t >= 0) rc = rnn::step_gemm(kBf16, a, w_t, zeros, p, B, (kBf16 ? 8 : 4) * H, H, s);
+                              planes[4], planes[5], g_ys, keep, dc_last, p, plan.splits, dc_buf,
+                              a, dz, dh0, dc0, B, Tn, H, t);
+    if (rc == 0 && t >= 0) {
+      rc = rnn::step_gemm(kBf16, plan, maps, a, w, zeros, p, B, 4 * H, H, kBf16 ? 2 : 1, s);
+    }
     if (rc != 0) return rc;
   }
   return 0;
@@ -1919,20 +1934,26 @@ int seqrec_lstm_backward_grid(const void* i, const void* f, const void* g, const
 }
 
 // The stepped layout past grid_max_hidden (either dtype, dtype 0 float, 1
-// bf16): T launches of the projection GEMM (hp [B, 4H] f32 = hbuf @ w_h)
-// each followed by the step's gate kernel. xp [B, T, 4H] float (the input
+// bf16): T launches of the step's GEMM (hbuf @ w_h into hp, f32) each
+// followed by the step's gate kernel. xp [B, T, 4H] float (the input
 // projection, b included); hbuf [B, H] of the dtype, holding h0 (times
 // keep[:, 0] in the reset variant); c_buf [B, H] float, holding c0 and,
-// after the scan, c_T; w_h [H, 4H] of the dtype; zeros [4H] float (the
+// after the scan, c_T; w_h [H, 4H] of the dtype; zeros [4H] float (the f32
 // GEMM's bias); keep [B, T] float or null; ys [B, T, H] of the dtype; cs
-// [B, T, H] float (the cell plane) or null; hp [B, 4H] float scratch. All
-// contiguous, 16-byte aligned; H % 4 == 0.
+// [B, T, H] float (the cell plane) or null; hp float scratch of ws_bytes:
+// bf16 the step GEMM's [splits][B][4H] partial planes (rows a block
+// `block_m`, as step_gemm_plan computes them), f32 [B, 4H] (splits 1,
+// block_m 0). All contiguous, 16-byte aligned; H % 4 == 0.
 int seqrec_lstm_forward_stepped(const void* xp, void* hbuf, void* c_buf, const void* w_h,
                                 const void* zeros, const void* keep, void* ys, void* cs,
-                                void* hp, int B, int Tn, int H, int dtype, void* stream) {
+                                void* hp, int B, int Tn, int H, int dtype, int splits,
+                                int block_m, long long ws_bytes, void* stream) {
   if (B <= 0 || Tn <= 0 || H <= 0 || H % 4 != 0 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  rnn::StepGemmPlan plan;
+  const int rc = rnn::stepped_plan(dtype == 1, B, H, 4 * H, 1, splits, block_m, ws_bytes, &plan);
+  if (rc != 0) return rc;
   const float* x = static_cast<const float*>(xp);
   float* c = static_cast<float*>(c_buf);
   const float* zr = static_cast<const float*>(zeros);
@@ -1946,33 +1967,38 @@ int seqrec_lstm_forward_stepped(const void* xp, void* hbuf, void* c_buf, const v
     const auto* w = static_cast<const bf*>(w_h);
     auto* y = static_cast<bf*>(ys);
     return kp == nullptr
-               ? stepped_forward<bf, false>(x, hb, c, w, zr, kp, y, cp, hq, B, Tn, H, s)
-               : stepped_forward<bf, true>(x, hb, c, w, zr, kp, y, cp, hq, B, Tn, H, s);
+               ? stepped_forward<bf, false>(x, hb, c, w, zr, kp, y, cp, hq, plan, B, Tn, H, s)
+               : stepped_forward<bf, true>(x, hb, c, w, zr, kp, y, cp, hq, plan, B, Tn, H, s);
   }
   auto* hb = static_cast<float*>(hbuf);
   const auto* w = static_cast<const float*>(w_h);
   auto* y = static_cast<float*>(ys);
   return kp == nullptr
-             ? stepped_forward<float, false>(x, hb, c, w, zr, kp, y, cp, hq, B, Tn, H, s)
-             : stepped_forward<float, true>(x, hb, c, w, zr, kp, y, cp, hq, B, Tn, H, s);
+             ? stepped_forward<float, false>(x, hb, c, w, zr, kp, y, cp, hq, plan, B, Tn, H, s)
+             : stepped_forward<float, true>(x, hb, c, w, zr, kp, y, cp, hq, plan, B, Tn, H, s);
 }
 
 // The stepped reverse recurrence; dtype is g_ys' (0 float, 1 bf16). i, f,
 // g, o, tanh_c, c_in [B, T, H] float (c_in scaled by keep); g_ys [B, T, H]
-// of the dtype; w_t W_h^T [4H, H] float, or [W_h^T; W_h^T] [8H, H] bf16 (the
-// hi and lo terms' rows); zeros [H] float (the GEMM's bias); keep [B, T]
-// float or null; dc_last [B, H] float; dz [B, T, 4H], dh0, dc0 [B, H] float;
-// scratch: a [B, 4H] float or [B, 8H] bf16 (the step's dz), p and dc [B, H]
-// float. As the forward otherwise.
+// of the dtype; w: bf16 W_h [H, 4H] as stored, f32 W_h^T [4H, H]; zeros [H]
+// float (the f32 GEMM's bias); keep [B, T] float or null; dc_last [B, H]
+// float; dz [B, T, 4H], dh0, dc0 [B, H] float; scratch: a [B, 4H] float or
+// [B, 8H] bf16 (the step's dz; bf16 its hi and lo terms, [hi | lo] a row), p
+// float of ws_bytes (bf16 the step GEMM's [splits][B][H] partial planes, f32
+// [B, H]) and dc [B, H] float. As the forward otherwise.
 int seqrec_lstm_backward_stepped(const void* i, const void* f, const void* g, const void* o,
                                  const void* tanh_c, const void* c_in, const void* g_ys,
-                                 const void* w_t, const void* zeros, const void* keep,
+                                 const void* w, const void* zeros, const void* keep,
                                  const void* dc_last, void* dz, void* dh0, void* dc0, void* a,
-                                 void* p, void* dc, int B, int Tn, int H, int dtype,
-                                 void* stream) {
+                                 void* p, void* dc, int B, int Tn, int H, int dtype, int splits,
+                                 int block_m, long long ws_bytes, void* stream) {
   if (B <= 0 || Tn <= 0 || H <= 0 || H % 4 != 0 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  rnn::StepGemmPlan plan;
+  const int rc = rnn::stepped_plan(dtype == 1, B, 4 * H, H, dtype == 1 ? 2 : 1, splits, block_m,
+                                   ws_bytes, &plan);
+  if (rc != 0) return rc;
   const float* planes[6] = {static_cast<const float*>(i), static_cast<const float*>(f),
                             static_cast<const float*>(g), static_cast<const float*>(o),
                             static_cast<const float*>(tanh_c), static_cast<const float*>(c_in)};
@@ -1988,11 +2014,11 @@ int seqrec_lstm_backward_stepped(const void* i, const void* f, const void* g, co
 #define SEQREC_STEP_BWD(W)                                                                      \
   (kp == nullptr                                                                                \
        ? stepped_backward<W, false>(planes, static_cast<const W*>(g_ys),                        \
-                                    static_cast<const W*>(w_t), zr, kp, dcl, out, d0, c0,        \
-                                    static_cast<W*>(a), pp, cb, B, Tn, H, s)                     \
+                                    static_cast<const W*>(w), zr, kp, dcl, out, d0, c0,          \
+                                    static_cast<W*>(a), pp, cb, plan, B, Tn, H, s)               \
        : stepped_backward<W, true>(planes, static_cast<const W*>(g_ys),                         \
-                                   static_cast<const W*>(w_t), zr, kp, dcl, out, d0, c0,         \
-                                   static_cast<W*>(a), pp, cb, B, Tn, H, s))
+                                   static_cast<const W*>(w), zr, kp, dcl, out, d0, c0,           \
+                                   static_cast<W*>(a), pp, cb, plan, B, Tn, H, s))
   if (dtype == 0) return SEQREC_STEP_BWD(float);
   return SEQREC_STEP_BWD(__nv_bfloat16);
 #undef SEQREC_STEP_BWD

@@ -33,6 +33,7 @@
 
 #include "mma.cuh"
 #include "simt_gemm.cuh"
+#include "step_gemm.cuh"
 
 // An unnamed namespace inside: each library that includes this header
 // keeps its own copy of the kernel, and exports none of it.
@@ -686,23 +687,55 @@ int grid_check(int B, int Tn, int H, bool bf16, int gates, int groups, long long
 //
 // Above grid_max_hidden no grid of unit slices fits the card at once, so the
 // serial chain goes back to the host's stream: each step of a scan is two
-// launches, a GEMM of the whole [B, K] vector (the projection kernels above,
-// f32 out: h @ W_h + b_h forward, d_hproj @ W_h^T reverse) and an
-// elementwise gate kernel of the file's cell (one thread a (row, unit)). No
-// H is too wide for it; the GEMM's tiles fill the card at B = 256 (432 bf16
-// CTAs of 64 x 64 at H = 2,304), and 2T launches a scan cost a few us each
-// beside a step's GEMM of 2 B H 3H (GRU) or 4H (LSTM) operations. The
-// reverse's bf16 GEMM takes the f32 cotangent as two bf16 terms, hi and lo
-// (A = [hi | lo], B = [W_h^T; W_h^T]), summed in f32, as every reverse
-// recurrence does.
+// launches, a GEMM of the whole [B, K] vector (f32 out: h @ W_h forward,
+// d_hproj @ W_h^T reverse) and an elementwise gate kernel of the file's cell
+// (one thread a (row, unit)). No H is too wide for it; 2T launches a scan
+// cost a few us each beside a step's GEMM of 2 B H 3H (GRU) or 4H (LSTM)
+// operations. bf16: step_gemm.cuh's kernel, K split into `splits` partial
+// planes that the gate kernel sums where it reads the product (step_product;
+// the GRU forward's b_h added there); the reverse's takes the f32 cotangent
+// as two bf16 terms, hi and lo, on the same W_h tiles, summed in f32, as every
+// reverse recurrence does. f32: the CUDA-core projection above, one plane
+// (splits = 1), b added inside; the reverse multiplies a W_h^T copy.
 constexpr int kStepThreads = 256;  // a gate kernel's block
 
-// out [M, N] f32 = a [M, K] @ w [K, N] + b of the dtype (bf16: the tensor-core
-// projection; f32: the CUDA-core one); K % 4 == 0, N % 4 == 0.
-inline int step_gemm(bool bf16, const void* a, const void* w, const void* b, void* out, int M,
-                     int K, int N, cudaStream_t s) {
-  return bf16 ? launch_xproj(a, w, b, out, M, K, N, s)
+// The entry points' check of the caller's GEMM configuration (bf16: the
+// step GEMM's plan, rows a block `block_m` and `splits`; f32: one plane,
+// block_m 0) and of its workspace bytes; a CUDA error code.
+inline int stepped_plan(bool bf16, int M, int K, int N, int terms, int splits, int block_m,
+                        long long ws_bytes, StepGemmPlan* p) {
+  if (bf16) {
+    const int rc = step_gemm_plan(M, K, N, terms, p);
+    if (rc != 0) return rc;
+  } else {
+    *p = StepGemmPlan{};
+    p->ws_bytes = static_cast<size_t>(M) * N * 4;
+  }
+  if (p->splits != splits || p->bm != block_m || static_cast<long long>(p->ws_bytes) != ws_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
+// The step's product into `out` (p.ws_bytes): bf16 the step GEMM's
+// partials of a [M, terms K] @ w (w [K, N] forward, [N, K] reverse; b
+// unused, the gate kernel adds it; `maps` step_gemm_maps of a and w); f32
+// out [M, N] = a [M, K] @ w [K, N] + b on the CUDA cores; K % 4 == 0,
+// N % 4 == 0.
+inline int step_gemm(bool bf16, const StepGemmPlan& p, const StepGemmMaps& maps, const void* a,
+                     const void* w, const void* b, void* out, int M, int K, int N, int terms,
+                     cudaStream_t s) {
+  return bf16 ? launch_step_gemm(p, maps, a, w, out, M, K, N, terms, s)
               : launch_xproj_f32(a, w, b, out, M, K, N, s);
+}
+
+// The step's product at `i` of a [M, N] plane: the sum of its `splits`
+// partial planes (`plane` floats apart), in split order.
+__device__ __forceinline__ float step_product(const float* p, int splits, size_t plane,
+                                              size_t i) {
+  float v = p[i];
+  for (int s = 1; s < splits; ++s) v += p[s * plane + i];
+  return v;
 }
 
 // The gate nonlinearities of a step in the dtype's numerics: bf16 the fast

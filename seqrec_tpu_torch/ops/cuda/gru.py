@@ -23,9 +23,12 @@ of it (the K split) with no atomics.
 Past the grid layout's limit (`grid_max_hidden`: 2,112 in bf16, 1,056 in
 f32) the stepped layout (`layout` "stepped", `stepped_config`; counted
 again in `.stepped_launches`): every step of the scan is two launches, a
-GEMM of the whole [B, H] state (csrc/rnn.cuh's projection kernels, f32 out)
-and an elementwise gate kernel (csrc/gru.cu); the reverse's GEMM takes
-d_hproj as two bf16 terms in bf16. 2T launches a scan, no H too wide.
+GEMM of the step's whole vector into f32 and an elementwise gate kernel
+(csrc/gru.cu); 2T launches a scan, no H too wide. In bf16 the GEMM is
+csrc/step_gemm.cuh's on wgmma (`step_gemm`, `step_gemm_config`): W_h as
+stored, K split across one wave into partial planes that the gate kernel
+sums in split order (adding b_h), the reverse's d_hproj as two bf16 terms
+on the same W_h tiles; in f32 csrc/rnn.cuh's CUDA-core projection.
 
 Any H and D: the kernels need H % 4 == 0 and D % 4 == 0 (`launch_config`
 keeps that check, the kernels' mechanical limit); the public entry points
@@ -166,6 +169,12 @@ GRID_UNITS = {torch.bfloat16: 16, torch.float32: 8}
 GRID_K = {torch.bfloat16: 32, torch.float32: 128}
 GRID_ROW_TILE = {torch.bfloat16: 16, torch.float32: 4}
 GATE_THREADS = 256  # kStepThreads in csrc/rnn.cuh: a stepped layout's gate kernel block
+# The stepped layouts' bf16 step GEMM (csrc/step_gemm.cuh):
+STEP_GEMM_THREADS = 256  # kSgThreads: two warpgroups
+STEP_GEMM_TILE = (128, 64)  # kSgTileN, kWgK: a CTA's columns and a chunk's depth (128 bytes)
+STEP_GEMM_STAGES = 3  # kWgStages: the ring's stages
+STEP_GEMM_MAX_SPLITS = 8  # kSgMaxSplits
+STEP_GEMM_MIN_CHUNKS = 8  # kSgMinChunks: chunks a split at least, where K has them
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -213,11 +222,17 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p]
     bwd_grid.restype = ctypes.c_int
     fwd_step = lib.seqrec_gru_forward_stepped
-    fwd_step.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fwd_step.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong,
+                                                                      ctypes.c_void_p]
     fwd_step.restype = ctypes.c_int
     bwd_step = lib.seqrec_gru_backward_stepped
-    bwd_step.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    bwd_step.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_longlong,
+                                                                       ctypes.c_void_p]
     bwd_step.restype = ctypes.c_int
+    gemm = lib.seqrec_step_gemm
+    gemm.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_longlong,
+                                                                  ctypes.c_void_p]
+    gemm.restype = ctypes.c_int
     lib.seqrec_gru_error_string.argtypes = [ctypes.c_int]
     lib.seqrec_gru_error_string.restype = ctypes.c_char_p
     return lib
@@ -276,22 +291,82 @@ def pad_scan_operands(x: torch.Tensor, states, w_x: torch.Tensor, w_h: torch.Ten
             pad_gates(pad_gates(w_h, H, Hp), H, Hp, dim=0), [pad_gates(b, H, Hp) for b in biases])
 
 
+def card_sms() -> int:
+    """The current CUDA device's SMs (step_gemm.cuh's sg_sms reads the same
+    at every plan), NUM_SMS where no card is present."""
+    if not torch.cuda.is_available():
+        return NUM_SMS
+    return torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+
+
+def step_gemm_config(M: int, K: int, N: int, terms: int, sms: Optional[int] = None) -> Dict:
+    """The stepped layouts' bf16 step GEMM (csrc/step_gemm.cuh, the C side's
+    step_gemm_plan; the entry points check that both agree): the K-split
+    partial planes [splits, M, N] f32 of a @ w on wgmma, forward (`terms` 1:
+    a [M, K], w [K, N], W_h as stored, read MN-major) or reverse (2: a [M, 2K],
+    the cotangent's hi and lo terms side by side, w [N, K], W_h as stored,
+    read K-major: the two terms share each W tile). `block` [BM, BN, BK]: a
+    CTA computes BM rows (forward 256 at M > 128, else 128; reverse 128) of
+    BN = 128 columns in BK = 64-deep chunks (128-byte swizzled lines)
+    through a ring of `stages` stages, filled by TMA (`tma`) where every
+    row stride is a 16-byte multiple, else by cp.async. K splits into `splits`
+    ranges of `chunks_per_split` chunks so that the `tiles` (column tiles
+    times row blocks) times the splits fill the `sms` SMs (default
+    `card_sms()`, the card the C side plans for) in one wave: at most
+    STEP_GEMM_MAX_SPLITS, each of at least STEP_GEMM_MIN_CHUNKS chunks where
+    K has them, none empty; with as many tiles as SMs or more, one split and
+    one CTA a SM walking the tiles. `grid` CTAs of `threads`; `unit_bytes`
+    16 where every row stride and base is a 16-byte multiple (K % 8 == 0,
+    and forward N % 8 == 0: the TMA route), else 8 (cp.async's piece);
+    `smem_bytes` the ring and 1 KB to align it; `workspace_bytes` the
+    partial planes.
+    ValueError for an empty shape, K or N not a multiple of 4, or terms not
+    1 or 2."""
+    if min(M, K, N) <= 0 or K % 4 or N % 4 or terms not in (1, 2):
+        raise ValueError(f"step gemm: needs M, K, N > 0, K % 4 == N % 4 == 0 and 1 or 2 terms "
+                         f"(M={M} K={K} N={N} terms={terms})")
+    bn, bk = STEP_GEMM_TILE
+    bm = 256 if terms == 1 and M > 128 else 128
+    unit = 16 if K % 8 == 0 and (terms == 2 or N % 8 == 0) else 8
+    tiles = -(-N // bn) * -(-M // bm)
+    chunks = -(-K // bk)
+    sms = card_sms() if sms is None else sms
+    if tiles >= sms:
+        splits, per, grid_tiles = 1, chunks, sms
+    else:
+        s = min(STEP_GEMM_MAX_SPLITS, sms // tiles, max(1, chunks // STEP_GEMM_MIN_CHUNKS))
+        per = -(-chunks // s)
+        splits, grid_tiles = -(-chunks // per), tiles
+    return {"design": "wgmma", "terms": terms, "w_layout": "[N, K]" if terms == 2 else "[K, N]",
+            "block": [bm, bn, bk], "threads": STEP_GEMM_THREADS, "stages": STEP_GEMM_STAGES,
+            "tiles": tiles, "splits": splits, "chunks_per_split": per,
+            "grid": grid_tiles * splits,
+            "unit_bytes": unit, "tma": unit == 16,
+            "smem_bytes": STEP_GEMM_STAGES * (terms * bm + bn) * bk * 2 + 1024,
+            "workspace_bytes": splits * M * N * 4}
+
+
 def stepped_config(B: int, T: int, H: int, dtype: torch.dtype, gates: int,
                    reverse: bool) -> Dict:
     """The stepped layout past `grid_max_hidden(dtype, gates)` (csrc/rnn.cuh,
     either direction, the GRU's 3 gates or the LSTM's 4): each step a GEMM
-    of the [B, K] vector (forward: h [B, H] @ W_h [H, G H] + b_h; reverse:
-    the cotangent [B, G H], bf16 as `d_terms` (`dz_terms`) terms [B, 2 G H], @ W_h^T
-    stacked as often) into f32, then a gate kernel of GATE_THREADS threads
-    over the B H (row, unit) pairs; the reverse ends with one more gate
-    launch (dh0, and the LSTM's dc0). `launches_per_scan` counts both."""
+    of the [B, K] vector into f32 (forward: h [B, H] @ W_h [H, G H], K = H;
+    reverse: the cotangent [B, G H] @ W_h^T, K = G H), then a gate kernel of
+    GATE_THREADS threads over the B H (row, unit) pairs; the reverse ends
+    with one more gate launch (dh0, and the LSTM's dc0). `launches_per_scan`
+    counts both. `gemm`: bf16 the step GEMM (`step_gemm_config`; the
+    reverse's cotangent as `d_terms` (`dz_terms`) bf16 terms on W_h as
+    stored), whose K-split partial planes the gate kernel sums (and the
+    GRU forward's b_h adds); f32 the persistent CUDA-core projection, one
+    plane with b_h in it, the reverse on a W_h^T copy."""
     bf16 = dtype == torch.bfloat16
-    K = (2 if bf16 else 1) * gates * H if reverse else H
+    K = gates * H if reverse else H
     N = H if reverse else gates * H
-    gemm = ({"gemm_grid": [-(-B // PROJ_TILE), -(-N // PROJ_TILE)], "gemm_threads": 128}
-            if bf16 else {"gemm_grid": [xproj_f32_grid(B, N)], "gemm_threads": F32_PROJ_THREADS})
-    cfg = {"design": "mma.sync" if bf16 else "fma", "layout": "stepped",
-           "gemm_m": B, "gemm_k": K, "gemm_n": N, **gemm,
+    gemm = (step_gemm_config(B, K, N, 2 if reverse else 1) if bf16 else
+            {"design": "fma", "grid": [xproj_f32_grid(B, N)], "threads": F32_PROJ_THREADS,
+             "splits": 1, "workspace_bytes": B * N * 4})
+    cfg = {"design": "wgmma" if bf16 else "fma", "layout": "stepped",
+           "gemm_m": B, "gemm_k": K, "gemm_n": N, "gemm": gemm,
            "gate_grid": -(-(B * H) // GATE_THREADS), "threads": GATE_THREADS,
            "launches_per_scan": 2 * T + (1 if reverse else 0),
            "max_hidden": grid_max_hidden(dtype, gates)}
@@ -829,6 +904,96 @@ gru_input_projection.launches = 0
 gru_input_projection.f32_launches = 0
 
 
+def _step_gemm_dims(a: torch.Tensor, w: torch.Tensor, terms: int) -> Tuple[int, int, int]:
+    """(M, K, N) of a step GEMM's operands: terms 1 a [M, K], w [K, N];
+    terms 2 a [M, 2K], w [N, K]; ValueError where they do not fit."""
+    if a.dim() != 2 or w.dim() != 2 or terms not in (1, 2):
+        raise ValueError(f"step gemm: a and w must be matrices and terms 1 or 2, got "
+                         f"{tuple(a.shape)}, {tuple(w.shape)}, terms={terms}")
+    M = a.shape[0]
+    N, K = w.shape if terms == 2 else w.shape[::-1]
+    if a.shape[1] != terms * K:
+        raise ValueError(f"step gemm: a {tuple(a.shape)} does not fit w {tuple(w.shape)} with "
+                         f"{terms} terms")
+    return M, K, N
+
+
+def plain_step_gemm(a: torch.Tensor, w: torch.Tensor, terms: int) -> torch.Tensor:
+    """The step GEMM's partial planes [splits, M, N] f32 in plain PyTorch
+    (`step_gemm_config`'s split): plane s holds the products of K's chunks
+    [s per, (s + 1) per), the values multiplied in f32; terms 2: a = [hi |
+    lo], w [N, K], hi @ w^T + lo @ w^T."""
+    M, K, N = _step_gemm_dims(a, w, terms)
+    cfg = step_gemm_config(M, K, N, terms)
+    per = cfg["chunks_per_split"] * cfg["block"][2]
+    af, wk = a.float(), (w.float().t() if terms == 2 else w.float())
+    parts = []
+    for k0 in range(0, per * cfg["splits"], per):
+        k1 = min(K, k0 + per)
+        p = af[:, k0:k1] @ wk[k0:k1]
+        if terms == 2:
+            p = p + af[:, K + k0:K + k1] @ wk[k0:k1]
+        parts.append(p)
+    return torch.stack(parts)
+
+
+def step_product(parts: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """What a stepped gate kernel reads of the step GEMM's partial planes
+    [splits, M, N] (rnn::step_product): their sum in split order, then the
+    bias (the GRU forward's b_h) where there is one."""
+    v = parts[0]
+    for p in parts[1:]:
+        v = v + p
+    return v if bias is None else v + bias
+
+
+def step_gemm(a: torch.Tensor, w: torch.Tensor, terms: int) -> torch.Tensor:
+    """The stepped layouts' bf16 step GEMM alone (csrc/step_gemm.cuh): its
+    partial planes [splits, M, N] f32 (`step_gemm_config`) of a @ w (terms 1:
+    a [M, K] @ w [K, N]) or of the reverse's hi @ w^T + lo @ w^T (terms 2:
+    a [M, 2K] = [hi | lo], w [N, K]), both bf16; `step_product` sums them
+    as the gate kernels do. Counted by `.launches` (terms 1) and
+    `.reverse_launches` (terms 2); the scans past the grid limit launch it
+    inside their C loops, once a step, and add T to the count of its
+    direction a bf16 stepped scan. A CPU tensor takes the plain version
+    (`plain_step_gemm`); a CUDA tensor launches the kernel or raises."""
+    if a.device.type == "cpu":
+        return plain_step_gemm(a, w, terms)
+    if a.device.type != "cuda":
+        raise ValueError(f"step gemm: no kernel for device {a.device}")
+    if a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise ValueError(f"step gemm: the kernel takes bf16 a and w, got {a.dtype}, {w.dtype}")
+    M, K, N = _step_gemm_dims(a, w, terms)
+    cfg = step_gemm_config(M, K, N, terms)
+    out = torch.empty((cfg["splits"], M, N), dtype=torch.float32, device=a.device)
+    args = [a.contiguous(), w.contiguous()]
+    _check_operands(args + [out], a.device)
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        rc = lib.seqrec_step_gemm(args[0].data_ptr(), args[1].data_ptr(), out.data_ptr(), M, K, N,
+                                  terms, cfg["splits"], cfg["block"][0], cfg["workspace_bytes"],
+                                  torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(rc, lib, "step gemm")
+    if terms == 1:
+        step_gemm.launches += 1
+    else:
+        step_gemm.reverse_launches += 1
+    return out
+
+
+step_gemm.launches = 0  # the forward's (terms 1): alone, and T a bf16 stepped forward scan
+step_gemm.reverse_launches = 0  # the reverse's (terms 2): alone, and T a bf16 stepped reverse
+
+
+def stepped_workspace(cfg: Dict, dev) -> tuple:
+    """A stepped scan's GEMM workspace (`gemm.workspace_bytes` of f32) and
+    the C entry point's splits, rows a block (0 in f32) and bytes."""
+    gemm = cfg["gemm"]
+    ws = torch.empty(gemm["workspace_bytes"] // 4, dtype=torch.float32, device=dev)
+    return ws, (gemm["splits"], gemm["block"][0] if "block" in gemm else 0,
+                gemm["workspace_bytes"])
+
+
 def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None, padded: bool = False) -> torch.Tensor:
     """ys [B, T, H]; every operand already in its kernel dtype; `keep` the
     [B, T] plane 1 - reset (the reset variant) or None; `padded`: the
@@ -846,13 +1011,13 @@ def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None, padded: bool = False) 
         xp = gru_input_projection(x, w_x, b_x)
         h_in = h0 if keep is None else h0.float() * keep[:, :1]  # step 0's h_in
         hbuf = h_in.to(dtype).clone(memory_format=torch.contiguous_format)  # the kernels write it
-        hp = torch.empty((B, 3 * H), dtype=torch.float32, device=dev)
+        hp, gemm = stepped_workspace(cfg, dev)
         args = [xp, hbuf, w_h.contiguous(), b_h.contiguous()]
         _check_operands(args + ([] if keep is None else [keep]) + [hp], dev)
         with torch.cuda.device(dev):
             rc = lib.seqrec_gru_forward_stepped(
                 *(a.data_ptr() for a in args), keep_ptr, ys.data_ptr(), hp.data_ptr(), B, T, H,
-                _DTYPE_CODE[dtype], stream)
+                _DTYPE_CODE[dtype], *gemm, stream)
     elif cfg.get("layout") == "grid":
         xp = gru_input_projection(x, w_x, b_x)
         ws = torch.zeros(cfg["workspace_bytes"], dtype=torch.uint8, device=dev)
@@ -900,6 +1065,7 @@ def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None, padded: bool = False) 
         gru_scan.grid_launches += 1
     elif cfg.get("layout") == "stepped":
         gru_scan.stepped_launches += 1
+        step_gemm.launches += T if dtype == torch.bfloat16 else 0
     if padded:
         gru_scan.padded_launches += 1
     return ys
@@ -950,21 +1116,22 @@ def gru_backward(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     if cfg.get("layout") == "stepped":
         bf16 = w_h.dtype == torch.bfloat16
-        w_t = w_h.t()
-        w_t = torch.cat([w_t, w_t]).contiguous() if bf16 else w_t.float().contiguous()
+        w = w_h.contiguous() if bf16 else w_h.t().float().contiguous()  # bf16: as stored
         zeros = torch.zeros(H, dtype=torch.float32, device=dev)
-        # Scratch: the step's d_hproj (bf16: its hi and lo terms), its product, dh z.
+        # Scratch: the step's d_hproj (bf16: its hi and lo terms), its product
+        # (the step GEMM's partial planes), dh z.
         terms = torch.empty((B, (6 if bf16 else 3) * H), dtype=w_h.dtype, device=dev)
-        p, z = (torch.empty((B, H), dtype=torch.float32, device=dev) for _ in range(2))
+        p, gemm = stepped_workspace(cfg, dev)
+        z = torch.empty((B, H), dtype=torch.float32, device=dev)
         args = [x_proj.float().contiguous(), h_proj.float().contiguous(),
                 (h_in if bf16 else h_in.float()).contiguous(),
-                g_ys.to(w_h.dtype).contiguous(), w_t, zeros]
+                g_ys.to(w_h.dtype).contiguous(), w, zeros]
         _check_operands(args + ([] if keep is None else [keep]), dev)
         with torch.cuda.device(dev):
             rc = lib.seqrec_gru_backward_stepped(
                 *(a.data_ptr() for a in args), keep_ptr, d_xp.data_ptr(), dn_r.data_ptr(),
                 dh0.data_ptr(), terms.data_ptr(), p.data_ptr(), z.data_ptr(), B, T, H,
-                _DTYPE_CODE[w_h.dtype], _DTYPE_CODE[args[2].dtype], stream)
+                _DTYPE_CODE[w_h.dtype], _DTYPE_CODE[args[2].dtype], *gemm, stream)
     elif cfg.get("layout") == "grid":
         bf16 = w_h.dtype == torch.bfloat16
         ws = torch.zeros(cfg["workspace_bytes"], dtype=torch.uint8, device=dev)
@@ -1011,6 +1178,7 @@ def gru_backward(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
         gru_backward.grid_launches += 1
     elif cfg.get("layout") == "stepped":
         gru_backward.stepped_launches += 1
+        step_gemm.reverse_launches += T if w_h.dtype == torch.bfloat16 else 0
     if padded:
         gru_backward.padded_launches += 1
     return d_xp, dh0, dn_r

@@ -22,9 +22,11 @@ workspace. The reverse publishes each step's dz columns, then forms dh_prev
 from the whole of it (the K split) with no atomics. Up to
 `grid_max_hidden`: 1,792 in bf16, 1,056 in f32. Past it the stepped layout
 (`gru.stepped_config` with four gates, `layout` "stepped", counted again in
-`.stepped_launches`): each step a GEMM of the [B, H] state (csrc/rnn.cuh's
-projection kernels) and an elementwise gate kernel (csrc/lstm.cu) that
-carries c in f32; the reverse's GEMM takes dz as two bf16 terms in bf16.
+`.stepped_launches`): each step a GEMM of the step's vector (bf16:
+csrc/step_gemm.cuh's, `gru.step_gemm`, its partial planes summed by the gate
+kernel, the reverse's dz as two bf16 terms on W_h as stored; f32: csrc/rnn.cuh's
+projection) and an elementwise gate kernel (csrc/lstm.cu) that carries c in
+f32.
 
 Any H and D: as the GRU's (`gru.pad_gates`), the public entry points
 (`lstm_scan`, `lstm_backward`, `lstm_input_projection`) zero-pad H and D to
@@ -99,8 +101,8 @@ from seqrec_tpu_torch.ops.cuda.gru import (F32_PROJ_THREADS, MMA_ROWS, RING_STAG
                                            grid_max_hidden as _grid_max_hidden,
                                            not_cluster, pad_gates, pad_scan_operands,
                                            padded_backward_route, padded_route, padded_width,
-                                           plain_input_projection, stepped_config, unpad_gates,
-                                           xproj_f32_grid)
+                                           plain_input_projection, step_gemm, stepped_config,
+                                           stepped_workspace, unpad_gates, xproj_f32_grid)
 from seqrec_tpu_torch.ops.cuda.gru import _check_dims as _gru_check_dims
 
 plain = reference.lstm_scan
@@ -157,10 +159,12 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p]
     bwd_grid.restype = ctypes.c_int
     fwd_step = lib.seqrec_lstm_forward_stepped
-    fwd_step.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fwd_step.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong,
+                                                                      ctypes.c_void_p]
     fwd_step.restype = ctypes.c_int
     bwd_step = lib.seqrec_lstm_backward_stepped
-    bwd_step.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    bwd_step.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_longlong,
+                                                                       ctypes.c_void_p]
     bwd_step.restype = ctypes.c_int
     lib.seqrec_lstm_error_string.argtypes = [ctypes.c_int]
     lib.seqrec_lstm_error_string.restype = ctypes.c_char_p
@@ -496,19 +500,20 @@ def _forward_kernel(x, h0, c0, w_x, w_h, b, with_cells: bool, keep=None,
         hbuf = h_in.to(dtype).clone(memory_format=torch.contiguous_format)  # the kernels write it
         c_buf = c0.float().clone(memory_format=torch.contiguous_format)  # c_T after the scan
         zeros = torch.zeros(4 * H, dtype=torch.float32, device=dev)
-        hp = torch.empty((B, 4 * H), dtype=torch.float32, device=dev)
+        hp, gemm = stepped_workspace(cfg, dev)
         args = [xp, hbuf, c_buf, w_h.contiguous(), zeros]
         _check_operands(args + ([] if keep is None else [keep]) + [hp], dev)
         with torch.cuda.device(dev):
             rc = lib.seqrec_lstm_forward_stepped(
                 *(a.data_ptr() for a in args), keep_ptr, ys.data_ptr(), cs_ptr, hp.data_ptr(),
-                B, T, H, _DTYPE_CODE[dtype], stream)
+                B, T, H, _DTYPE_CODE[dtype], *gemm, stream)
         _raise_on(rc, lib, "forward")
         if keep is None:
             lstm_scan.launches += 1
         else:
             lstm_scan.reset_launches += 1
         lstm_scan.stepped_launches += 1
+        step_gemm.launches += T if dtype == torch.bfloat16 else 0
         if padded:
             lstm_scan.padded_launches += 1
         return ys, c_buf, cs
@@ -591,9 +596,9 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
     mma = cfg["design"] == "mma.sync"
     if grid:
         w = grid_pack(w_h, dtype, reverse=True)
-    elif stepped:  # W_h^T, stacked twice in bf16: the rows of dz's hi and lo terms
-        w = w_h.to(dtype).t()
-        w = torch.cat([w, w]).contiguous() if dtype == torch.bfloat16 else w.float().contiguous()
+    elif stepped:  # bf16 W_h as stored (dz's hi and lo terms share its tiles); f32 W_h^T
+        w = (w_h.to(dtype).contiguous() if dtype == torch.bfloat16
+             else w_h.t().float().contiguous())
     else:
         w = backward_fragments(w_h) if mma else w_h.float().contiguous()
     args = planes + [g_ys.contiguous(), w]
@@ -609,14 +614,16 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if stepped:  # scratch: the step's dz (bf16: hi and lo terms), its product, the dc carry
+        if stepped:  # scratch: the step's dz (bf16: hi and lo terms), its product (the
+            # step GEMM's partial planes), the dc carry
             zeros = torch.zeros(H, dtype=torch.float32, device=dev)
             terms = torch.empty((B, (8 if dtype == torch.bfloat16 else 4) * H), dtype=dtype,
                                 device=dev)
-            p, dc = (torch.empty((B, H), dtype=torch.float32, device=dev) for _ in range(2))
+            p, gemm = stepped_workspace(cfg, dev)
+            dc = torch.empty((B, H), dtype=torch.float32, device=dev)
             rc = lib.seqrec_lstm_backward_stepped(
                 *ptrs[:8], zeros.data_ptr(), *ptrs[8:], terms.data_ptr(), p.data_ptr(),
-                dc.data_ptr(), B, T, H, _DTYPE_CODE[dtype], stream)
+                dc.data_ptr(), B, T, H, _DTYPE_CODE[dtype], *gemm, stream)
         elif grid:
             rc = lib.seqrec_lstm_backward_grid(
                 *ptrs, ws.data_ptr(), B, T, H, _DTYPE_CODE[dtype], cfg["row_groups"],
@@ -636,6 +643,7 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
         lstm_backward.grid_launches += 1
     elif stepped:
         lstm_backward.stepped_launches += 1
+        step_gemm.reverse_launches += T if dtype == torch.bfloat16 else 0
     if padded:
         lstm_backward.padded_launches += 1
     return dz, dh0, dc0

@@ -412,7 +412,7 @@ def test_attention_chooses_the_sliced_layout_only_past_256(dtype):
 def test_scans_choose_the_stepped_layout_only_past_the_grid(cell, dtype):
     """At the grid layout's limit the grid layout; 4 past it and at 2,304 the
     stepped layout, forward and reverse: a GEMM of the step's vector (the
-    reverse's K twice as deep in bf16: the cotangent's hi and lo terms) and
+    reverse's in bf16 two terms deep, the cotangent's hi and lo, on one K) and
     a gate kernel over the B H pairs, 2T launches a forward scan and 2T + 1
     a reverse one; the limit itself is unchanged (GRU 2,112 / 1,056, LSTM
     1,792 / 1,056). H % 4 != 0 is still the kernels' refusal, which
@@ -434,8 +434,8 @@ def test_scans_choose_the_stepped_layout_only_past_the_grid(cell, dtype):
             assert cfg["gate_grid"] == -(-B * H // 256) and cfg["threads"] == 256
             assert cfg["gemm_m"] == B
         assert (fwd["gemm_k"], fwd["gemm_n"], fwd["launches_per_scan"]) == (H, G * H, 2 * T)
-        assert (bwd["gemm_k"], bwd["gemm_n"], bwd["launches_per_scan"]) == (
-            (2 if bf16 else 1) * G * H, H, 2 * T + 1)
+        assert (bwd["gemm_k"], bwd["gemm_n"], bwd["launches_per_scan"]) == (G * H, H, 2 * T + 1)
+        assert bwd["gemm"].get("terms") == (2 if bf16 else None)
         assert bwd.get("d_terms" if cell == "gru" else "dz_terms") == (2 if bf16 else None)
         assert fwd["xproj_threads"] == (128 if bf16 else cuda_gru.F32_PROJ_THREADS)
     with pytest.raises(ValueError, match="H % 4"):

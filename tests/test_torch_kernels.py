@@ -2530,6 +2530,52 @@ def test_stepped_autograd_matches_plain(cuda, dtype, cell):
         assert err <= tol, (i, err)
 
 
+@pytest.mark.parametrize("terms", [1, 2])
+@pytest.mark.parametrize("G", [3, 4])
+@pytest.mark.parametrize("H", [2116, 2304])
+@pytest.mark.parametrize("B", [1, 3, 16, 256, 300])
+def test_step_gemm_matches_matmul_twice(cuda, B, H, G, terms):
+    """The stepped layouts' bf16 step GEMM alone (TMA, or cp.async's 8-byte
+    pieces where a row stride is no 16-byte multiple: H = 2,116 but for the
+    LSTM's reverse, whose K = 4H; B = 300 two row blocks): forward h [B, H] @ W_h [H, G H],
+    reverse [hi | lo] [B, 2 G H] on W_h as stored; its partial planes
+    summed in split order within 1e-5 of torch.matmul in f32 on the same
+    bf16 values (reverse: (hi + lo) @ W_h^T, hi + lo exact in f32) relative
+    to the largest value, 5e-5 in the reverse (2 K products a sum: up to
+    2.2e-5 in one plane on an H100, kernel_probes.py step_gemm): exact
+    products, f32 sums in another order; the planes within the same of the
+    plain version's, twice bit for bit, counted by `launches` (forward) or
+    `reverse_launches`; planned for the card's SMs, as the C side plans."""
+    rng = np.random.default_rng(B * H + 10 * G + terms)
+    w = torch.from_numpy(rng.normal(scale=H ** -0.5, size=(H, G * H)).astype(np.float32))
+    w = w.to(cuda, torch.bfloat16)
+    if terms == 1:
+        a = torch.from_numpy(rng.normal(size=(B, H)).astype(np.float32)).to(cuda, torch.bfloat16)
+        want = a.float() @ w.float()
+    else:
+        d = torch.from_numpy(rng.normal(scale=1e-2, size=(B, G * H)).astype(np.float32)).to(cuda)
+        hi = d.bfloat16()
+        lo = (d - hi.float()).bfloat16()
+        a = torch.cat([hi, lo], dim=1)
+        want = (hi.float() + lo.float()) @ w.float().T
+    K, N = (G * H, H) if terms == 2 else (H, G * H)
+    cfg = k_gru.step_gemm_config(B, K, N, terms)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert cfg == k_gru.step_gemm_config(B, K, N, terms, sms=sms)  # the C plan's count
+    assert cfg["tma"] == (K % 8 == 0 and (terms == 2 or N % 8 == 0))
+    counter = "launches" if terms == 1 else "reverse_launches"
+    before = getattr(k_gru.step_gemm, counter)
+    got, again = k_gru.step_gemm(a, w, terms), k_gru.step_gemm(a, w, terms)
+    torch.cuda.synchronize()
+    assert getattr(k_gru.step_gemm, counter) == before + 2
+    assert tuple(got.shape) == (cfg["splits"], B, N) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    scale, tol = want.abs().max().item(), (1e-5 if terms == 1 else 5e-5)
+    torch.testing.assert_close(k_gru.step_product(got), want, rtol=tol, atol=tol * scale)
+    torch.testing.assert_close(got, k_gru.plain_step_gemm(a, w, terms), rtol=tol,
+                               atol=tol * scale)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("edge", [0, 1])
 @pytest.mark.parametrize("N,S", [(1, 512), (257, 100), (300, 130)])
