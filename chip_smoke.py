@@ -20,11 +20,13 @@ source, all at once). Each phase prints one JSON line:
               and bf16, and against torch.nn.GRU as a second oracle, and
               also at the training shape B=128 and at the fit loop's
               D=H=64; the bf16 forward's input
-              projection kernel and the f32 one's, which the f32 GRU
-              forward runs, the f32 one also at the training paths' M=25,600
-              with N=384 and N=512, each beside torch.addmm f32), with kernel,
-              plain, library and bound times and each kernel's design
-              (mma.sync, cluster, persistent-simt or cuda-core);
+              projection kernel (twice bit for bit, beside torch.addmm(...,
+              out_dtype=torch.float32): bf16 in, f32 out) and the f32 one's,
+              which the f32 GRU forward runs, the f32 one also at the
+              training paths' M=25,600 with N=384 and N=512, each beside
+              torch.addmm f32), with kernel, plain, library and bound times
+              and each kernel's design (wgmma, mma.sync, cluster,
+              persistent-simt or cuda-core);
   d. serve    `recommend` on the ML-1M GRU4Rec configuration
               (configs/ml1m_gru4rec.json, seeded random weights) for a few
               hundred Zipf-distributed histories, batch 64, k=10: once with
@@ -327,7 +329,11 @@ source, all at once). Each phase prints one JSON line:
               the stepped scans' bf16 step GEMM alone at w3's steps (the GRU's
               and the LSTM's, forward and reverse) against its plain version
               and torch.matmul in f32, twice bit for bit (torch.matmul in
-              bf16 beside it);
+              bf16 beside it); the bf16 input projection alone at rsc15's
+              D = 100, d = 52, the wide towers' D = 512 and w3's 2,304, the
+              GRU's N = 3H and the LSTM's 4H (XPROJ_SHAPES), against its
+              plain version and torch.addmm(..., out_dtype=torch.float32),
+              twice bit for bit;
               then served as phase d and trained as phases f and k in bf16
               and f32: w1 benchmarks/shapes.py:65-68's SASRec at
               embed_dim=512 (2 blocks of one head), two K=4 groups; w2
@@ -372,7 +378,9 @@ source, all at once). Each phase prints one JSON line:
               that path's training run; the stepped scans' bf16 step GEMM
               (`step_gemm`, forward; `step_gemm_reverse`; both on wgmma)
               at w3's GRU step, its launches (one a step of each bf16
-              stepped scan) counted on w3's GRU training path.
+              stepped scan) counted on w3's GRU training path; the bf16
+              input projections' entries (`gru_xproj`, `lstm_xproj`) also
+              `at_shapes`: phase w's XPROJ_SHAPES, each with its plan.
 
 Before it a line {"phase": "run", "seconds", "all_widths_seconds"}; then
 the raw nvidia-smi name/power-limit line, and last
@@ -460,6 +468,9 @@ GRU_F32_TOL = 1e-5  # same f32 math, another summation order
 GRU_CUDNN_F32_TOL = 1e-4  # cuDNN's own GEMM order, TF32 off
 GRU_BF16_TOL = 3e-2  # plain rounds every gate op to bf16, the kernel only h
 XPROJ_TOL = 1e-5  # exact bf16 products summed in f32 on both sides, another order
+# The bf16 projection above D = 256 (the wide towers' 512, w3's 2,304 products a
+# sum): 1e-5 of the largest value, the step GEMM's forward rule (STEP_GEMM_TOL[1]).
+XPROJ_WIDE_REL_TOL = 1e-5
 # Serve: bf16 scores through two numerics of the tower (kernel vs plain):
 # GRU 1e-2 (CPU emulation: 1e-3); SASRec 5e-2 (the plain attention rounds
 # its scores to bf16, through two blocks and LayerNorms); LSTM 5e-2 (the
@@ -626,10 +637,11 @@ def _kernel_name(demangled: str) -> str:
 # the deterministic scatter-add's two kernels, the f32 projection GEMM
 # that shares the head's main loop; the sliced attention, the stepped
 # layouts' gate kernels and the bf16 head's K split with its streamed
-# variant).
+# variant; the stepped layouts' step GEMM and the bf16 input projection,
+# both on wgmma).
 WATCH = ("head_f32_kernel", "scatter_partials_kernel", "scatter_combine_kernel",
          "xproj_f32_kernel", "attention_sliced", "gru_step", "lstm_step",
-         "head_mma_ksplit_kernel", "step_gemm_wgmma_kernel")
+         "head_mma_ksplit_kernel", "step_gemm_wgmma_kernel", "xproj_wgmma_kernel")
 
 
 def _demangled(kernels: dict) -> dict:
@@ -853,25 +865,44 @@ def phase_kernels(rng: np.random.Generator, dev) -> dict:
     return out
 
 
-def _xproj_check(module, project, x32, w_x, b_x, dtype=torch.bfloat16, reps: int = REPS) -> dict:
+def _xproj_check(module, project, x32, w_x, b_x, dtype=torch.bfloat16, reps: int = REPS,
+                 twice: bool = True) -> dict:
     """A forward's input projection kernel (`project`: x @ W_x + b_x into
-    f32, all steps at once) against its module's plain version: the bf16
-    GEMM (the GRU's and the LSTM's launch the same one) on bf16 values, or
-    the f32 one, which is also held against the product in f64. The library
-    yardstick is one f32 torch.addmm on the same values (TF32 off)."""
+    f32, all steps at once) against its module's plain version and the one
+    PyTorch call that computes the same function: the bf16 GEMM (the GRU's
+    and the LSTM's launch the same one, `k_gru.xproj_config`'s plan) on bf16
+    values against torch.addmm(b_x, x, W_x, out_dtype=torch.float32) (bf16
+    in, f32 sums and out), or the f32 one against torch.addmm in f32 (TF32
+    off), also held against the product in f64. Within XPROJ_TOL absolute
+    at D <= 256, XPROJ_WIDE_REL_TOL of the largest value above; `twice`: a
+    second launch gives the same bits. The library call is also the
+    yardstick (`library_ms`)."""
     B, T, D = x32.shape
     N = w_x.shape[1]
-    name = f"{project.__name__} {_dname(dtype)} B={B}"
+    name = f"{project.__name__} {_dname(dtype)} B={B} T={T} D={D} N={N}"
     x, wx = x32.to(dtype), w_x.to(dtype)
     got = project(x, wx, b_x)
     torch.cuda.synchronize()
-    want = module.plain_input_projection(x, wx, b_x)
-    err = max_err(got, want)
     check(got.shape == (B, T, N) and got.dtype == torch.float32,
           f"{name}: {tuple(got.shape)} {got.dtype}")
-    check(err <= XPROJ_TOL, f"{name}: kernel vs plain max abs err {err} > {XPROJ_TOL}")
-    xf, wf = x.float().reshape(B * T, D), wx.float()
-    errs = {"vs_plain": err}
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    if twice:
+        check(torch.equal(got, project(x, wx, b_x)), f"{name}: two launches differ")
+    want = module.plain_input_projection(x, wx, b_x)
+    x2, xf, wf = x.reshape(B * T, D), x.float().reshape(B * T, D), wx.float()
+    if dtype == torch.bfloat16:
+        library = lambda: torch.addmm(b_x, x2, wx, out_dtype=torch.float32)  # noqa: E731
+        lib_name = "torch.addmm(b, x, w_x, out_dtype=torch.float32): bf16 in, f32 sums and out"
+    else:
+        library = lambda: torch.addmm(b_x, xf, wf)  # noqa: E731
+        lib_name = "torch.addmm f32 (TF32 off)"
+    wide = dtype == torch.bfloat16 and D > 256
+    scale = want.abs().max().item()
+    tol = XPROJ_WIDE_REL_TOL * scale if wide else XPROJ_TOL
+    err = max_err(got, want)
+    errs = {"vs_plain": err, "vs_library": max_err(got, library().reshape(B, T, N))}
+    for k, e in errs.items():
+        check(e <= tol, f"{name}: kernel {k} max abs err {e} > {tol}")
     if dtype == torch.float32:
         f64 = (xf.double() @ wf.double() + b_x.double()).reshape(B, T, N)
         errs["vs_f64"] = max_err(got, f64)
@@ -881,14 +912,20 @@ def _xproj_check(module, project, x32, w_x, b_x, dtype=torch.bfloat16, reps: int
     p_bytes = (B * T * D + D * N) * es + N * 4 + B * T * N * 4
     p_flops = 2 * B * T * D * N
     p_bound, p_by = bound(p_bytes, p_flops, dtype)
+    bf16 = dtype == torch.bfloat16
     return {
         "shape": {"M": B * T, "D": D, "N": N, "dtype": _dname(dtype), "out": "float32"},
-        "design": "mma.sync" if dtype == torch.bfloat16 else "persistent-simt",
-        "max_abs_err": err, "errors": errs, "tolerance": XPROJ_TOL,
+        "design": "wgmma" if bf16 else "persistent-simt",
+        # The plan of the shape the kernel runs: the wrappers pad D and N to multiples of 4.
+        **({"plan": k_gru.xproj_config(B * T, k_gru.padded_width(D), k_gru.padded_width(N))}
+           if bf16 else {}),
+        "max_abs_err": err, "errors": errs,
+        "tolerance": tol, "tolerance_rule": ("1e-5 of the largest value" if wide else
+                                             "1e-5 absolute"),
+        **({"twice_bit_for_bit": True} if twice else {}),
         "kernel_ms": time_ms(lambda: project(x, wx, b_x), reps=reps),
         "plain_ms": time_ms(lambda: module.plain_input_projection(x, wx, b_x), reps=reps),
-        "library_ms": time_ms(lambda: torch.addmm(b_x, xf, wf), reps=reps),
-        "library": f"torch.addmm f32 on the {_dname(dtype)} values (TF32 off)",
+        "library_ms": time_ms(library, reps=reps), "library": lib_name,
         "bound_ms": p_bound, "bound_by": p_by, "bytes": int(p_bytes), "flops": int(p_flops),
     }
 
@@ -2468,7 +2505,7 @@ TRACE_WINDOW, TRACE_FIT_STEPS = (8, 24), 40
 # The hand-written kernels' function names (csrc/*.cu, *.cuh), as a trace
 # names them inside their demangled signatures.
 HANDWRITTEN = ("gather_rows_kernel", "scatter_partials_kernel", "scatter_combine_kernel",
-               "xproj_kernel", "xproj_f32_kernel", "gru_forward_mma_kernel",
+               "xproj_wgmma_kernel", "xproj_f32_kernel", "gru_forward_mma_kernel",
                "gru_forward_cluster_kernel", "gru_backward_mma_kernel",
                "gru_backward_cluster_kernel", "lstm_forward_mma_kernel",
                "lstm_forward_cluster_kernel", "lstm_backward_mma_kernel",
@@ -2477,7 +2514,8 @@ HANDWRITTEN = ("gather_rows_kernel", "scatter_partials_kernel", "scatter_combine
 # Each of them on a bf16 GRU4Rec path, and the counter that counts its
 # launches (the scatter-add's two kernels: one each a call).
 TRACE_COUNTERS = {"gather_rows_kernel": "gather", "scatter_partials_kernel": "gather_backward",
-                  "scatter_combine_kernel": "gather_backward", "xproj_kernel": "gru_xproj",
+                  "scatter_combine_kernel": "gather_backward",
+                  "xproj_wgmma_kernel": "gru_xproj",
                   "gru_forward_mma_kernel": "gru_scan", "gru_backward_mma_kernel": "gru_backward",
                   "head_mma_kernel": "softmax_head"}
 
@@ -5177,6 +5215,36 @@ def _step_gemm_check(rng, dev, B: int, H: int, G: int, terms: int, reps: int) ->
             "workspace_bytes": int(got.numel() * 4)}
 
 
+# The bf16 input projection's shapes beside the narrow ones (phases c and g):
+# rsc15's (B = 256, T = 50, D = H = 100: 200-byte rows, cp.async), w2's
+# d = 50 padded to 52 (B = 128, T = 200: 104-byte rows), the wide towers'
+# D = H = 512 and w3's 2,304 (B = 256, T = 200); the GRU's N = 3H and the
+# LSTM's 4H each.
+XPROJ_SHAPES = {"rsc15": (256, 50, D100), "d52": (TRAIN_B, TRAIN_T, D50 + 2),
+                "wide": (WIDE_B, WIDE_T, WIDE_D), "w3": (WIDE_B, WIDE_T, W_WIDE_D)}
+
+
+def _xproj_shape_checks(rng, dev) -> dict:
+    """The bf16 input projection alone at XPROJ_SHAPES (`_xproj_check`:
+    against its plain version and torch.addmm(..., out_dtype=torch.float32),
+    twice bit for bit), on Zipf embeddings and Glorot-uniform W_x (as
+    gru_weights and lstm_weights draw it), biases N(0, 0.1)."""
+    out = {}
+    for label, (Bx, Tx, Dx) in XPROJ_SHAPES.items():
+        x32 = _zipf_embeddings(rng, dev, Bx, Tx, Dx)
+        for cell, G, module, project in (("gru", 3, k_gru, k_gru.gru_input_projection),
+                                         ("lstm", 4, k_lstm, k_lstm.lstm_input_projection)):
+            lim = np.sqrt(6.0 / (Dx + G * Dx))
+            w_x = torch.from_numpy(rng.uniform(-lim, lim, size=(Dx, G * Dx))
+                                   .astype(np.float32)).to(dev)
+            b = torch.from_numpy(rng.normal(scale=0.1, size=G * Dx).astype(np.float32)).to(dev)
+            out[f"{cell}_{label}"] = _xproj_check(module, project, x32, w_x, b, reps=W_REPS)
+            del w_x, b
+        del x32
+        torch.cuda.empty_cache()
+    return out
+
+
 def _all_widths_kernel_checks(rng, dev) -> dict:
     """Each new layout against its plain version, both dtypes, every
     variant, each output launched twice with the same bits (phase c, e, g
@@ -5273,6 +5341,8 @@ def _all_widths_kernel_checks(rng, dev) -> dict:
                         for cell, G in (("gru", 3), ("lstm", 4))
                         for way, terms in (("forward", 1), ("reverse", 2))}
     lap("step_gemm")
+    out["xproj"] = _xproj_shape_checks(rng, dev)
+    lap("xproj")
     for name, recs in stepped.items():
         for key, rec in recs.items():
             mod = k_lstm if key.startswith("lstm") else k_gru
@@ -5684,6 +5754,17 @@ def main(argv=None) -> int:
     # Every width (phase w): the sliced attention, the padded and stepped
     # scans, the streamed head.
     kernels += _all_widths_entries(all_widths)
+    # The bf16 input projection at phase w's shapes beside its narrow entry.
+    for entry in kernels:
+        if entry["name"] in ("gru_xproj", "lstm_xproj"):
+            entry["at_shapes"] = {
+                label: {"shape": r["shape"], "plan": r["plan"], "max_abs_err": r["max_abs_err"],
+                        "tolerance": r["tolerance"], "ms": r["kernel_ms"]["median"],
+                        "plain_ms": r["plain_ms"]["median"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]["median"],
+                        "twice_bit_for_bit": r["twice_bit_for_bit"]}
+                for label, r in all_widths["kernels"]["xproj"].items()
+                if label.startswith(entry["name"][:-5])}
     emit({"phase": "run", "seconds": time.perf_counter() - run_t0,
           "all_widths_seconds": all_widths["seconds"]})
     emit({"kernels": kernels})

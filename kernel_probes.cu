@@ -9,7 +9,10 @@
 // (csrc/softmax_head.cu head_f32_kernel: rows a block, k chunk, ring
 // stages, CTAs a SM); and for `kernel_probes.py step_gemm`, variants of the
 // stepped layouts' bf16 step GEMM (csrc/step_gemm.cuh's kernel: rows a
-// block, ring stages, copy unit, TMA or cp.async, K splits).
+// block, ring stages, copy unit, TMA or cp.async, K splits); and for
+// `kernel_probes.py xproj_bf16`, the bf16 input projection's (csrc/rnn.cuh:
+// tile, stages, band, TMA or cp.async, 8-byte rows padded onto TMA, and its
+// descriptor control).
 #include "seqrec_tpu_torch/csrc/rnn.cuh"
 #include "seqrec_tpu_torch/csrc/softmax_head.cu"
 
@@ -147,6 +150,29 @@ int launch_t(const void* x, const void* w, const void* b, void* xp, int M, int D
   return static_cast<int>(cudaGetLastError());
 }
 
+// 8-byte rows by TMA: x zero-padded to [M, Dp] and W_x to [Dp, Np] (Dp and
+// Np multiples of 8) by the caller, the kernel's TMA route on maps of the
+// padded operands and the real M, D, N (its chunks, tiles, bias and output
+// stride), planned as the padded shape; TMA's bounds and the pads' zeros
+// fill past D and N. The plan used into plan[7], as xp_bf16.
+template <int BM, int BN>
+int xp_padded_launch(const rnn::XprojPlan& p, const void* x, const void* w, const void* b,
+                     void* xp, int M, int D, int N, int Dp, int Np, cudaStream_t s) {
+  rnn::StepGemmMaps maps{};
+  int rc = rnn::sg_map(&maps.a, x, Dp, M, static_cast<uint64_t>(Dp) * 2, BM);
+  if (rc == 0) rc = rnn::sg_map(&maps.w, w, Np, Dp, static_cast<uint64_t>(Np) * 2, rnn::kWgK);
+  if (rc != 0) return rc;
+  auto kernel = rnn::xproj_wgmma_kernel<BM, BN, true>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rnn::xp_max_stages(BM, BN) * rnn::xp_stage_bytes(BM, BN) + 1024);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<p.grid, rnn::kXpThreads, p.smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const float*>(b), static_cast<float*>(xp), M, D, N, p.stages, p.band, maps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 #define PROJ(name, call)                                                                 \
@@ -236,6 +262,68 @@ SG_SW(sg_rev_tma_m128_s4_u16, 128, 2, 16, 4, true)
 SG_SW(sg_fwd_tma_m128_s3_u16, 128, 1, 16, 3, true)
 SG_SW(sg_fwd_tma_m256_s3_u16, 256, 1, 16, 3, true)
 SG_SW(sg_fwd_tma_m256_s4_u16, 256, 1, 16, 4, true)
+
+// The bf16 input projection's variants (csrc/rnn.cuh xproj_wgmma_kernel):
+// the package's plan (xproj_plan) with `tile_m`, `tile_n` and `stages`
+// replaced (0: the rule's; the rest completed by xp_complete), `band`
+// replaced (0: the plan's), and the route forced (`tma` 1: TMA, refused
+// where a row stride is no 16-byte multiple; 0: cp.async); `swap` 1: the
+// control, the W_x descriptor's two byte offsets exchanged, which must fail
+// its check. The plan used into plan[7]: tile_m, tile_n, stages, tma,
+// grid, band, smem.
+int xp_bf16(const void* x, const void* w, const void* b, void* xp, int M, int D, int N,
+            int tile_m, int tile_n, int stages, int band, int tma, int swap, int* plan,
+            void* stream) {
+  rnn::XprojPlan p;
+  int rc = rnn::xproj_plan(M, D, N, &p);
+  if (rc != 0) return rc;
+  if (tile_m > 0 || tile_n > 0 || stages > 0) {
+    if (tile_m > 0) p.tile_m = tile_m;
+    if (tile_n > 0) p.tile_n = tile_n;
+    if (stages > 0) p.stages = stages;
+    rc = rnn::xp_complete(M, D, N, rnn::sg_sms(), &p);
+    if (rc != 0) return rc;
+  }
+  if (band > 0) {
+    if (band > (N + p.tile_n - 1) / p.tile_n) return static_cast<int>(cudaErrorInvalidValue);
+    p.band = band;
+  }
+  if (tma && !p.tma) return static_cast<int>(cudaErrorInvalidValue);
+  p.tma = tma != 0;
+  const int out[7] = {p.tile_m, p.tile_n, p.stages, static_cast<int>(p.tma), p.grid, p.band,
+                      p.smem};
+  for (int i = 0; i < 7; ++i) plan[i] = out[i];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define XP_VARIANT(BM, BN, TMA, SWAP)                                                     \
+  if (p.tile_m == BM && p.tile_n == BN && p.tma == TMA && (swap != 0) == SWAP)            \
+    return rnn::launch_xproj_variant<BM, BN, TMA, SWAP>(p, x, w, b, xp, M, D, N, s);
+  XP_VARIANT(128, 256, true, false) XP_VARIANT(128, 256, false, false)
+  XP_VARIANT(256, 128, true, false) XP_VARIANT(256, 128, false, false)
+  XP_VARIANT(128, 128, true, false) XP_VARIANT(128, 128, false, false)
+  XP_VARIANT(128, 64, true, false) XP_VARIANT(128, 64, false, false)
+  XP_VARIANT(128, 256, true, true) XP_VARIANT(256, 128, true, true)
+  XP_VARIANT(128, 64, true, true)
+#undef XP_VARIANT
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int xp_bf16_padded(const void* x, const void* w, const void* b, void* xp, int M, int D, int N,
+                   int Dp, int Np, int* plan, void* stream) {
+  rnn::XprojPlan p;
+  if (Dp < D || Np < N || Dp % 8 != 0 || Np % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int rc = rnn::xproj_plan(M, Dp, Np, &p);
+  if (rc != 0) return rc;
+  const int out[7] = {p.tile_m, p.tile_n, p.stages, static_cast<int>(p.tma), p.grid, p.band,
+                      p.smem};
+  for (int i = 0; i < 7; ++i) plan[i] = out[i];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.tile_m == 256) return xp_padded_launch<256, 128>(p, x, w, b, xp, M, D, N, Dp, Np, s);
+  if (p.tile_n == 64) return xp_padded_launch<128, 64>(p, x, w, b, xp, M, D, N, Dp, Np, s);
+  return p.tile_n == 256 ? xp_padded_launch<128, 256>(p, x, w, b, xp, M, D, N, Dp, Np, s)
+                         : xp_padded_launch<128, 128>(p, x, w, b, xp, M, D, N, Dp, Np, s);
+}
 
 int ffma_rate(float* out, int iters, int blocks) {
   ffma_bench<<<blocks, 256>>>(out, iters);

@@ -7,6 +7,7 @@
     python3 kernel_probes.py gather [--out FILE]
     python3 kernel_probes.py gru_wide [--out FILE]
     python3 kernel_probes.py step_gemm [--out FILE]
+    python3 kernel_probes.py xproj_bf16 [--shapes rsc15_gru,d52_gru] [--out FILE]
 
 `clusters` sweeps the f32 cluster recurrences over their cluster size C and
 rows a cluster R (each launch checked against its plain version first):
@@ -76,6 +77,18 @@ wgmma without the swizzle; rows a block, ring stages) at its plan's K split, the
 splits too, each checked against torch.matmul in f32 first (a variant
 past 1e-5 relative is listed untimed), beside the package's wrapper and
 torch.matmul in bf16.
+
+`xproj_bf16` builds kernel_probes.cu and times the bf16 input projection
+(csrc/rnn.cuh xproj_wgmma_kernel) at w3's GRU shape (M=51,200, D=2,304,
+N=6,912), the wide GRU4Rec's (D=512, N=1,536), the narrow GRU's (M=12,800,
+D=128, N=384) and the 8-byte rows of rsc15 (D=100, N=300) and d = 52
+(N=156), or at --shapes (XP_SHAPES' keys, comma-separated): tiles of
+128 x 128, 128 x 256 and 256 x 128, ring stages, bands, TMA or cp.async,
+8-byte rows zero-padded onto TMA (with and without the pads' time), and the
+step GEMM's kernel as the design without a producer warpgroup, each
+checked against torch.addmm(...,
+out_dtype=torch.float32) first, beside the wrapper, that addmm and
+descriptor controls that must fail (probe_xproj_bf16).
 
 Each prints one JSON object as its last line, beside the card's name and
 power limit, and exits non-zero without CUDA.
@@ -641,6 +654,162 @@ def probe_step_gemm() -> dict:
     return out
 
 
+# The bf16 input projection's shapes (M, D, N): the narrow GRU and LSTM
+# (serving's B=64 and training's B=128 at T=200, D=128), rsc15 (D=100),
+# d = 50 padded to 52, the wide GRU4Rec and LSTM (D=512), w3 (D=2,304) and
+# the stepped GRU's edge (B=16, T=20, D=64, H=2,116).
+XP_SHAPES = {"narrow_gru_B64": (12800, 128, 384), "narrow_gru_B128": (25600, 128, 384),
+             "narrow_lstm_B64": (12800, 128, 512), "narrow_lstm_B128": (25600, 128, 512),
+             "rsc15_gru": (12800, 100, 300), "d52_gru": (25600, 52, 156),
+             "d52_lstm": (25600, 52, 208), "wide_gru": (51200, 512, 1536),
+             "wide_lstm": (51200, 512, 2048), "w3_gru": (51200, 2304, 6912),
+             "w3_lstm": (51200, 2304, 9216), "edge_gru_B16": (320, 64, 6348)}
+
+
+def probe_xproj_bf16(shapes=("w3_gru", "wide_gru", "narrow_gru_B64", "rsc15_gru",
+                             "d52_gru")) -> dict:
+    """The bf16 input projection (csrc/rnn.cuh xproj_wgmma_kernel) at
+    `shapes` (XP_SHAPES' keys): each variant of kernel_probes.cu's xp_bf16
+    (tiles of 128 x 128, 128 x 256 and 256 x 128; 2 to 4 ring stages, and
+    the most that fit; TMA or cp.async where the rows allow TMA; at w3 the
+    column tiles in three bands too; 128 x 64 tiles, two CTAs a SM); on 8-byte rows, x and W_x zero-padded
+    to multiples of 8 columns and fed by TMA (xp_bf16_padded: the kernel
+    alone, and with the two pads before it); and, as the design without a
+    producer warpgroup, the step GEMM's kernel (csrc/step_gemm.cuh: two warpgroups
+    that load and multiply in turn, wgmma.wait_group 0, 128 or 256 rows a
+    block; no bias), each checked against torch.addmm(b, x, w,
+    out_dtype=torch.float32) first (1e-5 of the largest value; a variant
+    past it is listed untimed); beside the package's wrapper, that addmm and
+    the descriptor controls (W_x's two byte offsets exchanged; at 128 x 64,
+    one atom of W_x, its 8-line groups' offset 0), which must fail the
+    check."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from seqrec_tpu_torch.ops.cuda import gru as k_gru
+
+    dev = torch.device("cuda", 0)
+    lib, log = _probe_lib()
+    lib.xp_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
+    lib.xp_bf16_padded.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p] * 2
+    sg = ("sg_fwd_tma_m128_s3_u16", "sg_fwd_tma_m256_s3_u16", "sg_fwd_sw_m128_s3_u8",
+          "sg_fwd_sw_m256_s3_u8")
+    for n in sg:
+        getattr(lib, n).argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p, ctypes.c_void_p]
+    rng = np.random.default_rng(0)
+    out = {"ptxas": [ln for ln in log.splitlines() if "xproj_wgmma" in ln][-40:], "shapes": {}}
+    for label in shapes:
+        M, D, N = XP_SHAPES[label]
+        x = torch.from_numpy(rng.normal(size=(M, D)).astype(np.float32)).to(dev, torch.bfloat16)
+        w = torch.from_numpy(rng.normal(scale=D ** -0.5, size=(D, N)).astype(np.float32))
+        w = w.to(dev, torch.bfloat16)
+        b = torch.from_numpy(rng.normal(scale=0.1, size=N).astype(np.float32)).to(dev)
+        want = torch.addmm(b, x, w, out_dtype=torch.float32)
+        scale = want.abs().max().item()
+        cfg = k_gru.xproj_config(M, D, N)
+        flops = 2.0 * M * D * N
+        nbytes = (M * D + D * N) * 2 + N * 4 + M * N * 4
+        rec = {"M": M, "D": D, "N": N, "config": cfg,
+               "bound_ms": max(flops / cs.PEAK_FLOPS[torch.bfloat16],
+                               nbytes / cs.HBM_BYTES_PER_S) * 1e3,
+               "addmm_out_f32_ms": cs.time_ms(
+                   lambda: torch.addmm(b, x, w, out_dtype=torch.float32))["median"],
+               "wrapper_ms": cs.time_ms(lambda: k_gru.gru_input_projection(x, w, b))["median"],
+               "variants": {}}
+        got = k_gru.gru_input_projection(x, w, b)
+        rec["wrapper_rel_err"] = (got - want).abs().max().item() / scale
+        xp = torch.empty(M, N, dtype=torch.float32, device=dev)
+        plan = (ctypes.c_int * 7)()
+
+        def run(bm, bn, stages, band, tma, swap):
+            def call():
+                rc = lib.xp_bf16(x.data_ptr(), w.data_ptr(), b.data_ptr(), xp.data_ptr(), M, D,
+                                 N, bm, bn, stages, band, tma, swap, plan,
+                                 torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"xp_bf16 {bm}x{bn} s{stages} b{band} tma{tma}: "
+                                       f"CUDA error {rc}")
+            return call
+
+        runs = []
+        for bm, bn in k_gru.XPROJ_TILES:
+            most = k_gru.xproj_max_stages(bm, bn)
+            for st in sorted({2, 3, 4, most} & set(range(2, most + 1))):
+                for tma in ((1, 0) if cfg["tma"] else (0,)):
+                    runs.append((bm, bn, st, 0, tma, 0))
+        if label == "w3_gru":
+            runs += [(bm, bn, 4, -(-N // bn // 3), 1, 0) for bm, bn in k_gru.XPROJ_TILES[:2]]
+        if cfg["tma"]:  # the controls
+            runs += [(128, 256, 4, 0, 1, 1), (256, 128, 4, 0, 1, 1), (128, 64, 3, 0, 1, 1)]
+        for bm, bn, st, band, tma, swap in runs:
+            call = run(bm, bn, st, band, tma, swap)
+            xp.fill_(float("nan"))
+            call()
+            torch.cuda.synchronize()
+            err = (xp - want).abs().max().item() / scale
+            err = float("inf") if err != err else err
+            ok = err <= 1e-5
+            name = (f"control_{bm}x{bn}_swapped_offsets" if swap else
+                    f"{bm}x{bn}_s{st}_{'tma' if tma else 'cpasync'}" +
+                    (f"_band{plan[5]}" if band else ""))
+            rec["variants"][name] = {"plan": list(plan), "rel_err": err, "ok": ok,
+                                     "ms": cs.time_ms(call)["median"] if ok else None}
+        ws = torch.empty((1, M, N), dtype=torch.float32, device=dev)
+        prod = want - b
+        for n in sg:
+            if ("tma" in n) != cfg["tma"]:
+                continue
+            fn = getattr(lib, n)
+            used = ctypes.c_int(0)
+
+            def call():
+                rc = fn(x.data_ptr(), w.data_ptr(), ws.data_ptr(), M, D, N, 1, ctypes.byref(used),
+                        torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"{n}: CUDA error {rc}")
+
+            call()
+            torch.cuda.synchronize()
+            err = (ws[0] - prod).abs().max().item() / scale
+            ok = err <= 1e-5
+            rec["variants"][f"no_producer_{n}"] = {"rel_err": err, "ok": ok,
+                                                   "ms": cs.time_ms(call)["median"] if ok else None}
+        if not cfg["tma"]:  # 8-byte rows padded onto TMA: the kernel alone, and with the pads
+            Dp, Np = -(-D // 8) * 8, -(-N // 8) * 8
+            pad = torch.nn.functional.pad
+            xpad, wpad = pad(x, (0, Dp - D)), pad(w, (0, Np - N, 0, Dp - D))
+
+            def padded(xa, wa):
+                rc = lib.xp_bf16_padded(xa.data_ptr(), wa.data_ptr(), b.data_ptr(), xp.data_ptr(),
+                                        M, D, N, Dp, Np, plan,
+                                        torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"xp_bf16_padded: CUDA error {rc}")
+
+            xp.fill_(float("nan"))
+            padded(xpad, wpad)
+            torch.cuda.synchronize()
+            err = (xp - want).abs().max().item() / scale
+            err = float("inf") if err != err else err
+            ok = err <= 1e-5
+            rec["variants"]["padded_tma"] = {
+                "plan": list(plan), "Dp": Dp, "Np": Np, "rel_err": err, "ok": ok,
+                "ms": cs.time_ms(lambda: padded(xpad, wpad))["median"] if ok else None,
+                "with_pads_ms": cs.time_ms(lambda: padded(pad(x, (0, Dp - D)),
+                                                          pad(w, (0, Np - N, 0, Dp - D))))[
+                    "median"] if ok else None,
+                "x_pad_ms": cs.time_ms(lambda: pad(x, (0, Dp - D)))["median"]}
+        out["shapes"][label] = rec
+        print(json.dumps({label: {k: v for k, v in rec.items() if k != "config"}}), flush=True)
+        del x, w, want, xp, ws, prod
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="probe", required=True)
@@ -650,9 +819,12 @@ def main(argv=None) -> int:
                        ("scatter", "the deterministic scatter-add's chunk sizes"),
                        ("gather", "the gather's loads in flight, grid and the replaced design"),
                        ("gru_wide", "the bf16 GRU cluster layouts"),
-                       ("step_gemm", "the stepped layouts' bf16 step GEMM's variants")):
-        sub.add_parser(name, help=text).add_argument(
-            "--out", help="also write the result (indented JSON) to this file")
+                       ("step_gemm", "the stepped layouts' bf16 step GEMM's variants"),
+                       ("xproj_bf16", "the bf16 input projection's variants")):
+        parser = sub.add_parser(name, help=text)
+        parser.add_argument("--out", help="also write the result (indented JSON) to this file")
+        if name == "xproj_bf16":
+            parser.add_argument("--shapes", help="XP_SHAPES' keys, comma-separated")
     args = ap.parse_args(argv)
 
     import torch
@@ -664,7 +836,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(HERE))
     result = {"clusters": probe_clusters, "xproj": probe_xproj, "head": probe_head,
               "scatter": probe_scatter, "gather": probe_gather,
-              "gru_wide": probe_gru_wide, "step_gemm": probe_step_gemm}[args.probe]()
+              "gru_wide": probe_gru_wide, "step_gemm": probe_step_gemm,
+              "xproj_bf16": probe_xproj_bf16}[args.probe]
+    shapes = getattr(args, "shapes", None)
+    result = result(tuple(shapes.split(","))) if shapes else result()
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

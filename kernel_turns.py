@@ -64,7 +64,13 @@ A turn times, by CUDA events (chip_smoke.time_ms, median of 21 runs):
 
 The attention, head, scatter-add, gather and LSTM rows also carry a digest
 (sha1) of their outputs, as the recurrences' rows do: `same_bits` in the
-last line says where parent and change agree bit for bit.
+last line says where parent and change agree bit for bit. The rows that
+the bf16 input projection feeds (the bf16 GRU and LSTM forwards, the
+projection alone) keep their outputs from each label's first turn in a
+temporary directory, and `differences` gives, for each of them whose bits
+changed, the largest difference from the parent's output beside the row's
+bf16 tolerance. The reverse recurrences' rows take their operands from the
+plain forward, so that no kernel of the turn feeds them.
 
 Every turn also times the recurrences' rows (`_rnn_rows`, alone with
 --only rnn, a turn of ~1 minute): the bf16 GRU forward (gru_scan, the
@@ -85,7 +91,11 @@ beyond its inputs)
 at w3's step (B=256, T=200, D=H=2,304; nn.GRU / nn.LSTM in bf16
 and cuDNN's backward beside them) and at the stepped edges (B=16, T=20,
 D=64, H at each cell's bf16 grid limit + 4: 2,116 and 1,796), each with a
-digest.
+digest; and the bf16 input projection alone (each checkout's wrapper) at
+XPROJ_ROWS (the narrow GRU and LSTM, rsc15, d = 52, the wide towers and w3),
+beside its plain version and torch.addmm(..., out_dtype=torch.float32);
+and the grid layouts' bf16 forwards (the projection included) at the wide
+towers' step (B=256, T=200, D=H=512), nn.GRU / nn.LSTM in bf16 beside them.
 
 With --pairs N, a turn is only one training path (--path, a chip_smoke
 CONFIGS key, default gru4rec): chip_smoke.phase_train with two groups, its
@@ -106,8 +116,10 @@ import argparse
 import inspect
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -152,8 +164,12 @@ def _path_worker(label: str, path: str) -> dict:
                      "device_launches_per_step": r["profile"]["device_launches_per_step"]}}
 
 
-def _digest(ts) -> str:
-    """sha1 of the tensors' bytes: equal digests are equal bits."""
+def _digest(ts, keep: str = "") -> str:
+    """sha1 of the tensors' bytes: equal digests are equal bits. `keep`: a
+    row whose outputs the bf16 input projection feeds; the first turn of
+    each label saves them as $KERNEL_TURNS_KEEP/<label>/<keep>.pt (the
+    directory main makes), so that the last line can give the change's
+    largest difference from the parent's."""
     import hashlib
 
     import torch
@@ -161,7 +177,60 @@ def _digest(ts) -> str:
     h = hashlib.sha1()
     for t in ts:
         h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    root = os.environ.get("KERNEL_TURNS_KEEP")
+    if keep and root:
+        path = Path(root) / os.environ["KERNEL_TURNS_LABEL"] / f"{keep}.pt"
+        if not path.exists():
+            path.parent.mkdir(parents=True, exist_ok=True)
+            torch.save([t.detach().cpu() for t in ts], path)
     return h.hexdigest()
+
+
+# The bf16 input projection's shapes (M, D, N), as chip_smoke.py's phases
+# c, g and w hold it: the narrow GRU and LSTM (serving's B=64 and
+# training's B=128, T=200, D=128), rsc15 (B=256, T=50, D=100), d = 50
+# padded to 52 (B=128, T=200), the wide towers (B=256, T=200, D=512) and w3
+# (D=2,304); N = 3H (GRU) and 4H (LSTM), H = D.
+XPROJ_ROWS = {"gru_B64": (12800, 128, 384), "gru_B128": (25600, 128, 384),
+              "lstm_B64": (12800, 128, 512), "lstm_B128": (25600, 128, 512),
+              "gru_rsc15": (12800, 100, 300), "gru_d52": (25600, 52, 156),
+              "lstm_d52": (25600, 52, 208), "gru_wide": (51200, 512, 1536),
+              "lstm_wide": (51200, 512, 2048), "gru_w3": (51200, 2304, 6912),
+              "lstm_w3": (51200, 2304, 9216)}
+
+
+def _xproj_rows(rng, dev) -> dict:
+    """The bf16 input projection alone at XPROJ_ROWS through each checkout's
+    wrapper (ms, a digest, its outputs kept), beside its plain version and
+    torch.addmm(b, x, w_x, out_dtype=torch.float32), with its bound."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from seqrec_tpu_torch.ops.cuda import gru as k_gru
+    from seqrec_tpu_torch.ops.cuda import lstm as k_lstm
+
+    med = lambda fn: cs.time_ms(fn)["median"]  # noqa: E731
+    rows = {}
+    for label, (M, D, N) in XPROJ_ROWS.items():
+        x = torch.from_numpy(rng.normal(scale=D ** -0.5, size=(M, D)).astype(np.float32))
+        x = x.to(dev, torch.bfloat16)
+        w = torch.from_numpy(rng.normal(scale=D ** -0.5, size=(D, N)).astype(np.float32))
+        w = w.to(dev, torch.bfloat16)
+        b = torch.from_numpy(rng.normal(scale=0.1, size=N).astype(np.float32)).to(dev)
+        project = (k_lstm.lstm_input_projection if label.startswith("lstm")
+                   else k_gru.gru_input_projection)
+        flops, nbytes = 2.0 * M * D * N, (M * D + D * N) * 2 + N * 4 + M * N * 4
+        rows[f"xproj_bfloat16_{label}"] = {
+            "M": M, "D": D, "N": N, "ms": med(lambda: project(x, w, b)),
+            "digest": _digest([project(x, w, b)], keep=f"xproj_bfloat16_{label}"),
+            "plain_ms": med(lambda: k_gru.plain_input_projection(x, w, b)),
+            "addmm_out_f32_ms": med(lambda: torch.addmm(b, x, w, out_dtype=torch.float32)),
+            "bound_ms": max(flops / cs.PEAK_FLOPS[torch.bfloat16],
+                            nbytes / cs.HBM_BYTES_PER_S) * 1e3}
+        del x, w, b
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _rnn_rows() -> dict:
@@ -215,11 +284,12 @@ def _rnn_rows() -> dict:
         plane = cs._reset_plane(rng, B, T, dev) if reset else None
         g = cs._state(rng, dev, B * T, H).reshape(B, T, H) * 0.02
         xb, hb = x.bfloat16(), h0.bfloat16()
+        key = f"gru_bfloat16_B{B}_T{T}_H{H}" + ("_reset" if reset else "")
         rec = {"ms": med(lambda: k_gru.gru_scan(xb, hb, *w, reset_mask=plane)),
-               "digest": digest([k_gru.gru_scan(xb, hb, *w, reset_mask=plane)[0]])}
+               "digest": digest([k_gru.gru_scan(xb, hb, *w, reset_mask=plane)[0]], keep=key)}
         if not reset:
             rec.update(library(torch.nn.GRU, x, (h0,), w, g))
-        rows[f"gru_bfloat16_B{B}_T{T}_H{H}" + ("_reset" if reset else "")] = rec
+        rows[key] = rec
         if (B, T) in ((64, 200), (64, 50)):
             continue
         # The reverse recurrence on the operands the backward hands it, and
@@ -227,8 +297,8 @@ def _rnn_rows() -> dict:
         w_x, w_h, b_x, b_h = w
         wxb, whb = w_x.bfloat16(), w_h.bfloat16()
         gb = g.bfloat16()
-        with torch.no_grad():
-            ys = k_gru.gru_scan(xb, hb, wxb, whb, b_x, b_h, reset_mask=plane)[0]
+        with torch.no_grad():  # the operands from the plain forward, no kernel of the turn
+            ys = k_gru.plain(xb, hb, wxb, whb, b_x, b_h, reset_mask=plane)[0]
             x_proj = torch.matmul(xb.float(), wxb.float()) + b_x
             h_in, keep, h_proj = reference.gru_bwd_project(x_proj, ys, hb, whb, b_h, plane)
         args = (x_proj, h_proj, h_in, gb, whb, keep)
@@ -257,6 +327,32 @@ def _rnn_rows() -> dict:
         torch.cuda.synchronize()
         return torch.cuda.max_memory_allocated(dev) - before
 
+    # Above H = 256, bf16: the grid layouts' forwards (the projection
+    # included) at the wide towers' step (B=256, T=200, D=H=512), with
+    # nn.GRU / nn.LSTM in bf16 beside them.
+    B, T, H = 256, 200, 512
+    x = cs._zipf_embeddings(rng, dev, B, T, H)
+    xb = x.bfloat16()
+    w = [t.to(dev) for t in cs.gru_weights(rng, H, H)]
+    h0 = torch.zeros(B, H, device=dev)
+    hb = h0.bfloat16()
+    key = f"gru_grid_bfloat16_wide_B{B}_T{T}_H{H}"
+    lib = nn_rnn(torch.nn.GRU, *w, bf16)
+    with torch.no_grad():
+        rows[key] = {"ms": med(lambda: k_gru.gru_scan(xb, hb, *w)),
+                     "digest": digest([k_gru.gru_scan(xb, hb, *w)[0]], keep=key),
+                     "nn_gru_bfloat16_ms": med(lambda: lib(xb, hb[None]))}
+    w_x, w_h, b = (t.to(dev) for t in cs.lstm_weights(rng, H, H))
+    sb = (hb, hb)
+    with torch.no_grad():
+        ys, (_, c_last) = k_lstm.lstm_scan(xb, *sb, w_x, w_h, b)
+        key = f"lstm_grid_bfloat16_wide_B{B}_T{T}_H{H}"
+        lib = nn_rnn(torch.nn.LSTM, w_x, w_h, b, torch.zeros_like(b), bf16)
+        rows[key] = {"ms": med(lambda: k_lstm.lstm_scan(xb, *sb, w_x, w_h, b)),
+                     "digest": digest([ys, c_last], keep=key),
+                     "nn_lstm_bfloat16_ms": med(lambda: lib(xb, (hb[None], hb[None])))}
+    del x, xb, w, ys, c_last, lib
+
     # Past the grid limits, bf16: the stepped layouts at w3's step and at the
     # stepped edges, forward (the projection included) and reverse (with the
     # peak memory a call takes), with nn.GRU / nn.LSTM in bf16 and cuDNN's
@@ -269,16 +365,17 @@ def _rnn_rows() -> dict:
         h0 = torch.zeros(B, Hg, device=dev)
         hb = h0.bfloat16()
         g = cs._state(rng, dev, B * T, Hg).reshape(B, T, Hg) * 0.02
+        key = f"gru_stepped_bfloat16_{label}_B{B}_T{T}_H{Hg}"
         rec = {"ms": med(lambda: k_gru.gru_scan(xb, hb, *w)),
-               "digest": digest([k_gru.gru_scan(xb, hb, *w)[0]])}
+               "digest": digest([k_gru.gru_scan(xb, hb, *w)[0]], keep=key)}
         if label == "w3":
             rec.update(library(torch.nn.GRU, x, (h0,), w, g, dtypes=(bf16,)))
-        rows[f"gru_stepped_bfloat16_{label}_B{B}_T{T}_H{Hg}"] = rec
+        rows[key] = rec
         w_x, w_h, b_x, b_h = w
         wxb, whb, gb = w_x.bfloat16(), w_h.bfloat16(), g.bfloat16()
         rec["input_projection_ms"] = med(lambda: k_gru.gru_input_projection(xb, wxb, b_x))
-        with torch.no_grad():
-            ys = k_gru.gru_scan(xb, hb, wxb, whb, b_x, b_h)[0]
+        with torch.no_grad():  # the operands from the plain forward, no kernel of the turn
+            ys = k_gru.plain(xb, hb, wxb, whb, b_x, b_h)[0]
             x_proj = torch.matmul(xb.float(), wxb.float()) + b_x
             h_in, keep, h_proj = reference.gru_bwd_project(x_proj, ys, hb, whb, b_h, None)
         args = (x_proj, h_proj, h_in, gb, whb, keep)
@@ -292,8 +389,9 @@ def _rnn_rows() -> dict:
         sb = tuple(t.bfloat16() for t in state)
         ys, (_, c_last) = k_lstm.lstm_scan(xb, *sb, w_x, w_h, b)
         wxl = w_x.bfloat16()
+        key = f"lstm_stepped_bfloat16_{label}_B{B}_T{T}_H{Hl}"
         rec = {"ms": med(lambda: k_lstm.lstm_scan(xb, *sb, w_x, w_h, b)),
-               "digest": digest([ys, c_last]),
+               "digest": digest([ys, c_last], keep=key),
                "input_projection_ms": med(lambda: k_lstm.lstm_input_projection(xb, wxl, b))}
         del ys, c_last
         if label == "w3":
@@ -301,7 +399,7 @@ def _rnn_rows() -> dict:
             rec.update(library(torch.nn.LSTM, x, state, (w_x, w_h, b, torch.zeros_like(b)), g,
                                dtypes=(bf16,)))
             del g
-        rows[f"lstm_stepped_bfloat16_{label}_B{B}_T{T}_H{Hl}"] = rec
+        rows[key] = rec
         # The reverse on gate planes in the forward's ranges.
         i_, f_, o_, gp = (torch.from_numpy(rng.uniform(0.05, 0.95, size=(B, T, Hl))
                                            .astype(np.float32)).to(dev) for _ in range(4))
@@ -316,6 +414,7 @@ def _rnn_rows() -> dict:
             "digest": digest(k_lstm.lstm_backward(*largs)),
             "peak_bytes_over_inputs": peak_over(lambda: k_lstm.lstm_backward(*largs))}
         del i_, f_, o_, gp, g_, tanh_c, c_in, g_ys, largs, x, xb
+    rows.update(_xproj_rows(rng, dev))
     return rows
 
 
@@ -543,19 +642,20 @@ def _worker(label: str, only: str = "") -> dict:
                       (64, torch.float32)):
         xd, hd, cd = x[:Bl].to(dtype), h0[:Bl].to(dtype), c0[:Bl].to(dtype)
         ys, (_, c_last) = k_lstm.lstm_scan(xd, hd, cd, w_x, w_h, b)
+        key = f"lstm_{dname(dtype)}_B{Bl}"
         rec = {"ms": med(lambda: k_lstm.lstm_scan(xd, hd, cd, w_x, w_h, b)),
-               "digest": _digest([ys, c_last])}
+               "digest": _digest([ys, c_last], keep=key * (dtype == torch.bfloat16))}
         xf, state0 = x[:Bl], (h0[:Bl][None], c0[:Bl][None])
         with torch.no_grad():
             rec["nn_lstm_f32_ms"] = med(lambda: lib(xf, state0))
-        kern[f"lstm_{dname(dtype)}_B{Bl}"] = rec
+        kern[key] = rec
     xb, hb, cb = x.bfloat16(), h0.bfloat16(), c0.bfloat16()
     for key, args in (("lstm_reset_bfloat16_B128", (xb, hb, cb)),
                       ("lstm_reset_float32_B128", (x, h0, c0))):
         ys, (_, c_last) = k_lstm.lstm_scan(*args, w_x, w_h, b, reset_mask=reset)
         kern[key] = {
             "ms": med(lambda: k_lstm.lstm_scan(*args, w_x, w_h, b, reset_mask=reset)),
-            "digest": _digest([ys, c_last])}
+            "digest": _digest([ys, c_last], keep=key * ("bfloat16" in key))}
     xg = x.detach().clone().requires_grad_(True)
     g32 = (x * 0.1).detach()
 
@@ -643,6 +743,36 @@ def _worker(label: str, only: str = "") -> dict:
     return {"label": label, "root": str(Path.cwd()), "kernels": kern, "paths": paths}
 
 
+def _kept_differences(root: Path, turns: list) -> dict:
+    """For each kept row (see `_digest`) whose digests differ between the
+    parent and the change: the largest absolute difference between the two
+    labels' outputs, and the row's bf16 tolerance (chip_smoke's: the GRU
+    forward's GRU_BF16_TOL, the LSTM's LSTM_BF16_TOL; the projection's
+    XPROJ_TOL, or XPROJ_WIDE_REL_TOL of the parent's largest value above
+    D = 256)."""
+    import torch
+
+    import chip_smoke as cs
+
+    out = {}
+    for path in sorted((root / "parent").glob("*.pt")):
+        key, other = path.stem, root / "change" / path.name
+        digests = {t["label"]: t["kernels"].get(key, {}).get("digest") for t in turns}
+        if not other.exists() or digests["parent"] == digests["change"]:
+            continue
+        a, b = torch.load(path), torch.load(other)
+        diff = max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+        if key.startswith("xproj"):
+            D = turns[0]["kernels"][key]["D"]
+            tol = (cs.XPROJ_TOL if D <= 256 else
+                   cs.XPROJ_WIDE_REL_TOL * max(x.abs().max().item() for x in a))
+        else:
+            tol = cs.GRU_BF16_TOL if key.startswith("gru") else cs.LSTM_BF16_TOL
+        out[key] = {"max_abs_diff": diff, "tolerance": tol, "within": diff <= tol}
+        del a, b
+    return out
+
+
 def _same_bits(turns: list) -> dict:
     """For each row with a digest: whether all turns, the parent's two and
     the change's two gave the same bits."""
@@ -692,10 +822,12 @@ def main(argv=None) -> int:
         order = [(None, label) for label in ORDER]
         extra = ["--only", args.only] if args.only else []
     turns = []
+    keep_dir = Path(tempfile.mkdtemp(prefix="kernel_turns_"))
     for pair, label in order:
         root = roots[label]
         cmd = [sys.executable, str(HERE / "kernel_turns.py"), "--worker", label, *extra]
-        env = dict(os.environ, PYTHONPATH=str(root))
+        env = dict(os.environ, PYTHONPATH=str(root), KERNEL_TURNS_KEEP=str(keep_dir),
+                   KERNEL_TURNS_LABEL=label)
         r = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True)
         if r.returncode != 0:
             print(r.stdout[-4000:], r.stderr[-8000:], file=sys.stderr)
@@ -707,6 +839,9 @@ def main(argv=None) -> int:
     result = {"device": smi, "turns": turns}
     if not args.pairs:
         result["same_bits"] = _same_bits(turns)
+        sys.path.insert(0, str(HERE))
+        result["differences"] = _kept_differences(keep_dir, turns)
+    shutil.rmtree(keep_dir, ignore_errors=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

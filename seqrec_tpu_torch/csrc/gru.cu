@@ -31,11 +31,11 @@
 // products and its gate math, sets it.
 //
 // bf16 (every shipped config): two kernels.
-// 1. rnn::xproj_kernel (csrc/rnn.cuh, shared with lstm.cu), the input
-//    projection off the serial chain: it does not depend on h, so one
-//    tensor-core GEMM over all B*T rows computes xp = x @ W_x + b_x into an
-//    f32 [B, T, 3H] plane before the scan (it stays in L2: 20 MB at B=64,
-//    T=200, H=128).
+// 1. rnn::xproj_wgmma_kernel (csrc/rnn.cuh, shared with lstm.cu), the
+//    input projection off the serial chain: it does not depend on h, so one
+//    tensor-core GEMM over all B*T rows (wgmma, warp-specialised,
+//    persistent) computes xp = x @ W_x + b_x into an f32 [B, T, 3H] plane
+//    before the scan (it stays in L2: 20 MB at B=64, T=200, H=128).
 // 2. gru_forward_mma_kernel, the recurrence, transposed: hp^T = W_h^T h^T,
 //    so the hidden units are mma.sync.m16n8k16's M and the batch rows its
 //    N. A block owns 8 batch rows (one n8 tile) for the whole scan. H is
@@ -2239,12 +2239,16 @@ int seqrec_gru_forward(const void* xp, const void* h0, const void* w_h, const vo
              : launch_cluster_fwd<true>(rows, S, w_in_regs, clusters, C, threads, smem, st, x, h, w, bh, kp, y, B, Tn, H, units);
 }
 
-// The bf16 input projection: xp [M, N3] f32 = x [M, D] @ w_x [D, N3] + b_x,
-// with x, w_x bf16 and b_x float; all contiguous, 16-byte aligned;
-// D % 4 == 0 and N3 % 4 == 0.
-int seqrec_gru_xproj(const void* x, const void* w_x, const void* b_x, void* xp,
-                     int M, int D, int N3, void* stream) {
-  return rnn::launch_xproj(x, w_x, b_x, xp, M, D, N3, static_cast<cudaStream_t>(stream));
+// The bf16 input projection on wgmma (rnn::xproj_wgmma_kernel): xp [M, N3]
+// f32 = x [M, D] @ w_x [D, N3] + b_x, with x, w_x bf16 and b_x float; all
+// contiguous, 16-byte aligned; D % 4 == 0 and N3 % 4 == 0. tile_m, tile_n,
+// stages, tma, grid, band and smem_bytes as rnn::xproj_plan computes them
+// (ops/cuda/gru.py xproj_config), checked here.
+int seqrec_gru_xproj(const void* x, const void* w_x, const void* b_x, void* xp, int M, int D,
+                     int N3, int tile_m, int tile_n, int stages, int tma, int grid,
+                     int band, long long smem_bytes, void* stream) {
+  return rnn::checked_xproj(x, w_x, b_x, xp, M, D, N3, tile_m, tile_n, stages, tma, grid,
+                            band, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 // The stepped layouts' bf16 step GEMM alone (csrc/step_gemm.cuh): into out,

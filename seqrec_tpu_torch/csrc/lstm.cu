@@ -28,9 +28,10 @@
 //
 // bf16 (every shipped config): two kernels, csrc/gru.cu's bf16 design with
 // four gates.
-// 1. rnn::xproj_kernel (csrc/rnn.cuh), the input projection off the serial
-//    chain: xp = x @ W_x + b for all B*T rows at once, one tensor-core GEMM
-//    into an f32 [B, T, 4H] plane (52 MB at B=128, T=200, H=128: about the
+// 1. rnn::xproj_wgmma_kernel (csrc/rnn.cuh), the input projection off the
+//    serial chain: xp = x @ W_x + b for all B*T rows at once, one
+//    tensor-core GEMM (wgmma, warp-specialised, persistent) into an f32
+//    [B, T, 4H] plane (52 MB at B=128, T=200, H=128: about the
 //    L2's size, so the scan's reads of it may come from HBM).
 // 2. lstm_forward_mma_kernel, the recurrence, transposed: z^T = W_h^T h^T
 //    on mma.sync.m16n8k16, the hidden units as M and a block's 8 batch rows
@@ -1725,12 +1726,16 @@ int seqrec_lstm_forward(const void* xp, const void* h0, const void* c0, const vo
              : launch_cluster_fwd<true>(rows, S, w_in_regs, clusters, C, threads, smem, st, x, h, c, w, kp, y, cl, cp, B, Tn, H, units);
 }
 
-// The bf16 input projection: xp [M, N4] f32 = x [M, D] @ w_x [D, N4] + b,
-// with x, w_x bf16 and b float; all contiguous, 16-byte aligned;
-// D % 4 == 0 and N4 % 4 == 0.
-int seqrec_lstm_xproj(const void* x, const void* w_x, const void* b, void* xp,
-                      int M, int D, int N4, void* stream) {
-  return rnn::launch_xproj(x, w_x, b, xp, M, D, N4, static_cast<cudaStream_t>(stream));
+// The bf16 input projection on wgmma (rnn::xproj_wgmma_kernel): xp [M, N4]
+// f32 = x [M, D] @ w_x [D, N4] + b, with x, w_x bf16 and b float; all
+// contiguous, 16-byte aligned; D % 4 == 0 and N4 % 4 == 0. tile_m, tile_n,
+// stages, tma, grid, band and smem_bytes as rnn::xproj_plan computes them
+// (ops/cuda/gru.py xproj_config), checked here.
+int seqrec_lstm_xproj(const void* x, const void* w_x, const void* b, void* xp, int M, int D,
+                      int N4, int tile_m, int tile_n, int stages, int tma, int grid,
+                      int band, long long smem_bytes, void* stream) {
+  return rnn::checked_xproj(x, w_x, b, xp, M, D, N4, tile_m, tile_n, stages, tma, grid,
+                            band, smem_bytes, static_cast<cudaStream_t>(stream));
 }
 
 // The bf16 recurrence on tensor cores. xp [B, T, 4H] float (the input

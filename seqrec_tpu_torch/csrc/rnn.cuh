@@ -1,18 +1,11 @@
 // What the recurrences of gru.cu and lstm.cu share (sm_90a).
 //
 // bf16: the input projection GEMM that takes x @ W_x off their serial
-// chain, the fast gate nonlinearities, and the block layout of the
-// tensor-core recurrences (8 batch rows a block, a lane's (unit, row)
-// positions, packed A fragments, and the per-step staging of [B, T, H]
-// planes).
-//
-// The bf16 input projection, xp [M, N] f32 = x [M, D] @ w_x [D, N] + b, all
-// bf16 in: it does not depend on h, so one tensor-core GEMM over all B*T rows
-// computes it before the scan, which then loads each lane's values a step
-// ahead. 64 x 64 output tiles, four warps of 16 rows, mma.sync.m16n8k16
-// from ldmatrix fragments of x and (transposed) W_x, staged by cp.async in
-// 8-byte pieces with zero-fill past D and N (D = 100 in bf16 is a 200-byte,
-// 8-byte-aligned row). N is 3H (GRU) or 4H (LSTM).
+// chain (xproj_wgmma_kernel: wgmma, warp-specialised and persistent, on
+// step_gemm.cuh's swizzle, descriptors and tensor maps), the fast gate
+// nonlinearities, and the block layout of the tensor-core recurrences (8
+// batch rows a block, a lane's (unit, row) positions, packed A fragments,
+// and the per-step staging of [B, T, H] planes).
 //
 // f32: the same projection on the CUDA cores (xproj_f32_kernel: a
 // persistent SIMT GEMM on simt_gemm.cuh's main loop, f32 products, no
@@ -40,80 +33,399 @@
 namespace rnn {
 namespace {
 
-constexpr int kProjTile = 64;           // rows and columns of an xp tile, and its k chunk
-constexpr int kProjLd = kProjTile + 8;  // bf16 elements a shared row
-constexpr int kProjThreads = 128;       // 4 warps x 16 rows
+// ---------------------------------------------------------------------------
+// bf16: the input projection on wgmma
+// ---------------------------------------------------------------------------
 
-// xp [M, N] f32 = x [M, D] @ w_x [D, N] + b; D % 4 == 0 and N % 4 == 0, so
-// 8-byte pieces are whole in or whole out of range.
-__global__ void __launch_bounds__(kProjThreads)
-xproj_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w_x,
-             const float* __restrict__ b, float* __restrict__ xp, int M, int D, int N) {
-  __shared__ __align__(16) __nv_bfloat16 xs[kProjTile * kProjLd];  // [row][k]
-  __shared__ __align__(16) __nv_bfloat16 ws[kProjTile * kProjLd];  // [k][col]
-  const int r0 = blockIdx.x * kProjTile, c0 = blockIdx.y * kProjTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gr = lane >> 2, tq = lane & 3;
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+// xp [M, N] f32 = x [M, D] @ w_x [D, N] + b, x and w_x bf16, b f32; N is 3H
+// (GRU) or 4H (LSTM), M = B T: the x @ W_x + b_x of gru.py:110-113 and
+// lstm.py:89-93 for every step at once, off the scan's serial chain.
+//
+// What bounds it: its operations where D is wide (w3, M = 51,200,
+// D = 2,304, N = 6,912: 1.63 TFLOP, 1.65 ms at 989 TFLOP/s, beside 1.68 GB
+// moved, 0.50 ms), its f32 output where D is narrow (D = 128: 4 bytes an
+// output against 2 D = 256 operations, under the card's ~295 operations a
+// byte). The design (hopper-kernels "the usual shape of a fast kernel"):
+// - Persistent: one CTA a SM (grid = min(tiles, SMs)) walks output tiles
+//   t, t + grid, ... of 256 x 128, 128 x 256 or 128 x 128 (xp_rule: the
+//   larger tiles where they fill the SMs as evenly, 128 x 128 where they
+//   would not); where K is at most two chunks (D <= 128: the narrow,
+//   rsc15 and d = 52 shapes, bound by their f32 output) two CTAs a SM
+//   walk 128 x 64 tiles (grid = min(tiles, 2 SMs)), so that one CTA's
+//   epilogue overlaps the other's loads. Tiles go in bands of `band` column tiles, each band
+//   walked down M, so that the band's W_x (at most kXpL2Budget) stays in L2
+//   while each x row block is read once a band.
+// - Warp-specialised: warpgroup 0 produces, warpgroups 1 and 2 consume, on
+//   a ring of `stages` stages (3, or 4 where K is deep) with a full and an
+//   empty mbarrier each. The producer fills a stage with a 64-deep chunk
+//   of the tile's x rows and of W_x's 64 k-lines of its columns, in
+//   step_gemm.cuh's 128-byte swizzle (W_x as stored, MN-major): by TMA
+//   where every row stride is a 16-byte multiple (D % 8 == 0, N % 8 == 0;
+//   one thread, counted in bytes on the full barrier), else by cp.async in
+//   8-byte pieces from all 128 producer threads, each of which has its
+//   copies counted on the stage's full barrier as they land
+//   (cp.async.mbarrier.arrive: the producer never waits for a copy, only
+//   for a free stage); the consumers fence what landed to the async proxy
+//   before their wgmma read it. Zero past M, N and D either way. At one
+//   CTA a SM setmaxnreg gives the producer's registers to the consumers
+//   (xp_regs).
+// - Each consumer warpgroup computes half the tile's rows (one or two m64
+//   blocks) with wgmma.m64n256k16 / m64n128k16 / m64n64k16 from shared
+//   memory, one
+//   chunk's group kept in flight (wgmma.wait_group 1): a stage is handed
+//   back on its empty barrier once the next chunk's products are issued.
+// - The epilogue adds b in f32 and stores 16 bytes a thread (4 columns of
+//   one row, a pair of lanes trading halves), while the producer already
+//   fills the next tile's stages.
+// - Each output sums its products in k order, then adds b, as
+//   torch.matmul(x, w_x) + b does: the same bits run to run, no atomics.
+// xproj_plan computes the configuration, as ops/cuda/gru.py's
+// xproj_config does; the entry points refuse a caller whose plan differs.
+// kernel_probes.py xproj_bf16 times the variants (tile, stages, bands, TMA
+// or cp.async, and the step GEMM's kernel, which has no producer warp).
+constexpr int kXpThreads = 384;                // a producer and two consumer warpgroups
+constexpr int kXpMaxStages = 8;
+constexpr int kXpSmemLimit = 232448;           // dynamic shared memory a CTA may opt in to
+constexpr int kXpSmSmem = 233472;              // shared memory of a SM (1,024 reserved a CTA)
+constexpr long long kXpL2Budget = 12ll << 20;  // W_x bytes a band may keep in L2
+// setmaxnreg's registers a thread of the producer and of a consumer, by
+// route (the cp.async producer computes its pieces' addresses): 128 x the
+// one + 256 x the other = 384 x 168, what the launch holds. (ptxas
+// compiles every path within the launch's 168; a consumer's at most 128
+// accumulators fit.)
+// Two CTAs a SM (128 x 64 tiles) take no setmaxnreg: the launch's 80
+// registers a thread hold every path (a consumer's 32 accumulators).
+__host__ __device__ constexpr int xp_regs(bool tma, bool consumer) {
+  return consumer ? (tma ? 232 : 224) : (tma ? 40 : 56);
+}
 
-  for (int k0 = 0; k0 < D; k0 += kProjTile) {
-    for (int c = threadIdx.x; c < kProjTile * 16; c += kProjThreads) {
-      const int r = c >> 4, j = (c & 15) * 4;
-      const bool xin = r0 + r < M && k0 + j < D;
-      mma::cp_async8_zfill(xs + r * kProjLd + j,
-                           xin ? x + static_cast<size_t>(r0 + r) * D + k0 + j : x, xin ? 8 : 0);
-      const bool win = k0 + r < D && c0 + j < N;
-      mma::cp_async8_zfill(ws + r * kProjLd + j,
-                           win ? w_x + static_cast<size_t>(k0 + r) * N + c0 + j : w_x,
-                           win ? 8 : 0);
+// CTAs a SM of a tile: two of 128 x 64, else one.
+__host__ __device__ constexpr int xp_ctas(int bm, int bn) { return bm * bn == 128 * 64 ? 2 : 1; }
+
+// Bytes of a stage: bm x rows and W_x's 64 k-lines of bn columns; the most
+// stages a CTA's share of shared memory holds beside 1,024 bytes to align.
+__host__ __device__ constexpr int xp_stage_bytes(int bm, int bn) { return (bm + bn) * kWgK * 2; }
+__host__ __device__ constexpr int xp_smem_limit(int bm, int bn) {
+  return xp_ctas(bm, bn) == 1 ? kXpSmemLimit : kXpSmSmem / 2 - 1024;
+}
+__host__ __device__ constexpr int xp_max_stages(int bm, int bn) {
+  return (xp_smem_limit(bm, bn) - 1024) / xp_stage_bytes(bm, bn) < kXpMaxStages
+             ? (xp_smem_limit(bm, bn) - 1024) / xp_stage_bytes(bm, bn)
+             : kXpMaxStages;
+}
+
+// Tile t of the walk: (first row, first column), in bands of `band`
+// column tiles each walked down the m_tiles row blocks.
+__device__ __forceinline__ void xp_place(int t, int band, int m_tiles, int n_tiles, int bm,
+                                         int bn, int& m0, int& n0) {
+  const int per = band * m_tiles, bi = t / per, r = t - bi * per;
+  const int wb = min(band, n_tiles - bi * band);
+  m0 = r / wb * bm;
+  n0 = (bi * band + r % wb) * bn;
+}
+
+// BM x BN tiles: each consumer warpgroup BM / 2 rows, in BM / 128 m64
+// blocks; xp_ctas(BM, BN) CTAs a SM. kSwap: the W_x descriptor's byte
+// offsets exchanged (128 x 64, one atom of W_x: the 8-line groups' offset
+// 0), a control that must fail its check (kernel_probes.py xproj_bf16);
+// never in the package.
+template <int BM, int BN, bool kTma, bool kSwap = false>
+__global__ void __launch_bounds__(kXpThreads, xp_ctas(BM, BN))
+xproj_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w_x,
+                   const float* __restrict__ b, float* __restrict__ xp, int M, int D, int N,
+                   int stages, int band, const __grid_constant__ StepGemmMaps maps) {
+  static_assert((BM == 128 && (BN == 64 || BN == 128 || BN == 256)) ||
+                    (BM == 256 && BN == 128),
+                "128 x 64, 128 x 128, 128 x 256 or 256 x 128 tiles: at most 128 accumulators "
+                "a thread");
+  constexpr int kCtas = xp_ctas(BM, BN);
+  constexpr int MB = BM / 128;        // m64 blocks a consumer warpgroup
+  constexpr int AB = BM * 128;        // the x tile: BM rows of 64 k
+  constexpr int SB = AB + BN * 128;   // then W_x: BN / 64 atoms of 64 k-lines
+  extern __shared__ __align__(1024) unsigned char xp_raw[];
+  unsigned char* sm = xp_raw + ((1024 - (mma::smem_addr(xp_raw) & 1023)) & 1023);
+  __shared__ __align__(8) uint64_t full[kXpMaxStages], empty[kXpMaxStages];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], kTma ? 1 : 128);
+      mbar_init(&empty[s], 2);  // a thread of each consumer warpgroup
     }
-    mma::cp_async_commit();
-    mma::cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int st = 0; st < kProjTile / 16; ++st) {
-      uint32_t a[4];
-      mma::ldmatrix_x4(a, xs + (warp * 16 + (lane & 15)) * kProjLd + st * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bf[4];
-        mma::ldmatrix_x4_trans(bf, ws + (st * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kProjLd +
-                                       np * 16 + (lane >> 4) * 8);
-        mma::bf16_16x8x16(acc[2 * np], a, bf[0], bf[1]);
-        mma::bf16_16x8x16(acc[2 * np + 1], a, bf[2], bf[3]);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int m_tiles = (M + BM - 1) / BM, n_tiles = (N + BN - 1) / BN;
+  const int tiles = m_tiles * n_tiles, chunks = (D + kWgK - 1) / kWgK;
+  const int wgi = threadIdx.x >> 7, tid = threadIdx.x & 127;
+
+  if (wgi == 0) {
+    // The producer: the ring in one sequence across this CTA's tiles;
+    // chunk c of its i-th tile is number i chunks + c, its stage that mod
+    // stages, its round that / stages.
+    if constexpr (kCtas == 1) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(xp_regs(kTma, false)));
+    }
+    if (kTma && tid != 0) return;
+    int seq = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int m0, n0;
+      xp_place(t, band, m_tiles, n_tiles, BM, BN, m0, n0);
+      for (int c = 0; c < chunks; ++c, ++seq) {
+        const int s = seq % stages, k0 = c * kWgK;
+        mbar_wait(&empty[s], ((seq / stages) & 1) ^ 1);
+        unsigned char* st = sm + s * SB;
+        if constexpr (kTma) {
+          const int atoms = min(BN / 64, (N - n0 + 63) / 64);  // W_x's atoms inside N
+          mbar_expect(&full[s], AB + atoms * 8192);
+          tma_load(st, &maps.a, k0, m0, &full[s]);
+          for (int q = 0; q < atoms; ++q) {
+            tma_load(st + AB + q * 8192, &maps.w, n0 + 64 * q, k0, &full[s]);
+          }
+        } else {
+          auto at = [](unsigned char* tile, int r, int j) {  // step_gemm.cuh's swizzle
+            return tile + r * 128 + (((j >> 3) ^ (r & 7)) << 4) + (j & 7) * 2;
+          };
+#pragma unroll 4
+          for (int q = tid; q < BM * 16; q += 128) {  // x: BM rows of 16 pieces
+            const int r = q >> 4, j = (q & 15) * 4;
+            const bool in = m0 + r < M && k0 + j < D;
+            mma::cp_async8_zfill(at(st, r, j),
+                                 in ? x + static_cast<size_t>(m0 + r) * D + k0 + j : x,
+                                 in ? 8 : 0);
+          }
+#pragma unroll 4
+          for (int q = tid; q < kWgK * BN / 4; q += 128) {  // W_x: 64 k-lines of BN / 4
+            const int r = q / (BN / 4), n = q % (BN / 4) * 4;
+            const bool in = k0 + r < D && n0 + n < N;
+            mma::cp_async8_zfill(at(st + AB + (n >> 6) * 8192, r, n & 63),
+                                 in ? w_x + static_cast<size_t>(k0 + r) * N + n0 + n : w_x,
+                                 in ? 8 : 0);
+          }
+          cp_async_arrive(&full[s]);  // once this thread's copies so far have landed
+        }
       }
     }
-    __syncthreads();  // the tiles are refilled next chunk
-  }
+    if (!kTma) {  // no copy outlives its thread
+      mma::cp_async_commit();
+      mma::cp_async_wait<0>();
+    }
+  } else {
+    if constexpr (kCtas == 1) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(xp_regs(kTma, true)));
+    }
+    const int g = wgi - 1, warp = tid >> 5, lane = tid & 31, gr = lane >> 2, tq = lane & 3;
+    constexpr unsigned lbo = kSwap ? 1024 : 8192, sbo = kSwap ? (BN == 64 ? 0 : 8192) : 1024;
+    int seq = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int m0, n0;
+      xp_place(t, band, m_tiles, n_tiles, BM, BN, m0, n0);
+      float acc[MB][BN / 2];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = c0 + 8 * j + 2 * tq;
-    if (col >= N) continue;
-    const float b0 = b[col], b1 = b[col + 1];
+      for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r0 + warp * 16 + gr + 8 * h;
-      if (row < M) {
-        *reinterpret_cast<float2*>(xp + static_cast<size_t>(row) * N + col) =
-            make_float2(acc[j][2 * h] + b0, acc[j][2 * h + 1] + b1);
+        for (int e = 0; e < BN / 2; ++e) acc[mb][e] = 0.0f;
+      for (int c = 0; c < chunks; ++c, ++seq) {
+        const int s = seq % stages;
+        mbar_wait(&full[s], (seq / stages) & 1);
+        if constexpr (!kTma) wg::fence_proxy_async();  // the landed copies, visible to wgmma
+        const unsigned st = mma::smem_addr(sm + s * SB);
+        wg::fence();
+#pragma unroll
+        for (int ks = 0; ks < kWgK / 16; ++ks) {
+          // W_x: 16 k-lines down its atoms; x: this warpgroup's m64 blocks,
+          // 32 bytes into each line.
+          const uint64_t db = wg::desc_sw128_mn(st + AB + ks * 16 * 128, lbo, sbo);
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb) {
+            const uint64_t da = wg::desc_sw128(st + (g * MB + mb) * 64 * 128 + ks * 32);
+            if constexpr (BN == 256) {
+              wg::m64n256k16_mn(acc[mb], da, db);
+            } else if constexpr (BN == 128) {
+              wg::m64n128k16<1>(acc[mb], da, db);
+            } else {
+              wg::m64n64k16_mn(acc[mb], da, db);
+            }
+          }
+        }
+        wg::commit();
+        wg::wait<1>();  // chunk c - 1's products are done: its stage is free
+        if (c > 0 && tid == 0) mbar_arrive(&empty[(seq - 1) % stages]);
+      }
+      wg::wait<0>();
+      if (tid == 0) mbar_arrive(&empty[(seq - 1) % stages]);
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) asm volatile("" : "+f"(acc[mb][e])::"memory");
+      // Lane pairs (tq, tq ^ 1) trade halves: the even lane stores row gr's
+      // columns 4 (tq / 2) .. + 3 of each n8 block, the odd lane row gr + 8's.
+      const bool odd = tq & 1;
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) {
+        const int row = m0 + (g * MB + mb) * 64 + warp * 16 + gr + (odd ? 8 : 0);
+        const float* a = acc[mb];
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const float s0 = odd ? a[4 * j] : a[4 * j + 2];
+          const float s1 = odd ? a[4 * j + 1] : a[4 * j + 3];
+          const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+          const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+          const int col = n0 + 8 * j + 4 * (tq >> 1);
+          if (row < M && col < N) {
+            const float4 bb = *reinterpret_cast<const float4*>(b + col);
+            const float4 v = odd ? make_float4(r0 + bb.x, r1 + bb.y, a[4 * j + 2] + bb.z,
+                                               a[4 * j + 3] + bb.w)
+                                 : make_float4(a[4 * j] + bb.x, a[4 * j + 1] + bb.y,
+                                               r0 + bb.z, r1 + bb.w);
+            *reinterpret_cast<float4*>(xp + static_cast<size_t>(row) * N + col) = v;
+          }
+        }
       }
     }
   }
 }
 
-// Launch the projection on `s`; a CUDA error code (0: launched).
-int launch_xproj(const void* x, const void* w_x, const void* b, void* xp, int M, int D,
-                 int N, cudaStream_t s) {
+// The rule of xproj_plan: the tile and stages of x [M, D] @ w_x [D, N] on
+// `sms` SMs (kernel_probes.py xproj_bf16 chose it). Tiles: 128 x 64 (two
+// CTAs a SM) where K is at most two chunks deep; else 128 x 128 where a
+// CTA's (one a SM) most tiles times their area is under 0.9 of the larger
+// tiles', or no more where the larger tiles are under two a SM (the small
+// ones balance the last wave); else of 256 x 128 and 128 x 256 the one
+// with the smaller such cost, 256 x 128 on a tie. Stages: 4 where K is
+// more than 8 chunks deep, else 3; within what shared memory holds.
+void xp_rule(int M, int D, int N, int sms, int* tile_m, int* tile_n, int* stages) {
+  if ((D + kWgK - 1) / kWgK <= 2) {
+    *tile_m = 128;
+    *tile_n = 64;
+    *stages = 3;
+    return;
+  }
+  auto tiles = [&](int bm, int bn) {
+    return static_cast<long long>((M + bm - 1) / bm) * ((N + bn - 1) / bn);
+  };
+  auto cost = [&](int bm, int bn) { return (tiles(bm, bn) + sms - 1) / sms * bm * bn; };
+  const long long tall = cost(256, 128), wide = cost(128, 256), small = cost(128, 128);
+  const bool tall_first = tall <= wide;
+  const long long big = tall_first ? tall : wide;
+  const long long big_tiles = tall_first ? tiles(256, 128) : tiles(128, 256);
+  const bool use_small = 10 * small < 9 * big || (small <= big && big_tiles < 2ll * sms);
+  *tile_m = use_small || !tall_first ? 128 : 256;
+  *tile_n = use_small || tall_first ? 128 : 256;
+  const int want = (D + kWgK - 1) / kWgK > 8 ? 4 : 3, most = xp_max_stages(*tile_m, *tile_n);
+  *stages = want < most ? want : most;
+}
+
+// The projection's configuration (ops/cuda/gru.py xproj_config): rows and
+// columns a tile, ring stages, the copy route, CTAs, column tiles a band and
+// shared memory.
+struct XprojPlan {
+  int tile_m = 0, tile_n = 0, stages = 0, grid = 0, band = 0, smem = 0;
+  bool tma = false;  // every row stride a 16-byte multiple
+};
+
+// The rest of a plan whose tile and stages are set, on `sms` SMs: the
+// route, CTAs, the band and shared memory; a CUDA error code
+// (cudaErrorInvalidValue for a tile or stages the kernel cannot take).
+// xproj_plan's second half (kernel_probes.cu completes its variants so).
+int xp_complete(int M, int D, int N, int sms, XprojPlan* q) {
+  const bool shape_ok =
+      (q->tile_m == 128 && (q->tile_n == 64 || q->tile_n == 128 || q->tile_n == 256)) ||
+      (q->tile_m == 256 && q->tile_n == 128);
+  if (!shape_ok || q->stages < 2 || q->stages > xp_max_stages(q->tile_m, q->tile_n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  q->tma = D % 8 == 0 && N % 8 == 0;
+  const long long m_tiles = (M + q->tile_m - 1) / q->tile_m;
+  const int n_tiles = (N + q->tile_n - 1) / q->tile_n;
+  const long long tiles = m_tiles * n_tiles;
+  const long long ctas = static_cast<long long>(xp_ctas(q->tile_m, q->tile_n)) * sms;
+  q->grid = static_cast<int>(tiles < ctas ? tiles : ctas);
+  const long long w_bytes = 2ll * D * n_tiles * q->tile_n;
+  const long long bands = (w_bytes + kXpL2Budget - 1) / kXpL2Budget;
+  q->band = static_cast<int>((n_tiles + bands - 1) / bands);
+  q->smem = q->stages * xp_stage_bytes(q->tile_m, q->tile_n) + 1024;
+  return 0;
+}
+
+// The plan of xp [M, N] = x [M, D] @ w_x [D, N] + b on the current card; a
+// CUDA error code (cudaErrorInvalidValue for an empty shape or D or N not a
+// multiple of 4). The rule: xp_rule, then xp_complete.
+int xproj_plan(int M, int D, int N, XprojPlan* p) {
   if (M <= 0 || D <= 0 || N <= 0 || D % 4 != 0 || N % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((M + kProjTile - 1) / kProjTile, (N + kProjTile - 1) / kProjTile);
-  xproj_kernel<<<grid, kProjThreads, 0, s>>>(
+  const int sms = sg_sms();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  XprojPlan q;
+  xp_rule(M, D, N, sms, &q.tile_m, &q.tile_n, &q.stages);
+  const int rc = xp_complete(M, D, N, sms, &q);
+  if (rc == 0) *p = q;
+  return rc;
+}
+
+template <int BM, int BN, bool kTma, bool kSwap = false>
+int launch_xproj_variant(const XprojPlan& p, const void* x, const void* w_x, const void* b,
+                         void* xp, int M, int D, int N, cudaStream_t s) {
+  StepGemmMaps maps{};
+  if (kTma) {  // x in boxes of 64 k x BM rows, W_x of 64 columns x 64 k-lines
+    int rc = sg_map(&maps.a, x, D, M, static_cast<uint64_t>(D) * 2, BM);
+    if (rc == 0) rc = sg_map(&maps.w, w_x, N, D, static_cast<uint64_t>(N) * 2, kWgK);
+    if (rc != 0) return rc;
+  }
+  auto kernel = xproj_wgmma_kernel<BM, BN, kTma, kSwap>;
+  static unsigned long long ready = 0;  // a bit a device whose limit is raised
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64 || !(ready >> dev & 1)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             xp_max_stages(BM, BN) * xp_stage_bytes(BM, BN) + 1024);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 64) ready |= 1ull << dev;
+  }
+  kernel<<<p.grid, kXpThreads, p.smem, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w_x),
-      static_cast<const float*>(b), static_cast<float*>(xp), M, D, N);
+      static_cast<const float*>(b), static_cast<float*>(xp), M, D, N, p.stages, p.band, maps);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM, int BN>
+int launch_xproj_route(const XprojPlan& p, const void* x, const void* w_x, const void* b,
+                       void* xp, int M, int D, int N, cudaStream_t s) {
+  return p.tma ? launch_xproj_variant<BM, BN, true>(p, x, w_x, b, xp, M, D, N, s)
+               : launch_xproj_variant<BM, BN, false>(p, x, w_x, b, xp, M, D, N, s);
+}
+
+// Launch a planned projection on `s`; a CUDA error code (0: launched). x
+// and w_x must be aligned to the route's unit (16 bytes by TMA, 8 by
+// cp.async), b and xp to 16 bytes.
+int launch_xproj(const XprojPlan& p, const void* x, const void* w_x, const void* b, void* xp,
+                 int M, int D, int N, cudaStream_t s) {
+  const uintptr_t unit = p.tma ? 16 : 8;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w_x)) % unit != 0 ||
+      (reinterpret_cast<uintptr_t>(b) | reinterpret_cast<uintptr_t>(xp)) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (p.tile_m == 256) return launch_xproj_route<256, 128>(p, x, w_x, b, xp, M, D, N, s);
+  if (p.tile_n == 64) return launch_xproj_route<128, 64>(p, x, w_x, b, xp, M, D, N, s);
+  return p.tile_n == 256 ? launch_xproj_route<128, 256>(p, x, w_x, b, xp, M, D, N, s)
+                         : launch_xproj_route<128, 128>(p, x, w_x, b, xp, M, D, N, s);
+}
+
+// The entry points' projection: the caller's plan (tile_m, tile_n, stages,
+// tma, grid, band, smem_bytes) checked against xproj_plan's, then the
+// launch.
+inline int checked_xproj(const void* x, const void* w_x, const void* b, void* xp, int M, int D,
+                         int N, int tile_m, int tile_n, int stages, int tma, int grid, int band,
+                         long long smem_bytes, cudaStream_t s) {
+  XprojPlan p;
+  const int rc = xproj_plan(M, D, N, &p);
+  if (rc != 0) return rc;
+  if (p.tile_m != tile_m || p.tile_n != tile_n || p.stages != stages ||
+      static_cast<int>(p.tma) != tma || p.grid != grid || p.band != band ||
+      p.smem != smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_xproj(p, x, w_x, b, xp, M, D, N, s);
 }
 
 // The gate nonlinearities in f32 from the hardware exp2 and a fast divide

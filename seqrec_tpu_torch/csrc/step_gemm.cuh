@@ -92,6 +92,11 @@ __device__ __forceinline__ void commit() {
 __device__ __forceinline__ void wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// At most kPending of this warpgroup's committed groups still in flight.
+template <int kPending>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending) : "memory");
+}
 // d += A (64 x 16, K-major) . B (16 x 128; K-major, or MN-major with
 // kTransB), f32 sums.
 template <int kTransB = 0>
@@ -121,6 +126,72 @@ __device__ __forceinline__ void m64n128k16(float (&d)[64], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(1), "n"(kTransB));
 }
 
+// d += A (64 x 16, K-major) . B (16 x 256, MN-major), f32 sums: the
+// input projection's (rnn.cuh) 128-register accumulator. The B descriptor's
+// LBO steps from one 64-column atom to the next, as m64n128k16's.
+__device__ __forceinline__ void m64n256k16_mn(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
+      "%126, %127}, "
+      " %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d += A (64 x 16, K-major) . B (16 x 64, MN-major), f32 sums: the input
+// projection's (rnn.cuh) 64-column tile, one atom of B.
+__device__ __forceinline__ void m64n64k16_mn(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      " %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // A K-major shared-memory matrix descriptor in the 128-byte swizzle: the
 // start address in 16-byte units, the leading byte offset unused (1), the
 // 8-row groups 1,024 bytes apart.
@@ -131,10 +202,12 @@ __device__ __forceinline__ uint64_t desc_sw128(unsigned addr) {
 
 // The same for an MN-major B (the forward's W [K][N]): 64-column atoms
 // of 8 k-lines, the next 64 columns 8,192 bytes on (LBO), the next 8
-// k-lines 1,024 bytes on (SBO).
-__device__ __forceinline__ uint64_t desc_sw128_mn(unsigned addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | static_cast<uint64_t>(8192 >> 4) << 16 |
-         static_cast<uint64_t>(1024 >> 4) << 32 | static_cast<uint64_t>(1) << 62;
+// k-lines 1,024 bytes on (SBO). (rnn.cuh's projection passes the two
+// exchanged for its control.)
+__device__ __forceinline__ uint64_t desc_sw128_mn(unsigned addr, unsigned lbo = 8192,
+                                                  unsigned sbo = 1024) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | static_cast<uint64_t>(1) << 62;
 }
 
 }  // namespace wg
@@ -142,8 +215,18 @@ __device__ __forceinline__ uint64_t desc_sw128_mn(unsigned addr) {
 // The TMA route (kTma): one thread asks the tensor memory accelerator for a
 // chunk's tiles, which it writes in the same 128-byte swizzle and counts on
 // the stage's mbarrier; every thread waits for the stage's phase.
-__device__ __forceinline__ void mbar_init(uint64_t* b) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(mma::smem_addr(b)) : "memory");
+__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned arrivals = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(mma::smem_addr(b)), "r"(arrivals)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(mma::smem_addr(b)) : "memory");
+}
+// One arrival on `b` once every cp.async this thread issued before has
+// landed (counted against the arrivals `b` was made with).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* b) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(mma::smem_addr(b))
+               : "memory");
 }
 __device__ __forceinline__ void mbar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");

@@ -128,7 +128,6 @@ plain_backward = reference.gru_bwd_fused
 # Shared memory one block may opt in to on sm_90 (227 KB).
 SMEM_LIMIT = 232_448
 MAX_HIDDEN = 256  # kMaxHidden in csrc/gru.cu: the widest H of the block and cluster layouts
-PROJ_TILE = 64  # kProjTile in csrc/gru.cu: rows and columns of an xp tile
 WH_REG_LIMIT = 128  # Hp up to which a bf16 recurrence runs in one block, W_h in registers
 # The bf16 recurrences above WH_REG_LIMIT (csrc/gru.cu, the cluster layouts):
 WIDE = 256  # kWide: units and k (and gate columns) padded to this width
@@ -175,6 +174,17 @@ STEP_GEMM_TILE = (128, 64)  # kSgTileN, kWgK: a CTA's columns and a chunk's dept
 STEP_GEMM_STAGES = 3  # kWgStages: the ring's stages
 STEP_GEMM_MAX_SPLITS = 8  # kSgMaxSplits
 STEP_GEMM_MIN_CHUNKS = 8  # kSgMinChunks: chunks a split at least, where K has them
+# The bf16 input projection (csrc/rnn.cuh xproj_wgmma_kernel):
+XPROJ_THREADS = 384  # kXpThreads: a producer and two consumer warpgroups
+XPROJ_TILES = ((256, 128), (128, 256), (128, 128), (128, 64))  # rows x columns a tile may be
+SM_SMEM = 233_472  # kXpSmSmem: shared memory of a SM, 1,024 bytes of it reserved a CTA
+XPROJ_MAX_STAGES = 8  # kXpMaxStages
+XPROJ_L2_BUDGET = 12 << 20  # kXpL2Budget: W_x bytes a band of column tiles may keep in L2
+# The bf16 projection's entry points, seqrec_gru_xproj and seqrec_lstm_xproj
+# alike: x, w_x, b, xp; M, D, N; `xproj_plan_args` (six ints, then the
+# shared memory); the stream.
+XPROJ_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_longlong,
+                                                                ctypes.c_void_p])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -185,9 +195,12 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     fwd.restype = ctypes.c_int
-    for proj in (lib.seqrec_gru_xproj, lib.seqrec_gru_xproj_f32):
-        proj.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        proj.restype = ctypes.c_int
+    proj = lib.seqrec_gru_xproj_f32
+    proj.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    proj.restype = ctypes.c_int
+    proj = lib.seqrec_gru_xproj
+    proj.argtypes = XPROJ_ARGTYPES
+    proj.restype = ctypes.c_int
     mma = lib.seqrec_gru_forward_mma
     mma.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
         ctypes.c_longlong, ctypes.c_void_p,
@@ -344,6 +357,97 @@ def step_gemm_config(M: int, K: int, N: int, terms: int, sms: Optional[int] = No
             "unit_bytes": unit, "tma": unit == 16,
             "smem_bytes": STEP_GEMM_STAGES * (terms * bm + bn) * bk * 2 + 1024,
             "workspace_bytes": splits * M * N * 4}
+
+
+def xproj_ctas(bm: int, bn: int) -> int:
+    """CTAs a SM of the bf16 projection's tile (csrc/rnn.cuh xp_ctas): two
+    of 128 x 64, else one."""
+    return 2 if bm * bn == 128 * 64 else 1
+
+
+def xproj_max_stages(bm: int, bn: int) -> int:
+    """The most ring stages a CTA's share of shared memory holds beside
+    1,024 bytes to align (csrc/rnn.cuh xp_max_stages)."""
+    limit = SMEM_LIMIT if xproj_ctas(bm, bn) == 1 else SM_SMEM // 2 - 1024
+    return min(XPROJ_MAX_STAGES, (limit - 1024) // ((bm + bn) * STEP_GEMM_TILE[1] * 2))
+
+
+def xproj_tile(M: int, D: int, N: int, sms: int) -> Tuple[int, int, int]:
+    """The bf16 projection's tile rows, columns and ring stages on `sms` SMs
+    (csrc/rnn.cuh xp_rule; kernel_probes.py xproj_bf16 chose it): 128 x 64
+    (two CTAs a SM) where K is at most two chunks deep (D <= 128); else
+    128 x 128 where a CTA's (one a SM) most tiles times their area is under
+    0.9 of the larger tiles', or no more where the larger tiles are under
+    two a SM (the small ones balance the last wave); else of 256 x 128 and
+    128 x 256 the one with the smaller such cost, 256 x 128 on a tie. 4
+    stages where K is more than 8 chunks deep, else 3, within what shared
+    memory holds."""
+    bk = STEP_GEMM_TILE[1]
+    if -(-D // bk) <= 2:
+        return 128, 64, 3
+
+    def tiles(bm, bn):
+        return -(-M // bm) * -(-N // bn)
+
+    def cost(bm, bn):
+        return -(-tiles(bm, bn) // sms) * bm * bn
+
+    big = min(((256, 128), (128, 256)), key=lambda t: cost(*t))  # 256 x 128 on a tie
+    small = cost(128, 128)
+    if 10 * small < 9 * cost(*big) or (small <= cost(*big) and tiles(*big) < 2 * sms):
+        big = (128, 128)
+    bm, bn = big
+    return bm, bn, min(4 if -(-D // bk) > 8 else 3, xproj_max_stages(bm, bn))
+
+
+def xproj_config(M: int, D: int, N: int, sms: Optional[int] = None) -> Dict:
+    """The bf16 input projection xp [M, N] f32 = x [M, D] @ W_x [D, N] + b
+    (csrc/rnn.cuh xproj_wgmma_kernel, the C side's xproj_plan; the entry
+    points refuse a caller whose plan differs): wgmma, warp-specialised and
+    persistent. `block` [BM, BN, BK]: output tiles of BM rows (BM / 2 a
+    consumer warpgroup) and BN columns (`xproj_tile`), K in BK = 64-deep
+    chunks through a ring of `stages` stages; `grid` `ctas_per_sm` CTAs a
+    SM (`xproj_ctas`: two of 128 x 64 tiles, else one), at most the
+    `tiles`. `route` "tma" where every row stride is a 16-byte multiple
+    (D % 8 == 0 and N % 8 == 0; one producer thread asks for each chunk),
+    else "cp.async" (8-byte pieces from the producer warpgroup's 128
+    threads, each thread's copies counted on the stage's barrier as they
+    land); zero past M, N and D either way. Tiles are walked in bands of
+    `band` column tiles, each band down M: the band's W_x in L2 (all of it
+    where it fits XPROJ_L2_BUDGET, else the fewest even bands that fit).
+    `registers` the setmaxnreg counts a thread of the producer and of a
+    consumer warpgroup (two CTAs a SM take none: both the launch's 80).
+    Planned for `sms` SMs (default `card_sms()`, the card the C side plans
+    for). ValueError for an empty shape or D or N not a multiple of 4 (the
+    wrappers pad them)."""
+    if min(M, D, N) <= 0 or D % 4 or N % 4:
+        raise ValueError(f"input projection: needs M, D, N > 0 and D % 4 == N % 4 == 0 "
+                         f"(M={M} D={D} N={N}; the wrappers pad D and N)")
+    sms = card_sms() if sms is None else sms
+    bm, bn, stages = xproj_tile(M, D, N, sms)
+    bk = STEP_GEMM_TILE[1]
+    n_tiles = -(-N // bn)
+    tiles = -(-M // bm) * n_tiles
+    bands = -(-(2 * D * n_tiles * bn) // XPROJ_L2_BUDGET)
+    tma = D % 8 == 0 and N % 8 == 0
+    ctas = xproj_ctas(bm, bn)
+    regs = ({"producer": 40 if tma else 56, "consumer": 232 if tma else 224} if ctas == 1 else
+            {"producer": 80, "consumer": 80})
+    return {"design": "wgmma", "layout": "persistent", "block": [bm, bn, bk],
+            "threads": XPROJ_THREADS, "warpgroups": {"producer": 1, "consumers": 2},
+            "stages": stages, "route": "tma" if tma else "cp.async", "tma": tma,
+            "unit_bytes": 16 if tma else 8, "tiles": tiles, "band": -(-n_tiles // bands),
+            "ctas_per_sm": ctas, "grid": min(tiles, ctas * sms),
+            "smem_bytes": stages * (bm + bn) * bk * 2 + 1024, "registers": regs}
+
+
+def xproj_plan_args(M: int, D: int, N: int) -> tuple:
+    """`xproj_config`'s plan as the entry points take it (and check it):
+    rows and columns a tile, stages, TMA, CTAs, column tiles a band, shared
+    memory."""
+    cfg = xproj_config(M, D, N)
+    return (*cfg["block"][:2], cfg["stages"], int(cfg["tma"]), cfg["grid"], cfg["band"],
+            cfg["smem_bytes"])
 
 
 def stepped_config(B: int, T: int, H: int, dtype: torch.dtype, gates: int,
@@ -518,10 +622,10 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
     """Design, grid, block and shared-memory layout for one forward launch;
     ValueError for a shape the kernels cannot take.
 
-    bf16 ("mma.sync"): the projection's grid of 64 x 64 xp tiles, then the
-    scan: 8 batch rows a block, the N of each mma (one n8 tile), Hp = 16
-    ceil(H / 16) and Hp / 16 warps, W_h^T's fragments in registers, and the
-    h double buffer [2][Hp][8] bf16 (unit-major) in shared memory, up to
+    bf16 ("mma.sync"): the projection (`xproj_config`, a plan of its own),
+    then the scan: 8 batch rows a block, the N of each mma (one n8 tile),
+    Hp = 16 ceil(H / 16) and Hp / 16 warps, W_h^T's fragments in registers,
+    and the h double buffer [2][Hp][8] bf16 (unit-major) in shared memory, up to
     Hp = WH_REG_LIMIT. The latency of a step binds, and it grows with the
     rows a block computes: an H100 sweep at B=64 and 128, T=200, D=H=128
     and at B=256, T=50, D=H=100 found 8 rows 1.5-1.8x faster than 16
@@ -559,8 +663,7 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
                          f"points pad it)")
     if H > MAX_HIDDEN:
         not_cluster(rows_per_cluster, cluster_size, H)
-        xproj = ({"xproj_grid": [-(-(B * T) // PROJ_TILE), -(-(3 * H) // PROJ_TILE)],
-                  "xproj_threads": 128} if dtype == torch.bfloat16 else
+        xproj = ({} if dtype == torch.bfloat16 else
                  {"xproj_grid": [xproj_f32_grid(B * T, 3 * H)], "xproj_threads": F32_PROJ_THREADS})
         if H > grid_max_hidden(dtype):
             return {**stepped_config(B, T, H, dtype, 3, reverse=False), **xproj}
@@ -573,9 +676,7 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
         hp = 16 * -(-H // 16)
         if hp > WH_REG_LIMIT:
             return {**_wide_layout(B, hp), "k_split": 2, "wh_in_regs": 1,
-                    "smem_bytes": _wide_forward_smem(),
-                    "xproj_grid": [-(-(B * T) // PROJ_TILE), -(-(3 * H) // PROJ_TILE)],
-                    "xproj_threads": 128}
+                    "smem_bytes": _wide_forward_smem()}
         return {
             "design": "mma.sync",
             "grid": -(-B // R),
@@ -584,8 +685,6 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
             "hidden_padded": hp,
             "wh_in_regs": int(hp <= WH_REG_LIMIT),
             "smem_bytes": 2 * R * hp * 2,
-            "xproj_grid": [-(-(B * T) // PROJ_TILE), -(-(3 * H) // PROJ_TILE)],
-            "xproj_threads": 128,
         }
     cfg = cluster_config(B, H, H, 3, 4, cluster_size, rows_per_cluster, GRU_CLUSTERS, "gru")
     w_in_regs = cfg["k_slice"] == GRU_REG_SLICE and cfg["k_slices"] == 8 and \
@@ -858,8 +957,8 @@ def gru_input_projection(x: torch.Tensor, w_x: torch.Tensor,
     """The forward's input projection x [..., D] @ w_x [D, N] + b_x [N] ->
     f32 [..., N] (N = 3H): the part of `_gru_step_body`'s step that does not
     depend on h (`xp`, gru.py:110-113), for every step at once. x and w_x
-    bf16: the tensor-core GEMM (`seqrec_gru_xproj`, counted by
-    `.launches`); f32: the CUDA-core one, f32 products, no TF32
+    bf16: the wgmma GEMM planned by `xproj_config` (`seqrec_gru_xproj`,
+    counted by `.launches`); f32: the CUDA-core one, f32 products, no TF32
     (`seqrec_gru_xproj_f32`, counted by `.f32_launches`). A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel or raises."""
     if x.device.type == "cpu":
@@ -888,10 +987,11 @@ def gru_input_projection(x: torch.Tensor, w_x: torch.Tensor,
         return xp
     lib = _lib()
     f32 = x.dtype == torch.float32
-    launch = lib.seqrec_gru_xproj_f32 if f32 else lib.seqrec_gru_xproj
     with torch.cuda.device(x.device):
-        rc = launch(*(a.data_ptr() for a in args), xp.data_ptr(), M, D, N,
-                    torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        ptrs = [a.data_ptr() for a in args] + [xp.data_ptr()]
+        rc = (lib.seqrec_gru_xproj_f32(*ptrs, M, D, N, stream) if f32 else
+              lib.seqrec_gru_xproj(*ptrs, M, D, N, *xproj_plan_args(M, D, N), stream))
     _raise_on(rc, lib, "input projection")
     if f32:
         gru_input_projection.f32_launches += 1

@@ -97,12 +97,14 @@ import torch
 from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.ops import reference
 from seqrec_tpu_torch.ops.cuda.gru import (F32_PROJ_THREADS, MMA_ROWS, RING_STAGES,
-                                           SMEM_LIMIT, cluster_config, grid_layout, grid_pack,
+                                           SMEM_LIMIT, XPROJ_ARGTYPES, cluster_config,
+                                           grid_layout, grid_pack,
                                            grid_max_hidden as _grid_max_hidden,
                                            not_cluster, pad_gates, pad_scan_operands,
                                            padded_backward_route, padded_route, padded_width,
                                            plain_input_projection, step_gemm, stepped_config,
-                                           stepped_workspace, unpad_gates, xproj_f32_grid)
+                                           stepped_workspace, unpad_gates, xproj_f32_grid,
+                                           xproj_plan_args)
 from seqrec_tpu_torch.ops.cuda.gru import _check_dims as _gru_check_dims
 
 plain = reference.lstm_scan
@@ -110,7 +112,6 @@ plain_backward = reference.lstm_bwd_scan
 
 MAX_HIDDEN = 256  # kMaxHidden in csrc/lstm.cu: the widest H of the block and cluster layouts
 GRID_GATES = 4  # i, f, g, o: the grid layout's W_h values a unit (csrc/lstm.cu, above MAX_HIDDEN)
-PROJ_TILE = 64  # kProjTile in csrc/rnn.cuh: rows and columns of an xp tile
 WH_REG_LIMIT = 128  # Hp up to which the bf16 kernels hold W_h in registers
 BWD_UNITS = 4  # kBwdUnits in csrc/lstm.cu: units a warp of the f32 reverse recurrence sums for
 # The f32 reverse recurrence's (cluster size, rows a cluster), in the order
@@ -132,9 +133,12 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_void_p,
     ]
     fwd.restype = ctypes.c_int
-    for proj in (lib.seqrec_lstm_xproj, lib.seqrec_lstm_xproj_f32):
-        proj.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        proj.restype = ctypes.c_int
+    proj = lib.seqrec_lstm_xproj_f32
+    proj.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    proj.restype = ctypes.c_int
+    proj = lib.seqrec_lstm_xproj
+    proj.argtypes = XPROJ_ARGTYPES
+    proj.restype = ctypes.c_int
     fwd_mma = lib.seqrec_lstm_forward_mma
     fwd_mma.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
         ctypes.c_longlong, ctypes.c_void_p,
@@ -227,11 +231,10 @@ def _mma_rows(rows_per_cluster: Optional[int], cluster_size: Optional[int]) -> i
 
 
 def _xproj_layout(B: int, T: int, H: int, dtype: torch.dtype) -> Dict:
-    """The input projection's launch: bf16 a grid of 64 x 64 xp tiles of 128
-    threads; f32 the persistent grid (`gru.xproj_f32_grid`)."""
+    """The f32 input projection's launch, the persistent grid
+    (`gru.xproj_f32_grid`); bf16 none: its plan is `gru.xproj_config`'s."""
     if dtype == torch.bfloat16:
-        return {"xproj_grid": [-(-(B * T) // PROJ_TILE), -(-(4 * H) // PROJ_TILE)],
-                "xproj_threads": 128}
+        return {}
     return {"xproj_grid": [xproj_f32_grid(B * T, 4 * H)], "xproj_threads": F32_PROJ_THREADS}
 
 
@@ -241,8 +244,8 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
     """Design, grid, block and shared-memory layout of one forward launch;
     ValueError for a shape the kernels cannot take.
 
-    bf16 ("mma.sync"): the projection's grid of 64 x 64 xp tiles, then the
-    scan: 8 batch rows a block (the N of each mma, one n8 tile, as the GRU's
+    bf16 ("mma.sync"): the projection (`gru.xproj_config`, a plan of its
+    own), then the scan: 8 batch rows a block (the N of each mma, one n8 tile, as the GRU's
     scan, where 8 rows beat 16 by 1.5-1.8x on an H100), Hp = 16 ceil(H / 16)
     and Hp / 16 warps, W_h^T's fragments in registers up to Hp = 128 (read
     from global memory above); in shared memory the h double buffer
@@ -422,10 +425,11 @@ def lstm_input_projection(x: torch.Tensor, w_x: torch.Tensor,
                           b: torch.Tensor) -> torch.Tensor:
     """The forward's input projection x [..., D] @ w_x [D, 4H] + b [4H] ->
     f32 [..., 4H]: the part of `_lstm_step_body`'s step that does not depend
-    on h (lstm.py:89-93), for every step at once. x and w_x bf16: the
-    tensor-core GEMM (`seqrec_lstm_xproj`, counted by `.launches`); f32: the
-    CUDA-core one, f32 products, no TF32 (`seqrec_lstm_xproj_f32`, counted
-    by `.f32_launches`); both are csrc/rnn.cuh's. A CPU tensor takes the
+    on h (lstm.py:89-93), for every step at once. x and w_x bf16: the wgmma
+    GEMM planned by `gru.xproj_config` (`seqrec_lstm_xproj`, counted by
+    `.launches`); f32: the CUDA-core one, f32 products, no TF32
+    (`seqrec_lstm_xproj_f32`, counted by `.f32_launches`); both are
+    csrc/rnn.cuh's. A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel or raises."""
     if x.device.type == "cpu":
         return plain_input_projection(x, w_x, b)
@@ -450,10 +454,11 @@ def lstm_input_projection(x: torch.Tensor, w_x: torch.Tensor,
         return xp
     lib = _lib()
     f32 = x.dtype == torch.float32
-    launch = lib.seqrec_lstm_xproj_f32 if f32 else lib.seqrec_lstm_xproj
     with torch.cuda.device(x.device):
-        rc = launch(*(a.data_ptr() for a in args), xp.data_ptr(), M, D, N4,
-                    torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        ptrs = [a.data_ptr() for a in args] + [xp.data_ptr()]
+        rc = (lib.seqrec_lstm_xproj_f32(*ptrs, M, D, N4, stream) if f32 else
+              lib.seqrec_lstm_xproj(*ptrs, M, D, N4, *xproj_plan_args(M, D, N4), stream))
     _raise_on(rc, lib, "input projection")
     if f32:
         lstm_input_projection.f32_launches += 1

@@ -53,8 +53,7 @@ def test_wide_forward_launch_config(H, B):
         "design": "mma.sync", "layout": "cluster", "cluster_size": 4, "clusters": clusters,
         "grid": 4 * clusters, "threads": 256, "rows_per_block": 8,
         "hidden_padded": 16 * -(-H // 16), "width_padded": 256, "units_per_cta": 64,
-        "k_split": 2, "wh_in_regs": 1, "smem_bytes": 2 * 256 * 8 * 2 + 4 * 2 * 6 * 32 * 4 + 16,
-        "xproj_grid": [-(-(B * 50) // 64), -(-(3 * H) // 64)], "xproj_threads": 128}
+        "k_split": 2, "wh_in_regs": 1, "smem_bytes": 2 * 256 * 8 * 2 + 4 * 2 * 6 * 32 * 4 + 16}
     assert cfg["smem_bytes"] <= cuda_gru.SMEM_LIMIT
     assert cfg["grid"] <= cuda_gru.NUM_SMS
 
@@ -167,8 +166,7 @@ def test_block_layouts_unchanged_up_to_hp_128(H, hp, threads):
     Hp / 16 warps over 8 rows, W_h in registers, no cluster."""
     assert cuda_gru.launch_config(64, 200, 64, H, torch.bfloat16) == {
         "design": "mma.sync", "grid": 8, "threads": threads, "rows_per_block": 8,
-        "hidden_padded": hp, "wh_in_regs": 1, "smem_bytes": 2 * 8 * hp * 2,
-        "xproj_grid": [200, -(-3 * H // 64)], "xproj_threads": 128}
+        "hidden_padded": hp, "wh_in_regs": 1, "smem_bytes": 2 * 8 * hp * 2}
     stage = 6 * 8 * (hp + 4) * 4 + 8 * (hp + 8) * 2 + 8 * (hp + 8) * 2
     assert cuda_gru.backward_launch_config(64, 200, H, torch.bfloat16) == {
         "design": "mma.sync", "grid": 8, "threads": threads, "rows_per_block": 8,

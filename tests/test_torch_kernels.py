@@ -2604,3 +2604,75 @@ def test_head_streamed_matches_plain_twice(cuda, dtype, edge, N, S):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     if N == 1:
         assert got[0].item() == 0.0 and want[0].item() == 0.0
+
+
+# The bf16 input projection's shapes (M = B T, D, N): the narrow GRU and LSTM
+# (serving's B=64 and training's B=128 at T=200, D=H=128), rsc15 (D=H=100,
+# 8-byte rows: cp.async), d = 50 padded to 52, the wide GRU4Rec and LSTM
+# (D=H=512) and w3 (D=H=2,304).
+XPROJ_SHAPES = [(12800, 128, 384), (25600, 128, 512), (12800, 100, 300), (25600, 52, 156),
+                (25600, 52, 208), (51200, 512, 1536), (51200, 512, 2048), (51200, 2304, 6912),
+                (51200, 2304, 9216), (3, 64, 12), (130, 2304, 260)]
+
+
+@pytest.mark.parametrize("M,D,N", XPROJ_SHAPES)
+def test_input_projection_matches_addmm_twice(cuda, M, D, N):
+    """The bf16 input projection (csrc/rnn.cuh xproj_wgmma_kernel) through
+    the GRU's wrapper (N = 3H) or the LSTM's (N = 4H, where 4 divides N / 4
+    and it is the LSTM's shape) against its plain version and
+    torch.addmm(b, x, w_x, out_dtype=torch.float32), within 1e-5 absolute
+    at D <= 256 (chip_smoke's XPROJ_TOL) and 1e-5 of the largest value above
+    (the step GEMM's forward rule: up to 2,304 exact bf16 products summed in
+    f32 in another order), twice bit for bit, one launch each, planned for
+    the card's SMs as the C side plans."""
+    rng = np.random.default_rng(M + D + N)
+    x = torch.from_numpy(rng.normal(scale=D ** -0.5, size=(M, D)).astype(np.float32))
+    x = x.to(cuda, torch.bfloat16)  # embedding rows' scale, as the models feed it
+    w_x = torch.from_numpy(rng.normal(scale=D ** -0.5, size=(D, N)).astype(np.float32))
+    w_x = w_x.to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rng.normal(scale=0.1, size=N).astype(np.float32)).to(cuda)
+    lstm = N in (512, 208, 2048, 9216)
+    project = k_lstm.lstm_input_projection if lstm else k_gru.gru_input_projection
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert k_gru.xproj_config(M, D, N) == k_gru.xproj_config(M, D, N, sms=sms)
+    before = project.launches
+    got, again = project(x, w_x, b), project(x, w_x, b)
+    torch.cuda.synchronize()
+    assert project.launches == before + 2
+    assert tuple(got.shape) == (M, N) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    want = torch.addmm(b, x, w_x, out_dtype=torch.float32)
+    tol = 1e-5 if D <= 256 else 1e-5 * want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    torch.testing.assert_close(got, k_gru.plain_input_projection(x, w_x, b), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("M,D,N", [(12800, 128, 384), (12800, 128, 512), (12800, 100, 300),
+                                   (25600, 52, 208)])
+def test_input_projection_runs_on_the_callers_stream(cuda, M, D, N):
+    """The bf16 projection launched under `torch.cuda.stream(side)` runs on
+    `side` (both wrappers, TMA and cp.async routes): `side` first sleeps
+    ~30 ms, then overwrites x, then projects it. A launch on any other
+    stream (or on a handle cut to 32 bits) reads the old x, or fails."""
+    rng = np.random.default_rng(M + D + N)
+    old, new = (torch.from_numpy(rng.normal(scale=D ** -0.5, size=(M, D)).astype(np.float32))
+                .to(cuda, torch.bfloat16) for _ in range(2))
+    w_x = torch.from_numpy(rng.normal(scale=D ** -0.5, size=(D, N)).astype(np.float32))
+    w_x = w_x.to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rng.normal(scale=0.1, size=N).astype(np.float32)).to(cuda)
+    project = k_lstm.lstm_input_projection if N % 8 == 0 and N // 4 == D else (
+        k_gru.gru_input_projection)
+    x = old.clone()
+    side = torch.cuda.Stream(cuda)
+    assert side.cuda_stream != torch.cuda.current_stream(cuda).cuda_stream
+    torch.cuda.synchronize()
+    before = project.launches
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)  # clock cycles
+        x.copy_(new)
+        got = project(x, w_x, b)
+    assert not side.query()  # still asleep: the projection is queued behind the copy
+    side.synchronize()
+    assert project.launches == before + 1
+    want = torch.addmm(b, new, w_x, out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

@@ -29,6 +29,7 @@ from seqrec_tpu_torch.models import build_model
 from seqrec_tpu_torch.models.convert import flax_to_state_dict, random_params
 from seqrec_tpu_torch.models.towers import RNNTower, zero_carry
 from seqrec_tpu_torch.ops import dispatch, reference
+from seqrec_tpu_torch.ops.cuda import gru as cuda_gru
 from seqrec_tpu_torch.ops.cuda import lstm as cuda_lstm
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -233,8 +234,7 @@ def test_lstm_launch_configs_at_the_training_shape():
     assert cuda_lstm.launch_config(128, 200, 128, 128, torch.bfloat16) == {
         "design": "mma.sync", "grid": 16, "threads": 256, "rows_per_block": 8,
         "hidden_padded": 128, "wh_in_regs": 1,
-        "smem_bytes": 2 * 128 * 8 * 2 + 3 * 8 * 516 * 4,
-        "xproj_grid": [400, 8], "xproj_threads": 128}
+        "smem_bytes": 2 * 128 * 8 * 2 + 3 * 8 * 516 * 4}
     f32 = cuda_lstm.launch_config(128, 200, 128, 128, torch.float32)
     assert f32 == {"design": "cluster", "cluster_size": 4, "rows_per_cluster": 4,
                    "clusters": 32, "grid": 128, "threads": 256, "units_per_cta": 32,
@@ -273,7 +273,8 @@ def test_lstm_bf16_pads_the_hidden_width_to_whole_mma_tiles(H, hp, hb, in_regs):
     bwd_ring = 3 * (6 * 8 * (hb + 4) * 4 + 8 * (hb + 8) * 2)
     bwd_smem = 2 * 4 * hb * 8 * 2 + bwd_ring + hb // 16 * 32 * 16
     assert bwd["smem_bytes"] == bwd_smem <= cuda_lstm.SMEM_LIMIT
-    assert fwd["xproj_grid"] == [1, -(-4 * H // 64)]
+    xp = cuda_gru.xproj_config(3 * 7, 8, 4 * H)  # the projection's own plan
+    assert "xproj_grid" not in fwd and xp["grid"] == xp["tiles"] == -(-4 * H // xp["block"][1])
 
 
 @pytest.mark.parametrize("B,grid", [(128, 16), (64, 8), (11, 2), (1, 1)])

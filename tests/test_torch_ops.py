@@ -274,8 +274,9 @@ def test_gru_dispatch_on_cpu_gives_plain_and_launches_nothing(use_pallas):
 def test_gru_launch_config_at_the_serving_shape():
     """bf16: the tensor-core design, 8 rows a block (8 blocks at B=64), 8
     warps of 16 units at H=128 with W_h in registers, the h double buffer
-    [2][128][8] bf16, and the input projection's 64 x 64 tiles over
-    B*T = 12,800 rows and 3H = 384 columns. f32: the persistent f32
+    [2][128][8] bf16 (the input projection has a plan of its own,
+    `xproj_config`: 128 x 64 tiles over B*T = 12,800 rows and 3H = 384
+    columns, 600 tiles on two CTAs a SM). f32: the persistent f32
     projection (600 tiles of 64 x 128 on 4 CTAs a SM: 528 CTAs of 128
     threads), then clusters of 4 CTAs over 4 rows (16 clusters, 64
     CTAs), each CTA 32 units of 8 k-slices of 16 (256 threads) with its
@@ -283,8 +284,9 @@ def test_gru_launch_config_at_the_serving_shape():
     [2][4][132] and the operand ring [4][256][4] f32 in shared memory."""
     bf16 = cuda_gru.launch_config(64, 200, 128, 128, torch.bfloat16)
     assert bf16 == {"design": "mma.sync", "grid": 8, "threads": 256, "rows_per_block": 8,
-                    "hidden_padded": 128, "wh_in_regs": 1, "smem_bytes": 2 * 128 * 8 * 2,
-                    "xproj_grid": [200, 6], "xproj_threads": 128}
+                    "hidden_padded": 128, "wh_in_regs": 1, "smem_bytes": 2 * 128 * 8 * 2}
+    xp = cuda_gru.xproj_config(64 * 200, 128, 3 * 128, sms=cuda_gru.NUM_SMS)
+    assert (xp["block"], xp["tiles"], xp["grid"], xp["route"]) == ([128, 64, 64], 600, 264, "tma")
     f32 = cuda_gru.launch_config(64, 200, 128, 128, torch.float32)
     assert f32 == {"design": "cluster", "cluster_size": 4, "rows_per_cluster": 4,
                    "clusters": 16, "grid": 64, "threads": 256, "units_per_cta": 32,
@@ -360,7 +362,8 @@ def test_gru_bf16_pads_the_hidden_width_to_whole_mma_tiles(H, hp, in_regs):
         assert (cfg["threads"], cfg["cluster_size"], cfg["grid"]) == (256, 4, 4)
         assert cfg["smem_bytes"] == 2 * 256 * 8 * 2 + 4 * 2 * 6 * 32 * 4 + 16 <= \
             cuda_gru.SMEM_LIMIT
-    assert cfg["xproj_grid"] == [1, -(-3 * H // 64)]
+    xp = cuda_gru.xproj_config(3 * 7, 8, 3 * H)  # the projection's own plan
+    assert "xproj_grid" not in cfg and xp["grid"] == xp["tiles"] == -(-3 * H // xp["block"][1])
 
 
 @pytest.mark.parametrize("B,grid", [(64, 8), (128, 16), (256, 32), (11, 2), (8, 1), (9, 2),

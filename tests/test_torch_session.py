@@ -426,8 +426,7 @@ def test_gru_launch_config_takes_the_rsc15_width():
     B=256, two waves on 132 SMs."""
     assert cuda_gru.launch_config(256, 50, 100, 100, torch.bfloat16) == {
         "design": "mma.sync", "grid": 32, "threads": 224, "rows_per_block": 8,
-        "hidden_padded": 112, "wh_in_regs": 1, "smem_bytes": 2 * 112 * 8 * 2,
-        "xproj_grid": [200, 5], "xproj_threads": 128}
+        "hidden_padded": 112, "wh_in_regs": 1, "smem_bytes": 2 * 112 * 8 * 2}
     f32 = cuda_gru.launch_config(256, 50, 100, 100, torch.float32)
     assert (f32["design"], f32["cluster_size"], f32["rows_per_cluster"], f32["grid"],
             f32["units_per_cta"], f32["threads"]) == ("cluster", 2, 4, 128, 50, 416)

@@ -3,8 +3,8 @@ what `gru.step_gemm_config` chooses (the C side's step_gemm_plan checks the
 same), and the K-split partial planes that the gate kernels sum in split
 order, through the plain version of the GEMM (`gru.plain_step_gemm`, what
 `gru.step_gemm` runs on a CPU tensor) and the gate math, against the JAX
-package's gates (`seqrec_tpu/ops/xla.py`) on the product taken in f32 at
-the highest precision. The kernel itself is held against torch.matmul and
+package's gates (`seqrec_tpu/ops/xla.py`) on the exact product rounded
+once to f32. The kernel itself is held against torch.matmul and
 its plain version on the card (tests/test_torch_kernels.py, `-k step_gemm`).
 
 Tolerances: the forward's product 1e-5 relative to its largest value (the
@@ -168,9 +168,15 @@ def _operands(B, G, H, reverse, seed):
     return torch.from_numpy(rng.normal(size=(B, H)).astype(np.float32)).bfloat16(), w, None
 
 
-def _jdot(a, b) -> np.ndarray:
-    return np.asarray(jnp.dot(jnp.asarray(a, jnp.float32), jnp.asarray(b, jnp.float32),
-                              precision=jax.lax.Precision.HIGHEST))
+def _exact_dot(a, b) -> np.ndarray:
+    """a @ b summed in f64 and rounded once to f32: the correctly rounded
+    product here (each f32 product is exact in f64, and 9,216 terms at most
+    lose nothing at f32's precision), so a comparison against it carries the
+    port's rounding alone. An f32 reference product (the CPU's BLAS, summed in its
+    own order) differs from the plain version's by up to ~1e-5 of the
+    largest value at K = 2,116, what the product check allows, and the gate
+    check's 1e-5 absolute then saw both products' rounding at once."""
+    return (np.asarray(a, np.float64) @ np.asarray(b, np.float64)).astype(np.float32)
 
 
 @pytest.mark.parametrize("B", [3, 16])
@@ -180,7 +186,7 @@ def test_forward_partials_summed_in_split_order_give_the_gates(cell, H, B):
     """Forward: the partial planes (split over K as the kernel splits it)
     summed in split order, then b_h (the GRU's; the gate kernel adds it),
     through the cell's gate math equal the JAX package's gates on x_proj
-    and h @ W_h + b_h taken in f32."""
+    and the exact h @ W_h rounded to f32, + b_h."""
     G = 3 if cell == "gru" else 4
     h, w, _ = _operands(B, G, H, False, seed=H + B + G)
     rng = np.random.default_rng(B)
@@ -190,9 +196,10 @@ def test_forward_partials_summed_in_split_order_give_the_gates(cell, H, B):
     assert parts.shape[0] == cuda_gru.step_gemm_config(B, H, G * H, 1)["splits"]
     hp = cuda_gru.step_product(parts, None if b_h is None else torch.from_numpy(b_h))
     h32 = h.float().numpy()
-    want = _jdot(h32, w.float().numpy()) + (0.0 if b_h is None else b_h)
+    want = _exact_dot(h32, w.float().numpy()) + (0.0 if b_h is None else b_h)
     scale = np.abs(want).max()
-    np.testing.assert_allclose(hp.numpy(), want, rtol=1e-5, atol=1e-5 * scale)
+    why = _product_errors(h32, w, b_h, hp.numpy(), want)
+    np.testing.assert_allclose(hp.numpy(), want, rtol=1e-5, atol=1e-5 * scale, err_msg=why)
     xp = torch.from_numpy(x_proj)
     if cell == "gru":
         got = (reference.gru_gates(xp, hp, h.float()),)
@@ -202,7 +209,23 @@ def test_forward_partials_summed_in_split_order_give_the_gates(cell, H, B):
         got = reference.lstm_gates(xp, hp, torch.from_numpy(c))
         ref = xla_ops.lstm_gates(jnp.asarray(x_proj), jnp.asarray(want), jnp.asarray(c))
     for a, b in zip(got, ref):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5, err_msg=why)
+
+
+def _product_errors(h32, w, b_h, port, exact) -> str:
+    """Which side of the gate check moved, should it fail: the largest
+    error, over the largest value, of the port's summed product and of
+    JAX's f32 product (jnp.dot, preferred_element_type=f32) against the
+    exact one, and the matmul precision settings of both frameworks."""
+    b = 0.0 if b_h is None else b_h
+    jax_dot = np.asarray(jnp.dot(jnp.asarray(h32), jnp.asarray(w.float().numpy()),
+                                 preferred_element_type=jnp.float32)) + b
+    scale = np.abs(exact).max()
+    return (f"product error / largest value: port {np.abs(port - exact).max() / scale:.3g}, "
+            f"jnp.dot {np.abs(jax_dot - exact).max() / scale:.3g}; torch float32 matmul "
+            f"precision {torch.get_float32_matmul_precision()!r}, torch threads "
+            f"{torch.get_num_threads()}, jax default matmul precision "
+            f"{jax.config.jax_default_matmul_precision!r}")
 
 
 @pytest.mark.parametrize("B", [3, 16])
@@ -210,8 +233,8 @@ def test_forward_partials_summed_in_split_order_give_the_gates(cell, H, B):
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_reverse_partials_summed_in_split_order_give_dh_prev(cell, H, B):
     """Reverse: the hi and lo terms' partial planes on W_h as stored, K split
-    into several planes, summed in split order, equal the JAX package's
-    d @ W_h^T in f32 on the f32 cotangent, within what two bf16 terms keep;
+    into several planes, summed in split order, equal the exact d @ W_h^T,
+    rounded to f32, on the f32 cotangent, within what two bf16 terms keep;
     and the GRU's carry z dh + that product."""
     G = 3 if cell == "gru" else 4
     a, w, d = _operands(B, G, H, True, seed=H + B + G + 1)
@@ -220,7 +243,7 @@ def test_reverse_partials_summed_in_split_order_give_dh_prev(cell, H, B):
     parts = cuda_gru.step_gemm(a, w, 2)
     assert tuple(parts.shape) == (cfg["splits"], B, H)
     p = cuda_gru.step_product(parts)
-    want = _jdot(d.numpy(), w.float().numpy().T)
+    want = _exact_dot(d.numpy(), w.float().numpy().T)
     scale = np.abs(want).max()
     np.testing.assert_allclose(p.numpy(), want, rtol=1e-4, atol=1e-4 * scale)
     if cell == "gru":
