@@ -318,8 +318,10 @@ source, all at once). Each phase prints one JSON line:
               sasrec_2xD256_B256_T200_S512 through bench_config) served and
               trained the same way in bf16 and f32;
   w. all_widths (run after v, before n) every width the JAX package takes:
-              the attention's Dh-sliced layout (Dh = 257 and 1,000, and
-              one SASRec head of d = 512 at B=256), the scans' padded route
+              the attention's Dh-cluster layout (Dh = 257 and 1,000, and
+              one SASRec head of d = 512 at B=256; its descriptor control,
+              which must fail) and Dh-sliced layout (Dh = 2,304 at B=8,
+              and one call of it counted as its path), the scans' padded route
               (D = 50, H = 50 at B=128, T=200 and 102) and stepped layout
               (each grid limit + 4 and 2,302, every variant; D = H = 2,304 at
               B=256, T=200) and the head's streamed layout (each limit + 1;
@@ -369,7 +371,8 @@ source, all at once). Each phase prints one JSON line:
               f32 (`lstm_scan_grid`, `lstm_backward_grid`, each also `_f32`;
               phase v), their launches counted on the wide LSTM's bf16 and
               f32 training paths, each also `at_ml1m_lstm_h512_reset`; phase
-              w's layouts in bf16 and f32 (`causal_attention_sliced`,
+              w's layouts in bf16 and f32 (`causal_attention_cluster`,
+              `causal_attention_sliced` (its launches on its one-call path),
               `gru_scan_padded`, `gru_backward_padded`, `lstm_scan_padded`,
               `lstm_backward_padded`, `gru_scan_stepped`,
               `gru_backward_stepped`, `lstm_scan_stepped`,
@@ -612,8 +615,28 @@ def phase_device() -> tuple:
     return smi, name
 
 
+# The bf16 Dh-cluster attention's descriptor control (kernel_probes_attention.cu,
+# never in the package): compiled beside the package's sources in phase_build,
+# loaded and run in phase w, where it must fail its check (loaded there, not
+# while another phase's torch.profiler may trace: a run that loaded it from
+# the build's thread found phase e's trace empty).
+_ATTN_CONTROL: dict = {}
+
+
+def _build_attention_control() -> None:
+    try:
+        import kernel_probes
+
+        _ATTN_CONTROL["path"] = kernel_probes.probe_build(kernel_probes.ATTENTION_CONTROL)[0]
+    except Exception as e:  # reported where phase w reads it
+        _ATTN_CONTROL["error"] = f"{type(e).__name__}: {e}"
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
+    control = threading.Thread(target=_build_attention_control, daemon=True)
+    control.start()
+    _ATTN_CONTROL["thread"] = control
     logs = _build.build()
     for name in _build.SOURCES:
         _build.load(name)
@@ -638,10 +661,11 @@ def _kernel_name(demangled: str) -> str:
 # that shares the head's main loop; the sliced attention, the stepped
 # layouts' gate kernels and the bf16 head's K split with its streamed
 # variant; the stepped layouts' step GEMM and the bf16 input projection,
-# both on wgmma).
+# both on wgmma; the attention's cluster layout).
 WATCH = ("head_f32_kernel", "scatter_partials_kernel", "scatter_combine_kernel",
          "xproj_f32_kernel", "attention_sliced", "gru_step", "lstm_step",
-         "head_mma_ksplit_kernel", "step_gemm_wgmma_kernel", "xproj_wgmma_kernel")
+         "head_mma_ksplit_kernel", "step_gemm_wgmma_kernel", "xproj_wgmma_kernel",
+         "attention_cluster")
 
 
 def _demangled(kernels: dict) -> dict:
@@ -972,16 +996,19 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
     grid's limit, and past it as the stepped layout; a layer whose D or H is
     not a multiple of 4 counts again as the padded route (its forward; its
     reverse where H is not); a bf16 stepped layer launches its step GEMM once
-    a step, T a forward and T a reverse; attention wider than 256 a head counts again as the sliced
-    layout; a sampled-softmax head wider than 256 counts again as the K
-    split, and past its resident rows' limit as the streamed layout."""
+    a step, T a forward and T a reverse; attention wider than 256 a head
+    counts again as the cluster layout, past 2,048 as the sliced layout; a
+    sampled-softmax head wider than 256 counts again as the K split, and
+    past its resident rows' limit as the streamed layout."""
     m = cfg.model
     dtype = getattr(torch, m.compute_dtype)
     want = dict.fromkeys(COUNTERS, 0)
     if m.arch == "sasrec":
         want["causal_attention"] = m.num_layers
-        want["causal_attention_sliced"] = m.num_layers * int(
-            m.embed_dim // m.num_heads > k_attn.MAX_HEAD_DIM)
+        dh = m.embed_dim // m.num_heads
+        want["causal_attention_cluster"] = m.num_layers * int(
+            k_attn.MAX_HEAD_DIM < dh <= k_attn.MAX_CLUSTER_HEAD_DIM)
+        want["causal_attention_sliced"] = m.num_layers * int(dh > k_attn.MAX_CLUSTER_HEAD_DIM)
     else:
         variant = "_reset" if training and cfg.data.session_parallel else ""
         want[f"{m.cell_type}_scan{variant}"] = m.num_layers
@@ -1943,9 +1970,10 @@ COUNTERS = {
     "softmax_head_ksplit": (k_head.sampled_softmax_nll, "ksplit_launches"),
     "lstm_scan_grid": (k_lstm.lstm_scan, "grid_launches"),
     "lstm_backward_grid": (k_lstm.lstm_backward, "grid_launches"),
-    # Every width (phase w): the attention's Dh-sliced layout, the scans'
+    # Every width (phase w): the attention's Dh-cluster and Dh-sliced layouts, the scans'
     # stepped layout past the grid's limit and padded route at H or D % 4,
     # the head's streamed layout past its resident rows' limit.
+    "causal_attention_cluster": (k_attn.causal_attention, "cluster_launches"),
     "causal_attention_sliced": (k_attn.causal_attention, "sliced_launches"),
     "gru_scan_stepped": (k_gru.gru_scan, "stepped_launches"),
     "gru_backward_stepped": (k_gru.gru_backward, "stepped_launches"),
@@ -5100,6 +5128,9 @@ def _wide_lstm_entries(wide: dict) -> list:
 # benchmarks/shapes.py:70-72's wide demo at embed_dim=2,304, the GRU cell and
 # the LSTM cell.
 W_SASREC_D = 512
+# Past the cluster layout's 2,048: the Dh-sliced attention's check and path
+# (one head of 2,304, w3's width, at a small batch).
+W_SLICED_D, W_SLICED_B = 2304, 8
 W_WIDE_D = 2304
 W_PAD_WIDTHS = (50, 102)  # the padded route's H at D = 50
 W_STEP_EDGE = 2302  # past every grid limit and not a multiple of 4
@@ -5245,11 +5276,65 @@ def _xproj_shape_checks(rng, dev) -> dict:
     return out
 
 
+def _sliced_attention_path(rng, dev) -> dict:
+    """The Dh-sliced layout's own path since the cluster layout took Dh up
+    to 2,048: one causal_attention call at W_SLICED_D (B = W_SLICED_B,
+    T = 200, one head, q, k and v slices of one projection) in each dtype,
+    the counters zeroed just before and read just after."""
+    proj = torch.from_numpy(rng.normal(size=(W_SLICED_B, TRAIN_T, 3, 1, W_SLICED_D))
+                            .astype(np.float32)).to(dev)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = proj.to(dtype).unbind(2)
+        zero_counters()
+        got = k_attn.causal_attention(q, k, v)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        check(bool(torch.isfinite(got).all()), "phase w: sliced path: non-finite output")
+        check(launches["causal_attention_sliced"] == 1 and launches["causal_attention"] == 1
+              and launches["causal_attention_cluster"] == 0,
+              f"phase w: sliced path launches {launches}")
+        out[_dname(dtype)] = {"launches": launches}
+    return out
+
+
+def _attention_control_check(rng, dev) -> dict:
+    """The bf16 Dh-cluster attention with every wgmma descriptor's byte
+    offsets exchanged (kernel_probes_attention.cu, built in phase_build) at
+    w1's step: it must miss the plain version by more than the limit the
+    package's kernel meets on the same inputs."""
+    import kernel_probes
+
+    _ATTN_CONTROL["thread"].join()
+    check("error" not in _ATTN_CONTROL,
+          f"phase w: descriptor control: {_ATTN_CONTROL.get('error')}")
+    proj = torch.from_numpy(rng.normal(size=(WIDE_B, TRAIN_T, 3, 1, W_SASREC_D))
+                            .astype(np.float32)).to(dev, torch.bfloat16)
+    q, k, v = proj.unbind(2)
+    cfg = k_attn.launch_config(WIDE_B, TRAIN_T, 1, W_SASREC_D, torch.bfloat16,
+                               k_attn.operand_align(q, k, v))
+    want = k_attn.plain(q, k, v)
+    kernel_err = max_err(k_attn.causal_attention(q, k, v), want)
+    lib = kernel_probes.attention_control_lib(_ATTN_CONTROL["path"])
+    got = kernel_probes.attention_control(lib, q, k, v)
+    torch.cuda.synchronize()
+    control_err = max_err(got, want)
+    control_err = float("inf") if control_err != control_err else control_err
+    check(kernel_err <= ATTN_BF16_TOL, f"phase w: attention at w1 {kernel_err}")
+    check(control_err > ATTN_BF16_TOL,
+          f"phase w: the swapped-offset control passed ({control_err} <= {ATTN_BF16_TOL})")
+    return {"route": cfg["route"], "kernel_max_abs_err": kernel_err,
+            "control_max_abs_err": control_err, "tolerance": ATTN_BF16_TOL,
+            "control_fails": True}
+
+
 def _all_widths_kernel_checks(rng, dev) -> dict:
     """Each new layout against its plain version, both dtypes, every
     variant, each output launched twice with the same bits (phase c, e, g
-    and j's checks, their libraries beside them): the Dh-sliced attention at
-    Dh = 257 and 1,000 (B = 32) and at w1's step (B = 256, Dh = 512); the
+    and j's checks, their libraries beside them): the Dh-cluster attention
+    at Dh = 257 and 1,000 (B = 32) and at w1's step (B = 256, Dh = 512),
+    beside its descriptor control at w1's step, which must fail; the
+    Dh-sliced attention at Dh = 2,304 (B = 8), and its one-call path; the
     padded scans at D = 50 and H = 50 (w2's step: B = 128, T = 200) and 102
     (B = 64, T = 50), forward and reverse, with and without a reset plane;
     the stepped scans at each grid limit + 4 and at 2,302 (B = 16, T = 20,
@@ -5268,9 +5353,14 @@ def _all_widths_kernel_checks(rng, dev) -> dict:
     out = {"seconds": seconds,
            "attention": {f"Dh{Dh}": _attention_checks(rng, dev, Dh=Dh, sliced=True, Bq=Bq,
                                                        twice=True, reps=W_REPS)
-                         for Dh, Bq in ((257, 32), (1000, 32), (W_SASREC_D, WIDE_B))}}
-    for r in _records(out["attention"]):
-        check(r["launch"]["layout"] == "dh-sliced", f"phase w: not sliced: {r['launch']}")
+                         for Dh, Bq in ((257, 32), (1000, 32), (W_SASREC_D, WIDE_B),
+                                        (W_SLICED_D, W_SLICED_B))}}
+    for key, recs in out["attention"].items():
+        want = "dh-sliced" if key == f"Dh{W_SLICED_D}" else "dh-cluster"
+        for r in _records(recs):
+            check(r["launch"]["layout"] == want, f"phase w: {key} not {want}: {r['launch']}")
+    out["attention_sliced_path"] = _sliced_attention_path(rng, dev)
+    out["attention_control"] = _attention_control_check(rng, dev)
     lap("attention")
 
     padded = {}
@@ -5457,7 +5547,9 @@ def phase_all_widths(rng: np.random.Generator, dev, seed: int, card: str) -> dic
 
 def _all_widths_entries(w: dict) -> list:
     """The kernels line's entries of phase w's layouts, bf16 and f32: the
-    Dh-sliced attention (at w1's step, its launches on w1's training path),
+    Dh-cluster attention (at w1's step, its launches on w1's training path),
+    the Dh-sliced attention (at Dh = 2,304, its launches on its own one-call
+    path),
     the padded route's scans (at w2's step, on w2's GRU4Rec path), the
     stepped scans (at w3's step, on w3's paths) and the streamed head (at
     w3's step, on w3's GRU4Rec path); each with its launches on every path
@@ -5465,8 +5557,22 @@ def _all_widths_entries(w: dict) -> list:
     k, train, serve = w["kernels"], w["train"], w["serve"]
     pad, w3 = k["padded"][f"H{D50}"], k["stepped"]["w3"]
     out = []
+    sliced_path = k["attention_sliced_path"]
+    for dtype, suffix in (("bfloat16", ""), ("float32", "_f32")):
+        rec = k["attention"][f"Dh{W_SLICED_D}"][dtype]
+        out.append(_kernel_entry(
+            "causal_attention_sliced" + suffix, "seqrec_tpu_torch/csrc/attention.cu",
+            "seqrec_tpu/ops/pallas/attention.py:98",
+            sliced_path[dtype]["launches"]["causal_attention_sliced"], rec, dtype=dtype,
+            layout=rec["launch"]["layout"], shape=rec["shape"],
+            launches_counted_on=f"phase w: one causal_attention call at Dh={W_SLICED_D}, "
+                                f"B={W_SLICED_B}, T={TRAIN_T} (no shipped path is this wide)",
+            launches_by_path={**{f"train_{q}": t["launches"]["causal_attention_sliced"]
+                                 for q, t in train.items()},
+                              **{f"serve_{q}": v["launches"]["causal_attention_sliced"]
+                                 for q, v in serve.items()}}))
     for kname, counter, source, replaces, recs, path in (
-            ("causal_attention_sliced", "causal_attention_sliced", "attention.cu",
+            ("causal_attention_cluster", "causal_attention_cluster", "attention.cu",
              "attention.py:98", k["attention"][f"Dh{W_SASREC_D}"], "sasrec_d512"),
             ("gru_scan_padded", "gru_scan_padded", "gru.cu", "gru.py:177", pad["gru_scan"],
              "gru4rec_d50"),

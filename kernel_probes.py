@@ -8,6 +8,7 @@
     python3 kernel_probes.py gru_wide [--out FILE]
     python3 kernel_probes.py step_gemm [--out FILE]
     python3 kernel_probes.py xproj_bf16 [--shapes rsc15_gru,d52_gru] [--out FILE]
+    python3 kernel_probes.py attention [--out FILE]
 
 `clusters` sweeps the f32 cluster recurrences over their cluster size C and
 rows a cluster R (each launch checked against its plain version first):
@@ -89,6 +90,17 @@ step GEMM's kernel as the design without a producer warpgroup, each
 checked against torch.addmm(...,
 out_dtype=torch.float32) first, beside the wrapper, that addmm and
 descriptor controls that must fail (probe_xproj_bf16).
+
+`attention` prints the clusters of the Dh-cluster attention (csrc/attention.cu)
+the card holds at once at 2, 4 and 8 slices, bf16 and f32, and times it on
+its persistent clusters in bands of its own size, of one (b, n) pair and of
+every pair, and on one cluster an item and on twice the clusters the card
+holds (w1's step at B = 256 and 64, Dh = 1,000 at B = 32; each checked
+against the plain version first), beside the wrapper and SDPA, with the
+cycles of each phase of one call in CTA 0 (the probe build's clocks); and
+builds
+kernel_probes_attention.cu, whose descriptor control (every wgmma
+descriptor's byte offsets exchanged) must fail the check at w1's step.
 
 Each prints one JSON object as its last line, beside the card's name and
 power limit, and exits non-zero without CUDA.
@@ -293,21 +305,66 @@ def probe_gru_wide() -> dict:
     return out
 
 
-def _probe_lib():
-    """Build kernel_probes.cu into seqrec_tpu_torch/build/; (library, ptxas
-    log)."""
-    import ctypes
-
+def probe_build(source: str = "kernel_probes.cu"):
+    """Build `source` (a file beside this script) into
+    seqrec_tpu_torch/build/ without loading it; (library path, ptxas log)."""
     from seqrec_tpu_torch.ops import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = _build.BUILD_DIR / "libkernel_probes.so"
+    lib_path = _build.BUILD_DIR / f"lib{Path(source).stem}.so"
     r = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(HERE), "-o",
-                        str(lib_path), str(HERE / "kernel_probes.cu")],
+                        str(lib_path), str(HERE / source)],
                        capture_output=True, text=True)
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc kernel_probes.cu failed:\n{r.stdout}{r.stderr}")
-    return ctypes.CDLL(str(lib_path)), r.stdout + r.stderr
+        raise RuntimeError(f"nvcc {source} failed:\n{r.stdout}{r.stderr}")
+    return lib_path, r.stdout + r.stderr
+
+
+def _probe_lib(source: str = "kernel_probes.cu"):
+    """`source` built and loaded; (library, ptxas log)."""
+    import ctypes
+
+    lib_path, log = probe_build(source)
+    return ctypes.CDLL(str(lib_path)), log
+
+
+ATTENTION_CONTROL = "kernel_probes_attention.cu"
+
+
+def attention_control_lib(built=None):
+    """kernel_probes_attention.cu loaded (from `built`, a probe_build path,
+    else built now), its entry point bound: the bf16 Dh-cluster attention
+    with its descriptors' byte offsets exchanged (`attn_cluster_control`,
+    seqrec_attention_forward's arguments from q to scale, its band and
+    clusters, then the stream)."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(built or probe_build(ATTENTION_CONTROL)[0]))
+    lib.attn_cluster_control.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.attn_cluster_control.restype = ctypes.c_int
+    return lib
+
+
+def attention_control(lib, q, k, v):
+    """The control's output on q, k, v [B, T, N, Dh] bf16 (read in place,
+    every stride a 16-byte multiple), launched on the current stream with
+    the package's band and clusters."""
+    import torch
+
+    from seqrec_tpu_torch.ops.cuda import attention as k_attn
+
+    B, T, N, Dh = q.shape
+    cfg = k_attn.launch_config(B, T, N, Dh, q.dtype, k_attn.operand_align(q, k, v),
+                               k_attn.clusters_at_once(q.device, Dh, q.dtype))
+    out = torch.empty((B, T, N, Dh), dtype=q.dtype, device=q.device)
+    rc = lib.attn_cluster_control(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N,
+                                  T, Dh, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                                  v.stride(0), v.stride(1), Dh ** -0.5, cfg["band"],
+                                  cfg["clusters"], torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"attn_cluster_control: CUDA error {rc}")
+    return out
 
 
 def probe_xproj() -> dict:
@@ -810,6 +867,112 @@ def probe_xproj_bf16(shapes=("w3_gru", "wide_gru", "narrow_gru_B64", "rsc15_gru"
     return out
 
 
+def probe_attention() -> dict:
+    """The Dh-cluster attention (csrc/attention.cu): the clusters the card
+    holds at once (cudaOccupancyMaxActiveClusters) at 2, 4 and 8 slices in
+    both dtypes; at w1's step (B = 256 and 64, T = 200, one head of Dh =
+    512, q, k and v slices of one [B, T, 3, 1, Dh] projection) and at Dh =
+    1,000, B = 32, each dtype on the package's persistent clusters (as many
+    as the card holds) in bands of the package's `band` (b, n) pairs, of one
+    pair and of every pair, and with the package's band on one cluster an
+    item and on twice the clusters the card holds, each checked against
+    the plain version first
+    (chip_smoke's attention limits); beside the wrapper and SDPA; and the
+    descriptor control at w1's step in bf16, which must fail the check."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from seqrec_tpu_torch.ops.cuda import attention as k_attn
+
+    dev = torch.device("cuda", 0)
+    out = {"max_active_clusters": {
+        f"slices{-(-Dh // 256)}_{cs._dname(dt)}": k_attn.max_active_clusters(Dh, dt)
+        for Dh in (512, 1000, 2048) for dt in (torch.bfloat16, torch.float32)},
+        "shapes": {}}
+    lib = k_attn._lib()
+    rng = np.random.default_rng(0)
+    for label, B, Dh in (("w1_B256", 256, 512), ("w1_B64", 64, 512), ("Dh1000_B32", 32, 1000)):
+        proj = torch.from_numpy(rng.normal(size=(B, 200, 3, 1, Dh)).astype(np.float32)).to(dev)
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = proj.to(dt).unbind(2)
+            want = k_attn.plain(q, k, v)
+            tol = cs.ATTN_F32_TOL if dt == torch.float32 else cs.ATTN_BF16_TOL
+            at_once = k_attn.clusters_at_once(dev, Dh, dt)
+            cfg = k_attn.launch_config(B, 200, 1, Dh, dt, k_attn.operand_align(q, k, v), at_once)
+            rec = {"launch": cfg, "variants": {},
+                   "wrapper_ms": cs.time_ms(lambda: k_attn.causal_attention(q, k, v))["median"]}
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            rec["sdpa_ms"] = cs.time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))["median"]
+            o = torch.empty_like(q)
+
+            def run(band, clusters):
+                def call():
+                    rc = lib.seqrec_attention_forward(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, 1, 200, Dh,
+                        0 if dt == torch.float32 else 1, q.stride(0), q.stride(1), k.stride(0),
+                        k.stride(1), v.stride(0), v.stride(1), Dh ** -0.5, cfg["smem_bytes"],
+                        cfg["unit_bytes"], 2, band, clusters,
+                        torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError(f"attention band {band}, {clusters} clusters: "
+                                           f"CUDA error {rc}")
+                return call
+
+            items = cfg["items"]
+            band, G = cfg["band"], cfg["clusters"]
+            for name, bd, clusters in ((f"band{band}_persistent_{G}", band, G),
+                                       (f"band1_persistent_{G}", 1, G),
+                                       (f"band{B}_persistent_{G}", B, G),
+                                       (f"band{band}_a_cluster_an_item", band, items),
+                                       (f"band{band}_twice_the_clusters_held", band,
+                                        min(items, 2 * at_once))):
+                call = run(bd, clusters)
+                o.fill_(float("nan"))
+                call()
+                torch.cuda.synchronize()
+                err = cs.max_err(o, want)
+                ok = err <= tol
+                rec["variants"][name] = {"max_abs_err": err, "ok": ok,
+                                         "ms": cs.time_ms(call)["median"] if ok else None}
+            if label == "w1_B256":  # the phases of one call, the probe build's clocks
+                ctl = attention_control_lib()
+                ctl.seqrec_attention_forward.argtypes = lib.seqrec_attention_forward.argtypes
+                clocks = (ctypes.c_ulonglong * 16)()
+                ctl.attn_phase_clocks(clocks)
+                rc = ctl.seqrec_attention_forward(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, 1, 200, Dh,
+                    0 if dt == torch.float32 else 1, q.stride(0), q.stride(1), k.stride(0),
+                    k.stride(1), v.stride(0), v.stride(1), Dh ** -0.5, cfg["smem_bytes"],
+                    cfg["unit_bytes"], 2, cfg["band"], cfg["clusters"],
+                    torch.cuda.current_stream().cuda_stream)
+                torch.cuda.synchronize()
+                ctl.attn_phase_clocks(clocks)
+                n_tiles, G = -(-200 // cfg["query_tile"]), cfg["clusters"]
+                steps, j = 0, 0
+                while True:
+                    w = j * G + (G - 1 if j % 2 else 0)
+                    if w >= items:
+                        break
+                    per = cfg["band"] * n_tiles
+                    wb = min(cfg["band"], B - w // per * cfg["band"])
+                    steps += n_tiles - (w % per) // wb
+                    j += 1
+                rec["phase_cycles_cta0"] = {"rc": rc, "steps": steps, "cycles": list(clocks)}
+            if dt == torch.bfloat16 and label == "w1_B256":
+                ctl = attention_control_lib()
+                got = attention_control(ctl, q, k, v)
+                torch.cuda.synchronize()
+                err = cs.max_err(got, want)
+                rec["control_swapped_offsets"] = {"max_abs_err": err, "fails": not err <= tol}
+            out["shapes"][f"{label}_{cs._dname(dt)}"] = rec
+            print(json.dumps({f"{label}_{cs._dname(dt)}": rec}), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="probe", required=True)
@@ -820,7 +983,8 @@ def main(argv=None) -> int:
                        ("gather", "the gather's loads in flight, grid and the replaced design"),
                        ("gru_wide", "the bf16 GRU cluster layouts"),
                        ("step_gemm", "the stepped layouts' bf16 step GEMM's variants"),
-                       ("xproj_bf16", "the bf16 input projection's variants")):
+                       ("xproj_bf16", "the bf16 input projection's variants"),
+                       ("attention", "the Dh-cluster attention's bands, clusters and control")):
         parser = sub.add_parser(name, help=text)
         parser.add_argument("--out", help="also write the result (indented JSON) to this file")
         if name == "xproj_bf16":
@@ -837,7 +1001,7 @@ def main(argv=None) -> int:
     result = {"clusters": probe_clusters, "xproj": probe_xproj, "head": probe_head,
               "scatter": probe_scatter, "gather": probe_gather,
               "gru_wide": probe_gru_wide, "step_gemm": probe_step_gemm,
-              "xproj_bf16": probe_xproj_bf16}[args.probe]
+              "xproj_bf16": probe_xproj_bf16, "attention": probe_attention}[args.probe]
     shapes = getattr(args, "shapes", None)
     result = result(tuple(shapes.split(","))) if shapes else result()
     if args.out:

@@ -18,7 +18,9 @@ card, on the same inputs, and the serving encode timed on the device alone.
 A turn times, by CUDA events (chip_smoke.time_ms, median of 21 runs):
 
   - kernels at the main paths' shapes: causal attention bf16 and f32 at
-    [128, 200, 1, 64] and [64, 200, 1, 64], beside
+    [128, 200, 1, 64] and [64, 200, 1, 64], and past Dh = 256 on q, k and v
+    slices of one projection at w1's step ([256, 200, 1, 512] and
+    [64, 200, 1, 512]) and at Dh = 1,000 and 257 (B = 32), beside
     F.scaled_dot_product_attention on the same inputs; the f32 GRU forward
     at B=64 and B=128, T=200, D=H=128, beside torch.nn.GRU in f32 (cuDNN,
     TF32 off); the f32 GRU reverse recurrence at B=128, T=200, D=H=128 and
@@ -465,6 +467,23 @@ def _worker(label: str, only: str = "") -> dict:
             "digest": _digest([k_attn.causal_attention(q, k, v)]),
             "sdpa_ms": med(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True))}
+    # Past Dh = 256 (the Dh-cluster layout; the Dh-sliced one before it), on
+    # inputs of their own: q, k and v slices of one [B, 200, 3, 1, Dh]
+    # projection, as the SASRec block reads them.
+    wide_rng = np.random.default_rng(25)
+    for row, Bq, Dh in (("w1_B256", 256, 512), ("w1_B64", 64, 512),
+                        ("Dh1000_B32", 32, 1000), ("Dh257_B32", 32, 257)):
+        proj = torch.from_numpy(wide_rng.normal(size=(Bq, 200, 3, 1, Dh))
+                                .astype(np.float32)).to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = proj.to(dtype).unbind(2)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            kern[f"attention_{dname(dtype)}_{row}"] = {
+                "ms": med(lambda: k_attn.causal_attention(q, k, v)),
+                "digest": _digest([k_attn.causal_attention(q, k, v)]),
+                "sdpa_ms": med(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True))}
+        del proj, q, k, v, qt, kt, vt
 
     def gru_inputs(Bg, T, D):
         w_x, w_h, b_x, b_h = (w.to(dev) for w in cs.gru_weights(rng, D, D))

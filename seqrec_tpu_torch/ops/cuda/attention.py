@@ -10,14 +10,23 @@ tile in device memory. Any Dh: q, k and v are staged in the widest
 unit of 16, 8, 4 or (bf16) 2 bytes that divides a head's row, their bases
 and their strides (SASRec at d = 50 reads 100-byte bf16 rows, 300 bytes
 apart, in 4-byte pieces), zero-padded in shared memory, never copied.
-Above Dh = 256 (one SASRec head of d = 512, the JAX package's wide SASRec
-at `embed_dim=512`), both dtypes take the Dh-sliced layout (`layout`
-"dh-sliced", counted again in `.sliced_launches`): a third grid axis over
-the output's columns in slices of SLICE_COLS; each CTA computes the whole
-of S = Q K^T in chunks of SLICE_CHUNK columns of Q and K staged through
-shared memory, keeps the online softmax's m and l, and accumulates O for
-its own slice of V's columns. Every slice computes S in the same order, so
-every slice gets the same m and l bits; S is recomputed once a slice.
+From Dh = 257 to 2,048 (one SASRec head of d = 512, the JAX package's
+wide SASRec at `embed_dim=512`) both dtypes take the Dh-cluster layout
+(`layout` "dh-cluster", counted again in `.cluster_launches`): one thread
+block cluster of ceil(Dh / SLICE_COLS) CTAs a query tile, CTA z owning
+columns [256 z, 256 z + 256) of Q, K, V and O; each CTA keeps its Q slice
+resident, streams its K and V slices, computes its partial S over its own
+columns and publishes it; every CTA sums all the cluster's partials, read
+through distributed shared memory, in rank order, so all hold the same S,
+m, l and P bits, and each accumulates O for its own slice. S is computed
+once. Past 2,048 (more CTAs than a portable cluster holds) the Dh-sliced
+layout (`layout` "dh-sliced", counted again in `.sliced_launches`): a third
+grid axis over the output's columns in slices of SLICE_COLS; each CTA
+computes the whole of S = Q K^T in chunks of SLICE_CHUNK columns of Q and K
+staged through shared memory, keeps the online softmax's m and l, and
+accumulates O for its own slice of V's columns. Every slice computes S in
+the same order, so every slice gets the same m and l bits; there S is
+recomputed once a slice.
 
 Backward, as `_attn_core_bwd`: a recompute of the
 materialized [T, T] attention in plain tensor code
@@ -42,6 +51,10 @@ in its own numerics; neither gives way to the other):
   O a float4 group) and a per-warp key-major P tile. What bounds it: its
   operations (f32 FMAs fed from shared memory).
 
+The cluster layout has a kernel of each dtype too: bf16 (`design` "wgmma")
+one warpgroup on wgmma, Q, K and V by TMA; f32 (`design` "flash-fma") 16
+warps of FMAs on TMA-fed tiles (launch_config).
+
 The JAX package gates its Pallas kernel off by default (`supported`, a TPU
 measurement); the port has no gates, so a CUDA tensor always takes a kernel.
 
@@ -56,6 +69,7 @@ differ by bf16 rounding of the scores.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -70,10 +84,22 @@ SMEM_LIMIT = 232_448  # shared memory one block may opt in to on sm_90 (227 KB)
 TILE = 64  # kTile in csrc/attention.cu: the bf16 kernel's query rows a block, keys a tile
 F32_TILE = 32  # kF32Rows: the f32 kernel's query rows a block, keys a tile
 F32_LANE_ROWS = 4  # kLR: the f32 kernel's query rows a lane (4 warps a block)
-MAX_HEAD_DIM = 256  # kMaxDh: the widest Dh of the designs above; past it the sliced layout
-SLICE_COLS = 256  # kSliceCols: the output columns a CTA of the sliced layout
-SLICE_CHUNK = 64  # kSlChunk: the columns of Q and K a stage of its ring
+MAX_HEAD_DIM = 256  # kMaxDh: the widest Dh of the designs above; past it the cluster layout
+SLICE_COLS = 256  # kSliceCols: the columns a CTA of the cluster and sliced layouts owns
+SLICE_CHUNK = 64  # kSlChunk: the columns of Q and K a stage of the sliced layout's ring
+CLUSTER_MAX_SLICES = 8  # kClusterMaxSlices: the portable cluster size
+CLUSTER_BAND_BYTES = 24 << 20  # K and V of a band of (b, n) pairs: about half of the 50 MB L2
+MAX_CLUSTER_HEAD_DIM = CLUSTER_MAX_SLICES * SLICE_COLS  # kClusterMaxDh; past it the sliced layout
+# The cluster layout's shared memory (kClSmem, kClF32Floats): two items' Q
+# and the [2][K, V] ring in 32 KB tiles (bf16 64 rows, f32 32 rows of 256
+# columns) and 1,024 bytes to align; bf16 two 16 KB slots; f32 four
+# [32][36] quarter partials, two [32][32] slots, P [32][36] and two rows of
+# 32.
+CLUSTER_SMEM = {torch.bfloat16: 6 * 32_768 + 2 * 16_384 + 1_024,
+                torch.float32: 6 * 32_768 + (4 * 32 * 36 + 2 * 32 * 32 + 32 * 36 + 64) * 4
+                + 1_024}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_LAYOUT_CODE = {None: 0, "dh-sliced": 1, "dh-cluster": 2}  # layout_of in csrc/attention.cu
 
 
 def _lib() -> ctypes.CDLL:
@@ -81,8 +107,10 @@ def _lib() -> ctypes.CDLL:
     fn = lib.seqrec_attention_forward
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_void_p]
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.seqrec_attention_max_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.seqrec_attention_max_active_clusters.restype = ctypes.c_int
     lib.seqrec_attention_error_string.argtypes = [ctypes.c_int]
     lib.seqrec_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -94,8 +122,36 @@ def head_dim_padded(Dh: int) -> int:
     return next(d for d in (16, 32, 64, 128, 256) if d >= Dh)
 
 
+def cluster_band(BN: int, n_tiles: int, clusters: int, pair_bytes: int) -> int:
+    """The (b, n) pairs a band of the cluster layout's items: of every pair
+    and of `clusters` // k pairs (k = 1, 2, ...), the band whose deal
+    (cluster_item in csrc/attention.cu) gives the fewest key tiles to the
+    busiest cluster, a band whose K and V (`pair_bytes` a pair) exceed
+    CLUSTER_BAND_BYTES counted 5% dearer (it reads them from DRAM again);
+    the smaller on a tie."""
+    return _cluster_band(BN, n_tiles, clusters, max(1, CLUSTER_BAND_BYTES // pair_bytes))
+
+
+@functools.lru_cache(maxsize=512)
+def _cluster_band(BN: int, n_tiles: int, clusters: int, fits: int) -> int:
+    items = BN * n_tiles
+
+    def busiest(band: int) -> int:
+        per = band * n_tiles
+        tiles = [0] * clusters
+        for w in range(items):
+            j, p = divmod(w, clusters)
+            c = clusters - 1 - p if j % 2 else p
+            bi, r = divmod(w, per)
+            tiles[c] += n_tiles - r // min(band, BN - bi * band)
+        return max(tiles)
+
+    bands = sorted({BN} | {min(BN, max(1, clusters // k)) for k in range(1, clusters + 1)})
+    return min(bands, key=lambda b: (busiest(b) * (1.0 if b <= fits else 1.05), b))
+
+
 def launch_config(B: int, T: int, N: int, Dh: int, dtype: torch.dtype,
-                  align: int = 16) -> Dict:
+                  align: int = 16, clusters_at_once: int = 0) -> Dict:
     """Design, grid, block, staging unit and shared memory of one launch;
     ValueError only for an empty shape, another dtype or operands off their
     element size.
@@ -113,9 +169,26 @@ def launch_config(B: int, T: int, N: int, Dh: int, dtype: torch.dtype,
     [32][12] f32 P tile (at Dh = 64: 49 KB, four blocks an SM; at 256:
     168 KB).
 
-    Above MAX_HEAD_DIM (`layout` "dh-sliced"): the grid gains a third axis,
-    `slices` = ceil(Dh / SLICE_COLS); the designs' query tiles, warps and
-    threads as above, each CTA over SLICE_COLS output columns. Shared
+    From MAX_HEAD_DIM + 1 to MAX_CLUSTER_HEAD_DIM (`layout` "dh-cluster"):
+    clusters of `cluster` = `slices` = ceil(Dh / SLICE_COLS) CTAs, one CTA
+    a 256-column slice; `items` = query tiles x B N (query tile, b n)
+    pairs in bands of `band` (b n) pairs, each band from its longest query
+    tiles down, dealt to `clusters` persistent clusters in rounds forward
+    and backward (the least of the items and `clusters_at_once`, the
+    clusters the card holds at once, or one an item where it is 0), a
+    one-dimensional grid of slices x clusters CTAs; `band` is
+    cluster_band's (with one cluster an item, the most pairs whose K and V
+    fit CLUSTER_BAND_BYTES).
+    bf16 (`design` "wgmma"): 64-row query and key tiles, one warpgroup (128
+    threads), `route` "tma" where the unit is 16 bytes, else "cp.async";
+    shared memory two items' Q slices and a two-stage ring of K's and V's
+    (32 KB tiles) and two 16 KB exchange slots, 225 KB. f32 (`design`
+    "flash-fma"): 32-row tiles, 16 warps (512 threads), `route` as bf16's,
+    224 KB. One CTA an SM either way.
+
+    Past MAX_CLUSTER_HEAD_DIM (`layout` "dh-sliced"): the grid gains a third
+    axis, `slices` = ceil(Dh / SLICE_COLS); the designs' query tiles, warps
+    and threads as above, each CTA over SLICE_COLS output columns. Shared
     memory: a two-stage ring of Q's and K's SLICE_CHUNK-column chunks and
     V's slice of a key tile (bf16: [2][2][64][72] and [64][264] bf16, 70 KB;
     f32: [2][2][32][68] and [32][260] f32 and the warps' P tiles, 73 KB)."""
@@ -128,6 +201,24 @@ def launch_config(B: int, T: int, N: int, Dh: int, dtype: torch.dtype,
     if unit < es or align < es:
         raise ValueError(f"attention: {dtype} operands must be {es}-byte aligned "
                          f"(align={align})")
+    if MAX_HEAD_DIM < Dh <= MAX_CLUSTER_HEAD_DIM:
+        slices = -(-Dh // SLICE_COLS)
+        tile = TILE if dtype == torch.bfloat16 else F32_TILE
+        items = -(-T // tile) * B * N
+        clusters = min(items, clusters_at_once) if clusters_at_once > 0 else items
+        # One cluster an item: the bands only order them; K and V of a band in L2.
+        pair_bytes = 2 * T * Dh * es
+        band = (cluster_band(B * N, -(-T // tile), clusters, pair_bytes) if clusters < items
+                else max(1, min(B * N, CLUSTER_BAND_BYTES // pair_bytes)))
+        cfg = {"design": "wgmma" if dtype == torch.bfloat16 else "flash-fma",
+               "layout": "dh-cluster", "cluster": slices, "slices": slices,
+               "slice_cols": SLICE_COLS, "items": items, "clusters": clusters,
+               "grid": [slices * clusters],
+               "threads": 128 if dtype == torch.bfloat16 else 512, "query_tile": tile,
+               "key_tile": tile, "band": band, "unit_bytes": unit,
+               "smem_bytes": CLUSTER_SMEM[dtype]}
+        cfg["route"] = "tma" if unit == 16 else "cp.async"
+        return cfg
     if Dh > MAX_HEAD_DIM:
         slices = -(-Dh // SLICE_COLS)
         if dtype == torch.bfloat16:
@@ -180,23 +271,28 @@ def _forward_kernel(q, k, v, scale: float) -> torch.Tensor:
             raise ValueError(f"attention: {name} {tuple(t.shape)} {t.dtype} on {t.device} "
                              f"does not match q {tuple(q.shape)} {q.dtype} on {q.device}")
     q, k, v = (_kernel_view(t) for t in (q, k, v))
-    cfg = launch_config(B, T, N, Dh, q.dtype, operand_align(q, k, v))
+    at_once = (clusters_at_once(q.device, Dh, q.dtype)
+               if MAX_HEAD_DIM < Dh <= MAX_CLUSTER_HEAD_DIM else 0)
+    cfg = launch_config(B, T, N, Dh, q.dtype, operand_align(q, k, v), at_once)
     out = torch.empty((B, T, N, Dh), dtype=q.dtype, device=q.device)
-    sliced = cfg.get("layout") == "dh-sliced"
+    layout = cfg.get("layout")
     lib = _lib()
     with torch.cuda.device(q.device):
         rc = lib.seqrec_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, N, T, Dh, _DTYPE_CODE[q.dtype],
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            float(scale), cfg["smem_bytes"], cfg["unit_bytes"], int(sliced),
+            float(scale), cfg["smem_bytes"], cfg["unit_bytes"], _LAYOUT_CODE[layout],
+            cfg.get("band", 0), cfg.get("clusters", 0),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
         msg = lib.seqrec_attention_error_string(rc).decode()
         raise RuntimeError(f"attention kernel launch failed: CUDA error {rc} ({msg})")
     causal_attention.launches += 1
-    if sliced:
+    if layout == "dh-cluster":
+        causal_attention.cluster_launches += 1
+    elif layout == "dh-sliced":
         causal_attention.sliced_launches += 1
     return out
 
@@ -239,4 +335,32 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 causal_attention.launches = 0
-causal_attention.sliced_launches = 0  # the Dh-sliced layout's launches above 256 (in .launches too)
+causal_attention.cluster_launches = 0  # the Dh-cluster layout's, 257..2,048 (in .launches too)
+causal_attention.sliced_launches = 0  # the Dh-sliced layout's, past 2,048 (in .launches too)
+
+
+def max_active_clusters(Dh: int, dtype: torch.dtype) -> int:
+    """The most clusters of the Dh-cluster layout at Dh that the current
+    card holds at once (cudaOccupancyMaxActiveClusters; bf16 on its TMA
+    route); RuntimeError outside 257..2,048, or where the card holds none."""
+    lib = _lib()
+    n = lib.seqrec_attention_max_active_clusters(_DTYPE_CODE[dtype], Dh)
+    if n < 0:
+        msg = lib.seqrec_attention_error_string(-n).decode()
+        raise RuntimeError(f"attention: max active clusters at Dh={Dh}: CUDA error {-n} ({msg})")
+    if n == 0:
+        raise RuntimeError(f"attention: the card holds no cluster of {-(-Dh // SLICE_COLS)} "
+                           f"CTAs of the Dh-cluster layout ({dtype})")
+    return n
+
+
+def clusters_at_once(device: torch.device, Dh: int, dtype: torch.dtype) -> int:
+    """max_active_clusters on `device`, asked once a device, dtype and
+    cluster size (the persistent clusters the cluster layout launches)."""
+    return _clusters_at_once(device.index, dtype, -(-Dh // SLICE_COLS) * SLICE_COLS)
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters_at_once(index: int, dtype: torch.dtype, Dh: int) -> int:
+    with torch.cuda.device(index):
+        return max_active_clusters(Dh, dtype)

@@ -389,22 +389,94 @@ def test_model_at_every_width_matches_jax(name, monkeypatch):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_attention_chooses_the_sliced_layout_only_past_256(dtype):
     """Dh = 256 keeps the designs' configuration (no `layout` key); 257,
-    512, 513 and 2,304 take the Dh-sliced layout, one 256-column slice more
-    every 256, the designs' threads and query tiles, shared memory within
-    SMEM_LIMIT; the unit divides the head's row (2 bytes at an odd bf16 Dh)."""
+    512, 513, 1,000 and 2,048 take the Dh-cluster layout (a cluster of one
+    CTA a 256-column slice: 8 at 2,048, the portable cluster size), 2,049
+    and 2,304 the Dh-sliced layout, one 256-column slice more every 256; the
+    cluster layout one CTA a slice, query tile and b n along one grid axis,
+    128 threads in bf16 (64-row tiles), 512 in f32 (32-row tiles), TMA
+    where the unit is 16 bytes; the sliced layout the designs' threads and query
+    tiles; shared memory within SMEM_LIMIT; the unit divides the head's row
+    (2 bytes at an odd bf16 Dh)."""
     es = dtype.itemsize
     assert "layout" not in cuda_attention.launch_config(4, 200, 1, 256, dtype)
-    for Dh, slices in ((257, 2), (512, 2), (513, 3), (1000, 4), (2304, 9)):
+    for Dh, slices in ((257, 2), (512, 2), (513, 3), (1000, 4), (2048, 8), (2049, 9),
+                       (2304, 9)):
         cfg = cuda_attention.launch_config(4, 200, 1, Dh, dtype)
-        assert cfg["layout"] == "dh-sliced" and cfg["slices"] == slices, Dh
+        unit = min(16, (Dh * es) & -(Dh * es))
+        assert cfg["slices"] == slices and cfg["unit_bytes"] == unit, Dh
         assert cfg["smem_bytes"] <= cuda_attention.SMEM_LIMIT
+        if Dh <= 2048:
+            assert cfg["layout"] == "dh-cluster" and cfg["cluster"] == slices, Dh
+            assert cfg["smem_bytes"] == cuda_attention.CLUSTER_SMEM[dtype]
+            assert cfg["route"] == ("tma" if unit == 16 else "cp.async")
+            if dtype == torch.bfloat16:
+                assert cfg["grid"] == [slices * 4 * 4] and cfg["threads"] == 128
+            else:
+                assert cfg["grid"] == [slices * 7 * 4] and cfg["threads"] == 512
+            continue
+        assert cfg["layout"] == "dh-sliced", Dh
         if dtype == torch.bfloat16:
             assert cfg["grid"] == [4, 4, slices] and cfg["threads"] == 128
             assert cfg["smem_bytes"] == (4 * 64 * 72 + 64 * 264) * 2
         else:
             assert cfg["grid"] == [7 * 4, slices] and cfg["threads"] == 128
             assert cfg["smem_bytes"] == (4 * 32 * 68 + 32 * 260 + 4 * 32 * 12) * 4
-        assert cfg["unit_bytes"] == min(16, (Dh * es) & -(Dh * es))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,T,N,Dh", [(256, 200, 1, 512), (64, 200, 1, 512), (32, 200, 1, 1000),
+                                      (3, 65, 2, 257), (1, 1, 1, 2048), (7, 130, 3, 700)])
+def test_attention_cluster_items_cover_every_query_tile_once(dtype, B, T, N, Dh):
+    """The cluster layout's items, read as its kernels read them
+    (cluster_place and cluster_item in csrc/attention.cu): (query tile,
+    b n) pairs in bands of `band` pairs, each band from its longest query
+    tiles down; one cluster an item without the card's number (the band the
+    most pairs whose K and V fit CLUSTER_BAND_BYTES), else `clusters`
+    persistent clusters (the least of the items and the clusters the card
+    holds at once: 66 of 2 CTAs, 30 of 4, 15 of 8 on an H100) take them in
+    rounds dealt forward and backward, so every item is taken once, in
+    cluster_band's bands, whose busiest cluster has no more than 5% more key
+    tiles than with one band of every pair; the edges of its shared memory:
+    the bf16 ring, two Q slices and the slots in 225 KB, f32's in 224 KB,
+    both within what one block may opt in to."""
+    cfg = cuda_attention.launch_config(B, T, N, Dh, dtype)
+    slices, BN = cfg["cluster"], B * N
+    n_tiles = -(-T // cfg["query_tile"])
+    items = n_tiles * BN
+    assert cfg["items"] == cfg["clusters"] == items and cfg["grid"] == [slices * items]
+    assert 1 <= cfg["band"] <= BN
+    assert cfg["band"] == 1 or (cfg["band"] * 2 * T * Dh * dtype.itemsize
+                                <= cuda_attention.CLUSTER_BAND_BYTES)
+    at_once = {2: 66, 3: 30, 4: 30, 8: 15}[slices]
+    held = cuda_attention.launch_config(B, T, N, Dh, dtype, clusters_at_once=at_once)
+    G = min(items, at_once)
+    assert held["clusters"] == G and held["grid"] == [slices * G] and 1 <= held["band"] <= BN
+
+    def place(w, band):
+        bi, r = divmod(w, band * n_tiles)
+        wb = min(band, BN - bi * band)
+        return n_tiles - 1 - r // wb, bi * band + r % wb, bi
+
+    for band in (cfg["band"], held["band"]):
+        placed = [place(w, band) for w in range(items)]
+        assert sorted(p[:2] for p in placed) == [(qi, g) for qi in range(n_tiles)
+                                                 for g in range(BN)]
+        for (qa, ga, ba), (qb, gb, bb) in zip(placed, placed[1:]):
+            assert (ba == bb and qa >= qb) or bb == ba + 1
+            assert ga // band == ba
+
+    def walks(band):
+        out = [[] for _ in range(G)]
+        for w in range(items):
+            j, p = divmod(w, G)
+            out[G - 1 - p if j % 2 else p].append(w)
+        return [sum(place(w, band)[0] + 1 for w in ws) for ws in out], out
+
+    tiles, taken = walks(held["band"])
+    assert sorted(w for ws in taken for w in ws) == list(range(items))
+    assert max(tiles) <= 1.05 * max(walks(BN)[0])
+    assert cuda_attention.CLUSTER_SMEM[torch.bfloat16] == 230_400
+    assert cuda_attention.CLUSTER_SMEM[torch.float32] == 229_120
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -66,7 +66,7 @@ CASES = [(source, name) for source in SOURCES for name in _entry_points(source)]
 
 
 def test_every_source_exports_what_the_cases_cover():
-    assert len(CASES) == 36
+    assert len(CASES) == 37
     assert {"seqrec_gru_xproj", "seqrec_lstm_xproj"} <= {name for _, name in CASES}
 
 

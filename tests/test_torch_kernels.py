@@ -952,11 +952,11 @@ def test_attention_autograd_with_the_kernel_matches_plain_autograd(cuda):
 
 
 def test_attention_kernel_raises_on_what_it_cannot_take(cuda):
-    q, k, v = _qkv(2, 8, 1, 264, torch.float32, cuda)  # refused before: the sliced layout
-    before = k_attn.causal_attention.sliced_launches
+    q, k, v = _qkv(2, 8, 1, 264, torch.float32, cuda)  # refused before: the cluster layout
+    before = k_attn.causal_attention.cluster_launches
     torch.testing.assert_close(k_attn.causal_attention(q, k, v), k_attn.plain(q, k, v),
                                rtol=2e-5, atol=2e-5)
-    assert k_attn.causal_attention.sliced_launches == before + 1
+    assert k_attn.causal_attention.cluster_launches == before + 1
     q, k, v = _qkv(2, 8, 1, 32, torch.float32, cuda)
     with pytest.raises(ValueError, match="does not match"):
         k_attn.causal_attention(q, k.bfloat16(), v)
@@ -2225,25 +2225,32 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Dh", [257, 512, 1000])
+@pytest.mark.parametrize("Dh", [257, 512, 1000, 2048, 2049])
 @pytest.mark.parametrize("B,T,N", [(2, 200, 1), (3, 65, 2), (1, 1, 1)])
 def test_attention_sliced_matches_plain_twice(cuda, dtype, Dh, B, T, N):
-    """Past Dh = 256 (a third grid axis of 256-column slices, S over the
-    whole Dh in chunks of 64 through shared memory): within the attention's
-    tolerances of the plain version, on q, k, v read in place as slices of
-    one [B, T, 3, N, Dh] projection, twice bit for bit, counted by
-    `sliced_launches`; the first B - 1 rows alone give the batch's bits."""
+    """Past Dh = 256: up to 2,048 the Dh-cluster layout (a cluster of
+    ceil(Dh / 256) CTAs a query tile, partial S exchanged through
+    distributed shared memory; 2,048 is 8 slices, the most), counted by
+    `cluster_launches`; past it (2,049) the Dh-sliced layout (a third grid
+    axis of 256-column slices, S over the whole Dh in chunks of 64), counted
+    by `sliced_launches`. Within the attention's tolerances of the plain
+    version (bf16 also within 2e-2 of f32 math on the same inputs), on q, k,
+    v read in place as slices of one [B, T, 3, N, Dh] projection, twice bit
+    for bit; the first B - 1 rows alone give the batch's bits."""
     rng = np.random.default_rng(Dh + T)
     proj = torch.from_numpy(rng.normal(size=(B, T, 3, N, Dh)).astype(np.float32)).to(cuda, dtype)
     q, k, v = proj.unbind(2)
     cfg = k_attn.launch_config(B, T, N, Dh, dtype, k_attn.operand_align(q, k, v))
-    assert cfg["layout"] == "dh-sliced" and cfg["slices"] == -(-Dh // 256)
-    before = [k_attn.causal_attention.launches, k_attn.causal_attention.sliced_launches]
+    layout, counter = ("dh-cluster", "cluster_launches") if Dh <= 2048 else ("dh-sliced",
+                                                                             "sliced_launches")
+    assert cfg["layout"] == layout and cfg["slices"] == -(-Dh // 256)
+    counters = ("launches", "cluster_launches", "sliced_launches")
+    before = [getattr(k_attn.causal_attention, c) for c in counters]
     got = k_attn.causal_attention(q, k, v)
     again = k_attn.causal_attention(q, k, v)
     torch.cuda.synchronize()
-    assert [k_attn.causal_attention.launches, k_attn.causal_attention.sliced_launches] == [
-        n + 2 for n in before]
+    assert [getattr(k_attn.causal_attention, c) - n for c, n in zip(counters, before)] == [
+        2, 2 * (counter == "cluster_launches"), 2 * (counter == "sliced_launches")]
     assert torch.equal(got, again)
     torch.testing.assert_close(got.float(), k_attn.plain(q, k, v).float(), rtol=ATTN_TOL[dtype],
                                atol=ATTN_TOL[dtype])
@@ -2252,6 +2259,34 @@ def test_attention_sliced_matches_plain_twice(cuda, dtype, Dh, B, T, N):
                                    rtol=2e-2, atol=2e-2)
     if B > 1:
         assert torch.equal(k_attn.causal_attention(q[:B - 1], k[:B - 1], v[:B - 1]), got[:B - 1])
+
+
+def test_attention_cluster_descriptor_control_fails(cuda):
+    """The bf16 Dh-cluster kernel with every wgmma descriptor's two byte
+    offsets exchanged (kernel_probes_attention.cu, built by
+    kernel_probes.py; never in the package) must miss the plain version at
+    w1's head width, where the package's kernel meets it: the descriptors
+    are checked by no compiler, so this shows the check would see a wrong
+    layout."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import kernel_probes
+
+    rng = np.random.default_rng(5)
+    proj = torch.from_numpy(rng.normal(size=(2, 200, 3, 1, 512)).astype(np.float32))
+    q, k, v = proj.to(cuda, torch.bfloat16).unbind(2)
+    cfg = k_attn.launch_config(2, 200, 1, 512, torch.bfloat16, k_attn.operand_align(q, k, v))
+    assert cfg["route"] == "tma"
+    want = k_attn.plain(q, k, v).float()
+    tol = ATTN_TOL[torch.bfloat16]
+    assert (k_attn.causal_attention(q, k, v).float() - want).abs().max().item() <= tol
+    lib = kernel_probes.attention_control_lib()
+    got = kernel_probes.attention_control(lib, q, k, v).float()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert not err <= tol, err  # NaN fails the check too
 
 
 PAD_SHAPES = [(50, 50), (50, 102), (13, 7), (50, 64)]  # the last pads D alone

@@ -188,12 +188,12 @@ def test_attention_bf16_pads_the_head_dim_to_mma_depth(Dh, kD):
 ])
 def test_attention_kernel_rejects_what_it_cannot_take(shape, dtype, match):
     """Other dtypes and empty shapes raise; head dims past 256 take the
-    Dh-sliced layout; a head row that is not a 16-byte multiple (Dh = 12 in
+    Dh-cluster layout; a head row that is not a 16-byte multiple (Dh = 12 in
     bf16, 6 in f32) launches in 8-byte pieces."""
-    if match == "Dh <= 256":  # past the designs' limit: the sliced layout takes it
+    if match == "Dh <= 256":  # past the designs' limit: the cluster layout takes it
         cfg = cuda_attention.launch_config(*shape, dtype)
-        assert cfg["layout"] == "dh-sliced" and cfg["slices"] == 2
-        assert cfg["grid"] == [1 * 2 * 1, 2] and cfg["unit_bytes"] == 16
+        assert cfg["layout"] == "dh-cluster" and cfg["slices"] == cfg["cluster"] == 2
+        assert cfg["grid"] == [2 * 1 * 2 * 1] and cfg["unit_bytes"] == 16
         return
     if match is None:
         cfg = cuda_attention.launch_config(*shape, dtype)

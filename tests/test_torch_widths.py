@@ -113,7 +113,7 @@ def test_attention_takes_every_head_dim(dtype):
     operands' alignment; bf16 pads Dh to mma's depth, f32 to its float4
     groups; shared memory fits a block. The SASRec block's q, k and v (one
     head, slices of a [B, T, 3, 1, Dh] projection: rows 3 Dh apart) give
-    the unit the kernel stages them in; past 256 the Dh-sliced layout."""
+    the unit the kernel stages them in; past 256 the Dh-cluster layout."""
     es = torch.empty((), dtype=dtype).element_size()
     for Dh in WIDTHS:
         cfg = cuda_attention.launch_config(128, 200, 1, Dh, dtype)
@@ -137,7 +137,7 @@ def test_attention_takes_every_head_dim(dtype):
     assert cuda_attention.launch_config(
         2, 5, 1, 50, dtype, cuda_attention.operand_align(*d50.unbind(2)))["unit_bytes"] == want
     past = cuda_attention.launch_config(2, 5, 1, 257, dtype)
-    assert past["layout"] == "dh-sliced" and past["slices"] == 2 and past["unit_bytes"] == es
+    assert past["layout"] == "dh-cluster" and past["slices"] == 2 and past["unit_bytes"] == es
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
