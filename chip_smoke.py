@@ -294,7 +294,9 @@ source, all at once). Each phase prints one JSON line:
               (benchmarks/shapes.py's gru4rec_D512_B256_T200_S512: B=256,
               T=200, D=H=512, the head at N=51,200, S=512; nn.GRU and h @
               neg.T beside them) and at rsc15's reset shape with GRU4Rec's
-              1,000 units (B=256, T=50); the wide demo, built by the port's
+              1,000 units (B=256, T=50), the f32 forward's step plan and
+              its input projection timed alone (`_grid_f32_split`); the wide
+              demo, built by the port's
               bench_config (100,000 items, 512 sampled negatives), served as
               phase d and trained, two K=8 groups in bf16 and in f32, as
               phase f; GRU4Rec-1000 (configs/rsc15_gru4rec.json with
@@ -308,7 +310,8 @@ source, all at once). Each phase prints one JSON line:
               autograd), at the wide LSTM's step (the JAX package's
               benchmarks/scan_ab.py wide_lstm_D512 in a whole model: B=256,
               T=200, D=H=512) and at ml1m_lstm's reset shape at that width
-              (B=128, T=200); the wide LSTM (benchmarks/shapes.py:70-72's
+              (B=128, T=200), the f32 forward's step plan and its input
+              projection timed alone; the wide LSTM (benchmarks/shapes.py:70-72's
               arguments through the port's bench_config, model.cell_type
               "lstm": 100,000 items, 512 sampled negatives) served as phase
               d and trained, two K=8 groups in bf16 and in f32, as phase f;
@@ -370,7 +373,9 @@ source, all at once). Each phase prints one JSON line:
               `at_rsc15_h1000_reset`; the LSTM's grid layouts in bf16 and
               f32 (`lstm_scan_grid`, `lstm_backward_grid`, each also `_f32`;
               phase v), their launches counted on the wide LSTM's bf16 and
-              f32 training paths, each also `at_ml1m_lstm_h512_reset`; phase
+              f32 training paths, each also `at_ml1m_lstm_h512_reset` (the
+              f32 forwards of both phases also their `grid_plan`,
+              `input_projection_ms` and `recurrence_ms`); phase
               w's layouts in bf16 and f32 (`causal_attention_cluster`,
               `causal_attention_sliced` (its launches on its one-call path),
               `gru_scan_padded`, `gru_backward_padded`, `lstm_scan_padded`,
@@ -4820,6 +4825,29 @@ def wide_config() -> RunConfig:
     return cfg
 
 
+def _grid_f32_split(rec: dict, project, gates: int, reps: int = REPS) -> None:
+    """An f32 grid forward's record (`_gru_forward_check`, `_lstm_checks`)
+    gains its step product's plan (`grid_plan`: gru.grid_f32_plan at its
+    launch's row group and K, checked to be what the launch holds) and its
+    input projection timed alone at its shape (`project`, the cell's input
+    projection, on values of that shape: `input_projection_ms`), and the
+    median difference, the recurrence (`recurrence_ms`), so that the
+    kernel's time splits in two."""
+    launch, shape = rec["launch"], rec["shape"]
+    check(launch["layout"] == "grid", f"f32 grid forward {shape}: not the grid layout {launch}")
+    plan = k_gru.grid_f32_plan(launch["rows_per_group"], launch["k_padded"], gates)
+    check({k: launch.get(k) for k in plan} == plan,
+          f"f32 grid forward {shape}: its launch {launch} is not the step plan {plan}")
+    B, T, D, H = shape["B"], shape["T"], shape["D"], shape["H"]
+    g = torch.Generator(device="cuda").manual_seed(B + T + D + H)
+    x = torch.randn(B, T, D, device="cuda", generator=g)
+    w = torch.randn(D, gates * H, device="cuda", generator=g) * D ** -0.5
+    b = torch.zeros(gates * H, device="cuda")
+    proj = time_ms(lambda: project(x, w, b), reps=reps)
+    rec.update(grid_plan=plan, input_projection_ms=proj,
+               recurrence_ms=rec["kernel_ms"]["median"] - proj["median"])
+
+
 def _wide_kernel_checks(rng, dev) -> dict:
     """The grid layouts and the head's K split against their plain versions
     in bf16 and f32, each launched twice with the same bits: at the wide
@@ -4853,6 +4881,8 @@ def _wide_kernel_checks(rng, dev) -> dict:
     for rec in [*wide["gru_scan"].values(), *wide["gru_backward"].values(),
                 *rsc15["gru_scan_reset"].values(), *rsc15["gru_backward_reset"].values()]:
         check(rec["launch"]["layout"] == "grid", f"phase u: not the grid layout: {rec['launch']}")
+    for rec in (wide["gru_scan"]["float32"], rsc15["gru_scan_reset"]["float32"]):
+        _grid_f32_split(rec, k_gru.gru_input_projection, 3)
     for rec in wide["softmax_head"].values():
         check(rec["launch"]["layout"] == "k-split", f"phase u: not the K split: {rec['launch']}")
     return {"wide_demo": wide, f"rsc15_h{H1000}": rsc15}
@@ -4940,6 +4970,13 @@ def phase_wide(rng: np.random.Generator, dev, seed: int, card: str) -> dict:
             "seconds": seconds}
 
 
+def _split_keys(rec: dict) -> dict:
+    """An f32 grid forward's plan and time split (`_grid_f32_split`), for
+    the kernels line; nothing for another record."""
+    return {k: _median(rec[k]) if k == "input_projection_ms" else rec[k]
+            for k in ("grid_plan", "input_projection_ms", "recurrence_ms") if k in rec}
+
+
 def _wide_entries(wide: dict) -> list:
     """The kernels line's entries of the new layouts: the bf16 ones with
     their launches on the wide demo's bf16 training path, the f32 ones on
@@ -4958,7 +4995,7 @@ def _wide_entries(wide: dict) -> list:
         for dtype, path, suffix in (("bfloat16", "gru4rec_wide", ""),
                                     ("float32", "gru4rec_wide_f32", "_f32")):
             rec = recs[dtype]
-            extra = {}
+            extra = _split_keys(rec)
             if at_h1000 is not None:
                 r = at_h1000[dtype]
                 extra["at_rsc15_h1000_reset"] = {
@@ -4966,7 +5003,7 @@ def _wide_entries(wide: dict) -> list:
                     "ms": r["kernel_ms"]["median"], "plain_ms": r["plain_ms"]["median"],
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                     "library_ms": _median(r.get("library_ms")),
-                    "library": r.get("library")}
+                    "library": r.get("library"), **_split_keys(r)}
             out.append(_kernel_entry(
                 kname + suffix, "seqrec_tpu_torch/csrc/" + source,
                 "seqrec_tpu/ops/pallas/" + replaces, train[path]["launches"][counter], rec,
@@ -5029,6 +5066,8 @@ def _wide_lstm_kernel_checks(rng, dev) -> dict:
     for rec in [*wide["lstm_scan"].values(), *wide["lstm_backward"].values(),
                 *reset["lstm_scan"].values(), *reset["lstm_backward"].values()]:
         check(rec["launch"]["layout"] == "grid", f"phase v: not the grid layout: {rec['launch']}")
+    for rec in (wide["lstm_scan"]["float32"], reset["lstm_scan"]["float32"]):
+        _grid_f32_split(rec, k_lstm.lstm_input_projection, 4)
     return {"wide_lstm": wide, f"ml1m_lstm_h{WIDE_D}_reset": reset}
 
 
@@ -5112,11 +5151,13 @@ def _wide_lstm_entries(wide: dict) -> list:
                                     + " ".join(train[path]["overrides"]),
                 launches_by_path={**{f"train_{p}": t["launches"][kname] for p, t in train.items()},
                                   **{f"serve_{p}": v["launches"][kname] for p, v in serve.items()}},
+                **_split_keys(rec),
                 **{f"at_ml1m_lstm_h{WIDE_D}_reset": {
                     "shape": r["shape"], "launch": r["launch"], "max_abs_err": r["max_abs_err"],
                     "ms": r["kernel_ms"]["median"], "plain_ms": r["plain_ms"]["median"],
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                    "library_ms": _median(r.get("library_ms")), "library": r.get("library")}}))
+                    "library_ms": _median(r.get("library_ms")), "library": r.get("library"),
+                    **_split_keys(r)}}))
     return out
 
 

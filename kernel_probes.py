@@ -9,6 +9,7 @@
     python3 kernel_probes.py step_gemm [--out FILE]
     python3 kernel_probes.py xproj_bf16 [--shapes rsc15_gru,d52_gru] [--out FILE]
     python3 kernel_probes.py attention [--out FILE]
+    python3 kernel_probes.py grid_f32 [--out FILE]
 
 `clusters` sweeps the f32 cluster recurrences over their cluster size C and
 rows a cluster R (each launch checked against its plain version first):
@@ -101,6 +102,17 @@ cycles of each phase of one call in CTA 0 (the probe build's clocks); and
 builds
 kernel_probes_attention.cu, whose descriptor control (every wgmma
 descriptor's byte offsets exchanged) must fail the check at w1's step.
+
+`grid_f32` builds kernel_probes_grid.cu twice (csrc/gru.cu and csrc/lstm.cu
+with the f32 grid forwards' phase clocks compiled in) and runs the f32 GRU
+and LSTM forwards through them in the package library's place at the wide
+step (B=256, T=200, D=H=512), rsc15's reset shape at H = 1,000 (B=256,
+T=50) and ml1m_lstm's (B=128, T=200, H=512), each checked against its plain
+version first: the cycles a step of each phase of the step in CTA 0 (the
+first chunk's wait, the later chunks' waits, the products, the partial
+sums, the gate math, the barrier's arrive, the next step's operands, the
+barrier's wait), as built, without h's copies and without the products,
+beside the projection alone and the package's build.
 
 Each prints one JSON object as its last line, beside the card's name and
 power limit, and exits non-zero without CUDA.
@@ -305,15 +317,16 @@ def probe_gru_wide() -> dict:
     return out
 
 
-def probe_build(source: str = "kernel_probes.cu"):
-    """Build `source` (a file beside this script) into
-    seqrec_tpu_torch/build/ without loading it; (library path, ptxas log)."""
+def probe_build(source: str = "kernel_probes.cu", defines=()):
+    """Build `source` (a file beside this script), with each of `defines`
+    defined, into seqrec_tpu_torch/build/ without loading it; (library
+    path, ptxas log)."""
     from seqrec_tpu_torch.ops import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = _build.BUILD_DIR / f"lib{Path(source).stem}.so"
-    r = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(HERE), "-o",
-                        str(lib_path), str(HERE / source)],
+    lib_path = _build.BUILD_DIR / f"lib{Path(source).stem}{''.join('-' + d for d in defines)}.so"
+    r = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defines),
+                        "-I", str(HERE), "-o", str(lib_path), str(HERE / source)],
                        capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc {source} failed:\n{r.stdout}{r.stderr}")
@@ -333,17 +346,36 @@ ATTENTION_CONTROL = "kernel_probes_attention.cu"
 
 def attention_control_lib(built=None):
     """kernel_probes_attention.cu loaded (from `built`, a probe_build path,
-    else built now), its entry point bound: the bf16 Dh-cluster attention
+    else built now), its entry points bound: the bf16 Dh-cluster attention
     with its descriptors' byte offsets exchanged (`attn_cluster_control`,
     seqrec_attention_forward's arguments from q to scale, its band and
-    clusters, then the stream)."""
+    clusters, then the stream) and the epilogue's quotient beside a divide
+    (`attn_epilogue_quotients`, see `epilogue_quotients`)."""
     import ctypes
 
     lib = ctypes.CDLL(str(built or probe_build(ATTENTION_CONTROL)[0]))
     lib.attn_cluster_control.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.attn_cluster_control.restype = ctypes.c_int
+    lib.attn_epilogue_quotients.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int,
+                                                                    ctypes.c_void_p]
+    lib.attn_epilogue_quotients.restype = ctypes.c_int
     return lib
+
+
+def epilogue_quotients(lib, a, l):
+    """The bf16 Dh-cluster epilogue's quotients of a by max(l, 1e-30) (its
+    reciprocal and one Markstein correction, csrc/attention.cu
+    markstein_quotient) and __fdiv_rn's, on f32 CUDA tensors of one shape:
+    (got, want)."""
+    import torch
+
+    got, want = torch.empty_like(a), torch.empty_like(a)
+    rc = lib.attn_epilogue_quotients(a.data_ptr(), l.data_ptr(), got.data_ptr(), want.data_ptr(),
+                                     a.numel(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"attn_epilogue_quotients: CUDA error {rc}")
+    return got, want
 
 
 def attention_control(lib, q, k, v):
@@ -973,6 +1005,86 @@ def probe_attention() -> dict:
     return out
 
 
+# The f32 grid forwards' phases (csrc/rnn.cuh GRID_PHASE's indices).
+GRID_PHASES = ("first_chunk_wait", "chunk_waits", "products", "partial_sums", "gate_math",
+               "arrive", "operands", "barrier_wait")
+# (cell, B, T, H, reset): the wide step, rsc15's reset shape at H = 1,000,
+# ml1m_lstm's at H = 512.
+GRID_F32_SHAPES = (("gru", 256, 200, 512, False), ("lstm", 256, 200, 512, False),
+                   ("gru", 256, 50, 1000, True), ("lstm", 128, 200, 512, True))
+
+
+def probe_grid_f32() -> dict:
+    """The f32 grid forwards (gru_scan / lstm_scan, the projection included)
+    at GRID_F32_SHAPES through kernel_probes_grid.cu's build of the cell's
+    library with the phase clocks compiled in, in the package library's
+    place: each checked against its plain version first (1e-5), then the
+    cycles a step of each of GRID_PHASES in CTA 0's thread 0 (one call),
+    as built (mode 0), without h's copies (1: the products on stale
+    operands) and without the products (2: the copies alone), each mode's
+    kernel ms (the probe's clocks included; medians of chip_smoke.time_ms),
+    beside the projection alone and the package's own build."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from seqrec_tpu_torch.ops import _build
+    from seqrec_tpu_torch.ops.cuda import gru as k_gru
+    from seqrec_tpu_torch.ops.cuda import lstm as k_lstm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(3)
+    med = lambda fn: cs.time_ms(fn)["median"]  # noqa: E731
+    probes = {cell: ctypes.CDLL(str(probe_build("kernel_probes_grid.cu", defines)[0]))
+              for cell, defines in (("gru", ()), ("lstm", ("PROBE_LSTM",)))}
+    for lib in probes.values():
+        lib.grid_phase_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    out = {}
+    for cell, B, T, H, reset in GRID_F32_SHAPES:
+        mod = k_gru if cell == "gru" else k_lstm
+        x = cs._zipf_embeddings(rng, dev, B, T, H)
+        plane = cs._reset_plane(rng, B, T, dev) if reset else None
+        if cell == "gru":
+            w = [t.to(dev) for t in cs.gru_weights(rng, H, H)]
+            args = (x, cs._state(rng, dev, B, H), *w)
+            project = lambda: k_gru.gru_input_projection(x, w[0], w[2])  # noqa: E731
+        else:
+            w = [t.to(dev) for t in cs.lstm_weights(rng, H, H)]
+            args = (x, cs._state(rng, dev, B, H), cs._state(rng, dev, B, H), *w)
+            project = lambda: k_lstm.lstm_input_projection(x, w[0], w[2])  # noqa: E731
+        scan = k_gru.gru_scan if cell == "gru" else k_lstm.lstm_scan
+        fn = lambda: scan(*args, reset_mask=plane)  # noqa: E731
+        rec = {"launch": {k: v for k, v in mod.launch_config(B, T, H, H, torch.float32).items()
+                          if not isinstance(v, list)},
+               "package_ms": med(fn), "projection_ms": med(project)}
+        package_lib = _build.load(cell)
+        _build._LIBS[cell] = probes[cell]  # the wrappers now launch the probe build
+        try:
+            with torch.no_grad():
+                err = (fn()[0] - mod.plain(*args, reset_mask=plane)[0]).abs().max().item()
+                if not err <= 1e-5:
+                    raise RuntimeError(f"grid_f32 {cell} B={B} H={H}: error {err} past 1e-5")
+                rec["max_abs_err"] = err
+                clocks = (ctypes.c_ulonglong * 16)()
+                for mode in (0, 1, 2):
+                    probes[cell].grid_phase_clocks(clocks, mode)
+                    ms = med(fn)
+                    probes[cell].grid_phase_clocks(clocks, mode)  # reset
+                    fn()
+                    torch.cuda.synchronize()
+                    probes[cell].grid_phase_clocks(clocks, 0)
+                    rec[f"mode{mode}"] = {"ms": ms, **{name: clocks[i] / T
+                                                       for i, name in enumerate(GRID_PHASES)}}
+        finally:
+            _build._LIBS[cell] = package_lib
+        out[f"{cell}_B{B}_T{T}_H{H}" + ("_reset" if reset else "")] = rec
+        del x, args, w
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="probe", required=True)
@@ -984,7 +1096,8 @@ def main(argv=None) -> int:
                        ("gru_wide", "the bf16 GRU cluster layouts"),
                        ("step_gemm", "the stepped layouts' bf16 step GEMM's variants"),
                        ("xproj_bf16", "the bf16 input projection's variants"),
-                       ("attention", "the Dh-cluster attention's bands, clusters and control")):
+                       ("attention", "the Dh-cluster attention's bands, clusters and control"),
+                       ("grid_f32", "the f32 grid forwards' phase clocks")):
         parser = sub.add_parser(name, help=text)
         parser.add_argument("--out", help="also write the result (indented JSON) to this file")
         if name == "xproj_bf16":
@@ -1001,7 +1114,8 @@ def main(argv=None) -> int:
     result = {"clusters": probe_clusters, "xproj": probe_xproj, "head": probe_head,
               "scatter": probe_scatter, "gather": probe_gather,
               "gru_wide": probe_gru_wide, "step_gemm": probe_step_gemm,
-              "xproj_bf16": probe_xproj_bf16, "attention": probe_attention}[args.probe]
+              "xproj_bf16": probe_xproj_bf16, "attention": probe_attention,
+              "grid_f32": probe_grid_f32}[args.probe]
     shapes = getattr(args, "shapes", None)
     result = result(tuple(shapes.split(","))) if shapes else result()
     if args.out:

@@ -97,7 +97,14 @@ digest; and the bf16 input projection alone (each checkout's wrapper) at
 XPROJ_ROWS (the narrow GRU and LSTM, rsc15, d = 52, the wide towers and w3),
 beside its plain version and torch.addmm(..., out_dtype=torch.float32);
 and the grid layouts' bf16 forwards (the projection included) at the wide
-towers' step (B=256, T=200, D=H=512), nn.GRU / nn.LSTM in bf16 beside them.
+towers' step (B=256, T=200, D=H=512), nn.GRU / nn.LSTM in bf16 beside them;
+and the grid layouts' f32 forwards (the projection included; `_grid_f32_rows`)
+at the wide step, at rsc15's reset shape with 1,000 units (B=256, T=50) and at
+ml1m_lstm's (B=128, T=200, H=512), each with a digest (its outputs kept) and
+its bound, nn.GRU / nn.LSTM in f32 (TF32 off) beside the wide ones, and the
+f32 input projection alone at the wide step (M = 51,200, D = 512, N = 1,536
+and 2,048) beside torch.addmm in f32, so that a forward's row splits into
+projection and recurrence.
 
 With --pairs N, a turn is only one training path (--path, a chip_smoke
 CONFIGS key, default gru4rec): chip_smoke.phase_train with two groups, its
@@ -168,7 +175,8 @@ def _path_worker(label: str, path: str) -> dict:
 
 def _digest(ts, keep: str = "") -> str:
     """sha1 of the tensors' bytes: equal digests are equal bits. `keep`: a
-    row whose outputs the bf16 input projection feeds; the first turn of
+    row whose outputs the bf16 input projection or the f32 grid forwards'
+    step product feed; the first turn of
     each label saves them as $KERNEL_TURNS_KEEP/<label>/<keep>.pt (the
     directory main makes), so that the last line can give the change's
     largest difference from the parent's."""
@@ -230,6 +238,93 @@ def _xproj_rows(rng, dev) -> dict:
             "addmm_out_f32_ms": med(lambda: torch.addmm(b, x, w, out_dtype=torch.float32)),
             "bound_ms": max(flops / cs.PEAK_FLOPS[torch.bfloat16],
                             nbytes / cs.HBM_BYTES_PER_S) * 1e3}
+        del x, w, b
+    torch.cuda.empty_cache()
+    return rows
+
+
+# The f32 grid forwards' rows (key: cell, B, T, H, reset): the wide step
+# (B=256, T=200, D=H=512, GRU and LSTM), rsc15's reset shape with 1,000
+# units (the GRU, B=256, T=50) and ml1m_lstm's reset shape (B=128, T=200,
+# D=H=512); and the f32 input projection alone at the wide step (M = 51,200,
+# D = 512, N = 3H and 4H).
+GRID_F32_ROWS = {"gru_grid_float32_wide_B256_T200_H512": ("gru", 256, 200, 512, False),
+                 "lstm_grid_float32_wide_B256_T200_H512": ("lstm", 256, 200, 512, False),
+                 "gru_grid_float32_rsc15_B256_T50_H1000_reset": ("gru", 256, 50, 1000, True),
+                 "lstm_grid_float32_ml1m_B128_T200_H512_reset": ("lstm", 128, 200, 512, True)}
+XPROJ_F32_ROWS = {"gru_wide": (51200, 512, 1536), "lstm_wide": (51200, 512, 2048)}
+
+
+def _grid_f32_rows(dev) -> dict:
+    """The f32 grid forwards (gru_scan / lstm_scan, the projection included)
+    at GRID_F32_ROWS on the data of rng 3, with a carried-in state: ms, a
+    digest (its outputs kept: ys, and c_last for the LSTM), the bound
+    (chip_smoke's: the projection's and the recurrence's FMAs at the f32
+    peak, beside the bytes) and, without a reset, nn.GRU / nn.LSTM in f32
+    (cuDNN, TF32 off) on the same values; then the f32 input projection
+    alone at XPROJ_F32_ROWS (each checkout's wrapper, a digest), beside
+    torch.addmm in f32."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from seqrec_tpu_torch.ops.cuda import gru as k_gru
+    from seqrec_tpu_torch.ops.cuda import lstm as k_lstm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(3)
+    med = lambda fn: cs.time_ms(fn)["median"]  # noqa: E731
+    f32 = torch.float32
+    rows = {}
+    for key, (cell, B, T, H, reset) in GRID_F32_ROWS.items():
+        x = cs._zipf_embeddings(rng, dev, B, T, H)
+        plane = cs._reset_plane(rng, B, T, dev) if reset else None
+        G = 3 if cell == "gru" else 4
+        flops = 2.0 * B * T * 2 * H * G * H
+        nbytes = (2 * B * T * H + 2 * H * G * H + B * H) * 4 + B * T * 4 * reset
+        rec = {"B": B, "T": T, "D": H, "H": H, "reset": reset,
+               "bound_ms": max(flops / cs.PEAK_FLOPS[f32], nbytes / cs.HBM_BYTES_PER_S) * 1e3}
+        with torch.no_grad():
+            if cell == "gru":
+                w = [t.to(dev) for t in cs.gru_weights(rng, H, H)]
+                h0 = cs._state(rng, dev, B, H)
+                fn = lambda: k_gru.gru_scan(x, h0, *w, reset_mask=plane)  # noqa: E731
+                rec.update(ms=med(fn), digest=_digest([fn()[0]], keep=key))
+                if not reset:
+                    lib = torch.nn.GRU(H, H, batch_first=True, device=dev, dtype=f32)
+                    lib.weight_ih_l0.copy_(w[0].T)
+                    lib.weight_hh_l0.copy_(w[1].T)
+                    lib.bias_ih_l0.copy_(w[2])
+                    lib.bias_hh_l0.copy_(w[3])
+                    rec["nn_gru_float32_ms"] = med(lambda: lib(x, h0[None]))
+            else:
+                w_x, w_h, b = (t.to(dev) for t in cs.lstm_weights(rng, H, H))
+                s0 = (cs._state(rng, dev, B, H), cs._state(rng, dev, B, H))
+                fn = lambda: k_lstm.lstm_scan(x, *s0, w_x, w_h, b, reset_mask=plane)  # noqa: E731
+                ys, (_, c_last) = fn()
+                rec.update(ms=med(fn), digest=_digest([ys, c_last], keep=key))
+                if not reset:
+                    lib = torch.nn.LSTM(H, H, batch_first=True, device=dev, dtype=f32)
+                    lib.weight_ih_l0.copy_(w_x.T)
+                    lib.weight_hh_l0.copy_(w_h.T)
+                    lib.bias_ih_l0.copy_(b)
+                    lib.bias_hh_l0.zero_()
+                    rec["nn_lstm_float32_ms"] = med(lambda: lib(x, (s0[0][None], s0[1][None])))
+        rows[key] = rec
+        del x, plane
+    for label, (M, D, N) in XPROJ_F32_ROWS.items():
+        x = torch.from_numpy(rng.normal(scale=D ** -0.5, size=(M, D)).astype(np.float32)).to(dev)
+        w = torch.from_numpy(rng.normal(scale=D ** -0.5, size=(D, N)).astype(np.float32)).to(dev)
+        b = torch.from_numpy(rng.normal(scale=0.1, size=N).astype(np.float32)).to(dev)
+        project = (k_lstm.lstm_input_projection if label.startswith("lstm")
+                   else k_gru.gru_input_projection)
+        flops, nbytes = 2.0 * M * D * N, (M * D + D * N + N + M * N) * 4
+        rows[f"xproj_float32_{label}"] = {
+            "M": M, "D": D, "N": N, "ms": med(lambda: project(x, w, b)),
+            "digest": _digest([project(x, w, b)]),
+            "addmm_ms": med(lambda: torch.addmm(b, x, w)),
+            "bound_ms": max(flops / cs.PEAK_FLOPS[f32], nbytes / cs.HBM_BYTES_PER_S) * 1e3}
         del x, w, b
     torch.cuda.empty_cache()
     return rows
@@ -417,6 +512,7 @@ def _rnn_rows() -> dict:
             "peak_bytes_over_inputs": peak_over(lambda: k_lstm.lstm_backward(*largs))}
         del i_, f_, o_, gp, g_, tanh_c, c_in, g_ys, largs, x, xb
     rows.update(_xproj_rows(rng, dev))
+    rows.update(_grid_f32_rows(dev))
     return rows
 
 
@@ -765,10 +861,10 @@ def _worker(label: str, only: str = "") -> dict:
 def _kept_differences(root: Path, turns: list) -> dict:
     """For each kept row (see `_digest`) whose digests differ between the
     parent and the change: the largest absolute difference between the two
-    labels' outputs, and the row's bf16 tolerance (chip_smoke's: the GRU
+    labels' outputs, and the row's tolerance (chip_smoke's: the GRU
     forward's GRU_BF16_TOL, the LSTM's LSTM_BF16_TOL; the projection's
     XPROJ_TOL, or XPROJ_WIDE_REL_TOL of the parent's largest value above
-    D = 256)."""
+    D = 256; the f32 grid forwards' GRU_F32_TOL)."""
     import torch
 
     import chip_smoke as cs
@@ -785,6 +881,8 @@ def _kept_differences(root: Path, turns: list) -> dict:
             D = turns[0]["kernels"][key]["D"]
             tol = (cs.XPROJ_TOL if D <= 256 else
                    cs.XPROJ_WIDE_REL_TOL * max(x.abs().max().item() for x in a))
+        elif "_float32_" in key:  # the f32 grid forwards' rows
+            tol = cs.GRU_F32_TOL
         else:
             tol = cs.GRU_BF16_TOL if key.startswith("gru") else cs.LSTM_BF16_TOL
         out[key] = {"max_abs_diff": diff, "tolerance": tol, "within": diff <= tol}

@@ -1194,6 +1194,15 @@ __device__ __forceinline__ void cluster_stage(unsigned char* dst, const __nv_bfl
   }
 }
 
+// The bf16 Dh-cluster epilogue's quotient RN(a / den) from inv =
+// RN(1 / den): q = RN(a inv), then one FMA correction (Markstein's: with
+// inv = RN(1 / den) and q within an ulp, RN(q + (a - den q) inv) =
+// RN(a / den)). kernel_probes_attention.cu holds it against __fdiv_rn.
+__device__ __forceinline__ float markstein_quotient(float a, float den, float inv) {
+  const float q0 = __fmul_rn(a, inv);
+  return __fmaf_rn(__fmaf_rn(-q0, den, a), inv, q0);
+}
+
 template <bool kTma, int kU, bool kSwap = false>
 __global__ void __launch_bounds__(kClThreads, 1)
 attention_cluster_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -1424,10 +1433,7 @@ attention_cluster_mma_kernel(const __nv_bfloat16* __restrict__ q,
       den[h] = fmaxf(l[h], 1e-30f);
       inv[h] = __frcp_rn(den[h]);
     }
-    auto quotient = [&](float a, int h) {
-      const float q0 = __fmul_rn(a, inv[h]);
-      return __fmaf_rn(__fmaf_rn(-q0, den[h], a), inv[h], q0);
-    };
+    auto quotient = [&](float a, int h) { return markstein_quotient(a, den[h], inv[h]); };
     if constexpr (kTma) {
       // Into this item's Q buffer (its last S is done), in Q's layout, then
       // to o by TMA: rows past T and columns past Dh are clipped there. The

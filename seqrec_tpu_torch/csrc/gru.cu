@@ -1630,11 +1630,15 @@ int launch_bwd_wide(size_t smem, cudaStream_t s, const float* xp, const float* h
 // reads k = 32 c + 8 q .. + 7 of its row g, and the wrapper packs W_h^T in
 // the same order (a sum over k in any order is the same sum; mma's own order
 // is fixed, so the bits repeat). The r, z and n sums of a (unit, row) land
-// in one lane: the gate math needs no exchange. f32: the same on the CUDA
-// cores, a warp's lanes each over a slice of K (float4 k = 128 j + 4 lane)
-// for 4 rows x 2 units x 3 gates, then rnn.cuh's reduce-scatter leaves each
-// owner lane one (row, unit)'s sums; accurate sigmoid and tanh, as the f32
-// cluster design.
+// in one lane: the gate math needs no exchange. f32: a step's product is a
+// CTA GEMM on the CUDA cores, [the CTA's rows x Kp] . [Kp x 8 units x 3
+// gates] (rnn.cuh grid_f32_product): h's rows come from L2 once a CTA a
+// step, in K chunks through a ring in shared memory (cp.async.cg), a
+// thread sums 2 to 8 rows (the block's / 16) x 2 units x 3 gates over its
+// warp's slice of each chunk, and the slices' partial sums go through shared memory to the
+// gate math, which adds them in slice order; a thread owns its (row, unit)
+// pairs in every step, so it reads their xp, h_in and keep[t+1] before the
+// barrier. Accurate sigmoid and tanh, as the f32 cluster design.
 //
 // Reverse (the K split of the lead): a step is two phases with the barrier
 // between. Phase A: each CTA computes the gate cotangents of its own (unit,
@@ -1646,14 +1650,25 @@ int launch_bwd_wide(size_t smem, cudaStream_t s, const float* xp, const float* h
 // Phase B: each CTA reads its rows of the whole d_hproj and forms
 // dh_prev = dh z + d_hproj W_h^T for its units in a fixed order (bf16:
 // units as M, K = the 3 Kp gate columns, hi and lo products sharing the A
-// fragments; f32: the forward's slices and reduce-scatter with one unit a
-// lane), times keep[t]. The lane that owns a pair in phase B owns it in
+// fragments; f32: a warp's lanes each over a slice of K, then rnn.cuh's
+// reduce-scatter, one unit a lane), times keep[t]. The lane that owns a pair in phase B owns it in
 // phase A, so the carry needs no exchange.
 //
 // What bounds them: as the other layouts, the serial chain, now one grid
 // barrier (~1-3 us) and one CTA's share of the step's products a step. bf16
 // at the wide demo (B = 256, H = 512): 128 CTAs, 64 rows each, 768 mma.sync
-// a CTA a step.
+// a CTA a step. f32 at the wide demo: 128 CTAs of 128 rows, 1.57 M FMAs a
+// CTA a step (6.2 us at 128 FMAs a clock and 1.98 GHz) and 256 KB of h from
+// L2 a CTA (32 MB for the grid) a step. So h leaves L2 once a CTA a step,
+// with `stages` - 1 chunks in flight while one is multiplied (a read a
+// task would bring each row four times, on a chain of dependent L2 round
+// trips), and a thread's 8 rows x 6 sums use each h float4 6 times and
+// each W_h float4 8 times. What binds now (kernel_probes.py grid_f32): the products, at
+// about 60% of the FFMA issue rate (this card's SIMT loops), then the first
+// chunk's wait after the barrier (every CTA of the grid asks L2 for its h
+// at once), the barrier and the gate math. Each row group waits on its own
+// counter (a CTA reads only its group's rows), and a thread's next
+// operands are read between the barrier's arrive and its wait.
 
 using rnn::grid_kpad;
 using rnn::grid_load_weights;
@@ -1774,27 +1789,35 @@ gru_forward_grid_kernel(const float* __restrict__ xp, const __nv_bfloat16* __res
   }
 }
 
-// f32 forward. w4: W_h's columns of each slice's 8 units, [tiles][Kp/128]
-// [8 units][3 gates][32 lanes] float4 (lane's k = 128 j + 4 lane .. + 3);
-// ws: the counter, then h_in's buffers [2][rows][Kp] f32.
-template <bool kReset>
+// f32 forward. w4: W_h's values of each slice's 8 units, [tiles][Kp/4][3
+// gates][8 units] float4 of k = 4 kk .. + 3 (ops/cuda/gru.py grid_pack); ws:
+// the counters (a row group's at kGfCounterStride group), then h_in's
+// buffers [2][rows][Kp] f32. Shared memory: W_h's
+// values, then rnn::grid_f32_product's ring (GridF32Plan). The gate math: a
+// thread owns unit threadIdx.x % 8 of block rows threadIdx.x / 8 + 32 i,
+// in every step (and writes h_in(0) of them), so its own h_in entries, xp
+// and keep[t+1] are read before the barrier that precedes the step.
+template <bool kReset, int kBlock>
 __global__ void __launch_bounds__(kGridThreads, 1)
 gru_forward_grid_f32_kernel(const float* __restrict__ xp, const float* __restrict__ h0,
                             const float4* __restrict__ w4, const float* __restrict__ b_h,
                             const float* __restrict__ keep, float* __restrict__ ys,
                             unsigned char* __restrict__ ws, int B, int Tn, int H, int groups) {
   extern __shared__ __align__(16) float4 wsm4[];
-  const int Kp = grid_kpad(H, false), J = Kp / 128, H3 = 3 * H;
+  constexpr int G = kGridGates, kSlots = rnn::GfShape<kBlock>::slots;
+  const int Kp = grid_kpad(H, false), H3 = G * H;
   const int tiles = (H + 7) / 8, quads = grid_rows(B, false) / 4;
   const GridPlace at(tiles, quads, groups);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned* bar = reinterpret_cast<unsigned*>(ws);
+  const rnn::GridF32Plan plan(4 * ((quads + groups - 1) / groups), Kp, G);
+  float* ring = reinterpret_cast<float*>(wsm4 + 2 * G * Kp);
+  unsigned* bar = reinterpret_cast<unsigned*>(ws + rnn::kGfCounterStride * at.group);
   float* hbuf = reinterpret_cast<float*>(ws + kGridCounter);
   const size_t plane = static_cast<size_t>(quads) * 4 * Kp;
-  const unsigned G = gridDim.x;
+  const unsigned NG = tiles;  // the row group's CTAs
+  const int row_lo = 4 * at.r0, row_hi = 4 * at.r1;
+  const int u = threadIdx.x & 7, unit = 8 * at.tile + u, rt = threadIdx.x >> 3;
 
-  for (int c = threadIdx.x; c < (at.r1 - at.r0) * 32; c += kGridThreads) {
-    const int row = 4 * at.r0 + c / 8, unit = 8 * at.tile + c % 8;
+  for (int row = row_lo + rt; row < row_hi; row += kGridThreads / 8) {
     if (row < B && unit < H) {
       const float h = h0[static_cast<size_t>(row) * H + unit];
       hbuf[static_cast<size_t>(row) * Kp + unit] =
@@ -1802,55 +1825,67 @@ gru_forward_grid_f32_kernel(const float* __restrict__ xp, const float* __restric
     }
   }
   grid_load_weights(reinterpret_cast<uint4*>(wsm4),
-                    reinterpret_cast<const uint4*>(w4) + static_cast<size_t>(at.tile) * J * 8 * 3 * 32,
-                    J * 8 * 3 * 32);
-  grid_sync(bar, G);
+                    reinterpret_cast<const uint4*>(w4) + static_cast<size_t>(at.tile) * 2 * G * Kp,
+                    2 * G * Kp);
+  float bh[G];
+#pragma unroll
+  for (int q = 0; q < G; ++q) bh[q] = unit < H ? b_h[q * H + unit] : 0.0f;
 
-  // A task: 4 rows (a quad) x 2 units; after the reduce-scatter the lanes with
-  // (lane & 3) == 0 own row lane >> 3 of unit (lane >> 2) & 1.
-  using Own = rnn::Owner<4, 2, 32>;
-  const Own own(lane);
+  // The pairs' operands of block b at step t: xp, h_in and keep[t+1].
+  float xv[kSlots][G], hin[kSlots], kn[kSlots];
+  auto operands = [&](int t, int b) {
+    const float* hc = hbuf + (t & 1) * plane;
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      const int row = row_lo + b * kBlock + rt + 32 * i;
+      const bool ok = row < row_hi && row < B && unit < H;
+      const size_t bt = static_cast<size_t>(row) * Tn + t;
+#pragma unroll
+      for (int q = 0; q < G; ++q) xv[i][q] = ok ? xp[bt * H3 + q * H + unit] : 0.0f;
+      hin[i] = ok ? __ldcg(hc + static_cast<size_t>(row) * Kp + unit) : 0.0f;
+      kn[i] = kReset && ok && t + 1 < Tn ? keep[bt + 1] : 1.0f;
+    }
+  };
+  operands(0, 0);
+  grid_sync(bar, NG);
+
+  const int blocks = (row_hi - row_lo + kBlock - 1) / kBlock;
+  unsigned long long phase_t = 0;  // the clock probes' (GRID_PHASE)
+  GRID_PHASE(phase_t, 15);
   for (int t = 0; t < Tn; ++t) {
     const float* hc = hbuf + (t & 1) * plane;
     float* hn = hbuf + ((t + 1) & 1) * plane;
-    for (int task = warp; task < (at.r1 - at.r0) * 4; task += kGridThreads / 32) {
-      const int rq = at.r0 + task / 4, up = task % 4;
-      const int row = 4 * rq + own.row0, unit = 8 * at.tile + 2 * up + own.ut0;
-      const bool ok = own.owner && row < B && unit < H;
-      const size_t bt = static_cast<size_t>(row) * Tn + t;
-      float x[3], bh[3];
+    for (int b = 0; b < blocks; ++b) {
+      if (b > 0) operands(t, b);
+      const int r0 = row_lo + b * kBlock;
+      rnn::grid_f32_product<G, kBlock>(wsm4, ring, hc, Kp, r0, min(kBlock, row_hi - r0),
+                                        plan.stages, phase_t);
 #pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        x[q] = ok ? xp[bt * H3 + q * H + unit] : 0.0f;
-        bh[q] = ok ? b_h[q * H + unit] : 0.0f;
+      for (int i = 0; i < kSlots; ++i) {
+        const int r = rt + 32 * i, row = r0 + r;
+        if (row >= row_hi || row >= B || unit >= H) continue;
+        const size_t bt = static_cast<size_t>(row) * Tn + t;
+        // Every rounding spelled out: the three instantiations (blocks of 32,
+        // 64, 128 rows) must give a row the same bits, and nvcc may contract
+        // a product and a sum into an FMA either way in each.
+        const float rg = sigmoidf(xv[i][0] + (rnn::grid_f32_sum<G, kBlock>(ring, r, 0, u) + bh[0]));
+        const float zg = sigmoidf(xv[i][1] + (rnn::grid_f32_sum<G, kBlock>(ring, r, 1, u) + bh[1]));
+        const float ng = tanhf(__fadd_rn(
+            xv[i][2], __fmul_rn(rg, rnn::grid_f32_sum<G, kBlock>(ring, r, 2, u) + bh[2])));
+        const float hq = __fadd_rn(__fmul_rn(1.0f - zg, ng), __fmul_rn(zg, hin[i]));
+        ys[bt * H + unit] = hq;
+        if (t + 1 < Tn) hn[static_cast<size_t>(row) * Kp + unit] = kReset ? __fmul_rn(hq, kn[i]) : hq;
       }
-      float acc[4][2][3] = {};
-      const float4* h4 = reinterpret_cast<const float4*>(hc + static_cast<size_t>(4 * rq) * Kp) + lane;
-      const float4* wt = wsm4 + (2 * up) * 3 * 32 + lane;
-      for (int j = 0; j < J; ++j) {
-        float4 hv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) hv[r] = __ldcg(h4 + r * (Kp / 4) + 32 * j);
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-#pragma unroll
-          for (int q = 0; q < 3; ++q) {
-            const float4 w = wt[((j * 8 + u) * 3 + q) * 32];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) dot4(acc[r][u][q], hv[r], w);
-          }
-      }
-      rnn::reduce_scatter<4, 2, 16, 4, 2, 3>(acc, lane);
-      if (!ok) continue;
-      const float hin = __ldcg(hc + static_cast<size_t>(row) * Kp + unit);
-      const float rg = sigmoidf(x[0] + (acc[0][0][0] + bh[0]));
-      const float zg = sigmoidf(x[1] + (acc[0][0][1] + bh[1]));
-      const float ng = tanhf(x[2] + rg * (acc[0][0][2] + bh[2]));
-      const float hq = (1.0f - zg) * ng + zg * hin;
-      ys[bt * H + unit] = hq;
-      if (t + 1 < Tn) hn[static_cast<size_t>(row) * Kp + unit] = kReset ? __fmul_rn(hq, keep[bt + 1]) : hq;
     }
-    if (t + 1 < Tn) grid_sync(bar, G * (t + 2));
+    GRID_PHASE(phase_t, 4);
+    if (t + 1 < Tn) {
+      rnn::grid_arrive(bar);
+      GRID_PHASE(phase_t, 5);
+      operands(t + 1, 0);  // off the chain, and out of the arrive's fence
+      GRID_PHASE(phase_t, 6);
+      rnn::grid_wait(bar, NG * (t + 2));
+      GRID_PHASE(phase_t, 7);
+    }
   }
 }
 
@@ -2436,10 +2471,11 @@ int seqrec_gru_backward_wide(const void* xp, const void* hp, const void* h_in,
 // (the input projection, b_x included), h0 [B, H] and ys [B, T, H] of the
 // dtype, b_h [3H] float, keep [B, T] float (1 - reset) or null; w_pack the
 // wrapper's packing of W_h (bf16: [tiles][Kp/16][3][32] x 16 bytes; float:
-// [tiles][Kp/128][8][3][32] float4); ws a zeroed workspace of
+// [tiles][Kp/4][3][8] float4); ws a zeroed workspace of
 // grid_workspace(B, H, dtype, forward) bytes. All contiguous, 16-byte
-// aligned; H % 4 == 0, 256 < H. groups, smem_bytes and ws_bytes as the
-// caller computed them, checked again here (grid_check).
+// aligned; H % 4 == 0, 256 < H. groups, smem_bytes (float: W_h and the
+// ring, rnn::GridF32Plan) and ws_bytes as the caller computed them, checked
+// again here (grid_check).
 int seqrec_gru_forward_grid(const void* xp, const void* h0, const void* w_pack, const void* b_h,
                             const void* keep, void* ys, void* ws, int B, int Tn, int H,
                             int dtype, int groups, long long smem_bytes, long long ws_bytes,
@@ -2448,13 +2484,13 @@ int seqrec_gru_forward_grid(const void* xp, const void* h0, const void* w_pack, 
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const bool bf16 = dtype == 1;
   const int rc = rnn::grid_check(B, Tn, H, bf16, kGridGates, groups, smem_bytes, ws_bytes,
-                                 grid_workspace(B, H, bf16, false), &grid);
+                                 grid_workspace(B, H, bf16, false), true, &grid);
   if (rc != 0) return rc;
   const float* x = static_cast<const float*>(xp);
   const float* bh = static_cast<const float*>(b_h);
   const float* kp = static_cast<const float*>(keep);
   unsigned char* w = static_cast<unsigned char*>(ws);
-  const int smem = rnn::grid_smem(H, bf16, kGridGates);
+  const int smem = static_cast<int>(smem_bytes);  // grid_check's
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     const auto* h = static_cast<const __nv_bfloat16*>(h0);
@@ -2467,9 +2503,13 @@ int seqrec_gru_forward_grid(const void* xp, const void* h0, const void* w_pack, 
   const auto* h = static_cast<const float*>(h0);
   const auto* wf = static_cast<const float4*>(w_pack);
   auto* y = static_cast<float*>(ys);
-  return kp == nullptr
-             ? rnn::launch_grid(gru_forward_grid_f32_kernel<false>, grid, smem, s, x, h, wf, bh, kp, y, w, B, Tn, H, groups)
-             : rnn::launch_grid(gru_forward_grid_f32_kernel<true>, grid, smem, s, x, h, wf, bh, kp, y, w, B, Tn, H, groups);
+  using K = decltype(&gru_forward_grid_f32_kernel<false, 32>);
+  static const K k[2][3] = {
+      {gru_forward_grid_f32_kernel<false, 32>, gru_forward_grid_f32_kernel<false, 64>, gru_forward_grid_f32_kernel<false, 128>},
+      {gru_forward_grid_f32_kernel<true, 32>, gru_forward_grid_f32_kernel<true, 64>, gru_forward_grid_f32_kernel<true, 128>}};
+  return rnn::launch_grid_f32(rnn::grid_f32_plan(B, H, groups, kGridGates).block,
+                              k[kp != nullptr], grid, smem, s, x, h, wf, bh, kp, y, w, B, Tn, H,
+                              groups);
 }
 
 // The grid-persistent reverse recurrence above H = 256, the gate recompute
@@ -2491,7 +2531,7 @@ int seqrec_gru_backward_grid(const void* xp, const void* hp, const void* h_in, c
   }
   const bool bf16 = dtype == 1;
   const int rc = rnn::grid_check(B, Tn, H, bf16, kGridGates, groups, smem_bytes, ws_bytes,
-                                 grid_workspace(B, H, bf16, true), &grid);
+                                 grid_workspace(B, H, bf16, true), false, &grid);
   if (rc != 0) return rc;
   const float* x = static_cast<const float*>(xp);
   const float* hpr = static_cast<const float*>(hp);

@@ -1083,11 +1083,14 @@ int launch_bwd_mma(const float* const* planes, const void* g_ys, const void* w_f
 // barrier. The products are laid out so that the i, f, g and o sums of a
 // (unit, row) pair land in one lane (bf16: a warp 16 rows x the CTA's 16
 // units on mma.sync, four accumulators of one C position, W_h^T's A
-// fragments gate by gate; f32: a task 4 rows x 2 units x 4 gates, the
-// reduce-scatter leaving each owner lane its pair's four sums), so c' needs
-// no exchange: the owner lane reads c from, and writes c' (times keep[t+1])
-// to, the workspace's [rows][Kp] f32 cell plane, which no other lane and no
-// other CTA touches. c stays in f32 and is never rounded; c_T takes the
+// fragments gate by gate; f32: rnn.cuh's grid_f32_product, a CTA GEMM of
+// its rows x 8 units x 4 gates with h's rows through a ring in shared
+// memory, read from L2 once a CTA a step, and the slices' partial sums
+// added in order by the thread that owns the pair in every step), so c'
+// needs no exchange: the owner reads c from, and writes c' (times
+// keep[t+1]) to, the workspace's [rows][Kp] f32 cell plane, which no other
+// thread and no other CTA touches (f32: it reads c, xp and keep[t+1] before
+// the barrier that precedes the step). c stays in f32 and is never rounded; c_T takes the
 // unscaled c'. bf16 gate math from the hardware exp2 and a fast divide (as
 // the one-block kernel); f32 accurate sigmoid and tanh (as the cluster
 // kernel).
@@ -1101,7 +1104,8 @@ int launch_bwd_mma(const float* const* planes, const void* g_ys, const void* w_f
 // f32: as it is). Phase B: each CTA forms dh_prev = dz W_h^T for its units
 // from its rows of the whole dz in a fixed order (bf16: units as M, K = the
 // 4 Kp gate columns, the hi and lo products sharing the A fragments; f32:
-// the forward's slices with 8 units a task and the reduce-scatter), times
+// a warp's lanes each over a slice of K, 8 units a task, and rnn.cuh's
+// reduce-scatter), times
 // keep[t]. dh and dc are carried per pair in f32 planes of the workspace
 // (dc starts at the cotangent of c_T), each read and written only by the
 // lane that owns the pair in both phases, so the bits repeat from run to
@@ -1109,7 +1113,10 @@ int launch_bwd_mma(const float* const* planes, const void* g_ys, const void* w_f
 //
 // What bounds them: the serial chain, one grid barrier and one CTA's share
 // of the step's products a step (bf16 at the wide LSTM, B = 256, H = 512:
-// 128 CTAs of 64 rows, 1,024 mma.sync a CTA a step forward).
+// 128 CTAs of 64 rows, 1,024 mma.sync a CTA a step forward; f32 128 CTAs of
+// 128 rows, 2.10 M FMAs a CTA a step, 8.3 us at 128 FMAs a clock and 1.98
+// GHz, and 256 KB of h from L2: gru.cu's note says what the f32 forward's
+// step product does about them).
 
 using rnn::grid_kpad;
 using rnn::grid_load_weights;
@@ -1237,10 +1244,16 @@ lstm_forward_grid_kernel(const float* __restrict__ xp, const __nv_bfloat16* __re
   }
 }
 
-// f32 forward. w4: W_h's columns of each slice's 8 units, [tiles][Kp/128]
-// [8 units][4 gates][32 lanes] float4 (lane's k = 128 j + 4 lane .. + 3);
-// ws: the counter, h_in's buffers [2][rows][Kp] f32, the cells [rows][Kp] f32.
-template <bool kReset>
+// f32 forward. w4: W_h's values of each slice's 8 units, [tiles][Kp/4][4
+// gates][8 units] float4 of k = 4 kk .. + 3 (ops/cuda/gru.py grid_pack); ws:
+// the counters (a row group's at kGfCounterStride group), h_in's buffers
+// [2][rows][Kp] f32, the cells [rows][Kp] f32.
+// Shared memory: W_h's values, then rnn::grid_f32_product's ring
+// (GridF32Plan). A thread owns unit threadIdx.x % 8 of block rows
+// threadIdx.x / 8 + 32 i in every step (and writes h_in(0) and c(0) of
+// them), so its own h_in and c entries, xp and keep[t+1] are read before
+// the barrier that precedes the step.
+template <bool kReset, int kBlock>
 __global__ void __launch_bounds__(kGridThreads, 1)
 lstm_forward_grid_f32_kernel(const float* __restrict__ xp, const float* __restrict__ h0,
                              const float* __restrict__ c0, const float4* __restrict__ w4,
@@ -1248,18 +1261,21 @@ lstm_forward_grid_f32_kernel(const float* __restrict__ xp, const float* __restri
                              float* __restrict__ c_last, float* __restrict__ cs,
                              unsigned char* __restrict__ ws, int B, int Tn, int H, int groups) {
   extern __shared__ __align__(16) float4 wsm4[];
-  const int Kp = grid_kpad(H, false), J = Kp / 128, H4 = kGates * H;
+  constexpr int G = kGates, kSlots = rnn::GfShape<kBlock>::slots;
+  const int Kp = grid_kpad(H, false), H4 = G * H;
   const int tiles = (H + 7) / 8, quads = grid_rows(B, false) / 4;
   const GridPlace at(tiles, quads, groups);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned* bar = reinterpret_cast<unsigned*>(ws);
+  const rnn::GridF32Plan plan(4 * ((quads + groups - 1) / groups), Kp, G);
+  float* ring = reinterpret_cast<float*>(wsm4 + 2 * G * Kp);
+  unsigned* bar = reinterpret_cast<unsigned*>(ws + rnn::kGfCounterStride * at.group);
   float* hbuf = reinterpret_cast<float*>(ws + kGridCounter);
   const size_t plane = static_cast<size_t>(quads) * 4 * Kp;
   float* cells = hbuf + 2 * plane;
-  const unsigned G = gridDim.x;
+  const unsigned NG = tiles;  // the row group's CTAs
+  const int row_lo = 4 * at.r0, row_hi = 4 * at.r1;
+  const int u = threadIdx.x & 7, unit = 8 * at.tile + u, rt = threadIdx.x >> 3;
 
-  for (int c = threadIdx.x; c < (at.r1 - at.r0) * 32; c += kGridThreads) {
-    const int row = 4 * at.r0 + c / 8, unit = 8 * at.tile + c % 8;
+  for (int row = row_lo + rt; row < row_hi; row += kGridThreads / 8) {
     if (row < B && unit < H) {
       const size_t i = static_cast<size_t>(row) * H + unit;
       const float k0 = kReset ? keep[static_cast<size_t>(row) * Tn] : 1.0f;
@@ -1268,61 +1284,71 @@ lstm_forward_grid_f32_kernel(const float* __restrict__ xp, const float* __restri
     }
   }
   grid_load_weights(reinterpret_cast<uint4*>(wsm4),
-                    reinterpret_cast<const uint4*>(w4) + static_cast<size_t>(at.tile) * J * 8 * kGates * 32,
-                    J * 8 * kGates * 32);
-  grid_sync(bar, G);
+                    reinterpret_cast<const uint4*>(w4) + static_cast<size_t>(at.tile) * 2 * G * Kp,
+                    2 * G * Kp);
 
-  // A task: 4 rows (a quad) x 2 units; after the reduce-scatter the lanes with
-  // (lane & 3) == 0 own row lane >> 3 of unit (lane >> 2) & 1.
-  using Own = rnn::Owner<4, 2, 32>;
-  const Own own(lane);
+  // The pairs' operands of block b at step t: xp, c and keep[t+1].
+  float xv[kSlots][G], cin[kSlots], kn[kSlots];
+  auto operands = [&](int t, int b) {
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      const int row = row_lo + b * kBlock + rt + 32 * i;
+      const bool ok = row < row_hi && row < B && unit < H;
+      const size_t bt = static_cast<size_t>(row) * Tn + t;
+#pragma unroll
+      for (int q = 0; q < G; ++q) xv[i][q] = ok ? xp[bt * H4 + q * H + unit] : 0.0f;
+      cin[i] = ok ? cells[static_cast<size_t>(row) * Kp + unit] : 0.0f;
+      kn[i] = kReset && ok && t + 1 < Tn ? keep[bt + 1] : 1.0f;
+    }
+  };
+  operands(0, 0);
+  grid_sync(bar, NG);
+
+  const int blocks = (row_hi - row_lo + kBlock - 1) / kBlock;
+  unsigned long long phase_t = 0;  // the clock probes' (GRID_PHASE)
+  GRID_PHASE(phase_t, 15);
   for (int t = 0; t < Tn; ++t) {
     const float* hc = hbuf + (t & 1) * plane;
     float* hn = hbuf + ((t + 1) & 1) * plane;
-    for (int task = warp; task < (at.r1 - at.r0) * 4; task += kGridThreads / 32) {
-      const int rq = at.r0 + task / 4, up = task % 4;
-      const int row = 4 * rq + own.row0, unit = 8 * at.tile + 2 * up + own.ut0;
-      const bool ok = own.owner && row < B && unit < H;
-      const size_t bt = static_cast<size_t>(row) * Tn + t;
-      float x[kGates];
+    for (int b = 0; b < blocks; ++b) {
+      if (b > 0) operands(t, b);
+      const int r0 = row_lo + b * kBlock;
+      rnn::grid_f32_product<G, kBlock>(wsm4, ring, hc, Kp, r0, min(kBlock, row_hi - r0),
+                                        plan.stages, phase_t);
 #pragma unroll
-      for (int q = 0; q < kGates; ++q) x[q] = ok ? xp[bt * H4 + q * H + unit] : 0.0f;
-      float acc[4][2][kGates] = {};
-      const float4* h4 = reinterpret_cast<const float4*>(hc + static_cast<size_t>(4 * rq) * Kp) + lane;
-      const float4* wt = wsm4 + (2 * up) * kGates * 32 + lane;
-      for (int j = 0; j < J; ++j) {
-        float4 hv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) hv[r] = __ldcg(h4 + r * (Kp / 4) + 32 * j);
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-#pragma unroll
-          for (int q = 0; q < kGates; ++q) {
-            const float4 w = wt[((j * 8 + u) * kGates + q) * 32];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) dot4(acc[r][u][q], hv[r], w);
-          }
-      }
-      rnn::reduce_scatter<4, 2, 16, 4, 2, kGates>(acc, lane);
-      if (!ok) continue;
-      float* cell = cells + static_cast<size_t>(row) * Kp + unit;
-      const float ig = sigmoidf(x[0] + acc[0][0][0]);
-      const float fg = sigmoidf(x[1] + acc[0][0][1]);
-      const float gg = tanhf(x[2] + acc[0][0][2]);
-      const float og = sigmoidf(x[3] + acc[0][0][3]);
-      const float c = fg * *cell + ig * gg;
-      const float h = og * tanhf(c);
-      ys[bt * H + unit] = h;
-      if (cs != nullptr) cs[bt * H + unit] = c;
-      if (t + 1 < Tn) {
-        const float kn = kReset ? keep[bt + 1] : 1.0f;
-        hn[static_cast<size_t>(row) * Kp + unit] = kReset ? __fmul_rn(h, kn) : h;
-        *cell = kReset ? __fmul_rn(c, kn) : c;
-      } else {
-        c_last[static_cast<size_t>(row) * H + unit] = c;
+      for (int i = 0; i < kSlots; ++i) {
+        const int r = rt + 32 * i, row = r0 + r;
+        if (row >= row_hi || row >= B || unit >= H) continue;
+        const size_t bt = static_cast<size_t>(row) * Tn + t;
+        const float ig = sigmoidf(xv[i][0] + rnn::grid_f32_sum<G, kBlock>(ring, r, 0, u));
+        const float fg = sigmoidf(xv[i][1] + rnn::grid_f32_sum<G, kBlock>(ring, r, 1, u));
+        const float gg = tanhf(xv[i][2] + rnn::grid_f32_sum<G, kBlock>(ring, r, 2, u));
+        const float og = sigmoidf(xv[i][3] + rnn::grid_f32_sum<G, kBlock>(ring, r, 3, u));
+        // Every rounding spelled out: the three instantiations (blocks of 32,
+        // 64, 128 rows) must give a row the same bits, and nvcc may contract
+        // a product and a sum into an FMA either way in each.
+        const float c = __fadd_rn(__fmul_rn(fg, cin[i]), __fmul_rn(ig, gg));
+        const float h = og * tanhf(c);
+        ys[bt * H + unit] = h;
+        if (cs != nullptr) cs[bt * H + unit] = c;
+        if (t + 1 < Tn) {
+          const size_t at_k = static_cast<size_t>(row) * Kp + unit;
+          hn[at_k] = kReset ? __fmul_rn(h, kn[i]) : h;
+          cells[at_k] = kReset ? __fmul_rn(c, kn[i]) : c;
+        } else {
+          c_last[static_cast<size_t>(row) * H + unit] = c;
+        }
       }
     }
-    if (t + 1 < Tn) grid_sync(bar, G * (t + 2));
+    GRID_PHASE(phase_t, 4);
+    if (t + 1 < Tn) {
+      rnn::grid_arrive(bar);
+      GRID_PHASE(phase_t, 5);
+      operands(t + 1, 0);  // off the chain, and out of the arrive's fence
+      GRID_PHASE(phase_t, 6);
+      rnn::grid_wait(bar, NG * (t + 2));
+      GRID_PHASE(phase_t, 7);
+    }
   }
 }
 
@@ -1852,10 +1878,11 @@ int seqrec_lstm_backward_mma(const void* i, const void* f, const void* g,
 // dtype, keep [B, T] float (1 - reset) or null, c_last [B, H] and cs
 // [B, T, H] (null: not written) float; w_pack ops/cuda/gru.py grid_pack's
 // packing of W_h (bf16: [tiles][Kp/16][4][32] x 16 bytes; float:
-// [tiles][Kp/128][8][4][32] float4); ws a zeroed workspace of
+// [tiles][Kp/4][4][8] float4); ws a zeroed workspace of
 // grid_workspace(B, H, dtype, forward) bytes. All contiguous, 16-byte
-// aligned; H % 4 == 0, 256 < H. groups, smem_bytes and ws_bytes as the
-// caller computed them, checked again here (rnn::grid_check).
+// aligned; H % 4 == 0, 256 < H. groups, smem_bytes (float: W_h and the
+// ring, rnn::GridF32Plan) and ws_bytes as the caller computed them, checked
+// again here (rnn::grid_check).
 int seqrec_lstm_forward_grid(const void* xp, const void* h0, const void* c0, const void* w_pack,
                              const void* keep, void* ys, void* c_last, void* cs, void* ws, int B,
                              int Tn, int H, int dtype, int groups, long long smem_bytes,
@@ -1864,14 +1891,14 @@ int seqrec_lstm_forward_grid(const void* xp, const void* h0, const void* c0, con
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const bool bf16 = dtype == 1;
   const int rc = rnn::grid_check(B, Tn, H, bf16, kGates, groups, smem_bytes, ws_bytes,
-                                 grid_workspace(B, H, bf16, false), &grid);
+                                 grid_workspace(B, H, bf16, false), true, &grid);
   if (rc != 0) return rc;
   const float* x = static_cast<const float*>(xp);
   const float* kp = static_cast<const float*>(keep);
   float* cl = static_cast<float*>(c_last);
   float* cp = static_cast<float*>(cs);
   unsigned char* w = static_cast<unsigned char*>(ws);
-  const int smem = rnn::grid_smem(H, bf16, kGates);
+  const int smem = static_cast<int>(smem_bytes);  // grid_check's
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     const auto* h = static_cast<const __nv_bfloat16*>(h0);
@@ -1886,9 +1913,12 @@ int seqrec_lstm_forward_grid(const void* xp, const void* h0, const void* c0, con
   const auto* c = static_cast<const float*>(c0);
   const auto* wf = static_cast<const float4*>(w_pack);
   auto* y = static_cast<float*>(ys);
-  return kp == nullptr
-             ? rnn::launch_grid(lstm_forward_grid_f32_kernel<false>, grid, smem, s, x, h, c, wf, kp, y, cl, cp, w, B, Tn, H, groups)
-             : rnn::launch_grid(lstm_forward_grid_f32_kernel<true>, grid, smem, s, x, h, c, wf, kp, y, cl, cp, w, B, Tn, H, groups);
+  using K = decltype(&lstm_forward_grid_f32_kernel<false, 32>);
+  static const K k[2][3] = {
+      {lstm_forward_grid_f32_kernel<false, 32>, lstm_forward_grid_f32_kernel<false, 64>, lstm_forward_grid_f32_kernel<false, 128>},
+      {lstm_forward_grid_f32_kernel<true, 32>, lstm_forward_grid_f32_kernel<true, 64>, lstm_forward_grid_f32_kernel<true, 128>}};
+  return rnn::launch_grid_f32(rnn::grid_f32_plan(B, H, groups, kGates).block, k[kp != nullptr],
+                              grid, smem, s, x, h, c, wf, kp, y, cl, cp, w, B, Tn, H, groups);
 }
 
 // The grid-persistent reverse recurrence above H = 256 (dtype 0 float, 1
@@ -1908,7 +1938,7 @@ int seqrec_lstm_backward_grid(const void* i, const void* f, const void* g, const
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const bool bf16 = dtype == 1;
   const int rc = rnn::grid_check(B, Tn, H, bf16, kGates, groups, smem_bytes, ws_bytes,
-                                 grid_workspace(B, H, bf16, true), &grid);
+                                 grid_workspace(B, H, bf16, true), false, &grid);
   if (rc != 0) return rc;
   const float* pi = static_cast<const float*>(i);
   const float* pf = static_cast<const float*>(f);

@@ -926,6 +926,31 @@ __device__ __forceinline__ void grid_sync(unsigned* ctr, unsigned target) {
   __syncthreads();
 }
 
+// grid_sync split in two for the f32 forwards, with work between that reads
+// nothing another CTA writes before the barrier (each thread's own
+// operands of the next step). The wait has no fence after its acquire
+// load: the acquire orders thread 0's later reads, the CTA barrier the
+// other threads' (the PTX model's causality order), and a fence there
+// would also wait for the operands thread 0 has just asked of memory (xp
+// from device memory), on the step's serial chain.
+__device__ __forceinline__ void grid_arrive(unsigned* ctr) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(ctr) : "memory");
+  }
+}
+__device__ __forceinline__ void grid_wait(unsigned* ctr, unsigned target) {
+  if (threadIdx.x == 0) {
+    unsigned v, spins = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(ctr) : "memory");
+      if (++spins == (1u << 28)) __trap();
+    } while (v < target);
+  }
+  __syncthreads();
+}
+
 __device__ __forceinline__ float ldcg_bf16(const __nv_bfloat16* p) {
   return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
 }
@@ -933,10 +958,11 @@ __device__ __forceinline__ float ldcg_bf16(const __nv_bfloat16* p) {
 // The CTA's place: unit slice `tile` of `tiles`, row group `group` of
 // `groups`; its row tiles [r0, r1) of `row_tiles` (kGridRowTile rows each).
 struct GridPlace {
-  int tile, r0, r1;
+  int tile, group, r0, r1;
   __device__ GridPlace(int tiles, int row_tiles, int groups) {
     tile = blockIdx.x % tiles;
-    const int group = blockIdx.x / tiles, per = (row_tiles + groups - 1) / groups;
+    group = blockIdx.x / tiles;
+    const int per = (row_tiles + groups - 1) / groups;
     r0 = group * per;
     r1 = min(row_tiles, r0 + per);
   }
@@ -970,13 +996,232 @@ int launch_grid(void (*kernel)(Params...), int grid, int smem, cudaStream_t s, A
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Above H = 256, the f32 forwards: a step's product as a CTA GEMM
+// ---------------------------------------------------------------------------
+//
+// gru.cu's and lstm.cu's f32 grid forwards share this. A CTA's product of a
+// step is [its rows x Kp] . [Kp x 8 units x G gates], h_in(t)'s rows
+// against the CTA's W_h values. The rows go through it in blocks of
+// `block` rows (32, 64 or 128; a CTA holding more walks several blocks).
+// For each block h's rows come from L2 once, in K chunks of kGfChunk
+// columns through a ring of `stages` chunks in shared memory (cp.async.cg,
+// 16-byte pieces: L2 only, so nothing is stale after the grid barrier's
+// acquire), `stages` - 1 chunks in flight while one is multiplied. The 8
+// warps are 2 row warps x kGfKSplit slices of each chunk's columns, 16
+// columns a slice. A warp is 8 row lanes x 4 column lanes; a thread sums
+// `rows` rows (block / 16: row lane + 8 i, so that the 8 rows of one load
+// sit in 8 distinct bank groups, the ring's rows padded by 4 floats) x 2
+// units (column lane + 4 m) x G gates: each h float4 it loads from shared
+// memory serves 2 G of its sums and each W_h float4 (one address for the
+// warp's 8 row lanes) `rows` of them, 14 (GRU) and 16 (LSTM) 16-byte loads
+// to 192 and 256 FMAs at 8 rows. The products run at about 60% of the
+// card's FFMA issue rate, the rate this repository's other SIMT loops
+// reach (kernel_probes.py grid_f32 and xproj). Each thread writes its
+// partial sums to shared memory (the ring's bytes, once drained); the gate
+// math adds a pair's slices in slice order, so the bits repeat from run to
+// run, and no sum is atomic. The slicing is the same in every block, so a
+// row's sums are the same bits whatever the batch around it (a serving
+// batch's rows are the training batch's). The block is a template
+// parameter of the kernels (GfShape), so that a chunk's loop unrolls with
+// every offset known.
+constexpr int kGfMaxBlock = 128;  // rows a block at most
+constexpr int kGfKSplit = 4;      // K slices: the 16-column groups g of a row's sum, by g % 4
+constexpr int kGfSpan = 16;       // a K slice's columns of a chunk
+constexpr int kGfChunk = kGfSpan * kGfKSplit;
+constexpr int kGfMaxStages = 8;
+constexpr int kGfSmem = 232448;   // shared memory a CTA may opt in to on sm_90
+// A CTA reads only its row group's rows of h, so the f32 forwards wait on
+// a barrier of their row group's CTAs: a counter a group, this many bytes
+// apart in the workspace's first kGridCounter bytes (4 groups; the
+// layout takes at most 132 / 33 = 4 beside 33 unit slices and more).
+constexpr int kGfCounterStride = 64;
+
+#ifdef SEQREC_GRID_PHASE_CLOCKS
+// A probe build's clocks (kernel_probes.py grid_f32; never the package's):
+// cycles of each phase of a step in CTA 0's thread 0, summed over the
+// steps; and a mode that leaves out h's copies (bit 0) or the products
+// (bit 1), for timing alone.
+__device__ unsigned long long g_grid_phase[16];
+__device__ int g_grid_mode;
+#define GRID_PHASE(t, i)                                 \
+  do {                                                   \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {           \
+      const unsigned long long now_ = clock64();         \
+      ::rnn::g_grid_phase[i] += now_ - (t);              \
+      (t) = now_;                                        \
+    }                                                    \
+  } while (0)
+#define GRID_PROBE_SKIP(bit) ((::rnn::g_grid_mode & (bit)) != 0)
+#else
+#define GRID_PHASE(t, i) \
+  do {                   \
+  } while (0)
+#define GRID_PROBE_SKIP(bit) false
+#endif
+
+// The plan of one CTA's step (ops/cuda/gru.py grid_f32_plan computes the
+// same): `rows` the rows a row group holds at most, `Kp` K padded, G the
+// gates. The block is the smallest of 32, 64 and 128 rows that holds them
+// (128 past that). Shared memory: W_h's 32 G Kp bytes, then the larger of
+// the ring (`stages` x `block` x (kGfChunk + 4) floats) and the partial
+// sums (kGfKSplit x block rows of 8 G + 4 floats). `stages` as many as
+// fit, up to the chunks of a step and kGfMaxStages; at least 2 (`ok`).
+struct GridF32Plan {
+  int block, stages, smem;
+  __host__ __device__ GridF32Plan(int rows, int Kp, int G) {
+    block = 32;
+    while (block < rows && block < kGfMaxBlock) block *= 2;
+    const int chunk = kGfChunk;
+    const int stage = block * (chunk + 4) * 4, weights = 32 * G * Kp;
+    const int red = kGfKSplit * block * (8 * G + 4) * 4;
+    int s = (kGfSmem - weights) / stage;
+    if (s > Kp / chunk) s = Kp / chunk;
+    if (s > kGfMaxStages) s = kGfMaxStages;
+    stages = s;
+    smem = weights + (s * stage > red ? s * stage : red);
+  }
+  __host__ __device__ bool ok() const { return stages >= 2 && smem <= kGfSmem; }
+};
+
+// GridF32Plan's shape of a block of kBlock rows, known at compile time.
+template <int kBlock>
+struct GfShape {
+  static_assert(kBlock == 32 || kBlock == 64 || kBlock == 128, "block");
+  static constexpr int row_warps = kGridThreads / 32 / kGfKSplit, k_split = kGfKSplit;
+  static constexpr int warp_rows = kBlock / row_warps, rows = warp_rows / 8;
+  static constexpr int chunk = kGfChunk, pitch = chunk + 4, stage = kBlock * pitch;
+  static constexpr int slots = kBlock / 32;  // a gate-math thread's pairs
+};
+
+// Wait until at most n (0 .. kGfMaxStages - 2) committed groups are in flight.
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  switch (n) {
+    case 0: mma::cp_async_wait<0>(); break;
+    case 1: mma::cp_async_wait<1>(); break;
+    case 2: mma::cp_async_wait<2>(); break;
+    case 3: mma::cp_async_wait<3>(); break;
+    case 4: mma::cp_async_wait<4>(); break;
+    case 5: mma::cp_async_wait<5>(); break;
+    default: mma::cp_async_wait<6>(); break;
+  }
+}
+
+// One block's product: rows [row_lo, row_lo + nvalid) of the h plane `hc`
+// ([rows][Kp] f32 in the workspace) against wsm4, W_h's values of the
+// CTA's units ([Kp/4][G][8 units] float4 of 4 consecutive k), through a
+// ring of S stages. Afterwards ring[(s kBlock + r) (8 G + 4) + q 8 + u]
+// holds slice s's partial sum of block row r, gate q, unit u, for s <
+// k_split (read after it returns; the next call's first barrier keeps its
+// copies off them until then). `phase_t`: the clock probes' running time
+// (GRID_PHASE; unused unless a probe build defines it).
+template <int G, int kBlock>
+__device__ __forceinline__ void grid_f32_product(const float4* __restrict__ wsm4, float* ring,
+                                                 const float* hc, int Kp, int row_lo, int nvalid,
+                                                 int S, unsigned long long& phase_t) {
+  using P = GfShape<kBlock>;
+  constexpr int C = P::chunk, pitch = P::pitch, stage = P::stage, R = P::rows;
+  constexpr int pieces = C / 4;  // 16-byte pieces of a row's chunk
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, rl = lane & 7, cl = lane >> 3;
+  const int wr = warp % P::row_warps, kw = warp / P::row_warps, J = Kp / C;
+  __syncthreads();  // the last block's gate math has read the ring
+  auto issue = [&](int j) {
+    if (j < J && !GRID_PROBE_SKIP(1)) {
+      float* dst = ring + (j % S) * stage;
+      const float* src = hc + static_cast<size_t>(row_lo) * Kp + j * C;
+      for (int c = tid; c < nvalid * pieces; c += kGridThreads) {
+        const int r = c / pieces, q = c % pieces;
+        mma::cp_async16_zfill(dst + r * pitch + 4 * q, src + static_cast<size_t>(r) * Kp + 4 * q, 16);
+      }
+    }
+    mma::cp_async_commit();  // an empty group past the last keeps the count
+  };
+  for (int j = 0; j < S - 1; ++j) issue(j);
+  float acc[R][2][G] = {};
+  const bool active = wr * P::warp_rows < nvalid;  // a warp whose rows all lie past the block's skips
+  const float* hrow = ring + (wr * P::warp_rows + rl) * pitch + kw * kGfSpan;
+  for (int j = 0; j < J; ++j) {
+    cp_async_wait_dyn(S - 2);  // this thread's pieces of chunk j have landed
+    __syncthreads();           // and everyone's; chunk j - 1 is done with
+    GRID_PHASE(phase_t, j == 0 ? 0 : 1);
+    issue(j + S - 1);          // into chunk j - 1's stage
+    if (!active || GRID_PROBE_SKIP(2)) continue;
+    const float* hs = hrow + (j % S) * stage;
+    const float4* wk = wsm4 + static_cast<size_t>((j * C + kw * kGfSpan) >> 2) * (8 * G) + cl;
+#pragma unroll
+    for (int kk = 0; kk < kGfSpan / 4; ++kk) {
+      float4 w[G][2];
+#pragma unroll
+      for (int q = 0; q < G; ++q)
+#pragma unroll
+        for (int m = 0; m < 2; ++m) w[q][m] = wk[(kk * G + q) * 8 + 4 * m];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float4 h = *reinterpret_cast<const float4*>(hs + 8 * i * pitch + 4 * kk);
+#pragma unroll
+        for (int q = 0; q < G; ++q)
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            float& a = acc[i][m][q];
+            a = fmaf(h.x, w[q][m].x, a);
+            a = fmaf(h.y, w[q][m].y, a);
+            a = fmaf(h.z, w[q][m].z, a);
+            a = fmaf(h.w, w[q][m].w, a);
+          }
+      }
+    }
+    GRID_PHASE(phase_t, 2);
+  }
+  mma::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: its bytes take the partial sums
+  constexpr int rs = 8 * G + 4;
+  float* red = ring + (kw * kBlock + wr * P::warp_rows + rl) * rs + cl;
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int q = 0; q < G; ++q)
+#pragma unroll
+      for (int m = 0; m < 2; ++m) red[8 * i * rs + q * 8 + 4 * m] = acc[i][m][q];
+  __syncthreads();
+  GRID_PHASE(phase_t, 3);
+}
+
+// A gate-math thread's full sum of gate q for block row r, unit u: the
+// slices' partial sums added in slice order.
+template <int G, int kBlock>
+__device__ __forceinline__ float grid_f32_sum(const float* ring, int r, int q, int u) {
+  constexpr int rs = 8 * G + 4;
+  const float* v = ring + r * rs + q * 8 + u;
+  float s = v[0];
+#pragma unroll
+  for (int k = 1; k < GfShape<kBlock>::k_split; ++k) s += v[k * kBlock * rs];
+  return s;
+}
+
+// Launch the instantiation of a kernel for the plan's block: `k` its
+// instantiations for blocks of 32, 64 and 128 rows.
+template <typename... Params, typename... Args>
+int launch_grid_f32(int block, void (*const (&k)[3])(Params...), int grid, int smem,
+                    cudaStream_t s, Args... args) {
+  const int i = block == 32 ? 0 : block == 64 ? 1 : block == 128 ? 2 : -1;
+  if (i < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_grid(k[i], grid, smem, s, args...);
+}
+
+// The plan of an f32 forward of `groups` row groups.
+__host__ inline GridF32Plan grid_f32_plan(int B, int H, int groups, int G) {
+  const int row_tiles = grid_rows(B, false) / kGridRowTile(false);
+  return GridF32Plan((row_tiles + groups - 1) / groups * kGridRowTile(false), grid_kpad(H, false), G);
+}
+
 // What the grid entry points check: H past kGridAbove (the grid layouts are
 // chosen only there), H % 4 == 0, the unit slices and row groups within the
 // card's SMs, the shared memory of `gates` gates within the 227 KB a CTA
 // may have, and the caller's shared-memory size and workspace size (`ws_want`
-// as the kernel's file computes it).
+// as the kernel's file computes it). The f32 forwards (`f32_forward`) take
+// GridF32Plan's shared memory (W_h, then the ring), which must be `ok`.
 int grid_check(int B, int Tn, int H, bool bf16, int gates, int groups, long long smem_bytes,
-               long long ws_bytes, size_t ws_want, int* grid) {
+               long long ws_bytes, size_t ws_want, bool f32_forward, int* grid) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || Tn <= 0 || H <= kGridAbove || H % 4 != 0 || groups <= 0) return bad;
   int dev = 0, sms = 0;
@@ -986,8 +1231,14 @@ int grid_check(int B, int Tn, int H, bool bf16, int gates, int groups, long long
   const int tiles = (H + kGridUnits(bf16) - 1) / kGridUnits(bf16);
   const int row_tiles = grid_rows(B, bf16) / kGridRowTile(bf16);
   *grid = tiles * groups;
-  if (groups > row_tiles || *grid > sms || grid_smem(H, bf16, gates) > 232448 ||
-      smem_bytes != grid_smem(H, bf16, gates) || ws_bytes != static_cast<long long>(ws_want)) {
+  int want = grid_smem(H, bf16, gates);
+  if (f32_forward && !bf16) {
+    const GridF32Plan plan = grid_f32_plan(B, H, groups, gates);
+    if (!plan.ok() || groups * kGfCounterStride > kGridCounter) return bad;
+    want = plan.smem;
+  }
+  if (groups > row_tiles || *grid > sms || want > kGfSmem || smem_bytes != want ||
+      ws_bytes != static_cast<long long>(ws_want)) {
     return bad;
   }
   return 0;

@@ -163,10 +163,17 @@ GRID_THREADS = 256  # kGridThreads: 8 warps a CTA
 GRID_COUNTER = 256  # kGridCounter: workspace bytes before the planes (the barrier's counter)
 # kGridUnits, kGridK, kGridRowTile: units a CTA (bf16 one m16 tile), the
 # multiple K pads to (bf16 two k16 steps a 16-byte read; f32 a warp's 32
-# float4s) and the rows a task (bf16 two n8 tiles; f32 a quad).
+# float4s) and the rows a task (bf16 two n8 tiles; f32 a quad: the row
+# groups' unit, and the reverse's task).
 GRID_UNITS = {torch.bfloat16: 16, torch.float32: 8}
 GRID_K = {torch.bfloat16: 32, torch.float32: 128}
 GRID_ROW_TILE = {torch.bfloat16: 16, torch.float32: 4}
+# The f32 forwards' step product (csrc/rnn.cuh grid_f32_product, GridF32Plan):
+GRID_F32_MAX_BLOCK = 128  # kGfMaxBlock: rows a block at most
+GRID_F32_K_SPLIT = 4  # kGfKSplit: K slices, the same in every block (a row's bits whatever its batch)
+GRID_F32_SPAN = 16  # kGfSpan: a K slice's columns of a chunk
+GRID_F32_MAX_STAGES = 8  # kGfMaxStages: the ring's chunks at most
+GRID_F32_COUNTER_STRIDE = 64  # kGfCounterStride: a row group's barrier counter, bytes apart
 GATE_THREADS = 256  # kStepThreads in csrc/rnn.cuh: a stepped layout's gate kernel block
 # The stepped layouts' bf16 step GEMM (csrc/step_gemm.cuh):
 STEP_GEMM_THREADS = 256  # kSgThreads: two warpgroups
@@ -530,11 +537,65 @@ def grid_layout(B: int, H: int, dtype: torch.dtype, gates: int, plane_bytes: int
             "max_hidden": grid_max_hidden(dtype, gates)}
 
 
+def grid_f32_plan(rows: int, kp: int, gates: int) -> Dict:
+    """The f32 grid forwards' step product (csrc/rnn.cuh GridF32Plan, which
+    the C side computes again and checks against `smem_bytes`): a CTA's
+    `rows` (its row group's, at most) go through the product in blocks of
+    `ring_rows` (the smallest of 32, 64 and 128 that holds them; 128 past
+    that, `row_blocks` of them). The 8 warps are 2 row warps x `k_split`
+    (GRID_F32_K_SPLIT) slices of each `chunk` of K (GRID_F32_SPAN columns a
+    slice); a warp is 8 row lanes x 4 column lanes, a thread `thread_rows`
+    rows (ring_rows / 16) x 2 units x the gates. The slicing is the same in
+    every block, so that a row's sums are the same bits whatever the batch
+    around it. h's rows arrive through a ring of `stages` chunks (each row
+    padded by 4 floats), as many as fit beside W_h's 32 gates Kp bytes, up
+    to the chunks of a step and GRID_F32_MAX_STAGES. `smem_bytes`: W_h, then
+    the larger of the ring and the partial sums (k_split x ring_rows rows of
+    8 gates + 4 floats), whose bytes it shares. ValueError outside the plan
+    (fewer than 2 stages, or over SMEM_LIMIT)."""
+    block = 32
+    while block < rows and block < GRID_F32_MAX_BLOCK:
+        block *= 2
+    k_split = GRID_F32_K_SPLIT
+    chunk = GRID_F32_SPAN * k_split
+    stage = block * (chunk + 4) * 4
+    weights = 32 * gates * kp
+    red = k_split * block * (8 * gates + 4) * 4
+    stages = min((SMEM_LIMIT - weights) // stage, kp // chunk, GRID_F32_MAX_STAGES)
+    smem = weights + max(stages * stage, red)
+    if stages < 2 or smem > SMEM_LIMIT or rows <= 0 or kp % 128:
+        raise ValueError(f"grid f32 forward: no plan for {rows} rows a CTA at Kp={kp} with "
+                         f"{gates} gates ({stages} stages of {stage} bytes beside {weights} "
+                         f"bytes of W_h; SMEM_LIMIT {SMEM_LIMIT})")
+    return {"ring_rows": block, "row_blocks": -(-rows // block), "thread_rows": block // 16,
+            "k_split": k_split, "chunk": chunk, "stages": stages, "smem_bytes": smem}
+
+
+def grid_forward_layout(B: int, H: int, dtype: torch.dtype, gates: int,
+                        plane_bytes: int) -> Dict:
+    """`grid_layout` of a forward: in f32 with the step product's plan
+    (`grid_f32_plan` at the row group's rows), whose shared memory it takes,
+    and a barrier counter a row group (GRID_F32_COUNTER_STRIDE bytes apart
+    in the workspace's GRID_COUNTER bytes: at most 4 groups, which the
+    layout never passes beside 33 unit slices or more on NUM_SMS)."""
+    cfg = grid_layout(B, H, dtype, gates, plane_bytes)
+    if dtype == torch.float32:
+        if cfg["row_groups"] * GRID_F32_COUNTER_STRIDE > GRID_COUNTER:
+            raise ValueError(f"grid f32 forward: {cfg['row_groups']} row groups, each a barrier "
+                             f"counter {GRID_F32_COUNTER_STRIDE} bytes apart, overrun the "
+                             f"workspace's {GRID_COUNTER} counter bytes")
+        cfg.update(grid_f32_plan(cfg["rows_per_group"], cfg["k_padded"], gates))
+    return cfg
+
+
 def grid_config(B: int, H: int, dtype: torch.dtype, reverse: bool) -> Dict:
-    """The GRU's grid layout (`grid_layout` with three gates): its workspace
-    holds the forward's h buffers [2][rows][Kp] or the reverse's d_hproj
-    buffers and carry (gru.cu's grid_workspace)."""
-    return grid_layout(B, H, dtype, 3, 28 if reverse else 2 * dtype.itemsize)
+    """The GRU's grid layout (`grid_layout` with three gates; the f32
+    forward's `grid_forward_layout`): its workspace holds the forward's h
+    buffers [2][rows][Kp] or the reverse's d_hproj buffers and carry
+    (gru.cu's grid_workspace)."""
+    if reverse:
+        return grid_layout(B, H, dtype, 3, 28)
+    return grid_forward_layout(B, H, dtype, 3, 2 * dtype.itemsize)
 
 
 def not_cluster(rows_per_cluster, cluster_size, H: int, who: str = "gru") -> None:
@@ -897,9 +958,10 @@ def grid_pack(w_h: torch.Tensor, dtype: torch.dtype, reverse: bool) -> torch.Ten
     units 16 tile + 8 mh + g at k = 32 c + 8 q + 4 kk + 2 kh (+ 1).
     Forward: A = W_h^T of each gate, [tiles][Kp/16][G][32][8]; reverse:
     A[unit][q Kp + j] = W_h[unit, q H + j], [tiles][G Kp/16][32][8].
-    f32, the values a lane's float4 k = 128 j + 4 lane reads: forward
-    [tiles][Kp/128][8 units][G gates][32][4] of W_h[k, q H + unit];
-    reverse [tiles][G Kp/128][8 units][32][4] of W_h[unit, column]."""
+    f32 forward, float4s of 4 consecutive k (the step product's, csrc/rnn.cuh
+    grid_f32_product): [tiles][Kp/4][G gates][8 units][4] of W_h[4 kk + e,
+    q H + unit]; reverse, the values a lane's float4 k = 128 j + 4 lane
+    reads: [tiles][G Kp/128][8 units][32][4] of W_h[unit, column]."""
     H = w_h.shape[0]
     G = w_h.shape[1] // H
     units, kp = GRID_UNITS[dtype], _grid_kpad(H, dtype)
@@ -918,8 +980,8 @@ def grid_pack(w_h: torch.Tensor, dtype: torch.dtype, reverse: bool) -> torch.Ten
         a = pad(w, (0, kp - H, 0, 0, 0, units * tiles - H)).reshape(tiles, 8, G * kp // 128, 32, 4)
         return a.permute(0, 2, 1, 3, 4).contiguous()
     a = pad(w, (0, units * tiles - H, 0, 0, 0, kp - H))  # k, gate, unit
-    a = a.reshape(kp // 128, 32, 4, G, tiles, 8)  # j lane e gate tile unit
-    return a.permute(4, 0, 5, 3, 1, 2).contiguous()
+    a = a.reshape(kp // 4, 4, G, tiles, 8)  # kk e gate tile unit
+    return a.permute(3, 0, 2, 4, 1).contiguous()
 
 
 def _check_operands(args, dev) -> None:

@@ -18,7 +18,8 @@ units with their W_h values, all four gates, resident in its shared memory
 (`gru.grid_pack`) for a group of batch rows, the step's vector through L2
 in a zeroed workspace, one grid barrier a step; a (unit, row) pair's four
 gate sums land in one lane, which alone reads and writes its f32 cell in the
-workspace. The reverse publishes each step's dz columns, then forms dh_prev
+workspace (the f32 forward's step is a CTA GEMM that reads h's rows from L2
+once a CTA, `gru.grid_f32_plan`). The reverse publishes each step's dz columns, then forms dh_prev
 from the whole of it (the K split) with no atomics. Up to
 `grid_max_hidden`: 1,792 in bf16, 1,056 in f32. Past it the stepped layout
 (`gru.stepped_config` with four gates, `layout` "stepped", counted again in
@@ -98,7 +99,7 @@ from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.ops import reference
 from seqrec_tpu_torch.ops.cuda.gru import (F32_PROJ_THREADS, MMA_ROWS, RING_STAGES,
                                            SMEM_LIMIT, XPROJ_ARGTYPES, cluster_config,
-                                           grid_layout, grid_pack,
+                                           grid_forward_layout, grid_layout, grid_pack,
                                            grid_max_hidden as _grid_max_hidden,
                                            not_cluster, pad_gates, pad_scan_operands,
                                            padded_backward_route, padded_route, padded_width,
@@ -190,11 +191,14 @@ def grid_max_hidden(dtype: torch.dtype) -> int:
 def grid_config(B: int, H: int, dtype: torch.dtype, reverse: bool) -> Dict:
     """The grid-persistent layout of csrc/lstm.cu above MAX_HIDDEN
     (`gru.grid_layout` with four gates: a CTA's W_h values are 128 Kp
-    bytes). Its workspace (lstm.cu's grid_workspace): the forward's h
+    bytes; the f32 forward's `gru.grid_forward_layout`, W_h and the step
+    product's ring). Its workspace (lstm.cu's grid_workspace): the forward's h
     buffers [2][rows][Kp] of the dtype and the f32 cell plane [rows][Kp];
     the reverse's dz buffers (32 bytes a (row, k): [2][hi, lo][rows][4 Kp]
     bf16 or [2][rows][4 Kp] f32) and the f32 dh and dc carries."""
-    return grid_layout(B, H, dtype, GRID_GATES, 40 if reverse else 2 * dtype.itemsize + 4)
+    if reverse:
+        return grid_layout(B, H, dtype, GRID_GATES, 40)
+    return grid_forward_layout(B, H, dtype, GRID_GATES, 2 * dtype.itemsize + 4)
 
 
 def _padded(H: int) -> int:

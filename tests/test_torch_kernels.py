@@ -1919,10 +1919,17 @@ def test_head_kernel_takes_every_width_twice(cuda, dtype, H):
 
 GRID_SHAPES = [(H, B, T) for H in (260, 384, 512, 1000, 1024) for B in (1, 3, 8, 256)
                for T in (1, 7, 50)]
+# The forwards' edges of the f32 step product's plan (gru.grid_f32_plan): H =
+# 516 and the f32 limit 1,056, B = 5 (a row group of 4 rows and one of 1),
+# T = 2 and 3 (a carried-in h0 read back from the other buffer), past 256
+# rows a row group (B = 300 at 1,056: one group, two blocks; B = 600 at 512:
+# two groups of 300 rows).
+GRID_FWD_EDGES = [(516, 5, 2), (516, 5, 3), (1056, 5, 2), (1056, 5, 3), (516, 256, 3),
+                  (1056, 256, 3), (1056, 1, 2), (1056, 300, 3), (512, 600, 3)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,B,T", GRID_SHAPES)
+@pytest.mark.parametrize("H,B,T", GRID_SHAPES + GRID_FWD_EDGES)
 def test_gru_grid_forward_matches_plain_twice(cuda, H, B, T, dtype):
     """The GRU forward above H = 256 (one cooperative launch, each CTA a
     slice of the units with their W_h values in shared memory, h through L2
@@ -1946,6 +1953,37 @@ def test_gru_grid_forward_matches_plain_twice(cuda, H, B, T, dtype):
         if reset is not None:
             assert torch.equal(k_gru.gru_scan(*args, reset_mask=torch.zeros_like(reset))[0],
                                k_gru.gru_scan(*args)[0])
+
+
+@pytest.mark.parametrize("reset", [False, True])
+@pytest.mark.parametrize("H,B,firsts", [(512, 256, (64, 5, 1)), (1000, 256, (130, 64)),
+                                        (1056, 300, (129, 3))])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_grid_forward_f32_rows_alone_are_the_batchs_bits(cuda, cell, H, B, firsts, reset):
+    """The f32 grid forwards (both cells, both variants, T = 3 with a
+    carried-in state): a batch's first n rows run alone give the batch's
+    bits for those rows, where n rows take another plan (row groups,
+    blocks of 32, 64 or 128 rows, rows a thread, blocks walked): the step
+    product slices K the same in every plan (gru.grid_f32_plan), so a row's
+    sums do not depend on the batch around it; as chip_smoke's serving
+    batch check at the wide LSTM."""
+    T = 3
+    if cell == "gru":
+        args = _gru_args(B, T, H, H, torch.float32, cuda, seed=H + B)
+        scan, batch_args = k_gru.gru_scan, (0, 1)
+    else:
+        args = _lstm_args(B, T, H, H, torch.float32, cuda, seed=H + B)
+        scan, batch_args = k_lstm.lstm_scan, (0, 1, 2)
+    mod = k_gru if cell == "gru" else k_lstm
+    plane = _reset_plane(B, T, cuda, seed=H) if reset else None
+    ys = scan(*args, reset_mask=plane)[0]
+    plans = {mod.launch_config(B, T, H, H, torch.float32)["ring_rows"]}
+    for n in firsts:
+        part = [a[:n] if i in batch_args else a for i, a in enumerate(args)]
+        assert torch.equal(scan(*part, reset_mask=None if plane is None else plane[:n])[0],
+                           ys[:n]), n
+        plans.add(mod.launch_config(n, T, H, H, torch.float32)["ring_rows"])
+    assert len(plans) > 1  # the rows alone ran another plan
 
 
 @pytest.mark.parametrize("dtype,h_in_dtype", [(torch.float32, torch.float32),
@@ -2089,7 +2127,7 @@ def _lstm_grid_forward_twice(args, reset, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,B,T", LSTM_GRID_SHAPES)
+@pytest.mark.parametrize("H,B,T", LSTM_GRID_SHAPES + GRID_FWD_EDGES)
 def test_lstm_grid_forward_matches_plain_twice(cuda, H, B, T, dtype):
     """The LSTM forward above H = 256 (one cooperative launch, each CTA a
     slice of the units with their W_h values of four gates in shared memory,
@@ -2097,11 +2135,12 @@ def test_lstm_grid_forward_matches_plain_twice(cuda, H, B, T, dtype):
     both variants (with a carried-in h0, c0): within the dtype's tolerance
     of the plain version, two launches bit for bit; an all-zero reset plane
     gives the no-reset kernel's bits; the f32 cell plane it writes for the
-    backward is the plain serial recompute's, and c_last its last step."""
+    backward is the plain serial recompute's, c_last its last step, and ys
+    with the cell plane written are the bits of ys without it."""
     args = _lstm_args(B, T, H, H, dtype, cuda, seed=H + B + T)
     assert k_lstm.launch_config(B, T, H, H, dtype)["layout"] == "grid"
     for reset in (None, _reset_plane(B, T, cuda, seed=H)):
-        _lstm_grid_forward_twice(args, reset, dtype)
+        ys_scan = _lstm_grid_forward_twice(args, reset, dtype)
         if reset is not None:
             zero = k_lstm.lstm_scan(*args, reset_mask=torch.zeros_like(reset))
             base = k_lstm.lstm_scan(*args)
@@ -2113,6 +2152,7 @@ def test_lstm_grid_forward_matches_plain_twice(cuda, H, B, T, dtype):
         x_proj = torch.matmul(x.float(), wx.float()) + b
         cells = reference.lstm_recompute_cells(x_proj, ys, h0, c0, wh, reset)
         torch.testing.assert_close(cs, cells, rtol=1e-4, atol=1e-4)
+        assert torch.equal(ys, ys_scan)
         assert torch.equal(c_last, cs[:, -1])
 
 
@@ -2287,6 +2327,37 @@ def test_attention_cluster_descriptor_control_fails(cuda):
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     assert not err <= tol, err  # NaN fails the check too
+
+
+def test_attention_cluster_epilogue_quotient_is_a_divide(cuda):
+    """The bf16 Dh-cluster epilogue's o = acc / l (csrc/attention.cu
+    markstein_quotient: the reciprocal of max(l, 1e-30) rounded once, then
+    q = acc y and one FMA correction) is __fdiv_rn's quotient bit for bit
+    (kernel_probes_attention.cu's probe, built by kernel_probes.py) over l
+    across its range (a softmax row's sum: 1 to 2^20, log-uniform, with the
+    powers of two and l = 1 itself) and acc = l u, u of either sign from
+    2^-40 to 2^40 in magnitude (an output in the range of the bf16 values it
+    averages), and acc = 0."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import kernel_probes
+
+    rng = np.random.default_rng(26)
+    n = 1 << 22
+    l = np.exp2(rng.uniform(0.0, 20.0, size=n)).astype(np.float32)
+    l[:21] = np.exp2(np.arange(21)).astype(np.float32)
+    u = np.exp2(rng.uniform(-40.0, 40.0, size=n)) * rng.choice([-1.0, 1.0], size=n)
+    a = (l.astype(np.float64) * u).astype(np.float32)
+    a[21:64] = 0.0
+    a[64:128] = rng.normal(size=64).astype(np.float32)  # acc of the order of l's own
+    lib = kernel_probes.attention_control_lib()
+    got, want = kernel_probes.epilogue_quotients(lib, torch.from_numpy(a).to(cuda),
+                                                 torch.from_numpy(l).to(cuda))
+    torch.cuda.synchronize()
+    differ = (got.view(torch.int32) != want.view(torch.int32)).sum().item()
+    assert differ == 0, f"{differ} of {n} quotients differ from __fdiv_rn"
 
 
 PAD_SHAPES = [(50, 50), (50, 102), (13, 7), (50, 64)]  # the last pads D alone

@@ -90,9 +90,18 @@ def test_gru_grid_layout_from_260_to_its_limit(dtype):
                 assert cfg["grid"] == cfg["unit_slices"] * cfg["row_groups"] <= cuda_gru.NUM_SMS
                 assert cfg["row_groups"] * cfg["rows_per_group"] >= B
                 assert (cfg["row_groups"] - 1) * cfg["rows_per_group"] < -(-B // tile) * tile
-                assert cfg["smem_bytes"] == 96 * cfg["k_padded"] <= cuda_gru.SMEM_LIMIT
                 assert cfg["k_padded"] >= H and cfg["threads"] == cuda_gru.GRID_THREADS
             fwd, bwd = cfgs[0], cfgs[1]
+            for cfg in cfgs[1:]:
+                assert cfg["smem_bytes"] == 96 * cfg["k_padded"] <= cuda_gru.SMEM_LIMIT
+            # The f32 forward's shared memory is W_h's values and its step
+            # product's ring (grid_f32_plan); the bf16 forward's W_h's alone.
+            if dtype == torch.float32:
+                plan = cuda_gru.grid_f32_plan(fwd["rows_per_group"], fwd["k_padded"], 3)
+                assert {k: fwd[k] for k in plan} == plan
+                assert 96 * fwd["k_padded"] < fwd["smem_bytes"] <= cuda_gru.SMEM_LIMIT
+            else:
+                assert fwd["smem_bytes"] == 96 * fwd["k_padded"] <= cuda_gru.SMEM_LIMIT
             plane = -(-B // tile) * tile * fwd["k_padded"]
             assert fwd["workspace_bytes"] == cuda_gru.GRID_COUNTER + 2 * plane * dtype.itemsize
             assert bwd["workspace_bytes"] == cuda_gru.GRID_COUNTER + 28 * plane

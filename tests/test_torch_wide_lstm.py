@@ -96,8 +96,16 @@ def test_lstm_grid_layout_from_260_to_its_limit(dtype):
                 assert cfg["grid"] == cfg["unit_slices"] * cfg["row_groups"] <= cuda_gru.NUM_SMS
                 assert cfg["row_groups"] * cfg["rows_per_group"] >= B
                 assert (cfg["row_groups"] - 1) * cfg["rows_per_group"] < -(-B // tile) * tile
-                assert cfg["smem_bytes"] == 128 * cfg["k_padded"] <= cuda_lstm.SMEM_LIMIT
                 assert cfg["k_padded"] >= H and cfg["threads"] == cuda_gru.GRID_THREADS
+            # A CTA's W_h values of four gates, and in the f32 forward its
+            # step product's ring beside them (gru.grid_f32_plan).
+            assert bwd["smem_bytes"] == 128 * bwd["k_padded"] <= cuda_lstm.SMEM_LIMIT
+            if dtype == torch.float32:
+                plan = cuda_gru.grid_f32_plan(fwd["rows_per_group"], fwd["k_padded"], 4)
+                assert {k: fwd[k] for k in plan} == plan
+                assert 128 * fwd["k_padded"] < fwd["smem_bytes"] <= cuda_lstm.SMEM_LIMIT
+            else:
+                assert fwd["smem_bytes"] == 128 * fwd["k_padded"] <= cuda_lstm.SMEM_LIMIT
             plane = -(-B // tile) * tile * fwd["k_padded"]
             assert fwd["workspace_bytes"] == cuda_gru.GRID_COUNTER + (2 * dtype.itemsize + 4) * plane
             assert bwd["workspace_bytes"] == cuda_gru.GRID_COUNTER + 40 * plane
@@ -172,8 +180,9 @@ def test_grid_pack_is_what_the_kernels_index(gates, dtype, reverse):
     back through the index expressions of csrc/gru.cu's and csrc/lstm.cu's
     grid kernels (each CTA's slice of units; bf16 a lane's 16-byte A
     fragment at `((2c + kk) G + q) 32 + lane` forward and `(2c + kk) 32 +
-    lane` reverse; f32 a lane's float4 at `((j 8 + u) G + q) 32 + lane`
-    forward and `(j 8 + u) 32 + lane` reverse, G = 1 there): the forward's A is W_h^T of
+    lane` reverse; f32 the step product's float4 of k = 4 kk .. + 3 at
+    `(kk G + q) 8 + u` forward, a lane's float4 at `(j 8 + u) 32 + lane`
+    reverse): the forward's A is W_h^T of
     each gate, the reverse's W_h's rows over the gates' columns each padded
     to Kp, zero past H, every position read once."""
     H = 260
@@ -206,13 +215,18 @@ def test_grid_pack_is_what_the_kernels_index(gates, dtype, reverse):
         for q in range(G):
             idx = (ksi * G + q) * 32 + lane
             got[:, q, m, k] = words[:, idx, e]
-    else:
+    elif reverse:
         vecs = flat.reshape(tiles, -1, 4)  # a lane's float4
         j, u, lane, e = np.meshgrid(np.arange(K // 128), np.arange(8), np.arange(32),
                                     np.arange(4), indexing="ij")
+        idx = (j * 8 + u) * 32 + lane
+        got[:, 0, u, 128 * j + 4 * lane + e] = vecs[:, idx, e]
+    else:  # the step product's float4 of 4 consecutive k (csrc/rnn.cuh grid_f32_product)
+        vecs = flat.reshape(tiles, -1, 4)
+        kk, u, e = np.meshgrid(np.arange(K // 4), np.arange(8), np.arange(4), indexing="ij")
         for q in range(G):
-            idx = ((j * 8 + u) * G + q) * 32 + lane
-            got[:, q, u, 128 * j + 4 * lane + e] = vecs[:, idx, e]
+            idx = (kk * G + q) * 8 + u
+            got[:, q, u, 4 * kk + e] = vecs[:, idx, e]
     assert not np.isnan(got).any()
     np.testing.assert_array_equal(got, want)
 
