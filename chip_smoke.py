@@ -26,7 +26,7 @@ source, all at once). Each phase prints one JSON line:
               training paths' M=25,600 with N=384 and N=512, each beside
               torch.addmm f32), with kernel, plain, library and bound times
               and each kernel's design (wgmma, mma.sync, cluster,
-              persistent-simt or cuda-core);
+              fma, simt or cuda-core);
   d. serve    `recommend` on the ML-1M GRU4Rec configuration
               (configs/ml1m_gru4rec.json, seeded random weights) for a few
               hundred Zipf-distributed histories, batch 64, k=10: once with
@@ -662,13 +662,14 @@ def _kernel_name(demangled: str) -> str:
 
 # Kernels whose registers and spills the build phase always reports,
 # spilling or not: the newest designs, every instantiation (the f32 head,
-# the deterministic scatter-add's two kernels, the f32 projection GEMM
-# that shares the head's main loop; the sliced attention, the stepped
+# the deterministic scatter-add's two kernels, the f32 projection's SIMT
+# GEMM and the f32 FMA GEMM of the wide f32 projections and the stepped
+# layouts; the sliced attention, the stepped
 # layouts' gate kernels and the bf16 head's K split with its streamed
 # variant; the stepped layouts' step GEMM and the bf16 input projection,
 # both on wgmma; the attention's cluster layout).
 WATCH = ("head_f32_kernel", "scatter_partials_kernel", "scatter_combine_kernel",
-         "xproj_f32_kernel", "attention_sliced", "gru_step", "lstm_step",
+         "xproj_f32_kernel", "fma_gemm_kernel", "attention_sliced", "gru_step", "lstm_step",
          "head_mma_ksplit_kernel", "step_gemm_wgmma_kernel", "xproj_wgmma_kernel",
          "attention_cluster")
 
@@ -942,12 +943,13 @@ def _xproj_check(module, project, x32, w_x, b_x, dtype=torch.bfloat16, reps: int
     p_flops = 2 * B * T * D * N
     p_bound, p_by = bound(p_bytes, p_flops, dtype)
     bf16 = dtype == torch.bfloat16
+    # The plan of the shape the kernel runs: the wrappers pad D and N to multiples of 4.
+    plan = (k_gru.xproj_config if bf16 else k_gru.xproj_f32_config)(
+        B * T, k_gru.padded_width(D), k_gru.padded_width(N))
     return {
         "shape": {"M": B * T, "D": D, "N": N, "dtype": _dname(dtype), "out": "float32"},
-        "design": "wgmma" if bf16 else "persistent-simt",
-        # The plan of the shape the kernel runs: the wrappers pad D and N to multiples of 4.
-        **({"plan": k_gru.xproj_config(B * T, k_gru.padded_width(D), k_gru.padded_width(N))}
-           if bf16 else {}),
+        "design": "wgmma" if bf16 else plan["design"],
+        "plan": plan,
         "max_abs_err": err, "errors": errs,
         "tolerance": tol, "tolerance_rule": ("1e-5 of the largest value" if wide else
                                              "1e-5 absolute"),
@@ -1000,8 +1002,9 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
     GRU or LSTM of either dtype above H = 256 as its grid layout, up to the
     grid's limit, and past it as the stepped layout; a layer whose D or H is
     not a multiple of 4 counts again as the padded route (its forward; its
-    reverse where H is not); a bf16 stepped layer launches its step GEMM once
-    a step, T a forward and T a reverse; attention wider than 256 a head
+    reverse where H is not); a stepped layer launches its dtype's step GEMM
+    (bf16 wgmma, f32 FMA) once a step, T a forward and T a reverse;
+    attention wider than 256 a head
     counts again as the cluster layout, past 2,048 as the sliced layout; a
     sampled-softmax head wider than 256 counts again as the K split, and
     past its resident rows' limit as the streamed layout."""
@@ -1033,12 +1036,13 @@ def expected_launches(cfg: RunConfig, training: bool) -> dict:
                 else "stepped"
             want[f"{m.cell_type}_scan_{layout}"] = m.num_layers
             want[f"{m.cell_type}_backward_{layout}"] = m.num_layers if training else 0
-            if layout == "stepped" and m.compute_dtype == "bfloat16":  # a step GEMM a step
+            if layout == "stepped":  # a step GEMM a step
                 d = cfg.data
                 T = d.max_len if not training or d.session_parallel else max(
                     d.buckets or (d.max_len,))
-                want["step_gemm"] = m.num_layers * T
-                want["step_gemm_reverse"] = m.num_layers * T if training else 0
+                gemm = "step_gemm" if m.compute_dtype == "bfloat16" else "step_gemm_f32"
+                want[gemm] = m.num_layers * T
+                want[f"{gemm}_reverse"] = m.num_layers * T if training else 0
         widths = [m.embed_dim] + [m.hidden] * (m.num_layers - 1)  # each layer's D
         want[f"{m.cell_type}_scan_padded"] = sum(D % 4 != 0 or m.hidden % 4 != 0
                                                  for D in widths)
@@ -1989,9 +1993,12 @@ COUNTERS = {
     "lstm_scan_padded": (k_lstm.lstm_scan, "padded_launches"),
     "lstm_backward_padded": (k_lstm.lstm_backward, "padded_launches"),
     "softmax_head_streamed": (k_head.sampled_softmax_nll, "streamed_launches"),
-    # The bf16 stepped scans' step GEMM, one launch a step: forward, reverse.
+    # The stepped scans' step GEMM, one launch a step: forward, reverse; bf16
+    # (wgmma), f32 (FMAs).
     "step_gemm": (k_gru.step_gemm, "launches"),
     "step_gemm_reverse": (k_gru.step_gemm, "reverse_launches"),
+    "step_gemm_f32": (k_gru.step_gemm_f32, "launches"),
+    "step_gemm_f32_reverse": (k_gru.step_gemm_f32, "reverse_launches"),
 }
 
 
@@ -2538,7 +2545,8 @@ TRACE_WINDOW, TRACE_FIT_STEPS = (8, 24), 40
 # The hand-written kernels' function names (csrc/*.cu, *.cuh), as a trace
 # names them inside their demangled signatures.
 HANDWRITTEN = ("gather_rows_kernel", "scatter_partials_kernel", "scatter_combine_kernel",
-               "xproj_wgmma_kernel", "xproj_f32_kernel", "gru_forward_mma_kernel",
+               "xproj_wgmma_kernel", "xproj_f32_kernel", "fma_gemm_kernel",
+               "gru_forward_mma_kernel",
                "gru_forward_cluster_kernel", "gru_backward_mma_kernel",
                "gru_backward_cluster_kernel", "lstm_forward_mma_kernel",
                "lstm_forward_cluster_kernel", "lstm_backward_mma_kernel",
@@ -5183,6 +5191,7 @@ W_REPS = 7  # time_ms's reps in phase w (REPS elsewhere): cuDNN at 2,304 takes ~
 # reverse's differed by up to 2.2e-5 on an H100 (kernel_probes.py step_gemm).
 STEP_GEMM_TOL = {1: 1e-5, 2: 5e-5}
 W_REQUESTS = 128  # w1's and w3's served requests: two batches of 64
+W_SERVE_B = 64  # the served batch of w1 and w3
 W3_K = 2  # steps a group on the w3 paths (two groups): the step takes ~10^2 ms
 # w3's learning rate: Adam's default 1e-3 scaled by 512 / 2,304. Adam moves
 # every coordinate by about lr a step, so a logit (a 2,304-term dot of item
@@ -5283,6 +5292,59 @@ def _step_gemm_check(rng, dev, B: int, H: int, G: int, terms: int, reps: int) ->
             "library_ms": time_ms(library, reps=reps),
             "library": "torch.matmul bf16 (bf16 out)" + (" on [hi | lo] and [W_h^T; W_h^T]"
                                                         if terms == 2 else ""),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": int(nbytes), "flops": int(flops),
+            "workspace_bytes": int(got.numel() * 4)}
+
+
+# The f32 step GEMM alone against its plain version (the same split) and
+# the f64 product, relative to the largest value: the same f32 products
+# summed by FMA in another order than torch.matmul's, K of them (up to
+# 9,216).
+STEP_GEMM_F32_TOL = 1e-5
+
+
+def _step_gemm_f32_check(rng, dev, B: int, H: int, G: int, reverse: bool, reps: int) -> dict:
+    """The stepped scans' f32 step GEMM alone (`k_gru.step_gemm_f32`, csrc/
+    fma_gemm.cuh: its partial planes) at one step, forward (h [B, H] @ W_h
+    [H, G H]) or reverse (the cotangent [B, G H] @ W_h^T, the copy the
+    reverse multiplies), against its plain version (`plain_step_gemm_f32`,
+    the same split) and, summed in split order, the product in f64, each
+    within STEP_GEMM_F32_TOL of the largest value; twice bit for bit;
+    counted by `.launches`. The library yardstick is torch.mm in f32 (TF32
+    off) on the same operands. The bound: a and w read once and the
+    product [B, N] f32 written once (the partial planes, `workspace_bytes`,
+    are the design's traffic, reported apart), 2 B K N operations at the
+    f32 peak."""
+    K, N = (G * H, H) if reverse else (H, G * H)
+    w_h = torch.from_numpy(rng.normal(scale=H ** -0.5, size=(H, G * H)).astype(np.float32))
+    w = (w_h.T if reverse else w_h).contiguous().to(dev)
+    scale = 1e-2 if reverse else 1.0
+    a = torch.from_numpy(rng.normal(scale=scale, size=(B, K)).astype(np.float32)).to(dev)
+    name = f"f32 step gemm {'reverse' if reverse else 'forward'} B={B} K={K} N={N}"
+    before = k_gru.step_gemm_f32.launches
+    got, again = k_gru.step_gemm_f32(a, w), k_gru.step_gemm_f32(a, w)
+    torch.cuda.synchronize()
+    check(k_gru.step_gemm_f32.launches == before + 2, f"{name}: launches not counted")
+    cfg = k_gru.step_gemm_f32_config(B, K, N)
+    check(tuple(got.shape) == (cfg["splits"], B, N), f"{name}: {tuple(got.shape)}")
+    check(torch.equal(got, again), f"{name}: two launches differ")
+    plain = k_gru.plain_step_gemm_f32(a, w)
+    want = (a.double() @ w.double()).float()
+    err, err_f64 = rel_err(got, plain), rel_err(k_gru.step_product(got), want)
+    check(err <= STEP_GEMM_F32_TOL and err_f64 <= STEP_GEMM_F32_TOL,
+          f"{name}: relative error {err} vs plain, {err_f64} vs f64 > {STEP_GEMM_F32_TOL}")
+    flops = 2 * B * K * N
+    nbytes = (a.numel() + w.numel() + B * N) * 4
+    b_ms, b_by = bound(nbytes, flops, torch.float32)
+    return {"shape": {"B": B, "H": H, "gates": G, "M": B, "K": K, "N": N,
+                      "direction": "reverse" if reverse else "forward", "dtype": "float32"},
+            "design": cfg["design"], "launch": cfg, "max_abs_err": max_err(got, plain),
+            "relative_error": {"vs_plain": err, "vs_f64": err_f64},
+            "tolerance": STEP_GEMM_F32_TOL, "twice_bitwise": True,
+            "kernel_ms": time_ms(lambda: k_gru.step_gemm_f32(a, w), reps=reps),
+            "plain_ms": time_ms(lambda: k_gru.plain_step_gemm_f32(a, w), reps=reps),
+            "library_ms": time_ms(lambda: torch.mm(a, w), reps=reps),
+            "library": "torch.mm f32 (TF32 off)",
             "bound_ms": b_ms, "bound_by": b_by, "bytes": int(nbytes), "flops": int(flops),
             "workspace_bytes": int(got.numel() * 4)}
 
@@ -5471,6 +5533,15 @@ def _all_widths_kernel_checks(rng, dev) -> dict:
                                                            W_REPS)
                         for cell, G in (("gru", 3), ("lstm", 4))
                         for way, terms in (("forward", 1), ("reverse", 2))}
+    # The f32 one at w3's training batch both ways, and forward at its
+    # serving batch (B = 64: the SIMT kernel, the same split).
+    out["step_gemm_f32"] = {f"{cell}_{way}": _step_gemm_f32_check(rng, dev, WIDE_B, W_WIDE_D, G,
+                                                                   way == "reverse", W_REPS)
+                            for cell, G in (("gru", 3), ("lstm", 4))
+                            for way in ("forward", "reverse")}
+    for cell, G in (("gru", 3), ("lstm", 4)):
+        out["step_gemm_f32"][f"{cell}_forward_B{W_SERVE_B}"] = _step_gemm_f32_check(
+            rng, dev, W_SERVE_B, W_WIDE_D, G, False, W_REPS)
     lap("step_gemm")
     out["xproj"] = _xproj_shape_checks(rng, dev)
     lap("xproj")
@@ -5661,6 +5732,29 @@ def _all_widths_entries(w: dict) -> list:
                 "ms": k["step_gemm"][f"lstm_{way}"]["kernel_ms"]["median"],
                 "library_ms": k["step_gemm"][f"lstm_{way}"]["library_ms"]["median"],
                 "bound_ms": k["step_gemm"][f"lstm_{way}"]["bound_ms"]},
+            launches_counted_on=f"train {train[p]['config']} " + " ".join(train[p]["overrides"]),
+            launches_by_path={**{f"train_{q}": t["launches"][kname] for q, t in train.items()},
+                              **{f"serve_{q}": v["launches"][kname] for q, v in serve.items()}}))
+    # The stepped scans' f32 step GEMM (the FMA GEMM of the f32 projections)
+    # at w3's GRU step, forward and reverse.
+    for kname, way, replaces in (("step_gemm_f32", "forward", "gru.py:177"),
+                                 ("step_gemm_f32_reverse", "reverse", "gru.py:190")):
+        rec = k["step_gemm_f32"][f"gru_{way}"]
+        p = "gru4rec_w2304_f32"
+        lstm = k["step_gemm_f32"][f"lstm_{way}"]
+        served = {f"at_serving_batch_{cell}": {key: r[key] for key in ("shape", "design",
+                                                                        "max_abs_err")} | {
+            "ms": r["kernel_ms"]["median"], "plain_ms": r["plain_ms"]["median"],
+            "library_ms": r["library_ms"]["median"], "bound_ms": r["bound_ms"]}
+            for cell in ("gru", "lstm") if way == "forward"
+            for r in (k["step_gemm_f32"][f"{cell}_forward_B{W_SERVE_B}"],)}
+        out.append(_kernel_entry(
+            kname, "seqrec_tpu_torch/csrc/fma_gemm.cuh", "seqrec_tpu/ops/pallas/" + replaces,
+            train[p]["launches"][kname], rec, dtype="float32", layout="stepped",
+            shape=rec["shape"], launch=rec["launch"],
+            at_w3_lstm={key: lstm[key] for key in ("shape", "max_abs_err")} | {
+                "ms": lstm["kernel_ms"]["median"], "library_ms": lstm["library_ms"]["median"],
+                "bound_ms": lstm["bound_ms"]}, **served,
             launches_counted_on=f"train {train[p]['config']} " + " ".join(train[p]["overrides"]),
             launches_by_path={**{f"train_{q}": t["launches"][kname] for q, t in train.items()},
                               **{f"serve_{q}": v["launches"][kname] for q, v in serve.items()}}))

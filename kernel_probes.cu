@@ -1,11 +1,11 @@
 // The CUDA side of `kernel_probes.py xproj` and `kernel_probes.py head`
-// (built by it with nvcc, never by the package): variants of the f32 input
-// projection (csrc/rnn.cuh xproj_f32_kernel: tile rows, k chunk, ring
-// stages, CTAs a SM), the card's f32 FMA rate on independent register
-// chains, and an 8 x 8 outer-product projection loop (128 x 128 tiles, x
-// transposed in shared memory, 3 stages, 2 CTAs a SM) whose refills,
-// shared-memory reads in the loop and stores can each be switched off, to
-// see what its time is made of; variants of the f32 sampled-softmax head
+// (built by it with nvcc, never by the package): the card's f32 FMA rate on
+// independent register chains, and an 8 x 8 outer-product projection loop
+// (simt_gemm.cuh's, the f32 projection's design before csrc/fma_gemm.cuh:
+// 128 x 128 tiles, x transposed in shared memory, 3 stages, 2 CTAs a SM)
+// whose refills, shared-memory reads in the loop and stores can each be
+// switched off, to see what its time is made of, each optionally clocked
+// (CtaClock); variants of the f32 sampled-softmax head
 // (csrc/softmax_head.cu head_f32_kernel: rows a block, k chunk, ring
 // stages, CTAs a SM); and for `kernel_probes.py step_gemm`, variants of the
 // stepped layouts' bf16 step GEMM (csrc/step_gemm.cuh's kernel: rows a
@@ -18,13 +18,46 @@
 
 namespace {
 
+// Each CTA's SM cycles (clock64) and nanoseconds (%globaltimer) from its
+// first instruction to its last, where a clocked kernel records them: the
+// SM clock under that kernel's load (read_clocks).
+constexpr int kClockSlots = 1024;
+__device__ unsigned long long g_clocks[2 * kClockSlots];
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+struct CtaClock {
+  unsigned long long c0 = 0, t0 = 0;
+  __device__ void start() {
+    if (threadIdx.x == 0) {
+      t0 = global_ns();
+      c0 = clock64();
+    }
+  }
+  __device__ void stop() {
+    if (threadIdx.x == 0 && blockIdx.x < kClockSlots) {
+      const unsigned long long c1 = clock64(), t1 = global_ns();
+      g_clocks[2 * blockIdx.x] = c1 - c0;
+      g_clocks[2 * blockIdx.x + 1] = t1 - t0;
+    }
+  }
+};
+
 // The 8 x 8 loop with switches: kCopy (refill the ring), kLds (read the
-// operands of each k from shared memory) and kStore (write xp).
-template <int kStagesT, int kMinCtas, bool kCopy = true, bool kLds = true, bool kStore = true>
+// operands of each k from shared memory) and kStore (write xp); kClock
+// records each CTA's cycles and nanoseconds (CtaClock).
+template <int kStagesT, int kMinCtas, bool kCopy = true, bool kLds = true, bool kStore = true,
+          bool kClock = false>
 __global__ void __launch_bounds__(256, kMinCtas)
 xproj_t_kernel(const float* __restrict__ x, const float* __restrict__ w_x,
                const float* __restrict__ b, float* __restrict__ xp, int M, int D, int N) {
   constexpr int BM = 128, BN = 128, KC = 32, LDT = BM + 4;
+  CtaClock clk;
+  if (kClock) clk.start();
   constexpr int SF = KC * LDT + KC * BN;
   extern __shared__ __align__(16) float fsm[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -113,9 +146,12 @@ xproj_t_kernel(const float* __restrict__ x, const float* __restrict__ w_x,
     }
   }
   mma::cp_async_wait<0>();
+  if (kClock) clk.stop();
 }
 
 __global__ void ffma_bench(float* out, int iters) {
+  CtaClock clk;
+  clk.start();
   float a = threadIdx.x * 1e-3f, b = 0.999f;
   float acc[16];
 #pragma unroll
@@ -130,14 +166,15 @@ __global__ void ffma_bench(float* out, int iters) {
 #pragma unroll
   for (int j = 0; j < 16; ++j) s += acc[j];
   if (s == 1.2345f) out[0] = s;
+  clk.stop();
 }
 
 
-template <bool CP, bool LD, bool STO>
+template <bool CP, bool LD, bool STO, bool CLK = false>
 int launch_t(const void* x, const void* w, const void* b, void* xp, int M, int D, int N,
              cudaStream_t s) {
   constexpr int smem = 3 * (32 * 132 + 32 * 128) * 4;
-  auto k = xproj_t_kernel<3, 2, CP, LD, STO>;
+  auto k = xproj_t_kernel<3, 2, CP, LD, STO, CLK>;
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int dev = 0, sms = 0;
@@ -182,16 +219,19 @@ int xp_padded_launch(const rnn::XprojPlan& p, const void* x, const void* w, cons
   }
 
 extern "C" {
-PROJ(m128_k32_s3_c2, (rnn::launch_xproj_f32_variant<128, 32, 3, 2>))
-PROJ(m64_k32_s2_c4, (rnn::launch_xproj_f32_variant<64, 32, 2, 4>))
-PROJ(m64_k32_s3_c3, (rnn::launch_xproj_f32_variant<64, 32, 3, 3>))
-PROJ(m64_k16_s3_c4, (rnn::launch_xproj_f32_variant<64, 16, 3, 4>))
-PROJ(m64_k16_s4_c4, (rnn::launch_xproj_f32_variant<64, 16, 4, 4>))
 PROJ(loop_no_refill, (launch_t<false, true, true>))
 PROJ(loop_no_smem_reads, (launch_t<false, false, true>))
 PROJ(loop_no_stores, (launch_t<false, true, false>))
 PROJ(loop_bare, (launch_t<false, false, false>))
 PROJ(loop_full, (launch_t<true, true, true>))
+PROJ(loop_bare_clocked, (launch_t<false, false, false, true>))
+PROJ(loop_full_clocked, (launch_t<true, true, true, true>))
+
+// The clocked kernels' last (cycles, ns) of the first n CTAs into out[2 n].
+int read_clocks(unsigned long long* out, int n) {
+  if (n > kClockSlots) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_clocks, 2 * n * sizeof(unsigned long long)));
+}
 
 #define HEAD(name, call)                                                                  \
   int name(const void* h, const void* pos, const void* neg, const void* t, const void* ni, \

@@ -2,6 +2,7 @@
 
     python3 kernel_probes.py clusters [--out FILE]
     python3 kernel_probes.py xproj [--out FILE]
+    python3 kernel_probes.py fma [--shapes gru_w3,step_gru_fwd_w3] [--out FILE]
     python3 kernel_probes.py head [--out FILE]
     python3 kernel_probes.py scatter [--out FILE]
     python3 kernel_probes.py gather [--out FILE]
@@ -25,12 +26,26 @@ for each (C, R) that fits, beside the launch_config default.
 
 `xproj` builds kernel_probes.cu (nvcc, into seqrec_tpu_torch/build/) and
 times, at M=12,800 and 25,600 with N=384 and N=512 (D=128) and at
-M=12,800, D=100, N=300, each against x @ W_x + b in f64 first: variants of
-the f32 input projection (tile rows, k chunk, ring stages, CTAs a SM; the
-shipped one is m64_k32_s2_c4) beside torch.addmm f32, and an 8 x 8
-outer-product loop with its refills, its shared-memory reads and its stores
-switched off one by one; and the card's f32 FMA rate on independent
-register chains.
+M=12,800, D=100, N=300, each against x @ W_x + b in f64 first: the
+package's f32 input projection beside torch.addmm f32, and an 8 x 8
+outer-product loop (simt_gemm.cuh's) with its refills, its shared-memory
+reads and its stores switched off one by one; the card's f32 FMA rate on
+independent register chains; and what holds that loop under the FMA peak
+("ceiling", `fma_ceiling`): the rate, the SM clock under the load (clock64
+over %globaltimer a CTA, and nvidia-smi sampled meanwhile) and each hot
+loop's instructions from `cuobjdump -sass` (`sass_loop`).
+
+`fma` builds kernel_probes_fma.cu and times the f32 FMA GEMM
+(csrc/fma_gemm.cuh) at FMA_SHAPES (the f32 projection at kernel_turns.py's
+XPROJ_ROWS; the step GEMM at w3's step, forward and reverse, at the serving
+batch B=64, at B=128 and at the stepped edge's B=16): at its K split and
+others, each checked against f64 first, beside the package's wrapper (at
+M <= 128 the step GEMM's SIMT kernel: its planes must be the FMA GEMM's
+bits at the same split) and torch.addmm / torch.mm in f32, with ptxas's
+registers,
+the consumer loop's instruction mix, the loop alone on one chunk in shared
+memory (its reads switched off in turn, and one step ahead by hand) and
+the TMA control (A's box coordinates exchanged), which must fail.
 
 `head` builds kernel_probes.cu too and times variants of the f32
 sampled-softmax head (rows a block, k chunk, ring stages, CTAs a SM; the
@@ -409,18 +424,20 @@ def probe_xproj() -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    lib, _ = _probe_lib()
-    variants = ["m128_k32_s3_c2", "m64_k32_s2_c4", "m64_k32_s3_c3", "m64_k16_s3_c4",
-                "m64_k16_s4_c4"]
+    from seqrec_tpu_torch.ops.cuda import gru as k_gru
+
+    lib_path, _ = probe_build()
+    lib = ctypes.CDLL(str(lib_path))
     loops = ["loop_full", "loop_no_refill", "loop_no_smem_reads", "loop_no_stores", "loop_bare"]
-    for name in variants + loops:
+    for name in loops:
         getattr(lib, name).argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.ffma_rate.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     sink = torch.zeros(1, device=dev)
     iters, blocks = 20000, 2 * sms
     ms = cs.time_ms(lambda: lib.ffma_rate(sink.data_ptr(), iters, blocks), reps=5)["median"]
-    out = {"ffma_tflops": 2.0 * blocks * 256 * iters * 8 * 16 / ms / 1e9, "shapes": {}}
+    out = {"ffma_tflops": 2.0 * blocks * 256 * iters * 8 * 16 / ms / 1e9, "shapes": {},
+           "ceiling": fma_ceiling(lib, lib_path)}
     rng = np.random.default_rng(0)
     for M, D, N in ((12800, 128, 384), (25600, 128, 384), (12800, 128, 512), (25600, 128, 512),
                     (12800, 100, 300)):
@@ -428,9 +445,12 @@ def probe_xproj() -> dict:
         w = torch.from_numpy((rng.normal(size=(D, N)) * D ** -0.5).astype(np.float32)).to(dev)
         b = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(dev)
         want = x.double() @ w.double() + b.double()
+        got = k_gru.gru_input_projection(x, w, b)
         rec = {"addmm_ms": cs.time_ms(lambda: torch.addmm(b, x, w))["median"],
-               "bound_ms": 2.0 * M * D * N / cs.PEAK_FLOPS[torch.float32] * 1e3}
-        for name in variants + loops:
+               "bound_ms": 2.0 * M * D * N / cs.PEAK_FLOPS[torch.float32] * 1e3,
+               "package": {"ms": cs.time_ms(lambda: k_gru.gru_input_projection(x, w, b))["median"],
+                           "max_abs_err_vs_f64": (got.double() - want).abs().max().item()}}
+        for name in loops:
             xp = torch.empty(M, N, device=dev)
             fn = getattr(lib, name)
 
@@ -442,11 +462,335 @@ def probe_xproj() -> dict:
 
             call()
             torch.cuda.synchronize()
-            err = (xp.double() - want).abs().max().item() if name in variants + loops[:1] else None
+            err = (xp.double() - want).abs().max().item() if name == loops[0] else None
             if err is not None and err > 1e-5:
                 raise AssertionError(f"xproj {name} {M}x{D}x{N}: max abs err {err} vs f64")
             rec[name] = {"ms": cs.time_ms(call)["median"], "max_abs_err_vs_f64": err}
         out["shapes"][f"M{M}_D{D}_N{N}"] = rec
+    return out
+
+
+def sass_loop(lib_path, kernel: str) -> dict:
+    """The hot loop of the first function in `lib_path` whose mangled name
+    holds `kernel`, from `cuobjdump -sass`: of the backward branches, the
+    span with the most FFMAs; its instructions by opcode, its FFMAs with a
+    `.reuse` operand, and every instruction of the function by opcode."""
+    import re
+    from collections import Counter
+
+    from seqrec_tpu_torch.ops import _build
+
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    body = next((f for f in text.split("Function : ")[1:] if kernel in f.split("\n", 1)[0]), None)
+    if body is None:
+        return {"kernel": kernel, "found": False}
+    ins = []  # (address, opcode, text)
+    for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body):
+        txt = m.group(2).strip()
+        op = re.sub(r"^@!?U?P\w+\s+", "", txt).split()[0]
+        ins.append((int(m.group(1), 16), op, txt))
+    best = None
+    for addr, op, txt in ins:
+        t = re.search(r"BRA\s+(?:`\()?\.?L?_?x?_?(0x[0-9a-f]+|\d+)", txt)
+        if op.startswith("BRA") and t:
+            target = int(t.group(1), 0)
+            if target < addr:
+                span = [i for i in ins if target <= i[0] <= addr]
+                ffma = sum(i[1].startswith("FFMA") for i in span)
+                if best is None or ffma > best[0]:
+                    best = (ffma, span)
+    out = {"kernel": kernel, "found": True,
+           "function_opcodes": dict(Counter(op.split(".")[0] for _, op, _ in ins).most_common())}
+    if best:
+        span = best[1]
+        ops = Counter(op.split(".")[0] for _, op, _ in span)
+        ffma = ops.get("FFMA", 0)
+        out["loop"] = {"instructions": len(span), "ffma": ffma,
+                       "other": len(span) - ffma, "ffma_share": ffma / max(1, len(span)),
+                       "ffma_with_reuse": sum("FFMA" in op and ".reuse" in t for _, op, t in span),
+                       "opcodes": dict(ops.most_common())}
+    return out
+
+
+class SmiSampler:
+    """nvidia-smi's SM clock, its maximum, power draw and temperature,
+    sampled in a thread while the `with` block runs."""
+
+    QUERY = "clocks.sm,clocks.max.sm,power.draw,power.limit,temperature.gpu"
+
+    def __enter__(self):
+        import threading
+
+        self.rows, self._stop = [], threading.Event()
+
+        def run():
+            while not self._stop.is_set():
+                r = subprocess.run(["nvidia-smi", f"--query-gpu={self.QUERY}",
+                                    "--format=csv,noheader,nounits"], capture_output=True,
+                                   text=True)
+                if r.returncode == 0 and r.stdout.strip():
+                    self.rows.append([float(v) for v in r.stdout.split("\n")[0].split(",")])
+                self._stop.wait(0.05)
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def summary(self) -> dict:
+        if not self.rows:
+            return {"samples": 0}
+        cols = list(zip(*self.rows))
+        med = [sorted(c)[len(c) // 2] for c in cols]
+        return {"samples": len(self.rows), "sm_mhz_median": med[0], "sm_mhz_min": min(cols[0]),
+                "sm_mhz_max": max(cols[0]), "max_sm_mhz": med[1], "power_w_median": med[2],
+                "power_limit_w": med[3], "temperature_c_median": med[4]}
+
+
+def fma_ceiling(lib, lib_path, seconds: float = 2.0) -> dict:
+    """What holds an 8 x 8 FMA loop under the FMA peak: for the card's FMA
+    rate on register chains (ffma_bench) and for the loop with every copy,
+    shared-memory read and store switched off (loop_bare) and with all of
+    them (loop_full), at the wide projection's shape (M=51,200, D=512,
+    N=1,536): the rate, the SM clock under that load (each CTA's clock64
+    cycles over its %globaltimer nanoseconds, and nvidia-smi sampled while
+    the kernel runs back to back for `seconds`), the FMA peak at that
+    clock (SMs x 128 lanes x 2 x the clock) and the share of it reached;
+    and each kernel's hot loop from the built library (`sass_loop`):
+    FFMAs against every other instruction, and FFMAs with a `.reuse`
+    operand."""
+    import ctypes
+    import time
+
+    import torch
+
+    import chip_smoke as cs
+
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib.read_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    for name in ("loop_bare_clocked", "loop_full_clocked"):
+        getattr(lib, name).argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    M, D, N = 51_200, 512, 1_536
+    x = torch.randn(M, D, device=dev)
+    w = torch.randn(D, N, device=dev) * D ** -0.5
+    b = torch.randn(N, device=dev)
+    xp = torch.empty(M, N, device=dev)
+    sink = torch.zeros(1, device=dev)
+    iters = 200_000
+
+    def loop(name):
+        fn = getattr(lib, name)
+
+        def call():
+            rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), xp.data_ptr(), M, D, N,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+        return call, 2.0 * M * D * N, min(-(-M // 128) * -(-N // 128), 2 * sms)
+
+    def bench():
+        def call():
+            rc = lib.ffma_rate(sink.data_ptr(), iters, 2 * sms)
+            if rc != 0:
+                raise RuntimeError(f"ffma_rate: CUDA error {rc}")
+        return call, 2.0 * 2 * sms * 256 * iters * 8 * 16, 2 * sms
+
+    out = {"sms": sms}
+    for label, (call, flops, ctas) in (("ffma_bench", bench()),
+                                       ("loop_bare", loop("loop_bare_clocked")),
+                                       ("loop_full", loop("loop_full_clocked"))):
+        ms = cs.time_ms(call, reps=7)["median"]
+        with SmiSampler() as smi:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < seconds:
+                for _ in range(max(1, int(20 / ms))):
+                    call()
+                torch.cuda.synchronize()
+        raw = (ctypes.c_ulonglong * (2 * ctas))()
+        rc = lib.read_clocks(raw, ctas)
+        if rc != 0:
+            raise RuntimeError(f"read_clocks: CUDA error {rc}")
+        ghz = sorted(raw[2 * i] / raw[2 * i + 1] for i in range(ctas) if raw[2 * i + 1])
+        clock = ghz[len(ghz) // 2]
+        tflops = flops / ms / 1e9
+        peak_at_clock = sms * 128 * 2 * clock * 1e9 / 1e12
+        out[label] = {"ms": ms, "tflops": tflops,
+                      "share_of_67_tflops": tflops / (cs.PEAK_FLOPS[torch.float32] / 1e12),
+                      "cta_clock_ghz_median": clock, "cta_clock_ghz_min": ghz[0],
+                      "cta_clock_ghz_max": ghz[-1], "fma_peak_at_clock_tflops": peak_at_clock,
+                      "share_of_peak_at_clock": tflops / peak_at_clock, "smi": smi.summary()}
+    out["sass"] = {label: sass_loop(lib_path, kernel) for label, kernel in (
+        ("ffma_bench", "ffma_bench"),
+        ("loop_bare", "xproj_t_kernelILi3ELi2ELb0ELb0ELb0ELb1E"),
+        ("loop_full", "xproj_t_kernelILi3ELi2ELb1ELb1ELb1ELb1E"),
+        ("xproj_f32_simt", "xproj_f32_kernelILi64ELi32ELi2ELi4E"))}
+    return out
+
+
+# The f32 FMA GEMM's shapes (M, K, N, split): the f32 projection at
+# kernel_turns.py's XPROJ_ROWS, and the f32 stepped layouts' step GEMM at
+# w3's step (B = 256, H = 2,304; forward h @ W_h, reverse d @ W_h^T) and at
+# a serving batch (B = 64).
+FMA_SHAPES = {"gru_B64": (12800, 128, 384, 0), "gru_B128": (25600, 128, 384, 0),
+              "lstm_B128": (25600, 128, 512, 0), "gru_rsc15": (12800, 100, 300, 0),
+              "gru_d52": (25600, 52, 156, 0), "gru_wide": (51200, 512, 1536, 0),
+              "lstm_wide": (51200, 512, 2048, 0), "gru_w3": (51200, 2304, 6912, 0),
+              "lstm_w3": (51200, 2304, 9216, 0),
+              "step_gru_fwd_w3": (256, 2304, 6912, 1), "step_lstm_fwd_w3": (256, 2304, 9216, 1),
+              "step_gru_rev_w3": (256, 6912, 2304, 1), "step_lstm_rev_w3": (256, 9216, 2304, 1),
+              "step_gru_fwd_B64": (64, 2304, 6912, 1), "step_lstm_fwd_B64": (64, 2304, 9216, 1),
+              "step_gru_rev_B64": (64, 6912, 2304, 1), "step_gru_fwd_B128": (128, 2304, 6912, 1),
+              "step_gru_fwd_B16": (16, 1060, 3180, 1), "step_lstm_fwd_B16": (16, 1060, 4240, 1)}
+FMA_CONTROL = "kernel_probes_fma.cu"
+
+
+def fma_lib(built=None):
+    """kernel_probes_fma.cu loaded (from `built`, a probe_build path, else
+    built now), its entry points bound: `fma_variant` (csrc/fma_gemm.cuh at
+    a plan with forced K splits, 0: the rule's) and `fma_control` (the same
+    with A's box coordinates exchanged): a, w, b,
+    out; M, K, N, split, warps (0 or 8), splits; the plan used (int[4]: warps,
+    splits, grid, smem); the stream. `fma_reference`: out = a @ w + b, each
+    output summed by FMA in k order from 0, then b (a, w, b, out; M, K, N;
+    the stream)."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(built or probe_build(FMA_CONTROL)[0]))
+    for name in ("fma_variant", "fma_control"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+    lib.fma_reference.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.fma_reference.restype = ctypes.c_int
+    lib.fma_loop.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.fma_loop.restype = ctypes.c_int
+    return lib
+
+
+def probe_fma(shapes=tuple(FMA_SHAPES)) -> dict:
+    """The f32 FMA GEMM (csrc/fma_gemm.cuh) at FMA_SHAPES: at the rule's
+    split, and for the step GEMM at other K splits too, each checked first (the projection against x @ w + b in f64, within
+    1e-5 of the largest value; a split's planes summed in split order, the
+    same), beside the package's wrapper, torch.addmm / torch.mm in f32 (TF32
+    off) and the bound; ptxas's registers and spills of each instantiation;
+    the control (A's box coordinates exchanged), which must fail the check;
+    and the consumer loop's instruction mix (`sass_loop`)."""
+    import ctypes
+    import re
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from seqrec_tpu_torch.ops.cuda import gru as k_gru
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    path, log = probe_build(FMA_CONTROL)
+    lib = fma_lib(path)
+    ptxas = {}
+    for block in re.split(r"Compiling entry function ", log):
+        m = re.match(r"'\S*fma_gemm_kernelILb(\d)E\S*'", block)
+        name = ("control" if m.group(1) == "1" else "kernel") if m else None
+        if name:
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+            ptxas[name] = {"registers": int(regs.group(1)) if regs else None,
+                           "spill_stores": int(spill.group(1)) if spill else None,
+                           "spill_loads": int(spill.group(2)) if spill else None}
+    out = {"ptxas": ptxas, "sass": {"kernel": sass_loop(path, "fma_gemm_kernelILb0E")},
+           "shapes": {}}
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    # The consumer loop alone, one CTA of 8 warps a SM, its reads switched off.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sink = torch.zeros(1, device=dev)
+    loop = {}
+    for mode, name in enumerate(("a_and_b", "b_only", "a_only", "bare", "a_and_b_ahead")):
+        chunks = 2000
+        fn = lambda: lib.fma_loop(sink.data_ptr(), chunks, sms, mode, stream())  # noqa: E731
+        if fn() != 0:
+            raise RuntimeError(f"fma_loop {name}: launch failed")
+        ms = cs.time_ms(fn, reps=5)["median"]
+        tflops = 2.0 * sms * 256 * 128 * 32 * chunks / ms / 1e9
+        loop[name] = {"ms": ms, "tflops": tflops,
+                      "share_of_67_tflops": tflops / (cs.PEAK_FLOPS[torch.float32] / 1e12)}
+    out["loop"] = loop
+    out["loop_sass"] = {m: sass_loop(path, f"fma_loop_kernelILb{a}ELb{b}E") for m, a, b in (
+        ("a_and_b", 1, 1), ("bare", 0, 0))}
+    out["loop_sass"]["a_and_b_ahead"] = sass_loop(path, "fma_loop_ahead_kernel")
+    rng = np.random.default_rng(0)
+    plan = (ctypes.c_int * 4)()
+    for label in shapes:
+        M, K, N, split = FMA_SHAPES[label]
+        x = torch.from_numpy(rng.normal(scale=K ** -0.5, size=(M, K)).astype(np.float32)).to(dev)
+        w = torch.from_numpy(rng.normal(scale=K ** -0.5, size=(K, N)).astype(np.float32)).to(dev)
+        b = torch.from_numpy(rng.normal(scale=0.1, size=N).astype(np.float32)).to(dev)
+        want = x.double() @ w.double() + (0 if split else b.double())
+        scale = want.abs().max().item()
+        flops = 2.0 * M * K * N
+        rec = {"M": M, "K": K, "N": N, "split": split,
+               "bound_ms": flops / cs.PEAK_FLOPS[torch.float32] * 1e3,
+               "library_ms": cs.time_ms((lambda: torch.mm(x, w)) if split else
+                                        (lambda: torch.addmm(b, x, w)))["median"],
+               "variants": {}}
+        if split:
+            cfg = k_gru.step_gemm_f32_config(M, K, N)
+            rec["config"] = cfg
+            rec["wrapper_ms"] = cs.time_ms(lambda: k_gru.step_gemm_f32(x, w))["median"]
+            wrapped = k_gru.step_gemm_f32(x, w)
+            err = (wrapped.double().sum(0) - want).abs().max().item() / scale
+            rec["wrapper_rel_err"] = float("inf") if err != err else err
+        else:
+            cfg = k_gru.xproj_f32_config(M, K, N)
+            rec["config"] = cfg
+            rec["wrapper_ms"] = cs.time_ms(lambda: k_gru.gru_input_projection(x, w, b))["median"]
+        runs = [0] + ([1, 2, 3, 4, 6, 8, 12] if split else [])
+        buf = torch.empty(16 * M * N if split else M * N, device=dev)
+        for sp in runs:
+            def call(fn=lib.fma_variant, sp=sp):
+                rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), buf.data_ptr(), M, K, N, split,
+                        0, sp, plan, stream())
+                if rc != 0:
+                    raise RuntimeError(f"fma {label} s{sp}: CUDA error {rc}")
+            buf.fill_(float("nan"))
+            call()
+            torch.cuda.synchronize()
+            used = list(plan)
+            planes = buf[:used[1] * M * N].view(used[1], M, N) if split else buf.view(M, N)
+            got = planes.sum(0) if split else planes
+            err = ((got.double() - want).abs().max().item() / scale)
+            err = float("inf") if err != err else err
+            name = "fma" + (f"_s{used[1]}" + ("_rule" if sp == 0 else "") if split else "")
+            r = {"plan": used, "rel_err": err}
+            if split and sp == 0:  # the rule's split: the wrapper's planes, bit for bit
+                r["wrapper_same_bits"] = (tuple(wrapped.shape) == tuple(planes.shape)
+                                          and bool(torch.equal(wrapped, planes)))
+            if err <= 1e-5:
+                r["ms"] = cs.time_ms(call)["median"]
+                r["tflops"] = flops / r["ms"] / 1e9
+            rec["variants"][name] = r
+        if label in ("gru_wide", "step_gru_fwd_w3"):
+            def control():
+                rc = lib.fma_control(x.data_ptr(), w.data_ptr(), b.data_ptr(), buf.data_ptr(), M,
+                                     K, N, split, 0, 0, plan, stream())
+                if rc != 0:
+                    raise RuntimeError(f"fma control {label}: CUDA error {rc}")
+            buf.fill_(float("nan"))
+            control()
+            torch.cuda.synchronize()
+            got = buf[:plan[1] * M * N].view(plan[1], M, N).sum(0) if split else buf.view(M, N)
+            err = (got.double() - want).abs().max().item() / scale
+            rec["control_rel_err"] = float("inf") if err != err else err
+            rec["control_fails"] = not err <= 1e-5
+        out["shapes"][label] = rec
+        del x, w, b, want, buf
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1090,6 +1434,7 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="probe", required=True)
     for name, text in (("clusters", "the f32 cluster recurrences over C and R"),
                        ("xproj", "the f32 input projection's variants and its loop's parts"),
+                       ("fma", "the f32 FMA GEMM's variants, splits and control"),
                        ("head", "the f32 sampled-softmax head's variants"),
                        ("scatter", "the deterministic scatter-add's chunk sizes"),
                        ("gather", "the gather's loads in flight, grid and the replaced design"),
@@ -1100,8 +1445,9 @@ def main(argv=None) -> int:
                        ("grid_f32", "the f32 grid forwards' phase clocks")):
         parser = sub.add_parser(name, help=text)
         parser.add_argument("--out", help="also write the result (indented JSON) to this file")
-        if name == "xproj_bf16":
-            parser.add_argument("--shapes", help="XP_SHAPES' keys, comma-separated")
+        if name in ("xproj_bf16", "fma"):
+            parser.add_argument("--shapes", help="XP_SHAPES' (fma: FMA_SHAPES') keys, "
+                                                 "comma-separated")
     args = ap.parse_args(argv)
 
     import torch
@@ -1111,7 +1457,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
-    result = {"clusters": probe_clusters, "xproj": probe_xproj, "head": probe_head,
+    result = {"clusters": probe_clusters, "xproj": probe_xproj, "fma": probe_fma,
+              "head": probe_head,
               "scatter": probe_scatter, "gather": probe_gather,
               "gru_wide": probe_gru_wide, "step_gemm": probe_step_gemm,
               "xproj_bf16": probe_xproj_bf16, "attention": probe_attention,

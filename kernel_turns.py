@@ -5,6 +5,7 @@ NVIDIA GPU: parent, change, change, parent.
     python3 kernel_turns.py --parent <dir> [--out FILE]
     python3 kernel_turns.py --parent <dir> --pairs 10 [--path gru4rec] [--out FILE]
     python3 kernel_turns.py --parent <dir> --only rnn [--out FILE]
+    python3 kernel_turns.py --parent <dir> --only f32 [--out FILE]
 
 <dir> is a directory that .gitignore lists, inside the checkout or not.
 
@@ -96,6 +97,14 @@ D=64, H at each cell's bf16 grid limit + 4: 2,116 and 1,796), each with a
 digest; and the bf16 input projection alone (each checkout's wrapper) at
 XPROJ_ROWS (the narrow GRU and LSTM, rsc15, d = 52, the wide towers and w3),
 beside its plain version and torch.addmm(..., out_dtype=torch.float32);
+and the f32 FMA GEMM's rows (`_f32_gemm_rows`): the f32 input projection
+alone at XPROJ_ROWS beside torch.addmm in f32, the f32 step GEMM alone at
+w3's widths with M = 256, 64 and 16 beside torch.mm in f32, and the f32
+stepped forwards (the projection included) and reverses at w3's step, at
+its serving batch (B=64) and at the f32 stepped edge (B=16, T=20, D=64,
+H=1,060) with nn.GRU / nn.LSTM in f32 and cuDNN's backward beside them at
+w3, each with a digest (its outputs kept; with --only f32 these rows
+alone);
 and the grid layouts' bf16 forwards (the projection included) at the wide
 towers' step (B=256, T=200, D=H=512), nn.GRU / nn.LSTM in bf16 beside them;
 and the grid layouts' f32 forwards (the projection included; `_grid_f32_rows`)
@@ -123,6 +132,7 @@ from __future__ import annotations
 
 import argparse
 import inspect
+import itertools
 import json
 import os
 import shutil
@@ -330,6 +340,147 @@ def _grid_f32_rows(dev) -> dict:
     return rows
 
 
+# The f32 stepped layouts' rows (label, B, T, D, H): w3's step, its
+# serving batch and the stepped edge (H at the f32 grid limit + 4, both
+# cells).
+STEPPED_F32_ROWS = (("w3", 256, 200, 2304, 2304), ("serve", 64, 200, 2304, 2304),
+                    ("edge", 16, 20, 64, 1060))
+# The f32 step GEMM alone at w3's widths: (label, M) of the training
+# batch, the serving batch and the stepped edge's batch.
+STEP_GEMM_F32_ROWS = (("w3", 256), ("B64", 64), ("B16", 16))
+
+
+def _f32_gemm_rows(dev) -> dict:
+    """The f32 FMA GEMM's rows (csrc/fma_gemm.cuh in a checkout that has
+    it), on the data of rng 4: the f32 input projection alone at XPROJ_ROWS
+    (but the wide towers', `_grid_f32_rows`' own) beside torch.addmm in
+    f32; the f32 step GEMM alone at w3's step (h @ W_h and d @ W_h^T; a
+    checkout without `step_gemm_f32` runs its stepped scans' step GEMM,
+    the f32 projection with zero bias) beside torch.mm in f32; and the f32
+    stepped forwards (the projection included, also timed alone) and
+    reverse recurrences at STEPPED_F32_ROWS, nn.GRU / nn.LSTM in f32 and
+    cuDNN's backward beside them at w3; each with a digest, its outputs
+    kept. TF32 off."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from seqrec_tpu_torch.ops import reference
+    from seqrec_tpu_torch.ops.cuda import gru as k_gru
+    from seqrec_tpu_torch.ops.cuda import lstm as k_lstm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    med = lambda fn: cs.time_ms(fn)["median"]  # noqa: E731
+    f32 = torch.float32
+    rows = {}
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(rng.normal(scale=scale, size=shape).astype(np.float32)).to(dev)
+
+    for label, (M, D, N) in XPROJ_ROWS.items():
+        if label in XPROJ_F32_ROWS:
+            continue
+        x, w, b = t(M, D, scale=D ** -0.5), t(D, N, scale=D ** -0.5), t(N, scale=0.1)
+        project = (k_lstm.lstm_input_projection if label.startswith("lstm")
+                   else k_gru.gru_input_projection)
+        flops, nbytes = 2.0 * M * D * N, (M * D + D * N + N + M * N) * 4
+        key = f"xproj_float32_{label}"
+        rows[key] = {"M": M, "D": D, "N": N, "ms": med(lambda: project(x, w, b)),
+                     "digest": _digest([project(x, w, b)], keep=key),
+                     "addmm_ms": med(lambda: torch.addmm(b, x, w)),
+                     "bound_ms": max(flops / cs.PEAK_FLOPS[f32],
+                                     nbytes / cs.HBM_BYTES_PER_S) * 1e3}
+        del x, w, b
+    H = 2304
+    for (tag, M), (cell, G), way in itertools.product(
+            STEP_GEMM_F32_ROWS, (("gru", 3), ("lstm", 4)), ("forward", "reverse")):
+        K, N = (G * H, H) if way == "reverse" else (H, G * H)
+        a, w = t(M, K, scale=1e-2 if way == "reverse" else 1.0), t(K, N, scale=K ** -0.5)
+        if hasattr(k_gru, "step_gemm_f32"):
+            fn = lambda: k_gru.step_product(k_gru.step_gemm_f32(a, w))  # noqa: E731
+            gemm = lambda: k_gru.step_gemm_f32(a, w)  # noqa: E731
+        else:
+            zeros = torch.zeros(N, device=dev)
+            fn = gemm = lambda: k_gru.gru_input_projection(a, w, zeros)  # noqa: E731
+        flops, nbytes = 2.0 * M * K * N, (M * K + K * N + M * N) * 4
+        rows[f"step_gemm_float32_{cell}_{way}_{tag}"] = {
+            "M": M, "K": K, "N": N, "ms": med(gemm), "digest": _digest([fn()]),
+            "mm_ms": med(lambda: torch.mm(a, w)),
+            "bound_ms": max(flops / cs.PEAK_FLOPS[f32], nbytes / cs.HBM_BYTES_PER_S) * 1e3}
+        del a, w
+    for label, B, T, D, H in STEPPED_F32_ROWS:
+        x = cs._zipf_embeddings(rng, dev, B, T, D)
+        g = cs._state(rng, dev, B * T, H).reshape(B, T, H) * 0.02
+        w = [t_.to(dev) for t_ in cs.gru_weights(rng, D, H)]
+        h0 = torch.zeros(B, H, device=dev)
+        key = f"gru_stepped_float32_{label}_B{B}_T{T}_H{H}"
+        with torch.no_grad():
+            rec = {"ms": med(lambda: k_gru.gru_scan(x, h0, *w)),
+                   "digest": _digest([k_gru.gru_scan(x, h0, *w)[0]], keep=key),
+                   "input_projection_ms": med(lambda: k_gru.gru_input_projection(x, w[0], w[2]))}
+        if label == "w3":
+            lib = torch.nn.GRU(D, H, batch_first=True, device=dev, dtype=f32)
+            with torch.no_grad():
+                lib.weight_ih_l0.copy_(w[0].T)
+                lib.weight_hh_l0.copy_(w[1].T)
+                lib.bias_ih_l0.copy_(w[2])
+                lib.bias_hh_l0.copy_(w[3])
+            xg = x.clone().requires_grad_(True)
+            fw = med(lambda: lib(xg, h0[None])[0])
+            rec.update(nn_gru_float32_ms=fw, nn_gru_float32_backward_ms=med(
+                lambda: lib(xg, h0[None])[0].backward(g)) - fw)
+            del lib, xg
+        rows[key] = rec
+        w_x, w_h, b_x, b_h = w
+        with torch.no_grad():  # the operands from the plain forward, no kernel of the turn
+            ys = k_gru.plain(x, h0, w_x, w_h, b_x, b_h)[0]
+            x_proj = torch.matmul(x, w_x) + b_x
+            h_in, keep, h_proj = reference.gru_bwd_project(x_proj, ys, h0, w_h, b_h, None)
+        args = (x_proj, h_proj, h_in, g, w_h, keep)
+        key = f"gru_backward_stepped_float32_{label}_B{B}_T{T}_H{H}"
+        rows[key] = {"ms": med(lambda: k_gru.gru_backward(*args)),
+                     "digest": _digest(k_gru.gru_backward(*args), keep=key)}
+        del w, ys, x_proj, h_in, h_proj, args
+        w_x, w_h, b = (t_.to(dev) for t_ in cs.lstm_weights(rng, D, H))
+        state = (torch.zeros(B, H, device=dev), torch.zeros(B, H, device=dev))
+        key = f"lstm_stepped_float32_{label}_B{B}_T{T}_H{H}"
+        with torch.no_grad():
+            ys, (_, c_last) = k_lstm.lstm_scan(x, *state, w_x, w_h, b)
+            rec = {"ms": med(lambda: k_lstm.lstm_scan(x, *state, w_x, w_h, b)),
+                   "digest": _digest([ys, c_last], keep=key),
+                   "input_projection_ms": med(lambda: k_lstm.lstm_input_projection(x, w_x, b))}
+        del ys, c_last
+        if label == "w3":
+            lib = torch.nn.LSTM(D, H, batch_first=True, device=dev, dtype=f32)
+            with torch.no_grad():
+                lib.weight_ih_l0.copy_(w_x.T)
+                lib.weight_hh_l0.copy_(w_h.T)
+                lib.bias_ih_l0.copy_(b)
+                lib.bias_hh_l0.zero_()
+            xg = x.clone().requires_grad_(True)
+            s0 = (state[0][None], state[1][None])
+            fw = med(lambda: lib(xg, s0)[0])
+            rec.update(nn_lstm_float32_ms=fw, nn_lstm_float32_backward_ms=med(
+                lambda: lib(xg, s0)[0].backward(g)) - fw)
+            del lib, xg
+        rows[key] = rec
+        # The reverse on gate planes in the forward's ranges.
+        i_, f_, o_, gp = (torch.from_numpy(rng.uniform(0.05, 0.95, size=(B, T, H))
+                                           .astype(np.float32)).to(dev) for _ in range(4))
+        g_ = torch.tanh(gp * 4 - 2)
+        tanh_c = torch.tanh(cs._state(rng, dev, B * T, H).reshape(B, T, H))
+        c_in = cs._state(rng, dev, B * T, H).reshape(B, T, H) * 2
+        largs = (i_, f_, g_, o_, tanh_c, c_in, g, w_h, None, state[1])
+        key = f"lstm_backward_stepped_float32_{label}_B{B}_T{T}_H{H}"
+        rows[key] = {"ms": med(lambda: k_lstm.lstm_backward(*largs)),
+                     "digest": _digest(k_lstm.lstm_backward(*largs), keep=key)}
+        del i_, f_, o_, gp, g_, tanh_c, c_in, largs, x, g
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _rnn_rows() -> dict:
     """The recurrences' rows of a turn (see the module note), on the data
     of rng 2: kernel ms, digests of the outputs and the library times."""
@@ -513,6 +664,7 @@ def _rnn_rows() -> dict:
         del i_, f_, o_, gp, g_, tanh_c, c_in, g_ys, largs, x, xb
     rows.update(_xproj_rows(rng, dev))
     rows.update(_grid_f32_rows(dev))
+    rows.update(_f32_gemm_rows(dev))
     return rows
 
 
@@ -535,9 +687,10 @@ def _worker(label: str, only: str = "") -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    if only == "rnn":
+    if only in ("rnn", "f32"):
         _build.build(["gru", "lstm"])
-        return {"label": label, "root": str(Path.cwd()), "kernels": _rnn_rows(), "paths": {}}
+        rows = _rnn_rows() if only == "rnn" else _f32_gemm_rows(dev)
+        return {"label": label, "root": str(Path.cwd()), "kernels": rows, "paths": {}}
     _build.build()
     rng = np.random.default_rng(0)
     med = lambda fn: cs.time_ms(fn)["median"]  # noqa: E731
@@ -864,7 +1017,8 @@ def _kept_differences(root: Path, turns: list) -> dict:
     labels' outputs, and the row's tolerance (chip_smoke's: the GRU
     forward's GRU_BF16_TOL, the LSTM's LSTM_BF16_TOL; the projection's
     XPROJ_TOL, or XPROJ_WIDE_REL_TOL of the parent's largest value above
-    D = 256; the f32 grid forwards' GRU_F32_TOL)."""
+    D = 256; the f32 grid and stepped forwards' GRU_F32_TOL, the f32
+    stepped reverses' the same of the parent's largest value)."""
     import torch
 
     import chip_smoke as cs
@@ -881,7 +1035,9 @@ def _kept_differences(root: Path, turns: list) -> dict:
             D = turns[0]["kernels"][key]["D"]
             tol = (cs.XPROJ_TOL if D <= 256 else
                    cs.XPROJ_WIDE_REL_TOL * max(x.abs().max().item() for x in a))
-        elif "_float32_" in key:  # the f32 grid forwards' rows
+        elif "backward_stepped_float32" in key:  # 1e-5 of the parent's largest value
+            tol = cs.GRU_F32_TOL * max(x.abs().max().item() for x in a)
+        elif "_float32_" in key:  # the f32 grid forwards' and stepped forwards' rows
             tol = cs.GRU_F32_TOL
         else:
             tol = cs.GRU_BF16_TOL if key.startswith("gru") else cs.LSTM_BF16_TOL
@@ -909,8 +1065,9 @@ def main(argv=None) -> int:
     ap.add_argument("--pairs", type=int, default=0,
                     help="time one training path in this many alternating pairs instead")
     ap.add_argument("--path", default="gru4rec", help="the training path of --pairs")
-    ap.add_argument("--only", choices=("rnn",), default="",
-                    help="time only the recurrences' rows (no paths)")
+    ap.add_argument("--only", choices=("rnn", "f32"), default="",
+                    help="time only the recurrences' rows (rnn) or the f32 GEMM's (f32), "
+                         "no paths")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:

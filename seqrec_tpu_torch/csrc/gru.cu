@@ -61,9 +61,10 @@
 //
 // f32: two kernels as well, on the CUDA cores, because TF32 tensor cores
 // keep ~3 digits and the f32 contract is f32 products.
-// 1. rnn::xproj_f32_kernel (csrc/rnn.cuh), the same projection off the
-//    serial chain as a persistent f32 SIMT GEMM (64 x 128 output tiles, 8 x 8
-//    outputs a thread, x transposed into shared memory by cp.async).
+// 1. rnn::launch_xproj_f32 (csrc/rnn.cuh), the same projection off the
+//    serial chain: from D = 256 csrc/fma_gemm.cuh's persistent FMA GEMM
+//    (TMA-fed, 8 x 16 outputs a thread, x read as stored), below it a
+//    persistent SIMT GEMM (x transposed into shared memory by cp.async).
 // 2. gru_forward_cluster_kernel, the recurrence on a thread block cluster.
 //    One SM cannot hold both weight matrices in f32 (196 KB each at H=128),
 //    and the first port's one-block design re-read W_x through L2 every
@@ -2091,8 +2092,7 @@ gru_backward_grid_f32_kernel(const float* __restrict__ xp, const float* __restri
 
 // Forward step t of the GRU: the gates of (row, unit) from xp[:, t] and the
 // step's hp = h_in @ W_h + b_h (the GEMM just before: its `splits` partial
-// planes [splits][B][3H] summed in split order, then b_h added here where
-// b_h is given (bf16); f32's one plane has b_h in it), h' rounded to T into
+// planes [splits][B][3H] summed in split order, then b_h added), h' rounded to T into
 // ys[:, t], and into hbuf the next step's h_in: keep[t+1] * h' (rounded to
 // T) in the reset variant, h' itself without. hbuf holds this step's h_in
 // (h0, times keep[0] in the reset variant, before step 0): each thread reads
@@ -2110,10 +2110,7 @@ gru_step_kernel(const float* __restrict__ xp, const float* __restrict__ hp, int 
   const size_t plane = static_cast<size_t>(B) * 3 * H, o = static_cast<size_t>(row) * 3 * H + unit;
   float hq[3];
 #pragma unroll
-  for (int g = 0; g < 3; ++g) {
-    hq[g] = rnn::step_product(hp, splits, plane, o + g * H);
-    if (b_h != nullptr) hq[g] += b_h[g * H + unit];
-  }
+  for (int g = 0; g < 3; ++g) hq[g] = rnn::step_product(hp, splits, plane, o + g * H) + b_h[g * H + unit];
   const float r = rnn::step_sigmoid<T>(x[0] + hq[0]);
   const float z = rnn::step_sigmoid<T>(x[H] + hq[1]);
   const float n = rnn::step_tanh<T>(x[2 * H] + r * hq[2]);
@@ -2180,17 +2177,15 @@ gru_step_backward_kernel(const float* __restrict__ xp, const float* __restrict__
 // The forward scan: T x (the step's GEMM, then its gates).
 template <typename T, bool kReset>
 int stepped_forward(const float* xp, T* hbuf, const T* w_h, const float* b_h, const float* keep,
-                    T* ys, float* hp, const rnn::StepGemmPlan& plan, int B, int Tn, int H,
+                    T* ys, float* hp, const rnn::StepPlan& plan, int B, int Tn, int H,
                     cudaStream_t s) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  const float* gate_b = kBf16 ? b_h : nullptr;  // f32: b_h added in the GEMM
-  rnn::StepGemmMaps maps;
-  const int mrc = kBf16 ? rnn::step_gemm_maps(plan, hbuf, w_h, B, H, 3 * H, 1, &maps) : 0;
+  rnn::StepMaps maps;
+  const int mrc = rnn::step_maps(plan, hbuf, w_h, B, H, 3 * H, 1, &maps);
   if (mrc != 0) return mrc;
   for (int t = 0; t < Tn; ++t) {
-    int rc = rnn::step_gemm(kBf16, plan, maps, hbuf, w_h, b_h, hp, B, H, 3 * H, 1, s);
-    if (rc == 0) rc = rnn::launch_step(gru_step_kernel<T, kReset>, B, H, s, xp, hp, plan.splits,
-                                       gate_b, hbuf, keep, ys, B, Tn, H, t);
+    int rc = rnn::step_gemm(plan, maps, hbuf, w_h, hp, B, H, 3 * H, 1, s);
+    if (rc == 0) rc = rnn::launch_step(gru_step_kernel<T, kReset>, B, H, s, xp, hp,
+                                       plan.splits(), b_h, hbuf, keep, ys, B, Tn, H, t);
     if (rc != 0) return rc;
   }
   return 0;
@@ -2200,20 +2195,18 @@ int stepped_forward(const float* xp, T* hbuf, const T* w_h, const float* b_h, co
 // w: bf16 W_h [H, 3H] as stored (the GEMM's [N][K]), f32 W_h^T [3H, H].
 template <typename W, typename HIn, bool kKeep>
 int stepped_backward(const float* xp, const float* hp, const HIn* h_in, const W* g_ys,
-                     const W* w, const float* zeros, const float* keep, float* d_xp,
-                     float* dn_r, float* dh0, W* a, float* p, float* z_buf,
-                     const rnn::StepGemmPlan& plan, int B, int Tn, int H, cudaStream_t s) {
-  constexpr bool kBf16 = sizeof(W) == 2;
+                     const W* w, const float* keep, float* d_xp, float* dn_r, float* dh0, W* a,
+                     float* p, float* z_buf, const rnn::StepPlan& plan, int B, int Tn, int H,
+                     cudaStream_t s) {
+  constexpr int kTerms = sizeof(W) == 2 ? 2 : 1;
   auto gates = gru_step_backward_kernel<W, HIn, kKeep>;
-  rnn::StepGemmMaps maps;
-  const int mrc = kBf16 ? rnn::step_gemm_maps(plan, a, w, B, 3 * H, H, 2, &maps) : 0;
+  rnn::StepMaps maps;
+  const int mrc = rnn::step_maps(plan, a, w, B, 3 * H, H, kTerms, &maps);
   if (mrc != 0) return mrc;
   for (int t = Tn - 1; t >= -1; --t) {
-    int rc = rnn::launch_step(gates, B, H, s, xp, hp, h_in, g_ys, keep, p, plan.splits, z_buf, a,
-                              d_xp, dn_r, dh0, B, Tn, H, t);
-    if (rc == 0 && t >= 0) {
-      rc = rnn::step_gemm(kBf16, plan, maps, a, w, zeros, p, B, 3 * H, H, kBf16 ? 2 : 1, s);
-    }
+    int rc = rnn::launch_step(gates, B, H, s, xp, hp, h_in, g_ys, keep, p, plan.splits(), z_buf,
+                              a, d_xp, dn_r, dh0, B, Tn, H, t);
+    if (rc == 0 && t >= 0) rc = rnn::step_gemm(plan, maps, a, w, p, B, 3 * H, H, kTerms, s);
     if (rc != 0) return rc;
   }
   return 0;
@@ -2223,12 +2216,16 @@ int stepped_backward(const float* xp, const float* hp, const HIn* h_in, const W*
 
 extern "C" {
 
-// The f32 input projection on the CUDA cores: xp [M, N3] = x [M, D] @ w_x
-// [D, N3] + b_x, all float, contiguous, 16-byte aligned; D % 4 == 0 and
-// N3 % 4 == 0.
+// The f32 input projection on the CUDA cores (rnn::launch_xproj_f32): xp
+// [M, N3] = x [M, D] @ w_x [D, N3] + b_x, all float, contiguous, 16-byte
+// aligned; D % 4 == 0 and N3 % 4 == 0. block_m, grid and smem_bytes as
+// rnn::xproj_f32_plan computes them (ops/cuda/gru.py xproj_f32_config),
+// checked here.
 int seqrec_gru_xproj_f32(const void* x, const void* w_x, const void* b_x, void* xp, int M,
-                         int D, int N3, void* stream) {
-  return rnn::launch_xproj_f32(x, w_x, b_x, xp, M, D, N3, static_cast<cudaStream_t>(stream));
+                         int D, int N3, int block_m, int grid, long long smem_bytes,
+                         void* stream) {
+  return rnn::launch_xproj_f32(x, w_x, b_x, xp, M, D, N3, block_m, grid, smem_bytes,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // The f32 recurrence on thread block clusters. xp [B, T, 3H] (the input
@@ -2293,14 +2290,29 @@ int seqrec_gru_xproj(const void* x, const void* w_x, const void* b_x, void* xp, 
 // checked here. All contiguous; K % 4 == 0, N % 4 == 0.
 int seqrec_step_gemm(const void* a, const void* w, void* out, int M, int K, int N, int terms,
                      int splits, int block_m, long long ws_bytes, void* stream) {
-  rnn::StepGemmPlan plan;
+  rnn::StepPlan plan;
   const int rc = rnn::stepped_plan(true, M, K, N, terms, splits, block_m, ws_bytes, &plan);
   if (rc != 0) return rc;
-  rnn::StepGemmMaps maps;
-  const int mrc = rnn::step_gemm_maps(plan, a, w, M, K, N, terms, &maps);
+  rnn::StepMaps maps;
+  const int mrc = rnn::step_maps(plan, a, w, M, K, N, terms, &maps);
   if (mrc != 0) return mrc;
-  return rnn::launch_step_gemm(plan, maps, a, w, out, M, K, N, terms,
-                               static_cast<cudaStream_t>(stream));
+  return rnn::step_gemm(plan, maps, a, w, out, M, K, N, terms, static_cast<cudaStream_t>(stream));
+}
+
+// The stepped layouts' f32 step GEMM alone (csrc/fma_gemm.cuh): into out,
+// ws_bytes of f32, its `splits` partial planes [splits][M][N] of a [M, K] @
+// w [K, N], all float, contiguous, 16-byte aligned; K % 4 == 0, N % 4 == 0.
+// block_m, splits and ws_bytes as rnn::fma_plan computes them (ops/cuda/
+// gru.py step_gemm_f32_config), checked here.
+int seqrec_step_gemm_f32(const void* a, const void* w, void* out, int M, int K, int N,
+                         int splits, int block_m, long long ws_bytes, void* stream) {
+  rnn::StepPlan plan;
+  const int rc = rnn::stepped_plan(false, M, K, N, 1, splits, block_m, ws_bytes, &plan);
+  if (rc != 0) return rc;
+  rnn::StepMaps maps;
+  const int mrc = rnn::step_maps(plan, a, w, M, K, N, 1, &maps);
+  if (mrc != 0) return mrc;
+  return rnn::step_gemm(plan, maps, a, w, out, M, K, N, 1, static_cast<cudaStream_t>(stream));
 }
 
 // The bf16 recurrence on tensor cores, one block of 8 rows (Hp <= 128).
@@ -2570,10 +2582,10 @@ int seqrec_gru_backward_grid(const void* xp, const void* hp, const void* h_in, c
 // projection, b_x included); hbuf [B, H] of the dtype, holding h0 (times
 // keep[:, 0] in the reset variant) and, after the scan, the last step's h
 // handed on; w_h [H, 3H] of the dtype; b_h [3H] float; keep [B, T] float or
-// null; ys [B, T, H] of the dtype; hp float scratch of ws_bytes: bf16 the
-// step GEMM's [splits][B][3H] partial planes (rows a block `block_m`, as
-// step_gemm_plan computes them), f32 [B, 3H] (splits 1, block_m 0). All
-// contiguous, 16-byte aligned; H % 4 == 0.
+// null; ys [B, T, H] of the dtype; hp float scratch of ws_bytes: the step
+// GEMM's [splits][B][3H] partial planes (rows a block `block_m`, as bf16
+// step_gemm_plan, f32 fma_plan computes them). All contiguous, 16-byte
+// aligned; H % 4 == 0.
 int seqrec_gru_forward_stepped(const void* xp, void* hbuf, const void* w_h, const void* b_h,
                                const void* keep, void* ys, void* hp, int B, int Tn, int H,
                                int dtype, int splits, int block_m, long long ws_bytes,
@@ -2581,7 +2593,7 @@ int seqrec_gru_forward_stepped(const void* xp, void* hbuf, const void* w_h, cons
   if (B <= 0 || Tn <= 0 || H <= 0 || H % 4 != 0 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  rnn::StepGemmPlan plan;
+  rnn::StepPlan plan;
   const int rc = rnn::stepped_plan(dtype == 1, B, H, 3 * H, 1, splits, block_m, ws_bytes, &plan);
   if (rc != 0) return rc;
   const float* x = static_cast<const float*>(xp);
@@ -2608,14 +2620,13 @@ int seqrec_gru_forward_stepped(const void* xp, void* hbuf, const void* w_h, cons
 // The stepped reverse recurrence; dtype is W_h's (0 float, 1 bf16). xp, hp
 // [B, T, 3H] float; h_in [B, T, H] of hin_dtype (float with float weights);
 // g_ys [B, T, H] of the weights' dtype; w: bf16 W_h [H, 3H] as stored, f32
-// W_h^T [3H, H]; zeros [H] float (the f32 GEMM's bias); keep [B, T] float or
-// null; d_xp [B, T, 3H], dn_r [B, T, H], dh0 [B, H] float; scratch: a
-// [B, 3H] float or [B, 6H] bf16 (the step's d_hproj; bf16 its hi and lo
-// terms, [hi | lo] a row), p float of ws_bytes (bf16 the step GEMM's
-// [splits][B][H] partial planes, f32 [B, H]) and z [B, H] float. As the
-// forward otherwise.
+// W_h^T [3H, H]; keep [B, T] float or null; d_xp [B, T, 3H], dn_r [B, T,
+// H], dh0 [B, H] float; scratch: a [B, 3H] float or [B, 6H] bf16 (the
+// step's d_hproj; bf16 its hi and lo terms, [hi | lo] a row), p float of
+// ws_bytes (the step GEMM's [splits][B][H] partial planes) and z [B, H]
+// float. As the forward otherwise.
 int seqrec_gru_backward_stepped(const void* xp, const void* hp, const void* h_in,
-                                const void* g_ys, const void* w, const void* zeros,
+                                const void* g_ys, const void* w,
                                 const void* keep, void* d_xp, void* dn_r, void* dh0, void* a,
                                 void* p, void* z, int B, int Tn, int H, int dtype, int hin_dtype,
                                 int splits, int block_m, long long ws_bytes, void* stream) {
@@ -2623,13 +2634,12 @@ int seqrec_gru_backward_stepped(const void* xp, const void* hp, const void* h_in
       (hin_dtype != 0 && hin_dtype != 1) || (dtype == 0 && hin_dtype != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  rnn::StepGemmPlan plan;
+  rnn::StepPlan plan;
   const int rc = rnn::stepped_plan(dtype == 1, B, 3 * H, H, dtype == 1 ? 2 : 1, splits, block_m,
                                    ws_bytes, &plan);
   if (rc != 0) return rc;
   const float* x = static_cast<const float*>(xp);
   const float* hq = static_cast<const float*>(hp);
-  const float* zr = static_cast<const float*>(zeros);
   const float* kp = static_cast<const float*>(keep);
   float* dx = static_cast<float*>(d_xp);
   float* dn = static_cast<float*>(dn_r);
@@ -2641,11 +2651,11 @@ int seqrec_gru_backward_stepped(const void* xp, const void* hp, const void* h_in
   (kp == nullptr                                                                                 \
        ? stepped_backward<W, HIn, false>(x, hq, static_cast<const HIn*>(h_in),                   \
                                          static_cast<const W*>(g_ys), static_cast<const W*>(w),   \
-                                         zr, kp, dx, dn, d0, static_cast<W*>(a), pp, zb, plan, B, \
+                                         kp, dx, dn, d0, static_cast<W*>(a), pp, zb, plan, B,     \
                                          Tn, H, s)                                               \
        : stepped_backward<W, HIn, true>(x, hq, static_cast<const HIn*>(h_in),                    \
                                         static_cast<const W*>(g_ys), static_cast<const W*>(w),    \
-                                        zr, kp, dx, dn, d0, static_cast<W*>(a), pp, zb, plan, B,  \
+                                        kp, dx, dn, d0, static_cast<W*>(a), pp, zb, plan, B,      \
                                         Tn, H, s))
   if (dtype == 0) return SEQREC_STEP_BWD(float, float);
   if (hin_dtype == 0) return SEQREC_STEP_BWD(__nv_bfloat16, float);

@@ -56,9 +56,9 @@
 // f32: two kernels on the CUDA cores, because TF32 tensor cores keep ~3
 // digits and the f32 contract is f32 products; csrc/gru.cu's f32 design
 // with four gates and a cell.
-// 1. rnn::xproj_f32_kernel (csrc/rnn.cuh), the input projection off the
-//    serial chain as a persistent f32 SIMT GEMM: xp = x @ W_x + b into an f32
-//    [B, T, 4H] plane (its operations bind: 3.36 GFLOP at B=128, T=200,
+// 1. rnn::launch_xproj_f32 (csrc/rnn.cuh), the input projection off the
+//    serial chain as the GRU's (the FMA GEMM from D = 256, SIMT below): xp =
+//    x @ W_x + b into an f32 [B, T, 4H] plane (its operations bind: 3.36 GFLOP at B=128, T=200,
 //    D=H=128, 0.050 ms at 67 TFLOP/s).
 // 2. lstm_forward_cluster_kernel, the recurrence on a thread block cluster.
 //    W_h is 256 KB at H=128, over the 227 KB one block may have, and the
@@ -1652,17 +1652,16 @@ lstm_step_backward_kernel(const float* __restrict__ ig, const float* __restrict_
 
 // The forward scan: T x (the step's GEMM, then its gates).
 template <typename T, bool kReset>
-int stepped_forward(const float* xp, T* hbuf, float* c_buf, const T* w_h, const float* zeros,
-                    const float* keep, T* ys, float* cs, float* hp, const rnn::StepGemmPlan& plan,
-                    int B, int Tn, int H, cudaStream_t s) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  rnn::StepGemmMaps maps;
-  const int mrc = kBf16 ? rnn::step_gemm_maps(plan, hbuf, w_h, B, H, 4 * H, 1, &maps) : 0;
+int stepped_forward(const float* xp, T* hbuf, float* c_buf, const T* w_h, const float* keep,
+                    T* ys, float* cs, float* hp, const rnn::StepPlan& plan, int B, int Tn, int H,
+                    cudaStream_t s) {
+  rnn::StepMaps maps;
+  const int mrc = rnn::step_maps(plan, hbuf, w_h, B, H, 4 * H, 1, &maps);
   if (mrc != 0) return mrc;
   for (int t = 0; t < Tn; ++t) {
-    int rc = rnn::step_gemm(kBf16, plan, maps, hbuf, w_h, zeros, hp, B, H, 4 * H, 1, s);
-    if (rc == 0) rc = rnn::launch_step(lstm_step_kernel<T, kReset>, B, H, s, xp, hp, plan.splits,
-                                       hbuf, c_buf, keep, ys, cs, B, Tn, H, t);
+    int rc = rnn::step_gemm(plan, maps, hbuf, w_h, hp, B, H, 4 * H, 1, s);
+    if (rc == 0) rc = rnn::launch_step(lstm_step_kernel<T, kReset>, B, H, s, xp, hp,
+                                       plan.splits(), hbuf, c_buf, keep, ys, cs, B, Tn, H, t);
     if (rc != 0) return rc;
   }
   return 0;
@@ -1671,22 +1670,20 @@ int stepped_forward(const float* xp, T* hbuf, float* c_buf, const T* w_h, const 
 // The reverse recurrence: T x (the step's gates, then its GEMM), then dh0, dc0.
 // w: bf16 W_h [H, 4H] as stored (the GEMM's [N][K]), f32 W_h^T [4H, H].
 template <typename W, bool kKeep>
-int stepped_backward(const float* const* planes, const W* g_ys, const W* w, const float* zeros,
-                     const float* keep, const float* dc_last, float* dz, float* dh0, float* dc0,
-                     W* a, float* p, float* dc_buf, const rnn::StepGemmPlan& plan, int B, int Tn,
-                     int H, cudaStream_t s) {
-  constexpr bool kBf16 = sizeof(W) == 2;
+int stepped_backward(const float* const* planes, const W* g_ys, const W* w, const float* keep,
+                     const float* dc_last, float* dz, float* dh0, float* dc0, W* a, float* p,
+                     float* dc_buf, const rnn::StepPlan& plan, int B, int Tn, int H,
+                     cudaStream_t s) {
+  constexpr int kTerms = sizeof(W) == 2 ? 2 : 1;
   auto gates = lstm_step_backward_kernel<W, kKeep>;
-  rnn::StepGemmMaps maps;
-  const int mrc = kBf16 ? rnn::step_gemm_maps(plan, a, w, B, 4 * H, H, 2, &maps) : 0;
+  rnn::StepMaps maps;
+  const int mrc = rnn::step_maps(plan, a, w, B, 4 * H, H, kTerms, &maps);
   if (mrc != 0) return mrc;
   for (int t = Tn - 1; t >= -1; --t) {
     int rc = rnn::launch_step(gates, B, H, s, planes[0], planes[1], planes[2], planes[3],
-                              planes[4], planes[5], g_ys, keep, dc_last, p, plan.splits, dc_buf,
+                              planes[4], planes[5], g_ys, keep, dc_last, p, plan.splits(), dc_buf,
                               a, dz, dh0, dc0, B, Tn, H, t);
-    if (rc == 0 && t >= 0) {
-      rc = rnn::step_gemm(kBf16, plan, maps, a, w, zeros, p, B, 4 * H, H, kBf16 ? 2 : 1, s);
-    }
+    if (rc == 0 && t >= 0) rc = rnn::step_gemm(plan, maps, a, w, p, B, 4 * H, H, kTerms, s);
     if (rc != 0) return rc;
   }
   return 0;
@@ -1696,12 +1693,16 @@ int stepped_backward(const float* const* planes, const W* g_ys, const W* w, cons
 
 extern "C" {
 
-// The f32 input projection on the CUDA cores: xp [M, N4] = x [M, D] @ w_x
-// [D, N4] + b, all float, contiguous, 16-byte aligned; D % 4 == 0 and
-// N4 % 4 == 0.
+// The f32 input projection on the CUDA cores (rnn::launch_xproj_f32): xp
+// [M, N4] = x [M, D] @ w_x [D, N4] + b, all float, contiguous, 16-byte
+// aligned; D % 4 == 0 and N4 % 4 == 0. block_m, grid and smem_bytes as
+// rnn::xproj_f32_plan computes them (ops/cuda/gru.py xproj_f32_config),
+// checked here.
 int seqrec_lstm_xproj_f32(const void* x, const void* w_x, const void* b, void* xp, int M,
-                          int D, int N4, void* stream) {
-  return rnn::launch_xproj_f32(x, w_x, b, xp, M, D, N4, static_cast<cudaStream_t>(stream));
+                          int D, int N4, int block_m, int grid, long long smem_bytes,
+                          void* stream) {
+  return rnn::launch_xproj_f32(x, w_x, b, xp, M, D, N4, block_m, grid, smem_bytes,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // The f32 recurrence on thread block clusters. xp [B, T, 4H] (the input
@@ -1973,25 +1974,23 @@ int seqrec_lstm_backward_grid(const void* i, const void* f, const void* g, const
 // followed by the step's gate kernel. xp [B, T, 4H] float (the input
 // projection, b included); hbuf [B, H] of the dtype, holding h0 (times
 // keep[:, 0] in the reset variant); c_buf [B, H] float, holding c0 and,
-// after the scan, c_T; w_h [H, 4H] of the dtype; zeros [4H] float (the f32
-// GEMM's bias); keep [B, T] float or null; ys [B, T, H] of the dtype; cs
-// [B, T, H] float (the cell plane) or null; hp float scratch of ws_bytes:
-// bf16 the step GEMM's [splits][B][4H] partial planes (rows a block
-// `block_m`, as step_gemm_plan computes them), f32 [B, 4H] (splits 1,
-// block_m 0). All contiguous, 16-byte aligned; H % 4 == 0.
+// after the scan, c_T; w_h [H, 4H] of the dtype; keep [B, T] float or null;
+// ys [B, T, H] of the dtype; cs [B, T, H] float (the cell plane) or null; hp
+// float scratch of ws_bytes: the step GEMM's [splits][B][4H] partial planes
+// (rows a block `block_m`, as bf16 step_gemm_plan, f32 fma_plan computes
+// them). All contiguous, 16-byte aligned; H % 4 == 0.
 int seqrec_lstm_forward_stepped(const void* xp, void* hbuf, void* c_buf, const void* w_h,
-                                const void* zeros, const void* keep, void* ys, void* cs,
+                                const void* keep, void* ys, void* cs,
                                 void* hp, int B, int Tn, int H, int dtype, int splits,
                                 int block_m, long long ws_bytes, void* stream) {
   if (B <= 0 || Tn <= 0 || H <= 0 || H % 4 != 0 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  rnn::StepGemmPlan plan;
+  rnn::StepPlan plan;
   const int rc = rnn::stepped_plan(dtype == 1, B, H, 4 * H, 1, splits, block_m, ws_bytes, &plan);
   if (rc != 0) return rc;
   const float* x = static_cast<const float*>(xp);
   float* c = static_cast<float*>(c_buf);
-  const float* zr = static_cast<const float*>(zeros);
   const float* kp = static_cast<const float*>(keep);
   float* cp = static_cast<float*>(cs);
   float* hq = static_cast<float*>(hp);
@@ -2002,42 +2001,41 @@ int seqrec_lstm_forward_stepped(const void* xp, void* hbuf, void* c_buf, const v
     const auto* w = static_cast<const bf*>(w_h);
     auto* y = static_cast<bf*>(ys);
     return kp == nullptr
-               ? stepped_forward<bf, false>(x, hb, c, w, zr, kp, y, cp, hq, plan, B, Tn, H, s)
-               : stepped_forward<bf, true>(x, hb, c, w, zr, kp, y, cp, hq, plan, B, Tn, H, s);
+               ? stepped_forward<bf, false>(x, hb, c, w, kp, y, cp, hq, plan, B, Tn, H, s)
+               : stepped_forward<bf, true>(x, hb, c, w, kp, y, cp, hq, plan, B, Tn, H, s);
   }
   auto* hb = static_cast<float*>(hbuf);
   const auto* w = static_cast<const float*>(w_h);
   auto* y = static_cast<float*>(ys);
   return kp == nullptr
-             ? stepped_forward<float, false>(x, hb, c, w, zr, kp, y, cp, hq, plan, B, Tn, H, s)
-             : stepped_forward<float, true>(x, hb, c, w, zr, kp, y, cp, hq, plan, B, Tn, H, s);
+             ? stepped_forward<float, false>(x, hb, c, w, kp, y, cp, hq, plan, B, Tn, H, s)
+             : stepped_forward<float, true>(x, hb, c, w, kp, y, cp, hq, plan, B, Tn, H, s);
 }
 
 // The stepped reverse recurrence; dtype is g_ys' (0 float, 1 bf16). i, f,
 // g, o, tanh_c, c_in [B, T, H] float (c_in scaled by keep); g_ys [B, T, H]
-// of the dtype; w: bf16 W_h [H, 4H] as stored, f32 W_h^T [4H, H]; zeros [H]
-// float (the f32 GEMM's bias); keep [B, T] float or null; dc_last [B, H]
-// float; dz [B, T, 4H], dh0, dc0 [B, H] float; scratch: a [B, 4H] float or
-// [B, 8H] bf16 (the step's dz; bf16 its hi and lo terms, [hi | lo] a row), p
-// float of ws_bytes (bf16 the step GEMM's [splits][B][H] partial planes, f32
-// [B, H]) and dc [B, H] float. As the forward otherwise.
+// of the dtype; w: bf16 W_h [H, 4H] as stored, f32 W_h^T [4H, H]; keep
+// [B, T] float or null; dc_last [B, H] float; dz [B, T, 4H], dh0, dc0 [B, H]
+// float; scratch: a [B, 4H] float or [B, 8H] bf16 (the step's dz; bf16 its
+// hi and lo terms, [hi | lo] a row), p float of ws_bytes (the step GEMM's
+// [splits][B][H] partial planes) and dc [B, H] float. As the forward
+// otherwise.
 int seqrec_lstm_backward_stepped(const void* i, const void* f, const void* g, const void* o,
                                  const void* tanh_c, const void* c_in, const void* g_ys,
-                                 const void* w, const void* zeros, const void* keep,
+                                 const void* w, const void* keep,
                                  const void* dc_last, void* dz, void* dh0, void* dc0, void* a,
                                  void* p, void* dc, int B, int Tn, int H, int dtype, int splits,
                                  int block_m, long long ws_bytes, void* stream) {
   if (B <= 0 || Tn <= 0 || H <= 0 || H % 4 != 0 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  rnn::StepGemmPlan plan;
+  rnn::StepPlan plan;
   const int rc = rnn::stepped_plan(dtype == 1, B, 4 * H, H, dtype == 1 ? 2 : 1, splits, block_m,
                                    ws_bytes, &plan);
   if (rc != 0) return rc;
   const float* planes[6] = {static_cast<const float*>(i), static_cast<const float*>(f),
                             static_cast<const float*>(g), static_cast<const float*>(o),
                             static_cast<const float*>(tanh_c), static_cast<const float*>(c_in)};
-  const float* zr = static_cast<const float*>(zeros);
   const float* kp = static_cast<const float*>(keep);
   const float* dcl = static_cast<const float*>(dc_last);
   float* out = static_cast<float*>(dz);
@@ -2049,10 +2047,10 @@ int seqrec_lstm_backward_stepped(const void* i, const void* f, const void* g, co
 #define SEQREC_STEP_BWD(W)                                                                      \
   (kp == nullptr                                                                                \
        ? stepped_backward<W, false>(planes, static_cast<const W*>(g_ys),                        \
-                                    static_cast<const W*>(w), zr, kp, dcl, out, d0, c0,          \
+                                    static_cast<const W*>(w), kp, dcl, out, d0, c0,              \
                                     static_cast<W*>(a), pp, cb, plan, B, Tn, H, s)               \
        : stepped_backward<W, true>(planes, static_cast<const W*>(g_ys),                         \
-                                   static_cast<const W*>(w), zr, kp, dcl, out, d0, c0,           \
+                                   static_cast<const W*>(w), kp, dcl, out, d0, c0,               \
                                    static_cast<W*>(a), pp, cb, plan, B, Tn, H, s))
   if (dtype == 0) return SEQREC_STEP_BWD(float);
   return SEQREC_STEP_BWD(__nv_bfloat16);

@@ -7,9 +7,9 @@
 // batch rows a block, a lane's (unit, row) positions, packed A fragments,
 // and the per-step staging of [B, T, H] planes).
 //
-// f32: the same projection on the CUDA cores (xproj_f32_kernel: a
-// persistent SIMT GEMM on simt_gemm.cuh's main loop, f32 products, no
-// TF32), and what the cluster
+// f32: the same projection on the CUDA cores (fma_gemm.cuh's persistent
+// FMA GEMM fed by TMA where D >= 256, below it a persistent SIMT GEMM on
+// simt_gemm.cuh's main loop; f32 products, no TF32), and what the cluster
 // recurrences share: the cluster
 // primitives (rank, distributed shared memory stores, the cluster barrier),
 // the k-sliced layout of a CTA's weights and of the exchanged vector, the
@@ -25,6 +25,7 @@
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "fma_gemm.cuh"
 #include "simt_gemm.cuh"
 #include "step_gemm.cuh"
 
@@ -512,16 +513,23 @@ __device__ __forceinline__ void zero_smem(unsigned char* p, int bytes) {
 // ---------------------------------------------------------------------------
 
 // xp [M, N] f32 = x [M, D] @ w_x [D, N] + b, all f32, f32 products (no TF32).
+// Two designs, one function (each output sums its products by FMA in k
+// order from 0, then adds b, so both give the same bits): fma_gemm.cuh's
+// FMA GEMM where D >= kXpF32FmaDepth, and below it, where a call is
+// 0.02-0.1 ms of one to three waves of 256 x 128 tiles (kernel_probes.py
+// fma on an H100: 1.3-1.6x this one at D <= 128), the SIMT GEMM below.
 // What bounds it: its operations (3.36 GFLOP at M = 25,600, D = 128,
 // N = 512: 0.050 ms at 67 TFLOP/s; 1.26 GFLOP at M = 12,800, N = 384),
-// issued from operands in shared memory. The design:
+// issued from operands in shared memory. The SIMT design:
 // - kTileM x 128 output tiles, 8 x 8 outputs a thread: simt_gemm.cuh's
 //   main loop (shared with the f32 sampled-softmax head).
 // - x is transposed on its way into shared memory (simt::copy_transposed:
 //   xT [k][m], one 4-byte cp.async an element), so a thread's rows of one
 //   k are float4 reads; W_x [k][n] arrives in 16-byte pieces. Zero past M,
 //   D and N (multiples of 4). k chunks of kTileK in a ring of kStagesT
-//   stages filled kStagesT - 1 chunks ahead; one barrier a chunk.
+//   stages filled kStagesT - 1 chunks ahead; one barrier a chunk. The
+//   chunk is 16 deep where that pads D less than 32 does (rsc15's 100:
+//   112, not 128), else 32.
 // - Persistent: grid = min(tiles, kMinCtas x the SMs), CTA c takes tiles
 //   c, c + G, c + 2G, ... (tile j: row block j % m_tiles, column block
 //   j / m_tiles), so every SM gets within one tile of the same work, and
@@ -539,10 +547,11 @@ constexpr int f32_proj_smem() {
   return kStagesT * kTileK * (kTileM + 4 + kF32TileN) * 4;
 }
 
-template <int kTileM, int kTileK, int kStagesT, int kMinCtas>
+template <int kTileM, int kTileK, int kStagesT, int kMinCtas, bool kSplit>
 __global__ void __launch_bounds__(kTileM * 2, kMinCtas)
 xproj_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_x,
-                 const float* __restrict__ b, float* __restrict__ xp, int M, int D, int N) {
+                 const float* __restrict__ b, float* __restrict__ xp, int M, int D, int N,
+                 int split_chunks, int split_count) {
   constexpr int NT = kTileM * 2;          // threads
   constexpr int LDT = kTileM + 4;         // floats a k row of xT (the pad: distinct banks)
   constexpr int SF = kTileK * (LDT + kF32TileN);  // floats a stage: xT, then W_x
@@ -550,16 +559,20 @@ xproj_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_x,
   const int tid = threadIdx.x;
   const simt::Place p = simt::place();
   const int m_tiles = (M + kTileM - 1) / kTileM;
-  const int tiles = m_tiles * ((N + kF32TileN - 1) / kF32TileN);
-  const int chunks = (D + kTileK - 1) / kTileK;
+  // kSplit: `split_count` splits of `split_chunks` chunks; else one of all.
+  const int per = kSplit ? split_chunks : (D + kTileK - 1) / kTileK;
+  const int splits = kSplit ? split_count : 1;
+  const int items = m_tiles * ((N + kF32TileN - 1) / kF32TileN) * splits;
   const int G = gridDim.x;
-  // This CTA's (tile, chunk) iterations, flat: iteration i is chunk i % chunks
-  // of its tile blockIdx.x + (i / chunks) G.
-  const int iters = (tiles - static_cast<int>(blockIdx.x) + G - 1) / G * chunks;
+  // This CTA's (item, chunk) iterations, flat: iteration i is chunk i % per
+  // of its item blockIdx.x + (i / per) G; item j is K split j % splits of
+  // tile j / splits, chunks [split per, split per + per), zero past D.
+  const int iters = (items - static_cast<int>(blockIdx.x) + G - 1) / G * per;
 
   auto stage = [&](int i) {
     if (i < iters) {
-      const int tile = blockIdx.x + (i / chunks) * G, k0 = (i % chunks) * kTileK;
+      const int item = blockIdx.x + (i / per) * G, tile = item / splits;
+      const int k0 = (item % splits * per + i % per) * kTileK;
       const int m0 = tile % m_tiles * kTileM, n0 = tile / m_tiles * kF32TileN;
       float* xs = fsm + (i % kStagesT) * SF;
       float* ws = xs + kTileK * LDT;
@@ -587,21 +600,26 @@ xproj_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_x,
     stage(i + kStagesT - 1);
     const float* xs = fsm + (i % kStagesT) * SF;
     simt::fma_chunk<kTileM, kTileK, LDT, kF32TileN>(acc, xs, xs + kTileK * LDT, p);
-    if (i % chunks == chunks - 1) {  // the tile's last chunk: b, then store
-      const int tile = blockIdx.x + (i / chunks) * G;
+    if (i % per == per - 1) {  // the item's last chunk: b (if given), then store
+      const int item = blockIdx.x + (i / per) * G, tile = item / splits;
       const int m0 = tile % m_tiles * kTileM, n0 = tile / m_tiles * kF32TileN;
+      float* out = xp + static_cast<size_t>(item % splits) * M * N;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int col = n0 + 64 * h + 4 * p.tn;
         if (col < N) {
-          const float4 bias = *reinterpret_cast<const float4*>(b + col);
+          const float4 bias = kSplit ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                                     : *reinterpret_cast<const float4*>(b + col);
 #pragma unroll
           for (int r = 0; r < 8; ++r) {
             const int row = m0 + simt::row_of<kTileM>(r, p.tm);
             if (row < M) {
-              *reinterpret_cast<float4*>(xp + static_cast<size_t>(row) * N + col) =
-                  make_float4(acc[r][4 * h] + bias.x, acc[r][4 * h + 1] + bias.y,
-                              acc[r][4 * h + 2] + bias.z, acc[r][4 * h + 3] + bias.w);
+              float4 v = make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
+                                     acc[r][4 * h + 3]);
+              if (!kSplit) {
+                v = make_float4(v.x + bias.x, v.y + bias.y, v.z + bias.z, v.w + bias.w);
+              }
+              *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * N + col) = v;
             }
           }
         }
@@ -612,45 +630,80 @@ xproj_f32_kernel(const float* __restrict__ x, const float* __restrict__ w_x,
   mma::cp_async_wait<0>();  // no copy outlives the block
 }
 
-// Launch variant <kTileM, kTileK, kStagesT, kMinCtas> of the projection on
-// at most kMinCtas CTAs a SM; a CUDA error code.
-template <int kTileM, int kTileK, int kStagesT, int kMinCtas>
+// Launch variant <kTileM, kTileK, kStagesT, kMinCtas, kSplit> on `grid`
+// CTAs (at most kMinCtas a SM): the projection (kSplit false, b given), or
+// the step GEMM's partial planes (kSplit, b unused: `splits` planes of
+// `per` chunks); a CUDA error code.
+template <int kTileM, int kTileK, int kStagesT, int kMinCtas, bool kSplit = false>
 int launch_xproj_f32_variant(const void* x, const void* w_x, const void* b, void* xp, int M,
-                             int D, int N, cudaStream_t s) {
-  if (M <= 0 || D <= 0 || N <= 0 || D % 4 != 0 || N % 4 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+                             int D, int N, int grid, int per, int splits, cudaStream_t s) {
   constexpr int smem = f32_proj_smem<kTileM, kTileK, kStagesT>();
-  auto kernel = xproj_f32_kernel<kTileM, kTileK, kStagesT, kMinCtas>;
+  auto kernel = xproj_f32_kernel<kTileM, kTileK, kStagesT, kMinCtas, kSplit>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long tiles = static_cast<long long>((M + kTileM - 1) / kTileM) *
-                          ((N + kF32TileN - 1) / kF32TileN);
-  const int grid = static_cast<int>(tiles < kMinCtas * sms ? tiles : kMinCtas * sms);
   kernel<<<grid, kTileM * 2, smem, s>>>(static_cast<const float*>(x),
                                         static_cast<const float*>(w_x),
                                         static_cast<const float*>(b), static_cast<float*>(xp),
-                                        M, D, N);
+                                        M, D, N, per, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch the f32 projection on `s`; a CUDA error code (0: launched). 64-row
-// tiles, 32-deep chunks, 2 stages, 4 CTAs a SM: of the variants
-// kernel_probes.py xproj times (kernel_probes.cu), the fastest or within 3%
-// of it at the f32 paths' shapes (M = 12,800 and 25,600, N = 384 and 512).
-// On an H100 it stays 1.0-1.14x torch.addmm f32 there: an 8 x 8
-// outer-product loop of the same kind (kernel_probes.cu) with no copies, no
-// shared-memory reads and no stores runs at ~60% of the FMA peak (PERF.md).
+constexpr int kXpF32FmaDepth = 256;  // D from which the FMA GEMM runs the projection
+
+// The f32 projection's plan: the FMA GEMM's (fma_plan), or the SIMT
+// design's 64-row tiles on at most 4 CTAs a SM in 16- or 32-deep chunks.
+struct XprojF32Plan {
+  bool fma = false;
+  FmaPlan fm;
+  int tile_k = 0, grid = 0, smem = 0;
+  int block_m() const { return fma ? kFmRows : 64; }
+  int smem_bytes() const { return fma ? fm.smem : smem; }
+  int ctas() const { return fma ? fm.grid : grid; }
+};
+
+inline int xproj_f32_plan(int M, int D, int N, XprojF32Plan* p) {
+  if (M <= 0 || D <= 0 || N <= 0 || D % 4 != 0 || N % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  XprojF32Plan q;
+  q.fma = D >= kXpF32FmaDepth;
+  if (q.fma) {
+    const int rc = fma_plan(M, D, N, false, &q.fm);
+    if (rc != 0) return rc;
+  } else {
+    const int sms = sg_sms();
+    if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+    q.tile_k = (D + 15) / 16 * 16 < (D + 31) / 32 * 32 ? 16 : 32;
+    q.smem = q.tile_k == 16 ? f32_proj_smem<64, 16, 3>() : f32_proj_smem<64, 32, 2>();
+    const long long tiles =
+        static_cast<long long>((M + 63) / 64) * ((N + kF32TileN - 1) / kF32TileN);
+    q.grid = static_cast<int>(tiles < 4ll * sms ? tiles : 4ll * sms);
+  }
+  *p = q;
+  return 0;
+}
+
+// Launch the f32 projection on `s` as xproj_f32_plan plans it; block_m,
+// grid and smem_bytes are the caller's plan (ops/cuda/gru.py
+// xproj_f32_config), refused where they differ; a CUDA error code (0:
+// launched).
 int launch_xproj_f32(const void* x, const void* w_x, const void* b, void* xp, int M, int D,
-                     int N, cudaStream_t s) {
-  return launch_xproj_f32_variant<64, 32, 2, 4>(x, w_x, b, xp, M, D, N, s);
+                     int N, int block_m, int grid, long long smem_bytes, cudaStream_t s) {
+  XprojF32Plan p;
+  int rc = xproj_f32_plan(M, D, N, &p);
+  if (rc != 0) return rc;
+  if (p.block_m() != block_m || p.ctas() != grid || p.smem_bytes() != smem_bytes ||
+      b == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!p.fma) {
+    return p.tile_k == 16
+               ? launch_xproj_f32_variant<64, 16, 3, 4>(x, w_x, b, xp, M, D, N, grid, 0, 1, s)
+               : launch_xproj_f32_variant<64, 32, 2, 4>(x, w_x, b, xp, M, D, N, grid, 0, 1, s);
+  }
+  FmaMaps maps;
+  rc = fma_maps(p.fm, x, w_x, M, D, N, &maps);
+  return rc != 0 ? rc : launch_fma_gemm(p.fm, maps, b, xp, M, D, N, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1254,42 +1307,88 @@ int grid_check(int B, int Tn, int H, bool bf16, int gates, int groups, long long
 // d_hproj @ W_h^T reverse) and an elementwise gate kernel of the file's cell
 // (one thread a (row, unit)). No H is too wide for it; 2T launches a scan
 // cost a few us each beside a step's GEMM of 2 B H 3H (GRU) or 4H (LSTM)
-// operations. bf16: step_gemm.cuh's kernel, K split into `splits` partial
-// planes that the gate kernel sums where it reads the product (step_product;
-// the GRU forward's b_h added there); the reverse's takes the f32 cotangent
-// as two bf16 terms, hi and lo, on the same W_h tiles, summed in f32, as every
-// reverse recurrence does. f32: the CUDA-core projection above, one plane
-// (splits = 1), b added inside; the reverse multiplies a W_h^T copy.
+// operations. Both dtypes split K into `splits` partial planes that the
+// gate kernel sums where it reads the product (step_product; the GRU
+// forward's b_h added there). bf16: step_gemm.cuh's kernel; the reverse's
+// takes the f32 cotangent as two bf16 terms, hi and lo, on the same W_h
+// tiles, summed in f32, as every reverse recurrence does. f32: its split
+// planned from K and N alone (fma_gemm.cuh fm_splits), on fma_gemm.cuh's
+// kernel above kStepSimtRows rows, on the SIMT kernel above (64-row tiles,
+// 4 CTAs a SM) up to them, where one 8 x 16 tile a thread leaves most of
+// the card idle (kernel_probes.py fma on an H100: at M = 64 the FMA GEMM
+// took w3's GRU step as long as at M = 256). Both sum each plane's k range
+// by FMA in k order from 0, so a row's bits do not depend on its batch; the
+// reverse multiplies a W_h^T copy.
 constexpr int kStepThreads = 256;  // a gate kernel's block
+constexpr int kStepSimtRows = 128;  // M up to which the f32 step GEMM runs the SIMT kernel
 
-// The entry points' check of the caller's GEMM configuration (bf16: the
-// step GEMM's plan, rows a block `block_m` and `splits`; f32: one plane,
-// block_m 0) and of its workspace bytes; a CUDA error code.
+// The step GEMM's plan in either dtype: bf16 step_gemm.cuh's, f32
+// fma_gemm.cuh's split plan (and the SIMT kernel's grid where it runs
+// that); and their tensor maps (host side, once a scan).
+struct StepPlan {
+  bool bf16 = false, simt = false;
+  StepGemmPlan bf;
+  FmaPlan fm;
+  int simt_grid = 0;
+  int splits() const { return bf16 ? bf.splits : fm.splits; }
+};
+struct StepMaps {
+  StepGemmMaps bf;
+  FmaMaps fm;
+};
+
+// The entry points' check of the caller's GEMM configuration (rows a block
+// `block_m`, `splits` and the workspace's bytes, the partial planes) against
+// the dtype's plan; a CUDA error code. f32 takes one term (the reverse
+// multiplies a W_h^T copy).
 inline int stepped_plan(bool bf16, int M, int K, int N, int terms, int splits, int block_m,
-                        long long ws_bytes, StepGemmPlan* p) {
+                        long long ws_bytes, StepPlan* p) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  p->bf16 = bf16;
+  int rc, bm;
+  size_t ws;
   if (bf16) {
-    const int rc = step_gemm_plan(M, K, N, terms, p);
-    if (rc != 0) return rc;
+    rc = step_gemm_plan(M, K, N, terms, &p->bf);
+    bm = p->bf.bm;
+    ws = p->bf.ws_bytes;
   } else {
-    *p = StepGemmPlan{};
-    p->ws_bytes = static_cast<size_t>(M) * N * 4;
+    if (terms != 1) return bad;
+    rc = fma_plan(M, K, N, true, &p->fm);
+    p->simt = M <= kStepSimtRows;
+    if (p->simt) {
+      static_assert(kFmK == 32, "the SIMT kernel's chunks are the split's");
+      const long long items = static_cast<long long>((M + 63) / 64) *
+                              ((N + kF32TileN - 1) / kF32TileN) * p->fm.splits;
+      const long long slots = 4ll * sg_sms();
+      p->simt_grid = static_cast<int>(items < slots ? items : slots);
+    }
+    bm = p->simt ? 64 : kFmRows;
+    ws = p->fm.ws_bytes;
   }
-  if (p->splits != splits || p->bm != block_m || static_cast<long long>(p->ws_bytes) != ws_bytes) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (rc != 0) return rc;
+  if (p->splits() != splits || bm != block_m || static_cast<long long>(ws) != ws_bytes) return bad;
   return 0;
 }
 
-// The step's product into `out` (p.ws_bytes): bf16 the step GEMM's
-// partials of a [M, terms K] @ w (w [K, N] forward, [N, K] reverse; b
-// unused, the gate kernel adds it; `maps` step_gemm_maps of a and w); f32
-// out [M, N] = a [M, K] @ w [K, N] + b on the CUDA cores; K % 4 == 0,
-// N % 4 == 0.
-inline int step_gemm(bool bf16, const StepGemmPlan& p, const StepGemmMaps& maps, const void* a,
-                     const void* w, const void* b, void* out, int M, int K, int N, int terms,
-                     cudaStream_t s) {
-  return bf16 ? launch_step_gemm(p, maps, a, w, out, M, K, N, terms, s)
-              : launch_xproj_f32(a, w, b, out, M, K, N, s);
+// The plan's tensor maps of a and w (none on the cp.async routes: bf16's
+// and the SIMT kernel's).
+inline int step_maps(const StepPlan& p, const void* a, const void* w, int M, int K, int N,
+                     int terms, StepMaps* maps) {
+  if (p.bf16) return step_gemm_maps(p.bf, a, w, M, K, N, terms, &maps->bf);
+  return p.simt ? 0 : fma_maps(p.fm, a, w, M, K, N, &maps->fm);
+}
+
+// The step's product into `out` (the plan's workspace): its partial
+// planes [splits][M][N] f32 of a @ w (bf16: a [M, terms K], w [K, N]
+// forward, [N, K] reverse; f32: a [M, K], w [K, N]), no bias (the gate
+// kernel adds the GRU forward's b_h); K % 4 == 0, N % 4 == 0.
+inline int step_gemm(const StepPlan& p, const StepMaps& maps, const void* a, const void* w,
+                     void* out, int M, int K, int N, int terms, cudaStream_t s) {
+  if (p.bf16) return launch_step_gemm(p.bf, maps.bf, a, w, out, M, K, N, terms, s);
+  return p.simt ? launch_xproj_f32_variant<64, 32, 2, 4, true>(a, w, nullptr, out, M, K, N,
+                                                               p.simt_grid, p.fm.per,
+                                                               p.fm.splits, s)
+                : launch_fma_gemm(p.fm, maps.fm, nullptr, out, M, K, N, s);
 }
 
 // The step's product at `i` of a [M, N] plane: the sum of its `splits`

@@ -1,7 +1,9 @@
-// The f32 SIMT GEMM main loop that the port's two f32 GEMMs share (sm_90a):
-// the f32 input projection of the GRU and LSTM forwards (rnn.cuh
-// xproj_f32_kernel) and the f32 sampled-softmax head (softmax_head.cu
-// head_f32_kernel). f32 products on the CUDA cores, no TF32.
+// The f32 SIMT GEMM main loop of the f32 sampled-softmax head
+// (softmax_head.cu head_f32_kernel) and of rnn.cuh's xproj_f32_kernel: the
+// f32 projection below kXpF32FmaDepth and the f32 step GEMM up to
+// kStepSimtRows rows (sm_90a). f32 products on the CUDA cores, no TF32.
+// (The f32 projections from kXpF32FmaDepth and the larger step GEMMs run
+// fma_gemm.cuh.)
 //
 // A kTileM x 128 output tile on kTileM * 2 threads of 8 x 8 outputs each:
 // thread (tm, tn) owns rows 4 tm .. +3 and kTileM / 2 + 4 tm .. +3 and

@@ -57,9 +57,8 @@
 //   32-deep k chunk a stage, transposed on the way in ([32][132]: 17 KB a
 //   stage), so shared memory does not grow with S: any S, any H <= 256
 //   with H % 4 == 0;
-// - the FMAs are simt_gemm.cuh's main loop, which the f32 input projection
-//   (rnn.cuh) runs too: 8 x 8 outputs a thread, 4 FMAs a float read from
-//   shared memory;
+// - the FMAs are simt_gemm.cuh's main loop: 8 x 8 outputs a thread, 4 FMAs
+//   a float read from shared memory;
 // - after a tile's last chunk each thread takes -logQ, the hit mask and
 //   -inf past S on its 8 x 8 logits; the 8 lanes of a warp that share 8
 //   rows find each row's max and sum of exponentials by xor-shuffles, and

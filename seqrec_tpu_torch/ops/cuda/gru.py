@@ -23,12 +23,13 @@ of it (the K split) with no atomics.
 Past the grid layout's limit (`grid_max_hidden`: 2,112 in bf16, 1,056 in
 f32) the stepped layout (`layout` "stepped", `stepped_config`; counted
 again in `.stepped_launches`): every step of the scan is two launches, a
-GEMM of the step's whole vector into f32 and an elementwise gate kernel
-(csrc/gru.cu); 2T launches a scan, no H too wide. In bf16 the GEMM is
-csrc/step_gemm.cuh's on wgmma (`step_gemm`, `step_gemm_config`): W_h as
-stored, K split across one wave into partial planes that the gate kernel
-sums in split order (adding b_h), the reverse's d_hproj as two bf16 terms
-on the same W_h tiles; in f32 csrc/rnn.cuh's CUDA-core projection.
+GEMM of the step's whole vector into f32 partial planes (K split) that
+the gate kernel sums in split order (adding b_h), and an elementwise gate
+kernel (csrc/gru.cu); 2T launches a scan, no H too wide. In bf16 the GEMM
+is csrc/step_gemm.cuh's on wgmma (`step_gemm`, `step_gemm_config`): W_h as
+stored, the reverse's d_hproj as two bf16 terms on the same W_h tiles; in
+f32 csrc/fma_gemm.cuh's FMA GEMM (`step_gemm_f32`, `step_gemm_f32_config`),
+the projection's kernel, its split from K and N alone.
 
 Any H and D: the kernels need H % 4 == 0 and D % 4 == 0 (`launch_config`
 keeps that check, the kernels' mechanical limit); the public entry points
@@ -63,8 +64,9 @@ function in its own numerics; neither gives way to the other):
   a buffer).
 - f32 (`design` "cluster"): f32 FMAs on the CUDA cores (TF32 tensor cores
   would keep ~3 digits, not the f32 products of the contract). The
-  projection goes off the serial chain here too, as a persistent f32 SIMT
-  GEMM (`gru_input_projection`, its own launch counter `.f32_launches`); the
+  projection goes off the serial chain here too, as a persistent f32 FMA
+  GEMM fed by TMA (`gru_input_projection`, planned by `xproj_f32_config`,
+  its own launch counter `.f32_launches`); the
   recurrence runs on
   thread block clusters: a cluster of C CTAs owns R batch rows for the
   whole scan, each CTA a slice of the hidden units with its W_h columns
@@ -145,10 +147,23 @@ NUM_SMS = 132  # H100 SXM: the clusters of one launch should fit at once
 # The f32 forward's (cluster size, rows a cluster), in the order preferred
 # (kernel_probes.py clusters on an H100: fewer rows first, then 4 CTAs).
 GRU_CLUSTERS = ((4, 4), (2, 4), (4, 8), (2, 8), (4, 16), (2, 16), (8, 4), (8, 8), (8, 16))
-# The persistent f32 projection (csrc/rnn.cuh launch_xproj_f32's variant):
+# The f32 projection below FMA_MIN_DEPTH (csrc/rnn.cuh xproj_f32_kernel, a
+# persistent SIMT GEMM on simt_gemm.cuh's main loop):
 F32_PROJ_TILE = (64, 128)  # rows and columns of an xp tile
 F32_PROJ_THREADS = 128  # 8 x 8 outputs a thread
 F32_PROJ_CTAS_PER_SM = 4
+FMA_MIN_DEPTH = 256  # kXpF32FmaDepth: D from which the f32 projection runs the FMA GEMM
+# The f32 FMA GEMM (csrc/fma_gemm.cuh) of the f32 projections from
+# FMA_MIN_DEPTH and of the f32 stepped layouts' step GEMM:
+FMA_TILE = (128, 32)  # kFmTileN, kFmK: a tile's columns and a chunk's depth
+FMA_BOX_K = 36  # kFmBoxK: k an A box row (144 bytes: four rows' 16-byte reads, four bank groups)
+FMA_WARPS = 8  # kFmWarps: consumer warps a CTA, each 32 rows of the tile; one CTA a SM
+FMA_THREADS = 128 + 32 * FMA_WARPS  # kFmThreads: the producer warpgroup, then the consumers
+FMA_STAGES = 4  # kFmStages: the ring's stages
+FMA_MAX_SPLITS = 16  # kFmMaxSplits
+FMA_MIN_CHUNKS = 8  # kFmMinChunks: chunks a split at least, where K has them
+FMA_ROW_GROUP = 8  # kFmRowGroup: row blocks a band of the tile order
+STEP_SIMT_ROWS = 128  # kStepSimtRows: M up to which the f32 step GEMM runs the SIMT kernel
 # The f32 reverse recurrence's (cluster size, rows a cluster), in the order
 # preferred (kernel_probes.py clusters on an H100): 2 CTAs of 4 rows are the
 # fastest at B=128 and 256, T=200, H=128 and 100, and at rsc15's B=256,
@@ -192,6 +207,11 @@ XPROJ_L2_BUDGET = 12 << 20  # kXpL2Budget: W_x bytes a band of column tiles may 
 # shared memory); the stream.
 XPROJ_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_longlong,
                                                                 ctypes.c_void_p])
+# The f32 projection's, seqrec_gru_xproj_f32 and seqrec_lstm_xproj_f32: x,
+# w_x, b, xp; M, D, N; `xproj_f32_plan_args` (rows a tile, CTAs, shared
+# memory); the stream.
+XPROJ_F32_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong,
+                                                                    ctypes.c_void_p])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -203,7 +223,7 @@ def _lib() -> ctypes.CDLL:
     ]
     fwd.restype = ctypes.c_int
     proj = lib.seqrec_gru_xproj_f32
-    proj.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    proj.argtypes = XPROJ_F32_ARGTYPES
     proj.restype = ctypes.c_int
     proj = lib.seqrec_gru_xproj
     proj.argtypes = XPROJ_ARGTYPES
@@ -246,13 +266,17 @@ def _lib() -> ctypes.CDLL:
                                                                       ctypes.c_void_p]
     fwd_step.restype = ctypes.c_int
     bwd_step = lib.seqrec_gru_backward_stepped
-    bwd_step.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_longlong,
+    bwd_step.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_longlong,
                                                                        ctypes.c_void_p]
     bwd_step.restype = ctypes.c_int
     gemm = lib.seqrec_step_gemm
     gemm.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_longlong,
                                                                   ctypes.c_void_p]
     gemm.restype = ctypes.c_int
+    gemm_f32 = lib.seqrec_step_gemm_f32
+    gemm_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong,
+                                                                      ctypes.c_void_p]
+    gemm_f32.restype = ctypes.c_int
     lib.seqrec_gru_error_string.argtypes = [ctypes.c_int]
     lib.seqrec_gru_error_string.restype = ctypes.c_char_p
     return lib
@@ -457,6 +481,135 @@ def xproj_plan_args(M: int, D: int, N: int) -> tuple:
             cfg["smem_bytes"])
 
 
+def fma_smem() -> int:
+    """The ring's shared memory and 1,024 bytes to align it (kFmSmem): a
+    stage holds A's box (the tile's rows x FMA_BOX_K k) and W's (a chunk's k
+    x the tile's columns), all f32."""
+    bn, bk = FMA_TILE
+    return FMA_STAGES * (32 * FMA_WARPS * FMA_BOX_K + bk * bn) * 4 + 1024
+
+
+def fma_splits(K: int, N: int, sms: int) -> int:
+    """The f32 step GEMM's K splits (fm_splits), from K, N and the SMs alone
+    (never M: a row's bits do not depend on its batch): of 1 ..
+    FMA_MAX_SPLITS, each at least FMA_MIN_CHUNKS chunks deep where K has
+    them, none empty, the one of least waves (one CTA of 256 rows a SM) x
+    chunks a split x 1,024 plus N // 8 a split (its plane written and read),
+    the fewest on a tie."""
+    bn, bk = FMA_TILE
+    chunks, n_tiles = -(-K // bk), -(-N // bn)
+    floor_per = min(chunks, FMA_MIN_CHUNKS)
+    best, best_cost = 1, None
+    for s in range(1, FMA_MAX_SPLITS + 1):
+        per = -(-chunks // s)
+        if -(-chunks // per) != s or (s > 1 and per < floor_per):
+            continue
+        cost = -(-n_tiles * s // sms) * per * 1024 + s * N // 8
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def fma_gemm_config(M: int, K: int, N: int, split: bool, sms: Optional[int] = None) -> Dict:
+    """The f32 FMA GEMM out = a [M, K] @ w [K, N] (csrc/fma_gemm.cuh, the C
+    side's fma_plan; the entry points refuse a caller whose plan differs):
+    f32 FMAs on the CUDA cores, no TF32; persistent, one CTA a SM of
+    FMA_THREADS threads: a producer warpgroup whose thread 0 asks the TMA
+    for each chunk's boxes (`route` "tma": every f32 row stride is a
+    16-byte multiple) and `warps` consumer warps of 8 x 16 outputs a
+    thread, the producer's registers handed to them (setmaxnreg). `block`
+    [BM, BN, BK]: tiles of BM = 32 x warps rows and BN columns, K in
+    BK-deep chunks through a ring of `stages`; `grid` at most the SMs, one
+    an item (a tile and a K split). `split` (the stepped layouts' step
+    GEMM): the partial planes [splits, M, N] of `fma_splits` (K, N and the
+    SMs alone), `workspace_bytes` of them; else (the projection) one plane
+    with b added. Planned for `sms` SMs (default `card_sms()`). ValueError
+    for an empty shape or K or N not a multiple of 4."""
+    if min(M, K, N) <= 0 or K % 4 or N % 4:
+        raise ValueError(f"f32 gemm: needs M, K, N > 0 and K % 4 == N % 4 == 0 "
+                         f"(M={M} K={K} N={N}; the wrappers pad D and N)")
+    sms = card_sms() if sms is None else sms
+    bn, bk = FMA_TILE
+    bm = 32 * FMA_WARPS
+    chunks, n_tiles = -(-K // bk), -(-N // bn)
+    s = fma_splits(K, N, sms) if split else 1
+    per = -(-chunks // s)
+    s = -(-chunks // per)
+    tiles = -(-M // bm) * n_tiles
+    return {"design": "fma", "layout": "persistent", "route": "tma",
+            "block": [bm, bn, bk], "box_k": FMA_BOX_K, "threads": FMA_THREADS,
+            "warps": FMA_WARPS, "stages": FMA_STAGES, "ctas_per_sm": 1, "tiles": tiles,
+            "splits": s, "chunks_per_split": per, "grid": min(tiles * s, sms),
+            "smem_bytes": fma_smem(), "workspace_bytes": s * M * N * 4 if split else 0}
+
+
+def xproj_f32_grid(M: int, N: int, sms: Optional[int] = None) -> int:
+    """CTAs of the SIMT f32 projection: F32_PROJ_CTAS_PER_SM a SM of `sms`
+    (default `card_sms()`), or one an xp tile (F32_PROJ_TILE) if there are
+    fewer; CTA c computes tiles c, c + grid, c + 2 grid, ... (tile j: row
+    block j % m_tiles, column block j // m_tiles)."""
+    tm, tn = F32_PROJ_TILE
+    sms = card_sms() if sms is None else sms
+    return min(-(-M // tm) * -(-N // tn), F32_PROJ_CTAS_PER_SM * sms)
+
+
+def xproj_f32_config(M: int, D: int, N: int, sms: Optional[int] = None) -> Dict:
+    """The f32 input projection xp [M, N] = x [M, D] @ W_x [D, N] + b (the C
+    side's xproj_f32_plan; the entry points refuse a caller whose plan
+    differs): each output sums its products by FMA in k order from 0, then
+    adds b, in either design. From D = FMA_MIN_DEPTH the FMA GEMM
+    (`fma_gemm_config` without a split); below it (one to three waves of
+    its tiles, where it lost to this one on an H100) the SIMT GEMM
+    (`design` "simt": F32_PROJ_TILE tiles of F32_PROJ_THREADS threads, 8 x
+    8 outputs a thread, x transposed into shared memory by cp.async,
+    `xproj_f32_grid` CTAs), its k chunk 16 deep where that pads D less
+    than 32 does (D = 100: 112, not 128; 3 stages), else 32 (2 stages).
+    ValueError for an empty shape or D or N not a multiple of 4."""
+    if D >= FMA_MIN_DEPTH or min(M, D, N) <= 0 or D % 4 or N % 4:
+        return fma_gemm_config(M, D, N, False, sms)
+    tm, tn = F32_PROJ_TILE
+    bk = 16 if -(-D // 16) * 16 < -(-D // 32) * 32 else 32
+    stages = 3 if bk == 16 else 2
+    tiles = -(-M // tm) * -(-N // tn)
+    return {"design": "simt", "layout": "persistent", "block": [tm, tn, bk],
+            "threads": F32_PROJ_THREADS, "stages": stages, "ctas_per_sm": F32_PROJ_CTAS_PER_SM,
+            "tiles": tiles, "splits": 1, "chunks_per_split": -(-D // bk),
+            "grid": xproj_f32_grid(M, N, sms),
+            "smem_bytes": stages * bk * (tm + 4 + tn) * 4, "workspace_bytes": 0}
+
+
+def xproj_f32_plan_args(M: int, D: int, N: int) -> tuple:
+    """`xproj_f32_config`'s plan as the entry points take it (and check
+    it): rows a tile, CTAs, shared memory."""
+    cfg = xproj_f32_config(M, D, N)
+    return cfg["block"][0], cfg["grid"], cfg["smem_bytes"]
+
+
+def step_gemm_f32_config(M: int, K: int, N: int, sms: Optional[int] = None) -> Dict:
+    """The f32 stepped layouts' step GEMM (csrc/rnn.cuh stepped_plan):
+    partial planes [splits, M, N] of a [M, K] @ w [K, N] that the gate
+    kernel sums in split order, split by `fma_splits` (K, N and the SMs
+    alone, never M). Above STEP_SIMT_ROWS rows the FMA GEMM
+    (`fma_gemm_config` with the split); up to them the SIMT kernel of the
+    narrow projections (`design` "simt": F32_PROJ_TILE tiles, 32-deep
+    chunks, an item a tile and a split, `grid` at most F32_PROJ_CTAS_PER_SM
+    a SM), where one 8 x 16 tile a thread would leave most of the card
+    idle. Each plane sums its k range by FMA in k order from 0 in either,
+    so a row's bits do not depend on its batch."""
+    cfg = fma_gemm_config(M, K, N, True, sms)
+    if M > STEP_SIMT_ROWS:
+        return cfg
+    tm, tn = F32_PROJ_TILE
+    bk = FMA_TILE[1]
+    sms = card_sms() if sms is None else sms
+    tiles = -(-M // tm) * -(-N // tn)
+    return {"design": "simt", "layout": "persistent", "block": [tm, tn, bk],
+            "threads": F32_PROJ_THREADS, "stages": 2, "ctas_per_sm": F32_PROJ_CTAS_PER_SM,
+            "tiles": tiles, "splits": cfg["splits"], "chunks_per_split": cfg["chunks_per_split"],
+            "grid": min(tiles * cfg["splits"], F32_PROJ_CTAS_PER_SM * sms),
+            "smem_bytes": 2 * bk * (tm + 4 + tn) * 4, "workspace_bytes": cfg["workspace_bytes"]}
+
+
 def stepped_config(B: int, T: int, H: int, dtype: torch.dtype, gates: int,
                    reverse: bool) -> Dict:
     """The stepped layout past `grid_max_hidden(dtype, gates)` (csrc/rnn.cuh,
@@ -465,17 +618,16 @@ def stepped_config(B: int, T: int, H: int, dtype: torch.dtype, gates: int,
     reverse: the cotangent [B, G H] @ W_h^T, K = G H), then a gate kernel of
     GATE_THREADS threads over the B H (row, unit) pairs; the reverse ends
     with one more gate launch (dh0, and the LSTM's dc0). `launches_per_scan`
-    counts both. `gemm`: bf16 the step GEMM (`step_gemm_config`; the
-    reverse's cotangent as `d_terms` (`dz_terms`) bf16 terms on W_h as
-    stored), whose K-split partial planes the gate kernel sums (and the
-    GRU forward's b_h adds); f32 the persistent CUDA-core projection, one
-    plane with b_h in it, the reverse on a W_h^T copy."""
+    counts both. `gemm`, whose K-split partial planes the gate kernel sums
+    (and the GRU forward's b_h adds): bf16 the step GEMM (`step_gemm_config`;
+    the reverse's cotangent as `d_terms` (`dz_terms`) bf16 terms on W_h as
+    stored); f32 the FMA GEMM (`step_gemm_f32_config`), the reverse on a
+    W_h^T copy."""
     bf16 = dtype == torch.bfloat16
     K = gates * H if reverse else H
     N = H if reverse else gates * H
     gemm = (step_gemm_config(B, K, N, 2 if reverse else 1) if bf16 else
-            {"design": "fma", "grid": [xproj_f32_grid(B, N)], "threads": F32_PROJ_THREADS,
-             "splits": 1, "workspace_bytes": B * N * 4})
+            step_gemm_f32_config(B, K, N))
     cfg = {"design": "wgmma" if bf16 else "fma", "layout": "stepped",
            "gemm_m": B, "gemm_k": K, "gemm_n": N, "gemm": gemm,
            "gate_grid": -(-(B * H) // GATE_THREADS), "threads": GATE_THREADS,
@@ -611,15 +763,6 @@ def _slice_len(K: int, S: int) -> int:
     return -(-K // (4 * S)) * 4
 
 
-def xproj_f32_grid(M: int, N: int) -> int:
-    """CTAs of the persistent f32 projection on an H100: F32_PROJ_CTAS_PER_SM
-    a SM, or one an xp tile (F32_PROJ_TILE) if there are fewer; CTA c
-    computes tiles c, c + grid, c + 2 grid, ... (tile j: row block
-    j % m_tiles, column block j // m_tiles)."""
-    tm, tn = F32_PROJ_TILE
-    return min(-(-M // tm) * -(-N // tn), F32_PROJ_CTAS_PER_SM * NUM_SMS)
-
-
 def cluster_config(B: int, H: int, K: int, w_per_k: int, ring_floats: int,
                    cluster_size: Optional[int], rows: Optional[int], preference, who: str,
                    unit_block: int = 1) -> Dict:
@@ -699,9 +842,8 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
     added through shared memory), h^T's two buffers [2][WIDE][8] bf16 and
     two mbarriers.
 
-    f32 ("cluster"): the persistent projection (`xproj_f32_grid` CTAs of
-    F32_PROJ_THREADS threads over 64 x 128 xp tiles, f32 FMAs), then the
-    recurrence on thread block clusters
+    f32 ("cluster"): the projection (`xproj_f32_config`, a plan of its own:
+    f32 FMAs fed by TMA), then the recurrence on thread block clusters
     (`cluster_config` with K = H and three gates' weights a thread, in
     GRU_CLUSTERS' order): a cluster of `cluster_size` CTAs owns
     `rows_per_cluster` batch rows, each CTA ceil(H / C) units with their
@@ -724,11 +866,9 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
                          f"points pad it)")
     if H > MAX_HIDDEN:
         not_cluster(rows_per_cluster, cluster_size, H)
-        xproj = ({} if dtype == torch.bfloat16 else
-                 {"xproj_grid": [xproj_f32_grid(B * T, 3 * H)], "xproj_threads": F32_PROJ_THREADS})
         if H > grid_max_hidden(dtype):
-            return {**stepped_config(B, T, H, dtype, 3, reverse=False), **xproj}
-        return {**grid_config(B, H, dtype, reverse=False), **xproj}
+            return stepped_config(B, T, H, dtype, 3, reverse=False)
+        return grid_config(B, H, dtype, reverse=False)
     if dtype == torch.bfloat16:
         if rows_per_cluster is not None or cluster_size is not None:
             raise ValueError(f"gru: rows_per_cluster and cluster_size are the f32 design's; "
@@ -750,8 +890,7 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
     cfg = cluster_config(B, H, H, 3, 4, cluster_size, rows_per_cluster, GRU_CLUSTERS, "gru")
     w_in_regs = cfg["k_slice"] == GRU_REG_SLICE and cfg["k_slices"] == 8 and \
         cfg["rows_per_cluster"] <= 8
-    return {**cfg, "w_in_regs": int(w_in_regs),
-            "xproj_grid": [xproj_f32_grid(B * T, 3 * H)], "xproj_threads": F32_PROJ_THREADS}
+    return {**cfg, "w_in_regs": int(w_in_regs)}
 
 
 def padded_route(config, B: int, T: int, D: int, H: int, dtype: torch.dtype) -> Dict:
@@ -1020,9 +1159,10 @@ def gru_input_projection(x: torch.Tensor, w_x: torch.Tensor,
     f32 [..., N] (N = 3H): the part of `_gru_step_body`'s step that does not
     depend on h (`xp`, gru.py:110-113), for every step at once. x and w_x
     bf16: the wgmma GEMM planned by `xproj_config` (`seqrec_gru_xproj`,
-    counted by `.launches`); f32: the CUDA-core one, f32 products, no TF32
-    (`seqrec_gru_xproj_f32`, counted by `.f32_launches`). A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises."""
+    counted by `.launches`); f32: the FMA GEMM planned by `xproj_f32_config`,
+    f32 products, no TF32 (`seqrec_gru_xproj_f32`, counted by
+    `.f32_launches`). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
     if x.device.type == "cpu":
         return plain_input_projection(x, w_x, b_x)
     if x.device.type != "cuda":
@@ -1052,7 +1192,8 @@ def gru_input_projection(x: torch.Tensor, w_x: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         ptrs = [a.data_ptr() for a in args] + [xp.data_ptr()]
-        rc = (lib.seqrec_gru_xproj_f32(*ptrs, M, D, N, stream) if f32 else
+        rc = (lib.seqrec_gru_xproj_f32(*ptrs, M, D, N, *xproj_f32_plan_args(M, D, N), stream)
+              if f32 else
               lib.seqrec_gru_xproj(*ptrs, M, D, N, *xproj_plan_args(M, D, N), stream))
     _raise_on(rc, lib, "input projection")
     if f32:
@@ -1147,13 +1288,59 @@ step_gemm.launches = 0  # the forward's (terms 1): alone, and T a bf16 stepped f
 step_gemm.reverse_launches = 0  # the reverse's (terms 2): alone, and T a bf16 stepped reverse
 
 
+def plain_step_gemm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The f32 step GEMM's partial planes [splits, M, N] in plain PyTorch
+    (`step_gemm_f32_config`'s split): plane s holds a @ w over K's chunks
+    [s per, (s + 1) per), in f32."""
+    M, K, N = _step_gemm_dims(a, w, 1)
+    cfg = step_gemm_f32_config(M, K, N)
+    per = cfg["chunks_per_split"] * cfg["block"][2]
+    af, wf = a.float(), w.float()
+    return torch.stack([af[:, k0:k0 + per] @ wf[k0:k0 + per]
+                        for k0 in range(0, per * cfg["splits"], per)])
+
+
+def step_gemm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The f32 stepped layouts' step GEMM alone (csrc/fma_gemm.cuh): its
+    partial planes [splits, M, N] f32 (`step_gemm_f32_config`) of a [M, K] @
+    w [K, N], both f32; `step_product` sums them as the gate kernels do.
+    Counted by `.launches`; the f32 scans past the grid limit launch it
+    inside their C loops, once a step, and add T to `.launches` (forward,
+    h @ W_h) or `.reverse_launches` (d @ W_h^T) a scan. A CPU tensor takes
+    the plain version (`plain_step_gemm_f32`); a CUDA tensor launches the
+    kernel or raises."""
+    if a.device.type == "cpu":
+        return plain_step_gemm_f32(a, w)
+    if a.device.type != "cuda":
+        raise ValueError(f"f32 step gemm: no kernel for device {a.device}")
+    if a.dtype != torch.float32 or w.dtype != torch.float32:
+        raise ValueError(f"f32 step gemm: the kernel takes f32 a and w, got {a.dtype}, {w.dtype}")
+    M, K, N = _step_gemm_dims(a, w, 1)
+    cfg = step_gemm_f32_config(M, K, N)
+    out = torch.empty((cfg["splits"], M, N), dtype=torch.float32, device=a.device)
+    args = [a.contiguous(), w.contiguous()]
+    _check_operands(args + [out], a.device)
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        rc = lib.seqrec_step_gemm_f32(args[0].data_ptr(), args[1].data_ptr(), out.data_ptr(), M,
+                                      K, N, cfg["splits"], cfg["block"][0],
+                                      cfg["workspace_bytes"],
+                                      torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(rc, lib, "f32 step gemm")
+    step_gemm_f32.launches += 1
+    return out
+
+
+step_gemm_f32.launches = 0  # h @ W_h: alone, and T an f32 stepped forward scan
+step_gemm_f32.reverse_launches = 0  # d @ W_h^T: T an f32 stepped reverse scan
+
+
 def stepped_workspace(cfg: Dict, dev) -> tuple:
     """A stepped scan's GEMM workspace (`gemm.workspace_bytes` of f32) and
-    the C entry point's splits, rows a block (0 in f32) and bytes."""
+    the C entry point's splits, rows a block and bytes."""
     gemm = cfg["gemm"]
     ws = torch.empty(gemm["workspace_bytes"] // 4, dtype=torch.float32, device=dev)
-    return ws, (gemm["splits"], gemm["block"][0] if "block" in gemm else 0,
-                gemm["workspace_bytes"])
+    return ws, (gemm["splits"], gemm["block"][0], gemm["workspace_bytes"])
 
 
 def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None, padded: bool = False) -> torch.Tensor:
@@ -1227,7 +1414,10 @@ def _forward_kernel(x, h0, w_x, w_h, b_x, b_h, keep=None, padded: bool = False) 
         gru_scan.grid_launches += 1
     elif cfg.get("layout") == "stepped":
         gru_scan.stepped_launches += 1
-        step_gemm.launches += T if dtype == torch.bfloat16 else 0
+        if dtype == torch.bfloat16:
+            step_gemm.launches += T
+        else:
+            step_gemm_f32.launches += T
     if padded:
         gru_scan.padded_launches += 1
     return ys
@@ -1279,7 +1469,6 @@ def gru_backward(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
     if cfg.get("layout") == "stepped":
         bf16 = w_h.dtype == torch.bfloat16
         w = w_h.contiguous() if bf16 else w_h.t().float().contiguous()  # bf16: as stored
-        zeros = torch.zeros(H, dtype=torch.float32, device=dev)
         # Scratch: the step's d_hproj (bf16: its hi and lo terms), its product
         # (the step GEMM's partial planes), dh z.
         terms = torch.empty((B, (6 if bf16 else 3) * H), dtype=w_h.dtype, device=dev)
@@ -1287,7 +1476,7 @@ def gru_backward(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
         z = torch.empty((B, H), dtype=torch.float32, device=dev)
         args = [x_proj.float().contiguous(), h_proj.float().contiguous(),
                 (h_in if bf16 else h_in.float()).contiguous(),
-                g_ys.to(w_h.dtype).contiguous(), w, zeros]
+                g_ys.to(w_h.dtype).contiguous(), w]
         _check_operands(args + ([] if keep is None else [keep]), dev)
         with torch.cuda.device(dev):
             rc = lib.seqrec_gru_backward_stepped(
@@ -1340,7 +1529,10 @@ def gru_backward(x_proj: torch.Tensor, h_proj: torch.Tensor, h_in: torch.Tensor,
         gru_backward.grid_launches += 1
     elif cfg.get("layout") == "stepped":
         gru_backward.stepped_launches += 1
-        step_gemm.reverse_launches += T if w_h.dtype == torch.bfloat16 else 0
+        if w_h.dtype == torch.bfloat16:
+            step_gemm.reverse_launches += T
+        else:
+            step_gemm_f32.reverse_launches += T
     if padded:
         gru_backward.padded_launches += 1
     return d_xp, dh0, dn_r

@@ -11,7 +11,7 @@ note):
   registers, the negatives streamed through shared memory in S-tiles of 64
   (any S), an online logsumexp per row on the accumulators.
 - f32 (`design` "simt-stream"): a SIMT GEMM on the CUDA cores (f32 FMAs,
-  no TF32; the main loop of the f32 input projection, `csrc/simt_gemm.cuh`)
+  no TF32; the 8 x 8 main loop of `csrc/simt_gemm.cuh`)
   with an online logsumexp as its epilogue: a block's 64 or 128 h rows
   resident in shared memory, the negatives streamed in S-tiles of 128
   through a cp.async ring (any S, any H <= 256).

@@ -25,8 +25,8 @@ from the whole of it (the K split) with no atomics. Up to
 (`gru.stepped_config` with four gates, `layout` "stepped", counted again in
 `.stepped_launches`): each step a GEMM of the step's vector (bf16:
 csrc/step_gemm.cuh's, `gru.step_gemm`, its partial planes summed by the gate
-kernel, the reverse's dz as two bf16 terms on W_h as stored; f32: csrc/rnn.cuh's
-projection) and an elementwise gate kernel (csrc/lstm.cu) that carries c in
+kernel, the reverse's dz as two bf16 terms on W_h as stored; f32: csrc/fma_gemm.cuh's,
+`gru.step_gemm_f32`, its planes summed the same way) and an elementwise gate kernel (csrc/lstm.cu) that carries c in
 f32.
 
 Any H and D: as the GRU's (`gru.pad_gates`), the public entry points
@@ -97,15 +97,15 @@ import torch
 
 from seqrec_tpu_torch.ops import _build
 from seqrec_tpu_torch.ops import reference
-from seqrec_tpu_torch.ops.cuda.gru import (F32_PROJ_THREADS, MMA_ROWS, RING_STAGES,
-                                           SMEM_LIMIT, XPROJ_ARGTYPES, cluster_config,
+from seqrec_tpu_torch.ops.cuda.gru import (MMA_ROWS, RING_STAGES, SMEM_LIMIT,
+                                           XPROJ_ARGTYPES, XPROJ_F32_ARGTYPES, cluster_config,
                                            grid_forward_layout, grid_layout, grid_pack,
                                            grid_max_hidden as _grid_max_hidden,
                                            not_cluster, pad_gates, pad_scan_operands,
                                            padded_backward_route, padded_route, padded_width,
-                                           plain_input_projection, step_gemm, stepped_config,
-                                           stepped_workspace, unpad_gates, xproj_f32_grid,
-                                           xproj_plan_args)
+                                           plain_input_projection, step_gemm, step_gemm_f32,
+                                           stepped_config, stepped_workspace, unpad_gates,
+                                           xproj_f32_plan_args, xproj_plan_args)
 from seqrec_tpu_torch.ops.cuda.gru import _check_dims as _gru_check_dims
 
 plain = reference.lstm_scan
@@ -135,7 +135,7 @@ def _lib() -> ctypes.CDLL:
     ]
     fwd.restype = ctypes.c_int
     proj = lib.seqrec_lstm_xproj_f32
-    proj.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    proj.argtypes = XPROJ_F32_ARGTYPES
     proj.restype = ctypes.c_int
     proj = lib.seqrec_lstm_xproj
     proj.argtypes = XPROJ_ARGTYPES
@@ -164,11 +164,11 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p]
     bwd_grid.restype = ctypes.c_int
     fwd_step = lib.seqrec_lstm_forward_stepped
-    fwd_step.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong,
+    fwd_step.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong,
                                                                       ctypes.c_void_p]
     fwd_step.restype = ctypes.c_int
     bwd_step = lib.seqrec_lstm_backward_stepped
-    bwd_step.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_longlong,
+    bwd_step.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_longlong,
                                                                        ctypes.c_void_p]
     bwd_step.restype = ctypes.c_int
     lib.seqrec_lstm_error_string.argtypes = [ctypes.c_int]
@@ -234,14 +234,6 @@ def _mma_rows(rows_per_cluster: Optional[int], cluster_size: Optional[int]) -> i
     return MMA_ROWS
 
 
-def _xproj_layout(B: int, T: int, H: int, dtype: torch.dtype) -> Dict:
-    """The f32 input projection's launch, the persistent grid
-    (`gru.xproj_f32_grid`); bf16 none: its plan is `gru.xproj_config`'s."""
-    if dtype == torch.bfloat16:
-        return {}
-    return {"xproj_grid": [xproj_f32_grid(B * T, 4 * H)], "xproj_threads": F32_PROJ_THREADS}
-
-
 def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
                   rows_per_cluster: Optional[int] = None,
                   cluster_size: Optional[int] = None) -> Dict:
@@ -257,9 +249,8 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
     fills two steps ahead of their use. `rows_per_cluster` and
     `cluster_size` are the f32 design's alone.
 
-    f32 ("cluster"): the persistent projection (`gru.xproj_f32_grid` CTAs
-    of F32_PROJ_THREADS threads over 64 x 128 xp tiles, f32 FMAs), then
-    the recurrence on thread block clusters
+    f32 ("cluster"): the projection (`gru.xproj_f32_config`, a plan of its
+    own: f32 FMAs fed by TMA), then the recurrence on thread block clusters
     (`gru.cluster_config` with K = H, four gates' weights a thread and a
     ring of xp's four gates and keep, in LSTM_FWD_CLUSTERS' order: 4 CTAs
     of 4 rows at B=64 and 128, 2 CTAs at B=256, H=100; at H=256 a quarter
@@ -283,9 +274,8 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
     if H > MAX_HIDDEN:
         not_cluster(rows_per_cluster, cluster_size, H, "lstm")
         if H > grid_max_hidden(dtype):
-            return {**stepped_config(B, T, H, dtype, GRID_GATES, reverse=False),
-                    **_xproj_layout(B, T, H, dtype)}
-        return {**grid_config(B, H, dtype, reverse=False), **_xproj_layout(B, T, H, dtype)}
+            return stepped_config(B, T, H, dtype, GRID_GATES, reverse=False)
+        return grid_config(B, H, dtype, reverse=False)
     if dtype == torch.bfloat16:
         R = _mma_rows(rows_per_cluster, cluster_size)
         hp = _padded(H)
@@ -297,13 +287,12 @@ def launch_config(B: int, T: int, D: int, H: int, dtype: torch.dtype,
             "hidden_padded": hp,
             "wh_in_regs": int(hp <= WH_REG_LIMIT),
             "smem_bytes": _forward_smem(hp),
-            **_xproj_layout(B, T, H, dtype),
         }
     cfg = cluster_config(B, H, H, 4, 5, cluster_size, rows_per_cluster, LSTM_FWD_CLUSTERS,
                          "lstm")
     w_in_regs = (cfg["k_slice"] == LSTM_REG_SLICE and cfg["k_slices"] == 8
                  and cfg["rows_per_cluster"] <= 8 and cfg["threads"] <= LSTM_REG_THREADS)
-    return {**cfg, "w_in_regs": int(w_in_regs), **_xproj_layout(B, T, H, dtype)}
+    return {**cfg, "w_in_regs": int(w_in_regs)}
 
 
 def backward_launch_config(B: int, T: int, H: int, dtype: torch.dtype,
@@ -431,10 +420,10 @@ def lstm_input_projection(x: torch.Tensor, w_x: torch.Tensor,
     f32 [..., 4H]: the part of `_lstm_step_body`'s step that does not depend
     on h (lstm.py:89-93), for every step at once. x and w_x bf16: the wgmma
     GEMM planned by `gru.xproj_config` (`seqrec_lstm_xproj`, counted by
-    `.launches`); f32: the CUDA-core one, f32 products, no TF32
-    (`seqrec_lstm_xproj_f32`, counted by `.f32_launches`); both are
-    csrc/rnn.cuh's. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel or raises."""
+    `.launches`); f32: the FMA GEMM planned by `gru.xproj_f32_config`, f32
+    products, no TF32 (`seqrec_lstm_xproj_f32`, counted by `.f32_launches`).
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises."""
     if x.device.type == "cpu":
         return plain_input_projection(x, w_x, b)
     if x.device.type != "cuda":
@@ -461,7 +450,8 @@ def lstm_input_projection(x: torch.Tensor, w_x: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         ptrs = [a.data_ptr() for a in args] + [xp.data_ptr()]
-        rc = (lib.seqrec_lstm_xproj_f32(*ptrs, M, D, N4, stream) if f32 else
+        rc = (lib.seqrec_lstm_xproj_f32(*ptrs, M, D, N4, *xproj_f32_plan_args(M, D, N4), stream)
+              if f32 else
               lib.seqrec_lstm_xproj(*ptrs, M, D, N4, *xproj_plan_args(M, D, N4), stream))
     _raise_on(rc, lib, "input projection")
     if f32:
@@ -508,9 +498,8 @@ def _forward_kernel(x, h0, c0, w_x, w_h, b, with_cells: bool, keep=None,
         h_in = h0 if keep is None else h0.float() * keep[:, :1]  # step 0's h_in
         hbuf = h_in.to(dtype).clone(memory_format=torch.contiguous_format)  # the kernels write it
         c_buf = c0.float().clone(memory_format=torch.contiguous_format)  # c_T after the scan
-        zeros = torch.zeros(4 * H, dtype=torch.float32, device=dev)
         hp, gemm = stepped_workspace(cfg, dev)
-        args = [xp, hbuf, c_buf, w_h.contiguous(), zeros]
+        args = [xp, hbuf, c_buf, w_h.contiguous()]
         _check_operands(args + ([] if keep is None else [keep]) + [hp], dev)
         with torch.cuda.device(dev):
             rc = lib.seqrec_lstm_forward_stepped(
@@ -522,7 +511,10 @@ def _forward_kernel(x, h0, c0, w_x, w_h, b, with_cells: bool, keep=None,
         else:
             lstm_scan.reset_launches += 1
         lstm_scan.stepped_launches += 1
-        step_gemm.launches += T if dtype == torch.bfloat16 else 0
+        if dtype == torch.bfloat16:
+            step_gemm.launches += T
+        else:
+            step_gemm_f32.launches += T
         if padded:
             lstm_scan.padded_launches += 1
         return ys, c_buf, cs
@@ -625,14 +617,13 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
     with torch.cuda.device(dev):
         if stepped:  # scratch: the step's dz (bf16: hi and lo terms), its product (the
             # step GEMM's partial planes), the dc carry
-            zeros = torch.zeros(H, dtype=torch.float32, device=dev)
             terms = torch.empty((B, (8 if dtype == torch.bfloat16 else 4) * H), dtype=dtype,
                                 device=dev)
             p, gemm = stepped_workspace(cfg, dev)
             dc = torch.empty((B, H), dtype=torch.float32, device=dev)
             rc = lib.seqrec_lstm_backward_stepped(
-                *ptrs[:8], zeros.data_ptr(), *ptrs[8:], terms.data_ptr(), p.data_ptr(),
-                dc.data_ptr(), B, T, H, _DTYPE_CODE[dtype], *gemm, stream)
+                *ptrs, terms.data_ptr(), p.data_ptr(), dc.data_ptr(), B, T, H,
+                _DTYPE_CODE[dtype], *gemm, stream)
         elif grid:
             rc = lib.seqrec_lstm_backward_grid(
                 *ptrs, ws.data_ptr(), B, T, H, _DTYPE_CODE[dtype], cfg["row_groups"],
@@ -652,7 +643,10 @@ def lstm_backward(i: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
         lstm_backward.grid_launches += 1
     elif stepped:
         lstm_backward.stepped_launches += 1
-        step_gemm.reverse_launches += T if dtype == torch.bfloat16 else 0
+        if dtype == torch.bfloat16:
+            step_gemm.reverse_launches += T
+        else:
+            step_gemm_f32.reverse_launches += T
     if padded:
         lstm_backward.padded_launches += 1
     return dz, dh0, dc0

@@ -509,11 +509,13 @@ def test_scans_choose_the_stepped_layout_only_past_the_grid(cell, dtype):
         assert (bwd["gemm_k"], bwd["gemm_n"], bwd["launches_per_scan"]) == (G * H, H, 2 * T + 1)
         assert bwd["gemm"].get("terms") == (2 if bf16 else None)
         assert bwd.get("d_terms" if cell == "gru" else "dz_terms") == (2 if bf16 else None)
-        if bf16:  # the projection's plan is xproj_config's, not the scan's
-            assert "xproj_threads" not in fwd
+        # the projection's plan is its own (xproj_config's, xproj_f32_config's), not the scan's
+        assert "xproj_threads" not in fwd and "xproj_grid" not in fwd
+        if bf16:
             assert cuda_gru.xproj_config(B * T, H, G * H)["threads"] == cuda_gru.XPROJ_THREADS
         else:
-            assert fwd["xproj_threads"] == cuda_gru.F32_PROJ_THREADS
+            xp = cuda_gru.xproj_f32_config(B * T, H, G * H)
+            assert xp["threads"] == 128 + 32 * xp["warps"] and 32 * xp["warps"] == xp["block"][0]
     with pytest.raises(ValueError, match="H % 4"):
         mod.launch_config(B, T, 64, 2302, dtype)
     padded = mod.padded_launch_config(B, T, 64, 2302, dtype)
@@ -626,7 +628,10 @@ def test_every_shape_taken_before_keeps_its_configuration():
     its own, `cuda_gru.xproj_config`; recomputed on 3568ad8's with the f32
     grid forwards' shared memory, smem_bytes, taken out of their rows, since
     their step product has a plan of its own that sizes it, `F32_PLAN_KEYS`,
-    tests/test_torch_grid_f32_plan.py): the new layouts and the padded
+    tests/test_torch_grid_f32_plan.py; recomputed on ddc02f9's with the f32
+    input projection's keys, xproj_grid and xproj_threads, taken out of
+    every f32 GRU and LSTM forward row, since that projection has a plan of
+    its own, `cuda_gru.xproj_f32_config`): the new layouts and the padded
     route are chosen only where the kernels refused before. The digests of
     every shape at or below 256 are tests/test_torch_wide_hidden.py's and
     tests/test_torch_wide_lstm.py's, unchanged."""
@@ -634,4 +639,4 @@ def test_every_shape_taken_before_keeps_its_configuration():
     assert len(rows) == 21_288
     assert not any(c.get("layout") in ("dh-sliced", "stepped", "streamed") for c in rows)
     digest = hashlib.sha256(json.dumps(rows, sort_keys=True).encode()).hexdigest()
-    assert digest == "5a3fecdd631a3c58049b3858be51895b78383cc0c8dbfd237915461f2d6d60fd"
+    assert digest == "6c517351cd5d18f4e3f9a96837443719cd0982f3d1962e22544c19dbeaf6a455"

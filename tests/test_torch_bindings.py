@@ -66,8 +66,9 @@ CASES = [(source, name) for source in SOURCES for name in _entry_points(source)]
 
 
 def test_every_source_exports_what_the_cases_cover():
-    assert len(CASES) == 37
-    assert {"seqrec_gru_xproj", "seqrec_lstm_xproj"} <= {name for _, name in CASES}
+    assert len(CASES) == 38
+    assert {"seqrec_gru_xproj", "seqrec_lstm_xproj", "seqrec_step_gemm_f32"} <= {
+        name for _, name in CASES}
 
 
 @pytest.mark.parametrize("source,name", CASES, ids=[name for _, name in CASES])

@@ -2782,3 +2782,156 @@ def test_input_projection_runs_on_the_callers_stream(cuda, M, D, N):
     assert project.launches == before + 1
     want = torch.addmm(b, new, w_x, out_dtype=torch.float32)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+# The f32 FMA GEMM (csrc/fma_gemm.cuh): every f32 input projection and the
+# f32 stepped layouts' step GEMM.
+def _fma_operands(M, K, N, device, seed):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(device)
+    w = torch.from_numpy(rng.normal(scale=K ** -0.5, size=(K, N)).astype(np.float32)).to(device)
+    b = torch.from_numpy(rng.normal(scale=0.1, size=N).astype(np.float32)).to(device)
+    return a, w, b
+
+
+@pytest.mark.parametrize("role,M,K,N", [("projection", 51200, 2304, 6912),
+                                        ("projection", 51200, 2304, 9216),
+                                        ("step", 256, 2304, 6912), ("step", 256, 2304, 9216),
+                                        ("step", 256, 6912, 2304), ("step", 256, 9216, 2304),
+                                        ("step", 64, 2304, 6912), ("step", 16, 4240, 1060)])
+def test_f32_fma_gemm_matches_f64_at_w3(cuda, role, M, K, N):
+    """The f32 FMA GEMM at w3's shapes (B=256, T=200, D=H=2,304): the
+    projection x @ W_x + b (GRU and LSTM), and the step GEMM's partial planes
+    summed in split order (h @ W_h forward, d @ W_h^T reverse; a serving
+    batch and the stepped edge too, on the step GEMM's SIMT kernel), against
+    f64 within
+    test_f32_input_projection_kernel_matches_f64's 1e-5; the planes equal
+    the plain version's split (plain_step_gemm_f32) within 1e-5 as well,
+    each counted once."""
+    a, w, b = _fma_operands(M, K, N, cuda, seed=M + K + N)
+    if role == "projection":
+        before = k_gru.gru_input_projection.f32_launches
+        got = k_gru.gru_input_projection(a, w, b)
+        torch.cuda.synchronize()
+        assert k_gru.gru_input_projection.f32_launches == before + 1
+        want = a.double() @ w.double() + b.double()
+    else:
+        before = k_gru.step_gemm_f32.launches
+        parts = k_gru.step_gemm_f32(a, w)
+        torch.cuda.synchronize()
+        assert k_gru.step_gemm_f32.launches == before + 1
+        assert parts.shape[0] == k_gru.step_gemm_f32_config(M, K, N)["splits"]
+        torch.testing.assert_close(parts, k_gru.plain_step_gemm_f32(a, w), rtol=1e-5,
+                                   atol=1e-5)
+        got, want = k_gru.step_product(parts), a.double() @ w.double()
+    torch.testing.assert_close(got, want.float(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("M,K,N", [(64 * 200, 128, 384), (256 * 50, 100, 300),
+                                   (128 * 200, 128, 512), (333, 36, 520), (15, 4, 12),
+                                   (51200, 512, 1536)])
+def test_f32_projection_is_the_k_order_fma_sum_bit_for_bit(cuda, M, K, N):
+    """The projection's contract: each output sums its products by FMA in k
+    order from 0, then adds b (kernel_probes_fma.cu's fma_reference writes
+    it plainly, one thread an output); the kernel gives those bits, twice."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import kernel_probes
+
+    a, w, b = _fma_operands(M, K, N, cuda, seed=M + K)
+    got, again = k_gru.gru_input_projection(a, w, b), k_gru.gru_input_projection(a, w, b)
+    want = torch.empty(M, N, device=cuda)
+    lib = kernel_probes.fma_lib()
+    assert lib.fma_reference(a.data_ptr(), w.data_ptr(), b.data_ptr(), want.data_ptr(), M, K, N,
+                             torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("reset", [False, True])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_stepped_forward_f32_rows_alone_are_the_batchs_bits(cuda, cell, reset):
+    """The f32 stepped forwards (T = 3, past the grid limit, both cells, both
+    variants): a batch's first n rows run alone give the batch's bits for
+    those rows, where n rows take another plan of the step GEMM (the SIMT
+    kernel's 64-row tiles at n <= 128, the FMA GEMM's 256 above): its K
+    split follows K and N alone (gru.fma_splits), so a row's sums do not
+    depend on the batch around it."""
+    B, T = 256, 3
+    H = k_gru.grid_max_hidden(torch.float32, 3 if cell == "gru" else 4) + 4
+    if cell == "gru":
+        args = _gru_args(B, T, 64, H, torch.float32, cuda, seed=H + B)
+        scan, batch_args, G = k_gru.gru_scan, (0, 1), 3
+    else:
+        args = _lstm_args(B, T, 64, H, torch.float32, cuda, seed=H + B)
+        scan, batch_args, G = k_lstm.lstm_scan, (0, 1, 2), 4
+    plane = _reset_plane(B, T, cuda, seed=H) if reset else None
+    ys = scan(*args, reset_mask=plane)[0]
+    plans = set()
+    for n in (B, 100, 5):
+        cfg = k_gru.step_gemm_f32_config(n, H, G * H)
+        plans.add((cfg["block"][0], cfg["splits"]))
+        part = [a[:n] if i in batch_args else a for i, a in enumerate(args)]
+        assert torch.equal(scan(*part, reset_mask=None if plane is None else plane[:n])[0],
+                           ys[:n]), n
+    assert len(plans) == 2 and len({s for _, s in plans}) == 1  # other tiles, one split
+
+
+@pytest.mark.parametrize("M,K,N", [(64, 2304, 6912), (16, 1060, 4240), (100, 9216, 2304),
+                                   (128, 6912, 2304)])
+def test_f32_step_gemm_small_batch_is_the_fma_gemms_bits(cuda, M, K, N):
+    """Up to STEP_SIMT_ROWS rows the step GEMM runs the SIMT kernel; its
+    partial planes are, bit for bit, the FMA GEMM's (kernel_probes_fma.cu's
+    fma_variant on 8 warps) at the same split: each plane sums the same k
+    range by FMA in k order from 0."""
+    import ctypes
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import kernel_probes
+
+    a, w, _ = _fma_operands(M, K, N, cuda, seed=M + N)
+    cfg = k_gru.step_gemm_f32_config(M, K, N)
+    assert cfg["design"] == "simt"
+    got = k_gru.step_gemm_f32(a, w)
+    lib = kernel_probes.fma_lib()
+    plan = (ctypes.c_int * 4)()
+    out = torch.full((cfg["splits"] * M * N,), float("nan"), device=cuda)
+    assert lib.fma_variant(a.data_ptr(), w.data_ptr(), a.data_ptr(), out.data_ptr(), M, K, N, 1,
+                           8, 0, plan, torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert (plan[0], plan[1]) == (8, cfg["splits"])
+    assert torch.equal(got, out.view(cfg["splits"], M, N))
+
+
+def test_f32_fma_gemm_tma_control_fails(cuda):
+    """The f32 FMA GEMM with A's TMA box asked at its two coordinates
+    exchanged (kernel_probes_fma.cu's fma_control, never in the package)
+    must miss the f64 product at the wide projection's and w3's step
+    shapes, where the kernel itself meets it: the tensor maps' coordinates
+    are checked by no compiler, so this shows the check would see them
+    wrong."""
+    import ctypes
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import kernel_probes
+
+    lib = kernel_probes.fma_lib()
+    plan = (ctypes.c_int * 4)()
+    for M, K, N, split in ((4096, 512, 1536, 0), (256, 2304, 6912, 1)):
+        a, w, b = _fma_operands(M, K, N, cuda, seed=K)
+        want = a.double() @ w.double() + (0 if split else b.double())
+        for fn, ok in ((lib.fma_variant, True), (lib.fma_control, False)):
+            out = torch.full((16 * M * N,), float("nan"), device=cuda)
+            assert fn(a.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N, split,
+                      0, 0, plan, torch.cuda.current_stream().cuda_stream) == 0
+            torch.cuda.synchronize()
+            got = out[:plan[1] * M * N].view(plan[1], M, N).sum(0)
+            err = ((got.double() - want).abs().max() / want.abs().max()).item()
+            assert (err <= 1e-5) == ok, (M, K, N, fn.__name__, err)

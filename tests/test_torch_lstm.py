@@ -240,7 +240,7 @@ def test_lstm_launch_configs_at_the_training_shape():
                    "clusters": 32, "grid": 128, "threads": 256, "units_per_cta": 32,
                    "k_slices": 8, "k_slice": 16,
                    "smem_bytes": (4 * 16 * 256 + 2 * 4 * 132 + 4 * 256 * 5) * 4 + 16,
-                   "w_in_regs": 1, "xproj_grid": [528], "xproj_threads": 128}
+                   "w_in_regs": 1}
     small = cuda_lstm.launch_config(64, 200, 64, 64, torch.float32)
     assert (small["cluster_size"], small["rows_per_cluster"], small["units_per_cta"],
             small["k_slices"], small["k_slice"], small["w_in_regs"]) == (4, 4, 16, 16, 4, 0)

@@ -276,9 +276,10 @@ def test_gru_launch_config_at_the_serving_shape():
     warps of 16 units at H=128 with W_h in registers, the h double buffer
     [2][128][8] bf16 (the input projection has a plan of its own,
     `xproj_config`: 128 x 64 tiles over B*T = 12,800 rows and 3H = 384
-    columns, 600 tiles on two CTAs a SM). f32: the persistent f32
-    projection (600 tiles of 64 x 128 on 4 CTAs a SM: 528 CTAs of 128
-    threads), then clusters of 4 CTAs over 4 rows (16 clusters, 64
+    columns, 600 tiles on two CTAs a SM). f32: the f32 projection (its own
+    plan too, `xproj_f32_config`: at D = 128 the SIMT design, 600 tiles of
+    64 x 128 on 4 CTAs a SM: 528 CTAs of 128 threads), then
+    clusters of 4 CTAs over 4 rows (16 clusters, 64
     CTAs), each CTA 32 units of 8 k-slices of 16 (256 threads) with its
     W_h columns (48 KB, and in registers: 48 a thread), the h buffers
     [2][4][132] and the operand ring [4][256][4] f32 in shared memory."""
@@ -292,8 +293,11 @@ def test_gru_launch_config_at_the_serving_shape():
                    "clusters": 16, "grid": 64, "threads": 256, "units_per_cta": 32,
                    "k_slices": 8, "k_slice": 16,
                    "smem_bytes": (3 * 16 * 256 + 2 * 4 * 132 + 4 * 256 * 4) * 4 + 16,
-                   "w_in_regs": 1, "xproj_grid": [528], "xproj_threads": 128}
-    for cfg in (bf16, f32):
+                   "w_in_regs": 1}
+    xp = cuda_gru.xproj_f32_config(64 * 200, 128, 3 * 128, sms=cuda_gru.NUM_SMS)
+    assert (xp["design"], xp["block"], xp["tiles"], xp["grid"], xp["threads"]) == (
+        "simt", [64, 128, 32], 600, 528, 128)
+    for cfg in (bf16, f32, xp):
         assert cfg["smem_bytes"] <= cuda_gru.SMEM_LIMIT
 
 

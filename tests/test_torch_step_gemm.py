@@ -146,9 +146,8 @@ def test_stepped_config_carries_the_gemm(cell, dtype):
         if dtype == torch.bfloat16:
             assert cfg["gemm"] == cuda_gru.step_gemm_config(256, K, N, terms)
         else:
-            assert cfg["gemm"] == {"design": "fma", "grid": [cuda_gru.xproj_f32_grid(256, N)],
-                                   "threads": cuda_gru.F32_PROJ_THREADS, "splits": 1,
-                                   "workspace_bytes": 256 * N * 4}
+            assert cfg["gemm"] == cuda_gru.step_gemm_f32_config(256, K, N)
+            assert cfg["gemm"]["workspace_bytes"] == cfg["gemm"]["splits"] * 256 * N * 4
 
 
 def test_step_gemm_config_refuses_what_the_kernel_cannot_take():
@@ -179,21 +178,28 @@ def _exact_dot(a, b) -> np.ndarray:
     return (np.asarray(a, np.float64) @ np.asarray(b, np.float64)).astype(np.float32)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B", [3, 16])
 @pytest.mark.parametrize("H", [2116, 2304])
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-def test_forward_partials_summed_in_split_order_give_the_gates(cell, H, B):
-    """Forward: the partial planes (split over K as the kernel splits it)
-    summed in split order, then b_h (the GRU's; the gate kernel adds it),
-    through the cell's gate math equal the JAX package's gates on x_proj
-    and the exact h @ W_h rounded to f32, + b_h."""
+def test_forward_partials_summed_in_split_order_give_the_gates(cell, H, B, dtype):
+    """Forward: the partial planes (split over K as the kernel splits it:
+    bf16 the wgmma step GEMM's split, f32 the FMA GEMM's) summed in split
+    order, then b_h (the GRU's; the gate kernel adds it), through the
+    cell's gate math equal the JAX package's gates on x_proj and the exact
+    h @ W_h rounded to f32, + b_h."""
     G = 3 if cell == "gru" else 4
     h, w, _ = _operands(B, G, H, False, seed=H + B + G)
+    if dtype == torch.float32:  # f32 values of the same draw
+        h, w = h.float(), w.float()
+        parts = cuda_gru.step_gemm_f32(h, w)  # a CPU tensor: the plain version
+        assert parts.shape[0] == cuda_gru.step_gemm_f32_config(B, H, G * H)["splits"] > 1
+    else:
+        parts = cuda_gru.step_gemm(h, w, 1)  # a CPU tensor: the plain version
+        assert parts.shape[0] == cuda_gru.step_gemm_config(B, H, G * H, 1)["splits"]
     rng = np.random.default_rng(B)
     x_proj = rng.normal(size=(B, G * H)).astype(np.float32)
     b_h = rng.normal(scale=0.1, size=G * H).astype(np.float32) if cell == "gru" else None
-    parts = cuda_gru.step_gemm(h, w, 1)  # a CPU tensor: the plain version
-    assert parts.shape[0] == cuda_gru.step_gemm_config(B, H, G * H, 1)["splits"]
     hp = cuda_gru.step_product(parts, None if b_h is None else torch.from_numpy(b_h))
     h32 = h.float().numpy()
     want = _exact_dot(h32, w.float().numpy()) + (0.0 if b_h is None else b_h)

@@ -163,12 +163,14 @@ def test_every_config_at_or_below_256_is_unchanged():
     layout and the K split were added (the digest computed on commit
     b1b06fd's tree; recomputed on f74e025's with the bf16 input
     projection's keys taken out of every bf16 forward row, its plan now
-    `cuda_gru.xproj_config`): the new layouts are chosen only above 256."""
+    `cuda_gru.xproj_config`, and on ddc02f9's with the f32 projection's
+    taken out of every f32 forward row, its plan now
+    `cuda_gru.xproj_f32_config`): the new layouts are chosen only above 256."""
     rows = _configs_at_or_below_256()
     assert len(rows) == 4224
     assert all("grid" != c.get("layout") != "k-split" for c in rows)
     digest = hashlib.sha256(json.dumps(rows, sort_keys=True).encode()).hexdigest()
-    assert digest == "0e669eff899dca638d163fc480c98a66cda7d2420ba4cea488e0aea6d178fd8c"
+    assert digest == "ef96ca31295f0b4b23e7b3e2f248b47783578390967fe62898d1dd5d7cd0f4db"
 
 
 # ---------------------------------------------------------------------------

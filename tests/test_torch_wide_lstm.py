@@ -110,10 +110,8 @@ def test_lstm_grid_layout_from_260_to_its_limit(dtype):
             assert fwd["workspace_bytes"] == cuda_gru.GRID_COUNTER + (2 * dtype.itemsize + 4) * plane
             assert bwd["workspace_bytes"] == cuda_gru.GRID_COUNTER + 40 * plane
             assert bwd.get("dz_terms") == (2 if dtype == torch.bfloat16 else None)
-            if dtype == torch.bfloat16:  # the projection's plan is gru.xproj_config's
-                assert "xproj_threads" not in fwd
-            else:
-                assert fwd["xproj_threads"] == cuda_gru.F32_PROJ_THREADS
+            # the projection's plan is its own: gru.xproj_config's, gru.xproj_f32_config's
+            assert "xproj_threads" not in fwd and "xproj_grid" not in fwd
     for call in (lambda H: cuda_lstm.launch_config(8, 5, H, H, dtype),
                  lambda H: cuda_lstm.backward_launch_config(8, 5, H, dtype)):
         past = call(limit + 4)
@@ -143,13 +141,14 @@ def test_every_lstm_config_at_or_below_256_is_unchanged():
     backward_launch_config gave before the grid layout was added (the
     digest computed on commit d90efaf's tree; recomputed on f74e025's with
     the bf16 input projection's keys taken out of every bf16 forward row,
-    its plan now `gru.xproj_config`): the layout is chosen only above
-    256."""
+    its plan now `gru.xproj_config`, and on ddc02f9's with the f32
+    projection's taken out of every f32 forward row, its plan now
+    `gru.xproj_f32_config`): the layout is chosen only above 256."""
     rows = _lstm_configs_at_or_below_256()
     assert len(rows) == 768
     assert all(c.get("layout") != "grid" for c in rows)
     digest = hashlib.sha256(json.dumps(rows, sort_keys=True).encode()).hexdigest()
-    assert digest == "d99f0eac44bb8f702808070f4902e8f5a2b76b76390405adc94c827818aed10b"
+    assert digest == "2afb9fea66d6313e05a5841ec047fdaab4ac57d16612394613e89c94f9935578"
 
 
 # ---------------------------------------------------------------------------
